@@ -1,0 +1,275 @@
+"""Synthetic microservice trace generator with fault injection, numpy
+only (counterpart of ``microrank_tpu/testing/synthetic.py``'s
+``generate_case`` / ``generate_case_with_spans``).
+
+A random service call tree, a small set of trace kinds (pruned
+subtrees), lognormal per-operation own times, inclusive span durations
+(a parent span covers its children), and a latency fault on one
+(operation, pod) in the abnormal window. The random draws are the JAX
+module's, in the same order, so one config and seed give the same spans
+in both packages; where that module returns pandas frames, this one
+returns column arrays and writes the CSV itself (canonical span schema,
+the columns the native loader reads).
+
+Only the latency fault family with the unconstrained fault choice is
+ported (``fault_path_overlap=None``); the error / cascade / drift knobs
+and the timelines serve lanes this package does not have yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+# Epoch of the normal window, as in the JAX generator.
+T0 = np.datetime64("2025-02-14T12:00:00", "us")
+
+CSV_COLUMNS = (
+    "traceID", "spanID", "ParentSpanId", "operationName", "serviceName",
+    "podName", "duration", "startTime", "endTime",
+)
+
+
+@dataclass(frozen=True)
+class SyntheticConfig:
+    n_operations: int = 40
+    n_pods: int = 1            # pods per service (instance-level RCA when >1)
+    n_kinds: int = 8           # distinct trace shapes
+    child_keep_prob: float = 0.8
+    n_traces: int = 200
+    mean_own_ms_range: Tuple[float, float] = (1.0, 20.0)
+    sigma_log: float = 0.3
+    # The detector's expected duration sums inclusive per-span SLOs, so
+    # the injected latency must clear a wide margin.
+    fault_latency_ms: float = 2000.0
+    n_faults: int = 1
+    window_minutes: float = 5.0
+    seed: int = 0
+
+
+def _op_id_width(n_operations: int) -> int:
+    return max(3, len(str(max(n_operations - 1, 0))))
+
+
+def _pod_op_name(op: int, pod: int, n_operations: int) -> str:
+    """The instance-level (PageRank vocab) name of a (service op, pod)."""
+    w = _op_id_width(n_operations)
+    return f"svc{op:0{w}d}-{pod}_op{op:0{w}d}"
+
+
+@dataclass
+class Topology:
+    parent: np.ndarray          # int [n_ops], parent[0] = -1
+    mean_own_ms: np.ndarray     # float [n_ops]
+    kinds: List[np.ndarray]     # each: topo-ordered op ids forming a subtree
+    kind_parent_pos: List[np.ndarray]  # position of op's parent within kind
+
+
+def _make_topology(cfg: SyntheticConfig, rng: np.random.Generator) -> Topology:
+    n = cfg.n_operations
+    parent = np.full(n, -1, dtype=np.int64)
+    for i in range(1, n):
+        parent[i] = rng.integers(0, i)
+    mean_own = rng.uniform(*cfg.mean_own_ms_range, size=n)
+
+    kinds = []
+    kind_parent_pos = []
+    for _ in range(cfg.n_kinds):
+        keep = np.zeros(n, dtype=bool)
+        keep[0] = True
+        for i in range(1, n):
+            keep[i] = keep[parent[i]] and (rng.random() < cfg.child_keep_prob)
+        ops = np.flatnonzero(keep)  # ascending == topological (parent < child)
+        pos = {int(o): j for j, o in enumerate(ops)}
+        ppos = np.array(
+            [pos[int(parent[o])] if parent[o] >= 0 else -1 for o in ops],
+            dtype=np.int64,
+        )
+        kinds.append(ops)
+        kind_parent_pos.append(ppos)
+    return Topology(parent, mean_own, kinds, kind_parent_pos)
+
+
+def _pick_faults(topo: Topology, rng, n_pods: int, n_faults: int):
+    """Fault candidates: ops covered by >= 1 kind, the root excluded."""
+    covered = np.unique(np.concatenate(topo.kinds))
+    candidates = covered[covered != 0]
+    if len(candidates) == 0:
+        candidates = covered
+    n_faults = min(n_faults, len(candidates))
+    fault_ops = rng.choice(candidates, size=n_faults, replace=False)
+    return [(int(op), int(rng.integers(0, n_pods))) for op in fault_ops]
+
+
+def _render_spans(
+    topo: Topology,
+    cfg: SyntheticConfig,
+    rng: np.random.Generator,
+    n_traces: int,
+    t0: np.datetime64,
+    faults: Optional[List[Tuple[int, int]]],
+    trace_prefix: str,
+) -> Dict[str, object]:
+    """One window's spans as column arrays — trace index, op, pod,
+    parent op, duration (us), per-row start / end (epoch us) — plus the
+    trace-id prefix."""
+    kind_of_trace = rng.integers(0, len(topo.kinds), size=n_traces)
+    start_offsets_us = np.sort(
+        rng.uniform(0, cfg.window_minutes * 60e6, size=n_traces)
+    ).astype(np.int64)
+
+    blocks = []
+    for k, ops in enumerate(topo.kinds):
+        t_idx = np.flatnonzero(kind_of_trace == k)
+        if len(t_idx) == 0:
+            continue
+        m = len(ops)
+        mu = np.log(topo.mean_own_ms[ops])
+        own_ms = rng.lognormal(
+            mean=mu[None, :], sigma=cfg.sigma_log, size=(len(t_idx), m)
+        )
+        pods = rng.integers(0, cfg.n_pods, size=(len(t_idx), m))
+        if faults:
+            pos = {int(o): j for j, o in enumerate(ops)}
+            for fault_op, fault_pod in faults:
+                j = pos.get(int(fault_op))
+                if j is not None:
+                    hit = pods[:, j] == fault_pod
+                    own_ms[:, j] += np.where(hit, cfg.fault_latency_ms, 0.0)
+        # Inclusive durations: add each op's total into its parent,
+        # deepest first (ops are topo-ordered).
+        dur_ms = own_ms.copy()
+        ppos = topo.kind_parent_pos[k]
+        for j in range(m - 1, 0, -1):
+            dur_ms[:, ppos[j]] += dur_ms[:, j]
+        nt = len(t_idx)
+        blocks.append(
+            (
+                np.repeat(t_idx, m),
+                np.tile(ops, nt),
+                pods.reshape(-1),
+                (dur_ms.reshape(-1) * 1000.0).astype(np.int64),
+                np.repeat((dur_ms[:, 0] * 1000.0).astype(np.int64), m),
+                np.tile(topo.parent[ops], nt),
+            )
+        )
+    trace, op, pod, dur, root_dur, parent = (
+        np.concatenate([b[i] for b in blocks]) for i in range(6)
+    )
+    start = t0.astype(np.int64) + start_offsets_us[trace]
+    return {
+        "trace": trace,
+        "op": op,
+        "pod": pod,
+        "parent": parent,
+        "duration_us": dur,
+        "start_us": start,
+        "end_us": start + root_dur,
+        "trace_prefix": trace_prefix,
+    }
+
+
+def write_spans_csv(spans: Dict[str, object], path, n_operations: int) -> None:
+    """Write one window's spans as a canonical-schema traces CSV (the
+    row order and values pandas' ``to_csv`` gives the JAX generator's
+    frame; timestamps with microseconds)."""
+    w = _op_id_width(n_operations)
+    prefix = spans["trace_prefix"]
+    start_us, end_us = spans["start_us"], spans["end_us"]
+    # One formatted timestamp per distinct instant, not per row.
+    stamps, inv = np.unique(np.concatenate([start_us, end_us]), return_inverse=True)
+    text = np.char.replace(
+        np.datetime_as_string(stamps.astype("datetime64[us]"), unit="us"), "T", " "
+    ).tolist()
+    n = len(start_us)
+    s_idx, e_idx = inv[:n].tolist(), inv[n:].tolist()
+    trace = spans["trace"].tolist()
+    op = spans["op"].tolist()
+    pod = spans["pod"].tolist()
+    parent = spans["parent"].tolist()
+    dur = spans["duration_us"].tolist()
+    step = 100_000
+    with open(path, "w") as f:
+        f.write(",".join(CSV_COLUMNS) + "\n")
+        for lo in range(0, n, step):
+            lines = []
+            for i in range(lo, min(lo + step, n)):
+                tr = f"{prefix}{trace[i]}"
+                o = op[i]
+                par = f"{tr}-s{parent[i]}" if parent[i] >= 0 else ""
+                lines.append(
+                    f"{tr},{tr}-s{o},{par},op{o:0{w}d},svc{o:0{w}d},"
+                    f"svc{o:0{w}d}-{pod[i]},{dur[i]},{text[s_idx[i]]},"
+                    f"{text[e_idx[i]]}\n"
+                )
+            f.write("".join(lines))
+
+
+@dataclass
+class SyntheticCase:
+    normal: Dict[str, object]
+    abnormal: Dict[str, object]
+    fault_service_op: str     # service-level name of the (first) root cause
+    fault_pod_op: str         # instance-level (PageRank vocab) name
+    fault_op: int
+    fault_pod: int
+    topology: Topology
+    faults: List[Tuple[int, int]] = field(default_factory=list)
+
+    @property
+    def n_operations(self) -> int:
+        return int(self.topology.parent.shape[0])
+
+    @property
+    def n_abnormal_spans(self) -> int:
+        return int(self.abnormal["trace"].shape[0])
+
+    def write_csvs(self, out_dir) -> Tuple[Path, Path]:
+        """Write normal.csv and abnormal.csv into ``out_dir``; returns
+        their paths."""
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        paths = (out / "normal.csv", out / "abnormal.csv")
+        for spans, path in zip((self.normal, self.abnormal), paths):
+            write_spans_csv(spans, path, self.n_operations)
+        return paths
+
+
+def _traces_for_spans(cfg: SyntheticConfig, target_spans: int) -> int:
+    """Trace count whose expected span total is ~``target_spans``."""
+    rng = np.random.default_rng(cfg.seed)
+    topo = _make_topology(cfg, rng)
+    mean_kind = float(np.mean([len(k) for k in topo.kinds]))
+    return max(1, int(round(target_spans / max(mean_kind, 1.0))))
+
+
+def generate_case(cfg: SyntheticConfig) -> SyntheticCase:
+    """One chaos case: a normal window and an abnormal window with the
+    injected latency fault(s)."""
+    rng = np.random.default_rng(cfg.seed)
+    topo = _make_topology(cfg, rng)
+    faults = _pick_faults(topo, rng, cfg.n_pods, cfg.n_faults)
+    t1 = T0 + np.timedelta64(int(cfg.window_minutes * 60e6), "us")
+    normal = _render_spans(topo, cfg, rng, cfg.n_traces, T0, None, "n")
+    abnormal = _render_spans(topo, cfg, rng, cfg.n_traces, t1, faults, "a")
+    fault_op, fault_pod = faults[0]
+    w = _op_id_width(cfg.n_operations)
+    return SyntheticCase(
+        normal=normal,
+        abnormal=abnormal,
+        fault_service_op=f"svc{fault_op:0{w}d}_op{fault_op:0{w}d}",
+        fault_pod_op=_pod_op_name(fault_op, fault_pod, cfg.n_operations),
+        fault_op=fault_op,
+        fault_pod=fault_pod,
+        topology=topo,
+        faults=faults,
+    )
+
+
+def generate_case_with_spans(cfg: SyntheticConfig, target_spans: int) -> SyntheticCase:
+    """A case whose windows hold ~``target_spans`` spans each."""
+    n_traces = _traces_for_spans(cfg, target_spans)
+    return generate_case(SyntheticConfig(**{**cfg.__dict__, "n_traces": n_traces}))
