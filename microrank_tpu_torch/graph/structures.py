@@ -10,7 +10,7 @@ either package's graphs convert into the other's by field name.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
@@ -64,10 +64,6 @@ class PartitionGraph(NamedTuple):
     pc_ell_op: np.ndarray = np.zeros((1, 0), np.int32)
     pc_ell_rs: np.ndarray = np.zeros((1, 0), np.float32)
     cov_i8: np.ndarray = np.zeros((1, 0), np.int8)
-    # Port-only: the row-sorted SpMV layouts (ops.spmv.RowLayout) of the
-    # three transition matrices, (p_sr, p_ss, p_rs), built once per
-    # window by rank_backends.torch_cuda.device_subset. Empty until then.
-    row_layouts: Tuple = ()
 
 
 class WindowGraph(NamedTuple):
@@ -75,6 +71,10 @@ class WindowGraph(NamedTuple):
 
     normal: PartitionGraph
     abnormal: PartitionGraph
+    # Port-only: K1's work list (ops.spmv.SpmvGroup) of both partitions'
+    # three transition matrices, built once per window by
+    # rank_backends.torch_cuda.device_subset. None until then.
+    spmv_group: Optional[Any] = None
 
 
 class DetectBatch(NamedTuple):

@@ -19,7 +19,7 @@ import torch
 from ..graph.structures import PartitionGraph, SloBaseline, WindowGraph
 from ..io.interning import Vocab
 
-_FIELDS = tuple(f for f in PartitionGraph._fields if f != "row_layouts")
+_FIELDS = PartitionGraph._fields
 
 
 def _tensor(value, device) -> torch.Tensor:

@@ -4,9 +4,9 @@
     preference vectors -> 25 power-iteration steps over both partitions
     -> rescale -> spectrum counters -> formula -> tie-broken top-k
 
-Every step's three SpMVs per partition go through K1
-(``ops.spmv.coo_spmv``: the CUDA kernel on the card, its plain version
-on the CPU). The loop issues device work only — no step reads a value
+Every step's six SpMVs (p_sr, p_ss, p_rs of both partitions) go
+through K1 in one call (``ops.spmv.coo_spmv_group``: one launch of the
+CUDA kernel on the card, its plain version on the CPU). The loop issues device work only — no step reads a value
 back — and the caller fetches ``(top_idx, top_scores, n_valid,
 residuals, n_iters)`` in one device-to-host copy (``fetch_rank_outputs``).
 With a convergence ``tol`` the loop still runs ``iterations`` steps,
@@ -29,7 +29,7 @@ import torch
 
 from ..config import KERNELS, PageRankConfig, SpectrumConfig
 from ..graph.structures import PartitionGraph, WindowGraph
-from ..ops.spmv import RowLayout, coo_spmv, row_layout
+from ..ops.spmv import RowLayout, SpmvGroup, coo_spmv_group, row_layout, spmv_group
 from ..spectrum.formulas import spectrum_scores
 
 
@@ -93,10 +93,27 @@ def spmv_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
     )
 
 
+# x slots of a step's group: (rv_n, sv_n, rv_a, sv_a). p_sr reads a
+# partition's rv, p_ss and p_rs its sv.
+STEP_X_SLOTS = (0, 1, 1, 2, 3, 3)
+
+
+def window_spmv_group(graph: WindowGraph) -> SpmvGroup:
+    """K1's work list of one power-iteration step: the three matrices of
+    the normal partition, then of the abnormal one, read from x slots
+    ``STEP_X_SLOTS``."""
+    layouts, n_x = [], []
+    for g in (graph.normal, graph.abnormal):
+        v, t_pad = g.cov_unique.shape[0], g.kind.shape[0]
+        layouts += spmv_layouts(g)
+        n_x += [t_pad, v, v]
+    return spmv_group(layouts, STEP_X_SLOTS, n_x)
+
+
 def _partition_setup(
     g: PartitionGraph, anomaly: bool, cfg: PageRankConfig, kernel: str = "pallas"
 ):
-    """One partition's iteration ingredients: (matvecs, pref, sv0, rv0)."""
+    """One partition's iteration ingredients: (alpha, pref, sv0, rv0)."""
     _check_kernel(kernel)
     dev = g.kind.device
     t_pad = g.kind.shape[0]
@@ -108,24 +125,17 @@ def _partition_setup(
     init = 1.0 / n_total
     sv = torch.where(g.op_present, init, 0.0)
     rv = torch.where(trace_live, init, 0.0)
-    p_sr, p_ss, p_rs = g.row_layouts or spmv_layouts(g)
-
-    def matvecs(sv, rv):
-        return (
-            coo_spmv(p_sr, rv) + alpha * coo_spmv(p_ss, sv),
-            coo_spmv(p_rs, sv),
-        )
-
-    return matvecs, pref, sv, rv
+    return alpha, pref, sv, rv
 
 
-def _partition_step(matvecs, pref, sv, rv, cfg: PageRankConfig, d):
-    """One power-iteration step (pagerank.py:122-127):
+def _partition_step(products, alpha, pref, cfg: PageRankConfig, d):
+    """One power-iteration step (pagerank.py:122-127) from the step's
+    products (p_sr @ rv, p_ss @ sv, p_rs @ sv):
     sv' = d*(p_sr @ rv + alpha * p_ss @ sv);
     rv' = d*(p_rs @ sv) + (1-d) * pref; both max-normalized."""
-    mv_s, mv_r = matvecs(sv, rv)
-    sv_new = d * mv_s
-    rv_new = d * mv_r + (1.0 - d) * pref
+    y_sr, y_ss, y_rs = products
+    sv_new = d * (y_sr + alpha * y_ss)
+    rv_new = d * y_rs + (1.0 - d) * pref
     if cfg.max_normalize_each_iter:
         sv_new = sv_new / sv_new.max()
         rv_new = rv_new / rv_new.max()
@@ -152,8 +162,11 @@ def window_weights_full(
     row 0 is the normal partition, row 1 the abnormal one.
     """
     cfg = pagerank_cfg
-    mv_n, pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
-    mv_a, pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
+    alpha_n, pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
+    alpha_a, pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
+    group = graph.spmv_group
+    if group is None:
+        group = window_spmv_group(graph)
     dev = sv_n.device
     d = _f32(cfg.damping, dev)
     n_steps = int(cfg.iterations)
@@ -165,8 +178,10 @@ def window_weights_full(
 
     def step(carry):
         old_n, old_a = carry
-        new_n = _partition_step(mv_n, pref_n, *old_n, cfg, d)
-        new_a = _partition_step(mv_a, pref_a, *old_a, cfg, d)
+        # One K1 call: all six SpMVs of the step (x slots STEP_X_SLOTS).
+        ys = coo_spmv_group(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
+        new_n = _partition_step(ys[:3], alpha_n, pref_n, cfg, d)
+        new_a = _partition_step(ys[3:], alpha_a, pref_a, cfg, d)
         deltas = torch.stack([part_delta(new_n, old_n), part_delta(new_a, old_a)])
         return (new_n, new_a), deltas
 
@@ -310,13 +325,10 @@ def fetch_rank_outputs(outs):
 
 
 def device_subset(graph: WindowGraph, kernel: str = "pallas") -> WindowGraph:
-    """The graph as the kernel consumes it: each partition caches K1's
-    row layouts (``row_layouts``), built here once per window so the
-    power iteration only launches SpMVs. (JAX's device_subset strips the
+    """The graph as the kernel consumes it: the window caches K1's work
+    list (``spmv_group``), built here once per window so each
+    power-iteration step is one launch. (JAX's device_subset strips the
     fields a kernel never reads before staging; the pallas kernel reads
     the COO arrays, and the native build leaves the other views empty.)"""
     _check_kernel(kernel)
-    return WindowGraph(
-        normal=graph.normal._replace(row_layouts=spmv_layouts(graph.normal)),
-        abnormal=graph.abnormal._replace(row_layouts=spmv_layouts(graph.abnormal)),
-    )
+    return graph._replace(spmv_group=window_spmv_group(graph))

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: K1's CUDA kernel against its plain
-version, and the run lane on the card against the same lane on the CPU.
+version (bitwise: the same arithmetic in the same order), and the run
+lane on the card against the same lane on the CPU.
 
 Every test here needs the card and skips without one (the CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so
@@ -48,6 +49,64 @@ def random_coo(seed, n_live, n_pad, n_rows, n_cols):
     )
 
 
+def step_group(seed, device):
+    """A step-shaped group (six matrices over four x slots, as
+    ``STEP_X_SLOTS``) with a row of many chunks, rows of exactly CHUNK
+    and CHUNK + 1 entries, empty rows and padding; returns the group on
+    ``device``, the same group on the CPU, and the x vectors on both."""
+    from microrank_tpu_torch.rank_backends.torch_cuda import STEP_X_SLOTS
+
+    rng = np.random.default_rng(seed)
+    n_x = (7000, 3000, 3000, 500, 3000, 3000)
+    n_rows = (3000, 3000, 7000, 3000, 3000, 500)
+    host, dev = [], []
+    for m in range(6):
+        lens = rng.integers(0, 60 if m != 1 else 3, n_rows[m])
+        lens[rng.random(n_rows[m]) < 0.1] = 0
+        if m == 0:
+            lens[:3] = (7000, spmv.CHUNK, spmv.CHUNK + 1)
+        rows = rng.permutation(np.repeat(np.arange(n_rows[m]), lens))
+        n_live = rows.shape[0]
+        pad = np.zeros(33, np.int64)
+        arrays = (
+            np.concatenate([rows, pad]).astype(np.int32),
+            np.concatenate([rng.integers(0, n_x[m], n_live), pad]).astype(np.int32),
+            np.concatenate([rng.uniform(0.01, 1.0, n_live), pad]).astype(np.float32),
+        )
+        t = [torch.from_numpy(a) for a in arrays]
+        host.append(spmv.row_layout(*t, n_rows[m], n_live))
+        dev.append(spmv.row_layout(*(a.to(device) for a in t), n_rows[m], n_live))
+    xs = [torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+          for n in (7000, 3000, 500, 3000)]
+    return (
+        spmv.spmv_group(dev, STEP_X_SLOTS, n_x),
+        spmv.spmv_group(host, STEP_X_SLOTS, n_x),
+        [x.to(device) for x in xs],
+        xs,
+    )
+
+
+def test_group_kernel_matches_cpu_plain_bitwise(cuda_device):
+    group, cpu_group, xs, cpu_xs = step_group(3, cuda_device)
+    assert group.max_chunks >= 28  # the 7,000-entry row
+    before = (spmv.coo_spmv.launches, spmv.coo_spmv.spmvs)
+    ys = spmv.coo_spmv_group(group, xs)
+    torch.cuda.synchronize()
+    assert (spmv.coo_spmv.launches, spmv.coo_spmv.spmvs) == (before[0] + 1, before[1] + 6)
+    for y, ref in zip(ys, spmv.coo_spmv_group_plain(cpu_group, cpu_xs)):
+        assert torch.equal(y.cpu(), ref)
+    assert not group.counters.any()  # every arrival counter reset
+
+
+def test_group_kernel_repeatable_over_50_launches(cuda_device):
+    group, _, xs, _ = step_group(4, cuda_device)
+    first = torch.cat(spmv.coo_spmv_group(group, xs)).clone()
+    outs = [torch.cat(spmv.coo_spmv_group(group, xs)) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, first) for y in outs)
+    assert not group.counters.any()
+
+
 @pytest.mark.parametrize("seed,n_live,n_pad,n_rows,n_cols", [
     (0, 1500, 37, 77, 50),
     (1, 30001, 499, 300, 1000),
@@ -72,8 +131,12 @@ def test_wrapper_rejects_bad_cuda_inputs(cuda_device):
     lay = spmv.row_layout(rows, rows.clone(), torch.ones(2, device=cuda_device), 2)
     with pytest.raises(ValueError, match="float32"):
         spmv.coo_spmv(lay, torch.ones(2, dtype=torch.float64, device=cuda_device))
-    with pytest.raises(ValueError, match="indptr"):
-        spmv.coo_spmv(lay._replace(indptr=lay.indptr.cpu()), torch.ones(2, device=cuda_device))
+    group = spmv.spmv_group([lay], (0,), (2,))
+    x = torch.ones(2, device=cuda_device)
+    with pytest.raises(ValueError, match="group's tensors"):
+        spmv.coo_spmv_group(group._replace(items=group.items.cpu()), (x,))
+    with pytest.raises(ValueError, match="2 floats"):
+        spmv.coo_spmv_group(group, (torch.ones(3, device=cuda_device),))
 
 
 @pytest.mark.parametrize("collapse", ["auto", "off"])
@@ -83,10 +146,12 @@ def test_run_lane_on_cuda_matches_cpu(cuda_device, collapse, tmp_path):
     case = generate_case(CASE)
     normal, abnormal = case.write_csvs(tmp_path)
     cfg = MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse))
-    spmv.coo_spmv.launches = 0
+    spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
     ranked = [r for r in gpu if r.ranking]
-    assert spmv.coo_spmv.launches == 150 * len(ranked) > 0
+    # One launch per power-iteration step, six SpMVs in each.
+    assert spmv.coo_spmv.launches == 25 * len(ranked) > 0
+    assert spmv.coo_spmv.spmvs == 150 * len(ranked)
     assert ranked[0].ranking[0][0] == case.fault_pod_op
     cpu = run_rca_native(normal, abnormal, cfg, device="cpu")
     for g, c in zip(gpu, cpu):
