@@ -7,34 +7,51 @@
 It drives only the port (``microrank_tpu_torch``) and imports nothing of
 JAX or of the JAX package. Phases, one JSON line each:
 
-1. env     — the card, its power limit, the kernels built from the
-             sources in this checkout (nvcc for ``csrc/coo_spmv.cu``,
-             g++ for the native span loader / graph builder, both at
-             once), and one tiny launch of K1 (a row of several chunks,
-             empty rows, padding) held bitwise against its plain
-             version;
-2. data    — one detection window at bench.py's config-5 scale
-             (1,000,000 spans, 5,000 operations, 100 trace kinds,
-             child_keep_prob 0.55, 60 s fault, seed 0) from the port's
-             own generator;
-3. run     — ``run_rca_native(..., device="cuda")`` with
-             collapse_kinds "auto" (as users run it) and "off" (K1 sees
-             every entry): top-1 is the injected fault, K1 launches once
-             per power-iteration step (25 per ranked window) and computes
-             2 partitions x 3 SpMVs in each launch (150 per ranked
-             window), and the CUDA run agrees tie-aware (rtol 1e-5) with
-             the same run on the CPU;
-4. kernel  — K1 at the shapes of phase 3. Per matrix (groups of one, at
-             the uncollapsed shapes) and per step (the grouped launch of
-             all six matrices, at the uncollapsed and the collapsed
-             shapes): bitwise equal to its plain version computed on the
-             CPU, bitwise repeatable over 50 launches with every arrival
-             counter back at 0, and timed (torch.profiler device time)
-             beside the plain version, torch.sparse_csr_tensor matvecs (a
-             yardstick the port never calls), the byte bound at
-             3.35 TB/s, and the first, warp-per-row design of the kernel
-             (``mr_coo_spmv_rows``), timed in turns with the chunked one
-             (first, chunked, chunked, first).
+1. env      — the card, its power limit, the kernels built from the
+              sources in this checkout (nvcc for ``csrc/coo_spmv.cu`` and
+              ``csrc/pattern_pair.cu``, g++ for the native span loader /
+              graph builder, all at once), and one tiny launch of K1 (a
+              row of several chunks, empty rows, padding) and of the
+              pattern pair (bits and int8, f32 and bf16, ragged edges)
+              held bitwise against their plain versions;
+2. data     — one detection window at bench.py's config-5 scale
+              (1,000,000 spans, 5,000 operations, 100 trace kinds,
+              child_keep_prob 0.55, 60 s fault, seed 0) from the port's
+              own generator;
+3. run      — ``run_rca_native(..., device="cuda")`` with the pinned
+              ``kernel="pallas"``, collapse_kinds "auto" and "off": top-1
+              is the injected fault, K1 launches once per power-iteration
+              step (25 per ranked window) and computes 2 partitions x 3
+              SpMVs in each launch (150 per ranked window), and the CUDA
+              run agrees tie-aware (rtol 1e-5) with the same run on the
+              CPU;
+4. run      — the same with the default ``kernel="auto"``: collapse
+              "auto" resolves to ``kind`` (K2), "off" to ``packed_bf16``
+              (K4). Per ranked window 25 pattern-pair launches and 25 K1
+              launches of 2 SpMVs (the call-graph terms); tie-aware
+              agreement with the CPU run at rtol 1e-5 (kind, f32) or
+              5e-3 (packed_bf16), the same top-1 and n_iters;
+5. kernel   — K1 at the shapes of phase 3. Per matrix (groups of one, at
+              the uncollapsed shapes) and per step (the grouped launch of
+              all six matrices, at the uncollapsed and the collapsed
+              shapes): bitwise equal to its plain version computed on the
+              CPU, bitwise repeatable over 50 launches with every arrival
+              counter back at 0, and timed (torch.profiler device time)
+              beside the plain version, torch.sparse_csr_tensor matvecs (a
+              yardstick the port never calls), the byte bound at
+              3.35 TB/s, and the first, warp-per-row design of the kernel
+              (``mr_coo_spmv_rows``), timed in turns with the chunked one
+              (first, chunked, chunked, first);
+6. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4) and
+              K4 (packed and packed_bf16, uncollapsed): one launch per
+              step for both partitions, bitwise equal to its plain
+              version computed on the CPU and within rtol 1e-6 of it run
+              on the card, bitwise repeatable over 50 launches, equal
+              rows and equal columns of a constructed pattern giving
+              equal bits, and timed beside the plain version, the pair of
+              torch.matmul calls over the loop-invariant cast matrix
+              (what JAX computes; a yardstick the port never calls) and
+              the byte bound.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -67,9 +84,13 @@ F32_FLOPS_PER_S = 67e12
 # CPU run (other reductions around K1 sum in another order).
 KERNEL_RTOL = 1e-6
 RUN_RTOL = 1e-5
+RUN_RTOL_BF16 = 5e-3  # bf16 operands (packed_bf16, kind_precision="bf16")
 STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
-SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step
+SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
+SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
 REPEATS = 50  # back-to-back launches that must give the first one's bits
+# What kernel="auto" resolves to at the config-5 window, per collapse mode.
+AUTO_KERNEL = {"auto": "kind", "off": "packed_bf16"}
 
 
 def emit(obj) -> None:
@@ -93,9 +114,56 @@ def power_line() -> str:
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def phase_env(torch, spmv, native):
-    # Build both libraries from the checkout's sources, in parallel.
-    for lib in (spmv.LIB_PATH, native.LIB_PATH):
+def tiny_pattern_checks(torch, pattern, dev):
+    """First launches of the pattern pair: small ragged patterns (bits
+    and int8, a last partial byte, rows past a chunk) against the plain
+    version on the CPU, bitwise. Returns the number of cases."""
+    g = torch.Generator().manual_seed(1)
+    n = 0
+    for bits in (True, False):
+        for bf16 in (False, True):
+            parts = []
+            for v, k in ((300, 61), (7, 9)):
+                m = (torch.rand((v, k), generator=g) < 0.4).to(torch.uint8)
+                if bits:
+                    pad = torch.zeros((v, -k % 8), dtype=torch.uint8)
+                    cells = torch.cat([m, pad], 1).view(v, -1, 8)
+                    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8)
+                    pat = (cells * weights).sum(-1, dtype=torch.uint8)
+                else:
+                    pat = m.to(torch.int8)
+                vecs = [torch.rand(n_, generator=g) for n_ in (k, v, v, k, v)]
+                parts.append((pat, k, vecs))
+
+            def group(on):
+                return pattern.pattern_group(
+                    [p.to(on) for p, _, _ in parts],
+                    [w[0].to(on) for _, _, w in parts],
+                    [w[1].to(on) for _, _, w in parts],
+                    [w[2].to(on) for _, _, w in parts],
+                    [k for _, k, _ in parts], bits,
+                )
+
+            outs = pattern.pattern_pair_group(
+                group(dev), [w[3].to(dev) for _, _, w in parts],
+                [w[4].to(dev) for _, _, w in parts], bf16,
+            )
+            torch.cuda.synchronize()
+            ref = pattern.pattern_pair_plain(
+                group("cpu"), [w[3] for _, _, w in parts], [w[4] for _, _, w in parts], bf16
+            )
+            for got, want in zip(outs, ref):
+                for a, b in zip(got, want):
+                    check(torch.equal(a.cpu(), b),
+                          f"tiny pattern-pair launch (bits={bits}, bf16={bf16}) "
+                          "differs from its plain version")
+            n += 1
+    return n
+
+
+def phase_env(torch, spmv, pattern, native):
+    # Build the three libraries from the checkout's sources, in parallel.
+    for lib in (spmv.LIB_PATH, pattern.LIB_PATH, native.LIB_PATH):
         lib.unlink(missing_ok=True)
 
     def timed(fn):
@@ -103,12 +171,15 @@ def phase_env(torch, spmv, native):
         report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         f_cuda = pool.submit(timed, spmv.build_library)
+        f_pattern = pool.submit(timed, pattern.build_library)
         f_host = pool.submit(timed, native.build_library)
         cuda_s, ptxas = f_cuda.result()
+        pattern_s, ptxas_pattern = f_pattern.result()
         host_s, _ = f_host.result()
     spmv.load_library()
+    pattern.load_library()
 
     # First launch: a tiny ragged matrix (empty rows, a 700-entry row of
     # three chunks, padding) against the plain version, before anything
@@ -129,6 +200,7 @@ def phase_env(torch, spmv, native):
     y_cpu = spmv.coo_spmv_plain(spmv.row_layout(rows, cols, vals, 37, 1000), x)
     tiny_bitwise = bool(torch.equal(y.cpu(), y_cpu))
     check(tiny_bitwise, "tiny K1 launch differs from its plain version")
+    n_pattern = tiny_pattern_checks(torch, pattern, dev)
     return {
         "phase": "env",
         "device": torch.cuda.get_device_name(0),
@@ -137,9 +209,14 @@ def phase_env(torch, spmv, native):
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "python": sys.version.split()[0],
-        "build_s": {"nvcc_coo_spmv": round(cuda_s, 3), "gxx_native": round(host_s, 3)},
+        "build_s": {"nvcc_coo_spmv": round(cuda_s, 3),
+                    "nvcc_pattern_pair": round(pattern_s, 3),
+                    "gxx_native": round(host_s, 3)},
         "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas" in ln],
+        "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
+                               if "ptxas" in ln],
         "tiny_launch_bitwise_vs_plain": tiny_bitwise,
+        "tiny_pattern_cases_bitwise_vs_plain": n_pattern,
     }
 
 
@@ -190,6 +267,8 @@ def graph_shapes(graph):
             "C": int(p.n_ss),
             "traces": int(p.n_traces),
             "cols": int(p.n_cols),
+            "cov_bits_bytes": int(p.cov_bits.size),
+            "cov_i8_bytes": int(p.cov_i8.size),
         }
     return out
 
@@ -220,7 +299,8 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
     """One ranked window again, through the lane's own seams, one stage
     at a time with the device drained between stages: where a window's
     wall time goes, and how busy the device is while the rank program
-    runs. Returns (host graph, stage ms, device ms of the rank stage)."""
+    runs. Returns (host graph, resolved kernel, stage ms, device ms of
+    the rank stage)."""
     import numpy as np
 
     from microrank_tpu_torch.native import load_span_table
@@ -229,6 +309,7 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
     from microrank_tpu_torch.rank_backends.torch_cuda import (
         device_subset,
         fetch_rank_outputs,
+        host_subset,
         rank_window_traced_core,
     )
 
@@ -251,7 +332,7 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
     graph, _, kernel = stage(
         "build", lambda: rca.prepare_rank(table, mask, nrm, abn, rng)
     )
-    dgraph = stage("h2d", lambda: graph_from_numpy(graph, rca.device))
+    dgraph = stage("h2d", lambda: graph_from_numpy(host_subset(graph, kernel), rca.device))
     dgraph = stage("layouts", lambda: device_subset(dgraph, kernel))
 
     def rank():
@@ -260,75 +341,94 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
     outs = stage("rank_issue_and_run", rank)
     stage("fetch", lambda: fetch_rank_outputs(outs))
     rank_device = device_ms(torch, rank, 3)
-    return graph, ms, rank_device
+    return graph, kernel, ms, rank_device
 
 
-def phase_run(torch, spmv, case, normal, abnormal, collapse):
+def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel):
+    """One run of the lane with ``kernel`` ("pallas", or "auto" resolving
+    to AUTO_KERNEL[collapse]) on the card and on the CPU. Returns (host
+    graph, launch counts of the warm CUDA run, info)."""
     from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import run_rca_native
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
-    cfg = MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse))
-    walls, launches, spmvs, res_gpu = [], [], [], None
+    cfg = MicroRankConfig(runtime=RuntimeConfig(kernel=kernel, collapse_kinds=collapse))
+    want = kernel if kernel != "auto" else AUTO_KERNEL[collapse]
+    tag = f"kernel={kernel}, collapse={collapse}"
+    walls, counts, res_gpu = [], [], None
     for _ in ("cold", "warm"):
         torch.cuda.synchronize()
         spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
+        pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
         t0 = time.perf_counter()
         res_gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches.append(spmv.coo_spmv.launches)
-        spmvs.append(spmv.coo_spmv.spmvs)
+        counts.append({
+            "k1_launches": spmv.coo_spmv.launches,
+            "k1_spmvs": spmv.coo_spmv.spmvs,
+            "pattern_launches": pattern.pattern_pair_group.launches,
+            "pattern_products": pattern.pattern_pair_group.products,
+        })
 
     t0 = time.perf_counter()
     res_cpu = run_rca_native(normal, abnormal, cfg, device="cpu")
     cpu_s = time.perf_counter() - t0
 
     ranked = [r for r in res_gpu if r.ranking]
-    check(ranked, f"collapse={collapse}: no window was ranked")
-    for n, m in zip(launches, spmvs):
-        check(
-            n == STEPS * len(ranked) and m == STEPS * SPMVS_PER_STEP * len(ranked),
-            f"collapse={collapse}: K1 launched {n} times for {m} SpMVs in "
-            f"{len(ranked)} ranked windows (want {STEPS} launches and "
-            f"{STEPS * SPMVS_PER_STEP} SpMVs each)",
-        )
+    check(ranked, f"{tag}: no window was ranked")
+    kernels = sorted({r.kernel for r in ranked})
+    check(kernels == [want], f"{tag}: ranked with {kernels}, want {want}")
+    n = len(ranked)
+    if want == "pallas":
+        expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SPMVS_PER_STEP * n,
+                  "pattern_launches": 0, "pattern_products": 0}
+    else:
+        expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SS_SPMVS_PER_STEP * n,
+                  "pattern_launches": STEPS * n, "pattern_products": STEPS * 4 * n}
+    for c in counts:
+        check(c == expect, f"{tag}: launch counts {c} in {n} ranked windows, want {expect}")
     top1 = ranked[0].ranking[0][0]
-    check(
-        top1 == case.fault_pod_op,
-        f"collapse={collapse}: top-1 {top1} is not the fault {case.fault_pod_op}",
-    )
+    check(top1 == case.fault_pod_op, f"{tag}: top-1 {top1} is not the fault {case.fault_pod_op}")
+    rtol = RUN_RTOL_BF16 if want == "packed_bf16" else RUN_RTOL
     check(len(res_cpu) == len(res_gpu), "CPU and CUDA runs saw different windows")
     for rg, rc in zip(res_gpu, res_cpu):
         check(
-            (rg.start, rg.anomaly, rg.n_normal, rg.n_abnormal)
-            == (rc.start, rc.anomaly, rc.n_normal, rc.n_abnormal),
-            f"window {rg.start}: detection differs between CUDA and CPU runs",
+            (rg.start, rg.anomaly, rg.n_normal, rg.n_abnormal, rg.kernel)
+            == (rc.start, rc.anomaly, rc.n_normal, rc.n_abnormal, rc.kernel),
+            f"window {rg.start}: detection or kernel differs between CUDA and CPU runs",
         )
         ok, why = tie_aware_topk_agreement(
-            [n for n, _ in rg.ranking], [s for _, s in rg.ranking],
-            [n for n, _ in rc.ranking], [s for _, s in rc.ranking],
-            k=len(rg.ranking), rtol=RUN_RTOL,
+            [n_ for n_, _ in rg.ranking], [s for _, s in rg.ranking],
+            [n_ for n_, _ in rc.ranking], [s for _, s in rc.ranking],
+            k=len(rg.ranking), rtol=rtol,
         )
         check(ok, f"window {rg.start}: CUDA vs CPU ranking: {why}")
         check(rg.rank_iterations == rc.rank_iterations, "n_iters differ")
+        if rg.ranking:
+            check(rg.ranking[0][0] == rc.ranking[0][0], "top-1 differs between CUDA and CPU")
 
-    graph, stages, rank_device = window_breakdown(
+    graph, _, stages, rank_device = window_breakdown(
         torch, cfg, normal, abnormal, ranked[0].start
     )
     rank_wall = stages["rank_issue_and_run"]
-    return graph, sum(launches), {
+    return graph, counts[-1], {
         "phase": "run",
+        "kernel": kernel,
+        "resolved_kernel": want,
         "collapse_kinds": collapse,
         "windows": len(res_gpu),
-        "ranked": len(ranked),
+        "ranked": n,
+        "kind_dedup": ranked[0].kind_dedup,
         "shapes": graph_shapes(graph),
         "top5": ranked[0].ranking[:5],
         "top1_is_fault": True,
-        "k1_launches_per_run": launches,
-        "k1_launches_per_ranked_window": launches[-1] // len(ranked),
-        "k1_spmvs_per_ranked_window": spmvs[-1] // len(ranked),
+        "launches_per_run": counts,
+        "k1_launches_per_ranked_window": counts[-1]["k1_launches"] // n,
+        "k1_spmvs_per_ranked_window": counts[-1]["k1_spmvs"] // n,
+        "pattern_launches_per_ranked_window": counts[-1]["pattern_launches"] // n,
         "cuda_vs_cpu_tie_aware": True,
+        "cuda_vs_cpu_rtol": rtol,
         "rank_iterations": ranked[0].rank_iterations,
         "cuda_wall_s_per_window": {
             "cold": round(walls[0] / len(res_gpu), 4),
@@ -511,6 +611,192 @@ def phase_kernel(torch, spmv, graphs, reps):
     return per_matrix, per_step
 
 
+def pattern_inputs(torch, graph, kernel, gen):
+    """The pattern-pair group of a graph as the main path stages it
+    (both partitions), with random rv / sv vectors."""
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+
+    dev = torch.device("cuda")
+    dgraph = device_subset(graph_from_numpy(host_subset(graph, kernel), dev), kernel)
+    group = dgraph.pattern_group
+    rvs = [torch.rand(p.n_cols, generator=gen, device=dev) for p in group.parts]
+    svs = [torch.rand(p.pattern.shape[0], generator=gen, device=dev) for p in group.parts]
+    return group, rvs, svs
+
+
+def on_cpu(torch, pattern, group):
+    """The same group rebuilt on the CPU (with the plain version's dense
+    matrices)."""
+    return pattern.pattern_group(
+        [p.pattern.cpu() for p in group.parts], [p.w_len.cpu() for p in group.parts],
+        [p.w_cov.cpu() for p in group.parts],
+        [None if p.w_out is None else p.w_out.cpu() for p in group.parts],
+        [p.n_cols for p in group.parts], group.bits,
+    )
+
+
+def with_equal_rows_and_columns(torch, pattern, group):
+    """A copy of the group whose patterns have row V/2 equal to row 0
+    and the last column equal to column 1. Returns (group, pairs of
+    (row, row) and (col, col) that must give equal bits)."""
+    import numpy as np
+
+    pats, pairs = [], []
+    for p in group.parts:
+        m = pattern.dense_pattern(p.pattern, p.n_cols, group.bits).cpu().numpy().astype(np.uint8)
+        v, k = m.shape
+        m[v // 2] = m[0]
+        m[:, k - 1] = m[:, 1]
+        pat = np.packbits(m, axis=1) if group.bits else m.astype(np.int8)
+        pats.append(torch.from_numpy(pat).to(p.pattern.device))
+        pairs.append(((0, v // 2), (1, k - 1)))
+    eq = pattern.pattern_group(
+        pats, [p.w_len for p in group.parts], [p.w_cov for p in group.parts],
+        [p.w_out for p in group.parts], [p.n_cols for p in group.parts], group.bits,
+    )
+    return eq, pairs
+
+
+def pattern_bound(group, nnz):
+    """(bytes, bytes ms, operations ms) of one pair call: each pattern
+    read once (the int8 matrix or the bitmap), rv, w_len, sv, w_cov (and
+    w_out) read once, y_fwd, y_bwd (and x_ss) written once; one add per
+    set cell and direction, plus the operand products."""
+    nbytes, ops = 0, 0
+    for p, n in zip(group.parts, nnz):
+        v, k = p.pattern.shape[0], p.n_cols
+        ss = 0 if p.w_out is None else v  # w_out read, x_ss written
+        nbytes += p.pattern.numel() + 4 * (2 * k + 2 * v + ss) + 4 * (v + k + ss)
+        ops += 2 * n + k + v + ss
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+
+
+def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps):
+    """Check and time one pattern-pair call (both partitions) on the
+    card."""
+    calls0 = pattern.pattern_pair_group.launches
+    outs = pattern.pattern_pair_group(group, rvs, svs, bf16)
+    torch.cuda.synchronize()
+    flat = lambda o: torch.cat([t for pair in o for t in pair if t is not None])  # noqa: E731
+    first = flat(outs)
+    cpu_group = on_cpu(torch, pattern, group)
+    ref = pattern.pattern_pair_plain(cpu_group, [r.cpu() for r in rvs], [s.cpu() for s in svs], bf16)
+    bitwise = torch.equal(first.cpu(), flat(ref))
+    check(bitwise, f"{name}: the pattern pair differs from its plain version on the CPU")
+    again = [flat(pattern.pattern_pair_group(group, rvs, svs, bf16)) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, first) for a in again),
+          f"{name}: not bitwise repeatable over {REPEATS} launches")
+    check(not any(bool(p.counters.any()) for p in group.parts),
+          f"{name}: arrival counters left non-zero")
+    eq, pairs = with_equal_rows_and_columns(torch, pattern, group)
+    eq_outs = pattern.pattern_pair_group(eq, rvs, svs, bf16)
+    torch.cuda.synchronize()
+    for (y_fwd, y_bwd, _), ((r0, r1), (c0, c1)) in zip(eq_outs, pairs):
+        check(bool(y_fwd[r0] == y_fwd[r1]) and bool(y_bwd[c0] == y_bwd[c1]),
+              f"{name}: equal rows or columns give different bits")
+
+    plain = lambda: pattern.pattern_pair_plain(group, rvs, svs, bf16)  # noqa: E731
+    y_plain = flat(plain())
+    diff = (first - y_plain).abs()
+    abs_err = float(diff.max()) if diff.numel() else 0.0
+    rel_err = float((diff / y_plain.abs().clamp_min(1e-30)).max()) if diff.numel() else 0.0
+    check(rel_err <= KERNEL_RTOL, f"{name}: rel err {rel_err} > {KERNEL_RTOL}")
+
+    # The library form JAX computes: the loop-invariant cast matrix and a
+    # pair of matmuls per partition (a yardstick the port never calls).
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    mats, operands, nnz = [], [], []
+    for p, rv, sv in zip(group.parts, rvs, svs):
+        m = pattern.dense_pattern(p.pattern, p.n_cols, group.bits)
+        nnz.append(int(m.sum()))
+        mats.append(m.to(dtype))
+        operands.append(((rv * p.w_len).to(dtype), (sv * p.w_cov).to(dtype)))
+    library = lambda: [(m @ a, b @ m) for m, (a, b) in zip(mats, operands)]  # noqa: E731
+    lib_out = torch.cat([torch.cat([f.float(), b.float()]) for f, b in library()])
+    ours = torch.cat([torch.cat([f, b]) for f, b, _ in outs])
+    lib_rel = float(((lib_out - ours).abs() / ours.abs().clamp_min(1e-30)).max())
+
+    calls = {
+        "kernel": lambda: pattern.pattern_pair_group(group, rvs, svs, bf16),
+        "plain": plain,
+        "library": library,
+    }
+    turns = [(k, device_ms(torch, calls[k], 20)) for k in ("library", "kernel", "kernel", "library")]
+    dev_ms = {k: [t for kk, t in turns if kk == k] for k in ("kernel", "library")}
+    dev_ms["plain"] = [device_ms(torch, plain, 5)]
+    issue_ms = {k: _time_ms(torch, f, reps) for k, f in calls.items() if k != "plain"}
+    issue_ms["plain"] = _time_ms(torch, plain, 5)
+    ms, timed_by = {}, {}
+    for k, v in dev_ms.items():
+        got = [t for t in v if t is not None]
+        ms[k] = sum(got) / len(got) if got else issue_ms[k]
+        timed_by[k] = "profiler" if got else "cuda_events"
+    nbytes, bytes_ms, ops_ms = pattern_bound(group, nnz)
+    return {
+        "name": name,
+        "layout": "bits" if group.bits else "int8",
+        "bf16": bf16,
+        "n_rows": [p.pattern.shape[0] for p in group.parts],
+        "n_cols": [p.n_cols for p in group.parts],
+        "pattern_bytes": [p.pattern.numel() for p in group.parts],
+        "set_cells": nnz,
+        "launches_during_checks": pattern.pattern_pair_group.launches - calls0,
+        "ms": round(ms["kernel"], 6),
+        "plain_ms": round(ms["plain"], 6),
+        "library_ms": round(ms["library"], 6),
+        "turns_ms": [[k, None if t is None else round(t, 6)] for k, t in turns],
+        "timed_by": timed_by,
+        "issue_bound_ms": {k: round(v, 6) for k, v in issue_ms.items()},
+        "bound_ms": round(max(bytes_ms, ops_ms), 6),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes,
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "library_max_rel_diff": lib_rel,
+        "bitwise_vs_cpu_plain": bitwise,
+        "bitwise_repeatable_launches": REPEATS,
+        "equal_rows_and_columns_bitwise": True,
+    }
+
+
+def pattern_sweep(torch, pattern):
+    """Where K4's time goes: one-partition bitmaps of 30% density at
+    shapes that isolate the two walks — the full normal partition
+    (3072 x 7168); few rows (64 x 7168: the fwd's 28 column rounds, a bwd
+    of one chunk and no fold); few columns (3072 x 256: one fwd round,
+    the bwd's 48 chunks and their fold). Device ms per call."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(2)
+    out = []
+    for v, k in ((3072, 7168), (64, 7168), (3072, 256), (64, 256)):
+        m = torch.rand((v, (k + 7) // 8 * 8), generator=gen, device="cuda") < 0.3
+        weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device="cuda")
+        bits = (m.view(v, -1, 8).to(torch.uint8) * weights).sum(-1, dtype=torch.uint8)
+        vec = lambda n: torch.rand(n, generator=gen, device="cuda")  # noqa: E731
+        group = pattern.pattern_group([bits], [vec(k)], [vec(v)], [vec(v)], [k], True)
+        rv, sv = vec(k), vec(v)
+        ms = device_ms(torch, lambda: pattern.pattern_pair_group(group, [rv], [sv], True), 20)
+        out.append({"rows": v, "cols": k, "ms": None if ms is None else round(ms, 6)})
+    return out
+
+
+def phase_pattern(torch, pattern, graphs, reps):
+    """K2 at the collapsed shapes (f32, bf16) and K4 at the uncollapsed
+    ones (packed, packed_bf16): one pair call per step for both
+    partitions."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(1)
+    out = {}
+    group, rvs, svs = pattern_inputs(torch, graphs["auto/auto"], "kind", gen)
+    for bf16 in (False, True):
+        name = f"kind_{'bf16' if bf16 else 'f32'}"
+        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps)
+    group, rvs, svs = pattern_inputs(torch, graphs["auto/off"], "packed", gen)
+    for bf16 in (False, True):
+        name = "packed_bf16" if bf16 else "packed"
+        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spans", type=int, default=1_000_000)
@@ -534,28 +820,37 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from microrank_tpu_torch import native
-    from microrank_tpu_torch.ops import spmv
+    from microrank_tpu_torch.ops import pattern, spmv
 
     phase = "env"
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "bench_data"
                                     if (ROOT / "bench_data").is_dir() else ROOT))
     try:
-        env = phase_env(torch, spmv, native)
+        env = phase_env(torch, spmv, pattern, native)
         emit(env)
         phase = "data"
         case, normal, abnormal, data = phase_data(args, workdir)
         emit(data)
         phase = "run"
-        launches, graphs = 0, {}
-        for collapse in ("auto", "off"):
-            graph, n, info = phase_run(torch, spmv, case, normal, abnormal, collapse)
-            launches += n
-            graphs[collapse] = graph
-            emit(info)
+        launches, graphs = {}, {}
+        for kernel in ("pallas", "auto"):
+            for collapse in ("auto", "off"):
+                graph, counts, info = phase_run(
+                    torch, spmv, pattern, case, normal, abnormal, collapse, kernel
+                )
+                launches[f"{kernel}/{collapse}"] = counts
+                graphs[f"{kernel}/{collapse}"] = graph
+                emit(info)
         phase = "kernel"
-        per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
+        per_matrix, per_step = phase_kernel(
+            torch, spmv, {c: graphs[f"pallas/{c}"] for c in ("auto", "off")}, args.reps
+        )
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
               "rtol": KERNEL_RTOL})
+        phase = "pattern"
+        pairs = phase_pattern(torch, pattern, graphs, args.reps)
+        emit({"phase": "pattern", "per_step": pairs, "rtol": KERNEL_RTOL,
+              "packed_bf16_sweep": pattern_sweep(torch, pattern)})
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         traceback.print_exc()
@@ -564,22 +859,58 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     step = per_step["off"]
-    emit({"kernels": [{
-        "name": "coo_spmv",
-        "route": "cuda",
-        "source": "microrank_tpu_torch/csrc/coo_spmv.cu",
-        "replaces": "microrank_tpu/ops/pallas_spmv.py:95",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in [*per_matrix, *per_step.values()]),
-        # Times are one power-iteration step (one launch, six SpMVs: p_sr,
-        # p_ss, p_rs of both partitions) at the uncollapsed config-5
-        # shapes; library_ms is six CSR matvecs.
-        "ms": step["ms"],
-        "plain_ms": step["plain_ms"],
-        "bound_ms": step["bound_ms"],
-        "bound_by": step["bound_by"],
-        "library_ms": step["library_ms"],
-    }]})
+    kind, packed = pairs["kind_f32"], pairs["packed_bf16"]
+    emit({"kernels": [
+        {
+            "name": "coo_spmv",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/coo_spmv.cu",
+            "replaces": "microrank_tpu/ops/pallas_spmv.py:95",
+            # Every run's K1 launches: the pinned pallas runs (six SpMVs
+            # a launch) and the auto runs (the two call-graph terms).
+            "launches": sum(c["k1_launches"] for c in launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in [*per_matrix, *per_step.values()]),
+            # Times are one power-iteration step (one launch, six SpMVs:
+            # p_sr, p_ss, p_rs of both partitions) at the uncollapsed
+            # config-5 shapes; library_ms is six CSR matvecs.
+            "ms": step["ms"],
+            "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"],
+            "bound_by": step["bound_by"],
+            "library_ms": step["library_ms"],
+        },
+        {
+            "name": "kind_pair",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:558",
+            "launches": launches["auto/auto"]["pattern_launches"],
+            "max_abs_err": max(pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")),
+            # One step (one launch, both partitions, both directions) at
+            # the collapsed config-5 shapes, kind_precision f32; library_ms
+            # is four torch.matmul calls over the cast matrices.
+            "ms": kind["ms"],
+            "plain_ms": kind["plain_ms"],
+            "bound_ms": kind["bound_ms"],
+            "bound_by": kind["bound_by"],
+            "library_ms": kind["library_ms"],
+        },
+        {
+            "name": "packed_pair",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:419",
+            "launches": launches["auto/off"]["pattern_launches"],
+            "max_abs_err": max(pairs[k]["max_abs_err"] for k in ("packed", "packed_bf16")),
+            # One step at the uncollapsed config-5 shapes, packed_bf16
+            # (what auto runs there).
+            "ms": packed["ms"],
+            "plain_ms": packed["plain_ms"],
+            "bound_ms": packed["bound_ms"],
+            "bound_by": packed["bound_by"],
+            "library_ms": packed["library_ms"],
+        },
+    ]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -2,6 +2,7 @@
 ``microrank_tpu/cli/main.py`` ``cmd_run``, plus ``synth``).
 
     python -m microrank_tpu_torch.cli run --normal N --abnormal A -o OUT [--device cuda|cpu]
+        [--kernel auto|kind|packed|packed_bf16|pallas] [--kind-precision f32|bf16]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
 
 ``run`` ranks every anomalous window of the abnormal dump and writes
@@ -18,14 +19,17 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
-from .config import MicroRankConfig, RuntimeConfig
+from .config import KERNELS, KIND_PRECISIONS, MicroRankConfig, PageRankConfig, RuntimeConfig
 
 log = logging.getLogger("microrank_tpu_torch.cli")
 
 
 def _config_from_args(args) -> MicroRankConfig:
     return MicroRankConfig(
-        runtime=RuntimeConfig(collapse_kinds=args.collapse_kinds, device=args.device)
+        pagerank=PageRankConfig(kind_precision=args.kind_precision),
+        runtime=RuntimeConfig(
+            kernel=args.kernel, collapse_kinds=args.collapse_kinds, device=args.device
+        ),
     )
 
 
@@ -83,6 +87,16 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p_run.add_argument(
         "--collapse-kinds", default="auto", choices=["auto", "on", "off"]
+    )
+    p_run.add_argument(
+        "--kernel", default="auto", choices=list(KERNELS),
+        help="power-iteration kernel ('auto': 'kind' when the measured "
+        "kind dedup factor clears the threshold, else 'packed_bf16')",
+    )
+    p_run.add_argument(
+        "--kind-precision", default="f32", choices=list(KIND_PRECISIONS),
+        help="kernel='kind' coverage matvec precision: f32, or bf16 "
+        "operands with f32 accumulation",
     )
     p_run.set_defaults(fn=cmd_run)
 

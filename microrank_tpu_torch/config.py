@@ -5,8 +5,9 @@ Only the knobs the native ``run`` lane reads are carried over: the
 detector, PageRank and spectrum settings, window arithmetic, the
 reference-compat flags, and the runtime fields that shape the graph
 build and the rank program. Field names and defaults match the JAX
-package so a reader can hold the two side by side; the one deliberate
-difference is ``RuntimeConfig.kernel`` (see there).
+package so a reader can hold the two side by side. The kernels and
+precisions this package has not ported yet raise ``NotImplementedError``
+where the JAX package would run them.
 """
 
 from __future__ import annotations
@@ -16,10 +17,14 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 # Kernels this package implements. The JAX package's other kernel
-# families (``auto`` -> kind / packed_bf16, packed_blocked, pcsr, csr,
-# coo, dense) are queued in ROADMAP.md ("Port queue", item 1 for the
-# auto path, item 9 for the rest).
-KERNELS = ("pallas",)
+# families (packed_blocked, pcsr, csr, coo, dense) are queued in
+# ROADMAP.md ("Port queue", item 9); "auto" raises where it would pick
+# one of them.
+KERNELS = ("auto", "kind", "packed", "packed_bf16", "pallas")
+# kernel="kind" coverage-pair precisions this package implements; the
+# JAX package's "int8" (per-step quantize_i8, int32 accumulation) is
+# queued in ROADMAP.md.
+KIND_PRECISIONS = ("f32", "bf16")
 
 
 @dataclass(frozen=True)
@@ -58,6 +63,24 @@ class PageRankConfig:
     # ranking vectors, capped at ``iterations``; None runs exactly
     # ``iterations`` steps like the reference.
     tol: Optional[float] = None
+    # kernel="kind" precision of the coverage matvec pair (the pattern
+    # is stored as int8 0/1 either way; the call-graph row-sum stays
+    # f32): "f32" (default) or "bf16" (operands rounded to bf16, f32
+    # accumulation).
+    kind_precision: str = "f32"
+
+    def __post_init__(self):
+        if self.kind_precision == "int8":
+            raise NotImplementedError(
+                "kind_precision='int8' is not ported yet (per-step "
+                "quantize_i8 and int32 accumulation): see ROADMAP.md's "
+                "port queue; use 'f32' or 'bf16'"
+            )
+        if self.kind_precision not in KIND_PRECISIONS:
+            raise ValueError(
+                f"unknown kind_precision {self.kind_precision!r} "
+                f"(expected one of {KIND_PRECISIONS})"
+            )
 
 
 @dataclass(frozen=True)
@@ -99,23 +122,39 @@ class CompatConfig:
 class RuntimeConfig:
     """Execution knobs of the native lane."""
 
-    # Power-iteration kernel. The JAX package defaults to "auto", which
-    # resolves to the plain-XLA kind / packed_bf16 programs and never
-    # reaches a Pallas kernel. This port's first slice carries the one
-    # Pallas kernel the JAX package has (ops/pallas_spmv.py, the COO
-    # segment sum) as a hand-written CUDA kernel, so its only kernel —
-    # and therefore its default — is "pallas": the same per-window
-    # program as ``cli run --kernel pallas``.
-    kernel: str = "pallas"
+    # Power-iteration kernel, as in the JAX package:
+    #   "kind" — the coverage pattern as int8 0/1 over the collapsed
+    #       kind columns (K2, csrc/pattern_pair.cu) plus the call-graph
+    #       row-sum over the edge list (K1);
+    #   "packed" / "packed_bf16" — the coverage bitmap decoded in
+    #       registers (K4, csrc/pattern_pair.cu) plus the call-graph
+    #       term over the edge list (K1); f32 or bf16 operands, f32
+    #       accumulation;
+    #   "pallas" — every SpMV through K1 (the port of the JAX package's
+    #       one Pallas kernel, ops/pallas_spmv.py); never chosen by auto;
+    #   "auto" (default) — kind when the build kind-collapsed the window
+    #       and the measured dedup factor cleared kind_dedup_threshold,
+    #       else packed_bf16 (packed without prefer_bf16) when both
+    #       partitions' unpacked matrices fit dense_budget_bytes. Where
+    #       the JAX policy picks packed_blocked or pcsr instead, the
+    #       window raises NotImplementedError (ROADMAP.md item 9).
+    kernel: str = "auto"
     # Pad dynamic extents to buckets (graph.structures.pad_to).
     pad_policy: str = "pow2q"
     min_pad: int = 8
     # Kind-collapse the trace axis in the C++ build: "auto" | "on" | "off".
     collapse_kinds: str = "auto"
-    # Mirrors of the JAX build-policy knobs; with kernel="pallas" the
-    # build requests no auxiliary views, so these only travel through.
+    # kernel="auto": window dedup factor (true traces / kind columns,
+    # both partitions) at which a collapsed build constructs the kind
+    # views, so that auto picks kernel="kind".
     kind_dedup_threshold: float = 4.0
+    # Budget of the packed kernels' unpacked f32 matrices, summed over
+    # both partitions (graph.build.resolve_aux applies it at build time,
+    # choose_kernel at kernel choice).
     dense_budget_bytes: int = 2 << 30
+    # kernel="auto" resolves the in-budget bitmap path to "packed_bf16"
+    # instead of f32 "packed".
+    prefer_bf16: bool = True
     # Carry the per-partition residual trace and n_iters out of the
     # rank program (always computed; this gates the WindowResult fields).
     convergence_trace: bool = True
@@ -129,9 +168,8 @@ class RuntimeConfig:
         if self.kernel not in KERNELS:
             raise NotImplementedError(
                 f"kernel={self.kernel!r} is not ported yet: this package "
-                "implements kernel='pallas' only. The auto path "
-                "(kind / packed_bf16) is ROADMAP.md 'Port queue' item 1; "
-                "the other kernel families are item 9."
+                f"implements {KERNELS}. The other kernel families are "
+                "ROADMAP.md 'Port queue' item 9."
             )
 
 

@@ -2,11 +2,13 @@
 
 The JAX module also holds the pandas graph builder, which this package
 does not port: the native lane builds in C++ (``native/``). What the
-native lane needs from it is the auxiliary-view policy and the dedup
-measurement.
+native lane needs from it is the auxiliary-view policy, the kind view
+constructor and the dedup measurement.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from .structures import WindowGraph
 
@@ -17,6 +19,15 @@ DEFAULT_DENSE_BUDGET_BYTES = 2 << 30
 # Dedup factor (true traces / kind columns) at which an auto-resolved
 # collapsed build would construct the kind views.
 DEFAULT_KIND_DEDUP_THRESHOLD = 4.0
+
+
+def packed_unpacked_bytes(v_pad: int, t_pads) -> int:
+    """Resident f32 bytes of the packed kernel's matrices had they been
+    unpacked ([V, T] coverage + [V, V] call graph per partition): the
+    footprint ``choose_kernel`` holds to the dense budget, as the JAX
+    package does (its packed kernel unpacks them; this package's never
+    does)."""
+    return sum((v_pad * t + v_pad * v_pad) * 4 for t in t_pads)
 
 
 def packed_bits_bytes(v_pad: int, t_pads) -> int:
@@ -75,6 +86,25 @@ def aux_for_kernel(kernel: str, sharded: bool = False) -> str:
     if sharded and mode == "auto":
         return "auto_all"
     return mode
+
+
+def kind_aux(cov_bits: np.ndarray, ss_child: np.ndarray, n_ss: int,
+             v_pad: int, t_pad: int):
+    """The kind views from an already-built coverage bitmap: the int8
+    [V, K] 0/1 pattern (np.unpackbits; a change of representation, not
+    a rounding) and the call-edge row offsets over the child-sorted
+    edge list. Returns (cov_i8 int8[v_pad, t_pad], ss_indptr
+    int32[v_pad + 1])."""
+    cov_i8 = (
+        np.unpackbits(cov_bits, axis=1)[:, :t_pad].astype(np.int8)
+        if cov_bits.shape[1]
+        else np.zeros((v_pad, t_pad), np.int8)
+    )
+    ss_indptr = np.zeros(v_pad + 1, dtype=np.int64)
+    np.cumsum(
+        np.bincount(ss_child[:n_ss], minlength=v_pad), out=ss_indptr[1:]
+    )
+    return cov_i8, ss_indptr.astype(np.int32)
 
 
 def kind_dedup_ratio(graph: WindowGraph) -> float:

@@ -30,13 +30,15 @@ class PartitionGraph(NamedTuple):
     ss_child: np.ndarray    # int32[C]
     ss_parent: np.ndarray   # int32[C]
     ss_val: np.ndarray      # float32[C]  1 / outdeg_with_dups(parent)
-    # CSR views of the JAX csr kernel; empty under the pallas build.
+    # CSR views of the JAX csr kernel (ss_indptr also of the kind
+    # kernel); empty where the build did not make them.
     inc_trace_opmajor: np.ndarray  # int32[E]
     sr_val_opmajor: np.ndarray     # float32[E]
     inc_indptr_op: np.ndarray      # int32[V+1]
     inc_indptr_trace: np.ndarray   # int32[T+1]
     ss_indptr: np.ndarray          # int32[V+1]
-    # Packed-bitmap views of the JAX packed kernels; [V, 0] when not built.
+    # Packed-bitmap views of the packed (and kind) builds; [V, 0] when
+    # not built.
     cov_bits: np.ndarray           # uint8[V, T/8]
     ss_bits: np.ndarray            # uint8[V, V/8]
     inv_tracelen: np.ndarray       # float32[T]
@@ -56,8 +58,9 @@ class PartitionGraph(NamedTuple):
     # -1: one column per trace; >= 0: the trace axis is kind-collapsed
     # into ``n_cols`` columns (``kind`` is then the multiplicity).
     n_cols: np.ndarray = np.int32(-1)
-    # Partition-centric and kind views of the JAX pcsr / kind kernels;
-    # never built by this package's pallas lane.
+    # Partition-centric views of the JAX pcsr kernel (never built by
+    # this package) and the kind kernel's int8 0/1 coverage pattern
+    # [V, K] over the collapsed columns.
     pc_trace: np.ndarray = np.zeros((1, 0), np.int32)
     pc_sr_val: np.ndarray = np.zeros((1, 0), np.float32)
     pc_blk_indptr: np.ndarray = np.zeros((1, 0), np.int32)
@@ -71,10 +74,14 @@ class WindowGraph(NamedTuple):
 
     normal: PartitionGraph
     abnormal: PartitionGraph
-    # Port-only: K1's work list (ops.spmv.SpmvGroup) of both partitions'
-    # three transition matrices, built once per window by
-    # rank_backends.torch_cuda.device_subset. None until then.
+    # Port-only, built once per window by
+    # rank_backends.torch_cuda.device_subset (None until then): K1's work
+    # list (ops.spmv.SpmvGroup) — the six SpMVs of a step for "pallas",
+    # the two call-graph terms for the kind and packed kernels — and the
+    # two coverage patterns of the pattern-pair kernel
+    # (ops.pattern.PatternGroup).
     spmv_group: Optional[Any] = None
+    pattern_group: Optional[Any] = None
 
 
 class DetectBatch(NamedTuple):

@@ -136,10 +136,10 @@ def detect_window_partition(
 
 
 def _graph_from_padded(p) -> PartitionGraph:
-    """Wrap one native PaddedPartition as a PartitionGraph. The views of
-    the other kernel families are empty, shaped as the JAX package's
-    aux-mode-"none" build leaves them."""
-    v_pad = p.cov_unique.shape[0]
+    """Wrap one native PaddedPartition as a PartitionGraph: the bitmap
+    and kind views the build exported, and the CSR / partition-centric
+    views of the unported kernel families empty, shaped as the JAX
+    package's build leaves them when it does not build them."""
     return PartitionGraph(
         inc_op=p.inc_op,
         inc_trace=p.inc_trace,
@@ -152,9 +152,9 @@ def _graph_from_padded(p) -> PartitionGraph:
         sr_val_opmajor=np.zeros(0, np.float32),
         inc_indptr_op=np.zeros(0, np.int32),
         inc_indptr_trace=np.zeros(0, np.int32),
-        ss_indptr=np.zeros(0, np.int32),
-        cov_bits=np.zeros((v_pad, 0), np.uint8),
-        ss_bits=np.zeros((v_pad, 0), np.uint8),
+        ss_indptr=p.ss_indptr,
+        cov_bits=p.cov_bits,
+        ss_bits=p.ss_bits,
         inv_tracelen=p.inv_tracelen,
         inv_cov_dup=p.inv_cov_dup,
         inv_outdeg=p.inv_outdeg,
@@ -167,6 +167,7 @@ def _graph_from_padded(p) -> PartitionGraph:
         n_inc=np.int32(p.n_inc),
         n_ss=np.int32(p.n_ss),
         n_cols=np.int32(p.n_cols),
+        cov_i8=p.cov_i8,
     )
 
 
@@ -181,6 +182,7 @@ def build_window_graph_from_table(
     dense_budget_bytes: int = DEFAULT_DENSE_BUDGET_BYTES,
     collapse: str = "off",
     row_range: Tuple[int, int] | None = None,
+    kind_dedup_threshold: float | None = None,
 ) -> Tuple[WindowGraph, List[str], np.ndarray, np.ndarray]:
     """Both partitions' graphs from table rows, built in C++
     (graph_builder.cpp), with the kind collapse (``collapse`` "off" |
@@ -188,7 +190,10 @@ def build_window_graph_from_table(
 
     ``mask`` is a bool row filter (None = all rows), table-length or
     slice-local to ``row_range`` (lo, hi), which must contain every
-    True row. Returns (graph, op_names, normal_codes, abnormal_codes).
+    True row. ``aux`` picks the kernel views ("none", "packed", "kind",
+    or "auto": kind past ``kind_dedup_threshold`` on a collapsed window,
+    else packed; None takes the build module's default threshold).
+    Returns (graph, op_names, normal_codes, abnormal_codes).
     """
     from ..native import build_window_padded
 
@@ -241,7 +246,9 @@ def build_window_graph_from_table(
         lambda n: pad_to(n, pad_policy, min_pad),
         mode,
         collapse=collapse,
+        dense_budget_bytes=dense_budget_bytes,
         parent_base=lo,
+        kind_dedup_threshold=kind_dedup_threshold,
     )
     graph = WindowGraph(
         normal=_graph_from_padded(raw_n),

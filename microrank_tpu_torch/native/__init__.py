@@ -9,11 +9,14 @@ library ``libmrspan.so`` builds with ``g++`` at first use into
   interned numpy arrays;
 * ``detect_window_native(...)`` — the fused one-scan window detector;
 * ``build_window_padded(...)`` — both partitions' COO graphs, built in
-  fused counting sorts and exported into padded numpy buffers.
+  fused counting sorts and exported into padded numpy buffers, with the
+  coverage / call-edge bitmaps (``mr_export_bitmaps``) and the kind
+  views when the auxiliary-view mode asks for them.
 
-Only the auxiliary-view mode ``"none"`` is supported: the pallas
-kernel reads the COO arrays alone, and the bitmap / CSR / pcsr / kind
-views belong to kernel families this package has not ported.
+The auxiliary-view modes ``"none"`` (the pallas kernel), ``"packed"``,
+``"kind"`` and ``"auto"`` are supported; the CSR and partition-centric
+views (``"csr"``, ``"pcsr"``, ``"all"``) belong to kernel families this
+package has not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -146,6 +149,13 @@ def _load_library() -> ctypes.CDLL:
         i32p, i32p, f32p,                # ss_child, ss_parent, ss_val
         i32p, i32p, i32p,                # kind, tracelen, local_uniques
         i32p, u8p,                       # cov_unique, op_present
+    ]
+    lib.mr_export_bitmaps.restype = None
+    lib.mr_export_bitmaps.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        u8p, ctypes.c_int64,             # cov_bits, t8
+        u8p, ctypes.c_int64,             # ss_bits, v8
+        f32p, f32p, f32p,                # inv_len, inv_cov, inv_out
     ]
     lib.mr_collapse_window.restype = ctypes.c_int32
     lib.mr_collapse_window.argtypes = [
@@ -371,8 +381,11 @@ class PaddedPartition(NamedTuple):
     local_uniques: np.ndarray  # int32[n_traces]
     cov_unique: np.ndarray   # int32[v_pad]
     op_present: np.ndarray   # bool[v_pad]
-    # Inverse vectors filled from the value arrays (the bitmap / CSR
-    # views of the other kernel families are never built here).
+    # Auxiliary views, filled per the resolved aux mode; unbuilt views
+    # are [0]-shaped ([v_pad, 0] for bitmaps).
+    ss_indptr: np.ndarray          # int32[v_pad+1] (kind)
+    cov_bits: np.ndarray           # uint8[v_pad, t_pad/8] (packed, kind)
+    ss_bits: np.ndarray            # uint8[v_pad, v_pad/8] (packed, kind)
     inv_tracelen: np.ndarray       # float32[t_pad]
     inv_cov_dup: np.ndarray        # float32[v_pad]
     inv_outdeg: np.ndarray         # float32[v_pad]
@@ -383,6 +396,9 @@ class PaddedPartition(NamedTuple):
     # -1 = per-trace layout; >= 0 = kind-collapsed into this many columns
     # while n_traces still counts true traces.
     n_cols: int = -1
+    # The kind views' int8 0/1 coverage pattern over the (collapsed)
+    # columns (graph.build.kind_aux).
+    cov_i8: np.ndarray = np.zeros((1, 0), np.int8)
 
 
 def build_window_padded(
@@ -397,7 +413,9 @@ def build_window_padded(
     pad,
     mode: str = "none",
     collapse: str = "off",
+    dense_budget_bytes: Optional[int] = None,
     parent_base: int = 0,
+    kind_dedup_threshold: Optional[float] = None,
 ) -> Tuple[PaddedPartition, PaddedPartition]:
     """Build both partitions' COO graphs in C++, exported directly into
     padded numpy buffers.
@@ -405,15 +423,26 @@ def build_window_padded(
     ``normal_flag``/``abnormal_flag`` are bool arrays over the table's
     global trace codes; ``row_mask`` (bool over rows, or None) is the
     detection window; ``pad`` maps a true length to its padded length.
+    ``mode`` is an aux mode: resolved ("none" | "packed" | "kind"), or,
+    with ``collapse`` enabled, "auto", resolved here against the
+    collapsed shapes and the measured dedup factor (``dense_budget_bytes``
+    and ``kind_dedup_threshold``; None takes graph.build's defaults).
     ``collapse`` ("off" | "auto" | "on") kind-collapses the trace axes
     inside the C++ build. ``parent_base`` is subtracted from each
     parent_row entry (callers pass a table slice plus its offset).
     """
-    if mode != "none":
+    if mode in ("csr", "pcsr", "all", "auto_all"):
         raise NotImplementedError(
-            f"aux mode {mode!r} is not ported: the pallas kernel needs "
-            "mode 'none' only (bitmap / CSR / pcsr / kind views belong "
-            "to the kernel families in ROADMAP.md's port queue)"
+            f"aux mode {mode!r} is not ported: its CSR / partition-centric "
+            "views belong to the kernel families of ROADMAP.md's port "
+            "queue, item 9"
+        )
+    if mode not in ("none", "packed", "kind", "auto"):
+        raise ValueError(f"unknown aux mode {mode!r}")
+    if mode == "auto" and collapse == "off":
+        raise ValueError(
+            "aux mode 'auto' is resolved here only under collapse; "
+            "resolve_aux it at the call site otherwise"
         )
     lib = _load_library()
     pod_op = np.ascontiguousarray(pod_op, dtype=np.int32)
@@ -466,11 +495,40 @@ def build_window_padded(
                 true_traces = (int(true_out[0]), int(true_out[1]))
         sizes = np.zeros(8, dtype=np.int64)
         lib.mr_window_sizes(handle, sizes.ctypes.data_as(i64p))
+        if mode == "auto":
+            from ..graph.build import DEFAULT_KIND_DEDUP_THRESHOLD, resolve_aux
+
+            t_pads = (pad(int(sizes[2])), pad(int(sizes[6])))
+            # The collapse already ran, so the dedup factor (true traces
+            # / kind columns) is known here.
+            dedup = None
+            if true_traces is not None:
+                cols = int(sizes[2]) + int(sizes[6])
+                dedup = float(sum(true_traces)) / float(max(cols, 1))
+            mode = resolve_aux(
+                mode, v_pad, t_pads,
+                *(() if dense_budget_bytes is None else (dense_budget_bytes,)),
+                dedup=dedup,
+                kind_dedup_threshold=(
+                    DEFAULT_KIND_DEDUP_THRESHOLD
+                    if kind_dedup_threshold is None
+                    else kind_dedup_threshold
+                ),
+            )
+            if mode not in ("packed", "kind"):
+                raise NotImplementedError(
+                    f"aux mode 'auto' resolved to {mode!r}, whose views "
+                    "belong to the kernel families of ROADMAP.md's port "
+                    "queue, item 9"
+                )
+        want_bits = mode in ("packed", "kind")
         out = []
         for idx in range(2):
             n_inc, n_ss, n_tr, n_ops = (int(x) for x in sizes[4 * idx: 4 * idx + 4])
             true_tr = true_traces[idx] if true_traces is not None else n_tr
             e_pad, c_pad, t_pad = pad(n_inc), pad(n_ss), pad(n_tr)
+            t8 = (t_pad + 7) // 8
+            v8 = (v_pad + 7) // 8
             p = PaddedPartition(
                 inc_op=np.zeros(e_pad, np.int32),
                 inc_trace=np.zeros(e_pad, np.int32),
@@ -484,6 +542,9 @@ def build_window_padded(
                 local_uniques=np.zeros(true_tr, np.int32),
                 cov_unique=np.zeros(v_pad, np.int32),
                 op_present=np.zeros(v_pad, np.bool_),
+                ss_indptr=np.zeros(0, np.int32),
+                cov_bits=np.zeros((v_pad, t8 if want_bits else 0), np.uint8),
+                ss_bits=np.zeros((v_pad, v8 if want_bits else 0), np.uint8),
                 inv_tracelen=np.zeros(t_pad, np.float32),
                 inv_cov_dup=np.zeros(v_pad, np.float32),
                 inv_outdeg=np.zeros(v_pad, np.float32),
@@ -508,9 +569,26 @@ def build_window_padded(
                 p.cov_unique.ctypes.data_as(i32p),
                 p.op_present.ctypes.data_as(u8p),
             )
-            p.inv_tracelen[p.inc_trace[:n_inc]] = p.sr_val[:n_inc]
-            p.inv_cov_dup[p.inc_op[:n_inc]] = p.rs_val[:n_inc]
-            p.inv_outdeg[p.ss_parent[:n_ss]] = p.ss_val[:n_ss]
+            if want_bits:
+                lib.mr_export_bitmaps(
+                    handle, ctypes.c_int32(idx),
+                    p.cov_bits.ctypes.data_as(u8p), ctypes.c_int64(t8),
+                    p.ss_bits.ctypes.data_as(u8p), ctypes.c_int64(v8),
+                    p.inv_tracelen.ctypes.data_as(f32p),
+                    p.inv_cov_dup.ctypes.data_as(f32p),
+                    p.inv_outdeg.ctypes.data_as(f32p),
+                )
+            else:
+                p.inv_tracelen[p.inc_trace[:n_inc]] = p.sr_val[:n_inc]
+                p.inv_cov_dup[p.inc_op[:n_inc]] = p.rs_val[:n_inc]
+                p.inv_outdeg[p.ss_parent[:n_ss]] = p.ss_val[:n_ss]
+            if mode == "kind":
+                from ..graph.build import kind_aux
+
+                cov_i8, ss_indptr = kind_aux(
+                    p.cov_bits, p.ss_child, n_ss, v_pad, t_pad
+                )
+                p = p._replace(cov_i8=cov_i8, ss_indptr=ss_indptr)
             out.append(p)
         return out[0], out[1]
     finally:

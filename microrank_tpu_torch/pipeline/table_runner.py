@@ -29,8 +29,10 @@ from ..graph.table_ops import (
 )
 from ..rank_backends.convert import graph_from_numpy
 from ..rank_backends.torch_cuda import (
+    choose_kernel,
     device_subset,
     fetch_rank_outputs,
+    host_subset,
     rank_window_traced_core,
 )
 from ..utils.device import resolve_device
@@ -136,8 +138,9 @@ class TableRCA:
         )
 
     def prepare_rank(self, table, mask, nrm_codes, abn_codes, row_range=None):
-        """Host half of a window rank: the C++ graph build. Returns
-        (graph, op_names, kernel) for ``launch_rank``."""
+        """Host half of a window rank: the C++ graph build with the views
+        the kernel reads, and kernel="auto" resolved for this window.
+        Returns (graph, op_names, kernel) for ``launch_rank``."""
         cfg = self.config
         graph, op_names, _, _ = build_window_graph_from_table(
             table,
@@ -150,15 +153,24 @@ class TableRCA:
             dense_budget_bytes=cfg.runtime.dense_budget_bytes,
             collapse=cfg.runtime.collapse_kinds,
             row_range=row_range,
+            kind_dedup_threshold=cfg.runtime.kind_dedup_threshold,
         )
-        return graph, op_names, cfg.runtime.kernel
+        kernel = cfg.runtime.kernel
+        if kernel == "auto":
+            kernel = choose_kernel(
+                graph, cfg.runtime.dense_budget_bytes, cfg.runtime.prefer_bf16
+            )
+        return graph, op_names, kernel
 
     def launch_rank(self, graph, op_names, kernel):
-        """Device half: copy the graph to the device, build K1's layouts
-        and issue the rank program. Returns opaque handles (tensors
-        still in flight) for ``finalize_rank``."""
+        """Device half: copy the fields the kernel reads to the device,
+        build the kernels' per-window layouts and issue the rank program.
+        Returns opaque handles (tensors still in flight) for
+        ``finalize_rank``."""
         cfg = self.config
-        dgraph = device_subset(graph_from_numpy(graph, self.device), kernel)
+        dgraph = device_subset(
+            graph_from_numpy(host_subset(graph, kernel), self.device), kernel
+        )
         outs = rank_window_traced_core(
             dgraph, cfg.pagerank, cfg.spectrum, kernel
         )

@@ -1,12 +1,23 @@
 """The per-window rank program on torch tensors (counterpart of
-``microrank_tpu/rank_backends/jax_tpu.py``, ``kernel="pallas"`` only):
+``microrank_tpu/rank_backends/jax_tpu.py``, kernels "kind", "packed",
+"packed_bf16" and "pallas"):
 
     preference vectors -> 25 power-iteration steps over both partitions
     -> rescale -> spectrum counters -> formula -> tie-broken top-k
 
-Every step's six SpMVs (p_sr, p_ss, p_rs of both partitions) go
-through K1 in one call (``ops.spmv.coo_spmv_group``: one launch of the
-CUDA kernel on the card, its plain version on the CPU). The loop issues device work only — no step reads a value
+Each step's products (p_sr @ rv, p_ss @ sv, p_rs @ sv of both
+partitions) take one or two launches, built for the window by
+``device_subset``:
+
+* ``pallas``: all six SpMVs through K1 in one call
+  (``ops.spmv.coo_spmv_group``);
+* ``kind`` / ``packed`` / ``packed_bf16``: the coverage pair of both
+  partitions in one call of K2 / K4 (``ops.pattern.pattern_pair_group``:
+  the int8 pattern, or the bitmap decoded in registers), then both
+  call-graph terms over the call-edge list in one K1 call.
+
+On the card each call is one launch of a CUDA kernel, on the CPU its
+plain version. The loop issues device work only — no step reads a value
 back — and the caller fetches ``(top_idx, top_scores, n_valid,
 residuals, n_iters)`` in one device-to-host copy (``fetch_rank_outputs``).
 With a convergence ``tol`` the loop still runs ``iterations`` steps,
@@ -28,7 +39,9 @@ import numpy as np
 import torch
 
 from ..config import KERNELS, PageRankConfig, SpectrumConfig
+from ..graph.build import DEFAULT_DENSE_BUDGET_BYTES, packed_unpacked_bytes
 from ..graph.structures import PartitionGraph, WindowGraph
+from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group
 from ..ops.spmv import RowLayout, SpmvGroup, coo_spmv_group, row_layout, spmv_group
 from ..spectrum.formulas import spectrum_scores
 
@@ -38,11 +51,54 @@ def _f32(value: float, device) -> torch.Tensor:
 
 
 def _check_kernel(kernel: str) -> None:
+    if kernel == "auto":
+        raise ValueError(
+            "kernel='auto' is resolved per window (choose_kernel) before "
+            "the rank program"
+        )
     if kernel not in KERNELS:
         raise NotImplementedError(
             f"kernel={kernel!r} is not ported (this package runs "
-            "kernel='pallas'; see ROADMAP.md's port queue)"
+            f"{KERNELS}; see ROADMAP.md's port queue, item 9)"
         )
+
+
+def choose_kernel(
+    graph: WindowGraph,
+    dense_budget_bytes: int | None = None,
+    prefer_bf16: bool = False,
+) -> str:
+    """The auto kernel policy, by presence of the views the build made
+    (graph.build.resolve_aux holds the budget policy), as
+    ``jax_tpu.choose_kernel``: "kind" when both partitions carry the kind
+    views, "packed_bf16" / "packed" when they carry bitmaps whose
+    unpacked f32 matrices fit ``dense_budget_bytes``. Where the JAX
+    policy goes on to "packed_blocked", "pcsr", "csr" or "coo", this
+    raises NotImplementedError: those kernels are not ported, and no
+    other kernel stands in for them."""
+    if dense_budget_bytes is None:
+        dense_budget_bytes = DEFAULT_DENSE_BUDGET_BYTES
+    parts = (graph.normal, graph.abnormal)
+    if all(int(g.cov_i8.shape[-1]) > 0 for g in parts):
+        return "kind"
+    if all(int(g.cov_bits.shape[-1]) > 0 for g in parts):
+        unpacked = packed_unpacked_bytes(
+            int(parts[0].cov_unique.shape[-1]),
+            tuple(int(g.kind.shape[-1]) for g in parts),
+        )
+        if unpacked <= dense_budget_bytes:
+            return "packed_bf16" if prefer_bf16 else "packed"
+        kernel = "packed_blocked"
+    elif all(int(g.pc_trace.shape[-1]) > 0 for g in parts):
+        kernel = "pcsr"
+    elif all(int(g.inc_indptr_op.shape[-1]) > 0 for g in parts):
+        kernel = "csr"
+    else:
+        kernel = "coo"
+    raise NotImplementedError(
+        f"kernel='auto' resolves to {kernel!r} for this window, which is "
+        "not ported yet (ROADMAP.md port queue, item 9)"
+    )
 
 
 def preference_vector(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig):
@@ -110,6 +166,54 @@ def window_spmv_group(graph: WindowGraph) -> SpmvGroup:
     return spmv_group(layouts, STEP_X_SLOTS, n_x)
 
 
+def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
+    """K1's row layout of the call-graph term of the kind and packed
+    kernels. kind: the child-sorted edge list as it stands (rows from
+    ss_indptr, values ss_val), summed against sv, as JAX's scatter-free
+    ``ss_rowsum``. packed: the same edges with value 1, summed against
+    op(sv * w_out) — the pattern kernel's x_ss — which is the unique-edge
+    bitmap B_ss times that vector, without building B_ss."""
+    v = g.cov_unique.shape[0]
+    if kernel == "kind":
+        e = g.ss_parent.shape[0]
+        return RowLayout(
+            indptr=g.ss_indptr, cols=g.ss_parent, vals=g.ss_val,
+            perm=torch.arange(e, device=g.ss_parent.device), n_rows=int(v),
+        )
+    ones = torch.ones(g.ss_parent.shape, dtype=torch.float32, device=g.ss_parent.device)
+    return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss)
+
+
+def window_pattern_group(graph: WindowGraph, kernel: str) -> PatternGroup:
+    """Both partitions' coverage patterns as one pattern-pair launch
+    reads them: the int8 kind pattern (K2) or the coverage bitmap (K4),
+    over the padded trace (or kind) axis."""
+    parts = (graph.normal, graph.abnormal)
+    if kernel == "kind":
+        if any(g.cov_i8.shape[-1] == 0 or g.ss_indptr.shape[-1] == 0 for g in parts):
+            raise ValueError(
+                "kernel='kind' needs the kind views, but this window was "
+                "built without them: build with aux='kind' (collapse_kinds "
+                "!= 'off' resolves aux='auto' to it past the dedup threshold)"
+            )
+        patterns, w_outs, bits = [g.cov_i8 for g in parts], [None, None], False
+    else:
+        if any(g.cov_bits.shape[-1] == 0 for g in parts):
+            raise ValueError(
+                f"kernel={kernel!r} needs the coverage bitmaps, but this "
+                "window was built without them: build with aux='packed'"
+            )
+        patterns, w_outs, bits = [g.cov_bits for g in parts], [g.inv_outdeg for g in parts], True
+    return pattern_group(
+        patterns,
+        [g.inv_tracelen for g in parts],
+        [g.inv_cov_dup for g in parts],
+        w_outs,
+        [g.kind.shape[0] for g in parts],
+        bits,
+    )
+
+
 def _partition_setup(
     g: PartitionGraph, anomaly: bool, cfg: PageRankConfig, kernel: str = "pallas"
 ):
@@ -164,9 +268,34 @@ def window_weights_full(
     cfg = pagerank_cfg
     alpha_n, pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
     alpha_a, pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
+    if graph.spmv_group is None or (graph.pattern_group is None) != (kernel == "pallas"):
+        graph = device_subset(graph, kernel)
     group = graph.spmv_group
-    if group is None:
-        group = window_spmv_group(graph)
+    if kernel == "pallas":
+
+        def products(old_n, old_a):
+            # One K1 call: all six SpMVs of the step (x slots STEP_X_SLOTS).
+            ys = coo_spmv_group(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
+            return ys[:3], ys[3:]
+
+    else:
+        pgroup = graph.pattern_group
+        bf16 = kernel == "packed_bf16" or (
+            kernel == "kind" and cfg.kind_precision == "bf16"
+        )
+
+        def products(old_n, old_a):
+            # One pattern-pair call (both partitions, both directions),
+            # then one K1 call for both call-graph terms.
+            (f_n, b_n, x_n), (f_a, b_a, x_a) = pattern_pair_group(
+                pgroup, (old_n[1], old_a[1]), (old_n[0], old_a[0]), bf16
+            )
+            ss_n, ss_a = coo_spmv_group(
+                group,
+                (old_n[0] if x_n is None else x_n, old_a[0] if x_a is None else x_a),
+            )
+            return (f_n, ss_n, b_n), (f_a, ss_a, b_a)
+
     dev = sv_n.device
     d = _f32(cfg.damping, dev)
     n_steps = int(cfg.iterations)
@@ -178,10 +307,9 @@ def window_weights_full(
 
     def step(carry):
         old_n, old_a = carry
-        # One K1 call: all six SpMVs of the step (x slots STEP_X_SLOTS).
-        ys = coo_spmv_group(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
-        new_n = _partition_step(ys[:3], alpha_n, pref_n, cfg, d)
-        new_a = _partition_step(ys[3:], alpha_a, pref_a, cfg, d)
+        ys_n, ys_a = products(old_n, old_a)
+        new_n = _partition_step(ys_n, alpha_n, pref_n, cfg, d)
+        new_a = _partition_step(ys_a, alpha_a, pref_a, cfg, d)
         deltas = torch.stack([part_delta(new_n, old_n), part_delta(new_a, old_a)])
         return (new_n, new_a), deltas
 
@@ -324,11 +452,60 @@ def fetch_rank_outputs(outs):
     )
 
 
+# Fields each kernel never reads, dropped on the host before the graph
+# is copied to the device (jax_tpu._KERNEL_UNUSED_FIELDS with its
+# default staging of the call graph as an edge list). packed reads the
+# coverage bitmap, the edge list and the inverse vectors; kind the int8
+# pattern, the edge values, parents and row offsets, and the inverse
+# vectors. Neither reads the COO incidence arrays, the largest leaves.
+_PC_FIELDS = ("pc_trace", "pc_sr_val", "pc_blk_indptr", "pc_ell_op", "pc_ell_rs")
+_PACKED_UNUSED = (
+    "inc_op", "inc_trace", "sr_val", "rs_val", "ss_val",
+    "inc_trace_opmajor", "sr_val_opmajor", "cov_i8", "ss_bits",
+) + _PC_FIELDS
+_KIND_UNUSED = (
+    "inc_op", "inc_trace", "sr_val", "rs_val",
+    "inc_trace_opmajor", "sr_val_opmajor",
+    "inc_indptr_op", "inc_indptr_trace",
+    "cov_bits", "ss_bits", "ss_child",
+) + _PC_FIELDS
+KERNEL_UNUSED_FIELDS = {
+    "packed": _PACKED_UNUSED,
+    "packed_bf16": _PACKED_UNUSED,
+    "kind": _KIND_UNUSED,
+}
+
+
+def host_subset(graph, kernel: str):
+    """The host graph without the fields ``kernel`` never reads (each
+    replaced by an empty array of its dtype, last axis 0), so that
+    ``convert.graph_from_numpy`` copies only what the kernel reads."""
+    fields = KERNEL_UNUSED_FIELDS.get(kernel, ())
+    if not fields:
+        return graph
+
+    def strip(p):
+        return p._replace(**{
+            f: np.zeros(tuple(getattr(p, f).shape[:-1]) + (0,), getattr(p, f).dtype)
+            for f in fields
+        })
+
+    return graph._replace(normal=strip(graph.normal), abnormal=strip(graph.abnormal))
+
+
 def device_subset(graph: WindowGraph, kernel: str = "pallas") -> WindowGraph:
-    """The graph as the kernel consumes it: the window caches K1's work
-    list (``spmv_group``), built here once per window so each
-    power-iteration step is one launch. (JAX's device_subset strips the
-    fields a kernel never reads before staging; the pallas kernel reads
-    the COO arrays, and the native build leaves the other views empty.)"""
+    """The graph as the kernels consume it, built once per window so each
+    power-iteration step is one or two launches: for "pallas", K1's work
+    list of the six SpMVs (``spmv_group``); for the kind and packed
+    kernels, the pattern-pair group of both coverage patterns
+    (``pattern_group``) and K1's work list of both call-graph terms."""
     _check_kernel(kernel)
-    return graph._replace(spmv_group=window_spmv_group(graph))
+    if kernel == "pallas":
+        return graph._replace(spmv_group=window_spmv_group(graph))
+    pgroup = window_pattern_group(graph, kernel)  # checks the views first
+    parts = (graph.normal, graph.abnormal)
+    layouts = [ss_layout(g, kernel) for g in parts]
+    v = [int(g.cov_unique.shape[0]) for g in parts]
+    return graph._replace(
+        spmv_group=spmv_group(layouts, (0, 1), v), pattern_group=pgroup
+    )

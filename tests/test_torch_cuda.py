@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: K1's CUDA kernel against its plain
-version (bitwise: the same arithmetic in the same order), and the run
-lane on the card against the same lane on the CPU.
+"""The port on an NVIDIA GPU: K1's and K2 / K4's CUDA kernels against
+their plain versions (bitwise: the same arithmetic in the same order),
+and the run lane on the card against the same lane on the CPU, for the
+pinned pallas kernel and the default kernel="auto".
 
 Every test here needs the card and skips without one (the CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig, RuntimeConfig
-from microrank_tpu_torch.ops import spmv
+from microrank_tpu_torch.ops import pattern, spmv
 from microrank_tpu_torch.testing import SyntheticConfig, generate_case
 from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
@@ -145,7 +146,7 @@ def test_run_lane_on_cuda_matches_cpu(cuda_device, collapse, tmp_path):
 
     case = generate_case(CASE)
     normal, abnormal = case.write_csvs(tmp_path)
-    cfg = MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse))
+    cfg = MicroRankConfig(runtime=RuntimeConfig(kernel="pallas", collapse_kinds=collapse))
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
     ranked = [r for r in gpu if r.ranking]
@@ -175,3 +176,90 @@ def test_tol_program_on_cuda_matches_cpu(cuda_device, tmp_path):
     assert gpu and 0 < gpu[0].rank_iterations < 60
     assert [r.rank_iterations for r in gpu] == [r.rank_iterations for r in cpu]
     assert [r.ranking[0][0] for r in gpu] == [r.ranking[0][0] for r in cpu]
+
+
+def pattern_case(seed, bits, v, k, device):
+    """A pattern group of two partitions with equal rows and equal
+    columns, on ``device`` and on the CPU, plus rv / sv on both."""
+    rng = np.random.default_rng(seed)
+    host, dev, vecs = [], [], []
+    for part in range(2):
+        kk = k if part == 0 else k // 7 + 3
+        m = (rng.random((v, kk)) < 0.3).astype(np.uint8)
+        m[v // 2] = m[0]
+        m[:, kk - 1] = m[:, 1]
+        pat = np.packbits(m, axis=1) if bits else m.astype(np.int8)
+        arrays = [torch.from_numpy(pat)] + [
+            torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+            for n in (kk, v, v, kk, v)  # w_len, w_cov, w_out, rv, sv
+        ]
+        host.append(arrays)
+        dev.append([a.to(device) for a in arrays])
+        vecs.append(kk)
+
+    def group(parts):
+        return pattern.pattern_group(
+            [a[0] for a in parts], [a[1] for a in parts], [a[2] for a in parts],
+            [a[3] for a in parts], vecs, bits,
+        )
+
+    return (group(dev), [a[4] for a in dev], [a[5] for a in dev],
+            group(host), [a[4] for a in host], [a[5] for a in host])
+
+
+@pytest.mark.parametrize("bits", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, bits, bf16):
+    group, rvs, svs, cpu_group, cpu_rvs, cpu_svs = pattern_case(7, bits, 3000, 7000, cuda_device)
+    before = (pattern.pattern_pair_group.launches, pattern.pattern_pair_group.products)
+    outs = pattern.pattern_pair_group(group, rvs, svs, bf16)
+    torch.cuda.synchronize()
+    assert (pattern.pattern_pair_group.launches, pattern.pattern_pair_group.products) == (
+        before[0] + 1, before[1] + 4
+    )
+    ref = pattern.pattern_pair_plain(cpu_group, cpu_rvs, cpu_svs, bf16)
+    for got, want in zip(outs, ref):
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    for (y_fwd, y_bwd, _), k in zip(outs, [p.n_cols for p in group.parts]):
+        assert y_fwd[0] == y_fwd[1500] and y_bwd[1] == y_bwd[k - 1]
+    for p in group.parts:
+        assert not p.counters.any()  # every arrival counter reset
+
+
+def test_pattern_kernel_repeatable_over_50_launches(cuda_device):
+    group, rvs, svs, *_ = pattern_case(8, True, 3072, 7168, cuda_device)
+    first = [torch.cat([t for t in o if t is not None])
+             for o in pattern.pattern_pair_group(group, rvs, svs, True)]
+    for _ in range(50):
+        again = [torch.cat([t for t in o if t is not None])
+                 for o in pattern.pattern_pair_group(group, rvs, svs, True)]
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("collapse,kernel", [("auto", "kind"), ("off", "packed_bf16")])
+def test_auto_lane_on_cuda_matches_cpu(cuda_device, collapse, kernel, tmp_path):
+    from microrank_tpu_torch.pipeline import run_rca_native
+
+    case = generate_case(CASE)
+    normal, abnormal = case.write_csvs(tmp_path)
+    cfg = MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse))
+    spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = pattern.pattern_pair_group.launches = 0
+    gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
+    ranked = [r for r in gpu if r.ranking]
+    assert ranked and {r.kernel for r in ranked} == {kernel}
+    # One pattern-pair launch and one K1 launch (two SpMVs) per step.
+    assert pattern.pattern_pair_group.launches == spmv.coo_spmv.launches == 25 * len(ranked)
+    assert spmv.coo_spmv.spmvs == 50 * len(ranked)
+    assert ranked[0].ranking[0][0] == case.fault_pod_op
+    cpu = run_rca_native(normal, abnormal, cfg, device="cpu")
+    rtol = 5e-3 if kernel == "packed_bf16" else 1e-5
+    for g, c in zip(gpu, cpu):
+        ok, why = tie_aware_topk_agreement(
+            [n for n, _ in g.ranking], [s for _, s in g.ranking],
+            [n for n, _ in c.ranking], [s for _, s in c.ranking],
+            k=len(g.ranking), rtol=rtol,
+        )
+        assert ok, why
+        assert g.rank_iterations == c.rank_iterations

@@ -95,12 +95,19 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 
 def test_unported_kernels_raise():
-    from microrank_tpu_torch.config import RuntimeConfig
+    from microrank_tpu_torch.config import PageRankConfig, RuntimeConfig
 
-    for kernel in ("auto", "kind", "packed_bf16", "coo"):
+    for kernel in ("packed_blocked", "pcsr", "csr", "coo", "dense"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RuntimeConfig(kernel=kernel)
-    assert RuntimeConfig().kernel == "pallas"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PageRankConfig(kind_precision="int8")
+    with pytest.raises(ValueError, match="kind_precision"):
+        PageRankConfig(kind_precision="fp8")
+    for kernel in ("auto", "kind", "packed", "packed_bf16", "pallas"):
+        assert RuntimeConfig(kernel=kernel).kernel == kernel
+    assert RuntimeConfig().kernel == "auto" and RuntimeConfig().prefer_bf16
+    assert PageRankConfig().kind_precision == "f32"
 
 
 def test_chip_smoke_refuses_without_cuda_or_port(tmp_path):

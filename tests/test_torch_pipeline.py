@@ -82,7 +82,7 @@ def test_otel_fixture_matches_jax_lane(collapse, tmp_path):
     jres = jax_run(normal, abnormal, jax_config(collapse), out_dir=tmp_path / "jax")
     tres = run_rca_native(
         normal, abnormal,
-        MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse)),
+        MicroRankConfig(runtime=RuntimeConfig(kernel="pallas", collapse_kinds=collapse)),
         out_dir=tmp_path / "torch", device="cpu",
     )
     assert any(r.ranking for r in tres)
@@ -101,7 +101,10 @@ def test_otel_fixture_matches_jax_lane(collapse, tmp_path):
 def test_synthetic_case_matches_jax_lane(synth_csvs):
     case, normal, abnormal = synth_csvs
     jres = jax_run(normal, abnormal, jax_config("auto"))
-    tres = run_rca_native(normal, abnormal, device="cpu")
+    tres = run_rca_native(
+        normal, abnormal, MicroRankConfig(runtime=RuntimeConfig(kernel="pallas")),
+        device="cpu",
+    )
     assert_same_run(jres, tres)
     ranked = [r for r in tres if r.ranking]
     assert ranked and ranked[0].ranking[0][0] == case.fault_pod_op
@@ -192,8 +195,8 @@ def test_detect_numpy_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("collapse", ["off", "auto", "on"])
-def test_native_graph_build_matches_jax(synth_csvs, collapse):
+def assert_same_build(synth_csvs, aux, collapse, **kw):
+    """The port's native build and JAX's, field by field, array-equal."""
     _, normal, abnormal = synth_csvs
     tab = load_span_table(abnormal, cache=False)
     jtab = jax_load(abnormal, cache=False)
@@ -203,10 +206,10 @@ def test_native_graph_build_matches_jax(synth_csvs, collapse):
         tab, w0, w0 + 300_000_000, tv, tb, DetectorConfig(), with_range=True
     )
     tg, tnames, tn, ta = table_ops.build_window_graph_from_table(
-        tab, mask, nrm, abn, aux="none", collapse=collapse, row_range=rng
+        tab, mask, nrm, abn, aux=aux, collapse=collapse, row_range=rng, **kw
     )
     jg, jnames, jn, ja = jax_table_ops.build_window_graph_from_table(
-        jtab, mask, nrm, abn, aux="none", collapse=collapse, row_range=rng
+        jtab, mask, nrm, abn, aux=aux, collapse=collapse, row_range=rng, **kw
     )
     assert tnames == jnames
     np.testing.assert_array_equal(tn, jn)
@@ -217,15 +220,133 @@ def test_native_graph_build_matches_jax(synth_csvs, collapse):
             a, b = np.asarray(getattr(jp, f)), np.asarray(getattr(tp, f))
             assert a.shape == b.shape and a.dtype == b.dtype, f
             np.testing.assert_array_equal(a, b, err_msg=f)
+    return tg
+
+
+@pytest.mark.parametrize("collapse", ["off", "auto", "on"])
+def test_native_graph_build_matches_jax(synth_csvs, collapse):
+    assert_same_build(synth_csvs, "none", collapse)
+
+
+@pytest.mark.parametrize("aux,collapse,views", [
+    ("packed", "off", "bits"),
+    ("packed", "on", "bits"),
+    ("kind", "on", "kind"),
+    ("kind", "off", "kind"),
+    ("auto", "off", "bits"),
+    ("auto", "auto", "kind"),
+    ("auto", "on", "kind"),
+])
+def test_native_graph_build_views_match_jax(synth_csvs, aux, collapse, views):
+    # The bitmaps (cov_bits, ss_bits) and kind views (cov_i8, ss_indptr)
+    # too; "auto" resolves to kind on a collapsed window past the dedup
+    # threshold.
+    tg = assert_same_build(synth_csvs, aux, collapse)
+    for p in (tg.normal, tg.abnormal):
+        assert p.cov_bits.shape[1] > 0 and p.ss_bits.shape[1] > 0
+        assert (p.cov_i8.shape[-1] > 0) == (views == "kind")
+        assert (p.ss_indptr.shape[0] > 0) == (views == "kind")
+
+
+def test_native_build_threshold_matches_jax(synth_csvs):
+    # Past the measured dedup factor the collapsed auto build keeps
+    # bitmaps only, in both packages.
+    tg = assert_same_build(synth_csvs, "auto", "auto", kind_dedup_threshold=1e9)
+    assert tg.normal.cov_i8.shape[-1] == 0 and tg.normal.cov_bits.shape[1] > 0
 
 
 def test_unported_aux_modes_raise(synth_csvs):
     _, _, abnormal = synth_csvs
     tab = load_span_table(abnormal, cache=False)
-    with pytest.raises(NotImplementedError, match="aux mode"):
-        table_ops.build_window_graph_from_table(
-            tab, None, [0], [1], aux="packed"
+    for aux in ("csr", "pcsr"):
+        with pytest.raises(NotImplementedError, match="aux mode"):
+            table_ops.build_window_graph_from_table(tab, None, [0], [1], aux=aux)
+
+
+def auto_config(collapse, **runtime):
+    return (
+        JaxConfig(
+            runtime=JaxRuntime(
+                kernel="auto", collapse_kinds=collapse, tuned_policy="off", **runtime
+            ),
+            ingest=IngestConfig(enabled=False),
+        ),
+        MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse, **runtime)),
+    )
+
+
+def assert_same_auto_run(jres, tres, bf16=False):
+    """Same windows and resolved kernels; rankings tie-aware equal at the
+    resolved kernel's tolerance (f32 1e-5, bf16 5e-3)."""
+    assert [r.kernel for r in jres] == [r.kernel for r in tres]
+    assert len(jres) == len(tres)
+    for j, t in zip(jres, tres):
+        assert (j.start, j.anomaly, j.n_normal, j.n_abnormal, j.rank_iterations) == (
+            t.start, t.anomaly, t.n_normal, t.n_abnormal, t.rank_iterations
         )
+        rtol = 5e-3 if bf16 or t.kernel == "packed_bf16" else 1e-5
+        ok, why = tie_aware_topk_agreement(
+            [n for n, _ in j.ranking], [s for _, s in j.ranking],
+            [n for n, _ in t.ranking], [s for _, s in t.ranking],
+            k=len(j.ranking), rtol=rtol,
+        )
+        assert ok, f"{t.start}: {why}"
+        if j.ranking:
+            assert j.ranking[0][0] == t.ranking[0][0]
+
+
+@pytest.mark.parametrize("collapse,kernel", [("auto", "kind"), ("off", "packed_bf16")])
+def test_auto_lane_matches_jax_on_synthetic_case(synth_csvs, collapse, kernel):
+    case, normal, abnormal = synth_csvs
+    jcfg, tcfg = auto_config(collapse)
+    assert tcfg.runtime.kernel == "auto"
+    jres = jax_run(normal, abnormal, jcfg)
+    tres = run_rca_native(normal, abnormal, device="cpu", config=tcfg)
+    ranked = [r for r in tres if r.ranking]
+    assert ranked and {r.kernel for r in ranked} == {kernel}
+    assert ranked[0].ranking[0][0] == case.fault_pod_op
+    assert_same_auto_run(jres, tres)
+
+
+@pytest.mark.parametrize("collapse", ["auto", "off"])
+def test_auto_lane_matches_jax_on_otel_fixture(collapse):
+    normal, abnormal = OTEL / "normal.csv", OTEL / "abnormal.csv"
+    jcfg, tcfg = auto_config(collapse)
+    tres = run_rca_native(normal, abnormal, tcfg, device="cpu")
+    assert any(r.ranking for r in tres)
+    assert_same_auto_run(jax_run(normal, abnormal, jcfg), tres)
+
+
+def test_dedup_threshold_turns_kind_into_packed_bf16_like_jax(synth_csvs):
+    # The threshold reaches the build: above the measured dedup factor
+    # the window ranks with packed_bf16, below it with kind.
+    _, normal, abnormal = synth_csvs
+    for threshold, kernel in ((1e9, "packed_bf16"), (1.5, "kind")):
+        jcfg, tcfg = auto_config("auto", kind_dedup_threshold=threshold)
+        tres = run_rca_native(normal, abnormal, tcfg, device="cpu")
+        ranked = [r for r in tres if r.ranking]
+        assert ranked and all(r.kernel == kernel for r in ranked)
+        assert all(r.kind_dedup > 1.5 for r in ranked)
+        assert_same_auto_run(jax_run(normal, abnormal, jcfg), tres)
+
+
+@pytest.mark.parametrize("kernel,precision", [("kind", "f32"), ("kind", "bf16"), ("packed", "f32")])
+def test_forced_kernels_match_jax_lane(synth_csvs, kernel, precision):
+    from microrank_tpu.config import PageRankConfig as JaxPageRank
+    from microrank_tpu_torch.config import PageRankConfig
+
+    _, normal, abnormal = synth_csvs
+    jres = jax_run(normal, abnormal, JaxConfig(
+        pagerank=JaxPageRank(kind_precision=precision),
+        runtime=JaxRuntime(kernel=kernel, collapse_kinds="auto", tuned_policy="off"),
+        ingest=IngestConfig(enabled=False),
+    ))
+    tres = run_rca_native(normal, abnormal, MicroRankConfig(
+        pagerank=PageRankConfig(kind_precision=precision),
+        runtime=RuntimeConfig(kernel=kernel, collapse_kinds="auto"),
+    ), device="cpu")
+    assert {r.kernel for r in tres if r.ranking} == {kernel}
+    assert_same_auto_run(jres, tres, bf16=precision == "bf16")
 
 
 def test_cli_synth_then_run_on_cpu(tmp_path):
@@ -243,3 +364,13 @@ def test_cli_synth_then_run_on_cpu(tmp_path):
     rows = read_result_csv(out / "result.csv")
     assert rows[0]["rank"] == "1" and rows[0]["result"] == truth["fault_pod_op"]
     assert (out / "windows.jsonl").read_text().count("\n") >= 1
+    # The kernel flags reach the config.
+    args = cli.build_parser().parse_args([
+        "run", "--normal", "n", "--abnormal", "a", "--kernel", "kind",
+        "--kind-precision", "bf16",
+    ])
+    cfg = cli._config_from_args(args)
+    assert (cfg.runtime.kernel, cfg.pagerank.kind_precision) == ("kind", "bf16")
+    assert cli._config_from_args(
+        cli.build_parser().parse_args(["run", "--normal", "n", "--abnormal", "a"])
+    ).runtime.kernel == "auto"
