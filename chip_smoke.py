@@ -12,8 +12,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``csrc/pattern_pair.cu``, g++ for the native span loader /
               graph builder, all at once), and one tiny launch of K1 (a
               row of several chunks, empty rows, padding) and of the
-              pattern pair (bits and int8, f32 and bf16, ragged edges)
-              held bitwise against their plain versions;
+              pattern pair (bits and int8, f32 and bf16, several tiles
+              with ragged edges) held bitwise against their plain
+              versions;
 2. data     — one detection window at bench.py's config-5 scale
               (1,000,000 spans, 5,000 operations, 100 trace kinds,
               child_keep_prob 0.55, 60 s fault, seed 0) from the port's
@@ -31,10 +32,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               launches of 2 SpMVs (the call-graph terms); tie-aware
               agreement with the CPU run at rtol 1e-5 (kind, f32) or
               5e-3 (packed_bf16), the same top-1 and n_iters;
-5. kernel   — K1 at the shapes of phase 3. Per matrix (groups of one, at
-              the uncollapsed shapes) and per step (the grouped launch of
-              all six matrices, at the uncollapsed and the collapsed
-              shapes): bitwise equal to its plain version computed on the
+5. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
+              one, at the uncollapsed shapes), per step of the pallas
+              path (the grouped launch of all six matrices, at the
+              uncollapsed and the collapsed shapes) and per step of the
+              auto path (the launch of both call-graph terms, for kind
+              and packed_bf16): bitwise equal to its plain version computed on the
               CPU, bitwise repeatable over 50 launches with every arrival
               counter back at 0, and timed (torch.profiler device time)
               beside the plain version, torch.sparse_csr_tensor matvecs (a
@@ -51,7 +54,8 @@ JAX or of the JAX package. Phases, one JSON line each:
               equal bits, and timed beside the plain version, the pair of
               torch.matmul calls over the loop-invariant cast matrix
               (what JAX computes; a yardstick the port never calls) and
-              the byte bound.
+              the byte bound; plus a sweep of K4 over one-partition
+              bitmaps of four shapes.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -116,22 +120,17 @@ def power_line() -> str:
 
 def tiny_pattern_checks(torch, pattern, dev):
     """First launches of the pattern pair: small ragged patterns (bits
-    and int8, a last partial byte, rows past a chunk) against the plain
-    version on the CPU, bitwise. Returns the number of cases."""
+    and int8, a last partial byte, three row tiles and three column
+    tiles, and a part of one tile) against the plain version on the CPU,
+    bitwise. Returns the number of cases."""
     g = torch.Generator().manual_seed(1)
     n = 0
     for bits in (True, False):
         for bf16 in (False, True):
             parts = []
-            for v, k in ((300, 61), (7, 9)):
+            for v, k in ((300, 1100), (7, 9)):
                 m = (torch.rand((v, k), generator=g) < 0.4).to(torch.uint8)
-                if bits:
-                    pad = torch.zeros((v, -k % 8), dtype=torch.uint8)
-                    cells = torch.cat([m, pad], 1).view(v, -1, 8)
-                    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8)
-                    pat = (cells * weights).sum(-1, dtype=torch.uint8)
-                else:
-                    pat = m.to(torch.int8)
+                pat = pattern.pack_bits(m, k) if bits else m.to(torch.int8)
                 vecs = [torch.rand(n_, generator=g) for n_ in (k, v, v, k, v)]
                 parts.append((pat, k, vecs))
 
@@ -595,19 +594,40 @@ def measure_group(torch, spmv, name, group, layouts, xs, reps):
     }
 
 
+def call_graph_terms(torch, graph, kernel, gen):
+    """K1's call on the kind and packed paths at a graph's shapes, as
+    the main path stages it: both partitions' call-graph terms (K3 for
+    kind, K4's B_ss for packed) in one group, with random x vectors.
+    Returns (group, layouts, xs)."""
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset, ss_layout
+
+    dev = torch.device("cuda")
+    dgraph = device_subset(graph_from_numpy(host_subset(graph, kernel), dev), kernel)
+    parts = (dgraph.normal, dgraph.abnormal)
+    xs = [torch.rand(g.cov_unique.shape[0], generator=gen, device=dev) for g in parts]
+    return dgraph.spmv_group, [ss_layout(g, kernel) for g in parts], xs
+
+
 def phase_kernel(torch, spmv, graphs, reps):
     """K1 per matrix (groups of one) at the uncollapsed shapes, then per
-    step (the main path's grouped launch) at both shapes."""
+    step: the pallas path's grouped launch at both shapes ("off",
+    "auto"), and the auto path's launch of the two call-graph terms
+    ("auto_path/kind", "auto_path/packed_bf16")."""
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
     names = [f"{part}/{m}" for part in ("normal", "abnormal") for m in ("p_sr", "p_ss", "p_rs")]
-    group, layouts, xs = step_matrices(torch, graphs["off"], gen)
+    group, layouts, xs = step_matrices(torch, graphs["pallas/off"], gen)
     per_matrix = []
     for name, lay, slot, n_x in zip(names, layouts, group.x_slots, group.n_x):
         single = spmv.spmv_group([lay], (0,), (n_x,))
         per_matrix.append(measure_group(torch, spmv, name, single, [lay], [xs[slot]], reps))
     per_step = {"off": measure_group(torch, spmv, "step/off", group, layouts, xs, reps)}
-    group, layouts, xs = step_matrices(torch, graphs["auto"], gen)
+    group, layouts, xs = step_matrices(torch, graphs["pallas/auto"], gen)
     per_step["auto"] = measure_group(torch, spmv, "step/auto", group, layouts, xs, reps)
+    for kernel, run in (("kind", "auto/auto"), ("packed_bf16", "auto/off")):
+        name = f"auto_path/{kernel}"
+        group, layouts, xs = call_graph_terms(torch, graphs[run], kernel, gen)
+        per_step[name] = measure_group(torch, spmv, name, group, layouts, xs, reps)
     return per_matrix, per_step
 
 
@@ -632,7 +652,7 @@ def on_cpu(torch, pattern, group):
         [p.pattern.cpu() for p in group.parts], [p.w_len.cpu() for p in group.parts],
         [p.w_cov.cpu() for p in group.parts],
         [None if p.w_out is None else p.w_out.cpu() for p in group.parts],
-        [p.n_cols for p in group.parts], group.bits,
+        [p.n_cols for p in group.parts], True,
     )
 
 
@@ -644,30 +664,31 @@ def with_equal_rows_and_columns(torch, pattern, group):
 
     pats, pairs = [], []
     for p in group.parts:
-        m = pattern.dense_pattern(p.pattern, p.n_cols, group.bits).cpu().numpy().astype(np.uint8)
+        m = pattern.unpack_bits(p.pattern, p.n_cols).cpu().numpy().astype(np.uint8)
         v, k = m.shape
         m[v // 2] = m[0]
         m[:, k - 1] = m[:, 1]
-        pat = np.packbits(m, axis=1) if group.bits else m.astype(np.int8)
-        pats.append(torch.from_numpy(pat).to(p.pattern.device))
+        pats.append(torch.from_numpy(np.packbits(m, axis=1)).to(p.pattern.device))
         pairs.append(((0, v // 2), (1, k - 1)))
     eq = pattern.pattern_group(
         pats, [p.w_len for p in group.parts], [p.w_cov for p in group.parts],
-        [p.w_out for p in group.parts], [p.n_cols for p in group.parts], group.bits,
+        [p.w_out for p in group.parts], [p.n_cols for p in group.parts], True,
     )
     return eq, pairs
 
 
 def pattern_bound(group, nnz):
     """(bytes, bytes ms, operations ms) of one pair call: each pattern
-    read once (the int8 matrix or the bitmap), rv, w_len, sv, w_cov (and
-    w_out) read once, y_fwd, y_bwd (and x_ss) written once; one add per
-    set cell and direction, plus the operand products."""
+    read once as the bitmap [V, ceil(K/8)] the kernel reads (K2's int8
+    pattern is packed to it once per window, so a step never reads the
+    int8 bytes), rv, w_len, sv, w_cov (and w_out) read once, y_fwd, y_bwd
+    (and x_ss) written once; one add per set cell and direction, plus the
+    operand products."""
     nbytes, ops = 0, 0
     for p, n in zip(group.parts, nnz):
         v, k = p.pattern.shape[0], p.n_cols
         ss = 0 if p.w_out is None else v  # w_out read, x_ss written
-        nbytes += p.pattern.numel() + 4 * (2 * k + 2 * v + ss) + 4 * (v + k + ss)
+        nbytes += v * -(-k // 8) + 4 * (2 * k + 2 * v + ss) + 4 * (v + k + ss)
         ops += 2 * n + k + v + ss
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
 
@@ -709,7 +730,7 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps):
     dtype = torch.bfloat16 if bf16 else torch.float32
     mats, operands, nnz = [], [], []
     for p, rv, sv in zip(group.parts, rvs, svs):
-        m = pattern.dense_pattern(p.pattern, p.n_cols, group.bits)
+        m = pattern.unpack_bits(p.pattern, p.n_cols)
         nnz.append(int(m.sum()))
         mats.append(m.to(dtype))
         operands.append(((rv * p.w_len).to(dtype), (sv * p.w_cov).to(dtype)))
@@ -736,11 +757,12 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps):
     nbytes, bytes_ms, ops_ms = pattern_bound(group, nnz)
     return {
         "name": name,
-        "layout": "bits" if group.bits else "int8",
         "bf16": bf16,
         "n_rows": [p.pattern.shape[0] for p in group.parts],
         "n_cols": [p.n_cols for p in group.parts],
-        "pattern_bytes": [p.pattern.numel() for p in group.parts],
+        "tiles": [[-(-p.pattern.shape[0] // pattern.TILE_R), -(-p.n_cols // pattern.TILE_C)]
+                  for p in group.parts],
+        "bitmap_bytes_read": [p.pattern.numel() for p in group.parts],
         "set_cells": nnz,
         "launches_during_checks": pattern.pattern_pair_group.launches - calls0,
         "ms": round(ms["kernel"], 6),
@@ -762,16 +784,15 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps):
 
 def pattern_sweep(torch, pattern):
     """Where K4's time goes: one-partition bitmaps of 30% density at
-    shapes that isolate the two walks — the full normal partition
-    (3072 x 7168); few rows (64 x 7168: the fwd's 28 column rounds, a bwd
-    of one chunk and no fold); few columns (3072 x 256: one fwd round,
-    the bwd's 48 chunks and their fold). Device ms per call."""
+    shapes that isolate the two folds — the full normal partition
+    (3072 x 7168: 24 x 14 tiles); few rows (64 x 7168: one row stripe of
+    14 tiles, the fwd fold alone); few columns (3072 x 256: one column
+    stripe of 24 tiles, the bwd fold alone); one tile (64 x 256, no
+    fold). Device ms per call."""
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(2)
     out = []
     for v, k in ((3072, 7168), (64, 7168), (3072, 256), (64, 256)):
-        m = torch.rand((v, (k + 7) // 8 * 8), generator=gen, device="cuda") < 0.3
-        weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device="cuda")
-        bits = (m.view(v, -1, 8).to(torch.uint8) * weights).sum(-1, dtype=torch.uint8)
+        bits = pattern.pack_bits(torch.rand((v, k), generator=gen, device="cuda") < 0.3, k)
         vec = lambda n: torch.rand(n, generator=gen, device="cuda")  # noqa: E731
         group = pattern.pattern_group([bits], [vec(k)], [vec(v)], [vec(v)], [k], True)
         rv, sv = vec(k), vec(v)
@@ -842,9 +863,7 @@ def main(argv=None) -> int:
                 graphs[f"{kernel}/{collapse}"] = graph
                 emit(info)
         phase = "kernel"
-        per_matrix, per_step = phase_kernel(
-            torch, spmv, {c: graphs[f"pallas/{c}"] for c in ("auto", "off")}, args.reps
-        )
+        per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
               "rtol": KERNEL_RTOL})
         phase = "pattern"

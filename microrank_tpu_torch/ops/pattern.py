@@ -15,10 +15,12 @@ round-to-nearest-even to bf16 of the f32 product:
 
 Two steps:
 
-* ``pattern_group`` — once per window: each partition's pattern and
-  loop-invariant weight vectors, with the kernel's scratch (chunk sums
-  and arrival counters) and, on the CPU, the plain version's 0/1 f32
-  matrices.
+* ``pattern_group`` — once per window: each partition's pattern in the
+  kernel's one layout (a big-endian bitmap whose rows are padded with
+  zero bytes to a multiple of ``ROW_ALIGN`` bytes; an int8 pattern is
+  packed to it on its own device, nonzero -> 1), its loop-invariant
+  weight vectors, the kernel's scratch (tile partials and arrival
+  counters) and, on the CPU, the plain version's 0/1 f32 matrices.
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
   ``pattern_pair_group.launches``, the matvecs in ``.products``) or
@@ -26,14 +28,14 @@ Two steps:
   the kernel's arithmetic in the kernel's order, so both give the same
   bits.
 
-The order of each sum: y_fwd[r] adds, in each tile of ``TILE`` columns,
-the set columns lane by lane (lane l owns the tile's group l of 8
-columns, ascending), then the shuffle tree 16, 8, 4, 2, 1; tile j's sum
-goes to slot j % ``SLOTS``, each slot sums its tiles in order, and the
-slots fold in order. y_bwd[c] adds rows in ascending order inside
-chunks of ``ROW_CHUNK`` rows, then folds the chunks left to right. Both depend on the index alone, so equal rows and equal columns
-give bitwise-equal sums. What bounds the kernel on the card is in the
-note at the top of the CUDA source.
+The order of each sum follows the kernel's tiles of ``TILE_R`` rows x
+``TILE_C`` columns. y_fwd[r]: in each column tile, lane l (of 32) sums
+the tile's columns 16l .. 16l + 15 in ascending order, the shuffle tree
+16, 8, 4, 2, 1 sums the lanes, and the column tiles' sums fold left to
+right. y_bwd[c]: in each row tile, rows in ascending order, then the row
+tiles' sums fold top to bottom. Both depend on the index alone, so
+equal rows and equal columns give bitwise-equal sums. What bounds the
+kernel on the card is in the note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -48,15 +50,17 @@ from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
 from .spmv import nvcc
 
 WARP = 32
-GROUP = 8  # columns per group: one bitmap byte (csrc kGroup)
-# Rows per bwd chunk (csrc kRowChunk). Chunk boundaries fix the order of
-# every column sum: the plain version and the kernel must agree on it.
-ROW_CHUNK = 64
-# Columns per fwd tile (one group per lane: kWarp groups in csrc), and
-# the slots (csrc: warps of a block) tile j is summed in: j % SLOTS. Both
-# fix the order of every row sum, as ROW_CHUNK does for the columns.
-TILE = WARP * GROUP
-SLOTS = 8
+# The kernel's tile (csrc kTileRows x kTileCols): one block each. Tile
+# boundaries fix the order of every sum, so the plain version and the
+# kernel must agree on them.
+TILE_R = 128
+TILE_C = 512
+LANE_COLS = TILE_C // WARP  # fwd columns one lane sums in a tile
+ROW_ALIGN = 16  # bitmap rows are padded to this many bytes (one load)
+BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits: column 8k + j is bit 7 - j
+# mr_pattern_pair's layout argument, kept from its older signature: 1 (the
+# bitmap) is the one value it accepts.
+LAYOUT_BITS = 1
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pattern_pair.cu"
 LIB_PATH = BUILD_DIR / "libmr_pattern_pair.so"
 _lib: Optional[ctypes.CDLL] = None
@@ -65,22 +69,20 @@ _lib: Optional[ctypes.CDLL] = None
 class PatternPart(NamedTuple):
     """One partition's pattern and its loop-invariant vectors."""
 
-    pattern: torch.Tensor          # uint8[V, >= ceil(n_cols/8)] bits, or int8[V, 8 * ceil(n_cols/8)]
+    pattern: torch.Tensor          # uint8[V, multiple of ROW_ALIGN >= ceil(n_cols/8)] bitmap
     w_len: torch.Tensor            # float32[n_cols]
     w_cov: torch.Tensor            # float32[V]
     w_out: Optional[torch.Tensor]  # float32[V]: x_ss is computed when given
-    part: torch.Tensor             # float32[n_chunks * n_groups * 8] bwd chunk sums
-    counters: torch.Tensor         # int32[n_groups] arrivals, 0 between launches
+    part: torch.Tensor             # float32[n_rt * n_ct * (TILE_R + TILE_C)] tile partials
+    counters: torch.Tensor         # int32[n_rt + n_ct] stripe arrivals, 0 between launches
     dense: Optional[torch.Tensor]  # float32[V, n_cols] 0/1, the plain version's (CPU)
     n_cols: int
 
 
 class PatternGroup(NamedTuple):
-    """The partitions one launch computes; ``bits``: the patterns are
-    big-endian bitmaps (K4), else int8 bytes (K2)."""
+    """The partitions one launch computes."""
 
     parts: Tuple[PatternPart, ...]
-    bits: bool
 
 
 def unpack_bits(bits: torch.Tensor, n_cols: int, dtype=torch.float32) -> torch.Tensor:
@@ -93,19 +95,38 @@ def unpack_bits(bits: torch.Tensor, n_cols: int, dtype=torch.float32) -> torch.T
     return b.reshape(bits.shape[0], bits.shape[1] * 8)[:, :n_cols].to(dtype)
 
 
-def dense_pattern(pattern: torch.Tensor, n_cols: int, bits: bool) -> torch.Tensor:
-    """The 0/1 float32 [V, n_cols] matrix of a pattern."""
-    if bits:
-        return unpack_bits(pattern, n_cols)
-    return (pattern[:, :n_cols] != 0).to(torch.float32)
+def pack_bits(cells: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """[V, >= n_cols] cells (nonzero -> 1) -> the kernel's layout: a
+    uint8 big-endian bitmap (``np.packbits(..., axis=1)`` order) whose rows
+    are padded with zero bytes to a multiple of ROW_ALIGN, on the cells'
+    device."""
+    v = cells.shape[0]
+    width = _row_bytes(n_cols)
+    m = torch.zeros((v, width * 8), dtype=torch.uint8, device=cells.device)
+    m[:, :n_cols] = cells[:, :n_cols] != 0
+    weights = torch.tensor(BIT_WEIGHTS, dtype=torch.uint8, device=cells.device)
+    return (m.view(v, width, 8) * weights).sum(-1, dtype=torch.uint8)
 
 
-def _n_chunks(n_rows: int) -> int:
-    return max(1, -(-n_rows // ROW_CHUNK))
+def _row_bytes(n_cols: int) -> int:
+    return -(-n_cols // (8 * ROW_ALIGN)) * ROW_ALIGN
 
 
-def _n_tiles(n_cols: int) -> int:
-    return max(1, -(-n_cols // TILE))
+def _bitmap_rows(pat: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """A bitmap copied into the kernel's layout: its first ceil(n_cols/8)
+    bytes per row, zero-padded to a multiple of ROW_ALIGN."""
+    n_bytes = -(-n_cols // 8)
+    out = torch.zeros((pat.shape[0], _row_bytes(n_cols)), dtype=torch.uint8, device=pat.device)
+    out[:, :n_bytes] = pat[:, :n_bytes]
+    return out
+
+
+def _n_row_tiles(n_rows: int) -> int:
+    return max(1, -(-n_rows // TILE_R))
+
+
+def _n_col_tiles(n_cols: int) -> int:
+    return max(1, -(-n_cols // TILE_C))
 
 
 def pattern_group(
@@ -117,8 +138,10 @@ def pattern_group(
     bits: bool,
 ) -> PatternGroup:
     """The per-window half of the pair for 1 or 2 partitions on one
-    device: checks shapes and types once, allocates the scratch, and on
-    the CPU builds the plain version's 0/1 matrices."""
+    device: checks shapes and types once, brings every pattern to the
+    kernel's bitmap layout (``bits``: the patterns are bitmaps already,
+    else int8 0/1 bytes), allocates the scratch, and on the CPU builds the
+    plain version's 0/1 matrices."""
     if not 1 <= len(patterns) <= 2:
         raise ValueError("pattern_group: 1 or 2 partitions")
     want = torch.uint8 if bits else torch.int8
@@ -127,10 +150,9 @@ def pattern_group(
     for pat, w_len, w_cov, w_out, k in zip(patterns, w_lens, w_covs, w_outs, n_cols):
         k = int(k)
         v = pat.shape[0]
-        n_groups = -(-k // GROUP)
         if pat.dtype != want or pat.dim() != 2:
             raise TypeError(f"pattern_group: patterns must be 2-d {want}")
-        if pat.shape[1] < (n_groups if bits else k):
+        if pat.shape[1] < (-(-k // 8) if bits else k):
             raise ValueError(f"pattern_group: a pattern row holds fewer than {k} columns")
         if w_len.shape != (k,) or w_cov.shape != (v,) or (
             w_out is not None and w_out.shape != (v,)
@@ -141,25 +163,19 @@ def pattern_group(
             raise TypeError("pattern_group: weight vectors must be float32")
         if any(t.device != dev for t in [pat, *vecs]):
             raise ValueError("pattern_group: every tensor must lie on one device")
-        pat = pat.contiguous()
-        if not bits and (pat.shape[1] % GROUP or pat.data_ptr() % GROUP):
-            # The kernel reads an int8 group with one 8-byte load: pad the
-            # rows to whole groups (zeros, past n_cols) in a fresh tensor.
-            padded = torch.zeros((v, n_groups * GROUP), dtype=pat.dtype, device=dev)
-            padded[:, :k] = pat[:, :k]
-            pat = padded
+        pat = _bitmap_rows(pat, k) if bits else pack_bits(pat, k)
+        n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
         parts.append(PatternPart(
             pattern=pat,
             w_len=w_len.contiguous(),
             w_cov=w_cov.contiguous(),
             w_out=None if w_out is None else w_out.contiguous(),
-            part=torch.zeros(_n_chunks(v) * n_groups * GROUP,
-                             dtype=torch.float32, device=dev),
-            counters=torch.zeros(n_groups, dtype=torch.int32, device=dev),
-            dense=dense_pattern(pat, k, bits) if dev.type == "cpu" else None,
+            part=torch.zeros(n_rt * n_ct * (TILE_R + TILE_C), dtype=torch.float32, device=dev),
+            counters=torch.zeros(n_rt + n_ct, dtype=torch.int32, device=dev),
+            dense=unpack_bits(pat, k) if dev.type == "cpu" else None,
             n_cols=k,
         ))
-    return PatternGroup(parts=tuple(parts), bits=bool(bits))
+    return PatternGroup(parts=tuple(parts))
 
 
 def _op(x: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -168,45 +184,43 @@ def _op(x: torch.Tensor, bf16: bool) -> torch.Tensor:
 
 
 def fwd_plain(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """y[r] = sum_c m[r, c] * a[c] in the kernel's order: in each tile of
-    TILE columns, lane l sums its group's 8 columns in order and the
-    shuffle tree sums the lanes; tile j joins slot j % SLOTS, whose sum
-    runs over its tiles in order; then the slots fold in order. Zero
-    cells add +0.0, which the kernel skips: the same bits."""
+    """y[r] = sum_c m[r, c] * a[c] in the kernel's order: in each column
+    tile of TILE_C, lane l sums columns LANE_COLS * l .. in order and the
+    shuffle tree 16, 8, 4, 2, 1 sums the lanes; then the column tiles'
+    sums fold left to right. Zero cells add +0.0, which the kernel
+    selects instead: the same bits."""
     v, k = m.shape
-    rounds = max(1, -(-_n_tiles(k) // SLOTS))
-    prod = torch.zeros((v, rounds * SLOTS * TILE), dtype=torch.float32, device=m.device)
+    n_ct = _n_col_tiles(k)
+    prod = torch.zeros((v, n_ct * TILE_C), dtype=torch.float32, device=m.device)
     prod[:, :k] = m * a
-    prod = prod.view(v, rounds, SLOTS, WARP, GROUP)
-    lanes = torch.zeros((v, rounds, SLOTS, WARP), dtype=torch.float32, device=m.device)
-    for j in range(GROUP):
+    prod = prod.view(v, n_ct, WARP, LANE_COLS)
+    lanes = torch.zeros((v, n_ct, WARP), dtype=torch.float32, device=m.device)
+    for j in range(LANE_COLS):
         lanes = lanes + prod[..., j]
     off = WARP // 2
     while off:
         lanes = lanes[..., :off] + lanes[..., off: 2 * off]
         off //= 2
-    slots = torch.zeros((v, SLOTS), dtype=torch.float32, device=m.device)
-    for i in range(rounds):
-        slots = slots + lanes[:, i, :, 0]
     y = torch.zeros(v, dtype=torch.float32, device=m.device)
-    for j in range(SLOTS):
-        y = y + slots[:, j]
+    for j in range(n_ct):
+        y = y + lanes[:, j, 0]
     return y
 
 
 def bwd_plain(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """y[c] = sum_r b[r] * m[r, c] in the kernel's order: rows in order
-    inside chunks of ROW_CHUNK, then the chunks folded left to right."""
+    inside each row tile of TILE_R, then the row tiles' sums folded top
+    to bottom."""
     v, k = m.shape
-    n_chunks = _n_chunks(v)
-    prod = torch.zeros((n_chunks * ROW_CHUNK, k), dtype=torch.float32, device=m.device)
+    n_rt = _n_row_tiles(v)
+    prod = torch.zeros((n_rt * TILE_R, k), dtype=torch.float32, device=m.device)
     prod[:v] = b[:, None] * m
-    prod = prod.view(n_chunks, ROW_CHUNK, k)
-    acc = torch.zeros((n_chunks, k), dtype=torch.float32, device=m.device)
-    for i in range(ROW_CHUNK):
+    prod = prod.view(n_rt, TILE_R, k)
+    acc = torch.zeros((n_rt, k), dtype=torch.float32, device=m.device)
+    for i in range(TILE_R):
         acc = acc + prod[:, i]
     y = torch.zeros(k, dtype=torch.float32, device=m.device)
-    for j in range(n_chunks):
+    for j in range(n_rt):
         y = y + acc[j]
     return y
 
@@ -222,7 +236,7 @@ def pattern_pair_plain(
     _check_vectors(group, rvs, svs)
     out = []
     for p, rv, sv in zip(group.parts, rvs, svs):
-        m = p.dense if p.dense is not None else dense_pattern(p.pattern, p.n_cols, group.bits)
+        m = p.dense if p.dense is not None else unpack_bits(p.pattern, p.n_cols)
         y_fwd = fwd_plain(m, _op(rv * p.w_len, bf16))
         y_bwd = bwd_plain(m, _op(sv * p.w_cov, bf16))
         x_ss = None if p.w_out is None else _op(sv * p.w_out, bf16)
@@ -282,12 +296,12 @@ def pattern_pair_group(
             None if p.w_out is None else x_ss.data_ptr(),
             p.part.data_ptr(), p.counters.data_ptr(),
         ]
-        ints += [p.pattern.stride(0), p.pattern.shape[0], p.n_cols]
+        ints += [p.pattern.shape[1], p.pattern.shape[0], p.n_cols]
     lib = load_library()
     rc = lib.mr_pattern_pair(
         (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int64 * len(ints))(*ints),
-        len(group.parts), int(group.bits), int(bool(bf16)),
+        len(group.parts), LAYOUT_BITS, int(bool(bf16)),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -349,13 +363,14 @@ def load_library() -> ctypes.CDLL:
 
 
 __all__ = [
-    "GROUP",
-    "ROW_CHUNK",
+    "ROW_ALIGN",
+    "TILE_C",
+    "TILE_R",
     "PatternGroup",
     "PatternPart",
     "bwd_plain",
-    "dense_pattern",
     "fwd_plain",
+    "pack_bits",
     "pattern_group",
     "pattern_pair_group",
     "pattern_pair_plain",

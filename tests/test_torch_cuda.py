@@ -209,8 +209,12 @@ def pattern_case(seed, bits, v, k, device):
 
 @pytest.mark.parametrize("bits", [True, False])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, bits, bf16):
-    group, rvs, svs, cpu_group, cpu_rvs, cpu_svs = pattern_case(7, bits, 3000, 7000, cuda_device)
+@pytest.mark.parametrize("v,k", [(3000, 7000), (300, 1100)])
+def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, bits, bf16, v, k):
+    # Both shapes span several row and column tiles with ragged edges;
+    # at 300 x 1100 the equal rows (0, 150) and columns (1, k - 1) lie in
+    # different tiles.
+    group, rvs, svs, cpu_group, cpu_rvs, cpu_svs = pattern_case(7, bits, v, k, cuda_device)
     before = (pattern.pattern_pair_group.launches, pattern.pattern_pair_group.products)
     outs = pattern.pattern_pair_group(group, rvs, svs, bf16)
     torch.cuda.synchronize()
@@ -221,8 +225,8 @@ def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, bits, bf16):
     for got, want in zip(outs, ref):
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
-    for (y_fwd, y_bwd, _), k in zip(outs, [p.n_cols for p in group.parts]):
-        assert y_fwd[0] == y_fwd[1500] and y_bwd[1] == y_bwd[k - 1]
+    for (y_fwd, y_bwd, _), kk in zip(outs, [p.n_cols for p in group.parts]):
+        assert y_fwd[0] == y_fwd[v // 2] and y_bwd[1] == y_bwd[kk - 1]
     for p in group.parts:
         assert not p.counters.any()  # every arrival counter reset
 
@@ -236,6 +240,8 @@ def test_pattern_kernel_repeatable_over_50_launches(cuda_device):
                  for o in pattern.pattern_pair_group(group, rvs, svs, True)]
         assert all(torch.equal(a, b) for a, b in zip(again, first))
     torch.cuda.synchronize()
+    for p in group.parts:
+        assert not p.counters.any()  # every stripe's arrival counter reset
 
 
 @pytest.mark.parametrize("collapse,kernel", [("auto", "kind"), ("off", "packed_bf16")])

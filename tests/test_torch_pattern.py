@@ -2,8 +2,11 @@
 iterations, held to the JAX package on the CPU (where the wrapper runs
 its plain version, which repeats the kernel's order).
 
-* the plain version's arithmetic: against an f64 product, bitwise equal
-  outputs for equal rows and equal columns, bits decoded big-endian;
+* the plain version's arithmetic: against an f64 product, in the
+  kernel's tile order (checked in scalar float32 steps), bitwise equal
+  outputs for equal rows and equal columns (also across tiles), bits
+  decoded big-endian, int8 patterns packed to the same bitmap, rows
+  padded to 16 bytes and inert;
 * per product: the pattern pair plus the call-graph term (through K1)
   against JAX's ``_partition_setup`` matvecs, rtol 1e-6 — bf16 is held to
   the same rtol because both sides round the same f32 products to bf16
@@ -132,6 +135,111 @@ def test_padding_is_inert():
     assert x_ss is None and y_bwd.shape == (11,)
     np.testing.assert_array_equal(y_fwd.numpy(), m[:, :11].sum(1).astype(np.float32))
     np.testing.assert_array_equal(y_bwd.numpy(), m[:12, :11].sum(0).astype(np.float32))
+
+
+@pytest.mark.parametrize("bits", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_equal_rows_and_columns_in_different_tiles_give_equal_bits(bits, bf16):
+    # 300 x 1100 spans three row tiles and three column tiles: rows 0, 150
+    # and 299 lie in different row tiles, columns 5, 600 and 1090 in
+    # different column tiles, so each sum crosses the tile folds.
+    assert pattern.TILE_R < 150 < 2 * pattern.TILE_R < 299
+    assert pattern.TILE_C < 600 < 2 * pattern.TILE_C < 1090
+    rng = np.random.default_rng(12)
+    base = random_pattern(rng, 300, 1100, 0.4)
+    base[150] = base[0]
+    base[299] = base[0]
+    base[:, 600] = base[:, 5]
+    base[:, 1090] = base[:, 5]
+    group, rv, sv = plain_group(base, bits, seed=4)
+    (y_fwd, y_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv], bf16=bf16)
+    assert y_fwd[0] == y_fwd[150] == y_fwd[299]
+    assert y_bwd[5] == y_bwd[600] == y_bwd[1090]
+
+
+@pytest.mark.parametrize("v,k", [(37, 13), (300, 1100)])
+def test_int8_and_bitmap_groups_give_equal_bits(v, k):
+    # pattern_group packs an int8 pattern (nonzero -> 1) into the kernel's
+    # one layout: only the representation changes.
+    rng = np.random.default_rng(v * k)
+    m = random_pattern(rng, v, k, 0.35)
+    i8 = m.astype(np.int8)
+    i8[m == 1] = rng.integers(1, 128, int(m.sum()))  # any nonzero byte is a 1
+    g_bits, rv, sv = plain_group(m, True, w_out=True, seed=9)
+    g_i8, _, _ = plain_group(i8, False, w_out=True, seed=9)
+    assert torch.equal(g_i8.parts[0].pattern, g_bits.parts[0].pattern)
+    for bf16 in (False, True):
+        (a,), (b,) = (pattern.pattern_pair_group(g, [rv], [sv], bf16) for g in (g_bits, g_i8))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bits", [True, False])
+@pytest.mark.parametrize("k", [448, 100])  # rows of 56 and 13 bytes
+def test_rows_are_padded_to_16_bytes_and_inert(bits, k):
+    rng = np.random.default_rng(k)
+    v = 140
+    m = random_pattern(rng, v, k, 0.5)
+    if bits:
+        pat = np.packbits(m, axis=1)
+        pat[:, -1] |= np.uint8(0xFF >> (k % 8)) if k % 8 else 0  # set bits past n_cols
+    else:
+        pat = np.concatenate([m, np.ones((v, 5), np.uint8)], 1).astype(np.int8)
+    w = lambda n: torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))  # noqa: E731
+    w_len, w_cov, rv, sv = w(k), w(v), w(k), w(v)
+    group = pattern.pattern_group([torch.from_numpy(pat)], [w_len], [w_cov], [None], [k], bits)
+    stored = group.parts[0].pattern
+    n_bytes = -(-k // 8)
+    assert stored.shape == (v, -(-n_bytes // 16) * 16) and stored.shape[1] % pattern.ROW_ALIGN == 0
+    assert not stored[:, n_bytes:].any()
+    (y_fwd, y_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv])
+    assert y_bwd.shape == (k,)
+    a = (rv * w_len).double().numpy()
+    b = (sv * w_cov).double().numpy()
+    np.testing.assert_allclose(y_fwd.numpy(), m @ a, rtol=1e-6)
+    np.testing.assert_allclose(y_bwd.numpy(), b @ m, rtol=1e-6)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_plain_order_at_one_tile_and_one_past(extra):
+    # Exactly one tile, and one tile plus a row and a column (a second
+    # row tile and column tile of one row / one column each).
+    v, k = pattern.TILE_R + extra, pattern.TILE_C + extra
+    rng = np.random.default_rng(20 + extra)
+    m = random_pattern(rng, v, k, 0.5)
+    a = rng.uniform(0.0, 1.0, k).astype(np.float32)
+    b = rng.uniform(0.0, 1.0, v).astype(np.float32)
+    mt = torch.from_numpy(m.astype(np.float32))
+    y_fwd = pattern.fwd_plain(mt, torch.from_numpy(a))
+    y_bwd = pattern.bwd_plain(mt, torch.from_numpy(b))
+    np.testing.assert_allclose(y_fwd.numpy(), m @ a.astype(np.float64), rtol=1e-6)
+    np.testing.assert_allclose(y_bwd.numpy(), b.astype(np.float64) @ m, rtol=1e-6)
+    # The kernel's order, written out in float32 scalar steps: lane sums
+    # of LANE_COLS columns, the shuffle tree, the column-tile fold; rows
+    # in order per row tile, the row-tile fold.
+    f32 = np.float32
+    lanes = pattern.TILE_C // pattern.LANE_COLS
+    for r in (0, v - 1):
+        y = f32(0)
+        for t0 in range(0, k, pattern.TILE_C):
+            acc = [f32(0)] * lanes
+            for l in range(lanes):
+                for c in range(t0 + l * pattern.LANE_COLS, t0 + (l + 1) * pattern.LANE_COLS):
+                    acc[l] = f32(acc[l] + (a[c] if c < k and m[r, c] else f32(0)))
+            off = lanes // 2
+            while off:
+                acc = [f32(acc[i] + acc[i + off]) for i in range(off)]
+                off //= 2
+            y = f32(y + acc[0])
+        assert y_fwd[r].item() == y
+    for c in (0, k - 1):
+        y = f32(0)
+        for r0 in range(0, v, pattern.TILE_R):
+            acc = f32(0)
+            for r in range(r0, min(v, r0 + pattern.TILE_R)):
+                acc = f32(acc + (b[r] if m[r, c] else f32(0)))
+            y = f32(y + acc)
+        assert y_bwd[c].item() == y
 
 
 def test_group_checks_its_inputs():
