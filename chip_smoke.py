@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size: 1M spans, 5k operations
-    python3 chip_smoke.py --spans N  # a smaller window, same shape of run
+    python3 chip_smoke.py            # full size: 1M spans, 5k operations,
+                                     # giant windows of 2M and 10M spans
+    python3 chip_smoke.py --spans N --giant-spans M  # smaller, same shape of run
+    python3 chip_smoke.py --giant-spans 0            # no giant phase
 
 It drives only the port (``microrank_tpu_torch``) and imports nothing of
 JAX or of the JAX package. Phases, one JSON line each:
@@ -31,7 +33,13 @@ JAX or of the JAX package. Phases, one JSON line each:
               (K4). Per ranked window 25 pattern-pair launches and 25 K1
               launches of 2 SpMVs (the call-graph terms); tie-aware
               agreement with the CPU run at rtol 1e-5 (kind, f32) or
-              5e-3 (packed_bf16), the same top-1 and n_iters;
+              5e-3 (packed_bf16), the same top-1 and n_iters; then, collapse
+              "off", at two lowered dense budgets (64 MiB and 16 MiB at
+              config 5; the two inequalities printed from the window's
+              shapes): auto resolves to ``packed_blocked`` (25 pattern-pair
+              and 25 K1 launches of 2 SpMVs per ranked window) and to
+              ``pcsr`` (25 K1 launches of 6 SpMVs), CUDA vs CPU at rtol
+              1e-5, and pcsr's ranking bitwise the pinned pallas run's;
 5. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
               one, at the uncollapsed shapes), per step of the pallas
               path (the grouped launch of all six matrices, at the
@@ -44,7 +52,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               yardstick the port never calls), the byte bound at
               3.35 TB/s, and the first, warp-per-row design of the kernel
               (``mr_coo_spmv_rows``), timed in turns with the chunked one
-              (first, chunked, chunked, first);
+              (first, chunked, chunked, first); the pcsr work list at
+              the shapes of its run, checked bitwise against the pallas
+              work list of the same window first;
 6. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4) and
               K4 (packed and packed_bf16, uncollapsed): one launch per
               step for both partitions, bitwise equal to its plain
@@ -55,7 +65,20 @@ JAX or of the JAX package. Phases, one JSON line each:
               torch.matmul calls over the loop-invariant cast matrix
               (what JAX computes; a yardstick the port never calls) and
               the byte bound; plus a sweep of K4 over one-partition
-              bitmaps of four shapes.
+              bitmaps of four shapes;
+7. giant    — bench.py's giant-window tier (2048 operations, 4 spans a
+              trace) from the port's ``testing.giant_window``, at the
+              default 2 GiB budget: 2,097,152 spans (auto must resolve to
+              packed_blocked) and 10,485,760 (pcsr), each through
+              prepare_rank -> launch_rank -> finalize_rank with its
+              partition given and its launches counted; top-5 tie-aware
+              against the float64 sparse oracle (rtol 1e-3, as bench.py);
+              stage times and rank-program device time; one step of the
+              kernel within rtol 1e-6 of its plain version on the card,
+              bitwise over 50 launches, timed beside the library yardstick
+              and the byte bound. ``--giant-spans`` sets the larger window
+              (the smaller holds a fifth, the budget scales with it); 0
+              skips the phase.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -92,7 +115,18 @@ RUN_RTOL_BF16 = 5e-3  # bf16 operands (packed_bf16, kind_precision="bf16")
 STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
 SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
 SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
+SIX_SPMV_KERNELS = ("pallas", "pcsr")  # K1 computes every SpMV of a step
 REPEATS = 50  # back-to-back launches that must give the first one's bits
+# bench.py's giant-window tier (BENCH_GIANT_SPANS, BENCH_GIANT_OPS
+# defaults): at the default 2 GiB budget, the window of GIANT_SPANS / 5
+# spans keeps its bitmaps (about 135 MB) but not its unpacked matrices
+# (about 4.3 GB), so auto picks packed_blocked; the window of GIANT_SPANS
+# spans has about 672 MB of bitmaps, past a quarter of the budget, so it
+# picks pcsr.
+GIANT_SPANS = 10_485_760
+GIANT_OPS = 2048
+DEFAULT_BUDGET = 2 << 30
+ORACLE_RTOL = 1e-3  # bench.py's tie-aware top-5 parity against the float64 oracle
 # What kernel="auto" resolves to at the config-5 window, per collapse mode.
 AUTO_KERNEL = {"auto": "kind", "off": "packed_bf16"}
 
@@ -343,17 +377,42 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
     return graph, kernel, ms, rank_device
 
 
-def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel):
+def budget_inequalities(graph, budget):
+    """The two inequalities of the auto policy at a window's real shapes:
+    bitmaps within a quarter of the budget (else pcsr), unpacked f32
+    matrices within the budget (else packed_blocked)."""
+    from microrank_tpu_torch.graph.build import packed_bits_bytes, packed_unpacked_bytes
+
+    v_pad = int(graph.normal.cov_unique.shape[0])
+    t_pads = [int(p.kind.shape[0]) for p in (graph.normal, graph.abnormal)]
+    bits = packed_bits_bytes(v_pad, t_pads)
+    unpacked = packed_unpacked_bytes(v_pad, t_pads)
+    return {
+        "budget": budget, "v_pad": v_pad, "t_pads": t_pads,
+        "bitmap_bytes": bits, "unpacked_bytes": unpacked,
+        "bitmap_bytes <= budget/4": bits <= budget // 4,
+        "unpacked_bytes <= budget": unpacked <= budget,
+    }
+
+
+def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
+              budget=None, want=None):
     """One run of the lane with ``kernel`` ("pallas", or "auto" resolving
-    to AUTO_KERNEL[collapse]) on the card and on the CPU. Returns (host
-    graph, launch counts of the warm CUDA run, info)."""
+    to ``want``, by default AUTO_KERNEL[collapse]) at ``budget`` (None:
+    the default dense budget) on the card and on the CPU. Returns (host
+    graph, launch counts of the warm CUDA run, the CUDA run's results,
+    info)."""
     from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import run_rca_native
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
-    cfg = MicroRankConfig(runtime=RuntimeConfig(kernel=kernel, collapse_kinds=collapse))
-    want = kernel if kernel != "auto" else AUTO_KERNEL[collapse]
-    tag = f"kernel={kernel}, collapse={collapse}"
+    runtime = dict(kernel=kernel, collapse_kinds=collapse)
+    if budget is not None:
+        runtime["dense_budget_bytes"] = budget
+    cfg = MicroRankConfig(runtime=RuntimeConfig(**runtime))
+    if want is None:
+        want = kernel if kernel != "auto" else AUTO_KERNEL[collapse]
+    tag = f"kernel={kernel}, collapse={collapse}, budget={cfg.runtime.dense_budget_bytes}"
     walls, counts, res_gpu = [], [], None
     for _ in ("cold", "warm"):
         torch.cuda.synchronize()
@@ -379,7 +438,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel):
     kernels = sorted({r.kernel for r in ranked})
     check(kernels == [want], f"{tag}: ranked with {kernels}, want {want}")
     n = len(ranked)
-    if want == "pallas":
+    if want in SIX_SPMV_KERNELS:
         expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SPMVS_PER_STEP * n,
                   "pattern_launches": 0, "pattern_products": 0}
     else:
@@ -411,11 +470,12 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel):
         torch, cfg, normal, abnormal, ranked[0].start
     )
     rank_wall = stages["rank_issue_and_run"]
-    return graph, counts[-1], {
+    return graph, counts[-1], res_gpu, {
         "phase": "run",
         "kernel": kernel,
         "resolved_kernel": want,
         "collapse_kinds": collapse,
+        "dense_budget": budget_inequalities(graph, cfg.runtime.dense_budget_bytes),
         "windows": len(res_gpu),
         "ranked": n,
         "kind_dedup": ranked[0].kind_dedup,
@@ -609,11 +669,57 @@ def call_graph_terms(torch, graph, kernel, gen):
     return dgraph.spmv_group, [ss_layout(g, kernel) for g in parts], xs
 
 
+def lowered_budgets(graph):
+    """Dense budgets that send the uncollapsed window past the default
+    policy: 64 MiB keeps config 5's bitmaps (about 5.3 MB, within a
+    quarter) but not its unpacked matrices (about 169 MB), so auto picks
+    packed_blocked; 16 MiB puts the bitmaps past a quarter, so it picks
+    pcsr. At other sizes (--spans, --ops) the same inequalities set the
+    budgets from the window's shapes."""
+    shapes = budget_inequalities(graph, 0)
+    bits, unpacked = shapes["bitmap_bytes"], shapes["unpacked_bytes"]
+    blocked, pcsr = 64 << 20, 16 << 20
+    if not 4 * bits <= blocked < unpacked:
+        blocked = 4 * bits
+    if not 4 * bits > pcsr:
+        pcsr = 2 * bits
+    return {"packed_blocked": blocked, "pcsr": pcsr}
+
+
+def pcsr_step(torch, spmv, graph, pallas_group, gen):
+    """K1's pcsr work list at a graph's shapes, built on the card from
+    the partition-centric views as the main path stages it, with random x
+    vectors; checked bitwise against the pallas work list of the same
+    window (``pallas_group``) on the same vectors. Returns (group,
+    layouts, xs)."""
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        host_subset,
+        pcsr_layouts,
+    )
+
+    dev = torch.device("cuda")
+    dgraph = device_subset(graph_from_numpy(host_subset(graph, "pcsr"), dev), "pcsr")
+    parts = (dgraph.normal, dgraph.abnormal)
+    sizes = [n for p in parts for n in (p.kind.shape[0], p.cov_unique.shape[0])]
+    xs = [torch.rand(n, generator=gen, device=dev) for n in sizes]
+    layouts = [lay for p in parts for lay in pcsr_layouts(p)]
+    if pallas_group is not None:
+        ours = torch.cat(spmv.coo_spmv_group(dgraph.spmv_group, xs))
+        theirs = torch.cat(spmv.coo_spmv_group(pallas_group, xs))
+        check(torch.equal(ours, theirs),
+              "pcsr work list: products differ from the pallas work list's")
+    return dgraph.spmv_group, layouts, xs
+
+
 def phase_kernel(torch, spmv, graphs, reps):
     """K1 per matrix (groups of one) at the uncollapsed shapes, then per
     step: the pallas path's grouped launch at both shapes ("off",
-    "auto"), and the auto path's launch of the two call-graph terms
-    ("auto_path/kind", "auto_path/packed_bf16")."""
+    "auto"), the auto path's launch of the two call-graph terms
+    ("auto_path/kind", "auto_path/packed_bf16"), and the pcsr work list
+    of the window past the lowered budget ("pcsr", checked bitwise
+    against the pallas work list of the same window first)."""
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
     names = [f"{part}/{m}" for part in ("normal", "abnormal") for m in ("p_sr", "p_ss", "p_rs")]
     group, layouts, xs = step_matrices(torch, graphs["pallas/off"], gen)
@@ -622,6 +728,9 @@ def phase_kernel(torch, spmv, graphs, reps):
         single = spmv.spmv_group([lay], (0,), (n_x,))
         per_matrix.append(measure_group(torch, spmv, name, single, [lay], [xs[slot]], reps))
     per_step = {"off": measure_group(torch, spmv, "step/off", group, layouts, xs, reps)}
+    pc_group, pc_layouts, pc_xs = pcsr_step(torch, spmv, graphs["auto/pcsr"], group, gen)
+    per_step["pcsr"] = measure_group(torch, spmv, "step/pcsr", pc_group, pc_layouts, pc_xs, reps)
+    per_step["pcsr"]["bitwise_vs_pallas_work_list"] = True
     group, layouts, xs = step_matrices(torch, graphs["pallas/auto"], gen)
     per_step["auto"] = measure_group(torch, spmv, "step/auto", group, layouts, xs, reps)
     for kernel, run in (("kind", "auto/auto"), ("packed_bf16", "auto/off")):
@@ -693,30 +802,38 @@ def pattern_bound(group, nnz):
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
 
 
-def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps):
+def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps, cpu_check=True):
     """Check and time one pattern-pair call (both partitions) on the
-    card."""
+    card. ``cpu_check``: also hold it bitwise to its plain version
+    computed on the CPU and check equal rows and columns of a constructed
+    pattern (skipped at the giant shapes, where the card-side plain
+    version and the repeat checks stand)."""
     calls0 = pattern.pattern_pair_group.launches
     outs = pattern.pattern_pair_group(group, rvs, svs, bf16)
     torch.cuda.synchronize()
     flat = lambda o: torch.cat([t for pair in o for t in pair if t is not None])  # noqa: E731
     first = flat(outs)
-    cpu_group = on_cpu(torch, pattern, group)
-    ref = pattern.pattern_pair_plain(cpu_group, [r.cpu() for r in rvs], [s.cpu() for s in svs], bf16)
-    bitwise = torch.equal(first.cpu(), flat(ref))
-    check(bitwise, f"{name}: the pattern pair differs from its plain version on the CPU")
+    bitwise = None
+    if cpu_check:
+        cpu_group = on_cpu(torch, pattern, group)
+        ref = pattern.pattern_pair_plain(
+            cpu_group, [r.cpu() for r in rvs], [s.cpu() for s in svs], bf16
+        )
+        bitwise = torch.equal(first.cpu(), flat(ref))
+        check(bitwise, f"{name}: the pattern pair differs from its plain version on the CPU")
     again = [flat(pattern.pattern_pair_group(group, rvs, svs, bf16)) for _ in range(REPEATS)]
     torch.cuda.synchronize()
     check(all(torch.equal(a, first) for a in again),
           f"{name}: not bitwise repeatable over {REPEATS} launches")
     check(not any(bool(p.counters.any()) for p in group.parts),
           f"{name}: arrival counters left non-zero")
-    eq, pairs = with_equal_rows_and_columns(torch, pattern, group)
-    eq_outs = pattern.pattern_pair_group(eq, rvs, svs, bf16)
-    torch.cuda.synchronize()
-    for (y_fwd, y_bwd, _), ((r0, r1), (c0, c1)) in zip(eq_outs, pairs):
-        check(bool(y_fwd[r0] == y_fwd[r1]) and bool(y_bwd[c0] == y_bwd[c1]),
-              f"{name}: equal rows or columns give different bits")
+    if cpu_check:
+        eq, pairs = with_equal_rows_and_columns(torch, pattern, group)
+        eq_outs = pattern.pattern_pair_group(eq, rvs, svs, bf16)
+        torch.cuda.synchronize()
+        for (y_fwd, y_bwd, _), ((r0, r1), (c0, c1)) in zip(eq_outs, pairs):
+            check(bool(y_fwd[r0] == y_fwd[r1]) and bool(y_bwd[c0] == y_bwd[c1]),
+                  f"{name}: equal rows or columns give different bits")
 
     plain = lambda: pattern.pattern_pair_plain(group, rvs, svs, bf16)  # noqa: E731
     y_plain = flat(plain())
@@ -777,8 +894,9 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps):
         "max_abs_err": abs_err, "max_rel_err": rel_err,
         "library_max_rel_diff": lib_rel,
         "bitwise_vs_cpu_plain": bitwise,
+        "bitwise_vs_card_plain": bool(torch.equal(first, y_plain)),
         "bitwise_repeatable_launches": REPEATS,
-        "equal_rows_and_columns_bitwise": True,
+        "equal_rows_and_columns_bitwise": True if cpu_check else None,
     }
 
 
@@ -818,11 +936,148 @@ def phase_pattern(torch, pattern, graphs, reps):
     return out
 
 
+def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
+    """One giant window (bench.py's giant tier, ``testing.giant_window``)
+    through the lane's own seams, prepare_rank -> launch_rank ->
+    finalize_rank, with its partition given: auto must resolve to
+    ``want``. Checked tie-aware (top-5) against the float64 sparse
+    oracle on the host graph; the stages timed as in window_breakdown;
+    one step of the kernel checked against its plain version on the card
+    and timed. Collapse is off: the oracle ranks uncollapsed windows, and
+    bench.py builds its giant window so. Returns (counts, kernel
+    measurement, info)."""
+    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
+    from microrank_tpu_torch.pipeline import TableRCA
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.sparse_oracle import rank_window_sparse
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        fetch_rank_outputs,
+        host_subset,
+        pcsr_layouts,
+        rank_window_traced_core,
+    )
+    from microrank_tpu_torch.testing import giant_window
+    from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
+
+    tag = f"giant window of {n_spans} spans"
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gw = giant_window(n_spans, GIANT_OPS)
+    gen_s = time.perf_counter() - t0
+    cfg = MicroRankConfig(runtime=RuntimeConfig(collapse_kinds="off", dense_budget_bytes=budget))
+    rca = TableRCA(cfg, device="cuda")
+    ms = {}
+
+    # The main path, counted.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
+    pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+    t0 = time.perf_counter()
+    graph, names, kernel = rca.prepare_rank(gw.table, None, gw.normal_codes, gw.abnormal_codes)
+    ms["build"] = round((time.perf_counter() - t0) * 1e3, 3)
+    t0 = time.perf_counter()
+    top, scores, conv = rca.finalize_rank(rca.launch_rank(graph, names, kernel))
+    torch.cuda.synchronize()
+    ms["launch_and_finalize_cold"] = round((time.perf_counter() - t0) * 1e3, 3)
+    counts = {
+        "k1_launches": spmv.coo_spmv.launches,
+        "k1_spmvs": spmv.coo_spmv.spmvs,
+        "pattern_launches": pattern.pattern_pair_group.launches,
+        "pattern_products": pattern.pattern_pair_group.products,
+    }
+    shapes = budget_inequalities(graph, budget)
+    check(kernel == want, f"{tag}: auto resolved to {kernel}, want {want} ({shapes})")
+    if want in SIX_SPMV_KERNELS:
+        expect = {"k1_launches": STEPS, "k1_spmvs": STEPS * SPMVS_PER_STEP,
+                  "pattern_launches": 0, "pattern_products": 0}
+    else:
+        expect = {"k1_launches": STEPS, "k1_spmvs": STEPS * SS_SPMVS_PER_STEP,
+                  "pattern_launches": STEPS, "pattern_products": STEPS * 4}
+    check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
+
+    # The float64 oracle on the host graph.
+    t0 = time.perf_counter()
+    o_top, o_scores = rank_window_sparse(graph, names, cfg.pagerank, cfg.spectrum)
+    oracle_s = time.perf_counter() - t0
+    ok, why = tie_aware_topk_agreement(top, scores, o_top, o_scores, k=5, rtol=ORACLE_RTOL)
+    check(ok, f"{tag}: top-5 against the float64 oracle: {why}")
+    o_score = dict(zip(o_top, o_scores))
+    rel = max(abs(s - o_score[n]) / abs(o_score[n]) for n, s in zip(top, scores) if n in o_score)
+
+    # The stages again, warm, the device drained between them.
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = round((time.perf_counter() - t) * 1e3, 3)
+        return out
+
+    dgraph = stage("h2d", lambda: graph_from_numpy(host_subset(graph, kernel), dev))
+    dgraph = stage("layouts", lambda: device_subset(dgraph, kernel, cfg.pagerank.packed_block_bytes))
+
+    def rank():
+        return rank_window_traced_core(dgraph, cfg.pagerank, cfg.spectrum, kernel)
+
+    outs = stage("rank_issue_and_run", rank)
+    stage("fetch", lambda: fetch_rank_outputs(outs))
+    rank_device = device_ms(torch, rank, 3)
+
+    # One step of the kernel against its plain version on the card.
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if kernel == "pcsr":
+        parts = (dgraph.normal, dgraph.abnormal)
+        sizes = [n for p in parts for n in (p.kind.shape[0], p.cov_unique.shape[0])]
+        xs = [torch.rand(n, generator=gen, device=dev) for n in sizes]
+        layouts = [lay for p in parts for lay in pcsr_layouts(p)]
+        kern = measure_group(torch, spmv, f"giant/{kernel}", dgraph.spmv_group, layouts, xs, reps)
+    else:
+        group = dgraph.pattern_group
+        rvs = [torch.rand(p.n_cols, generator=gen, device=dev) for p in group.parts]
+        svs = [torch.rand(p.pattern.shape[0], generator=gen, device=dev) for p in group.parts]
+        kern = measure_pattern(torch, pattern, f"giant/{kernel}", group, rvs, svs, False, reps,
+                               cpu_check=False)
+    info = {
+        "phase": "giant",
+        "spans": gw.table.n_spans,
+        "operations": GIANT_OPS,
+        "resolved_kernel": kernel,
+        "dense_budget": shapes,
+        "incidence_entries": [int(p.n_inc) for p in (graph.normal, graph.abnormal)],
+        "call_edges": [int(p.n_ss) for p in (graph.normal, graph.abnormal)],
+        "launches": counts,
+        "top5": list(zip(top[:5], scores[:5])),
+        "oracle_top5": list(zip(o_top[:5], o_scores[:5])),
+        "top5_tie_aware_vs_oracle": True,
+        "oracle_rtol": ORACLE_RTOL,
+        "max_rel_score_diff_vs_oracle": rel,
+        "rank_iterations": None if conv is None else conv["iterations"],
+        "generate_s": round(gen_s, 3),
+        "oracle_s": round(oracle_s, 3),
+        "stage_ms": ms,
+        "rank_device_ms": None if rank_device is None else round(rank_device, 4),
+        "rank_device_busy_share": (
+            None if rank_device is None else round(rank_device / ms["rank_issue_and_run"], 4)
+        ),
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        "kernel": kern,
+    }
+    return counts, kern, info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spans", type=int, default=1_000_000)
     ap.add_argument("--ops", type=int, default=5000)
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument(
+        "--giant-spans", type=int, default=GIANT_SPANS,
+        help="spans of the larger giant window (the smaller holds a fifth; the "
+             "dense budget scales with it from 2 GiB at the default); 0 skips "
+             "the giant phase",
+    )
     args = ap.parse_args(argv)
 
     try:
@@ -853,15 +1108,33 @@ def main(argv=None) -> int:
         case, normal, abnormal, data = phase_data(args, workdir)
         emit(data)
         phase = "run"
-        launches, graphs = {}, {}
+        launches, graphs, results = {}, {}, {}
         for kernel in ("pallas", "auto"):
             for collapse in ("auto", "off"):
-                graph, counts, info = phase_run(
+                graph, counts, res, info = phase_run(
                     torch, spmv, pattern, case, normal, abnormal, collapse, kernel
                 )
                 launches[f"{kernel}/{collapse}"] = counts
                 graphs[f"{kernel}/{collapse}"] = graph
+                results[f"{kernel}/{collapse}"] = res
                 emit(info)
+        # Past the dense budget: the default auto, collapse off, at lowered
+        # budgets.
+        budgets = lowered_budgets(graphs["pallas/off"])
+        for want in ("packed_blocked", "pcsr"):
+            graph, counts, res, info = phase_run(
+                torch, spmv, pattern, case, normal, abnormal, "off", "auto",
+                budgets[want], want,
+            )
+            launches[f"auto/{want}"] = counts
+            graphs[f"auto/{want}"] = graph
+            if want == "pcsr":
+                same = [(r.ranking, r.rank_iterations) for r in res] == [
+                    (r.ranking, r.rank_iterations) for r in results["pallas/off"]
+                ]
+                check(same, "pcsr: ranking is not bitwise the pinned pallas run's")
+                info["ranking_bitwise_vs_pallas"] = True
+            emit(info)
         phase = "kernel"
         per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
@@ -870,6 +1143,19 @@ def main(argv=None) -> int:
         pairs = phase_pattern(torch, pattern, graphs, args.reps)
         emit({"phase": "pattern", "per_step": pairs, "rtol": KERNEL_RTOL,
               "packed_bf16_sweep": pattern_sweep(torch, pattern)})
+        phase = "giant"
+        giant = {}
+        if args.giant_spans:
+            budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
+            for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
+                                  (args.giant_spans, "pcsr")):
+                counts, kern, info = phase_giant(
+                    torch, spmv, pattern, n_spans, budget, want, args.reps
+                )
+                launches[f"giant/{want}"] = counts
+                giant[want] = kern
+                emit(info)
+                torch.cuda.empty_cache()
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         traceback.print_exc()
@@ -879,6 +1165,10 @@ def main(argv=None) -> int:
 
     step = per_step["off"]
     kind, packed = pairs["kind_f32"], pairs["packed_bf16"]
+    # packed_blocked runs K4 in f32: at the giant window of a fifth of
+    # --giant-spans, else at config 5's uncollapsed shapes ("packed").
+    blocked = giant.get("packed_blocked", pairs["packed"])
+    pcsr = giant.get("pcsr", per_step["pcsr"])
     emit({"kernels": [
         {
             "name": "coo_spmv",
@@ -928,6 +1218,40 @@ def main(argv=None) -> int:
             "bound_ms": packed["bound_ms"],
             "bound_by": packed["bound_by"],
             "library_ms": packed["library_ms"],
+        },
+        {
+            "name": "packed_blocked_pair",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:605",
+            "launches": sum(c["pattern_launches"] for k, c in launches.items()
+                            if k.endswith("/packed_blocked")),
+            "max_abs_err": blocked["max_abs_err"],
+            # One step (one launch, both partitions, both directions, f32)
+            # at the giant window's shapes; library_ms is four f32
+            # torch.matmul calls over the unpacked matrices.
+            "ms": blocked["ms"],
+            "plain_ms": blocked["plain_ms"],
+            "bound_ms": blocked["bound_ms"],
+            "bound_by": blocked["bound_by"],
+            "library_ms": blocked["library_ms"],
+        },
+        {
+            "name": "pcsr_group",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/coo_spmv.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:715",
+            "launches": sum(c["k1_launches"] for k, c in launches.items()
+                            if k.endswith("/pcsr")),
+            "max_abs_err": pcsr["max_abs_err"],
+            # One step (one launch, six SpMVs over the work list built from
+            # the partition-centric views) at the giant window's shapes;
+            # library_ms is six CSR matvecs.
+            "ms": pcsr["ms"],
+            "plain_ms": pcsr["plain_ms"],
+            "bound_ms": pcsr["bound_ms"],
+            "bound_by": pcsr["bound_by"],
+            "library_ms": pcsr["library_ms"],
         },
     ]})
     print(env["nvidia_smi"], flush=True)

@@ -2,7 +2,8 @@
 ``microrank_tpu/cli/main.py`` ``cmd_run``, plus ``synth``).
 
     python -m microrank_tpu_torch.cli run --normal N --abnormal A -o OUT [--device cuda|cpu]
-        [--kernel auto|kind|packed|packed_bf16|pallas] [--kind-precision f32|bf16]
+        [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
+        [--kind-precision f32|bf16]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
 
 ``run`` ranks every anomalous window of the abnormal dump and writes
@@ -91,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument(
         "--kernel", default="auto", choices=list(KERNELS),
         help="power-iteration kernel ('auto': 'kind' when the measured "
-        "kind dedup factor clears the threshold, else 'packed_bf16')",
+        "kind dedup factor clears the threshold, else 'packed_bf16'; past "
+        "the dense budget 'packed_blocked', then 'pcsr')",
     )
     p_run.add_argument(
         "--kind-precision", default="f32", choices=list(KIND_PRECISIONS),

@@ -3,8 +3,8 @@
 
 Only the knobs the native ``run`` lane reads are carried over: the
 detector, PageRank and spectrum settings, window arithmetic, the
-reference-compat flags, and the runtime fields that shape the graph
-build and the rank program. Field names and defaults match the JAX
+reference-compat flags, the runtime fields that shape the graph build
+and the rank program, and the ingest admission budgets. Field names and defaults match the JAX
 package so a reader can hold the two side by side. The kernels and
 precisions this package has not ported yet raise ``NotImplementedError``
 where the JAX package would run them.
@@ -16,11 +16,11 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-# Kernels this package implements. The JAX package's other kernel
-# families (packed_blocked, pcsr, csr, coo, dense) are queued in
-# ROADMAP.md ("Port queue", item 9); "auto" raises where it would pick
-# one of them.
-KERNELS = ("auto", "kind", "packed", "packed_bf16", "pallas")
+# Kernels this package implements: every kernel the JAX package's
+# kernel="auto" can pick, plus the pinned "pallas". The JAX package's
+# other kernel families (csr, coo, dense) are queued in ROADMAP.md
+# ("Port queue", item 10).
+KERNELS = ("auto", "kind", "packed", "packed_bf16", "packed_blocked", "pcsr", "pallas")
 # kernel="kind" coverage-pair precisions this package implements; the
 # JAX package's "int8" (per-step quantize_i8, int32 accumulation) is
 # queued in ROADMAP.md.
@@ -63,11 +63,17 @@ class PageRankConfig:
     # ranking vectors, capped at ``iterations``; None runs exactly
     # ``iterations`` steps like the reference.
     tol: Optional[float] = None
-    # kernel="kind" precision of the coverage matvec pair (the pattern
-    # is stored as int8 0/1 either way; the call-graph row-sum stays
-    # f32): "f32" (default) or "bf16" (operands rounded to bf16, f32
-    # accumulation).
+    # kernel="kind" precision of the coverage matvec pair (the kernel
+    # reads the kind pattern as a bitmap either way; the call-graph
+    # row-sum stays f32): "f32" (default) or "bf16" (operands rounded to
+    # bf16, f32 accumulation).
     kind_precision: str = "f32"
+    # kernel="packed_blocked": the most bytes of unpacked f32 coverage
+    # matrix the plain version (ops/pattern.py, the CPU path) holds at
+    # once; it unpacks one band of whole column tiles at a time. On the
+    # card it bounds nothing: the kernel reads the bitmap and never
+    # unpacks it.
+    packed_block_bytes: int = 128 << 20
 
     def __post_init__(self):
         if self.kind_precision == "int8":
@@ -123,21 +129,24 @@ class RuntimeConfig:
     """Execution knobs of the native lane."""
 
     # Power-iteration kernel, as in the JAX package:
-    #   "kind" — the coverage pattern as int8 0/1 over the collapsed
-    #       kind columns (K2, csrc/pattern_pair.cu) plus the call-graph
-    #       row-sum over the edge list (K1);
-    #   "packed" / "packed_bf16" — the coverage bitmap decoded in
-    #       registers (K4, csrc/pattern_pair.cu) plus the call-graph
-    #       term over the edge list (K1); f32 or bf16 operands, f32
-    #       accumulation;
+    #   "kind" — the coverage pattern over the collapsed kind columns,
+    #       read as a bitmap (K2, csrc/pattern_pair.cu), plus the
+    #       call-graph row-sum over the edge list (K1);
+    #   "packed" / "packed_bf16" — the coverage bitmap (K4,
+    #       csrc/pattern_pair.cu) plus the call-graph term over the edge
+    #       list (K1); f32 or bf16 operands, f32 accumulation;
+    #   "packed_blocked" — "packed" in f32 on windows whose unpacked
+    #       matrices exceed dense_budget_bytes (the kernel never unpacks);
+    #   "pcsr" — all six SpMVs of a step through K1, over a work list
+    #       built from the partition-centric views;
     #   "pallas" — every SpMV through K1 (the port of the JAX package's
     #       one Pallas kernel, ops/pallas_spmv.py); never chosen by auto;
     #   "auto" (default) — kind when the build kind-collapsed the window
-    #       and the measured dedup factor cleared kind_dedup_threshold,
-    #       else packed_bf16 (packed without prefer_bf16) when both
-    #       partitions' unpacked matrices fit dense_budget_bytes. Where
-    #       the JAX policy picks packed_blocked or pcsr instead, the
-    #       window raises NotImplementedError (ROADMAP.md item 9).
+    #       and the measured dedup factor cleared kind_dedup_threshold;
+    #       else, when both partitions' bitmaps fit a quarter of
+    #       dense_budget_bytes, packed_bf16 (packed without prefer_bf16)
+    #       if their unpacked matrices fit the budget and packed_blocked
+    #       if not; else pcsr.
     kernel: str = "auto"
     # Pad dynamic extents to buckets (graph.structures.pad_to).
     pad_policy: str = "pow2q"
@@ -169,8 +178,24 @@ class RuntimeConfig:
             raise NotImplementedError(
                 f"kernel={self.kernel!r} is not ported yet: this package "
                 f"implements {KERNELS}. The other kernel families are "
-                "ROADMAP.md 'Port queue' item 9."
+                "ROADMAP.md 'Port queue' item 10."
             )
+
+
+@dataclass(frozen=True)
+class IngestConfig:
+    """Span admission on the interned table (ingest.admit_table): the
+    fields of the JAX package's IngestConfig that its ``admit_table``
+    reads, with the same names and defaults."""
+
+    # Off: tables pass through untouched.
+    enabled: bool = True
+    # Longer than an hour is a corrupt export, not a span (reason
+    # duration_overflow); 0 disables the check.
+    max_duration_us: int = 3_600_000_000
+    # Spans of a trace past the cap reject in row order (reason
+    # trace_too_long); 0 disables the budget.
+    max_spans_per_trace: int = 4096
 
 
 @dataclass(frozen=True)
@@ -181,6 +206,7 @@ class MicroRankConfig:
     window: WindowConfig = field(default_factory=WindowConfig)
     compat: CompatConfig = field(default_factory=CompatConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    ingest: IngestConfig = field(default_factory=IngestConfig)
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)

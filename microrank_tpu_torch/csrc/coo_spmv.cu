@@ -55,6 +55,14 @@
 // it in shared memory per block would read more bytes than the matrices
 // hold.
 //
+// The same launch computes the six SpMVs of the pcsr kernel (K9,
+// microrank_tpu/rank_backends/jax_tpu.py:715), over a work list that
+// rank_backends/torch_cuda.py builds from the partition-centric views and
+// whose rows are those of the pallas work list. There the trace rows hold
+// a few entries each, so a step of a giant window is millions of
+// near-empty items, one warp each: the warp's fixed cost, not bytes, sets
+// the time (PERF.md).
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/spmv.py build_command); bound with ctypes (plain C interface).
 

@@ -2,7 +2,7 @@
 // power iterations, both partitions and both directions of a step in
 // one launch.
 //
-// Replaces two device programs that XLA wrote for the TPU in
+// Replaces device programs that XLA wrote for the TPU in
 // microrank_tpu/rank_backends/jax_tpu.py (`_partition_setup`):
 //   K2, the kind branch's `cov_pair` (558-576): M is the int8 0/1
 //       coverage pattern [V, K] over the kind-collapsed columns,
@@ -10,7 +10,11 @@
 //   K4, the packed branch's coverage pair (419-480): M is the coverage
 //       bitmap uint8 [V, ceil(T/8)], unpacked once per program into a
 //       dense f32 / bf16 [V, T] matrix (`unpack_bits`, 112-123).
-// Both compute, per partition,
+// K8, the packed_blocked branch (605-646), is K4 in f32 on windows whose
+// unpacked matrices exceed the dense budget: XLA streamed column blocks
+// of the bitmap so as never to hold the whole unpacked matrix. This
+// kernel never unpacks, so it runs packed_blocked as it runs packed.
+// All compute, per partition,
 //   y_fwd[r] = sum_c M[r, c] * op(rv[c] * w_len[c])    (p_sr @ rv)
 //   y_bwd[c] = sum_r op(sv[r] * w_cov[r]) * M[r, c]    (p_rs @ sv)
 // with op the identity (f32) or round-to-nearest-even to bf16

@@ -58,14 +58,19 @@ class PartitionGraph(NamedTuple):
     # -1: one column per trace; >= 0: the trace axis is kind-collapsed
     # into ``n_cols`` columns (``kind`` is then the multiplicity).
     n_cols: np.ndarray = np.int32(-1)
-    # Partition-centric views of the JAX pcsr kernel (never built by
-    # this package) and the kind kernel's int8 0/1 coverage pattern
-    # [V, K] over the collapsed columns.
-    pc_trace: np.ndarray = np.zeros((1, 0), np.int32)
-    pc_sr_val: np.ndarray = np.zeros((1, 0), np.float32)
-    pc_blk_indptr: np.ndarray = np.zeros((1, 0), np.int32)
-    pc_ell_op: np.ndarray = np.zeros((1, 0), np.int32)
-    pc_ell_rs: np.ndarray = np.zeros((1, 0), np.float32)
+    # Partition-centric views of the pcsr kernel (graph.build.
+    # pcsr_auxiliary; P = ceil(T / PCSR_PART_TRACES) trace partitions):
+    # forward tables in (partition, op, trace) order with every
+    # (partition, op) run padded to whole PCSR_BLOCK blocks, trace ids
+    # partition-local, pc_blk_indptr the block offset of each op's run;
+    # and the backward ELL slab, one row of W entries per trace. The
+    # kind kernel's int8 0/1 coverage pattern [V, K] over the collapsed
+    # columns.
+    pc_trace: np.ndarray = np.zeros((1, 0), np.int32)       # int32[P, Epb]
+    pc_sr_val: np.ndarray = np.zeros((1, 0), np.float32)    # float32[P, Epb]
+    pc_blk_indptr: np.ndarray = np.zeros((1, 0), np.int32)  # int32[P, V+1]
+    pc_ell_op: np.ndarray = np.zeros((1, 0), np.int32)      # int32[T, W]
+    pc_ell_rs: np.ndarray = np.zeros((1, 0), np.float32)    # float32[T, W]
     cov_i8: np.ndarray = np.zeros((1, 0), np.int8)
 
 

@@ -136,10 +136,10 @@ def detect_window_partition(
 
 
 def _graph_from_padded(p) -> PartitionGraph:
-    """Wrap one native PaddedPartition as a PartitionGraph: the bitmap
-    and kind views the build exported, and the CSR / partition-centric
-    views of the unported kernel families empty, shaped as the JAX
-    package's build leaves them when it does not build them."""
+    """Wrap one native PaddedPartition as a PartitionGraph: the bitmap,
+    kind and partition-centric views the build exported, and the CSR
+    views of the unported csr kernel empty, shaped as the JAX package's
+    build leaves them when it does not build them."""
     return PartitionGraph(
         inc_op=p.inc_op,
         inc_trace=p.inc_trace,
@@ -167,6 +167,11 @@ def _graph_from_padded(p) -> PartitionGraph:
         n_inc=np.int32(p.n_inc),
         n_ss=np.int32(p.n_ss),
         n_cols=np.int32(p.n_cols),
+        pc_trace=p.pc_trace,
+        pc_sr_val=p.pc_sr_val,
+        pc_blk_indptr=p.pc_blk_indptr,
+        pc_ell_op=p.pc_ell_op,
+        pc_ell_rs=p.pc_ell_rs,
         cov_i8=p.cov_i8,
     )
 
@@ -191,8 +196,10 @@ def build_window_graph_from_table(
     ``mask`` is a bool row filter (None = all rows), table-length or
     slice-local to ``row_range`` (lo, hi), which must contain every
     True row. ``aux`` picks the kernel views ("none", "packed", "kind",
-    or "auto": kind past ``kind_dedup_threshold`` on a collapsed window,
-    else packed; None takes the build module's default threshold).
+    "pcsr", or "auto": pcsr when the bitmaps would exceed a quarter of
+    ``dense_budget_bytes``, else kind past ``kind_dedup_threshold`` on a
+    collapsed window, else packed; None takes the build module's default
+    threshold).
     Returns (graph, op_names, normal_codes, abnormal_codes).
     """
     from ..native import build_window_padded

@@ -10,12 +10,13 @@ library ``libmrspan.so`` builds with ``g++`` at first use into
 * ``detect_window_native(...)`` — the fused one-scan window detector;
 * ``build_window_padded(...)`` — both partitions' COO graphs, built in
   fused counting sorts and exported into padded numpy buffers, with the
-  coverage / call-edge bitmaps (``mr_export_bitmaps``) and the kind
-  views when the auxiliary-view mode asks for them.
+  coverage / call-edge bitmaps (``mr_export_bitmaps``), the kind views
+  or the partition-centric views when the auxiliary-view mode asks for
+  them.
 
 The auxiliary-view modes ``"none"`` (the pallas kernel), ``"packed"``,
-``"kind"`` and ``"auto"`` are supported; the CSR and partition-centric
-views (``"csr"``, ``"pcsr"``, ``"all"``) belong to kernel families this
+``"kind"``, ``"pcsr"`` and ``"auto"`` are supported; the CSR views
+(``"csr"``, ``"all"``, ``"auto_all"``) belong to kernel families this
 package has not ported and raise ``NotImplementedError``.
 """
 
@@ -396,6 +397,13 @@ class PaddedPartition(NamedTuple):
     # -1 = per-trace layout; >= 0 = kind-collapsed into this many columns
     # while n_traces still counts true traces.
     n_cols: int = -1
+    # Partition-centric views (kernel="pcsr"; graph.build.pcsr_auxiliary
+    # over the exported trace-major entries).
+    pc_trace: np.ndarray = np.zeros((1, 0), np.int32)
+    pc_sr_val: np.ndarray = np.zeros((1, 0), np.float32)
+    pc_blk_indptr: np.ndarray = np.zeros((1, 0), np.int32)
+    pc_ell_op: np.ndarray = np.zeros((1, 0), np.int32)
+    pc_ell_rs: np.ndarray = np.zeros((1, 0), np.float32)
     # The kind views' int8 0/1 coverage pattern over the (collapsed)
     # columns (graph.build.kind_aux).
     cov_i8: np.ndarray = np.zeros((1, 0), np.int8)
@@ -423,21 +431,21 @@ def build_window_padded(
     ``normal_flag``/``abnormal_flag`` are bool arrays over the table's
     global trace codes; ``row_mask`` (bool over rows, or None) is the
     detection window; ``pad`` maps a true length to its padded length.
-    ``mode`` is an aux mode: resolved ("none" | "packed" | "kind"), or,
-    with ``collapse`` enabled, "auto", resolved here against the
-    collapsed shapes and the measured dedup factor (``dense_budget_bytes``
-    and ``kind_dedup_threshold``; None takes graph.build's defaults).
+    ``mode`` is an aux mode: resolved ("none" | "packed" | "kind" |
+    "pcsr"), or, with ``collapse`` enabled, "auto", resolved here against
+    the collapsed shapes and the measured dedup factor
+    (``dense_budget_bytes`` and ``kind_dedup_threshold``; None takes
+    graph.build's defaults).
     ``collapse`` ("off" | "auto" | "on") kind-collapses the trace axes
     inside the C++ build. ``parent_base`` is subtracted from each
     parent_row entry (callers pass a table slice plus its offset).
     """
-    if mode in ("csr", "pcsr", "all", "auto_all"):
+    if mode in ("csr", "all", "auto_all"):
         raise NotImplementedError(
-            f"aux mode {mode!r} is not ported: its CSR / partition-centric "
-            "views belong to the kernel families of ROADMAP.md's port "
-            "queue, item 9"
+            f"aux mode {mode!r} is not ported: its CSR views belong to the "
+            "kernel families of ROADMAP.md's port queue, item 10"
         )
-    if mode not in ("none", "packed", "kind", "auto"):
+    if mode not in ("none", "packed", "kind", "pcsr", "auto"):
         raise ValueError(f"unknown aux mode {mode!r}")
     if mode == "auto" and collapse == "off":
         raise ValueError(
@@ -515,12 +523,6 @@ def build_window_padded(
                     else kind_dedup_threshold
                 ),
             )
-            if mode not in ("packed", "kind"):
-                raise NotImplementedError(
-                    f"aux mode 'auto' resolved to {mode!r}, whose views "
-                    "belong to the kernel families of ROADMAP.md's port "
-                    "queue, item 9"
-                )
         want_bits = mode in ("packed", "kind")
         out = []
         for idx in range(2):
@@ -582,6 +584,19 @@ def build_window_padded(
                 p.inv_tracelen[p.inc_trace[:n_inc]] = p.sr_val[:n_inc]
                 p.inv_cov_dup[p.inc_op[:n_inc]] = p.rs_val[:n_inc]
                 p.inv_outdeg[p.ss_parent[:n_ss]] = p.ss_val[:n_ss]
+            if mode == "pcsr":
+                # Binned from the exported entries, which the C++ counting
+                # sort leaves in (trace, op) order.
+                from ..graph.build import pcsr_auxiliary
+
+                pc_trace, pc_sr, pc_blk, pc_eop, pc_ers = pcsr_auxiliary(
+                    p.inc_op, p.inc_trace, p.sr_val, p.rs_val,
+                    n_inc, v_pad, t_pad,
+                )
+                p = p._replace(
+                    pc_trace=pc_trace, pc_sr_val=pc_sr,
+                    pc_blk_indptr=pc_blk, pc_ell_op=pc_eop, pc_ell_rs=pc_ers,
+                )
             if mode == "kind":
                 from ..graph.build import kind_aux
 

@@ -2,11 +2,13 @@
 iterations, as a hand-written CUDA kernel (``csrc/pattern_pair.cu``)
 with its plain PyTorch version beside it.
 
-It replaces two device programs that XLA wrote for the TPU in
+It replaces three device programs that XLA wrote for the TPU in
 ``microrank_tpu/rank_backends/jax_tpu.py`` ``_partition_setup``: the
-kind branch's ``cov_pair`` (K2: an int8 0/1 pattern [V, K]) and the
-packed branch's coverage pair (K4: a big-endian bitmap [V, ceil(T/8)],
-``np.packbits`` order). Per partition, with op the identity or
+kind branch's ``cov_pair`` (K2: an int8 0/1 pattern [V, K]), the packed
+branch's coverage pair (K4: a big-endian bitmap [V, ceil(T/8)],
+``np.packbits`` order), and the packed_blocked branch's (K8: K4's
+function in f32, which XLA computed over column blocks of the bitmap so
+that the unpacked matrix never exceeds ``packed_block_bytes``). Per partition, with op the identity or
 round-to-nearest-even to bf16 of the f32 product:
 
     y_fwd[r] = sum_c M[r, c] * op(rv[c] * w_len[c])
@@ -20,7 +22,10 @@ Two steps:
   zero bytes to a multiple of ``ROW_ALIGN`` bytes; an int8 pattern is
   packed to it on its own device, nonzero -> 1), its loop-invariant
   weight vectors, the kernel's scratch (tile partials and arrival
-  counters) and, on the CPU, the plain version's 0/1 f32 matrices.
+  counters) and, on the CPU, the plain version's 0/1 f32 matrices —
+  or, with ``band_bytes`` (packed_blocked), none: the plain version then
+  unpacks one band of whole column tiles at a time, at most
+  ``band_bytes`` of f32 (one tile where a tile alone is larger).
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
   ``pattern_pair_group.launches``, the matvecs in ``.products``) or
@@ -34,8 +39,17 @@ the tile's columns 16l .. 16l + 15 in ascending order, the shuffle tree
 16, 8, 4, 2, 1 sums the lanes, and the column tiles' sums fold left to
 right. y_bwd[c]: in each row tile, rows in ascending order, then the row
 tiles' sums fold top to bottom. Both depend on the index alone, so
-equal rows and equal columns give bitwise-equal sums. What bounds the
-kernel on the card is in the note at the top of the CUDA source.
+equal rows and equal columns give bitwise-equal sums, and a band of
+whole column tiles computes its columns' y_bwd and its tiles' part of
+the y_fwd fold exactly as the whole matrix does. What bounds the kernel
+on the card is in the note at the top of the CUDA source.
+
+Memory on the card: the kernel never unpacks. ``pattern_group`` copies
+each bitmap into the kernel's row layout (``_bitmap_rows``), so the
+window's bitmaps sit on the card twice, and the scratch holds
+n_rt * n_ct * (TILE_R + TILE_C) floats per partition, about 31% of a
+bitmap's bytes. At the most that auto sends here (bitmaps of a quarter
+of the 2 GiB dense budget, 512 MiB) that is about 1.2 GiB, which fits.
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ class PatternPart(NamedTuple):
     counters: torch.Tensor         # int32[n_rt + n_ct] stripe arrivals, 0 between launches
     dense: Optional[torch.Tensor]  # float32[V, n_cols] 0/1, the plain version's (CPU)
     n_cols: int
+    band_cols: int = 0             # plain version's band of whole column tiles; 0: whole
 
 
 class PatternGroup(NamedTuple):
@@ -136,12 +151,15 @@ def pattern_group(
     w_outs: Sequence[Optional[torch.Tensor]],
     n_cols: Sequence[int],
     bits: bool,
+    band_bytes: Optional[int] = None,
 ) -> PatternGroup:
     """The per-window half of the pair for 1 or 2 partitions on one
     device: checks shapes and types once, brings every pattern to the
     kernel's bitmap layout (``bits``: the patterns are bitmaps already,
     else int8 0/1 bytes), allocates the scratch, and on the CPU builds the
-    plain version's 0/1 matrices."""
+    plain version's 0/1 matrices — unless ``band_bytes`` is given and a
+    partition's unpacked f32 matrix would exceed it: its plain version
+    then works in bands of whole column tiles within ``band_bytes``."""
     if not 1 <= len(patterns) <= 2:
         raise ValueError("pattern_group: 1 or 2 partitions")
     want = torch.uint8 if bits else torch.int8
@@ -165,6 +183,9 @@ def pattern_group(
             raise ValueError("pattern_group: every tensor must lie on one device")
         pat = _bitmap_rows(pat, k) if bits else pack_bits(pat, k)
         n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
+        band = 0
+        if band_bytes is not None and 4 * v * k > band_bytes:
+            band = max(1, band_bytes // (4 * max(v, 1) * TILE_C)) * TILE_C
         parts.append(PatternPart(
             pattern=pat,
             w_len=w_len.contiguous(),
@@ -172,8 +193,9 @@ def pattern_group(
             w_out=None if w_out is None else w_out.contiguous(),
             part=torch.zeros(n_rt * n_ct * (TILE_R + TILE_C), dtype=torch.float32, device=dev),
             counters=torch.zeros(n_rt + n_ct, dtype=torch.int32, device=dev),
-            dense=unpack_bits(pat, k) if dev.type == "cpu" else None,
+            dense=unpack_bits(pat, k) if dev.type == "cpu" and not band else None,
             n_cols=k,
+            band_cols=band,
         ))
     return PatternGroup(parts=tuple(parts))
 
@@ -183,12 +205,16 @@ def _op(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
 
 
-def fwd_plain(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def fwd_plain(
+    m: torch.Tensor, a: torch.Tensor, y: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """y[r] = sum_c m[r, c] * a[c] in the kernel's order: in each column
     tile of TILE_C, lane l sums columns LANE_COLS * l .. in order and the
     shuffle tree 16, 8, 4, 2, 1 sums the lanes; then the column tiles'
     sums fold left to right. Zero cells add +0.0, which the kernel
-    selects instead: the same bits."""
+    selects instead: the same bits. ``y``: the fold of the column tiles
+    left of ``m``, when ``m`` is a band of whole tiles of a wider
+    matrix."""
     v, k = m.shape
     n_ct = _n_col_tiles(k)
     prod = torch.zeros((v, n_ct * TILE_C), dtype=torch.float32, device=m.device)
@@ -201,7 +227,8 @@ def fwd_plain(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     while off:
         lanes = lanes[..., :off] + lanes[..., off: 2 * off]
         off //= 2
-    y = torch.zeros(v, dtype=torch.float32, device=m.device)
+    if y is None:
+        y = torch.zeros(v, dtype=torch.float32, device=m.device)
     for j in range(n_ct):
         y = y + lanes[:, j, 0]
     return y
@@ -236,12 +263,29 @@ def pattern_pair_plain(
     _check_vectors(group, rvs, svs)
     out = []
     for p, rv, sv in zip(group.parts, rvs, svs):
-        m = p.dense if p.dense is not None else unpack_bits(p.pattern, p.n_cols)
-        y_fwd = fwd_plain(m, _op(rv * p.w_len, bf16))
-        y_bwd = bwd_plain(m, _op(sv * p.w_cov, bf16))
+        a, b = _op(rv * p.w_len, bf16), _op(sv * p.w_cov, bf16)
+        if p.band_cols:
+            y_fwd, y_bwd = _pair_in_bands(p, a, b)
+        else:
+            m = p.dense if p.dense is not None else unpack_bits(p.pattern, p.n_cols)
+            y_fwd, y_bwd = fwd_plain(m, a), bwd_plain(m, b)
         x_ss = None if p.w_out is None else _op(sv * p.w_out, bf16)
         out.append((y_fwd, y_bwd, x_ss))
     return tuple(out)
+
+
+def _pair_in_bands(p: PatternPart, a: torch.Tensor, b: torch.Tensor):
+    """The plain pair of one partition, unpacking ``p.band_cols`` columns
+    (whole TILE_C tiles) at a time: the fwd fold carries from band to
+    band, each band gives its own columns' y_bwd."""
+    y_fwd = torch.zeros(p.pattern.shape[0], dtype=torch.float32, device=a.device)
+    y_bwd = []
+    for c0 in range(0, p.n_cols, p.band_cols):
+        k = min(p.band_cols, p.n_cols - c0)
+        m = unpack_bits(p.pattern[:, c0 // 8: c0 // 8 + -(-k // 8)], k)
+        y_fwd = fwd_plain(m, a[c0: c0 + k], y_fwd)
+        y_bwd.append(bwd_plain(m, b))
+    return y_fwd, torch.cat(y_bwd)
 
 
 def _check_vectors(group: PatternGroup, rvs, svs) -> None:

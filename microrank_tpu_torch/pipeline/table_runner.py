@@ -7,9 +7,13 @@ extra ``skip_minutes`` after an anomalous window), fused C++ detection,
 the C++ graph build with in-build kind collapse, and one rank program
 per anomalous window on the device, fetched in one copy.
 
+Ingest admission (``ingest.admit_table``) runs where the JAX lane runs
+it: on the normal table before the SLO fit, and on the table under
+suspicion before detection.
+
 Not ported yet (ROADMAP.md "Port queue"): the mesh, batch windows,
-bulk fetch, the async staging pool, ingest admission, the tuned policy,
-the journal and the metrics registry.
+bulk fetch, the async staging pool, the quarantine store, the tuned
+policy, the journal and the metrics registry.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..graph.table_ops import (
     compute_slo_from_table,
     detect_window_partition,
 )
+from ..ingest import admit_table
 from ..rank_backends.convert import graph_from_numpy
 from ..rank_backends.torch_cuda import (
     choose_kernel,
@@ -106,6 +111,10 @@ class TableRCA:
     def fit_baseline(self, normal_table) -> None:
         from ..detect.detector import _thresholds
 
+        # A poisoned normal dump must not poison the SLO floor.
+        normal_table, _ = admit_table(
+            normal_table, self.config.ingest, source="table:normal"
+        )
         self.slo_vocab, self.baseline = compute_slo_from_table(
             normal_table, stat=self.config.detector.slo_stat
         )
@@ -169,7 +178,9 @@ class TableRCA:
         ``finalize_rank``."""
         cfg = self.config
         dgraph = device_subset(
-            graph_from_numpy(host_subset(graph, kernel), self.device), kernel
+            graph_from_numpy(host_subset(graph, kernel), self.device),
+            kernel,
+            cfg.pagerank.packed_block_bytes,
         )
         outs = rank_window_traced_core(
             dgraph, cfg.pagerank, cfg.spectrum, kernel
@@ -216,6 +227,7 @@ class TableRCA:
         cfg = self.config
         if self.baseline is None:
             raise RuntimeError("call fit_baseline() before run()")
+        table, _ = admit_table(table, cfg.ingest, source="table")
         if sink is None and out_dir is not None:
             sink = ResultSink(out_dir, overwrite_csv=cfg.compat.overwrite_results)
         if table.n_spans == 0:

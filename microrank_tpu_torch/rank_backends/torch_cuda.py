@@ -1,6 +1,6 @@
 """The per-window rank program on torch tensors (counterpart of
 ``microrank_tpu/rank_backends/jax_tpu.py``, kernels "kind", "packed",
-"packed_bf16" and "pallas"):
+"packed_bf16", "packed_blocked", "pcsr" and "pallas"):
 
     preference vectors -> 25 power-iteration steps over both partitions
     -> rescale -> spectrum counters -> formula -> tie-broken top-k
@@ -10,11 +10,17 @@ partitions) take one or two launches, built for the window by
 ``device_subset``:
 
 * ``pallas``: all six SpMVs through K1 in one call
-  (``ops.spmv.coo_spmv_group``);
-* ``kind`` / ``packed`` / ``packed_bf16``: the coverage pair of both
-  partitions in one call of K2 / K4 (``ops.pattern.pattern_pair_group``:
-  the int8 pattern, or the bitmap decoded in registers), then both
-  call-graph terms over the call-edge list in one K1 call.
+  (``ops.spmv.coo_spmv_group``) over the COO incidence arrays;
+* ``pcsr``: the same six SpMVs in one K1 call, over a work list built
+  from the partition-centric views (``window_pcsr_group``), which holds
+  the pallas work list's rows: the same products, bit for bit;
+* ``kind`` / ``packed`` / ``packed_bf16`` / ``packed_blocked``: the
+  coverage pair of both partitions in one call of K2 / K4
+  (``ops.pattern.pattern_pair_group``, over the kind pattern or the
+  coverage bitmap), then both call-graph terms over the call-edge list
+  in one K1 call. ``packed_blocked`` is ``packed`` (f32) on windows
+  whose unpacked matrices exceed the dense budget: K4 never unpacks the
+  bitmap, so only its plain version (the CPU path) works in bands.
 
 On the card each call is one launch of a CUDA kernel, on the CPU its
 plain version. The loop issues device work only — no step reads a value
@@ -39,7 +45,12 @@ import numpy as np
 import torch
 
 from ..config import KERNELS, PageRankConfig, SpectrumConfig
-from ..graph.build import DEFAULT_DENSE_BUDGET_BYTES, packed_unpacked_bytes
+from ..graph.build import (
+    DEFAULT_DENSE_BUDGET_BYTES,
+    PCSR_BLOCK,
+    PCSR_PART_TRACES,
+    packed_unpacked_bytes,
+)
 from ..graph.structures import PartitionGraph, WindowGraph
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group
 from ..ops.spmv import RowLayout, SpmvGroup, coo_spmv_group, row_layout, spmv_group
@@ -59,7 +70,7 @@ def _check_kernel(kernel: str) -> None:
     if kernel not in KERNELS:
         raise NotImplementedError(
             f"kernel={kernel!r} is not ported (this package runs "
-            f"{KERNELS}; see ROADMAP.md's port queue, item 9)"
+            f"{KERNELS}; see ROADMAP.md's port queue, item 10)"
         )
 
 
@@ -71,11 +82,12 @@ def choose_kernel(
     """The auto kernel policy, by presence of the views the build made
     (graph.build.resolve_aux holds the budget policy), as
     ``jax_tpu.choose_kernel``: "kind" when both partitions carry the kind
-    views, "packed_bf16" / "packed" when they carry bitmaps whose
-    unpacked f32 matrices fit ``dense_budget_bytes``. Where the JAX
-    policy goes on to "packed_blocked", "pcsr", "csr" or "coo", this
-    raises NotImplementedError: those kernels are not ported, and no
-    other kernel stands in for them."""
+    views; with bitmaps, "packed_bf16" / "packed" when their unpacked
+    f32 matrices fit ``dense_budget_bytes``, else "packed_blocked"
+    (always f32); "pcsr" with the partition-centric views. Where the JAX
+    policy goes on to "csr" or "coo", this raises NotImplementedError:
+    those kernels are not ported, and no other kernel stands in for
+    them."""
     if dense_budget_bytes is None:
         dense_budget_bytes = DEFAULT_DENSE_BUDGET_BYTES
     parts = (graph.normal, graph.abnormal)
@@ -88,16 +100,13 @@ def choose_kernel(
         )
         if unpacked <= dense_budget_bytes:
             return "packed_bf16" if prefer_bf16 else "packed"
-        kernel = "packed_blocked"
-    elif all(int(g.pc_trace.shape[-1]) > 0 for g in parts):
-        kernel = "pcsr"
-    elif all(int(g.inc_indptr_op.shape[-1]) > 0 for g in parts):
-        kernel = "csr"
-    else:
-        kernel = "coo"
+        return "packed_blocked"
+    if all(int(g.pc_trace.shape[-1]) > 0 for g in parts):
+        return "pcsr"
+    kernel = "csr" if all(int(g.inc_indptr_op.shape[-1]) > 0 for g in parts) else "coo"
     raise NotImplementedError(
         f"kernel='auto' resolves to {kernel!r} for this window, which is "
-        "not ported yet (ROADMAP.md port queue, item 9)"
+        "not ported yet (ROADMAP.md port queue, item 10)"
     )
 
 
@@ -154,16 +163,77 @@ def spmv_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
 STEP_X_SLOTS = (0, 1, 1, 2, 3, 3)
 
 
-def window_spmv_group(graph: WindowGraph) -> SpmvGroup:
+def window_spmv_group(graph: WindowGraph, layouts_of=spmv_layouts) -> SpmvGroup:
     """K1's work list of one power-iteration step: the three matrices of
-    the normal partition, then of the abnormal one, read from x slots
-    ``STEP_X_SLOTS``."""
+    the normal partition, then of the abnormal one (``layouts_of`` each
+    partition), read from x slots ``STEP_X_SLOTS``."""
     layouts, n_x = [], []
     for g in (graph.normal, graph.abnormal):
         v, t_pad = g.cov_unique.shape[0], g.kind.shape[0]
-        layouts += spmv_layouts(g)
+        layouts += layouts_of(g)
         n_x += [t_pad, v, v]
     return spmv_group(layouts, STEP_X_SLOTS, n_x)
+
+
+def pcsr_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
+    """K1's row layouts of p_sr, p_ss and p_rs read from the
+    partition-centric views instead of the COO incidence arrays.
+
+    p_sr (rows = ops): entry j of partition p's forward table belongs to
+    op o when its block j // PCSR_BLOCK lies in [pc_blk_indptr[p, o],
+    pc_blk_indptr[p, o + 1]); its column is the global trace
+    pc_trace + p * PCSR_PART_TRACES. p_rs (rows = traces): the ELL slab's
+    row t. p_ss: the call-edge list, as the pallas path reads it.
+
+    Liveness: a live value is never 0 (sr_val = 1 / tracelen, rs_val =
+    1 / cov_dup) and every padding value is (the block padding inside
+    each (partition, op) run, the slab's tail), so the nonzero entries
+    are the live ones; each table must hold ``n_inc`` of them, checked
+    here once per window. A row then holds the entries of the pallas
+    path's ``spmv_layouts`` in the same order (an op's traces ascending,
+    partition by partition; a trace's ops ascending), and K1, whose sums
+    depend on a row's entries and their order alone, gives the same
+    bits."""
+    if g.pc_trace.shape[-1] == 0:
+        raise ValueError(
+            "kernel='pcsr' needs the partition-centric views, but this "
+            "window was built without them: build with aux='pcsr' (aux='auto' "
+            "resolves to it past a quarter of the dense budget in bitmaps)"
+        )
+    v, t_pad = g.cov_unique.shape[0], g.kind.shape[0]
+    n_parts, e_blk = g.pc_trace.shape
+    dev = g.pc_trace.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    blocks = torch.arange(e_blk // PCSR_BLOCK, dtype=torch.int64, device=dev)
+    block_op = torch.searchsorted(
+        g.pc_blk_indptr[:, 1:].to(torch.int64).contiguous(),
+        blocks.expand(n_parts, -1).contiguous(),
+        right=True,
+    )
+    live = g.pc_sr_val != 0
+    sr_rows = block_op.repeat_interleave(PCSR_BLOCK, dim=1)[live].to(torch.int32)
+    part_base = torch.arange(n_parts, **i32)[:, None] * PCSR_PART_TRACES
+    sr_cols = (g.pc_trace + part_base)[live]
+    ell_live = g.pc_ell_rs != 0
+    rs_rows = torch.arange(t_pad, **i32)[:, None].expand_as(g.pc_ell_op)[ell_live]
+    n_inc = int(g.n_inc)
+    if not sr_rows.shape[0] == rs_rows.shape[0] == n_inc:
+        raise ValueError(
+            f"pcsr views hold {sr_rows.shape[0]} forward and "
+            f"{rs_rows.shape[0]} backward nonzero entries, not n_inc={n_inc}"
+        )
+    return (
+        row_layout(sr_rows, sr_cols, g.pc_sr_val[live], v),
+        row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss),
+        row_layout(rs_rows, g.pc_ell_op[ell_live], g.pc_ell_rs[ell_live], t_pad),
+    )
+
+
+def window_pcsr_group(graph: WindowGraph) -> SpmvGroup:
+    """K1's work list of one pcsr step, built once per window from the
+    partition-centric views (``pcsr_layouts``): the rows, the x slots
+    and so the products of the pallas path's ``window_spmv_group``."""
+    return window_spmv_group(graph, pcsr_layouts)
 
 
 def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
@@ -184,10 +254,15 @@ def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
     return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss)
 
 
-def window_pattern_group(graph: WindowGraph, kernel: str) -> PatternGroup:
+def window_pattern_group(
+    graph: WindowGraph,
+    kernel: str,
+    packed_block_bytes: int = PageRankConfig.packed_block_bytes,
+) -> PatternGroup:
     """Both partitions' coverage patterns as one pattern-pair launch
     reads them: the int8 kind pattern (K2) or the coverage bitmap (K4),
-    over the padded trace (or kind) axis."""
+    over the padded trace (or kind) axis. Under "packed_blocked" the
+    plain version unpacks bands of at most ``packed_block_bytes``."""
     parts = (graph.normal, graph.abnormal)
     if kernel == "kind":
         if any(g.cov_i8.shape[-1] == 0 or g.ss_indptr.shape[-1] == 0 for g in parts):
@@ -211,6 +286,7 @@ def window_pattern_group(graph: WindowGraph, kernel: str) -> PatternGroup:
         w_outs,
         [g.kind.shape[0] for g in parts],
         bits,
+        band_bytes=packed_block_bytes if kernel == "packed_blocked" else None,
     )
 
 
@@ -268,10 +344,11 @@ def window_weights_full(
     cfg = pagerank_cfg
     alpha_n, pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
     alpha_a, pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
-    if graph.spmv_group is None or (graph.pattern_group is None) != (kernel == "pallas"):
-        graph = device_subset(graph, kernel)
+    six_spmvs = kernel in ("pallas", "pcsr")
+    if graph.spmv_group is None or (graph.pattern_group is None) != six_spmvs:
+        graph = device_subset(graph, kernel, cfg.packed_block_bytes)
     group = graph.spmv_group
-    if kernel == "pallas":
+    if six_spmvs:
 
         def products(old_n, old_a):
             # One K1 call: all six SpMVs of the step (x slots STEP_X_SLOTS).
@@ -454,10 +531,11 @@ def fetch_rank_outputs(outs):
 
 # Fields each kernel never reads, dropped on the host before the graph
 # is copied to the device (jax_tpu._KERNEL_UNUSED_FIELDS with its
-# default staging of the call graph as an edge list). packed reads the
-# coverage bitmap, the edge list and the inverse vectors; kind the int8
-# pattern, the edge values, parents and row offsets, and the inverse
-# vectors. Neither reads the COO incidence arrays, the largest leaves.
+# default staging of the call graph as an edge list). The packed family
+# reads the coverage bitmap, the edge list and the inverse vectors; kind
+# the int8 pattern, the edge values, parents and row offsets, and the
+# inverse vectors; pcsr the partition-centric views and the edge list.
+# None of them reads the COO incidence arrays, the largest leaves.
 _PC_FIELDS = ("pc_trace", "pc_sr_val", "pc_blk_indptr", "pc_ell_op", "pc_ell_rs")
 _PACKED_UNUSED = (
     "inc_op", "inc_trace", "sr_val", "rs_val", "ss_val",
@@ -469,9 +547,18 @@ _KIND_UNUSED = (
     "inc_indptr_op", "inc_indptr_trace",
     "cov_bits", "ss_bits", "ss_child",
 ) + _PC_FIELDS
+_PCSR_UNUSED = (
+    "inc_op", "inc_trace", "sr_val", "rs_val",
+    "inc_trace_opmajor", "sr_val_opmajor",
+    "inc_indptr_op", "inc_indptr_trace", "ss_indptr",
+    "cov_bits", "ss_bits", "inv_tracelen", "inv_cov_dup", "inv_outdeg",
+    "cov_i8",
+)
 KERNEL_UNUSED_FIELDS = {
     "packed": _PACKED_UNUSED,
     "packed_bf16": _PACKED_UNUSED,
+    "packed_blocked": _PACKED_UNUSED,
+    "pcsr": _PCSR_UNUSED,
     "kind": _KIND_UNUSED,
 }
 
@@ -493,16 +580,25 @@ def host_subset(graph, kernel: str):
     return graph._replace(normal=strip(graph.normal), abnormal=strip(graph.abnormal))
 
 
-def device_subset(graph: WindowGraph, kernel: str = "pallas") -> WindowGraph:
+def device_subset(
+    graph: WindowGraph,
+    kernel: str = "pallas",
+    packed_block_bytes: int = PageRankConfig.packed_block_bytes,
+) -> WindowGraph:
     """The graph as the kernels consume it, built once per window so each
-    power-iteration step is one or two launches: for "pallas", K1's work
-    list of the six SpMVs (``spmv_group``); for the kind and packed
-    kernels, the pattern-pair group of both coverage patterns
-    (``pattern_group``) and K1's work list of both call-graph terms."""
+    power-iteration step is one or two launches: for "pallas" and
+    "pcsr", K1's work list of the six SpMVs (``window_spmv_group`` over
+    the COO arrays, ``window_pcsr_group`` over the partition-centric
+    views); for the kind and packed kernels, the pattern-pair group of
+    both coverage patterns (``window_pattern_group``; packed_blocked's
+    plain version in bands of ``packed_block_bytes``) and K1's work list
+    of both call-graph terms."""
     _check_kernel(kernel)
     if kernel == "pallas":
         return graph._replace(spmv_group=window_spmv_group(graph))
-    pgroup = window_pattern_group(graph, kernel)  # checks the views first
+    if kernel == "pcsr":
+        return graph._replace(spmv_group=window_pcsr_group(graph))
+    pgroup = window_pattern_group(graph, kernel, packed_block_bytes)  # checks the views first
     parts = (graph.normal, graph.abnormal)
     layouts = [ss_layout(g, kernel) for g in parts]
     v = [int(g.cov_unique.shape[0]) for g in parts]

@@ -1,3 +1,15 @@
-from .synthetic import SyntheticConfig, generate_case, generate_case_with_spans
+from .synthetic import (
+    GiantWindow,
+    SyntheticConfig,
+    generate_case,
+    generate_case_with_spans,
+    giant_window,
+)
 
-__all__ = ["SyntheticConfig", "generate_case", "generate_case_with_spans"]
+__all__ = [
+    "GiantWindow",
+    "SyntheticConfig",
+    "generate_case",
+    "generate_case_with_spans",
+    "giant_window",
+]

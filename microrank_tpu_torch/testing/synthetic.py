@@ -14,6 +14,11 @@ the columns the native loader reads).
 Only the latency fault family with the unconstrained fault choice is
 ported (``fault_path_overlap=None``); the error / cascade / drift knobs
 and the timelines serve lanes this package does not have yet.
+
+``giant_window`` is bench.py's giant-window tier (its
+``_synthesize_giant_partition``) lifted to an in-memory span table: the
+window past the dense budget, where kernel="auto" picks packed_blocked
+or pcsr.
 """
 
 from __future__ import annotations
@@ -273,3 +278,71 @@ def generate_case_with_spans(cfg: SyntheticConfig, target_spans: int) -> Synthet
     """A case whose windows hold ~``target_spans`` spans each."""
     n_traces = _traces_for_spans(cfg, target_spans)
     return generate_case(SyntheticConfig(**{**cfg.__dict__, "n_traces": n_traces}))
+
+
+@dataclass
+class GiantWindow:
+    """One giant detection window as an in-memory span table with its
+    partition given (``giant_window``)."""
+
+    table: object               # native.SpanTable, rows time-sorted
+    normal_codes: np.ndarray    # int64 trace codes of the normal partition
+    abnormal_codes: np.ndarray  # int64 trace codes of the abnormal partition
+
+
+def giant_window(
+    n_spans: int = 10_485_760,
+    n_ops: int = 2048,
+    spans_per_trace: int = 4,
+    seed: int = 12,
+) -> GiantWindow:
+    """bench.py's giant-window tier (``_synthesize_giant_partition``)
+    lifted to spans, so that it feeds the C++ graph build. Per partition,
+    ``n_spans / (2 * spans_per_trace)`` traces each draw
+    ``spans_per_trace`` ops uniformly from an ``n_ops`` vocab (nearly
+    every trace is a kind of its own, so the kind collapse cannot shrink
+    the window), and ``4 * n_ops`` spans at random non-root positions
+    get a parent, an earlier span of the same trace: a small random
+    call-edge set, as bench.py's. The op codes are bench.py's first draw
+    from the same seed. Normal traces come first, then abnormal ones;
+    names are ``op00000`` .. (the vocab in name order) and ``g<code>``.
+    Seeded, no CSV. Durations and times are constant: the partition is
+    given, and nothing detects on this table."""
+    from ..native import SpanTable
+
+    rng = np.random.default_rng(seed)
+    n_traces = n_spans // (2 * spans_per_trace)  # per partition
+    per_part = n_traces * spans_per_trace
+    ops, parents = [], []
+    for part in range(2):
+        ops.append(rng.integers(0, n_ops, size=per_part, dtype=np.int64))
+        n_edges = 4 * n_ops
+        trace = rng.integers(0, n_traces, size=n_edges)
+        pos = rng.integers(1, spans_per_trace, size=n_edges)
+        parent_pos = rng.integers(0, pos)
+        first = trace * spans_per_trace  # the trace's first row in its partition
+        parent = np.full(per_part, -1, dtype=np.int64)
+        parent[first + pos] = part * per_part + first + parent_pos
+        parents.append(parent)
+    n_rows = 2 * per_part
+    pod_op = np.concatenate(ops).astype(np.int32)
+    t0 = int(T0.astype(np.int64))
+    names = [f"op{i:05d}" for i in range(n_ops)]
+    table = SpanTable(
+        trace_id=np.repeat(np.arange(2 * n_traces, dtype=np.int32), spans_per_trace),
+        svc_op=pod_op,
+        pod_op=pod_op,
+        duration_us=np.full(n_rows, 1000, dtype=np.int64),
+        start_us=np.full(n_rows, t0, dtype=np.int64),
+        end_us=np.full(n_rows, t0 + 1000, dtype=np.int64),
+        parent_row=np.concatenate(parents),
+        trace_names=[f"g{i}" for i in range(2 * n_traces)],
+        svc_op_names=names,
+        pod_op_names=list(names),
+        time_sorted=True,
+    )
+    return GiantWindow(
+        table=table,
+        normal_codes=np.arange(n_traces, dtype=np.int64),
+        abnormal_codes=np.arange(n_traces, 2 * n_traces, dtype=np.int64),
+    )

@@ -269,3 +269,61 @@ def test_auto_lane_on_cuda_matches_cpu(cuda_device, collapse, kernel, tmp_path):
         )
         assert ok, why
         assert g.rank_iterations == c.rank_iterations
+
+
+@pytest.mark.parametrize("budget,kernel", [(64 * 1024, "packed_blocked"), (4096, "pcsr")])
+def test_lane_past_the_budget_on_cuda_matches_cpu(cuda_device, budget, kernel, tmp_path):
+    # A lowered dense budget sends auto past it: packed_blocked (one
+    # pattern-pair launch and one K1 launch of two SpMVs per step) or
+    # pcsr (one K1 launch of six SpMVs per step).
+    from microrank_tpu_torch.pipeline import run_rca_native
+
+    case = generate_case(CASE)
+    normal, abnormal = case.write_csvs(tmp_path)
+    cfg = MicroRankConfig(
+        runtime=RuntimeConfig(collapse_kinds="off", dense_budget_bytes=budget)
+    )
+    spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = pattern.pattern_pair_group.launches = 0
+    gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
+    ranked = [r for r in gpu if r.ranking]
+    assert ranked and {r.kernel for r in ranked} == {kernel}
+    n = 25 * len(ranked)
+    pairs, spmvs = (n, 2 * n) if kernel == "packed_blocked" else (0, 6 * n)
+    assert (pattern.pattern_pair_group.launches, spmv.coo_spmv.launches) == (pairs, n)
+    assert spmv.coo_spmv.spmvs == spmvs
+    assert ranked[0].ranking[0][0] == case.fault_pod_op
+    cpu = run_rca_native(normal, abnormal, cfg, device="cpu")
+    for g, c in zip(gpu, cpu):
+        ok, why = tie_aware_topk_agreement(
+            [n_ for n_, _ in g.ranking], [s for _, s in g.ranking],
+            [n_ for n_, _ in c.ranking], [s for _, s in c.ranking],
+            k=len(g.ranking), rtol=1e-5,
+        )
+        assert ok, why
+        assert g.rank_iterations == c.rank_iterations
+
+
+def test_pcsr_group_on_cuda_is_bitwise_pallas_and_plain(cuda_device, tmp_path):
+    # The pcsr work list, built on the card from the partition-centric
+    # views, gives the pallas work list's bits and its plain version's.
+    from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+    from microrank_tpu_torch.testing import giant_window
+
+    gw = giant_window(n_spans=200_000, n_ops=256)
+    graph, _, _, _ = build_window_graph_from_table(
+        gw.table, None, gw.normal_codes, gw.abnormal_codes, aux="pcsr"
+    )
+    pc = device_subset(graph_from_numpy(host_subset(graph, "pcsr"), cuda_device), "pcsr")
+    pal = device_subset(graph_from_numpy(graph, cuda_device), "pallas")
+    rng = np.random.default_rng(4)
+    sizes = [p.kind.shape[0] if i % 2 == 0 else p.cov_unique.shape[0]
+             for i, p in enumerate((graph.normal, graph.normal, graph.abnormal, graph.abnormal))]
+    xs = [torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(cuda_device) for n in sizes]
+    y_pc = torch.cat(spmv.coo_spmv_group(pc.spmv_group, xs))
+    y_pal = torch.cat(spmv.coo_spmv_group(pal.spmv_group, xs))
+    cpu_group = spmv.SpmvGroup(*(t.cpu() if torch.is_tensor(t) else t for t in pc.spmv_group))
+    y_plain = torch.cat(spmv.coo_spmv_group_plain(cpu_group, [x.cpu() for x in xs]))
+    torch.cuda.synchronize()
+    assert torch.equal(y_pc, y_pal) and torch.equal(y_pc.cpu(), y_plain)

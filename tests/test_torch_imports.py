@@ -95,19 +95,24 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 
 def test_unported_kernels_raise():
+    from microrank_tpu.config import PageRankConfig as JaxPageRank
+    from microrank_tpu.config import RuntimeConfig as JaxRuntime
     from microrank_tpu_torch.config import PageRankConfig, RuntimeConfig
 
-    for kernel in ("packed_blocked", "pcsr", "csr", "coo", "dense"):
+    for kernel in ("csr", "coo", "dense"):
+        assert JaxRuntime(kernel=kernel).kernel == kernel
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RuntimeConfig(kernel=kernel)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PageRankConfig(kind_precision="int8")
     with pytest.raises(ValueError, match="kind_precision"):
         PageRankConfig(kind_precision="fp8")
-    for kernel in ("auto", "kind", "packed", "packed_bf16", "pallas"):
-        assert RuntimeConfig(kernel=kernel).kernel == kernel
+    # Every kernel JAX's auto can pick is accepted, as in JAX.
+    for kernel in ("auto", "kind", "packed", "packed_bf16", "packed_blocked", "pcsr", "pallas"):
+        assert RuntimeConfig(kernel=kernel).kernel == JaxRuntime(kernel=kernel).kernel == kernel
     assert RuntimeConfig().kernel == "auto" and RuntimeConfig().prefer_bf16
     assert PageRankConfig().kind_precision == "f32"
+    assert PageRankConfig().packed_block_bytes == JaxPageRank().packed_block_bytes
 
 
 def test_chip_smoke_refuses_without_cuda_or_port(tmp_path):

@@ -16,7 +16,7 @@ its plain version, which repeats the kernel's order).
   scores rtol 5e-3 (the same residual bound held); identical top-1,
   ``n_valid`` and ``n_iters``;
 * the auto policy: ``choose_kernel`` gives JAX's string, and raises
-  where JAX picks a kernel this package has not ported.
+  where JAX picks a kernel this package has not ported (csr, coo).
 """
 
 import jax
@@ -346,24 +346,29 @@ def test_choose_kernel_matches_jax(aux, collapse, prefer_bf16, small_case):
 
 
 def test_choose_kernel_raises_where_jax_picks_unported(small_case):
-    # Bitmaps whose unpacked matrices exceed the budget: JAX streams them
-    # as packed_blocked; a tiny budget at build time gives pcsr views.
+    # Past the dense budget the port picks what JAX picks: packed_blocked
+    # over bitmaps whose unpacked matrices exceed the budget, pcsr over
+    # the partition-centric views a tiny budget gives at build time. Only
+    # csr (and coo), which this package has not ported, still raise.
     graph, _ = jax_graph(small_case, "packed", "off")
     assert jax_tpu.choose_kernel(graph, 1, True) == "packed_blocked"
-    with pytest.raises(NotImplementedError, match="packed_blocked.*ROADMAP"):
-        choose_kernel(graph, 1, True)
+    assert choose_kernel(graph, 1, True) == "packed_blocked"
     nrm, abn = partition_case(small_case)
     tiny, _, _, _ = build_window_graph(
         small_case.abnormal, nrm, abn, aux="auto", dense_budget_bytes=64
     )
     assert jax_tpu.choose_kernel(tiny, 64) == "pcsr"
-    with pytest.raises(NotImplementedError, match="pcsr"):
-        choose_kernel(tiny, 64)
+    assert choose_kernel(tiny, 64) == "pcsr"
+    csr, _ = jax_graph(small_case, "csr", "off")
+    assert jax_tpu.choose_kernel(csr) == "csr"
+    with pytest.raises(NotImplementedError, match="csr.*ROADMAP"):
+        choose_kernel(csr)
 
 
-@pytest.mark.parametrize("kernel", ["kind", "packed", "packed_bf16"])
+@pytest.mark.parametrize("kernel", ["kind", "packed", "packed_bf16", "packed_blocked", "pcsr"])
 def test_host_subset_drops_what_jax_drops(kernel, small_case):
-    graph, _ = jax_graph(small_case, "kind" if kernel == "kind" else "packed", "on")
+    aux = {"kind": "kind", "pcsr": "pcsr"}.get(kernel, "packed")
+    graph, _ = jax_graph(small_case, aux, "on")
     ours = host_subset(graph, kernel)
     theirs = jax_tpu.device_subset(graph, kernel)
     for part in ("normal", "abnormal"):

@@ -1,8 +1,10 @@
 """The port's native lane end to end against the JAX package's:
 ``run_rca_native`` of both packages on the same CSVs (the otel_demo
 fixture and a small synthetic case from the port's generator), with
-``kernel="pallas"`` and, on the JAX side, ingest admission and the tuned
-policy off (the port has neither yet). Same windows, anomaly flags and
+``kernel="pallas"``, ingest admission off in both packages and, on the
+JAX side, the tuned policy off (the port has none yet); admission itself
+is held to JAX in tests/test_torch_admission.py. Same windows, anomaly
+flags and
 partition sizes; rankings tie-aware equal with scores within rtol 1e-5.
 Below the end-to-end check, each host seam is held to its JAX twin
 exactly: the span tables, the SLO baseline, detection and the C++ graph
@@ -26,6 +28,7 @@ from microrank_tpu.pipeline.table_runner import run_rca_native as jax_run
 from microrank_tpu.testing import SyntheticConfig as JaxSynthetic
 from microrank_tpu.testing import generate_case as jax_generate_case
 from microrank_tpu_torch.config import DetectorConfig, MicroRankConfig, RuntimeConfig
+from microrank_tpu_torch.config import IngestConfig as PortIngest
 from microrank_tpu_torch.graph import table_ops
 from microrank_tpu_torch.native import load_span_table
 from microrank_tpu_torch.pipeline import run_rca_native
@@ -34,6 +37,14 @@ from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
 OTEL = Path(__file__).parent / "data" / "otel_demo"
 SYNTH = dict(n_operations=30, n_traces=300, n_kinds=24, child_keep_prob=0.6, seed=5)
+
+
+def port_config(pagerank=None, **runtime):
+    """The port's config with admission off, like the JAX side's."""
+    kw = {} if pagerank is None else {"pagerank": pagerank}
+    return MicroRankConfig(
+        runtime=RuntimeConfig(**runtime), ingest=PortIngest(enabled=False), **kw
+    )
 
 
 def jax_config(collapse):
@@ -82,7 +93,7 @@ def test_otel_fixture_matches_jax_lane(collapse, tmp_path):
     jres = jax_run(normal, abnormal, jax_config(collapse), out_dir=tmp_path / "jax")
     tres = run_rca_native(
         normal, abnormal,
-        MicroRankConfig(runtime=RuntimeConfig(kernel="pallas", collapse_kinds=collapse)),
+        port_config(kernel="pallas", collapse_kinds=collapse),
         out_dir=tmp_path / "torch", device="cpu",
     )
     assert any(r.ranking for r in tres)
@@ -102,7 +113,7 @@ def test_synthetic_case_matches_jax_lane(synth_csvs):
     case, normal, abnormal = synth_csvs
     jres = jax_run(normal, abnormal, jax_config("auto"))
     tres = run_rca_native(
-        normal, abnormal, MicroRankConfig(runtime=RuntimeConfig(kernel="pallas")),
+        normal, abnormal, port_config(kernel="pallas"),
         device="cpu",
     )
     assert_same_run(jres, tres)
@@ -256,11 +267,15 @@ def test_native_build_threshold_matches_jax(synth_csvs):
 
 
 def test_unported_aux_modes_raise(synth_csvs):
+    # The CSR views are not ported and raise; the partition-centric ones
+    # come out as JAX's.
     _, _, abnormal = synth_csvs
     tab = load_span_table(abnormal, cache=False)
-    for aux in ("csr", "pcsr"):
+    for aux in ("csr", "all"):
         with pytest.raises(NotImplementedError, match="aux mode"):
             table_ops.build_window_graph_from_table(tab, None, [0], [1], aux=aux)
+    tg = assert_same_build(synth_csvs, "pcsr", "off")
+    assert all(p.pc_trace.shape[-1] > 0 for p in (tg.normal, tg.abnormal))
 
 
 def auto_config(collapse, **runtime):
@@ -271,7 +286,7 @@ def auto_config(collapse, **runtime):
             ),
             ingest=IngestConfig(enabled=False),
         ),
-        MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse, **runtime)),
+        port_config(collapse_kinds=collapse, **runtime),
     )
 
 
@@ -341,9 +356,9 @@ def test_forced_kernels_match_jax_lane(synth_csvs, kernel, precision):
         runtime=JaxRuntime(kernel=kernel, collapse_kinds="auto", tuned_policy="off"),
         ingest=IngestConfig(enabled=False),
     ))
-    tres = run_rca_native(normal, abnormal, MicroRankConfig(
+    tres = run_rca_native(normal, abnormal, port_config(
         pagerank=PageRankConfig(kind_precision=precision),
-        runtime=RuntimeConfig(kernel=kernel, collapse_kinds="auto"),
+        kernel=kernel, collapse_kinds="auto",
     ), device="cpu")
     assert {r.kernel for r in tres if r.ranking} == {kernel}
     assert_same_auto_run(jres, tres, bf16=precision == "bf16")
