@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full size: 1M spans, 5k operations,
+                                     # an 8-window replay of 1M-span windows,
                                      # giant windows of 2M and 10M spans
     python3 chip_smoke.py --spans N --giant-spans M  # smaller, same shape of run
     python3 chip_smoke.py --giant-spans 0            # no giant phase
+    python3 chip_smoke.py --replay-windows 0         # no replay phase
 
 It drives only the port (``microrank_tpu_torch``) and imports nothing of
 JAX or of the JAX package. Phases, one JSON line each:
@@ -40,7 +42,30 @@ JAX or of the JAX package. Phases, one JSON line each:
               and 25 K1 launches of 2 SpMVs per ranked window) and to
               ``pcsr`` (25 K1 launches of 6 SpMVs), CUDA vs CPU at rtol
               1e-5, and pcsr's ranking bitwise the pinned pallas run's;
-5. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
+5. replay   — ``TableRCA.run`` on the card over bench.py's config-5
+              replay (``_run_replay``): 8 consecutive windows of
+              1,000,000 spans, every one faulted, from the port's
+              ``generate_timeline_with_spans`` (same generator settings as
+              phase 2), detect = the generator's window, skip 0; in three
+              modes of the loop: sync (depth 1), the default (async stage
+              and fetch workers, stream joins, depth 2) and async bulk.
+              Each mode: one warm pass with a sink (every window ranked
+              with ``kind`` and the fault at top-1, the cursor cleared,
+              one journal ``window`` event per window, the stage worker's
+              stream not the default stream), three timed passes (median
+              reported; 25 pattern-pair and 25 K1 launches of 50 SpMVs per
+              ranked window in each) and one pass under torch.profiler for
+              the device busy share (the union of kernel intervals over
+              that pass's wall time); peak device memory, the
+              per-window ``rank_dispatch`` / ``rank_wait`` medians and
+              the sum of the per-window stages (the rest of a pass is
+              per-run work, such as the table's admission, timed apart).
+              The
+              async and bulk rankings, ``rank_iterations`` and sink
+              records are bitwise the sync run's, and a run resumed from
+              a cursor saved after window 2 is bitwise windows 3-8.
+              ``--replay-windows`` sets the window count; 0 skips it;
+6. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
               one, at the uncollapsed shapes), per step of the pallas
               path (the grouped launch of all six matrices, at the
               uncollapsed and the collapsed shapes) and per step of the
@@ -55,7 +80,7 @@ JAX or of the JAX package. Phases, one JSON line each:
               (first, chunked, chunked, first); the pcsr work list at
               the shapes of its run, checked bitwise against the pallas
               work list of the same window first;
-6. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4) and
+7. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4) and
               K4 (packed and packed_bf16, uncollapsed): one launch per
               step for both partitions, bitwise equal to its plain
               version computed on the CPU and within rtol 1e-6 of it run
@@ -66,7 +91,7 @@ JAX or of the JAX package. Phases, one JSON line each:
               (what JAX computes; a yardstick the port never calls) and
               the byte bound; plus a sweep of K4 over one-partition
               bitmaps of four shapes;
-7. giant    — bench.py's giant-window tier (2048 operations, 4 spans a
+8. giant    — bench.py's giant-window tier (2048 operations, 4 spans a
               trace) from the port's ``testing.giant_window``, at the
               default 2 GiB budget: 2,097,152 spans (auto must resolve to
               packed_blocked) and 10,485,760 (pcsr), each through
@@ -129,6 +154,13 @@ DEFAULT_BUDGET = 2 << 30
 ORACLE_RTOL = 1e-3  # bench.py's tie-aware top-5 parity against the float64 oracle
 # What kernel="auto" resolves to at the config-5 window, per collapse mode.
 AUTO_KERNEL = {"auto": "kind", "off": "packed_bf16"}
+# The window loop's modes in the replay phase: synchronous, the default
+# (async dispatch, stream joins, depth 2) and async with bulk joins.
+REPLAY_MODES = {
+    "sync": dict(pipeline_depth=1, async_dispatch=False),
+    "default": {},
+    "bulk": dict(fetch_mode="bulk"),
+}
 
 
 def emit(obj) -> None:
@@ -500,6 +532,263 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
             None if rank_device is None else round(rank_device / rank_wall, 4)
         ),
         "cpu_wall_s": round(cpu_s, 4),
+    }
+
+
+def phase_replay_data(args, workdir):
+    """bench.py's config-5 replay (``_ensure_batch_data``): every window
+    faulted, from the port's own timeline generator, written and parsed
+    as a user's dump would be."""
+    from microrank_tpu_torch.native import load_span_table
+    from microrank_tpu_torch.testing import SyntheticConfig, generate_timeline_with_spans
+
+    n = args.replay_windows
+    t0 = time.perf_counter()
+    tl = generate_timeline_with_spans(
+        SyntheticConfig(
+            n_operations=args.ops,
+            n_kinds=max(32, args.ops // 50),
+            child_keep_prob=0.55,
+            fault_latency_ms=60000.0,
+            seed=0,
+        ),
+        args.spans,
+        n,
+        list(range(n)),  # every window carries the fault
+    )
+    normal, abnormal = tl.write_csvs(workdir / "replay")
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    normal_table = load_span_table(normal, cache=False)
+    table = load_span_table(abnormal, cache=False)
+    return tl, normal_table, table, {
+        "windows": n,
+        "spans_per_window_target": args.spans,
+        "timeline_spans": table.n_spans,
+        "normal_spans": normal_table.n_spans,
+        "generate_write_s": round(gen_s, 3),
+        "parse_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def kernel_busy_share(torch, workdir, fn):
+    """Run ``fn`` once under torch.profiler (device activity only) and
+    return (wall s, union of the kernel intervals over that wall time);
+    the share is None when the profiler recorded no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = workdir / "replay_trace.json"
+    for _ in range(3):  # the profiler now and then records no device time
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        prof.export_chrome_trace(str(trace))
+        spans = sorted(
+            (e["ts"], e["ts"] + e["dur"])
+            for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("cat") == "kernel"
+        )
+        trace.unlink()
+        if spans:
+            busy_us, end = 0.0, float("-inf")
+            for lo, hi in spans:
+                busy_us += max(0.0, hi - max(lo, end))
+                end = max(end, hi)
+            return wall, busy_us / 1e6 / wall
+    return wall, None
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
+    """One mode of ``TableRCA.run`` on the card over the whole timeline:
+    a warm pass with a sink (records, cursor, journal), three timed
+    passes without one (as bench.py's ``_run_replay``), their launches
+    counted per pass, then one pass under the profiler for the device's
+    busy share. Returns (rca, warm results, launch counts of the last
+    timed pass, info)."""
+    import numpy as np
+
+    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig, WindowConfig
+    from microrank_tpu_torch.graph.table_ops import window_rows
+    from microrank_tpu_torch.obs import JOURNAL_NAME, read_journal
+    from microrank_tpu_torch.pipeline import TableRCA
+
+    cfg = MicroRankConfig(
+        # Each generated window exactly: detect = its span, skip = 0.
+        window=WindowConfig(detect_minutes=tl.window_minutes, skip_minutes=0.0),
+        runtime=RuntimeConfig(**REPLAY_MODES[mode]),
+    )
+    tag = f"replay/{mode}"
+    rca = TableRCA(cfg, device="cuda")
+    rca.fit_baseline(normal_table)
+
+    streams = []
+    launch = rca.launch_rank
+
+    def spy(*a):  # which stream launch_rank issues on, once
+        streams.append(torch.cuda.current_stream())
+        rca.launch_rank = launch
+        return launch(*a)
+
+    rca.launch_rank = spy
+    out = workdir / f"replay_{mode}"
+    warm = rca.run(table, out_dir=out)
+    check(len(streams) == 1, f"{tag}: launch_rank was not reached")
+    on_default = streams[0] == torch.cuda.default_stream()
+    if cfg.runtime.async_dispatch:
+        check(not on_default, f"{tag}: the stage worker launched on the default stream")
+    ranked = [r for r in warm if r.ranking]
+    check(len(ranked) == len(tl.windows),
+          f"{tag}: {len(ranked)} of {len(tl.windows)} faulted windows ranked")
+    check(all(r.skipped_reason == "empty_window" for r in warm if not r.ranking),
+          f"{tag}: an unranked window that is not empty")
+    for r in ranked:
+        check(r.ranking[0][0] == tl.fault_pod_op,
+              f"{tag}: window {r.start} top-1 {r.ranking[0][0]} is not {tl.fault_pod_op}")
+        check(r.kernel == "kind", f"{tag}: window {r.start} ranked with {r.kernel}")
+    check(not (out / "cursor.json").exists(), f"{tag}: a clean run left its cursor")
+    events = read_journal(out / JOURNAL_NAME)
+    n_win = sum(e["event"] == "window" for e in events)
+    check(n_win == len(warm), f"{tag}: {n_win} journal window events for {len(warm)} windows")
+    check([e["event"] for e in events[:1] + events[-1:]] == ["run_start", "run_end"],
+          f"{tag}: the journal does not open with run_start and close with run_end")
+
+    n = len(ranked)
+    expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SS_SPMVS_PER_STEP * n,
+              "pattern_launches": STEPS * n, "pattern_products": STEPS * 4 * n}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, timed, stage_sums = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
+        pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+        t0 = time.perf_counter()
+        res = rca.run(table)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = {
+            "k1_launches": spmv.coo_spmv.launches,
+            "k1_spmvs": spmv.coo_spmv.spmvs,
+            "pattern_launches": pattern.pattern_pair_group.launches,
+            "pattern_products": pattern.pattern_pair_group.products,
+        }
+        check(counts == expect, f"{tag}: launch counts {counts} in {n} ranked windows, want {expect}")
+        check([(r.start, r.ranking, r.rank_iterations) for r in res]
+              == [(r.start, r.ranking, r.rank_iterations) for r in warm],
+              f"{tag}: a timed pass differs from the warm pass")
+        timed.extend(res)
+        # The main thread's per-window stages; the rest of a pass is
+        # per-run work (admission of the whole table, its bounds).
+        stage_sums.append(sum(
+            v for r in res for k, v in r.timings.items() if k != "bulk_fetch_windows"
+        ))
+    peak = torch.cuda.max_memory_allocated()
+    prof_wall, busy = kernel_busy_share(torch, workdir, lambda: rca.run(table))
+
+    replay_s = _median(walls)
+    median_pass = walls.index(replay_s)
+    spans = sum(
+        int(window_rows(table, int(np.datetime64(r.start, "us").astype(np.int64)),
+                        int(np.datetime64(r.end, "us").astype(np.int64))).sum())
+        for r in ranked
+    )
+    keys = ("detect", "rank_dispatch", "rank_wait", "bulk_fetch_ms")
+    medians = {
+        k: _median([r.timings[k] for r in timed if r.ranking and k in r.timings])
+        for k in keys
+    }
+    return rca, warm, counts, {
+        "mode": mode,
+        "runtime": REPLAY_MODES[mode],
+        "windows": len(warm),
+        "ranked": n,
+        "top1_is_fault": True,
+        "kernel": "kind",
+        "spans_ranked": spans,
+        "replay_ms": round(replay_s * 1e3, 3),
+        "replay_ms_passes": [round(w * 1e3, 3) for w in walls],
+        "window_stage_ms_sum": round(stage_sums[median_pass], 3),
+        "ms_per_window": round(replay_s * 1e3 / n, 3),
+        "spans_per_s": round(spans / replay_s, 1),
+        "device_busy_share": None if busy is None else round(busy, 4),
+        "profiled_pass_ms": round(prof_wall * 1e3, 3),
+        "peak_device_memory_bytes": peak,
+        "window_timing_medians_ms": {k: v for k, v in medians.items() if v is not None},
+        "queue_depths": [r.queue_depth for r in warm if r.ranking],
+        "launches_per_pass": counts,
+        "stage_stream_is_default": on_default,
+    }
+
+
+def phase_replay(torch, spmv, pattern, args, workdir):
+    """The replay phase: ``TableRCA.run`` over bench.py's config-5
+    timeline in the sync, default (async stream, depth 2) and async bulk
+    modes, each held bitwise to the sync run, and a run resumed from a
+    cursor saved after window 2 held bitwise to the tail."""
+    from microrank_tpu_torch.pipeline.checkpoint import WindowCursor
+
+    from microrank_tpu_torch.config import IngestConfig
+    from microrank_tpu_torch.ingest import admit_table
+
+    t0 = time.perf_counter()
+    tl, normal_table, table, data = phase_replay_data(args, workdir)
+    # What every run() does once before its first window: admission of
+    # the whole timeline table.
+    admit_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        admit_table(table, IngestConfig(), source="table")
+        admit_ms.append((time.perf_counter() - t1) * 1e3)
+    launches, infos, warm, records = {}, {}, {}, {}
+    rca = None
+    for mode in REPLAY_MODES:
+        rca_mode, res, counts, info = replay_mode(
+            torch, spmv, pattern, tl, normal_table, table, mode, workdir
+        )
+        launches[f"replay/{mode}"] = counts
+        infos[mode], warm[mode] = info, res
+        lines = (workdir / f"replay_{mode}" / "windows.jsonl").read_text().splitlines()
+        records[mode] = [
+            {k: rec.get(k) for k in ("start", "anomaly", "skipped_reason", "ranking")}
+            for rec in map(json.loads, lines)
+        ]
+        if mode == "default":
+            rca = rca_mode
+    ref = [(r.start, r.ranking, r.rank_iterations) for r in warm["sync"]]
+    for mode in ("default", "bulk"):
+        got = [(r.start, r.ranking, r.rank_iterations) for r in warm[mode]]
+        check(got == ref, f"replay/{mode}: rankings are not bitwise the sync run's")
+        check(records[mode] == records["sync"],
+              f"replay/{mode}: windows.jsonl records differ from the sync run's")
+
+    # Resume (default mode): a cursor saved after window 2 reruns the rest.
+    k = min(2, len(warm["sync"]) - 1)
+    out = workdir / "replay_resume"
+    WindowCursor(out / "cursor.json").save(warm["sync"][k].start)
+    resumed = rca.run(table, out_dir=out, resume=True)
+    check([(r.start, r.ranking, r.rank_iterations) for r in resumed] == ref[k:],
+          f"replay: the run resumed after window {k} is not bitwise windows {k + 1}-")
+    return launches, {
+        "phase": "replay",
+        "data": data,
+        "fault_pod_op": tl.fault_pod_op,
+        "admit_table_ms": round(_median(admit_ms), 3),
+        "modes": infos,
+        "rankings_bitwise_vs_sync": True,
+        "sink_records_equal": True,
+        "resumed_after_window": k,
+        "resumed_bitwise": True,
+        "phase_s": round(time.perf_counter() - t0, 3),
     }
 
 
@@ -1073,6 +1362,11 @@ def main(argv=None) -> int:
     ap.add_argument("--ops", type=int, default=5000)
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument(
+        "--replay-windows", type=int, default=8,
+        help="windows of the replay timeline (bench.py's config 5: 8 of "
+             "--spans spans each); 0 skips the replay phase",
+    )
+    ap.add_argument(
         "--giant-spans", type=int, default=GIANT_SPANS,
         help="spans of the larger giant window (the smaller holds a fifth; the "
              "dense budget scales with it from 2 GiB at the default); 0 skips "
@@ -1135,6 +1429,11 @@ def main(argv=None) -> int:
                 check(same, "pcsr: ranking is not bitwise the pinned pallas run's")
                 info["ranking_bitwise_vs_pallas"] = True
             emit(info)
+        phase = "replay"
+        if args.replay_windows:
+            replay_launches, info = phase_replay(torch, spmv, pattern, args, workdir)
+            launches.update(replay_launches)
+            emit(info)
         phase = "kernel"
         per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
@@ -1176,7 +1475,8 @@ def main(argv=None) -> int:
             "source": "microrank_tpu_torch/csrc/coo_spmv.cu",
             "replaces": "microrank_tpu/ops/pallas_spmv.py:95",
             # Every run's K1 launches: the pinned pallas runs (six SpMVs
-            # a launch) and the auto runs (the two call-graph terms).
+            # a launch), the auto runs and the replay (the two call-graph
+            # terms).
             "launches": sum(c["k1_launches"] for c in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in [*per_matrix, *per_step.values()]),
             # Times are one power-iteration step (one launch, six SpMVs:
@@ -1193,7 +1493,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:558",
-            "launches": launches["auto/auto"]["pattern_launches"],
+            # The collapsed auto run's launches and the replay's.
+            "launches": sum(c["pattern_launches"] for k, c in launches.items()
+                            if k == "auto/auto" or k.startswith("replay/")),
             "max_abs_err": max(pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")),
             # One step (one launch, both partitions, both directions) at
             # the collapsed config-5 shapes, kind_precision f32; library_ms

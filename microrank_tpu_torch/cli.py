@@ -3,12 +3,14 @@
 
     python -m microrank_tpu_torch.cli run --normal N --abnormal A -o OUT [--device cuda|cpu]
         [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
-        [--kind-precision f32|bf16]
+        [--kind-precision f32|bf16] [--pipeline-depth N] [--sync-dispatch]
+        [--fetch-mode stream|bulk] [--bulk-fetch-windows N] [--resume]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
 
 ``run`` ranks every anomalous window of the abnormal dump and writes
 ``OUT/result.csv`` and ``OUT/windows.jsonl`` in the JAX package's
-format. It runs on the card unless ``--device cpu`` is given.
+format, with the window cursor and the run journal beside them. It runs
+on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,16 +22,42 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
-from .config import KERNELS, KIND_PRECISIONS, MicroRankConfig, PageRankConfig, RuntimeConfig
+from .config import (
+    FETCH_MODES,
+    KERNELS,
+    KIND_PRECISIONS,
+    MicroRankConfig,
+    PageRankConfig,
+    RuntimeConfig,
+)
 
 log = logging.getLogger("microrank_tpu_torch.cli")
 
 
+def _positive_int(text: str) -> int:
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"expected a positive integer, got {text}")
+    return value
+
+
 def _config_from_args(args) -> MicroRankConfig:
+    # The loop's knobs override the config only where given, as in the
+    # JAX CLI.
+    loop = {
+        k: v for k, v in (
+            ("pipeline_depth", args.pipeline_depth),
+            ("fetch_mode", args.fetch_mode),
+            ("bulk_fetch_windows", args.bulk_fetch_windows),
+        ) if v is not None
+    }
+    if args.sync_dispatch:
+        loop["async_dispatch"] = False
     return MicroRankConfig(
         pagerank=PageRankConfig(kind_precision=args.kind_precision),
         runtime=RuntimeConfig(
-            kernel=args.kernel, collapse_kinds=args.collapse_kinds, device=args.device
+            kernel=args.kernel, collapse_kinds=args.collapse_kinds,
+            device=args.device, **loop,
         ),
     )
 
@@ -38,7 +66,11 @@ def cmd_run(args) -> int:
     from .pipeline import run_rca_native
 
     cfg = _config_from_args(args)
-    results = run_rca_native(args.normal, args.abnormal, cfg, out_dir=args.output)
+    if args.bulk_fetch_windows is not None and cfg.runtime.fetch_mode != "bulk":
+        log.warning("--bulk-fetch-windows has no effect without --fetch-mode bulk")
+    results = run_rca_native(
+        args.normal, args.abnormal, cfg, out_dir=args.output, resume=args.resume
+    )
     ranked = [r for r in results if r.ranking]
     log.info(
         "%d windows, %d ranked; results in %s", len(results), len(ranked),
@@ -99,6 +131,29 @@ def build_parser() -> argparse.ArgumentParser:
         "--kind-precision", default="f32", choices=list(KIND_PRECISIONS),
         help="kernel='kind' coverage matvec precision: f32, or bf16 "
         "operands with f32 accumulation",
+    )
+    p_run.add_argument(
+        "--resume", action="store_true", help="resume from the window cursor"
+    )
+    p_run.add_argument(
+        "--sync-dispatch", action="store_true",
+        help="disable the async stage/fetch worker threads (default on: "
+        "the dispatch and the result wait overlap the next window's host "
+        "work)",
+    )
+    p_run.add_argument(
+        "--pipeline-depth", type=_positive_int, default=None,
+        help="device rank programs allowed in flight (1 = synchronous)",
+    )
+    p_run.add_argument(
+        "--fetch-mode", choices=list(FETCH_MODES), default=None,
+        help="result joins: per window ('stream', lowest sink latency) or "
+        "over --bulk-fetch-windows windows at once ('bulk'; supersedes "
+        "--pipeline-depth as the in-flight bound)",
+    )
+    p_run.add_argument(
+        "--bulk-fetch-windows", type=_positive_int, default=None,
+        help="windows joined at once in --fetch-mode bulk",
     )
     p_run.set_defaults(fn=cmd_run)
 

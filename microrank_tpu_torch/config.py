@@ -3,8 +3,9 @@
 
 Only the knobs the native ``run`` lane reads are carried over: the
 detector, PageRank and spectrum settings, window arithmetic, the
-reference-compat flags, the runtime fields that shape the graph build
-and the rank program, and the ingest admission budgets. Field names and defaults match the JAX
+reference-compat flags, the runtime fields that shape the graph build,
+the rank program and the window loop's pipelining, and the ingest
+admission budgets. Field names and defaults match the JAX
 package so a reader can hold the two side by side. The kernels and
 precisions this package has not ported yet raise ``NotImplementedError``
 where the JAX package would run them.
@@ -25,6 +26,8 @@ KERNELS = ("auto", "kind", "packed", "packed_bf16", "packed_blocked", "pcsr", "p
 # JAX package's "int8" (per-step quantize_i8, int32 accumulation) is
 # queued in ROADMAP.md.
 KIND_PRECISIONS = ("f32", "bf16")
+# Result fetch strategies of the window loop (RuntimeConfig.fetch_mode).
+FETCH_MODES = ("stream", "bulk")
 
 
 @dataclass(frozen=True)
@@ -172,6 +175,28 @@ class RuntimeConfig:
     # "cuda" (default) or "cpu". Entry points also take ``device=``,
     # which wins over this field.
     device: str = "cuda"
+    # Window-loop pipelining (TableRCA.run): rank programs allowed in
+    # flight before the host blocks on the oldest. 2 overlaps window N's
+    # device work with window N+1's detection and graph build; 1 is fully
+    # synchronous per window.
+    pipeline_depth: int = 2
+    # Stage (H2D, layouts, rank-program issue, the start of the result
+    # copy) on one worker thread, which on CUDA owns one stream of its
+    # own, and join results on a second worker, so both overlap the main
+    # thread's detection and C++ build (which release the GIL).
+    async_dispatch: bool = True
+    # "stream": join each window's result as soon as its turn comes
+    # (lowest latency to the sink); "bulk": join up to
+    # ``bulk_fetch_windows`` windows at once, all rankings assigned before
+    # any is emitted. In bulk mode ``bulk_fetch_windows`` replaces
+    # pipeline_depth as the in-flight bound, and the resume cursor
+    # advances at each flush. Bulk is kept for parity with the JAX
+    # package's config: on a local card no run has shown it ahead of
+    # stream (PERF.md §6).
+    fetch_mode: str = "stream"
+    bulk_fetch_windows: int = 32
+    # The per-run journal (out_dir/journal.jsonl, obs.RunJournal).
+    telemetry: bool = True
 
     def __post_init__(self):
         if self.kernel not in KERNELS:
@@ -179,6 +204,11 @@ class RuntimeConfig:
                 f"kernel={self.kernel!r} is not ported yet: this package "
                 f"implements {KERNELS}. The other kernel families are "
                 "ROADMAP.md 'Port queue' item 10."
+            )
+        if self.fetch_mode not in FETCH_MODES:
+            raise ValueError(
+                f"unknown fetch_mode {self.fetch_mode!r} (expected one of "
+                f"{FETCH_MODES})"
             )
 
 

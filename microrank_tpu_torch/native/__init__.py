@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import threading
 import zipfile
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Tuple
@@ -40,6 +41,7 @@ _SRCS = [
 ]
 LIB_PATH = BUILD_DIR / "libmrspan.so"
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 
 
 class NativeUnavailable(RuntimeError):
@@ -115,10 +117,17 @@ def build_library() -> str:
 
 def _load_library() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
-        return _lib
-    build_library()
-    lib = ctypes.CDLL(str(LIB_PATH))
+    # The window loop's stage worker may be the first caller while the
+    # main thread also gets here: one thread builds and binds.
+    with _lib_lock:
+        if _lib is None:
+            build_library()
+            _lib = _bind(ctypes.CDLL(str(LIB_PATH)))
+    return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the library's C signatures."""
     lib.mr_load_csv.restype = ctypes.POINTER(_MrSpanTable)
     lib.mr_load_csv.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
     lib.mr_free_table.restype = None
@@ -185,7 +194,6 @@ def _load_library() -> ctypes.CDLL:
         i32p,             # abn out
         i64p,             # counts out
     ]
-    _lib = lib
     return lib
 
 

@@ -55,6 +55,7 @@ of the 2 GiB dense budget, 512 MiB) that is about 1.2 GiB, which fits.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -78,6 +79,7 @@ LAYOUT_BITS = 1
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pattern_pair.cu"
 LIB_PATH = BUILD_DIR / "libmr_pattern_pair.so"
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 
 
 class PatternPart(NamedTuple):
@@ -389,10 +391,17 @@ def build_library() -> str:
 
 def load_library() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
-        return _lib
-    build_library()
-    lib = ctypes.CDLL(str(LIB_PATH))
+    # The window loop's stage worker may be the first caller while the
+    # main thread also gets here: one thread builds and binds.
+    with _lib_lock:
+        if _lib is None:
+            build_library()
+            _lib = _bind(ctypes.CDLL(str(LIB_PATH)))
+    return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the library's C signatures."""
     ptr = ctypes.c_void_p
     lib.mr_pattern_pair.restype = ctypes.c_int
     lib.mr_pattern_pair.argtypes = [
@@ -402,7 +411,6 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.mr_pattern_error_string.restype = ctypes.c_char_p
     lib.mr_pattern_error_string.argtypes = [ctypes.c_int]
-    _lib = lib
     return lib
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import itertools
 import shutil
+import threading
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -51,6 +52,7 @@ INT32_MAX = 2**31 - 1
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coo_spmv.cu"
 LIB_PATH = BUILD_DIR / "libmr_coo_spmv.so"
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 
 
 class RowLayout(NamedTuple):
@@ -345,10 +347,17 @@ def build_library() -> str:
 
 def load_library() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
-        return _lib
-    build_library()
-    lib = ctypes.CDLL(str(LIB_PATH))
+    # The window loop's stage worker may be the first caller while the
+    # main thread also gets here: one thread builds and binds.
+    with _lib_lock:
+        if _lib is None:
+            build_library()
+            _lib = _bind(ctypes.CDLL(str(LIB_PATH)))
+    return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the library's C signatures."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.mr_coo_spmv_group.restype = ctypes.c_int
     lib.mr_coo_spmv_group.argtypes = [
@@ -365,5 +374,4 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.mr_cuda_error_string.restype = ctypes.c_char_p
     lib.mr_cuda_error_string.argtypes = [ctypes.c_int]
-    _lib = lib
     return lib

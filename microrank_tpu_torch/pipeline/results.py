@@ -35,6 +35,8 @@ class WindowResult:
     rank_iterations: Optional[int] = None
     rank_residual: Optional[float] = None
     kernel: Optional[str] = None
+    # Rank programs already in flight when this window's was dispatched.
+    queue_depth: Optional[int] = None
     # Measured trace-kind dedup factor of the window's graph build.
     kind_dedup: Optional[float] = None
 

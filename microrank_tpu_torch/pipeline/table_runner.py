@@ -1,5 +1,5 @@
 """The native-ingest lane over a SpanTable (counterpart of
-``microrank_tpu/pipeline/table_runner.py``, synchronous per-window path).
+``microrank_tpu/pipeline/table_runner.py``, single-device window loop).
 
 Same orchestration as the JAX lane: the reference's window arithmetic
 (online_rca.py:155-216 — windows of ``detect_minutes``, advanced by an
@@ -7,22 +7,33 @@ extra ``skip_minutes`` after an anomalous window), fused C++ detection,
 the C++ graph build with in-build kind collapse, and one rank program
 per anomalous window on the device, fetched in one copy.
 
+``run`` pipelines the loop as the JAX lane does by default: up to
+``pipeline_depth`` rank programs in flight, the dispatch on a stage
+worker thread that owns one CUDA stream, joins on a fetch worker (or in
+bulk, ``fetch_mode="bulk"``), results emitted strictly in window order,
+a resume cursor saved per emitted window and a per-run journal
+(``obs.RunJournal``) beside the results.
+
 Ingest admission (``ingest.admit_table``) runs where the JAX lane runs
 it: on the normal table before the SLO fit, and on the table under
 suspicion before detection.
 
-Not ported yet (ROADMAP.md "Port queue"): the mesh, batch windows,
-bulk fetch, the async staging pool, the quarantine store, the tuned
-policy, the journal and the metrics registry.
+Not ported yet (ROADMAP.md "Port queue"): the mesh, batch windows and
+micro-batched dispatch, the quarantine store, the tuned policy and the
+metrics registry.
 """
 
 from __future__ import annotations
 
+import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config import MicroRankConfig
 from ..graph.build import aux_for_kernel, kind_dedup_ratio
@@ -32,18 +43,23 @@ from ..graph.table_ops import (
     detect_window_partition,
 )
 from ..ingest import admit_table
+from ..obs import JOURNAL_NAME, RunJournal
 from ..rank_backends.convert import graph_from_numpy
 from ..rank_backends.torch_cuda import (
     choose_kernel,
     device_subset,
-    fetch_rank_outputs,
     host_subset,
+    pack_rank_outputs,
     rank_window_traced_core,
+    unpack_rank_outputs,
 )
 from ..utils.device import resolve_device
+from .checkpoint import WindowCursor
 from .results import ResultSink, WindowResult
 
 _US_PER_MIN = 60_000_000
+
+log = logging.getLogger("microrank_tpu_torch.pipeline.table")
 
 
 def _iso(us: int) -> str:
@@ -173,9 +189,10 @@ class TableRCA:
 
     def launch_rank(self, graph, op_names, kernel):
         """Device half: copy the fields the kernel reads to the device,
-        build the kernels' per-window layouts and issue the rank program.
-        Returns opaque handles (tensors still in flight) for
-        ``finalize_rank``."""
+        build the kernels' per-window layouts, issue the rank program and
+        start the copy of its packed outputs to the host, all on the
+        current stream (in the async loop, the stage worker's own).
+        Returns opaque handles for ``finalize_rank``."""
         cfg = self.config
         dgraph = device_subset(
             graph_from_numpy(host_subset(graph, kernel), self.device),
@@ -185,7 +202,7 @@ class TableRCA:
         outs = rank_window_traced_core(
             dgraph, cfg.pagerank, cfg.spectrum, kernel
         )
-        return outs, op_names
+        return pack_rank_outputs(outs), op_names
 
     @staticmethod
     def _conv_summary(residuals, n_iters):
@@ -199,90 +216,296 @@ class TableRCA:
             "residuals": [float(x) for x in joint],
         }
 
+    def finalize_rank_many(self, handles_list):
+        """Wait for MANY dispatched ranks' result copies (each window's
+        one device-to-host copy was started by ``launch_rank``) and
+        unpack them. Returns [(names, scores, conv), ...] in input
+        order; ``conv`` is the _conv_summary dict or None."""
+        out = []
+        for packed, op_names in handles_list:
+            top_idx, top_scores, n_valid, residuals, n_iters = (
+                unpack_rank_outputs(packed)
+            )
+            names = [op_names[int(i)] for i in top_idx[:n_valid]]
+            scores = [float(s) for s in top_scores[:n_valid]]
+            if self.config.runtime.validate_numerics:
+                assert_finite_scores(scores, "TableRCA.rank_window")
+            conv = (
+                self._conv_summary(residuals, n_iters)
+                if self.config.runtime.convergence_trace
+                else None
+            )
+            out.append((names, scores, conv))
+        return out
+
     def finalize_rank(self, handles):
-        """One device-to-host copy of a dispatched rank. Returns
-        (names, scores, conv-summary-or-None)."""
-        outs, op_names = handles
-        top_idx, top_scores, n_valid, residuals, n_iters = fetch_rank_outputs(outs)
-        names = [op_names[int(i)] for i in top_idx[:n_valid]]
-        scores = [float(s) for s in top_scores[:n_valid]]
-        if self.config.runtime.validate_numerics:
-            assert_finite_scores(scores, "TableRCA.rank_window")
-        conv = (
-            self._conv_summary(residuals, n_iters)
-            if self.config.runtime.convergence_trace
-            else None
-        )
-        return names, scores, conv
+        """Wait for one dispatched rank's results. Returns (names,
+        scores, conv-summary-or-None)."""
+        return self.finalize_rank_many([handles])[0]
 
     def run(
         self,
         table,
         out_dir=None,
         sink: Optional[ResultSink] = None,
+        batch_windows: bool = False,
+        resume: bool = False,
+        end_us: Optional[int] = None,
+        complete_only: bool = False,
     ) -> List[WindowResult]:
-        """Slide over the table and RCA every anomalous window; results
-        go to ``sink`` (a ResultSink in ``out_dir`` when given) in
-        window order."""
+        """Slide over the table; RCA every anomalous window.
+
+        The loop is pipelined up to ``runtime.pipeline_depth`` rank
+        programs deep: a window's rank is dispatched and only waited for
+        once later windows' host work is done, so detection and the C++
+        build overlap the device. With ``runtime.async_dispatch`` the
+        dispatch (``launch_rank``) runs on a stage worker thread, which
+        on CUDA issues on one stream of its own, and stream-mode joins on
+        a fetch worker. ``runtime.fetch_mode="bulk"`` joins up to
+        ``bulk_fetch_windows`` windows at once. Results reach the sink
+        strictly in window order either way.
+
+        ``end_us`` bounds the window loop (default: the table's last
+        span end); ``complete_only`` skips a final window that would
+        extend past that bound instead of ranking it partially.
+
+        ``resume`` (needs ``out_dir``): restart from the persisted window
+        cursor. The cursor records the NEXT window start and advances
+        only when a window's result has been emitted, so a crash
+        mid-pipeline re-runs the windows in flight instead of dropping
+        them. A clean unbounded run clears it; a run bounded by
+        ``end_us`` or ``complete_only`` leaves it at the next window.
+
+        ``batch_windows=True`` (all anomalous windows in one stacked
+        program) is not ported (ROADMAP.md 'Port queue' item 7).
+        """
         cfg = self.config
         if self.baseline is None:
             raise RuntimeError("call fit_baseline() before run()")
+        if batch_windows:
+            raise NotImplementedError(
+                "batch_windows=True (every anomalous window in one "
+                "stacked program) is not ported yet (ROADMAP.md 'Port "
+                "queue' item 7, batch windows)"
+            )
         table, _ = admit_table(table, cfg.ingest, source="table")
         if sink is None and out_dir is not None:
             sink = ResultSink(out_dir, overwrite_csv=cfg.compat.overwrite_results)
+        cursor = (
+            WindowCursor(Path(out_dir) / "cursor.json")
+            if out_dir is not None
+            else None
+        )
+        journal = None
+        if out_dir is not None and cfg.runtime.telemetry:
+            journal = RunJournal(Path(out_dir) / JOURNAL_NAME)
+            journal.run_start(
+                pipeline="table",
+                kernel=cfg.runtime.kernel,
+                pad_policy=cfg.runtime.pad_policy,
+                collapse_kinds=cfg.runtime.collapse_kinds,
+                pipeline_depth=cfg.runtime.pipeline_depth,
+                fetch_mode=cfg.runtime.fetch_mode,
+                batch_windows=False,
+                mesh=None,
+            )
         if table.n_spans == 0:
             return []
+
         detect_us = int(cfg.window.detect_minutes * _US_PER_MIN)
         skip_us = int(cfg.window.skip_minutes * _US_PER_MIN)
         current = int(table.start_us.min())
         end = int(table.end_us.max())
+        if end_us is not None:
+            end = min(end, int(end_us))
+        if resume and cursor is not None:
+            saved = cursor.load()
+            if saved is not None:
+                current = int(np.datetime64(saved, "us").astype(np.int64))
+                log.info("resuming window loop at %s", saved)
+
+        # The JAX lane falls back to synchronous dispatch under device
+        # checks or in a multi-process mesh; this package has neither, so
+        # async_dispatch and fetch_mode always hold as configured.
+        bulk = cfg.runtime.fetch_mode == "bulk"
+        # Rank programs in flight before the host joins; in bulk mode
+        # the batch size replaces the depth.
+        depth = max(1, int(
+            cfg.runtime.bulk_fetch_windows if bulk else cfg.runtime.pipeline_depth
+        ))
+        stage_pool = fetch_pool = None
+        if cfg.runtime.async_dispatch:
+            # One stage thread on one stream: the kernels' scratch (K1's
+            # counters, the pattern pair's partials) must never be in
+            # flight on two streams at once, and every tensor of a
+            # window is allocated, used and freed on that stream.
+            init, initargs = None, ()
+            if self.device.type == "cuda":
+                init, initargs = torch.cuda.set_stream, (
+                    torch.cuda.Stream(self.device),
+                )
+            stage_pool = ThreadPoolExecutor(1, "mr-stage", init, initargs)
+            if not bulk:  # bulk joins in batches on the main thread
+                fetch_pool = ThreadPoolExecutor(1, "mr-fetch")
+
         results: List[WindowResult] = []
+        inflight = []  # (result, handles-or-future, timings) dispatched
+        finishing = []  # (result, finalize future, timings) async fetches
+        emitted = 0  # results[:emitted] already sent to the sink
+        next_cursor = {}  # id(result) -> post-advance window position (us)
+
+        def _emit(r):
+            sink.emit(r)
+            if journal is not None:
+                journal.window(r)
+            if cursor is not None and id(r) in next_cursor:
+                cursor.save(_iso(next_cursor[id(r)]))
+
+        def _emit_ready():
+            """Emit results in window order, stopping at the oldest
+            window still in flight (its ranking isn't final yet)."""
+            nonlocal emitted
+            if sink is None:
+                return
+            if finishing:
+                stop = id(finishing[0][0])
+            elif inflight:
+                stop = id(inflight[0][0])
+            else:
+                stop = None
+            while emitted < len(results):
+                r = results[emitted]
+                if id(r) == stop:
+                    break
+                _emit(r)
+                emitted += 1
+
+        def _set_ranking(result, timings, names, scores, conv=None):
+            result.ranking = list(zip(names, scores))
+            result.timings = timings.as_dict()
+            result.apply_convergence(conv)
+            _emit_ready()
+
+        def _complete_one():
+            """Join the oldest async fetch and emit its window."""
+            result, fut, timings = finishing.pop(0)
+            with timings.stage("rank_wait"):
+                names, scores, conv = fut.result()
+            _set_ranking(result, timings, names, scores, conv)
+
+        def _finalize_one():
+            result, handles, timings = inflight.pop(0)
+            if fetch_pool is not None:
+                # handles is the stage future: chain its join with the
+                # wait for its result copy on the fetch worker.
+                fut = fetch_pool.submit(
+                    lambda h=handles: self.finalize_rank(h.result())
+                )
+                finishing.append((result, fut, timings))
+                if len(finishing) > depth:
+                    _complete_one()
+                return
+            with timings.stage("rank_wait"):
+                names, scores, conv = self.finalize_rank(handles)
+            _set_ranking(result, timings, names, scores, conv)
+
+        def _flush_bulk():
+            """Join EVERY deferred window's results (fetch_mode="bulk").
+            All rankings are assigned before anything is emitted:
+            ``inflight`` stays populated until then, so no batch-mate
+            reaches the sink half-finished. The join's wall time is
+            reported per window as ``bulk_fetch_ms``, amortized evenly
+            over the batch, with the batch size."""
+            if not inflight:
+                return
+            items = inflight[:]
+            handles = [
+                h.result() if stage_pool is not None else h
+                for _, h, _ in items
+            ]
+            t0 = time.perf_counter()
+            ranked = self.finalize_rank_many(handles)
+            wait_s = time.perf_counter() - t0
+            for (result, _, timings), (names, scores, conv) in zip(
+                items, ranked
+            ):
+                result.ranking = list(zip(names, scores))
+                result.timings = {
+                    **timings.as_dict(),
+                    "bulk_fetch_ms": round(wait_s * 1e3 / len(items), 3),
+                    "bulk_fetch_windows": len(items),
+                }
+                result.apply_convergence(conv)
+            inflight.clear()
+            _emit_ready()
+
+        join = _flush_bulk if bulk else _finalize_one
         try:
-            while current < end:
-                ranked = self._window(table, current, current + detect_us, results)
-                if sink is not None:
-                    sink.emit(results[-1])
+            while current + detect_us <= end if complete_only else current < end:
+                w0, w1 = current, current + detect_us
+                timings = StageTimings()
+                result = WindowResult(start=_iso(w0), end=_iso(w1), anomaly=False)
+                ranked = False
+                with timings.stage("detect"):
+                    mask, nrm, abn, n_window, row_range = self._detect_window(
+                        table, w0, w1
+                    )
+                if n_window == 0:
+                    result.skipped_reason = "empty_window"
+                else:
+                    result.anomaly = len(abn) >= cfg.detector.min_abnormal_traces
+                    result.n_normal, result.n_abnormal = len(nrm), len(abn)
+                    result.n_traces = len(nrm) + len(abn)
+                    if result.anomaly and (len(nrm) == 0 or len(abn) == 0):
+                        result.skipped_reason = "degenerate_partition"
+                    elif result.anomaly:
+                        if cfg.compat.partition_swap:
+                            nrm, abn = abn, nrm
+                        ranked = True
+                        with timings.stage("rank_dispatch"):
+                            prep = self.prepare_rank(table, mask, nrm, abn, row_range)
+                            result.kernel = prep[2]
+                            result.kind_dedup = kind_dedup_ratio(prep[0])
+                            if stage_pool is not None:
+                                handles = stage_pool.submit(self.launch_rank, *prep)
+                            else:
+                                handles = self.launch_rank(*prep)
+                        result.queue_depth = len(inflight)
+                        inflight.append((result, handles, timings))
+                        if len(inflight) >= depth:
+                            join()
+                results.append(result)
                 if ranked:
                     current += skip_us
+                else:
+                    result.timings = timings.as_dict()
                 current += detect_us
+                next_cursor[id(result)] = current
+                _emit_ready()
+
+            while inflight:
+                join()
+            while finishing:
+                _complete_one()
+            _emit_ready()
         finally:
+            # Cancel what has not started and wait for what has: no
+            # worker issues device work after run() returns or raises.
+            for pool in (stage_pool, fetch_pool):
+                if pool is not None:
+                    pool.shutdown(wait=True, cancel_futures=True)
             self._remap_cache = None
+
+        if journal is not None:
+            journal.run_end(
+                windows=len(results),
+                ranked=sum(1 for r in results if r.ranking),
+            )
+        if cursor is not None and end_us is None and not complete_only:
+            # Bounded runs (a follower's polls) leave the cursor at the
+            # next unranked window; the per-window saves advanced it.
+            cursor.clear()
         return results
-
-    def _window(self, table, w0: int, w1: int, results: List[WindowResult]) -> bool:
-        """Detect, and rank if anomalous, one window; appends its
-        WindowResult and returns whether it was ranked."""
-        cfg = self.config
-        timings = StageTimings()
-        result = WindowResult(start=_iso(w0), end=_iso(w1), anomaly=False)
-        results.append(result)
-        with timings.stage("detect"):
-            mask, nrm, abn, n_window, row_range = self._detect_window(table, w0, w1)
-        ranked = False
-        if n_window == 0:
-            result.skipped_reason = "empty_window"
-        else:
-            result.anomaly = len(abn) >= cfg.detector.min_abnormal_traces
-            result.n_normal, result.n_abnormal = len(nrm), len(abn)
-            result.n_traces = len(nrm) + len(abn)
-            if result.anomaly and (len(nrm) == 0 or len(abn) == 0):
-                result.skipped_reason = "degenerate_partition"
-            elif result.anomaly:
-                if cfg.compat.partition_swap:
-                    nrm, abn = abn, nrm
-                ranked = True
-                with timings.stage("rank_dispatch"):
-                    prep = self.prepare_rank(table, mask, nrm, abn, row_range)
-                    result.kernel = prep[2]
-                    result.kind_dedup = kind_dedup_ratio(prep[0])
-                    handles = self.launch_rank(*prep)
-                with timings.stage("rank_wait"):
-                    names, scores, conv = self.finalize_rank(handles)
-                result.ranking = list(zip(names, scores))
-                result.apply_convergence(conv)
-        result.timings = timings.as_dict()
-        return ranked
-
 
 def run_rca_native(
     normal_path,
@@ -290,11 +513,12 @@ def run_rca_native(
     config: MicroRankConfig = MicroRankConfig(),
     out_dir=None,
     device=None,
+    resume: bool = False,
 ) -> List[WindowResult]:
     """CSV paths in, window results out, no pandas anywhere. ``device``
-    as for TableRCA."""
+    as for TableRCA; ``resume`` as for ``TableRCA.run``."""
     from ..native import load_span_table
 
     rca = TableRCA(config, device=device)
     rca.fit_baseline(load_span_table(normal_path))
-    return rca.run(load_span_table(abnormal_path), out_dir=out_dir)
+    return rca.run(load_span_table(abnormal_path), out_dir=out_dir, resume=resume)

@@ -25,7 +25,9 @@ partitions) take one or two launches, built for the window by
 On the card each call is one launch of a CUDA kernel, on the CPU its
 plain version. The loop issues device work only — no step reads a value
 back — and the caller fetches ``(top_idx, top_scores, n_valid,
-residuals, n_iters)`` in one device-to-host copy (``fetch_rank_outputs``).
+residuals, n_iters)`` in one device-to-host copy, started on the stream
+that ran the program (``pack_rank_outputs``) and waited for where the
+result is needed (``unpack_rank_outputs``).
 With a convergence ``tol`` the loop still runs ``iterations`` steps,
 freezing the carry with ``torch.where`` once a device-side "still
 running" flag drops, so no step branches on a device value; vectors,
@@ -39,7 +41,7 @@ there.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -503,13 +505,24 @@ def rank_window_traced_core(
     return top_idx, top_scores, n_valid, residuals, n_iters
 
 
-def fetch_rank_outputs(outs):
-    """One device-to-host copy of rank_window_traced_core's outputs:
-    the five tensors are packed into one float32 buffer (int32 values
-    ride bit-for-bit through ``view``) and unpacked on the host as
-    numpy (top_idx, top_scores, n_valid, residuals, n_iters)."""
+class PackedOutputs(NamedTuple):
+    """rank_window_traced_core's five outputs packed into one float32
+    host buffer (int32 values ride bit-for-bit through ``view``), with
+    the event that marks its copy done (None on the CPU, where the pack
+    is the host buffer itself)."""
+
+    host: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    k: int
+    residual_shape: Tuple[int, ...]
+
+
+def pack_rank_outputs(outs) -> PackedOutputs:
+    """Pack the five outputs into one buffer on their device and start
+    its one device-to-host copy, all on the current stream: on CUDA a
+    ``non_blocking`` copy into pinned host memory and an event recorded
+    behind it, so the caller returns without waiting for the device."""
     top_idx, top_scores, n_valid, residuals, n_iters = outs
-    k = top_idx.shape[0]
     packed = torch.cat(
         [
             top_idx.view(torch.float32),
@@ -518,15 +531,37 @@ def fetch_rank_outputs(outs):
             residuals.reshape(-1),
             n_iters.reshape(1).view(torch.float32),
         ]
-    ).cpu()
-    host = packed.numpy()
+    )
+    ready = None
+    if packed.device.type == "cuda":
+        host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(packed.device))
+        packed = host
+    return PackedOutputs(packed, ready, int(top_idx.shape[0]), tuple(residuals.shape))
+
+
+def unpack_rank_outputs(p: PackedOutputs):
+    """Wait for the copy of ``pack_rank_outputs`` (its event only, not
+    the device) and unpack it on the host as numpy (top_idx, top_scores,
+    n_valid, residuals, n_iters)."""
+    if p.ready is not None:
+        p.ready.synchronize()
+    host, k = p.host.numpy(), p.k
     return (
         host[:k].view(np.int32).copy(),
         host[k: 2 * k].copy(),
         int(host[2 * k: 2 * k + 1].view(np.int32)[0]),
-        host[2 * k + 1: -1].reshape(residuals.shape).copy(),
+        host[2 * k + 1: -1].reshape(p.residual_shape).copy(),
         int(host[-1:].view(np.int32)[0]),
     )
+
+
+def fetch_rank_outputs(outs):
+    """One device-to-host copy of rank_window_traced_core's outputs,
+    waited for: ``unpack_rank_outputs(pack_rank_outputs(outs))``."""
+    return unpack_rank_outputs(pack_rank_outputs(outs))
 
 
 # Fields each kernel never reads, dropped on the host before the graph

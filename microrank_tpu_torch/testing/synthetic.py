@@ -1,6 +1,7 @@
 """Synthetic microservice trace generator with fault injection, numpy
 only (counterpart of ``microrank_tpu/testing/synthetic.py``'s
-``generate_case`` / ``generate_case_with_spans``).
+``generate_case`` / ``generate_case_with_spans`` and the timelines
+``generate_timeline`` / ``generate_timeline_with_spans``).
 
 A random service call tree, a small set of trace kinds (pruned
 subtrees), lognormal per-operation own times, inclusive span durations
@@ -13,7 +14,7 @@ the columns the native loader reads).
 
 Only the latency fault family with the unconstrained fault choice is
 ported (``fault_path_overlap=None``); the error / cascade / drift knobs
-and the timelines serve lanes this package does not have yet.
+serve lanes this package does not have yet.
 
 ``giant_window`` is bench.py's giant-window tier (its
 ``_synthesize_giant_partition``) lifted to an in-memory span table: the
@@ -177,10 +178,19 @@ def _render_spans(
     }
 
 
-def write_spans_csv(spans: Dict[str, object], path, n_operations: int) -> None:
-    """Write one window's spans as a canonical-schema traces CSV (the
-    row order and values pandas' ``to_csv`` gives the JAX generator's
-    frame; timestamps with microseconds)."""
+def write_spans_csv(spans, path, n_operations: int) -> None:
+    """Write spans as a canonical-schema traces CSV (the row order and
+    values pandas' ``to_csv`` gives the JAX generator's frame;
+    timestamps with microseconds). ``spans`` is one window's span
+    columns, or a list of windows' written one after another under one
+    header, as the JAX generator concatenates a timeline's frames."""
+    with open(path, "w") as f:
+        f.write(",".join(CSV_COLUMNS) + "\n")
+        for part in spans if isinstance(spans, list) else [spans]:
+            _write_span_rows(f, part, n_operations)
+
+
+def _write_span_rows(f, spans: Dict[str, object], n_operations: int) -> None:
     w = _op_id_width(n_operations)
     prefix = spans["trace_prefix"]
     start_us, end_us = spans["start_us"], spans["end_us"]
@@ -197,20 +207,18 @@ def write_spans_csv(spans: Dict[str, object], path, n_operations: int) -> None:
     parent = spans["parent"].tolist()
     dur = spans["duration_us"].tolist()
     step = 100_000
-    with open(path, "w") as f:
-        f.write(",".join(CSV_COLUMNS) + "\n")
-        for lo in range(0, n, step):
-            lines = []
-            for i in range(lo, min(lo + step, n)):
-                tr = f"{prefix}{trace[i]}"
-                o = op[i]
-                par = f"{tr}-s{parent[i]}" if parent[i] >= 0 else ""
-                lines.append(
-                    f"{tr},{tr}-s{o},{par},op{o:0{w}d},svc{o:0{w}d},"
-                    f"svc{o:0{w}d}-{pod[i]},{dur[i]},{text[s_idx[i]]},"
-                    f"{text[e_idx[i]]}\n"
-                )
-            f.write("".join(lines))
+    for lo in range(0, n, step):
+        lines = []
+        for i in range(lo, min(lo + step, n)):
+            tr = f"{prefix}{trace[i]}"
+            o = op[i]
+            par = f"{tr}-s{parent[i]}" if parent[i] >= 0 else ""
+            lines.append(
+                f"{tr},{tr}-s{o},{par},op{o:0{w}d},svc{o:0{w}d},"
+                f"svc{o:0{w}d}-{pod[i]},{dur[i]},{text[s_idx[i]]},"
+                f"{text[e_idx[i]]}\n"
+            )
+        f.write("".join(lines))
 
 
 @dataclass
@@ -278,6 +286,87 @@ def generate_case_with_spans(cfg: SyntheticConfig, target_spans: int) -> Synthet
     """A case whose windows hold ~``target_spans`` spans each."""
     n_traces = _traces_for_spans(cfg, target_spans)
     return generate_case(SyntheticConfig(**{**cfg.__dict__, "n_traces": n_traces}))
+
+
+@dataclass
+class SyntheticTimeline:
+    """A multi-window replay: one normal baseline window plus
+    consecutive windows, a subset of which carry the fault(s)."""
+
+    normal: Dict[str, object]
+    windows: List[Dict[str, object]]  # one window's span columns each
+    window_faulted: List[bool]
+    window_minutes: float
+    start: np.datetime64              # first timeline window's start
+    fault_pod_op: str
+    fault_pod_ops: List[str]          # every injected culprit
+    n_operations: int
+
+    @property
+    def n_timeline_spans(self) -> int:
+        return sum(int(w["trace"].shape[0]) for w in self.windows)
+
+    def write_csvs(self, out_dir) -> Tuple[Path, Path]:
+        """Write normal.csv and abnormal.csv (the whole timeline) into
+        ``out_dir``; returns their paths."""
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        paths = (out / "normal.csv", out / "abnormal.csv")
+        write_spans_csv(self.normal, paths[0], self.n_operations)
+        write_spans_csv(self.windows, paths[1], self.n_operations)
+        return paths
+
+
+def generate_timeline(
+    cfg: SyntheticConfig, n_windows: int, faulted: List[int]
+) -> SyntheticTimeline:
+    """A continuous ``n_windows``-window trace stream in which the
+    windows listed in ``faulted`` carry the injected fault(s) and the
+    rest are clean; ``cfg.n_traces`` applies per window. The JAX
+    generator's draws in its order, so one config and seed give the
+    same spans in both packages. The JAX config's ``drift_per_window``
+    (own times scaled per window) is not ported: this package's
+    SyntheticConfig has no drift, and every window renders at scale 1."""
+    rng = np.random.default_rng(cfg.seed)
+    topo = _make_topology(cfg, rng)
+    faults = _pick_faults(topo, rng, cfg.n_pods, cfg.n_faults)
+    window_us = np.timedelta64(int(cfg.window_minutes * 60e6), "us")
+    normal = _render_spans(topo, cfg, rng, cfg.n_traces, T0, None, "n")
+    fault_set = set(faulted)
+    windows = [
+        _render_spans(
+            topo, cfg, rng, cfg.n_traces, T0 + (i + 1) * window_us,
+            faults if i in fault_set else None, f"w{i}x",
+        )
+        for i in range(n_windows)
+    ]
+    names = [_pod_op_name(op, pod, cfg.n_operations) for op, pod in faults]
+    return SyntheticTimeline(
+        normal=normal,
+        windows=windows,
+        window_faulted=[i in fault_set for i in range(n_windows)],
+        window_minutes=cfg.window_minutes,
+        start=T0 + window_us,
+        fault_pod_op=names[0],
+        fault_pod_ops=names,
+        n_operations=cfg.n_operations,
+    )
+
+
+def generate_timeline_with_spans(
+    cfg: SyntheticConfig,
+    target_spans_per_window: int,
+    n_windows: int,
+    faulted: List[int],
+) -> SyntheticTimeline:
+    """generate_timeline with the per-window trace count derived from a
+    spans target (as generate_case_with_spans)."""
+    n_traces = _traces_for_spans(cfg, target_spans_per_window)
+    return generate_timeline(
+        SyntheticConfig(**{**cfg.__dict__, "n_traces": n_traces}),
+        n_windows,
+        faulted,
+    )
 
 
 @dataclass

@@ -327,3 +327,73 @@ def test_pcsr_group_on_cuda_is_bitwise_pallas_and_plain(cuda_device, tmp_path):
     y_plain = torch.cat(spmv.coo_spmv_group_plain(cpu_group, [x.cpu() for x in xs]))
     torch.cuda.synchronize()
     assert torch.equal(y_pc, y_pal) and torch.equal(y_pc.cpu(), y_plain)
+
+
+def timeline_tables(tmp_path):
+    from microrank_tpu_torch.native import load_span_table
+    from microrank_tpu_torch.testing import generate_timeline
+
+    tl = generate_timeline(CASE, 4, [0, 1, 3])
+    normal, abnormal = tl.write_csvs(tmp_path)
+    return tl, load_span_table(normal, cache=False), load_span_table(abnormal, cache=False)
+
+
+def test_async_loop_on_cuda_is_bitwise_the_sync_loop(cuda_device, tmp_path):
+    # The same kernels in the same order on the stage worker's stream:
+    # the same bits as the synchronous loop, in stream and bulk mode.
+    from microrank_tpu_torch.pipeline import TableRCA
+
+    tl, normal, table = timeline_tables(tmp_path)
+    runs = {}
+    for name, kw in {
+        "sync": dict(pipeline_depth=1, async_dispatch=False),
+        "stream": {},
+        "bulk": dict(fetch_mode="bulk"),
+    }.items():
+        rca = TableRCA(MicroRankConfig(runtime=RuntimeConfig(**kw)), device="cuda")
+        rca.fit_baseline(normal)
+        runs[name] = [(r.start, r.ranking, r.rank_iterations) for r in rca.run(table)]
+    ranked = [w for w in runs["sync"] if w[1]]
+    assert len(ranked) >= 2 and all(w[1][0][0] == tl.fault_pod_op for w in ranked)
+    assert runs["stream"] == runs["sync"] and runs["bulk"] == runs["sync"]
+
+
+def test_stage_worker_launches_on_its_own_stream(cuda_device, tmp_path):
+    from microrank_tpu_torch.pipeline import TableRCA
+
+    _, normal, table = timeline_tables(tmp_path)
+    rca = TableRCA(MicroRankConfig(), device="cuda")
+    rca.fit_baseline(normal)
+    seen = []
+    real = rca.launch_rank
+
+    def spy(*args):
+        seen.append(torch.cuda.current_stream())
+        return real(*args)
+
+    rca.launch_rank = spy
+    assert any(r.ranking for r in rca.run(table))
+    assert seen and len(set(seen)) == 1
+    assert seen[0] != torch.cuda.default_stream()
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+
+
+def test_pinned_fetch_equals_cpu_copy(cuda_device):
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        pack_rank_outputs,
+        unpack_rank_outputs,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    outs = (
+        torch.randint(0, 5000, (11,), generator=gen, device=cuda_device, dtype=torch.int32),
+        torch.rand(11, generator=gen, device=cuda_device),
+        torch.tensor(9, dtype=torch.int32, device=cuda_device),
+        torch.rand((2, 25), generator=gen, device=cuda_device),
+        torch.tensor(25, dtype=torch.int32, device=cuda_device),
+    )
+    packed = pack_rank_outputs(outs)
+    assert packed.host.is_pinned() and packed.ready is not None
+    got = unpack_rank_outputs(packed)
+    for g, t in zip(got, outs):
+        np.testing.assert_array_equal(np.asarray(g), t.cpu().numpy())
