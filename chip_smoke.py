@@ -15,10 +15,13 @@ JAX or of the JAX package. Phases, one JSON line each:
               sources in this checkout (nvcc for ``csrc/coo_spmv.cu`` and
               ``csrc/pattern_pair.cu``, g++ for the native span loader /
               graph builder, all at once), and one tiny launch of K1 (a
-              row of several chunks, empty rows, padding) and of the
-              pattern pair (bits and int8, f32 and bf16, several tiles
-              with ragged edges) held bitwise against their plain
-              versions;
+              row of several chunks, empty rows, padding), of the pcsr
+              step (that work list with ELL slabs of widths 4 and 1024,
+              then 1 and 64: rows past 256 entries, empty rows) and of
+              the pattern pair (bits and int8, f32 and bf16, several
+              tiles with ragged edges) held bitwise against their plain
+              versions; and the two device timers (torch.profiler, CUDA
+              events) on a 1 GiB device copy;
 2. data     — one detection window at bench.py's config-5 scale
               (1,000,000 spans, 5,000 operations, 100 trace kinds,
               child_keep_prob 0.55, 60 s fault, seed 0) from the port's
@@ -40,8 +43,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               config 5; the two inequalities printed from the window's
               shapes): auto resolves to ``packed_blocked`` (25 pattern-pair
               and 25 K1 launches of 2 SpMVs per ranked window) and to
-              ``pcsr`` (25 K1 launches of 6 SpMVs), CUDA vs CPU at rtol
-              1e-5, and pcsr's ranking bitwise the pinned pallas run's;
+              ``pcsr`` (25 launches of the pcsr kernel, 6 SpMVs each, no
+              K1 launch), CUDA vs CPU at rtol 1e-5, and pcsr's ranking
+              bitwise the pinned pallas run's;
 5. replay   — ``TableRCA.run`` on the card over bench.py's config-5
               replay (``_run_replay``): 8 consecutive windows of
               1,000,000 spans, every one faulted, from the port's
@@ -72,21 +76,28 @@ JAX or of the JAX package. Phases, one JSON line each:
               auto path (the launch of both call-graph terms, for kind
               and packed_bf16): bitwise equal to its plain version computed on the
               CPU, bitwise repeatable over 50 launches with every arrival
-              counter back at 0, and timed (torch.profiler device time)
-              beside the plain version, torch.sparse_csr_tensor matvecs (a
+              counter back at 0, and timed (CUDA events per call behind
+              a device spin) beside the plain version, torch.sparse_csr_tensor matvecs (a
               yardstick the port never calls), the byte bound at
               3.35 TB/s, and the first, warp-per-row design of the kernel
               (``mr_coo_spmv_rows``), timed in turns with the chunked one
-              (first, chunked, chunked, first); the pcsr work list at
-              the shapes of its run, checked bitwise against the pallas
-              work list of the same window first;
+              (first, chunked, chunked, first); and the pcsr kernel's
+              step at the shapes of its run (``measure_pcsr``: bitwise its
+              plain version on the CPU, K1 over the earlier pcsr work
+              list and the pallas work list of the same window, bitwise
+              over 50 launches, rtol 1e-6 on the card; timed in turns
+              with that earlier design and six cuSPARSE CSR matvecs by
+              CUDA events per call behind a device spin (the kernel's
+              own time), over back-to-back calls and by torch.profiler;
+              and its two halves as launches of their own);
 7. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4) and
               K4 (packed and packed_bf16, uncollapsed): one launch per
               step for both partitions, bitwise equal to its plain
               version computed on the CPU and within rtol 1e-6 of it run
               on the card, bitwise repeatable over 50 launches, equal
               rows and equal columns of a constructed pattern giving
-              equal bits, and timed beside the plain version, the pair of
+              equal bits, and timed (CUDA events per call behind a
+              device spin) beside the plain version, the pair of
               torch.matmul calls over the loop-invariant cast matrix
               (what JAX computes; a yardstick the port never calls) and
               the byte bound; plus a sweep of K4 over one-partition
@@ -98,12 +109,14 @@ JAX or of the JAX package. Phases, one JSON line each:
               prepare_rank -> launch_rank -> finalize_rank with its
               partition given and its launches counted; top-5 tie-aware
               against the float64 sparse oracle (rtol 1e-3, as bench.py);
-              stage times and rank-program device time; one step of the
-              kernel within rtol 1e-6 of its plain version on the card,
-              bitwise over 50 launches, timed beside the library yardstick
-              and the byte bound. ``--giant-spans`` sets the larger window
-              (the smaller holds a fifth, the budget scales with it); 0
-              skips the phase.
+              stage times, rank-program device time and the main path's
+              peak device memory; one step of the kernel within rtol 1e-6
+              of its plain version on the card, bitwise over 50 launches,
+              timed beside the library yardstick and the byte bound (for
+              pcsr, ``measure_pcsr`` as in phase 6, against the pallas
+              work list of the 10M-span window too). ``--giant-spans``
+              sets the larger window (the smaller holds a fifth, the
+              budget scales with it); 0 skips the phase.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -140,8 +153,9 @@ RUN_RTOL_BF16 = 5e-3  # bf16 operands (packed_bf16, kind_precision="bf16")
 STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
 SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
 SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
-SIX_SPMV_KERNELS = ("pallas", "pcsr")  # K1 computes every SpMV of a step
 REPEATS = 50  # back-to-back launches that must give the first one's bits
+SPIN_CYCLES = 4_000_000  # device-side spin before an event-timed call (~2 ms)
+PROGRAM_SPIN_CYCLES = 200_000_000  # ~100 ms: longer than a rank program's issue
 # bench.py's giant-window tier (BENCH_GIANT_SPANS, BENCH_GIANT_OPS
 # defaults): at the default 2 GiB budget, the window of GIANT_SPANS / 5
 # spans keeps its bitmaps (about 135 MB) but not its unpacked matrices
@@ -174,6 +188,41 @@ class PhaseError(RuntimeError):
 def check(cond, msg) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def reset_counts(spmv, pattern) -> None:
+    """Every wrapper's launch count to 0, just before a main path runs."""
+    spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
+    spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
+    pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+
+
+def read_counts(spmv, pattern) -> dict:
+    return {
+        "k1_launches": spmv.coo_spmv.launches,
+        "k1_spmvs": spmv.coo_spmv.spmvs,
+        "pcsr_launches": spmv.pcsr_spmv_group.launches,
+        "pcsr_spmvs": spmv.pcsr_spmv_group.spmvs,
+        "pattern_launches": pattern.pattern_pair_group.launches,
+        "pattern_products": pattern.pattern_pair_group.products,
+    }
+
+
+def expected_counts(kernel, n) -> dict:
+    """The launch counts of ``n`` windows ranked with ``kernel``: one
+    launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
+    SpMVs), or of the pattern pair (four products) and K1 (the two
+    call-graph terms)."""
+    counts = dict.fromkeys(("k1_launches", "k1_spmvs", "pcsr_launches", "pcsr_spmvs",
+                            "pattern_launches", "pattern_products"), 0)
+    if kernel == "pallas":
+        counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
+    elif kernel == "pcsr":
+        counts.update(pcsr_launches=STEPS * n, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
+    else:
+        counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
+                      pattern_launches=STEPS * n, pattern_products=STEPS * 4 * n)
+    return counts
 
 
 def power_line() -> str:
@@ -226,6 +275,48 @@ def tiny_pattern_checks(torch, pattern, dev):
     return n
 
 
+def tiny_pcsr_checks(torch, spmv, dev, layout, x):
+    """First launches of the pcsr kernel: the tiny K1 work list (a row of
+    three chunks, empty rows) with ELL slabs of widths 4 and 1024 (rows of
+    700, 257 and 256 live entries, empty rows), then 1 and 64, then 4 and
+    512 (one row of 300 entries beside rows of 0 to 40), each slab wider
+    than 32 slots read in both of its modes (8 threads a row by the row's
+    length, and a warp a row), against the plain version on the CPU,
+    bitwise. Returns the number of launches."""
+    g = torch.Generator().manual_seed(2)
+
+    def ell(n_rows, width, counts, slot):
+        n = torch.randint(0, width + 1, (n_rows,), generator=g)
+        n[: len(counts)] = torch.tensor(counts)
+        ops = torch.randint(0, 40, (n_rows, width), generator=g, dtype=torch.int32)
+        vals = torch.rand((n_rows, width), generator=g) * 0.99 + 0.01
+        pad = torch.arange(width) >= n[:, None]
+        return spmv.ell_part(ops.masked_fill(pad, 0), vals.masked_fill(pad, 0.0), slot)
+
+    xs = [x, torch.rand(40, generator=g), torch.rand(40, generator=g)]
+    rows = spmv.spmv_group([layout], (0,), (x.shape[0],))
+    n = 0
+    for slabs in ((ell(300, 4, (0, 4, 1), 1), ell(9, 1024, (700, 257, 256, 0, 1024), 2)),
+                  (ell(70, 1, (0, 1), 2), ell(33, 64, (0, 64, 63), 1)),
+                  (ell(40, 4, (4, 0), 1), ell(64, 512, (300, *(i % 41 for i in range(63))), 2))):
+        for wide in (spmv.ELL_SHORT, spmv.ELL_WARP):
+            slabs = tuple(e if e.mode == spmv.ELL_SLAB else e._replace(mode=wide) for e in slabs)
+            cpu = spmv.PcsrGroup(rows, slabs, (0, 1, 2))
+            on_dev = spmv.PcsrGroup(
+                spmv.SpmvGroup(*(t.to(dev) if torch.is_tensor(t) else t for t in rows)),
+                tuple(spmv.EllPart(*(t.to(dev) if torch.is_tensor(t) else t for t in e))
+                      for e in slabs),
+                cpu.order,
+            )
+            got = spmv.pcsr_spmv_group(on_dev, [v.to(dev) for v in xs])
+            torch.cuda.synchronize()
+            for a, b in zip(got, spmv.pcsr_spmv_group_plain(cpu, xs)):
+                check(torch.equal(a.cpu(), b),
+                      f"tiny pcsr launch (wide mode {wide}) differs from its plain version")
+            n += 1
+    return n
+
+
 def phase_env(torch, spmv, pattern, native):
     # Build the three libraries from the checkout's sources, in parallel.
     for lib in (spmv.LIB_PATH, pattern.LIB_PATH, native.LIB_PATH):
@@ -262,10 +353,12 @@ def phase_env(torch, spmv, pattern, native):
     lay = spmv.row_layout(rows.to(dev), cols.to(dev), vals.to(dev), 37, 1000)
     y = spmv.coo_spmv(lay, x.to(dev))
     torch.cuda.synchronize()
-    y_cpu = spmv.coo_spmv_plain(spmv.row_layout(rows, cols, vals, 37, 1000), x)
-    tiny_bitwise = bool(torch.equal(y.cpu(), y_cpu))
+    host_lay = spmv.row_layout(rows, cols, vals, 37, 1000)
+    tiny_bitwise = bool(torch.equal(y.cpu(), spmv.coo_spmv_plain(host_lay, x)))
     check(tiny_bitwise, "tiny K1 launch differs from its plain version")
+    n_pcsr = tiny_pcsr_checks(torch, spmv, dev, host_lay, x)
     n_pattern = tiny_pattern_checks(torch, pattern, dev)
+    timers = timer_check(torch)
     return {
         "phase": "env",
         "device": torch.cuda.get_device_name(0),
@@ -281,7 +374,9 @@ def phase_env(torch, spmv, pattern, native):
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
                                if "ptxas" in ln],
         "tiny_launch_bitwise_vs_plain": tiny_bitwise,
+        "tiny_pcsr_launches_bitwise_vs_plain": n_pcsr,
         "tiny_pattern_cases_bitwise_vs_plain": n_pattern,
+        "timer_check_1gib_copy": timers,
     }
 
 
@@ -360,6 +455,20 @@ def device_ms(torch, fn, reps):
     return None
 
 
+def rank_device_fields(rank_device, rank_wall_ms):
+    """The rank program's device time by torch.profiler and by CUDA
+    events around the program queued behind a long device spin (an upper
+    bound: where its launches outrun the stream's queue, its tail may
+    wait on the host), each with its share of the program's wall time."""
+    prof, events = rank_device
+    out = {}
+    for key, t in (("rank_device_ms", prof), ("rank_device_event_ms", events)):
+        out[key] = None if t is None else round(t, 4)
+        share = key.replace("_ms", "_busy_share")
+        out[share] = None if t is None else round(t / rank_wall_ms, 4)
+    return out
+
+
 def window_breakdown(torch, cfg, normal, abnormal, start_iso):
     """One ranked window again, through the lane's own seams, one stage
     at a time with the device drained between stages: where a window's
@@ -405,7 +514,7 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
 
     outs = stage("rank_issue_and_run", rank)
     stage("fetch", lambda: fetch_rank_outputs(outs))
-    rank_device = device_ms(torch, rank, 3)
+    rank_device = (device_ms(torch, rank, 3), spin_event_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
     return graph, kernel, ms, rank_device
 
 
@@ -448,18 +557,12 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
     walls, counts, res_gpu = [], [], None
     for _ in ("cold", "warm"):
         torch.cuda.synchronize()
-        spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
-        pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+        reset_counts(spmv, pattern)
         t0 = time.perf_counter()
         res_gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts.append({
-            "k1_launches": spmv.coo_spmv.launches,
-            "k1_spmvs": spmv.coo_spmv.spmvs,
-            "pattern_launches": pattern.pattern_pair_group.launches,
-            "pattern_products": pattern.pattern_pair_group.products,
-        })
+        counts.append(read_counts(spmv, pattern))
 
     t0 = time.perf_counter()
     res_cpu = run_rca_native(normal, abnormal, cfg, device="cpu")
@@ -470,12 +573,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
     kernels = sorted({r.kernel for r in ranked})
     check(kernels == [want], f"{tag}: ranked with {kernels}, want {want}")
     n = len(ranked)
-    if want in SIX_SPMV_KERNELS:
-        expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SPMVS_PER_STEP * n,
-                  "pattern_launches": 0, "pattern_products": 0}
-    else:
-        expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SS_SPMVS_PER_STEP * n,
-                  "pattern_launches": STEPS * n, "pattern_products": STEPS * 4 * n}
+    expect = expected_counts(want, n)
     for c in counts:
         check(c == expect, f"{tag}: launch counts {c} in {n} ranked windows, want {expect}")
     top1 = ranked[0].ranking[0][0]
@@ -517,6 +615,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "launches_per_run": counts,
         "k1_launches_per_ranked_window": counts[-1]["k1_launches"] // n,
         "k1_spmvs_per_ranked_window": counts[-1]["k1_spmvs"] // n,
+        "pcsr_launches_per_ranked_window": counts[-1]["pcsr_launches"] // n,
         "pattern_launches_per_ranked_window": counts[-1]["pattern_launches"] // n,
         "cuda_vs_cpu_tie_aware": True,
         "cuda_vs_cpu_rtol": rtol,
@@ -527,10 +626,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         },
         "cuda_window_timings_ms": ranked[0].timings,
         "stage_ms": stages,
-        "rank_device_ms": None if rank_device is None else round(rank_device, 4),
-        "rank_device_busy_share": (
-            None if rank_device is None else round(rank_device / rank_wall, 4)
-        ),
+        **rank_device_fields(rank_device, rank_wall),
         "cpu_wall_s": round(cpu_s, 4),
     }
 
@@ -608,6 +704,10 @@ def _median(values):
     return values[len(values) // 2] if values else None
 
 
+def _mean(values):
+    return sum(values) / len(values)
+
+
 def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     """One mode of ``TableRCA.run`` on the card over the whole timeline:
     a warm pass with a sink (records, cursor, journal), three timed
@@ -663,25 +763,18 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
           f"{tag}: the journal does not open with run_start and close with run_end")
 
     n = len(ranked)
-    expect = {"k1_launches": STEPS * n, "k1_spmvs": STEPS * SS_SPMVS_PER_STEP * n,
-              "pattern_launches": STEPS * n, "pattern_products": STEPS * 4 * n}
+    expect = expected_counts("kind", n)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls, timed, stage_sums = [], [], []
     for _ in range(3):
         torch.cuda.synchronize()
-        spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
-        pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+        reset_counts(spmv, pattern)
         t0 = time.perf_counter()
         res = rca.run(table)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts = {
-            "k1_launches": spmv.coo_spmv.launches,
-            "k1_spmvs": spmv.coo_spmv.spmvs,
-            "pattern_launches": pattern.pattern_pair_group.launches,
-            "pattern_products": pattern.pattern_pair_group.products,
-        }
+        counts = read_counts(spmv, pattern)
         check(counts == expect, f"{tag}: launch counts {counts} in {n} ranked windows, want {expect}")
         check([(r.start, r.ranking, r.rank_iterations) for r in res]
               == [(r.start, r.ranking, r.rank_iterations) for r in warm],
@@ -859,7 +952,7 @@ def csr_of(torch, lay, n_x):
         )
 
 
-def measure_group(torch, spmv, name, group, layouts, xs, reps):
+def measure_group(torch, spmv, name, group, layouts, xs):
     """Check and time one group of matrices on the card. ``xs`` are the
     group's slots; matrix m reads ``xs[group.x_slots[m]]``."""
     mx = [xs[s] for s in group.x_slots]
@@ -894,26 +987,19 @@ def measure_group(torch, spmv, name, group, layouts, xs, reps):
     lib_out = torch.cat([torch.mv(c, x) for c, x in zip(csrs, mx)])
     lib_rel = float(((lib_out - y_plain).abs() / y_plain.abs().clamp_min(1e-30)).max())
 
-    # Device time per call (profiler) is the kernel's cost; the
-    # CUDA-event time of back-to-back calls is bounded by how fast the
-    # host can issue them, and is kept beside it. The two designs are
-    # timed in turns: first, chunked, chunked, first.
+    # CUDA events per call behind a device spin; the two designs in
+    # turns: first, chunked, chunked, first.
     calls = {
         "kernel": lambda: spmv.coo_spmv_group(group, xs),
         "first_design": old,
         "plain": lambda: spmv.coo_spmv_group_plain(group, xs),
         "library": lambda: [torch.mv(c, x) for c, x in zip(csrs, mx)],
     }
-    turns = [(k, device_ms(torch, calls[k], 20))
+    turns = [(k, spin_event_ms(torch, calls[k], 20))
              for k in ("first_design", "kernel", "kernel", "first_design")]
-    dev_ms = {k: [t for kk, t in turns if kk == k] for k in ("kernel", "first_design")}
-    dev_ms.update({k: [device_ms(torch, calls[k], 20)] for k in ("plain", "library")})
-    issue_ms = {k: _time_ms(torch, f, reps) for k, f in calls.items()}
-    ms, timed_by = {}, {}
-    for k, v in dev_ms.items():
-        got = [t for t in v if t is not None]
-        ms[k] = sum(got) / len(got) if got else issue_ms[k]
-        timed_by[k] = "profiler" if got else "cuda_events"
+    ms = {k: _mean([t for kk, t in turns if kk == k]) for k in ("kernel", "first_design")}
+    ms["library"] = spin_event_ms(torch, calls["library"], 20)
+    ms["plain"] = spin_event_ms(torch, calls["plain"], 3)
     total_bytes, bytes_ms, ops_ms = 0, 0.0, 0.0
     for lay, x in zip(layouts, mx):
         b, b_ms, o_ms = spmv_bound(lay.n_rows, int(lay.indptr[-1]), int(x.shape[0]))
@@ -930,9 +1016,7 @@ def measure_group(torch, spmv, name, group, layouts, xs, reps):
         "first_design_ms": round(ms["first_design"], 6),
         "plain_ms": round(ms["plain"], 6),
         "library_ms": round(ms["library"], 6),
-        "turns_ms": [[k, None if t is None else round(t, 6)] for k, t in turns],
-        "timed_by": timed_by,
-        "issue_bound_ms": {k: round(v, 6) for k, v in issue_ms.items()},
+        "turns_ms": [[k, round(t, 6)] for k, t in turns],
         "bound_ms": round(max(bytes_ms, ops_ms), 6),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": total_bytes,
@@ -975,57 +1059,224 @@ def lowered_budgets(graph):
     return {"packed_blocked": blocked, "pcsr": pcsr}
 
 
-def pcsr_step(torch, spmv, graph, pallas_group, gen):
-    """K1's pcsr work list at a graph's shapes, built on the card from
-    the partition-centric views as the main path stages it, with random x
-    vectors; checked bitwise against the pallas work list of the same
-    window (``pallas_group``) on the same vectors. Returns (group,
-    layouts, xs)."""
-    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+def spin_event_ms(torch, fn, reps, cycles=None):
+    """Device time (ms) of one call of ``fn`` by CUDA events, each call
+    queued behind a device-side spin of ``cycles`` (SPIN_CYCLES, ~2 ms)
+    so that the host's issue time never shows between the events: the
+    median over ``reps`` calls. ``fn`` must not wait on the device."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles or SPIN_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return _median([a.elapsed_time(b) for a, b in pairs])
+
+
+def timer_check(torch):
+    """The two device timers on work of known size: a device-to-device
+    copy of 1 GiB (2 GiB moved), timed in turns by torch.profiler (device
+    time per call) and by CUDA events behind a spin, each with the
+    bandwidth it implies (a time that implies more than the card's
+    3.35 TB/s is the timer's error); then the events' floor."""
+    src = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+
+    def copy():
+        dst.copy_(src)
+
+    out = []
+    for k in ("profiler", "events", "events", "profiler"):
+        t = device_ms(torch, copy, 5) if k == "profiler" else spin_event_ms(torch, copy, 5)
+        moved = 2 * src.numel() * 4
+        out.append({"timer": k, "ms": t,
+                    "tb_per_s": None if t is None else round(moved / t / 1e9, 3)})
+    del src, dst
+    torch.cuda.empty_cache()
+    # The events' floor: a one-float add, the least a timed call can read.
+    one = torch.zeros(1, device="cuda")
+    out.append({"timer": "events", "call": "one-float add",
+                "ms": spin_event_ms(torch, lambda: one.add_(1.0), 20)})
+    return out
+
+
+def measure_pcsr(torch, spmv, name, dgraph, reps, pallas_group=None):
+    """Check and time the pcsr kernel's step at a window's shapes
+    (``dgraph`` staged for pcsr on the card): bitwise its plain version on
+    the CPU, the earlier design (K1 over ``pcsr_layouts``' work list) and,
+    where given, the pallas work list of the same window; bitwise over
+    REPEATS launches; within KERNEL_RTOL of its plain version on the
+    card. Then timed in turns (earlier design, kernel, six cuSPARSE CSR
+    matvecs, the same again in reverse) by CUDA events per call behind a
+    device-side spin (the kernel's own time), by CUDA events over
+    ``reps`` back-to-back calls and by torch.profiler (all device time
+    per call); and the step's two halves as launches of their own. The
+    bound counts the slabs' live entries, not their padding."""
     from microrank_tpu_torch.rank_backends.torch_cuda import (
-        device_subset,
-        host_subset,
+        STEP_X_SLOTS,
         pcsr_layouts,
+        window_spmv_group,
     )
 
     dev = torch.device("cuda")
-    dgraph = device_subset(graph_from_numpy(host_subset(graph, "pcsr"), dev), "pcsr")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    group = dgraph.spmv_group
     parts = (dgraph.normal, dgraph.abnormal)
-    sizes = [n for p in parts for n in (p.kind.shape[0], p.cov_unique.shape[0])]
-    xs = [torch.rand(n, generator=gen, device=dev) for n in sizes]
+    xs = [torch.rand(n, generator=gen, device=dev)
+          for p in parts for n in (p.kind.shape[0], p.cov_unique.shape[0])]
     layouts = [lay for p in parts for lay in pcsr_layouts(p)]
+    prior = window_spmv_group(dgraph, pcsr_layouts)
+    mx = [xs[s] for s in STEP_X_SLOTS]
+
+    first = torch.cat(spmv.pcsr_spmv_group(group, xs))
+    vs_prior = torch.equal(first, torch.cat(spmv.coo_spmv_group(prior, xs)))
+    check(vs_prior, f"{name}: differs from K1 over the pcsr work list")
     if pallas_group is not None:
-        ours = torch.cat(spmv.coo_spmv_group(dgraph.spmv_group, xs))
-        theirs = torch.cat(spmv.coo_spmv_group(pallas_group, xs))
-        check(torch.equal(ours, theirs),
-              "pcsr work list: products differ from the pallas work list's")
-    return dgraph.spmv_group, layouts, xs
+        check(torch.equal(first, torch.cat(spmv.coo_spmv_group(pallas_group, xs))),
+              f"{name}: differs from the pallas work list")
+    torch.cuda.synchronize()
+    cpu = spmv.PcsrGroup(
+        spmv.SpmvGroup(*(t.cpu() if torch.is_tensor(t) else t for t in group.rows)),
+        tuple(spmv.EllPart(*(t.cpu() if torch.is_tensor(t) else t for t in e)) for e in group.ell),
+        group.order,
+    )
+    ref = torch.cat(spmv.pcsr_spmv_group_plain(cpu, [x.cpu() for x in xs]))
+    check(torch.equal(first.cpu(), ref), f"{name}: differs from its plain version on the CPU")
+    again = [torch.cat(spmv.pcsr_spmv_group(group, xs)) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, first) for a in again),
+          f"{name}: not bitwise repeatable over {REPEATS} launches")
+    check(not bool(group.rows.counters.any()), f"{name}: arrival counters left non-zero")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        y_plain = torch.cat(spmv.pcsr_spmv_group_plain(group, xs))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    diff = (first - y_plain).abs()
+    abs_err = float(diff.max())
+    rel_err = float((diff / y_plain.abs().clamp_min(1e-30)).max())
+    check(rel_err <= KERNEL_RTOL, f"{name}: rel err {rel_err} > {KERNEL_RTOL}")
+    csrs = [csr_of(torch, lay, int(x.shape[0])) for lay, x in zip(layouts, mx)]
+    lib_out = torch.cat([torch.mv(c, x) for c, x in zip(csrs, mx)])
+    lib_rel = float(((lib_out - y_plain).abs() / y_plain.abs().clamp_min(1e-30)).max())
+
+    calls = {
+        "kernel": lambda: spmv.pcsr_spmv_group(group, xs),
+        "prior": lambda: spmv.coo_spmv_group(prior, xs),
+        "library": lambda: [torch.mv(c, x) for c, x in zip(csrs, mx)],
+        "plain": lambda: spmv.pcsr_spmv_group_plain(group, xs),
+    }
+    # The step's two halves as launches of their own: K1 over the same
+    # work items alone, and the slabs alone (with the call edges as their
+    # only items): what one launch saves or costs against two.
+    ell_only = spmv.PcsrGroup(
+        spmv.spmv_group([layouts[1], layouts[4]], (1, 3), (mx[1].shape[0], mx[4].shape[0])),
+        group.ell, (0, 1, 2, 3),
+    )
+    calls["items_alone"] = lambda: spmv.coo_spmv_group(group.rows, xs)
+    calls["slabs_alone"] = lambda: spmv.pcsr_spmv_group(ell_only, xs)
+    turns = []
+    for k in ("prior", "kernel", "library", "library", "kernel", "prior"):
+        turns.append({
+            "call": k,
+            "profiler_ms": device_ms(torch, calls[k], 20),
+            "event_ms": spin_event_ms(torch, calls[k], 20),
+            "back_to_back_event_ms": _time_ms(torch, calls[k], reps),
+        })
+    split = {}
+    for k in ("items_alone", "slabs_alone", "slabs_alone", "items_alone"):
+        split[k] = split.get(k, 0.0) + spin_event_ms(torch, calls[k], 20) / 2
+    plain_ms = spin_event_ms(torch, calls["plain"], 3)
+
+    def mean(k, key):
+        got = [t[key] for t in turns if t["call"] == k and t[key] is not None]
+        return round(sum(got) / len(got), 6) if got else None
+
+    times = {k: {key: mean(k, key) for key in ("profiler_ms", "event_ms", "back_to_back_event_ms")}
+             for k in ("kernel", "prior", "library")}
+
+    def bound(pairs, ell_parts):
+        total, b_ms, o_ms = 0, 0.0, 0.0
+        for lay, x in pairs:
+            b, bm, om = spmv_bound(lay.n_rows, int(lay.indptr[-1]), int(x.shape[0]))
+            total, b_ms, o_ms = total + b, b_ms + bm, o_ms + om
+        for e in ell_parts:
+            n_rows, live = e.ops.shape[0], int((e.vals != 0).sum())
+            b = 8 * live + 4 * xs[e.slot].shape[0] + 4 * n_rows
+            total += b
+            b_ms += b / HBM_BYTES_PER_S * 1e3
+            o_ms += 2 * live / F32_FLOPS_PER_S * 1e3
+        return total, b_ms, o_ms
+
+    row_pairs = [(layouts[m], mx[m]) for m in (0, 1, 3, 4)]
+    n_bytes, b_ms, o_ms = bound(row_pairs, group.ell)
+    p_bytes, pb_ms, po_ms = bound(list(zip(layouts, mx)), ())
+    # The kernel's own time: CUDA events around each call behind a device
+    # spin (stable to a fraction of a percent across turns); the
+    # profiler's sum of the same calls is kept beside it.
+    return {
+        "name": name,
+        "ell_shapes": [list(e.ops.shape) for e in group.ell],
+        "work_items": int(group.rows.items.shape[0]),
+        "prior_work_items": int(prior.items.shape[0]),
+        "entries": [int(lay.indptr[-1]) for lay in layouts],
+        "ms": times["kernel"]["event_ms"],
+        "timed_by": "cuda_events",
+        "times_ms": times,
+        "turns": turns,
+        "split_event_ms": {k: round(split[k], 6) for k in ("items_alone", "slabs_alone")},
+        "prior_ms": times["prior"]["event_ms"],
+        "library_ms": times["library"]["event_ms"],
+        "plain_ms": round(plain_ms, 6),
+        "bound_ms": round(max(b_ms, o_ms), 6),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "bytes": n_bytes,
+        "prior_bound_ms": round(max(pb_ms, po_ms), 6),
+        "prior_bytes": p_bytes,
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "library_max_rel_diff": lib_rel,
+        "bitwise_vs_cpu_plain": True,
+        "bitwise_vs_prior_work_list": vs_prior,
+        "bitwise_vs_pallas_work_list": pallas_group is not None,
+        "bitwise_repeatable_launches": REPEATS,
+    }
 
 
 def phase_kernel(torch, spmv, graphs, reps):
     """K1 per matrix (groups of one) at the uncollapsed shapes, then per
     step: the pallas path's grouped launch at both shapes ("off",
     "auto"), the auto path's launch of the two call-graph terms
-    ("auto_path/kind", "auto_path/packed_bf16"), and the pcsr work list
-    of the window past the lowered budget ("pcsr", checked bitwise
-    against the pallas work list of the same window first)."""
+    ("auto_path/kind", "auto_path/packed_bf16"), and the pcsr kernel's
+    step at the window past the lowered budget ("pcsr", ``measure_pcsr``,
+    against the pallas work list of the same window too)."""
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
     names = [f"{part}/{m}" for part in ("normal", "abnormal") for m in ("p_sr", "p_ss", "p_rs")]
     group, layouts, xs = step_matrices(torch, graphs["pallas/off"], gen)
     per_matrix = []
     for name, lay, slot, n_x in zip(names, layouts, group.x_slots, group.n_x):
         single = spmv.spmv_group([lay], (0,), (n_x,))
-        per_matrix.append(measure_group(torch, spmv, name, single, [lay], [xs[slot]], reps))
-    per_step = {"off": measure_group(torch, spmv, "step/off", group, layouts, xs, reps)}
-    pc_group, pc_layouts, pc_xs = pcsr_step(torch, spmv, graphs["auto/pcsr"], group, gen)
-    per_step["pcsr"] = measure_group(torch, spmv, "step/pcsr", pc_group, pc_layouts, pc_xs, reps)
-    per_step["pcsr"]["bitwise_vs_pallas_work_list"] = True
+        per_matrix.append(measure_group(torch, spmv, name, single, [lay], [xs[slot]]))
+    per_step = {"off": measure_group(torch, spmv, "step/off", group, layouts, xs)}
+    pc_graph = device_subset(
+        graph_from_numpy(host_subset(graphs["auto/pcsr"], "pcsr"), torch.device("cuda")), "pcsr"
+    )
+    per_step["pcsr"] = measure_pcsr(torch, spmv, "step/pcsr", pc_graph, reps, group)
     group, layouts, xs = step_matrices(torch, graphs["pallas/auto"], gen)
-    per_step["auto"] = measure_group(torch, spmv, "step/auto", group, layouts, xs, reps)
+    per_step["auto"] = measure_group(torch, spmv, "step/auto", group, layouts, xs)
     for kernel, run in (("kind", "auto/auto"), ("packed_bf16", "auto/off")):
         name = f"auto_path/{kernel}"
         group, layouts, xs = call_graph_terms(torch, graphs[run], kernel, gen)
-        per_step[name] = measure_group(torch, spmv, name, group, layouts, xs, reps)
+        per_step[name] = measure_group(torch, spmv, name, group, layouts, xs)
     return per_matrix, per_step
 
 
@@ -1091,7 +1342,7 @@ def pattern_bound(group, nnz):
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
 
 
-def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps, cpu_check=True):
+def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, cpu_check=True):
     """Check and time one pattern-pair call (both partitions) on the
     card. ``cpu_check``: also hold it bitwise to its plain version
     computed on the CPU and check equal rows and columns of a constructed
@@ -1150,16 +1401,11 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps, cpu_check
         "plain": plain,
         "library": library,
     }
-    turns = [(k, device_ms(torch, calls[k], 20)) for k in ("library", "kernel", "kernel", "library")]
-    dev_ms = {k: [t for kk, t in turns if kk == k] for k in ("kernel", "library")}
-    dev_ms["plain"] = [device_ms(torch, plain, 5)]
-    issue_ms = {k: _time_ms(torch, f, reps) for k, f in calls.items() if k != "plain"}
-    issue_ms["plain"] = _time_ms(torch, plain, 5)
-    ms, timed_by = {}, {}
-    for k, v in dev_ms.items():
-        got = [t for t in v if t is not None]
-        ms[k] = sum(got) / len(got) if got else issue_ms[k]
-        timed_by[k] = "profiler" if got else "cuda_events"
+    # CUDA events per call behind a device spin, in turns.
+    turns = [(k, spin_event_ms(torch, calls[k], 20))
+             for k in ("library", "kernel", "kernel", "library")]
+    ms = {k: _mean([t for kk, t in turns if kk == k]) for k in ("kernel", "library")}
+    ms["plain"] = spin_event_ms(torch, plain, 3)
     nbytes, bytes_ms, ops_ms = pattern_bound(group, nnz)
     return {
         "name": name,
@@ -1174,9 +1420,7 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps, cpu_check
         "ms": round(ms["kernel"], 6),
         "plain_ms": round(ms["plain"], 6),
         "library_ms": round(ms["library"], 6),
-        "turns_ms": [[k, None if t is None else round(t, 6)] for k, t in turns],
-        "timed_by": timed_by,
-        "issue_bound_ms": {k: round(v, 6) for k, v in issue_ms.items()},
+        "turns_ms": [[k, round(t, 6)] for k, t in turns],
         "bound_ms": round(max(bytes_ms, ops_ms), 6),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes,
@@ -1203,12 +1447,12 @@ def pattern_sweep(torch, pattern):
         vec = lambda n: torch.rand(n, generator=gen, device="cuda")  # noqa: E731
         group = pattern.pattern_group([bits], [vec(k)], [vec(v)], [vec(v)], [k], True)
         rv, sv = vec(k), vec(v)
-        ms = device_ms(torch, lambda: pattern.pattern_pair_group(group, [rv], [sv], True), 20)
-        out.append({"rows": v, "cols": k, "ms": None if ms is None else round(ms, 6)})
+        ms = spin_event_ms(torch, lambda: pattern.pattern_pair_group(group, [rv], [sv], True), 20)
+        out.append({"rows": v, "cols": k, "ms": round(ms, 6)})
     return out
 
 
-def phase_pattern(torch, pattern, graphs, reps):
+def phase_pattern(torch, pattern, graphs):
     """K2 at the collapsed shapes (f32, bf16) and K4 at the uncollapsed
     ones (packed, packed_bf16): one pair call per step for both
     partitions."""
@@ -1217,11 +1461,11 @@ def phase_pattern(torch, pattern, graphs, reps):
     group, rvs, svs = pattern_inputs(torch, graphs["auto/auto"], "kind", gen)
     for bf16 in (False, True):
         name = f"kind_{'bf16' if bf16 else 'f32'}"
-        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps)
+        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16)
     group, rvs, svs = pattern_inputs(torch, graphs["auto/off"], "packed", gen)
     for bf16 in (False, True):
         name = "packed_bf16" if bf16 else "packed"
-        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16, reps)
+        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16)
     return out
 
 
@@ -1243,7 +1487,6 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         device_subset,
         fetch_rank_outputs,
         host_subset,
-        pcsr_layouts,
         rank_window_traced_core,
     )
     from microrank_tpu_torch.testing import giant_window
@@ -1261,8 +1504,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     # The main path, counted.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
-    pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+    reset_counts(spmv, pattern)
     t0 = time.perf_counter()
     graph, names, kernel = rca.prepare_rank(gw.table, None, gw.normal_codes, gw.abnormal_codes)
     ms["build"] = round((time.perf_counter() - t0) * 1e3, 3)
@@ -1270,20 +1512,11 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     top, scores, conv = rca.finalize_rank(rca.launch_rank(graph, names, kernel))
     torch.cuda.synchronize()
     ms["launch_and_finalize_cold"] = round((time.perf_counter() - t0) * 1e3, 3)
-    counts = {
-        "k1_launches": spmv.coo_spmv.launches,
-        "k1_spmvs": spmv.coo_spmv.spmvs,
-        "pattern_launches": pattern.pattern_pair_group.launches,
-        "pattern_products": pattern.pattern_pair_group.products,
-    }
+    counts = read_counts(spmv, pattern)
+    main_peak = torch.cuda.max_memory_allocated()
     shapes = budget_inequalities(graph, budget)
     check(kernel == want, f"{tag}: auto resolved to {kernel}, want {want} ({shapes})")
-    if want in SIX_SPMV_KERNELS:
-        expect = {"k1_launches": STEPS, "k1_spmvs": STEPS * SPMVS_PER_STEP,
-                  "pattern_launches": 0, "pattern_products": 0}
-    else:
-        expect = {"k1_launches": STEPS, "k1_spmvs": STEPS * SS_SPMVS_PER_STEP,
-                  "pattern_launches": STEPS, "pattern_products": STEPS * 4}
+    expect = expected_counts(want, 1)
     check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
 
     # The float64 oracle on the host graph.
@@ -1312,21 +1545,19 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
 
     outs = stage("rank_issue_and_run", rank)
     stage("fetch", lambda: fetch_rank_outputs(outs))
-    rank_device = device_ms(torch, rank, 3)
+    rank_device = (device_ms(torch, rank, 3), spin_event_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
     if kernel == "pcsr":
-        parts = (dgraph.normal, dgraph.abnormal)
-        sizes = [n for p in parts for n in (p.kind.shape[0], p.cov_unique.shape[0])]
-        xs = [torch.rand(n, generator=gen, device=dev) for n in sizes]
-        layouts = [lay for p in parts for lay in pcsr_layouts(p)]
-        kern = measure_group(torch, spmv, f"giant/{kernel}", dgraph.spmv_group, layouts, xs, reps)
+        pallas = device_subset(graph_from_numpy(graph, dev), "pallas").spmv_group
+        kern = measure_pcsr(torch, spmv, f"giant/{kernel}", dgraph, reps, pallas)
+        del pallas
     else:
         group = dgraph.pattern_group
         rvs = [torch.rand(p.n_cols, generator=gen, device=dev) for p in group.parts]
         svs = [torch.rand(p.pattern.shape[0], generator=gen, device=dev) for p in group.parts]
-        kern = measure_pattern(torch, pattern, f"giant/{kernel}", group, rvs, svs, False, reps,
+        kern = measure_pattern(torch, pattern, f"giant/{kernel}", group, rvs, svs, False,
                                cpu_check=False)
     info = {
         "phase": "giant",
@@ -1346,10 +1577,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         "generate_s": round(gen_s, 3),
         "oracle_s": round(oracle_s, 3),
         "stage_ms": ms,
-        "rank_device_ms": None if rank_device is None else round(rank_device, 4),
-        "rank_device_busy_share": (
-            None if rank_device is None else round(rank_device / ms["rank_issue_and_run"], 4)
-        ),
+        **rank_device_fields(rank_device, ms["rank_issue_and_run"]),
+        "peak_device_memory_bytes_main_path": main_peak,
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
         "kernel": kern,
     }
@@ -1439,7 +1668,7 @@ def main(argv=None) -> int:
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
               "rtol": KERNEL_RTOL})
         phase = "pattern"
-        pairs = phase_pattern(torch, pattern, graphs, args.reps)
+        pairs = phase_pattern(torch, pattern, graphs)
         emit({"phase": "pattern", "per_step": pairs, "rtol": KERNEL_RTOL,
               "packed_bf16_sweep": pattern_sweep(torch, pattern)})
         phase = "giant"
@@ -1468,6 +1697,10 @@ def main(argv=None) -> int:
     # --giant-spans, else at config 5's uncollapsed shapes ("packed").
     blocked = giant.get("packed_blocked", pairs["packed"])
     pcsr = giant.get("pcsr", per_step["pcsr"])
+    # Times are CUDA events around one call behind a device spin (the
+    # kernel's own time; torch.profiler's summed device time misreads
+    # this card's launches, see timer_check), library_ms and plain_ms
+    # the same.
     emit({"kernels": [
         {
             "name": "coo_spmv",
@@ -1478,7 +1711,8 @@ def main(argv=None) -> int:
             # a launch), the auto runs and the replay (the two call-graph
             # terms).
             "launches": sum(c["k1_launches"] for c in launches.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in [*per_matrix, *per_step.values()]),
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               [*per_matrix, *(v for k, v in per_step.items() if k != "pcsr")]),
             # Times are one power-iteration step (one launch, six SpMVs:
             # p_sr, p_ss, p_rs of both partitions) at the uncollapsed
             # config-5 shapes; library_ms is six CSR matvecs.
@@ -1543,12 +1777,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/coo_spmv.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:715",
-            "launches": sum(c["k1_launches"] for k, c in launches.items()
-                            if k.endswith("/pcsr")),
+            "launches": sum(c["pcsr_launches"] for c in launches.values()),
             "max_abs_err": pcsr["max_abs_err"],
-            # One step (one launch, six SpMVs over the work list built from
-            # the partition-centric views) at the giant window's shapes;
-            # library_ms is six CSR matvecs.
+            # One step (one launch, six SpMVs: K1's work items over the op
+            # side and the call edges, the trace side from the ELL slabs)
+            # at the giant window's shapes; library_ms is six CSR matvecs.
             "ms": pcsr["ms"],
             "plain_ms": pcsr["plain_ms"],
             "bound_ms": pcsr["bound_ms"],

@@ -6,8 +6,8 @@ pandas. It runs the native ``run`` lane — C++ span ingest, fused C++
 detection, the C++ graph build, and a per-window PageRank + spectrum
 program on torch tensors whose products go through hand-written CUDA
 kernels: the coverage pattern pairs of the default ``kernel="auto"``
-(kind / packed_bf16, ``csrc/pattern_pair.cu``) and the COO SpMV
-(``csrc/coo_spmv.cu``). Entry points run on the card unless the caller
+(kind / packed_bf16, ``csrc/pattern_pair.cu``), the COO SpMV and the
+pcsr step past the dense budget (``csrc/coo_spmv.cu``). Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 

@@ -140,8 +140,10 @@ class RuntimeConfig:
     #       list (K1); f32 or bf16 operands, f32 accumulation;
     #   "packed_blocked" — "packed" in f32 on windows whose unpacked
     #       matrices exceed dense_budget_bytes (the kernel never unpacks);
-    #   "pcsr" — all six SpMVs of a step through K1, over a work list
-    #       built from the partition-centric views;
+    #   "pcsr" — all six SpMVs of a step in one launch of the pcsr
+    #       kernel (csrc/coo_spmv.cu pcsr_step): K1's work items over
+    #       the op side and the call edges, the trace side read from the
+    #       partition-centric views' ELL slab;
     #   "pallas" — every SpMV through K1 (the port of the JAX package's
     #       one Pallas kernel, ops/pallas_spmv.py); never chosen by auto;
     #   "auto" (default) — kind when the build kind-collapsed the window

@@ -82,7 +82,8 @@ class WindowGraph(NamedTuple):
     # Port-only, built once per window by
     # rank_backends.torch_cuda.device_subset (None until then): K1's work
     # list (ops.spmv.SpmvGroup) — the six SpMVs of a step for "pallas",
-    # the two call-graph terms for the kind and packed kernels — and the
+    # the two call-graph terms for the kind and packed kernels — or the
+    # pcsr kernel's step (ops.spmv.PcsrGroup) for "pcsr", and the
     # two coverage patterns of the pattern-pair kernel
     # (ops.pattern.PatternGroup).
     spmv_group: Optional[Any] = None

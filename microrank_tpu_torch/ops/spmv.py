@@ -24,6 +24,15 @@ Three steps:
   kernel's order, so both give the same bits. ``coo_spmv`` is a group of
   one.
 
+The pcsr kernel's step, ``pcsr_spmv_group``, is one launch of a second
+entry of the same source over a ``PcsrGroup``: a work list of the
+long-row matrices (op side, call edges), as above, plus each
+partition's trace side read straight from its ELL slab, rows of W
+slots with zero-valued padding. ``ell_part`` counts a slab's rows once
+and picks how the kernel reads them (``ell_mode``). ``ell_spmv_plain``
+sums an ELL row in the order K1 sums the same row as a work item, so
+both give the same bits.
+
 What bounds the kernel on the card, and what it does about it, is in
 the note at the top of the CUDA source.
 """
@@ -47,6 +56,9 @@ WARP = 32
 # tuning knob: the plain version and the kernel must agree on it.
 CHUNK = 256
 MAX_X = 8  # x slots a group may read (csrc/coo_spmv.cu kMaxX)
+MAX_ELL = 2  # ELL slabs of one pcsr launch (csrc/coo_spmv.cu kMaxEll)
+# How the kernel reads an ELL slab's rows (csrc/coo_spmv.cu kEll*).
+ELL_SLAB, ELL_SHORT, ELL_WARP = 0, 1, 2
 ITEM_FIELDS = ("slot", "y", "begin", "end", "chunk", "n_chunks")
 INT32_MAX = 2**31 - 1
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coo_spmv.cu"
@@ -226,6 +238,20 @@ def _check_xs(group: SpmvGroup, xs: Sequence[torch.Tensor]) -> None:
             raise ValueError(f"coo_spmv: x slot {slot} must hold {n} floats")
 
 
+def _check_cuda_xs(group: SpmvGroup, xs: Sequence[torch.Tensor], dev) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"coo_spmv: unsupported device {dev}")
+    if len(xs) > MAX_X:
+        raise ValueError(f"coo_spmv: at most {MAX_X} x slots")
+    for x in xs:
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"coo_spmv: every x must be a contiguous float32 vector on {dev}")
+    _check_xs(group, xs)
+    if any(t.device != dev for t in (group.items, group.cols, group.vals,
+                                     group.part, group.counters)):
+        raise ValueError(f"coo_spmv: the group's tensors must lie on {dev}")
+
+
 def coo_spmv_group_plain(
     group: SpmvGroup, xs: Sequence[torch.Tensor]
 ) -> Tuple[torch.Tensor, ...]:
@@ -270,17 +296,7 @@ def coo_spmv_group(
     dev = xs[0].device
     if dev.type == "cpu":
         return coo_spmv_group_plain(group, xs)
-    if dev.type != "cuda":
-        raise ValueError(f"coo_spmv: unsupported device {dev}")
-    if len(xs) > MAX_X:
-        raise ValueError(f"coo_spmv: at most {MAX_X} x slots")
-    for x in xs:
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"coo_spmv: every x must be a contiguous float32 vector on {dev}")
-    _check_xs(group, xs)
-    if any(t.device != dev for t in (group.items, group.cols, group.vals,
-                                     group.part, group.counters)):
-        raise ValueError(f"coo_spmv: the group's tensors must lie on {dev}")
+    _check_cuda_xs(group, xs, dev)
     y = torch.empty(sum(group.n_rows), dtype=torch.float32, device=dev)
     n_items = group.items.shape[0]
     if n_items == 0:
@@ -302,6 +318,168 @@ def coo_spmv_group(
     coo_spmv.launches += 1
     coo_spmv.spmvs += len(group.x_slots)
     return _split(group, y)
+
+
+class EllPart(NamedTuple):
+    """One matrix as an ELL slab: row r is ``ops[r]`` / ``vals[r]``, W
+    slots (a power of two), its ``lens[r]`` live entries a prefix of the
+    row in the row's order and every padding slot of value 0 (a live
+    value never is). Reads x slot ``slot``; the kernel reads its rows in
+    ``mode`` (``ell_mode``). ``ell_part`` builds one."""
+
+    ops: torch.Tensor   # int32[n_rows, W]
+    vals: torch.Tensor  # float32[n_rows, W]
+    slot: int
+    lens: torch.Tensor  # int32[n_rows]
+    mode: int
+
+
+def ell_mode(width: int, n_rows: int, n_live: int) -> int:
+    """How the kernel reads a slab of ``n_rows`` rows of ``width`` slots
+    holding ``n_live`` live entries. At most 32 slots: whole rows,
+    32 * min(W, 4) / W rows a warp (ELL_SLAB). Wider (W is the partition's
+    longest trace, so one long trace widens every row): by each row's
+    length, reading only the columns of 32 slots that hold live entries,
+    8 threads a row where rows hold 32 entries or fewer on average
+    (ELL_SHORT), else one warp a row with every load of a chunk in
+    flight at once, as K1 (ELL_WARP)."""
+    if width <= WARP:
+        return ELL_SLAB
+    return ELL_WARP if n_live > WARP * n_rows else ELL_SHORT
+
+
+def ell_part(ops: torch.Tensor, vals: torch.Tensor, slot: int,
+             mode: Optional[int] = None) -> EllPart:
+    """An ``EllPart`` of a slab: its row lengths counted and, unless
+    ``mode`` is given, its mode picked from them (one device sync)."""
+    lens = (vals != 0).sum(1, dtype=torch.int32)
+    if mode is None:
+        mode = ell_mode(ops.shape[1], ops.shape[0], int(lens.sum()))
+    return EllPart(ops, vals, slot, lens, mode)
+
+
+class PcsrGroup(NamedTuple):
+    """One pcsr step as one launch reads it: the work list ``rows`` of
+    the matrices with long rows, then the ELL slabs ``ell``. Output m of
+    the step is matrix ``order[m]`` of ``rows``' matrices followed by the
+    slabs."""
+
+    rows: SpmvGroup
+    ell: Tuple[EllPart, ...]
+    order: Tuple[int, ...]
+
+
+def ell_spmv_plain(ops: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's trace-side sums in plain PyTorch, in K1's order for
+    the same row as a work item: K1 lane l of a chunk of 256 slots sums
+    slots l, l + 32, ... in order (padding skipped, never multiplied),
+    then the tree over the row's min(W, 32) lanes (K1's lanes past W
+    hold +0, which changes no bit), then the chunks whose first slot is
+    live, folded left to right."""
+    n_rows, width = ops.shape
+    lanes = min(width, WARP)
+    n_chunks = max(1, width // CHUNK)
+    shape = (n_rows, n_chunks, min(width, CHUNK) // lanes, lanes)
+    live = vals != 0
+    prod = torch.where(live, vals * x[ops], 0.0).view(shape)
+    live_k = live.view(shape)
+    acc = torch.zeros((n_rows, n_chunks, lanes), dtype=torch.float32, device=ops.device)
+    for k in range(shape[2]):
+        acc = torch.where(live_k[:, :, k], acc + prod[:, :, k], acc)
+    off = lanes // 2
+    while off:
+        acc = acc[..., :off] + acc[..., off: 2 * off]
+        off //= 2
+    y = acc[:, 0, 0]
+    for c in range(1, n_chunks):
+        y = torch.where(live[:, c * CHUNK], y + acc[:, c, 0], y)
+    return y
+
+
+def _ell_split(group: PcsrGroup, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    outs = y.split_with_sizes([*group.rows.n_rows, *(e.ops.shape[0] for e in group.ell)])
+    return tuple(outs[m] for m in group.order)
+
+
+def pcsr_spmv_group_plain(
+    group: PcsrGroup, xs: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, ...]:
+    """The pcsr step's plain version: ``coo_spmv_group_plain`` over the
+    work list, ``ell_spmv_plain`` over each slab."""
+    y = torch.cat([
+        *coo_spmv_group_plain(group.rows, xs),
+        *(ell_spmv_plain(e.ops, e.vals, xs[e.slot]) for e in group.ell),
+    ])
+    return _ell_split(group, y)
+
+
+def pcsr_spmv_group(
+    group: PcsrGroup, xs: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, ...]:
+    """Every product of one pcsr step, in ``group.order``, as views of
+    one flat y. CPU tensors run the plain version; CUDA tensors launch
+    the kernel once (counted in ``pcsr_spmv_group.launches``, the SpMVs
+    in ``.spmvs``) or raise: there is no fallback for a CUDA tensor. A
+    group is used by one stream at a time."""
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return pcsr_spmv_group_plain(group, xs)
+    rows = group.rows
+    _check_cuda_xs(rows, xs, dev)
+    if not 0 < len(group.ell) <= MAX_ELL:
+        raise ValueError(f"pcsr_spmv: 1 to {MAX_ELL} ELL slabs")
+    for e in group.ell:
+        if not 0 <= e.slot < len(xs):
+            raise ValueError(f"pcsr_spmv: ELL x slot {e.slot} is not given")
+        for t, dtype in ((e.ops, torch.int32), (e.vals, torch.float32)):
+            if (t.device != dev or t.dtype != dtype or t.dim() != 2
+                    or not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError(
+                    f"pcsr_spmv: ELL slabs must be contiguous, 16-byte aligned "
+                    f"int32 / float32 matrices on {dev}"
+                )
+        width = e.ops.shape[1]
+        if e.vals.shape != e.ops.shape or width & (width - 1):
+            raise ValueError("pcsr_spmv: an ELL slab's width must be a power of two")
+        if (e.lens.device != dev or e.lens.dtype != torch.int32
+                or e.lens.shape != e.ops.shape[:1] or not e.lens.is_contiguous()):
+            raise ValueError(f"pcsr_spmv: ELL row lengths must be contiguous int32 on {dev}")
+        if e.mode not in (ELL_SLAB, ELL_SHORT, ELL_WARP) or (e.mode == ELL_SLAB) != (width <= WARP):
+            raise ValueError(f"pcsr_spmv: ELL mode {e.mode} does not fit a width of {width}")
+    ell = group.ell
+    n_k1 = sum(rows.n_rows)
+    n_ell = [e.ops.shape[0] for e in ell]
+    y = torch.empty(n_k1 + sum(n_ell), dtype=torch.float32, device=dev)
+    lib = load_library()
+    ptr, i32, k = ctypes.c_void_p, ctypes.c_int32, len(ell)
+    rc = lib.mr_pcsr_step(
+        rows.items.data_ptr(), rows.items.shape[0],
+        rows.cols.data_ptr(), rows.vals.data_ptr(),
+        rows.part.data_ptr(), rows.counters.data_ptr(),
+        (ptr * len(xs))(*(x.data_ptr() for x in xs)), len(xs), y.data_ptr(),
+        (ptr * k)(*(e.ops.data_ptr() for e in ell)),
+        (ptr * k)(*(e.vals.data_ptr() for e in ell)),
+        (ptr * k)(*(e.lens.data_ptr() for e in ell)),
+        (i32 * k)(*(e.mode for e in ell)),
+        (i32 * k)(*(e.slot for e in ell)),
+        (i32 * k)(*n_ell),
+        (i32 * k)(*(e.ops.shape[1] for e in ell)),
+        (ctypes.c_int64 * k)(*itertools.accumulate(n_ell[:-1], initial=n_k1)),
+        k,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"pcsr_spmv launch failed: {lib.mr_cuda_error_string(rc).decode()}")
+    pcsr_spmv_group.launches += 1
+    pcsr_spmv_group.spmvs += len(rows.x_slots) + k
+    return _ell_split(group, y)
+
+
+# Counts of the pcsr kernel's launches and of the SpMVs they computed
+# (plain ints; pcsr_spmv_group is the one place that launches it).
+pcsr_spmv_group.launches = 0
+pcsr_spmv_group.spmvs = 0
 
 
 def coo_spmv_plain(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
@@ -364,6 +542,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, i32,                         # items, n_items
         ptr, ptr, ptr, ptr,               # cols, vals, part, counters
         ctypes.POINTER(ptr), i32, ptr,    # xs, n_xs, y
+        ctypes.c_int, ptr,                # device, stream
+    ]
+    lib.mr_pcsr_step.restype = ctypes.c_int
+    lib.mr_pcsr_step.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr,     # items, n_items, cols, vals, part, counters
+        ctypes.POINTER(ptr), i32, ptr,    # xs, n_xs, y
+        ctypes.POINTER(ptr), ctypes.POINTER(ptr),  # ell_ops, ell_vals
+        ctypes.POINTER(ptr), ctypes.POINTER(i32),  # ell_lens, ell_mode
+        ctypes.POINTER(i32), ctypes.POINTER(i32), ctypes.POINTER(i32),  # slot, rows, width
+        ctypes.POINTER(ctypes.c_int64), i32,  # ell_y, n_ell
         ctypes.c_int, ptr,                # device, stream
     ]
     # The first, warp-per-row design, for chip_smoke.py's comparison only.

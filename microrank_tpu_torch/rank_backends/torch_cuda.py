@@ -11,9 +11,12 @@ partitions) take one or two launches, built for the window by
 
 * ``pallas``: all six SpMVs through K1 in one call
   (``ops.spmv.coo_spmv_group``) over the COO incidence arrays;
-* ``pcsr``: the same six SpMVs in one K1 call, over a work list built
-  from the partition-centric views (``window_pcsr_group``), which holds
-  the pallas work list's rows: the same products, bit for bit;
+* ``pcsr``: the same six SpMVs in one call of the pcsr kernel
+  (``ops.spmv.pcsr_spmv_group``, ``window_pcsr_group``): K1's work items
+  over the op-side rows built from the partition-centric views and the
+  call edges, and the trace side read straight from the views' ELL slab;
+  every row holds the pallas row's entries in its order, so the products
+  are the pallas path's, bit for bit;
 * ``kind`` / ``packed`` / ``packed_bf16`` / ``packed_blocked``: the
   coverage pair of both partitions in one call of K2 / K4
   (``ops.pattern.pattern_pair_group``, over the kind pattern or the
@@ -55,7 +58,17 @@ from ..graph.build import (
 )
 from ..graph.structures import PartitionGraph, WindowGraph
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group
-from ..ops.spmv import RowLayout, SpmvGroup, coo_spmv_group, row_layout, spmv_group
+from ..ops.spmv import (
+    EllPart,
+    PcsrGroup,
+    RowLayout,
+    SpmvGroup,
+    coo_spmv_group,
+    ell_mode,
+    pcsr_spmv_group,
+    row_layout,
+    spmv_group,
+)
 from ..spectrum.formulas import spectrum_scores
 
 
@@ -177,35 +190,24 @@ def window_spmv_group(graph: WindowGraph, layouts_of=spmv_layouts) -> SpmvGroup:
     return spmv_group(layouts, STEP_X_SLOTS, n_x)
 
 
-def pcsr_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
-    """K1's row layouts of p_sr, p_ss and p_rs read from the
-    partition-centric views instead of the COO incidence arrays.
-
-    p_sr (rows = ops): entry j of partition p's forward table belongs to
-    op o when its block j // PCSR_BLOCK lies in [pc_blk_indptr[p, o],
-    pc_blk_indptr[p, o + 1]); its column is the global trace
-    pc_trace + p * PCSR_PART_TRACES. p_rs (rows = traces): the ELL slab's
-    row t. p_ss: the call-edge list, as the pallas path reads it.
-
-    Liveness: a live value is never 0 (sr_val = 1 / tracelen, rs_val =
-    1 / cov_dup) and every padding value is (the block padding inside
-    each (partition, op) run, the slab's tail), so the nonzero entries
-    are the live ones; each table must hold ``n_inc`` of them, checked
-    here once per window. A row then holds the entries of the pallas
-    path's ``spmv_layouts`` in the same order (an op's traces ascending,
-    partition by partition; a trace's ops ascending), and K1, whose sums
-    depend on a row's entries and their order alone, gives the same
-    bits."""
+def _require_pc_views(g: PartitionGraph) -> None:
     if g.pc_trace.shape[-1] == 0:
         raise ValueError(
             "kernel='pcsr' needs the partition-centric views, but this "
             "window was built without them: build with aux='pcsr' (aux='auto' "
             "resolves to it past a quarter of the dense budget in bitmaps)"
         )
-    v, t_pad = g.cov_unique.shape[0], g.kind.shape[0]
+
+
+def _pcsr_sr_layout(g: PartitionGraph) -> RowLayout:
+    """K1's row layout of p_sr (rows = ops) read from the forward tables:
+    entry j of partition p's table belongs to op o when its block
+    j // PCSR_BLOCK lies in [pc_blk_indptr[p, o], pc_blk_indptr[p, o + 1]);
+    its column is the global trace pc_trace + p * PCSR_PART_TRACES. Only
+    the nonzero (live) entries are kept."""
+    v = g.cov_unique.shape[0]
     n_parts, e_blk = g.pc_trace.shape
     dev = g.pc_trace.device
-    i32 = dict(dtype=torch.int32, device=dev)
     blocks = torch.arange(e_blk // PCSR_BLOCK, dtype=torch.int64, device=dev)
     block_op = torch.searchsorted(
         g.pc_blk_indptr[:, 1:].to(torch.int64).contiguous(),
@@ -214,28 +216,112 @@ def pcsr_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
     )
     live = g.pc_sr_val != 0
     sr_rows = block_op.repeat_interleave(PCSR_BLOCK, dim=1)[live].to(torch.int32)
-    part_base = torch.arange(n_parts, **i32)[:, None] * PCSR_PART_TRACES
+    part_base = torch.arange(n_parts, dtype=torch.int32, device=dev)[:, None] * PCSR_PART_TRACES
     sr_cols = (g.pc_trace + part_base)[live]
+    return row_layout(sr_rows, sr_cols, g.pc_sr_val[live], v)
+
+
+def pcsr_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
+    """K1's row layouts of p_sr, p_ss and p_rs read from the
+    partition-centric views instead of the COO incidence arrays: p_sr
+    from the forward tables (``_pcsr_sr_layout``), p_rs the ELL slab's
+    rows, p_ss the call-edge list as the pallas path reads it. The rank
+    path reads p_rs from the slab itself (``window_pcsr_group``); this
+    work list of all three is the pcsr kernel's earlier design, which
+    the tests and chip_smoke.py hold the slab against.
+
+    Liveness: a live value is never 0 (sr_val = 1 / tracelen, rs_val =
+    1 / cov_dup) and every padding value is (the block padding inside
+    each (partition, op) run, the slab's tail), so the nonzero entries
+    are the live ones; each table must hold ``n_inc`` of them. A row
+    then holds the entries of the pallas path's ``spmv_layouts`` in the
+    same order (an op's traces ascending, partition by partition; a
+    trace's ops ascending), and K1, whose sums depend on a row's entries
+    and their order alone, gives the same bits."""
+    _require_pc_views(g)
+    t_pad = g.kind.shape[0]
+    sr = _pcsr_sr_layout(g)
     ell_live = g.pc_ell_rs != 0
-    rs_rows = torch.arange(t_pad, **i32)[:, None].expand_as(g.pc_ell_op)[ell_live]
-    n_inc = int(g.n_inc)
-    if not sr_rows.shape[0] == rs_rows.shape[0] == n_inc:
-        raise ValueError(
-            f"pcsr views hold {sr_rows.shape[0]} forward and "
-            f"{rs_rows.shape[0]} backward nonzero entries, not n_inc={n_inc}"
-        )
+    rs_rows = torch.arange(t_pad, dtype=torch.int32, device=g.pc_ell_op.device)[:, None]
+    rs_rows = rs_rows.expand_as(g.pc_ell_op)[ell_live]
+    _check_pc_liveness(g, sr.cols.shape[0], rs_rows.shape[0])
     return (
-        row_layout(sr_rows, sr_cols, g.pc_sr_val[live], v),
-        row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss),
+        sr,
+        row_layout(g.ss_child, g.ss_parent, g.ss_val, sr.n_rows, g.n_ss),
         row_layout(rs_rows, g.pc_ell_op[ell_live], g.pc_ell_rs[ell_live], t_pad),
     )
 
 
-def window_pcsr_group(graph: WindowGraph) -> SpmvGroup:
-    """K1's work list of one pcsr step, built once per window from the
-    partition-centric views (``pcsr_layouts``): the rows, the x slots
-    and so the products of the pallas path's ``window_spmv_group``."""
-    return window_spmv_group(graph, pcsr_layouts)
+def _check_pc_liveness(g: PartitionGraph, n_sr: int, n_rs: int) -> None:
+    n_inc = int(g.n_inc)
+    if not n_sr == n_rs == n_inc:
+        raise ValueError(
+            f"pcsr views hold {n_sr} forward and {n_rs} backward nonzero "
+            f"entries, not n_inc={n_inc}"
+        )
+
+
+def _ell_checks(g: PartitionGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A partition's ELL slab row lengths, and what the pcsr kernel takes
+    on trust about the slab, as counts on the device: (nonzero entries,
+    live entries after a padding slot of their row, live ops outside
+    [0, V)). The kernel reads a row's live entries as a prefix of its
+    length and does not check ops."""
+    live = g.pc_ell_rs != 0
+    ops = g.pc_ell_op
+    v = g.cov_unique.shape[0]
+    lens = live.sum(1, dtype=torch.int32)
+    return lens, torch.stack([
+        lens.sum(dtype=torch.int64),
+        (live[:, 1:] & ~live[:, :-1]).sum(),
+        (live & ((ops < 0) | (ops >= v))).sum(),
+    ])
+
+
+# x slots of a pcsr step's work list (p_sr, p_ss of each partition) and
+# of its ELL slabs (p_rs), and where each lands in the step's order
+# (STEP_X_SLOTS: sr_n, ss_n, rs_n, sr_a, ss_a, rs_a).
+PCSR_ROW_SLOTS = (0, 1, 2, 3)
+PCSR_ELL_SLOTS = (1, 3)
+PCSR_ORDER = (0, 1, 4, 2, 3, 5)
+
+
+def window_pcsr_group(graph: WindowGraph) -> PcsrGroup:
+    """The pcsr kernel's step, built once per window from the
+    partition-centric views: K1's work list of p_sr (``_pcsr_sr_layout``)
+    and p_ss of both partitions, and each partition's ELL slab as it
+    lies on the device (p_rs), with its row lengths and the mode the
+    kernel reads it in (``ell_mode``). Checks, once per window, that each
+    partition's tables hold ``n_inc`` live entries, that every slab row's
+    live entries form a prefix and that their ops index x."""
+    parts = (graph.normal, graph.abnormal)
+    layouts, n_x, lens, counts = [], [], [], []
+    for g in parts:
+        _require_pc_views(g)
+        v = g.cov_unique.shape[0]
+        sr = _pcsr_sr_layout(g)
+        layouts += [sr, row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss)]
+        n_x += [g.kind.shape[0], v]
+        row_lens, c = _ell_checks(g)
+        lens.append(row_lens)
+        counts.append(c)
+    checks = torch.stack(counts).tolist()
+    for g, lay, (n_rs, gaps, bad_ops) in zip(parts, layouts[::2], checks):
+        _check_pc_liveness(g, lay.cols.shape[0], n_rs)
+        if gaps or bad_ops:
+            raise ValueError(
+                f"pcsr ELL slab: {gaps} live entries after padding, "
+                f"{bad_ops} ops outside [0, {g.cov_unique.shape[0]})"
+            )
+    return PcsrGroup(
+        rows=spmv_group(layouts, PCSR_ROW_SLOTS, n_x),
+        ell=tuple(
+            EllPart(g.pc_ell_op.contiguous(), g.pc_ell_rs.contiguous(), slot, row_lens,
+                    ell_mode(g.pc_ell_op.shape[1], g.pc_ell_op.shape[0], n_rs))
+            for g, slot, row_lens, (n_rs, _, _) in zip(parts, PCSR_ELL_SLOTS, lens, checks)
+        ),
+        order=PCSR_ORDER,
+    )
 
 
 def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
@@ -347,14 +433,16 @@ def window_weights_full(
     alpha_n, pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
     alpha_a, pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
     six_spmvs = kernel in ("pallas", "pcsr")
-    if graph.spmv_group is None or (graph.pattern_group is None) != six_spmvs:
+    want = PcsrGroup if kernel == "pcsr" else SpmvGroup
+    if not isinstance(graph.spmv_group, want) or (graph.pattern_group is None) != six_spmvs:
         graph = device_subset(graph, kernel, cfg.packed_block_bytes)
     group = graph.spmv_group
     if six_spmvs:
+        six = pcsr_spmv_group if kernel == "pcsr" else coo_spmv_group
 
         def products(old_n, old_a):
-            # One K1 call: all six SpMVs of the step (x slots STEP_X_SLOTS).
-            ys = coo_spmv_group(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
+            # One call: all six SpMVs of the step (x slots STEP_X_SLOTS).
+            ys = six(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
             return ys[:3], ys[3:]
 
     else:
@@ -621,10 +709,11 @@ def device_subset(
     packed_block_bytes: int = PageRankConfig.packed_block_bytes,
 ) -> WindowGraph:
     """The graph as the kernels consume it, built once per window so each
-    power-iteration step is one or two launches: for "pallas" and
-    "pcsr", K1's work list of the six SpMVs (``window_spmv_group`` over
-    the COO arrays, ``window_pcsr_group`` over the partition-centric
-    views); for the kind and packed kernels, the pattern-pair group of
+    power-iteration step is one or two launches: for "pallas", K1's work
+    list of the six SpMVs (``window_spmv_group`` over the COO arrays);
+    for "pcsr", the pcsr kernel's group (``window_pcsr_group``: K1's
+    work list of the op side and the call edges, the ELL slabs of the
+    trace side); for the kind and packed kernels, the pattern-pair group of
     both coverage patterns (``window_pattern_group``; packed_blocked's
     plain version in bands of ``packed_block_bytes``) and K1's work list
     of both call-graph terms."""

@@ -1,6 +1,6 @@
 """kernel="auto" past the dense budget: ``packed_blocked`` (K4 in f32)
-and ``pcsr`` (K1 over a work list built from the partition-centric
-views), held to the JAX package on the CPU, where each wrapper runs its
+and ``pcsr`` (K1's work items over the op side, the trace side read
+from the partition-centric views' ELL slab), held to the JAX package on the CPU, where each wrapper runs its
 plain version.
 
 * the build: the native pcsr views array-identical to JAX's, collapse
@@ -10,8 +10,9 @@ plain version.
   packed_blocked (rtol 1e-4, as JAX's own blocked-vs-packed test) and
   pcsr (rtol 1e-5) against JAX's table lane, tie-aware, with the same
   kernels, n_valid and n_iters;
-* the kernels: pcsr's work list holds the pallas work list's rows, so
-  its products are bitwise the pallas path's, and so is its ranking; the
+* the kernels: pcsr's work list and ELL slabs hold the pallas work
+  list's rows, and its products are bitwise the pallas path's, and so is
+  its ranking; the
   banded plain K4 gives the unbanded one's bits;
 * the references: the port's float64 sparse oracle against JAX's (rtol
   1e-12), the giant-window generator deterministic from its seed.
@@ -41,7 +42,7 @@ from microrank_tpu_torch.config import PageRankConfig, RuntimeConfig, SpectrumCo
 from microrank_tpu_torch.graph import build, table_ops
 from microrank_tpu_torch.graph.structures import pad_to
 from microrank_tpu_torch.ops import pattern
-from microrank_tpu_torch.ops.spmv import coo_spmv_group
+from microrank_tpu_torch.ops.spmv import CHUNK, coo_spmv_group, pcsr_spmv_group
 from microrank_tpu_torch.pipeline import TableRCA, run_rca_native
 from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
 from microrank_tpu_torch.rank_backends.sparse_oracle import rank_window_sparse
@@ -51,6 +52,7 @@ from microrank_tpu_torch.rank_backends.torch_cuda import (
     fetch_rank_outputs,
     host_subset,
     rank_window_traced_core,
+    spmv_layouts,
 )
 from microrank_tpu_torch.testing import SyntheticConfig, generate_case, giant_window
 from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
@@ -226,22 +228,41 @@ def test_pcsr_products_and_ranking_are_bitwise_pallas(small_case, collapse):
     tg = graph_from_numpy(graph, "cpu")
     pc = device_subset(graph_from_numpy(host_subset(graph, "pcsr"), "cpu"), "pcsr")
     pal = device_subset(tg, "pallas")
-    # The same rows, entry for entry, in the same order.
-    for m, (a, b) in enumerate(zip(pc.spmv_group.n_rows, pal.spmv_group.n_rows)):
-        assert a == b
-    e_pc, e_pal = pc.spmv_group.entry_offsets, pal.spmv_group.entry_offsets
-    for m in range(6):
+    group, theirs = pc.spmv_group, pal.spmv_group
+    # The work list holds the pallas rows of p_sr and p_ss, entry for
+    # entry, in the same order and cut into the same chunks; each ELL
+    # slab row holds the pallas row of p_rs as its live prefix, whose
+    # chunks the kernel walks.
+    e_pc, e_pal = group.rows.entry_offsets, theirs.entry_offsets
+    y_pc = np.cumsum((0, *group.rows.n_rows))
+    y_pal = np.cumsum((0, *theirs.n_rows))
+
+    def pallas_chunks(m_pal):
+        return theirs.row_chunks[y_pal[m_pal]: y_pal[m_pal + 1]]
+
+    for m, m_pal in enumerate((0, 1, 3, 4)):
+        assert group.rows.n_rows[m] == theirs.n_rows[m_pal]
+        assert torch.equal(group.rows.row_chunks[y_pc[m]: y_pc[m + 1]], pallas_chunks(m_pal))
         n_live = e_pc[m + 1] - e_pc[m]
-        assert torch.equal(pc.spmv_group.cols[e_pc[m]: e_pc[m + 1]],
-                           pal.spmv_group.cols[e_pal[m]: e_pal[m] + n_live])
-        assert torch.equal(pc.spmv_group.vals[e_pc[m]: e_pc[m + 1]],
-                           pal.spmv_group.vals[e_pal[m]: e_pal[m] + n_live])
-    assert torch.equal(pc.spmv_group.row_chunks, pal.spmv_group.row_chunks)
+        assert torch.equal(group.rows.cols[e_pc[m]: e_pc[m + 1]],
+                           theirs.cols[e_pal[m_pal]: e_pal[m_pal] + n_live])
+        assert torch.equal(group.rows.vals[e_pc[m]: e_pc[m + 1]],
+                           theirs.vals[e_pal[m_pal]: e_pal[m_pal] + n_live])
+    for ell, g, m_pal in zip(group.ell, (tg.normal, tg.abnormal), (2, 5)):
+        rs = spmv_layouts(g)[2]
+        live = ell.vals != 0
+        assert ell.ops.shape[0] == rs.n_rows
+        n_live = live.sum(1)
+        assert torch.equal(n_live, (rs.indptr[1:] - rs.indptr[:-1]).to(torch.int64))
+        assert torch.equal((n_live + CHUNK - 1).div(CHUNK, rounding_mode="floor").clamp_min(1),
+                           pallas_chunks(m_pal))
+        assert torch.equal(ell.ops[live], rs.cols[: int(rs.indptr[-1])])
+        assert torch.equal(ell.vals[live], rs.vals[: int(rs.indptr[-1])])
     rng = np.random.default_rng(3)
     xs = [torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
           for n in (tg.normal.kind.shape[0], tg.normal.cov_unique.shape[0],
                     tg.abnormal.kind.shape[0], tg.abnormal.cov_unique.shape[0])]
-    for y_pc, y_pal in zip(coo_spmv_group(pc.spmv_group, xs), coo_spmv_group(pal.spmv_group, xs)):
+    for y_pc, y_pal in zip(pcsr_spmv_group(group, xs), coo_spmv_group(theirs, xs)):
         assert torch.equal(y_pc, y_pal)
     outs = [fetch_rank_outputs(rank_window_traced_core(g, PageRankConfig(), SpectrumConfig(), k))
             for g, k in ((pc, "pcsr"), (pal, "pallas"))]

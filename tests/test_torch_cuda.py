@@ -1,5 +1,5 @@
-"""The port on an NVIDIA GPU: K1's and K2 / K4's CUDA kernels against
-their plain versions (bitwise: the same arithmetic in the same order),
+"""The port on an NVIDIA GPU: K1's, the pcsr kernel's and K2 / K4's CUDA
+kernels against their plain versions (bitwise: the same arithmetic in the same order),
 and the run lane on the card against the same lane on the CPU, for the
 pinned pallas kernel and the default kernel="auto".
 
@@ -275,7 +275,7 @@ def test_auto_lane_on_cuda_matches_cpu(cuda_device, collapse, kernel, tmp_path):
 def test_lane_past_the_budget_on_cuda_matches_cpu(cuda_device, budget, kernel, tmp_path):
     # A lowered dense budget sends auto past it: packed_blocked (one
     # pattern-pair launch and one K1 launch of two SpMVs per step) or
-    # pcsr (one K1 launch of six SpMVs per step).
+    # pcsr (one launch of the pcsr kernel, six SpMVs, per step).
     from microrank_tpu_torch.pipeline import run_rca_native
 
     case = generate_case(CASE)
@@ -284,13 +284,14 @@ def test_lane_past_the_budget_on_cuda_matches_cpu(cuda_device, budget, kernel, t
         runtime=RuntimeConfig(collapse_kinds="off", dense_budget_bytes=budget)
     )
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = pattern.pattern_pair_group.launches = 0
+    spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
     gpu = run_rca_native(normal, abnormal, cfg, device="cuda")
     ranked = [r for r in gpu if r.ranking]
     assert ranked and {r.kernel for r in ranked} == {kernel}
     n = 25 * len(ranked)
-    pairs, spmvs = (n, 2 * n) if kernel == "packed_blocked" else (0, 6 * n)
-    assert (pattern.pattern_pair_group.launches, spmv.coo_spmv.launches) == (pairs, n)
-    assert spmv.coo_spmv.spmvs == spmvs
+    counts = (pattern.pattern_pair_group.launches, spmv.coo_spmv.launches, spmv.coo_spmv.spmvs,
+              spmv.pcsr_spmv_group.launches, spmv.pcsr_spmv_group.spmvs)
+    assert counts == ((n, n, 2 * n, 0, 0) if kernel == "packed_blocked" else (0, 0, 0, n, 6 * n))
     assert ranked[0].ranking[0][0] == case.fault_pod_op
     cpu = run_rca_native(normal, abnormal, cfg, device="cpu")
     for g, c in zip(gpu, cpu):
@@ -304,11 +305,17 @@ def test_lane_past_the_budget_on_cuda_matches_cpu(cuda_device, budget, kernel, t
 
 
 def test_pcsr_group_on_cuda_is_bitwise_pallas_and_plain(cuda_device, tmp_path):
-    # The pcsr work list, built on the card from the partition-centric
-    # views, gives the pallas work list's bits and its plain version's.
+    # The pcsr kernel's step, staged on the card from the partition-centric
+    # views, gives the pallas work list's bits, the earlier design's (K1
+    # over pcsr_layouts' work list) and its plain version's.
     from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
     from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
-    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        host_subset,
+        pcsr_layouts,
+        window_spmv_group,
+    )
     from microrank_tpu_torch.testing import giant_window
 
     gw = giant_window(n_spans=200_000, n_ops=256)
@@ -321,12 +328,19 @@ def test_pcsr_group_on_cuda_is_bitwise_pallas_and_plain(cuda_device, tmp_path):
     sizes = [p.kind.shape[0] if i % 2 == 0 else p.cov_unique.shape[0]
              for i, p in enumerate((graph.normal, graph.normal, graph.abnormal, graph.abnormal))]
     xs = [torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(cuda_device) for n in sizes]
-    y_pc = torch.cat(spmv.coo_spmv_group(pc.spmv_group, xs))
+    y_pc = torch.cat(spmv.pcsr_spmv_group(pc.spmv_group, xs))
     y_pal = torch.cat(spmv.coo_spmv_group(pal.spmv_group, xs))
-    cpu_group = spmv.SpmvGroup(*(t.cpu() if torch.is_tensor(t) else t for t in pc.spmv_group))
-    y_plain = torch.cat(spmv.coo_spmv_group_plain(cpu_group, [x.cpu() for x in xs]))
+    y_prior = torch.cat(spmv.coo_spmv_group(window_spmv_group(pc, pcsr_layouts), xs))
+    group = pc.spmv_group
+    cpu_group = spmv.PcsrGroup(
+        spmv.SpmvGroup(*(t.cpu() if torch.is_tensor(t) else t for t in group.rows)),
+        tuple(spmv.EllPart(*(t.cpu() if torch.is_tensor(t) else t for t in e)) for e in group.ell),
+        group.order,
+    )
+    y_plain = torch.cat(spmv.pcsr_spmv_group_plain(cpu_group, [x.cpu() for x in xs]))
     torch.cuda.synchronize()
-    assert torch.equal(y_pc, y_pal) and torch.equal(y_pc.cpu(), y_plain)
+    assert torch.equal(y_pc, y_pal) and torch.equal(y_pc, y_prior)
+    assert torch.equal(y_pc.cpu(), y_plain)
 
 
 def timeline_tables(tmp_path):
