@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full size: 1M spans, 5k operations,
-                                     # an 8-window replay of 1M-span windows,
+                                     # a 6-window replay of 1M-span windows,
                                      # giant windows of 2M and 10M spans
     python3 chip_smoke.py --spans N --giant-spans M  # smaller, same shape of run
     python3 chip_smoke.py --giant-spans 0            # no giant phase
@@ -18,10 +18,10 @@ JAX or of the JAX package. Phases, one JSON line each:
               row of several chunks, empty rows, padding), of the pcsr
               step (that work list with ELL slabs of widths 4 and 1024,
               then 1 and 64: rows past 256 entries, empty rows) and of
-              the pattern pair (bits and int8, f32 and bf16, several
-              tiles with ragged edges) held bitwise against their plain
-              versions; and the two device timers (torch.profiler, CUDA
-              events) on a 1 GiB device copy;
+              the pattern pair (f32, bf16 and int8 with its scale launch,
+              several tiles with ragged edges) held bitwise against their
+              plain versions; and the two device timers (torch.profiler,
+              CUDA events) on a 1 GiB device copy;
 2. data     — one detection window at bench.py's config-5 scale
               (1,000,000 spans, 5,000 operations, 100 trace kinds,
               child_keep_prob 0.55, 60 s fault, seed 0) from the port's
@@ -46,8 +46,21 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``pcsr`` (25 launches of the pcsr kernel, 6 SpMVs each, no
               K1 launch), CUDA vs CPU at rtol 1e-5, and pcsr's ranking
               bitwise the pinned pallas run's;
+   int8     — the same window with ``kind_precision="int8"``, auto,
+              collapse "on" (resolves to ``kind``): per ranked window 25
+              scale launches (``quantize_amax``), 25 int8 pair launches
+              and 25 K1 launches of 2 SpMVs; top-1 the fault; the top-5
+              tie-aware against the CPU run at rtol 5e-2 (JAX's own int8
+              gate), the same n_iters;
+   policy   — a ``policy.json`` in the JAX package's schema for the
+              window's workload profile (``method="ochiai"``) through
+              ``MICRORANK_POLICY_DIR``: ``run_rca_native`` bitwise an
+              explicit ochiai run, one "applied" policy event (every other
+              phase runs with an empty policy directory);
 5. replay   — ``TableRCA.run`` on the card over bench.py's config-5
-              replay (``_run_replay``): 8 consecutive windows of
+              replay (``_run_replay``; its 8 windows cut to 6 so that the
+              whole script keeps its time with the follow phase): 6
+              consecutive windows of
               1,000,000 spans, every one faulted, from the port's
               ``generate_timeline_with_spans`` (same generator settings as
               phase 2), detect = the generator's window, skip 0; in three
@@ -67,8 +80,17 @@ JAX or of the JAX package. Phases, one JSON line each:
               The
               async and bulk rankings, ``rank_iterations`` and sink
               records are bitwise the sync run's, and a run resumed from
-              a cursor saved after window 2 is bitwise windows 3-8.
+              a cursor saved after window 2 is bitwise windows 3-6. The
+              default mode's warm pass records into a fresh metrics
+              registry and writes ``metrics.json`` as ``cli run`` does:
+              ranked windows, convergence samples and admitted rows as
+              counted, ``telemetry`` in the journal's ``run_end``.
               ``--replay-windows`` sets the window count; 0 skips it;
+   follow   — ``run_follow`` on the card over the same timeline written
+              in three appends (the injected ``sleep`` appends the next
+              part), ``idle_exit=1``: its rankings bitwise a sync
+              ``TableRCA.run`` over the whole file; polls, windows and
+              ms per poll;
 6. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
               one, at the uncollapsed shapes), per step of the pallas
               path (the grouped launch of all six matrices, at the
@@ -90,9 +112,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               CUDA events per call behind a device spin (the kernel's
               own time), over back-to-back calls and by torch.profiler;
               and its two halves as launches of their own);
-7. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4) and
-              K4 (packed and packed_bf16, uncollapsed): one launch per
-              step for both partitions, bitwise equal to its plain
+7. pattern  — K2 (f32 and bf16, at the collapsed shapes of phase 4;
+              int8 at the int8 run's: the scale launch, then the pair,
+              timed together and apart, its library yardstick
+              ``torch._int_mm``) and K4 (packed and packed_bf16,
+              uncollapsed): one step for both partitions, bitwise equal
+              to its plain
               version computed on the CPU and within rtol 1e-6 of it run
               on the card, bitwise repeatable over 50 launches, equal
               rows and equal columns of a constructed pattern giving
@@ -128,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -150,6 +176,7 @@ F32_FLOPS_PER_S = 67e12
 KERNEL_RTOL = 1e-6
 RUN_RTOL = 1e-5
 RUN_RTOL_BF16 = 5e-3  # bf16 operands (packed_bf16, kind_precision="bf16")
+RUN_RTOL_INT8 = 5e-2  # int8 operands: JAX's own int8 gate, over the top-5
 STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
 SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
 SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
@@ -167,7 +194,7 @@ GIANT_OPS = 2048
 DEFAULT_BUDGET = 2 << 30
 ORACLE_RTOL = 1e-3  # bench.py's tie-aware top-5 parity against the float64 oracle
 # What kernel="auto" resolves to at the config-5 window, per collapse mode.
-AUTO_KERNEL = {"auto": "kind", "off": "packed_bf16"}
+AUTO_KERNEL = {"auto": "kind", "on": "kind", "off": "packed_bf16"}
 # The window loop's modes in the replay phase: synchronous, the default
 # (async dispatch, stream joins, depth 2) and async with bulk joins.
 REPLAY_MODES = {
@@ -177,7 +204,15 @@ REPLAY_MODES = {
 }
 
 
+# Seconds from the start of the run to each emitted line, by phase.
+PHASE_SECONDS: dict = {}
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        key = obj["phase"] if obj["phase"] not in PHASE_SECONDS else f"{obj['phase']}+"
+        PHASE_SECONDS[key] = round(time.perf_counter() - _T0, 3)
     print(json.dumps(obj), flush=True)
 
 
@@ -195,6 +230,7 @@ def reset_counts(spmv, pattern) -> None:
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
     pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+    pattern.quantize_scales.launches = 0
 
 
 def read_counts(spmv, pattern) -> dict:
@@ -205,23 +241,27 @@ def read_counts(spmv, pattern) -> dict:
         "pcsr_spmvs": spmv.pcsr_spmv_group.spmvs,
         "pattern_launches": pattern.pattern_pair_group.launches,
         "pattern_products": pattern.pattern_pair_group.products,
+        "quantize_launches": pattern.quantize_scales.launches,
     }
 
 
-def expected_counts(kernel, n) -> dict:
+def expected_counts(kernel, n, int8=False) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
     launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
     SpMVs), or of the pattern pair (four products) and K1 (the two
-    call-graph terms)."""
+    call-graph terms), with ``int8`` (kind) one scale launch per step
+    before the pair."""
     counts = dict.fromkeys(("k1_launches", "k1_spmvs", "pcsr_launches", "pcsr_spmvs",
-                            "pattern_launches", "pattern_products"), 0)
+                            "pattern_launches", "pattern_products",
+                            "quantize_launches"), 0)
     if kernel == "pallas":
         counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
         counts.update(pcsr_launches=STEPS * n, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
     else:
         counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
-                      pattern_launches=STEPS * n, pattern_products=STEPS * 4 * n)
+                      pattern_launches=STEPS * n, pattern_products=STEPS * 4 * n,
+                      quantize_launches=STEPS * n if int8 else 0)
     return counts
 
 
@@ -234,44 +274,50 @@ def power_line() -> str:
 
 
 def tiny_pattern_checks(torch, pattern, dev):
-    """First launches of the pattern pair: small ragged patterns (bits
-    and int8, a last partial byte, three row tiles and three column
-    tiles, and a part of one tile) against the plain version on the CPU,
-    bitwise. Returns the number of cases."""
+    """First launches of the pattern pair and the int8 scale launch:
+    small ragged bitmaps (a last partial byte, three row tiles and three
+    column tiles, and a part of one tile) in every precision against the
+    plain version on the CPU, bitwise. Returns the number of cases."""
+    import numpy as np
+
     g = torch.Generator().manual_seed(1)
     n = 0
-    for bits in (True, False):
-        for bf16 in (False, True):
-            parts = []
-            for v, k in ((300, 1100), (7, 9)):
-                m = (torch.rand((v, k), generator=g) < 0.4).to(torch.uint8)
-                pat = pattern.pack_bits(m, k) if bits else m.to(torch.int8)
-                vecs = [torch.rand(n_, generator=g) for n_ in (k, v, v, k, v)]
-                parts.append((pat, k, vecs))
+    for precision in pattern.PRECISIONS:
+        parts = []
+        for v, k in ((300, 1100), (7, 9)):
+            m = (torch.rand((v, k), generator=g) < 0.4).numpy().astype(np.uint8)
+            vecs = [torch.rand(n_, generator=g) for n_ in (k, v, v, k, v)]
+            parts.append((torch.from_numpy(np.packbits(m, axis=1)), k, vecs))
+        int8 = precision == "int8"
 
-            def group(on):
-                return pattern.pattern_group(
-                    [p.to(on) for p, _, _ in parts],
-                    [w[0].to(on) for _, _, w in parts],
-                    [w[1].to(on) for _, _, w in parts],
-                    [w[2].to(on) for _, _, w in parts],
-                    [k for _, k, _ in parts], bits,
-                )
+        def group(on):
+            return pattern.pattern_group(
+                [p.to(on) for p, _, _ in parts],
+                [w[0].to(on) for _, _, w in parts],
+                [w[1].to(on) for _, _, w in parts],
+                [None if int8 else w[2].to(on) for _, _, w in parts],
+                [k for _, k, _ in parts],
+            )
 
-            outs = pattern.pattern_pair_group(
-                group(dev), [w[3].to(dev) for _, _, w in parts],
-                [w[4].to(dev) for _, _, w in parts], bf16,
-            )
-            torch.cuda.synchronize()
-            ref = pattern.pattern_pair_plain(
-                group("cpu"), [w[3] for _, _, w in parts], [w[4] for _, _, w in parts], bf16
-            )
-            for got, want in zip(outs, ref):
-                for a, b in zip(got, want):
-                    check(torch.equal(a.cpu(), b),
-                          f"tiny pattern-pair launch (bits={bits}, bf16={bf16}) "
-                          "differs from its plain version")
-            n += 1
+        rvs = [w[3] for _, _, w in parts]
+        svs = [w[4] for _, _, w in parts]
+        on_dev = group(dev)
+        d_rvs, d_svs = [r.to(dev) for r in rvs], [s_.to(dev) for s_ in svs]
+        scales = pattern.quantize_scales(on_dev, d_rvs, d_svs) if int8 else None
+        outs = pattern.pattern_pair_group(on_dev, d_rvs, d_svs, precision, scales)
+        torch.cuda.synchronize()
+        cpu = group("cpu")
+        ref_scales = pattern.quantize_scales_plain(cpu, rvs, svs) if int8 else None
+        if int8:
+            check(torch.equal(scales.cpu(), ref_scales),
+                  "tiny quantize_amax launch differs from its plain version")
+            check(not on_dev.amax_scratch.any(), "quantize_amax left its scratch non-zero")
+        ref = pattern.pattern_pair_plain(cpu, rvs, svs, precision, ref_scales)
+        for got, want in zip(outs, ref):
+            for a, b in zip(got, want):
+                check((a is None and b is None) or torch.equal(a.cpu(), b),
+                      f"tiny pattern-pair launch ({precision}) differs from its plain version")
+        n += 1
     return n
 
 
@@ -428,7 +474,6 @@ def graph_shapes(graph):
             "traces": int(p.n_traces),
             "cols": int(p.n_cols),
             "cov_bits_bytes": int(p.cov_bits.size),
-            "cov_i8_bytes": int(p.cov_i8.size),
         }
     return out
 
@@ -537,23 +582,27 @@ def budget_inequalities(graph, budget):
 
 
 def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
-              budget=None, want=None):
+              budget=None, want=None, precision="f32"):
     """One run of the lane with ``kernel`` ("pallas", or "auto" resolving
     to ``want``, by default AUTO_KERNEL[collapse]) at ``budget`` (None:
-    the default dense budget) on the card and on the CPU. Returns (host
-    graph, launch counts of the warm CUDA run, the CUDA run's results,
-    info)."""
-    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
+    the default dense budget) and ``precision`` (kind_precision) on the
+    card and on the CPU. Returns (host graph, launch counts of the warm
+    CUDA run, the CUDA run's results, info)."""
+    from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import run_rca_native
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
     runtime = dict(kernel=kernel, collapse_kinds=collapse)
     if budget is not None:
         runtime["dense_budget_bytes"] = budget
-    cfg = MicroRankConfig(runtime=RuntimeConfig(**runtime))
+    cfg = MicroRankConfig(
+        pagerank=PageRankConfig(kind_precision=precision), runtime=RuntimeConfig(**runtime)
+    )
     if want is None:
         want = kernel if kernel != "auto" else AUTO_KERNEL[collapse]
-    tag = f"kernel={kernel}, collapse={collapse}, budget={cfg.runtime.dense_budget_bytes}"
+    int8 = precision == "int8" and want == "kind"
+    tag = (f"kernel={kernel}, collapse={collapse}, precision={precision}, "
+           f"budget={cfg.runtime.dense_budget_bytes}")
     walls, counts, res_gpu = [], [], None
     for _ in ("cold", "warm"):
         torch.cuda.synchronize()
@@ -573,12 +622,16 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
     kernels = sorted({r.kernel for r in ranked})
     check(kernels == [want], f"{tag}: ranked with {kernels}, want {want}")
     n = len(ranked)
-    expect = expected_counts(want, n)
+    expect = expected_counts(want, n, int8)
     for c in counts:
         check(c == expect, f"{tag}: launch counts {c} in {n} ranked windows, want {expect}")
     top1 = ranked[0].ranking[0][0]
     check(top1 == case.fault_pod_op, f"{tag}: top-1 {top1} is not the fault {case.fault_pod_op}")
     rtol = RUN_RTOL_BF16 if want == "packed_bf16" else RUN_RTOL
+    # int8: the top-5 at JAX's own int8 gate (tests/test_kind_kernel.py).
+    top_k, exempt_last = (5, True) if int8 else (None, False)
+    if int8:
+        rtol = RUN_RTOL_INT8
     check(len(res_cpu) == len(res_gpu), "CPU and CUDA runs saw different windows")
     for rg, rc in zip(res_gpu, res_cpu):
         check(
@@ -589,7 +642,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         ok, why = tie_aware_topk_agreement(
             [n_ for n_, _ in rg.ranking], [s for _, s in rg.ranking],
             [n_ for n_, _ in rc.ranking], [s for _, s in rc.ranking],
-            k=len(rg.ranking), rtol=rtol,
+            k=top_k or len(rg.ranking), rtol=rtol, exempt_last=exempt_last,
         )
         check(ok, f"window {rg.start}: CUDA vs CPU ranking: {why}")
         check(rg.rank_iterations == rc.rank_iterations, "n_iters differ")
@@ -604,6 +657,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "phase": "run",
         "kernel": kernel,
         "resolved_kernel": want,
+        "kind_precision": precision,
         "collapse_kinds": collapse,
         "dense_budget": budget_inequalities(graph, cfg.runtime.dense_budget_bytes),
         "windows": len(res_gpu),
@@ -617,8 +671,10 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "k1_spmvs_per_ranked_window": counts[-1]["k1_spmvs"] // n,
         "pcsr_launches_per_ranked_window": counts[-1]["pcsr_launches"] // n,
         "pattern_launches_per_ranked_window": counts[-1]["pattern_launches"] // n,
+        "quantize_launches_per_ranked_window": counts[-1]["quantize_launches"] // n,
         "cuda_vs_cpu_tie_aware": True,
         "cuda_vs_cpu_rtol": rtol,
+        "cuda_vs_cpu_top_k": top_k or "all",
         "rank_iterations": ranked[0].rank_iterations,
         "cuda_wall_s_per_window": {
             "cold": round(walls[0] / len(res_gpu), 4),
@@ -634,9 +690,13 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
 def phase_replay_data(args, workdir):
     """bench.py's config-5 replay (``_ensure_batch_data``): every window
     faulted, from the port's own timeline generator, written and parsed
-    as a user's dump would be."""
+    as a user's dump would be. The timeline CSV is written one window at
+    a time (the same bytes as one write), and the file's size after each
+    window is kept: the follow phase grows its file by those byte
+    ranges."""
     from microrank_tpu_torch.native import load_span_table
     from microrank_tpu_torch.testing import SyntheticConfig, generate_timeline_with_spans
+    from microrank_tpu_torch.testing.synthetic import write_spans_csv
 
     n = args.replay_windows
     t0 = time.perf_counter()
@@ -652,12 +712,18 @@ def phase_replay_data(args, workdir):
         n,
         list(range(n)),  # every window carries the fault
     )
-    normal, abnormal = tl.write_csvs(workdir / "replay")
+    (workdir / "replay").mkdir()
+    normal, abnormal = workdir / "replay" / "normal.csv", workdir / "replay" / "abnormal.csv"
+    write_spans_csv(tl.normal, normal, tl.n_operations)
+    offsets = []
+    for i, window in enumerate(tl.windows):
+        write_spans_csv(window, abnormal, tl.n_operations, append=i > 0)
+        offsets.append(abnormal.stat().st_size)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     normal_table = load_span_table(normal, cache=False)
     table = load_span_table(abnormal, cache=False)
-    return tl, normal_table, table, {
+    return tl, normal_table, table, (abnormal, offsets), {
         "windows": n,
         "spans_per_window_target": args.spans,
         "timeline_spans": table.n_spans,
@@ -708,26 +774,72 @@ def _mean(values):
     return sum(values) / len(values)
 
 
+def replay_config(tl, **runtime):
+    """The replay's config: each generated window exactly (detect = its
+    span, skip = 0)."""
+    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig, WindowConfig
+
+    return MicroRankConfig(
+        window=WindowConfig(detect_minutes=tl.window_minutes, skip_minutes=0.0),
+        runtime=RuntimeConfig(**runtime),
+    )
+
+
+def metrics_gates(tag, out, n_ranked, admitted):
+    """The metrics a run wrote, read back as ``cli stats`` reads them:
+    ``metrics.json`` in ``out`` holds the ranked windows, one convergence
+    sample per ranked window and the admitted rows, and the journal's
+    ``run_end`` carries ``telemetry``."""
+    from microrank_tpu_torch.obs import JOURNAL_NAME, read_journal
+
+    snap = json.loads((out / "metrics.json").read_text())["metrics"]
+
+    def samples(name):
+        return snap[name]["samples"]
+
+    ranked = sum(s["value"] for s in samples("microrank_windows_total")
+                 if s["labels"]["outcome"] == "ranked")
+    iters = sum(s["count"] for s in samples("microrank_rank_iterations"))
+    admitted_rows = sum(s["value"] for s in samples("microrank_ingest_admitted_total"))
+    check(ranked == n_ranked, f"{tag}: windows_total ranked {ranked}, want {n_ranked}")
+    check(iters == n_ranked, f"{tag}: rank_iterations count {iters}, want {n_ranked}")
+    check(admitted_rows == admitted,
+          f"{tag}: ingest admitted {admitted_rows}, admit_table kept {admitted}")
+    end = read_journal(out / JOURNAL_NAME)[-1]
+    check(end["event"] == "run_end" and "telemetry" in end,
+          f"{tag}: the journal's run_end has no telemetry")
+    return {
+        "windows_total_ranked": ranked,
+        "rank_iterations_count": iters,
+        "ingest_admitted": admitted_rows,
+        "run_end_telemetry": end["telemetry"],
+        "series_sampled": sorted(k for k, v in snap.items() if v["samples"]),
+    }
+
+
 def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     """One mode of ``TableRCA.run`` on the card over the whole timeline:
-    a warm pass with a sink (records, cursor, journal), three timed
-    passes without one (as bench.py's ``_run_replay``), their launches
-    counted per pass, then one pass under the profiler for the device's
-    busy share. Returns (rca, warm results, launch counts of the last
-    timed pass, info)."""
+    a warm pass with a sink (records, cursor, journal; in the default
+    mode also the metrics snapshot the CLI writes, into a fresh registry,
+    and its gates), three timed passes without one (as bench.py's
+    ``_run_replay``), their launches counted per pass, then one pass
+    under the profiler for the device's busy share. Returns (rca, warm
+    results, launch counts of the last timed pass, info)."""
     import numpy as np
 
-    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig, WindowConfig
+    from microrank_tpu_torch.config import IngestConfig
     from microrank_tpu_torch.graph.table_ops import window_rows
-    from microrank_tpu_torch.obs import JOURNAL_NAME, read_journal
+    from microrank_tpu_torch.ingest import admit_table
+    from microrank_tpu_torch.obs import JOURNAL_NAME, MetricsRegistry, read_journal, set_registry
+    from microrank_tpu_torch.obs.metrics import ensure_catalog
     from microrank_tpu_torch.pipeline import TableRCA
 
-    cfg = MicroRankConfig(
-        # Each generated window exactly: detect = its span, skip = 0.
-        window=WindowConfig(detect_minutes=tl.window_minutes, skip_minutes=0.0),
-        runtime=RuntimeConfig(**REPLAY_MODES[mode]),
-    )
+    cfg = replay_config(tl, **REPLAY_MODES[mode])
     tag = f"replay/{mode}"
+    with_metrics = mode == "default"
+    if with_metrics:
+        registry = MetricsRegistry()
+        set_registry(registry)
     rca = TableRCA(cfg, device="cuda")
     rca.fit_baseline(normal_table)
 
@@ -742,6 +854,14 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     rca.launch_rank = spy
     out = workdir / f"replay_{mode}"
     warm = rca.run(table, out_dir=out)
+    metrics = None
+    if with_metrics:
+        # What `cli run` writes beside the results when telemetry is on.
+        ensure_catalog()
+        registry.write_snapshot(out)
+        kept = sum(admit_table(t, IngestConfig())[0].n_spans for t in (normal_table, table))
+        metrics = metrics_gates(tag, out, sum(1 for r in warm if r.ranking), kept)
+        set_registry(MetricsRegistry())
     check(len(streams) == 1, f"{tag}: launch_rank was not reached")
     on_default = streams[0] == torch.cuda.default_stream()
     if cfg.runtime.async_dispatch:
@@ -820,6 +940,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
         "queue_depths": [r.queue_depth for r in warm if r.ranking],
         "launches_per_pass": counts,
         "stage_stream_is_default": on_default,
+        "metrics": metrics,
     }
 
 
@@ -834,7 +955,7 @@ def phase_replay(torch, spmv, pattern, args, workdir):
     from microrank_tpu_torch.ingest import admit_table
 
     t0 = time.perf_counter()
-    tl, normal_table, table, data = phase_replay_data(args, workdir)
+    tl, normal_table, table, timeline_csv, data = phase_replay_data(args, workdir)
     # What every run() does once before its first window: admission of
     # the whole timeline table.
     admit_ms = []
@@ -871,7 +992,7 @@ def phase_replay(torch, spmv, pattern, args, workdir):
     resumed = rca.run(table, out_dir=out, resume=True)
     check([(r.start, r.ranking, r.rank_iterations) for r in resumed] == ref[k:],
           f"replay: the run resumed after window {k} is not bitwise windows {k + 1}-")
-    return launches, {
+    return (tl, normal_table, table, timeline_csv), launches, {
         "phase": "replay",
         "data": data,
         "fault_pod_op": tl.fault_pod_op,
@@ -882,6 +1003,167 @@ def phase_replay(torch, spmv, pattern, args, workdir):
         "resumed_after_window": k,
         "resumed_bitwise": True,
         "phase_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def phase_policy(torch, spmv, pattern, normal, abnormal, workdir, empty_policy_dir):
+    """The tuned policy on the card: a ``policy.json`` in the JAX
+    package's schema (written here: the card's machine has no JAX) that
+    tunes the config-5 window's workload profile to ``method="ochiai"``,
+    found through ``MICRORANK_POLICY_DIR``; ``run_rca_native`` must give
+    bitwise the ranking of an explicit ``SpectrumConfig(method="ochiai")``
+    run (no policy), and count one "applied" policy event."""
+    import os
+
+    from microrank_tpu_torch.config import IngestConfig, MicroRankConfig, SpectrumConfig
+    from microrank_tpu_torch.graph.table_ops import compute_slo_from_table
+    from microrank_tpu_torch.ingest import admit_table
+    from microrank_tpu_torch.native import load_span_table
+    from microrank_tpu_torch.obs import MetricsRegistry, set_registry
+    from microrank_tpu_torch.pipeline import run_rca_native
+    from microrank_tpu_torch.scenarios import policy
+
+    # The profile as the table lane computes it: the admitted normal
+    # table's span count and op cardinality, dedup unknown ("low").
+    table, _ = admit_table(load_span_table(normal), IngestConfig())
+    vocab, _ = compute_slo_from_table(table)
+    key = policy.profile_from_counts(table.n_spans, len(vocab)).key()
+    pdir = workdir / "policy"
+    pdir.mkdir()
+    (pdir / policy.POLICY_NAME).write_text(json.dumps({
+        "version": policy.POLICY_VERSION,
+        "profile_schema": policy.PROFILE_SCHEMA,
+        "matrix_seed": None,
+        "profiles": {key: {"method": "ochiai", "kernel": "auto", "pad_policy": "pow2q"}},
+    }))
+    registry = MetricsRegistry()
+    set_registry(registry)
+    os.environ["MICRORANK_POLICY_DIR"] = str(pdir)
+    try:
+        reset_counts(spmv, pattern)
+        tuned = run_rca_native(normal, abnormal, MicroRankConfig(), device="cuda")
+        counts = read_counts(spmv, pattern)
+        events = {(s_["labels"]["lane"], s_["labels"]["outcome"]): s_["value"]
+                  for s_ in registry.get("microrank_policy_events_total").samples()}
+    finally:
+        os.environ["MICRORANK_POLICY_DIR"] = str(empty_policy_dir)
+        set_registry(MetricsRegistry())
+    explicit = run_rca_native(
+        normal, abnormal, MicroRankConfig(spectrum=SpectrumConfig(method="ochiai")),
+        device="cuda",
+    )
+    ranked = [r for r in tuned if r.ranking]
+    check(ranked, "policy: no window was ranked")
+    check(events == {("table", "applied"): 1.0},
+          f"policy: policy events {events}, want one 'applied'")
+    same = [(r.start, r.ranking, r.rank_iterations) for r in tuned] == [
+        (r.start, r.ranking, r.rank_iterations) for r in explicit
+    ]
+    check(same, "policy: the tuned run is not bitwise the explicit ochiai run")
+    check(counts == expected_counts(ranked[0].kernel, len(ranked)),
+          f"policy: launch counts {counts}")
+    return counts, {
+        "phase": "policy",
+        "profile": key,
+        "policy": {"method": "ochiai", "kernel": "auto", "pad_policy": "pow2q"},
+        "policy_events": {f"{k[0]}/{k[1]}": v for k, v in events.items()},
+        "ranked": len(ranked),
+        "kernel": ranked[0].kernel,
+        "top5": ranked[0].ranking[:5],
+        "ranking_bitwise_vs_explicit_ochiai": True,
+    }
+
+
+def phase_follow(torch, spmv, pattern, tl, normal_table, table, timeline_csv, workdir):
+    """``run_follow`` on the card over the replay's timeline CSV grown in
+    three appends (a collector's: the first part written, the injected
+    ``sleep`` appending the next byte range of the timeline file, and a
+    no-op once all is written), ``idle_exit=1``: the follower's rankings
+    are bitwise those of a sync ``TableRCA.run`` over the whole file (the
+    replay's table: the same bytes) up to its last horizon. Polls,
+    windows per poll and ms per poll (each poll re-parses the whole file,
+    as the JAX package's follower does)."""
+    import filecmp
+
+    from microrank_tpu_torch.obs import MetricsRegistry, set_registry
+    from microrank_tpu_torch.pipeline import TableRCA
+    from microrank_tpu_torch.pipeline.follow import run_follow
+
+    t_phase = time.perf_counter()
+    source, offsets = timeline_csv
+    n = len(tl.windows)
+    # Three parts: one window, one more, the rest. Each poll re-parses the
+    # whole file, so small first parts keep the phase's parse time down
+    # (1 + 2 + 8 windows parsed at bench.py's 8).
+    cuts = [1, min(2, n), n] if n >= 3 else [n]
+    ends = [offsets[c - 1] for c in cuts]
+    csv = workdir / "follow" / "stream.csv"
+    csv.parent.mkdir()
+    written = [0]
+
+    def grow(end):
+        with open(source, "rb") as src, open(csv, "ab") as dst:
+            src.seek(written[0])
+            left = end - written[0]
+            while left:
+                chunk = src.read(min(left, 64 << 20))
+                dst.write(chunk)
+                left -= len(chunk)
+        written[0] = end
+
+    grow(ends[0])
+    pending = list(ends[1:])
+    marks, append_ms = [0.0], []
+
+    def sleep(_):  # the collector appends the next part between polls
+        t0 = time.perf_counter()
+        if pending:
+            grow(pending.pop(0))
+        append_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+        marks.append(time.perf_counter())
+
+    per_poll = []
+
+    def on_results(batch):
+        per_poll.append((time.perf_counter() - marks[-1], sum(1 for r in batch if r.ranking)))
+
+    registry = MetricsRegistry()
+    set_registry(registry)
+    rca = TableRCA(replay_config(tl), device="cuda")
+    rca.fit_baseline(normal_table)
+    reset_counts(spmv, pattern)
+    out = workdir / "follow" / "out"
+    marks[0] = time.perf_counter()
+    ranked = run_follow(rca, csv, out, poll_seconds=0.0, idle_exit=1,
+                        on_results=on_results, sleep=sleep)
+    counts = read_counts(spmv, pattern)
+    polls = registry.get("microrank_follow_polls_total").value()
+    set_registry(MetricsRegistry())
+    check(filecmp.cmp(csv, source, shallow=False),
+          "follow: the grown file is not the timeline file")
+    followed = [json.loads(ln) for ln in (out / "windows.jsonl").read_text().splitlines()]
+
+    sync = TableRCA(replay_config(tl, pipeline_depth=1, async_dispatch=False), device="cuda")
+    sync.fit_baseline(normal_table)
+    ref = sync.run(table, end_us=int(table.start_us.max()), complete_only=True)
+    got = [(r["start"], r["ranking"]) for r in followed if r["ranking"]]
+    want = [(r.start, [list(x) for x in r.ranking]) for r in ref if r.ranking]
+    check(ranked == len(want) and got == want,
+          "follow: the followed rankings are not bitwise the sync run's over the file")
+    check(not pending and len(per_poll) == len(cuts),
+          f"follow: {len(per_poll)} productive polls for {len(cuts)} appends")
+    check(counts == expected_counts("kind", ranked), f"follow: launch counts {counts}")
+    return counts, {
+        "phase": "follow",
+        "windows": n,
+        "appends_windows": [cuts[0]] + [b - a for a, b in zip(cuts, cuts[1:])],
+        "polls": polls,
+        "windows_ranked": ranked,
+        "windows_per_poll": [w for _, w in per_poll],
+        "ms_per_poll": [round(t * 1e3, 3) for t, _ in per_poll],
+        "append_ms": append_ms,
+        "rankings_bitwise_vs_sync_run": True,
+        "phase_s": round(time.perf_counter() - t_phase, 3),
     }
 
 
@@ -1301,7 +1583,7 @@ def on_cpu(torch, pattern, group):
         [p.pattern.cpu() for p in group.parts], [p.w_len.cpu() for p in group.parts],
         [p.w_cov.cpu() for p in group.parts],
         [None if p.w_out is None else p.w_out.cpu() for p in group.parts],
-        [p.n_cols for p in group.parts], True,
+        [p.n_cols for p in group.parts],
     )
 
 
@@ -1321,18 +1603,19 @@ def with_equal_rows_and_columns(torch, pattern, group):
         pairs.append(((0, v // 2), (1, k - 1)))
     eq = pattern.pattern_group(
         pats, [p.w_len for p in group.parts], [p.w_cov for p in group.parts],
-        [p.w_out for p in group.parts], [p.n_cols for p in group.parts], True,
+        [p.w_out for p in group.parts], [p.n_cols for p in group.parts],
     )
     return eq, pairs
 
 
 def pattern_bound(group, nnz):
     """(bytes, bytes ms, operations ms) of one pair call: each pattern
-    read once as the bitmap [V, ceil(K/8)] the kernel reads (K2's int8
-    pattern is packed to it once per window, so a step never reads the
-    int8 bytes), rv, w_len, sv, w_cov (and w_out) read once, y_fwd, y_bwd
-    (and x_ss) written once; one add per set cell and direction, plus the
-    operand products."""
+    read once as the bitmap [V, ceil(K/8)] the kernel reads (the kind
+    build's bitmap as it is), rv, w_len, sv, w_cov (and w_out) read once,
+    y_fwd, y_bwd (and x_ss) written once; one add per set cell and
+    direction, plus the operand products. (int8's scales add 16 bytes,
+    counted in; their maxima re-read the four operands, which the bound
+    counts once.)"""
     nbytes, ops = 0, 0
     for p, n in zip(group.parts, nnz):
         v, k = p.pattern.shape[0], p.n_cols
@@ -1342,74 +1625,135 @@ def pattern_bound(group, nnz):
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
 
 
-def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, cpu_check=True):
-    """Check and time one pattern-pair call (both partitions) on the
-    card. ``cpu_check``: also hold it bitwise to its plain version
-    computed on the CPU and check equal rows and columns of a constructed
-    pattern (skipped at the giant shapes, where the card-side plain
-    version and the repeat checks stand)."""
+def measure_pattern(torch, pattern, name, group, rvs, svs, precision, cpu_check=True):
+    """Check and time one step of the pattern pair (both partitions) on
+    the card: one launch, or for int8 the scale launch and then the pair.
+    ``cpu_check``: also hold it bitwise to its plain version computed on
+    the CPU and check equal rows and columns of a constructed pattern
+    (skipped at the giant shapes, where the card-side plain version and
+    the repeat checks stand)."""
+    int8 = precision == "int8"
+
+    def step(g=group):
+        scales = pattern.quantize_scales(g, rvs, svs) if int8 else None
+        return pattern.pattern_pair_group(g, rvs, svs, precision, scales), scales
+
+    def flat(outs, scales):
+        parts = [t for pair in outs for t in pair if t is not None]
+        return torch.cat(parts + ([] if scales is None else [scales]))
+
     calls0 = pattern.pattern_pair_group.launches
-    outs = pattern.pattern_pair_group(group, rvs, svs, bf16)
+    outs, scales = step()
     torch.cuda.synchronize()
-    flat = lambda o: torch.cat([t for pair in o for t in pair if t is not None])  # noqa: E731
-    first = flat(outs)
+    first = flat(outs, scales)
     bitwise = None
     if cpu_check:
         cpu_group = on_cpu(torch, pattern, group)
-        ref = pattern.pattern_pair_plain(
-            cpu_group, [r.cpu() for r in rvs], [s.cpu() for s in svs], bf16
-        )
-        bitwise = torch.equal(first.cpu(), flat(ref))
+        c_rvs, c_svs = [r.cpu() for r in rvs], [s_.cpu() for s_ in svs]
+        c_scales = pattern.quantize_scales_plain(cpu_group, c_rvs, c_svs) if int8 else None
+        ref = pattern.pattern_pair_plain(cpu_group, c_rvs, c_svs, precision, c_scales)
+        bitwise = torch.equal(first.cpu(), flat(ref, c_scales))
         check(bitwise, f"{name}: the pattern pair differs from its plain version on the CPU")
-    again = [flat(pattern.pattern_pair_group(group, rvs, svs, bf16)) for _ in range(REPEATS)]
+    again = [flat(*step()) for _ in range(REPEATS)]
     torch.cuda.synchronize()
     check(all(torch.equal(a, first) for a in again),
           f"{name}: not bitwise repeatable over {REPEATS} launches")
     check(not any(bool(p.counters.any()) for p in group.parts),
           f"{name}: arrival counters left non-zero")
+    check(not group.amax_scratch.any(), f"{name}: the scale launch left its scratch non-zero")
     if cpu_check:
         eq, pairs = with_equal_rows_and_columns(torch, pattern, group)
-        eq_outs = pattern.pattern_pair_group(eq, rvs, svs, bf16)
+        eq_outs, _ = step(eq)
         torch.cuda.synchronize()
         for (y_fwd, y_bwd, _), ((r0, r1), (c0, c1)) in zip(eq_outs, pairs):
             check(bool(y_fwd[r0] == y_fwd[r1]) and bool(y_bwd[c0] == y_bwd[c1]),
                   f"{name}: equal rows or columns give different bits")
 
-    plain = lambda: pattern.pattern_pair_plain(group, rvs, svs, bf16)  # noqa: E731
-    y_plain = flat(plain())
+    def plain():
+        s_ = pattern.quantize_scales_plain(group, rvs, svs) if int8 else None
+        return pattern.pattern_pair_plain(group, rvs, svs, precision, s_), s_
+
+    y_plain = flat(*plain())
     diff = (first - y_plain).abs()
     abs_err = float(diff.max()) if diff.numel() else 0.0
     rel_err = float((diff / y_plain.abs().clamp_min(1e-30)).max()) if diff.numel() else 0.0
     check(rel_err <= KERNEL_RTOL, f"{name}: rel err {rel_err} > {KERNEL_RTOL}")
+    card_bitwise = bool(torch.equal(first, y_plain))
+    if int8:  # integer sums: the plain version on the card gives the same bits
+        check(card_bitwise, f"{name}: the int8 step differs from its plain version on the card")
 
-    # The library form JAX computes: the loop-invariant cast matrix and a
-    # pair of matmuls per partition (a yardstick the port never calls).
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    # The library form JAX computes (a yardstick the port never calls):
+    # f32 / bf16, the loop-invariant cast matrix and a pair of matmuls per
+    # partition; int8, one torch._int_mm per direction and partition over
+    # the unpacked int8 pattern (its transpose for the bwd direction, so
+    # that the pattern is the left operand) with the quantized operand
+    # padded to 8 columns, or four f32 torch.matmul where _int_mm refuses
+    # the shape.
     mats, operands, nnz = [], [], []
-    for p, rv, sv in zip(group.parts, rvs, svs):
+    for i, (p, rv, sv) in enumerate(zip(group.parts, rvs, svs)):
         m = pattern.unpack_bits(p.pattern, p.n_cols)
         nnz.append(int(m.sum()))
-        mats.append(m.to(dtype))
-        operands.append(((rv * p.w_len).to(dtype), (sv * p.w_cov).to(dtype)))
-    library = lambda: [(m @ a, b @ m) for m, (a, b) in zip(mats, operands)]  # noqa: E731
-    lib_out = torch.cat([torch.cat([f.float(), b.float()]) for f, b in library()])
+        a, b = rv * p.w_len, sv * p.w_cov
+        if int8:
+            mats.append(m)
+            operands.append((pattern.quantize_with(a, scales[2 * i]),
+                             pattern.quantize_with(b, scales[2 * i + 1])))
+        else:
+            dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+            mats.append(m.to(dtype))
+            operands.append((a.to(dtype), b.to(dtype)))
+    library_form = "matmul"
+    if int8:
+        def pad8(q):  # the quantized vector as column 0 of 8
+            out = torch.zeros((q.shape[0], 8), dtype=torch.int8, device=q.device)
+            out[:, 0] = q.to(torch.int8)
+            return out
+
+        i8 = [(m.to(torch.int8), m.t().contiguous().to(torch.int8)) for m in mats]
+        pad8 = [(pad8(a), pad8(b)) for a, b in operands]
+        f32 = [(m, m.t().contiguous()) for m in mats]
+        f32_ops = [(a.float(), b.float()) for a, b in operands]
+
+        def int_mm():
+            return [(torch._int_mm(mf, a8)[:, 0], torch._int_mm(mt, b8)[:, 0])
+                    for (mf, mt), (a8, b8) in zip(i8, pad8)]
+
+        try:
+            lib_int = int_mm()
+            torch.cuda.synchronize()
+            library = int_mm
+            library_form = "torch._int_mm"
+            lib_out = torch.cat([torch.cat([f.float() * scales[2 * i], b.float() * scales[2 * i + 1]])
+                                 for i, (f, b) in enumerate(lib_int)])
+        except RuntimeError as exc:
+            library_form = f"torch.matmul f32 (torch._int_mm refused: {str(exc)[:160]})"
+
+            def library():
+                return [(mf @ a, mt @ b) for (mf, mt), (a, b) in zip(f32, f32_ops)]
+
+            lib_out = torch.cat([torch.cat([f * scales[2 * i], b * scales[2 * i + 1]])
+                                 for i, (f, b) in enumerate(library())])
+    else:
+        def library():
+            return [(m @ a, b @ m) for m, (a, b) in zip(mats, operands)]
+
+        lib_out = torch.cat([torch.cat([f.float(), b.float()]) for f, b in library()])
     ours = torch.cat([torch.cat([f, b]) for f, b, _ in outs])
     lib_rel = float(((lib_out - ours).abs() / ours.abs().clamp_min(1e-30)).max())
 
-    calls = {
-        "kernel": lambda: pattern.pattern_pair_group(group, rvs, svs, bf16),
-        "plain": plain,
-        "library": library,
-    }
+    calls = {"kernel": lambda: step(), "plain": plain, "library": library}
     # CUDA events per call behind a device spin, in turns.
     turns = [(k, spin_event_ms(torch, calls[k], 20))
              for k in ("library", "kernel", "kernel", "library")]
     ms = {k: _mean([t for kk, t in turns if kk == k]) for k in ("kernel", "library")}
     ms["plain"] = spin_event_ms(torch, plain, 3)
     nbytes, bytes_ms, ops_ms = pattern_bound(group, nnz)
-    return {
+    if int8:
+        nbytes += 4 * len(scales)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {
         "name": name,
-        "bf16": bf16,
+        "precision": precision,
         "n_rows": [p.pattern.shape[0] for p in group.parts],
         "n_cols": [p.n_cols for p in group.parts],
         "tiles": [[-(-p.pattern.shape[0] // pattern.TILE_R), -(-p.n_cols // pattern.TILE_C)]
@@ -1420,6 +1764,7 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, cpu_check=True)
         "ms": round(ms["kernel"], 6),
         "plain_ms": round(ms["plain"], 6),
         "library_ms": round(ms["library"], 6),
+        "library_form": library_form,
         "turns_ms": [[k, round(t, 6)] for k, t in turns],
         "bound_ms": round(max(bytes_ms, ops_ms), 6),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1427,10 +1772,29 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, bf16, cpu_check=True)
         "max_abs_err": abs_err, "max_rel_err": rel_err,
         "library_max_rel_diff": lib_rel,
         "bitwise_vs_cpu_plain": bitwise,
-        "bitwise_vs_card_plain": bool(torch.equal(first, y_plain)),
+        "bitwise_vs_card_plain": card_bitwise,
         "bitwise_repeatable_launches": REPEATS,
         "equal_rows_and_columns_bitwise": True if cpu_check else None,
     }
+    if int8:
+        # The two launches of the step apart: the scales alone, and the
+        # pair alone on fixed scales.
+        out["scale_ms"] = round(spin_event_ms(
+            torch, lambda: pattern.quantize_scales(group, rvs, svs), 20), 6)
+        out["pair_ms"] = round(spin_event_ms(
+            torch, lambda: pattern.pattern_pair_group(group, rvs, svs, "int8", scales), 20), 6)
+        out["scale_plain_ms"] = round(spin_event_ms(
+            torch, lambda: pattern.quantize_scales_plain(group, rvs, svs), 3), 6)
+        plain_scales = pattern.quantize_scales_plain(group, rvs, svs)
+        out["scale_max_abs_err"] = float((scales - plain_scales).abs().max())
+        # The scale launch alone: each operand and its weight read once,
+        # the scales written once.
+        scale_bytes = sum(4 * 2 * (p.n_cols + p.pattern.shape[0]) for p in group.parts)
+        scale_bytes += 4 * len(scales)
+        out["scale_bytes"] = scale_bytes
+        out["scale_bound_ms"] = round(scale_bytes / HBM_BYTES_PER_S * 1e3, 6)
+        out["scales"] = [float(x) for x in scales]
+    return out
 
 
 def pattern_sweep(torch, pattern):
@@ -1440,32 +1804,39 @@ def pattern_sweep(torch, pattern):
     14 tiles, the fwd fold alone); few columns (3072 x 256: one column
     stripe of 24 tiles, the bwd fold alone); one tile (64 x 256, no
     fold). Device ms per call."""
+    import numpy as np
+
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(2)
+    rng = np.random.default_rng(2)
     out = []
     for v, k in ((3072, 7168), (64, 7168), (3072, 256), (64, 256)):
-        bits = pattern.pack_bits(torch.rand((v, k), generator=gen, device="cuda") < 0.3, k)
+        bits = torch.from_numpy(np.packbits(rng.random((v, k)) < 0.3, axis=1)).cuda()
         vec = lambda n: torch.rand(n, generator=gen, device="cuda")  # noqa: E731
-        group = pattern.pattern_group([bits], [vec(k)], [vec(v)], [vec(v)], [k], True)
+        group = pattern.pattern_group([bits], [vec(k)], [vec(v)], [vec(v)], [k])
         rv, sv = vec(k), vec(v)
-        ms = spin_event_ms(torch, lambda: pattern.pattern_pair_group(group, [rv], [sv], True), 20)
+        ms = spin_event_ms(
+            torch, lambda: pattern.pattern_pair_group(group, [rv], [sv], "bf16"), 20
+        )
         out.append({"rows": v, "cols": k, "ms": round(ms, 6)})
     return out
 
 
 def phase_pattern(torch, pattern, graphs):
-    """K2 at the collapsed shapes (f32, bf16) and K4 at the uncollapsed
-    ones (packed, packed_bf16): one pair call per step for both
-    partitions."""
+    """K2 at the collapsed shapes (f32, bf16; int8 at the int8 run's
+    window, the scale launch and the pair) and K4 at the uncollapsed ones
+    (packed, packed_bf16): one pair call per step for both partitions."""
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(1)
     out = {}
     group, rvs, svs = pattern_inputs(torch, graphs["auto/auto"], "kind", gen)
-    for bf16 in (False, True):
-        name = f"kind_{'bf16' if bf16 else 'f32'}"
-        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16)
+    for precision in ("f32", "bf16"):
+        name = f"kind_{precision}"
+        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, precision)
+    group, rvs, svs = pattern_inputs(torch, graphs["auto/int8"], "kind", gen)
+    out["kind_int8"] = measure_pattern(torch, pattern, "kind_int8", group, rvs, svs, "int8")
     group, rvs, svs = pattern_inputs(torch, graphs["auto/off"], "packed", gen)
-    for bf16 in (False, True):
-        name = "packed_bf16" if bf16 else "packed"
-        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, bf16)
+    for precision in ("f32", "bf16"):
+        name = "packed_bf16" if precision == "bf16" else "packed"
+        out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, precision)
     return out
 
 
@@ -1557,7 +1928,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         group = dgraph.pattern_group
         rvs = [torch.rand(p.n_cols, generator=gen, device=dev) for p in group.parts]
         svs = [torch.rand(p.pattern.shape[0], generator=gen, device=dev) for p in group.parts]
-        kern = measure_pattern(torch, pattern, f"giant/{kernel}", group, rvs, svs, False,
+        kern = measure_pattern(torch, pattern, f"giant/{kernel}", group, rvs, svs, "f32",
                                cpu_check=False)
     info = {
         "phase": "giant",
@@ -1591,8 +1962,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ops", type=int, default=5000)
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument(
-        "--replay-windows", type=int, default=8,
-        help="windows of the replay timeline (bench.py's config 5: 8 of "
+        "--replay-windows", type=int, default=6,
+        help="windows of the replay timeline (bench.py's config 5 has 8 of "
              "--spans spans each); 0 skips the replay phase",
     )
     ap.add_argument(
@@ -1624,6 +1995,11 @@ def main(argv=None) -> int:
     phase = "env"
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "bench_data"
                                     if (ROOT / "bench_data").is_dir() else ROOT))
+    # No tuned policy reaches a run but the policy phase's: an empty
+    # policy directory of this run's own.
+    empty_policy_dir = workdir / "no_policy"
+    empty_policy_dir.mkdir()
+    os.environ["MICRORANK_POLICY_DIR"] = str(empty_policy_dir)
     try:
         env = phase_env(torch, spmv, pattern, native)
         emit(env)
@@ -1658,11 +2034,31 @@ def main(argv=None) -> int:
                 check(same, "pcsr: ranking is not bitwise the pinned pallas run's")
                 info["ranking_bitwise_vs_pallas"] = True
             emit(info)
+        # kind_precision="int8": auto, collapse on, resolves to kind; one
+        # scale launch and one int8 pair launch per step.
+        phase = "int8"
+        graph, counts, res, info = phase_run(
+            torch, spmv, pattern, case, normal, abnormal, "on", "auto", precision="int8",
+        )
+        launches["auto/int8"] = counts
+        graphs["auto/int8"] = graph
+        info["phase"] = "int8"
+        emit(info)
+        phase = "policy"
+        counts, info = phase_policy(torch, spmv, pattern, normal, abnormal, workdir,
+                                    empty_policy_dir)
+        launches["policy"] = counts
+        emit(info)
         phase = "replay"
         if args.replay_windows:
-            replay_launches, info = phase_replay(torch, spmv, pattern, args, workdir)
+            replay, replay_launches, info = phase_replay(torch, spmv, pattern, args, workdir)
             launches.update(replay_launches)
             emit(info)
+            phase = "follow"
+            counts, info = phase_follow(torch, spmv, pattern, *replay, workdir)
+            launches["follow"] = counts
+            emit(info)
+            del replay
         phase = "kernel"
         per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
@@ -1692,7 +2088,7 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     step = per_step["off"]
-    kind, packed = pairs["kind_f32"], pairs["packed_bf16"]
+    kind, packed, int8 = pairs["kind_f32"], pairs["packed_bf16"], pairs["kind_int8"]
     # packed_blocked runs K4 in f32: at the giant window of a fifth of
     # --giant-spans, else at config 5's uncollapsed shapes ("packed").
     blocked = giant.get("packed_blocked", pairs["packed"])
@@ -1701,6 +2097,9 @@ def main(argv=None) -> int:
     # kernel's own time; torch.profiler's summed device time misreads
     # this card's launches, see timer_check), library_ms and plain_ms
     # the same.
+    # Where the command's time went: seconds since the start at each
+    # phase's line (a repeated phase is keyed with "+").
+    emit({"phase_end_seconds": PHASE_SECONDS})
     emit({"kernels": [
         {
             "name": "coo_spmv",
@@ -1727,9 +2126,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:558",
-            # The collapsed auto run's launches and the replay's.
+            # The f32 kind runs' launches: the collapsed auto run, the
+            # policy run, the replay's and the follower's.
             "launches": sum(c["pattern_launches"] for k, c in launches.items()
-                            if k == "auto/auto" or k.startswith("replay/")),
+                            if k in ("auto/auto", "policy", "follow")
+                            or k.startswith("replay/")),
             "max_abs_err": max(pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")),
             # One step (one launch, both partitions, both directions) at
             # the collapsed config-5 shapes, kind_precision f32; library_ms
@@ -1739,6 +2140,40 @@ def main(argv=None) -> int:
             "bound_ms": kind["bound_ms"],
             "bound_by": kind["bound_by"],
             "library_ms": kind["library_ms"],
+        },
+        {
+            "name": "kind_pair_int8",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:544",
+            "launches": launches["auto/int8"]["pattern_launches"],
+            "max_abs_err": int8["max_abs_err"],
+            # One int8 step (the scale launch, then the pair launch; both
+            # partitions, both directions) at the collapsed config-5
+            # shapes of the int8 run; library_ms is one torch._int_mm per
+            # direction and partition (int8["library_form"] says which).
+            "ms": int8["ms"],
+            "plain_ms": int8["plain_ms"],
+            "bound_ms": int8["bound_ms"],
+            "bound_by": int8["bound_by"],
+            "library_ms": int8["library_ms"],
+        },
+        {
+            "name": "quantize_amax",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:96",
+            "launches": launches["auto/int8"]["quantize_launches"],
+            "max_abs_err": int8["scale_max_abs_err"],
+            # The int8 step's scale launch alone (the four operands'
+            # maxima and scales); its bound reads the four operands and
+            # their weights once. No single PyTorch call computes the four
+            # scales: library_ms is null.
+            "ms": int8["scale_ms"],
+            "plain_ms": int8["scale_plain_ms"],
+            "bound_ms": int8["scale_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
         {
             "name": "packed_pair",

@@ -1,16 +1,25 @@
 """Command line of the port (counterpart of the native branch of
-``microrank_tpu/cli/main.py`` ``cmd_run``, plus ``synth``).
+``microrank_tpu/cli/main.py`` ``cmd_run``, ``cmd_stats``, plus
+``synth``).
 
     python -m microrank_tpu_torch.cli run --normal N --abnormal A -o OUT [--device cuda|cpu]
         [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
-        [--kind-precision f32|bf16] [--pipeline-depth N] [--sync-dispatch]
+        [--kind-precision f32|bf16|int8] [--pipeline-depth N] [--sync-dispatch]
         [--fetch-mode stream|bulk] [--bulk-fetch-windows N] [--resume]
+        [--no-tuned-policy] [--metrics-port N]
+        [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
+    python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
+        [--format prom|json] [--journal]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
 
 ``run`` ranks every anomalous window of the abnormal dump and writes
 ``OUT/result.csv`` and ``OUT/windows.jsonl`` in the JAX package's
-format, with the window cursor and the run journal beside them. It runs
-on the card unless ``--device cpu`` is given.
+format, with the window cursor, the run journal and the metrics
+snapshot (``metrics.json``, ``metrics.prom``) beside them. It runs on
+the card unless ``--device cpu`` is given. ``--follow`` tails a growing
+abnormal dump and ranks windows as they close. ``stats`` re-emits a
+finished run's snapshot, as the JAX package's ``cli stats`` does, and
+reads either package's ``metrics.json``.
 """
 
 from __future__ import annotations
@@ -53,8 +62,15 @@ def _config_from_args(args) -> MicroRankConfig:
     }
     if args.sync_dispatch:
         loop["async_dispatch"] = False
+    if args.no_tuned_policy:
+        loop["tuned_policy"] = "off"
+    pagerank = (
+        PageRankConfig(kind_precision=args.kind_precision)
+        if args.kind_precision is not None
+        else PageRankConfig()
+    )
     return MicroRankConfig(
-        pagerank=PageRankConfig(kind_precision=args.kind_precision),
+        pagerank=pagerank,
         runtime=RuntimeConfig(
             kernel=args.kernel, collapse_kinds=args.collapse_kinds,
             device=args.device, **loop,
@@ -62,23 +78,213 @@ def _config_from_args(args) -> MicroRankConfig:
     )
 
 
+def _print_windows(results) -> None:
+    """Each ranked window's ranking, in the JAX CLI's format."""
+    for r in results:
+        if r.ranking:
+            print(f"window {r.start}:")
+            for rank, (name, score) in enumerate(r.ranking, 1):
+                print(f"  {rank:2d}. {name:<50s} {score:.8f}")
+
+
 def cmd_run(args) -> int:
-    from .pipeline import run_rca_native
+    from .native import load_span_table
+    from .pipeline import TableRCA
 
     cfg = _config_from_args(args)
+    server = None
+    if args.metrics_port is not None:
+        from .obs.server import start_metrics_server
+
+        server = start_metrics_server(args.metrics_port)
+        log.info(
+            "metrics endpoint: http://127.0.0.1:%d/metrics (+ "
+            "/metrics.json, /healthz)",
+            server.port,
+        )
+
+    def _write_metrics(dest) -> None:
+        """Persist the metrics snapshot next to the results so
+        ``cli stats <out_dir>`` works after the process exits."""
+        if dest is None or not cfg.runtime.telemetry:
+            return
+        from .obs import get_registry
+        from .obs.metrics import ensure_catalog
+
+        ensure_catalog()
+        get_registry().write_snapshot(dest)
+
     if args.bulk_fetch_windows is not None and cfg.runtime.fetch_mode != "bulk":
         log.warning("--bulk-fetch-windows has no effect without --fetch-mode bulk")
-    results = run_rca_native(
-        args.normal, args.abnormal, cfg, out_dir=args.output, resume=args.resume
-    )
-    ranked = [r for r in results if r.ranking]
-    log.info(
-        "%d windows, %d ranked; results in %s", len(results), len(ranked),
-        args.output,
-    )
-    for r in ranked:
-        top = r.ranking[0]
-        print(f"{r.start}: top-1 {top[0]} ({top[1]:.6g})")
+    try:
+        rca = TableRCA(cfg)
+        rca.fit_baseline(load_span_table(args.normal))
+        out_dir = args.output or None
+        if args.follow:
+            # Online mode: tail the growing abnormal CSV, ranking windows
+            # as they close (pipeline.follow). The window cursor in
+            # out_dir makes polls and restarts incremental.
+            if out_dir is None:
+                log.error("--follow needs -o/--output (window cursor)")
+                return 2
+            from .pipeline.follow import run_follow
+
+            n = run_follow(
+                rca,
+                args.abnormal,
+                out_dir,
+                poll_seconds=args.poll_seconds,
+                grace_us=int(args.follow_grace_seconds * 1e6),
+                idle_exit=args.follow_idle_exit or 0,
+                on_results=_print_windows,
+            )
+            log.info("follow: %d windows ranked; results in %s", n, out_dir)
+            _write_metrics(out_dir)
+            return 0
+        results = rca.run(
+            load_span_table(args.abnormal), out_dir=out_dir, resume=args.resume
+        )
+        _write_metrics(out_dir)
+        log.info(
+            "processed %d windows, %d anomalous; results in %s",
+            len(results), sum(r.anomaly for r in results), args.output,
+        )
+        _print_windows(results)
+        return 0
+    finally:
+        if server is not None:
+            server.close()
+
+
+def _load_snapshot(target: Path):
+    """Resolve a stats target (run dir or metrics.json path) to its
+    parsed snapshot dict, or None with a message on stderr."""
+    snap_path = target / "metrics.json" if target.is_dir() else target
+    if not snap_path.exists():
+        print(
+            f"no metrics snapshot at {snap_path} (run `cli run -o "
+            f"{target}` first, or point at a metrics.json)",
+            file=sys.stderr,
+        )
+        return None
+    return json.loads(snap_path.read_text())
+
+
+def _merge_targets(paths):
+    """Resolve ``--merge`` targets to one federated registry. Each target
+    is a run dir / metrics.json path, or a directory with
+    ``host*/metrics.json`` children, which expands to those per-host
+    snapshots (its own top-level metrics.json is already their merged
+    view). The host label on gauges is the snapshot's directory name.
+    Returns None (with a stderr message) on a missing target."""
+    from .obs import merge_registries, registry_from_json
+
+    sources = []
+    for t in paths:
+        tp = Path(t)
+        children = (
+            sorted(tp.glob("host*/metrics.json")) if tp.is_dir() else []
+        )
+        for p in children or [tp]:
+            data = _load_snapshot(Path(p))
+            if data is None:
+                return None
+            p = Path(p)
+            label = (p if p.is_dir() else p.parent).name
+            sources.append((label, registry_from_json(data)))
+    return merge_registries(sources)
+
+
+def _emit_registry(reg, fmt: str) -> None:
+    if fmt == "json":
+        print(json.dumps(reg.to_json(), indent=2))
+    else:
+        print(reg.to_prometheus(), end="")
+
+
+def cmd_stats(args) -> int:
+    """Offline metrics exposition (the JAX package's ``cmd_stats``):
+    re-emit a finished run's snapshot (``metrics.json``, written at run
+    end) as Prometheus text or JSON, and summarize the run journal when
+    asked. ``--diff`` takes two targets and emits after-minus-before
+    deltas (counters and histograms subtract; gauges keep the after
+    reading). ``--merge`` federates N snapshots (counters and histogram
+    buckets sum, gauges gain a ``host`` label) and composes with
+    ``--diff``: two targets, each merged, then diffed."""
+    import os
+
+    from .obs import diff_registries, read_journal, registry_from_json
+    from .obs.journal import JOURNAL_NAME
+
+    if args.merge:
+        if args.diff and len(args.target) != 2:
+            print(
+                "--merge --diff takes exactly two targets (each a "
+                "fleet dir / snapshot list member): "
+                "`cli stats --merge --diff before_fleet/ after_fleet/`",
+                file=sys.stderr,
+            )
+            return 2
+        if args.diff:
+            regs = [_merge_targets([t]) for t in args.target]
+            if any(r is None for r in regs):
+                return 2
+            out = diff_registries(regs[0], regs[1])
+        else:
+            out = _merge_targets(args.target)
+            if out is None:
+                return 2
+        _emit_registry(out, args.format)
+        return 0
+    if args.diff:
+        if len(args.target) != 2:
+            print(
+                "--diff takes exactly two targets: "
+                "`cli stats --diff before/ after/`",
+                file=sys.stderr,
+            )
+            return 2
+        snaps = [_load_snapshot(Path(t)) for t in args.target]
+        if any(s is None for s in snaps):
+            return 2
+        _emit_registry(
+            diff_registries(registry_from_json(snaps[0]), registry_from_json(snaps[1])),
+            args.format,
+        )
+        return 0
+    if len(args.target) != 1:
+        print("stats takes one target (or two with --diff)", file=sys.stderr)
+        return 2
+    target = Path(args.target[0])
+    data = _load_snapshot(target)
+    if data is None:
+        return 2
+    if args.format == "json":
+        print(json.dumps(data, indent=2))
+    else:
+        # Through the registry, so the text form comes from the same
+        # exposition code the live endpoint uses.
+        print(registry_from_json(data).to_prometheus(), end="")
+    if args.journal:
+        jpath = (
+            target / JOURNAL_NAME
+            if target.is_dir()
+            else target.parent / JOURNAL_NAME
+        )
+        events = read_journal(jpath)
+        if events:
+            windows = [e for e in events if e["event"] == "window"]
+            ranked = [w for w in windows if w.get("outcome") == "ranked"]
+            contended = sum(
+                1 for w in windows if (w.get("host") or {}).get("contended")
+            )
+            # This package's journal is one file (no rotated parts).
+            print(
+                f"# journal: {len(windows)} windows ({len(ranked)} "
+                f"ranked), {contended} contended samples, "
+                f"{os.path.getsize(jpath)} bytes",
+                file=sys.stderr,
+            )
     return 0
 
 
@@ -128,9 +334,10 @@ def build_parser() -> argparse.ArgumentParser:
         "the dense budget 'packed_blocked', then 'pcsr')",
     )
     p_run.add_argument(
-        "--kind-precision", default="f32", choices=list(KIND_PRECISIONS),
-        help="kernel='kind' coverage matvec precision: f32, or bf16 "
-        "operands with f32 accumulation",
+        "--kind-precision", default=None, choices=list(KIND_PRECISIONS),
+        help="kernel='kind' coverage matvec precision: f32 (default), bf16 "
+        "operands with f32 accumulation, or scaled-int8 operands with "
+        "exact int32 accumulation",
     )
     p_run.add_argument(
         "--resume", action="store_true", help="resume from the window cursor"
@@ -155,7 +362,77 @@ def build_parser() -> argparse.ArgumentParser:
         "--bulk-fetch-windows", type=_positive_int, default=None,
         help="windows joined at once in --fetch-mode bulk",
     )
+    p_run.add_argument(
+        "--no-tuned-policy", action="store_true",
+        help="do not consult the persisted tuned policy (policy.json, "
+        "written by the JAX package's `cli scenarios` next to its "
+        "compile cache, or in $MICRORANK_POLICY_DIR); pins the built-in "
+        "spectrum/kernel/pad defaults. Explicit flags always beat the "
+        "policy even without this",
+    )
+    p_run.add_argument(
+        "--follow", action="store_true",
+        help="online mode: tail the (growing) --abnormal CSV and rank "
+        "windows as they close; the window cursor in -o makes polls "
+        "and restarts incremental",
+    )
+    p_run.add_argument(
+        "--poll-seconds", type=float, default=5.0,
+        help="--follow: seconds between file polls",
+    )
+    p_run.add_argument(
+        "--follow-grace-seconds", type=float, default=0.0,
+        help="--follow: hold a window open this long past its end for "
+        "straggler spans before ranking it",
+    )
+    p_run.add_argument(
+        "--follow-idle-exit", type=_positive_int, default=None,
+        help="--follow: exit after this many consecutive polls without "
+        "file growth (default: follow forever)",
+    )
+    p_run.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="serve live telemetry over HTTP on this port (127.0.0.1): "
+        "/metrics (Prometheus text), /metrics.json, /healthz; 0 picks "
+        "a free port. The snapshot is also written to -o at run end "
+        "for offline `stats`",
+    )
     p_run.set_defaults(fn=cmd_run)
+
+    p_stats = sub.add_parser(
+        "stats",
+        help="re-emit a finished run's metrics snapshot (Prometheus "
+        "text or JSON) and summarize its journal",
+    )
+    p_stats.add_argument(
+        "target",
+        nargs="+",
+        help="a run output directory (reads metrics.json there) or a "
+        "metrics.json path; with --diff, exactly two of these "
+        "(before after)",
+    )
+    p_stats.add_argument(
+        "--diff", action="store_true",
+        help="emit after-minus-before metric deltas between TWO "
+        "targets (counters/histograms subtract, gauges keep the "
+        "after reading)",
+    )
+    p_stats.add_argument(
+        "--merge", action="store_true",
+        help="federate N per-host snapshots into one view (counters and "
+        "histogram buckets sum, gauges gain a host label); a directory "
+        "with host*/metrics.json children expands to them; composes "
+        "with --diff (two targets, each merged)",
+    )
+    p_stats.add_argument(
+        "--format", choices=["prom", "json"], default="prom",
+        help="exposition format (default: Prometheus text)",
+    )
+    p_stats.add_argument(
+        "--journal", action="store_true",
+        help="also print a one-line journal summary to stderr",
+    )
+    p_stats.set_defaults(fn=cmd_stats)
 
     p_synth = sub.add_parser("synth", help="generate a synthetic chaos case")
     p_synth.add_argument("-o", "--output", required=True)

@@ -5,9 +5,9 @@ Only the knobs the native ``run`` lane reads are carried over: the
 detector, PageRank and spectrum settings, window arithmetic, the
 reference-compat flags, the runtime fields that shape the graph build,
 the rank program and the window loop's pipelining, and the ingest
-admission budgets. Field names and defaults match the JAX
-package so a reader can hold the two side by side. The kernels and
-precisions this package has not ported yet raise ``NotImplementedError``
+admission budgets, and the tuned-policy switch. Field names and defaults
+match the JAX package so a reader can hold the two side by side. The
+kernels this package has not ported yet raise ``NotImplementedError``
 where the JAX package would run them.
 """
 
@@ -22,10 +22,8 @@ from typing import Any, Optional
 # other kernel families (csr, coo, dense) are queued in ROADMAP.md
 # ("Port queue", item 10).
 KERNELS = ("auto", "kind", "packed", "packed_bf16", "packed_blocked", "pcsr", "pallas")
-# kernel="kind" coverage-pair precisions this package implements; the
-# JAX package's "int8" (per-step quantize_i8, int32 accumulation) is
-# queued in ROADMAP.md.
-KIND_PRECISIONS = ("f32", "bf16")
+# kernel="kind" coverage-pair precisions, as in the JAX package.
+KIND_PRECISIONS = ("f32", "bf16", "int8")
 # Result fetch strategies of the window loop (RuntimeConfig.fetch_mode).
 FETCH_MODES = ("stream", "bulk")
 
@@ -68,8 +66,10 @@ class PageRankConfig:
     tol: Optional[float] = None
     # kernel="kind" precision of the coverage matvec pair (the kernel
     # reads the kind pattern as a bitmap either way; the call-graph
-    # row-sum stays f32): "f32" (default) or "bf16" (operands rounded to
-    # bf16, f32 accumulation).
+    # row-sum stays f32): "f32" (default), "bf16" (operands rounded to
+    # bf16, f32 accumulation) or "int8" (each step quantizes every
+    # operand vector to int8 with scale max|x| / 127 and sums in int32,
+    # as the JAX package's quantize_i8).
     kind_precision: str = "f32"
     # kernel="packed_blocked": the most bytes of unpacked f32 coverage
     # matrix the plain version (ops/pattern.py, the CPU path) holds at
@@ -79,12 +79,6 @@ class PageRankConfig:
     packed_block_bytes: int = 128 << 20
 
     def __post_init__(self):
-        if self.kind_precision == "int8":
-            raise NotImplementedError(
-                "kind_precision='int8' is not ported yet (per-step "
-                "quantize_i8 and int32 accumulation): see ROADMAP.md's "
-                "port queue; use 'f32' or 'bf16'"
-            )
         if self.kind_precision not in KIND_PRECISIONS:
             raise ValueError(
                 f"unknown kind_precision {self.kind_precision!r} "
@@ -197,8 +191,16 @@ class RuntimeConfig:
     # stream (PERF.md §6).
     fetch_mode: str = "stream"
     bulk_fetch_windows: int = 32
-    # The per-run journal (out_dir/journal.jsonl, obs.RunJournal).
+    # The per-run journal (out_dir/journal.jsonl, obs.RunJournal) and
+    # the metrics registry's snapshot, which the CLI writes beside the
+    # results (out_dir/metrics.json, read back by ``cli stats``).
     telemetry: bool = True
+    # Tuned-policy consultation (scenarios.policy): "auto" resolves the
+    # spectrum method / kernel / pad_policy from a persisted policy.json
+    # for every one of those fields still at its built-in default
+    # (explicit config always wins); "off" never consults. As in the
+    # JAX package, any value but "off" consults.
+    tuned_policy: str = "auto"     # "auto" | "off"
 
     def __post_init__(self):
         if self.kernel not in KERNELS:

@@ -40,7 +40,10 @@ def packed_bits_bytes(v_pad: int, t_pads) -> int:
 
 
 def kind_bytes(v_pad: int, t_pads) -> int:
-    """Resident bytes of the kind views (int8 [V, K] + its bitmap twin)."""
+    """Resident bytes of the kind views as the JAX package holds them
+    (int8 [V, K] + its bitmap twin): the footprint ``resolve_aux`` holds
+    to the budget, so both packages resolve the same views. This
+    package's kind views keep the bitmap only."""
     return sum(v_pad * t + v_pad * ((t + 7) // 8) for t in t_pads)
 
 
@@ -90,23 +93,17 @@ def aux_for_kernel(kernel: str, sharded: bool = False) -> str:
     return mode
 
 
-def kind_aux(cov_bits: np.ndarray, ss_child: np.ndarray, n_ss: int,
-             v_pad: int, t_pad: int):
-    """The kind views from an already-built coverage bitmap: the int8
-    [V, K] 0/1 pattern (np.unpackbits; a change of representation, not
-    a rounding) and the call-edge row offsets over the child-sorted
-    edge list. Returns (cov_i8 int8[v_pad, t_pad], ss_indptr
-    int32[v_pad + 1])."""
-    cov_i8 = (
-        np.unpackbits(cov_bits, axis=1)[:, :t_pad].astype(np.int8)
-        if cov_bits.shape[1]
-        else np.zeros((v_pad, t_pad), np.int8)
-    )
+def kind_aux(ss_child: np.ndarray, n_ss: int, v_pad: int) -> np.ndarray:
+    """The kind views' call-edge row offsets over the child-sorted edge
+    list, int32[v_pad + 1]. The kind pattern itself is the build's
+    coverage bitmap over the collapsed columns, which the pattern pair
+    reads as it is (the JAX package also unpacks it to an int8 [V, K]
+    matrix, ``cov_i8``; this package never builds that)."""
     ss_indptr = np.zeros(v_pad + 1, dtype=np.int64)
     np.cumsum(
         np.bincount(ss_child[:n_ss], minlength=v_pad), out=ss_indptr[1:]
     )
-    return cov_i8, ss_indptr.astype(np.int32)
+    return ss_indptr.astype(np.int32)
 
 
 # Source-partition width (traces per partition) of the partition-centric

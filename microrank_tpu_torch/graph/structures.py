@@ -63,15 +63,14 @@ class PartitionGraph(NamedTuple):
     # forward tables in (partition, op, trace) order with every
     # (partition, op) run padded to whole PCSR_BLOCK blocks, trace ids
     # partition-local, pc_blk_indptr the block offset of each op's run;
-    # and the backward ELL slab, one row of W entries per trace. The
-    # kind kernel's int8 0/1 coverage pattern [V, K] over the collapsed
-    # columns.
+    # and the backward ELL slab, one row of W entries per trace. (The
+    # kind kernel reads cov_bits over the collapsed columns; the JAX
+    # package's int8 unpacking of it, cov_i8, has no field here.)
     pc_trace: np.ndarray = np.zeros((1, 0), np.int32)       # int32[P, Epb]
     pc_sr_val: np.ndarray = np.zeros((1, 0), np.float32)    # float32[P, Epb]
     pc_blk_indptr: np.ndarray = np.zeros((1, 0), np.int32)  # int32[P, V+1]
     pc_ell_op: np.ndarray = np.zeros((1, 0), np.int32)      # int32[T, W]
     pc_ell_rs: np.ndarray = np.zeros((1, 0), np.float32)    # float32[T, W]
-    cov_i8: np.ndarray = np.zeros((1, 0), np.int8)
 
 
 class WindowGraph(NamedTuple):

@@ -172,7 +172,6 @@ def _graph_from_padded(p) -> PartitionGraph:
         pc_blk_indptr=p.pc_blk_indptr,
         pc_ell_op=p.pc_ell_op,
         pc_ell_rs=p.pc_ell_rs,
-        cov_i8=p.cov_i8,
     )
 
 

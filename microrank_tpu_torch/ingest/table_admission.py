@@ -11,9 +11,11 @@ package's order and returns the filtered ``SpanTable`` with the
 per-reason counts; ``parent_row`` is remapped so that a surviving span
 whose parent was rejected becomes a root (the stitch policy).
 
-Not ported: the dead-letter (quarantine) store and the admission
-metrics. The counts are logged instead; ROADMAP.md's port queue, item 5
-(journal and metrics), brings the rest.
+Admitted and rejected rows are counted in the metrics registry where
+the JAX package counts them (``microrank_ingest_admitted_total``,
+``microrank_ingest_rejected_total{reason}``). Not ported: the
+dead-letter (quarantine) store; rejected rows are counted and logged,
+not kept (ROADMAP.md's port queue, item 11).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import logging
 from typing import Dict, Tuple
 
 import numpy as np
+
+from ..obs.metrics import record_ingest_admitted, record_ingest_rejected
 
 log = logging.getLogger("microrank_tpu_torch.ingest")
 
@@ -74,7 +78,10 @@ def admit_table(table, ingest_config, source: str = "table") -> Tuple[object, Di
 
     counts = {reason: int(m.sum()) for reason, m in masks.items() if m.any()}
     if not counts:
+        record_ingest_admitted(n)
         return table, {}
+    for reason, n_rejected in counts.items():
+        record_ingest_rejected(reason, n_rejected)
 
     keep = ~rejected
     # parent_row holds absolute row indices: remap them onto the kept
@@ -96,6 +103,7 @@ def admit_table(table, ingest_config, source: str = "table") -> Tuple[object, Di
         end_us=table.end_us[keep],
         parent_row=new_parent[keep],
     )
+    record_ingest_admitted(int(keep.sum()))
     log.warning(
         "%s: admitted %d/%d spans (%s)",
         source, clean.n_spans, n,

@@ -412,9 +412,6 @@ class PaddedPartition(NamedTuple):
     pc_blk_indptr: np.ndarray = np.zeros((1, 0), np.int32)
     pc_ell_op: np.ndarray = np.zeros((1, 0), np.int32)
     pc_ell_rs: np.ndarray = np.zeros((1, 0), np.float32)
-    # The kind views' int8 0/1 coverage pattern over the (collapsed)
-    # columns (graph.build.kind_aux).
-    cov_i8: np.ndarray = np.zeros((1, 0), np.int8)
 
 
 def build_window_padded(
@@ -608,10 +605,7 @@ def build_window_padded(
             if mode == "kind":
                 from ..graph.build import kind_aux
 
-                cov_i8, ss_indptr = kind_aux(
-                    p.cov_bits, p.ss_child, n_ss, v_pad, t_pad
-                )
-                p = p._replace(cov_i8=cov_i8, ss_indptr=ss_indptr)
+                p = p._replace(ss_indptr=kind_aux(p.ss_child, n_ss, v_pad))
             out.append(p)
         return out[0], out[1]
     finally:

@@ -13,15 +13,17 @@ its own flag. Two signals:
   someone else while this VM wanted the CPU.
 
 Without /proc it reports loadavg only; without ``os.getloadavg`` zeros:
-telemetry never takes down the pipeline. The JAX module also mirrors
-each sample into the metrics registry's gauges, which this package does
-not have.
+telemetry never takes down the pipeline. Each sample is mirrored into
+the registry's gauges (``microrank_host_norm_load``,
+``microrank_host_steal_ratio``), so a ``/metrics`` scrape sees it too.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional, Tuple
+
+from .metrics import host_load_gauge, host_steal_gauge
 
 DEFAULT_LOAD_THRESHOLD = 1.2   # normalized 1-min load
 DEFAULT_STEAL_THRESHOLD = 0.05  # 5% of CPU time stolen
@@ -80,6 +82,8 @@ class ContentionSentinel:
             norm > self.load_threshold
             or steal_ratio > self.steal_threshold
         )
+        host_load_gauge().set(norm)
+        host_steal_gauge().set(steal_ratio)
         return {
             "load1": round(load1, 3),
             "load5": round(load5, 3),

@@ -11,9 +11,9 @@ JAX package's names and keys:
 * ``window``: one per emitted WindowResult: bounds, outcome, partition
   sizes, timings, rank_iterations / rank_residual, kernel, queue_depth,
   top-1 and a host sample;
-* ``run_end``: window totals. The JAX package adds a ``telemetry``
-  snapshot of its metrics registry here; the registry is not ported
-  (ROADMAP.md 'Port queue' item 5), so the key is absent.
+* ``run_end``: window totals, a host sample and ``telemetry``, the
+  headline fields of the metrics registry
+  (``metrics.snapshot_to_result_fields``).
 
 The writer appends under a lock (the async fetch worker and the main
 thread may both reach it); every event carries ``ts`` (epoch seconds)
@@ -92,7 +92,14 @@ class RunJournal:
         )
 
     def run_end(self, **fields) -> None:
-        self.emit("run_end", host=self.sentinel.sample(), **fields)
+        from .metrics import snapshot_to_result_fields
+
+        self.emit(
+            "run_end",
+            host=self.sentinel.sample(),
+            telemetry=snapshot_to_result_fields(),
+            **fields,
+        )
         # run_end is the record a post-mortem reads first: force it, and
         # everything before it, to disk.
         self.sync()

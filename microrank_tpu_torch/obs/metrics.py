@@ -1,0 +1,333 @@
+"""The metric set of the port's lanes and the recording helpers their
+hot paths call (counterpart of ``microrank_tpu/obs/metrics.py``).
+
+Each metric is declared once (name, help, labels, buckets), with the
+JAX package's name, help text, label names and buckets, so a snapshot
+of either package reads the same. This module holds the subset the
+ported lanes record: the table lane's window loop, its staging, the
+convergence trace, ingest admission, the tuned policy, follow mode and
+the host sentinel. The JAX package's other metrics (serve, stream,
+fleet, scheduler, warehouse, the jit and compile-cache counters, the
+span tracer, the sanitizers, chaos and the explain store) come with
+their lanes (ROADMAP.md, port queue items 5 and 11).
+
+Naming: ``microrank_<noun>_<unit>`` with ``_total`` on counters, the
+Prometheus convention.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from .registry import Counter, Gauge, Histogram, get_registry
+
+# Iteration-count buckets: the reference runs exactly 25; tol runs vary.
+ITER_BUCKETS = (1, 2, 4, 8, 12, 16, 20, 25, 32, 50, 100, 200)
+# Residuals decay geometrically from O(1); log-spaced down to f32 noise.
+RESIDUAL_BUCKETS = tuple(10.0 ** -e for e in range(12, -1, -1))
+
+
+def stage_seconds() -> Histogram:
+    return get_registry().histogram(
+        "microrank_stage_seconds",
+        "Wall-clock of each pipeline stage (StageTimings feed)",
+        labelnames=("stage",),
+    )
+
+
+def windows_total() -> Counter:
+    return get_registry().counter(
+        "microrank_windows_total",
+        "Detection windows processed, by outcome",
+        labelnames=("outcome",),  # ranked | clean | skipped
+    )
+
+
+def rank_iterations() -> Histogram:
+    return get_registry().histogram(
+        "microrank_rank_iterations",
+        "Power-iteration steps per ranked window (device-side trace)",
+        labelnames=("kernel",),
+        buckets=ITER_BUCKETS,
+    )
+
+
+def rank_final_residual() -> Histogram:
+    return get_registry().histogram(
+        "microrank_rank_final_residual",
+        "Final L-inf power-iteration residual per ranked window "
+        "(max over both partitions)",
+        labelnames=("kernel",),
+        buckets=RESIDUAL_BUCKETS,
+    )
+
+
+def staged_bytes() -> Counter:
+    return get_registry().counter(
+        "microrank_staged_bytes_total",
+        "Host->device bytes staged for rank programs",
+        labelnames=("path",),  # blob | tree | sharded
+    )
+
+
+def staged_pad_bytes() -> Counter:
+    return get_registry().counter(
+        "microrank_staged_pad_bytes_total",
+        "Padding-waste bytes inside staged graphs, audited per staged "
+        "leaf against its exact live extents (pad_policy overhead: "
+        "padded minus true bytes)",
+        labelnames=("path",),
+    )
+
+
+def staging_transfers() -> Counter:
+    return get_registry().counter(
+        "microrank_staging_transfers_total",
+        "Host->device staging transfers issued",
+        labelnames=("path",),
+    )
+
+
+def pipeline_inflight() -> Gauge:
+    return get_registry().gauge(
+        "microrank_pipeline_inflight",
+        "Rank dispatches currently in flight (windows, or groups on the "
+        "chunked lane)",
+        labelnames=("lane",),  # window | chunk
+    )
+
+
+def follow_polls() -> Counter:
+    return get_registry().counter(
+        "microrank_follow_polls_total", "Follow-mode file polls"
+    )
+
+
+def follow_parse_failures() -> Counter:
+    return get_registry().counter(
+        "microrank_follow_parse_failures_total",
+        "Follow-mode ingest parse failures (torn tail lines retried)",
+    )
+
+
+def follow_rotations() -> Counter:
+    return get_registry().counter(
+        "microrank_follow_rotations_total",
+        "Follow-mode file rotations/truncations detected "
+        "(size < last seen size)",
+    )
+
+
+def kind_dedup_gauge() -> Gauge:
+    return get_registry().gauge(
+        "microrank_kind_dedup_ratio",
+        "Trace-kind dedup factor of the most recent built window (true "
+        "traces / distinct kind columns, both partitions; 1.0 on an "
+        "uncollapsed build) — the measured signal behind the "
+        "kernel='kind' auto-select threshold "
+        "(RuntimeConfig.kind_dedup_threshold)",
+    )
+
+
+def policy_events() -> Counter:
+    return get_registry().counter(
+        "microrank_policy_events_total",
+        "Tuned-policy resolutions (scenarios.policy): applied when a "
+        "persisted policy.json supplied at least one field, override "
+        "when explicit config won every tuned field, default when no "
+        "policy file exists, rejected when a stale/mismatched policy "
+        "was refused WHOLE (cold start on built-in defaults), disabled "
+        "under tuned_policy=off; one sample per lane startup",
+        labelnames=("lane", "outcome"),
+    )
+
+
+def ingest_rejected() -> Counter:
+    return get_registry().counter(
+        "microrank_ingest_rejected_total",
+        "Span rows refused by admission (ingest/), by reason — every "
+        "counted row also lands exactly once in the dead-letter store "
+        "(quarantine.jsonl) with the same reason",
+        labelnames=("reason",),  # ingest.quarantine.REASONS
+    )
+
+
+def ingest_admitted() -> Counter:
+    return get_registry().counter(
+        "microrank_ingest_admitted_total",
+        "Span rows admitted past the ingest validation ladder "
+        "(the clean subset detect/build actually sees)",
+    )
+
+
+def host_load_gauge() -> Gauge:
+    return get_registry().gauge(
+        "microrank_host_norm_load",
+        "1-minute load average / CPU count at the last sample",
+    )
+
+
+def host_steal_gauge() -> Gauge:
+    return get_registry().gauge(
+        "microrank_host_steal_ratio",
+        "CPU steal fraction over the last sample interval",
+    )
+
+
+def ensure_catalog() -> None:
+    """Register this package's whole metric set in the current registry
+    (no samples added), so a scrape or ``cli stats`` shows every metric
+    the ported lanes can record, a counter at zero included."""
+    for ctor in (
+        stage_seconds, windows_total, rank_iterations,
+        rank_final_residual, staged_bytes, staged_pad_bytes,
+        staging_transfers, pipeline_inflight,
+        follow_polls, follow_parse_failures, follow_rotations,
+        kind_dedup_gauge, policy_events,
+        ingest_rejected, ingest_admitted,
+        host_load_gauge, host_steal_gauge,
+    ):
+        ctor()
+
+
+# ---------------------------------------------------------------------------
+# Recording helpers
+
+
+def record_window_outcome(outcome: str) -> None:
+    windows_total().inc(outcome=outcome)
+
+
+def record_convergence(
+    kernel: str, n_iters: int, final_residual: float
+) -> None:
+    """Per-window convergence telemetry (host side, after the fetch)."""
+    rank_iterations().observe(float(n_iters), kernel=kernel)
+    if np.isfinite(final_residual):
+        rank_final_residual().observe(float(final_residual), kernel=kernel)
+
+
+def record_kind_dedup(ratio: float) -> None:
+    """Per-window dedup-factor telemetry (host side, at graph build)."""
+    kind_dedup_gauge().set(float(ratio))
+
+
+def record_policy_event(outcome: str, lane: str) -> None:
+    policy_events().inc(lane=lane, outcome=outcome)
+
+
+def record_ingest_rejected(reason: str, n: int = 1) -> None:
+    ingest_rejected().inc(float(n), reason=reason)
+
+
+def record_ingest_admitted(n: int) -> None:
+    if n > 0:
+        ingest_admitted().inc(float(n))
+
+
+def record_staging(
+    path: str, n_bytes: int, n_transfers: int, pad_bytes: int = 0
+) -> None:
+    staged_bytes().inc(float(n_bytes), path=path)
+    staging_transfers().inc(float(n_transfers), path=path)
+    if pad_bytes > 0:
+        staged_pad_bytes().inc(float(pad_bytes), path=path)
+
+
+def graph_staging_audit(graph) -> Tuple[int, int]:
+    """(total_bytes, pad_bytes) of a host WindowGraph, audited leaf by
+    leaf against exact live extents: what the staging ships against
+    what the window needed. Each vector leaf's true size is its clipped
+    live extent, indptr leaves count their ``live + 1`` offsets, and the
+    2-D bitmaps account both axes (padded op rows beyond ``n_ops`` and
+    padded byte columns beyond ``ceil(live / 8)``). Leaves ``host_subset``
+    stripped for the kernel have zero bytes and add nothing. (The JAX
+    package's audit, on this package's fields.)"""
+    scalars = {"n_ops", "n_traces", "n_inc", "n_ss", "n_cols"}
+    total = 0
+    pad = 0
+    for part in (graph.normal, graph.abnormal):
+        t_live = np.where(
+            np.asarray(part.n_cols) >= 0, part.n_cols, part.n_traces
+        )
+        n_inc = np.atleast_1d(np.asarray(part.n_inc)).astype(np.int64)
+        n_ss = np.atleast_1d(np.asarray(part.n_ss)).astype(np.int64)
+        n_ops = np.atleast_1d(np.asarray(part.n_ops)).astype(np.int64)
+        t_live = np.atleast_1d(np.asarray(t_live)).astype(np.int64)
+        vec_live = {
+            "inc_op": n_inc, "inc_trace": n_inc, "sr_val": n_inc,
+            "rs_val": n_inc, "inc_trace_opmajor": n_inc,
+            "sr_val_opmajor": n_inc,
+            "ss_child": n_ss, "ss_parent": n_ss, "ss_val": n_ss,
+            "inv_tracelen": t_live, "kind": t_live, "tracelen": t_live,
+            "inv_cov_dup": n_ops, "inv_outdeg": n_ops,
+            "cov_unique": n_ops, "op_present": n_ops,
+            "inc_indptr_op": n_ops + 1,
+            "inc_indptr_trace": t_live + 1,
+            "ss_indptr": n_ops + 1,
+        }
+        bit_live = {
+            "cov_bits": (n_ops, -(-t_live // 8)),
+            "ss_bits": (n_ops, -(-n_ops // 8)),
+        }
+        pc_fields = {"pc_trace", "pc_sr_val", "pc_ell_op", "pc_ell_rs"}
+        for f in part._fields:
+            arr = np.asarray(getattr(part, f))
+            total += arr.nbytes
+            if f in scalars or arr.nbytes == 0:
+                continue
+            if f == "pc_blk_indptr":
+                continue  # small dense offset table: all live
+            if f in pc_fields:
+                # Binned tables / ELL slabs: every live incidence entry
+                # appears exactly once per view, so the live cell count
+                # per window is n_inc; the rest is bin-skew padding.
+                per_win = arr.shape[-2] * arr.shape[-1]
+                b = arr.size // per_win
+                if len(n_inc) in (1, b):
+                    live_tot = int(
+                        np.clip(
+                            np.broadcast_to(n_inc, (b,)), 0, per_win
+                        ).sum()
+                    )
+                    pad += arr.nbytes - live_tot * arr.itemsize
+                continue
+            if f in bit_live:
+                rows_live, cols_live = bit_live[f]
+                rows_pad, cols_pad = arr.shape[-2], arr.shape[-1]
+                b = arr.size // (rows_pad * cols_pad)
+                if len(rows_live) not in (1, b):
+                    continue  # unrecognized stacking: skip, stay honest
+                rl = np.broadcast_to(
+                    np.clip(rows_live, 0, rows_pad), (b,)
+                )
+                cl = np.broadcast_to(
+                    np.clip(cols_live, 0, cols_pad), (b,)
+                )
+                pad += arr.nbytes - int((rl * cl).sum()) * arr.itemsize
+            else:
+                live = vec_live.get(f)
+                if live is None or arr.ndim == 0:
+                    continue
+                last = arr.shape[-1]
+                rows = arr.size // last
+                if len(live) not in (1, rows):
+                    continue
+                lv = np.broadcast_to(np.clip(live, 0, last), (rows,))
+                pad += (rows * last - int(lv.sum())) * arr.itemsize
+    return total, pad
+
+
+def snapshot_to_result_fields(registry=None) -> Dict[str, float]:
+    """Small flat dict of headline telemetry (the journal's ``run_end``
+    ``telemetry``), with the JAX package's keys for the metrics this
+    package records: ``staged_bytes``. (The JAX package also reports its
+    jit cache, dispatch routes and overlap, whose lanes are not ported.)"""
+    reg = registry or get_registry()
+    out: Dict[str, float] = {}
+    staged = reg.get("microrank_staged_bytes_total")
+    if staged is not None:
+        out["staged_bytes"] = sum(s["value"] for s in staged.samples())
+    return out

@@ -4,28 +4,36 @@ with its plain PyTorch version beside it.
 
 It replaces three device programs that XLA wrote for the TPU in
 ``microrank_tpu/rank_backends/jax_tpu.py`` ``_partition_setup``: the
-kind branch's ``cov_pair`` (K2: an int8 0/1 pattern [V, K]), the packed
-branch's coverage pair (K4: a big-endian bitmap [V, ceil(T/8)],
-``np.packbits`` order), and the packed_blocked branch's (K8: K4's
-function in f32, which XLA computed over column blocks of the bitmap so
-that the unpacked matrix never exceeds ``packed_block_bytes``). Per partition, with op the identity or
-round-to-nearest-even to bf16 of the f32 product:
+kind branch's ``cov_pair`` (K2: a 0/1 pattern [V, K] over the collapsed
+kind columns, f32, bf16 or int8 operands), the packed branch's coverage
+pair (K4: a big-endian bitmap [V, ceil(T/8)], ``np.packbits`` order),
+and the packed_blocked branch's (K8: K4's function in f32, which XLA
+computed over column blocks of the bitmap so that the unpacked matrix
+never exceeds ``packed_block_bytes``). Per partition, with op by
+precision (``PRECISIONS``): the identity ("f32"), round-to-nearest-even
+to bf16 of the f32 product ("bf16"), or JAX's ``quantize_i8`` ("int8":
+q = clip(round(x / scale), -127, 127), int32 sums, one f32 multiply by
+the scale per output):
 
     y_fwd[r] = sum_c M[r, c] * op(rv[c] * w_len[c])
     y_bwd[c] = sum_r op(sv[r] * w_cov[r]) * M[r, c]
     x_ss[r]  = op(sv[r] * w_out[r])      (packed only: K1's call-graph operand)
 
-Two steps:
+Steps:
 
-* ``pattern_group`` — once per window: each partition's pattern in the
-  kernel's one layout (a big-endian bitmap whose rows are padded with
-  zero bytes to a multiple of ``ROW_ALIGN`` bytes; an int8 pattern is
-  packed to it on its own device, nonzero -> 1), its loop-invariant
-  weight vectors, the kernel's scratch (tile partials and arrival
-  counters) and, on the CPU, the plain version's 0/1 f32 matrices —
-  or, with ``band_bytes`` (packed_blocked), none: the plain version then
-  unpacks one band of whole column tiles at a time, at most
+* ``pattern_group`` — once per window: each partition's bitmap (the
+  kind build's ``cov_bits`` or the packed build's) copied into the
+  kernel's one layout (rows padded with zero bytes to a multiple of
+  ``ROW_ALIGN`` bytes), its loop-invariant weight vectors, the kernel's
+  scratch (tile partials and arrival counters, and the int8 scales'
+  running maxima) and, on the CPU, the plain version's 0/1 f32 matrices
+  — or, with ``band_bytes`` (packed_blocked), none: the plain version
+  then unpacks one band of whole column tiles at a time, at most
   ``band_bytes`` of f32 (one tile where a tile alone is larger).
+* ``quantize_scales`` — every int8 step: the four operands' scales
+  (``scale = amax > 0 ? amax / 127 : 1``, amax = max |x * w|), one
+  launch of ``quantize_amax`` on CUDA tensors (counted in
+  ``quantize_scales.launches``), ``quantize_scales_plain`` on CPU ones.
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
   ``pattern_pair_group.launches``, the matvecs in ``.products``) or
@@ -33,16 +41,17 @@ Two steps:
   the kernel's arithmetic in the kernel's order, so both give the same
   bits.
 
-The order of each sum follows the kernel's tiles of ``TILE_R`` rows x
-``TILE_C`` columns. y_fwd[r]: in each column tile, lane l (of 32) sums
+The order of each f32 sum follows the kernel's tiles of ``TILE_R`` rows
+x ``TILE_C`` columns. y_fwd[r]: in each column tile, lane l (of 32) sums
 the tile's columns 16l .. 16l + 15 in ascending order, the shuffle tree
 16, 8, 4, 2, 1 sums the lanes, and the column tiles' sums fold left to
 right. y_bwd[c]: in each row tile, rows in ascending order, then the row
 tiles' sums fold top to bottom. Both depend on the index alone, so
 equal rows and equal columns give bitwise-equal sums, and a band of
 whole column tiles computes its columns' y_bwd and its tiles' part of
-the y_fwd fold exactly as the whole matrix does. What bounds the kernel
-on the card is in the note at the top of the CUDA source.
+the y_fwd fold exactly as the whole matrix does. int8 sums are exact in
+any order. What bounds the kernel on the card is in the note at the top
+of the CUDA source.
 
 Memory on the card: the kernel never unpacks. ``pattern_group`` copies
 each bitmap into the kernel's row layout (``_bitmap_rows``), so the
@@ -72,10 +81,9 @@ TILE_R = 128
 TILE_C = 512
 LANE_COLS = TILE_C // WARP  # fwd columns one lane sums in a tile
 ROW_ALIGN = 16  # bitmap rows are padded to this many bytes (one load)
-BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits: column 8k + j is bit 7 - j
-# mr_pattern_pair's layout argument, kept from its older signature: 1 (the
-# bitmap) is the one value it accepts.
-LAYOUT_BITS = 1
+# Operand precisions, in the order of the kernel's ``precision`` code.
+PRECISIONS = ("f32", "bf16", "int8")
+MAX_VECS = 4  # int8 operands a step quantizes: 2 partitions x 2 directions
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pattern_pair.cu"
 LIB_PATH = BUILD_DIR / "libmr_pattern_pair.so"
 _lib: Optional[ctypes.CDLL] = None
@@ -100,6 +108,9 @@ class PatternGroup(NamedTuple):
     """The partitions one launch computes."""
 
     parts: Tuple[PatternPart, ...]
+    # quantize_amax's scratch: the running maxima, then the arrival
+    # count (int32[MAX_VECS + 1], 0 between launches).
+    amax_scratch: torch.Tensor
 
 
 def unpack_bits(bits: torch.Tensor, n_cols: int, dtype=torch.float32) -> torch.Tensor:
@@ -110,19 +121,6 @@ def unpack_bits(bits: torch.Tensor, n_cols: int, dtype=torch.float32) -> torch.T
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
     b = (bits[:, :, None] >> shifts) & 1
     return b.reshape(bits.shape[0], bits.shape[1] * 8)[:, :n_cols].to(dtype)
-
-
-def pack_bits(cells: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """[V, >= n_cols] cells (nonzero -> 1) -> the kernel's layout: a
-    uint8 big-endian bitmap (``np.packbits(..., axis=1)`` order) whose rows
-    are padded with zero bytes to a multiple of ROW_ALIGN, on the cells'
-    device."""
-    v = cells.shape[0]
-    width = _row_bytes(n_cols)
-    m = torch.zeros((v, width * 8), dtype=torch.uint8, device=cells.device)
-    m[:, :n_cols] = cells[:, :n_cols] != 0
-    weights = torch.tensor(BIT_WEIGHTS, dtype=torch.uint8, device=cells.device)
-    return (m.view(v, width, 8) * weights).sum(-1, dtype=torch.uint8)
 
 
 def _row_bytes(n_cols: int) -> int:
@@ -152,27 +150,25 @@ def pattern_group(
     w_covs: Sequence[torch.Tensor],
     w_outs: Sequence[Optional[torch.Tensor]],
     n_cols: Sequence[int],
-    bits: bool,
     band_bytes: Optional[int] = None,
 ) -> PatternGroup:
     """The per-window half of the pair for 1 or 2 partitions on one
-    device: checks shapes and types once, brings every pattern to the
-    kernel's bitmap layout (``bits``: the patterns are bitmaps already,
-    else int8 0/1 bytes), allocates the scratch, and on the CPU builds the
-    plain version's 0/1 matrices — unless ``band_bytes`` is given and a
-    partition's unpacked f32 matrix would exceed it: its plain version
-    then works in bands of whole column tiles within ``band_bytes``."""
+    device: checks shapes and types once, copies every bitmap (uint8,
+    ``np.packbits`` order along rows) into the kernel's row layout,
+    allocates the scratch, and on the CPU builds the plain version's 0/1
+    matrices — unless ``band_bytes`` is given and a partition's unpacked
+    f32 matrix would exceed it: its plain version then works in bands of
+    whole column tiles within ``band_bytes``."""
     if not 1 <= len(patterns) <= 2:
         raise ValueError("pattern_group: 1 or 2 partitions")
-    want = torch.uint8 if bits else torch.int8
     dev = patterns[0].device
     parts = []
     for pat, w_len, w_cov, w_out, k in zip(patterns, w_lens, w_covs, w_outs, n_cols):
         k = int(k)
         v = pat.shape[0]
-        if pat.dtype != want or pat.dim() != 2:
-            raise TypeError(f"pattern_group: patterns must be 2-d {want}")
-        if pat.shape[1] < (-(-k // 8) if bits else k):
+        if pat.dtype != torch.uint8 or pat.dim() != 2:
+            raise TypeError("pattern_group: patterns must be 2-d uint8 bitmaps")
+        if pat.shape[1] < -(-k // 8):
             raise ValueError(f"pattern_group: a pattern row holds fewer than {k} columns")
         if w_len.shape != (k,) or w_cov.shape != (v,) or (
             w_out is not None and w_out.shape != (v,)
@@ -183,7 +179,7 @@ def pattern_group(
             raise TypeError("pattern_group: weight vectors must be float32")
         if any(t.device != dev for t in [pat, *vecs]):
             raise ValueError("pattern_group: every tensor must lie on one device")
-        pat = _bitmap_rows(pat, k) if bits else pack_bits(pat, k)
+        pat = _bitmap_rows(pat, k)
         n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
         band = 0
         if band_bytes is not None and 4 * v * k > band_bytes:
@@ -199,12 +195,86 @@ def pattern_group(
             n_cols=k,
             band_cols=band,
         ))
-    return PatternGroup(parts=tuple(parts))
+    return PatternGroup(
+        parts=tuple(parts),
+        amax_scratch=torch.zeros(MAX_VECS + 1, dtype=torch.int32, device=dev),
+    )
 
 
-def _op(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+def quantize_scale(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``quantize_i8`` scale of one vector: max|x| / 127, or 1 when
+    that max is not above 0 (all zeros, or NaN), float32 0-d. The
+    divisor is a tensor of x's device, so every device divides."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    amax = x.abs().max() if x.numel() else zero
+    return torch.where(amax > 0, amax / torch.full_like(zero, 127.0), zero + 1.0)
+
+
+def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / scale), -127, 127) as int32 (round half to even,
+    as jnp.round and the kernel's rintf)."""
+    return torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int32)
+
+
+def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The port of ``jax_tpu.quantize_i8``: (q int8, scale float32 0-d)."""
+    scale = quantize_scale(x)
+    return quantize_with(x, scale).to(torch.int8), scale
+
+
+def quantize_scales_plain(
+    group: PatternGroup, rvs: Sequence[torch.Tensor], svs: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """The scales of a step's int8 operands, float32 [2 * n_parts]: per
+    partition the fwd operand rv * w_len's, then the bwd operand
+    sv * w_cov's."""
+    _check_vectors(group, rvs, svs)
+    return torch.stack([
+        quantize_scale(x)
+        for p, rv, sv in zip(group.parts, rvs, svs)
+        for x in (rv * p.w_len, sv * p.w_cov)
+    ])
+
+
+def quantize_scales(
+    group: PatternGroup, rvs: Sequence[torch.Tensor], svs: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """``quantize_scales_plain``'s result: CPU tensors run it; CUDA
+    tensors launch ``quantize_amax`` once (both partitions, both
+    directions) or raise."""
+    dev = rvs[0].device
+    if dev.type == "cpu":
+        return quantize_scales_plain(group, rvs, svs)
+    _check_cuda(group, rvs, svs, dev)
+    ptrs, ns = [], []
+    for p, rv, sv in zip(group.parts, rvs, svs):
+        ptrs += [rv.data_ptr(), p.w_len.data_ptr(), sv.data_ptr(), p.w_cov.data_ptr()]
+        ns += [p.n_cols, p.pattern.shape[0]]
+    scales = torch.empty(len(ns), dtype=torch.float32, device=dev)
+    lib = load_library()
+    rc = lib.mr_quantize_amax(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int64 * len(ns))(*ns),
+        len(ns), scales.data_ptr(), group.amax_scratch.data_ptr(),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"quantize_amax launch failed: {lib.mr_pattern_error_string(rc).decode()}"
+        )
+    quantize_scales.launches += 1
+    return scales
+
+
+# Launches of quantize_amax (a plain int; quantize_scales is the one
+# place that launches it).
+quantize_scales.launches = 0
+
+
+def _op(x: torch.Tensor, precision: str) -> torch.Tensor:
     # torch's float32 -> bfloat16 conversion rounds to nearest even.
-    return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
+    return x.to(torch.bfloat16).to(torch.float32) if precision == "bf16" else x
 
 
 def fwd_plain(
@@ -258,20 +328,31 @@ def pattern_pair_plain(
     group: PatternGroup,
     rvs: Sequence[torch.Tensor],
     svs: Sequence[torch.Tensor],
-    bf16: bool = False,
+    precision: str = "f32",
+    scales: Optional[torch.Tensor] = None,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], ...]:
     """The kernel's arithmetic in plain PyTorch: per partition (y_fwd,
-    y_bwd, x_ss or None)."""
+    y_bwd, x_ss or None). int8 takes the step's ``scales``
+    (``quantize_scales``)."""
     _check_vectors(group, rvs, svs)
+    _check_precision(group, precision, scales)
     out = []
-    for p, rv, sv in zip(group.parts, rvs, svs):
-        a, b = _op(rv * p.w_len, bf16), _op(sv * p.w_cov, bf16)
+    for i, (p, rv, sv) in enumerate(zip(group.parts, rvs, svs)):
+        if precision == "int8":
+            m = (p.dense if p.dense is not None else unpack_bits(p.pattern, p.n_cols)).to(torch.int32)
+            sc, sr = scales[2 * i], scales[2 * i + 1]
+            qa, qb = quantize_with(rv * p.w_len, sc), quantize_with(sv * p.w_cov, sr)
+            y_fwd = sc * (m * qa).sum(1, dtype=torch.int32).to(torch.float32)
+            y_bwd = sr * (qb[:, None] * m).sum(0, dtype=torch.int32).to(torch.float32)
+            out.append((y_fwd, y_bwd, None))
+            continue
+        a, b = _op(rv * p.w_len, precision), _op(sv * p.w_cov, precision)
         if p.band_cols:
             y_fwd, y_bwd = _pair_in_bands(p, a, b)
         else:
             m = p.dense if p.dense is not None else unpack_bits(p.pattern, p.n_cols)
             y_fwd, y_bwd = fwd_plain(m, a), bwd_plain(m, b)
-        x_ss = None if p.w_out is None else _op(sv * p.w_out, bf16)
+        x_ss = None if p.w_out is None else _op(sv * p.w_out, precision)
         out.append((y_fwd, y_bwd, x_ss))
     return tuple(out)
 
@@ -301,20 +382,19 @@ def _check_vectors(group: PatternGroup, rvs, svs) -> None:
             )
 
 
-def pattern_pair_group(
-    group: PatternGroup,
-    rvs: Sequence[torch.Tensor],
-    svs: Sequence[torch.Tensor],
-    bf16: bool = False,
-) -> Tuple[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], ...]:
-    """Per partition (y_fwd, y_bwd, x_ss or None), as views of one flat
-    output. CPU tensors run the plain version; CUDA tensors launch the
-    kernel once or raise — there is no fallback for a CUDA tensor. A
-    group is used by one stream at a time (its scratch is shared)."""
-    # Checks kept cheap: this runs once per power-iteration step.
-    dev = rvs[0].device
-    if dev.type == "cpu":
-        return pattern_pair_plain(group, rvs, svs, bf16)
+def _check_precision(group: PatternGroup, precision: str, scales) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"pattern_pair: unknown precision {precision!r} (expected {PRECISIONS})")
+    if precision != "int8":
+        return
+    # JAX quantizes only the kind pattern's operands: no x_ss, no bands.
+    if any(p.w_out is not None or p.band_cols for p in group.parts):
+        raise ValueError("pattern_pair: int8 runs the kind pattern only (no w_out, no bands)")
+    if scales is None or scales.shape != (2 * len(group.parts),) or scales.dtype != torch.float32:
+        raise ValueError("pattern_pair: int8 needs the step's float32 scales (quantize_scales)")
+
+
+def _check_cuda(group: PatternGroup, rvs, svs, dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"pattern_pair: unsupported device {dev}")
     _check_vectors(group, rvs, svs)
@@ -325,6 +405,28 @@ def pattern_pair_group(
             )
     if any(p.pattern.device != dev for p in group.parts):
         raise ValueError(f"pattern_pair: the group's tensors must lie on {dev}")
+
+
+def pattern_pair_group(
+    group: PatternGroup,
+    rvs: Sequence[torch.Tensor],
+    svs: Sequence[torch.Tensor],
+    precision: str = "f32",
+    scales: Optional[torch.Tensor] = None,
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], ...]:
+    """Per partition (y_fwd, y_bwd, x_ss or None), as views of one flat
+    output. CPU tensors run the plain version; CUDA tensors launch the
+    kernel once or raise — there is no fallback for a CUDA tensor. int8
+    takes the step's ``scales`` from ``quantize_scales``. A group is
+    used by one stream at a time (its scratch is shared)."""
+    # Checks kept cheap: this runs once per power-iteration step.
+    dev = rvs[0].device
+    if dev.type == "cpu":
+        return pattern_pair_plain(group, rvs, svs, precision, scales)
+    _check_cuda(group, rvs, svs, dev)
+    _check_precision(group, precision, scales)
+    if scales is not None and (scales.device != dev or not scales.is_contiguous()):
+        raise ValueError(f"pattern_pair: the scales must be contiguous on {dev}")
     sizes = []
     for p in group.parts:
         v = p.pattern.shape[0]
@@ -338,6 +440,7 @@ def pattern_pair_group(
             p.pattern.data_ptr(), rv.data_ptr(), p.w_len.data_ptr(),
             sv.data_ptr(), p.w_cov.data_ptr(),
             None if p.w_out is None else p.w_out.data_ptr(),
+            None if scales is None else scales[2 * i:].data_ptr(),
             y_fwd.data_ptr(), y_bwd.data_ptr(),
             None if p.w_out is None else x_ss.data_ptr(),
             p.part.data_ptr(), p.counters.data_ptr(),
@@ -347,7 +450,7 @@ def pattern_pair_group(
     rc = lib.mr_pattern_pair(
         (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int64 * len(ints))(*ints),
-        len(group.parts), LAYOUT_BITS, int(bool(bf16)),
+        len(group.parts), PRECISIONS.index(precision),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -406,7 +509,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mr_pattern_pair.restype = ctypes.c_int
     lib.mr_pattern_pair.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, ints
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,       # n_parts, bits, bf16
+        ctypes.c_int32, ctypes.c_int32,                       # n_parts, precision
+        ctypes.c_int, ptr,                                    # device, stream
+    ]
+    lib.mr_quantize_amax.restype = ctypes.c_int
+    lib.mr_quantize_amax.argtypes = [
+        ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, lengths
+        ctypes.c_int32, ptr, ptr,                             # n_vecs, scales, scratch
         ctypes.c_int, ptr,                                    # device, stream
     ]
     lib.mr_pattern_error_string.restype = ctypes.c_char_p
@@ -415,6 +524,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 __all__ = [
+    "PRECISIONS",
     "ROW_ALIGN",
     "TILE_C",
     "TILE_R",
@@ -422,9 +532,11 @@ __all__ = [
     "PatternPart",
     "bwd_plain",
     "fwd_plain",
-    "pack_bits",
     "pattern_group",
     "pattern_pair_group",
     "pattern_pair_plain",
+    "quantize_i8",
+    "quantize_scales",
+    "quantize_scales_plain",
     "unpack_bits",
 ]

@@ -16,11 +16,15 @@ a resume cursor saved per emitted window and a per-run journal
 
 Ingest admission (``ingest.admit_table``) runs where the JAX lane runs
 it: on the normal table before the SLO fit, and on the table under
-suspicion before detection.
+suspicion before detection. ``fit_baseline`` then resolves the tuned
+policy (``scenarios.policy.apply_tuned_policy``). The loop records the
+JAX lane's registry metrics at its places: stage seconds, windows by
+outcome, the kind dedup factor, staged bytes, the convergence
+histograms and the in-flight gauge (``obs.metrics``); the CLI writes
+the snapshot beside the results.
 
 Not ported yet (ROADMAP.md "Port queue"): the mesh, batch windows and
-micro-batched dispatch, the quarantine store, the tuned policy and the
-metrics registry.
+micro-batched dispatch, and the quarantine store.
 """
 
 from __future__ import annotations
@@ -42,8 +46,18 @@ from ..graph.table_ops import (
     compute_slo_from_table,
     detect_window_partition,
 )
+from ..graph.structures import PartitionGraph
 from ..ingest import admit_table
 from ..obs import JOURNAL_NAME, RunJournal
+from ..obs.metrics import (
+    graph_staging_audit,
+    pipeline_inflight,
+    record_convergence,
+    record_kind_dedup,
+    record_staging,
+    record_window_outcome,
+    stage_seconds,
+)
 from ..rank_backends.convert import graph_from_numpy
 from ..rank_backends.torch_cuda import (
     choose_kernel,
@@ -66,8 +80,14 @@ def _iso(us: int) -> str:
     return str(np.datetime64(int(us), "us"))
 
 
+def _gauge_inflight(lane: str, n: int) -> None:
+    pipeline_inflight().set(n, lane=lane)
+
+
 class StageTimings:
-    """Wall-clock milliseconds per named stage of one window."""
+    """Wall-clock milliseconds per named stage of one window; each stage
+    also lands in the registry's ``microrank_stage_seconds`` histogram,
+    in seconds, as the JAX package's StageTimings records it."""
 
     def __init__(self):
         self._ms: Dict[str, float] = {}
@@ -78,9 +98,9 @@ class StageTimings:
         try:
             yield
         finally:
-            self._ms[name] = self._ms.get(name, 0.0) + (
-                time.perf_counter() - t0
-            ) * 1e3
+            dt = time.perf_counter() - t0
+            self._ms[name] = self._ms.get(name, 0.0) + dt * 1e3
+            stage_seconds().observe(dt, stage=name)
 
     def as_dict(self) -> Dict[str, float]:
         return {k: round(v, 3) for k, v in self._ms.items()}
@@ -121,11 +141,13 @@ class TableRCA:
         )
         self.slo_vocab = None
         self.baseline = None
+        self.policy_resolution = None  # set by fit_baseline
         self._thresh = None
         self._remap_cache = None  # (id(table), svc-op -> SLO vocab remap)
 
     def fit_baseline(self, normal_table) -> None:
         from ..detect.detector import _thresholds
+        from ..scenarios.policy import apply_tuned_policy
 
         # A poisoned normal dump must not poison the SLO floor.
         normal_table, _ = admit_table(
@@ -133,6 +155,14 @@ class TableRCA:
         )
         self.slo_vocab, self.baseline = compute_slo_from_table(
             normal_table, stat=self.config.detector.slo_stat
+        )
+        # Tuned-policy resolution, as the JAX lane makes it: the span
+        # count and the fitted op cardinality; the trace-kind dedup is
+        # not measured here, so the profile takes the "low" bucket.
+        self.config, self.policy_resolution = apply_tuned_policy(
+            self.config,
+            lane="table",
+            counts=(int(normal_table.n_spans), len(self.slo_vocab), None),
         )
         self._thresh = _thresholds(self.baseline, self.config.detector)
         self._remap_cache = None
@@ -185,6 +215,7 @@ class TableRCA:
             kernel = choose_kernel(
                 graph, cfg.runtime.dense_budget_bytes, cfg.runtime.prefer_bf16
             )
+        record_kind_dedup(kind_dedup_ratio(graph))
         return graph, op_names, kernel
 
     def launch_rank(self, graph, op_names, kernel):
@@ -194,8 +225,13 @@ class TableRCA:
         current stream (in the async loop, the stage worker's own).
         Returns opaque handles for ``finalize_rank``."""
         cfg = self.config
+        host = host_subset(graph, kernel)
+        # Per-leaf staging, the JAX lane's "tree" path: one copy per
+        # field of each partition.
+        total, pad = graph_staging_audit(host)
+        record_staging("tree", total, 2 * len(PartitionGraph._fields), pad)
         dgraph = device_subset(
-            graph_from_numpy(host_subset(graph, kernel), self.device),
+            graph_from_numpy(host, self.device),
             kernel,
             cfg.pagerank.packed_block_bytes,
         )
@@ -203,6 +239,20 @@ class TableRCA:
             dgraph, cfg.pagerank, cfg.spectrum, kernel
         )
         return pack_rank_outputs(outs), op_names
+
+    @staticmethod
+    def _apply_conv(result, conv) -> None:
+        """Fold a fetched convergence summary into the WindowResult and
+        the per-kernel registry metrics."""
+        result.apply_convergence(conv)
+        if conv:
+            record_convergence(
+                result.kernel or "auto",
+                conv["iterations"],
+                conv["final_residual"]
+                if conv["final_residual"] is not None
+                else float("nan"),
+            )
 
     @staticmethod
     def _conv_summary(residuals, n_iters):
@@ -383,7 +433,7 @@ class TableRCA:
         def _set_ranking(result, timings, names, scores, conv=None):
             result.ranking = list(zip(names, scores))
             result.timings = timings.as_dict()
-            result.apply_convergence(conv)
+            self._apply_conv(result, conv)
             _emit_ready()
 
         def _complete_one():
@@ -395,6 +445,7 @@ class TableRCA:
 
         def _finalize_one():
             result, handles, timings = inflight.pop(0)
+            _gauge_inflight("window", len(inflight))
             if fetch_pool is not None:
                 # handles is the stage future: chain its join with the
                 # wait for its result copy on the fetch worker.
@@ -435,8 +486,9 @@ class TableRCA:
                     "bulk_fetch_ms": round(wait_s * 1e3 / len(items), 3),
                     "bulk_fetch_windows": len(items),
                 }
-                result.apply_convergence(conv)
+                self._apply_conv(result, conv)
             inflight.clear()
+            _gauge_inflight("window", 0)
             _emit_ready()
 
         join = _flush_bulk if bulk else _finalize_one
@@ -472,8 +524,13 @@ class TableRCA:
                                 handles = self.launch_rank(*prep)
                         result.queue_depth = len(inflight)
                         inflight.append((result, handles, timings))
+                        _gauge_inflight("window", len(inflight))
                         if len(inflight) >= depth:
                             join()
+                record_window_outcome(
+                    "ranked" if ranked
+                    else ("skipped" if result.skipped_reason else "clean")
+                )
                 results.append(result)
                 if ranked:
                     current += skip_us

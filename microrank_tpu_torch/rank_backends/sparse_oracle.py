@@ -96,14 +96,27 @@ def recompute_kinds(inc_trace, inc_op, tracelen, n_traces: int) -> np.ndarray:
     tr = inc_trace[order]
     op = inc_op[order]
     starts = np.searchsorted(tr, np.arange(n_traces), side="left")
-    ends = np.searchsorted(tr, np.arange(n_traces), side="right")
-    tlen = np.asarray(tracelen)
-    sigs = {}
+    n_unique = np.searchsorted(tr, np.arange(n_traces), side="right") - starts
+    # The length as float64 bits: equal floats, equal bits (lengths are
+    # positive counts).
+    tlen_bits = np.asarray(tracelen, dtype=np.float64)[:n_traces].view(np.int64)
+    # Traces with the same number of unique ops, grouped by their rows of
+    # (sorted ops, length): one sort per distinct count, not a dict
+    # lookup per trace.
     kind_of = np.zeros(n_traces, dtype=np.int64)
-    for t in range(n_traces):
-        key = (op[starts[t]: ends[t]].tobytes(), float(tlen[t]))
-        kind_of[t] = sigs.setdefault(key, len(sigs))
-    counts = np.bincount(kind_of, minlength=len(sigs))
+    n_kinds = 0
+    for m in np.unique(n_unique):
+        idx = np.flatnonzero(n_unique == m)
+        keys = np.column_stack(
+            [op[starts[idx][:, None] + np.arange(m)].astype(np.int64), tlen_bits[idx]]
+        )
+        order = np.lexsort(keys.T[::-1])
+        ranked = keys[order]
+        first = np.ones(len(idx), dtype=bool)
+        first[1:] = (ranked[1:] != ranked[:-1]).any(axis=1)
+        kind_of[idx[order]] = n_kinds + np.cumsum(first) - 1
+        n_kinds += int(first.sum())
+    counts = np.bincount(kind_of, minlength=n_kinds)
     return counts[kind_of].astype(np.float64)
 
 

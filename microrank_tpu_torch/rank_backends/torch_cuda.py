@@ -19,9 +19,11 @@ partitions) take one or two launches, built for the window by
   are the pallas path's, bit for bit;
 * ``kind`` / ``packed`` / ``packed_bf16`` / ``packed_blocked``: the
   coverage pair of both partitions in one call of K2 / K4
-  (``ops.pattern.pattern_pair_group``, over the kind pattern or the
-  coverage bitmap), then both call-graph terms over the call-edge list
-  in one K1 call. ``packed_blocked`` is ``packed`` (f32) on windows
+  (``ops.pattern.pattern_pair_group``, over the coverage bitmap of the
+  kind columns or of the traces), then both call-graph terms over the
+  call-edge list in one K1 call. ``kind`` with
+  ``kind_precision="int8"`` first makes one launch for the step's four
+  operand scales (``ops.pattern.quantize_scales``). ``packed_blocked`` is ``packed`` (f32) on windows
   whose unpacked matrices exceed the dense budget: K4 never unpacks the
   bitmap, so only its plain version (the CPU path) works in bands.
 
@@ -57,7 +59,7 @@ from ..graph.build import (
     packed_unpacked_bytes,
 )
 from ..graph.structures import PartitionGraph, WindowGraph
-from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group
+from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
 from ..ops.spmv import (
     EllPart,
     PcsrGroup,
@@ -89,6 +91,20 @@ def _check_kernel(kernel: str) -> None:
         )
 
 
+def has_kind_views(g: PartitionGraph) -> bool:
+    """Whether a partition carries the kind views: the coverage bitmap
+    over the kind-collapsed columns and the call-edge row offsets, with
+    no CSR views (a JAX package's "all" build has those and the bitmap,
+    and is packed). The port's kind build keeps the bitmap only; the
+    JAX package's also unpacks it to ``cov_i8``, which the port never
+    reads."""
+    return (
+        int(g.cov_bits.shape[-1]) > 0
+        and int(g.ss_indptr.shape[-1]) > 0
+        and int(g.inc_indptr_op.shape[-1]) == 0
+    )
+
+
 def choose_kernel(
     graph: WindowGraph,
     dense_budget_bytes: int | None = None,
@@ -106,7 +122,7 @@ def choose_kernel(
     if dense_budget_bytes is None:
         dense_budget_bytes = DEFAULT_DENSE_BUDGET_BYTES
     parts = (graph.normal, graph.abnormal)
-    if all(int(g.cov_i8.shape[-1]) > 0 for g in parts):
+    if all(has_kind_views(g) for g in parts):
         return "kind"
     if all(int(g.cov_bits.shape[-1]) > 0 for g in parts):
         unpacked = packed_unpacked_bytes(
@@ -347,33 +363,32 @@ def window_pattern_group(
     kernel: str,
     packed_block_bytes: int = PageRankConfig.packed_block_bytes,
 ) -> PatternGroup:
-    """Both partitions' coverage patterns as one pattern-pair launch
-    reads them: the int8 kind pattern (K2) or the coverage bitmap (K4),
-    over the padded trace (or kind) axis. Under "packed_blocked" the
-    plain version unpacks bands of at most ``packed_block_bytes``."""
+    """Both partitions' coverage bitmaps as one pattern-pair launch reads
+    them, over the padded trace (or kind) axis: K2 reads the kind build's
+    bitmap, K4 the packed build's. Under "packed_blocked" the plain
+    version unpacks bands of at most ``packed_block_bytes``."""
     parts = (graph.normal, graph.abnormal)
     if kernel == "kind":
-        if any(g.cov_i8.shape[-1] == 0 or g.ss_indptr.shape[-1] == 0 for g in parts):
+        if not all(has_kind_views(g) for g in parts):
             raise ValueError(
                 "kernel='kind' needs the kind views, but this window was "
                 "built without them: build with aux='kind' (collapse_kinds "
                 "!= 'off' resolves aux='auto' to it past the dedup threshold)"
             )
-        patterns, w_outs, bits = [g.cov_i8 for g in parts], [None, None], False
+        w_outs = [None, None]
     else:
         if any(g.cov_bits.shape[-1] == 0 for g in parts):
             raise ValueError(
                 f"kernel={kernel!r} needs the coverage bitmaps, but this "
                 "window was built without them: build with aux='packed'"
             )
-        patterns, w_outs, bits = [g.cov_bits for g in parts], [g.inv_outdeg for g in parts], True
+        w_outs = [g.inv_outdeg for g in parts]
     return pattern_group(
-        patterns,
+        [g.cov_bits for g in parts],
         [g.inv_tracelen for g in parts],
         [g.inv_cov_dup for g in parts],
         w_outs,
         [g.kind.shape[0] for g in parts],
-        bits,
         band_bytes=packed_block_bytes if kernel == "packed_blocked" else None,
     )
 
@@ -447,15 +462,19 @@ def window_weights_full(
 
     else:
         pgroup = graph.pattern_group
-        bf16 = kernel == "packed_bf16" or (
-            kernel == "kind" and cfg.kind_precision == "bf16"
-        )
+        if kernel == "kind":
+            precision = cfg.kind_precision
+        else:
+            precision = "bf16" if kernel == "packed_bf16" else "f32"
 
         def products(old_n, old_a):
             # One pattern-pair call (both partitions, both directions),
-            # then one K1 call for both call-graph terms.
+            # after the int8 scales' launch, then one K1 call for both
+            # call-graph terms.
+            rvs, svs = (old_n[1], old_a[1]), (old_n[0], old_a[0])
+            scales = quantize_scales(pgroup, rvs, svs) if precision == "int8" else None
             (f_n, b_n, x_n), (f_a, b_a, x_a) = pattern_pair_group(
-                pgroup, (old_n[1], old_a[1]), (old_n[0], old_a[0]), bf16
+                pgroup, rvs, svs, precision, scales
             )
             ss_n, ss_a = coo_spmv_group(
                 group,
@@ -656,26 +675,27 @@ def fetch_rank_outputs(outs):
 # is copied to the device (jax_tpu._KERNEL_UNUSED_FIELDS with its
 # default staging of the call graph as an edge list). The packed family
 # reads the coverage bitmap, the edge list and the inverse vectors; kind
-# the int8 pattern, the edge values, parents and row offsets, and the
-# inverse vectors; pcsr the partition-centric views and the edge list.
-# None of them reads the COO incidence arrays, the largest leaves.
+# the coverage bitmap over the kind columns (where the JAX kernel reads
+# its int8 unpacking, 8x the bytes), the edge values, parents and row
+# offsets, and the inverse vectors; pcsr the partition-centric views and
+# the edge list. None of them reads the COO incidence arrays, the
+# largest leaves.
 _PC_FIELDS = ("pc_trace", "pc_sr_val", "pc_blk_indptr", "pc_ell_op", "pc_ell_rs")
 _PACKED_UNUSED = (
     "inc_op", "inc_trace", "sr_val", "rs_val", "ss_val",
-    "inc_trace_opmajor", "sr_val_opmajor", "cov_i8", "ss_bits",
+    "inc_trace_opmajor", "sr_val_opmajor", "ss_bits",
 ) + _PC_FIELDS
 _KIND_UNUSED = (
     "inc_op", "inc_trace", "sr_val", "rs_val",
     "inc_trace_opmajor", "sr_val_opmajor",
     "inc_indptr_op", "inc_indptr_trace",
-    "cov_bits", "ss_bits", "ss_child",
+    "ss_bits", "ss_child",
 ) + _PC_FIELDS
 _PCSR_UNUSED = (
     "inc_op", "inc_trace", "sr_val", "rs_val",
     "inc_trace_opmajor", "sr_val_opmajor",
     "inc_indptr_op", "inc_indptr_trace", "ss_indptr",
     "cov_bits", "ss_bits", "inv_tracelen", "inv_cov_dup", "inv_outdeg",
-    "cov_i8",
 )
 KERNEL_UNUSED_FIELDS = {
     "packed": _PACKED_UNUSED,

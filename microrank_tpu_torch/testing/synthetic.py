@@ -178,14 +178,17 @@ def _render_spans(
     }
 
 
-def write_spans_csv(spans, path, n_operations: int) -> None:
+def write_spans_csv(spans, path, n_operations: int, append: bool = False) -> None:
     """Write spans as a canonical-schema traces CSV (the row order and
     values pandas' ``to_csv`` gives the JAX generator's frame;
     timestamps with microseconds). ``spans`` is one window's span
     columns, or a list of windows' written one after another under one
-    header, as the JAX generator concatenates a timeline's frames."""
-    with open(path, "w") as f:
-        f.write(",".join(CSV_COLUMNS) + "\n")
+    header, as the JAX generator concatenates a timeline's frames.
+    ``append``: add the rows to the end of an existing file, without a
+    header (a collector growing a dump that is followed)."""
+    with open(path, "a" if append else "w") as f:
+        if not append:
+            f.write(",".join(CSV_COLUMNS) + "\n")
         for part in spans if isinstance(spans, list) else [spans]:
             _write_span_rows(f, part, n_operations)
 
@@ -194,29 +197,34 @@ def _write_span_rows(f, spans: Dict[str, object], n_operations: int) -> None:
     w = _op_id_width(n_operations)
     prefix = spans["trace_prefix"]
     start_us, end_us = spans["start_us"], spans["end_us"]
-    # One formatted timestamp per distinct instant, not per row.
+    n = len(start_us)
+    if not n:
+        return
+    # One formatted string per distinct instant, trace and op, not per
+    # row.
     stamps, inv = np.unique(np.concatenate([start_us, end_us]), return_inverse=True)
     text = np.char.replace(
         np.datetime_as_string(stamps.astype("datetime64[us]"), unit="us"), "T", " "
     ).tolist()
-    n = len(start_us)
-    s_idx, e_idx = inv[:n].tolist(), inv[n:].tolist()
-    trace = spans["trace"].tolist()
-    op = spans["op"].tolist()
-    pod = spans["pod"].tolist()
-    parent = spans["parent"].tolist()
-    dur = spans["duration_us"].tolist()
+    trace_names = [prefix + str(t) for t in range(int(spans["trace"].max()) + 1)]
+    op_cols = [
+        f"op{o:0{w}d},svc{o:0{w}d},svc{o:0{w}d}-" for o in range(int(spans["op"].max()) + 1)
+    ]
     step = 100_000
     for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        rows = zip(
+            spans["trace"][lo:hi].tolist(), spans["op"][lo:hi].tolist(),
+            spans["parent"][lo:hi].tolist(), spans["pod"][lo:hi].tolist(),
+            spans["duration_us"][lo:hi].tolist(), inv[lo:hi].tolist(),
+            inv[n + lo: n + hi].tolist(),
+        )
         lines = []
-        for i in range(lo, min(lo + step, n)):
-            tr = f"{prefix}{trace[i]}"
-            o = op[i]
-            par = f"{tr}-s{parent[i]}" if parent[i] >= 0 else ""
+        for t, o, par, pod, dur, s_i, e_i in rows:
+            tr = trace_names[t]
             lines.append(
-                f"{tr},{tr}-s{o},{par},op{o:0{w}d},svc{o:0{w}d},"
-                f"svc{o:0{w}d}-{pod[i]},{dur[i]},{text[s_idx[i]]},"
-                f"{text[e_idx[i]]}\n"
+                f"{tr},{tr}-s{o},{tr + '-s' + str(par) if par >= 0 else ''},"
+                f"{op_cols[o]}{pod},{dur},{text[s_i]},{text[e_i]}\n"
             )
         f.write("".join(lines))
 

@@ -290,7 +290,7 @@ def test_banded_plain_pair_gives_the_unbanded_bits(v, k, band_tiles, w_out):
     band_bytes = 4 * v * pattern.TILE_C * band_tiles
 
     def group(band):
-        return pattern.pattern_group([bits], [w_len], [w_cov], [w_o if w_out else None], [k], True,
+        return pattern.pattern_group([bits], [w_len], [w_cov], [w_o if w_out else None], [k],
                                      band_bytes=band)
 
     whole, banded = group(None), group(band_bytes)

@@ -178,7 +178,7 @@ def test_tol_program_on_cuda_matches_cpu(cuda_device, tmp_path):
     assert [r.ranking[0][0] for r in gpu] == [r.ranking[0][0] for r in cpu]
 
 
-def pattern_case(seed, bits, v, k, device):
+def pattern_case(seed, v, k, device, w_out=True):
     """A pattern group of two partitions with equal rows and equal
     columns, on ``device`` and on the CPU, plus rv / sv on both."""
     rng = np.random.default_rng(seed)
@@ -188,7 +188,7 @@ def pattern_case(seed, bits, v, k, device):
         m = (rng.random((v, kk)) < 0.3).astype(np.uint8)
         m[v // 2] = m[0]
         m[:, kk - 1] = m[:, 1]
-        pat = np.packbits(m, axis=1) if bits else m.astype(np.int8)
+        pat = np.packbits(m, axis=1)
         arrays = [torch.from_numpy(pat)] + [
             torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
             for n in (kk, v, v, kk, v)  # w_len, w_cov, w_out, rv, sv
@@ -200,28 +200,27 @@ def pattern_case(seed, bits, v, k, device):
     def group(parts):
         return pattern.pattern_group(
             [a[0] for a in parts], [a[1] for a in parts], [a[2] for a in parts],
-            [a[3] for a in parts], vecs, bits,
+            [a[3] if w_out else None for a in parts], vecs,
         )
 
     return (group(dev), [a[4] for a in dev], [a[5] for a in dev],
             group(host), [a[4] for a in host], [a[5] for a in host])
 
 
-@pytest.mark.parametrize("bits", [True, False])
-@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("v,k", [(3000, 7000), (300, 1100)])
-def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, bits, bf16, v, k):
+def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, precision, v, k):
     # Both shapes span several row and column tiles with ragged edges;
     # at 300 x 1100 the equal rows (0, 150) and columns (1, k - 1) lie in
-    # different tiles.
-    group, rvs, svs, cpu_group, cpu_rvs, cpu_svs = pattern_case(7, bits, v, k, cuda_device)
+    # different tiles. (int8: tests/test_torch_int8.py.)
+    group, rvs, svs, cpu_group, cpu_rvs, cpu_svs = pattern_case(7, v, k, cuda_device)
     before = (pattern.pattern_pair_group.launches, pattern.pattern_pair_group.products)
-    outs = pattern.pattern_pair_group(group, rvs, svs, bf16)
+    outs = pattern.pattern_pair_group(group, rvs, svs, precision)
     torch.cuda.synchronize()
     assert (pattern.pattern_pair_group.launches, pattern.pattern_pair_group.products) == (
         before[0] + 1, before[1] + 4
     )
-    ref = pattern.pattern_pair_plain(cpu_group, cpu_rvs, cpu_svs, bf16)
+    ref = pattern.pattern_pair_plain(cpu_group, cpu_rvs, cpu_svs, precision)
     for got, want in zip(outs, ref):
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
@@ -232,12 +231,12 @@ def test_pattern_kernel_matches_cpu_plain_bitwise(cuda_device, bits, bf16, v, k)
 
 
 def test_pattern_kernel_repeatable_over_50_launches(cuda_device):
-    group, rvs, svs, *_ = pattern_case(8, True, 3072, 7168, cuda_device)
+    group, rvs, svs, *_ = pattern_case(8, 3072, 7168, cuda_device)
     first = [torch.cat([t for t in o if t is not None])
-             for o in pattern.pattern_pair_group(group, rvs, svs, True)]
+             for o in pattern.pattern_pair_group(group, rvs, svs, "bf16")]
     for _ in range(50):
         again = [torch.cat([t for t in o if t is not None])
-                 for o in pattern.pattern_pair_group(group, rvs, svs, True)]
+                 for o in pattern.pattern_pair_group(group, rvs, svs, "bf16")]
         assert all(torch.equal(a, b) for a, b in zip(again, first))
     torch.cuda.synchronize()
     for p in group.parts:

@@ -103,8 +103,12 @@ def test_unported_kernels_raise():
         assert JaxRuntime(kernel=kernel).kernel == kernel
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RuntimeConfig(kernel=kernel)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PageRankConfig(kind_precision="int8")
+    # Every kind precision JAX runs is ported (int8 since the K2-int8
+    # slice); an unknown one raises in both packages.
+    for precision in ("f32", "bf16", "int8"):
+        assert PageRankConfig(kind_precision=precision).kind_precision == (
+            JaxPageRank(kind_precision=precision).kind_precision
+        )
     with pytest.raises(ValueError, match="kind_precision"):
         PageRankConfig(kind_precision="fp8")
     # Every kernel JAX's auto can pick is accepted, as in JAX.

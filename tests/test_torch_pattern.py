@@ -4,9 +4,8 @@ its plain version, which repeats the kernel's order).
 
 * the plain version's arithmetic: against an f64 product, in the
   kernel's tile order (checked in scalar float32 steps), bitwise equal
-  outputs for equal rows and equal columns (also across tiles), bits
-  decoded big-endian, int8 patterns packed to the same bitmap, rows
-  padded to 16 bytes and inert;
+  outputs for equal rows and equal columns (also across tiles) in every
+  precision, bits decoded big-endian, rows padded to 16 bytes and inert;
 * per product: the pattern pair plus the call-graph term (through K1)
   against JAX's ``_partition_setup`` matvecs, rtol 1e-6 — bf16 is held to
   the same rtol because both sides round the same f32 products to bf16
@@ -61,24 +60,32 @@ def random_pattern(rng, v, k, density=0.3):
     return (rng.random((v, k)) < density).astype(np.uint8)
 
 
-def plain_group(m01, bits, w_out=False, seed=0):
-    """A one-partition group over a 0/1 matrix, with random weights."""
+def plain_group(m01, w_out=False, seed=0):
+    """A one-partition group over a 0/1 matrix's bitmap, with random
+    weights."""
     rng = np.random.default_rng(seed)
     v, k = m01.shape
-    pat = np.packbits(m01, axis=1) if bits else m01.astype(np.int8)
+    pat = np.packbits(m01, axis=1)
     vec = lambda n: torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))  # noqa: E731
     group = pattern.pattern_group(
-        [torch.from_numpy(pat)], [vec(k)], [vec(v)], [vec(v) if w_out else None], [k], bits
+        [torch.from_numpy(pat)], [vec(k)], [vec(v)], [vec(v) if w_out else None], [k]
     )
     return group, vec(k), vec(v)
 
 
-@pytest.mark.parametrize("bits", [True, False])
+def pair(group, rv, sv, precision):
+    """One partition's pair in ``precision`` (int8 with its scales)."""
+    scales = (
+        pattern.quantize_scales(group, [rv], [sv]) if precision == "int8" else None
+    )
+    return pattern.pattern_pair_group(group, [rv], [sv], precision, scales)
+
+
 @pytest.mark.parametrize("v,k", [(37, 13), (300, 700), (129, 8)])
-def test_plain_pair_matches_f64_product(bits, v, k):
+def test_plain_pair_matches_f64_product(v, k):
     rng = np.random.default_rng(v + k)
     m = random_pattern(rng, v, k)
-    group, rv, sv = plain_group(m, bits, w_out=True, seed=k)
+    group, rv, sv = plain_group(m, w_out=True, seed=k)
     (y_fwd, y_bwd, x_ss), = pattern.pattern_pair_group(group, [rv], [sv])
     p = group.parts[0]
     a = (rv * p.w_len).double().numpy()
@@ -102,8 +109,8 @@ def test_unpack_bits_is_big_endian_like_jax():
     assert pattern.unpack_bits(torch.from_numpy(one), 16)[0].nonzero().tolist() == [[9]]
 
 
-@pytest.mark.parametrize("bits", [True, False])
-def test_equal_rows_and_columns_give_equal_bits(bits):
+@pytest.mark.parametrize("precision", pattern.PRECISIONS)
+def test_equal_rows_and_columns_give_equal_bits(precision):
     rng = np.random.default_rng(11)
     base = random_pattern(rng, 400, 300, 0.4)
     # Rows 0, 150 and 399 equal; columns 5, 77 and 290 equal.
@@ -111,13 +118,10 @@ def test_equal_rows_and_columns_give_equal_bits(bits):
     base[399] = base[0]
     base[:, 77] = base[:, 5]
     base[:, 290] = base[:, 5]
-    group, rv, sv = plain_group(base, bits, seed=2)
-    (y_fwd, y_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv], bf16=False)
+    group, rv, sv = plain_group(base, seed=2)
+    (y_fwd, y_bwd, _), = pair(group, rv, sv, precision)
     assert y_fwd[0] == y_fwd[150] == y_fwd[399]
     assert y_bwd[5] == y_bwd[77] == y_bwd[290]
-    (z_fwd, z_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv], bf16=True)
-    assert z_fwd[0] == z_fwd[150] == z_fwd[399]
-    assert z_bwd[5] == z_bwd[77] == z_bwd[290]
 
 
 def test_padding_is_inert():
@@ -128,7 +132,7 @@ def test_padding_is_inert():
     m[:, 11:] = 1  # set bits beyond n_cols = 11
     packed = torch.from_numpy(np.packbits(m, axis=1))
     w = lambda n: torch.ones(n)  # noqa: E731
-    group = pattern.pattern_group([packed], [w(11)], [w(20)], [None], [11], True)
+    group = pattern.pattern_group([packed], [w(11)], [w(20)], [None], [11])
     rv = torch.ones(11)
     sv = torch.cat([torch.ones(12), torch.zeros(8)])  # rows 12.. are padding
     (y_fwd, y_bwd, x_ss), = pattern.pattern_pair_group(group, [rv], [sv])
@@ -137,9 +141,8 @@ def test_padding_is_inert():
     np.testing.assert_array_equal(y_bwd.numpy(), m[:12, :11].sum(0).astype(np.float32))
 
 
-@pytest.mark.parametrize("bits", [True, False])
-@pytest.mark.parametrize("bf16", [False, True])
-def test_equal_rows_and_columns_in_different_tiles_give_equal_bits(bits, bf16):
+@pytest.mark.parametrize("precision", pattern.PRECISIONS)
+def test_equal_rows_and_columns_in_different_tiles_give_equal_bits(precision):
     # 300 x 1100 spans three row tiles and three column tiles: rows 0, 150
     # and 299 lie in different row tiles, columns 5, 600 and 1090 in
     # different column tiles, so each sum crosses the tile folds.
@@ -151,43 +154,22 @@ def test_equal_rows_and_columns_in_different_tiles_give_equal_bits(bits, bf16):
     base[299] = base[0]
     base[:, 600] = base[:, 5]
     base[:, 1090] = base[:, 5]
-    group, rv, sv = plain_group(base, bits, seed=4)
-    (y_fwd, y_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv], bf16=bf16)
+    group, rv, sv = plain_group(base, seed=4)
+    (y_fwd, y_bwd, _), = pair(group, rv, sv, precision)
     assert y_fwd[0] == y_fwd[150] == y_fwd[299]
     assert y_bwd[5] == y_bwd[600] == y_bwd[1090]
 
 
-@pytest.mark.parametrize("v,k", [(37, 13), (300, 1100)])
-def test_int8_and_bitmap_groups_give_equal_bits(v, k):
-    # pattern_group packs an int8 pattern (nonzero -> 1) into the kernel's
-    # one layout: only the representation changes.
-    rng = np.random.default_rng(v * k)
-    m = random_pattern(rng, v, k, 0.35)
-    i8 = m.astype(np.int8)
-    i8[m == 1] = rng.integers(1, 128, int(m.sum()))  # any nonzero byte is a 1
-    g_bits, rv, sv = plain_group(m, True, w_out=True, seed=9)
-    g_i8, _, _ = plain_group(i8, False, w_out=True, seed=9)
-    assert torch.equal(g_i8.parts[0].pattern, g_bits.parts[0].pattern)
-    for bf16 in (False, True):
-        (a,), (b,) = (pattern.pattern_pair_group(g, [rv], [sv], bf16) for g in (g_bits, g_i8))
-        for x, y in zip(a, b):
-            assert torch.equal(x, y)
-
-
-@pytest.mark.parametrize("bits", [True, False])
 @pytest.mark.parametrize("k", [448, 100])  # rows of 56 and 13 bytes
-def test_rows_are_padded_to_16_bytes_and_inert(bits, k):
+def test_rows_are_padded_to_16_bytes_and_inert(k):
     rng = np.random.default_rng(k)
     v = 140
     m = random_pattern(rng, v, k, 0.5)
-    if bits:
-        pat = np.packbits(m, axis=1)
-        pat[:, -1] |= np.uint8(0xFF >> (k % 8)) if k % 8 else 0  # set bits past n_cols
-    else:
-        pat = np.concatenate([m, np.ones((v, 5), np.uint8)], 1).astype(np.int8)
+    pat = np.packbits(m, axis=1)
+    pat[:, -1] |= np.uint8(0xFF >> (k % 8)) if k % 8 else 0  # set bits past n_cols
     w = lambda n: torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))  # noqa: E731
     w_len, w_cov, rv, sv = w(k), w(v), w(k), w(v)
-    group = pattern.pattern_group([torch.from_numpy(pat)], [w_len], [w_cov], [None], [k], bits)
+    group = pattern.pattern_group([torch.from_numpy(pat)], [w_len], [w_cov], [None], [k])
     stored = group.parts[0].pattern
     n_bytes = -(-k // 8)
     assert stored.shape == (v, -(-n_bytes // 16) * 16) and stored.shape[1] % pattern.ROW_ALIGN == 0
@@ -245,13 +227,13 @@ def test_plain_order_at_one_tile_and_one_past(extra):
 def test_group_checks_its_inputs():
     pat = torch.zeros((4, 2), dtype=torch.uint8)
     ones = torch.ones
-    with pytest.raises(TypeError, match="int8"):
-        pattern.pattern_group([pat], [ones(9)], [ones(4)], [None], [9], False)
+    with pytest.raises(TypeError, match="uint8"):
+        pattern.pattern_group([pat.to(torch.int8)], [ones(9)], [ones(4)], [None], [9])
     with pytest.raises(ValueError, match="fewer than"):
-        pattern.pattern_group([pat], [ones(17)], [ones(4)], [None], [17], True)
+        pattern.pattern_group([pat], [ones(17)], [ones(4)], [None], [17])
     with pytest.raises(ValueError, match="weight vectors"):
-        pattern.pattern_group([pat], [ones(9)], [ones(5)], [None], [9], True)
-    group = pattern.pattern_group([pat], [ones(9)], [ones(4)], [None], [9], True)
+        pattern.pattern_group([pat], [ones(9)], [ones(5)], [None], [9])
+    group = pattern.pattern_group([pat], [ones(9)], [ones(4)], [None], [9])
     with pytest.raises(ValueError, match="rv must hold 9"):
         pattern.pattern_pair_group(group, [ones(8)], [ones(4)])
     with pytest.raises(ValueError, match="unsupported device"):
@@ -281,8 +263,8 @@ def test_products_match_jax_partition_setup(kernel, precision, aux, collapse, sm
         want.append([np.asarray(y) for y in mv(jnp.asarray(sv), jnp.asarray(rv))])
         rvs.append(torch.from_numpy(rv))
         svs.append(torch.from_numpy(sv))
-    bf16 = kernel == "packed_bf16" or precision == "bf16"
-    pairs = pattern.pattern_pair_group(tg.pattern_group, rvs, svs, bf16)
+    prec = "bf16" if kernel == "packed_bf16" else precision
+    pairs = pattern.pattern_pair_group(tg.pattern_group, rvs, svs, prec)
     xs = [sv if x is None else x for sv, (_, _, x) in zip(svs, pairs)]
     ss = coo_spmv_group(tg.spmv_group, xs)
     alpha = torch.tensor(cfg.call_weight, dtype=torch.float32)
@@ -372,9 +354,17 @@ def test_host_subset_drops_what_jax_drops(kernel, small_case):
     ours = host_subset(graph, kernel)
     theirs = jax_tpu.device_subset(graph, kernel)
     for part in ("normal", "abnormal"):
-        for f in ours.normal._fields:
-            a = np.asarray(getattr(getattr(ours, part), f))
-            b = np.asarray(getattr(getattr(theirs, part), f))
+        o, t = getattr(ours, part), getattr(theirs, part)
+        for f in graph_from_numpy(ours, "cpu").normal._fields:
+            a, b = np.asarray(getattr(o, f)), np.asarray(getattr(t, f))
+            if kernel == "kind" and f == "cov_bits":
+                # The port's kind pair reads the bitmap where JAX's reads
+                # its int8 unpacking: the same pattern, 1/8 the bytes.
+                assert b.shape[-1] == 0 and t.cov_i8.shape[-1] > 0
+                np.testing.assert_array_equal(
+                    np.unpackbits(a, axis=1)[:, : t.cov_i8.shape[1]], t.cov_i8
+                )
+                continue
             assert a.shape == b.shape and a.dtype == b.dtype, f
     assert host_subset(graph, "pallas") is graph
 
@@ -394,9 +384,15 @@ def test_graph_from_numpy_carries_the_views(aux, collapse, small_case):
     tg = graph_from_numpy(graph, "cpu")
     for part in ("normal", "abnormal"):
         src, dst = getattr(graph, part), getattr(tg, part)
-        for f in ("cov_bits", "ss_bits", "cov_i8", "ss_indptr", "inv_outdeg"):
+        for f in ("cov_bits", "ss_bits", "ss_indptr", "inv_outdeg"):
             a, b = np.asarray(getattr(src, f)), getattr(dst, f).numpy()
             assert a.shape == b.shape and a.dtype == b.dtype, f
             np.testing.assert_array_equal(a, b, err_msg=f)
         assert src.cov_bits.shape[-1] > 0
         assert (src.cov_i8.shape[-1] > 0) == (aux == "kind")
+        # The kind pattern JAX unpacks to int8 is the carried bitmap's.
+        if aux == "kind":
+            np.testing.assert_array_equal(
+                np.unpackbits(dst.cov_bits.numpy(), axis=1)[:, : src.cov_i8.shape[1]],
+                src.cov_i8,
+            )

@@ -228,10 +228,18 @@ def assert_same_build(synth_csvs, aux, collapse, **kw):
     for part in ("normal", "abnormal"):
         jp, tp = getattr(jg, part), getattr(tg, part)
         for f in jp._fields:
+            if f == "cov_i8":
+                # The port's kind build keeps the bitmap JAX unpacks.
+                if jp.cov_i8.shape[-1]:
+                    np.testing.assert_array_equal(
+                        np.unpackbits(tp.cov_bits, axis=1)[:, : jp.cov_i8.shape[1]],
+                        jp.cov_i8,
+                    )
+                continue
             a, b = np.asarray(getattr(jp, f)), np.asarray(getattr(tp, f))
             assert a.shape == b.shape and a.dtype == b.dtype, f
             np.testing.assert_array_equal(a, b, err_msg=f)
-    return tg
+    return jg, tg
 
 
 @pytest.mark.parametrize("collapse", ["off", "auto", "on"])
@@ -249,21 +257,22 @@ def test_native_graph_build_matches_jax(synth_csvs, collapse):
     ("auto", "on", "kind"),
 ])
 def test_native_graph_build_views_match_jax(synth_csvs, aux, collapse, views):
-    # The bitmaps (cov_bits, ss_bits) and kind views (cov_i8, ss_indptr)
-    # too; "auto" resolves to kind on a collapsed window past the dedup
-    # threshold.
-    tg = assert_same_build(synth_csvs, aux, collapse)
-    for p in (tg.normal, tg.abnormal):
+    # The bitmaps (cov_bits, ss_bits) and kind views (JAX's cov_i8 is the
+    # port's bitmap, ss_indptr) too; "auto" resolves to kind on a
+    # collapsed window past the dedup threshold.
+    jg, tg = assert_same_build(synth_csvs, aux, collapse)
+    for j, p in zip((jg.normal, jg.abnormal), (tg.normal, tg.abnormal)):
         assert p.cov_bits.shape[1] > 0 and p.ss_bits.shape[1] > 0
-        assert (p.cov_i8.shape[-1] > 0) == (views == "kind")
+        assert (j.cov_i8.shape[-1] > 0) == (views == "kind")
         assert (p.ss_indptr.shape[0] > 0) == (views == "kind")
 
 
 def test_native_build_threshold_matches_jax(synth_csvs):
     # Past the measured dedup factor the collapsed auto build keeps
     # bitmaps only, in both packages.
-    tg = assert_same_build(synth_csvs, "auto", "auto", kind_dedup_threshold=1e9)
-    assert tg.normal.cov_i8.shape[-1] == 0 and tg.normal.cov_bits.shape[1] > 0
+    jg, tg = assert_same_build(synth_csvs, "auto", "auto", kind_dedup_threshold=1e9)
+    assert jg.normal.cov_i8.shape[-1] == 0 and tg.normal.cov_bits.shape[1] > 0
+    assert tg.normal.ss_indptr.shape[0] == 0
 
 
 def test_unported_aux_modes_raise(synth_csvs):
@@ -274,7 +283,7 @@ def test_unported_aux_modes_raise(synth_csvs):
     for aux in ("csr", "all"):
         with pytest.raises(NotImplementedError, match="aux mode"):
             table_ops.build_window_graph_from_table(tab, None, [0], [1], aux=aux)
-    tg = assert_same_build(synth_csvs, "pcsr", "off")
+    _, tg = assert_same_build(synth_csvs, "pcsr", "off")
     assert all(p.pc_trace.shape[-1] > 0 for p in (tg.normal, tg.abnormal))
 
 
