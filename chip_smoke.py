@@ -19,7 +19,8 @@ JAX or of the JAX package. Phases, one JSON line each:
               step (that work list with ELL slabs of widths 4 and 1024,
               then 1 and 64: rows past 256 entries, empty rows) and of
               the pattern pair (f32, bf16 and int8 with its scale launch,
-              several tiles with ragged edges) held bitwise against their
+              and K8's kernel in f32; several tiles with ragged edges)
+              held bitwise against their
               plain versions; and the two device timers (torch.profiler,
               CUDA events) on a 1 GiB device copy;
 2. data     — one detection window at bench.py's config-5 scale
@@ -41,8 +42,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               5e-3 (packed_bf16), the same top-1 and n_iters; then, collapse
               "off", at two lowered dense budgets (64 MiB and 16 MiB at
               config 5; the two inequalities printed from the window's
-              shapes): auto resolves to ``packed_blocked`` (25 pattern-pair
-              and 25 K1 launches of 2 SpMVs per ranked window) and to
+              shapes): auto resolves to ``packed_blocked`` (25 launches of
+              K8's own kernel and its 25 fold launches, and 25 K1 launches
+              of 2 SpMVs per ranked window) and to
               ``pcsr`` (25 launches of the pcsr kernel, 6 SpMVs each, no
               K1 launch), CUDA vs CPU at rtol 1e-5, and pcsr's ranking
               bitwise the pinned pallas run's;
@@ -125,8 +127,11 @@ JAX or of the JAX package. Phases, one JSON line each:
               device spin) beside the plain version, the pair of
               torch.matmul calls over the loop-invariant cast matrix
               (what JAX computes; a yardstick the port never calls) and
-              the byte bound; plus a sweep of K4 over one-partition
-              bitmaps of four shapes;
+              the byte bound; K8's kernel the same at the packed_blocked
+              run's window, also held bitwise to the tile kernel in f32 on
+              the same inputs and timed in turns with it, its fwd
+              partials bitwise their plain layout; plus a sweep of K4 over
+              one-partition bitmaps of four shapes;
 8. giant    — bench.py's giant-window tier (2048 operations, 4 spans a
               trace) from the port's ``testing.giant_window``, at the
               default 2 GiB budget: 2,097,152 spans (auto must resolve to
@@ -138,6 +143,11 @@ JAX or of the JAX package. Phases, one JSON line each:
               peak device memory; one step of the kernel within rtol 1e-6
               of its plain version on the card, bitwise over 50 launches,
               timed beside the library yardstick and the byte bound (for
+              packed_blocked, K8's kernel bitwise the tile kernel in f32
+              and timed in turns with it, the design's floor beside the
+              bound, and a density sweep at the same shapes: synthetic
+              bitmaps of 2%, 50% and 100% from a seeded generator, the
+              two kernels bitwise each other and timed; for
               pcsr, ``measure_pcsr`` as in phase 6, against the pallas
               work list of the 10M-span window too). ``--giant-spans``
               sets the larger window (the smaller holds a fifth, the
@@ -230,6 +240,7 @@ def reset_counts(spmv, pattern) -> None:
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
     pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
+    pattern.pattern_pair_group.blocked_launches = pattern.pattern_pair_group.fold_launches = 0
     pattern.quantize_scales.launches = 0
 
 
@@ -241,6 +252,8 @@ def read_counts(spmv, pattern) -> dict:
         "pcsr_spmvs": spmv.pcsr_spmv_group.spmvs,
         "pattern_launches": pattern.pattern_pair_group.launches,
         "pattern_products": pattern.pattern_pair_group.products,
+        "blocked_launches": pattern.pattern_pair_group.blocked_launches,
+        "fold_launches": pattern.pattern_pair_group.fold_launches,
         "quantize_launches": pattern.quantize_scales.launches,
     }
 
@@ -248,12 +261,13 @@ def read_counts(spmv, pattern) -> dict:
 def expected_counts(kernel, n, int8=False) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
     launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
-    SpMVs), or of the pattern pair (four products) and K1 (the two
-    call-graph terms), with ``int8`` (kind) one scale launch per step
-    before the pair."""
+    SpMVs), or of the pattern pair (four products; packed_blocked's
+    through K8's own kernel, counted in blocked_launches too, and its
+    fold launch) and K1 (the two call-graph terms), with ``int8`` (kind)
+    one scale launch per step before the pair."""
     counts = dict.fromkeys(("k1_launches", "k1_spmvs", "pcsr_launches", "pcsr_spmvs",
-                            "pattern_launches", "pattern_products",
-                            "quantize_launches"), 0)
+                            "pattern_launches", "pattern_products", "blocked_launches",
+                            "fold_launches", "quantize_launches"), 0)
     if kernel == "pallas":
         counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
@@ -261,6 +275,8 @@ def expected_counts(kernel, n, int8=False) -> dict:
     else:
         counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
                       pattern_launches=STEPS * n, pattern_products=STEPS * 4 * n,
+                      blocked_launches=STEPS * n if kernel == "packed_blocked" else 0,
+                      fold_launches=STEPS * n if kernel == "packed_blocked" else 0,
                       quantize_launches=STEPS * n if int8 else 0)
     return counts
 
@@ -276,13 +292,15 @@ def power_line() -> str:
 def tiny_pattern_checks(torch, pattern, dev):
     """First launches of the pattern pair and the int8 scale launch:
     small ragged bitmaps (a last partial byte, three row tiles and three
-    column tiles, and a part of one tile) in every precision against the
-    plain version on the CPU, bitwise. Returns the number of cases."""
+    column tiles, and a part of one tile) in every precision, and in f32
+    through K8's kernel, against the plain version on the CPU, bitwise.
+    Returns the number of cases."""
     import numpy as np
 
     g = torch.Generator().manual_seed(1)
     n = 0
-    for precision in pattern.PRECISIONS:
+    # Each precision through the tile kernel, then f32 through K8's.
+    for precision, blocked in [(p_, False) for p_ in pattern.PRECISIONS] + [("f32", True)]:
         parts = []
         for v, k in ((300, 1100), (7, 9)):
             m = (torch.rand((v, k), generator=g) < 0.4).numpy().astype(np.uint8)
@@ -296,7 +314,7 @@ def tiny_pattern_checks(torch, pattern, dev):
                 [w[0].to(on) for _, _, w in parts],
                 [w[1].to(on) for _, _, w in parts],
                 [None if int8 else w[2].to(on) for _, _, w in parts],
-                [k for _, k, _ in parts],
+                [k for _, k, _ in parts], blocked=blocked,
             )
 
         rvs = [w[3] for _, _, w in parts]
@@ -1583,7 +1601,7 @@ def on_cpu(torch, pattern, group):
         [p.pattern.cpu() for p in group.parts], [p.w_len.cpu() for p in group.parts],
         [p.w_cov.cpu() for p in group.parts],
         [None if p.w_out is None else p.w_out.cpu() for p in group.parts],
-        [p.n_cols for p in group.parts],
+        [p.n_cols for p in group.parts], blocked=group.blocked,
     )
 
 
@@ -1604,6 +1622,7 @@ def with_equal_rows_and_columns(torch, pattern, group):
     eq = pattern.pattern_group(
         pats, [p.w_len for p in group.parts], [p.w_cov for p in group.parts],
         [p.w_out for p in group.parts], [p.n_cols for p in group.parts],
+        blocked=group.blocked,
     )
     return eq, pairs
 
@@ -1654,6 +1673,11 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, precision, cpu_check=
         ref = pattern.pattern_pair_plain(cpu_group, c_rvs, c_svs, precision, c_scales)
         bitwise = torch.equal(first.cpu(), flat(ref, c_scales))
         check(bitwise, f"{name}: the pattern pair differs from its plain version on the CPU")
+        if group.blocked:  # K8's fwd partials as its plain layout has them
+            for p, want in zip(group.parts, pattern.blocked_partials_plain(cpu_group, c_rvs)):
+                check(want is None
+                      or torch.equal(p.part[: want.numel()].view(want.shape).cpu(), want),
+                      f"{name}: K8's fwd partials differ from blocked_partials_plain")
     again = [flat(*step()) for _ in range(REPEATS)]
     torch.cuda.synchronize()
     check(all(torch.equal(a, first) for a in again),
@@ -1776,6 +1800,8 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, precision, cpu_check=
         "bitwise_repeatable_launches": REPEATS,
         "equal_rows_and_columns_bitwise": True if cpu_check else None,
     }
+    if group.blocked:
+        out.update(previous_design(torch, pattern, group, rvs, svs, first, nbytes))
     if int8:
         # The two launches of the step apart: the scales alone, and the
         # pair alone on fixed scales.
@@ -1794,6 +1820,103 @@ def measure_pattern(torch, pattern, name, group, rvs, svs, precision, cpu_check=
         out["scale_bytes"] = scale_bytes
         out["scale_bound_ms"] = round(scale_bytes / HBM_BYTES_PER_S * 1e3, 6)
         out["scales"] = [float(x) for x in scales]
+    return out
+
+
+def tile_twin(pattern, group):
+    """The tile kernel's group (K8's previous design) over the bitmaps and
+    weights of K8's ``group``."""
+    return pattern.pattern_group(
+        [p.pattern for p in group.parts], [p.w_len for p in group.parts],
+        [p.w_cov for p in group.parts], [p.w_out for p in group.parts],
+        [p.n_cols for p in group.parts],
+    )
+
+
+def flat_pair(torch, outs):
+    return torch.cat([t for pair in outs for t in pair if t is not None])
+
+
+def previous_design(torch, pattern, group, rvs, svs, first, nbytes):
+    """K8's kernel against the tile kernel in f32 on the same inputs:
+    bitwise each other, timed in turns by CUDA events behind a spin; and
+    the design's floor: the bound's ``nbytes`` plus K8's fwd partials
+    written once and read once (4 bytes per row and column tile, for
+    partitions of more than one column tile)."""
+    twin = tile_twin(pattern, group)
+    calls = {
+        "blocked": lambda: pattern.pattern_pair_group(group, rvs, svs),
+        "previous": lambda: pattern.pattern_pair_group(twin, rvs, svs),
+    }
+    check(torch.equal(flat_pair(torch, calls["previous"]()), first),
+          "K8's kernel differs from the tile kernel (f32) on the same inputs")
+    turns = [(k, spin_event_ms(torch, calls[k], 20))
+             for k in ("previous", "blocked", "blocked", "previous")]
+    n_cts = [-(-p.n_cols // pattern.TILE_C) for p in group.parts]
+    traffic = sum(2 * 4 * p.pattern.shape[0] * n for p, n in zip(group.parts, n_cts) if n > 1)
+    floor = nbytes + traffic
+    out = {
+        "previous_design_ms": round(_mean([t for k, t in turns if k == "previous"]), 6),
+        "design_turns_ms": [[k, round(t, 6)] for k, t in turns],
+        "bitwise_vs_previous_design": True,
+        "scratch_bytes": sum(4 * (p.part.numel() + p.counters.numel()) for p in group.parts),
+        "previous_scratch_bytes": sum(4 * (p.part.numel() + p.counters.numel())
+                                      for p in twin.parts),
+        "scratch_traffic_bytes": traffic,
+        "floor_bytes": floor,
+        "floor_ms": round(floor / HBM_BYTES_PER_S * 1e3, 6),
+    }
+    del twin
+    return out
+
+
+def random_bitmap(torch, v, k, density, gen):
+    """uint8[v, ceil(k / 8)], np.packbits order, each bit set with
+    probability ``density`` (every bit at 1.0), made on the card from
+    ``gen`` 256 rows at a time."""
+    dev = gen.device
+    n_bytes = -(-k // 8)
+    if density >= 1.0:
+        return torch.full((v, n_bytes), 255, dtype=torch.uint8, device=dev)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=dev)
+    out = torch.empty((v, n_bytes), dtype=torch.uint8, device=dev)
+    for r0 in range(0, v, 256):
+        n = min(256, v - r0)
+        bits = torch.rand((n, n_bytes * 8), generator=gen, device=dev) < density
+        byte = (bits.view(n, n_bytes, 8).to(torch.int32) * weights).sum(-1)
+        out[r0: r0 + n] = byte.to(torch.uint8)
+    return out
+
+
+def blocked_density_sweep(torch, pattern, group, densities=(0.02, 0.5, 1.0), reps=5):
+    """K8's kernel and the tile kernel at the shapes of ``group`` (the
+    giant window's) over synthetic bitmaps of each density from a seeded
+    torch.Generator: bitwise each other, each timed by CUDA events behind
+    a spin. Ranks nothing."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(4)
+    rvs = [torch.rand(p.n_cols, generator=gen, device="cuda") for p in group.parts]
+    svs = [torch.rand(p.pattern.shape[0], generator=gen, device="cuda") for p in group.parts]
+    out = []
+    for density in densities:
+        g = pattern.pattern_group(
+            [random_bitmap(torch, p.pattern.shape[0], p.n_cols, density, gen)
+             for p in group.parts],
+            [p.w_len for p in group.parts], [p.w_cov for p in group.parts],
+            [p.w_out for p in group.parts], [p.n_cols for p in group.parts], blocked=True,
+        )
+        twin = tile_twin(pattern, g)
+        new = flat_pair(torch, pattern.pattern_pair_group(g, rvs, svs))
+        check(torch.equal(new, flat_pair(torch, pattern.pattern_pair_group(twin, rvs, svs))),
+              f"density {density}: K8's kernel differs from the tile kernel")
+        out.append({
+            "density": density,
+            "ms": round(spin_event_ms(torch, lambda: pattern.pattern_pair_group(g, rvs, svs),
+                                      reps), 6),
+            "previous_design_ms": round(spin_event_ms(
+                torch, lambda: pattern.pattern_pair_group(twin, rvs, svs), reps), 6),
+            "bitwise_vs_previous_design": True,
+        })
+        del g, twin
     return out
 
 
@@ -1824,7 +1947,8 @@ def pattern_sweep(torch, pattern):
 def phase_pattern(torch, pattern, graphs):
     """K2 at the collapsed shapes (f32, bf16; int8 at the int8 run's
     window, the scale launch and the pair) and K4 at the uncollapsed ones
-    (packed, packed_bf16): one pair call per step for both partitions."""
+    (packed, packed_bf16), and K8's kernel there too (the packed_blocked
+    run's window): one pair call per step for both partitions."""
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(1)
     out = {}
     group, rvs, svs = pattern_inputs(torch, graphs["auto/auto"], "kind", gen)
@@ -1837,6 +1961,9 @@ def phase_pattern(torch, pattern, graphs):
     for precision in ("f32", "bf16"):
         name = "packed_bf16" if precision == "bf16" else "packed"
         out[name] = measure_pattern(torch, pattern, name, group, rvs, svs, precision)
+    group, rvs, svs = pattern_inputs(torch, graphs["auto/packed_blocked"], "packed_blocked", gen)
+    out["packed_blocked"] = measure_pattern(torch, pattern, "packed_blocked", group, rvs, svs,
+                                            "f32")
     return out
 
 
@@ -1930,6 +2057,11 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         svs = [torch.rand(p.pattern.shape[0], generator=gen, device=dev) for p in group.parts]
         kern = measure_pattern(torch, pattern, f"giant/{kernel}", group, rvs, svs, "f32",
                                cpu_check=False)
+        cells = sum(p.pattern.shape[0] * p.n_cols for p in group.parts)
+        kern["density_sweep"] = [{
+            "density": sum(kern["set_cells"]) / cells, "ms": kern["ms"],
+            "previous_design_ms": kern["previous_design_ms"], "bitwise_vs_previous_design": True,
+        }] + blocked_density_sweep(torch, pattern, group)
     info = {
         "phase": "giant",
         "spans": gw.table.n_spans,
@@ -2089,9 +2221,9 @@ def main(argv=None) -> int:
 
     step = per_step["off"]
     kind, packed, int8 = pairs["kind_f32"], pairs["packed_bf16"], pairs["kind_int8"]
-    # packed_blocked runs K4 in f32: at the giant window of a fifth of
-    # --giant-spans, else at config 5's uncollapsed shapes ("packed").
-    blocked = giant.get("packed_blocked", pairs["packed"])
+    # packed_blocked runs K8's kernel: at the giant window of a fifth of
+    # --giant-spans, else at the config-5 packed_blocked run's shapes.
+    blocked = giant.get("packed_blocked", pairs["packed_blocked"])
     pcsr = giant.get("pcsr", per_step["pcsr"])
     # Times are CUDA events around one call behind a device spin (the
     # kernel's own time; torch.profiler's summed device time misreads
@@ -2195,13 +2327,15 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:605",
-            "launches": sum(c["pattern_launches"] for k, c in launches.items()
-                            if k.endswith("/packed_blocked")),
+            "launches": sum(c["blocked_launches"] for c in launches.values()),
             "max_abs_err": blocked["max_abs_err"],
-            # One step (one launch, both partitions, both directions, f32)
-            # at the giant window's shapes; library_ms is four f32
-            # torch.matmul calls over the unpacked matrices.
+            # One step (one launch of K8's kernel, both partitions, both
+            # directions, f32) at the giant window's shapes; library_ms is
+            # four f32 torch.matmul calls over the unpacked matrices;
+            # previous_design_ms the tile kernel (K4's) on the same
+            # inputs in the same run.
             "ms": blocked["ms"],
+            "previous_design_ms": blocked["previous_design_ms"],
             "plain_ms": blocked["plain_ms"],
             "bound_ms": blocked["bound_ms"],
             "bound_by": blocked["bound_by"],

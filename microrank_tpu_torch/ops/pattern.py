@@ -9,7 +9,9 @@ kind columns, f32, bf16 or int8 operands), the packed branch's coverage
 pair (K4: a big-endian bitmap [V, ceil(T/8)], ``np.packbits`` order),
 and the packed_blocked branch's (K8: K4's function in f32, which XLA
 computed over column blocks of the bitmap so that the unpacked matrix
-never exceeds ``packed_block_bytes``). Per partition, with op by
+never exceeds ``packed_block_bytes``; a kernel of its own,
+``pattern_pair_blocked``, for a group built with ``blocked=True``).
+Per partition, with op by
 precision (``PRECISIONS``): the identity ("f32"), round-to-nearest-even
 to bf16 of the f32 product ("bf16"), or JAX's ``quantize_i8`` ("int8":
 q = clip(round(x / scale), -127, 127), int32 sums, one f32 multiply by
@@ -36,8 +38,9 @@ Steps:
   ``quantize_scales.launches``), ``quantize_scales_plain`` on CPU ones.
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
-  ``pattern_pair_group.launches``, the matvecs in ``.products``) or
-  raises; on CPU tensors it runs ``pattern_pair_plain``, which repeats
+  ``pattern_pair_group.launches``, K8's in ``.blocked_launches`` too,
+  with its fold launch in ``.fold_launches``, the matvecs in
+  ``.products``) or raises; on CPU tensors it runs ``pattern_pair_plain``, which repeats
   the kernel's arithmetic in the kernel's order, so both give the same
   bits.
 
@@ -50,8 +53,9 @@ tiles' sums fold top to bottom. Both depend on the index alone, so
 equal rows and equal columns give bitwise-equal sums, and a band of
 whole column tiles computes its columns' y_bwd and its tiles' part of
 the y_fwd fold exactly as the whole matrix does. int8 sums are exact in
-any order. What bounds the kernel on the card is in the note at the top
-of the CUDA source.
+any order. K8's kernel keeps these orders, skipping the zero cells that
+the tile kernel adds as +0.0, so the same plain version holds both.
+What bounds each kernel on the card is in the notes of the CUDA source.
 
 Memory on the card: the kernel never unpacks. ``pattern_group`` copies
 each bitmap into the kernel's row layout (``_bitmap_rows``), so the
@@ -59,6 +63,10 @@ window's bitmaps sit on the card twice, and the scratch holds
 n_rt * n_ct * (TILE_R + TILE_C) floats per partition, about 31% of a
 bitmap's bytes. At the most that auto sends here (bitmaps of a quarter
 of the 2 GiB dense budget, 512 MiB) that is about 1.2 GiB, which fits.
+K8's kernel (what auto sends there) keeps only the fwd partials,
+n_rt * TILE_R * blocked_ld(n_ct) floats per partition, about 6% of a
+bitmap's bytes, where the partition has BLOCKED_TARGET_BLOCKS column
+tiles or more (the giant windows); with fewer, the bwd partials too.
 """
 
 from __future__ import annotations
@@ -84,6 +92,10 @@ ROW_ALIGN = 16  # bitmap rows are padded to this many bytes (one load)
 # Operand precisions, in the order of the kernel's ``precision`` code.
 PRECISIONS = ("f32", "bf16", "int8")
 MAX_VECS = 4  # int8 operands a step quantizes: 2 partitions x 2 directions
+# K8's kernel takes a block per column tile and group of row tiles; the
+# groups are sized for about this many blocks per partition: two per SM
+# of an H100 (132 SMs). It moves no bit, only the load's spread.
+BLOCKED_TARGET_BLOCKS = 264
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pattern_pair.cu"
 LIB_PATH = BUILD_DIR / "libmr_pattern_pair.so"
 _lib: Optional[ctypes.CDLL] = None
@@ -97,11 +109,19 @@ class PatternPart(NamedTuple):
     w_len: torch.Tensor            # float32[n_cols]
     w_cov: torch.Tensor            # float32[V]
     w_out: Optional[torch.Tensor]  # float32[V]: x_ss is computed when given
-    part: torch.Tensor             # float32[n_rt * n_ct * (TILE_R + TILE_C)] tile partials
-    counters: torch.Tensor         # int32[n_rt + n_ct] stripe arrivals, 0 between launches
+    # The tile kernel's: float32[n_rt * n_ct * (TILE_R + TILE_C)] tile
+    # partials and int32[n_rt + n_ct] stripe arrivals, 0 between
+    # launches. The blocked kernel's (K8): float32 fwd partials
+    # [n_rt * TILE_R, blocked_ld(n_ct)], row-major (``blocked_partials_plain``;
+    # when n_ct > 1), then bwd partials [n_rt, n_ct * TILE_C] (when a
+    # column tile's row tiles are cut into groups), and no counters (its
+    # folds are a launch of their own).
+    part: torch.Tensor
+    counters: torch.Tensor
     dense: Optional[torch.Tensor]  # float32[V, n_cols] 0/1, the plain version's (CPU)
     n_cols: int
     band_cols: int = 0             # plain version's band of whole column tiles; 0: whole
+    rows_per_block: int = 0        # K8: row tiles a block walks (0: the tile kernel's group)
 
 
 class PatternGroup(NamedTuple):
@@ -111,6 +131,8 @@ class PatternGroup(NamedTuple):
     # quantize_amax's scratch: the running maxima, then the arrival
     # count (int32[MAX_VECS + 1], 0 between launches).
     amax_scratch: torch.Tensor
+    # K8 (packed_blocked): launch the blocked kernel, f32 only.
+    blocked: bool = False
 
 
 def unpack_bits(bits: torch.Tensor, n_cols: int, dtype=torch.float32) -> torch.Tensor:
@@ -144,6 +166,35 @@ def _n_col_tiles(n_cols: int) -> int:
     return max(1, -(-n_cols // TILE_C))
 
 
+def blocked_ld(n_ct: int) -> int:
+    """Floats per row of the blocked kernel's fwd partials: n_ct rounded
+    up to 4, so that every row starts 16-byte aligned."""
+    return -(-n_ct // 4) * 4
+
+
+def blocked_rows_per_block(n_rt: int, n_ct: int) -> int:
+    """Row tiles one block of K8's kernel walks: all of them where the
+    partition has BLOCKED_TARGET_BLOCKS column tiles or more, else groups
+    of fewer, so that about that many blocks share the work."""
+    groups = min(n_rt, max(1, -(-BLOCKED_TARGET_BLOCKS // n_ct)))
+    return -(-n_rt // groups)
+
+
+def _scratch(v: int, k: int, blocked: bool, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(partials, counters) of one partition, zeroed (PatternPart.part /
+    .counters)."""
+    n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
+    if blocked:
+        groups = -(-n_rt // blocked_rows_per_block(n_rt, n_ct))
+        n_part = (n_rt * TILE_R * blocked_ld(n_ct) if n_ct > 1 else 0) + (
+            n_rt * n_ct * TILE_C if groups > 1 else 0)
+        n_part, n_count = max(n_part, 1), 0
+    else:
+        n_part, n_count = n_rt * n_ct * (TILE_R + TILE_C), n_rt + n_ct
+    return (torch.zeros(n_part, dtype=torch.float32, device=dev),
+            torch.zeros(n_count, dtype=torch.int32, device=dev))
+
+
 def pattern_group(
     patterns: Sequence[torch.Tensor],
     w_lens: Sequence[torch.Tensor],
@@ -151,6 +202,7 @@ def pattern_group(
     w_outs: Sequence[Optional[torch.Tensor]],
     n_cols: Sequence[int],
     band_bytes: Optional[int] = None,
+    blocked: bool = False,
 ) -> PatternGroup:
     """The per-window half of the pair for 1 or 2 partitions on one
     device: checks shapes and types once, copies every bitmap (uint8,
@@ -158,7 +210,8 @@ def pattern_group(
     allocates the scratch, and on the CPU builds the plain version's 0/1
     matrices — unless ``band_bytes`` is given and a partition's unpacked
     f32 matrix would exceed it: its plain version then works in bands of
-    whole column tiles within ``band_bytes``."""
+    whole column tiles within ``band_bytes``. ``blocked`` (packed_blocked):
+    the group launches K8's kernel, with its own scratch."""
     if not 1 <= len(patterns) <= 2:
         raise ValueError("pattern_group: 1 or 2 partitions")
     dev = patterns[0].device
@@ -181,6 +234,7 @@ def pattern_group(
             raise ValueError("pattern_group: every tensor must lie on one device")
         pat = _bitmap_rows(pat, k)
         n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
+        part, counters = _scratch(v, k, blocked, dev)
         band = 0
         if band_bytes is not None and 4 * v * k > band_bytes:
             band = max(1, band_bytes // (4 * max(v, 1) * TILE_C)) * TILE_C
@@ -189,15 +243,17 @@ def pattern_group(
             w_len=w_len.contiguous(),
             w_cov=w_cov.contiguous(),
             w_out=None if w_out is None else w_out.contiguous(),
-            part=torch.zeros(n_rt * n_ct * (TILE_R + TILE_C), dtype=torch.float32, device=dev),
-            counters=torch.zeros(n_rt + n_ct, dtype=torch.int32, device=dev),
+            part=part,
+            counters=counters,
             dense=unpack_bits(pat, k) if dev.type == "cpu" and not band else None,
             n_cols=k,
             band_cols=band,
+            rows_per_block=blocked_rows_per_block(n_rt, n_ct) if blocked else 0,
         ))
     return PatternGroup(
         parts=tuple(parts),
         amax_scratch=torch.zeros(MAX_VECS + 1, dtype=torch.int32, device=dev),
+        blocked=blocked,
     )
 
 
@@ -277,16 +333,11 @@ def _op(x: torch.Tensor, precision: str) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) if precision == "bf16" else x
 
 
-def fwd_plain(
-    m: torch.Tensor, a: torch.Tensor, y: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """y[r] = sum_c m[r, c] * a[c] in the kernel's order: in each column
-    tile of TILE_C, lane l sums columns LANE_COLS * l .. in order and the
-    shuffle tree 16, 8, 4, 2, 1 sums the lanes; then the column tiles'
-    sums fold left to right. Zero cells add +0.0, which the kernel
-    selects instead: the same bits. ``y``: the fold of the column tiles
-    left of ``m``, when ``m`` is a band of whole tiles of a wider
-    matrix."""
+def fwd_tile_sums(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """float32[V, n_ct]: each row's sum over each column tile of TILE_C
+    in the kernels' order: lane l sums columns LANE_COLS * l .. in order
+    and the shuffle tree 16, 8, 4, 2, 1 sums the lanes. Zero cells add
+    +0.0, which the kernels select or skip instead: the same bits."""
     v, k = m.shape
     n_ct = _n_col_tiles(k)
     prod = torch.zeros((v, n_ct * TILE_C), dtype=torch.float32, device=m.device)
@@ -299,10 +350,21 @@ def fwd_plain(
     while off:
         lanes = lanes[..., :off] + lanes[..., off: 2 * off]
         off //= 2
+    return lanes[..., 0]
+
+
+def fwd_plain(
+    m: torch.Tensor, a: torch.Tensor, y: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """y[r] = sum_c m[r, c] * a[c] in the kernel's order: the column
+    tiles' sums (``fwd_tile_sums``) fold left to right. ``y``: the fold
+    of the column tiles left of ``m``, when ``m`` is a band of whole
+    tiles of a wider matrix."""
+    tiles = fwd_tile_sums(m, a)
     if y is None:
-        y = torch.zeros(v, dtype=torch.float32, device=m.device)
-    for j in range(n_ct):
-        y = y + lanes[:, j, 0]
+        y = torch.zeros(m.shape[0], dtype=torch.float32, device=m.device)
+    for j in range(tiles.shape[1]):
+        y = y + tiles[:, j]
     return y
 
 
@@ -354,6 +416,39 @@ def pattern_pair_plain(
             y_fwd, y_bwd = fwd_plain(m, a), bwd_plain(m, b)
         x_ss = None if p.w_out is None else _op(sv * p.w_out, precision)
         out.append((y_fwd, y_bwd, x_ss))
+    return tuple(out)
+
+
+def blocked_partials_plain(
+    group: PatternGroup, rvs: Sequence[torch.Tensor]
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Per partition, the fwd partials as K8's kernel leaves them in
+    ``PatternPart.part`` after a launch: float32[n_rt * TILE_R,
+    blocked_ld(n_ct)], row r's tile sums (``fwd_tile_sums``) in columns
+    0 .. n_ct - 1, zeros elsewhere (rows past V, the padding columns);
+    None for a partition of one column tile (its rows are written
+    directly). Bands of whole column tiles where the part has them."""
+    if len(rvs) != len(group.parts) or any(
+        rv.shape != (p.n_cols,) for p, rv in zip(group.parts, rvs)
+    ):
+        raise ValueError("blocked_partials_plain: one rv of n_cols floats per partition")
+    out = []
+    for p, rv in zip(group.parts, rvs):
+        v, n_ct = p.pattern.shape[0], _n_col_tiles(p.n_cols)
+        if n_ct == 1:
+            out.append(None)
+            continue
+        a = rv * p.w_len
+        band = p.band_cols or n_ct * TILE_C
+        tiles = []
+        for c0 in range(0, p.n_cols, band):
+            k = min(band, p.n_cols - c0)
+            m = unpack_bits(p.pattern[:, c0 // 8: c0 // 8 + -(-k // 8)], k)
+            tiles.append(fwd_tile_sums(m, a[c0: c0 + k]))
+        sums = torch.zeros((_n_row_tiles(v) * TILE_R, blocked_ld(n_ct)),
+                           dtype=torch.float32, device=rv.device)
+        sums[:v, :n_ct] = torch.cat(tiles, dim=1)
+        out.append(sums)
     return tuple(out)
 
 
@@ -416,11 +511,14 @@ def pattern_pair_group(
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], ...]:
     """Per partition (y_fwd, y_bwd, x_ss or None), as views of one flat
     output. CPU tensors run the plain version; CUDA tensors launch the
-    kernel once or raise — there is no fallback for a CUDA tensor. int8
-    takes the step's ``scales`` from ``quantize_scales``. A group is
-    used by one stream at a time (its scratch is shared)."""
+    kernel once or raise — there is no fallback for a CUDA tensor: the
+    tile kernel, or K8's blocked kernel (f32 only) for a ``blocked``
+    group. int8 takes the step's ``scales`` from ``quantize_scales``. A
+    group is used by one stream at a time (its scratch is shared)."""
     # Checks kept cheap: this runs once per power-iteration step.
     dev = rvs[0].device
+    if group.blocked and precision != "f32":
+        raise ValueError(f"pattern_pair: a blocked group runs f32 only, not {precision!r}")
     if dev.type == "cpu":
         return pattern_pair_plain(group, rvs, svs, precision, scales)
     _check_cuda(group, rvs, svs, dev)
@@ -446,19 +544,29 @@ def pattern_pair_group(
             p.part.data_ptr(), p.counters.data_ptr(),
         ]
         ints += [p.pattern.shape[1], p.pattern.shape[0], p.n_cols]
+        if group.blocked:
+            ints.append(p.rows_per_block)
     lib = load_library()
-    rc = lib.mr_pattern_pair(
-        (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int64 * len(ints))(*ints),
-        len(group.parts), PRECISIONS.index(precision),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_int64 * len(ints))(*ints)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if group.blocked:
+        rc = lib.mr_pattern_pair_blocked(c_ptrs, c_ints, len(group.parts), index, stream)
+    else:
+        rc = lib.mr_pattern_pair(c_ptrs, c_ints, len(group.parts),
+                                 PRECISIONS.index(precision), index, stream)
     if rc != 0:
         raise RuntimeError(
             f"pattern_pair launch failed: {lib.mr_pattern_error_string(rc).decode()}"
         )
     pattern_pair_group.launches += 1
+    if group.blocked:
+        pattern_pair_group.blocked_launches += 1
+        pattern_pair_group.fold_launches += any(
+            _n_col_tiles(p.n_cols) > 1 or p.rows_per_block < _n_row_tiles(p.pattern.shape[0])
+            for p in group.parts
+        )
     pattern_pair_group.products += 2 * len(group.parts)
     return tuple(
         (outs[3 * i], outs[3 * i + 1], outs[3 * i + 2] if p.w_out is not None else None)
@@ -466,10 +574,15 @@ def pattern_pair_group(
     )
 
 
-# Counts of the kernel's launches and of the matvecs they computed (two
-# per partition; plain ints, pattern_pair_group is the one place that
+# Counts of the pair's calls (one launch of the tile kernel or of K8's
+# blocked kernel each), of K8's blocked kernel's launches and of its fold
+# launches (one after it where a partition has more than one column
+# tile or group of row tiles), and of the matvecs computed (two per
+# partition; plain ints, pattern_pair_group is the one place that
 # launches).
 pattern_pair_group.launches = 0
+pattern_pair_group.blocked_launches = 0
+pattern_pair_group.fold_launches = 0
 pattern_pair_group.products = 0
 
 
@@ -512,6 +625,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int32, ctypes.c_int32,                       # n_parts, precision
         ctypes.c_int, ptr,                                    # device, stream
     ]
+    lib.mr_pattern_pair_blocked.restype = ctypes.c_int
+    lib.mr_pattern_pair_blocked.argtypes = [
+        ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, ints
+        ctypes.c_int32, ctypes.c_int, ptr,                    # n_parts, device, stream
+    ]
     lib.mr_quantize_amax.restype = ctypes.c_int
     lib.mr_quantize_amax.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, lengths
@@ -530,8 +648,12 @@ __all__ = [
     "TILE_R",
     "PatternGroup",
     "PatternPart",
+    "blocked_ld",
+    "blocked_rows_per_block",
+    "blocked_partials_plain",
     "bwd_plain",
     "fwd_plain",
+    "fwd_tile_sums",
     "pattern_group",
     "pattern_pair_group",
     "pattern_pair_plain",

@@ -23,9 +23,12 @@ partitions) take one or two launches, built for the window by
   kind columns or of the traces), then both call-graph terms over the
   call-edge list in one K1 call. ``kind`` with
   ``kind_precision="int8"`` first makes one launch for the step's four
-  operand scales (``ops.pattern.quantize_scales``). ``packed_blocked`` is ``packed`` (f32) on windows
-  whose unpacked matrices exceed the dense budget: K4 never unpacks the
-  bitmap, so only its plain version (the CPU path) works in bands.
+  operand scales (``ops.pattern.quantize_scales``). ``packed_blocked`` is
+  ``packed``'s function (f32) on windows whose unpacked matrices exceed
+  the dense budget, through K8's own kernel (a group built with
+  ``blocked=True``: per set bit, a block per column tile); neither
+  kernel unpacks the bitmap, so only the plain version (the CPU path)
+  works in bands.
 
 On the card each call is one launch of a CUDA kernel, on the CPU its
 plain version. The loop issues device work only — no step reads a value
@@ -365,8 +368,9 @@ def window_pattern_group(
 ) -> PatternGroup:
     """Both partitions' coverage bitmaps as one pattern-pair launch reads
     them, over the padded trace (or kind) axis: K2 reads the kind build's
-    bitmap, K4 the packed build's. Under "packed_blocked" the plain
-    version unpacks bands of at most ``packed_block_bytes``."""
+    bitmap, K4 the packed build's. Under "packed_blocked" the group
+    launches K8's own kernel (``blocked``), and the plain version unpacks
+    bands of at most ``packed_block_bytes``."""
     parts = (graph.normal, graph.abnormal)
     if kernel == "kind":
         if not all(has_kind_views(g) for g in parts):
@@ -390,6 +394,7 @@ def window_pattern_group(
         w_outs,
         [g.kind.shape[0] for g in parts],
         band_bytes=packed_block_bytes if kernel == "packed_blocked" else None,
+        blocked=kernel == "packed_blocked",
     )
 
 

@@ -410,3 +410,89 @@ def test_pinned_fetch_equals_cpu_copy(cuda_device):
     got = unpack_rank_outputs(packed)
     for g, t in zip(got, outs):
         np.testing.assert_array_equal(np.asarray(g), t.cpu().numpy())
+
+
+def blocked_case(seed, v, k, density, device):
+    """Two partitions (the second narrower) of a bitmap of ``density``
+    (1.0: every bit), with a zero row and, past one column tile, a zero
+    column tile. Returns K8's blocked group and the tile kernel's group
+    on ``device``, the blocked group on the CPU, and rv / sv on the
+    device and on the CPU."""
+    rng = np.random.default_rng(seed)
+    host, dev, cols = [], [], []
+    for part in range(2):
+        kk = k if part == 0 else k // 3 + 5
+        m = (rng.random((v, kk)) < density).astype(np.uint8)
+        if density < 1.0:
+            m[v // 3] = 0
+            if kk > pattern.TILE_C:
+                m[:, pattern.TILE_C: 2 * pattern.TILE_C] = 0
+        arrays = [torch.from_numpy(np.packbits(m, axis=1))] + [
+            torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+            for n in (kk, v, v, kk, v)  # w_len, w_cov, w_out, rv, sv
+        ]
+        host.append(arrays)
+        dev.append([a.to(device) for a in arrays])
+        cols.append(kk)
+
+    def group(parts, blocked):
+        return pattern.pattern_group(
+            [a[0] for a in parts], [a[1] for a in parts], [a[2] for a in parts],
+            [a[3] for a in parts], cols, blocked=blocked,
+        )
+
+    return (group(dev, True), group(dev, False), group(host, True),
+            [a[4] for a in dev], [a[5] for a in dev], [a[4] for a in host], [a[5] for a in host])
+
+
+def flat_pair(outs):
+    return torch.cat([t for pair in outs for t in pair if t is not None])
+
+
+@pytest.mark.parametrize("density", [0.002, 0.02, 0.5, 1.0])
+@pytest.mark.parametrize("v,k", [
+    (100, 400), (129, 513), (1000, 300), (100, 5000), (300, 2100), (300, 140_000),
+])
+def test_blocked_kernel_is_bitwise_plain_and_tile_kernel(cuda_device, v, k, density):
+    # One and many row and column tiles, ragged edges (129 x 513), row
+    # tiles cut into groups (most shapes) or walked by one block each
+    # (300 x 140,000: past BLOCKED_TARGET_BLOCKS column tiles):
+    # K8's kernel against its plain version on the CPU and against the
+    # tile kernel in f32 on the same inputs, bitwise; its fwd partials
+    # as blocked_partials_plain lays them out; a fold launch after it
+    # where a partition has more than one column tile.
+    blocked, tiled, cpu, rvs, svs, c_rvs, c_svs = blocked_case(11, v, k, density, cuda_device)
+    g = pattern.pattern_pair_group
+    before = (g.launches, g.blocked_launches, g.fold_launches)
+    got = pattern.pattern_pair_group(blocked, rvs, svs)
+    torch.cuda.synchronize()
+    folds = int(any(p.n_cols > pattern.TILE_C or p.rows_per_block * pattern.TILE_R < v
+                    for p in blocked.parts))
+    assert (g.launches, g.blocked_launches, g.fold_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + folds)
+    ref = pattern.pattern_pair_plain(cpu, c_rvs, c_svs)
+    assert torch.equal(flat_pair(got).cpu(), flat_pair(ref))
+    assert torch.equal(flat_pair(got), flat_pair(pattern.pattern_pair_group(tiled, rvs, svs)))
+    for p, want in zip(blocked.parts, pattern.blocked_partials_plain(cpu, c_rvs)):
+        if want is not None:
+            assert torch.equal(p.part[: want.numel()].view(want.shape).cpu(), want)
+        assert p.counters.numel() == 0  # no arrival counters to reset
+
+
+def test_blocked_kernel_repeatable_over_50_launches(cuda_device):
+    # Every launch writes every partial it folds: scratch poisoned with
+    # NaN between launches changes no bit of the result.
+    blocked, _, _, rvs, svs, _, _ = blocked_case(12, 2048, 40_000, 0.002, cuda_device)
+    first = flat_pair(pattern.pattern_pair_group(blocked, rvs, svs))
+    for i in range(50):
+        if i % 10 == 0:
+            for p in blocked.parts:
+                p.part.fill_(float("nan"))
+        assert torch.equal(flat_pair(pattern.pattern_pair_group(blocked, rvs, svs)), first)
+    torch.cuda.synchronize()
+
+
+def test_blocked_group_runs_f32_only(cuda_device):
+    blocked, _, _, rvs, svs, _, _ = blocked_case(13, 64, 700, 0.02, cuda_device)
+    with pytest.raises(ValueError, match="f32 only"):
+        pattern.pattern_pair_group(blocked, rvs, svs, "bf16")
