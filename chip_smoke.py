@@ -12,15 +12,18 @@ It drives only the port (``microrank_tpu_torch``) and imports nothing of
 JAX or of the JAX package. Phases, one JSON line each:
 
 1. env      — the card, its power limit, the kernels built from the
-              sources in this checkout (nvcc for ``csrc/coo_spmv.cu`` and
-              ``csrc/pattern_pair.cu``, g++ for the native span loader /
-              graph builder, all at once), and one tiny launch of K1 (a
+              sources in this checkout (nvcc for ``csrc/coo_spmv.cu``,
+              ``csrc/pattern_pair.cu`` and ``csrc/power_step.cu``, g++ for
+              the native span loader / graph builder, all at once), and
+              one tiny launch of K1 (a
               row of several chunks, empty rows, padding), of the pcsr
               step (that work list with ELL slabs of widths 4 and 1024,
               then 1 and 64: rows past 256 entries, empty rows) and of
               the pattern pair (f32, bf16 and int8 with its scale launch,
               and K8's kernel in f32; several tiles with ragged edges)
-              held bitwise against their
+              and chains of three steps of the step kernel (K5: default,
+              no normalization, a tol that freezes, an empty partition,
+              the int8 scales) held bitwise against their
               plain versions; and the two device timers (torch.profiler,
               CUDA events) on a 1 GiB device copy;
 2. data     — one detection window at bench.py's config-5 scale
@@ -31,9 +34,16 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``kernel="pallas"``, collapse_kinds "auto" and "off": top-1
               is the injected fault, K1 launches once per power-iteration
               step (25 per ranked window) and computes 2 partitions x 3
-              SpMVs in each launch (150 per ranked window), and the CUDA
+              SpMVs in each launch (150 per ranked window), the step
+              kernel twice per step (50 per ranked window, on every
+              route below too), and the CUDA
               run agrees tie-aware (rtol 1e-5) with the same run on the
-              CPU;
+              CPU; on every route the window, staged once, is run again
+              with the plain step (``power_step_plain``) on the card:
+              weights, vectors, residual trace, n_iters and ranking
+              bitwise; the rank program timed whole by CUDA events behind
+              a device spin (``rank_program_event_ms``) beside the host's
+              time to issue it (``rank_program_host_ms``);
 4. run      — the same with the default ``kernel="auto"``: collapse
               "auto" resolves to ``kind`` (K2), "off" to ``packed_bf16``
               (K4). Per ranked window 25 pattern-pair launches and 25 K1
@@ -49,9 +59,10 @@ JAX or of the JAX package. Phases, one JSON line each:
               K1 launch), CUDA vs CPU at rtol 1e-5, and pcsr's ranking
               bitwise the pinned pallas run's;
    int8     — the same window with ``kind_precision="int8"``, auto,
-              collapse "on" (resolves to ``kind``): per ranked window 25
-              scale launches (``quantize_amax``), 25 int8 pair launches
-              and 25 K1 launches of 2 SpMVs; top-1 the fault; the top-5
+              collapse "on" (resolves to ``kind``): per ranked window one
+              scale launch (``quantize_amax``, the first step's scales;
+              the step kernel gives every later step's), 25 int8 pair
+              launches and 25 K1 launches of 2 SpMVs; top-1 the fault; the top-5
               tie-aware against the CPU run at rtol 5e-2 (JAX's own int8
               gate), the same n_iters;
    policy   — a ``policy.json`` in the JAX package's schema for the
@@ -132,6 +143,16 @@ JAX or of the JAX package. Phases, one JSON line each:
               the same inputs and timed in turns with it, its fwd
               partials bitwise their plain layout; plus a sweep of K4 over
               one-partition bitmaps of four shapes;
+   step     — K5 at the config-5 ``kind`` window's shapes and the int8
+              window's (``measure_step``): one step bitwise its plain
+              version on the card, chains of 25 steps (50 launches)
+              bitwise with the default configuration, a tol, an empty
+              partition, no normalization and (int8) the fused scales;
+              timed by CUDA events behind a spin beside the plain step,
+              the byte bound and the host's issue time; the kind window
+              with a tol that stops it early, and a giant-tier window of
+              262,144 spans with its normal partition empty (NaN, and a
+              tol run that stops after one step), bitwise the plain step;
 8. giant    — bench.py's giant-window tier (2048 operations, 4 spans a
               trace) from the port's ``testing.giant_window``, at the
               default 2 GiB budget: 2,097,152 spans (auto must resolve to
@@ -149,7 +170,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               bitmaps of 2%, 50% and 100% from a seeded generator, the
               two kernels bitwise each other and timed; for
               pcsr, ``measure_pcsr`` as in phase 6, against the pallas
-              work list of the 10M-span window too). ``--giant-spans``
+              work list of the 10M-span window too); the window through
+              the plain step, bitwise, and K5 measured at its shapes
+              (the kernels line's ``power_step`` at 10M). ``--giant-spans``
               sets the larger window (the smaller holds a fifth, the
               budget scales with it); 0 skips the phase.
 
@@ -188,6 +211,7 @@ RUN_RTOL = 1e-5
 RUN_RTOL_BF16 = 5e-3  # bf16 operands (packed_bf16, kind_precision="bf16")
 RUN_RTOL_INT8 = 5e-2  # int8 operands: JAX's own int8 gate, over the top-5
 STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
+STEP_LAUNCHES = 2  # the step kernel's launches per step (K5: max, then apply)
 SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
 SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
 REPEATS = 50  # back-to-back launches that must give the first one's bits
@@ -237,15 +261,21 @@ def check(cond, msg) -> None:
 
 def reset_counts(spmv, pattern) -> None:
     """Every wrapper's launch count to 0, just before a main path runs."""
+    from microrank_tpu_torch.ops import step
+
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
     pattern.pattern_pair_group.launches = pattern.pattern_pair_group.products = 0
     pattern.pattern_pair_group.blocked_launches = pattern.pattern_pair_group.fold_launches = 0
     pattern.quantize_scales.launches = 0
+    step.power_step.launches = 0
 
 
 def read_counts(spmv, pattern) -> dict:
+    from microrank_tpu_torch.ops import step
+
     return {
+        "step_launches": step.power_step.launches,
         "k1_launches": spmv.coo_spmv.launches,
         "k1_spmvs": spmv.coo_spmv.spmvs,
         "pcsr_launches": spmv.pcsr_spmv_group.launches,
@@ -263,11 +293,14 @@ def expected_counts(kernel, n, int8=False) -> dict:
     launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
     SpMVs), or of the pattern pair (four products; packed_blocked's
     through K8's own kernel, counted in blocked_launches too, and its
-    fold launch) and K1 (the two call-graph terms), with ``int8`` (kind)
-    one scale launch per step before the pair."""
-    counts = dict.fromkeys(("k1_launches", "k1_spmvs", "pcsr_launches", "pcsr_spmvs",
-                            "pattern_launches", "pattern_products", "blocked_launches",
-                            "fold_launches", "quantize_launches"), 0)
+    fold launch) and K1 (the two call-graph terms); on every route two
+    launches per step of the step kernel (K5); with ``int8`` (kind) one
+    scale launch per window, for the first step (the step kernel takes
+    every later step's scales)."""
+    counts = dict.fromkeys(("step_launches", "k1_launches", "k1_spmvs", "pcsr_launches",
+                            "pcsr_spmvs", "pattern_launches", "pattern_products",
+                            "blocked_launches", "fold_launches", "quantize_launches"), 0)
+    counts["step_launches"] = STEP_LAUNCHES * STEPS * n
     if kernel == "pallas":
         counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
@@ -277,7 +310,7 @@ def expected_counts(kernel, n, int8=False) -> dict:
                       pattern_launches=STEPS * n, pattern_products=STEPS * 4 * n,
                       blocked_launches=STEPS * n if kernel == "packed_blocked" else 0,
                       fold_launches=STEPS * n if kernel == "packed_blocked" else 0,
-                      quantize_launches=STEPS * n if int8 else 0)
+                      quantize_launches=n if int8 else 0)
     return counts
 
 
@@ -381,9 +414,55 @@ def tiny_pcsr_checks(torch, spmv, dev, layout, x):
     return n
 
 
+def tiny_step_checks(torch, pattern, dev):
+    """First launches of the step kernel (K5): two partitions of 7 x 9
+    and 300 x 1,100 elements (one block, and several blocks a vector)
+    over chains of three steps, with the default configuration, without
+    normalization, with a tol that freezes after the first step, with
+    an empty partition, and with the int8 scales (a tiny pattern group's
+    weights), against the plain version on the card, bitwise. Returns
+    the number of cases."""
+    import numpy as np
+
+    from microrank_tpu_torch.ops import step
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sizes = [(7, 9), (300, 1100)]
+    g = torch.Generator().manual_seed(3)
+    group = pattern.pattern_group(
+        [torch.from_numpy(np.packbits((torch.rand((v, t), generator=g) < 0.4).numpy()
+                                      .astype(np.uint8), axis=1)).to(dev) for v, t in sizes],
+        [torch.rand(t, generator=g).to(dev) for _, t in sizes],
+        [torch.rand(v, generator=g).to(dev) for v, _ in sizes],
+        [None, None], [t for _, t in sizes],
+    )
+    n = 0
+    for tol, normalize, empty, scales in ((None, True, (), False), (None, False, (), False),
+                                          ("half", True, (), False), (1e-4, True, (1,), False),
+                                          (None, True, (), True)):
+        products, carry, prefs = random_step_inputs(torch, gen, sizes, dev, empty)
+        if tol == "half":
+            plan = step.step_plan(prefs, 0.01, 0.85, None, True, step.step_scratch(dev))
+            res = torch.zeros((2, 1), device=dev)
+            step.power_step_plain(plan, products, carry, res, 0)
+            tol = float(res.max()) / 2
+        plan = step.step_plan(prefs, 0.01, 0.85, tol, normalize, step.step_scratch(dev),
+                              group if scales else None)
+        a = step_chain(torch, step.power_step, plan, products, carry, 3, scales)
+        b = step_chain(torch, step.power_step_plain, plan, products, carry, 3, scales)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"tiny step-kernel chain (tol={tol}, normalize={normalize}, "
+                                 f"empty={empty}, int8={scales}) differs from its plain version")
+        check(not plan.scratch.any(), "the step kernel left its scratch non-zero")
+        n += 1
+    return n
+
+
 def phase_env(torch, spmv, pattern, native):
-    # Build the three libraries from the checkout's sources, in parallel.
-    for lib in (spmv.LIB_PATH, pattern.LIB_PATH, native.LIB_PATH):
+    from microrank_tpu_torch.ops import step
+
+    # Build the four libraries from the checkout's sources, in parallel.
+    for lib in (spmv.LIB_PATH, pattern.LIB_PATH, step.LIB_PATH, native.LIB_PATH):
         lib.unlink(missing_ok=True)
 
     def timed(fn):
@@ -391,15 +470,18 @@ def phase_env(torch, spmv, pattern, native):
         report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         f_cuda = pool.submit(timed, spmv.build_library)
         f_pattern = pool.submit(timed, pattern.build_library)
+        f_step = pool.submit(timed, step.build_library)
         f_host = pool.submit(timed, native.build_library)
         cuda_s, ptxas = f_cuda.result()
         pattern_s, ptxas_pattern = f_pattern.result()
+        step_s, ptxas_step = f_step.result()
         host_s, _ = f_host.result()
     spmv.load_library()
     pattern.load_library()
+    step.load_library()
 
     # First launch: a tiny ragged matrix (empty rows, a 700-entry row of
     # three chunks, padding) against the plain version, before anything
@@ -422,6 +504,7 @@ def phase_env(torch, spmv, pattern, native):
     check(tiny_bitwise, "tiny K1 launch differs from its plain version")
     n_pcsr = tiny_pcsr_checks(torch, spmv, dev, host_lay, x)
     n_pattern = tiny_pattern_checks(torch, pattern, dev)
+    n_step = tiny_step_checks(torch, pattern, dev)
     timers = timer_check(torch)
     return {
         "phase": "env",
@@ -433,13 +516,16 @@ def phase_env(torch, spmv, pattern, native):
         "python": sys.version.split()[0],
         "build_s": {"nvcc_coo_spmv": round(cuda_s, 3),
                     "nvcc_pattern_pair": round(pattern_s, 3),
+                    "nvcc_power_step": round(step_s, 3),
                     "gxx_native": round(host_s, 3)},
         "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas" in ln],
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
                                if "ptxas" in ln],
+        "ptxas_power_step": [ln.strip() for ln in ptxas_step.splitlines() if "ptxas" in ln],
         "tiny_launch_bitwise_vs_plain": tiny_bitwise,
         "tiny_pcsr_launches_bitwise_vs_plain": n_pcsr,
         "tiny_pattern_cases_bitwise_vs_plain": n_pattern,
+        "tiny_step_chains_bitwise_vs_plain": n_step,
         "timer_check_1gib_copy": timers,
     }
 
@@ -522,13 +608,18 @@ def rank_device_fields(rank_device, rank_wall_ms):
     """The rank program's device time by torch.profiler and by CUDA
     events around the program queued behind a long device spin (an upper
     bound: where its launches outrun the stream's queue, its tail may
-    wait on the host), each with its share of the program's wall time."""
-    prof, events = rank_device
+    wait on the host), each with its share of the program's wall time;
+    and the program whole as ``rank_program_event_ms`` (the events'
+    time) beside ``rank_program_host_ms`` (the host's time to issue it,
+    behind the same spin)."""
+    prof, (events, host) = rank_device
     out = {}
     for key, t in (("rank_device_ms", prof), ("rank_device_event_ms", events)):
         out[key] = None if t is None else round(t, 4)
         share = key.replace("_ms", "_busy_share")
         out[share] = None if t is None else round(t / rank_wall_ms, 4)
+    out["rank_program_event_ms"] = events
+    out["rank_program_host_ms"] = host
     return out
 
 
@@ -577,8 +668,9 @@ def window_breakdown(torch, cfg, normal, abnormal, start_iso):
 
     outs = stage("rank_issue_and_run", rank)
     stage("fetch", lambda: fetch_rank_outputs(outs))
-    rank_device = (device_ms(torch, rank, 3), spin_event_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
-    return graph, kernel, ms, rank_device
+    rank_device = (device_ms(torch, rank, 3),
+                   spin_event_host_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
+    return graph, kernel, ms, rank_device, dgraph
 
 
 def budget_inequalities(graph, budget):
@@ -667,9 +759,12 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         if rg.ranking:
             check(rg.ranking[0][0] == rc.ranking[0][0], "top-1 differs between CUDA and CPU")
 
-    graph, _, stages, rank_device = window_breakdown(
+    graph, _, stages, rank_device, dgraph = window_breakdown(
         torch, cfg, normal, abnormal, ranked[0].start
     )
+    # The window through the plain step on the card: bitwise.
+    plain_step = plain_step_check(torch, dgraph, cfg, want)
+    del dgraph
     rank_wall = stages["rank_issue_and_run"]
     return graph, counts[-1], res_gpu, {
         "phase": "run",
@@ -690,6 +785,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "pcsr_launches_per_ranked_window": counts[-1]["pcsr_launches"] // n,
         "pattern_launches_per_ranked_window": counts[-1]["pattern_launches"] // n,
         "quantize_launches_per_ranked_window": counts[-1]["quantize_launches"] // n,
+        "step_launches_per_ranked_window": counts[-1]["step_launches"] // n,
         "cuda_vs_cpu_tie_aware": True,
         "cuda_vs_cpu_rtol": rtol,
         "cuda_vs_cpu_top_k": top_k or "all",
@@ -701,6 +797,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "cuda_window_timings_ms": ranked[0].timings,
         "stage_ms": stages,
         **rank_device_fields(rank_device, rank_wall),
+        "plain_step": plain_step,
         "cpu_wall_s": round(cpu_s, 4),
     }
 
@@ -1364,19 +1461,29 @@ def spin_event_ms(torch, fn, reps, cycles=None):
     queued behind a device-side spin of ``cycles`` (SPIN_CYCLES, ~2 ms)
     so that the host's issue time never shows between the events: the
     median over ``reps`` calls. ``fn`` must not wait on the device."""
+    return spin_event_host_ms(torch, fn, reps, cycles)[0]
+
+
+def spin_event_host_ms(torch, fn, reps, cycles=None):
+    """``spin_event_ms`` and, beside it, the host's time to issue one
+    call (the host clock around ``fn`` while the device spins, so no
+    wait on the device is in it): (event ms, host ms), medians over
+    ``reps`` calls."""
     fn()
     torch.cuda.synchronize()
-    pairs = []
+    pairs, host = [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles or SPIN_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         stop.record()
         pairs.append((start, stop))
     torch.cuda.synchronize()
-    return _median([a.elapsed_time(b) for a, b in pairs])
+    return _median([a.elapsed_time(b) for a, b in pairs]), _median(host)
 
 
 def timer_check(torch):
@@ -1967,6 +2074,229 @@ def phase_pattern(torch, pattern, graphs):
     return out
 
 
+def bits(torch, t):
+    """A tensor's bits, for bitwise comparison (NaN included)."""
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def plain_step_check(torch, dgraph, cfg, kernel):
+    """One window (its layouts staged) through the step kernel and
+    through the plain step (``power_step_plain``) on the card: the
+    weights, carried vectors, score vectors, residual trace and n_iters
+    of ``window_weights_full``, and the ranking of
+    ``rank_window_traced_core``, must be bitwise equal. Returns what it
+    compared."""
+    import numpy as np
+
+    from microrank_tpu_torch.ops import step
+    from microrank_tpu_torch.rank_backends import torch_cuda
+
+    def run():
+        weights = torch_cuda.window_weights_full(dgraph, cfg.pagerank, kernel)
+        ranked = torch_cuda.fetch_rank_outputs(torch_cuda.rank_window_traced_core(
+            dgraph, cfg.pagerank, cfg.spectrum, kernel))
+        return weights, ranked
+
+    got = run()
+    saved = torch_cuda.power_step
+    torch_cuda.power_step = step.power_step_plain
+    try:
+        want = run()
+    finally:
+        torch_cuda.power_step = saved
+    torch.cuda.synchronize()
+    names = ("n_weight", "a_weight", "rv_n", "rv_a", "residuals", "n_iters", "score_n",
+             "score_a")
+    for name, a, b in zip(names, got[0], want[0]):
+        check(torch.equal(bits(torch, a), bits(torch, b)),
+              f"{kernel}: {name} through the step kernel differs from the plain step")
+    for name, a, b in zip(("top_idx", "top_scores", "n_valid", "residuals", "n_iters"),
+                          got[1], want[1]):
+        check(np.asarray(a).tobytes() == np.asarray(b).tobytes(),
+              f"{kernel}: {name} of the ranking differs from the plain step's")
+    check(not dgraph.step_scratch.any(), f"{kernel}: the step kernel left its scratch non-zero")
+    residuals = got[1][3]
+    return {
+        "bitwise_vs_plain_step": True,
+        "compared": list(names) + ["top_idx", "top_scores", "n_valid"],
+        "n_iters": int(got[1][4]),
+        "final_residual": [float(x) for x in residuals[:, max(int(got[1][4]) - 1, 0)]],
+        "any_nan": bool(torch.isnan(got[0][0]).any() or torch.isnan(got[0][1]).any()),
+    }
+
+
+def random_step_inputs(torch, gen, sizes, dev, empty=()):
+    """Per partition (V, T) = sizes[p]: the step's products (y_sr,
+    y_ss, y_rs), its carry (sv, rv) and pref, uniform in [0, 1); a
+    partition in ``empty`` all zeros (empty at its pad)."""
+    products, carry, prefs = [], [], []
+    for p, (v, t) in enumerate(sizes):
+        vecs = [torch.rand(n, generator=gen, device=dev) for n in (v, v, t, t, v, t)]
+        if p in empty:
+            vecs = [torch.zeros_like(x) for x in vecs]
+        products.append(tuple(vecs[:3]))
+        prefs.append(vecs[3])
+        carry.append((vecs[4], vecs[5]))
+    return tuple(products), tuple(carry), prefs
+
+
+def step_chain(torch, fn, plan, products, carry, n_steps, want_scales=False):
+    """``n_steps`` steps of ``fn`` (power_step or power_step_plain) on
+    fixed products from ``carry``: every carry and scale, the residuals,
+    n_iters and the running flag, as the int32 bits of one tensor."""
+    dev = carry[0][0].device
+    residuals = torch.zeros((2, n_steps), dtype=torch.float32, device=dev)
+    n_iters = running = None
+    if plan.tol is not None:
+        n_iters = torch.zeros((), dtype=torch.int32, device=dev)
+        running = torch.ones((), dtype=torch.bool, device=dev)
+    out = []
+    for i in range(n_steps):
+        carry, scales = fn(plan, products, carry, residuals, i, n_iters, running,
+                           want_scales and i + 1 < n_steps)
+        out += [t for part in carry for t in part] + ([] if scales is None else [scales])
+    out = [torch.cat(out + [residuals.reshape(-1)]).view(torch.int32)]
+    if n_iters is not None:
+        out += [n_iters.reshape(1), running.to(torch.int32).reshape(1)]
+    return torch.cat(out)
+
+
+def step_bound(sizes):
+    """(bytes, bytes ms) of one step of both partitions: y_sr, y_ss, sv
+    (V floats each), y_rs, pref, rv (T each) read once, sv', rv' written
+    once; the scalars and the residual column are noise."""
+    nbytes = sum(16 * (v + t) for v, t in sizes)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def measure_step(torch, name, sizes, reps, scale_group=None):
+    """Check and time one power-iteration step's tail (both partitions)
+    at ``sizes`` ((V, T) per partition, the window's) on random
+    products: the kernel bitwise its plain version on the card for one
+    step, and over chains of 25 steps (50 launches) with the default
+    configuration, with a tol (running, then frozen), with the first
+    partition empty, and without normalization; with ``scale_group``
+    (the int8 window's pattern group) the fused int8 scales of every
+    step too. Timed (CUDA events behind a spin, both launches) beside
+    the plain version and the byte bound; the host's time to issue
+    one call beside."""
+    from microrank_tpu_torch.config import PageRankConfig
+    from microrank_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cfg = PageRankConfig()
+    products, carry, prefs = random_step_inputs(torch, gen, sizes, dev)
+
+    def plan_of(prefs_, tol=None, normalize=True, group=None):
+        return step.step_plan(prefs_, cfg.call_weight, cfg.damping, tol, normalize,
+                              step.step_scratch(dev), group)
+
+    plan = plan_of(prefs)
+    res_k = torch.zeros((2, STEPS), dtype=torch.float32, device=dev)
+    res_p = torch.zeros_like(res_k)
+    new_k, _ = step.power_step(plan, products, carry, res_k, 0)
+    new_p, _ = step.power_step_plain(plan, products, carry, res_p, 0)
+    torch.cuda.synchronize()
+    flat_k = torch.cat([t for part in new_k for t in part] + [res_k.reshape(-1)])
+    flat_p = torch.cat([t for part in new_p for t in part] + [res_p.reshape(-1)])
+    check(torch.equal(bits(torch, flat_k), bits(torch, flat_p)),
+          f"{name}: the step kernel differs from its plain version")
+    err = float((flat_k - flat_p).abs().max())
+    # Chains of 25 steps (50 launches) on fixed products: every step
+    # after the first gives the same vectors (residual 0), so a tol of
+    # half the first residual runs one step and freezes the rest.
+    tol = float(res_p[:, 0].max()) / 2
+    e_products, e_carry, e_prefs = random_step_inputs(torch, gen, sizes, dev, empty=(0,))
+    chains = {
+        "default": (plan, products, carry, False),
+        "tol": (plan_of(prefs, tol), products, carry, False),
+        "empty_partition": (plan_of(e_prefs, 1e-4), e_products, e_carry, False),
+        "no_normalize": (plan_of(prefs, normalize=False), products, carry, False),
+    }
+    if scale_group is not None:
+        chains["int8_scales"] = (plan_of(prefs, group=scale_group), products, carry, True)
+    for label, (pl, pr, ca, scales) in chains.items():
+        a = step_chain(torch, step.power_step, pl, pr, ca, STEPS, scales)
+        b = step_chain(torch, step.power_step_plain, pl, pr, ca, STEPS, scales)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{name}: {label} chain of the step kernel differs from plain")
+        check(not pl.scratch.any(), f"{name}: {label}: the step kernel left its scratch non-zero")
+
+    def kernel_call():
+        step.power_step(plan, products, carry, res_k, 0)
+
+    def plain_call():
+        step.power_step_plain(plan, products, carry, res_p, 0)
+
+    out = {"shapes": [list(x) for x in sizes], "max_abs_err": err, "bitwise_vs_plain": True,
+           "chains_bitwise_vs_plain": sorted(chains), "launches_per_step": STEP_LAUNCHES}
+    for k in ("ms", "plain_ms", "ms", "plain_ms"):  # in turns
+        fn = kernel_call if k == "ms" else plain_call
+        t, host = spin_event_host_ms(torch, fn, reps)
+        out.setdefault(k, []).append(t)
+        out.setdefault(k.replace("ms", "host_issue_ms"), []).append(host)
+    for k in ("ms", "plain_ms", "host_issue_ms", "plain_host_issue_ms"):
+        out[k] = min(out[k])
+    nbytes, bytes_ms = step_bound(sizes)
+    out.update(bound_bytes=nbytes, bound_ms=bytes_ms, bound_by="bytes",
+               # No single PyTorch call computes the step (a combination,
+               # two maxima, two divisions, the residual maxima).
+               library_ms=None, bound_share=round(bytes_ms / out["ms"], 4))
+    return out
+
+
+def window_sizes(dgraph):
+    return [(int(p.cov_unique.shape[0]), int(p.kind.shape[0]))
+            for p in (dgraph.normal, dgraph.abnormal)]
+
+
+def phase_step(torch, graphs, reps):
+    """K5 at the config-5 shapes: the kind window's step measured
+    (``measure_step``), the int8 window's with its fused scales; the kind
+    window through the plain step with a tol that stops it early; and a
+    window with an empty normal partition (the giant tier's generator
+    at 262,144 spans, its normal codes dropped) through both, bitwise."""
+    import numpy as np
+
+    from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig
+    from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        host_subset,
+        window_weights_full,
+    )
+    from microrank_tpu_torch.testing import giant_window
+
+    dev = torch.device("cuda")
+    out = {"phase": "step"}
+    kind = device_subset(graph_from_numpy(host_subset(graphs["auto/auto"], "kind"), dev), "kind")
+    out["kind"] = measure_step(torch, "step/kind", window_sizes(kind), reps)
+    int8 = device_subset(graph_from_numpy(host_subset(graphs["auto/int8"], "kind"), dev), "kind")
+    out["kind_int8"] = measure_step(torch, "step/kind_int8", window_sizes(int8), reps,
+                                    int8.pattern_group)
+    # tol: the window's joint residual at step 10 as the tolerance.
+    residuals = window_weights_full(kind, PageRankConfig(), "kind")[4]
+    tol = float(residuals.max(0).values[9])
+    cfg = MicroRankConfig(pagerank=PageRankConfig(tol=tol))
+    out["kind_tol"] = {"tol": tol, **plain_step_check(torch, kind, cfg, "kind")}
+    check(0 < out["kind_tol"]["n_iters"] < STEPS,
+          f"step: the tol run did not stop early ({out['kind_tol']['n_iters']})")
+    gw = giant_window(262_144, GIANT_OPS)
+    graph, _, _, _ = build_window_graph_from_table(
+        gw.table, None, np.zeros(0, np.int64), gw.abnormal_codes, aux="packed"
+    )
+    empty = device_subset(graph_from_numpy(host_subset(graph, "packed"), dev), "packed")
+    for key, pr in (("empty_partition", PageRankConfig()),
+                    ("empty_partition_tol", PageRankConfig(tol=1e-4))):
+        out[key] = plain_step_check(torch, empty, MicroRankConfig(pagerank=pr), "packed")
+        check(out[key]["any_nan"], f"step: {key}: the empty partition gave no NaN")
+    check(out["empty_partition_tol"]["n_iters"] == 1,
+          "step: an empty partition's NaN residual did not stop the tol run")
+    return out
+
+
 def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     """One giant window (bench.py's giant tier, ``testing.giant_window``)
     through the lane's own seams, prepare_rank -> launch_rank ->
@@ -2043,7 +2373,12 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
 
     outs = stage("rank_issue_and_run", rank)
     stage("fetch", lambda: fetch_rank_outputs(outs))
-    rank_device = (device_ms(torch, rank, 3), spin_event_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
+    rank_device = (device_ms(torch, rank, 3),
+                   spin_event_host_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
+    # K5: the window through the plain step, bitwise, and its step at
+    # this window's shapes.
+    plain_step = plain_step_check(torch, dgraph, cfg, kernel)
+    step_kern = measure_step(torch, f"giant/{kernel}/step", window_sizes(dgraph), reps)
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -2083,9 +2418,11 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         **rank_device_fields(rank_device, ms["rank_issue_and_run"]),
         "peak_device_memory_bytes_main_path": main_peak,
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        "plain_step": plain_step,
+        "step": step_kern,
         "kernel": kern,
     }
-    return counts, kern, info
+    return counts, (kern, step_kern), info
 
 
 def main(argv=None) -> int:
@@ -2199,17 +2536,21 @@ def main(argv=None) -> int:
         pairs = phase_pattern(torch, pattern, graphs)
         emit({"phase": "pattern", "per_step": pairs, "rtol": KERNEL_RTOL,
               "packed_bf16_sweep": pattern_sweep(torch, pattern)})
+        phase = "step"
+        steps = phase_step(torch, graphs, args.reps)
+        emit(steps)
         phase = "giant"
-        giant = {}
+        giant, giant_steps = {}, {}
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
                                   (args.giant_spans, "pcsr")):
-                counts, kern, info = phase_giant(
+                counts, (kern, step_kern), info = phase_giant(
                     torch, spmv, pattern, n_spans, budget, want, args.reps
                 )
                 launches[f"giant/{want}"] = counts
                 giant[want] = kern
+                giant_steps[want] = step_kern
                 emit(info)
                 torch.cuda.empty_cache()
     except Exception as exc:  # report the failing phase, then fail
@@ -2225,6 +2566,9 @@ def main(argv=None) -> int:
     # --giant-spans, else at the config-5 packed_blocked run's shapes.
     blocked = giant.get("packed_blocked", pairs["packed_blocked"])
     pcsr = giant.get("pcsr", per_step["pcsr"])
+    # K5 at the 10M-span giant window's shapes, else the config-5 kind
+    # window's.
+    power = giant_steps.get("pcsr", steps["kind"])
     # Times are CUDA events around one call behind a device spin (the
     # kernel's own time; torch.profiler's summed device time misreads
     # this card's launches, see timer_check), library_ms and plain_ms
@@ -2280,11 +2624,16 @@ def main(argv=None) -> int:
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:544",
             "launches": launches["auto/int8"]["pattern_launches"],
             "max_abs_err": int8["max_abs_err"],
-            # One int8 step (the scale launch, then the pair launch; both
-            # partitions, both directions) at the collapsed config-5
-            # shapes of the int8 run; library_ms is one torch._int_mm per
-            # direction and partition (int8["library_form"] says which).
-            "ms": int8["ms"],
+            # One int8 step's pair launch (both partitions, both
+            # directions) at the collapsed config-5 shapes of the int8 run,
+            # on fixed scales, as a step now launches it (the step kernel
+            # gives the scales); ms_with_scale_launch is the scale launch
+            # and the pair together, as every step ran them before, and
+            # plain_ms the plain version of both. library_ms is one
+            # torch._int_mm per direction and partition
+            # (int8["library_form"] says which).
+            "ms": int8["pair_ms"],
+            "ms_with_scale_launch": int8["ms"],
             "plain_ms": int8["plain_ms"],
             "bound_ms": int8["bound_ms"],
             "bound_by": int8["bound_by"],
@@ -2297,10 +2646,11 @@ def main(argv=None) -> int:
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:96",
             "launches": launches["auto/int8"]["quantize_launches"],
             "max_abs_err": int8["scale_max_abs_err"],
-            # The int8 step's scale launch alone (the four operands'
-            # maxima and scales); its bound reads the four operands and
-            # their weights once. No single PyTorch call computes the four
-            # scales: library_ms is null.
+            # One launch per int8 window now (the first step's scales;
+            # the step kernel takes every later step's). The launch alone
+            # (the four operands' maxima and scales); its bound reads the
+            # four operands and their weights once. No single PyTorch call
+            # computes the four scales: library_ms is null.
             "ms": int8["scale_ms"],
             "plain_ms": int8["scale_plain_ms"],
             "bound_ms": int8["scale_bound_ms"],
@@ -2356,6 +2706,31 @@ def main(argv=None) -> int:
             "bound_ms": pcsr["bound_ms"],
             "bound_by": pcsr["bound_by"],
             "library_ms": pcsr["library_ms"],
+        },
+        {
+            "name": "power_step",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/power_step.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:859",
+            # Every counted main path's step launches: two a step on every
+            # route.
+            "launches": sum(c["step_launches"] for c in launches.values()),
+            "max_abs_err": max(m["max_abs_err"] for m in
+                               [steps["kind"], steps["kind_int8"], *giant_steps.values()]),
+            # One step (both launches, both partitions) at the 10M-span
+            # giant window's shapes (ms_config5_kind: the collapsed
+            # config-5 kind window's); the bound reads the three products,
+            # pref and the carry once and writes the new carry once. No
+            # single PyTorch call computes the step (a damped combination,
+            # two maxima, two divisions and the residual maxima): library_ms
+            # is null.
+            "ms": power["ms"],
+            "ms_config5_kind": steps["kind"]["ms"],
+            "plain_ms": power["plain_ms"],
+            "plain_ms_config5_kind": steps["kind"]["plain_ms"],
+            "bound_ms": power["bound_ms"],
+            "bound_by": power["bound_by"],
+            "library_ms": None,
         },
     ]})
     print(env["nvidia_smi"], flush=True)

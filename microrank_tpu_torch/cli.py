@@ -3,6 +3,11 @@
 ``synth``).
 
     python -m microrank_tpu_torch.cli run --normal N --abnormal A -o OUT [--device cuda|cpu]
+        [--spectrum-method M] [--top-max K] [--iterations N] [--damping D]
+        [--call-weight W] [--preference reference|paper] [--k-sigma S]
+        [--slack-ms MS] [--slo-stat mean|pNN] [--detect-minutes M]
+        [--skip-minutes M] [--reference-compat] [--slo-cache NPZ]
+        [--kind-dedup-threshold F]
         [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
         [--kind-precision f32|bf16|int8] [--pipeline-depth N] [--sync-dispatch]
         [--fetch-mode stream|bulk] [--bulk-fetch-windows N] [--resume]
@@ -35,9 +40,13 @@ from .config import (
     FETCH_MODES,
     KERNELS,
     KIND_PRECISIONS,
+    CompatConfig,
+    DetectorConfig,
     MicroRankConfig,
     PageRankConfig,
     RuntimeConfig,
+    SpectrumConfig,
+    WindowConfig,
 )
 
 log = logging.getLogger("microrank_tpu_torch.cli")
@@ -51,31 +60,43 @@ def _positive_int(text: str) -> int:
 
 
 def _config_from_args(args) -> MicroRankConfig:
-    # The loop's knobs override the config only where given, as in the
-    # JAX CLI.
+    # The ranking and detection flags carry the JAX CLI's defaults, so a
+    # flag given explicitly differs from the built-in default and beats a
+    # tuned policy (scenarios.policy); the loop's knobs override the
+    # config only where given, as in the JAX CLI.
     loop = {
         k: v for k, v in (
             ("pipeline_depth", args.pipeline_depth),
             ("fetch_mode", args.fetch_mode),
             ("bulk_fetch_windows", args.bulk_fetch_windows),
+            ("kind_dedup_threshold", args.kind_dedup_threshold),
         ) if v is not None
     }
     if args.sync_dispatch:
         loop["async_dispatch"] = False
     if args.no_tuned_policy:
         loop["tuned_policy"] = "off"
-    pagerank = (
-        PageRankConfig(kind_precision=args.kind_precision)
-        if args.kind_precision is not None
-        else PageRankConfig()
-    )
-    return MicroRankConfig(
-        pagerank=pagerank,
+    precision = {} if args.kind_precision is None else {"kind_precision": args.kind_precision}
+    cfg = MicroRankConfig(
+        detector=DetectorConfig(
+            k_sigma=args.k_sigma, slack_ms=args.slack_ms, slo_stat=args.slo_stat,
+        ),
+        pagerank=PageRankConfig(
+            iterations=args.iterations, damping=args.damping,
+            call_weight=args.call_weight, preference=args.preference, **precision,
+        ),
+        spectrum=SpectrumConfig(method=args.spectrum_method, top_max=args.top_max),
+        window=WindowConfig(
+            detect_minutes=args.detect_minutes, skip_minutes=args.skip_minutes,
+        ),
         runtime=RuntimeConfig(
             kernel=args.kernel, collapse_kinds=args.collapse_kinds,
             device=args.device, **loop,
         ),
     )
+    if args.reference_compat:
+        cfg = cfg.replace(compat=CompatConfig(partition_swap=True, overwrite_results=True))
+    return cfg
 
 
 def _print_windows(results) -> None:
@@ -118,7 +139,7 @@ def cmd_run(args) -> int:
         log.warning("--bulk-fetch-windows has no effect without --fetch-mode bulk")
     try:
         rca = TableRCA(cfg)
-        rca.fit_baseline(load_span_table(args.normal))
+        rca.fit_baseline(load_span_table(args.normal), cache_path=args.slo_cache)
         out_dir = args.output or None
         if args.follow:
             # Online mode: tail the growing abnormal CSV, ranking windows
@@ -315,6 +336,31 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def _add_ranking_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's ranking and detection flags, with its names,
+    defaults and choices (``microrank_tpu/cli/main.py``
+    ``_add_config_flags``)."""
+    p.add_argument("--spectrum-method", default="dstar2")
+    p.add_argument("--top-max", type=int, default=5)
+    p.add_argument("--iterations", type=int, default=25)
+    p.add_argument("--damping", type=float, default=0.85)
+    p.add_argument("--call-weight", type=float, default=0.01)
+    p.add_argument("--preference", default="reference", choices=["reference", "paper"])
+    p.add_argument("--k-sigma", type=float, default=3.0)
+    p.add_argument("--slack-ms", type=float, default=0.0)
+    p.add_argument(
+        "--slo-stat", default="mean",
+        help='SLO central statistic: "mean" or a percentile like "p90"',
+    )
+    p.add_argument("--detect-minutes", type=float, default=5.0)
+    p.add_argument("--skip-minutes", type=float, default=4.0)
+    p.add_argument(
+        "--reference-compat", action="store_true",
+        help="reproduce the reference code exactly, documented quirks "
+        "included (partition swap, overwritten result.csv)",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m microrank_tpu_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -339,6 +385,13 @@ def build_parser() -> argparse.ArgumentParser:
         "operands with f32 accumulation, or scaled-int8 operands with "
         "exact int32 accumulation",
     )
+    _add_ranking_flags(p_run)
+    p_run.add_argument(
+        "--kind-dedup-threshold", type=float, default=None,
+        help="measured window dedup factor (true traces / distinct kinds) "
+        "past which kernel='auto' selects the kind kernel (default 4.0)",
+    )
+    p_run.add_argument("--slo-cache", help="npz path to cache the SLO baseline")
     p_run.add_argument(
         "--resume", action="store_true", help="resume from the window cursor"
     )

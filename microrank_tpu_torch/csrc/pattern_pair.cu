@@ -1,7 +1,8 @@
 // K2 and K4 on Hopper: the coverage matvec pair of the kind and packed
 // power iterations, both partitions and both directions of a step in
-// one launch; and, for kind_precision="int8", the launch before it that
-// finds the step's quantization scales.
+// one launch; and, for kind_precision="int8", the launch that finds a
+// window's first quantization scales (every later step's come from the
+// power-iteration step's kernel, csrc/power_step.cu, in its own pass).
 //
 // Replaces device programs that XLA wrote for the TPU in
 // microrank_tpu/rank_backends/jax_tpu.py (`_partition_setup`):
@@ -46,8 +47,8 @@
 // shapes, 48 KB for the collapsed kind pattern) plus the vectors: about
 // 1 us at 3.35 TB/s. What is left is latency: one global round trip for
 // the tile, one for the operands, a fence and an atomic, one round trip
-// per batch of a fold. int8 adds a launch per step (the scales) and, per
-// operand, one division.
+// per batch of a fold. int8 adds, per operand, a flush compare and one
+// division, and one scale launch per window.
 //
 // The grid: one block of 256 threads per tile of kTileRows = 128 rows x
 // kTileCols = 512 columns (64 bytes of each row, 8 KB), the tiles of both
@@ -79,7 +80,9 @@
 //
 // The int8 scales (`quantize_amax`): scale = amax > 0 ? amax / 127 : 1
 // with amax = max |x * w| over each of the step's four weighted operands
-// (both partitions, both directions), as JAX's `quantize_i8`. A NaN amax
+// (both partitions, both directions), as JAX's `quantize_i8`; a
+// subnormal product counts as 0 there and in the quantization, as XLA's
+// CPU flushes it (`flush_subnormal`). A NaN amax
 // fails `amax > 0` and gives 1, as there. One launch covers the four
 // vectors: each block takes a strided slice of one vector, reduces the
 // bit patterns of |x * w| (non-negative floats order as their unsigned
@@ -102,6 +105,7 @@
 // (ops/pattern.py build_command; no --use_fast_math, and nvcc's default
 // -prec-div=true); bound with ctypes (plain C interface).
 
+#include <cfloat>
 #include <cstdint>
 #include <type_traits>
 
@@ -185,15 +189,24 @@ struct alignas(16) Smem {
   int last[2];                           // last arriver of the row / column stripe
 };
 
+// A subnormal as +0, as XLA's CPU flushes it where JAX's `quantize_i8`
+// runs (an explicit compare: the library is not built with -ftz, which
+// would change every other kernel in it). NaN fails the compare and
+// stays NaN.
+__device__ __forceinline__ float flush_subnormal(float p) {
+  return fabsf(p) < FLT_MIN ? 0.0f : p;
+}
+
 // op(x * w) in the precision's operand type; `scale` is read for int8
-// only.
+// only (the product flushed first).
 template <int kPrec>
 __device__ __forceinline__ Acc<kPrec> operand(float x, float w, float scale) {
   const float p = __fmul_rn(x, w);
   if constexpr (kPrec == kBf16) {
     return __bfloat162float(__float2bfloat16_rn(p));
   } else if constexpr (kPrec == kI8) {
-    return static_cast<int32_t>(fminf(fmaxf(rintf(__fdiv_rn(p, scale)), -127.0f), 127.0f));
+    const float f = flush_subnormal(p);
+    return static_cast<int32_t>(fminf(fmaxf(rintf(__fdiv_rn(f, scale)), -127.0f), 127.0f));
   } else {
     return p;
   }
@@ -953,7 +966,7 @@ __global__ void __launch_bounds__(kThreads) quantize_amax(AmaxArgs args) {
   uint32_t m = 0u;
   const int64_t stride = static_cast<int64_t>(args.per_vec) * kThreads;
   for (int64_t i = j * kThreads + t; i < n; i += stride) {
-    m = max(m, __float_as_uint(fabsf(__fmul_rn(__ldg(x + i), __ldg(w + i)))));
+    m = max(m, __float_as_uint(fabsf(flush_subnormal(__fmul_rn(__ldg(x + i), __ldg(w + i))))));
   }
   m = __reduce_max_sync(kFull, m);
   if (t % kWarp == 0) warp_max[t / kWarp] = m;

@@ -87,6 +87,9 @@ class WindowGraph(NamedTuple):
     # (ops.pattern.PatternGroup).
     spmv_group: Optional[Any] = None
     pattern_group: Optional[Any] = None
+    # The power-iteration step kernel's scratch (ops.step.step_scratch),
+    # allocated with the layouts by device_subset.
+    step_scratch: Optional[Any] = None
 
 
 class DetectBatch(NamedTuple):

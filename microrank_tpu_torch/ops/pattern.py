@@ -32,10 +32,13 @@ Steps:
   — or, with ``band_bytes`` (packed_blocked), none: the plain version
   then unpacks one band of whole column tiles at a time, at most
   ``band_bytes`` of f32 (one tile where a tile alone is larger).
-* ``quantize_scales`` — every int8 step: the four operands' scales
-  (``scale = amax > 0 ? amax / 127 : 1``, amax = max |x * w|), one
-  launch of ``quantize_amax`` on CUDA tensors (counted in
+* ``quantize_scales`` — once per int8 window, for the initial vectors:
+  the four operands' scales (``scale = amax > 0 ? amax / 127 : 1``,
+  amax = max |x * w| with subnormal products flushed to 0), one launch
+  of ``quantize_amax`` on CUDA tensors (counted in
   ``quantize_scales.launches``), ``quantize_scales_plain`` on CPU ones.
+  Every later step's scales come from the power-iteration step that
+  writes the vectors (``ops.step.power_step``), in the same pass.
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
   ``pattern_pair_group.launches``, K8's in ``.blocked_launches`` too,
@@ -92,6 +95,7 @@ ROW_ALIGN = 16  # bitmap rows are padded to this many bytes (one load)
 # Operand precisions, in the order of the kernel's ``precision`` code.
 PRECISIONS = ("f32", "bf16", "int8")
 MAX_VECS = 4  # int8 operands a step quantizes: 2 partitions x 2 directions
+FLT_MIN = torch.finfo(torch.float32).tiny  # the least normal float32
 # K8's kernel takes a block per column tile and group of row tiles; the
 # groups are sized for about this many blocks per partition: two per SM
 # of an H100 (132 SMs). It moves no bit, only the load's spread.
@@ -257,19 +261,29 @@ def pattern_group(
     )
 
 
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """x with every subnormal value (|x| < FLT_MIN) replaced by +0, as
+    XLA's CPU flushes them where JAX's ``quantize_i8`` runs; NaN stays
+    NaN. The kernels flush by the same compare (``flush_subnormal`` in
+    ``csrc/pattern_pair.cu`` and ``csrc/power_step.cu``)."""
+    return torch.where(x.abs() < FLT_MIN, 0.0, x)
+
+
 def quantize_scale(x: torch.Tensor) -> torch.Tensor:
-    """JAX's ``quantize_i8`` scale of one vector: max|x| / 127, or 1 when
-    that max is not above 0 (all zeros, or NaN), float32 0-d. The
-    divisor is a tensor of x's device, so every device divides."""
+    """JAX's ``quantize_i8`` scale of one vector: max|x| / 127 over x
+    with its subnormals flushed, or 1 when that max is not above 0 (all
+    zeros or subnormals, or NaN), float32 0-d. The divisor is a tensor
+    of x's device, so every device divides."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    amax = x.abs().max() if x.numel() else zero
+    amax = flush_subnormal(x).abs().max() if x.numel() else zero
     return torch.where(amax > 0, amax / torch.full_like(zero, 127.0), zero + 1.0)
 
 
 def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """clip(round(x / scale), -127, 127) as int32 (round half to even,
-    as jnp.round and the kernel's rintf)."""
-    return torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int32)
+    """clip(round(x / scale), -127, 127) as int32 over x with its
+    subnormals flushed (round half to even, as jnp.round and the
+    kernel's rintf)."""
+    return torch.clamp(torch.round(flush_subnormal(x) / scale), -127.0, 127.0).to(torch.int32)
 
 
 def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -652,6 +666,7 @@ __all__ = [
     "blocked_rows_per_block",
     "blocked_partials_plain",
     "bwd_plain",
+    "flush_subnormal",
     "fwd_plain",
     "fwd_tile_sums",
     "pattern_group",

@@ -68,7 +68,7 @@ from ..rank_backends.torch_cuda import (
     unpack_rank_outputs,
 )
 from ..utils.device import resolve_device
-from .checkpoint import WindowCursor
+from .checkpoint import WindowCursor, load_slo, save_slo
 from .results import ResultSink, WindowResult
 
 _US_PER_MIN = 60_000_000
@@ -145,7 +145,10 @@ class TableRCA:
         self._thresh = None
         self._remap_cache = None  # (id(table), svc-op -> SLO vocab remap)
 
-    def fit_baseline(self, normal_table) -> None:
+    def fit_baseline(self, normal_table, cache_path=None) -> None:
+        """The SLO baseline from a normal-period table, or from
+        ``cache_path`` (an npz, ``pipeline.checkpoint.save_slo``) when
+        that file exists; a baseline computed here is saved there."""
         from ..detect.detector import _thresholds
         from ..scenarios.policy import apply_tuned_policy
 
@@ -153,9 +156,14 @@ class TableRCA:
         normal_table, _ = admit_table(
             normal_table, self.config.ingest, source="table:normal"
         )
-        self.slo_vocab, self.baseline = compute_slo_from_table(
-            normal_table, stat=self.config.detector.slo_stat
-        )
+        if cache_path is not None and Path(cache_path).exists():
+            self.slo_vocab, self.baseline = load_slo(cache_path)
+        else:
+            self.slo_vocab, self.baseline = compute_slo_from_table(
+                normal_table, stat=self.config.detector.slo_stat
+            )
+            if cache_path is not None:
+                save_slo(cache_path, self.slo_vocab, self.baseline)
         # Tuned-policy resolution, as the JAX lane makes it: the span
         # count and the fitted op cardinality; the trace-kind dedup is
         # not measured here, so the profile takes the "low" bucket.

@@ -22,29 +22,37 @@ partitions) take one or two launches, built for the window by
   (``ops.pattern.pattern_pair_group``, over the coverage bitmap of the
   kind columns or of the traces), then both call-graph terms over the
   call-edge list in one K1 call. ``kind`` with
-  ``kind_precision="int8"`` first makes one launch for the step's four
-  operand scales (``ops.pattern.quantize_scales``). ``packed_blocked`` is
+  ``kind_precision="int8"`` quantizes its operands with four scales per
+  step: the first step's from one launch per window
+  (``ops.pattern.quantize_scales``), every later step's from the step
+  kernel below, in its own pass. ``packed_blocked`` is
   ``packed``'s function (f32) on windows whose unpacked matrices exceed
   the dense budget, through K8's own kernel (a group built with
   ``blocked=True``: per set bit, a block per column tile); neither
   kernel unpacks the bitmap, so only the plain version (the CPU path)
   works in bands.
 
-On the card each call is one launch of a CUDA kernel, on the CPU its
+The step's elementwise tail — the damped combination of the products,
+the max normalization, the residual trace and, with ``tol``, the freeze
+— is K5 (``ops.step.power_step``): two launches of ``csrc/power_step.cu``
+for both partitions, in place of the eager ops the port issued before.
+
+On the card each call is one launch of a CUDA kernel (the step kernel's
+call two), on the CPU its
 plain version. The loop issues device work only — no step reads a value
 back — and the caller fetches ``(top_idx, top_scores, n_valid,
 residuals, n_iters)`` in one device-to-host copy, started on the stream
 that ran the program (``pack_rank_outputs``) and waited for where the
 result is needed (``unpack_rank_outputs``).
 With a convergence ``tol`` the loop still runs ``iterations`` steps,
-freezing the carry with ``torch.where`` once a device-side "still
+the step kernel freezing the carry once a device-side "still
 running" flag drops, so no step branches on a device value; vectors,
 residuals (zero past ``n_iters``) and ``n_iters`` come out as JAX's
 ``lax.while_loop`` gives them.
 
 Scalars that JAX keeps as float32 (damping, call weight, eps, tol) are
-float32 0-d tensors here, so each product rounds in float32 as it does
-there.
+float32 here (0-d tensors filled on the device, or the step kernel's
+float32 arguments), so each product rounds in float32 as it does there.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from ..graph.build import (
 )
 from ..graph.structures import PartitionGraph, WindowGraph
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
+from ..ops.step import power_step, step_plan, step_scratch
 from ..ops.spmv import (
     EllPart,
     PcsrGroup,
@@ -78,7 +87,10 @@ from ..spectrum.formulas import spectrum_scores
 
 
 def _f32(value: float, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    # A fill on the device, not torch.tensor: a copy from pageable host
+    # memory waits for the stream, which would stall the issue of the
+    # rank program behind all the device work queued before it.
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def _check_kernel(kernel: str) -> None:
@@ -401,7 +413,7 @@ def window_pattern_group(
 def _partition_setup(
     g: PartitionGraph, anomaly: bool, cfg: PageRankConfig, kernel: str = "pallas"
 ):
-    """One partition's iteration ingredients: (alpha, pref, sv0, rv0)."""
+    """One partition's iteration ingredients: (pref, sv0, rv0)."""
     _check_kernel(kernel)
     dev = g.kind.device
     t_pad = g.kind.shape[0]
@@ -409,25 +421,10 @@ def _partition_setup(
     n_live_cols = torch.where(g.n_cols < 0, g.n_traces, g.n_cols)
     trace_live = torch.arange(t_pad, device=dev) < n_live_cols
     pref = preference_vector(g, anomaly, cfg)
-    alpha = _f32(cfg.call_weight, dev)
     init = 1.0 / n_total
     sv = torch.where(g.op_present, init, 0.0)
     rv = torch.where(trace_live, init, 0.0)
-    return alpha, pref, sv, rv
-
-
-def _partition_step(products, alpha, pref, cfg: PageRankConfig, d):
-    """One power-iteration step (pagerank.py:122-127) from the step's
-    products (p_sr @ rv, p_ss @ sv, p_rs @ sv):
-    sv' = d*(p_sr @ rv + alpha * p_ss @ sv);
-    rv' = d*(p_rs @ sv) + (1-d) * pref; both max-normalized."""
-    y_sr, y_ss, y_rs = products
-    sv_new = d * (y_sr + alpha * y_ss)
-    rv_new = d * y_rs + (1.0 - d) * pref
-    if cfg.max_normalize_each_iter:
-        sv_new = sv_new / sv_new.max()
-        rv_new = rv_new / rv_new.max()
-    return sv_new, rv_new
+    return pref, sv, rv
 
 
 def _partition_finish(g: PartitionGraph, sv):
@@ -450,34 +447,37 @@ def window_weights_full(
     row 0 is the normal partition, row 1 the abnormal one.
     """
     cfg = pagerank_cfg
-    alpha_n, pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
-    alpha_a, pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
+    pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
+    pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
     six_spmvs = kernel in ("pallas", "pcsr")
     want = PcsrGroup if kernel == "pcsr" else SpmvGroup
-    if not isinstance(graph.spmv_group, want) or (graph.pattern_group is None) != six_spmvs:
+    if (
+        not isinstance(graph.spmv_group, want)
+        or (graph.pattern_group is None) != six_spmvs
+        or graph.step_scratch is None
+    ):
         graph = device_subset(graph, kernel, cfg.packed_block_bytes)
     group = graph.spmv_group
+    pgroup = graph.pattern_group
+    int8 = kernel == "kind" and cfg.kind_precision == "int8"
     if six_spmvs:
         six = pcsr_spmv_group if kernel == "pcsr" else coo_spmv_group
 
-        def products(old_n, old_a):
+        def products(old_n, old_a, scales):
             # One call: all six SpMVs of the step (x slots STEP_X_SLOTS).
             ys = six(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
             return ys[:3], ys[3:]
 
     else:
-        pgroup = graph.pattern_group
         if kernel == "kind":
             precision = cfg.kind_precision
         else:
             precision = "bf16" if kernel == "packed_bf16" else "f32"
 
-        def products(old_n, old_a):
+        def products(old_n, old_a, scales):
             # One pattern-pair call (both partitions, both directions),
-            # after the int8 scales' launch, then one K1 call for both
-            # call-graph terms.
+            # then one K1 call for both call-graph terms.
             rvs, svs = (old_n[1], old_a[1]), (old_n[0], old_a[0])
-            scales = quantize_scales(pgroup, rvs, svs) if precision == "int8" else None
             (f_n, b_n, x_n), (f_a, b_a, x_a) = pattern_pair_group(
                 pgroup, rvs, svs, precision, scales
             )
@@ -488,42 +488,28 @@ def window_weights_full(
             return (f_n, ss_n, b_n), (f_a, ss_a, b_a)
 
     dev = sv_n.device
-    d = _f32(cfg.damping, dev)
     n_steps = int(cfg.iterations)
-
-    def part_delta(new, old):
-        return torch.maximum(
-            (new[0] - old[0]).abs().max(), (new[1] - old[1]).abs().max()
-        )
-
-    def step(carry):
-        old_n, old_a = carry
-        ys_n, ys_a = products(old_n, old_a)
-        new_n = _partition_step(ys_n, alpha_n, pref_n, cfg, d)
-        new_a = _partition_step(ys_a, alpha_a, pref_a, cfg, d)
-        deltas = torch.stack([part_delta(new_n, old_n), part_delta(new_a, old_a)])
-        return (new_n, new_a), deltas
-
+    plan = step_plan(
+        (pref_n, pref_a), cfg.call_weight, cfg.damping, cfg.tol,
+        cfg.max_normalize_each_iter, graph.step_scratch, pgroup if int8 else None,
+    )
     carry = ((sv_n, rv_n), (sv_a, rv_a))
+    # int8: the first step's operand scales here, once; every later
+    # step's come from the step that writes its vectors.
+    scales = quantize_scales(pgroup, (rv_n, rv_a), (sv_n, sv_a)) if int8 else None
     residuals = torch.zeros((2, n_steps), dtype=torch.float32, device=dev)
-    if cfg.tol is None:
-        for i in range(n_steps):
-            carry, deltas = step(carry)
-            residuals[:, i] = deltas
-        n_iters = torch.tensor(n_steps, dtype=torch.int32, device=dev)
-    else:
-        tol = _f32(cfg.tol, dev)
+    n_iters = running = None
+    if cfg.tol is not None:
         running = torch.ones((), dtype=torch.bool, device=dev)
         n_iters = torch.zeros((), dtype=torch.int32, device=dev)
-        for i in range(n_steps):
-            new, deltas = step(carry)
-            carry = tuple(
-                tuple(torch.where(running, a, b) for a, b in zip(pn, po))
-                for pn, po in zip(new, carry)
-            )
-            residuals[:, i] = torch.where(running, deltas, 0.0)
-            n_iters = n_iters + running.to(torch.int32)
-            running = running & (deltas.max() > tol)
+    for i in range(n_steps):
+        ys = products(*carry, scales)
+        carry, scales = power_step(
+            plan, ys, carry, residuals, i, n_iters, running,
+            want_scales=int8 and i + 1 < n_steps,
+        )
+    if n_iters is None:
+        n_iters = torch.full((), n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
     n_weight, score_n = _partition_finish(graph.normal, sv_n)
     a_weight, score_a = _partition_finish(graph.abnormal, sv_a)
@@ -734,7 +720,9 @@ def device_subset(
     packed_block_bytes: int = PageRankConfig.packed_block_bytes,
 ) -> WindowGraph:
     """The graph as the kernels consume it, built once per window so each
-    power-iteration step is one or two launches: for "pallas", K1's work
+    power-iteration step is one or two launches of its products and the
+    step kernel's two (``step_scratch``: K5's scratch, the window's
+    own, so that two windows in flight never share it): for "pallas", K1's work
     list of the six SpMVs (``window_spmv_group`` over the COO arrays);
     for "pcsr", the pcsr kernel's group (``window_pcsr_group``: K1's
     work list of the op side and the call edges, the ELL slabs of the
@@ -743,14 +731,16 @@ def device_subset(
     plain version in bands of ``packed_block_bytes``) and K1's work list
     of both call-graph terms."""
     _check_kernel(kernel)
+    scratch = step_scratch(graph.normal.kind.device)
     if kernel == "pallas":
-        return graph._replace(spmv_group=window_spmv_group(graph))
+        return graph._replace(spmv_group=window_spmv_group(graph), step_scratch=scratch)
     if kernel == "pcsr":
-        return graph._replace(spmv_group=window_pcsr_group(graph))
+        return graph._replace(spmv_group=window_pcsr_group(graph), step_scratch=scratch)
     pgroup = window_pattern_group(graph, kernel, packed_block_bytes)  # checks the views first
     parts = (graph.normal, graph.abnormal)
     layouts = [ss_layout(g, kernel) for g in parts]
     v = [int(g.cov_unique.shape[0]) for g in parts]
     return graph._replace(
-        spmv_group=spmv_group(layouts, (0, 1), v), pattern_group=pgroup
+        spmv_group=spmv_group(layouts, (0, 1), v), pattern_group=pgroup,
+        step_scratch=scratch,
     )

@@ -4,10 +4,9 @@ pattern pair) held to their plain versions on the card.
 
 * quantization: the port's ``quantize_i8`` is bitwise JAX's over random
   and adversarial vectors (all zero, one nonzero, exact half steps,
-  values at +-amax). Subnormal operands are the one known difference:
-  XLA's CPU flushes them to zero (amax 0, scale 1, q 0) where the port
-  keeps IEEE subnormals, as the card does; that case is held at one
-  quantization step (PERF.md, K2-int8);
+  values at +-amax, subnormals): XLA's CPU flushes subnormals to zero
+  (an all-subnormal vector: amax 0, scale 1, q 0), and the port flushes
+  the operand products by the same compare in both versions;
 * the pair: the plain int8 pair is bitwise JAX's int8 ``cov_pair``
   (the expression of ``jax_tpu._partition_setup``, with JAX's own
   ``quantize_i8``) on the same operands, and the products of a kind
@@ -18,8 +17,9 @@ pattern pair) held to their plain versions on the card.
   and to the float64 oracle at JAX's own int8 gate, rtol 5e-2
   (tests/test_kind_kernel.py::test_kind_parity_vs_f64_oracle);
 * on the card (``cuda`` marker, skipped here): the scales and the pair
-  bitwise their plain versions computed on the CPU, repeatable over 50
-  launches, the scratch reset, and the lane's launches counted.
+  bitwise their plain versions computed on the CPU (the scales also on
+  all-subnormal and mixed operands), repeatable over 50 launches, the
+  scratch reset, and the lane's launches counted.
 
 The JAX package is imported inside the tests that use it, so the card's
 machine (no JAX) can run the card tests alone:
@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig, RuntimeConfig
-from microrank_tpu_torch.ops import pattern, spmv
+from microrank_tpu_torch.ops import pattern, spmv, step
 from microrank_tpu_torch.testing import SyntheticConfig, generate_case
 from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
@@ -101,23 +101,24 @@ def test_quantize_i8_matches_jax_over_many_random_vectors():
         assert st.numpy().tobytes() == np.asarray(sj).tobytes()
 
 
-def test_subnormal_operands_stay_within_one_step_of_jax():
+def test_subnormal_operands_are_bitwise_jax():
     # XLA's CPU flushes subnormals to zero: JAX quantizes an all-
-    # subnormal vector to q = 0 with scale 1. The port keeps them (as
-    # IEEE and the card's kernel do): scale = amax / 127. Each
-    # dequantized value stays within one of JAX's quantization steps.
+    # subnormal vector to q = 0 with scale 1, and a subnormal beside a
+    # normal amax to q = 0. The port flushes them by the same compare
+    # (pattern.flush_subnormal), so both give the same bits.
     import jax.numpy as jnp
     from microrank_tpu.rank_backends import jax_tpu
 
     rng = np.random.default_rng(7)
-    x = adversarial("subnormal", 300, rng)
-    qj, sj = jax_tpu.quantize_i8(jnp.asarray(x))
-    qt, st = pattern.quantize_i8(torch.from_numpy(x))
-    assert float(sj) == 1.0 and not np.asarray(qj).any()
-    assert 0.0 < float(st) < 1e-38 and int(qt.abs().max()) == 127
-    deq_j = np.asarray(qj).astype(np.float64) * float(sj)
-    deq_t = qt.numpy().astype(np.float64) * float(st)
-    assert np.all(np.abs(deq_t - deq_j) <= max(float(sj), float(st)))
+    for x in (
+        adversarial("subnormal", 300, rng),
+        np.concatenate([adversarial("subnormal", 150, rng), adversarial("random", 150, rng)]),
+    ):
+        qj, sj = jax_tpu.quantize_i8(jnp.asarray(x))
+        qt, st = pattern.quantize_i8(torch.from_numpy(x))
+        np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+        assert st.numpy().tobytes() == np.asarray(sj).tobytes()
+    assert float(sj) != 1.0  # the mixed vector's scale comes from its normal values
 
 
 def int8_group(rng, v, k, m=None):
@@ -169,9 +170,11 @@ def test_plain_int8_pair_is_bitwise_jax_cov_pair(name, v, k):
 
 
 @pytest.mark.parametrize("v,k", [(37, 13), (300, 1100)])
-def test_plain_int8_pair_on_subnormal_operands_within_one_step(v, k):
-    # The flush above, through the pair: every output within one of
-    # JAX's steps (scale 1) per covering cell.
+def test_plain_int8_pair_on_subnormal_operands_is_bitwise_jax(v, k):
+    # The flush, through the pair: all-subnormal operands give JAX's
+    # zeros, and products x * w that fall below FLT_MIN (normal x and w)
+    # are flushed before the amax and the quantization, as XLA's CPU
+    # flushes them.
     rng = np.random.default_rng(v + k)
     group, m, _, _ = int8_group(rng, v, k)
     group.parts[0].w_len.fill_(1.0)
@@ -182,8 +185,41 @@ def test_plain_int8_pair_on_subnormal_operands_within_one_step(v, k):
     (y_fwd, y_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv], "int8", scales)
     j_fwd, j_bwd = jax_int8_cov_pair(m, a, b)
     assert not j_fwd.any() and not j_bwd.any()
-    assert np.all(np.abs(y_fwd.numpy() - j_fwd) <= m.sum(1))
-    assert np.all(np.abs(y_bwd.numpy() - j_bwd) <= m.sum(0))
+    assert y_fwd.numpy().tobytes() == j_fwd.tobytes()
+    assert y_bwd.numpy().tobytes() == j_bwd.tobytes()
+    # Mixed: weights of 1e-30 turn half the products subnormal.
+    w_len = np.where(rng.random(k) < 0.5, 1e-30, 1.0).astype(np.float32)
+    w_cov = np.where(rng.random(v) < 0.5, 1e-30, 1.0).astype(np.float32)
+    group.parts[0].w_len.copy_(torch.from_numpy(w_len))
+    group.parts[0].w_cov.copy_(torch.from_numpy(w_cov))
+    a = rng.uniform(1e-12, 1e-9, k).astype(np.float32)
+    b = rng.uniform(1e-12, 1e-9, v).astype(np.float32)
+    rv, sv = torch.from_numpy(a), torch.from_numpy(b)
+    scales = pattern.quantize_scales(group, [rv], [sv])
+    (y_fwd, y_bwd, _), = pattern.pattern_pair_group(group, [rv], [sv], "int8", scales)
+    j_fwd, j_bwd = jax_jit_int8_cov_pair(m, a, w_len, b, w_cov)
+    assert y_fwd.numpy().tobytes() == j_fwd.tobytes()
+    assert y_bwd.numpy().tobytes() == j_bwd.tobytes()
+
+
+def jax_jit_int8_cov_pair(m, a, w_len, b, w_cov):
+    """JAX's int8 ``cov_pair`` on the operands a * w_len and b * w_cov,
+    the products taken inside one jitted program, as the kind kernel
+    takes them."""
+    import jax
+    import jax.numpy as jnp
+    from microrank_tpu.rank_backends.jax_tpu import quantize_i8
+
+    @jax.jit
+    def pair(q_mat, a, w_len, b, w_cov):
+        qc, sc = quantize_i8(a * w_len)
+        qr, sr = quantize_i8(b * w_cov)
+        y_fwd = sc * jnp.dot(q_mat, qc, preferred_element_type=jnp.int32).astype(jnp.float32)
+        y_bwd = sr * jnp.dot(qr, q_mat, preferred_element_type=jnp.int32).astype(jnp.float32)
+        return y_fwd, y_bwd
+
+    y_fwd, y_bwd = pair(jnp.asarray(m.astype(np.int8)), a, w_len, b, w_cov)
+    return np.asarray(y_fwd), np.asarray(y_bwd)
 
 
 def test_scales_are_per_operand_like_jax():
@@ -439,6 +475,34 @@ def test_int8_kernels_match_cpu_plain_bitwise(cuda_device, v, k):
 
 
 @pytest.mark.cuda
+def test_quantize_amax_on_subnormal_operands_is_bitwise_plain(cuda_device):
+    # The card's scale launch flushes subnormal products by the plain
+    # version's compare: all-subnormal operands give scale 1, mixed ones
+    # the normal products' amax.
+    rng = np.random.default_rng(12)
+    v, k = 300, 1100
+    group, _, _, _ = int8_group(rng, v, k)
+    sub = [torch.from_numpy(adversarial("subnormal", n, rng)) for n in (k, v)]
+    mixed = [torch.from_numpy(rng.uniform(1e-12, 1e-9, n).astype(np.float32)) for n in (k, v)]
+    weights = [torch.from_numpy(np.where(rng.random(n) < 0.5, 1e-30, 1.0).astype(np.float32))
+               for n in (k, v)]
+    on_dev = pattern.pattern_group(
+        [group.parts[0].pattern.to(cuda_device)],
+        [weights[0].to(cuda_device)], [weights[1].to(cuda_device)], [None], [k],
+    )
+    host = pattern.pattern_group(
+        [group.parts[0].pattern], [weights[0]], [weights[1]], [None], [k],
+    )
+    for rv, sv in (sub, mixed, (sub[0], mixed[1])):
+        want = pattern.quantize_scales_plain(host, [rv], [sv])
+        got = pattern.quantize_scales(on_dev, [rv.to(cuda_device)], [sv.to(cuda_device)])
+        assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    assert float(pattern.quantize_scales_plain(host, sub[:1], sub[1:])[0]) == 1.0
+    torch.cuda.synchronize()
+    assert not on_dev.amax_scratch.any()
+
+
+@pytest.mark.cuda
 def test_int8_kernels_repeatable_over_50_launches(cuda_device):
     (group, rvs, svs), _ = two_part_case(10, 3072, 7168, cuda_device)
 
@@ -466,11 +530,16 @@ def test_int8_lane_on_cuda_matches_cpu(cuda_device, tmp_path, collapse):
         runtime=RuntimeConfig(kernel="kind", collapse_kinds=collapse),
     )
     pattern.quantize_scales.launches = pattern.pattern_pair_group.launches = 0
+    step.power_step.launches = 0
     gpu = [r for r in run_rca_native(normal, abnormal, cfg, device="cuda") if r.ranking]
     cpu = [r for r in run_rca_native(normal, abnormal, cfg, device="cpu") if r.ranking]
     assert gpu and gpu[0].ranking[0][0] == case.fault_pod_op
-    # One scale launch and one int8 pair launch per step.
-    assert pattern.quantize_scales.launches == pattern.pattern_pair_group.launches == 25 * len(gpu)
+    # One scale launch per window (the first step's scales; the step
+    # kernel takes every later step's), one int8 pair launch and two
+    # step launches per step.
+    assert pattern.quantize_scales.launches == len(gpu)
+    assert pattern.pattern_pair_group.launches == 25 * len(gpu)
+    assert step.power_step.launches == 50 * len(gpu)
     # The kernels are bitwise their plain versions; the rest of the rank
     # program reduces in the card's order, and a last-bit difference in
     # an operand can move its int8 step: JAX's int8 tolerance.

@@ -114,13 +114,27 @@ def sink_records(out_dir):
 
 @pytest.fixture(scope="module")
 def variant_runs(tables, tmp_path_factory):
-    """Every variant through both packages, with a sink each."""
+    """Every variant through both packages, with a sink each. Each run
+    records into a fresh metrics registry of its package, so that the
+    journal's ``run_end.telemetry`` holds that run's metrics only and
+    not those an earlier test file left in the process-wide registry
+    (the JAX package's dispatch tests add route and overlap keys)."""
+    from microrank_tpu.obs import registry as jax_registry
+    from microrank_tpu_torch.obs import MetricsRegistry, get_registry, set_registry
+
+    old_t, old_j = get_registry(), jax_registry.get_registry()
     out = {}
-    for name, kw in VARIANTS.items():
-        root = tmp_path_factory.mktemp(f"run_{name}")
-        port = port_rca(tables, **kw).run(tables[0][1], out_dir=root / "torch")
-        jax = jax_rca(tables, **kw).run(tables[1][1], out_dir=root / "jax")
-        out[name] = (port, jax, root)
+    try:
+        for name, kw in VARIANTS.items():
+            root = tmp_path_factory.mktemp(f"run_{name}")
+            set_registry(MetricsRegistry())
+            jax_registry.set_registry(jax_registry.MetricsRegistry())
+            port = port_rca(tables, **kw).run(tables[0][1], out_dir=root / "torch")
+            jax = jax_rca(tables, **kw).run(tables[1][1], out_dir=root / "jax")
+            out[name] = (port, jax, root)
+    finally:
+        set_registry(old_t)
+        jax_registry.set_registry(old_j)
     return out
 
 
