@@ -23,9 +23,14 @@ JAX or of the JAX package. Phases, one JSON line each:
               and K8's kernel in f32; several tiles with ragged edges)
               and chains of three steps of the step kernel (K5: default,
               no normalization, a tol that freezes, an empty partition,
-              the int8 scales) held bitwise against their
-              plain versions; and the two device timers (torch.profiler,
-              CUDA events) on a 1 GiB device copy;
+              the int8 scales, and windows at and past the register
+              slots; the fused kernel through one window and through
+              one-step calls, and the two-launch kernel) held bitwise
+              against their plain versions; the fused step kernel's
+              occupancy (blocks an SM, register slots) and its ptxas
+              lines; and the two
+              device timers (torch.profiler, CUDA events) on a 1 GiB
+              device copy;
 2. data     — one detection window at bench.py's config-5 scale
               (1,000,000 spans, 5,000 operations, 100 trace kinds,
               child_keep_prob 0.55, 60 s fault, seed 0) from the port's
@@ -35,15 +40,16 @@ JAX or of the JAX package. Phases, one JSON line each:
               is the injected fault, K1 launches once per power-iteration
               step (25 per ranked window) and computes 2 partitions x 3
               SpMVs in each launch (150 per ranked window), the step
-              kernel twice per step (50 per ranked window, on every
+              kernel once per step (25 per ranked window, on every
               route below too), and the CUDA
               run agrees tie-aware (rtol 1e-5) with the same run on the
               CPU; on every route the window, staged once, is run again
-              with the plain step (``power_step_plain``) on the card:
-              weights, vectors, residual trace, n_iters and ranking
-              bitwise; the rank program timed whole by CUDA events behind
-              a device spin (``rank_program_event_ms``) beside the host's
-              time to issue it (``rank_program_host_ms``);
+              with the plain step (``power_step_plain``) on the card and
+              with the two-launch step kernel: weights, vectors,
+              residual trace, n_iters and ranking bitwise; the rank
+              program timed whole by CUDA events behind a device spin
+              (``rank_program_event_ms``) beside the host's time to issue
+              it (``rank_program_host_ms``);
 4. run      — the same with the default ``kernel="auto"``: collapse
               "auto" resolves to ``kind`` (K2), "off" to ``packed_bf16``
               (K4). Per ranked window 25 pattern-pair launches and 25 K1
@@ -144,15 +150,22 @@ JAX or of the JAX package. Phases, one JSON line each:
               partials bitwise their plain layout; plus a sweep of K4 over
               one-partition bitmaps of four shapes;
    step     — K5 at the config-5 ``kind`` window's shapes and the int8
-              window's (``measure_step``): one step bitwise its plain
-              version on the card, chains of 25 steps (50 launches)
-              bitwise with the default configuration, a tol, an empty
-              partition, no normalization and (int8) the fused scales;
-              timed by CUDA events behind a spin beside the plain step,
-              the byte bound and the host's issue time; the kind window
-              with a tol that stops it early, and a giant-tier window of
-              262,144 spans with its normal partition empty (NaN, and a
-              tol run that stops after one step), bitwise the plain step;
+              window's (``measure_step``): one step of the fused kernel
+              bitwise its plain version on the card and the
+              two-launch kernel, chains of 25 steps through one window
+              (25 launches) bitwise with the default configuration, a
+              tol, an empty partition, no normalization and (int8) the
+              fused scales, both kernels; timed by CUDA events behind a
+              spin in turns with the two-launch kernel (old, new, new, old)
+              beside the plain step, the byte bound and the host's issue
+              time of a window's step call; the grid, blocks an SM and
+              register slots; the kind window with a tol that stops it
+              early, and a giant-tier window of 262,144 spans with its
+              normal partition empty (NaN, and a tol run that stops
+              after one step), bitwise the plain step; and the kind rank
+              program's host issue split (``rank_issue_split``: the
+              set-up before the loop, the 25 steps by wrapper, the
+              epilogue), behind a spin;
 8. giant    — bench.py's giant-window tier (2048 operations, 4 spans a
               trace) from the port's ``testing.giant_window``, at the
               default 2 GiB budget: 2,097,152 spans (auto must resolve to
@@ -171,8 +184,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               two kernels bitwise each other and timed; for
               pcsr, ``measure_pcsr`` as in phase 6, against the pallas
               work list of the 10M-span window too); the window through
-              the plain step, bitwise, and K5 measured at its shapes
-              (the kernels line's ``power_step`` at 10M). ``--giant-spans``
+              the plain step and the two-launch step kernel, bitwise, K5
+              measured at its shapes (the kernels line's ``power_step``
+              at 10M), and the rank program's issue split. ``--giant-spans``
               sets the larger window (the smaller holds a fifth, the
               budget scales with it); 0 skips the phase.
 
@@ -211,7 +225,7 @@ RUN_RTOL = 1e-5
 RUN_RTOL_BF16 = 5e-3  # bf16 operands (packed_bf16, kind_precision="bf16")
 RUN_RTOL_INT8 = 5e-2  # int8 operands: JAX's own int8 gate, over the top-5
 STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
-STEP_LAUNCHES = 2  # the step kernel's launches per step (K5: max, then apply)
+STEP_LAUNCHES = 1  # the step kernel's launches per step (K5: one cooperative launch)
 SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
 SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
 REPEATS = 50  # back-to-back launches that must give the first one's bits
@@ -269,6 +283,7 @@ def reset_counts(spmv, pattern) -> None:
     pattern.pattern_pair_group.blocked_launches = pattern.pattern_pair_group.fold_launches = 0
     pattern.quantize_scales.launches = 0
     step.power_step.launches = 0
+    step.power_step_two_launch.launches = 0
 
 
 def read_counts(spmv, pattern) -> dict:
@@ -276,6 +291,7 @@ def read_counts(spmv, pattern) -> dict:
 
     return {
         "step_launches": step.power_step.launches,
+        "step_two_launch_launches": step.power_step_two_launch.launches,
         "k1_launches": spmv.coo_spmv.launches,
         "k1_spmvs": spmv.coo_spmv.spmvs,
         "pcsr_launches": spmv.pcsr_spmv_group.launches,
@@ -293,11 +309,12 @@ def expected_counts(kernel, n, int8=False) -> dict:
     launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
     SpMVs), or of the pattern pair (four products; packed_blocked's
     through K8's own kernel, counted in blocked_launches too, and its
-    fold launch) and K1 (the two call-graph terms); on every route two
-    launches per step of the step kernel (K5); with ``int8`` (kind) one
+    fold launch) and K1 (the two call-graph terms); on every route one
+    launch per step of the step kernel (K5); with ``int8`` (kind) one
     scale launch per window, for the first step (the step kernel takes
-    every later step's scales)."""
-    counts = dict.fromkeys(("step_launches", "k1_launches", "k1_spmvs", "pcsr_launches",
+    every later step's scales); the two-launch step kernel never."""
+    counts = dict.fromkeys(("step_launches", "step_two_launch_launches", "k1_launches",
+                            "k1_spmvs", "pcsr_launches",
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches"), 0)
     counts["step_launches"] = STEP_LAUNCHES * STEPS * n
@@ -419,27 +436,36 @@ def tiny_step_checks(torch, pattern, dev):
     and 300 x 1,100 elements (one block, and several blocks a vector)
     over chains of three steps, with the default configuration, without
     normalization, with a tol that freezes after the first step, with
-    an empty partition, and with the int8 scales (a tiny pattern group's
-    weights), against the plain version on the card, bitwise. Returns
-    the number of cases."""
+    an empty partition, with the int8 scales (a tiny pattern group's
+    weights), and with the grid cut to one block a vector (partitions of
+    300 x 1,500 and 300 x 11,000), so that each thread takes 6 elements
+    (the carry in registers) and 43 (past the register slots). Each
+    through one window of the fused kernel, through one-step calls of it
+    (``power_step``) and through the two-launch kernel, against the
+    plain version on the card, bitwise. Returns the number of cases."""
     import numpy as np
 
     from microrank_tpu_torch.ops import step
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    sizes = [(7, 9), (300, 1100)]
     g = torch.Generator().manual_seed(3)
-    group = pattern.pattern_group(
-        [torch.from_numpy(np.packbits((torch.rand((v, t), generator=g) < 0.4).numpy()
-                                      .astype(np.uint8), axis=1)).to(dev) for v, t in sizes],
-        [torch.rand(t, generator=g).to(dev) for _, t in sizes],
-        [torch.rand(v, generator=g).to(dev) for v, _ in sizes],
-        [None, None], [t for _, t in sizes],
-    )
+    small, mid, wide = [(7, 9), (300, 1100)], [(300, 1500)] * 2, [(300, 11_000)] * 2
     n = 0
-    for tol, normalize, empty, scales in ((None, True, (), False), (None, False, (), False),
-                                          ("half", True, (), False), (1e-4, True, (1,), False),
-                                          (None, True, (), True)):
+    for tol, normalize, empty, scales, sizes, max_blocks in (
+            (None, True, (), False, small, None),
+            (None, False, (), False, small, None),
+            ("half", True, (), False, small, None),
+            (1e-4, True, (1,), False, small, None),
+            (None, True, (), True, small, None),
+            (1e-30, True, (), True, mid, 4),
+            (1e-30, True, (), True, wide, 4)):
+        group = pattern.pattern_group(
+            [torch.from_numpy(np.packbits((torch.rand((v, t), generator=g) < 0.4).numpy()
+                                          .astype(np.uint8), axis=1)).to(dev) for v, t in sizes],
+            [torch.rand(t, generator=g).to(dev) for _, t in sizes],
+            [torch.rand(v, generator=g).to(dev) for v, _ in sizes],
+            [None, None], [t for _, t in sizes],
+        )
         products, carry, prefs = random_step_inputs(torch, gen, sizes, dev, empty)
         if tol == "half":
             plan = step.step_plan(prefs, 0.01, 0.85, None, True, step.step_scratch(dev))
@@ -448,14 +474,27 @@ def tiny_step_checks(torch, pattern, dev):
             tol = float(res.max()) / 2
         plan = step.step_plan(prefs, 0.01, 0.85, tol, normalize, step.step_scratch(dev),
                               group if scales else None)
-        a = step_chain(torch, step.power_step, plan, products, carry, 3, scales)
-        b = step_chain(torch, step.power_step_plain, plan, products, carry, 3, scales)
-        torch.cuda.synchronize()
-        check(torch.equal(a, b), f"tiny step-kernel chain (tol={tol}, normalize={normalize}, "
-                                 f"empty={empty}, int8={scales}) differs from its plain version")
-        check(not plan.scratch.any(), "the step kernel left its scratch non-zero")
+        want = step_chain(torch, step.power_step_plain, plan, products, carry, 3, scales)
+        for label, fn in (("window", None), ("power_step", step.power_step),
+                          ("two_launch", step.power_step_two_launch)):
+            got = step_chain(torch, fn, plan, products, carry, 3, scales, max_blocks)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"tiny step-kernel chain ({label}, tol={tol}, normalize={normalize}, "
+                  f"empty={empty}, int8={scales}, max_blocks={max_blocks}) differs from its "
+                  "plain version")
+            check(not plan.scratch.any(), "the step kernel left its scratch non-zero")
         n += 1
     return n
+
+
+def ptxas_all(report, kernel):
+    """ptxas's lines for every kernel of a ``-Xptxas -v`` report whose
+    name holds ``kernel``: its entry, properties (stack, spills) and
+    registers."""
+    lines = [ln.strip() for ln in report.splitlines()]
+    return [lines[k: k + 4] for k, ln in enumerate(lines)
+            if "Compiling entry function" in ln and kernel in ln]
 
 
 def phase_env(torch, spmv, pattern, native):
@@ -505,6 +544,7 @@ def phase_env(torch, spmv, pattern, native):
     n_pcsr = tiny_pcsr_checks(torch, spmv, dev, host_lay, x)
     n_pattern = tiny_pattern_checks(torch, pattern, dev)
     n_step = tiny_step_checks(torch, pattern, dev)
+    step_cfg = step.kernel_config(dev)
     timers = timer_check(torch)
     return {
         "phase": "env",
@@ -522,6 +562,12 @@ def phase_env(torch, spmv, pattern, native):
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
                                if "ptxas" in ln],
         "ptxas_power_step": [ln.strip() for ln in ptxas_step.splitlines() if "ptxas" in ln],
+        # K5's fused kernel: each instantiation's ptxas lines
+        # (registers, spills), the register slots a thread holds across
+        # the barrier, and the occupancy that sizes every window's
+        # cooperative grid.
+        "step_kernel": {**step_cfg._asdict(), "max_blocks": step_cfg.max_blocks,
+                        "ptxas": ptxas_all(ptxas_step, "step_grid")},
         "tiny_launch_bitwise_vs_plain": tiny_bitwise,
         "tiny_pcsr_launches_bitwise_vs_plain": n_pcsr,
         "tiny_pattern_cases_bitwise_vs_plain": n_pattern,
@@ -2080,12 +2126,15 @@ def bits(torch, t):
 
 
 def plain_step_check(torch, dgraph, cfg, kernel):
-    """One window (its layouts staged) through the step kernel and
-    through the plain step (``power_step_plain``) on the card: the
-    weights, carried vectors, score vectors, residual trace and n_iters
-    of ``window_weights_full``, and the ranking of
+    """One window (its layouts staged) through the fused step kernel,
+    through the plain step (``power_step_plain``) on the card and
+    through the two-launch step kernel: the weights, carried
+    vectors, score vectors, residual trace and n_iters of
+    ``window_weights_full``, and the ranking of
     ``rank_window_traced_core``, must be bitwise equal. Returns what it
     compared."""
+    import functools
+
     import numpy as np
 
     from microrank_tpu_torch.ops import step
@@ -2098,26 +2147,30 @@ def plain_step_check(torch, dgraph, cfg, kernel):
         return weights, ranked
 
     got = run()
-    saved = torch_cuda.power_step
-    torch_cuda.power_step = step.power_step_plain
-    try:
-        want = run()
-    finally:
-        torch_cuda.power_step = saved
+    wants = {}
+    saved = torch_cuda.StepWindow
+    for mode in ("plain", "two_launch"):
+        torch_cuda.StepWindow = functools.partial(step.StepWindow, mode=mode)
+        try:
+            wants[mode] = run()
+        finally:
+            torch_cuda.StepWindow = saved
     torch.cuda.synchronize()
     names = ("n_weight", "a_weight", "rv_n", "rv_a", "residuals", "n_iters", "score_n",
              "score_a")
-    for name, a, b in zip(names, got[0], want[0]):
-        check(torch.equal(bits(torch, a), bits(torch, b)),
-              f"{kernel}: {name} through the step kernel differs from the plain step")
-    for name, a, b in zip(("top_idx", "top_scores", "n_valid", "residuals", "n_iters"),
-                          got[1], want[1]):
-        check(np.asarray(a).tobytes() == np.asarray(b).tobytes(),
-              f"{kernel}: {name} of the ranking differs from the plain step's")
+    for mode, want in wants.items():
+        for name, a, b in zip(names, got[0], want[0]):
+            check(torch.equal(bits(torch, a), bits(torch, b)),
+                  f"{kernel}: {name} through the step kernel differs from the {mode} step's")
+        for name, a, b in zip(("top_idx", "top_scores", "n_valid", "residuals", "n_iters"),
+                              got[1], want[1]):
+            check(np.asarray(a).tobytes() == np.asarray(b).tobytes(),
+                  f"{kernel}: {name} of the ranking differs from the {mode} step's")
     check(not dgraph.step_scratch.any(), f"{kernel}: the step kernel left its scratch non-zero")
     residuals = got[1][3]
     return {
         "bitwise_vs_plain_step": True,
+        "bitwise_vs_two_launch_step": True,
         "compared": list(names) + ["top_idx", "top_scores", "n_valid"],
         "n_iters": int(got[1][4]),
         "final_residual": [float(x) for x in residuals[:, max(int(got[1][4]) - 1, 0)]],
@@ -2140,21 +2193,34 @@ def random_step_inputs(torch, gen, sizes, dev, empty=()):
     return tuple(products), tuple(carry), prefs
 
 
-def step_chain(torch, fn, plan, products, carry, n_steps, want_scales=False):
-    """``n_steps`` steps of ``fn`` (power_step or power_step_plain) on
-    fixed products from ``carry``: every carry and scale, the residuals,
-    n_iters and the running flag, as the int32 bits of one tensor."""
+def step_chain(torch, fn, plan, products, carry, n_steps, want_scales=False, max_blocks=None):
+    """``n_steps`` steps on fixed products from ``carry``: through one
+    window of the fused kernel (``fn`` None, as the main path runs it;
+    its grid capped at ``max_blocks``) or a chain of ``fn`` calls
+    (power_step, power_step_two_launch, power_step_plain): every carry
+    and scale, the residuals, n_iters and the running flag, as the int32
+    bits of one tensor."""
+    from microrank_tpu_torch.ops import step
+
     dev = carry[0][0].device
     residuals = torch.zeros((2, n_steps), dtype=torch.float32, device=dev)
     n_iters = running = None
     if plan.tol is not None:
         n_iters = torch.zeros((), dtype=torch.int32, device=dev)
         running = torch.ones((), dtype=torch.bool, device=dev)
+    win = None
+    if fn is None:
+        win = step.StepWindow(plan, carry, residuals, n_iters, running, max_blocks=max_blocks)
     out = []
     for i in range(n_steps):
-        carry, scales = fn(plan, products, carry, residuals, i, n_iters, running,
-                           want_scales and i + 1 < n_steps)
-        out += [t for part in carry for t in part] + ([] if scales is None else [scales])
+        scales_i = want_scales and i + 1 < n_steps
+        if win is None:
+            carry, scales = fn(plan, products, carry, residuals, i, n_iters, running, scales_i)
+        else:
+            carry, scales = win.step(products, i, scales_i)
+        # A window's buffers are written again two steps on: clones.
+        out += [t.clone() for part in carry for t in part]
+        out += [] if scales is None else [scales.clone()]
     out = [torch.cat(out + [residuals.reshape(-1)]).view(torch.int32)]
     if n_iters is not None:
         out += [n_iters.reshape(1), running.to(torch.int32).reshape(1)]
@@ -2172,14 +2238,18 @@ def step_bound(sizes):
 def measure_step(torch, name, sizes, reps, scale_group=None):
     """Check and time one power-iteration step's tail (both partitions)
     at ``sizes`` ((V, T) per partition, the window's) on random
-    products: the kernel bitwise its plain version on the card for one
-    step, and over chains of 25 steps (50 launches) with the default
-    configuration, with a tol (running, then frozen), with the first
-    partition empty, and without normalization; with ``scale_group``
-    (the int8 window's pattern group) the fused int8 scales of every
-    step too. Timed (CUDA events behind a spin, both launches) beside
-    the plain version and the byte bound; the host's time to issue
-    one call beside."""
+    products. Checks: one step of the fused kernel bitwise its plain
+    version on the card and the two-launch kernel; chains of 25
+    steps through one window (25 launches) and through the two-launch kernel
+    bitwise the plain chain, with the default configuration, with a tol
+    (running, then frozen), with the first partition empty, and without
+    normalization; with ``scale_group`` (the int8 window's pattern
+    group) the fused int8 scales of every step too. Timed by CUDA events
+    behind a spin, a window's step call as the main path makes it, in
+    turns with the two-launch kernel (old, new, new, old) and beside the plain
+    version and the byte bound; the host's time to issue a window's
+    step call; the window's grid, elements a thread and register
+    slots."""
     from microrank_tpu_torch.config import PageRankConfig
     from microrank_tpu_torch.ops import step
 
@@ -2193,20 +2263,21 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
                               step.step_scratch(dev), group)
 
     plan = plan_of(prefs)
-    res_k = torch.zeros((2, STEPS), dtype=torch.float32, device=dev)
-    res_p = torch.zeros_like(res_k)
-    new_k, _ = step.power_step(plan, products, carry, res_k, 0)
-    new_p, _ = step.power_step_plain(plan, products, carry, res_p, 0)
+    flats = {}
+    for label, fn in (("fused", step.power_step), ("two_launch", step.power_step_two_launch),
+                      ("plain", step.power_step_plain)):
+        res = torch.zeros((2, STEPS), dtype=torch.float32, device=dev)
+        new, _ = fn(plan, products, carry, res, 0)
+        flats[label] = torch.cat([t for part in new for t in part] + [res.reshape(-1)])
     torch.cuda.synchronize()
-    flat_k = torch.cat([t for part in new_k for t in part] + [res_k.reshape(-1)])
-    flat_p = torch.cat([t for part in new_p for t in part] + [res_p.reshape(-1)])
-    check(torch.equal(bits(torch, flat_k), bits(torch, flat_p)),
-          f"{name}: the step kernel differs from its plain version")
-    err = float((flat_k - flat_p).abs().max())
-    # Chains of 25 steps (50 launches) on fixed products: every step
-    # after the first gives the same vectors (residual 0), so a tol of
-    # half the first residual runs one step and freezes the rest.
-    tol = float(res_p[:, 0].max()) / 2
+    for label in ("plain", "two_launch"):
+        check(torch.equal(bits(torch, flats["fused"]), bits(torch, flats[label])),
+              f"{name}: the fused step kernel differs from the {label} step")
+    err = float((flats["fused"] - flats["plain"]).abs().max())
+    # Chains of 25 steps on fixed products: every step after the first
+    # gives the same vectors (residual 0), so a tol of half the first
+    # residual runs one step and freezes the rest.
+    tol = float(flats["plain"][-2 * STEPS:].view(2, STEPS)[:, 0].max()) / 2
     e_products, e_carry, e_prefs = random_step_inputs(torch, gen, sizes, dev, empty=(0,))
     chains = {
         "default": (plan, products, carry, False),
@@ -2217,27 +2288,50 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
     if scale_group is not None:
         chains["int8_scales"] = (plan_of(prefs, group=scale_group), products, carry, True)
     for label, (pl, pr, ca, scales) in chains.items():
-        a = step_chain(torch, step.power_step, pl, pr, ca, STEPS, scales)
-        b = step_chain(torch, step.power_step_plain, pl, pr, ca, STEPS, scales)
+        before = step.power_step.launches
+        a = step_chain(torch, None, pl, pr, ca, STEPS, scales)
+        check(step.power_step.launches - before == STEPS * STEP_LAUNCHES,
+              f"{name}: {label}: not one fused launch a step")
+        b = step_chain(torch, step.power_step_two_launch, pl, pr, ca, STEPS, scales)
+        c = step_chain(torch, step.power_step_plain, pl, pr, ca, STEPS, scales)
         torch.cuda.synchronize()
-        check(torch.equal(a, b), f"{name}: {label} chain of the step kernel differs from plain")
+        check(torch.equal(a, c), f"{name}: {label} chain of the fused kernel differs from plain")
+        check(torch.equal(b, c),
+              f"{name}: {label} chain of the two-launch kernel differs from plain")
         check(not pl.scratch.any(), f"{name}: {label}: the step kernel left its scratch non-zero")
 
-    def kernel_call():
-        step.power_step(plan, products, carry, res_k, 0)
-
-    def plain_call():
-        step.power_step_plain(plan, products, carry, res_p, 0)
-
-    out = {"shapes": [list(x) for x in sizes], "max_abs_err": err, "bitwise_vs_plain": True,
-           "chains_bitwise_vs_plain": sorted(chains), "launches_per_step": STEP_LAUNCHES}
-    for k in ("ms", "plain_ms", "ms", "plain_ms"):  # in turns
-        fn = kernel_call if k == "ms" else plain_call
-        t, host = spin_event_host_ms(torch, fn, reps)
-        out.setdefault(k, []).append(t)
-        out.setdefault(k.replace("ms", "host_issue_ms"), []).append(host)
-    for k in ("ms", "plain_ms", "host_issue_ms", "plain_host_issue_ms"):
-        out[k] = min(out[k])
+    res = torch.zeros((2, STEPS), dtype=torch.float32, device=dev)
+    wins = {mode: step.StepWindow(plan, carry, res, mode=mode)
+            for mode in ("kernel", "two_launch", "plain")}
+    calls = {
+        "new": lambda: wins["kernel"].step(products, 0),
+        "old": lambda: wins["two_launch"].step(products, 0),
+        "plain": lambda: wins["plain"].step(products, 0),
+    }
+    turns = ("old", "new", "new", "old", "plain", "plain")
+    times, in_turns = {}, []
+    for k in turns:
+        t, host = spin_event_host_ms(torch, calls[k], reps)
+        times.setdefault(k, []).append((t, host))
+        in_turns.append([k, t, host])
+    win = wins["kernel"]
+    kcfg = step.kernel_config(dev)
+    out = {
+        "shapes": [list(x) for x in sizes], "max_abs_err": err, "bitwise_vs_plain": True,
+        "bitwise_vs_previous_design": True, "chains_bitwise_vs_plain": sorted(chains),
+        "launches_per_step": STEP_LAUNCHES,
+        "grid": win.grid, "blocks_per_sm": kcfg.blocks_per_sm, "sms": kcfg.sms,
+        "max_blocks": kcfg.max_blocks, "register_slots": win.slots,
+        "elements_per_thread": win.per_thread,
+        "in_registers": win.per_thread <= win.slots,
+        "turns": in_turns,  # [call, event ms, host issue ms], in order
+        "ms": min(t for t, _ in times["new"]),
+        "previous_design_ms": min(t for t, _ in times["old"]),
+        "plain_ms": min(t for t, _ in times["plain"]),
+        "host_issue_ms": min(h for _, h in times["new"]),
+        "previous_design_host_issue_ms": min(h for _, h in times["old"]),
+        "plain_host_issue_ms": min(h for _, h in times["plain"]),
+    }
     nbytes, bytes_ms = step_bound(sizes)
     out.update(bound_bytes=nbytes, bound_ms=bytes_ms, bound_by="bytes",
                # No single PyTorch call computes the step (a combination,
@@ -2251,12 +2345,115 @@ def window_sizes(dgraph):
             for p in (dgraph.normal, dgraph.abnormal)]
 
 
+def rank_issue_split(torch, dgraph, cfg, kernel, reps=5):
+    """The host's time to issue one rank program as the lane issues a
+    window (``rank_window_traced_core``, then ``pack_rank_outputs``),
+    each program queued behind a ~100 ms device spin so that no wait on
+    the device is in it, split in three:
+
+    * the set-up before the loop: the preference and initial vectors,
+      the step plan, K5's window (``k5_setup``) and int8's first scales
+      (``quantize``);
+    * the steps, by wrapper: the pattern pair, K1 and K9 (the products)
+      and K5, and the loop's own Python between them (``loop_other``);
+    * the epilogue: ``_partition_finish`` of both partitions, the
+      spectrum and top-k (``_finish_topk``), and the pack with its copy.
+
+    Each wrapper is timed by the host clock around its call, by timers
+    put in place of the names ``rank_backends.torch_cuda`` calls; ms,
+    medians over ``reps`` programs, with the calls counted. The same
+    program uninstrumented is timed in turns (``total_uninstrumented``):
+    the difference is the timers' own cost."""
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    events = []
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            events.append((name, t0, time.perf_counter()))
+            return out
+        return call
+
+    names = {"pattern_pair_group": "pattern_pair", "coo_spmv_group": "k1",
+             "pcsr_spmv_group": "k9", "quantize_scales": "quantize",
+             "_partition_finish": "finish", "_finish_topk": "spectrum_topk"}
+    saved = {attr: getattr(tc, attr) for attr in [*names, "StepWindow"]}
+
+    def timed_window(*args, **kw):
+        t0 = time.perf_counter()
+        win = saved["StepWindow"](*args, **kw)
+        events.append(("k5_setup", t0, time.perf_counter()))
+        win.step = timed("k5", win.step)
+        return win
+
+    def program():
+        events.clear()
+        torch.cuda._sleep(PROGRAM_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        outs = tc.rank_window_traced_core(dgraph, cfg.pagerank, cfg.spectrum, kernel)
+        t1 = time.perf_counter()
+        tc.pack_rank_outputs(outs)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        return t0, t1, t2, list(events)
+
+    def instrument(on):
+        for attr, label in names.items():
+            setattr(tc, attr, timed(label, saved[attr]) if on else saved[attr])
+        tc.StepWindow = timed_window if on else saved["StepWindow"]
+
+    rows, plain = [], []
+    try:
+        for turn in range(2 * reps + 2):  # warm pair first; instrumented, then not
+            instrument(turn % 2 == 0)
+            t0, t1, t2, ev = program()
+            if turn < 2:
+                continue
+            if turn % 2:
+                plain.append((t2 - t0) * 1e3)
+                continue
+            loop_ev = [e for e in ev if e[0] in ("pattern_pair", "k1", "k9", "k5")]
+            first = min(e[1] for e in loop_ev)
+            last = max(e[2] for e in ev if e[0] == "k5")
+
+            def dur(label, lo=-1e300, hi=1e300):
+                return sum(b - a for n, a, b in ev if n == label and a >= lo and b <= hi) * 1e3
+
+            row = {"total": (t2 - t0) * 1e3, "setup": (first - t0) * 1e3,
+                   "setup_k5_window": dur("k5_setup"), "setup_quantize": dur("quantize", hi=first),
+                   "loop": (last - first) * 1e3,
+                   **{f"loop_{n}": dur(n, lo=first, hi=last)
+                      for n in ("pattern_pair", "k1", "k9", "k5")},
+                   "epilogue": (t2 - last) * 1e3, "epilogue_finish": dur("finish"),
+                   "epilogue_spectrum_topk": dur("spectrum_topk"), "epilogue_pack": (t2 - t1) * 1e3}
+            row["setup_other"] = row["setup"] - row["setup_k5_window"] - row["setup_quantize"]
+            row["loop_other"] = row["loop"] - sum(row[f"loop_{n}"]
+                                                  for n in ("pattern_pair", "k1", "k9", "k5"))
+            row["epilogue_other"] = row["epilogue"] - row["epilogue_finish"] - row[
+                "epilogue_spectrum_topk"] - row["epilogue_pack"]
+            row["calls"] = {n: sum(1 for e in ev if e[0] == n)
+                            for n in ("pattern_pair", "k1", "k9", "k5", "quantize", "finish",
+                                      "spectrum_topk")}
+            rows.append(row)
+    finally:
+        instrument(False)
+    out = {k: round(_median([r[k] for r in rows]), 4) for k in rows[0] if k != "calls"}
+    out["calls"] = rows[0]["calls"]
+    out["total_uninstrumented"] = round(_median(plain), 4)
+    out["reps"] = reps
+    out["shares"] = {k: round(out[k] / out["total"], 4) for k in ("setup", "loop", "epilogue")}
+    return out
+
+
 def phase_step(torch, graphs, reps):
     """K5 at the config-5 shapes: the kind window's step measured
     (``measure_step``), the int8 window's with its fused scales; the kind
     window through the plain step with a tol that stops it early; and a
     window with an empty normal partition (the giant tier's generator
-    at 262,144 spans, its normal codes dropped) through both, bitwise."""
+    at 262,144 spans, its normal codes dropped) through both, bitwise;
+    the kind rank program's issue split (``rank_issue_split``)."""
     import numpy as np
 
     from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig
@@ -2276,6 +2473,8 @@ def phase_step(torch, graphs, reps):
     int8 = device_subset(graph_from_numpy(host_subset(graphs["auto/int8"], "kind"), dev), "kind")
     out["kind_int8"] = measure_step(torch, "step/kind_int8", window_sizes(int8), reps,
                                     int8.pattern_group)
+    # Where the kind rank program's issue goes.
+    out["kind_issue_split_ms"] = rank_issue_split(torch, kind, MicroRankConfig(), "kind")
     # tol: the window's joint residual at step 10 as the tolerance.
     residuals = window_weights_full(kind, PageRankConfig(), "kind")[4]
     tol = float(residuals.max(0).values[9])
@@ -2375,10 +2574,12 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     stage("fetch", lambda: fetch_rank_outputs(outs))
     rank_device = (device_ms(torch, rank, 3),
                    spin_event_host_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
-    # K5: the window through the plain step, bitwise, and its step at
-    # this window's shapes.
+    # K5: the window through the plain step and the two-launch step kernel,
+    # bitwise, and its step at this window's shapes; where the rank
+    # program's issue goes.
     plain_step = plain_step_check(torch, dgraph, cfg, kernel)
     step_kern = measure_step(torch, f"giant/{kernel}/step", window_sizes(dgraph), reps)
+    issue_split = rank_issue_split(torch, dgraph, cfg, kernel)
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -2420,6 +2621,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
         "plain_step": plain_step,
         "step": step_kern,
+        "issue_split_ms": issue_split,
         "kernel": kern,
     }
     return counts, (kern, step_kern), info
@@ -2712,20 +2914,28 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/power_step.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:859",
-            # Every counted main path's step launches: two a step on every
-            # route.
+            # Every counted main path's step launches: one a step on every
+            # route (the fused kernel, one cooperative launch).
             "launches": sum(c["step_launches"] for c in launches.values()),
             "max_abs_err": max(m["max_abs_err"] for m in
                                [steps["kind"], steps["kind_int8"], *giant_steps.values()]),
-            # One step (both launches, both partitions) at the 10M-span
-            # giant window's shapes (ms_config5_kind: the collapsed
-            # config-5 kind window's); the bound reads the three products,
-            # pref and the carry once and writes the new carry once. No
-            # single PyTorch call computes the step (a damped combination,
-            # two maxima, two divisions and the residual maxima): library_ms
-            # is null.
+            # One step (one launch, both partitions) at the 10M-span giant
+            # window's shapes (_config5_kind: the collapsed config-5 kind
+            # window's, _giant_2m: the 2M-span window's);
+            # previous_design_ms the two-launch kernel on the same
+            # inputs in the same run, in turns (old, new, new, old). The
+            # bound reads the three products, pref and the carry once and
+            # writes the new carry once. No single PyTorch call computes
+            # the step (a damped combination, two maxima, two divisions and
+            # the residual maxima): library_ms is null.
             "ms": power["ms"],
+            "previous_design_ms": power["previous_design_ms"],
             "ms_config5_kind": steps["kind"]["ms"],
+            "previous_design_ms_config5_kind": steps["kind"]["previous_design_ms"],
+            **({} if "packed_blocked" not in giant_steps else {
+                "ms_giant_2m": giant_steps["packed_blocked"]["ms"],
+                "previous_design_ms_giant_2m": giant_steps["packed_blocked"]["previous_design_ms"],
+            }),
             "plain_ms": power["plain_ms"],
             "plain_ms_config5_kind": steps["kind"]["plain_ms"],
             "bound_ms": power["bound_ms"],

@@ -1,5 +1,5 @@
 // K5 on Hopper: the elementwise tail of one power-iteration step, both
-// partitions in two launches.
+// partitions in one cooperative launch.
 //
 // Replaces the body of the iteration driver that XLA compiled for the
 // TPU in microrank_tpu/rank_backends/jax_tpu.py: `_partition_step`
@@ -23,21 +23,46 @@
 // with int8 operands it also takes the next step's four quantization
 // scales from the vectors it writes (`amax` below).
 //
-// Launch A (`step_max`, only when normalizing): each block recomputes
-// sv' / rv' for a slice of one vector and folds its maximum into that
-// vector's slot by an integer atomicMax on an order-preserving key of
-// the float (`key`). Launch B (`step_apply`): each block recomputes the
-// same values, divides by the maximum, writes the carry, and folds the
-// residual (and the int8 operands' amax) the same way; the last block
-// to arrive (the block-level last-arriver pattern of quantize_amax in
-// pattern_pair.cu) writes residual[:, step], n_iters, running and the
-// scales, and resets every slot and the arrival count for the next
-// step. B recomputes the unnormalized vectors from the products instead
-// of reading them back from scratch: the same bytes (A would have
-// written them, B read them) and no buffer. A cooperative launch with a
-// grid-wide barrier would make it one launch; two plain launches need
-// no co-residency limit on the grid and were chosen as the simple
-// kernel that is right.
+// The design (`step_grid<S>`, one launch a step):
+// * The grid is sized to the card, not to the data: at most the blocks
+//   that fit on every SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+//   times the SM count), fewer where the window is small. It is
+//   launched with cudaLaunchCooperativeKernel, so every block is
+//   resident and a grid-wide barrier is safe. Each vector (rv_n, sv_n,
+//   rv_a, sv_a) owns a run of blocks, each block a contiguous chunk of
+//   `per_thread` x kThreads elements, each thread the elements first +
+//   k * kThreads of its block's chunk.
+// * The kernel is instantiated for the slots a thread uses, S of 1, 2,
+//   4, 8 and kSlots (12), the least that holds per_thread: no thread
+//   runs a slot it does not hold (the config-5 windows take S = 1, the
+//   2M-span giant window 4, the 10M-span one 12 of its 20 elements).
+// * Phase 1: each thread computes the unnormalized sv' / rv' of its
+//   first S elements into registers (`u`), every load issued before any
+//   is used (predicated, no branch between them), and folds the block's
+//   maximum into the vector's slot by an integer atomicMax on an
+//   order-preserving key of the float (`key`). Up to
+//   kRegisterCarrySlots slots it loads the carry in (`old`, for the
+//   residual and the freeze) and the int8 weights into registers in the
+//   same pass; past them it stages the carry in into shared memory by
+//   cp.async, in flight through phase 1 and the barrier.
+// * One grid barrier (cooperative_groups' grid sync), when normalizing;
+//   then the divisions, apart.
+// * Phase 2: the same threads write the carry and fold the residual
+//   (and the int8 operands' amax): they read neither the products nor
+//   pref again. Each block's thread 0 folds its maxima and arrives by
+//   one acq_rel add; the last to arrive reads every slot at once,
+//   writes residual[:, step], n_iters, running and the scales, and
+//   resets the slots.
+// * A window whose elements exceed the slots of the grid (per_thread >
+//   kSlots) runs in the same kernel and launch: past the slots, each
+//   phase recomputes its elements from the products (read again from
+//   the L2). The 10M-span giant window (2,625,536 elements, 20 a thread
+//   on an H100's 528 blocks) keeps 12 in registers and recomputes 8.
+//
+// The previous design stays beside it for comparison (`step_max`, then
+// `step_apply`: two launches a step on a grid sized to the data, the
+// products read in both; `mr_power_step_two_launch`). Nothing on the
+// main path calls it.
 //
 // Bitwise to the plain step on the card:
 // * rounding: each torch op rounds on its own, so each operation here
@@ -66,29 +91,55 @@
 //
 // What bounds it: bytes and latency. Per partition it reads y_sr, y_ss,
 // sv (V floats each), y_rs, pref, rv (T each) and writes sv', rv': 16
-// bytes an element at least: 99,968 bytes at the collapsed config-5
-// kind window (V = 3,072, T = 96 and 8; 30 ns at 3.35 TB/s) and
-// 42,008,576 bytes at the 10M-span giant window (V = 2,048, T =
-// 1,310,720; 12.5 us). A re-reads the products that B reads again (half
-// again the bytes, partly from L2), and the two launches and the last
-// arriver's round trip are microseconds of latency that a small window
-// cannot hide (times in PERF.md, K5).
+// bytes an element: 99,968 bytes at the collapsed config-5 kind window
+// (V = 3,072, T = 96 and 8; 30 ns at 3.35 TB/s) and 42,008,576 bytes at
+// the 10M-span giant window (V = 2,048, T = 1,310,720; 12.5 us). The
+// fused kernel moves those bytes once (the two-launch design read them twice)
+// and pays one launch and one barrier a step, where a small window is
+// all latency (times in PERF.md, K5).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/step.py build_command; no --use_fast_math, nvcc's default
 // -prec-div=true, no -ftz); bound with ctypes (plain C interface).
 
 #include <cfloat>
+#include <climits>
 #include <cstdint>
+#include <initializer_list>
+#include <new>
 
+#include <cooperative_groups.h>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kItems = 4;              // elements a thread takes per vector slice, about
+// Register slots a thread of the fused kernel holds across the barrier
+// (its largest instantiation), and the blocks an SM must hold
+// (__launch_bounds__: at most 64 registers a thread at 4). The most
+// slots that do not spill at 4 blocks an SM (ptxas, sm_90a): 16, 20 and
+// 24 spill 28-32 bytes, and at 5 blocks (48 registers) 12 spill 44.
+// step_design_probe.py times the alternatives (PERF.md, K5): at the
+// 10M-span window 16, 20 or 24 slots, which hold more of its elements,
+// are 4-12% slower a step than 12, and 5 blocks an SM 12% slower.
+constexpr int kSlots = 12;
+constexpr int kMinBlocksPerSm = 4;
+static_assert(kSlots > 8, "grid_kernel's instantiations: 1, 2, 4, 8, kSlots");
+// Up to this many slots a thread holds the carry in (and the int8
+// weights) in registers too, loaded before the barrier; past it the
+// carry in is staged in shared memory by cp.async, so that the slots'
+// registers hold the values alone. Both beat reading the carry in by
+// __ldg after the barrier (step_design_probe.py: the registers by 3% a
+// step at the config-5 kind window, the staging by 18% at the 10M-span
+// window).
+constexpr int kRegisterCarrySlots = 8;
+// The two-launch kernels: elements a thread takes per vector slice, about.
+constexpr int kItems = 4;
 constexpr int kMaxBlocksPerVec = 1024;
 constexpr int kParts = 2;
 constexpr int kVecs = 2 * kParts;      // rv_n, sv_n, rv_a, sv_a (ops/step.py order)
@@ -121,6 +172,7 @@ struct StepArgs {
   int32_t normalize;
   int32_t step;
   int32_t n_steps;
+  int32_t per_thread;  // the fused kernel: elements a thread takes
   uint32_t* scratch;   // [kScratch]
   float* residuals;    // [kParts, n_steps]
   int32_t* n_iters;    // with tol, else null
@@ -145,6 +197,17 @@ __device__ __forceinline__ float flush_subnormal(float p) {
   return fabsf(p) < FLT_MIN ? 0.0f : p;
 }
 
+// The amax key of a carried value against its int8 weight: the f32
+// bits of |x * w|, its subnormal product flushed to 0.
+__device__ __forceinline__ uint32_t amax_key(float carry, float w) {
+  return __float_as_uint(fabsf(flush_subnormal(__fmul_rn(carry, w))));
+}
+
+// The next step's int8 scale from its operand's amax.
+__device__ __forceinline__ float scale_of(float am) {
+  return am > 0.0f ? __fdiv_rn(am, 127.0f) : 1.0f;
+}
+
 // The block's vector: the last whose first block is at or before it.
 __device__ __forceinline__ int vec_of(const StepArgs& a, int b) {
   int v = 0;
@@ -155,13 +218,27 @@ __device__ __forceinline__ int vec_of(const StepArgs& a, int b) {
   return v;
 }
 
+// A field of vector `vi` by static indices (no local copy of the array).
+template <typename T>
+__device__ __forceinline__ T field(const StepArgs& a, int vi, T Vec::*f) {
+  T r = a.v[0].*f;
+#pragma unroll
+  for (int i = 1; i < kVecs; ++i) {
+    if (vi == i) r = a.v[i].*f;
+  }
+  return r;
+}
+
 // sv' or rv' unnormalized, in the plain step's order of operations.
-__device__ __forceinline__ float unnormalized(const Vec& v, bool is_sv, float alpha, float d,
-                                              float one_minus_d, int64_t i) {
-  const float y0 = __ldg(v.y0 + i);
-  const float y1 = __ldg(v.y1 + i);
+__device__ __forceinline__ float combine(float y0, float y1, bool is_sv, float alpha, float d,
+                                         float one_minus_d) {
   if (is_sv) return __fmul_rn(d, __fadd_rn(y0, __fmul_rn(alpha, y1)));
   return __fadd_rn(__fmul_rn(d, y0), __fmul_rn(one_minus_d, y1));
+}
+
+__device__ __forceinline__ float unnormalized(const Vec& v, bool is_sv, float alpha, float d,
+                                              float one_minus_d, int64_t i) {
+  return combine(__ldg(v.y0 + i), __ldg(v.y1 + i), is_sv, alpha, d, one_minus_d);
 }
 
 // The block's maximum of `m` into thread 0's return value.
@@ -177,6 +254,169 @@ __device__ __forceinline__ uint32_t block_max(uint32_t m, uint32_t* warp_max) {
   }
   return out;
 }
+
+// ------------------------------------------------------ fused: the grid
+
+// An asynchronous 4-byte copy from device memory into shared memory
+// (cp.async; no register holds it), and the wait for this thread's.
+__device__ __forceinline__ void stage(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void staged() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// The fused step, S slots a thread (the least of 1, 2, 4, 8, kSlots
+// that holds per_thread, else kSlots): each vector a run of blocks, each
+// thread the elements first + k * kThreads (k < per_thread) of its
+// block's chunk.
+template <int S>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid(StepArgs a) {
+  constexpr bool kStaged = S > kRegisterCarrySlots;
+  __shared__ float old_s[kStaged ? S * kThreads : 1];
+  __shared__ uint32_t warp_max[kWarps];
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  const int vi = vec_of(a, b);
+  const bool is_sv = vi & 1;
+  const float one_minus_d = __fsub_rn(1.0f, a.d);
+  // Read before this block arrives; the last block rewrites it only
+  // after every block has arrived.
+  const bool run = a.running == nullptr || *a.running != 0;
+  const int per_thread = a.per_thread;
+  const int64_t first =
+      static_cast<int64_t>(b - field(a, vi, &Vec::first_block)) * kThreads * per_thread + t;
+  // This thread's elements: first + k * kThreads while k * kThreads <
+  // end; `lim` of them in the slots.
+  const int64_t left = field(a, vi, &Vec::n) - first;
+  const int64_t all = int64_t{per_thread} * kThreads;
+  const int64_t end = left < all ? left : all;
+  const int lim = end <= 0 ? 0 : static_cast<int>(end < S * kThreads ? end : S * kThreads);
+  const float* y0 = field(a, vi, &Vec::y0) + first;
+  const float* y1 = field(a, vi, &Vec::y1) + first;
+  const float* old = field(a, vi, &Vec::old) + first;
+  float* out = field(a, vi, &Vec::out) + first;
+  const bool scaled = a.scales != nullptr;
+  const float* w = scaled ? field(a, vi, &Vec::w) + first : old;
+
+  if constexpr (kStaged) {
+    // The carry in into shared memory, in flight through phase 1 and
+    // the barrier.
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k * kThreads < lim) stage(old_s + k * kThreads + t, old + k * kThreads);
+    }
+  }
+  // Phase 1: the unnormalized values into registers (up to
+  // kRegisterCarrySlots slots, the carry in and the weights too), every
+  // load issued before any is used (predicated, no branch between
+  // them), and their maximum.
+  float u[S];
+  float o[kStaged ? 1 : S];
+  float wv[kStaged ? 1 : S];
+  uint32_t m = 0u;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool ok = k * kThreads < lim;
+    const float v0 = ok ? __ldg(y0 + k * kThreads) : 0.0f;
+    const float v1 = ok ? __ldg(y1 + k * kThreads) : 0.0f;
+    if constexpr (!kStaged) {
+      o[k] = ok ? __ldg(old + k * kThreads) : 0.0f;
+      wv[k] = ok && scaled ? __ldg(w + k * kThreads) : 0.0f;
+    }
+    u[k] = combine(v0, v1, is_sv, a.alpha, a.d, one_minus_d);
+    m = ok ? max(m, key(u[k])) : m;
+  }
+  float mx = 1.0f;
+  if (a.normalize) {
+    // Past the slots: recomputed here and again in phase 2.
+    for (int64_t i = int64_t{S} * kThreads; i < end; i += kThreads) {
+      m = max(m, key(combine(__ldg(y0 + i), __ldg(y1 + i), is_sv, a.alpha, a.d, one_minus_d)));
+    }
+    m = block_max(m, warp_max);
+    if (t == 0) atomicMax(a.scratch + kVecMax + vi, m);
+    cg::this_grid().sync();
+    mx = unkey(__ldcg(a.scratch + kVecMax + vi));
+    // The divisions apart: phase 2's loads have no branch between them.
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k * kThreads < lim) u[k] = __fdiv_rn(u[k], mx);
+    }
+  }
+  if constexpr (kStaged) staged();
+
+  // Phase 2: write the carry, fold the residual and the amax; neither
+  // the products nor pref again.
+  uint32_t res = 0u;
+  uint32_t amax = 0u;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool ok = k * kThreads < lim;
+    float ok_old, ok_w;
+    if constexpr (kStaged) {
+      ok_old = ok ? old_s[k * kThreads + t] : 0.0f;
+      ok_w = ok && scaled ? __ldg(w + k * kThreads) : 0.0f;
+    } else {
+      ok_old = o[k];
+      ok_w = wv[k];
+    }
+    res = ok ? max(res, key(fabsf(__fsub_rn(u[k], ok_old)))) : res;
+    const float carry = run ? u[k] : ok_old;
+    if (ok) out[k * kThreads] = carry;
+    amax = ok && scaled ? max(amax, amax_key(carry, ok_w)) : amax;
+  }
+  for (int64_t i = int64_t{S} * kThreads; i < end; i += kThreads) {
+    const float uu = combine(__ldg(y0 + i), __ldg(y1 + i), is_sv, a.alpha, a.d, one_minus_d);
+    const float x = a.normalize ? __fdiv_rn(uu, mx) : uu;
+    const float ov = __ldg(old + i);
+    res = max(res, key(fabsf(__fsub_rn(x, ov))));
+    const float carry = run ? x : ov;
+    out[i] = carry;
+    if (scaled) amax = max(amax, amax_key(carry, __ldg(w + i)));
+  }
+  __syncthreads();  // warp_max is reused
+  res = block_max(res, warp_max);
+  __syncthreads();
+  amax = block_max(amax, warp_max);
+  if (t != 0) return;
+  // The block's maxima, then its arrival: one acq_rel add (release of
+  // the maxima, and for the last block the acquire of everyone's).
+  atomicMax(a.scratch + kResMax + vi / 2, res);
+  if (scaled) atomicMax(a.scratch + kAmax + vi, amax);
+  cuda::atomic_ref<uint32_t, cuda::thread_scope_device> arrivals(a.scratch[kArrivals]);
+  if (arrivals.fetch_add(1u, cuda::memory_order_acq_rel) != gridDim.x - 1) return;
+  // The last block: every slot read at once, then written and reset.
+  uint32_t rk[kParts];
+  uint32_t ak[kVecs];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) rk[p] = __ldcg(a.scratch + kResMax + p);
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) ak[i] = __ldcg(a.scratch + kAmax + i);
+  float r[kParts];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    r[p] = unkey(rk[p]);
+    a.residuals[static_cast<int64_t>(p) * a.n_steps + a.step] = run ? r[p] : 0.0f;
+  }
+  if (a.running != nullptr) {
+    const bool nan = r[0] != r[0] || r[1] != r[1];
+    *a.n_iters += run ? 1 : 0;
+    *a.running = run && !nan && fmaxf(r[0], r[1]) > a.tol;
+  }
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    if (scaled) a.scales[i] = scale_of(__uint_as_float(ak[i]));
+    a.scratch[kVecMax + i] = 0u;
+    a.scratch[kAmax + i] = 0u;
+  }
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) a.scratch[kResMax + p] = 0u;
+  a.scratch[kArrivals] = 0u;
+}
+
+// ------------------------------- the previous design: two launches
 
 __global__ void __launch_bounds__(kThreads) step_max(StepArgs a) {
   __shared__ uint32_t warp_max[kWarps];
@@ -264,6 +504,7 @@ __global__ void __launch_bounds__(kThreads) step_apply(StepArgs a) {
   a.scratch[kArrivals] = 0u;
 }
 
+
 // This library links its own CUDA runtime, whose current device is not
 // PyTorch's: make it `device` (a no-op after the first call).
 cudaError_t use_device(int device) {
@@ -273,34 +514,237 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-enum { kY0, kY1, kOld, kOut, kW, kVecPtrs };
+// The scalar fields of a step's arguments, checked.
+bool fill_scalars(StepArgs& args, float alpha, float d, float tol, int32_t normalize,
+                  int32_t n_steps, void* scratch, void* residuals, void* n_iters, void* running) {
+  if (scratch == nullptr || residuals == nullptr || n_steps < 1 ||
+      (n_iters == nullptr) != (running == nullptr)) {
+    return false;
+  }
+  args.alpha = alpha;
+  args.d = d;
+  args.tol = tol;
+  args.normalize = normalize;
+  args.n_steps = n_steps;
+  args.scratch = static_cast<uint32_t*>(scratch);
+  args.residuals = static_cast<float*>(residuals);
+  args.n_iters = static_cast<int32_t*>(n_iters);
+  args.running = static_cast<uint8_t*>(running);
+  return true;
+}
+
+// The instantiation for per_thread elements a thread: the least S of
+// the set that holds them, else kSlots.
+template <int S>
+const void* grid_fn() {
+  return reinterpret_cast<const void*>(step_grid<S>);
+}
+
+const void* grid_kernel(int64_t per_thread, int* slots) {
+  if (per_thread <= 1) return *slots = 1, grid_fn<1>();
+  if (per_thread <= 2) return *slots = 2, grid_fn<2>();
+  if (per_thread <= 4) return *slots = 4, grid_fn<4>();
+  if (per_thread <= 8) return *slots = 8, grid_fn<8>();
+  return *slots = kSlots, grid_fn<kSlots>();
+}
+
+// One window's step state (ops/step.py StepWindow): the arguments that
+// stay, the three carries (0: the window's first, 1 and 2: the two
+// buffers the steps alternate between), the kernel's instantiation and
+// grid, and the stream.
+struct Window {
+  StepArgs args;
+  float* carry[3][kVecs];
+  float* scales;
+  const void* kernel;
+  int32_t grid;
+  int device;
+  cudaStream_t stream;
+};
+
+enum { kY0, kY1, kOld, kOut, kW, kVecPtrs };                 // mr_power_step_two_launch
+enum { kWinPref, kWinCarry0, kWinCarry1, kWinCarry2, kWinW, kWinPtrs };  // mr_step_window_create
 
 }  // namespace
 
 extern "C" {
 
-// One power-iteration step's tail for both partitions on `stream`
-// (PyTorch's current stream of `device`): launch A when `normalize`,
-// then launch B. `vec_ptrs` holds kVecPtrs device pointers for each of
-// the four vectors in the order rv_n, sv_n, rv_a, sv_a (y0, y1, old,
-// out, w; w null unless `scales` is given), `ns` their lengths (>= 1).
-// `scratch` is kScratch uint32, zero before the first step; B's last
-// block leaves it zero again. `residuals` is float32 [2, n_steps], of
-// which column `step` is written; `n_iters` (int32) and `running`
-// (bool) are updated in place when given (with tol), both or neither.
-// `scales`, when given, receives the next step's four int8 scales.
-// Returns the CUDA error code of the launches (0 = launched). Allocates
-// nothing and does not synchronize. One scratch must not be in flight
-// on two streams at once.
-int mr_power_step(const void* const* vec_ptrs, const int64_t* ns, float alpha, float d,
-                  float tol, int32_t normalize, int32_t step, int32_t n_steps, void* scratch,
-                  void* residuals, void* n_iters, void* running, void* scales, int device,
-                  void* stream) {
-  if (scratch == nullptr || residuals == nullptr || step < 0 || step >= n_steps ||
-      (n_iters == nullptr) != (running == nullptr)) {
+// What the fused kernel gets on `device`, after setting the carveout of
+// its instantiations that stage the carry in shared memory at its
+// largest (their occupancy is then what their registers allow): out[0]
+// 1 if the device takes a cooperative launch, out[1] the resident
+// blocks an SM (kThreads threads each; the least over the
+// instantiations), out[2] the SM count, out[3] the register slots a
+// thread (kSlots), out[4] kThreads. Returns the CUDA error code of the
+// calls.
+int mr_power_step_config(int device, int32_t* out) {
+  cudaError_t e = use_device(device);
+  int coop = 0, sms = 0, per_sm = INT_MAX;
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  for (int64_t per : {1, 2, 4, 8, kSlots}) {
+    int slots = 0, n = 0;
+    const void* fn = grid_kernel(per, &slots);
+    if (e == cudaSuccess && slots > kRegisterCarrySlots) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, 0);
+    if (n < per_sm) per_sm = n;
+  }
+  out[0] = coop;
+  out[1] = e == cudaSuccess ? per_sm : 0;
+  out[2] = sms;
+  out[3] = kSlots;
+  out[4] = kThreads;
+  return static_cast<int>(e);
+}
+
+// Set up one window's steps, once: `ptrs` holds kWinPtrs pointers for
+// each of the four vectors in the order rv_n, sv_n, rv_a, sv_a (pref
+// for rv, null for sv; the window's first carry; the two carry buffers;
+// the int8 weight, null unless `scales` is given), `ns` their lengths
+// (>= 1). `scratch`, `residuals`, `n_iters`, `running` and `scales` as
+// for mr_power_step_two_launch (scales: the window's buffer, written by
+// the steps that ask for it). The grid takes at most `max_blocks`
+// blocks (the caller's cooperative limit; at least one a vector), each
+// vector its run of blocks, each thread the least per_thread that fits;
+// the kernel's instantiation the least slots that hold per_thread. The
+// steps launch on `stream` of `device`. Writes the state's handle to
+// `out`; grid, per_thread and the instantiation's slots to `out_grid`.
+// Returns a CUDA error code (0 = set up).
+int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alpha, float d,
+                          float tol, int32_t normalize, int32_t n_steps, void* scratch,
+                          void* residuals, void* n_iters, void* running, void* scales,
+                          int device, void* stream, int64_t max_blocks, void** out,
+                          int32_t* out_grid) {
+  *out = nullptr;
+  Window win{};
+  if (!fill_scalars(win.args, alpha, d, tol, normalize, n_steps, scratch, residuals, n_iters,
+                    running) ||
+      max_blocks < kVecs || max_blocks > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int64_t total = 0;
+  for (int i = 0; i < kVecs; ++i) {
+    const void* const* p = ptrs + i * kWinPtrs;
+    const bool is_sv = i & 1;
+    if (ns[i] < 1 || (p[kWinPref] == nullptr) != is_sv || p[kWinCarry0] == nullptr ||
+        p[kWinCarry1] == nullptr || p[kWinCarry2] == nullptr ||
+        ((scales != nullptr) != (p[kWinW] != nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Vec& v = win.args.v[i];
+    v.y1 = static_cast<const float*>(p[kWinPref]);
+    v.w = static_cast<const float*>(p[kWinW]);
+    v.n = ns[i];
+    for (int s = 0; s < 3; ++s) {
+      win.carry[s][i] = static_cast<float*>(const_cast<void*>(p[kWinCarry0 + s]));
+    }
+    total += ns[i];
+  }
+  // The least per_thread whose blocks fit the grid.
+  const int64_t chunk0 = int64_t{kThreads} * max_blocks;
+  int64_t per = total / chunk0 > 1 ? total / chunk0 : 1;
+  for (;; ++per) {
+    int64_t blocks = 0;
+    for (int i = 0; i < kVecs; ++i) blocks += (ns[i] + kThreads * per - 1) / (kThreads * per);
+    if (blocks <= max_blocks) break;
+  }
+  if (per > INT_MAX / kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  int32_t grid = 0;
+  for (int i = 0; i < kVecs; ++i) {
+    Vec& v = win.args.v[i];
+    v.first_block = grid;
+    v.blocks = static_cast<int32_t>((v.n + kThreads * per - 1) / (kThreads * per));
+    grid += v.blocks;
+  }
+  int slots = 0;
+  win.kernel = grid_kernel(per, &slots);
+  win.args.per_thread = static_cast<int32_t>(per);
+  win.scales = static_cast<float*>(scales);
+  win.grid = grid;
+  win.device = device;
+  win.stream = static_cast<cudaStream_t>(stream);
+  Window* h = new (std::nothrow) Window(win);
+  if (h == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  *out = h;
+  out_grid[0] = grid;
+  out_grid[1] = static_cast<int32_t>(per);
+  out_grid[2] = slots;
+  return 0;
+}
+
+void mr_step_window_free(void* handle) { delete static_cast<Window*>(handle); }
+
+// Step `step` of a window set up by mr_step_window_create: one
+// cooperative launch of the fused kernel from the step's products of
+// both partitions, the carry in `in_slot` (0, 1 or 2) into `out_slot`
+// (1 or 2, never in_slot); with `want_scales` the next step's int8
+// scales into the window's buffer. Returns the CUDA error code of the
+// launch (0 = launched; a grid the card cannot hold resident is
+// cudaErrorCooperativeLaunchTooLarge and never runs). Allocates nothing
+// and does not synchronize. One window's scratch must not be in flight
+// on two streams at once.
+int mr_step_window_run(void* handle, const void* y_sr_n, const void* y_ss_n, const void* y_rs_n,
+                       const void* y_sr_a, const void* y_ss_a, const void* y_rs_a,
+                       int32_t in_slot, int32_t out_slot, int32_t step, int32_t want_scales) {
+  const Window* win = static_cast<const Window*>(handle);
+  if (win == nullptr || in_slot < 0 || in_slot > 2 || out_slot < 1 || out_slot > 2 ||
+      in_slot == out_slot || step < 0 || step >= win->args.n_steps ||
+      y_sr_n == nullptr || y_ss_n == nullptr || y_rs_n == nullptr || y_sr_a == nullptr ||
+      y_ss_a == nullptr || y_rs_a == nullptr || (want_scales && win->scales == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  StepArgs a = win->args;
+  a.v[0].y0 = static_cast<const float*>(y_rs_n);
+  a.v[1].y0 = static_cast<const float*>(y_sr_n);
+  a.v[1].y1 = static_cast<const float*>(y_ss_n);
+  a.v[2].y0 = static_cast<const float*>(y_rs_a);
+  a.v[3].y0 = static_cast<const float*>(y_sr_a);
+  a.v[3].y1 = static_cast<const float*>(y_ss_a);
+  for (int i = 0; i < kVecs; ++i) {
+    a.v[i].old = win->carry[in_slot][i];
+    a.v[i].out = win->carry[out_slot][i];
+  }
+  a.step = step;
+  a.scales = want_scales ? win->scales : nullptr;
+  const cudaError_t set = use_device(win->device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  void* params[] = {&a};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      win->kernel, dim3(static_cast<unsigned>(win->grid)), dim3(kThreads), params, 0,
+      win->stream);
+  if (launched != cudaSuccess) {
+    cudaGetLastError();  // clear the refusal; it is reported here
+    return static_cast<int>(launched);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The previous design, kept for comparison: one step's tail for both
+// partitions on `stream` (PyTorch's current stream of `device`): launch
+// A (`step_max`) when `normalize`, then launch B (`step_apply`).
+// `vec_ptrs` holds kVecPtrs device pointers for each of the four
+// vectors in the order rv_n, sv_n, rv_a, sv_a (y0, y1, old, out, w; w
+// null unless `scales` is given), `ns` their lengths (>= 1). `scratch`
+// is kScratch uint32, zero before the first step; B's last block leaves
+// it zero again. `residuals` is float32 [2, n_steps], of which column
+// `step` is written; `n_iters` (int32) and `running` (bool) are updated
+// in place when given (with tol), both or neither. `scales`, when given,
+// receives the next step's four int8 scales. Returns the CUDA error code
+// of the launches (0 = launched). Allocates nothing and does not
+// synchronize.
+int mr_power_step_two_launch(const void* const* vec_ptrs, const int64_t* ns, float alpha,
+                             float d, float tol, int32_t normalize, int32_t step,
+                             int32_t n_steps, void* scratch, void* residuals, void* n_iters,
+                             void* running, void* scales, int device, void* stream) {
   StepArgs args{};
+  if (!fill_scalars(args, alpha, d, tol, normalize, n_steps, scratch, residuals, n_iters,
+                    running) ||
+      step < 0 || step >= n_steps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int32_t blocks = 0;
   for (int i = 0; i < kVecs; ++i) {
     const void* const* p = vec_ptrs + i * kVecPtrs;
@@ -320,16 +764,7 @@ int mr_power_step(const void* const* vec_ptrs, const int64_t* ns, float alpha, f
     v.first_block = blocks;
     blocks += v.blocks;
   }
-  args.alpha = alpha;
-  args.d = d;
-  args.tol = tol;
-  args.normalize = normalize;
   args.step = step;
-  args.n_steps = n_steps;
-  args.scratch = static_cast<uint32_t*>(scratch);
-  args.residuals = static_cast<float*>(residuals);
-  args.n_iters = static_cast<int32_t*>(n_iters);
-  args.running = static_cast<uint8_t*>(running);
   args.scales = static_cast<float*>(scales);
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);

@@ -38,7 +38,7 @@ Steps:
   of ``quantize_amax`` on CUDA tensors (counted in
   ``quantize_scales.launches``), ``quantize_scales_plain`` on CPU ones.
   Every later step's scales come from the power-iteration step that
-  writes the vectors (``ops.step.power_step``), in the same pass.
+  writes the vectors (``ops.step.StepWindow``), in the same pass.
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
   ``pattern_pair_group.launches``, K8's in ``.blocked_launches`` too,

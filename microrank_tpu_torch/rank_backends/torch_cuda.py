@@ -34,12 +34,12 @@ partitions) take one or two launches, built for the window by
 
 The step's elementwise tail — the damped combination of the products,
 the max normalization, the residual trace and, with ``tol``, the freeze
-— is K5 (``ops.step.power_step``): two launches of ``csrc/power_step.cu``
-for both partitions, in place of the eager ops the port issued before.
+— is K5 (``ops.step.StepWindow``, set up once a window): one
+cooperative launch of ``csrc/power_step.cu`` a step for both
+partitions, in place of the eager ops the port issued before.
 
-On the card each call is one launch of a CUDA kernel (the step kernel's
-call two), on the CPU its
-plain version. The loop issues device work only — no step reads a value
+On the card each call is one launch of a CUDA kernel, on the CPU its plain
+version. The loop issues device work only — no step reads a value
 back — and the caller fetches ``(top_idx, top_scores, n_valid,
 residuals, n_iters)`` in one device-to-host copy, started on the stream
 that ran the program (``pack_rank_outputs``) and waited for where the
@@ -71,7 +71,7 @@ from ..graph.build import (
 )
 from ..graph.structures import PartitionGraph, WindowGraph
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
-from ..ops.step import power_step, step_plan, step_scratch
+from ..ops.step import StepWindow, step_plan, step_scratch
 from ..ops.spmv import (
     EllPart,
     PcsrGroup,
@@ -502,12 +502,12 @@ def window_weights_full(
     if cfg.tol is not None:
         running = torch.ones((), dtype=torch.bool, device=dev)
         n_iters = torch.zeros((), dtype=torch.int32, device=dev)
+    # K5's state, set up once: the checks, two carry buffers, and on the
+    # card the kernel's arguments; each step then passes its products.
+    steps = StepWindow(plan, carry, residuals, n_iters, running)
     for i in range(n_steps):
         ys = products(*carry, scales)
-        carry, scales = power_step(
-            plan, ys, carry, residuals, i, n_iters, running,
-            want_scales=int8 and i + 1 < n_steps,
-        )
+        carry, scales = steps.step(ys, i, want_scales=int8 and i + 1 < n_steps)
     if n_iters is None:
         n_iters = torch.full((), n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
@@ -721,7 +721,7 @@ def device_subset(
 ) -> WindowGraph:
     """The graph as the kernels consume it, built once per window so each
     power-iteration step is one or two launches of its products and the
-    step kernel's two (``step_scratch``: K5's scratch, the window's
+    step kernel's one (``step_scratch``: K5's scratch, the window's
     own, so that two windows in flight never share it): for "pallas", K1's work
     list of the six SpMVs (``window_spmv_group`` over the COO arrays);
     for "pcsr", the pcsr kernel's group (``window_pcsr_group``: K1's

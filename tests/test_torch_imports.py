@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "pandas", "microrank_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "step_design_probe.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -535,11 +535,11 @@ def test_int8_lane_on_cuda_matches_cpu(cuda_device, tmp_path, collapse):
     cpu = [r for r in run_rca_native(normal, abnormal, cfg, device="cpu") if r.ranking]
     assert gpu and gpu[0].ranking[0][0] == case.fault_pod_op
     # One scale launch per window (the first step's scales; the step
-    # kernel takes every later step's), one int8 pair launch and two
-    # step launches per step.
+    # kernel takes every later step's), one int8 pair launch and one
+    # step launch per step.
     assert pattern.quantize_scales.launches == len(gpu)
     assert pattern.pattern_pair_group.launches == 25 * len(gpu)
-    assert step.power_step.launches == 50 * len(gpu)
+    assert step.power_step.launches == 25 * len(gpu)
     # The kernels are bitwise their plain versions; the rest of the rank
     # program reduces in the card's order, and a last-bit difference in
     # an operand can move its int8 step: JAX's int8 tolerance.
