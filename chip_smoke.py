@@ -82,9 +82,14 @@ JAX or of the JAX package. Phases, one JSON line each:
               consecutive windows of
               1,000,000 spans, every one faulted, from the port's
               ``generate_timeline_with_spans`` (same generator settings as
-              phase 2), detect = the generator's window, skip 0; in three
+              phase 2), detect = the generator's window, skip 0; in five
               modes of the loop: sync (depth 1), the default (async stage
-              and fetch workers, stream joins, depth 2) and async bulk.
+              and fetch workers, stream joins, depth 2), async bulk,
+              ``chunked`` (bench.py's own: bulk joins,
+              ``dispatch_batch_windows=4``, so groups of 4 and 2, each
+              one stacked program) and ``batch``
+              (``run(batch_windows=True)``: one stacked program for all
+              windows after the loop).
               Each mode: one warm pass with a sink (every window ranked
               with ``kind`` and the fault at top-1, the cursor cleared,
               one journal ``window`` event per window, the stage worker's
@@ -98,7 +103,10 @@ JAX or of the JAX package. Phases, one JSON line each:
               per-run work, such as the table's admission, timed apart).
               The
               async and bulk rankings, ``rank_iterations`` and sink
-              records are bitwise the sync run's, and a run resumed from
+              records are bitwise the sync run's; the chunked and batch
+              runs' the same windows, iterations and top-1, rankings
+              tie-aware at rtol 1e-5 (bitwise reported), and their
+              launches 25 of each kernel per group; a run resumed from
               a cursor saved after window 2 is bitwise windows 3-6. The
               default mode's warm pass records into a fresh metrics
               registry and writes ``metrics.json`` as ``cli run`` does:
@@ -110,6 +118,23 @@ JAX or of the JAX package. Phases, one JSON line each:
               part), ``idle_exit=1``: its rankings bitwise a sync
               ``TableRCA.run`` over the whole file; polls, windows and
               ms per poll;
+   batched  — K18, the stacked rank program: the replay's config-5
+              ``kind`` windows (each built by ``prepare_rank``) stacked in
+              groups of B = 1, 2, 4 and 6 (``stack_window_graphs``), and
+              the config-5 window stacked twice for ``pallas`` and
+              ``packed_bf16``. Each group: 25 launches of K1, of the pair
+              (not pallas) and of K5 for the whole group; each window's
+              n_valid and n_iters those of its own program, its ranking
+              tie-aware at rtol 1e-5 (bitwise reported); the group through
+              the plain step on the card bitwise; its window-axis kernels
+              bitwise their plain versions (computed on the CPU; for
+              packed_bf16 the windows' own launches) and over 50 launches.
+              The kind groups timed in turns with the windows' own
+              programs (windows, stacked, stacked, windows; each window's
+              program timed alone and the B summed): host issue and
+              device time by CUDA events behind a ~100 ms spin, the
+              device drained after each call, per program and per
+              window;
 6. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
               one, at the uncollapsed shapes), per step of the pallas
               path (the grouped launch of all six matrices, at the
@@ -249,7 +274,18 @@ REPLAY_MODES = {
     "sync": dict(pipeline_depth=1, async_dispatch=False),
     "default": {},
     "bulk": dict(fetch_mode="bulk"),
+    # bench.py's own replay configuration (_run_replay): bulk joins of
+    # groups of four windows, each one stacked rank program.
+    "chunked": dict(fetch_mode="bulk", dispatch_batch_windows=4),
+    # run(batch_windows=True): every window detected, then all of them
+    # built and ranked by one stacked program.
+    "batch": {},
 }
+# The replay modes that rank stacked groups (K18).
+STACKED_MODES = ("chunked", "batch")
+# The stacked rank program's phase: groups of the replay's config-5 kind
+# windows.
+BATCH_SIZES = (1, 2, 4, 6)
 
 
 # Seconds from the start of the run to each emitted line, by phase.
@@ -304,7 +340,7 @@ def read_counts(spmv, pattern) -> dict:
     }
 
 
-def expected_counts(kernel, n, int8=False) -> dict:
+def expected_counts(kernel, n, int8=False, programs=None) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
     launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
     SpMVs), or of the pattern pair (four products; packed_blocked's
@@ -312,19 +348,23 @@ def expected_counts(kernel, n, int8=False) -> dict:
     fold launch) and K1 (the two call-graph terms); on every route one
     launch per step of the step kernel (K5); with ``int8`` (kind) one
     scale launch per window, for the first step (the step kernel takes
-    every later step's scales); the two-launch step kernel never."""
+    every later step's scales); the two-launch step kernel never.
+    ``programs``: the rank programs the windows ran in (stacked groups,
+    K18: one launch of each kernel a step for the whole group; the
+    SpMVs and products still count per window); default one a window."""
     counts = dict.fromkeys(("step_launches", "step_two_launch_launches", "k1_launches",
                             "k1_spmvs", "pcsr_launches",
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches"), 0)
-    counts["step_launches"] = STEP_LAUNCHES * STEPS * n
+    g = n if programs is None else programs
+    counts["step_launches"] = STEP_LAUNCHES * STEPS * g
     if kernel == "pallas":
-        counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
+        counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
         counts.update(pcsr_launches=STEPS * n, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
     else:
-        counts.update(k1_launches=STEPS * n, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
-                      pattern_launches=STEPS * n, pattern_products=STEPS * 4 * n,
+        counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
+                      pattern_launches=STEPS * g, pattern_products=STEPS * 4 * n,
                       blocked_launches=STEPS * n if kernel == "packed_blocked" else 0,
                       fold_launches=STEPS * n if kernel == "packed_blocked" else 0,
                       quantize_launches=n if int8 else 0)
@@ -978,13 +1018,42 @@ def metrics_gates(tag, out, n_ranked, admitted):
     }
 
 
+def ranked_timings(results):
+    """The first ranked window's timings (batch's shared keys)."""
+    return next((r.timings for r in results if r.ranking), {})
+
+
+def ranking_agreement(a, b, rtol):
+    """Two rankings [(name, score), ...] tie-aware at ``rtol``, the same
+    length and top-1."""
+    from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
+
+    if len(a) != len(b) or (a and a[0][0] != b[0][0]):
+        return False, "lengths or top-1 differ"
+    return tie_aware_topk_agreement(
+        [n for n, _ in a], [x for _, x in a], [n for n, _ in b], [x for _, x in b],
+        k=len(a), rtol=rtol,
+    )
+
+
+def replay_groups(mode, n):
+    """The sizes of the stacked groups a replay mode ranks ``n`` windows
+    in: all of them in one (batch), groups of dispatch_batch_windows, or
+    one program a window."""
+    if mode == "batch":
+        return [n]
+    k = REPLAY_MODES[mode].get("dispatch_batch_windows", 1)
+    return [min(k, n - i) for i in range(0, n, k)]
+
+
 def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     """One mode of ``TableRCA.run`` on the card over the whole timeline:
     a warm pass with a sink (records, cursor, journal; in the default
     mode also the metrics snapshot the CLI writes, into a fresh registry,
     and its gates), three timed passes without one (as bench.py's
-    ``_run_replay``), their launches counted per pass, then one pass
-    under the profiler for the device's busy share. Returns (rca, warm
+    ``_run_replay``), their launches counted per pass (a stacked mode's
+    per group: 25 launches of each kernel a group), then one pass under
+    the profiler for the device's busy share. Returns (rca, warm
     results, launch counts of the last timed pass, info)."""
     import numpy as np
 
@@ -997,6 +1066,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
 
     cfg = replay_config(tl, **REPLAY_MODES[mode])
     tag = f"replay/{mode}"
+    batch = mode == "batch"
     with_metrics = mode == "default"
     if with_metrics:
         registry = MetricsRegistry()
@@ -1005,16 +1075,17 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     rca.fit_baseline(normal_table)
 
     streams = []
-    launch = rca.launch_rank
+    entry = "launch_program" if mode in STACKED_MODES else "launch_rank"
+    launch = getattr(rca, entry)
 
-    def spy(*a):  # which stream launch_rank issues on, once
+    def spy(*a):  # which stream the launch issues on, once
         streams.append(torch.cuda.current_stream())
-        rca.launch_rank = launch
+        setattr(rca, entry, launch)
         return launch(*a)
 
-    rca.launch_rank = spy
+    setattr(rca, entry, spy)
     out = workdir / f"replay_{mode}"
-    warm = rca.run(table, out_dir=out)
+    warm = rca.run(table, out_dir=out, batch_windows=batch)
     metrics = None
     if with_metrics:
         # What `cli run` writes beside the results when telemetry is on.
@@ -1023,9 +1094,9 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
         kept = sum(admit_table(t, IngestConfig())[0].n_spans for t in (normal_table, table))
         metrics = metrics_gates(tag, out, sum(1 for r in warm if r.ranking), kept)
         set_registry(MetricsRegistry())
-    check(len(streams) == 1, f"{tag}: launch_rank was not reached")
+    check(len(streams) == 1, f"{tag}: {entry} was not reached")
     on_default = streams[0] == torch.cuda.default_stream()
-    if cfg.runtime.async_dispatch:
+    if cfg.runtime.async_dispatch and not batch:  # batch ranks after the loop's workers
         check(not on_default, f"{tag}: the stage worker launched on the default stream")
     ranked = [r for r in warm if r.ranking]
     check(len(ranked) == len(tl.windows),
@@ -1044,7 +1115,12 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
           f"{tag}: the journal does not open with run_start and close with run_end")
 
     n = len(ranked)
-    expect = expected_counts("kind", n)
+    groups = replay_groups(mode, n)
+    expect = expected_counts("kind", n, programs=len(groups))
+    if mode in STACKED_MODES:
+        check([r.timings.get("chunk_windows", n) for r in ranked]
+              == [g for g in groups for _ in range(g)],
+              f"{tag}: windows not ranked in groups of {groups}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls, timed, stage_sums = [], [], []
@@ -1052,7 +1128,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
         torch.cuda.synchronize()
         reset_counts(spmv, pattern)
         t0 = time.perf_counter()
-        res = rca.run(table)
+        res = rca.run(table, batch_windows=batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts = read_counts(spmv, pattern)
@@ -1061,13 +1137,18 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
               == [(r.start, r.ranking, r.rank_iterations) for r in warm],
               f"{tag}: a timed pass differs from the warm pass")
         timed.extend(res)
-        # The main thread's per-window stages; the rest of a pass is
-        # per-run work (admission of the whole table, its bounds).
+        # The main thread's per-window stages (batch's shared build and
+        # rank counted once); the rest of a pass is per-run work
+        # (admission of the whole table, its bounds).
+        shared = {"build", "rank_batched"}
         stage_sums.append(sum(
-            v for r in res for k, v in r.timings.items() if k != "bulk_fetch_windows"
-        ))
+            v for r in res for k, v in r.timings.items()
+            if not k.endswith("_windows") and k not in shared
+        ) + sum(v for k, v in ranked_timings(res).items() if k in shared))
     peak = torch.cuda.max_memory_allocated()
-    prof_wall, busy = kernel_busy_share(torch, workdir, lambda: rca.run(table))
+    prof_wall, busy = kernel_busy_share(
+        torch, workdir, lambda: rca.run(table, batch_windows=batch)
+    )
 
     replay_s = _median(walls)
     median_pass = walls.index(replay_s)
@@ -1076,7 +1157,8 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
                         int(np.datetime64(r.end, "us").astype(np.int64))).sum())
         for r in ranked
     )
-    keys = ("detect", "rank_dispatch", "rank_wait", "bulk_fetch_ms")
+    keys = ("detect", "rank_dispatch", "rank_wait", "bulk_fetch_ms", "chunk_fetch_ms",
+            "build", "rank_batched")
     medians = {
         k: _median([r.timings[k] for r in timed if r.ranking and k in r.timings])
         for k in keys
@@ -1099,6 +1181,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
         "peak_device_memory_bytes": peak,
         "window_timing_medians_ms": {k: v for k, v in medians.items() if v is not None},
         "queue_depths": [r.queue_depth for r in warm if r.ranking],
+        "groups": groups,
         "launches_per_pass": counts,
         "stage_stream_is_default": on_default,
         "metrics": metrics,
@@ -1145,6 +1228,27 @@ def phase_replay(torch, spmv, pattern, args, workdir):
         check(got == ref, f"replay/{mode}: rankings are not bitwise the sync run's")
         check(records[mode] == records["sync"],
               f"replay/{mode}: windows.jsonl records differ from the sync run's")
+    # The stacked modes: the same windows, iterations and top-1, the
+    # rankings tie-aware at rtol 1e-5; whether they are bitwise is
+    # reported (a stacked window's preference sums run over the group's
+    # padded trace axis).
+    for mode in STACKED_MODES:
+        got = warm[mode]
+        check([(r.start, r.rank_iterations) for r in got]
+              == [(r.start, r.rank_iterations) for r in warm["sync"]],
+              f"replay/{mode}: windows or iterations differ from the sync run's")
+        for a, b in zip(got, warm["sync"]):
+            ok, why = ranking_agreement(a.ranking, b.ranking, RUN_RTOL)
+            check(ok, f"replay/{mode}: window {a.start}: {why}")
+        strip = [{k: v for k, v in rec.items() if k != "ranking"} for rec in records[mode]]
+        check(strip == [{k: v for k, v in rec.items() if k != "ranking"}
+                        for rec in records["sync"]],
+              f"replay/{mode}: windows.jsonl records differ from the sync run's")
+        infos[mode]["rankings_bitwise_vs_sync"] = (
+            [(r.start, r.ranking, r.rank_iterations) for r in got] == ref
+            and records[mode] == records["sync"]
+        )
+        infos[mode]["rankings_tie_aware_vs_sync"] = True
 
     # Resume (default mode): a cursor saved after window 2 reruns the rest.
     k = min(2, len(warm["sync"]) - 1)
@@ -1153,18 +1257,243 @@ def phase_replay(torch, spmv, pattern, args, workdir):
     resumed = rca.run(table, out_dir=out, resume=True)
     check([(r.start, r.ranking, r.rank_iterations) for r in resumed] == ref[k:],
           f"replay: the run resumed after window {k} is not bitwise windows {k + 1}-")
-    return (tl, normal_table, table, timeline_csv), launches, {
+    return (tl, normal_table, table, timeline_csv), warm["sync"], launches, {
         "phase": "replay",
         "data": data,
         "fault_pod_op": tl.fault_pod_op,
         "admit_table_ms": round(_median(admit_ms), 3),
         "modes": infos,
-        "rankings_bitwise_vs_sync": True,
+        "rankings_bitwise_vs_sync": True,  # default and bulk; the stacked modes' in modes
         "sink_records_equal": True,
         "resumed_after_window": k,
         "resumed_bitwise": True,
         "phase_s": round(time.perf_counter() - t0, 3),
     }
+
+
+def stacked_kernel_checks(torch, spmv, pattern, tag, card, host, singles=None):
+    """One step's window-axis kernels of a stacked group, on random
+    inputs: K1 over the stacked work list and (kind, packed) the pattern
+    pair's window grid, bitwise their plain versions (computed on the CPU
+    from ``host``, the same group built there; or, with ``singles``, the
+    group's windows launched one by one, whose kernels phases 6 and 7
+    hold bitwise to the plain version), then bitwise over 50 launches
+    with every arrival counter back at 0. Returns the fields of the
+    report."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    b = card.normal.kind.shape[0]
+    dev = torch.device("cuda")
+    svs = [torch.rand((b, p.cov_unique.shape[-1]), generator=gen, device=dev)
+           for p in (card.normal, card.abnormal)]
+    rvs = [torch.rand((b, p.kind.shape[-1]), generator=gen, device=dev)
+           for p in (card.normal, card.abnormal)]
+    pair = card.pattern_group
+    prec = "bf16" if tag.endswith("packed_bf16") else "f32"
+
+    def step():
+        if pair is None:
+            return list(spmv.coo_spmv_group(card.spmv_group, (rvs[0], svs[0], rvs[1], svs[1])))
+        outs = pattern.pattern_pair_group(pair, rvs, svs, prec)
+        xs = [sv if x is None else x for sv, (_, _, x) in zip(svs, outs)]
+        return [t for o in outs for t in o if t is not None] + list(
+            spmv.coo_spmv_group(card.spmv_group, xs))
+
+    first = [t.clone() for t in step()]
+    torch.cuda.synchronize()
+    if singles is None:
+        c_rvs, c_svs = [x.cpu() for x in rvs], [x.cpu() for x in svs]
+        if pair is None:
+            want = list(spmv.coo_spmv_group(host.spmv_group, (c_rvs[0], c_svs[0], c_rvs[1],
+                                                              c_svs[1])))
+        else:
+            outs = pattern.pattern_pair_group(host.pattern_group, c_rvs, c_svs, prec)
+            xs = [sv if x is None else x for sv, (_, _, x) in zip(c_svs, outs)]
+            want = [t for o in outs for t in o if t is not None] + list(
+                spmv.coo_spmv_group(host.spmv_group, xs))
+    else:
+        want = None
+        rows = []
+        for w, one in enumerate(singles):
+            r = [x[w].contiguous() for x in rvs]
+            v = [x[w].contiguous() for x in svs]
+            outs = pattern.pattern_pair_group(one.pattern_group, r, v, prec)
+            xs = [sv if x is None else x for sv, (_, _, x) in zip(v, outs)]
+            rows.append([t for o in outs for t in o if t is not None] + list(
+                spmv.coo_spmv_group(one.spmv_group, xs)))
+        want = [torch.stack([row[i] for row in rows]) for i in range(len(rows[0]))]
+    torch.cuda.synchronize()
+    diffs = [float((a.cpu() - w.cpu()).abs().max()) if a.numel() else 0.0
+             for a, w in zip(first, want)]
+    bitwise = all(torch.equal(bits(torch, a.cpu()), bits(torch, w.cpu()))
+                  for a, w in zip(first, want))
+    check(bitwise, f"{tag}: a window-axis kernel differs from its plain version")
+    for _ in range(REPEATS):
+        again = step()
+        check(all(torch.equal(bits(torch, a), bits(torch, f)) for a, f in zip(again, first)),
+              f"{tag}: not bitwise repeatable over {REPEATS} launches")
+    torch.cuda.synchronize()
+    check(not bool(card.spmv_group.counters.any()), f"{tag}: K1's counters left non-zero")
+    check(pair is None or not any(bool(p.counters.any()) for p in pair.parts),
+          f"{tag}: the pair's counters left non-zero")
+    return {
+        "kernels_bitwise_plain": True,
+        "plain_from": "cpu" if singles is None else "the windows one by one",
+        "kernels_repeatable": REPEATS,
+        "max_abs_err": max(diffs),
+    }
+
+
+def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed=True):
+    """The stacked rank program (K18) on the card, as the lane issues a
+    group: its launches counted (25 of each kernel of the route for the
+    whole group), its outputs held to each window's own program (the
+    same n_valid and n_iters, the ranking tie-aware at rtol 1e-5,
+    bitwise reported), its steps through the plain step on the card
+    bitwise (``plain_step_check``); with ``timed``, host issue and device
+    time (CUDA events behind a ~100 ms spin, the device drained after
+    each call) of the stacked program and of the windows' own programs,
+    each window's timed alone and the B summed, in turns (windows,
+    stacked, stacked, windows), per program and per window."""
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    b = len(singles)
+
+    def program(dg):
+        return lambda: tc.pack_rank_outputs(
+            tc.rank_window_traced_core(dg, cfg.pagerank, cfg.spectrum, kernel))
+
+    program(card)()
+    torch.cuda.synchronize()
+    reset_counts(spmv, pattern)
+    packed = program(card)()
+    torch.cuda.synchronize()
+    counts = read_counts(spmv, pattern)
+    expect = expected_counts(kernel, b, programs=1)
+    check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
+    got = tc.unpack_rank_outputs(packed)
+    bitwise = True
+    for w, one in enumerate(singles):
+        want = tc.unpack_rank_outputs(program(one)())
+        n = want[2]
+        check((int(got[2][w]), int(got[4][w])) == (n, want[4]),
+              f"{tag}: window {w}: n_valid / n_iters differ from its own program's")
+        ok, why = ranking_agreement(list(zip(got[0][w][:n].tolist(), got[1][w][:n].tolist())),
+                                    list(zip(want[0][:n].tolist(), want[1][:n].tolist())),
+                                    RUN_RTOL)
+        check(ok, f"{tag}: window {w}: {why}")
+        bitwise = bitwise and all(
+            x.tobytes() == y.tobytes()
+            for x, y in ((got[0][w][:n], want[0][:n]), (got[1][w][:n], want[1][:n]),
+                         (got[3][w], want[3]))
+        )
+    out = {
+        "windows": b,
+        "launches": counts,
+        "bitwise_vs_window_programs": bitwise,
+        "plain_step": plain_step_check(torch, card, cfg, kernel),
+    }
+    if not timed:
+        return out, counts
+
+    def timed_ms(dg):
+        return spin_event_host_ms(torch, program(dg), 5, PROGRAM_SPIN_CYCLES, settle=True)
+
+    turns = {"stacked": [], "windows": []}
+    for which in ("windows", "stacked", "stacked", "windows"):
+        if which == "stacked":
+            turns[which].append(timed_ms(card))
+        else:
+            each = [timed_ms(one) for one in singles]
+            turns[which].append((sum(e for e, _ in each), sum(h for _, h in each)))
+    for which, vals in turns.items():
+        ev = _mean([v[0] for v in vals])
+        host = _mean([v[1] for v in vals])
+        out[which] = {
+            "event_ms": round(ev, 4), "host_issue_ms": round(host, 4),
+            "event_ms_per_window": round(ev / b, 4),
+            "host_issue_ms_per_window": round(host / b, 4),
+            "turns": [[round(e, 4), round(h, 4)] for e, h in vals],
+        }
+    return out, counts
+
+
+def phase_batched(torch, spmv, pattern, replay, windows, graphs):
+    """K18, the stacked rank program, on the card: groups of B = 1, 2, 4
+    and 6 of the replay's config-5 kind windows (each window's graph as
+    ``prepare_rank`` builds it, stacked by ``parallel.stack_window_graphs``)
+    and groups of the config-5 window stacked twice for ``pallas`` (collapse
+    off) and ``packed_bf16`` (auto, collapse off). Each group: its
+    window-axis kernels bitwise their plain versions over 50 launches
+    (``stacked_kernel_checks``) and its program held to the windows' own
+    (``stacked_program``); the kind groups timed against the per-window
+    programs in turns."""
+    import numpy as np
+
+    from microrank_tpu_torch.parallel import stack_window_graphs
+    from microrank_tpu_torch.pipeline import TableRCA
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+
+    from microrank_tpu_torch.ingest import admit_table
+
+    t0 = time.perf_counter()
+    tl, normal_table, table, _ = replay
+    cfg = replay_config(tl)
+    rca = TableRCA(cfg, device="cuda")
+    rca.fit_baseline(normal_table)
+    table, _ = admit_table(table, cfg.ingest, source="table")  # as run() does first
+    dev = torch.device("cuda")
+
+    def us(iso):
+        return int(np.datetime64(iso, "us").astype(np.int64))
+
+    host = []
+    for r in (r for r in windows if r.ranking):
+        mask, nrm, abn, _, row_range = rca._detect_window(table, us(r.start), us(r.end))
+        graph, _, kernel = rca.prepare_rank(table, mask, nrm, abn, row_range)
+        check(kernel == "kind", f"batched: window {r.start} resolved to {kernel}")
+        host.append(host_subset(graph, "kind"))
+
+    def staged(g, kernel, device=dev):
+        return device_subset(graph_from_numpy(g, device), kernel)
+
+    singles = [staged(g, "kind") for g in host]
+    launches, out = {}, {"phase": "batched", "kind": {}}
+    for b in BATCH_SIZES:
+        if b > len(host):
+            continue
+        stack = stack_window_graphs(host[:b])
+        card = staged(stack, "kind")
+        tag = f"batched/kind/{b}"
+        info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind", cfg)
+        launches[tag] = counts
+        if b == max(x for x in BATCH_SIZES if x <= len(host)):
+            info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
+                                              staged(stack, "kind", "cpu")))
+        info["trace_pads"] = [int(card.normal.kind.shape[-1]), int(card.abnormal.kind.shape[-1])]
+        out["kind"][str(b)] = info
+        del card
+    for kernel, key in (("pallas", "pallas/off"), ("packed_bf16", "auto/off")):
+        one = host_subset(graphs[key], kernel)
+        single = staged(one, kernel)
+        card = staged(stack_window_graphs([one, one]), kernel)
+        tag = f"batched/{kernel}/2"
+        info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single],
+                                       kernel, cfg, timed=False)
+        launches[tag] = counts
+        if kernel == "pallas":
+            info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
+                                              staged(stack_window_graphs([one, one]), kernel,
+                                                     "cpu")))
+        else:
+            info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card, None,
+                                              [single, single]))
+        out[kernel] = info
+        del card, single
+        torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t0, 3)
+    return launches, out
 
 
 def phase_policy(torch, spmv, pattern, normal, abnormal, workdir, empty_policy_dir):
@@ -1510,11 +1839,13 @@ def spin_event_ms(torch, fn, reps, cycles=None):
     return spin_event_host_ms(torch, fn, reps, cycles)[0]
 
 
-def spin_event_host_ms(torch, fn, reps, cycles=None):
+def spin_event_host_ms(torch, fn, reps, cycles=None, settle=False):
     """``spin_event_ms`` and, beside it, the host's time to issue one
     call (the host clock around ``fn`` while the device spins, so no
     wait on the device is in it): (event ms, host ms), medians over
-    ``reps`` calls."""
+    ``reps`` calls. ``settle``: drain the device after each call, so that
+    calls of many launches never fill the launch queue (the host would
+    then wait in ``fn`` for the device)."""
     fn()
     torch.cuda.synchronize()
     pairs, host = [], []
@@ -1528,6 +1859,8 @@ def spin_event_host_ms(torch, fn, reps, cycles=None):
         host.append((time.perf_counter() - t0) * 1e3)
         stop.record()
         pairs.append((start, stop))
+        if settle:
+            torch.cuda.synchronize()
     torch.cuda.synchronize()
     return _median([a.elapsed_time(b) for a, b in pairs]), _median(host)
 
@@ -2149,7 +2482,10 @@ def plain_step_check(torch, dgraph, cfg, kernel):
     got = run()
     wants = {}
     saved = torch_cuda.StepWindow
-    for mode in ("plain", "two_launch"):
+    # A stacked group (K18) has no two-launch step: that kernel takes one
+    # window.
+    stacked = dgraph.normal.kind.dim() == 2
+    for mode in ("plain",) if stacked else ("plain", "two_launch"):
         torch_cuda.StepWindow = functools.partial(step.StepWindow, mode=mode)
         try:
             wants[mode] = run()
@@ -2167,13 +2503,15 @@ def plain_step_check(torch, dgraph, cfg, kernel):
             check(np.asarray(a).tobytes() == np.asarray(b).tobytes(),
                   f"{kernel}: {name} of the ranking differs from the {mode} step's")
     check(not dgraph.step_scratch.any(), f"{kernel}: the step kernel left its scratch non-zero")
-    residuals = got[1][3]
+    residuals, n_iters = np.asarray(got[1][3]), np.asarray(got[1][4])
+    final = [[float(x) for x in r[:, max(int(n) - 1, 0)]]
+             for r, n in zip(residuals.reshape(-1, *residuals.shape[-2:]), n_iters.reshape(-1))]
     return {
         "bitwise_vs_plain_step": True,
-        "bitwise_vs_two_launch_step": True,
+        "bitwise_vs_two_launch_step": None if stacked else True,
         "compared": list(names) + ["top_idx", "top_scores", "n_valid"],
-        "n_iters": int(got[1][4]),
-        "final_residual": [float(x) for x in residuals[:, max(int(got[1][4]) - 1, 0)]],
+        "n_iters": n_iters.tolist(),
+        "final_residual": final if stacked else final[0],
         "any_nan": bool(torch.isnan(got[0][0]).any() or torch.isnan(got[0][1]).any()),
     }
 
@@ -2721,14 +3059,23 @@ def main(argv=None) -> int:
         launches["policy"] = counts
         emit(info)
         phase = "replay"
+        batched = None
         if args.replay_windows:
-            replay, replay_launches, info = phase_replay(torch, spmv, pattern, args, workdir)
+            replay, replay_windows, replay_launches, info = phase_replay(
+                torch, spmv, pattern, args, workdir
+            )
             launches.update(replay_launches)
             emit(info)
             phase = "follow"
             counts, info = phase_follow(torch, spmv, pattern, *replay, workdir)
             launches["follow"] = counts
             emit(info)
+            phase = "batched"
+            batched_launches, batched = phase_batched(
+                torch, spmv, pattern, replay, replay_windows, graphs
+            )
+            launches.update(batched_launches)
+            emit(batched)
             del replay
         phase = "kernel"
         per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
@@ -2764,6 +3111,16 @@ def main(argv=None) -> int:
 
     step = per_step["off"]
     kind, packed, int8 = pairs["kind_f32"], pairs["packed_bf16"], pairs["kind_int8"]
+    # The window-axis kernels' errors against their plain versions in
+    # the stacked groups (0.0 where bitwise), by route.
+    stacked_err = {} if batched is None else {
+        "kind": max(v.get("max_abs_err", 0.0) for v in batched["kind"].values()),
+        "pallas": batched["pallas"]["max_abs_err"],
+        "packed_bf16": batched["packed_bf16"]["max_abs_err"],
+    }
+
+    def stacked_launches(name, prefix):
+        return sum(c[name] for k, c in launches.items() if k.startswith(prefix))
     # packed_blocked runs K8's kernel: at the giant window of a fifth of
     # --giant-spans, else at the config-5 packed_blocked run's shapes.
     blocked = giant.get("packed_blocked", pairs["packed_blocked"])
@@ -2788,8 +3145,12 @@ def main(argv=None) -> int:
             # a launch), the auto runs and the replay (the two call-graph
             # terms).
             "launches": sum(c["k1_launches"] for c in launches.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in
-                               [*per_matrix, *(v for k, v in per_step.items() if k != "pcsr")]),
+            # Of them, the stacked groups' (one launch a step for the group).
+            "stacked_launches": stacked_launches("k1_launches", "batched/")
+            + sum(launches.get(f"replay/{m}", {}).get("k1_launches", 0) for m in STACKED_MODES),
+            "max_abs_err": max([r["max_abs_err"] for r in
+                                [*per_matrix, *(v for k, v in per_step.items() if k != "pcsr")]]
+                               + list(stacked_err.values())),
             # Times are one power-iteration step (one launch, six SpMVs:
             # p_sr, p_ss, p_rs of both partitions) at the uncollapsed
             # config-5 shapes; library_ms is six CSR matvecs.
@@ -2808,8 +3169,12 @@ def main(argv=None) -> int:
             # policy run, the replay's and the follower's.
             "launches": sum(c["pattern_launches"] for k, c in launches.items()
                             if k in ("auto/auto", "policy", "follow")
-                            or k.startswith("replay/")),
-            "max_abs_err": max(pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")),
+                            or k.startswith(("replay/", "batched/kind/"))),
+            "stacked_launches": stacked_launches("pattern_launches", "batched/kind/")
+            + sum(launches.get(f"replay/{m}", {}).get("pattern_launches", 0)
+                  for m in STACKED_MODES),
+            "max_abs_err": max([pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")]
+                               + [stacked_err.get("kind", 0.0)]),
             # One step (one launch, both partitions, both directions) at
             # the collapsed config-5 shapes, kind_precision f32; library_ms
             # is four torch.matmul calls over the cast matrices.
@@ -2864,8 +3229,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:419",
-            "launches": launches["auto/off"]["pattern_launches"],
-            "max_abs_err": max(pairs[k]["max_abs_err"] for k in ("packed", "packed_bf16")),
+            "launches": launches["auto/off"]["pattern_launches"]
+            + stacked_launches("pattern_launches", "batched/packed_bf16/"),
+            "stacked_launches": stacked_launches("pattern_launches", "batched/packed_bf16/"),
+            "max_abs_err": max([pairs[k]["max_abs_err"] for k in ("packed", "packed_bf16")]
+                               + [stacked_err.get("packed_bf16", 0.0)]),
             # One step at the uncollapsed config-5 shapes, packed_bf16
             # (what auto runs there).
             "ms": packed["ms"],
@@ -2915,8 +3283,11 @@ def main(argv=None) -> int:
             "source": "microrank_tpu_torch/csrc/power_step.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:859",
             # Every counted main path's step launches: one a step on every
-            # route (the fused kernel, one cooperative launch).
+            # route (the fused kernel, one cooperative launch), a stacked
+            # group's one a step for all its windows.
             "launches": sum(c["step_launches"] for c in launches.values()),
+            "stacked_launches": stacked_launches("step_launches", "batched/")
+            + sum(launches.get(f"replay/{m}", {}).get("step_launches", 0) for m in STACKED_MODES),
             "max_abs_err": max(m["max_abs_err"] for m in
                                [steps["kind"], steps["kind_int8"], *giant_steps.values()]),
             # One step (one launch, both partitions) at the 10M-span giant

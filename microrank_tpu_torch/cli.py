@@ -10,8 +10,8 @@
         [--kind-dedup-threshold F]
         [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
         [--kind-precision f32|bf16|int8] [--pipeline-depth N] [--sync-dispatch]
-        [--fetch-mode stream|bulk] [--bulk-fetch-windows N] [--resume]
-        [--no-tuned-policy] [--metrics-port N]
+        [--fetch-mode stream|bulk] [--bulk-fetch-windows N]
+        [--dispatch-batch-windows N] [--resume] [--no-tuned-policy] [--metrics-port N]
         [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
@@ -69,6 +69,7 @@ def _config_from_args(args) -> MicroRankConfig:
             ("pipeline_depth", args.pipeline_depth),
             ("fetch_mode", args.fetch_mode),
             ("bulk_fetch_windows", args.bulk_fetch_windows),
+            ("dispatch_batch_windows", args.dispatch_batch_windows),
             ("kind_dedup_threshold", args.kind_dedup_threshold),
         ) if v is not None
     }
@@ -414,6 +415,13 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument(
         "--bulk-fetch-windows", type=_positive_int, default=None,
         help="windows joined at once in --fetch-mode bulk",
+    )
+    p_run.add_argument(
+        "--dispatch-batch-windows", type=_positive_int, default=None,
+        help="group this many anomalous windows into one stacked "
+        "stage+dispatch (one staging transfer per group — the replay "
+        "throughput knob on high-latency links; 1 = lowest per-window "
+        "latency)",
     )
     p_run.add_argument(
         "--no-tuned-policy", action="store_true",

@@ -191,6 +191,17 @@ class RuntimeConfig:
     # stream (PERF.md §6).
     fetch_mode: str = "stream"
     bulk_fetch_windows: int = 32
+    # Micro-batched dispatch: accumulate up to this many anomalous
+    # windows' graphs and rank them as ONE stacked rank program (one
+    # launch of each kernel a power-iteration step for the whole group,
+    # one copy of the group's results). Results still emit per window,
+    # in order. Trade-off: the first window of a group waits for its
+    # group-mates before ranking, so keep 1 (default) for the lowest
+    # per-window latency. Ignored, with a warning, under
+    # run(batch_windows=True). A group whose kernel does not run stacked
+    # (packed_blocked, pcsr, int8) raises (ROADMAP.md 'Port queue' item 7
+    # follow-ups).
+    dispatch_batch_windows: int = 1
     # The per-run journal (out_dir/journal.jsonl, obs.RunJournal) and
     # the metrics registry's snapshot, which the CLI writes beside the
     # results (out_dir/metrics.json, read back by ``cli stats``).

@@ -55,6 +55,16 @@
 // it in shared memory per block would read more bytes than the matrices
 // hold.
 //
+// Stacked windows (run(batch_windows=True), dispatch_batch_windows):
+// the window axis lives in the work list, not in the kernel. Each matrix
+// of a group of B windows is one block-diagonal matrix (ops/spmv.py
+// row_layout of [B, E] entries): window b's rows follow window b - 1's,
+// and its columns are offset by b times its x length, so an x slot is a
+// [B, n] tensor read by row stride, no slot is spent on a window (kMaxX
+// stays 8), and a step of the whole group is still one launch. A row
+// keeps its entries in its window's order, its chunks and its fold, so
+// a window's sums are bitwise those of the window launched alone.
+//
 // The pcsr kernel (K9, microrank_tpu/rank_backends/jax_tpu.py:715) is a
 // second entry, `pcsr_step`: one launch per step for all six SpMVs. Its
 // op-side matrices (p_sr, long rows over traces) and call edges (p_ss)

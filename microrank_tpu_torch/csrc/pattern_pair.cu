@@ -78,6 +78,15 @@
 // with: the block's loads are all issued before its first use. (K8's
 // kernel walks many tiles a block, and does overlap them.)
 //
+// Stacked windows (a group of B windows padded to one shape, as
+// run(batch_windows=True) and dispatch_batch_windows rank them): the
+// grid's y dimension is the window. Each window has its own pattern,
+// vectors, outputs, tile partials and stripe counters, at a fixed
+// stride from the previous window's (`window_part`), so its last-arriver
+// folds count and fold its own tiles only and its bits are those of the
+// window launched alone. One launch a step for the whole group; f32 and
+// bf16 (int8 and K8 are not stacked).
+//
 // The int8 scales (`quantize_amax`): scale = amax > 0 ? amax / 127 : 1
 // with amax = max |x * w| over each of the step's four weighted operands
 // (both partitions, both directions), as JAX's `quantize_i8`; a
@@ -449,18 +458,53 @@ __device__ __forceinline__ void tile(const Part& P, int32_t block, Smem<Acc<kPre
   }
 }
 
+// Part P of window w of a stacked group: each window's pattern, vectors,
+// outputs and scratch follow the previous window's, so every pointer
+// moves by its per-window stride (the window's rows, columns, tiles or
+// stripes). The scale is int8's, which stacked groups do not take.
+__device__ __forceinline__ Part window_part(const Part& P, int32_t w) {
+  Part q = P;
+  const int64_t rows = static_cast<int64_t>(w) * P.n_rows;
+  const int64_t cols = static_cast<int64_t>(w) * P.n_cols;
+  const int64_t scratch =
+      static_cast<int64_t>(w) * P.n_rt * P.n_ct * (kTileRows + kTileCols);
+  q.pat += rows * P.stride;
+  q.rv += cols;
+  q.w_len += cols;
+  q.sv += rows;
+  q.w_cov += rows;
+  q.y_fwd += rows;
+  q.y_bwd += cols;
+  if (P.w_out != nullptr) q.w_out += rows;
+  if (P.x_ss != nullptr) q.x_ss += rows;
+  q.fwd_part += scratch;
+  q.bwd_part += scratch;
+  q.row_count += static_cast<int64_t>(w) * (P.n_rt + P.n_ct);
+  q.col_count += static_cast<int64_t>(w) * (P.n_rt + P.n_ct);
+  return q;
+}
+
 // Blocks in order: the tiles of part 0, then of part 1 (an absent part
-// has 0 blocks). The branch is block-uniform; each call names its part
+// has 0 blocks); blockIdx.y is the window of a stacked group. The
+// branches are block-uniform; a single window's call names its part
 // statically, so the argument struct is read from parameter space and
-// never copied.
+// never copied (a stacked window's part is a copy with its strides
+// applied, `window_part`).
 template <int kPrec>
 __global__ void __launch_bounds__(kThreads) pattern_pair(Args args) {
   __shared__ Smem<Acc<kPrec>> s;
   const int32_t b = static_cast<int32_t>(blockIdx.x);
-  if (b < args.p[0].blocks) {
-    tile<kPrec>(args.p[0], b, s);
+  const int32_t w = static_cast<int32_t>(blockIdx.y);
+  if (gridDim.y == 1) {
+    if (b < args.p[0].blocks) {
+      tile<kPrec>(args.p[0], b, s);
+    } else {
+      tile<kPrec>(args.p[1], b - args.p[0].blocks, s);
+    }
+  } else if (b < args.p[0].blocks) {
+    tile<kPrec>(window_part(args.p[0], w), b, s);
   } else {
-    tile<kPrec>(args.p[1], b - args.p[0].blocks, s);
+    tile<kPrec>(window_part(args.p[1], w), b - args.p[0].blocks, s);
   }
 }
 
@@ -1076,18 +1120,25 @@ extern "C" {
 // max(1, ceil(n_rows / kTileRows)), n_ct = max(1, ceil(n_cols /
 // kTileCols)). The pattern is a big-endian bitmap with rows of a multiple
 // of 16 bytes, 16-byte aligned (ops/pattern.py pads every pattern).
-// `precision`: 0 f32, 1 bf16, 2 int8. Returns the CUDA error code of the
+// `precision`: 0 f32, 1 bf16, 2 int8. `n_windows` > 1: a stacked group
+// (f32 or bf16) of that many windows of the same shapes, each window's
+// pattern, vectors, outputs, partials and counters right after the
+// previous window's (the pointers given are window 0's); the grid's y
+// dimension is the window. Returns the CUDA error code of the
 // launch (0 = launched). Allocates nothing and does not synchronize. One
 // scratch must not be in flight on two streams at once.
 int mr_pattern_pair(const void* const* ptrs, const int64_t* ints,
-                    int32_t n_parts, int32_t precision,
+                    int32_t n_parts, int32_t precision, int32_t n_windows,
                     int device, void* stream) {
   Args args{};
   const int64_t blocks = read_parts(ptrs, ints, n_parts, precision, false, args);
-  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 0 || n_windows < 1 || n_windows > 65535 ||
+      (n_windows > 1 && precision == kI8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned>(blocks));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_windows));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (precision == kBf16) {
     pattern_pair<kBf16><<<grid, kThreads, 0, s>>>(args);

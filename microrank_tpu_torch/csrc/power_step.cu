@@ -59,6 +59,23 @@
 //   the L2). The 10M-span giant window (2,625,536 elements, 20 a thread
 //   on an H100's 528 blocks) keeps 12 in registers and recomputes 8.
 //
+// * A group of B stacked windows (run(batch_windows=True),
+//   dispatch_batch_windows) is 2B partitions on one cooperative grid, a
+//   kernel of its own (`step_grid_group`): each vector is [B, n], cut
+//   into units of 256 elements window by window, and the blocks walk
+//   the units, recomputing each from the products in both phases (no
+//   value held across the barrier: a group's windows are small, so its
+//   step is latency, not bytes; and the single window's kernel keeps
+//   its registers, which a window axis in it made spill). The scratch
+//   holds a maximum per vector and window and a residual per partition
+//   and window, 2B of each kind (`vec_slot`, `res_slot`). Each window has
+//   its own running flag and n_iters, so with tol a window freezes on
+//   its own step while its group-mates go on, as JAX's vmapped
+//   while_loop gives it; the last block finishes the windows, a thread
+//   a window. Every maximum is an integer atomicMax and every value the
+//   same arithmetic, so a window's bits do not depend on its group.
+//   int8 scales stay single-window.
+//
 // The previous design stays beside it for comparison (`step_max`, then
 // `step_apply`: two launches a step on a grid sized to the data, the
 // products read in both; `mr_power_step_two_launch`). Nothing on the
@@ -152,16 +169,18 @@ constexpr uint32_t kNanKey = 0xffffffffu;
 enum { kVecMax = 0, kResMax = kVecs, kAmax = kResMax + kParts, kArrivals = kAmax + kVecs,
        kScratch };
 
-// One carried vector: vec 2p is partition p's rv, vec 2p + 1 its sv.
+// One carried vector: vec 2p is partition p's rv, vec 2p + 1 its sv;
+// in a group of B windows each pointer is a [B, n] array, window by
+// window.
 struct Vec {
   const float* y0;   // rv: y_rs;  sv: y_sr
   const float* y1;   // rv: pref;  sv: y_ss
   const float* old;  // the carry in
   float* out;        // the carry out
   const float* w;    // int8: the next operand's weight (rv: w_len, sv: w_cov), or null
-  int64_t n;
-  int32_t first_block;
-  int32_t blocks;
+  int64_t n;         // elements of one window
+  int32_t first_block;  // the vector's first block (fused kernel: its first unit)
+  int32_t blocks;       // its blocks (fused kernel: units of one window)
 };
 
 struct StepArgs {
@@ -173,11 +192,13 @@ struct StepArgs {
   int32_t step;
   int32_t n_steps;
   int32_t per_thread;  // the fused kernel: elements a thread takes
-  uint32_t* scratch;   // [kScratch]
-  float* residuals;    // [kParts, n_steps]
-  int32_t* n_iters;    // with tol, else null
-  uint8_t* running;    // bool, with tol, else null
-  float* scales;       // int8: [kVecs] the next step's scales, else null
+  int32_t windows;     // B: the windows of a group (1 for the two-launch kernels)
+  int32_t n_units;     // the fused kernel: units of all vectors and windows
+  uint32_t* scratch;   // [(kVecs + kParts) * B + kVecs + 1]; kScratch at B = 1
+  float* residuals;    // [B, kParts, n_steps]
+  int32_t* n_iters;    // [B] with tol, else null
+  uint8_t* running;    // bool [B], with tol, else null
+  float* scales;       // int8 (B = 1): [kVecs] the next step's scales, else null
 };
 
 // A float's order as an unsigned integer: negative values by their
@@ -208,8 +229,9 @@ __device__ __forceinline__ float scale_of(float am) {
   return am > 0.0f ? __fdiv_rn(am, 127.0f) : 1.0f;
 }
 
-// The block's vector: the last whose first block is at or before it.
-__device__ __forceinline__ int vec_of(const StepArgs& a, int b) {
+// The block's (or unit's) vector: the last whose first block is at or
+// before it.
+__device__ __forceinline__ int vec_of(const StepArgs& a, int32_t b) {
   int v = 0;
 #pragma unroll
   for (int i = 1; i < kVecs; ++i) {
@@ -266,6 +288,107 @@ __device__ __forceinline__ void stage(float* dst, const float* src) {
 
 __device__ __forceinline__ void staged() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// The scratch slots of a group of B windows (uint32, 0 between steps):
+// the vectors' maxima by window, the partitions' residuals by window,
+// the int8 amax (single windows only), the arrivals. At B = 1 these are
+// the enum's kVecMax, kResMax, kAmax and kArrivals.
+__device__ __forceinline__ int vec_slot(int vi, int w) { return w * kVecs + vi; }
+__device__ __forceinline__ int res_slot(int p, int w, int n_win) {
+  return kVecs * n_win + w * kParts + p;
+}
+__device__ __forceinline__ int amax_slot(int i, int n_win) { return (kVecs + kParts) * n_win + i; }
+__device__ __forceinline__ int arrivals_slot(int n_win) {
+  return (kVecs + kParts) * n_win + kVecs;
+}
+
+// One unit of work: a run of per_thread x kThreads elements of one
+// window's vector. Unit u's vector is the last whose first unit is at or
+// before u; the vector's units go window by window.
+struct Unit {
+  int vi;         // the vector
+  int w;          // the window
+  int64_t first;  // this thread's first element in the vector's [B, n] storage
+  int64_t end;    // its elements: first + k * kThreads while k * kThreads < end
+};
+
+__device__ __forceinline__ Unit unit_of(const StepArgs& a, int32_t u, int t) {
+  Unit U;
+  U.vi = vec_of(a, u);
+  // 32-bit: the units fit an int32 (mr_step_window_create checks), and a
+  // 64-bit division is a call that takes a stack frame.
+  const int32_t rel = u - field(a, U.vi, &Vec::first_block);
+  const int32_t per_window = field(a, U.vi, &Vec::blocks);
+  const int64_t n = field(a, U.vi, &Vec::n);
+  U.w = rel / per_window;
+  const int64_t all = int64_t{a.per_thread} * kThreads;
+  const int64_t start = static_cast<int64_t>(rel - U.w * per_window) * all + t;  // in the window
+  const int64_t left = n - start;
+  U.end = left < all ? left : all;
+  U.first = U.w * n + start;
+  return U;
+}
+
+// A unit of a group, phase 1: the maximum of its unnormalized values.
+__device__ __forceinline__ uint32_t unit_max(const StepArgs& a, const Unit& U,
+                                             float one_minus_d) {
+  const bool is_sv = U.vi & 1;
+  const float* y0 = field(a, U.vi, &Vec::y0) + U.first;
+  const float* y1 = field(a, U.vi, &Vec::y1) + U.first;
+  uint32_t m = 0u;
+  for (int64_t i = 0; i < U.end; i += kThreads) {
+    m = max(m, key(combine(__ldg(y0 + i), __ldg(y1 + i), is_sv, a.alpha, a.d, one_minus_d)));
+  }
+  return m;
+}
+
+// A unit of a group, phase 2: its carry written from values recomputed
+// from the products, its residual and amax into `res` and `amax`.
+__device__ __forceinline__ void unit_apply(const StepArgs& a, const Unit& U, float one_minus_d,
+                                           uint32_t& res, uint32_t& amax) {
+  const bool is_sv = U.vi & 1;
+  const bool run = a.running == nullptr || a.running[U.w] != 0;
+  const float mx = a.normalize ? unkey(__ldcg(a.scratch + vec_slot(U.vi, U.w))) : 1.0f;
+  const float* y0 = field(a, U.vi, &Vec::y0) + U.first;
+  const float* y1 = field(a, U.vi, &Vec::y1) + U.first;
+  const float* old = field(a, U.vi, &Vec::old) + U.first;
+  float* out = field(a, U.vi, &Vec::out) + U.first;
+  const bool scaled = a.scales != nullptr;
+  const float* w = scaled ? field(a, U.vi, &Vec::w) + U.first : old;
+  for (int64_t i = 0; i < U.end; i += kThreads) {
+    const float uu = combine(__ldg(y0 + i), __ldg(y1 + i), is_sv, a.alpha, a.d, one_minus_d);
+    const float x = a.normalize ? __fdiv_rn(uu, mx) : uu;
+    const float ov = __ldg(old + i);
+    res = max(res, key(fabsf(__fsub_rn(x, ov))));
+    const float carry = run ? x : ov;
+    out[i] = carry;
+    if (scaled) amax = max(amax, amax_key(carry, __ldg(w + i)));
+  }
+}
+
+// The last block's work for window w of n_win: its residuals, n_iters
+// and running, and its slots reset.
+__device__ __forceinline__ void finish_window(const StepArgs& a, int w, int n_win) {
+  const bool run = a.running == nullptr || a.running[w] != 0;
+  uint32_t rk[kParts];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) rk[p] = __ldcg(a.scratch + res_slot(p, w, n_win));
+  float r[kParts];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    r[p] = unkey(rk[p]);
+    a.residuals[(static_cast<int64_t>(w) * kParts + p) * a.n_steps + a.step] = run ? r[p] : 0.0f;
+  }
+  if (a.running != nullptr) {
+    const bool nan = r[0] != r[0] || r[1] != r[1];
+    a.n_iters[w] += run ? 1 : 0;
+    a.running[w] = run && !nan && fmaxf(r[0], r[1]) > a.tol;
+  }
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) a.scratch[vec_slot(i, w)] = 0u;
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) a.scratch[res_slot(p, w, n_win)] = 0u;
 }
 
 // The fused step, S slots a thread (the least of 1, 2, 4, 8, kSlots
@@ -416,6 +539,63 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid(StepArgs 
   a.scratch[kArrivals] = 0u;
 }
 
+// A group of B windows (B > 1): every unit of every window recomputed
+// from the products in each phase, no slot held across the barrier (a
+// group's windows are small: their step is latency, not bytes). Block b
+// runs units b, b + grid, ...: phase 1 their maxima, one grid barrier,
+// phase 2 their carry, residuals and amax; the last block to arrive
+// finishes the windows, a thread a window.
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_group(StepArgs a) {
+  __shared__ uint32_t warp_max[kWarps];
+  __shared__ int last;
+  const int t = static_cast<int>(threadIdx.x);
+  const int32_t b = static_cast<int32_t>(blockIdx.x);
+  const int32_t n_blocks = static_cast<int32_t>(gridDim.x);
+  const int n_win = a.windows;
+  const float one_minus_d = __fsub_rn(1.0f, a.d);
+  if (a.normalize) {
+    for (int32_t u = b; u < a.n_units; u += n_blocks) {
+      const Unit U = unit_of(a, u, t);
+      const uint32_t m = block_max(unit_max(a, U, one_minus_d), warp_max);
+      if (t == 0) atomicMax(a.scratch + vec_slot(U.vi, U.w), m);
+      __syncthreads();  // warp_max is reused
+    }
+    cg::this_grid().sync();
+  }
+  const bool scaled = a.scales != nullptr;
+  for (int32_t u = b; u < a.n_units; u += n_blocks) {
+    const Unit U = unit_of(a, u, t);
+    uint32_t res = 0u, amax = 0u;
+    unit_apply(a, U, one_minus_d, res, amax);
+    res = block_max(res, warp_max);
+    __syncthreads();
+    amax = block_max(amax, warp_max);
+    __syncthreads();
+    if (t == 0) {
+      atomicMax(a.scratch + res_slot(U.vi / 2, U.w, n_win), res);
+      if (scaled) atomicMax(a.scratch + amax_slot(U.vi, n_win), amax);
+    }
+  }
+  // The block's arrival: one acq_rel add by thread 0 (release of the
+  // block's maxima, and for the last block the acquire of everyone's).
+  if (t == 0) {
+    cuda::atomic_ref<uint32_t, cuda::thread_scope_device> arrivals(
+        a.scratch[arrivals_slot(n_win)]);
+    last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the acquire, for the block's other threads too
+  for (int w = t; w < n_win; w += kThreads) finish_window(a, w, n_win);
+  if (t != 0) return;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    if (scaled) a.scales[i] = scale_of(__uint_as_float(__ldcg(a.scratch + amax_slot(i, n_win))));
+    a.scratch[amax_slot(i, n_win)] = 0u;
+  }
+  a.scratch[arrivals_slot(n_win)] = 0u;
+}
+
 // ------------------------------- the previous design: two launches
 
 __global__ void __launch_bounds__(kThreads) step_max(StepArgs a) {
@@ -530,6 +710,7 @@ bool fill_scalars(StepArgs& args, float alpha, float d, float tol, int32_t norma
   args.residuals = static_cast<float*>(residuals);
   args.n_iters = static_cast<int32_t*>(n_iters);
   args.running = static_cast<uint8_t*>(running);
+  args.windows = 1;
   return true;
 }
 
@@ -540,7 +721,9 @@ const void* grid_fn() {
   return reinterpret_cast<const void*>(step_grid<S>);
 }
 
-const void* grid_kernel(int64_t per_thread, int* slots) {
+// A group's kernel (slots 0), or a window's instantiation.
+const void* grid_kernel(int64_t per_thread, bool group, int* slots) {
+  if (group) return *slots = 0, reinterpret_cast<const void*>(step_grid_group);
   if (per_thread <= 1) return *slots = 1, grid_fn<1>();
   if (per_thread <= 2) return *slots = 2, grid_fn<2>();
   if (per_thread <= 4) return *slots = 4, grid_fn<4>();
@@ -574,17 +757,18 @@ extern "C" {
 // largest (their occupancy is then what their registers allow): out[0]
 // 1 if the device takes a cooperative launch, out[1] the resident
 // blocks an SM (kThreads threads each; the least over the
-// instantiations), out[2] the SM count, out[3] the register slots a
-// thread (kSlots), out[4] kThreads. Returns the CUDA error code of the
-// calls.
+// instantiations and the group's kernel), out[2] the SM count, out[3]
+// the register slots a thread (kSlots), out[4] kThreads. Returns the
+// CUDA error code of the calls.
 int mr_power_step_config(int device, int32_t* out) {
   cudaError_t e = use_device(device);
   int coop = 0, sms = 0, per_sm = INT_MAX;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  for (int64_t per : {1, 2, 4, 8, kSlots}) {
+  for (int64_t per : {int64_t{0}, int64_t{1}, int64_t{2}, int64_t{4}, int64_t{8},
+                      int64_t{kSlots}}) {
     int slots = 0, n = 0;
-    const void* fn = grid_kernel(per, &slots);
+    const void* fn = grid_kernel(per, per == 0, &slots);  // 0: the group's kernel
     if (e == cudaSuccess && slots > kRegisterCarrySlots) {
       e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -600,29 +784,37 @@ int mr_power_step_config(int device, int32_t* out) {
   return static_cast<int>(e);
 }
 
-// Set up one window's steps, once: `ptrs` holds kWinPtrs pointers for
-// each of the four vectors in the order rv_n, sv_n, rv_a, sv_a (pref
-// for rv, null for sv; the window's first carry; the two carry buffers;
-// the int8 weight, null unless `scales` is given), `ns` their lengths
-// (>= 1). `scratch`, `residuals`, `n_iters`, `running` and `scales` as
-// for mr_power_step_two_launch (scales: the window's buffer, written by
-// the steps that ask for it). The grid takes at most `max_blocks`
-// blocks (the caller's cooperative limit; at least one a vector), each
-// vector its run of blocks, each thread the least per_thread that fits;
-// the kernel's instantiation the least slots that hold per_thread. The
+// Set up one window's steps, or a group's of `n_windows` windows of the
+// same shapes, once: `ptrs` holds kWinPtrs pointers for each of the four
+// vectors in the order rv_n, sv_n, rv_a, sv_a (pref for rv, null for sv;
+// the window's first carry; the two carry buffers; the int8 weight,
+// null unless `scales` is given), `ns` their lengths in one window
+// (>= 1); in a group each is a [n_windows, n] array. `scratch` holds
+// (kVecs + kParts) * n_windows + kVecs + 1 uint32 (kScratch for one
+// window), zero before the first step; `residuals` [n_windows, kParts,
+// n_steps], `n_iters` and `running` [n_windows] (with tol), and
+// `scales` (one window only: the window's buffer, written by the steps
+// that ask for it) as for mr_power_step_two_launch. The grid takes at
+// most `max_blocks` blocks (the caller's cooperative limit; at least one
+// a vector). One window: each vector its run of blocks, each thread the
+// least per_thread that fits, the instantiation of `step_grid` the least
+// slots that hold it. A group: `step_grid_group`, one element a thread,
+// each vector its units window by window, the blocks walking them. The
 // steps launch on `stream` of `device`. Writes the state's handle to
-// `out`; grid, per_thread and the instantiation's slots to `out_grid`.
-// Returns a CUDA error code (0 = set up).
+// `out`; grid, per_thread, the instantiation's slots (0: the group's
+// kernel) and the units to `out_grid`. Returns a CUDA error code (0 =
+// set up).
 int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alpha, float d,
-                          float tol, int32_t normalize, int32_t n_steps, void* scratch,
-                          void* residuals, void* n_iters, void* running, void* scales,
-                          int device, void* stream, int64_t max_blocks, void** out,
-                          int32_t* out_grid) {
+                          float tol, int32_t normalize, int32_t n_steps, int32_t n_windows,
+                          void* scratch, void* residuals, void* n_iters, void* running,
+                          void* scales, int device, void* stream, int64_t max_blocks,
+                          void** out, int32_t* out_grid) {
   *out = nullptr;
   Window win{};
   if (!fill_scalars(win.args, alpha, d, tol, normalize, n_steps, scratch, residuals, n_iters,
                     running) ||
-      max_blocks < kVecs || max_blocks > INT_MAX) {
+      max_blocks < kVecs || max_blocks > INT_MAX || n_windows < 1 ||
+      (n_windows > 1 && scales != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int64_t total = 0;
@@ -641,37 +833,46 @@ int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alph
     for (int s = 0; s < 3; ++s) {
       win.carry[s][i] = static_cast<float*>(const_cast<void*>(p[kWinCarry0 + s]));
     }
-    total += ns[i];
+    total += ns[i] * n_windows;
   }
-  // The least per_thread whose blocks fit the grid.
-  const int64_t chunk0 = int64_t{kThreads} * max_blocks;
-  int64_t per = total / chunk0 > 1 ? total / chunk0 : 1;
-  for (;; ++per) {
-    int64_t blocks = 0;
-    for (int i = 0; i < kVecs; ++i) blocks += (ns[i] + kThreads * per - 1) / (kThreads * per);
-    if (blocks <= max_blocks) break;
+  auto units_at = [&](int64_t per) {
+    int64_t units = 0;
+    for (int i = 0; i < kVecs; ++i) units += (ns[i] + kThreads * per - 1) / (kThreads * per);
+    return units * n_windows;
+  };
+  // One window: the least per_thread whose blocks fit the grid. A group:
+  // one element a thread, its blocks walking the units.
+  int64_t per = 1;
+  if (n_windows == 1) {
+    const int64_t chunk0 = int64_t{kThreads} * max_blocks;
+    per = total / chunk0 > 1 ? total / chunk0 : 1;
+    while (units_at(per) > max_blocks) ++per;
   }
-  if (per > INT_MAX / kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  int32_t grid = 0;
+  const int64_t units = units_at(per);
+  if (per > INT_MAX / kThreads || units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int32_t first = 0;
   for (int i = 0; i < kVecs; ++i) {
     Vec& v = win.args.v[i];
-    v.first_block = grid;
+    v.first_block = first;
     v.blocks = static_cast<int32_t>((v.n + kThreads * per - 1) / (kThreads * per));
-    grid += v.blocks;
+    first += v.blocks * n_windows;
   }
   int slots = 0;
-  win.kernel = grid_kernel(per, &slots);
+  win.kernel = grid_kernel(per, n_windows > 1, &slots);
   win.args.per_thread = static_cast<int32_t>(per);
+  win.args.windows = n_windows;
+  win.args.n_units = static_cast<int32_t>(units);
   win.scales = static_cast<float*>(scales);
-  win.grid = grid;
+  win.grid = static_cast<int32_t>(units < max_blocks ? units : max_blocks);
   win.device = device;
   win.stream = static_cast<cudaStream_t>(stream);
   Window* h = new (std::nothrow) Window(win);
   if (h == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
   *out = h;
-  out_grid[0] = grid;
+  out_grid[0] = win.grid;
   out_grid[1] = static_cast<int32_t>(per);
   out_grid[2] = slots;
+  out_grid[3] = static_cast<int32_t>(units);
   return 0;
 }
 

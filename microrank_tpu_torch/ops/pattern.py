@@ -137,16 +137,23 @@ class PatternGroup(NamedTuple):
     amax_scratch: torch.Tensor
     # K8 (packed_blocked): launch the blocked kernel, f32 only.
     blocked: bool = False
+    # Stacked windows: every part's tensors carry a leading window axis
+    # of this length (pattern [B, V, row bytes], w_len [B, n_cols], w_cov
+    # and w_out [B, V], dense [B, V, n_cols], the scratch B windows'),
+    # the vectors and outputs are [B, .], and one launch computes every
+    # window (f32 and bf16, the tile kernel). None: one window, 1-d.
+    windows: Optional[int] = None
 
 
 def unpack_bits(bits: torch.Tensor, n_cols: int, dtype=torch.float32) -> torch.Tensor:
-    """uint8[V, C] -> dtype[V, n_cols]: the inverse of ``np.packbits(...,
-    axis=1)`` (big-endian bit order), as ``jax_tpu.unpack_bits``. A plain
-    helper for the plain version, the tests and chip_smoke's yardstick;
-    the kernel never builds this matrix."""
+    """uint8[..., V, C] -> dtype[..., V, n_cols]: the inverse of
+    ``np.packbits(..., axis=-1)`` (big-endian bit order), as
+    ``jax_tpu.unpack_bits``. A plain helper for the plain version, the
+    tests and chip_smoke's yardstick; the kernel never builds this
+    matrix."""
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
-    b = (bits[:, :, None] >> shifts) & 1
-    return b.reshape(bits.shape[0], bits.shape[1] * 8)[:, :n_cols].to(dtype)
+    b = (bits[..., None] >> shifts) & 1
+    return b.reshape(*bits.shape[:-1], bits.shape[-1] * 8)[..., :n_cols].to(dtype)
 
 
 def _row_bytes(n_cols: int) -> int:
@@ -157,8 +164,8 @@ def _bitmap_rows(pat: torch.Tensor, n_cols: int) -> torch.Tensor:
     """A bitmap copied into the kernel's layout: its first ceil(n_cols/8)
     bytes per row, zero-padded to a multiple of ROW_ALIGN."""
     n_bytes = -(-n_cols // 8)
-    out = torch.zeros((pat.shape[0], _row_bytes(n_cols)), dtype=torch.uint8, device=pat.device)
-    out[:, :n_bytes] = pat[:, :n_bytes]
+    out = torch.zeros((*pat.shape[:-1], _row_bytes(n_cols)), dtype=torch.uint8, device=pat.device)
+    out[..., :n_bytes] = pat[..., :n_bytes]
     return out
 
 
@@ -184,9 +191,9 @@ def blocked_rows_per_block(n_rt: int, n_ct: int) -> int:
     return -(-n_rt // groups)
 
 
-def _scratch(v: int, k: int, blocked: bool, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+def _scratch(v: int, k: int, blocked: bool, dev, windows: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """(partials, counters) of one partition, zeroed (PatternPart.part /
-    .counters)."""
+    .counters), ``windows`` windows' back to back."""
     n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
     if blocked:
         groups = -(-n_rt // blocked_rows_per_block(n_rt, n_ct))
@@ -195,8 +202,8 @@ def _scratch(v: int, k: int, blocked: bool, dev) -> Tuple[torch.Tensor, torch.Te
         n_part, n_count = max(n_part, 1), 0
     else:
         n_part, n_count = n_rt * n_ct * (TILE_R + TILE_C), n_rt + n_ct
-    return (torch.zeros(n_part, dtype=torch.float32, device=dev),
-            torch.zeros(n_count, dtype=torch.int32, device=dev))
+    return (torch.zeros(windows * n_part, dtype=torch.float32, device=dev),
+            torch.zeros(windows * n_count, dtype=torch.int32, device=dev))
 
 
 def pattern_group(
@@ -215,20 +222,31 @@ def pattern_group(
     matrices — unless ``band_bytes`` is given and a partition's unpacked
     f32 matrix would exceed it: its plain version then works in bands of
     whole column tiles within ``band_bytes``. ``blocked`` (packed_blocked):
-    the group launches K8's kernel, with its own scratch."""
+    the group launches K8's kernel, with its own scratch.
+
+    Stacked windows: 3-d patterns [B, V, C] with [B, .] weight vectors
+    (one B for all parts) make a group of B windows (``windows``); the
+    tile kernel only, without bands."""
     if not 1 <= len(patterns) <= 2:
         raise ValueError("pattern_group: 1 or 2 partitions")
     dev = patterns[0].device
+    windows = patterns[0].shape[0] if patterns[0].dim() == 3 else None
+    if windows is not None and (blocked or band_bytes is not None):
+        raise NotImplementedError(
+            "pattern_group: stacked windows run the tile kernel only; batched "
+            "packed_blocked is not ported yet (ROADMAP.md 'Port queue' item 7 follow-ups)"
+        )
+    lead = () if windows is None else (windows,)
     parts = []
     for pat, w_len, w_cov, w_out, k in zip(patterns, w_lens, w_covs, w_outs, n_cols):
         k = int(k)
-        v = pat.shape[0]
-        if pat.dtype != torch.uint8 or pat.dim() != 2:
-            raise TypeError("pattern_group: patterns must be 2-d uint8 bitmaps")
-        if pat.shape[1] < -(-k // 8):
+        v = pat.shape[-2] if pat.dim() >= 2 else 0
+        if pat.dtype != torch.uint8 or pat.dim() != 2 + len(lead) or pat.shape[:-2] != lead:
+            raise TypeError("pattern_group: patterns must be 2-d uint8 bitmaps (3-d when stacked)")
+        if pat.shape[-1] < -(-k // 8):
             raise ValueError(f"pattern_group: a pattern row holds fewer than {k} columns")
-        if w_len.shape != (k,) or w_cov.shape != (v,) or (
-            w_out is not None and w_out.shape != (v,)
+        if w_len.shape != lead + (k,) or w_cov.shape != lead + (v,) or (
+            w_out is not None and w_out.shape != lead + (v,)
         ):
             raise ValueError("pattern_group: weight vectors must match the pattern")
         vecs = [w_len, w_cov] + ([] if w_out is None else [w_out])
@@ -238,7 +256,7 @@ def pattern_group(
             raise ValueError("pattern_group: every tensor must lie on one device")
         pat = _bitmap_rows(pat, k)
         n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
-        part, counters = _scratch(v, k, blocked, dev)
+        part, counters = _scratch(v, k, blocked, dev, windows or 1)
         band = 0
         if band_bytes is not None and 4 * v * k > band_bytes:
             band = max(1, band_bytes // (4 * max(v, 1) * TILE_C)) * TILE_C
@@ -258,6 +276,7 @@ def pattern_group(
         parts=tuple(parts),
         amax_scratch=torch.zeros(MAX_VECS + 1, dtype=torch.int32, device=dev),
         blocked=blocked,
+        windows=windows,
     )
 
 
@@ -299,6 +318,8 @@ def quantize_scales_plain(
     partition the fwd operand rv * w_len's, then the bwd operand
     sv * w_cov's."""
     _check_vectors(group, rvs, svs)
+    if group.windows is not None:
+        _check_precision(group, "int8", None)  # raises: not ported for stacked windows
     return torch.stack([
         quantize_scale(x)
         for p, rv, sv in zip(group.parts, rvs, svs)
@@ -348,16 +369,17 @@ def _op(x: torch.Tensor, precision: str) -> torch.Tensor:
 
 
 def fwd_tile_sums(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """float32[V, n_ct]: each row's sum over each column tile of TILE_C
-    in the kernels' order: lane l sums columns LANE_COLS * l .. in order
-    and the shuffle tree 16, 8, 4, 2, 1 sums the lanes. Zero cells add
-    +0.0, which the kernels select or skip instead: the same bits."""
-    v, k = m.shape
+    """float32[..., V, n_ct]: each row's sum over each column tile of
+    TILE_C in the kernels' order: lane l sums columns LANE_COLS * l .. in
+    order and the shuffle tree 16, 8, 4, 2, 1 sums the lanes. Zero cells
+    add +0.0, which the kernels select or skip instead: the same bits.
+    Leading axes (stacked windows) pair m [..., V, K] with a [..., K]."""
+    *lead, v, k = m.shape
     n_ct = _n_col_tiles(k)
-    prod = torch.zeros((v, n_ct * TILE_C), dtype=torch.float32, device=m.device)
-    prod[:, :k] = m * a
-    prod = prod.view(v, n_ct, WARP, LANE_COLS)
-    lanes = torch.zeros((v, n_ct, WARP), dtype=torch.float32, device=m.device)
+    prod = torch.zeros((*lead, v, n_ct * TILE_C), dtype=torch.float32, device=m.device)
+    prod[..., :k] = m * a.unsqueeze(-2)
+    prod = prod.view(*lead, v, n_ct, WARP, LANE_COLS)
+    lanes = torch.zeros((*lead, v, n_ct, WARP), dtype=torch.float32, device=m.device)
     for j in range(LANE_COLS):
         lanes = lanes + prod[..., j]
     off = WARP // 2
@@ -376,27 +398,27 @@ def fwd_plain(
     tiles of a wider matrix."""
     tiles = fwd_tile_sums(m, a)
     if y is None:
-        y = torch.zeros(m.shape[0], dtype=torch.float32, device=m.device)
-    for j in range(tiles.shape[1]):
-        y = y + tiles[:, j]
+        y = torch.zeros(m.shape[:-1], dtype=torch.float32, device=m.device)
+    for j in range(tiles.shape[-1]):
+        y = y + tiles[..., j]
     return y
 
 
 def bwd_plain(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """y[c] = sum_r b[r] * m[r, c] in the kernel's order: rows in order
     inside each row tile of TILE_R, then the row tiles' sums folded top
-    to bottom."""
-    v, k = m.shape
+    to bottom. Leading axes as ``fwd_tile_sums``'s."""
+    *lead, v, k = m.shape
     n_rt = _n_row_tiles(v)
-    prod = torch.zeros((n_rt * TILE_R, k), dtype=torch.float32, device=m.device)
-    prod[:v] = b[:, None] * m
-    prod = prod.view(n_rt, TILE_R, k)
-    acc = torch.zeros((n_rt, k), dtype=torch.float32, device=m.device)
+    prod = torch.zeros((*lead, n_rt * TILE_R, k), dtype=torch.float32, device=m.device)
+    prod[..., :v, :] = b.unsqueeze(-1) * m
+    prod = prod.view(*lead, n_rt, TILE_R, k)
+    acc = torch.zeros((*lead, n_rt, k), dtype=torch.float32, device=m.device)
     for i in range(TILE_R):
-        acc = acc + prod[:, i]
-    y = torch.zeros(k, dtype=torch.float32, device=m.device)
+        acc = acc + prod[..., i, :]
+    y = torch.zeros((*lead, k), dtype=torch.float32, device=m.device)
     for j in range(n_rt):
-        y = y + acc[j]
+        y = y + acc[..., j, :]
     return y
 
 
@@ -483,11 +505,12 @@ def _pair_in_bands(p: PatternPart, a: torch.Tensor, b: torch.Tensor):
 def _check_vectors(group: PatternGroup, rvs, svs) -> None:
     if not len(rvs) == len(svs) == len(group.parts):
         raise ValueError("pattern_pair: one rv and one sv per partition")
+    lead = () if group.windows is None else (group.windows,)
     for p, rv, sv in zip(group.parts, rvs, svs):
-        if rv.shape != (p.n_cols,) or sv.shape != (p.pattern.shape[0],):
+        if rv.shape != lead + (p.n_cols,) or sv.shape != lead + (p.pattern.shape[-2],):
             raise ValueError(
                 f"pattern_pair: rv must hold {p.n_cols} and sv "
-                f"{p.pattern.shape[0]} floats"
+                f"{p.pattern.shape[-2]} floats" + (f" in each of {lead[0]} windows" if lead else "")
             )
 
 
@@ -496,6 +519,11 @@ def _check_precision(group: PatternGroup, precision: str, scales) -> None:
         raise ValueError(f"pattern_pair: unknown precision {precision!r} (expected {PRECISIONS})")
     if precision != "int8":
         return
+    if group.windows is not None:
+        raise NotImplementedError(
+            "pattern_pair: int8 operands of stacked windows are not ported yet "
+            "(ROADMAP.md 'Port queue' item 7 follow-ups)"
+        )
     # JAX quantizes only the kind pattern's operands: no x_ss, no bands.
     if any(p.w_out is not None or p.band_cols for p in group.parts):
         raise ValueError("pattern_pair: int8 runs the kind pattern only (no w_out, no bands)")
@@ -528,7 +556,9 @@ def pattern_pair_group(
     kernel once or raise — there is no fallback for a CUDA tensor: the
     tile kernel, or K8's blocked kernel (f32 only) for a ``blocked``
     group. int8 takes the step's ``scales`` from ``quantize_scales``. A
-    group is used by one stream at a time (its scratch is shared)."""
+    group is used by one stream at a time (its scratch is shared). A
+    stacked group (``windows``) takes [B, .] vectors and gives [B, .]
+    outputs, every window in the same launch."""
     # Checks kept cheap: this runs once per power-iteration step.
     dev = rvs[0].device
     if group.blocked and precision != "f32":
@@ -539,12 +569,15 @@ def pattern_pair_group(
     _check_precision(group, precision, scales)
     if scales is not None and (scales.device != dev or not scales.is_contiguous()):
         raise ValueError(f"pattern_pair: the scales must be contiguous on {dev}")
+    n_win = group.windows or 1
     sizes = []
     for p in group.parts:
-        v = p.pattern.shape[0]
+        v = p.pattern.shape[-2]
         sizes += [v, p.n_cols, 0 if p.w_out is None else v]
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    outs = flat.split_with_sizes(sizes)
+    flat = torch.empty(n_win * sum(sizes), dtype=torch.float32, device=dev)
+    outs = flat.split_with_sizes([n_win * n for n in sizes])
+    if group.windows is not None:
+        outs = [t.view(n_win, -1) for t in outs]
     ptrs, ints = [], []
     for i, (p, rv, sv) in enumerate(zip(group.parts, rvs, svs)):
         y_fwd, y_bwd, x_ss = outs[3 * i: 3 * i + 3]
@@ -557,7 +590,7 @@ def pattern_pair_group(
             None if p.w_out is None else x_ss.data_ptr(),
             p.part.data_ptr(), p.counters.data_ptr(),
         ]
-        ints += [p.pattern.shape[1], p.pattern.shape[0], p.n_cols]
+        ints += [p.pattern.shape[-1], p.pattern.shape[-2], p.n_cols]
         if group.blocked:
             ints.append(p.rows_per_block)
     lib = load_library()
@@ -569,7 +602,7 @@ def pattern_pair_group(
         rc = lib.mr_pattern_pair_blocked(c_ptrs, c_ints, len(group.parts), index, stream)
     else:
         rc = lib.mr_pattern_pair(c_ptrs, c_ints, len(group.parts),
-                                 PRECISIONS.index(precision), index, stream)
+                                 PRECISIONS.index(precision), n_win, index, stream)
     if rc != 0:
         raise RuntimeError(
             f"pattern_pair launch failed: {lib.mr_pattern_error_string(rc).decode()}"
@@ -581,7 +614,7 @@ def pattern_pair_group(
             _n_col_tiles(p.n_cols) > 1 or p.rows_per_block < _n_row_tiles(p.pattern.shape[0])
             for p in group.parts
         )
-    pattern_pair_group.products += 2 * len(group.parts)
+    pattern_pair_group.products += 2 * len(group.parts) * n_win
     return tuple(
         (outs[3 * i], outs[3 * i + 1], outs[3 * i + 2] if p.w_out is not None else None)
         for i, p in enumerate(group.parts)
@@ -592,8 +625,8 @@ def pattern_pair_group(
 # blocked kernel each), of K8's blocked kernel's launches and of its fold
 # launches (one after it where a partition has more than one column
 # tile or group of row tiles), and of the matvecs computed (two per
-# partition; plain ints, pattern_pair_group is the one place that
-# launches).
+# partition and window; plain ints, pattern_pair_group is the one place
+# that launches).
 pattern_pair_group.launches = 0
 pattern_pair_group.blocked_launches = 0
 pattern_pair_group.fold_launches = 0
@@ -636,7 +669,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mr_pattern_pair.restype = ctypes.c_int
     lib.mr_pattern_pair.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, ints
-        ctypes.c_int32, ctypes.c_int32,                       # n_parts, precision
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,       # n_parts, precision, n_windows
         ctypes.c_int, ptr,                                    # device, stream
     ]
     lib.mr_pattern_pair_blocked.restype = ctypes.c_int

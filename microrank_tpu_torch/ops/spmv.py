@@ -16,6 +16,12 @@ Three steps:
   layouts (a power-iteration step's six matrices). Every row is cut into
   chunks of at most ``CHUNK`` entries at positions ``[j * CHUNK,
   (j + 1) * CHUNK)`` of the row; an empty row gets one empty item.
+  Stacked windows (``row_layout`` of [B, E] entries) make one
+  block-diagonal matrix per layout: window b's rows follow window
+  b - 1's and its columns are offset by b times its x length, so the x
+  slots are [B, n] tensors read by row stride and no slot is spent on a
+  window. Each row keeps its chunks and its fold order, so a window's
+  bits are the same alone or in a group; the kernel is unchanged.
 * ``coo_spmv_group`` — every step: on CUDA tensors one launch computes
   every matrix of the group (one warp per item, fixed-order lane sums
   and shuffle tree, the chunks of a row folded left to right by the last
@@ -83,14 +89,35 @@ def row_layout(
     vals: torch.Tensor,
     n_rows: int,
     n_live: Union[int, torch.Tensor, None] = None,
+    n_x: Optional[int] = None,
 ) -> RowLayout:
     """Row-sorted layout of COO entries (``rows``/``cols`` int32,
     ``vals`` float32). Entries ``e >= n_live`` are padding and are left
-    out of every row; None keeps all entries."""
+    out of every row; None keeps all entries.
+
+    Stacked windows (``rows`` [B, E], ``n_live`` [B], ``n_x`` each
+    window's x length): one block-diagonal matrix of B * n_rows rows over
+    an x of B * n_x, window b's rows at [b * n_rows, (b + 1) * n_rows)
+    and its columns offset by b * n_x (a column outside [0, n_x) becomes
+    -1, which ``spmv_group`` refuses). Each row holds its window's
+    entries in the same order as that window's own layout."""
     if rows.dtype != torch.int32 or cols.dtype != torch.int32:
         raise TypeError("rows and cols must be int32")
     if vals.dtype != torch.float32:
         raise TypeError("vals must be float32")
+    if rows.dim() == 2:
+        if n_x is None:
+            raise ValueError("row_layout: stacked windows need their x length n_x")
+        n_win, e = rows.shape
+        win = torch.arange(n_win, device=rows.device)[:, None]
+        key = rows.to(torch.int64) + win * n_rows
+        if n_live is not None:
+            pos = torch.arange(e, device=rows.device)
+            live = pos < torch.as_tensor(n_live, device=rows.device).reshape(-1, 1)
+            key = torch.where(live, key, n_win * n_rows)
+        cols = torch.where((cols >= 0) & (cols < n_x), cols + (win * n_x).to(torch.int32), -1)
+        rows, n_rows, n_live = key.reshape(-1), n_win * n_rows, None
+        cols, vals = cols.reshape(-1), vals.reshape(-1)
     e = rows.shape[0]
     key = rows.to(torch.int64)
     if n_live is not None:
@@ -133,15 +160,23 @@ class SpmvGroup(NamedTuple):
     n_rows: Tuple[int, ...]
     entry_offsets: Tuple[int, ...]
     max_chunks: int
+    # Stacked windows: each layout is block-diagonal over this many
+    # windows (``row_layout`` of [B, E] entries); the x slots are [B, n]
+    # and each y comes out [B, n_rows / B]. None: one window, 1-d.
+    windows: Optional[int] = None
 
 
 def spmv_group(
-    layouts: Sequence[RowLayout], x_slots: Sequence[int], n_x: Sequence[int]
+    layouts: Sequence[RowLayout], x_slots: Sequence[int], n_x: Sequence[int],
+    windows: Optional[int] = None,
 ) -> SpmvGroup:
     """The work list of ``layouts`` (all on one device): matrix m reads x
     slot ``x_slots[m]``, a vector of ``n_x[m]`` floats. Tensor ops only,
     with one host sync (the work list's length, with the check that
-    every live column lies inside its x: the kernel does not check)."""
+    every live column lies inside its x: the kernel does not check).
+    ``windows``: the layouts are stacked windows' block-diagonal ones
+    (``SpmvGroup.windows``), n_x and their rows counted over all of
+    them."""
     n_mats = len(layouts)
     if n_mats == 0 or not n_mats == len(x_slots) == len(n_x):
         raise ValueError("spmv_group: one x slot and one n_x per layout")
@@ -223,11 +258,25 @@ def spmv_group(
         n_rows=tuple(n_rows),
         entry_offsets=e_off,
         max_chunks=int(max_chunks),
+        windows=windows,
     )
 
 
 def _split(group: SpmvGroup, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    return tuple(y.split_with_sizes(group.n_rows))
+    ys = y.split_with_sizes(group.n_rows)
+    if group.windows is None:
+        return tuple(ys)
+    return tuple(t.view(group.windows, -1) for t in ys)
+
+
+def _flat_xs(group: SpmvGroup, xs: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """A stacked group's x slots, [B, n] each, as the flat vectors its
+    block-diagonal layouts index (views of contiguous tensors)."""
+    if group.windows is None:
+        return xs
+    if any(x.dim() != 2 or x.shape[0] != group.windows for x in xs):
+        raise ValueError(f"coo_spmv: every x of a stacked group is [{group.windows}, n]")
+    return [x.reshape(-1) for x in xs]
 
 
 def _check_xs(group: SpmvGroup, xs: Sequence[torch.Tensor]) -> None:
@@ -260,6 +309,7 @@ def coo_spmv_group_plain(
     shuffle tree (16, 8, 4, 2, 1), then each row's chunk sums folded left
     to right, ((p0 + p1) + p2) ..., masked where a row has no chunk j.
     Padding entries land in a sentinel item's lanes, which are dropped."""
+    xs = _flat_xs(group, xs)
     _check_xs(group, xs)
     e = group.entry_offsets
     prod = torch.cat([
@@ -291,11 +341,14 @@ def coo_spmv_group(
     views of one flat y. CPU tensors run the plain version; CUDA tensors
     launch the kernel once (counted in ``coo_spmv.launches``, the SpMVs
     in ``coo_spmv.spmvs``) or raise — there is no fallback for a CUDA
-    tensor. A group is used by one stream at a time."""
+    tensor. A group is used by one stream at a time. A stacked group
+    (``windows``) reads [B, n] x's and gives [B, n_rows] y's: one launch
+    for all its windows."""
     # Checks kept cheap: this runs once per power-iteration step.
     dev = xs[0].device
     if dev.type == "cpu":
         return coo_spmv_group_plain(group, xs)
+    xs = _flat_xs(group, xs)
     _check_cuda_xs(group, xs, dev)
     y = torch.empty(sum(group.n_rows), dtype=torch.float32, device=dev)
     n_items = group.items.shape[0]
@@ -316,7 +369,7 @@ def coo_spmv_group(
             f"coo_spmv launch failed: {lib.mr_cuda_error_string(rc).decode()}"
         )
     coo_spmv.launches += 1
-    coo_spmv.spmvs += len(group.x_slots)
+    coo_spmv.spmvs += len(group.x_slots) * (group.windows or 1)
     return _split(group, y)
 
 
@@ -494,8 +547,9 @@ def coo_spmv(layout: RowLayout, x: torch.Tensor) -> torch.Tensor:
     return coo_spmv_group(spmv_group([layout], (0,), (x.shape[0],)), (x,))[0]
 
 
-# Counts of the chunked kernel's launches and of the SpMVs they computed
-# (plain ints; coo_spmv_group is the one place that launches).
+# Counts of the chunked kernel's launches and of the SpMVs they computed,
+# a stacked group's counted per window (plain ints; coo_spmv_group is the
+# one place that launches).
 coo_spmv.launches = 0
 coo_spmv.spmvs = 0
 

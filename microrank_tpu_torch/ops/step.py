@@ -37,6 +37,10 @@ step also gives the next step's four quantization scales
   barrier, counted in ``power_step.launches``. A card that refuses the
   launch raises. On CPU tensors it runs ``power_step_plain`` into the
   same buffers.
+  A stacked group of B windows (K18) passes [B, n] vectors: one launch
+  a step of the group's kernel (``step_grid_group``) runs 2B
+  partitions, each window with its own maxima, residuals, n_iters and
+  running flag (scratch ``step_scratch_size(B)``).
 * ``power_step`` — one step with fresh outputs (the tests' and
   chip_smoke's signature): a ``StepWindow`` of its own, the same launch;
   on CPU tensors ``power_step_plain``, the port's eager code as it
@@ -62,13 +66,20 @@ from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
 from .pattern import PatternGroup, quantize_scales_plain
 from .spmv import nvcc
 
-# The kernel's scratch, int32: four vector maxima, two residuals, four
-# int8 amax slots and an arrival count (csrc kScratch), 0 between steps.
+# The kernel's scratch of one window, int32: four vector maxima, two
+# residuals, four int8 amax slots and an arrival count (csrc kScratch),
+# 0 between steps. A group of B windows holds the maxima and residuals of
+# each window: step_scratch_size(B).
 STEP_SCRATCH = 11
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "power_step.cu"
 LIB_PATH = BUILD_DIR / "libmr_power_step.so"
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+
+
+def step_scratch_size(windows: int = 1) -> int:
+    """int32 slots of the step kernel's scratch for ``windows`` windows."""
+    return 6 * windows + 5
 
 # A partition's carry (sv, rv) and a step's products (y_sr, y_ss, y_rs).
 Carry = Tuple[Tuple[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -98,9 +109,10 @@ class StepPlan(NamedTuple):
     scale_group: Optional[PatternGroup] = None
 
 
-def step_scratch(device) -> torch.Tensor:
-    """A window's scratch of the step kernel, zeroed."""
-    return torch.zeros(STEP_SCRATCH, dtype=torch.int32, device=device)
+def step_scratch(device, windows: int = 1) -> torch.Tensor:
+    """A window's (or a group of ``windows`` windows') scratch of the step
+    kernel, zeroed."""
+    return torch.zeros(step_scratch_size(windows), dtype=torch.int32, device=device)
 
 
 def step_plan(
@@ -131,19 +143,20 @@ def _partition_step(products, alpha, pref, normalize: bool, d):
     """One power-iteration step (pagerank.py:122-127) from the step's
     products (p_sr @ rv, p_ss @ sv, p_rs @ sv):
     sv' = d*(p_sr @ rv + alpha * p_ss @ sv);
-    rv' = d*(p_rs @ sv) + (1-d) * pref; both max-normalized."""
+    rv' = d*(p_rs @ sv) + (1-d) * pref; both max-normalized (over the
+    last axis: a stacked group's rows are its windows)."""
     y_sr, y_ss, y_rs = products
     sv_new = d * (y_sr + alpha * y_ss)
     rv_new = d * y_rs + (1.0 - d) * pref
     if normalize:
-        sv_new = sv_new / sv_new.max()
-        rv_new = rv_new / rv_new.max()
+        sv_new = sv_new / sv_new.amax(-1, keepdim=True)
+        rv_new = rv_new / rv_new.amax(-1, keepdim=True)
     return sv_new, rv_new
 
 
 def _part_delta(new, old):
     return torch.maximum(
-        (new[0] - old[0]).abs().max(), (new[1] - old[1]).abs().max()
+        (new[0] - old[0]).abs().amax(-1), (new[1] - old[1]).abs().amax(-1)
     )
 
 
@@ -158,9 +171,11 @@ def power_step_plain(
     want_scales: bool = False,
 ) -> Tuple[Carry, Optional[torch.Tensor]]:
     """Step ``i`` in plain PyTorch: returns (the new carry, the next
-    step's int8 scales or None) and writes ``residuals[:, i]``; with
-    ``plan.tol``, updates ``n_iters`` (int32 0-d) and ``running`` (bool
-    0-d) in place."""
+    step's int8 scales or None) and writes ``residuals[..., i]``; with
+    ``plan.tol``, updates ``n_iters`` (int32) and ``running`` (bool) in
+    place. One window: 1-d vectors, residuals [2, I], 0-d n_iters and
+    running; a group of B: [B, n] vectors, residuals [B, 2, I], [B]
+    n_iters and running, each window frozen on its own."""
     dev = carry[0][0].device
 
     def scalar(value):
@@ -173,17 +188,17 @@ def power_step_plain(
         _partition_step(ys, alpha, pref, plan.normalize, d)
         for ys, pref in zip(products, plan.prefs)
     )
-    deltas = torch.stack([_part_delta(pn, po) for pn, po in zip(new, carry)])
+    deltas = torch.stack([_part_delta(pn, po) for pn, po in zip(new, carry)], -1)
     if plan.tol is None:
-        residuals[:, i] = deltas
+        residuals[..., i] = deltas
     else:
         new = tuple(
-            tuple(torch.where(running, a, b) for a, b in zip(pn, po))
+            tuple(torch.where(running[..., None], a, b) for a, b in zip(pn, po))
             for pn, po in zip(new, carry)
         )
-        residuals[:, i] = torch.where(running, deltas, 0.0)
+        residuals[..., i] = torch.where(running[..., None], deltas, 0.0)
         n_iters += running.to(torch.int32)
-        running &= deltas.max() > scalar(plan.tol)
+        running &= deltas.amax(-1) > scalar(plan.tol)
     scales = None
     if want_scales:
         scales = quantize_scales_plain(
@@ -193,35 +208,49 @@ def power_step_plain(
 
 
 def _check_window(plan, carry, residuals, n_iters, running, dev) -> None:
-    """A window's step state, checked once at set-up: the plan's
-    preference vectors and the first carry contiguous float32 on one
-    device, of matching lengths; the residual trace [2, n_steps]; the tol
-    state; the scratch; the int8 weights."""
+    """A window's (or a stacked group's) step state, checked once at
+    set-up: the plan's preference vectors and the first carry contiguous
+    float32 on one device, of matching lengths, 1-d for one window and
+    [B, n] for a group of B; the residual trace [2, n_steps] ([B, 2,
+    n_steps]); the tol state (0-d, or [B]); the scratch; the int8 weights
+    (one window only)."""
     if len(plan.prefs) != 2 or len(carry) != 2:
         raise ValueError("power_step: a carry and a preference vector per partition (2)")
+    lead = tuple(carry[0][0].shape[:-1])
+    if len(lead) > 1:
+        raise ValueError("power_step: vectors are 1-d, or [B, n] for a group of B windows")
     for (sv, rv), pref in zip(carry, plan.prefs):
-        if any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 1
-               for t in (sv, rv, pref)):
+        if any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+               or t.shape[:-1] != lead for t in (sv, rv, pref)):
             raise ValueError(f"power_step: every vector must be contiguous float32 on {dev}")
-        if pref.shape != rv.shape or not (sv.shape[0] and rv.shape[0]):
+        if pref.shape != rv.shape or not (sv.shape[-1] and rv.shape[-1]):
             raise ValueError("power_step: pref and carry of mismatched or empty lengths")
-    if residuals.dtype != torch.float32 or residuals.dim() != 2 or residuals.shape[0] != 2 or (
-        not residuals.is_contiguous() or residuals.device != dev or residuals.shape[1] < 1
+    if residuals.dtype != torch.float32 or residuals.shape[:-1] != lead + (2,) or (
+        not residuals.is_contiguous() or residuals.device != dev or residuals.shape[-1] < 1
     ):
-        raise ValueError(f"power_step: residuals must be contiguous float32 [2, n_steps] on {dev}")
+        raise ValueError(
+            f"power_step: residuals must be contiguous float32 [{', '.join(map(str, lead + (2,)))}, "
+            f"n_steps] on {dev}"
+        )
     if (plan.tol is None) != (n_iters is None) or (n_iters is None) != (running is None):
         raise ValueError("power_step: n_iters and running go with a tol, and only then")
     if n_iters is not None and (
         n_iters.dtype != torch.int32 or running.dtype != torch.bool
-        or n_iters.numel() != 1 or running.numel() != 1
+        or n_iters.shape != lead or running.shape != lead
         or n_iters.device != dev or running.device != dev
     ):
-        raise ValueError(f"power_step: n_iters int32 and running bool, one each, on {dev}")
-    if plan.scratch.device != dev or plan.scratch.shape != (STEP_SCRATCH,) or (
+        raise ValueError(f"power_step: n_iters int32 and running bool, one each a window, on {dev}")
+    n_scratch = step_scratch_size(lead[0] if lead else 1)
+    if plan.scratch.device != dev or plan.scratch.shape != (n_scratch,) or (
         plan.scratch.dtype != torch.int32
     ):
-        raise ValueError(f"power_step: the plan's scratch must be int32[{STEP_SCRATCH}] on {dev}")
+        raise ValueError(f"power_step: the plan's scratch must be int32[{n_scratch}] on {dev}")
     if plan.scale_group is not None:
+        if lead:
+            raise NotImplementedError(
+                "power_step: int8 scales of stacked windows are not ported yet "
+                "(ROADMAP.md 'Port queue' item 7 follow-ups)"
+            )
         for part, (sv, rv) in zip(plan.scale_group.parts, carry):
             if part.w_len.shape != rv.shape or part.w_cov.shape != sv.shape or any(
                 t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
@@ -304,7 +333,13 @@ class StepWindow:
     instantiation) stay in registers. ``max_blocks`` caps the grid below
     the card's cooperative limit (the tests' way to a window past the
     register slots) or, above it, asks for a grid the card refuses.
-    ``mode`` is one of STEP_MODES."""
+    ``mode`` is one of STEP_MODES.
+
+    A stacked group of B windows passes [B, n] carries and preference
+    vectors, residuals [B, 2, n_steps] and [B] n_iters / running: one
+    launch a step of the group's kernel for all of them (``windows``;
+    ``slots`` 0, one element a thread, ``units`` runs of 256 elements
+    that the grid's blocks walk; or the plain step; no int8 scales)."""
 
     def __init__(self, plan: StepPlan, carry: Carry, residuals: torch.Tensor,
                  n_iters: Optional[torch.Tensor] = None, running: Optional[torch.Tensor] = None,
@@ -315,11 +350,16 @@ class StepWindow:
         _check_window(plan, carry, residuals, n_iters, running, dev)
         self.plan, self.residuals, self.n_iters, self.running = plan, residuals, n_iters, running
         self.mode = "plain" if dev.type == "cpu" else mode
+        lead = tuple(carry[0][0].shape[:-1])
+        self.windows = lead[0] if lead else None
+        if self.windows is not None and self.mode == "two_launch":
+            raise NotImplementedError("power_step: the two-launch kernel takes one window")
         sizes = []
         for sv, rv in carry:
-            sizes += [rv.shape[0], sv.shape[0]]
-        flat = torch.empty(2 * sum(sizes), dtype=torch.float32, device=dev)
-        bufs = flat.split_with_sizes(sizes * 2)
+            sizes += [rv.shape[-1], sv.shape[-1]]
+        n_win = self.windows or 1
+        flat = torch.empty(2 * n_win * sum(sizes), dtype=torch.float32, device=dev)
+        bufs = [b.view(*lead, -1) for b in flat.split_with_sizes([n_win * n for n in sizes] * 2)]
         # Slot s's carry as the loop holds it: ((sv_n, rv_n), (sv_a, rv_a)).
         self.carries = [tuple(tuple(carry[p]) for p in range(2))] + [
             ((bufs[4 * s + 1], bufs[4 * s]), (bufs[4 * s + 3], bufs[4 * s + 2])) for s in (0, 1)
@@ -329,7 +369,7 @@ class StepWindow:
         if plan.scale_group is not None:
             self.scales = torch.empty(4, dtype=torch.float32, device=dev)
         self._products_checked = False
-        self.grid = self.per_thread = self.slots = None
+        self.grid = self.per_thread = self.slots = self.units = None
         self._handle = None
         if self.mode == "kernel":
             self._set_up_kernel(dev, max_blocks)
@@ -355,14 +395,14 @@ class StepWindow:
                 weights = (part.w_len.data_ptr(), part.w_cov.data_ptr())
             for v, pref in ((1, plan.prefs[p].data_ptr()), (0, None)):  # rv, then sv
                 ptrs += [pref] + [c[p][v].data_ptr() for c in self.carries] + [weights[1 - v]]
-        ns = [self.carries[0][p][v].shape[0] for p in range(2) for v in (1, 0)]
+        ns = [self.carries[0][p][v].shape[-1] for p in range(2) for v in (1, 0)]
         handle = ctypes.c_void_p()
-        grid = (ctypes.c_int32 * 3)()
+        grid = (ctypes.c_int32 * 4)()
         r, n = self.residuals, self.n_iters
         rc = lib.mr_step_window_create(
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * 4)(*ns),
             plan.alpha, plan.d, 0.0 if plan.tol is None else plan.tol, int(plan.normalize),
-            r.shape[1], plan.scratch.data_ptr(), r.data_ptr(),
+            r.shape[-1], self.windows or 1, plan.scratch.data_ptr(), r.data_ptr(),
             None if n is None else n.data_ptr(),
             None if n is None else self.running.data_ptr(),
             None if self.scales is None else self.scales.data_ptr(),
@@ -378,7 +418,7 @@ class StepWindow:
         self._handle = handle.value
         weakref.finalize(self, lib.mr_step_window_free, self._handle)
         self._run = lib.mr_step_window_run
-        self.grid, self.per_thread, self.slots = grid[0], grid[1], grid[2]
+        self.grid, self.per_thread, self.slots, self.units = grid[0], grid[1], grid[2], grid[3]
 
     @property
     def carry(self) -> Carry:
@@ -392,9 +432,9 @@ class StepWindow:
         tol, n_iters and running). The products are checked at the
         window's first step only: every later step's come from the same
         kernels at the same shapes."""
-        if not 0 <= i < self.residuals.shape[1]:
+        if not 0 <= i < self.residuals.shape[-1]:
             raise ValueError(f"power_step: step {i} outside the trace of "
-                             f"{self.residuals.shape[1]}")
+                             f"{self.residuals.shape[-1]}")
         if not self._products_checked:
             _check_products(products, self.carries[0])
             self._products_checked = True
@@ -551,7 +591,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mr_step_window_create.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, ns
         ctypes.c_float, ctypes.c_float, ctypes.c_float,       # alpha, d, tol
-        i32, i32,                                             # normalize, n_steps
+        i32, i32, i32,                                        # normalize, n_steps, n_windows
         ptr, ptr, ptr, ptr, ptr,                              # scratch, residuals, n_iters, running, scales
         ctypes.c_int, ptr, ctypes.c_int64,                    # device, stream, max_blocks
         ctypes.POINTER(ptr), ctypes.POINTER(i32),             # out handle, out grid
@@ -589,4 +629,5 @@ __all__ = [
     "power_step_two_launch",
     "step_plan",
     "step_scratch",
+    "step_scratch_size",
 ]

@@ -23,8 +23,17 @@ outcome, the kind dedup factor, staged bytes, the convergence
 histograms and the in-flight gauge (``obs.metrics``); the CLI writes
 the snapshot beside the results.
 
-Not ported yet (ROADMAP.md "Port queue"): the mesh, batch windows and
-micro-batched dispatch, and the quarantine store.
+Stacked windows, as the JAX lane runs them on one device: the
+micro-batched dispatch (``runtime.dispatch_batch_windows = K > 1``: up
+to K anomalous windows' graphs stacked into one rank program, joined
+per group or, under bulk, all groups at once) and the two-phase
+``run(batch_windows=True)`` (detect every window, then build and rank
+all anomalous ones in one stacked program). A stacked program is K18
+(``rank_backends.torch_cuda`` on a ``parallel.stack_window_graphs``
+graph): one launch of each kernel a power-iteration step for the group.
+
+Not ported yet (ROADMAP.md "Port queue"): the mesh and the quarantine
+store.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from ..obs.metrics import (
     record_window_outcome,
     stage_seconds,
 )
+from ..parallel import stack_window_graphs
 from ..rank_backends.convert import graph_from_numpy
 from ..rank_backends.torch_cuda import (
     choose_kernel,
@@ -232,6 +242,16 @@ class TableRCA:
         start the copy of its packed outputs to the host, all on the
         current stream (in the async loop, the stage worker's own).
         Returns opaque handles for ``finalize_rank``."""
+        return self.launch_program(graph, kernel), op_names
+
+    def launch_program(self, graph, kernel):
+        """The device half of one rank program, over one window's host
+        graph or a stacked group's (``parallel.stack_window_graphs``):
+        the fields the kernel reads copied to the device, the kernels'
+        layouts, the program and the start of its outputs' one copy, all
+        on the current stream. A stacked group whose kernel does not run
+        stacked (packed_blocked, pcsr, int8) raises NotImplementedError:
+        there is no per-window fallback. Returns the packed outputs."""
         cfg = self.config
         host = host_subset(graph, kernel)
         # Per-leaf staging, the JAX lane's "tree" path: one copy per
@@ -246,7 +266,30 @@ class TableRCA:
         outs = rank_window_traced_core(
             dgraph, cfg.pagerank, cfg.spectrum, kernel
         )
-        return pack_rank_outputs(outs), op_names
+        return pack_rank_outputs(outs)
+
+    def _ranking(self, op_names, outs, label):
+        """(names, scores, conv-summary-or-None) of one window's fetched
+        outputs (top_idx, top_scores, n_valid, residuals, n_iters)."""
+        top_idx, top_scores, n_valid, residuals, n_iters = outs
+        n = int(n_valid)
+        names = [op_names[int(i)] for i in top_idx[:n]]
+        scores = [float(x) for x in top_scores[:n]]
+        if self.config.runtime.validate_numerics:
+            assert_finite_scores(scores, label)
+        conv = (
+            self._conv_summary(residuals, n_iters)
+            if self.config.runtime.convergence_trace
+            else None
+        )
+        return names, scores, conv
+
+    def _assign_rows(self, result, op_names, outs, b, label) -> None:
+        """Window b's ranking (and convergence) from a stacked program's
+        fetched outputs."""
+        names, scores, conv = self._ranking(op_names, [x[b] for x in outs], label)
+        result.ranking = list(zip(names, scores))
+        self._apply_conv(result, conv)
 
     @staticmethod
     def _apply_conv(result, conv) -> None:
@@ -279,22 +322,10 @@ class TableRCA:
         one device-to-host copy was started by ``launch_rank``) and
         unpack them. Returns [(names, scores, conv), ...] in input
         order; ``conv`` is the _conv_summary dict or None."""
-        out = []
-        for packed, op_names in handles_list:
-            top_idx, top_scores, n_valid, residuals, n_iters = (
-                unpack_rank_outputs(packed)
-            )
-            names = [op_names[int(i)] for i in top_idx[:n_valid]]
-            scores = [float(s) for s in top_scores[:n_valid]]
-            if self.config.runtime.validate_numerics:
-                assert_finite_scores(scores, "TableRCA.rank_window")
-            conv = (
-                self._conv_summary(residuals, n_iters)
-                if self.config.runtime.convergence_trace
-                else None
-            )
-            out.append((names, scores, conv))
-        return out
+        return [
+            self._ranking(op_names, unpack_rank_outputs(packed), "TableRCA.rank_window")
+            for packed, op_names in handles_list
+        ]
 
     def finalize_rank(self, handles):
         """Wait for one dispatched rank's results. Returns (names,
@@ -334,18 +365,25 @@ class TableRCA:
         them. A clean unbounded run clears it; a run bounded by
         ``end_us`` or ``complete_only`` leaves it at the next window.
 
-        ``batch_windows=True`` (all anomalous windows in one stacked
-        program) is not ported (ROADMAP.md 'Port queue' item 7).
+        ``runtime.dispatch_batch_windows = K > 1``: anomalous windows
+        gather in groups of K, each ranked by one stacked program
+        (``launch_program``); ``pipeline_depth`` then bounds the
+        groups in flight (stream) or ``bulk_fetch_windows`` the windows
+        (bulk, where one join takes every group in flight). Results still
+        reach the sink per window, in order, with ``chunk_fetch_ms`` /
+        ``chunk_windows`` in their timings.
+
+        ``batch_windows=True``: two phases, as the JAX lane's single
+        device path. Detect every window first; then build every
+        anomalous window's graph (at ``dense_budget_bytes`` shared by the
+        batch) and rank them all in one stacked program, with the
+        timings ``build`` and ``rank_batched`` shared by all; the sink
+        receives every window at the end. ``dispatch_batch_windows`` is
+        ignored there, with a warning.
         """
         cfg = self.config
         if self.baseline is None:
             raise RuntimeError("call fit_baseline() before run()")
-        if batch_windows:
-            raise NotImplementedError(
-                "batch_windows=True (every anomalous window in one "
-                "stacked program) is not ported yet (ROADMAP.md 'Port "
-                "queue' item 7, batch windows)"
-            )
         table, _ = admit_table(table, cfg.ingest, source="table")
         if sink is None and out_dir is not None:
             sink = ResultSink(out_dir, overwrite_csv=cfg.compat.overwrite_results)
@@ -364,7 +402,7 @@ class TableRCA:
                 collapse_kinds=cfg.runtime.collapse_kinds,
                 pipeline_depth=cfg.runtime.pipeline_depth,
                 fetch_mode=cfg.runtime.fetch_mode,
-                batch_windows=False,
+                batch_windows=batch_windows,
                 mesh=None,
             )
         if table.n_spans == 0:
@@ -385,12 +423,24 @@ class TableRCA:
         # The JAX lane falls back to synchronous dispatch under device
         # checks or in a multi-process mesh; this package has neither, so
         # async_dispatch and fetch_mode always hold as configured.
-        bulk = cfg.runtime.fetch_mode == "bulk"
+        bulk = cfg.runtime.fetch_mode == "bulk" and not batch_windows
         # Rank programs in flight before the host joins; in bulk mode
         # the batch size replaces the depth.
         depth = max(1, int(
             cfg.runtime.bulk_fetch_windows if bulk else cfg.runtime.pipeline_depth
         ))
+        # Micro-batched dispatch: groups of chunk_n windows, one stacked
+        # program each. Of the JAX lane's reasons to ignore it (batch
+        # windows, a mesh, several processes, device checks) only the
+        # first exists here.
+        chunk_n = max(1, int(cfg.runtime.dispatch_batch_windows))
+        if chunk_n > 1 and batch_windows:
+            log.warning(
+                "dispatch_batch_windows=%d ignored: batch_windows=True already "
+                "ranks every anomalous window in one dispatch; dispatching per "
+                "window", chunk_n,
+            )
+            chunk_n = 1
         stage_pool = fetch_pool = None
         if cfg.runtime.async_dispatch:
             # One stage thread on one stream: the kernels' scratch (K1's
@@ -403,12 +453,14 @@ class TableRCA:
                     torch.cuda.Stream(self.device),
                 )
             stage_pool = ThreadPoolExecutor(1, "mr-stage", init, initargs)
-            if not bulk:  # bulk joins in batches on the main thread
+            if not bulk and chunk_n == 1:  # bulk and groups join on the main thread
                 fetch_pool = ThreadPoolExecutor(1, "mr-fetch")
 
         results: List[WindowResult] = []
-        inflight = []  # (result, handles-or-future, timings) dispatched
+        pending = []  # (result, mask, nrm, abn, row_range): batch_windows' phase 2
+        inflight = []  # (result or group items, handles-or-future, timings) dispatched
         finishing = []  # (result, finalize future, timings) async fetches
+        chunk_pending = []  # (result, graph, op_names, kernel, timings) not yet dispatched
         emitted = 0  # results[:emitted] already sent to the sink
         next_cursor = {}  # id(result) -> post-advance window position (us)
 
@@ -416,19 +468,25 @@ class TableRCA:
             sink.emit(r)
             if journal is not None:
                 journal.window(r)
-            if cursor is not None and id(r) in next_cursor:
+            # Not in batch mode: every window emits right before the
+            # cursor is cleared.
+            if cursor is not None and not batch_windows and id(r) in next_cursor:
                 cursor.save(_iso(next_cursor[id(r)]))
 
         def _emit_ready():
             """Emit results in window order, stopping at the oldest
-            window still in flight (its ranking isn't final yet)."""
+            window still in flight or in a group not yet dispatched (its
+            ranking isn't final yet)."""
             nonlocal emitted
-            if sink is None:
+            if sink is None or batch_windows:
                 return
             if finishing:
                 stop = id(finishing[0][0])
             elif inflight:
-                stop = id(inflight[0][0])
+                head = inflight[0][0]
+                stop = id(head[0][0]) if isinstance(head, list) else id(head)
+            elif chunk_pending:
+                stop = id(chunk_pending[0][0])
             else:
                 stop = None
             while emitted < len(results):
@@ -468,6 +526,9 @@ class TableRCA:
                 names, scores, conv = self.finalize_rank(handles)
             _set_ranking(result, timings, names, scores, conv)
 
+        def _join_handles(handles):
+            return handles.result() if stage_pool is not None else handles
+
         def _flush_bulk():
             """Join EVERY deferred window's results (fetch_mode="bulk").
             All rankings are assigned before anything is emitted:
@@ -478,10 +539,7 @@ class TableRCA:
             if not inflight:
                 return
             items = inflight[:]
-            handles = [
-                h.result() if stage_pool is not None else h
-                for _, h, _ in items
-            ]
+            handles = [_join_handles(h) for _, h, _ in items]
             t0 = time.perf_counter()
             ranked = self.finalize_rank_many(handles)
             wait_s = time.perf_counter() - t0
@@ -499,7 +557,78 @@ class TableRCA:
             _gauge_inflight("window", 0)
             _emit_ready()
 
-        join = _flush_bulk if bulk else _finalize_one
+        def _launch_chunk(items):
+            """One group's stacked program (on the stage worker in async
+            mode: the graphs are already built). A group whose windows
+            resolved to different kernels re-resolves on the stacked
+            views, at the dense budget shared by its windows."""
+            kernels = {k for _, _, _, k, _ in items}
+            graphs = [g for _, g, _, _, _ in items]
+            if len(kernels) == 1:
+                kern = kernels.pop()
+                stacked = stack_window_graphs([host_subset(g, kern) for g in graphs])
+            else:
+                stacked = stack_window_graphs(graphs)
+                kern = choose_kernel(
+                    stacked,
+                    max(1, cfg.runtime.dense_budget_bytes // len(items)),
+                    cfg.runtime.prefer_bf16,
+                )
+            return self.launch_program(stacked, kern)
+
+        def _flush_chunk():
+            if not chunk_pending:
+                return
+            items = chunk_pending[:]
+            chunk_pending.clear()
+            handles = (
+                stage_pool.submit(_launch_chunk, items)
+                if stage_pool is not None
+                else _launch_chunk(items)
+            )
+            inflight.append((items, handles, None))
+            _gauge_inflight("chunk", len(inflight))
+
+        def _assign_chunk(items, outs, wait_ms_per_window):
+            for b, (result, _, names, _, timings) in enumerate(items):
+                self._assign_rows(result, names, outs, b, "TableRCA chunked window")
+                result.timings = {
+                    **timings.as_dict(),
+                    "chunk_fetch_ms": round(wait_ms_per_window, 3),
+                    "chunk_windows": len(items),
+                }
+
+        def _finalize_chunk_one():
+            """Join the oldest dispatched group (its one copy)."""
+            items, handles, _ = inflight.pop(0)
+            _gauge_inflight("chunk", len(inflight))
+            packed = _join_handles(handles)
+            t0 = time.perf_counter()
+            outs = unpack_rank_outputs(packed)
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            _assign_chunk(items, outs, wait_ms / len(items))
+            _emit_ready()
+
+        def _flush_bulk_chunks():
+            """Join EVERY dispatched group at once (fetch_mode="bulk")."""
+            if not inflight:
+                return
+            entries = inflight[:]
+            packs = [_join_handles(e[1]) for e in entries]
+            t0 = time.perf_counter()
+            fetched = [unpack_rank_outputs(p) for p in packs]
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            n_total = sum(len(e[0]) for e in entries)
+            for (items, _, _), outs in zip(entries, fetched):
+                _assign_chunk(items, outs, wait_ms / n_total)
+            inflight.clear()
+            _gauge_inflight("chunk", 0)
+            _emit_ready()
+
+        if chunk_n > 1:
+            join = _flush_bulk_chunks if bulk else _finalize_chunk_one
+        else:
+            join = _flush_bulk if bulk else _finalize_one
         try:
             while current + detect_us <= end if complete_only else current < end:
                 w0, w1 = current, current + detect_us
@@ -522,32 +651,54 @@ class TableRCA:
                         if cfg.compat.partition_swap:
                             nrm, abn = abn, nrm
                         ranked = True
-                        with timings.stage("rank_dispatch"):
-                            prep = self.prepare_rank(table, mask, nrm, abn, row_range)
-                            result.kernel = prep[2]
-                            result.kind_dedup = kind_dedup_ratio(prep[0])
-                            if stage_pool is not None:
-                                handles = stage_pool.submit(self.launch_rank, *prep)
-                            else:
-                                handles = self.launch_rank(*prep)
-                        result.queue_depth = len(inflight)
-                        inflight.append((result, handles, timings))
-                        _gauge_inflight("window", len(inflight))
-                        if len(inflight) >= depth:
-                            join()
+                        if batch_windows:
+                            pending.append((result, mask, nrm, abn, row_range))
+                        elif chunk_n > 1:
+                            with timings.stage("rank_dispatch"):
+                                graph, op_names, kernel = self.prepare_rank(
+                                    table, mask, nrm, abn, row_range
+                                )
+                            result.kernel = kernel
+                            result.kind_dedup = kind_dedup_ratio(graph)
+                            result.queue_depth = len(inflight)
+                            chunk_pending.append((result, graph, op_names, kernel, timings))
+                            if len(chunk_pending) >= chunk_n:
+                                _flush_chunk()
+                            # Groups in flight (stream) or windows (bulk).
+                            in_flight = (
+                                sum(len(e[0]) for e in inflight) if bulk else len(inflight)
+                            )
+                            if in_flight >= depth:
+                                join()
+                        else:
+                            with timings.stage("rank_dispatch"):
+                                prep = self.prepare_rank(table, mask, nrm, abn, row_range)
+                                result.kernel = prep[2]
+                                result.kind_dedup = kind_dedup_ratio(prep[0])
+                                if stage_pool is not None:
+                                    handles = stage_pool.submit(self.launch_rank, *prep)
+                                else:
+                                    handles = self.launch_rank(*prep)
+                            result.queue_depth = len(inflight)
+                            inflight.append((result, handles, timings))
+                            _gauge_inflight("window", len(inflight))
+                            if len(inflight) >= depth:
+                                join()
                 record_window_outcome(
                     "ranked" if ranked
                     else ("skipped" if result.skipped_reason else "clean")
                 )
                 results.append(result)
+                if not ranked or batch_windows:
+                    result.timings = timings.as_dict()
                 if ranked:
                     current += skip_us
-                else:
-                    result.timings = timings.as_dict()
                 current += detect_us
                 next_cursor[id(result)] = current
                 _emit_ready()
 
+            if chunk_pending:
+                _flush_chunk()  # the final partial group
             while inflight:
                 join()
             while finishing:
@@ -561,6 +712,11 @@ class TableRCA:
                     pool.shutdown(wait=True, cancel_futures=True)
             self._remap_cache = None
 
+        if batch_windows and pending:
+            self._rank_pending(table, pending)
+        if batch_windows and sink is not None:
+            for r in results:
+                _emit(r)
         if journal is not None:
             journal.run_end(
                 windows=len(results),
@@ -571,6 +727,43 @@ class TableRCA:
             # next unranked window; the per-window saves advanced it.
             cursor.clear()
         return results
+
+    def _rank_pending(self, table, pending) -> None:
+        """Phase 2 of ``batch_windows``: every anomalous window's graph
+        built at the dense budget shared by the batch (all of it resident
+        at once), stacked, and ranked by one program with one copy of its
+        outputs; ``build`` and ``rank_batched`` are shared timings."""
+        cfg = self.config
+        kernel = cfg.runtime.kernel
+        op_names = list(table.pod_op_names)
+        timings = StageTimings()
+        budget = max(1, cfg.runtime.dense_budget_bytes // len(pending))
+        graphs = []
+        with timings.stage("build"):
+            for result, mask, nrm, abn, row_range in pending:
+                graph, _, _, _ = build_window_graph_from_table(
+                    table, mask, nrm, abn,
+                    pad_policy=cfg.runtime.pad_policy,
+                    min_pad=cfg.runtime.min_pad,
+                    aux=aux_for_kernel(kernel),
+                    dense_budget_bytes=budget,
+                    collapse=cfg.runtime.collapse_kinds,
+                    row_range=row_range,
+                    kind_dedup_threshold=cfg.runtime.kind_dedup_threshold,
+                )
+                result.kind_dedup = kind_dedup_ratio(graph)
+                graphs.append(graph)
+        with timings.stage("rank_batched"):
+            stacked = stack_window_graphs(graphs)
+            if kernel == "auto":
+                kernel = choose_kernel(stacked, budget, cfg.runtime.prefer_bf16)
+            outs = unpack_rank_outputs(self.launch_program(stacked, kernel))
+        shared = timings.as_dict()
+        for b, (result, _, _, _, _) in enumerate(pending):
+            result.kernel = kernel
+            self._assign_rows(result, op_names, outs, b, f"TableRCA batched window {b}")
+            result.timings = {**result.timings, **shared}
+
 
 def run_rca_native(
     normal_path,

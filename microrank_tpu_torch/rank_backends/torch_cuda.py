@@ -50,6 +50,16 @@ running" flag drops, so no step branches on a device value; vectors,
 residuals (zero past ``n_iters``) and ``n_iters`` come out as JAX's
 ``lax.while_loop`` gives them.
 
+A stacked group of windows (``parallel.stack_window_graphs``: every
+field with a leading [B] axis, padded to the group's largest window) runs
+the same program once for all B (K18, the counterpart of JAX's
+``vmap(rank_window_traced_core)``, ``sharded_rank.py:1091``): one work
+list, one pattern group and one K5 state built for the group, a step
+one launch of each kernel for all its windows, the epilogue over [B, V],
+one copy of the [B] outputs. The set-up and the epilogue read each
+window's own ``n_*`` scalars. ``kind`` (f32, bf16), ``packed``,
+``packed_bf16`` and ``pallas`` run stacked; the others raise.
+
 Scalars that JAX keeps as float32 (damping, call weight, eps, tol) are
 float32 here (0-d tensors filled on the device, or the step kernel's
 float32 arguments), so each product rounds in float32 as it does there.
@@ -104,6 +114,26 @@ def _check_kernel(kernel: str) -> None:
             f"kernel={kernel!r} is not ported (this package runs "
             f"{KERNELS}; see ROADMAP.md's port queue, item 10)"
         )
+
+
+# Kernels whose step runs a stacked group of windows (K18): K1, the
+# pattern pair in f32 / bf16 and K5 take a window axis.
+BATCHED_KERNELS = ("kind", "packed", "packed_bf16", "pallas")
+
+
+def stacked_windows(graph: WindowGraph) -> Optional[int]:
+    """B for a stacked group of windows (``parallel.sharded_rank.
+    stack_window_graphs``: every field has a leading window axis), None
+    for one window."""
+    return int(graph.normal.kind.shape[0]) if graph.normal.kind.dim() == 2 else None
+
+
+def _not_batched(what: str) -> str:
+    return (
+        f"{what} does not run on a stacked group of windows yet (ROADMAP.md "
+        "'Port queue' item 7 follow-ups: batched packed_blocked, pcsr, int8); "
+        "rank its windows one by one"
+    )
 
 
 def has_kind_views(g: PartitionGraph) -> bool:
@@ -161,19 +191,22 @@ def preference_vector(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig):
     (reference: pagerank.py:68-85; paper Eq (7) behind
     preference="paper"). On a kind-collapsed graph a column stands for
     ``kind`` identical traces, so the two normalization sums weight each
-    column by its multiplicity."""
-    t_pad = g.kind.shape[0]
+    column by its multiplicity. A stacked group's partition ([B, T],
+    ``n_*`` [B]) gives each window's vector from its own ``n_*``; the
+    two sums run over the padded axis, which can round a window's bits
+    otherwise than its own run over its own pad (PERF.md, K18)."""
+    t_pad = g.kind.shape[-1]
     dev = g.kind.device
     collapsed = g.n_cols >= 0
-    n_live = torch.where(collapsed, g.n_cols, g.n_traces)
+    n_live = torch.where(collapsed, g.n_cols, g.n_traces)[..., None]
     live = torch.arange(t_pad, device=dev) < n_live
     kind = g.kind.to(torch.float32)
     tlen = g.tracelen.to(torch.float32)
-    mult = torch.where(collapsed, kind, 1.0)
+    mult = torch.where(collapsed[..., None], kind, 1.0)
     inv_kind = torch.where(live, 1.0 / kind, 0.0)
     inv_len = torch.where(live, 1.0 / tlen, 0.0)
-    kind_sum = (mult * inv_kind).sum()
-    num_sum = (mult * inv_len).sum()
+    kind_sum = (mult * inv_kind).sum(-1, keepdim=True)
+    num_sum = (mult * inv_len).sum(-1, keepdim=True)
 
     if not anomaly:
         pref = inv_kind / kind_sum
@@ -194,13 +227,14 @@ def spmv_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
     """K1's row layouts of the partition's three transition matrices:
     p_sr (rows = op, over traces), p_ss (rows = child op, over parent
     ops) and p_rs (rows = trace, over ops). Entries past the live
-    counts are padding and are left out."""
-    v = g.cov_unique.shape[0]
-    t_pad = g.kind.shape[0]
+    counts are padding and are left out. A stacked group's partition
+    gives block-diagonal layouts over its windows."""
+    v = g.cov_unique.shape[-1]
+    t_pad = g.kind.shape[-1]
     return (
-        row_layout(g.inc_op, g.inc_trace, g.sr_val, v, g.n_inc),
-        row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss),
-        row_layout(g.inc_trace, g.inc_op, g.rs_val, t_pad, g.n_inc),
+        row_layout(g.inc_op, g.inc_trace, g.sr_val, v, g.n_inc, n_x=t_pad),
+        row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss, n_x=v),
+        row_layout(g.inc_trace, g.inc_op, g.rs_val, t_pad, g.n_inc, n_x=v),
     )
 
 
@@ -212,13 +246,15 @@ STEP_X_SLOTS = (0, 1, 1, 2, 3, 3)
 def window_spmv_group(graph: WindowGraph, layouts_of=spmv_layouts) -> SpmvGroup:
     """K1's work list of one power-iteration step: the three matrices of
     the normal partition, then of the abnormal one (``layouts_of`` each
-    partition), read from x slots ``STEP_X_SLOTS``."""
+    partition), read from x slots ``STEP_X_SLOTS``. A stacked group's
+    work list covers all its windows (``SpmvGroup.windows``)."""
+    windows = stacked_windows(graph)
     layouts, n_x = [], []
     for g in (graph.normal, graph.abnormal):
-        v, t_pad = g.cov_unique.shape[0], g.kind.shape[0]
+        v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
         layouts += layouts_of(g)
-        n_x += [t_pad, v, v]
-    return spmv_group(layouts, STEP_X_SLOTS, n_x)
+        n_x += [(windows or 1) * n for n in (t_pad, v, v)]
+    return spmv_group(layouts, STEP_X_SLOTS, n_x, windows)
 
 
 def _require_pc_views(g: PartitionGraph) -> None:
@@ -361,16 +397,36 @@ def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
     ss_indptr, values ss_val), summed against sv, as JAX's scatter-free
     ``ss_rowsum``. packed: the same edges with value 1, summed against
     op(sv * w_out) — the pattern kernel's x_ss — which is the unique-edge
-    bitmap B_ss times that vector, without building B_ss."""
-    v = g.cov_unique.shape[0]
+    bitmap B_ss times that vector, without building B_ss. A stacked
+    group's partition gives one block-diagonal layout over its windows
+    (kind: window b's row offsets moved by b times the padded edge
+    count, its parents by b times V; a parent outside [0, V) becomes -1,
+    which ``spmv_group`` refuses)."""
+    v = g.cov_unique.shape[-1]
+    dev = g.ss_parent.device
     if kernel == "kind":
-        e = g.ss_parent.shape[0]
+        if g.ss_parent.dim() == 1:
+            e = g.ss_parent.shape[0]
+            return RowLayout(
+                indptr=g.ss_indptr, cols=g.ss_parent, vals=g.ss_val,
+                perm=torch.arange(e, device=dev), n_rows=int(v),
+            )
+        n_win, e = g.ss_parent.shape
+        win = torch.arange(n_win, device=dev)[:, None]
+        parent = g.ss_parent
         return RowLayout(
-            indptr=g.ss_indptr, cols=g.ss_parent, vals=g.ss_val,
-            perm=torch.arange(e, device=g.ss_parent.device), n_rows=int(v),
+            indptr=torch.cat([
+                (g.ss_indptr[:, :-1] + win * e).reshape(-1),
+                g.ss_indptr[-1, -1:] + (n_win - 1) * e,
+            ]).to(torch.int32),
+            cols=torch.where((parent >= 0) & (parent < v), parent + win * v, -1)
+            .reshape(-1).to(torch.int32),
+            vals=g.ss_val.reshape(-1),
+            perm=torch.arange(n_win * e, device=dev),
+            n_rows=int(n_win * v),
         )
-    ones = torch.ones(g.ss_parent.shape, dtype=torch.float32, device=g.ss_parent.device)
-    return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss)
+    ones = torch.ones(g.ss_parent.shape, dtype=torch.float32, device=dev)
+    return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss, n_x=v)
 
 
 def window_pattern_group(
@@ -404,7 +460,7 @@ def window_pattern_group(
         [g.inv_tracelen for g in parts],
         [g.inv_cov_dup for g in parts],
         w_outs,
-        [g.kind.shape[0] for g in parts],
+        [g.kind.shape[-1] for g in parts],
         band_bytes=packed_block_bytes if kernel == "packed_blocked" else None,
         blocked=kernel == "packed_blocked",
     )
@@ -416,9 +472,9 @@ def _partition_setup(
     """One partition's iteration ingredients: (pref, sv0, rv0)."""
     _check_kernel(kernel)
     dev = g.kind.device
-    t_pad = g.kind.shape[0]
-    n_total = (g.n_ops + g.n_traces).to(torch.float32)
-    n_live_cols = torch.where(g.n_cols < 0, g.n_traces, g.n_cols)
+    t_pad = g.kind.shape[-1]
+    n_total = (g.n_ops + g.n_traces).to(torch.float32)[..., None]
+    n_live_cols = torch.where(g.n_cols < 0, g.n_traces, g.n_cols)[..., None]
     trace_live = torch.arange(t_pad, device=dev) < n_live_cols
     pref = preference_vector(g, anomaly, cfg)
     init = 1.0 / n_total
@@ -429,10 +485,11 @@ def _partition_setup(
 
 def _partition_finish(g: PartitionGraph, sv):
     """Final normalize + the reference's rescale (pagerank.py:93-112):
-    returns (weight[V], score[V])."""
-    score = sv / sv.max()
-    total = torch.where(g.op_present, score, 0.0).sum()
-    weight = score * total / g.n_ops.to(torch.float32)
+    returns (weight[V], score[V]), [B, V] for a stacked group (the sum
+    over the padded axis as the preference vector's)."""
+    score = sv / sv.amax(-1, keepdim=True)
+    total = torch.where(g.op_present, score, 0.0).sum(-1, keepdim=True)
+    weight = score * total / g.n_ops.to(torch.float32)[..., None]
     return weight, score
 
 
@@ -444,9 +501,17 @@ def window_weights_full(
 
     Returns (n_weight[V], a_weight[V], rv_n[T_n], rv_a[T_a],
     residuals[2, I], n_iters int32, score_n[V], score_a[V]); residual
-    row 0 is the normal partition, row 1 the abnormal one.
+    row 0 is the normal partition, row 1 the abnormal one. A stacked
+    group of B windows (``stack_window_graphs``) gives each with a
+    leading [B] axis: one program, one launch of each kernel a step for
+    all of them, each window frozen on its own step under ``tol``.
     """
     cfg = pagerank_cfg
+    windows = stacked_windows(graph)
+    lead = () if windows is None else (windows,)
+    int8 = kernel == "kind" and cfg.kind_precision == "int8"
+    if windows is not None and int8:
+        raise NotImplementedError(_not_batched("kind with kind_precision='int8'"))
     pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
     pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
     six_spmvs = kernel in ("pallas", "pcsr")
@@ -459,7 +524,6 @@ def window_weights_full(
         graph = device_subset(graph, kernel, cfg.packed_block_bytes)
     group = graph.spmv_group
     pgroup = graph.pattern_group
-    int8 = kernel == "kind" and cfg.kind_precision == "int8"
     if six_spmvs:
         six = pcsr_spmv_group if kernel == "pcsr" else coo_spmv_group
 
@@ -497,11 +561,11 @@ def window_weights_full(
     # int8: the first step's operand scales here, once; every later
     # step's come from the step that writes its vectors.
     scales = quantize_scales(pgroup, (rv_n, rv_a), (sv_n, sv_a)) if int8 else None
-    residuals = torch.zeros((2, n_steps), dtype=torch.float32, device=dev)
+    residuals = torch.zeros(lead + (2, n_steps), dtype=torch.float32, device=dev)
     n_iters = running = None
     if cfg.tol is not None:
-        running = torch.ones((), dtype=torch.bool, device=dev)
-        n_iters = torch.zeros((), dtype=torch.int32, device=dev)
+        running = torch.ones(lead, dtype=torch.bool, device=dev)
+        n_iters = torch.zeros(lead, dtype=torch.int32, device=dev)
     # K5's state, set up once: the checks, two carry buffers, and on the
     # card the kernel's arguments; each step then passes its products.
     steps = StepWindow(plan, carry, residuals, n_iters, running)
@@ -509,7 +573,7 @@ def window_weights_full(
         ys = products(*carry, scales)
         carry, scales = steps.step(ys, i, want_scales=int8 and i + 1 < n_steps)
     if n_iters is None:
-        n_iters = torch.full((), n_steps, dtype=torch.int32, device=dev)
+        n_iters = torch.full(lead, n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
     n_weight, score_n = _partition_finish(graph.normal, sv_n)
     a_weight, score_a = _partition_finish(graph.abnormal, sv_a)
@@ -531,8 +595,8 @@ def spectrum_counters(
     n_present = n_graph.op_present
     a_cov = a_graph.cov_unique.to(torch.float32)
     n_cov = n_graph.cov_unique.to(torch.float32)
-    a_len = a_graph.n_traces.to(torch.float32)
-    n_len = n_graph.n_traces.to(torch.float32)
+    a_len = a_graph.n_traces.to(torch.float32)[..., None]
+    n_len = n_graph.n_traces.to(torch.float32)[..., None]
 
     ef = torch.where(a_present, a_weight * a_cov, eps)
     nf = torch.where(a_present, a_weight * (a_len - a_cov), eps)
@@ -565,10 +629,11 @@ def top_k_tiebroken(scores, k: int):
     what JAX's two-key ``lax.sort`` gives. ``torch.topk`` is not
     tie-stable; a stable ascending sort of the negated scores keeps
     equal keys in index order. ``+ 0.0`` turns -0.0 into +0.0 so the two
-    zeros cannot split. Returns (top_scores[k], top_idx[k])."""
+    zeros cannot split. Returns (top_scores[k], top_idx[k]), along the
+    last axis ([B, k] for a stacked group's scores)."""
     neg = -(scores + 0.0)
-    neg_sorted, idx_sorted = torch.sort(neg, stable=True)
-    return -neg_sorted[:k], idx_sorted[:k].to(torch.int32)
+    neg_sorted, idx_sorted = torch.sort(neg, dim=-1, stable=True)
+    return -neg_sorted[..., :k], idx_sorted[..., :k].to(torch.int32)
 
 
 def _finish_topk(graph: WindowGraph, n_weight, a_weight, spectrum_cfg):
@@ -577,9 +642,9 @@ def _finish_topk(graph: WindowGraph, n_weight, a_weight, spectrum_cfg):
     scores, valid = window_spectrum(
         a_weight, graph.abnormal, n_weight, graph.normal, spectrum_cfg
     )
-    k = min(spectrum_cfg.n_rows, scores.shape[0])
+    k = min(spectrum_cfg.n_rows, scores.shape[-1])
     top_scores, top_idx = top_k_tiebroken(scores, k)
-    n_valid = torch.clamp(valid.sum(), max=k).to(torch.int32)
+    n_valid = torch.clamp(valid.sum(-1), max=k).to(torch.int32)
     return top_idx, top_scores, n_valid
 
 
@@ -593,7 +658,10 @@ def rank_window_traced_core(
     (top_idx int32[k], top_scores float32[k], n_valid int32,
     residuals float32[2, I], n_iters int32), all still on the device.
     Indices point into the shared window op vocab; entries past
-    ``n_valid`` are padding (score -inf)."""
+    ``n_valid`` are padding (score -inf). On a stacked group of B
+    windows (K18, the counterpart of JAX's vmapped program) every output
+    gains a leading [B] axis: top_idx [B, k], residuals [B, 2, I],
+    n_iters [B]."""
     n_weight, a_weight, _, _, residuals, n_iters, _, _ = window_weights_full(
         graph, pagerank_cfg, kernel
     )
@@ -607,29 +675,24 @@ class PackedOutputs(NamedTuple):
     """rank_window_traced_core's five outputs packed into one float32
     host buffer (int32 values ride bit-for-bit through ``view``), with
     the event that marks its copy done (None on the CPU, where the pack
-    is the host buffer itself)."""
+    is the host buffer itself) and the outputs' shapes (a stacked
+    group's carry a leading [B] axis)."""
 
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]
-    k: int
-    residual_shape: Tuple[int, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
 
 
 def pack_rank_outputs(outs) -> PackedOutputs:
     """Pack the five outputs into one buffer on their device and start
     its one device-to-host copy, all on the current stream: on CUDA a
     ``non_blocking`` copy into pinned host memory and an event recorded
-    behind it, so the caller returns without waiting for the device."""
-    top_idx, top_scores, n_valid, residuals, n_iters = outs
-    packed = torch.cat(
-        [
-            top_idx.view(torch.float32),
-            top_scores,
-            n_valid.reshape(1).view(torch.float32),
-            residuals.reshape(-1),
-            n_iters.reshape(1).view(torch.float32),
-        ]
-    )
+    behind it, so the caller returns without waiting for the device.
+    One copy for a stacked group's outputs too."""
+    packed = torch.cat([
+        t.reshape(-1) if t.dtype == torch.float32 else t.reshape(-1).view(torch.float32)
+        for t in outs
+    ])
     ready = None
     if packed.device.type == "cuda":
         host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
@@ -637,23 +700,27 @@ def pack_rank_outputs(outs) -> PackedOutputs:
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(packed.device))
         packed = host
-    return PackedOutputs(packed, ready, int(top_idx.shape[0]), tuple(residuals.shape))
+    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs))
+
+
+# The dtypes of rank_window_traced_core's outputs, in order.
+_OUT_DTYPES = (np.int32, np.float32, np.int32, np.float32, np.int32)
 
 
 def unpack_rank_outputs(p: PackedOutputs):
     """Wait for the copy of ``pack_rank_outputs`` (its event only, not
     the device) and unpack it on the host as numpy (top_idx, top_scores,
-    n_valid, residuals, n_iters)."""
+    n_valid, residuals, n_iters): n_valid and n_iters as ints for one
+    window, [B] arrays for a stacked group."""
     if p.ready is not None:
         p.ready.synchronize()
-    host, k = p.host.numpy(), p.k
-    return (
-        host[:k].view(np.int32).copy(),
-        host[k: 2 * k].copy(),
-        int(host[2 * k: 2 * k + 1].view(np.int32)[0]),
-        host[2 * k + 1: -1].reshape(p.residual_shape).copy(),
-        int(host[-1:].view(np.int32)[0]),
-    )
+    host, out, at = p.host.numpy(), [], 0
+    for shape, dtype in zip(p.shapes, _OUT_DTYPES):
+        n = int(np.prod(shape))
+        arr = host[at: at + n].view(dtype).reshape(shape).copy()
+        out.append(int(arr) if shape == () else arr)
+        at += n
+    return tuple(out)
 
 
 def fetch_rank_outputs(outs):
@@ -729,9 +796,14 @@ def device_subset(
     trace side); for the kind and packed kernels, the pattern-pair group of
     both coverage patterns (``window_pattern_group``; packed_blocked's
     plain version in bands of ``packed_block_bytes``) and K1's work list
-    of both call-graph terms."""
+    of both call-graph terms. A stacked group of windows (kind, packed,
+    packed_bf16, pallas) gets one work list, one pattern group and one
+    step scratch for all of them; the other kernels raise."""
     _check_kernel(kernel)
-    scratch = step_scratch(graph.normal.kind.device)
+    windows = stacked_windows(graph)
+    if windows is not None and kernel not in BATCHED_KERNELS:
+        raise NotImplementedError(_not_batched(f"kernel={kernel!r}"))
+    scratch = step_scratch(graph.normal.kind.device, windows or 1)
     if kernel == "pallas":
         return graph._replace(spmv_group=window_spmv_group(graph), step_scratch=scratch)
     if kernel == "pcsr":
@@ -739,8 +811,8 @@ def device_subset(
     pgroup = window_pattern_group(graph, kernel, packed_block_bytes)  # checks the views first
     parts = (graph.normal, graph.abnormal)
     layouts = [ss_layout(g, kernel) for g in parts]
-    v = [int(g.cov_unique.shape[0]) for g in parts]
+    v = [(windows or 1) * int(g.cov_unique.shape[-1]) for g in parts]
     return graph._replace(
-        spmv_group=spmv_group(layouts, (0, 1), v), pattern_group=pgroup,
+        spmv_group=spmv_group(layouts, (0, 1), v, windows), pattern_group=pgroup,
         step_scratch=scratch,
     )

@@ -86,7 +86,8 @@ def build(step, name: str, patches, out_dir: Path) -> dict:
         raise SystemExit(f"step_design_probe: {name} does not build:\n{proc.stderr[-3000:]}")
     per_s = {}
     for lines in smoke.ptxas_all(proc.stdout + proc.stderr, "step_grid"):
-        s_of = re.search(r"step_gridILi(\d+)E", lines[0])
+        # The single-window instantiation (kStacked false): what it times.
+        s_of = re.search(r"step_gridILi(\d+)ELb0E", lines[0])
         text = " ".join(lines)
         regs = re.search(r"Used (\d+) registers", text)
         spill = re.search(r"(\d+) bytes spill stores", text)

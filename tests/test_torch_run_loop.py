@@ -279,11 +279,15 @@ def test_journal_matches_jax(variant_runs):
 
 
 def test_unported_batching_raises(tables):
-    # Stacked dispatch has no field until it is ported.
-    with pytest.raises(TypeError, match="dispatch_batch_windows"):
-        RuntimeConfig(dispatch_batch_windows=2)
+    # Stacked dispatch is ported (tests/test_torch_batched.py): its knob
+    # defaults to one window a program, as JAX's. What still raises is a
+    # group whose kernel does not run stacked (item 7's follow-ups).
+    assert RuntimeConfig().dispatch_batch_windows == 1
+    assert RuntimeConfig(dispatch_batch_windows=2).dispatch_batch_windows == 2
     with pytest.raises(NotImplementedError, match="item 7"):
-        port_rca(tables).run(tables[0][1], batch_windows=True)
+        port_rca(tables, kernel="pcsr", dispatch_batch_windows=2).run(tables[0][1])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        port_rca(tables, kernel="pcsr").run(tables[0][1], batch_windows=True)
     with pytest.raises(ValueError, match="fetch_mode"):
         RuntimeConfig(fetch_mode="lazy")
     defaults = RuntimeConfig()
