@@ -87,9 +87,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               and fetch workers, stream joins, depth 2), async bulk,
               ``chunked`` (bench.py's own: bulk joins,
               ``dispatch_batch_windows=4``, so groups of 4 and 2, each
-              one stacked program) and ``batch``
+              one stacked program), ``batch``
               (``run(batch_windows=True)``: one stacked program for all
-              windows after the loop).
+              windows after the loop) and ``chunked_int8`` (``chunked``
+              with ``kind_precision="int8"``: one scale launch a group,
+              held to a per-window int8 run, tie-aware top-5 at 5e-2,
+              bitwise reported).
               Each mode: one warm pass with a sink (every window ranked
               with ``kind`` and the fault at top-1, the cursor cleared,
               one journal ``window`` event per window, the stage worker's
@@ -120,16 +123,21 @@ JAX or of the JAX package. Phases, one JSON line each:
               ms per poll;
    batched  — K18, the stacked rank program: the replay's config-5
               ``kind`` windows (each built by ``prepare_rank``) stacked in
-              groups of B = 1, 2, 4 and 6 (``stack_window_graphs``), and
-              the config-5 window stacked twice for ``pallas`` and
-              ``packed_bf16``. Each group: 25 launches of K1, of the pair
-              (not pallas) and of K5 for the whole group; each window's
-              n_valid and n_iters those of its own program, its ranking
-              tie-aware at rtol 1e-5 (bitwise reported); the group through
-              the plain step on the card bitwise; its window-axis kernels
-              bitwise their plain versions (computed on the CPU; for
-              packed_bf16 the windows' own launches) and over 50 launches.
-              The kind groups timed in turns with the windows' own
+              groups of B = 1, 2, 4 and 6 (``stack_window_graphs``), the
+              same windows with ``kind_precision="int8"`` at B = 2 and 6,
+              and the config-5 window stacked twice for ``pallas``,
+              ``packed_bf16``, ``packed_blocked`` (the 64 MiB run's
+              window) and ``pcsr`` (the 16 MiB run's). Each group: 25
+              launches of each kernel of its route for the whole group
+              (K1, the pair or K8 and its fold, the pcsr step, K5; int8
+              one ``quantize_amax`` launch); each window's n_valid and
+              n_iters those of its own program, its ranking tie-aware at
+              rtol 1e-5 (int8: the top-5 at 5e-2; bitwise reported); the
+              group through the plain step on the card bitwise; its
+              window-axis kernels bitwise their plain versions (computed
+              on the CPU; for packed_bf16 and packed_blocked the windows'
+              own launches) and over 50 launches.
+              The kind groups and the int8 group of 6 timed in turns with the windows' own
               programs (windows, stacked, stacked, windows; each window's
               program timed alone and the B summed): host issue and
               device time by CUDA events behind a ~100 ms spin, the
@@ -211,7 +219,14 @@ JAX or of the JAX package. Phases, one JSON line each:
               work list of the 10M-span window too); the window through
               the plain step and the two-launch step kernel, bitwise, K5
               measured at its shapes (the kernels line's ``power_step``
-              at 10M), and the rank program's issue split. ``--giant-spans``
+              at 10M), and the rank program's issue split; then the
+              window stacked twice as one program (``giant_stacked``:
+              the host's stacking time and bytes, the staging, 25
+              launches of each kernel for the group, each window against
+              its own program and through the plain step, the window-axis
+              kernels bitwise the window's own launches over 50 launches,
+              timed in turns with the two windows' own programs, peak
+              device memory). ``--giant-spans``
               sets the larger window (the smaller holds a fifth, the
               budget scales with it); 0 skips the phase.
 
@@ -280,9 +295,15 @@ REPLAY_MODES = {
     # run(batch_windows=True): every window detected, then all of them
     # built and ranked by one stacked program.
     "batch": {},
+    # bench.py's chunked setting with kind_precision="int8": groups of
+    # four int8 windows, each one stacked program (held to a per-window
+    # int8 run).
+    "chunked_int8": dict(fetch_mode="bulk", dispatch_batch_windows=4),
 }
+# The replay modes' kind_precision (f32 where not named).
+REPLAY_PRECISION = {"chunked_int8": "int8"}
 # The replay modes that rank stacked groups (K18).
-STACKED_MODES = ("chunked", "batch")
+STACKED_MODES = ("chunked", "batch", "chunked_int8")
 # The stacked rank program's phase: groups of the replay's config-5 kind
 # windows.
 BATCH_SIZES = (1, 2, 4, 6)
@@ -361,13 +382,13 @@ def expected_counts(kernel, n, int8=False, programs=None) -> dict:
     if kernel == "pallas":
         counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
-        counts.update(pcsr_launches=STEPS * n, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
+        counts.update(pcsr_launches=STEPS * g, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
     else:
         counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
                       pattern_launches=STEPS * g, pattern_products=STEPS * 4 * n,
-                      blocked_launches=STEPS * n if kernel == "packed_blocked" else 0,
-                      fold_launches=STEPS * n if kernel == "packed_blocked" else 0,
-                      quantize_launches=n if int8 else 0)
+                      blocked_launches=STEPS * g if kernel == "packed_blocked" else 0,
+                      fold_launches=STEPS * g if kernel == "packed_blocked" else 0,
+                      quantize_launches=g if int8 else 0)
     return counts
 
 
@@ -975,13 +996,19 @@ def _mean(values):
     return sum(values) / len(values)
 
 
-def replay_config(tl, **runtime):
+def replay_config(tl, precision="f32", **runtime):
     """The replay's config: each generated window exactly (detect = its
-    span, skip = 0)."""
-    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig, WindowConfig
+    span, skip = 0), kind_precision ``precision``."""
+    from microrank_tpu_torch.config import (
+        MicroRankConfig,
+        PageRankConfig,
+        RuntimeConfig,
+        WindowConfig,
+    )
 
     return MicroRankConfig(
         window=WindowConfig(detect_minutes=tl.window_minutes, skip_minutes=0.0),
+        pagerank=PageRankConfig(kind_precision=precision),
         runtime=RuntimeConfig(**runtime),
     )
 
@@ -1023,16 +1050,18 @@ def ranked_timings(results):
     return next((r.timings for r in results if r.ranking), {})
 
 
-def ranking_agreement(a, b, rtol):
+def ranking_agreement(a, b, rtol, int8=False):
     """Two rankings [(name, score), ...] tie-aware at ``rtol``, the same
-    length and top-1."""
+    length and top-1; ``int8``: the top-5 at RUN_RTOL_INT8, the last
+    place exempt (JAX's own int8 gate, as phase_run's)."""
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
     if len(a) != len(b) or (a and a[0][0] != b[0][0]):
         return False, "lengths or top-1 differ"
     return tie_aware_topk_agreement(
         [n for n, _ in a], [x for _, x in a], [n for n, _ in b], [x for _, x in b],
-        k=len(a), rtol=rtol,
+        k=min(5, len(a)) if int8 else len(a), rtol=RUN_RTOL_INT8 if int8 else rtol,
+        exempt_last=int8,
     )
 
 
@@ -1064,7 +1093,8 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     from microrank_tpu_torch.obs.metrics import ensure_catalog
     from microrank_tpu_torch.pipeline import TableRCA
 
-    cfg = replay_config(tl, **REPLAY_MODES[mode])
+    precision = REPLAY_PRECISION.get(mode, "f32")
+    cfg = replay_config(tl, precision, **REPLAY_MODES[mode])
     tag = f"replay/{mode}"
     batch = mode == "batch"
     with_metrics = mode == "default"
@@ -1116,7 +1146,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
 
     n = len(ranked)
     groups = replay_groups(mode, n)
-    expect = expected_counts("kind", n, programs=len(groups))
+    expect = expected_counts("kind", n, int8=precision == "int8", programs=len(groups))
     if mode in STACKED_MODES:
         check([r.timings.get("chunk_windows", n) for r in ranked]
               == [g for g in groups for _ in range(g)],
@@ -1166,6 +1196,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     return rca, warm, counts, {
         "mode": mode,
         "runtime": REPLAY_MODES[mode],
+        "kind_precision": precision,
         "windows": len(warm),
         "ranked": n,
         "top1_is_fault": True,
@@ -1197,6 +1228,7 @@ def phase_replay(torch, spmv, pattern, args, workdir):
 
     from microrank_tpu_torch.config import IngestConfig
     from microrank_tpu_torch.ingest import admit_table
+    from microrank_tpu_torch.pipeline import TableRCA
 
     t0 = time.perf_counter()
     tl, normal_table, table, timeline_csv, data = phase_replay_data(args, workdir)
@@ -1228,27 +1260,39 @@ def phase_replay(torch, spmv, pattern, args, workdir):
         check(got == ref, f"replay/{mode}: rankings are not bitwise the sync run's")
         check(records[mode] == records["sync"],
               f"replay/{mode}: windows.jsonl records differ from the sync run's")
+    # The per-window int8 run (sync) that the int8 chunked mode is held to.
+    int8_rca = TableRCA(replay_config(tl, "int8", **REPLAY_MODES["sync"]), device="cuda")
+    int8_rca.fit_baseline(normal_table)
+    int8_ref = int8_rca.run(table)
     # The stacked modes: the same windows, iterations and top-1, the
-    # rankings tie-aware at rtol 1e-5; whether they are bitwise is
-    # reported (a stacked window's preference sums run over the group's
-    # padded trace axis).
+    # rankings tie-aware at rtol 1e-5 (int8: the top-5 at its gate)
+    # against the sync run of their precision; whether they are bitwise
+    # is reported (a stacked window's preference sums run over the
+    # group's padded trace axis).
     for mode in STACKED_MODES:
         got = warm[mode]
+        int8 = REPLAY_PRECISION.get(mode) == "int8"
+        base = int8_ref if int8 else warm["sync"]
         check([(r.start, r.rank_iterations) for r in got]
-              == [(r.start, r.rank_iterations) for r in warm["sync"]],
-              f"replay/{mode}: windows or iterations differ from the sync run's")
-        for a, b in zip(got, warm["sync"]):
-            ok, why = ranking_agreement(a.ranking, b.ranking, RUN_RTOL)
+              == [(r.start, r.rank_iterations) for r in base],
+              f"replay/{mode}: windows or iterations differ from the per-window run's")
+        for a, b in zip(got, base):
+            ok, why = ranking_agreement(a.ranking, b.ranking, RUN_RTOL, int8)
             check(ok, f"replay/{mode}: window {a.start}: {why}")
         strip = [{k: v for k, v in rec.items() if k != "ranking"} for rec in records[mode]]
         check(strip == [{k: v for k, v in rec.items() if k != "ranking"}
                         for rec in records["sync"]],
               f"replay/{mode}: windows.jsonl records differ from the sync run's")
-        infos[mode]["rankings_bitwise_vs_sync"] = (
-            [(r.start, r.ranking, r.rank_iterations) for r in got] == ref
-            and records[mode] == records["sync"]
+        infos[mode]["rankings_bitwise_vs_per_window"] = (
+            [(r.start, r.ranking, r.rank_iterations) for r in got]
+            == [(r.start, r.ranking, r.rank_iterations) for r in base]
         )
-        infos[mode]["rankings_tie_aware_vs_sync"] = True
+        infos[mode]["rankings_tie_aware_vs_per_window"] = (
+            "top-5 at 5e-2 (int8)" if int8 else "all at 1e-5")
+        infos[mode]["per_window_run"] = "sync int8" if int8 else "sync"
+    int8_one = [r for r in int8_ref if r.ranking]
+    check(all(r.kernel == "kind" and r.ranking[0][0] == tl.fault_pod_op for r in int8_one),
+          "replay: the per-window int8 run does not rank every window with kind, fault first")
 
     # Resume (default mode): a cursor saved after window 2 reruns the rest.
     k = min(2, len(warm["sync"]) - 1)
@@ -1271,14 +1315,18 @@ def phase_replay(torch, spmv, pattern, args, workdir):
     }
 
 
-def stacked_kernel_checks(torch, spmv, pattern, tag, card, host, singles=None):
+def stacked_kernel_checks(torch, spmv, pattern, tag, card, host, singles=None,
+                          precision="f32"):
     """One step's window-axis kernels of a stacked group, on random
-    inputs: K1 over the stacked work list and (kind, packed) the pattern
-    pair's window grid, bitwise their plain versions (computed on the CPU
+    inputs: K1 over the stacked work list (pallas), the pcsr step over
+    its work list and its slabs of B windows' rows (pcsr), or the pattern
+    pair's window grid (kind, packed; K8 and its fold for packed_blocked;
+    int8 after ``quantize_amax``'s [B, 4] scales) then K1 over the
+    call-graph terms, bitwise their plain versions (computed on the CPU
     from ``host``, the same group built there; or, with ``singles``, the
-    group's windows launched one by one, whose kernels phases 6 and 7
-    hold bitwise to the plain version), then bitwise over 50 launches
-    with every arrival counter back at 0. Returns the fields of the
+    group's windows launched one by one, whose kernels other phases hold
+    to the plain version), then bitwise over 50 launches with every
+    arrival counter and amax slot back at 0. Returns the fields of the
     report."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1289,38 +1337,28 @@ def stacked_kernel_checks(torch, spmv, pattern, tag, card, host, singles=None):
     rvs = [torch.rand((b, p.kind.shape[-1]), generator=gen, device=dev)
            for p in (card.normal, card.abnormal)]
     pair = card.pattern_group
-    prec = "bf16" if tag.endswith("packed_bf16") else "f32"
+    pcsr = isinstance(card.spmv_group, spmv.PcsrGroup)
+    prec = "bf16" if tag.endswith("packed_bf16") else precision
 
-    def step():
-        if pair is None:
-            return list(spmv.coo_spmv_group(card.spmv_group, (rvs[0], svs[0], rvs[1], svs[1])))
-        outs = pattern.pattern_pair_group(pair, rvs, svs, prec)
-        xs = [sv if x is None else x for sv, (_, _, x) in zip(svs, outs)]
-        return [t for o in outs for t in o if t is not None] + list(
-            spmv.coo_spmv_group(card.spmv_group, xs))
+    def launch(g, r, v):
+        """The step's kernels of group (or window) ``g`` on (rvs, svs)."""
+        if g.pattern_group is None:
+            six = spmv.pcsr_spmv_group if pcsr else spmv.coo_spmv_group
+            return list(six(g.spmv_group, (r[0], v[0], r[1], v[1])))
+        scales = pattern.quantize_scales(g.pattern_group, r, v) if prec == "int8" else None
+        outs = pattern.pattern_pair_group(g.pattern_group, r, v, prec, scales)
+        xs = [sv if x is None else x for sv, (_, _, x) in zip(v, outs)]
+        return ([] if scales is None else [scales]) + [
+            t for o in outs for t in o if t is not None] + list(
+            spmv.coo_spmv_group(g.spmv_group, xs))
 
-    first = [t.clone() for t in step()]
+    first = [t.clone() for t in launch(card, rvs, svs)]
     torch.cuda.synchronize()
     if singles is None:
-        c_rvs, c_svs = [x.cpu() for x in rvs], [x.cpu() for x in svs]
-        if pair is None:
-            want = list(spmv.coo_spmv_group(host.spmv_group, (c_rvs[0], c_svs[0], c_rvs[1],
-                                                              c_svs[1])))
-        else:
-            outs = pattern.pattern_pair_group(host.pattern_group, c_rvs, c_svs, prec)
-            xs = [sv if x is None else x for sv, (_, _, x) in zip(c_svs, outs)]
-            want = [t for o in outs for t in o if t is not None] + list(
-                spmv.coo_spmv_group(host.spmv_group, xs))
+        want = launch(host, [x.cpu() for x in rvs], [x.cpu() for x in svs])
     else:
-        want = None
-        rows = []
-        for w, one in enumerate(singles):
-            r = [x[w].contiguous() for x in rvs]
-            v = [x[w].contiguous() for x in svs]
-            outs = pattern.pattern_pair_group(one.pattern_group, r, v, prec)
-            xs = [sv if x is None else x for sv, (_, _, x) in zip(v, outs)]
-            rows.append([t for o in outs for t in o if t is not None] + list(
-                spmv.coo_spmv_group(one.spmv_group, xs)))
+        rows = [launch(one, [x[w].contiguous() for x in rvs], [x[w].contiguous() for x in svs])
+                for w, one in enumerate(singles)]
         want = [torch.stack([row[i] for row in rows]) for i in range(len(rows[0]))]
     torch.cuda.synchronize()
     diffs = [float((a.cpu() - w.cpu()).abs().max()) if a.numel() else 0.0
@@ -1329,13 +1367,16 @@ def stacked_kernel_checks(torch, spmv, pattern, tag, card, host, singles=None):
                   for a, w in zip(first, want))
     check(bitwise, f"{tag}: a window-axis kernel differs from its plain version")
     for _ in range(REPEATS):
-        again = step()
+        again = launch(card, rvs, svs)
         check(all(torch.equal(bits(torch, a), bits(torch, f)) for a, f in zip(again, first)),
               f"{tag}: not bitwise repeatable over {REPEATS} launches")
     torch.cuda.synchronize()
-    check(not bool(card.spmv_group.counters.any()), f"{tag}: K1's counters left non-zero")
+    work = card.spmv_group.rows if pcsr else card.spmv_group
+    check(not bool(work.counters.any()), f"{tag}: K1's counters left non-zero")
     check(pair is None or not any(bool(p.counters.any()) for p in pair.parts),
           f"{tag}: the pair's counters left non-zero")
+    check(pair is None or not bool(pair.amax_scratch.any()),
+          f"{tag}: quantize_amax left its scratch non-zero")
     return {
         "kernels_bitwise_plain": True,
         "plain_from": "cpu" if singles is None else "the windows one by one",
@@ -1344,13 +1385,44 @@ def stacked_kernel_checks(torch, spmv, pattern, tag, card, host, singles=None):
     }
 
 
+def program_bound(spmv, card, int8=False):
+    """(bytes, bytes ms) of a rank program's 25 steps on a staged graph
+    (one window or a stacked group): per step the bytes its kernels must
+    move, each input read once and each output written once, at 3.35
+    TB/s: K1's or the pcsr step's live entries (column and value), x read
+    and y written; the ELL slabs' live entries, x and y; the pattern
+    pairs' bitmaps [V, ceil(K/8)] with their vectors (``pattern_bound``'s
+    bytes, no set-cell count needed); K5's products, pref and carry
+    (``step_bound``); int8's four scales. The set-up, the epilogue and
+    the first step's scale launch are left out (once a program)."""
+    b = card.normal.kind.shape[0] if card.normal.kind.dim() == 2 else 1
+    group = card.spmv_group
+    work = group.rows if isinstance(group, spmv.PcsrGroup) else group
+    live = int((work.items[:, 3] - work.items[:, 2]).sum())
+    nbytes = 8 * live + 4 * sum(work.n_x) + 4 * sum(work.n_rows)
+    if isinstance(group, spmv.PcsrGroup):
+        for e in group.ell:
+            n = int((e.vals != 0).sum())
+            nbytes += 8 * n + 4 * b * card.normal.cov_unique.shape[-1] + 4 * e.ops.shape[0]
+    if card.pattern_group is not None:
+        nbytes += b * pattern_bound(card.pattern_group, [0] * len(card.pattern_group.parts))[0]
+        nbytes += 16 * b if int8 else 0
+    sizes = [(int(p.cov_unique.shape[-1]), int(p.kind.shape[-1]))
+             for p in (card.normal, card.abnormal)]
+    nbytes += b * step_bound(sizes)[0]
+    total = STEPS * nbytes
+    return total, total / HBM_BYTES_PER_S * 1e3
+
+
 def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed=True):
     """The stacked rank program (K18) on the card, as the lane issues a
     group: its launches counted (25 of each kernel of the route for the
-    whole group), its outputs held to each window's own program (the
-    same n_valid and n_iters, the ranking tie-aware at rtol 1e-5,
-    bitwise reported), its steps through the plain step on the card
-    bitwise (``plain_step_check``); with ``timed``, host issue and device
+    whole group; int8 one scale launch), its outputs held to each
+    window's own program (the same n_valid and n_iters, the ranking
+    tie-aware at rtol 1e-5, int8 the top-5 at 5e-2; bitwise reported),
+    its steps (K5's group kernel, int8 with its [B, 4] scales) through
+    the plain step on the card bitwise (``plain_step_check``); with
+    ``timed``, host issue and device
     time (CUDA events behind a ~100 ms spin, the device drained after
     each call) of the stacked program and of the windows' own programs,
     each window's timed alone and the B summed, in turns (windows,
@@ -1369,7 +1441,8 @@ def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed
     packed = program(card)()
     torch.cuda.synchronize()
     counts = read_counts(spmv, pattern)
-    expect = expected_counts(kernel, b, programs=1)
+    int8 = kernel == "kind" and cfg.pagerank.kind_precision == "int8"
+    expect = expected_counts(kernel, b, int8, programs=1)
     check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
     got = tc.unpack_rank_outputs(packed)
     bitwise = True
@@ -1380,18 +1453,22 @@ def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed
               f"{tag}: window {w}: n_valid / n_iters differ from its own program's")
         ok, why = ranking_agreement(list(zip(got[0][w][:n].tolist(), got[1][w][:n].tolist())),
                                     list(zip(want[0][:n].tolist(), want[1][:n].tolist())),
-                                    RUN_RTOL)
+                                    RUN_RTOL, int8)
         check(ok, f"{tag}: window {w}: {why}")
         bitwise = bitwise and all(
             x.tobytes() == y.tobytes()
             for x, y in ((got[0][w][:n], want[0][:n]), (got[1][w][:n], want[1][:n]),
                          (got[3][w], want[3]))
         )
+    bound_bytes, bound_ms = program_bound(spmv, card, int8)
     out = {
         "windows": b,
         "launches": counts,
         "bitwise_vs_window_programs": bitwise,
         "plain_step": plain_step_check(torch, card, cfg, kernel),
+        "bound_bytes": bound_bytes,
+        "bound_ms": round(bound_ms, 6),
+        "bound_by": "bytes",
     }
     if not timed:
         return out, counts
@@ -1421,19 +1498,25 @@ def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed
 def phase_batched(torch, spmv, pattern, replay, windows, graphs):
     """K18, the stacked rank program, on the card: groups of B = 1, 2, 4
     and 6 of the replay's config-5 kind windows (each window's graph as
-    ``prepare_rank`` builds it, stacked by ``parallel.stack_window_graphs``)
-    and groups of the config-5 window stacked twice for ``pallas`` (collapse
-    off) and ``packed_bf16`` (auto, collapse off). Each group: its
+    ``prepare_rank`` builds it, stacked by ``parallel.stack_window_graphs``),
+    the same windows with ``kind_precision="int8"`` at B = 2 and 6, and
+    groups of the config-5 window stacked twice for ``pallas`` (collapse
+    off), ``packed_bf16`` (auto, collapse off), ``packed_blocked`` (auto
+    at 64 MiB) and ``pcsr`` (auto at 16 MiB). Each group: its
     window-axis kernels bitwise their plain versions over 50 launches
     (``stacked_kernel_checks``) and its program held to the windows' own
-    (``stacked_program``); the kind groups timed against the per-window
-    programs in turns."""
+    (``stacked_program``); the kind groups and the int8 group of 6 timed
+    against the per-window programs in turns."""
     import numpy as np
 
     from microrank_tpu_torch.parallel import stack_window_graphs
     from microrank_tpu_torch.pipeline import TableRCA
     from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
-    from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        divide_block_budget,
+        host_subset,
+    )
 
     from microrank_tpu_torch.ingest import admit_table
 
@@ -1474,21 +1557,51 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         info["trace_pads"] = [int(card.normal.kind.shape[-1]), int(card.abnormal.kind.shape[-1])]
         out["kind"][str(b)] = info
         del card
-    for kernel, key in (("pallas", "pallas/off"), ("packed_bf16", "auto/off")):
+    # kind_precision="int8": one quantize_amax launch a group, the pair
+    # and K5 with [B, 4] scales, each window's own.
+    cfg8 = replay_config(tl, "int8")
+    out["kind_int8"] = {}
+    for b in (2, 6):
+        if b > len(host):
+            continue
+        stack = stack_window_graphs(host[:b])
+        card = staged(stack, "kind")
+        tag = f"batched/kind_int8/{b}"
+        info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind",
+                                       cfg8, timed=b == 6)
+        launches[tag] = counts
+        info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
+                                          staged(stack, "kind", "cpu"), precision="int8"))
+        out["kind_int8"][str(b)] = info
+        del card
+    # The config-5 window stacked twice on the routes past the dense
+    # budget too. The plain versions: on the CPU (pallas, pcsr) or the
+    # window's own launches (packed_bf16, packed_blocked: the pattern
+    # phase holds those to the CPU).
+    for kernel, key, plain_on_cpu in (("pallas", "pallas/off", True),
+                                      ("packed_bf16", "auto/off", False),
+                                      ("packed_blocked", "auto/packed_blocked", False),
+                                      ("pcsr", "auto/pcsr", True)):
         one = host_subset(graphs[key], kernel)
         single = staged(one, kernel)
-        card = staged(stack_window_graphs([one, one]), kernel)
+        t1 = time.perf_counter()
+        stack = stack_window_graphs([one, one])
+        stack_ms = (time.perf_counter() - t1) * 1e3
+        gcfg = cfg.replace(pagerank=divide_block_budget(cfg.pagerank, kernel, 2))
+        card = device_subset(graph_from_numpy(stack, dev), kernel,
+                             gcfg.pagerank.packed_block_bytes)
         tag = f"batched/{kernel}/2"
         info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single],
-                                       kernel, cfg, timed=False)
+                                       kernel, gcfg, timed=False)
         launches[tag] = counts
-        if kernel == "pallas":
-            info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
-                                              staged(stack_window_graphs([one, one]), kernel,
-                                                     "cpu")))
+        if plain_on_cpu:
+            host_card = device_subset(graph_from_numpy(stack, "cpu"), kernel,
+                                      gcfg.pagerank.packed_block_bytes)
+            info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card, host_card))
         else:
             info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card, None,
                                               [single, single]))
+        info["stack_host_ms"] = round(stack_ms, 3)
         out[kernel] = info
         del card, single
         torch.cuda.empty_cache()
@@ -2123,7 +2236,7 @@ def pattern_bound(group, nnz):
     counts once.)"""
     nbytes, ops = 0, 0
     for p, n in zip(group.parts, nnz):
-        v, k = p.pattern.shape[0], p.n_cols
+        v, k = p.pattern.shape[-2], p.n_cols
         ss = 0 if p.w_out is None else v  # w_out read, x_ss written
         nbytes += v * -(-k // 8) + 4 * (2 * k + 2 * v + ss) + 4 * (v + k + ss)
         ops += 2 * n + k + v + ss
@@ -2834,6 +2947,97 @@ def phase_step(torch, graphs, reps):
     return out
 
 
+def step_split(torch, spmv, pattern, dg, kernel, reps=20):
+    """One power-iteration step of a staged graph (a window, or a stacked
+    group) split by kernel, on random inputs of its shapes: the route's
+    products (the pcsr step; or the pair, K8 and its fold here, then K1's
+    call-graph terms) and K5's step (``step_grid<S>`` for a window,
+    ``step_grid_group`` for a group), each by CUDA events behind a
+    device spin, the median of ``reps`` calls."""
+    from microrank_tpu_torch.ops import step as step_mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    dev = torch.device("cuda")
+    lead = tuple(dg.normal.kind.shape[:-1])
+    parts = (dg.normal, dg.abnormal)
+    svs = [torch.rand(lead + (p.cov_unique.shape[-1],), generator=gen, device=dev) for p in parts]
+    rvs = [torch.rand(lead + (p.kind.shape[-1],), generator=gen, device=dev) for p in parts]
+
+    def products():
+        if kernel == "pcsr":
+            return spmv.pcsr_spmv_group(dg.spmv_group, (rvs[0], svs[0], rvs[1], svs[1]))
+        outs = pattern.pattern_pair_group(dg.pattern_group, rvs, svs)
+        xs = [sv if x is None else x for sv, (_, _, x) in zip(svs, outs)]
+        return outs, spmv.coo_spmv_group(dg.spmv_group, xs)
+
+    ys = tuple((torch.rand_like(sv), torch.rand_like(sv), torch.rand_like(rv))
+               for sv, rv in zip(svs, rvs))
+    plan = step_mod.step_plan([torch.rand_like(rv) for rv in rvs], 0.01, 0.85, None, True,
+                              step_mod.step_scratch(dev, lead[0] if lead else 1))
+    win = step_mod.StepWindow(plan, tuple(zip(svs, rvs)), torch.zeros(lead + (2, 1), device=dev))
+    return {
+        "products_ms": round(spin_event_ms(torch, products, reps), 6),
+        "step_ms": round(spin_event_ms(torch, lambda: win.step(ys, 0), reps), 6),
+        "step_kernel": "step_grid_group" if lead else f"step_grid<{win.slots}>",
+        "step_grid": win.grid,
+    }
+
+
+def giant_stacked(torch, spmv, pattern, graph, single, kernel, cfg):
+    """A giant window stacked twice (``stack_window_graphs``) and ranked
+    as one program (K18): the host's stacking time, the group's staging
+    (H2D and layouts), its launches (25 of each kernel for the group),
+    each window's n_valid, n_iters and ranking against the window's own
+    program (rtol 1e-5, bitwise reported), the group through the plain
+    step on the card bitwise, the program timed in turns with the two
+    windows' own programs (windows, stacked, stacked, windows; CUDA
+    events and the host clock behind a spin), its window-axis kernels
+    bitwise the window's own launches over 50 launches, and the peak
+    device memory while the group is staged and ranked (the window's own
+    staged graph resident beside it); a step of the group and of the
+    window split by kernel (``step_split``). Returns (counts, info)."""
+    from microrank_tpu_torch.parallel import stack_window_graphs
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        divide_block_budget,
+        host_subset,
+    )
+
+    tag = f"giant_stacked/{kernel}"
+    one = host_subset(graph, kernel)
+    t0 = time.perf_counter()
+    stack = stack_window_graphs([one, one])
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    gcfg = cfg.replace(pagerank=divide_block_budget(cfg.pagerank, kernel, 2))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = device_subset(graph_from_numpy(stack, torch.device("cuda")), kernel,
+                         gcfg.pagerank.packed_block_bytes)
+    torch.cuda.synchronize()
+    staging_ms = (time.perf_counter() - t0) * 1e3
+    info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single], kernel, gcfg)
+    peak = torch.cuda.max_memory_allocated()
+    info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card, None, [single, single]))
+    info.update({
+        "step_split": {"stacked": step_split(torch, spmv, pattern, card, kernel),
+                       "window": step_split(torch, spmv, pattern, single, kernel)},
+        "stack_host_ms": round(stack_ms, 3),
+        "stack_host_bytes": int(sum(a.nbytes for part in (stack.normal, stack.abnormal)
+                                    for a in part)),
+        "staging_ms": round(staging_ms, 3),
+        "resident_before_bytes": resident,
+        "peak_device_memory_bytes": peak,
+    })
+    del card
+    torch.cuda.empty_cache()
+    return counts, info
+
+
 def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     """One giant window (bench.py's giant tier, ``testing.giant_window``)
     through the lane's own seams, prepare_rank -> launch_rank ->
@@ -2841,9 +3045,10 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     ``want``. Checked tie-aware (top-5) against the float64 sparse
     oracle on the host graph; the stages timed as in window_breakdown;
     one step of the kernel checked against its plain version on the card
-    and timed. Collapse is off: the oracle ranks uncollapsed windows, and
-    bench.py builds its giant window so. Returns (counts, kernel
-    measurement, info)."""
+    and timed; then the window stacked twice as one program
+    (``giant_stacked``). Collapse is off: the oracle ranks uncollapsed
+    windows, and bench.py builds its giant window so. Returns (counts,
+    kernel measurement, info, the stacked group's counts)."""
     from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import TableRCA
     from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
@@ -2962,7 +3167,9 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         "issue_split_ms": issue_split,
         "kernel": kern,
     }
-    return counts, (kern, step_kern), info
+    stacked_counts, info["stacked"] = giant_stacked(torch, spmv, pattern, graph, dgraph, kernel,
+                                                    cfg)
+    return counts, (kern, step_kern), info, stacked_counts
 
 
 def main(argv=None) -> int:
@@ -3089,15 +3296,17 @@ def main(argv=None) -> int:
         steps = phase_step(torch, graphs, args.reps)
         emit(steps)
         phase = "giant"
-        giant, giant_steps = {}, {}
+        giant, giant_steps, giant_stacked_err = {}, {}, {}
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
                                   (args.giant_spans, "pcsr")):
-                counts, (kern, step_kern), info = phase_giant(
+                counts, (kern, step_kern), info, stacked_counts = phase_giant(
                     torch, spmv, pattern, n_spans, budget, want, args.reps
                 )
                 launches[f"giant/{want}"] = counts
+                launches[f"giant_stacked/{want}"] = stacked_counts
+                giant_stacked_err[want] = info["stacked"]["max_abs_err"]
                 giant[want] = kern
                 giant_steps[want] = step_kern
                 emit(info)
@@ -3115,11 +3324,19 @@ def main(argv=None) -> int:
     # the stacked groups (0.0 where bitwise), by route.
     stacked_err = {} if batched is None else {
         "kind": max(v.get("max_abs_err", 0.0) for v in batched["kind"].values()),
-        "pallas": batched["pallas"]["max_abs_err"],
-        "packed_bf16": batched["packed_bf16"]["max_abs_err"],
+        "kind_int8": max(v["max_abs_err"] for v in batched["kind_int8"].values()),
+        **{k: batched[k]["max_abs_err"]
+           for k in ("pallas", "packed_bf16", "packed_blocked", "pcsr")},
     }
+    for want, err in giant_stacked_err.items():
+        stacked_err[want] = max(err, stacked_err.get(want, 0.0))
+    # The stacked groups' launches (K18: one launch of each kernel a step
+    # for a group): the batched phase's, the giant groups', the replay's
+    # stacked modes'.
+    stacked_keys = ("batched/", "giant_stacked/", *(f"replay/{m}" for m in STACKED_MODES))
+    int8_keys = ("auto/int8", "replay/chunked_int8", "batched/kind_int8/")
 
-    def stacked_launches(name, prefix):
+    def stacked_launches(name, prefix=stacked_keys):
         return sum(c[name] for k, c in launches.items() if k.startswith(prefix))
     # packed_blocked runs K8's kernel: at the giant window of a fifth of
     # --giant-spans, else at the config-5 packed_blocked run's shapes.
@@ -3146,8 +3363,7 @@ def main(argv=None) -> int:
             # terms).
             "launches": sum(c["k1_launches"] for c in launches.values()),
             # Of them, the stacked groups' (one launch a step for the group).
-            "stacked_launches": stacked_launches("k1_launches", "batched/")
-            + sum(launches.get(f"replay/{m}", {}).get("k1_launches", 0) for m in STACKED_MODES),
+            "stacked_launches": stacked_launches("k1_launches"),
             "max_abs_err": max([r["max_abs_err"] for r in
                                 [*per_matrix, *(v for k, v in per_step.items() if k != "pcsr")]]
                                + list(stacked_err.values())),
@@ -3169,10 +3385,11 @@ def main(argv=None) -> int:
             # policy run, the replay's and the follower's.
             "launches": sum(c["pattern_launches"] for k, c in launches.items()
                             if k in ("auto/auto", "policy", "follow")
-                            or k.startswith(("replay/", "batched/kind/"))),
-            "stacked_launches": stacked_launches("pattern_launches", "batched/kind/")
-            + sum(launches.get(f"replay/{m}", {}).get("pattern_launches", 0)
-                  for m in STACKED_MODES),
+                            or k.startswith(("replay/", "batched/kind/"))
+                            and not k.startswith(int8_keys)),
+            "stacked_launches": stacked_launches(
+                "pattern_launches",
+                ("batched/kind/", *(f"replay/{m}" for m in STACKED_MODES if m != "chunked_int8"))),
             "max_abs_err": max([pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")]
                                + [stacked_err.get("kind", 0.0)]),
             # One step (one launch, both partitions, both directions) at
@@ -3189,8 +3406,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:544",
-            "launches": launches["auto/int8"]["pattern_launches"],
-            "max_abs_err": int8["max_abs_err"],
+            "launches": stacked_launches("pattern_launches", int8_keys),
+            "stacked_launches": stacked_launches("pattern_launches", int8_keys[1:]),
+            "max_abs_err": max(int8["max_abs_err"], stacked_err.get("kind_int8", 0.0)),
             # One int8 step's pair launch (both partitions, both
             # directions) at the collapsed config-5 shapes of the int8 run,
             # on fixed scales, as a step now launches it (the step kernel
@@ -3211,7 +3429,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:96",
-            "launches": launches["auto/int8"]["quantize_launches"],
+            "launches": stacked_launches("quantize_launches", int8_keys),
+            "stacked_launches": stacked_launches("quantize_launches", int8_keys[1:]),
             "max_abs_err": int8["scale_max_abs_err"],
             # One launch per int8 window now (the first step's scales;
             # the step kernel takes every later step's). The launch alone
@@ -3248,7 +3467,8 @@ def main(argv=None) -> int:
             "source": "microrank_tpu_torch/csrc/pattern_pair.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:605",
             "launches": sum(c["blocked_launches"] for c in launches.values()),
-            "max_abs_err": blocked["max_abs_err"],
+            "stacked_launches": stacked_launches("blocked_launches"),
+            "max_abs_err": max(blocked["max_abs_err"], stacked_err.get("packed_blocked", 0.0)),
             # One step (one launch of K8's kernel, both partitions, both
             # directions, f32) at the giant window's shapes; library_ms is
             # four f32 torch.matmul calls over the unpacked matrices;
@@ -3267,7 +3487,8 @@ def main(argv=None) -> int:
             "source": "microrank_tpu_torch/csrc/coo_spmv.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:715",
             "launches": sum(c["pcsr_launches"] for c in launches.values()),
-            "max_abs_err": pcsr["max_abs_err"],
+            "stacked_launches": stacked_launches("pcsr_launches"),
+            "max_abs_err": max(pcsr["max_abs_err"], stacked_err.get("pcsr", 0.0)),
             # One step (one launch, six SpMVs: K1's work items over the op
             # side and the call edges, the trace side from the ELL slabs)
             # at the giant window's shapes; library_ms is six CSR matvecs.
@@ -3286,8 +3507,7 @@ def main(argv=None) -> int:
             # route (the fused kernel, one cooperative launch), a stacked
             # group's one a step for all its windows.
             "launches": sum(c["step_launches"] for c in launches.values()),
-            "stacked_launches": stacked_launches("step_launches", "batched/")
-            + sum(launches.get(f"replay/{m}", {}).get("step_launches", 0) for m in STACKED_MODES),
+            "stacked_launches": stacked_launches("step_launches"),
             "max_abs_err": max(m["max_abs_err"] for m in
                                [steps["kind"], steps["kind_int8"], *giant_steps.values()]),
             # One step (one launch, both partitions) at the 10M-span giant

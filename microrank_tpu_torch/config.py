@@ -198,9 +198,9 @@ class RuntimeConfig:
     # in order. Trade-off: the first window of a group waits for its
     # group-mates before ranking, so keep 1 (default) for the lowest
     # per-window latency. Ignored, with a warning, under
-    # run(batch_windows=True). A group whose kernel does not run stacked
-    # (packed_blocked, pcsr, int8) raises (ROADMAP.md 'Port queue' item 7
-    # follow-ups).
+    # run(batch_windows=True). Every kernel runs a group as one program
+    # (kind in every precision, packed, packed_bf16, packed_blocked, pcsr,
+    # pallas).
     dispatch_batch_windows: int = 1
     # The per-run journal (out_dir/journal.jsonl, obs.RunJournal) and
     # the metrics registry's snapshot, which the CLI writes beside the

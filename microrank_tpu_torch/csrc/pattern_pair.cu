@@ -81,11 +81,12 @@
 // Stacked windows (a group of B windows padded to one shape, as
 // run(batch_windows=True) and dispatch_batch_windows rank them): the
 // grid's y dimension is the window. Each window has its own pattern,
-// vectors, outputs, tile partials and stripe counters, at a fixed
-// stride from the previous window's (`window_part`), so its last-arriver
-// folds count and fold its own tiles only and its bits are those of the
-// window launched alone. One launch a step for the whole group; f32 and
-// bf16 (int8 and K8 are not stacked).
+// vectors, outputs, tile partials and stripe counters (int8: its own two
+// scales a part), at a fixed stride from the previous window's
+// (`window_part`), so its last-arriver folds count and fold its own
+// tiles only and its bits are those of the window launched alone. One
+// launch a step for the whole group, in every precision; K8's two
+// launches and `quantize_amax` take the window axis the same way.
 //
 // The int8 scales (`quantize_amax`): scale = amax > 0 ? amax / 127 : 1
 // with amax = max |x * w| over each of the step's four weighted operands
@@ -98,7 +99,10 @@
 // bits; a NaN's bits exceed every number's, so it wins as jnp.max's NaN
 // does) and folds them in with an integer atomicMax, which is exact and
 // order-free; the last block to arrive turns the four maxima into
-// scales and resets the scratch for the next launch. The pair reads the
+// scales and resets the scratch for the next launch. A stacked group's
+// launch takes every window's four operands, a maximum and a scale per
+// operand and window (JAX's `quantize_i8` under vmap), so a window's NaN
+// or zeros reach its own scales only. The pair reads the
 // scales in stream order. A grid-wide barrier (a cooperative launch)
 // would fold this into the pair's launch; two plain launches were
 // chosen as the simple kernel that is right.
@@ -143,6 +147,10 @@ constexpr int kAmaxItems = 8;                        // elements per thread per 
 constexpr int kAmaxMaxBlocks = 64;                   // blocks per vector, at most
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kTileRows <= kThreads, "a fold thread per tile row");
+
+// Floats per row of K8's fwd partials: n_ct rounded up to 4, so that
+// every row starts 16-byte aligned (ops/pattern.py blocked_ld).
+__host__ __device__ __forceinline__ int32_t blocked_ld(int32_t n_ct) { return (n_ct + 3) & ~3; }
 static_assert(kColsPerThread == 2, "bwd partials are stored as pairs");
 static_assert(kTileRows * kChunksPerRow % kThreads == 0, "whole loads per thread");
 static_assert(kRowsPerWarp % kRowBatch == 0, "whole row batches per warp");
@@ -168,6 +176,7 @@ struct Part {
   const float* w_cov;     // [n_rows]
   const float* w_out;     // [n_rows], or null: no x_ss
   const float* scale;     // int8: [2], the fwd and bwd operands' scales; else null
+  int32_t scale_step;     // int8: floats from a window's scales to the next's (2 per part)
   float* y_fwd;           // [n_rows]
   float* y_bwd;           // [n_cols]
   float* x_ss;            // [n_rows], or null
@@ -458,16 +467,27 @@ __device__ __forceinline__ void tile(const Part& P, int32_t block, Smem<Acc<kPre
   }
 }
 
+// Floats of one window's K8 scratch: the fwd partials (n_ct > 1), then
+// the bwd partials (groups > 1); ops/pattern.py `_scratch`.
+__host__ __device__ __forceinline__ int64_t blocked_scratch(const Part& P) {
+  return (P.n_ct > 1 ? static_cast<int64_t>(P.n_rt) * kTileRows * blocked_ld(P.n_ct) : 0) +
+         (P.groups > 1 ? static_cast<int64_t>(P.n_rt) * P.n_ct * kTileCols : 0);
+}
+
 // Part P of window w of a stacked group: each window's pattern, vectors,
-// outputs and scratch follow the previous window's, so every pointer
-// moves by its per-window stride (the window's rows, columns, tiles or
-// stripes). The scale is int8's, which stacked groups do not take.
+// outputs, scales and scratch follow the previous window's, so every
+// pointer moves by its per-window stride (the window's rows, columns,
+// scales, tiles or stripes; K8's scratch by `blocked_scratch`, and K8
+// has no counters).
+template <bool kBlocked>
 __device__ __forceinline__ Part window_part(const Part& P, int32_t w) {
   Part q = P;
   const int64_t rows = static_cast<int64_t>(w) * P.n_rows;
   const int64_t cols = static_cast<int64_t>(w) * P.n_cols;
   const int64_t scratch =
-      static_cast<int64_t>(w) * P.n_rt * P.n_ct * (kTileRows + kTileCols);
+      static_cast<int64_t>(w) * (kBlocked ? blocked_scratch(P)
+                                          : static_cast<int64_t>(P.n_rt) * P.n_ct *
+                                                (kTileRows + kTileCols));
   q.pat += rows * P.stride;
   q.rv += cols;
   q.w_len += cols;
@@ -477,10 +497,13 @@ __device__ __forceinline__ Part window_part(const Part& P, int32_t w) {
   q.y_bwd += cols;
   if (P.w_out != nullptr) q.w_out += rows;
   if (P.x_ss != nullptr) q.x_ss += rows;
+  if (P.scale != nullptr) q.scale += static_cast<int64_t>(w) * P.scale_step;
   q.fwd_part += scratch;
   q.bwd_part += scratch;
-  q.row_count += static_cast<int64_t>(w) * (P.n_rt + P.n_ct);
-  q.col_count += static_cast<int64_t>(w) * (P.n_rt + P.n_ct);
+  if constexpr (!kBlocked) {
+    q.row_count += static_cast<int64_t>(w) * (P.n_rt + P.n_ct);
+    q.col_count += static_cast<int64_t>(w) * (P.n_rt + P.n_ct);
+  }
   return q;
 }
 
@@ -502,9 +525,9 @@ __global__ void __launch_bounds__(kThreads) pattern_pair(Args args) {
       tile<kPrec>(args.p[1], b - args.p[0].blocks, s);
     }
   } else if (b < args.p[0].blocks) {
-    tile<kPrec>(window_part(args.p[0], w), b, s);
+    tile<kPrec>(window_part<false>(args.p[0], w), b, s);
   } else {
-    tile<kPrec>(window_part(args.p[1], w), b - args.p[0].blocks, s);
+    tile<kPrec>(window_part<false>(args.p[1], w), b - args.p[0].blocks, s);
   }
 }
 
@@ -567,7 +590,10 @@ __global__ void __launch_bounds__(kThreads) pattern_pair(Args args) {
 // step at the giant-2M shapes on an H100, twice the tile kernel's time).
 // The sums and their orders are the tile kernel's (ops/pattern.py
 // fwd_plain / bwd_plain), so the two give the same bits in f32 at every
-// shape and density.
+// shape and density. A stacked group runs both launches with the window
+// as the grid's y dimension (`window_part<true>`): each window's fwd
+// and bwd partials at a stride of `blocked_scratch` floats from the
+// previous window's, so no two windows' partials overlap.
 // Scratch: the fwd partials, n_rt * kTileRows rows of ldp = n_ct rounded
 // up to 4 floats (when n_ct > 1): 2 x 4 MB at the giant-2M shapes,
 // against the tile kernel's 2 x 21 MB.
@@ -602,10 +628,6 @@ static_assert(kWarps * kWarpRows == kTileRows, "two fwd threads per row");
 static_assert(kRowWords == 8, "a fwd thread reads two 16-byte chunks");
 static_assert(2 * kTileRows == kThreads, "one thread stages each of sv and w_cov");
 static_assert(kFoldRows == kWarp, "one warp folds");
-
-// Floats per row of the fwd partials: n_ct rounded up to 4, so that
-// every row starts 16-byte aligned (ops/pattern.py blocked_ld).
-__host__ __device__ __forceinline__ int32_t blocked_ld(int32_t n_ct) { return (n_ct + 3) & ~3; }
 
 struct alignas(16) BlockedSmem {
   uint32_t raw[kStages][kTileRows][kTileWords];  // bitmap bytes as stored (big-endian bits)
@@ -890,14 +912,22 @@ __device__ __forceinline__ void blocked_column(const Part& P, int32_t b, Blocked
   }
 }
 
-// Blocks in order: the column tiles of part 0, then of part 1.
+// Blocks in order: the column tiles of part 0, then of part 1;
+// blockIdx.y is the window of a stacked group.
 __global__ void __launch_bounds__(kThreads, kBlockedMinBlocks) pattern_pair_blocked(Args args) {
   __shared__ BlockedSmem s;
   const int32_t b = static_cast<int32_t>(blockIdx.x);
-  if (b < args.p[0].blocks) {
-    blocked_column(args.p[0], b, s);
+  const int32_t w = static_cast<int32_t>(blockIdx.y);
+  if (gridDim.y == 1) {
+    if (b < args.p[0].blocks) {
+      blocked_column(args.p[0], b, s);
+    } else {
+      blocked_column(args.p[1], b - args.p[0].blocks, s);
+    }
+  } else if (b < args.p[0].blocks) {
+    blocked_column(window_part<true>(args.p[0], w), b, s);
   } else {
-    blocked_column(args.p[1], b - args.p[0].blocks, s);
+    blocked_column(window_part<true>(args.p[1], w), b - args.p[0].blocks, s);
   }
 }
 
@@ -960,41 +990,56 @@ __device__ __forceinline__ void fold_cols(const Part& P, int32_t c0) {
 }
 
 // The folds of both parts: the fwd folds of part 0, of part 1, then the
-// bwd folds of part 0, of part 1. The branches are block-uniform.
+// bwd folds of part 0, of part 1; blockIdx.y is the window of a stacked
+// group. The branches are block-uniform.
+__device__ __forceinline__ void fold_parts(const Part& p0, const Part& p1, int32_t b,
+                                           float (*stage)[kFoldCols + 1]) {
+  const int32_t f0 = fwd_fold_blocks(p0), f1 = fwd_fold_blocks(p1);
+  if (b < f0) {
+    fold_rows(p0, b * kFoldRows, stage);
+  } else if ((b -= f0) < f1) {
+    fold_rows(p1, b * kFoldRows, stage);
+  } else if ((b -= f1) < bwd_fold_blocks(p0)) {
+    fold_cols(p0, b * kThreads);
+  } else {
+    fold_cols(p1, (b - bwd_fold_blocks(p0)) * kThreads);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) fold_blocked(Args args) {
   __shared__ float stage[kFoldRows][kFoldCols + 1];  // +1: a row per bank
-  int32_t b = static_cast<int32_t>(blockIdx.x);
-  const int32_t f0 = fwd_fold_blocks(args.p[0]), f1 = fwd_fold_blocks(args.p[1]);
-  if (b < f0) {
-    fold_rows(args.p[0], b * kFoldRows, stage);
-  } else if ((b -= f0) < f1) {
-    fold_rows(args.p[1], b * kFoldRows, stage);
-  } else if ((b -= f1) < bwd_fold_blocks(args.p[0])) {
-    fold_cols(args.p[0], b * kThreads);
+  const int32_t b = static_cast<int32_t>(blockIdx.x);
+  const int32_t w = static_cast<int32_t>(blockIdx.y);
+  if (gridDim.y == 1) {
+    fold_parts(args.p[0], args.p[1], b, stage);
   } else {
-    fold_cols(args.p[1], (b - bwd_fold_blocks(args.p[0])) * kThreads);
+    fold_parts(window_part<true>(args.p[0], w), window_part<true>(args.p[1], w), b, stage);
   }
 }
 
 // The int8 scales of one step's operands x[v] * w[v], v < n_vecs
-// (ops/pattern.py quantize_scales).
+// (ops/pattern.py quantize_scales), of each of n_windows windows: window
+// w's vector v is x[v] + w * n[v] (a stacked group's [B, n] operands).
 struct AmaxArgs {
   const float* x[kMaxVecs];
   const float* w[kMaxVecs];
   int64_t n[kMaxVecs];
-  float* scale;      // [n_vecs]
-  uint32_t* amax;    // [kMaxVecs] running maxima (f32 bits), 0 between launches
+  float* scale;      // [n_windows, n_vecs]
+  uint32_t* amax;    // [n_windows * n_vecs] running maxima (f32 bits), 0 between launches
   uint32_t* count;   // block arrivals, 0 between launches
   int32_t n_vecs;
-  int32_t per_vec;   // blocks per vector
+  int32_t n_windows;
+  int32_t per_vec;   // blocks per vector and window
 };
 
 __global__ void __launch_bounds__(kThreads) quantize_amax(AmaxArgs args) {
   __shared__ uint32_t warp_max[kWarps];
   __shared__ int last;
   const int t = static_cast<int>(threadIdx.x);
-  const int v = static_cast<int>(blockIdx.x) / args.per_vec;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) - static_cast<int64_t>(v) * args.per_vec;
+  const int vw = static_cast<int>(blockIdx.x) / args.per_vec;  // window * n_vecs + vector
+  const int v = vw % args.n_vecs;
+  const int64_t win = vw / args.n_vecs;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) - static_cast<int64_t>(vw) * args.per_vec;
   // The vector's fields by a static index (no local copy of the struct).
   const float* x = args.x[0];
   const float* w = args.w[0];
@@ -1007,6 +1052,8 @@ __global__ void __launch_bounds__(kThreads) quantize_amax(AmaxArgs args) {
       n = args.n[i];
     }
   }
+  x += win * n;
+  w += win * n;
   uint32_t m = 0u;
   const int64_t stride = static_cast<int64_t>(args.per_vec) * kThreads;
   for (int64_t i = j * kThreads + t; i < n; i += stride) {
@@ -1019,16 +1066,16 @@ __global__ void __launch_bounds__(kThreads) quantize_amax(AmaxArgs args) {
     uint32_t bm = 0u;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) bm = max(bm, warp_max[i]);
-    atomicMax(args.amax + v, bm);
+    atomicMax(args.amax + vw, bm);
     __threadfence();  // release the maximum before arriving
     last = atomicAdd(args.count, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();  // acquire every block's maximum
-  if (t < args.n_vecs) {
-    const float amax = __uint_as_float(atomicExch(args.amax + t, 0u));  // read and reset
-    args.scale[t] = amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
+  for (int i = t; i < args.n_vecs * args.n_windows; i += kThreads) {
+    const float amax = __uint_as_float(atomicExch(args.amax + i, 0u));  // read and reset
+    args.scale[i] = amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
   }
   if (t == 0) *args.count = 0u;
 }
@@ -1075,6 +1122,7 @@ int64_t read_parts(const void* const* ptrs, const int64_t* ints, int32_t n_parts
     P.w_cov = static_cast<const float*>(p[kWCov]);
     P.w_out = static_cast<const float*>(p[kWOut]);
     P.scale = static_cast<const float*>(p[kScale]);
+    P.scale_step = 2 * n_parts;
     P.y_fwd = static_cast<float*>(const_cast<void*>(p[kYFwd]));
     P.y_bwd = static_cast<float*>(const_cast<void*>(p[kYBwd]));
     P.x_ss = static_cast<float*>(const_cast<void*>(p[kXSs]));
@@ -1121,10 +1169,12 @@ extern "C" {
 // kTileCols)). The pattern is a big-endian bitmap with rows of a multiple
 // of 16 bytes, 16-byte aligned (ops/pattern.py pads every pattern).
 // `precision`: 0 f32, 1 bf16, 2 int8. `n_windows` > 1: a stacked group
-// (f32 or bf16) of that many windows of the same shapes, each window's
-// pattern, vectors, outputs, partials and counters right after the
-// previous window's (the pointers given are window 0's); the grid's y
-// dimension is the window. Returns the CUDA error code of the
+// of that many windows of the same shapes, each window's pattern,
+// vectors, outputs, partials and counters right after the previous
+// window's (the pointers given are window 0's; int8: the scales are
+// [n_windows, 2 * n_parts], and each part's pointer is its first in
+// window 0); the grid's y dimension is the window. Returns the CUDA
+// error code of the
 // launch (0 = launched). Allocates nothing and does not synchronize. One
 // scratch must not be in flight on two streams at once.
 int mr_pattern_pair(const void* const* ptrs, const int64_t* ints,
@@ -1132,8 +1182,7 @@ int mr_pattern_pair(const void* const* ptrs, const int64_t* ints,
                     int device, void* stream) {
   Args args{};
   const int64_t blocks = read_parts(ptrs, ints, n_parts, precision, false, args);
-  if (blocks < 0 || n_windows < 1 || n_windows > 65535 ||
-      (n_windows > 1 && precision == kI8)) {
+  if (blocks < 0 || n_windows < 1 || n_windows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = use_device(device);
@@ -1159,17 +1208,23 @@ int mr_pattern_pair(const void* const* ptrs, const int64_t* ints,
 // launch of fold_blocked. Each part's scratch, 16-byte aligned: the fwd
 // partials, n_rt * kTileRows rows of blocked_ld(n_ct) floats (when n_ct
 // > 1), then the bwd partials, n_rt rows of n_ct * kTileCols floats
-// (when groups > 1). Returns the CUDA error code of the launches (0 =
+// (when groups > 1). `n_windows` > 1: a stacked group, as for
+// mr_pattern_pair, each window's scratch `blocked_scratch` floats after
+// the previous window's; both launches take the window as the grid's y
+// dimension. Returns the CUDA error code of the launches (0 =
 // launched).
 int mr_pattern_pair_blocked(const void* const* ptrs, const int64_t* ints, int32_t n_parts,
-                            int device, void* stream) {
+                            int32_t n_windows, int device, void* stream) {
   Args args{};
   const int64_t blocks = read_parts(ptrs, ints, n_parts, kF32, true, args);
-  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 0 || n_windows < 1 || n_windows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pattern_pair_blocked<<<dim3(static_cast<unsigned>(blocks)), kThreads, 0, s>>>(args);
+  const unsigned win = static_cast<unsigned>(n_windows);
+  pattern_pair_blocked<<<dim3(static_cast<unsigned>(blocks), win), kThreads, 0, s>>>(args);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return static_cast<int>(launched);
   int64_t folds = 0;
@@ -1177,19 +1232,22 @@ int mr_pattern_pair_blocked(const void* const* ptrs, const int64_t* ints, int32_
     folds += fwd_fold_blocks(args.p[i]) + bwd_fold_blocks(args.p[i]);
   }
   if (folds == 0) return 0;
-  fold_blocked<<<dim3(static_cast<unsigned>(folds)), kThreads, 0, s>>>(args);
+  fold_blocked<<<dim3(static_cast<unsigned>(folds), win), kThreads, 0, s>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch: scale[v] = amax > 0 ? amax / 127 : 1, amax = max_i |x[v][i]
-// * w[v][i]|, for v < n_vecs (1 to 4). `ptrs` holds x[0], w[0], x[1],
-// w[1], ...; `ns` the vectors' lengths. `scratch` is kMaxVecs + 1 int32
-// (the running maxima, then the arrival count), zero before the first
-// launch; the last block leaves it zero again. Returns the CUDA error
-// code of the launch. Allocates nothing and does not synchronize.
+// One launch: scale[w][v] = amax > 0 ? amax / 127 : 1, amax = max_i
+// |x[v][w][i] * w[v][w][i]|, for v < n_vecs (1 to 4) and w < n_windows
+// (each pointer is a [n_windows, ns[v]] array; 1 for one window).
+// `ptrs` holds x[0], w[0], x[1], w[1], ...; `ns` the vectors' lengths in
+// one window. `scratch` is kMaxVecs * n_windows + 1 int32 (the running
+// maxima, then the arrival count), zero before the first launch; the
+// last block leaves it zero again. Returns the CUDA error code of the
+// launch. Allocates nothing and does not synchronize.
 int mr_quantize_amax(const void* const* ptrs, const int64_t* ns, int32_t n_vecs,
-                     void* scale, void* scratch, int device, void* stream) {
-  if (n_vecs < 1 || n_vecs > kMaxVecs || scale == nullptr || scratch == nullptr) {
+                     int32_t n_windows, void* scale, void* scratch, int device, void* stream) {
+  if (n_vecs < 1 || n_vecs > kMaxVecs || n_windows < 1 || scale == nullptr ||
+      scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   AmaxArgs args{};
@@ -1208,12 +1266,15 @@ int mr_quantize_amax(const void* const* ptrs, const int64_t* ns, int32_t n_vecs,
   const int64_t per = (longest + int64_t{kThreads} * kAmaxItems - 1) / (int64_t{kThreads} * kAmaxItems);
   args.per_vec = static_cast<int32_t>(per < 1 ? 1 : (per > kAmaxMaxBlocks ? kAmaxMaxBlocks : per));
   args.n_vecs = n_vecs;
+  args.n_windows = n_windows;
   args.scale = static_cast<float*>(scale);
   args.amax = static_cast<uint32_t*>(scratch);
-  args.count = static_cast<uint32_t*>(scratch) + kMaxVecs;
+  args.count = static_cast<uint32_t*>(scratch) + int64_t{kMaxVecs} * n_windows;
+  const int64_t blocks = int64_t{n_vecs} * n_windows * args.per_vec;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned>(n_vecs * args.per_vec));
+  const dim3 grid(static_cast<unsigned>(blocks));
   quantize_amax<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,13 +68,16 @@
 //   step is latency, not bytes; and the single window's kernel keeps
 //   its registers, which a window axis in it made spill). The scratch
 //   holds a maximum per vector and window and a residual per partition
-//   and window, 2B of each kind (`vec_slot`, `res_slot`). Each window has
+//   and window, 2B of each kind (`vec_slot`, `res_slot`), and on the int8
+//   route an amax per vector and window (`amax_slot`). Each window has
 //   its own running flag and n_iters, so with tol a window freezes on
 //   its own step while its group-mates go on, as JAX's vmapped
 //   while_loop gives it; the last block finishes the windows, a thread
-//   a window. Every maximum is an integer atomicMax and every value the
-//   same arithmetic, so a window's bits do not depend on its group.
-//   int8 scales stay single-window.
+//   a window, each window's four int8 scales from its own maxima (JAX's
+//   `quantize_i8` under vmap: one scale per vector and window, so one
+//   window's NaN never reaches another's scale). Every maximum is an
+//   integer atomicMax and every value the same arithmetic, so a window's
+//   bits do not depend on its group.
 //
 // The previous design stays beside it for comparison (`step_max`, then
 // `step_apply`: two launches a step on a grid sized to the data, the
@@ -194,11 +197,11 @@ struct StepArgs {
   int32_t per_thread;  // the fused kernel: elements a thread takes
   int32_t windows;     // B: the windows of a group (1 for the two-launch kernels)
   int32_t n_units;     // the fused kernel: units of all vectors and windows
-  uint32_t* scratch;   // [(kVecs + kParts) * B + kVecs + 1]; kScratch at B = 1
+  uint32_t* scratch;   // [(2 kVecs + kParts) * B + 1]; kScratch at B = 1
   float* residuals;    // [B, kParts, n_steps]
   int32_t* n_iters;    // [B] with tol, else null
   uint8_t* running;    // bool [B], with tol, else null
-  float* scales;       // int8 (B = 1): [kVecs] the next step's scales, else null
+  float* scales;       // int8: [B, kVecs] the next step's scales, else null
 };
 
 // A float's order as an unsigned integer: negative values by their
@@ -292,16 +295,16 @@ __device__ __forceinline__ void staged() {
 
 // The scratch slots of a group of B windows (uint32, 0 between steps):
 // the vectors' maxima by window, the partitions' residuals by window,
-// the int8 amax (single windows only), the arrivals. At B = 1 these are
+// the int8 operands' amax by window, the arrivals. At B = 1 these are
 // the enum's kVecMax, kResMax, kAmax and kArrivals.
 __device__ __forceinline__ int vec_slot(int vi, int w) { return w * kVecs + vi; }
 __device__ __forceinline__ int res_slot(int p, int w, int n_win) {
   return kVecs * n_win + w * kParts + p;
 }
-__device__ __forceinline__ int amax_slot(int i, int n_win) { return (kVecs + kParts) * n_win + i; }
-__device__ __forceinline__ int arrivals_slot(int n_win) {
-  return (kVecs + kParts) * n_win + kVecs;
+__device__ __forceinline__ int amax_slot(int i, int w, int n_win) {
+  return (kVecs + kParts) * n_win + w * kVecs + i;
 }
+__device__ __forceinline__ int arrivals_slot(int n_win) { return (2 * kVecs + kParts) * n_win; }
 
 // One unit of work: a run of per_thread x kThreads elements of one
 // window's vector. Unit u's vector is the last whose first unit is at or
@@ -368,7 +371,7 @@ __device__ __forceinline__ void unit_apply(const StepArgs& a, const Unit& U, flo
 }
 
 // The last block's work for window w of n_win: its residuals, n_iters
-// and running, and its slots reset.
+// and running, its int8 scales (when asked), and its slots reset.
 __device__ __forceinline__ void finish_window(const StepArgs& a, int w, int n_win) {
   const bool run = a.running == nullptr || a.running[w] != 0;
   uint32_t rk[kParts];
@@ -386,7 +389,14 @@ __device__ __forceinline__ void finish_window(const StepArgs& a, int w, int n_wi
     a.running[w] = run && !nan && fmaxf(r[0], r[1]) > a.tol;
   }
 #pragma unroll
-  for (int i = 0; i < kVecs; ++i) a.scratch[vec_slot(i, w)] = 0u;
+  for (int i = 0; i < kVecs; ++i) {
+    if (a.scales != nullptr) {
+      a.scales[static_cast<int64_t>(w) * kVecs + i] =
+          scale_of(__uint_as_float(__ldcg(a.scratch + amax_slot(i, w, n_win))));
+    }
+    a.scratch[vec_slot(i, w)] = 0u;
+    a.scratch[amax_slot(i, w, n_win)] = 0u;
+  }
 #pragma unroll
   for (int p = 0; p < kParts; ++p) a.scratch[res_slot(p, w, n_win)] = 0u;
 }
@@ -573,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_group(Ste
     __syncthreads();
     if (t == 0) {
       atomicMax(a.scratch + res_slot(U.vi / 2, U.w, n_win), res);
-      if (scaled) atomicMax(a.scratch + amax_slot(U.vi, n_win), amax);
+      if (scaled) atomicMax(a.scratch + amax_slot(U.vi, U.w, n_win), amax);
     }
   }
   // The block's arrival: one acq_rel add by thread 0 (release of the
@@ -587,13 +597,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_group(Ste
   if (!last) return;
   __threadfence();  // the acquire, for the block's other threads too
   for (int w = t; w < n_win; w += kThreads) finish_window(a, w, n_win);
-  if (t != 0) return;
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    if (scaled) a.scales[i] = scale_of(__uint_as_float(__ldcg(a.scratch + amax_slot(i, n_win))));
-    a.scratch[amax_slot(i, n_win)] = 0u;
-  }
-  a.scratch[arrivals_slot(n_win)] = 0u;
+  if (t == 0) a.scratch[arrivals_slot(n_win)] = 0u;
 }
 
 // ------------------------------- the previous design: two launches
@@ -790,11 +794,11 @@ int mr_power_step_config(int device, int32_t* out) {
 // the window's first carry; the two carry buffers; the int8 weight,
 // null unless `scales` is given), `ns` their lengths in one window
 // (>= 1); in a group each is a [n_windows, n] array. `scratch` holds
-// (kVecs + kParts) * n_windows + kVecs + 1 uint32 (kScratch for one
-// window), zero before the first step; `residuals` [n_windows, kParts,
-// n_steps], `n_iters` and `running` [n_windows] (with tol), and
-// `scales` (one window only: the window's buffer, written by the steps
-// that ask for it) as for mr_power_step_two_launch. The grid takes at
+// (2 kVecs + kParts) * n_windows + 1 uint32 (kScratch for one window),
+// zero before the first step; `residuals` [n_windows, kParts, n_steps],
+// `n_iters` and `running` [n_windows] (with tol), and `scales`
+// [n_windows, kVecs] (the window's or the group's buffer, written by the
+// steps that ask for it). The grid takes at
 // most `max_blocks` blocks (the caller's cooperative limit; at least one
 // a vector). One window: each vector its run of blocks, each thread the
 // least per_thread that fits, the instantiation of `step_grid` the least
@@ -813,8 +817,7 @@ int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alph
   Window win{};
   if (!fill_scalars(win.args, alpha, d, tol, normalize, n_steps, scratch, residuals, n_iters,
                     running) ||
-      max_blocks < kVecs || max_blocks > INT_MAX || n_windows < 1 ||
-      (n_windows > 1 && scales != nullptr)) {
+      max_blocks < kVecs || max_blocks > INT_MAX || n_windows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int64_t total = 0;

@@ -47,6 +47,12 @@ Steps:
   the kernel's arithmetic in the kernel's order, so both give the same
   bits.
 
+A stacked group of B windows (``pattern_group`` of [B, V, C] bitmaps,
+K18) runs every kernel above with a window axis: one launch of the pair
+(or of K8 and its fold) a step for all B, one ``quantize_amax`` launch
+with a scale per operand and window ([B, 4]), each window's scratch its
+own; a window's bits are those of its own group.
+
 The order of each f32 sum follows the kernel's tiles of ``TILE_R`` rows
 x ``TILE_C`` columns. y_fwd[r]: in each column tile, lane l (of 32) sums
 the tile's columns 16l .. 16l + 15 in ascending order, the shuffle tree
@@ -140,8 +146,9 @@ class PatternGroup(NamedTuple):
     # Stacked windows: every part's tensors carry a leading window axis
     # of this length (pattern [B, V, row bytes], w_len [B, n_cols], w_cov
     # and w_out [B, V], dense [B, V, n_cols], the scratch B windows'),
-    # the vectors and outputs are [B, .], and one launch computes every
-    # window (f32 and bf16, the tile kernel). None: one window, 1-d.
+    # the vectors and outputs are [B, .], the int8 scales [B, 4], and one
+    # launch computes every window (the tile kernel in every precision,
+    # or K8's). None: one window, 1-d.
     windows: Optional[int] = None
 
 
@@ -193,16 +200,17 @@ def blocked_rows_per_block(n_rt: int, n_ct: int) -> int:
 
 def _scratch(v: int, k: int, blocked: bool, dev, windows: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """(partials, counters) of one partition, zeroed (PatternPart.part /
-    .counters), ``windows`` windows' back to back."""
+    .counters), ``windows`` windows' back to back (K8: each window's
+    fwd partials then bwd partials, csrc ``blocked_scratch``)."""
     n_rt, n_ct = _n_row_tiles(v), _n_col_tiles(k)
     if blocked:
         groups = -(-n_rt // blocked_rows_per_block(n_rt, n_ct))
         n_part = (n_rt * TILE_R * blocked_ld(n_ct) if n_ct > 1 else 0) + (
             n_rt * n_ct * TILE_C if groups > 1 else 0)
-        n_part, n_count = max(n_part, 1), 0
+        n_count = 0
     else:
         n_part, n_count = n_rt * n_ct * (TILE_R + TILE_C), n_rt + n_ct
-    return (torch.zeros(windows * n_part, dtype=torch.float32, device=dev),
+    return (torch.zeros(max(windows * n_part, 1), dtype=torch.float32, device=dev),
             torch.zeros(windows * n_count, dtype=torch.int32, device=dev))
 
 
@@ -225,17 +233,14 @@ def pattern_group(
     the group launches K8's kernel, with its own scratch.
 
     Stacked windows: 3-d patterns [B, V, C] with [B, .] weight vectors
-    (one B for all parts) make a group of B windows (``windows``); the
-    tile kernel only, without bands."""
+    (one B for all parts) make a group of B windows (``windows``), with
+    or without ``blocked``; ``band_bytes`` then bounds each window's band
+    (the caller divides the budget by B, as JAX's ``divide_block_budget``,
+    so that a band of all B windows stays within it)."""
     if not 1 <= len(patterns) <= 2:
         raise ValueError("pattern_group: 1 or 2 partitions")
     dev = patterns[0].device
     windows = patterns[0].shape[0] if patterns[0].dim() == 3 else None
-    if windows is not None and (blocked or band_bytes is not None):
-        raise NotImplementedError(
-            "pattern_group: stacked windows run the tile kernel only; batched "
-            "packed_blocked is not ported yet (ROADMAP.md 'Port queue' item 7 follow-ups)"
-        )
     lead = () if windows is None else (windows,)
     parts = []
     for pat, w_len, w_cov, w_out, k in zip(patterns, w_lens, w_covs, w_outs, n_cols):
@@ -274,7 +279,7 @@ def pattern_group(
         ))
     return PatternGroup(
         parts=tuple(parts),
-        amax_scratch=torch.zeros(MAX_VECS + 1, dtype=torch.int32, device=dev),
+        amax_scratch=torch.zeros(MAX_VECS * (windows or 1) + 1, dtype=torch.int32, device=dev),
         blocked=blocked,
         windows=windows,
     )
@@ -291,18 +296,20 @@ def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
 def quantize_scale(x: torch.Tensor) -> torch.Tensor:
     """JAX's ``quantize_i8`` scale of one vector: max|x| / 127 over x
     with its subnormals flushed, or 1 when that max is not above 0 (all
-    zeros or subnormals, or NaN), float32 0-d. The divisor is a tensor
-    of x's device, so every device divides."""
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    amax = flush_subnormal(x).abs().max() if x.numel() else zero
+    zeros or subnormals, or NaN), float32 0-d; of each row of a stacked
+    group's [B, n] vectors, [B] (``quantize_i8`` under vmap). The divisor
+    is a tensor of x's device, so every device divides."""
+    zero = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    amax = flush_subnormal(x).abs().amax(-1) if x.shape[-1] else zero
     return torch.where(amax > 0, amax / torch.full_like(zero, 127.0), zero + 1.0)
 
 
 def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """clip(round(x / scale), -127, 127) as int32 over x with its
     subnormals flushed (round half to even, as jnp.round and the
-    kernel's rintf)."""
-    return torch.clamp(torch.round(flush_subnormal(x) / scale), -127.0, 127.0).to(torch.int32)
+    kernel's rintf); ``scale`` 0-d, or [B] for [B, n] vectors."""
+    q = torch.round(flush_subnormal(x) / scale[..., None])
+    return torch.clamp(q, -127.0, 127.0).to(torch.int32)
 
 
 def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -316,15 +323,14 @@ def quantize_scales_plain(
 ) -> torch.Tensor:
     """The scales of a step's int8 operands, float32 [2 * n_parts]: per
     partition the fwd operand rv * w_len's, then the bwd operand
-    sv * w_cov's."""
+    sv * w_cov's; [B, 2 * n_parts] for a stacked group, each window's
+    from its own vectors."""
     _check_vectors(group, rvs, svs)
-    if group.windows is not None:
-        _check_precision(group, "int8", None)  # raises: not ported for stacked windows
     return torch.stack([
         quantize_scale(x)
         for p, rv, sv in zip(group.parts, rvs, svs)
         for x in (rv * p.w_len, sv * p.w_cov)
-    ])
+    ], -1)
 
 
 def quantize_scales(
@@ -332,7 +338,7 @@ def quantize_scales(
 ) -> torch.Tensor:
     """``quantize_scales_plain``'s result: CPU tensors run it; CUDA
     tensors launch ``quantize_amax`` once (both partitions, both
-    directions) or raise."""
+    directions, every window of a stacked group) or raise."""
     dev = rvs[0].device
     if dev.type == "cpu":
         return quantize_scales_plain(group, rvs, svs)
@@ -340,13 +346,14 @@ def quantize_scales(
     ptrs, ns = [], []
     for p, rv, sv in zip(group.parts, rvs, svs):
         ptrs += [rv.data_ptr(), p.w_len.data_ptr(), sv.data_ptr(), p.w_cov.data_ptr()]
-        ns += [p.n_cols, p.pattern.shape[0]]
-    scales = torch.empty(len(ns), dtype=torch.float32, device=dev)
+        ns += [p.n_cols, p.pattern.shape[-2]]
+    lead = () if group.windows is None else (group.windows,)
+    scales = torch.empty(lead + (len(ns),), dtype=torch.float32, device=dev)
     lib = load_library()
     rc = lib.mr_quantize_amax(
         (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int64 * len(ns))(*ns),
-        len(ns), scales.data_ptr(), group.amax_scratch.data_ptr(),
+        len(ns), group.windows or 1, scales.data_ptr(), group.amax_scratch.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -431,17 +438,19 @@ def pattern_pair_plain(
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], ...]:
     """The kernel's arithmetic in plain PyTorch: per partition (y_fwd,
     y_bwd, x_ss or None). int8 takes the step's ``scales``
-    (``quantize_scales``)."""
+    (``quantize_scales``; [B, 4] for a stacked group)."""
     _check_vectors(group, rvs, svs)
     _check_precision(group, precision, scales)
     out = []
     for i, (p, rv, sv) in enumerate(zip(group.parts, rvs, svs)):
         if precision == "int8":
             m = (p.dense if p.dense is not None else unpack_bits(p.pattern, p.n_cols)).to(torch.int32)
-            sc, sr = scales[2 * i], scales[2 * i + 1]
+            sc, sr = scales[..., 2 * i], scales[..., 2 * i + 1]
             qa, qb = quantize_with(rv * p.w_len, sc), quantize_with(sv * p.w_cov, sr)
-            y_fwd = sc * (m * qa).sum(1, dtype=torch.int32).to(torch.float32)
-            y_bwd = sr * (qb[:, None] * m).sum(0, dtype=torch.int32).to(torch.float32)
+            y_fwd = sc[..., None] * (m * qa.unsqueeze(-2)).sum(-1, dtype=torch.int32).to(
+                torch.float32)
+            y_bwd = sr[..., None] * (qb.unsqueeze(-1) * m).sum(-2, dtype=torch.int32).to(
+                torch.float32)
             out.append((y_fwd, y_bwd, None))
             continue
         a, b = _op(rv * p.w_len, precision), _op(sv * p.w_cov, precision)
@@ -490,16 +499,17 @@ def blocked_partials_plain(
 
 def _pair_in_bands(p: PatternPart, a: torch.Tensor, b: torch.Tensor):
     """The plain pair of one partition, unpacking ``p.band_cols`` columns
-    (whole TILE_C tiles) at a time: the fwd fold carries from band to
-    band, each band gives its own columns' y_bwd."""
-    y_fwd = torch.zeros(p.pattern.shape[0], dtype=torch.float32, device=a.device)
+    (whole TILE_C tiles) at a time, of every window of a stacked group
+    at once: the fwd fold carries from band to band, each band gives its
+    own columns' y_bwd."""
+    y_fwd = torch.zeros(p.pattern.shape[:-1], dtype=torch.float32, device=a.device)
     y_bwd = []
     for c0 in range(0, p.n_cols, p.band_cols):
         k = min(p.band_cols, p.n_cols - c0)
-        m = unpack_bits(p.pattern[:, c0 // 8: c0 // 8 + -(-k // 8)], k)
-        y_fwd = fwd_plain(m, a[c0: c0 + k], y_fwd)
+        m = unpack_bits(p.pattern[..., c0 // 8: c0 // 8 + -(-k // 8)], k)
+        y_fwd = fwd_plain(m, a[..., c0: c0 + k], y_fwd)
         y_bwd.append(bwd_plain(m, b))
-    return y_fwd, torch.cat(y_bwd)
+    return y_fwd, torch.cat(y_bwd, -1)
 
 
 def _check_vectors(group: PatternGroup, rvs, svs) -> None:
@@ -519,15 +529,13 @@ def _check_precision(group: PatternGroup, precision: str, scales) -> None:
         raise ValueError(f"pattern_pair: unknown precision {precision!r} (expected {PRECISIONS})")
     if precision != "int8":
         return
-    if group.windows is not None:
-        raise NotImplementedError(
-            "pattern_pair: int8 operands of stacked windows are not ported yet "
-            "(ROADMAP.md 'Port queue' item 7 follow-ups)"
-        )
     # JAX quantizes only the kind pattern's operands: no x_ss, no bands.
     if any(p.w_out is not None or p.band_cols for p in group.parts):
         raise ValueError("pattern_pair: int8 runs the kind pattern only (no w_out, no bands)")
-    if scales is None or scales.shape != (2 * len(group.parts),) or scales.dtype != torch.float32:
+    lead = () if group.windows is None else (group.windows,)
+    if scales is None or scales.shape != lead + (2 * len(group.parts),) or (
+        scales.dtype != torch.float32
+    ):
         raise ValueError("pattern_pair: int8 needs the step's float32 scales (quantize_scales)")
 
 
@@ -585,7 +593,7 @@ def pattern_pair_group(
             p.pattern.data_ptr(), rv.data_ptr(), p.w_len.data_ptr(),
             sv.data_ptr(), p.w_cov.data_ptr(),
             None if p.w_out is None else p.w_out.data_ptr(),
-            None if scales is None else scales[2 * i:].data_ptr(),
+            None if scales is None else scales.view(-1)[2 * i:].data_ptr(),
             y_fwd.data_ptr(), y_bwd.data_ptr(),
             None if p.w_out is None else x_ss.data_ptr(),
             p.part.data_ptr(), p.counters.data_ptr(),
@@ -599,7 +607,7 @@ def pattern_pair_group(
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if group.blocked:
-        rc = lib.mr_pattern_pair_blocked(c_ptrs, c_ints, len(group.parts), index, stream)
+        rc = lib.mr_pattern_pair_blocked(c_ptrs, c_ints, len(group.parts), n_win, index, stream)
     else:
         rc = lib.mr_pattern_pair(c_ptrs, c_ints, len(group.parts),
                                  PRECISIONS.index(precision), n_win, index, stream)
@@ -675,12 +683,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mr_pattern_pair_blocked.restype = ctypes.c_int
     lib.mr_pattern_pair_blocked.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, ints
-        ctypes.c_int32, ctypes.c_int, ptr,                    # n_parts, device, stream
+        ctypes.c_int32, ctypes.c_int32,                       # n_parts, n_windows
+        ctypes.c_int, ptr,                                    # device, stream
     ]
     lib.mr_quantize_amax.restype = ctypes.c_int
     lib.mr_quantize_amax.argtypes = [
         ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # ptrs, lengths
-        ctypes.c_int32, ptr, ptr,                             # n_vecs, scales, scratch
+        ctypes.c_int32, ctypes.c_int32, ptr, ptr,             # n_vecs, n_windows, scales, scratch
         ctypes.c_int, ptr,                                    # device, stream
     ]
     lib.mr_pattern_error_string.restype = ctypes.c_char_p

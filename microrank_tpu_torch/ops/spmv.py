@@ -37,7 +37,12 @@ partition's trace side read straight from its ELL slab, rows of W
 slots with zero-valued padding. ``ell_part`` counts a slab's rows once
 and picks how the kernel reads them (``ell_mode``). ``ell_spmv_plain``
 sums an ELL row in the order K1 sums the same row as a work item, so
-both give the same bits.
+both give the same bits. A stacked group's step (``PcsrGroup.rows.
+windows``) is the same launch: its work list block-diagonal, as above,
+and each partition's slabs of all B windows one slab of B * T rows, the
+rows of window b reading x at b * V; every read mode gives K1's order
+of a row's live entries (``ell_mode``), so a window's bits do not
+depend on the mode its group's slab is read in.
 
 What bounds the kernel on the card, and what it does about it, is in
 the note at the top of the CUDA source.
@@ -395,7 +400,16 @@ def ell_mode(width: int, n_rows: int, n_live: int) -> int:
     length, reading only the columns of 32 slots that hold live entries,
     8 threads a row where rows hold 32 entries or fewer on average
     (ELL_SHORT), else one warp a row with every load of a chunk in
-    flight at once, as K1 (ELL_WARP)."""
+    flight at once, as K1 (ELL_WARP).
+
+    The mode moves no bit: each sums a row's live prefix in K1's order
+    for that row as a work item (lane l the positions l, l + 32, ...
+    of each chunk of 256, the tree 16 ... 1, the chunks left to right),
+    which depends on the row's entries alone; lanes past a narrow row
+    hold +0, which changes no sum. So a stacked group's slab, padded to
+    its widest window and read in one mode, gives each window the bits
+    of its own slab read in its own mode (``ell_spmv_plain`` holds both;
+    the card tests hold widths 4 and 64 under one padded width)."""
     if width <= WARP:
         return ELL_SLAB
     return ELL_WARP if n_live > WARP * n_rows else ELL_SHORT
@@ -415,7 +429,10 @@ class PcsrGroup(NamedTuple):
     """One pcsr step as one launch reads it: the work list ``rows`` of
     the matrices with long rows, then the ELL slabs ``ell``. Output m of
     the step is matrix ``order[m]`` of ``rows``' matrices followed by the
-    slabs."""
+    slabs. A stacked group (``rows.windows`` B): the work list is
+    block-diagonal, each slab holds the B windows' rows one after another
+    (ops offset into the flat [B * V] x), the x slots are [B, n] and the
+    outputs [B, n]."""
 
     rows: SpmvGroup
     ell: Tuple[EllPart, ...]
@@ -451,6 +468,8 @@ def ell_spmv_plain(ops: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> to
 
 def _ell_split(group: PcsrGroup, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     outs = y.split_with_sizes([*group.rows.n_rows, *(e.ops.shape[0] for e in group.ell)])
+    if group.rows.windows is not None:
+        outs = [t.view(group.rows.windows, -1) for t in outs]
     return tuple(outs[m] for m in group.order)
 
 
@@ -459,9 +478,10 @@ def pcsr_spmv_group_plain(
 ) -> Tuple[torch.Tensor, ...]:
     """The pcsr step's plain version: ``coo_spmv_group_plain`` over the
     work list, ``ell_spmv_plain`` over each slab."""
+    flat = _flat_xs(group.rows, xs)
     y = torch.cat([
-        *coo_spmv_group_plain(group.rows, xs),
-        *(ell_spmv_plain(e.ops, e.vals, xs[e.slot]) for e in group.ell),
+        *(t.reshape(-1) for t in coo_spmv_group_plain(group.rows, xs)),
+        *(ell_spmv_plain(e.ops, e.vals, flat[e.slot]) for e in group.ell),
     ])
     return _ell_split(group, y)
 
@@ -472,12 +492,15 @@ def pcsr_spmv_group(
     """Every product of one pcsr step, in ``group.order``, as views of
     one flat y. CPU tensors run the plain version; CUDA tensors launch
     the kernel once (counted in ``pcsr_spmv_group.launches``, the SpMVs
-    in ``.spmvs``) or raise: there is no fallback for a CUDA tensor. A
-    group is used by one stream at a time."""
+    in ``.spmvs``, a stacked group's per window) or raise: there is no
+    fallback for a CUDA tensor. A group is used by one stream at a time.
+    A stacked group reads [B, n] x's and gives [B, n] outputs, one launch
+    for all its windows."""
     dev = xs[0].device
     if dev.type == "cpu":
         return pcsr_spmv_group_plain(group, xs)
     rows = group.rows
+    xs = _flat_xs(rows, xs)
     _check_cuda_xs(rows, xs, dev)
     if not 0 < len(group.ell) <= MAX_ELL:
         raise ValueError(f"pcsr_spmv: 1 to {MAX_ELL} ELL slabs")
@@ -525,7 +548,7 @@ def pcsr_spmv_group(
     if rc != 0:
         raise RuntimeError(f"pcsr_spmv launch failed: {lib.mr_cuda_error_string(rc).decode()}")
     pcsr_spmv_group.launches += 1
-    pcsr_spmv_group.spmvs += len(rows.x_slots) + k
+    pcsr_spmv_group.spmvs += (len(rows.x_slots) + k) * (rows.windows or 1)
     return _ell_split(group, y)
 
 

@@ -39,8 +39,8 @@ step also gives the next step's four quantization scales
   same buffers.
   A stacked group of B windows (K18) passes [B, n] vectors: one launch
   a step of the group's kernel (``step_grid_group``) runs 2B
-  partitions, each window with its own maxima, residuals, n_iters and
-  running flag (scratch ``step_scratch_size(B)``).
+  partitions, each window with its own maxima, residuals, n_iters,
+  running flag and int8 scales ([B, 4]; scratch ``step_scratch_size(B)``).
 * ``power_step`` — one step with fresh outputs (the tests' and
   chip_smoke's signature): a ``StepWindow`` of its own, the same launch;
   on CPU tensors ``power_step_plain``, the port's eager code as it
@@ -68,8 +68,8 @@ from .spmv import nvcc
 
 # The kernel's scratch of one window, int32: four vector maxima, two
 # residuals, four int8 amax slots and an arrival count (csrc kScratch),
-# 0 between steps. A group of B windows holds the maxima and residuals of
-# each window: step_scratch_size(B).
+# 0 between steps. A group of B windows holds the maxima, residuals and
+# amax slots of each window: step_scratch_size(B).
 STEP_SCRATCH = 11
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "power_step.cu"
 LIB_PATH = BUILD_DIR / "libmr_power_step.so"
@@ -79,7 +79,7 @@ _lib_lock = threading.Lock()
 
 def step_scratch_size(windows: int = 1) -> int:
     """int32 slots of the step kernel's scratch for ``windows`` windows."""
-    return 6 * windows + 5
+    return (STEP_SCRATCH - 1) * windows + 1
 
 # A partition's carry (sv, rv) and a step's products (y_sr, y_ss, y_rs).
 Carry = Tuple[Tuple[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -105,7 +105,8 @@ class StepPlan(NamedTuple):
     normalize: bool                           # max_normalize_each_iter
     scratch: torch.Tensor                     # int32[STEP_SCRATCH], the kernel's
     # int8 (kind): the pattern group whose operands the next step
-    # quantizes (each partition's w_len for rv, w_cov for sv).
+    # quantizes (each partition's w_len for rv, w_cov for sv; [B, n] for
+    # a stacked group, which gets [B, 4] scales).
     scale_group: Optional[PatternGroup] = None
 
 
@@ -213,7 +214,7 @@ def _check_window(plan, carry, residuals, n_iters, running, dev) -> None:
     float32 on one device, of matching lengths, 1-d for one window and
     [B, n] for a group of B; the residual trace [2, n_steps] ([B, 2,
     n_steps]); the tol state (0-d, or [B]); the scratch; the int8 weights
-    (one window only)."""
+    (the carry's shapes)."""
     if len(plan.prefs) != 2 or len(carry) != 2:
         raise ValueError("power_step: a carry and a preference vector per partition (2)")
     lead = tuple(carry[0][0].shape[:-1])
@@ -246,11 +247,6 @@ def _check_window(plan, carry, residuals, n_iters, running, dev) -> None:
     ):
         raise ValueError(f"power_step: the plan's scratch must be int32[{n_scratch}] on {dev}")
     if plan.scale_group is not None:
-        if lead:
-            raise NotImplementedError(
-                "power_step: int8 scales of stacked windows are not ported yet "
-                "(ROADMAP.md 'Port queue' item 7 follow-ups)"
-            )
         for part, (sv, rv) in zip(plan.scale_group.parts, carry):
             if part.w_len.shape != rv.shape or part.w_cov.shape != sv.shape or any(
                 t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
@@ -339,7 +335,8 @@ class StepWindow:
     vectors, residuals [B, 2, n_steps] and [B] n_iters / running: one
     launch a step of the group's kernel for all of them (``windows``;
     ``slots`` 0, one element a thread, ``units`` runs of 256 elements
-    that the grid's blocks walk; or the plain step; no int8 scales)."""
+    that the grid's blocks walk; or the plain step; int8 scales [B, 4],
+    each window's own)."""
 
     def __init__(self, plan: StepPlan, carry: Carry, residuals: torch.Tensor,
                  n_iters: Optional[torch.Tensor] = None, running: Optional[torch.Tensor] = None,
@@ -367,7 +364,7 @@ class StepWindow:
         self.slot = 0
         self.scales = None
         if plan.scale_group is not None:
-            self.scales = torch.empty(4, dtype=torch.float32, device=dev)
+            self.scales = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
         self._products_checked = False
         self.grid = self.per_thread = self.slots = self.units = None
         self._handle = None

@@ -7,8 +7,10 @@ A batch of window graphs is stacked with a leading window axis: every
 field re-padded to the batch maximum, padding inert, each window's true
 extents in its ``n_*`` scalars (stacked to [B]). One rank program then
 ranks the whole stack (``rank_backends.torch_cuda.rank_window_traced_core``
-on a stacked graph, K18): each power-iteration step is one launch of K1,
-one of the pattern pair and one of K5 for all B windows.
+on a stacked graph, K18): each power-iteration step is one launch of each
+kernel of the route (K1, the pattern pair or K8, the pcsr step, K5) for
+all B windows, on every route. As JAX's ``_rank_windows_batched_jit``,
+packed_blocked's block budget is divided by B (``divide_block_budget``).
 """
 
 from __future__ import annotations
@@ -194,6 +196,7 @@ def _rank_stacked(batched: WindowGraph, pagerank_cfg, spectrum_cfg, kernel, devi
     from ..rank_backends.torch_cuda import (
         choose_kernel,
         device_subset,
+        divide_block_budget,
         host_subset,
         rank_window_traced_core,
     )
@@ -201,6 +204,7 @@ def _rank_stacked(batched: WindowGraph, pagerank_cfg, spectrum_cfg, kernel, devi
 
     if kernel == "auto":
         kernel = choose_kernel(batched)
+    pagerank_cfg = divide_block_budget(pagerank_cfg, kernel, batched.normal.kind.shape[0])
     dgraph = device_subset(
         graph_from_numpy(host_subset(batched, kernel), resolve_device(device)),
         kernel,

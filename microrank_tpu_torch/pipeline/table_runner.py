@@ -30,7 +30,10 @@ per group or, under bulk, all groups at once) and the two-phase
 ``run(batch_windows=True)`` (detect every window, then build and rank
 all anomalous ones in one stacked program). A stacked program is K18
 (``rank_backends.torch_cuda`` on a ``parallel.stack_window_graphs``
-graph): one launch of each kernel a power-iteration step for the group.
+graph): one launch of each kernel a power-iteration step for the group,
+whatever kernel it resolves to (kind in every precision, packed,
+packed_bf16, packed_blocked, pcsr, pallas), so a group of windows past
+the dense budget ranks as one program too.
 
 Not ported yet (ROADMAP.md "Port queue"): the mesh and the quarantine
 store.
@@ -72,6 +75,7 @@ from ..rank_backends.convert import graph_from_numpy
 from ..rank_backends.torch_cuda import (
     choose_kernel,
     device_subset,
+    divide_block_budget,
     host_subset,
     pack_rank_outputs,
     rank_window_traced_core,
@@ -249,10 +253,15 @@ class TableRCA:
         graph or a stacked group's (``parallel.stack_window_graphs``):
         the fields the kernel reads copied to the device, the kernels'
         layouts, the program and the start of its outputs' one copy, all
-        on the current stream. A stacked group whose kernel does not run
-        stacked (packed_blocked, pcsr, int8) raises NotImplementedError:
-        there is no per-window fallback. Returns the packed outputs."""
+        on the current stream. A stacked group of B windows is one
+        program on every route, packed_blocked's block budget divided by
+        B as JAX's group launch divides it (``divide_block_budget``).
+        Returns the packed outputs."""
         cfg = self.config
+        kind = graph.normal.kind
+        pagerank_cfg = divide_block_budget(
+            cfg.pagerank, kernel, kind.shape[0] if kind.ndim == 2 else 1
+        )
         host = host_subset(graph, kernel)
         # Per-leaf staging, the JAX lane's "tree" path: one copy per
         # field of each partition.
@@ -261,10 +270,10 @@ class TableRCA:
         dgraph = device_subset(
             graph_from_numpy(host, self.device),
             kernel,
-            cfg.pagerank.packed_block_bytes,
+            pagerank_cfg.packed_block_bytes,
         )
         outs = rank_window_traced_core(
-            dgraph, cfg.pagerank, cfg.spectrum, kernel
+            dgraph, pagerank_cfg, cfg.spectrum, kernel
         )
         return pack_rank_outputs(outs)
 

@@ -57,8 +57,12 @@ the same program once for all B (K18, the counterpart of JAX's
 list, one pattern group and one K5 state built for the group, a step
 one launch of each kernel for all its windows, the epilogue over [B, V],
 one copy of the [B] outputs. The set-up and the epilogue read each
-window's own ``n_*`` scalars. ``kind`` (f32, bf16), ``packed``,
-``packed_bf16`` and ``pallas`` run stacked; the others raise.
+window's own ``n_*`` scalars. Every kernel runs stacked: kind (f32,
+bf16, int8: ``quantize_amax`` and the step give [B, 4] scales, each
+window's own), packed, packed_bf16, packed_blocked (K8 with a window
+axis; the plain version's bands within ``packed_block_bytes`` divided
+by B, ``divide_block_budget``), pcsr (one slab of the B windows' rows
+per partition) and pallas.
 
 Scalars that JAX keeps as float32 (damping, call weight, eps, tol) are
 float32 here (0-d tensors filled on the device, or the step kernel's
@@ -67,6 +71,7 @@ float32 arguments), so each product rounds in float32 as it does there.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -116,11 +121,6 @@ def _check_kernel(kernel: str) -> None:
         )
 
 
-# Kernels whose step runs a stacked group of windows (K18): K1, the
-# pattern pair in f32 / bf16 and K5 take a window axis.
-BATCHED_KERNELS = ("kind", "packed", "packed_bf16", "pallas")
-
-
 def stacked_windows(graph: WindowGraph) -> Optional[int]:
     """B for a stacked group of windows (``parallel.sharded_rank.
     stack_window_graphs``: every field has a leading window axis), None
@@ -128,11 +128,18 @@ def stacked_windows(graph: WindowGraph) -> Optional[int]:
     return int(graph.normal.kind.shape[0]) if graph.normal.kind.dim() == 2 else None
 
 
-def _not_batched(what: str) -> str:
-    return (
-        f"{what} does not run on a stacked group of windows yet (ROADMAP.md "
-        "'Port queue' item 7 follow-ups: batched packed_blocked, pcsr, int8); "
-        "rank its windows one by one"
+def divide_block_budget(pagerank_cfg: PageRankConfig, kernel: str, n_resident: int):
+    """``jax_tpu.divide_block_budget``: with ``n_resident`` windows live
+    at once (a stacked group), packed_blocked's plain version unpacks a
+    band of every window together, so each window's band budget is
+    ``packed_block_bytes // n_resident`` and the band stays within the
+    budget. Other kernels and single windows keep the config. The
+    kernels never unpack, and a band of whole column tiles moves no bit."""
+    if kernel != "packed_blocked" or n_resident <= 1:
+        return pagerank_cfg
+    return dataclasses.replace(
+        pagerank_cfg,
+        packed_block_bytes=max(1, pagerank_cfg.packed_block_bytes // int(n_resident)),
     )
 
 
@@ -271,21 +278,29 @@ def _pcsr_sr_layout(g: PartitionGraph) -> RowLayout:
     entry j of partition p's table belongs to op o when its block
     j // PCSR_BLOCK lies in [pc_blk_indptr[p, o], pc_blk_indptr[p, o + 1]);
     its column is the global trace pc_trace + p * PCSR_PART_TRACES. Only
-    the nonzero (live) entries are kept."""
-    v = g.cov_unique.shape[0]
-    n_parts, e_blk = g.pc_trace.shape
+    the nonzero (live) entries are kept. A stacked group's partition
+    ([B, P, .] tables) gives one block-diagonal layout: window b's rows
+    at b * V, its columns at b * T, each row's entries in its window's
+    order."""
+    v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
+    lead = tuple(g.pc_trace.shape[:-2])
+    n_parts, e_blk = g.pc_trace.shape[-2:]
     dev = g.pc_trace.device
     blocks = torch.arange(e_blk // PCSR_BLOCK, dtype=torch.int64, device=dev)
     block_op = torch.searchsorted(
-        g.pc_blk_indptr[:, 1:].to(torch.int64).contiguous(),
-        blocks.expand(n_parts, -1).contiguous(),
+        g.pc_blk_indptr[..., 1:].to(torch.int64).contiguous(),
+        blocks.expand(*lead, n_parts, -1).contiguous(),
         right=True,
     )
     live = g.pc_sr_val != 0
-    sr_rows = block_op.repeat_interleave(PCSR_BLOCK, dim=1)[live].to(torch.int32)
+    rows = block_op.repeat_interleave(PCSR_BLOCK, dim=-1)
     part_base = torch.arange(n_parts, dtype=torch.int32, device=dev)[:, None] * PCSR_PART_TRACES
-    sr_cols = (g.pc_trace + part_base)[live]
-    return row_layout(sr_rows, sr_cols, g.pc_sr_val[live], v)
+    cols = g.pc_trace + part_base
+    if lead:
+        win = torch.arange(lead[0], dtype=torch.int32, device=dev)[:, None, None]
+        rows, cols = rows + win * v, cols + win * t_pad
+    n_rows = (lead[0] if lead else 1) * v
+    return row_layout(rows[live].to(torch.int32), cols[live], g.pc_sr_val[live], n_rows)
 
 
 def pcsr_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
@@ -332,17 +347,20 @@ def _ell_checks(g: PartitionGraph) -> Tuple[torch.Tensor, torch.Tensor]:
     """A partition's ELL slab row lengths, and what the pcsr kernel takes
     on trust about the slab, as counts on the device: (nonzero entries,
     live entries after a padding slot of their row, live ops outside
-    [0, V)). The kernel reads a row's live entries as a prefix of its
-    length and does not check ops."""
+    [0, V), nonzero forward entries, n_inc), each a window's for a
+    stacked group ([B, 5]). The kernel reads a row's live entries as a
+    prefix of its length and does not check ops."""
     live = g.pc_ell_rs != 0
     ops = g.pc_ell_op
-    v = g.cov_unique.shape[0]
-    lens = live.sum(1, dtype=torch.int32)
+    v = g.cov_unique.shape[-1]
+    lens = live.sum(-1, dtype=torch.int32)
     return lens, torch.stack([
-        lens.sum(dtype=torch.int64),
-        (live[:, 1:] & ~live[:, :-1]).sum(),
-        (live & ((ops < 0) | (ops >= v))).sum(),
-    ])
+        lens.sum(-1, dtype=torch.int64),
+        (live[..., 1:] & ~live[..., :-1]).sum((-2, -1)),
+        (live & ((ops < 0) | (ops >= v))).sum((-2, -1)),
+        (g.pc_sr_val != 0).sum((-2, -1)),
+        g.n_inc.to(torch.int64),
+    ], -1)
 
 
 # x slots of a pcsr step's work list (p_sr, p_ss of each partition) and
@@ -358,35 +376,55 @@ def window_pcsr_group(graph: WindowGraph) -> PcsrGroup:
     partition-centric views: K1's work list of p_sr (``_pcsr_sr_layout``)
     and p_ss of both partitions, and each partition's ELL slab as it
     lies on the device (p_rs), with its row lengths and the mode the
-    kernel reads it in (``ell_mode``). Checks, once per window, that each
-    partition's tables hold ``n_inc`` live entries, that every slab row's
-    live entries form a prefix and that their ops index x."""
+    kernel reads it in (``ell_mode``). Checks, with one host sync, that
+    each partition's tables hold ``n_inc`` live entries, that every slab
+    row's live entries form a prefix and that their ops index x.
+
+    A stacked group of B windows: the work list block-diagonal over the
+    windows (``_pcsr_sr_layout``, ``row_layout``), each partition's slabs
+    one slab of B * T rows (window b's rows after window b - 1's, its
+    live ops moved by b * V into the flat x), read in one mode (which
+    moves no bit, ``ell_mode``); the checks are each window's, still
+    one sync for the group."""
+    windows = stacked_windows(graph)
     parts = (graph.normal, graph.abnormal)
     layouts, n_x, lens, counts = [], [], [], []
     for g in parts:
         _require_pc_views(g)
-        v = g.cov_unique.shape[0]
-        sr = _pcsr_sr_layout(g)
-        layouts += [sr, row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss)]
-        n_x += [g.kind.shape[0], v]
+        v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
+        layouts += [_pcsr_sr_layout(g),
+                    row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss, n_x=v)]
+        n_x += [(windows or 1) * n for n in (t_pad, v)]
         row_lens, c = _ell_checks(g)
-        lens.append(row_lens)
-        counts.append(c)
+        lens.append(row_lens.reshape(-1))
+        counts.append(c.reshape(-1, c.shape[-1]))
     checks = torch.stack(counts).tolist()
-    for g, lay, (n_rs, gaps, bad_ops) in zip(parts, layouts[::2], checks):
-        _check_pc_liveness(g, lay.cols.shape[0], n_rs)
-        if gaps or bad_ops:
-            raise ValueError(
-                f"pcsr ELL slab: {gaps} live entries after padding, "
-                f"{bad_ops} ops outside [0, {g.cov_unique.shape[0]})"
-            )
+    for g, per_window in zip(parts, checks):
+        for b, (n_rs, gaps, bad_ops, n_sr, n_inc) in enumerate(per_window):
+            where = "" if windows is None else f" (window {b})"
+            if not n_sr == n_rs == n_inc:
+                raise ValueError(
+                    f"pcsr views hold {n_sr} forward and {n_rs} backward nonzero "
+                    f"entries, not n_inc={n_inc}{where}"
+                )
+            if gaps or bad_ops:
+                raise ValueError(
+                    f"pcsr ELL slab: {gaps} live entries after padding, "
+                    f"{bad_ops} ops outside [0, {g.cov_unique.shape[-1]}){where}"
+                )
+    ell = []
+    for g, slot, row_lens, per_window in zip(parts, PCSR_ELL_SLOTS, lens, checks):
+        ops, vals = g.pc_ell_op, g.pc_ell_rs
+        if windows is not None:
+            win = torch.arange(windows, dtype=torch.int32, device=ops.device)[:, None, None]
+            ops = torch.where(vals != 0, ops + win * g.cov_unique.shape[-1], 0)
+            ops, vals = ops.reshape(-1, ops.shape[-1]), vals.reshape(-1, vals.shape[-1])
+        n_live = sum(w[0] for w in per_window)
+        ell.append(EllPart(ops.contiguous(), vals.contiguous(), slot, row_lens,
+                           ell_mode(ops.shape[1], ops.shape[0], n_live)))
     return PcsrGroup(
-        rows=spmv_group(layouts, PCSR_ROW_SLOTS, n_x),
-        ell=tuple(
-            EllPart(g.pc_ell_op.contiguous(), g.pc_ell_rs.contiguous(), slot, row_lens,
-                    ell_mode(g.pc_ell_op.shape[1], g.pc_ell_op.shape[0], n_rs))
-            for g, slot, row_lens, (n_rs, _, _) in zip(parts, PCSR_ELL_SLOTS, lens, checks)
-        ),
+        rows=spmv_group(layouts, PCSR_ROW_SLOTS, n_x, windows),
+        ell=tuple(ell),
         order=PCSR_ORDER,
     )
 
@@ -510,8 +548,6 @@ def window_weights_full(
     windows = stacked_windows(graph)
     lead = () if windows is None else (windows,)
     int8 = kernel == "kind" and cfg.kind_precision == "int8"
-    if windows is not None and int8:
-        raise NotImplementedError(_not_batched("kind with kind_precision='int8'"))
     pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
     pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
     six_spmvs = kernel in ("pallas", "pcsr")
@@ -796,13 +832,11 @@ def device_subset(
     trace side); for the kind and packed kernels, the pattern-pair group of
     both coverage patterns (``window_pattern_group``; packed_blocked's
     plain version in bands of ``packed_block_bytes``) and K1's work list
-    of both call-graph terms. A stacked group of windows (kind, packed,
-    packed_bf16, pallas) gets one work list, one pattern group and one
-    step scratch for all of them; the other kernels raise."""
+    of both call-graph terms. A stacked group of windows gets one work
+    list, one pattern group and one step scratch for all of them (the
+    caller divides ``packed_block_bytes`` by B, ``divide_block_budget``)."""
     _check_kernel(kernel)
     windows = stacked_windows(graph)
-    if windows is not None and kernel not in BATCHED_KERNELS:
-        raise NotImplementedError(_not_batched(f"kernel={kernel!r}"))
     scratch = step_scratch(graph.normal.kind.device, windows or 1)
     if kernel == "pallas":
         return graph._replace(spmv_group=window_spmv_group(graph), step_scratch=scratch)

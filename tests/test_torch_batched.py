@@ -7,21 +7,27 @@ plain version, which repeats the kernel's order).
   windows of different trace counts, for the kind, packed, auto and
   pcsr builds: every field of equal dtype and equal values;
 * the stacked program against JAX's ``rank_windows_batched_traced`` on
-  the same stack, for kind (f32, bf16), pallas, packed and packed_bf16:
-  identical ``n_valid`` and ``n_iters``, tie-aware top-k, scores rtol
-  1e-5 (bf16 5e-3), residuals rtol 1e-4 / atol 1e-6;
+  the same stack, for kind (f32, bf16, int8), pallas, packed,
+  packed_bf16, packed_blocked and pcsr: identical ``n_valid`` and
+  ``n_iters``, tie-aware top-k, scores rtol 1e-5 (bf16 and int8 5e-3,
+  as test_torch_int8.py holds an int8 window), residuals rtol 1e-4 /
+  atol 1e-6;
 * the stacked program against the port's per-window program on each
   window: bitwise (the only ops that could round otherwise are the two
   preference sums and the rescale's sum, taken over the padded axis:
   on these windows they do not);
 * ``tol`` with windows that stop at different steps, a window with an
-  empty normal partition, and the kernels that do not run stacked
-  (packed_blocked, pcsr, int8), which raise;
+  empty normal partition (its 0 / 0 NaN stays its own, int8 scales
+  included), packed_blocked's bands of several column tiles with the
+  block budget divided by B, and the int8 scales of a stack, each
+  window's own;
 * ``TableRCA.run`` with ``dispatch_batch_windows`` 2 and 4 (stream and
   bulk, async and sync) and ``batch_windows=True`` against JAX's same
   run (rankings, timings keys, journal keys) and against the port's
-  per-window run (rankings, bitwise); ``cli run
-  --dispatch-batch-windows`` against JAX's CLI.
+  per-window run (rankings, bitwise), also at dense budgets that send
+  the groups to packed_blocked and to pcsr; ``cli run
+  --dispatch-batch-windows`` against JAX's CLI, also with
+  ``--kind-precision int8``.
 """
 
 import dataclasses
@@ -76,6 +82,9 @@ ROUTES = [
     ("pallas", "f32", "auto", "off"),
     ("packed", "f32", "packed", "off"),
     ("packed_bf16", "f32", "packed", "off"),
+    ("packed_blocked", "f32", "packed", "off"),
+    ("pcsr", "f32", "pcsr", "off"),
+    ("kind", "int8", "kind", "on"),
 ]
 ROUTE_IDS = [f"{k}-{p}" for k, p, _, _ in ROUTES]
 BUILDS = [("kind", "on"), ("packed", "off"), ("auto", "on"), ("pcsr", "off")]
@@ -105,7 +114,7 @@ def window_graphs(cases, aux, collapse, empty_normal=()):
 
 
 def rtol_of(kernel, precision):
-    return 5e-3 if "bf16" in (kernel[-4:], precision) else 1e-5
+    return 5e-3 if "bf16" in (kernel[-4:], precision) or precision == "int8" else 1e-5
 
 
 def jax_batched(graphs, kernel, **pr):
@@ -129,8 +138,10 @@ def port_window(graph, kernel, **pr):
     )
 
 
-def assert_rows_match(j, t, b, rtol):
-    """Window b of two stacked programs' outputs."""
+def assert_rows_match(j, t, b, rtol, res_rtol=1e-4):
+    """Window b of two stacked programs' outputs (int8: residuals at
+    ``res_rtol`` 5e-3, the int8 score tolerance: a quantization step
+    flipped by the f32 call-graph term moves a residual by about 1e-3)."""
     n = int(t[2][b])
     assert (int(j[2][b]), int(j[4][b])) == (n, int(t[4][b]))
     ok, why = tie_aware_topk_agreement(
@@ -139,7 +150,11 @@ def assert_rows_match(j, t, b, rtol):
     )
     assert ok, f"window {b}: {why}"
     np.testing.assert_allclose(t[1][b][:n], j[1][b][:n], rtol=rtol)
-    np.testing.assert_allclose(t[3][b], j[3][b], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(t[3][b], j[3][b], rtol=res_rtol, atol=1e-6)
+
+
+def res_rtol_of(precision):
+    return 5e-3 if precision == "int8" else 1e-4
 
 
 def assert_row_is_window(t, b, w):
@@ -174,7 +189,7 @@ def test_stacked_program_matches_jax_and_each_window(cases, kernel, precision, a
     assert t[0].shape[0] == t[4].shape[0] == len(graphs)
     assert t[3].shape == (len(graphs), 2, PageRankConfig().iterations)
     for b, graph in enumerate(graphs):
-        assert_rows_match(j, t, b, rtol_of(kernel, precision))
+        assert_rows_match(j, t, b, rtol_of(kernel, precision), res_rtol_of(precision))
         assert_row_is_window(t, b, port_window(graph, kernel, kind_precision=precision))
     # rank_windows_batched is the traced program's first three outputs.
     short = rank_windows_batched(
@@ -199,52 +214,127 @@ def test_auto_resolves_the_stack_as_jax_does(cases):
         assert_rows_match(j, t, b, rtol_of(want, "f32"))
 
 
-@pytest.mark.parametrize("kernel,aux,collapse", [
-    ("kind", "kind", "on"), ("pallas", "auto", "off"), ("packed", "packed", "off"),
-])
-def test_tol_freezes_each_window_on_its_own_step(cases, kernel, aux, collapse):
+@pytest.mark.parametrize("kernel,aux,collapse,precision", [
+    ("kind", "kind", "on", "f32"), ("pallas", "auto", "off", "f32"),
+    ("packed", "packed", "off", "f32"), ("packed_blocked", "packed", "off", "f32"),
+    ("pcsr", "pcsr", "off", "f32"), ("kind", "kind", "on", "int8"),
+], ids=["kind", "pallas", "packed", "packed_blocked", "pcsr", "kind-int8"])
+def test_tol_freezes_each_window_on_its_own_step(cases, kernel, aux, collapse, precision):
     graphs = window_graphs(cases, aux, collapse)
-    pr = dict(tol=2e-5, iterations=60)
+    # int8's residuals settle at its quantization step, 1e-3 to 3e-3 here.
+    tol = 3e-3 if precision == "int8" else 2e-5
+    pr = dict(tol=tol, iterations=60, kind_precision=precision)
     j = jax_batched(graphs, kernel, **pr)
     t = port_batched(graphs, kernel, **pr)
     n_iters = [int(n) for n in t[4]]
     assert len(set(n_iters)) > 1 and max(n_iters) < 60, n_iters
     for b, graph in enumerate(graphs):
-        assert_rows_match(j, t, b, 1e-5)
+        assert_rows_match(j, t, b, rtol_of(kernel, precision), res_rtol_of(precision))
         assert not t[3][b][:, n_iters[b]:].any()
         assert_row_is_window(t, b, port_window(graph, kernel, **pr))
 
 
-@pytest.mark.parametrize("kernel,aux,collapse", [("kind", "kind", "on"), ("pallas", "auto", "off")])
-def test_a_window_with_an_empty_normal_partition(cases, kernel, aux, collapse):
+@pytest.mark.parametrize("kernel,aux,collapse,precision", [
+    ("kind", "kind", "on", "f32"), ("pallas", "auto", "off", "f32"),
+    ("pcsr", "pcsr", "off", "f32"), ("kind", "kind", "on", "int8"),
+], ids=["kind", "pallas", "pcsr", "kind-int8"])
+def test_a_window_with_an_empty_normal_partition(cases, kernel, aux, collapse, precision):
     graphs = window_graphs(cases, aux, collapse, empty_normal=(1,))
-    t = port_batched(graphs, kernel)
-    j = jax_batched(graphs, kernel)
+    t = port_batched(graphs, kernel, kind_precision=precision)
+    j = jax_batched(graphs, kernel, kind_precision=precision)
     for b, graph in enumerate(graphs):
-        w = port_window(graph, kernel)
+        w = port_window(graph, kernel, kind_precision=precision)
         n = w[2]
         assert (int(t[2][b]), int(t[4][b])) == (n, w[4]) == (int(j[2][b]), int(j[4][b]))
         np.testing.assert_array_equal(t[0][b][:n], w[0][:n])
         np.testing.assert_array_equal(t[1][b][:n], w[1][:n])  # NaN where it is NaN
         np.testing.assert_array_equal(t[3][b], w[3])
-        np.testing.assert_allclose(t[3][b], j[3][b], rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(t[3][b], j[3][b], rtol=res_rtol_of(precision), atol=1e-6)
     assert np.isnan(t[3][1][0]).all()  # the empty partition's 0 / 0
-    for b in (0, 2):
+    for b in (0, 2):  # its NaN reaches no other window (int8: no other scale)
+        assert_rows_match(j, t, b, rtol_of(kernel, precision), res_rtol_of(precision))
+
+
+# Two and three windows of more than one column tile (TILE_C = 512
+# traces), unequal, for packed_blocked's bands.
+WIDE_WINDOWS = ((1100, 11), (700, 12), (1500, 13))
+
+
+@pytest.fixture(scope="module")
+def wide_graphs():
+    out = []
+    for n, seed in WIDE_WINDOWS:
+        case = jax_generate_case(JaxSynthetic(n_operations=16, n_traces=n, seed=seed))
+        nrm, abn = partition_case(case)
+        out.append(build_window_graph(case.abnormal, nrm, abn, aux="packed", collapse="off")[0])
+    return out
+
+
+@pytest.mark.parametrize("n_windows", [2, 3])
+def test_packed_blocked_bands_of_a_stack_are_each_windows_bits(wide_graphs, n_windows):
+    # A budget of a few column tiles' f32: the single windows unpack
+    # bands of whole tiles, and the stack's plain version bands of the
+    # budget divided by B (JAX's divide_block_budget), which must not move
+    # a bit: K8 folds whole column tiles in a fixed order.
+    from microrank_tpu.rank_backends.jax_tpu import divide_block_budget as jax_divide
+    from microrank_tpu_torch.rank_backends.torch_cuda import divide_block_budget
+
+    graphs = wide_graphs[:n_windows]
+    budget = 2 * 4 * 16 * 512  # two column tiles of a 16-row bitmap, f32
+    pr = dict(packed_block_bytes=budget)
+    got = divide_block_budget(PageRankConfig(**pr), "packed_blocked", n_windows)
+    want = jax_divide(JaxPageRank(**pr), "packed_blocked", n_windows)
+    assert got.packed_block_bytes == want.packed_block_bytes == budget // n_windows
+    assert divide_block_budget(PageRankConfig(**pr), "packed", n_windows).packed_block_bytes == budget
+    stacked = stack_window_graphs(graphs)
+    dg = device_subset(graph_from_numpy(host_subset(stacked, "packed_blocked"), "cpu"),
+                       "packed_blocked", got.packed_block_bytes)
+    wide = dg.pattern_group.parts[1]  # the abnormal partition: 2 or 3 column tiles
+    assert wide.band_cols == 512 and wide.n_cols >= 1024
+    t = port_batched(graphs, "packed_blocked", **pr)
+    j = jax_batched(graphs, "packed_blocked", **pr)
+    for b, graph in enumerate(graphs):
         assert_rows_match(j, t, b, 1e-5)
+        assert_row_is_window(t, b, port_window(graph, "packed_blocked", **pr))
+        # and bitwise the whole-matrix (no band) program of the window
+        assert_row_is_window(t, b, port_window(graph, "packed_blocked"))
 
 
-@pytest.mark.parametrize("kernel,aux,collapse,precision", [
-    ("packed_blocked", "packed", "off", "f32"),
-    ("pcsr", "pcsr", "off", "f32"),
-    ("kind", "kind", "on", "int8"),
-])
-def test_kernels_that_do_not_run_stacked_raise(cases, kernel, aux, collapse, precision):
-    stacked = stack_window_graphs(window_graphs(cases, aux, collapse))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        rank_windows_batched_traced(
-            stacked, PageRankConfig(kind_precision=precision), SpectrumConfig(), kernel,
-            device="cpu",
+def test_int8_scales_of_a_stack_are_each_windows_own(cases):
+    # quantize_scales on [B, n] vectors: [B, 4], window b's row bitwise
+    # the scales of its own group on its own vectors (JAX's quantize_i8
+    # under vmap), one window all zeros (scale 1) and one with a NaN.
+    import torch
+
+    from microrank_tpu_torch.ops import pattern
+
+    graphs = window_graphs(cases, "kind", "on")
+    card = device_subset(graph_from_numpy(host_subset(stack_window_graphs(graphs), "kind"),
+                                          "cpu"), "kind")
+    b = len(graphs)
+    rng = np.random.default_rng(4)
+    parts = (card.normal, card.abnormal)
+    rvs = [torch.from_numpy(rng.uniform(0, 1, (b, p.kind.shape[-1])).astype(np.float32))
+           for p in parts]
+    svs = [torch.from_numpy(rng.uniform(0, 1, (b, p.cov_unique.shape[-1])).astype(np.float32))
+           for p in parts]
+    rvs[0][1] = 0.0
+    svs[0][1] = 0.0
+    svs[1][2, 3] = float("nan")
+    got = pattern.quantize_scales(card.pattern_group, rvs, svs)
+    assert got.shape == (b, 4)
+    for w, graph in enumerate(graphs):
+        one = device_subset(graph_from_numpy(host_subset(graph, "kind"), "cpu"), "kind")
+        n_t = [p.kind.shape[-1] for p in (one.normal, one.abnormal)]
+        n_v = one.normal.cov_unique.shape[-1]
+        want = pattern.quantize_scales(
+            one.pattern_group, [rv[w, :n] for rv, n in zip(rvs, n_t)],
+            [sv[w, :n_v] for sv in svs],
         )
+        assert got[w].numpy().tobytes() == want.numpy().tobytes(), w
+    assert got[1, :2].tolist() == [1.0, 1.0]  # all zeros: scale 1
+    assert got[2, 3].item() == 1.0  # NaN: scale 1, that window's only
+    assert got[0, 3].item() != 1.0
 
 
 # ------------------------------------------------------------ the loop
@@ -382,6 +472,41 @@ def test_batch_windows_run_matches_jax_and_the_per_window_run(
     assert not (tmp_path / "torch" / "cursor.json").exists()
 
 
+# Dense budgets (collapse off) at which every window of the timeline
+# resolves to the route, alone and in the batch's build (the budget
+# divided by the 6 windows of run(batch_windows=True)).
+BUDGET_ROUTES = {"packed_blocked": 21 << 10, "pcsr": 2 << 10}
+
+
+@pytest.fixture(scope="module")
+def per_window_runs(tables):
+    out = {}
+    for route, budget in BUDGET_ROUTES.items():
+        rca = TableRCA(port_config(pipeline_depth=1, async_dispatch=False, collapse_kinds="off",
+                                   dense_budget_bytes=budget), device="cpu")
+        rca.fit_baseline(tables[0][0])
+        out[route] = rca.run(tables[0][1])
+    return out
+
+
+@pytest.mark.parametrize("mode", ["k2", "batch"])
+@pytest.mark.parametrize("route", list(BUDGET_ROUTES))
+def test_groups_past_the_dense_budget_rank_as_one_program(
+    tables, per_window_runs, tmp_path, route, mode
+):
+    runtime = dict(collapse_kinds="off", dense_budget_bytes=BUDGET_ROUTES[route])
+    if mode == "k2":
+        runtime["dispatch_batch_windows"] = 2
+    t, j = run_both(tables, tmp_path, batch_windows=mode == "batch", **runtime)
+    ranked = [r for r in t if r.ranking]
+    assert len(ranked) == 6 and {r.kernel for r in ranked} == {route}
+    assert_matches_jax(t, j)
+    one = per_window_runs[route]
+    assert {r.kernel for r in one if r.ranking} == {route}
+    assert [r.ranking for r in t] == [r.ranking for r in one]
+    assert [r.rank_iterations for r in t] == [r.rank_iterations for r in one]
+
+
 def test_resumed_micro_batched_run_is_the_tail(tables, per_window_run, tmp_path):
     from microrank_tpu_torch.pipeline.checkpoint import WindowCursor
 
@@ -448,6 +573,33 @@ def test_cli_dispatch_batch_windows_flag_matches_jax(timeline, tmp_path, monkeyp
     assert_same_results(tmp_path / "port", tmp_path / "jax")
     rows = read_results(tmp_path / "port")[0]
     assert rows and rows == read_results(tmp_path / "one")[0]
+
+
+def test_cli_dispatch_batch_windows_with_int8_matches_jax(timeline, tmp_path):
+    from microrank_tpu.cli.main import main as jax_main
+
+    from test_torch_cli_flags import read_results
+
+    _, normal, abnormal = timeline
+    base = ["run", "--normal", str(normal), "--abnormal", str(abnormal), "--no-tuned-policy",
+            "--kind-precision", "int8"]
+    flags = ["--dispatch-batch-windows", "2"]
+    assert cli.main(base + flags + ["--device", "cpu", "-o", str(tmp_path / "port")]) == 0
+    assert jax_main(base + flags + ["--engine", "native", "-o", str(tmp_path / "jax")]) == 0
+    assert cli.main(base + ["--device", "cpu", "-o", str(tmp_path / "one")]) == 0
+    (rows, ours), (_, theirs) = read_results(tmp_path / "port"), read_results(tmp_path / "jax")
+    assert rows and list(ours) == list(theirs)
+    for key, o in ours.items():
+        t = theirs[key]
+        assert o[0]["result"] == t[0]["result"]
+        ok, why = tie_aware_topk_agreement(
+            [r["result"] for r in t], [float(r["confidence"]) for r in t],
+            [r["result"] for r in o], [float(r["confidence"]) for r in o],
+            k=len(o), rtol=5e-3,  # int8, as test_torch_int8.py's lane test
+        )
+        assert ok, f"{key}: {why}"
+    # The groups' rankings are the per-window int8 run's, bit for bit.
+    assert rows == read_results(tmp_path / "one")[0]
 
 
 def test_a_mixed_kernel_group_re_resolves_on_the_stack(tables, per_window_run):

@@ -280,14 +280,18 @@ def test_journal_matches_jax(variant_runs):
 
 def test_unported_batching_raises(tables):
     # Stacked dispatch is ported (tests/test_torch_batched.py): its knob
-    # defaults to one window a program, as JAX's. What still raises is a
-    # group whose kernel does not run stacked (item 7's follow-ups).
+    # defaults to one window a program, as JAX's. Every kernel now runs
+    # a group as one program (item 7's follow-ups are done): a pcsr group
+    # ranks, bitwise the per-window pcsr run; what still raises is an
+    # unknown fetch mode.
     assert RuntimeConfig().dispatch_batch_windows == 1
     assert RuntimeConfig(dispatch_batch_windows=2).dispatch_batch_windows == 2
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_rca(tables, kernel="pcsr", dispatch_batch_windows=2).run(tables[0][1])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_rca(tables, kernel="pcsr").run(tables[0][1], batch_windows=True)
+    one = port_rca(tables, kernel="pcsr").run(tables[0][1])
+    assert any(r.ranking for r in one)
+    for runs in (port_rca(tables, kernel="pcsr", dispatch_batch_windows=2).run(tables[0][1]),
+                 port_rca(tables, kernel="pcsr").run(tables[0][1], batch_windows=True)):
+        assert [(r.start, r.kernel, r.ranking) for r in runs] == [
+            (r.start, r.kernel, r.ranking) for r in one]
     with pytest.raises(ValueError, match="fetch_mode"):
         RuntimeConfig(fetch_mode="lazy")
     defaults = RuntimeConfig()
