@@ -76,6 +76,25 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``MICRORANK_POLICY_DIR``: ``run_rca_native`` bitwise an
               explicit ochiai run, one "applied" policy event (every other
               phase runs with an empty policy directory);
+   staging  — blob staging (the default: one pinned buffer a window, one
+              copy, the leaves typed views of the device buffer, K7)
+              against the tree path (``blob_staging=False``: a copy a
+              leaf) on every config-5 route (kind f32 and int8, packed,
+              packed_bf16, pallas collapsed and not, packed_blocked at
+              64 MiB, pcsr at 16 MiB; ``staging_compare``): every leaf
+              decoded on the card fetched back bitwise the host array,
+              at a 256-byte-aligned address; in turns (tree, blob, blob,
+              tree) the tree's H2D, the blob's pack (host clock) and copy
+              (events), the outputs bitwise the tree path's with the
+              same launches, and the stage worker's host time from the
+              staging to the output copy while the device spins ~100 ms;
+              on the kind and packed routes the staging, layouts, program
+              and output copy under ``set_sync_debug_mode("error")``
+              without a raise (pallas and pcsr report their sync). The
+              pack's first call (the pinned buffer's first allocation)
+              is reported apart. The giant windows and their stacked
+              groups get the same checks (``giant.staging``,
+              ``giant.stacked.staging``);
 5. replay   — ``TableRCA.run`` on the card over bench.py's config-5
               replay (``_run_replay``; its 8 windows cut to 6 so that the
               whole script keeps its time with the follow phase): 6
@@ -92,7 +111,8 @@ JAX or of the JAX package. Phases, one JSON line each:
               windows after the loop) and ``chunked_int8`` (``chunked``
               with ``kind_precision="int8"``: one scale launch a group,
               held to a per-window int8 run, tie-aware top-5 at 5e-2,
-              bitwise reported).
+              bitwise reported), and ``tree`` (the default with
+              ``blob_staging=False``, as ``--no-blob-staging``).
               Each mode: one warm pass with a sink (every window ranked
               with ``kind`` and the fault at top-1, the cursor cleared,
               one journal ``window`` event per window, the stage worker's
@@ -105,7 +125,7 @@ JAX or of the JAX package. Phases, one JSON line each:
               the sum of the per-window stages (the rest of a pass is
               per-run work, such as the table's admission, timed apart).
               The
-              async and bulk rankings, ``rank_iterations`` and sink
+              async, bulk and tree rankings, ``rank_iterations`` and sink
               records are bitwise the sync run's; the chunked and batch
               runs' the same windows, iterations and top-1, rankings
               tie-aware at rtol 1e-5 (bitwise reported), and their
@@ -113,8 +133,14 @@ JAX or of the JAX package. Phases, one JSON line each:
               a cursor saved after window 2 is bitwise windows 3-6. The
               default mode's warm pass records into a fresh metrics
               registry and writes ``metrics.json`` as ``cli run`` does:
-              ranked windows, convergence samples and admitted rows as
-              counted, ``telemetry`` in the journal's ``run_end``.
+              ranked windows, convergence samples, admitted rows and
+              blob transfers (one a ranked window) as counted,
+              ``telemetry`` in the journal's ``run_end``; every mode's
+              warm pass counts one staging transfer a program (blob) or
+              one a leaf (tree). The default and tree modes then run in
+              turns (default, tree, tree, default): ms per window and
+              the stage worker's host ms a window (``staging_turns``,
+              three rounds: medians, and the pairs the default won).
               ``--replay-windows`` sets the window count; 0 skips it;
    follow   — ``run_follow`` on the card over the same timeline written
               in three appends (the injected ``sleep`` appends the next
@@ -299,6 +325,9 @@ REPLAY_MODES = {
     # four int8 windows, each one stacked program (held to a per-window
     # int8 run).
     "chunked_int8": dict(fetch_mode="bulk", dispatch_batch_windows=4),
+    # The default with `cli run --no-blob-staging`: each window's graph
+    # copied leaf by leaf (the default stages one pinned blob a window).
+    "tree": dict(blob_staging=False),
 }
 # The replay modes' kind_precision (f32 where not named).
 REPLAY_PRECISION = {"chunked_int8": "int8"}
@@ -909,6 +938,195 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
     }
 
 
+def outputs_bitwise(a, b) -> bool:
+    """Two fetched rank outputs (top_idx, top_scores, n_valid, residuals,
+    n_iters) equal bit for bit."""
+    import numpy as np
+
+    return all(np.asarray(x).tobytes() == np.asarray(y).tobytes() and
+               np.shape(x) == np.shape(y) for x, y in zip(a, b))
+
+
+def staging_compare(torch, spmv, pattern, tag, host, kernel, cfg, issue_reps=3):
+    """Blob staging against the tree path on one host graph (already
+    ``host_subset`` for ``kernel``; a stacked group's too), through
+    ``rank_backends.blob.stage_rank_window`` (a group:
+    ``stage_rank_windows_batched``) as the window loop calls it. First
+    the blob's leaves decoded on the card, each fetched back: bitwise the
+    host arrays, each at a 256-byte-aligned address. Then in turns (tree,
+    blob, blob, tree): the staging timed (tree: the per-leaf H2D on the
+    host clock, the device drained; blob: the pack on the host clock and
+    the one copy by CUDA events), the program run and fetched, its
+    outputs bitwise the first tree turn's and its launches the same; and
+    the host's time from the staging to the start of the output copy
+    with the device busy behind a ~100 ms spin (``issue_host_ms``: what
+    the stage worker waits, the device drained after each call). Last,
+    on the routes that issue with no host sync (``SYNC_FREE_KERNELS``),
+    one staging, layouts, program and output copy under
+    ``torch.cuda.set_sync_debug_mode("error")``, which must not raise
+    (the other routes report the sync they make). The pack's first call
+    (the pinned buffer's first allocation of its size) is reported apart."""
+    import numpy as np
+
+    from microrank_tpu_torch.graph.structures import PartitionGraph
+    from microrank_tpu_torch.rank_backends import blob
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        SYNC_FREE_KERNELS,
+        fetch_rank_outputs,
+        pack_rank_outputs,
+    )
+
+    dev = torch.device("cuda")
+    stacked = host.normal.kind.ndim == 2
+    stage = blob.stage_rank_windows_batched if stacked else blob.stage_rank_window
+
+    def issue(use_blob=True):
+        return pack_rank_outputs(*stage(host, cfg.pagerank, cfg.spectrum, kernel, dev, use_blob,
+                                        conv_trace=True))
+
+    def program(use_blob):
+        torch.cuda.synchronize()
+        reset_counts(spmv, pattern)
+        outs, staged = stage(host, cfg.pagerank, cfg.spectrum, kernel, dev, use_blob,
+                             conv_trace=True)
+        fetched = fetch_rank_outputs(outs)
+        del staged
+        return fetched, read_counts(spmv, pattern)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf, layout = blob.pack_graph_blob(host, pin=True)
+    pack_first_ms = (time.perf_counter() - t0) * 1e3
+    check(buf.is_pinned(), f"{tag}: the blob is not in pinned memory")
+    decoded = blob.unpack_graph_blob(buf.to(dev, non_blocking=True), layout)
+    n_leaves = 0
+    for name in ("normal", "abnormal"):
+        for f in PartitionGraph._fields:
+            a = np.asarray(getattr(getattr(host, name), f))
+            b = getattr(getattr(decoded, name), f)
+            got = b.cpu().numpy()
+            check(got.shape == a.shape and got.dtype == a.dtype
+                  and np.atleast_1d(got).tobytes() == np.atleast_1d(a).tobytes(),
+                  f"{tag}: leaf {name}.{f} decoded on the card is not the host array")
+            check(b.numel() == 0 or b.data_ptr() % blob.ALIGN_BYTES == 0,
+                  f"{tag}: leaf {name}.{f} is not {blob.ALIGN_BYTES}-byte aligned")
+            n_leaves += 1
+    n_bytes = buf.numel()
+    del decoded, buf
+    tree_bytes = int(sum(np.asarray(a).nbytes for part in (host.normal, host.abnormal)
+                         for a in part))
+    turns, ref = [], None
+    for mode in ("tree", "blob", "blob", "tree"):
+        torch.cuda.synchronize()
+        turn = {"mode": mode}
+        if mode == "tree":
+            t0 = time.perf_counter()
+            g = graph_from_numpy(host, dev)
+            torch.cuda.synchronize()
+            turn["h2d_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            del g
+        else:
+            t0 = time.perf_counter()
+            buf, _ = blob.pack_graph_blob(host, pin=True)
+            turn["pack_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            card = buf.to(dev, non_blocking=True)
+            stop.record()
+            torch.cuda.synchronize()
+            turn["copy_ms"] = round(start.elapsed_time(stop), 4)
+            turn["copy_gb_per_s"] = round(n_bytes / turn["copy_ms"] / 1e6, 2)
+            del card, buf
+        out, launches = program(mode == "blob")
+        if ref is None:
+            ref = (out, launches)
+        check(outputs_bitwise(out, ref[0]),
+              f"{tag}: the {mode} turn's outputs are not bitwise the tree path's")
+        check(launches == ref[1], f"{tag}: {mode} launches {launches}, tree {ref[1]}")
+        event_ms, host_ms = spin_event_host_ms(
+            torch, lambda: issue(mode == "blob"), issue_reps, PROGRAM_SPIN_CYCLES, settle=True)
+        turn["issue_host_ms"] = round(host_ms, 3)
+        turn["staged_program_event_ms"] = round(event_ms, 4)
+        turns.append(turn)
+    torch.cuda.synchronize()
+    sync_error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = issue()
+    except RuntimeError as exc:
+        sync_error = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_free = kernel in SYNC_FREE_KERNELS
+    check(not sync_free or sync_error is None,
+          f"{tag}: the {kernel} route synced between its blob copy and its output copy: "
+          f"{sync_error}")
+    if sync_error is None:
+        from microrank_tpu_torch.rank_backends.torch_cuda import unpack_rank_outputs
+
+        check(outputs_bitwise(unpack_rank_outputs(packed), ref[0]),
+              f"{tag}: the run under the sync check differs from the tree path's")
+
+    def med(key):
+        return _median([t[key] for t in turns if key in t])
+
+    return {
+        "kernel": kernel,
+        "stacked_windows": int(host.normal.kind.shape[0]) if stacked else None,
+        "leaves": n_leaves,
+        "leaves_bitwise_on_card": True,
+        "leaves_aligned_bytes": blob.ALIGN_BYTES,
+        "blob_bytes": n_bytes,
+        "tree_bytes": tree_bytes,
+        "pack_first_ms": round(pack_first_ms, 3),
+        "turns": turns,
+        "pack_ms": med("pack_ms"),
+        "copy_ms": med("copy_ms"),
+        "tree_h2d_ms": med("h2d_ms"),
+        "issue_host_ms": {"blob": _median([t["issue_host_ms"] for t in turns
+                                           if t["mode"] == "blob"]),
+                          "tree": _median([t["issue_host_ms"] for t in turns
+                                           if t["mode"] == "tree"])},
+        "outputs_bitwise_vs_tree": True,
+        "launches": ref[1],
+        "launches_equal_tree": True,
+        "issues_without_host_sync": sync_error is None,
+        "sync_debug_error": sync_error,
+    }
+
+
+# The config-5 routes of the staging phase: (phase_run's graph, kernel,
+# kind_precision).
+STAGING_ROUTES = (
+    ("auto/auto", "kind", "f32"),
+    ("auto/int8", "kind", "int8"),
+    ("auto/off", "packed_bf16", "f32"),
+    ("auto/off", "packed", "f32"),
+    ("pallas/auto", "pallas", "f32"),
+    ("pallas/off", "pallas", "f32"),
+    ("auto/packed_blocked", "packed_blocked", "f32"),
+    ("auto/pcsr", "pcsr", "f32"),
+)
+
+
+def phase_staging(torch, spmv, pattern, graphs):
+    """Blob staging against the tree path on every config-5 route
+    (``staging_compare``: the leaves on the card, the outputs, launches
+    and staging times in turns, the stage worker's host time behind a
+    spin, the sync check)."""
+    from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig
+    from microrank_tpu_torch.rank_backends.torch_cuda import host_subset
+
+    routes = {}
+    for key, kernel, precision in STAGING_ROUTES:
+        cfg = MicroRankConfig(pagerank=PageRankConfig(kind_precision=precision))
+        name = f"{key}:{kernel}" + ("" if precision == "f32" else f":{precision}")
+        routes[name] = staging_compare(torch, spmv, pattern, f"staging/{name}",
+                                       host_subset(graphs[key], kernel), kernel, cfg)
+    return {"phase": "staging", "routes": routes, "nvidia_smi": power_line()}
+
+
 def phase_replay_data(args, workdir):
     """bench.py's config-5 replay (``_ensure_batch_data``): every window
     faulted, from the port's own timeline generator, written and parsed
@@ -1033,6 +1251,10 @@ def metrics_gates(tag, out, n_ranked, admitted):
     check(iters == n_ranked, f"{tag}: rank_iterations count {iters}, want {n_ranked}")
     check(admitted_rows == admitted,
           f"{tag}: ingest admitted {admitted_rows}, admit_table kept {admitted}")
+    blob_transfers = sum(s["value"] for s in samples("microrank_staging_transfers_total")
+                         if s["labels"]["path"] == "blob")
+    check(blob_transfers == n_ranked,
+          f"{tag}: staging_transfers_total{{path=blob}} {blob_transfers}, want {n_ranked}")
     end = read_journal(out / JOURNAL_NAME)[-1]
     check(end["event"] == "run_end" and "telemetry" in end,
           f"{tag}: the journal's run_end has no telemetry")
@@ -1040,6 +1262,7 @@ def metrics_gates(tag, out, n_ranked, admitted):
         "windows_total_ranked": ranked,
         "rank_iterations_count": iters,
         "ingest_admitted": admitted_rows,
+        "staging_transfers_blob": blob_transfers,
         "run_end_telemetry": end["telemetry"],
         "series_sampled": sorted(k for k, v in snap.items() if v["samples"]),
     }
@@ -1089,8 +1312,9 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     from microrank_tpu_torch.config import IngestConfig
     from microrank_tpu_torch.graph.table_ops import window_rows
     from microrank_tpu_torch.ingest import admit_table
+    from microrank_tpu_torch.graph.structures import PartitionGraph
     from microrank_tpu_torch.obs import JOURNAL_NAME, MetricsRegistry, read_journal, set_registry
-    from microrank_tpu_torch.obs.metrics import ensure_catalog
+    from microrank_tpu_torch.obs.metrics import ensure_catalog, staging_transfers
     from microrank_tpu_torch.pipeline import TableRCA
 
     precision = REPLAY_PRECISION.get(mode, "f32")
@@ -1098,9 +1322,10 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     tag = f"replay/{mode}"
     batch = mode == "batch"
     with_metrics = mode == "default"
-    if with_metrics:
-        registry = MetricsRegistry()
-        set_registry(registry)
+    # Every mode's warm pass records into a fresh registry: its staging
+    # counts are gated below.
+    registry = MetricsRegistry()
+    set_registry(registry)
     rca = TableRCA(cfg, device="cuda")
     rca.fit_baseline(normal_table)
 
@@ -1116,6 +1341,13 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
     setattr(rca, entry, spy)
     out = workdir / f"replay_{mode}"
     warm = rca.run(table, out_dir=out, batch_windows=batch)
+    # One staging transfer a program (a window, or a stacked group) on
+    # the blob path, one a leaf on the tree path.
+    n_programs = len(replay_groups(mode, sum(1 for r in warm if r.ranking)))
+    transfers = {path: staging_transfers().value(path=path) for path in ("blob", "tree")}
+    want = ({"blob": 0, "tree": n_programs * 2 * len(PartitionGraph._fields)}
+            if not cfg.runtime.blob_staging else {"blob": n_programs, "tree": 0})
+    check(transfers == want, f"{tag}: staging transfers {transfers}, want {want}")
     metrics = None
     if with_metrics:
         # What `cli run` writes beside the results when telemetry is on.
@@ -1123,7 +1355,7 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
         registry.write_snapshot(out)
         kept = sum(admit_table(t, IngestConfig())[0].n_spans for t in (normal_table, table))
         metrics = metrics_gates(tag, out, sum(1 for r in warm if r.ranking), kept)
-        set_registry(MetricsRegistry())
+    set_registry(MetricsRegistry())
     check(len(streams) == 1, f"{tag}: {entry} was not reached")
     on_default = streams[0] == torch.cuda.default_stream()
     if cfg.runtime.async_dispatch and not batch:  # batch ranks after the loop's workers
@@ -1215,7 +1447,59 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
         "groups": groups,
         "launches_per_pass": counts,
         "stage_stream_is_default": on_default,
+        "staging_transfers": transfers,
         "metrics": metrics,
+    }
+
+
+def replay_staging_turns(torch, rcas, table, n_windows, rounds=3):
+    """The default mode (blob staging) and the tree mode (``--no-blob-
+    staging``) in turns, ``rounds`` times (default, tree, tree, default):
+    each pass's ms per window and the stage worker's host ms per window
+    from the staging to the start of the output copy (``launch_program``
+    timed on the stage worker's thread); per mode the medians over the
+    passes, and how many of the turns' pairs the default won."""
+    passes = []
+    for mode in ("default", "tree", "tree", "default") * rounds:
+        rca, times = rcas[mode], []
+        launch = rca.launch_program
+
+        def timed(*a, launch=launch, times=times):
+            t0 = time.perf_counter()
+            out = launch(*a)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        rca.launch_program = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rca.run(table)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rca.launch_program = launch
+        check(len(times) == n_windows, f"replay/{mode}: {len(times)} launches, {n_windows} windows")
+        passes.append({
+            "mode": mode,
+            "ms_per_window": round(wall * 1e3 / n_windows, 3),
+            "stage_worker_host_ms": [round(t, 3) for t in times],
+        })
+
+    def of(mode, key):
+        return [x for q in passes if q["mode"] == mode
+                for x in (q[key] if isinstance(q[key], list) else [q[key]])]
+
+    # Each adjacent pair of passes, (default, tree) or (tree, default).
+    pairs = [{q["mode"]: q["ms_per_window"] for q in passes[i:i + 2]}
+             for i in range(0, len(passes), 2)]
+    return {
+        "passes": passes,
+        "ms_per_window_median": {m: _median(of(m, "ms_per_window")) for m in ("default", "tree")},
+        "stage_worker_host_ms_median": {m: _median(of(m, "stage_worker_host_ms"))
+                                        for m in ("default", "tree")},
+        "pairs_default_faster": sum(q["default"] < q["tree"] for q in pairs),
+        "pairs": len(pairs),
     }
 
 
@@ -1239,10 +1523,9 @@ def phase_replay(torch, spmv, pattern, args, workdir):
         t1 = time.perf_counter()
         admit_table(table, IngestConfig(), source="table")
         admit_ms.append((time.perf_counter() - t1) * 1e3)
-    launches, infos, warm, records = {}, {}, {}, {}
-    rca = None
+    launches, infos, warm, records, rcas = {}, {}, {}, {}, {}
     for mode in REPLAY_MODES:
-        rca_mode, res, counts, info = replay_mode(
+        rcas[mode], res, counts, info = replay_mode(
             torch, spmv, pattern, tl, normal_table, table, mode, workdir
         )
         launches[f"replay/{mode}"] = counts
@@ -1252,10 +1535,9 @@ def phase_replay(torch, spmv, pattern, args, workdir):
             {k: rec.get(k) for k in ("start", "anomaly", "skipped_reason", "ranking")}
             for rec in map(json.loads, lines)
         ]
-        if mode == "default":
-            rca = rca_mode
+    rca = rcas["default"]
     ref = [(r.start, r.ranking, r.rank_iterations) for r in warm["sync"]]
-    for mode in ("default", "bulk"):
+    for mode in ("default", "bulk", "tree"):
         got = [(r.start, r.ranking, r.rank_iterations) for r in warm[mode]]
         check(got == ref, f"replay/{mode}: rankings are not bitwise the sync run's")
         check(records[mode] == records["sync"],
@@ -1294,6 +1576,8 @@ def phase_replay(torch, spmv, pattern, args, workdir):
     check(all(r.kernel == "kind" and r.ranking[0][0] == tl.fault_pod_op for r in int8_one),
           "replay: the per-window int8 run does not rank every window with kind, fault first")
 
+    staging_turns = replay_staging_turns(torch, rcas, table,
+                                         sum(1 for r in warm["sync"] if r.ranking))
     # Resume (default mode): a cursor saved after window 2 reruns the rest.
     k = min(2, len(warm["sync"]) - 1)
     out = workdir / "replay_resume"
@@ -1307,10 +1591,11 @@ def phase_replay(torch, spmv, pattern, args, workdir):
         "fault_pod_op": tl.fault_pod_op,
         "admit_table_ms": round(_median(admit_ms), 3),
         "modes": infos,
-        "rankings_bitwise_vs_sync": True,  # default and bulk; the stacked modes' in modes
+        "rankings_bitwise_vs_sync": True,  # default, bulk, tree; the stacked modes' in modes
         "sink_records_equal": True,
         "resumed_after_window": k,
         "resumed_bitwise": True,
+        "staging_turns": staging_turns,
         "phase_s": round(time.perf_counter() - t0, 3),
     }
 
@@ -3035,6 +3320,9 @@ def giant_stacked(torch, spmv, pattern, graph, single, kernel, cfg):
     })
     del card
     torch.cuda.empty_cache()
+    info["staging"] = staging_compare(torch, spmv, pattern, f"{tag}/staging", stack, kernel,
+                                      cfg, issue_reps=2)
+    torch.cuda.empty_cache()
     return counts, info
 
 
@@ -3167,6 +3455,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         "issue_split_ms": issue_split,
         "kernel": kern,
     }
+    info["staging"] = staging_compare(torch, spmv, pattern, f"giant/{kernel}/staging",
+                                      host_subset(graph, kernel), kernel, cfg)
     stacked_counts, info["stacked"] = giant_stacked(torch, spmv, pattern, graph, dgraph, kernel,
                                                     cfg)
     return counts, (kern, step_kern), info, stacked_counts
@@ -3265,6 +3555,8 @@ def main(argv=None) -> int:
                                     empty_policy_dir)
         launches["policy"] = counts
         emit(info)
+        phase = "staging"
+        emit(phase_staging(torch, spmv, pattern, graphs))
         phase = "replay"
         batched = None
         if args.replay_windows:

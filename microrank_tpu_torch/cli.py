@@ -11,7 +11,8 @@
         [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
         [--kind-precision f32|bf16|int8] [--pipeline-depth N] [--sync-dispatch]
         [--fetch-mode stream|bulk] [--bulk-fetch-windows N]
-        [--dispatch-batch-windows N] [--resume] [--no-tuned-policy] [--metrics-port N]
+        [--dispatch-batch-windows N] [--no-blob-staging] [--resume] [--no-tuned-policy]
+        [--metrics-port N]
         [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
@@ -75,6 +76,8 @@ def _config_from_args(args) -> MicroRankConfig:
     }
     if args.sync_dispatch:
         loop["async_dispatch"] = False
+    if args.no_blob_staging:
+        loop["blob_staging"] = False
     if args.no_tuned_policy:
         loop["tuned_policy"] = "off"
     precision = {} if args.kind_precision is None else {"kind_precision": args.kind_precision}
@@ -422,6 +425,11 @@ def build_parser() -> argparse.ArgumentParser:
         "stage+dispatch (one staging transfer per group — the replay "
         "throughput knob on high-latency links; 1 = lowest per-window "
         "latency)",
+    )
+    p_run.add_argument(
+        "--no-blob-staging", action="store_true",
+        help="stage graphs as per-leaf transfers instead of one packed "
+        "uint32 buffer",
     )
     p_run.add_argument(
         "--no-tuned-policy", action="store_true",

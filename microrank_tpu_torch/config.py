@@ -202,6 +202,12 @@ class RuntimeConfig:
     # (kind in every precision, packed, packed_bf16, packed_blocked, pcsr,
     # pallas).
     dispatch_batch_windows: int = 1
+    # Stage each window's graph (or stacked group's) as ONE pinned buffer
+    # sent in one copy and read on the card as typed views
+    # (rank_backends.blob), as the JAX package does by default; False
+    # copies it leaf by leaf (the "tree" path), each copy from pageable
+    # memory waiting for the work queued before it on the stream.
+    blob_staging: bool = True
     # The per-run journal (out_dir/journal.jsonl, obs.RunJournal) and
     # the metrics registry's snapshot, which the CLI writes beside the
     # results (out_dir/metrics.json, read back by ``cli stats``).

@@ -57,6 +57,7 @@ import threading
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
@@ -95,10 +96,14 @@ def row_layout(
     n_rows: int,
     n_live: Union[int, torch.Tensor, None] = None,
     n_x: Optional[int] = None,
+    checked: bool = False,
 ) -> RowLayout:
     """Row-sorted layout of COO entries (``rows``/``cols`` int32,
     ``vals`` float32). Entries ``e >= n_live`` are padding and are left
-    out of every row; None keeps all entries.
+    out of every row; None keeps all entries. A live row outside
+    [0, n_rows] raises, after one host sync; ``checked``: the caller
+    has checked the rows on the host (``host_spmv_counts``), and the
+    layout is built without one.
 
     Stacked windows (``rows`` [B, E], ``n_live`` [B], ``n_x`` each
     window's x length): one block-diagonal matrix of B * n_rows rows over
@@ -128,14 +133,16 @@ def row_layout(
     if n_live is not None:
         pos = torch.arange(e, device=rows.device)
         key = torch.where(pos < n_live, key, n_rows)
-    counts = torch.bincount(key, minlength=n_rows + 1)
-    if counts.shape[0] != n_rows + 1:
-        raise ValueError(f"row index out of range for n_rows={n_rows}")
-    perm = torch.sort(key, stable=True).indices
-    starts = torch.zeros(n_rows + 2, dtype=torch.int64, device=rows.device)
-    torch.cumsum(counts, 0, out=starts[1:])
+    keys, perm = torch.sort(key, stable=True)
+    if not checked and e:
+        lo, hi = torch.stack([keys[0], keys[-1]]).tolist()
+        if lo < 0 or hi > n_rows:
+            raise ValueError(f"row index out of range for n_rows={n_rows}")
+    # Row r starts after the keys below r (a padding key, n_rows, sorts
+    # past every row).
+    bounds = torch.arange(n_rows + 1, dtype=torch.int64, device=rows.device)
     return RowLayout(
-        indptr=starts[: n_rows + 1].to(torch.int32),
+        indptr=torch.searchsorted(keys, bounds).to(torch.int32),
         cols=cols[perm],
         vals=vals[perm],
         perm=perm,
@@ -171,14 +178,51 @@ class SpmvGroup(NamedTuple):
     windows: Optional[int] = None
 
 
+class SpmvCounts(NamedTuple):
+    """What ``spmv_group`` otherwise reads back from the device: the
+    work list's items, the most chunks of a row, and the live entries
+    (``host_spmv_counts``)."""
+
+    n_items: int
+    max_chunks: int
+    n_live: int
+
+
+def host_spmv_counts(layouts: Sequence[Tuple[np.ndarray, np.ndarray, int]]) -> SpmvCounts:
+    """``spmv_group``'s counts and column check, in numpy, from the host
+    arrays its layouts come from: per matrix (indptr, the columns of its
+    live entries in any order, n_x), as ``row_layout`` would lay them
+    out. Raises the ``IndexError`` of ``spmv_group`` on a column outside
+    its x. With these counts the group is built without a host sync."""
+    lens = np.concatenate([np.diff(ip.astype(np.int64)) for ip, _, _ in layouts])
+    n_bad = sum(int(((c < 0) | (c >= n)).sum()) for _, c, n in layouts)
+    if n_bad:
+        raise IndexError(f"spmv_group: {n_bad} column(s) outside their x")
+    if not lens.size:
+        return SpmvCounts(0, 1, 0)
+    n_chunks = np.maximum((lens + CHUNK - 1) // CHUNK, 1)
+    return SpmvCounts(int(n_chunks.sum()), int(n_chunks.max()), int(lens.sum()))
+
+
+def _on_device(host: torch.Tensor, dev) -> torch.Tensor:
+    """A small host tensor on ``dev`` without waiting for the stream: a
+    copy from pinned memory (one from pageable memory waits for all the
+    work queued before it)."""
+    if dev.type == "cpu":
+        return host
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
 def spmv_group(
     layouts: Sequence[RowLayout], x_slots: Sequence[int], n_x: Sequence[int],
-    windows: Optional[int] = None,
+    windows: Optional[int] = None, counts: Optional[SpmvCounts] = None,
 ) -> SpmvGroup:
     """The work list of ``layouts`` (all on one device): matrix m reads x
     slot ``x_slots[m]``, a vector of ``n_x[m]`` floats. Tensor ops only,
     with one host sync (the work list's length, with the check that
-    every live column lies inside its x: the kernel does not check).
+    every live column lies inside its x: the kernel does not check),
+    or none where the caller gives those ``counts``, checked on the
+    host (``host_spmv_counts``).
     ``windows``: the layouts are stacked windows' block-diagonal ones
     (``SpmvGroup.windows``), n_x and their rows counted over all of
     them."""
@@ -197,7 +241,9 @@ def spmv_group(
         raise ValueError("spmv_group: extents must fit int32")
     # Whole-group tensor ops (a few dozen launches, not a few per matrix):
     # this runs once per window on the rank path.
-    meta = torch.tensor([n_rows, x_slots, e_off[:-1], n_e, n_x], **i64)
+    meta = _on_device(
+        torch.tensor([n_rows, x_slots, e_off[:-1], n_e, n_x], dtype=torch.int64), dev
+    )
     row_slot, row_e_off = torch.repeat_interleave(
         meta[1:3], meta[0], dim=1, output_size=n_y
     )
@@ -207,24 +253,27 @@ def spmv_group(
     n_chunks = torch.clamp_min((lens + CHUNK - 1) // CHUNK, 1)
     first_item = torch.cumsum(n_chunks, 0) - n_chunks
     cols = torch.cat([lay.cols for lay in layouts])
-    live_end, entry_n_x = torch.repeat_interleave(
-        torch.stack([
-            torch.cat([lay.indptr[-1:] for lay in layouts]).to(torch.int64) + meta[2],
-            meta[4],
-        ]),
-        meta[3], dim=1, output_size=n_e_all,
-    )
-    n_bad = (
-        ((cols < 0) | (cols >= entry_n_x)) & (torch.arange(n_e_all, **i64) < live_end)
-    ).sum()
-    n_items, max_chunks, n_bad, n_live = (
-        torch.stack([n_chunks.sum(), n_chunks.max(), n_bad, lens.sum()]).tolist()
-        if n_y else (0, 1, 0, 0)
-    )
-    if n_bad:
-        # The graph build pads with col 0, so an out-of-range column is a
-        # bug upstream: stop here instead of clamping it silently.
-        raise IndexError(f"spmv_group: {n_bad} column(s) outside their x")
+    if counts is None:
+        live_end, entry_n_x = torch.repeat_interleave(
+            torch.stack([
+                torch.cat([lay.indptr[-1:] for lay in layouts]).to(torch.int64) + meta[2],
+                meta[4],
+            ]),
+            meta[3], dim=1, output_size=n_e_all,
+        )
+        n_bad = (
+            ((cols < 0) | (cols >= entry_n_x)) & (torch.arange(n_e_all, **i64) < live_end)
+        ).sum()
+        n_items, max_chunks, n_bad, n_live = (
+            torch.stack([n_chunks.sum(), n_chunks.max(), n_bad, lens.sum()]).tolist()
+            if n_y else (0, 1, 0, 0)
+        )
+        if n_bad:
+            # The graph build pads with col 0, so an out-of-range column is a
+            # bug upstream: stop here instead of clamping it silently.
+            raise IndexError(f"spmv_group: {n_bad} column(s) outside their x")
+    else:
+        n_items, max_chunks, n_live = counts
     if n_items > INT32_MAX // WARP:
         raise ValueError("spmv_group: work list must fit int32")
     item_row = torch.repeat_interleave(

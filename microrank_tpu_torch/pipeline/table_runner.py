@@ -23,6 +23,13 @@ outcome, the kind dedup factor, staged bytes, the convergence
 histograms and the in-flight gauge (``obs.metrics``); the CLI writes
 the snapshot beside the results.
 
+Staging is JAX's default blob staging (``runtime.blob_staging``,
+``rank_backends.blob``): each window's graph, or each stacked group's,
+packed into one pinned buffer, sent in one copy and read on the card as
+typed views. On the kind and packed routes nothing from that copy to
+the output copy waits on the device, so window n + 1's staging and
+program issue while window n runs.
+
 Stacked windows, as the JAX lane runs them on one device: the
 micro-batched dispatch (``runtime.dispatch_batch_windows = K > 1``: up
 to K anomalous windows' graphs stacked into one rank program, joined
@@ -58,27 +65,21 @@ from ..graph.table_ops import (
     compute_slo_from_table,
     detect_window_partition,
 )
-from ..graph.structures import PartitionGraph
 from ..ingest import admit_table
 from ..obs import JOURNAL_NAME, RunJournal
 from ..obs.metrics import (
-    graph_staging_audit,
     pipeline_inflight,
     record_convergence,
     record_kind_dedup,
-    record_staging,
     record_window_outcome,
     stage_seconds,
 )
 from ..parallel import stack_window_graphs
-from ..rank_backends.convert import graph_from_numpy
+from ..rank_backends.blob import stage_rank_window, stage_rank_windows_batched
 from ..rank_backends.torch_cuda import (
     choose_kernel,
-    device_subset,
-    divide_block_budget,
     host_subset,
     pack_rank_outputs,
-    rank_window_traced_core,
     unpack_rank_outputs,
 )
 from ..utils.device import resolve_device
@@ -251,31 +252,24 @@ class TableRCA:
     def launch_program(self, graph, kernel):
         """The device half of one rank program, over one window's host
         graph or a stacked group's (``parallel.stack_window_graphs``):
-        the fields the kernel reads copied to the device, the kernels'
+        the fields the kernel reads staged on the device, the kernels'
         layouts, the program and the start of its outputs' one copy, all
-        on the current stream. A stacked group of B windows is one
-        program on every route, packed_blocked's block budget divided by
-        B as JAX's group launch divides it (``divide_block_budget``).
-        Returns the packed outputs."""
+        on the current stream. Staging is JAX's default: one pinned blob
+        a window or group, one copy, typed views
+        (``rank_backends.blob``); ``runtime.blob_staging=False`` copies
+        leaf by leaf. A stacked group of B windows is one program on
+        every route, packed_blocked's block budget divided by B as JAX's
+        group launch divides it. Returns the packed outputs, holding the
+        pinned blob until they are fetched."""
         cfg = self.config
-        kind = graph.normal.kind
-        pagerank_cfg = divide_block_budget(
-            cfg.pagerank, kernel, kind.shape[0] if kind.ndim == 2 else 1
+        stage = (
+            stage_rank_windows_batched if graph.normal.kind.ndim == 2 else stage_rank_window
         )
-        host = host_subset(graph, kernel)
-        # Per-leaf staging, the JAX lane's "tree" path: one copy per
-        # field of each partition.
-        total, pad = graph_staging_audit(host)
-        record_staging("tree", total, 2 * len(PartitionGraph._fields), pad)
-        dgraph = device_subset(
-            graph_from_numpy(host, self.device),
-            kernel,
-            pagerank_cfg.packed_block_bytes,
+        outs, staged = stage(
+            host_subset(graph, kernel), cfg.pagerank, cfg.spectrum, kernel, self.device,
+            cfg.runtime.blob_staging, conv_trace=True,
         )
-        outs = rank_window_traced_core(
-            dgraph, pagerank_cfg, cfg.spectrum, kernel
-        )
-        return pack_rank_outputs(outs)
+        return pack_rank_outputs(outs, staged)
 
     def _ranking(self, op_names, outs, label):
         """(names, scores, conv-summary-or-None) of one window's fetched

@@ -91,9 +91,11 @@ from ..ops.spmv import (
     EllPart,
     PcsrGroup,
     RowLayout,
+    SpmvCounts,
     SpmvGroup,
     coo_spmv_group,
     ell_mode,
+    host_spmv_counts,
     pcsr_spmv_group,
     row_layout,
     spmv_group,
@@ -429,7 +431,7 @@ def window_pcsr_group(graph: WindowGraph) -> PcsrGroup:
     )
 
 
-def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
+def ss_layout(g: PartitionGraph, kernel: str, checked: bool = False) -> RowLayout:
     """K1's row layout of the call-graph term of the kind and packed
     kernels. kind: the child-sorted edge list as it stands (rows from
     ss_indptr, values ss_val), summed against sv, as JAX's scatter-free
@@ -439,7 +441,8 @@ def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
     group's partition gives one block-diagonal layout over its windows
     (kind: window b's row offsets moved by b times the padded edge
     count, its parents by b times V; a parent outside [0, V) becomes -1,
-    which ``spmv_group`` refuses)."""
+    which ``spmv_group`` refuses). ``checked``: the rows were checked on
+    the host (``ss_host_counts``), so the layout makes no host sync."""
     v = g.cov_unique.shape[-1]
     dev = g.ss_parent.device
     if kernel == "kind":
@@ -464,7 +467,54 @@ def ss_layout(g: PartitionGraph, kernel: str) -> RowLayout:
             n_rows=int(n_win * v),
         )
     ones = torch.ones(g.ss_parent.shape, dtype=torch.float32, device=dev)
-    return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss, n_x=v)
+    return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss, n_x=v, checked=checked)
+
+
+# Routes whose layouts build with no host sync when given the host's
+# counts of their call-graph terms (``ss_host_counts``): the pattern
+# routes. pallas and pcsr build theirs from device values and sync.
+SYNC_FREE_KERNELS = ("kind", "packed", "packed_bf16", "packed_blocked")
+
+
+def _ss_host_layout(g, kernel: str) -> Tuple[np.ndarray, np.ndarray, int]:
+    """``ss_layout`` of one host partition as numpy, for
+    ``host_spmv_counts``: (indptr, the live entries' columns, n_x), a
+    stacked partition's block-diagonal over its windows. Raises
+    ``row_layout``'s ValueError on a live row outside [0, n_rows]."""
+    v = int(g.cov_unique.shape[-1])
+    parent = np.asarray(g.ss_parent).astype(np.int64)
+    stacked = parent.ndim == 2
+    n_win, e = parent.shape if stacked else (1, parent.shape[0])
+    win = np.arange(n_win)[:, None]
+    if stacked:
+        parent = np.where((parent >= 0) & (parent < v), parent + win * v, -1)
+    parent = parent.reshape(-1)
+    n_rows = n_win * v
+    if kernel == "kind":
+        indptr = np.asarray(g.ss_indptr).astype(np.int64)
+        if stacked:
+            indptr = np.concatenate([
+                (indptr[:, :-1] + win * e).reshape(-1), indptr[-1, -1:] + (n_win - 1) * e,
+            ])
+        return indptr, parent[: indptr[-1]], n_rows
+    child = np.asarray(g.ss_child).astype(np.int64).reshape(n_win, e)
+    live = np.arange(e) < np.asarray(g.n_ss).reshape(-1, 1)
+    key = np.where(live, child + win * v, n_rows).reshape(-1)
+    if key.size and (key.min() < 0 or key.max() > n_rows):
+        raise ValueError(f"row index out of range for n_rows={n_rows}")
+    counts = np.bincount(key, minlength=n_rows + 1)
+    indptr = np.concatenate([[0], np.cumsum(counts[:-1])])
+    return indptr, parent[key < n_rows], n_rows
+
+
+def ss_host_counts(graph, kernel: str) -> Optional[SpmvCounts]:
+    """The counts of the call-graph terms' work list (``device_subset``
+    of the kind and packed routes), computed on the host graph with its
+    checks, so that the device side of a window issues without a host
+    sync; None for a route whose layouts sync anyway."""
+    if kernel not in SYNC_FREE_KERNELS:
+        return None
+    return host_spmv_counts([_ss_host_layout(g, kernel) for g in (graph.normal, graph.abnormal)])
 
 
 def window_pattern_group(
@@ -717,14 +767,19 @@ class PackedOutputs(NamedTuple):
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]
     shapes: Tuple[Tuple[int, ...], ...]
+    # The window's staged blob in pinned host memory (blob staging),
+    # held until the outputs are fetched, so that no later pack can
+    # reuse its bytes while their copy to the card may be in flight.
+    staged: Optional[torch.Tensor] = None
 
 
-def pack_rank_outputs(outs) -> PackedOutputs:
+def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None) -> PackedOutputs:
     """Pack the five outputs into one buffer on their device and start
     its one device-to-host copy, all on the current stream: on CUDA a
     ``non_blocking`` copy into pinned host memory and an event recorded
     behind it, so the caller returns without waiting for the device.
-    One copy for a stacked group's outputs too."""
+    One copy for a stacked group's outputs too. ``staged``: the pinned
+    blob the program's graph was copied from, held with the outputs."""
     packed = torch.cat([
         t.reshape(-1) if t.dtype == torch.float32 else t.reshape(-1).view(torch.float32)
         for t in outs
@@ -736,7 +791,7 @@ def pack_rank_outputs(outs) -> PackedOutputs:
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(packed.device))
         packed = host
-    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs))
+    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs), staged)
 
 
 # The dtypes of rank_window_traced_core's outputs, in order.
@@ -821,6 +876,7 @@ def device_subset(
     graph: WindowGraph,
     kernel: str = "pallas",
     packed_block_bytes: int = PageRankConfig.packed_block_bytes,
+    counts: Optional[SpmvCounts] = None,
 ) -> WindowGraph:
     """The graph as the kernels consume it, built once per window so each
     power-iteration step is one or two launches of its products and the
@@ -834,7 +890,12 @@ def device_subset(
     plain version in bands of ``packed_block_bytes``) and K1's work list
     of both call-graph terms. A stacked group of windows gets one work
     list, one pattern group and one step scratch for all of them (the
-    caller divides ``packed_block_bytes`` by B, ``divide_block_budget``)."""
+    caller divides ``packed_block_bytes`` by B, ``divide_block_budget``).
+
+    ``counts`` (the kind and packed routes): the call-graph terms'
+    counts from the host graph (``ss_host_counts``), which the layouts
+    then take on trust: the device side issues with no host sync, so
+    it need not wait for the work queued before it."""
     _check_kernel(kernel)
     windows = stacked_windows(graph)
     scratch = step_scratch(graph.normal.kind.device, windows or 1)
@@ -844,9 +905,9 @@ def device_subset(
         return graph._replace(spmv_group=window_pcsr_group(graph), step_scratch=scratch)
     pgroup = window_pattern_group(graph, kernel, packed_block_bytes)  # checks the views first
     parts = (graph.normal, graph.abnormal)
-    layouts = [ss_layout(g, kernel) for g in parts]
+    layouts = [ss_layout(g, kernel, checked=counts is not None) for g in parts]
     v = [(windows or 1) * int(g.cov_unique.shape[-1]) for g in parts]
     return graph._replace(
-        spmv_group=spmv_group(layouts, (0, 1), v, windows), pattern_group=pgroup,
+        spmv_group=spmv_group(layouts, (0, 1), v, windows, counts), pattern_group=pgroup,
         step_scratch=scratch,
     )

@@ -11,11 +11,15 @@ metrics endpoint, held to the JAX package's on the CPU.
   (counters and gauges equal; histograms equal in count per label set
   and in buckets, except the wall-clock ``microrank_stage_seconds``
   buckets). The staging counters are compared on the packed run, where
-  both ship the same fields ("tree" staging on the JAX side: its default
-  blob staging is not ported); the port's kind window ships the coverage
-  bitmap where JAX ships its int8 unpacking, and the port's graph has one
-  leaf fewer per partition (no ``cov_i8``). The host gauges read the
-  load average at different instants and are compared by presence;
+  both ship the same fields, with both packages' ``blob_staging=False``
+  ("tree": one transfer per leaf); the port's kind window ships the
+  coverage bitmap where JAX ships its int8 unpacking, and the port's
+  graph has one leaf fewer per partition (no ``cov_i8``). The host
+  gauges read the load average at different instants and are compared
+  by presence;
+* the default staging, blob in both packages: path "blob", one transfer
+  a ranked window in both, and (packed) the same staged and pad bytes,
+  audited on the host graph and not on the port's aligned blob;
 * ``run_end.telemetry``: JAX's keys and values except ``jit_retraces``
   (the JAX jit cache, which the port has none of);
 * ``cli stats`` (prom, json, ``--diff``, ``--merge``, ``--journal``):
@@ -221,19 +225,23 @@ def csv_pair(tmp_path_factory):
     return case, normal, abnormal
 
 
-def run_both(csv_pair, tmp_path, registries, collapse):
-    """One table run per package into its fresh registry; returns both
-    registries' snapshots and journals."""
+def run_both(csv_pair, tmp_path, registries, collapse, blob=False):
+    """One table run per package into its fresh registry, both staging
+    by blob or both leaf by leaf; returns both registries' snapshots and
+    journals."""
     reg, jreg = registries
     _, normal, abnormal = csv_pair
     jcfg = JaxConfig(
-        runtime=JaxRuntime(collapse_kinds=collapse, blob_staging=False),
+        runtime=JaxRuntime(collapse_kinds=collapse, blob_staging=blob),
         ingest=JaxIngest(),
     )
     j = JaxTableRCA(jcfg)
     j.fit_baseline(jax_load(normal, cache=False))
     jres = j.run(jax_load(abnormal, cache=False), out_dir=tmp_path / "jax")
-    t = TableRCA(MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse)), device="cpu")
+    t = TableRCA(
+        MicroRankConfig(runtime=RuntimeConfig(collapse_kinds=collapse, blob_staging=blob)),
+        device="cpu",
+    )
     t.fit_baseline(load_span_table(normal, cache=False))
     tres = t.run(load_span_table(abnormal, cache=False), out_dir=tmp_path / "port")
     assert [r.kernel for r in tres] == [r.kernel for r in jres]
@@ -292,6 +300,23 @@ def test_table_run_records_jax_series(csv_pair, tmp_path, registries, collapse, 
     if kernel != "kind":
         assert tel == {k: v for k, v in jtel.items() if k != "jit_retraces"}
     assert tel == snapshot_to_result_fields()
+
+
+@pytest.mark.parametrize("collapse,kernel", [("auto", "kind"), ("off", "packed_bf16")])
+def test_default_blob_staging_records_jax_series(csv_pair, tmp_path, registries, collapse,
+                                                 kernel):
+    assert RuntimeConfig().blob_staging and JaxRuntime().blob_staging
+    ours, theirs, _, _, tres = run_both(csv_pair, tmp_path, registries, collapse, blob=True)
+    assert {r.kernel for r in tres if r.ranking} == {kernel}
+    n_ranked = sum(1 for r in tres if r.ranking)
+    compared = STAGING if kernel != "kind" else {"microrank_staging_transfers_total"}
+    for name in STAGING:
+        assert {s["labels"]["path"] for s in ours[name]["samples"]} == {"blob"}, name
+    transfers = by_labels(ours["microrank_staging_transfers_total"]["samples"])
+    assert [s["value"] for s in transfers.values()] == [n_ranked]
+    for name in compared:
+        sa = by_labels(ours[name]["samples"])
+        assert sa and sa == by_labels(theirs[name]["samples"]), name
 
 
 def test_catalog_is_jax_metrics_subset(registries):
