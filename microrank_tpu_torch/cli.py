@@ -12,7 +12,7 @@
         [--kind-precision f32|bf16|int8] [--pipeline-depth N] [--sync-dispatch]
         [--fetch-mode stream|bulk] [--bulk-fetch-windows N]
         [--dispatch-batch-windows N] [--no-blob-staging] [--resume] [--no-tuned-policy]
-        [--metrics-port N]
+        [--metrics-port N] [--quarantine-dir DIR] [--no-span-trace] [--span-ring N]
         [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
@@ -20,8 +20,10 @@
 
 ``run`` ranks every anomalous window of the abnormal dump and writes
 ``OUT/result.csv`` and ``OUT/windows.jsonl`` in the JAX package's
-format, with the window cursor, the run journal and the metrics
-snapshot (``metrics.json``, ``metrics.prom``) beside them. It runs on
+format, with the window cursor, the run journal, the metrics snapshot
+(``metrics.json``, ``metrics.prom``) and the dead-letter store of
+rejected rows (``quarantine.jsonl``, or in ``--quarantine-dir``) beside
+them. It runs on
 the card unless ``--device cpu`` is given. ``--follow`` tails a growing
 abnormal dump and ranks windows as they close. ``stats`` re-emits a
 finished run's snapshot, as the JAX package's ``cli stats`` does, and
@@ -43,7 +45,9 @@ from .config import (
     KIND_PRECISIONS,
     CompatConfig,
     DetectorConfig,
+    IngestConfig,
     MicroRankConfig,
+    ObsConfig,
     PageRankConfig,
     RuntimeConfig,
     SpectrumConfig,
@@ -81,6 +85,11 @@ def _config_from_args(args) -> MicroRankConfig:
     if args.no_tuned_policy:
         loop["tuned_policy"] = "off"
     precision = {} if args.kind_precision is None else {"kind_precision": args.kind_precision}
+    # The tracer's and the dead-letter store's flags, as the JAX CLI's:
+    # each overrides the config only when given.
+    obs = {k: v for k, v in (("spans", False if args.no_span_trace else None),
+                             ("span_ring", args.span_ring)) if v is not None}
+    ingest = {} if args.quarantine_dir is None else {"quarantine_dir": args.quarantine_dir}
     cfg = MicroRankConfig(
         detector=DetectorConfig(
             k_sigma=args.k_sigma, slack_ms=args.slack_ms, slo_stat=args.slo_stat,
@@ -97,6 +106,8 @@ def _config_from_args(args) -> MicroRankConfig:
             kernel=args.kernel, collapse_kinds=args.collapse_kinds,
             device=args.device, **loop,
         ),
+        ingest=IngestConfig(**ingest),
+        obs=ObsConfig(**obs),
     )
     if args.reference_compat:
         cfg = cfg.replace(compat=CompatConfig(partition_swap=True, overwrite_results=True))
@@ -465,6 +476,23 @@ def build_parser() -> argparse.ArgumentParser:
         "/metrics (Prometheus text), /metrics.json, /healthz; 0 picks "
         "a free port. The snapshot is also written to -o at run end "
         "for offline `stats`",
+    )
+    p_run.add_argument(
+        "--quarantine-dir", default=None,
+        help="directory for the span-admission dead-letter store "
+        "(quarantine.jsonl — every rejected row with its reason; "
+        "default: the run's output directory)",
+    )
+    p_run.add_argument(
+        "--no-span-trace", action="store_true",
+        help="disable the self-tracing span ring (obs.spans; on by "
+        "default — every pipeline stage emits a parent-linked span "
+        "the flight recorder can dump)",
+    )
+    p_run.add_argument(
+        "--span-ring", type=_positive_int, default=None,
+        help="span ring capacity (spans; default 8192 — oldest spans "
+        "fall off, the flight manifest counts drops)",
     )
     p_run.set_defaults(fn=cmd_run)
 

@@ -4,8 +4,9 @@
 Only the knobs the native ``run`` lane reads are carried over: the
 detector, PageRank and spectrum settings, window arithmetic, the
 reference-compat flags, the runtime fields that shape the graph build,
-the rank program and the window loop's pipelining, and the ingest
-admission budgets, and the tuned-policy switch. Field names and defaults
+the rank program and the window loop's pipelining, the ingest
+admission budgets and dead-letter store, the span tracer, and the
+tuned-policy switch. Field names and defaults
 match the JAX package so a reader can hold the two side by side. The
 kernels this package has not ported yet raise ``NotImplementedError``
 where the JAX package would run them.
@@ -247,6 +248,24 @@ class IngestConfig:
     # Spans of a trace past the cap reject in row order (reason
     # trace_too_long); 0 disables the budget.
     max_spans_per_trace: int = 4096
+    # Dead-letter store: directory for quarantine.jsonl (None = the
+    # run's out_dir) and its byte cap (records past it drop + count).
+    quarantine_dir: Optional[str] = None
+    quarantine_max_bytes: int = 16 << 20
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """The table lane's self-tracing (obs.spans): the fields of the JAX
+    package's ObsConfig that its span tracer reads, with the same names
+    and defaults. The flight recorder, the profiler and the chaos hooks
+    come with their lanes (ROADMAP.md, port queue item 11)."""
+
+    # Span tracer on/off: each stage of a window records a span in a
+    # bounded ring (a contextvar read and a locked deque append a span).
+    spans: bool = True
+    # Ring capacity in spans; the oldest fall off.
+    span_ring: int = 8192
 
 
 @dataclass(frozen=True)
@@ -258,6 +277,7 @@ class MicroRankConfig:
     compat: CompatConfig = field(default_factory=CompatConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     ingest: IngestConfig = field(default_factory=IngestConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)

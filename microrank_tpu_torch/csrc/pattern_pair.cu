@@ -91,8 +91,10 @@
 // The int8 scales (`quantize_amax`): scale = amax > 0 ? amax / 127 : 1
 // with amax = max |x * w| over each of the step's four weighted operands
 // (both partitions, both directions), as JAX's `quantize_i8`; a
-// subnormal product counts as 0 there and in the quantization, as XLA's
-// CPU flushes it (`flush_subnormal`). A NaN amax
+// subnormal product counts as 0 there and in the quantization, and a
+// subnormal quotient amax / 127 gives scale 0 (its operands then
+// quantize to +-127, a 0 operand to 0), as XLA's CPU flushes both
+// (`flush_subnormal`). A NaN amax
 // fails `amax > 0` and gives 1, as there. One launch covers the four
 // vectors: each block takes a strided slice of one vector, reduces the
 // bit patterns of |x * w| (non-negative floats order as their unsigned
@@ -223,7 +225,11 @@ __device__ __forceinline__ Acc<kPrec> operand(float x, float w, float scale) {
   if constexpr (kPrec == kBf16) {
     return __bfloat162float(__float2bfloat16_rn(p));
   } else if constexpr (kPrec == kI8) {
+    // A 0 operand is q 0 on every scale: on a flushed (0) scale 0 / 0
+    // would be NaN, which fmaxf would turn into -127 (XLA's int8 cast
+    // gives 0), and every other operand goes to +-127 there.
     const float f = flush_subnormal(p);
+    if (f == 0.0f) return 0;
     return static_cast<int32_t>(fminf(fmaxf(rintf(__fdiv_rn(f, scale)), -127.0f), 127.0f));
   } else {
     return p;
@@ -1075,7 +1081,7 @@ __global__ void __launch_bounds__(kThreads) quantize_amax(AmaxArgs args) {
   __threadfence();  // acquire every block's maximum
   for (int i = t; i < args.n_vecs * args.n_windows; i += kThreads) {
     const float amax = __uint_as_float(atomicExch(args.amax + i, 0u));  // read and reset
-    args.scale[i] = amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
+    args.scale[i] = amax > 0.0f ? flush_subnormal(__fdiv_rn(amax, 127.0f)) : 1.0f;
   }
   if (t == 0) *args.count = 0u;
 }
@@ -1236,7 +1242,8 @@ int mr_pattern_pair_blocked(const void* const* ptrs, const int64_t* ints, int32_
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch: scale[w][v] = amax > 0 ? amax / 127 : 1, amax = max_i
+// One launch: scale[w][v] = amax > 0 ? amax / 127 (a subnormal quotient
+// flushed to 0) : 1, amax = max_i
 // |x[v][w][i] * w[v][w][i]|, for v < n_vecs (1 to 4) and w < n_windows
 // (each pointer is a [n_windows, ns[v]] array; 1 for one window).
 // `ptrs` holds x[0], w[0], x[1], w[1], ...; `ns` the vectors' lengths in

@@ -106,7 +106,8 @@
 //   and 0 / 0 gives NaN everywhere, as the plain step does.
 // * int8 scales: scale = amax > 0 ? amax / 127 : 1 with amax = max |x *
 //   w| over the carry x the kernel wrote, its product with the weight
-//   flushed to 0 when subnormal, as pattern_pair.cu's quantize_amax and
+//   and a subnormal quotient amax / 127 flushed to 0, as pattern_pair.cu's
+//   quantize_amax and
 //   ops/pattern.py quantize_scales_plain compute it.
 //
 // What bounds it: bytes and latency. Per partition it reads y_sr, y_ss,
@@ -227,9 +228,11 @@ __device__ __forceinline__ uint32_t amax_key(float carry, float w) {
   return __float_as_uint(fabsf(flush_subnormal(__fmul_rn(carry, w))));
 }
 
-// The next step's int8 scale from its operand's amax.
+// The next step's int8 scale from its operand's amax: amax / 127 with
+// a subnormal quotient flushed to 0, as XLA's CPU flushes it in JAX's
+// `quantize_i8` (ops/pattern.py quantize_scale).
 __device__ __forceinline__ float scale_of(float am) {
-  return am > 0.0f ? __fdiv_rn(am, 127.0f) : 1.0f;
+  return am > 0.0f ? flush_subnormal(__fdiv_rn(am, 127.0f)) : 1.0f;
 }
 
 // The block's (or unit's) vector: the last whose first block is at or
@@ -683,7 +686,7 @@ __global__ void __launch_bounds__(kThreads) step_apply(StepArgs a) {
   for (int i = 0; i < kVecs; ++i) {
     a.scratch[kVecMax + i] = 0u;
     const float am = __uint_as_float(atomicExch(a.scratch + kAmax + i, 0u));
-    if (a.scales != nullptr) a.scales[i] = am > 0.0f ? __fdiv_rn(am, 127.0f) : 1.0f;
+    if (a.scales != nullptr) a.scales[i] = scale_of(am);
   }
   a.scratch[kArrivals] = 0u;
 }

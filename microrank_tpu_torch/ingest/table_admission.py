@@ -13,27 +13,52 @@ whose parent was rejected becomes a root (the stitch policy).
 
 Admitted and rejected rows are counted in the metrics registry where
 the JAX package counts them (``microrank_ingest_admitted_total``,
-``microrank_ingest_rejected_total{reason}``). Not ported: the
-dead-letter (quarantine) store; rejected rows are counted and logged,
-not kept (ROADMAP.md's port queue, item 11).
+``microrank_ingest_rejected_total{reason}``), and every rejected row
+lands in the dead-letter store (``ingest.quarantine``) as JAX writes
+it: reasons in the masks' order, rows ascending, the row as its decoded
+trace, op, duration and times, ``offset`` its row index.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from ..obs.metrics import record_ingest_admitted, record_ingest_rejected
+from .quarantine import QuarantineStore, get_quarantine
 
 log = logging.getLogger("microrank_tpu_torch.ingest")
 
 
-def admit_table(table, ingest_config, source: str = "table") -> Tuple[object, Dict[str, int]]:
+def _quarantine_rows(table, mask: np.ndarray, reason: str, store, source: str) -> None:
+    """The rows of ``mask`` into ``store``, ascending, as JAX's
+    ``_quarantine_rows`` writes them one by one (one write here)."""
+    idx = np.flatnonzero(mask)
+    trace_names, op_names = table.trace_names, table.pod_op_names
+    rows = zip(
+        table.trace_id[idx].tolist(), table.pod_op[idx].tolist(),
+        table.duration_us[idx].tolist(), table.start_us[idx].tolist(),
+        table.end_us[idx].tolist(),
+    )
+    store.put_raws(
+        [f"trace={trace_names[t]} op={op_names[o]} duration_us={d} start_us={s} end_us={e}"
+         for t, o, d, s, e in rows],
+        reason, source=source, offsets=idx.tolist(),
+    )
+
+
+def admit_table(
+    table,
+    ingest_config,
+    quarantine: Optional[QuarantineStore] = None,
+    source: str = "table",
+) -> Tuple[object, Dict[str, int]]:
     """Validate and budget one ``SpanTable``; returns ``(clean_table,
     rejected_counts)`` (counts by reason, only reasons that rejected a
-    row). The input is never mutated."""
+    row). Rejected rows go to ``quarantine``, else to the process store
+    (``get_quarantine``). The input is never mutated."""
     cfg = ingest_config
     n = table.n_spans
     if not cfg.enabled or n == 0:
@@ -80,8 +105,11 @@ def admit_table(table, ingest_config, source: str = "table") -> Tuple[object, Di
     if not counts:
         record_ingest_admitted(n)
         return table, {}
-    for reason, n_rejected in counts.items():
-        record_ingest_rejected(reason, n_rejected)
+    store = quarantine if quarantine is not None else get_quarantine()
+    for reason, m in masks.items():
+        if reason in counts:
+            record_ingest_rejected(reason, counts[reason])
+            _quarantine_rows(table, m, reason, store, source)
 
     keep = ~rejected
     # parent_row holds absolute row indices: remap them onto the kept

@@ -1,10 +1,11 @@
 """Run telemetry (counterpart of part of ``microrank_tpu/obs``): the
 metrics registry and the ported lanes' metric set, the per-run JSONL
-journal, the host-contention sentinel it samples, and the HTTP metrics
-endpoint (``server``, imported where it is started).
+journal, the host-contention sentinel it samples, the span tracer
+(``spans``: the table lane's stages as spans in a bounded ring) and the
+HTTP metrics endpoint (``server``, imported where it is started).
 
-The JAX package's span tracer, flight recorder, profiler sessions and
-fleet plane are not ported (ROADMAP.md 'Port queue' item 11).
+The JAX package's flight recorder, profiler sessions and fleet plane
+are not ported (ROADMAP.md 'Port queue' item 11).
 """
 
 from .host import ContentionSentinel
@@ -20,6 +21,7 @@ from .registry import (
     registry_from_json,
     set_registry,
 )
+from .spans import Span, SpanContext, SpanTracer, configure_tracer, get_tracer, set_tracer
 
 __all__ = [
     "ContentionSentinel",
@@ -29,10 +31,16 @@ __all__ = [
     "JOURNAL_NAME",
     "MetricsRegistry",
     "RunJournal",
+    "Span",
+    "SpanContext",
+    "SpanTracer",
+    "configure_tracer",
     "diff_registries",
     "get_registry",
+    "get_tracer",
     "merge_registries",
     "read_journal",
     "registry_from_json",
     "set_registry",
+    "set_tracer",
 ]

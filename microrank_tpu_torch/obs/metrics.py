@@ -5,11 +5,12 @@ Each metric is declared once (name, help, labels, buckets), with the
 JAX package's name, help text, label names and buckets, so a snapshot
 of either package reads the same. This module holds the subset the
 ported lanes record: the table lane's window loop, its staging, the
-convergence trace, ingest admission, the tuned policy, follow mode and
-the host sentinel. The JAX package's other metrics (serve, stream,
-fleet, scheduler, warehouse, the jit and compile-cache counters, the
-span tracer, the sanitizers, chaos and the explain store) come with
-their lanes (ROADMAP.md, port queue items 5 and 11).
+convergence trace, ingest admission and its dead-letter store, the
+span tracer, the tuned policy, follow mode and the host sentinel. The
+JAX package's other metrics (serve, stream, fleet, scheduler,
+warehouse, the jit and compile-cache counters, the flight recorder,
+the sanitizers, chaos and the explain store) come with their lanes
+(ROADMAP.md, port queue items 5 and 11).
 
 Naming: ``microrank_<noun>_<unit>`` with ``_total`` on counters, the
 Prometheus convention.
@@ -162,6 +163,24 @@ def ingest_admitted() -> Counter:
     )
 
 
+def ingest_quarantine_dropped() -> Counter:
+    return get_registry().counter(
+        "microrank_ingest_quarantine_dropped_total",
+        "Dead-letter records dropped because quarantine.jsonl reached "
+        "its byte cap (IngestConfig.quarantine_max_bytes) — hostile "
+        "data must not become a disk-filling attack",
+    )
+
+
+def spans_recorded() -> Counter:
+    return get_registry().counter(
+        "microrank_spans_recorded_total",
+        "Pipeline self-tracing spans recorded into the bounded ring "
+        "(obs.spans; the flight recorder dumps the ring on incident "
+        "open / degraded dispatch / SIGTERM)",
+    )
+
+
 def host_load_gauge() -> Gauge:
     return get_registry().gauge(
         "microrank_host_norm_load",
@@ -185,8 +204,8 @@ def ensure_catalog() -> None:
         rank_final_residual, staged_bytes, staged_pad_bytes,
         staging_transfers, pipeline_inflight,
         follow_polls, follow_parse_failures, follow_rotations,
-        kind_dedup_gauge, policy_events,
-        ingest_rejected, ingest_admitted,
+        kind_dedup_gauge, policy_events, spans_recorded,
+        ingest_rejected, ingest_admitted, ingest_quarantine_dropped,
         host_load_gauge, host_steal_gauge,
     ):
         ctor()
@@ -225,6 +244,10 @@ def record_ingest_rejected(reason: str, n: int = 1) -> None:
 def record_ingest_admitted(n: int) -> None:
     if n > 0:
         ingest_admitted().inc(float(n))
+
+
+def record_quarantine_dropped(n: int = 1) -> None:
+    ingest_quarantine_dropped().inc(float(n))
 
 
 def record_staging(

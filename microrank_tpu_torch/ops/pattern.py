@@ -295,21 +295,28 @@ def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
 
 def quantize_scale(x: torch.Tensor) -> torch.Tensor:
     """JAX's ``quantize_i8`` scale of one vector: max|x| / 127 over x
-    with its subnormals flushed, or 1 when that max is not above 0 (all
-    zeros or subnormals, or NaN), float32 0-d; of each row of a stacked
-    group's [B, n] vectors, [B] (``quantize_i8`` under vmap). The divisor
-    is a tensor of x's device, so every device divides."""
+    with its subnormals flushed, that quotient flushed to 0 when it is
+    subnormal (as XLA's CPU flushes it), or 1 when the max is not above
+    0 (all zeros or subnormals, or NaN), float32 0-d; of each row of a
+    stacked group's [B, n] vectors, [B] (``quantize_i8`` under vmap).
+    The divisor is a tensor of x's device, so every device divides."""
     zero = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     amax = flush_subnormal(x).abs().amax(-1) if x.shape[-1] else zero
-    return torch.where(amax > 0, amax / torch.full_like(zero, 127.0), zero + 1.0)
+    return torch.where(
+        amax > 0, flush_subnormal(amax / torch.full_like(zero, 127.0)), zero + 1.0
+    )
 
 
 def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """clip(round(x / scale), -127, 127) as int32 over x with its
     subnormals flushed (round half to even, as jnp.round and the
-    kernel's rintf); ``scale`` 0-d, or [B] for [B, n] vectors."""
-    q = torch.round(flush_subnormal(x) / scale[..., None])
-    return torch.clamp(q, -127.0, 127.0).to(torch.int32)
+    kernel's rintf); ``scale`` 0-d, or [B] for [B, n] vectors. A 0
+    operand is 0 on every scale: on a flushed scale of 0, where every
+    other operand goes to +-127, XLA's int8 cast turns its 0 / 0 into 0
+    too."""
+    f = flush_subnormal(x)
+    q = torch.clamp(torch.round(f / scale[..., None]), -127.0, 127.0)
+    return torch.where(f == 0, 0.0, q).to(torch.int32)
 
 
 def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -618,14 +625,29 @@ def pattern_pair_group(
     pattern_pair_group.launches += 1
     if group.blocked:
         pattern_pair_group.blocked_launches += 1
-        pattern_pair_group.fold_launches += any(
-            _n_col_tiles(p.n_cols) > 1 or p.rows_per_block < _n_row_tiles(p.pattern.shape[0])
-            for p in group.parts
-        )
+        pattern_pair_group.fold_launches += blocked_folds(group)
     pattern_pair_group.products += 2 * len(group.parts) * n_win
     return tuple(
         (outs[3 * i], outs[3 * i + 1], outs[3 * i + 2] if p.w_out is not None else None)
         for i, p in enumerate(group.parts)
+    )
+
+
+def blocked_part_folds(n_rows: int, n_cols: int) -> bool:
+    """Whether K8 folds partials of a partition of ``n_rows`` x
+    ``n_cols``: more than one column tile (fwd partials), or its row
+    tiles walked in more than one group (bwd partials). A small bitmap
+    has neither."""
+    n_rt, n_ct = _n_row_tiles(n_rows), _n_col_tiles(n_cols)
+    return n_ct > 1 or blocked_rows_per_block(n_rt, n_ct) < n_rt
+
+
+def blocked_folds(group: PatternGroup) -> bool:
+    """Whether K8's launch over ``group`` is followed by its fold launch
+    (``mr_pattern_pair_blocked``): when any partition folds
+    (``blocked_part_folds``)."""
+    return group.blocked and any(
+        blocked_part_folds(p.pattern.shape[-2], p.n_cols) for p in group.parts
     )
 
 
@@ -704,7 +726,9 @@ __all__ = [
     "TILE_R",
     "PatternGroup",
     "PatternPart",
+    "blocked_folds",
     "blocked_ld",
+    "blocked_part_folds",
     "blocked_rows_per_block",
     "blocked_partials_plain",
     "bwd_plain",

@@ -188,14 +188,47 @@ class SpmvCounts(NamedTuple):
     n_live: int
 
 
-def host_spmv_counts(layouts: Sequence[Tuple[np.ndarray, np.ndarray, int]]) -> SpmvCounts:
+def host_row_layout(rows, cols, n_rows: int, n_live=None, n_x: Optional[int] = None
+                    ) -> Tuple[np.ndarray, int]:
+    """``row_layout`` of host arrays as ``host_spmv_counts`` reads it:
+    (indptr, the live entries whose column lies outside [0, n_x)), the
+    live entries those of a row below ``n_rows``. Stacked windows
+    (``rows`` [B, E], ``n_live`` [B]) give the block-diagonal layout, a
+    column outside its window's x counted bad, as ``row_layout`` lays
+    them out. Raises ``row_layout``'s ValueError on a live row outside
+    [0, n_rows]."""
+    rows, cols = np.asarray(rows), np.asarray(cols)
+    if rows.ndim == 2:
+        n_win, e = rows.shape
+        win = np.arange(n_win)[:, None]
+        key = rows.astype(np.int64) + win * n_rows
+        if n_live is not None:
+            key = np.where(np.arange(e) < np.asarray(n_live).reshape(-1, 1), key, n_win * n_rows)
+        n_rows, key = n_win * n_rows, key.reshape(-1)
+    else:
+        # Entries at or past n_live are padding: they sort past every row.
+        key = rows[: None if n_live is None else max(0, int(n_live))]
+        cols = cols[: key.shape[0]]
+    lo, hi = (int(key.min()), int(key.max())) if key.size else (0, 0)
+    if lo < 0 or hi > n_rows:
+        raise ValueError(f"row index out of range for n_rows={n_rows}")
+    counts = np.bincount(key, minlength=n_rows + 1)
+    indptr = np.concatenate([[0], np.cumsum(counts[:n_rows])])
+    bad = (cols < 0) | (cols >= n_x)
+    if rows.ndim == 2 or hi == n_rows:
+        bad = bad.reshape(-1) & (key < n_rows)
+    return indptr, int(np.count_nonzero(bad))
+
+
+def host_spmv_counts(layouts: Sequence[Tuple[np.ndarray, int]]) -> SpmvCounts:
     """``spmv_group``'s counts and column check, in numpy, from the host
-    arrays its layouts come from: per matrix (indptr, the columns of its
-    live entries in any order, n_x), as ``row_layout`` would lay them
-    out. Raises the ``IndexError`` of ``spmv_group`` on a column outside
-    its x. With these counts the group is built without a host sync."""
-    lens = np.concatenate([np.diff(ip.astype(np.int64)) for ip, _, _ in layouts])
-    n_bad = sum(int(((c < 0) | (c >= n)).sum()) for _, c, n in layouts)
+    arrays its layouts come from: per matrix (indptr, the live entries
+    whose column lies outside its x), as ``row_layout`` would lay them
+    out (``host_row_layout``). Raises the ``IndexError`` of
+    ``spmv_group`` on a column outside its x. With these counts the
+    group is built without a host sync."""
+    lens = np.concatenate([np.diff(ip.astype(np.int64)) for ip, _ in layouts])
+    n_bad = sum(n for _, n in layouts)
     if n_bad:
         raise IndexError(f"spmv_group: {n_bad} column(s) outside their x")
     if not lens.size:

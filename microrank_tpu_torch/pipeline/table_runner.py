@@ -16,17 +16,22 @@ a resume cursor saved per emitted window and a per-run journal
 
 Ingest admission (``ingest.admit_table``) runs where the JAX lane runs
 it: on the normal table before the SLO fit, and on the table under
-suspicion before detection. ``fit_baseline`` then resolves the tuned
-policy (``scenarios.policy.apply_tuned_policy``). The loop records the
-JAX lane's registry metrics at its places: stage seconds, windows by
+suspicion before detection, whose rejected rows ``run`` writes to the
+dead-letter store ``out_dir/quarantine.jsonl`` (``ingest.quarantine``;
+``IngestConfig.quarantine_dir`` overrides the directory).
+``fit_baseline`` then resolves the tuned policy
+(``scenarios.policy.apply_tuned_policy``). The loop records the JAX
+lane's registry metrics at its places: stage seconds, windows by
 outcome, the kind dedup factor, staged bytes, the convergence
-histograms and the in-flight gauge (``obs.metrics``); the CLI writes
-the snapshot beside the results.
+histograms, the in-flight gauge and the spans recorded
+(``obs.metrics``); the CLI writes the snapshot beside the results.
+Each run arms a fresh span tracer (``obs.spans``, ``config.obs``): a
+window is one trace, ``win-<start>``, and each of its stages a span.
 
 Staging is JAX's default blob staging (``runtime.blob_staging``,
 ``rank_backends.blob``): each window's graph, or each stacked group's,
 packed into one pinned buffer, sent in one copy and read on the card as
-typed views. On the kind and packed routes nothing from that copy to
+typed views. On every route nothing from that copy to
 the output copy waits on the device, so window n + 1's staging and
 program issue while window n runs.
 
@@ -42,8 +47,8 @@ whatever kernel it resolves to (kind in every precision, packed,
 packed_bf16, packed_blocked, pcsr, pallas), so a group of windows past
 the dense budget ranks as one program too.
 
-Not ported yet (ROADMAP.md "Port queue"): the mesh and the quarantine
-store.
+Not ported yet (ROADMAP.md "Port queue"): the mesh, and the flight
+recorder that dumps the span ring.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ from ..graph.table_ops import (
     compute_slo_from_table,
     detect_window_partition,
 )
-from ..ingest import admit_table
+from ..ingest import admit_table, configure_quarantine
 from ..obs import JOURNAL_NAME, RunJournal
 from ..obs.metrics import (
     pipeline_inflight,
@@ -74,6 +79,7 @@ from ..obs.metrics import (
     record_window_outcome,
     stage_seconds,
 )
+from ..obs.spans import configure_tracer, get_tracer
 from ..parallel import stack_window_graphs
 from ..rank_backends.blob import stage_rank_window, stage_rank_windows_batched
 from ..rank_backends.torch_cuda import (
@@ -102,20 +108,25 @@ def _gauge_inflight(lane: str, n: int) -> None:
 class StageTimings:
     """Wall-clock milliseconds per named stage of one window; each stage
     also lands in the registry's ``microrank_stage_seconds`` histogram,
-    in seconds, as the JAX package's StageTimings records it."""
+    in seconds, and is a span of the process tracer around the same
+    region, as the JAX package's StageTimings records them. ``ctx`` (an
+    ``obs.spans.SpanContext``) pins every stage to one trace, the
+    window's, whatever thread finishes it."""
 
-    def __init__(self):
+    def __init__(self, ctx=None):
         self._ms: Dict[str, float] = {}
+        self.ctx = ctx
 
     @contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self._ms[name] = self._ms.get(name, 0.0) + dt * 1e3
-            stage_seconds().observe(dt, stage=name)
+        with get_tracer().span(name, ctx=self.ctx):
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self._ms[name] = self._ms.get(name, 0.0) + dt * 1e3
+                stage_seconds().observe(dt, stage=name)
 
     def as_dict(self) -> Dict[str, float]:
         return {k: round(v, 3) for k, v in self._ms.items()}
@@ -167,7 +178,8 @@ class TableRCA:
         from ..detect.detector import _thresholds
         from ..scenarios.policy import apply_tuned_policy
 
-        # A poisoned normal dump must not poison the SLO floor.
+        # A poisoned normal dump must not poison the SLO floor (its rows
+        # go to whatever dead-letter store is current, as in JAX).
         normal_table, _ = admit_table(
             normal_table, self.config.ingest, source="table:normal"
         )
@@ -387,7 +399,12 @@ class TableRCA:
         cfg = self.config
         if self.baseline is None:
             raise RuntimeError("call fit_baseline() before run()")
-        table, _ = admit_table(table, cfg.ingest, source="table")
+        tracer = configure_tracer(cfg.obs)  # a fresh span ring per run
+        if cfg.ingest.enabled:
+            # Rejected rows land in the dead-letter store beside the
+            # results (or in IngestConfig.quarantine_dir).
+            configure_quarantine(cfg.ingest, default_dir=out_dir)
+            table, _ = admit_table(table, cfg.ingest, source="table")
         if sink is None and out_dir is not None:
             sink = ResultSink(out_dir, overwrite_csv=cfg.compat.overwrite_results)
         cursor = (
@@ -635,7 +652,9 @@ class TableRCA:
         try:
             while current + detect_us <= end if complete_only else current < end:
                 w0, w1 = current, current + detect_us
-                timings = StageTimings()
+                # One trace per window: the StageTimings ctx pins every
+                # stage span to it, also those that complete later.
+                timings = StageTimings(ctx=tracer.new_trace(f"win-{_iso(w0)}"))
                 result = WindowResult(start=_iso(w0), end=_iso(w1), anomaly=False)
                 ranked = False
                 with timings.stage("detect"):

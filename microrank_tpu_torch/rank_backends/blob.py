@@ -168,16 +168,16 @@ def stage_rank_window(
     """Stage one window's host graph (``host_subset``-stripped for
     ``kernel``), or a stacked group's, and issue its rank program, all
     on the current stream: ``stage_graph``, the kernels' layouts
-    (``device_subset``) and ``rank_window_traced_core``. On the kind and
-    packed routes the layouts take their counts from the host graph
-    (``ss_host_counts``), so that nothing between the blob's copy and
-    the program waits on the device. Returns (outputs, the pinned blob
+    (``device_subset``) and ``rank_window_traced_core``. On every route
+    the layouts take their counts from the host graph (``host_counts``),
+    so that nothing between the blob's copy and the program waits on the
+    device. Returns (outputs, the pinned blob
     or None): (top_idx, top_scores, n_valid), with ``conv_trace`` also
     (residuals, n_iters), all still on the device.
 
     JAX's checked (``device_checks``) and explained programs are not
     ported (ROADMAP.md, port queue items 10-11)."""
-    from .torch_cuda import device_subset, rank_window_traced_core, ss_host_counts
+    from .torch_cuda import device_subset, host_counts, rank_window_traced_core
 
     if explain is not None and getattr(explain, "enabled", False):
         raise NotImplementedError(
@@ -189,7 +189,7 @@ def stage_rank_window(
             "stage_rank_window: the checked program (K14, device_checks) is "
             "not ported (ROADMAP.md, port queue item 10)"
         )
-    counts = ss_host_counts(graph, kernel)
+    counts = host_counts(graph, kernel)
     dgraph, staged = stage_graph(graph, device, blob)
     dgraph = device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)
     outs = rank_window_traced_core(dgraph, pagerank_cfg, spectrum_cfg, kernel)

@@ -57,7 +57,11 @@ the same program once for all B (K18, the counterpart of JAX's
 list, one pattern group and one K5 state built for the group, a step
 one launch of each kernel for all its windows, the epilogue over [B, V],
 one copy of the [B] outputs. The set-up and the epilogue read each
-window's own ``n_*`` scalars. Every kernel runs stacked: kind (f32,
+window's own ``n_*`` scalars, and their sums over a padded axis (the
+preference vector's two, the finish's total) are ``ops.fold.fold_rows``
+launches (``csrc/row_fold.cu``), in an order fixed by each row's live
+length, so a window's bits in a group are its own program's on every
+device. Every kernel runs stacked: kind (f32,
 bf16, int8: ``quantize_amax`` and the step give [B, 4] scales, each
 window's own), packed, packed_bf16, packed_blocked (K8 with a window
 axis; the plain version's bands within ``packed_block_bytes`` divided
@@ -85,6 +89,7 @@ from ..graph.build import (
     packed_unpacked_bytes,
 )
 from ..graph.structures import PartitionGraph, WindowGraph
+from ..ops.fold import fold_rows
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
 from ..ops.step import StepWindow, step_plan, step_scratch
 from ..ops.spmv import (
@@ -95,6 +100,7 @@ from ..ops.spmv import (
     SpmvGroup,
     coo_spmv_group,
     ell_mode,
+    host_row_layout,
     host_spmv_counts,
     pcsr_spmv_group,
     row_layout,
@@ -201,9 +207,10 @@ def preference_vector(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig):
     preference="paper"). On a kind-collapsed graph a column stands for
     ``kind`` identical traces, so the two normalization sums weight each
     column by its multiplicity. A stacked group's partition ([B, T],
-    ``n_*`` [B]) gives each window's vector from its own ``n_*``; the
-    two sums run over the padded axis, which can round a window's bits
-    otherwise than its own run over its own pad (PERF.md, K18)."""
+    ``n_*`` [B]) gives each window's vector from its own ``n_*``. The
+    two sums are one ``fold_rows`` launch over the live columns, in an
+    order fixed by the live count alone, so a window's bits are the same
+    at its own pad and in a group's."""
     t_pad = g.kind.shape[-1]
     dev = g.kind.device
     collapsed = g.n_cols >= 0
@@ -214,8 +221,10 @@ def preference_vector(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig):
     mult = torch.where(collapsed[..., None], kind, 1.0)
     inv_kind = torch.where(live, 1.0 / kind, 0.0)
     inv_len = torch.where(live, 1.0 / tlen, 0.0)
-    kind_sum = (mult * inv_kind).sum(-1, keepdim=True)
-    num_sum = (mult * inv_len).sum(-1, keepdim=True)
+    terms = torch.stack([mult * inv_kind, mult * inv_len])  # [2, (B,) T]
+    lengths = n_live.to(torch.int32).reshape(-1).repeat(2)
+    sums = fold_rows(terms.reshape(-1, t_pad), lengths).view(terms.shape[:-1] + (1,))
+    kind_sum, num_sum = sums[0], sums[1]
 
     if not anomaly:
         pref = inv_kind / kind_sum
@@ -232,19 +241,32 @@ def preference_vector(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig):
     return torch.where(live, pref, 0.0)
 
 
-def spmv_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
+def spmv_layouts(g: PartitionGraph, checked: bool = False
+                 ) -> Tuple[RowLayout, RowLayout, RowLayout]:
     """K1's row layouts of the partition's three transition matrices:
     p_sr (rows = op, over traces), p_ss (rows = child op, over parent
     ops) and p_rs (rows = trace, over ops). Entries past the live
     counts are padding and are left out. A stacked group's partition
-    gives block-diagonal layouts over its windows."""
+    gives block-diagonal layouts over its windows. ``checked``: the rows
+    were checked on the host (``host_counts``), and no layout syncs."""
     v = g.cov_unique.shape[-1]
     t_pad = g.kind.shape[-1]
     return (
-        row_layout(g.inc_op, g.inc_trace, g.sr_val, v, g.n_inc, n_x=t_pad),
-        row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss, n_x=v),
-        row_layout(g.inc_trace, g.inc_op, g.rs_val, t_pad, g.n_inc, n_x=v),
+        row_layout(g.inc_op, g.inc_trace, g.sr_val, v, g.n_inc, n_x=t_pad, checked=checked),
+        row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss, n_x=v, checked=checked),
+        row_layout(g.inc_trace, g.inc_op, g.rs_val, t_pad, g.n_inc, n_x=v, checked=checked),
     )
+
+
+def _host_spmv_layouts(g) -> list:
+    """``spmv_layouts`` of one host partition as ``host_spmv_counts``
+    reads them (``host_row_layout``)."""
+    v, t_pad = int(g.cov_unique.shape[-1]), int(g.kind.shape[-1])
+    return [
+        host_row_layout(g.inc_op, g.inc_trace, v, g.n_inc, t_pad),
+        host_row_layout(g.ss_child, g.ss_parent, v, g.n_ss, v),
+        host_row_layout(g.inc_trace, g.inc_op, t_pad, g.n_inc, v),
+    ]
 
 
 # x slots of a step's group: (rv_n, sv_n, rv_a, sv_a). p_sr reads a
@@ -252,18 +274,21 @@ def spmv_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
 STEP_X_SLOTS = (0, 1, 1, 2, 3, 3)
 
 
-def window_spmv_group(graph: WindowGraph, layouts_of=spmv_layouts) -> SpmvGroup:
+def window_spmv_group(graph: WindowGraph, layouts_of=spmv_layouts,
+                      counts: Optional[SpmvCounts] = None) -> SpmvGroup:
     """K1's work list of one power-iteration step: the three matrices of
     the normal partition, then of the abnormal one (``layouts_of`` each
     partition), read from x slots ``STEP_X_SLOTS``. A stacked group's
-    work list covers all its windows (``SpmvGroup.windows``)."""
+    work list covers all its windows (``SpmvGroup.windows``). ``counts``:
+    the work list's counts from the host graph (``host_counts``), with
+    which the layouts and the work list are built without a host sync."""
     windows = stacked_windows(graph)
     layouts, n_x = [], []
     for g in (graph.normal, graph.abnormal):
         v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
-        layouts += layouts_of(g)
+        layouts += layouts_of(g) if counts is None else layouts_of(g, checked=True)
         n_x += [(windows or 1) * n for n in (t_pad, v, v)]
-    return spmv_group(layouts, STEP_X_SLOTS, n_x, windows)
+    return spmv_group(layouts, STEP_X_SLOTS, n_x, windows, counts)
 
 
 def _require_pc_views(g: PartitionGraph) -> None:
@@ -275,15 +300,30 @@ def _require_pc_views(g: PartitionGraph) -> None:
         )
 
 
-def _pcsr_sr_layout(g: PartitionGraph) -> RowLayout:
+def _compact(live: torch.Tensor, n_live: int, *tensors: torch.Tensor):
+    """The entries of each tensor where ``live`` holds, in order, as
+    ``t[live]`` gives them, for a live count ``n_live`` known on the
+    host: every entry scattered to its live rank (the dead ones to a slot
+    past the end, dropped), so nothing waits on the device."""
+    flat = live.reshape(-1)
+    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, n_live)
+    return tuple(
+        t.reshape(-1).new_empty(n_live + 1).scatter_(0, dest, t.reshape(-1))[:n_live]
+        for t in tensors
+    )
+
+
+def _pcsr_sr_layout(g: PartitionGraph, n_sr: Optional[int] = None) -> RowLayout:
     """K1's row layout of p_sr (rows = ops) read from the forward tables:
     entry j of partition p's table belongs to op o when its block
     j // PCSR_BLOCK lies in [pc_blk_indptr[p, o], pc_blk_indptr[p, o + 1]);
     its column is the global trace pc_trace + p * PCSR_PART_TRACES. Only
-    the nonzero (live) entries are kept. A stacked group's partition
-    ([B, P, .] tables) gives one block-diagonal layout: window b's rows
-    at b * V, its columns at b * T, each row's entries in its window's
-    order."""
+    the nonzero (live) entries are kept, ``n_sr`` of them (from the host,
+    ``host_counts``; None counts them on the device, one host sync). A
+    stacked group's partition ([B, P, .] tables) gives one block-diagonal
+    layout: window b's rows at b * V, its columns at b * T, each row's
+    entries in its window's order. A row lies in [0, B * V] by
+    construction, so the layout needs no range check."""
     v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
     lead = tuple(g.pc_trace.shape[:-2])
     n_parts, e_blk = g.pc_trace.shape[-2:]
@@ -302,7 +342,10 @@ def _pcsr_sr_layout(g: PartitionGraph) -> RowLayout:
         win = torch.arange(lead[0], dtype=torch.int32, device=dev)[:, None, None]
         rows, cols = rows + win * v, cols + win * t_pad
     n_rows = (lead[0] if lead else 1) * v
-    return row_layout(rows[live].to(torch.int32), cols[live], g.pc_sr_val[live], n_rows)
+    if n_sr is None:
+        n_sr = int(live.sum())
+    rows, cols, vals = _compact(live, n_sr, rows, cols, g.pc_sr_val)
+    return row_layout(rows.to(torch.int32), cols, vals, n_rows, checked=True)
 
 
 def pcsr_layouts(g: PartitionGraph) -> Tuple[RowLayout, RowLayout, RowLayout]:
@@ -373,34 +416,22 @@ PCSR_ELL_SLOTS = (1, 3)
 PCSR_ORDER = (0, 1, 4, 2, 3, 5)
 
 
-def window_pcsr_group(graph: WindowGraph) -> PcsrGroup:
-    """The pcsr kernel's step, built once per window from the
-    partition-centric views: K1's work list of p_sr (``_pcsr_sr_layout``)
-    and p_ss of both partitions, and each partition's ELL slab as it
-    lies on the device (p_rs), with its row lengths and the mode the
-    kernel reads it in (``ell_mode``). Checks, with one host sync, that
-    each partition's tables hold ``n_inc`` live entries, that every slab
-    row's live entries form a prefix and that their ops index x.
+class PcsrCounts(NamedTuple):
+    """What ``window_pcsr_group`` otherwise reads back from the device,
+    counted on the host graph (``host_counts``): the work list's counts,
+    and per partition its live forward entries (p_sr's layout) and its
+    live ELL entries (the slab's read mode)."""
 
-    A stacked group of B windows: the work list block-diagonal over the
-    windows (``_pcsr_sr_layout``, ``row_layout``), each partition's slabs
-    one slab of B * T rows (window b's rows after window b - 1's, its
-    live ops moved by b * V into the flat x), read in one mode (which
-    moves no bit, ``ell_mode``); the checks are each window's, still
-    one sync for the group."""
-    windows = stacked_windows(graph)
-    parts = (graph.normal, graph.abnormal)
-    layouts, n_x, lens, counts = [], [], [], []
-    for g in parts:
-        _require_pc_views(g)
-        v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
-        layouts += [_pcsr_sr_layout(g),
-                    row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss, n_x=v)]
-        n_x += [(windows or 1) * n for n in (t_pad, v)]
-        row_lens, c = _ell_checks(g)
-        lens.append(row_lens.reshape(-1))
-        counts.append(c.reshape(-1, c.shape[-1]))
-    checks = torch.stack(counts).tolist()
+    rows: SpmvCounts
+    n_sr: Tuple[int, int]
+    n_ell: Tuple[int, int]
+
+
+def _check_pcsr_views(parts, checks, windows) -> None:
+    """Raise on what the pcsr kernel takes on trust, from each
+    partition's per-window counts (``_ell_checks`` on the device,
+    ``_host_ell_checks`` on the host): (nonzero ELL entries, live entries
+    after padding, ops outside [0, V), nonzero forward entries, n_inc)."""
     for g, per_window in zip(parts, checks):
         for b, (n_rs, gaps, bad_ops, n_sr, n_inc) in enumerate(per_window):
             where = "" if windows is None else f" (window {b})"
@@ -414,20 +445,177 @@ def window_pcsr_group(graph: WindowGraph) -> PcsrGroup:
                     f"pcsr ELL slab: {gaps} live entries after padding, "
                     f"{bad_ops} ops outside [0, {g.cov_unique.shape[-1]}){where}"
                 )
+
+
+def window_pcsr_group(graph: WindowGraph, counts: Optional[PcsrCounts] = None) -> PcsrGroup:
+    """The pcsr kernel's step, built once per window from the
+    partition-centric views: K1's work list of p_sr (``_pcsr_sr_layout``)
+    and p_ss of both partitions, and each partition's ELL slab as it
+    lies on the device (p_rs), with its row lengths and the mode the
+    kernel reads it in (``ell_mode``). Checks that each partition's
+    tables hold ``n_inc`` live entries, that every slab row's live
+    entries form a prefix and that their ops index x: with one host sync
+    here, or none where ``counts`` come from the host graph, whose checks
+    ``host_counts`` made.
+
+    A stacked group of B windows: the work list block-diagonal over the
+    windows (``_pcsr_sr_layout``, ``row_layout``), each partition's slabs
+    one slab of B * T rows (window b's rows after window b - 1's, its
+    live ops moved by b * V into the flat x), read in one mode (which
+    moves no bit, ``ell_mode``); the checks are each window's, still
+    one sync for the group."""
+    windows = stacked_windows(graph)
+    parts = (graph.normal, graph.abnormal)
+    layouts, n_x, lens, device_counts = [], [], [], []
+    for i, g in enumerate(parts):
+        _require_pc_views(g)
+        v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
+        layouts += [
+            _pcsr_sr_layout(g, None if counts is None else counts.n_sr[i]),
+            row_layout(g.ss_child, g.ss_parent, g.ss_val, v, g.n_ss, n_x=v,
+                       checked=counts is not None),
+        ]
+        n_x += [(windows or 1) * n for n in (t_pad, v)]
+        if counts is None:
+            row_lens, c = _ell_checks(g)
+            device_counts.append(c.reshape(-1, c.shape[-1]))
+        else:
+            row_lens = (g.pc_ell_rs != 0).sum(-1, dtype=torch.int32)
+        lens.append(row_lens.reshape(-1))
+    if counts is None:
+        checks = torch.stack(device_counts).tolist()
+        _check_pcsr_views(parts, checks, windows)
+        n_ell = [sum(w[0] for w in per_window) for per_window in checks]
+    else:
+        n_ell = counts.n_ell
     ell = []
-    for g, slot, row_lens, per_window in zip(parts, PCSR_ELL_SLOTS, lens, checks):
+    for g, slot, row_lens, n_live in zip(parts, PCSR_ELL_SLOTS, lens, n_ell):
         ops, vals = g.pc_ell_op, g.pc_ell_rs
         if windows is not None:
             win = torch.arange(windows, dtype=torch.int32, device=ops.device)[:, None, None]
             ops = torch.where(vals != 0, ops + win * g.cov_unique.shape[-1], 0)
             ops, vals = ops.reshape(-1, ops.shape[-1]), vals.reshape(-1, vals.shape[-1])
-        n_live = sum(w[0] for w in per_window)
         ell.append(EllPart(ops.contiguous(), vals.contiguous(), slot, row_lens,
                            ell_mode(ops.shape[1], ops.shape[0], n_live)))
     return PcsrGroup(
-        rows=spmv_group(layouts, PCSR_ROW_SLOTS, n_x, windows),
+        rows=spmv_group(layouts, PCSR_ROW_SLOTS, n_x, windows,
+                        None if counts is None else counts.rows),
         ell=tuple(ell),
         order=PCSR_ORDER,
+    )
+
+
+def _per_window(mask: np.ndarray, n_win: int) -> np.ndarray:
+    """The true entries of each window's slice of ``mask``, int64 [B]."""
+    return np.count_nonzero(mask.reshape(n_win, -1), axis=1).astype(np.int64)
+
+
+def _host_ell_checks(g, sr_live: np.ndarray) -> np.ndarray:
+    """``_ell_checks``' counts of one host partition, in numpy: [B, 5]
+    (one row for a window); ``sr_live`` its forward tables' nonzero
+    entries."""
+    live = np.asarray(g.pc_ell_rs) != 0
+    ops = np.asarray(g.pc_ell_op)
+    v = int(g.cov_unique.shape[-1])
+    n_win = live.shape[0] if live.ndim == 3 else 1
+    width = live.shape[-1]
+    # A live slot after a dead one, over the flat slab (contiguous), less
+    # the pairs that straddle two rows (a row's first slot after the
+    # previous row's last).
+    flat = live.reshape(n_win, -1)
+    gaps = (_per_window(flat[:, 1:] > flat[:, :-1], n_win)
+            - _per_window(flat[:, width::width] > flat[:, width - 1:-1:width], n_win))
+    return np.stack([
+        _per_window(live, n_win),
+        gaps,
+        _bad_ops(live, ops, v, n_win),
+        _per_window(sr_live, n_win),
+        np.asarray(g.n_inc).reshape(-1).astype(np.int64),
+    ], 1)
+
+
+def _bad_ops(live: np.ndarray, ops: np.ndarray, v: int, n_win: int) -> np.ndarray:
+    """Each window's live ELL entries whose op lies outside [0, v) (a
+    negative op reads as a large unsigned one). Padding holds op 0, so
+    they are only counted where some op is out of range."""
+    if not ops.size or (ops.min() >= 0 and ops.max() < v):
+        return np.zeros(n_win, np.int64)
+    return _per_window((ops.view(np.uint32) >= v) & live, n_win)
+
+
+def _block_counts(live: np.ndarray) -> np.ndarray:
+    """The true entries of each block of PCSR_BLOCK (8) consecutive
+    entries of a bool array whose last axis is whole blocks: each block
+    read as one uint64 of 0 / 1 bytes, whose bytes a multiply sums into
+    the top byte."""
+    words = np.ascontiguousarray(live).view(np.uint64)
+    return (words * np.uint64(0x0101010101010101)) >> np.uint64(56)
+
+
+def _host_pcsr_sr_layout(g, sr_live: np.ndarray) -> Tuple[np.ndarray, int]:
+    """``_pcsr_sr_layout`` of one host partition as ``host_spmv_counts``
+    reads it: (indptr, the live entries whose global column lies outside
+    the x); ``sr_live`` its forward tables' nonzero entries. A block's
+    op is the count of ``pc_blk_indptr[..., 1:]`` at or below it (the
+    device's ``searchsorted(..., right=True)``), which needs the offsets
+    sorted: unsorted ones raise."""
+    assert PCSR_BLOCK == 8  # _block_counts reads a block as one uint64
+    pc_trace = np.asarray(g.pc_trace)
+    indptr = np.asarray(g.pc_blk_indptr).astype(np.int64)
+    v, t_pad = int(g.cov_unique.shape[-1]), int(g.kind.shape[-1])
+    n_parts, e_blk = pc_trace.shape[-2:]
+    n_win = pc_trace.shape[0] if pc_trace.ndim == 3 else 1
+    n_blk = e_blk // PCSR_BLOCK
+    if (np.diff(indptr, axis=-1) < 0).any():
+        raise ValueError("pcsr views: block offsets pc_blk_indptr are not sorted")
+    runs = n_win * n_parts
+    bounds = np.clip(indptr[..., 1:].reshape(runs, -1), 0, n_blk)
+    hist = np.bincount((np.arange(runs)[:, None] * (n_blk + 1) + bounds).ravel(),
+                       minlength=runs * (n_blk + 1)).reshape(runs, n_blk + 1)
+    block_op = np.cumsum(hist[:, :n_blk], axis=1).reshape(n_win, n_parts, n_blk)
+    key = block_op + (np.arange(n_win) * v)[:, None, None]
+    n_rows = n_win * v
+    row_len = np.bincount(key.ravel(), weights=_block_counts(sr_live).ravel(),
+                          minlength=n_rows + 1)
+    indptr_rows = np.concatenate([[0], np.cumsum(row_len[:n_rows].astype(np.int64))])
+    # A live entry's global column pc_trace + p * PCSR_PART_TRACES +
+    # b * T must lie in [0, B * T): bounds on pc_trace per (window,
+    # partition), compared in int32.
+    base = ((np.arange(n_parts) * PCSR_PART_TRACES)[None, :, None]
+            + (np.arange(n_win) * t_pad)[:, None, None]).astype(np.int32)
+    trace = pc_trace.reshape(n_win, n_parts, e_blk)
+    # Padding holds column 0 of its partition, in range: where every
+    # partition's extremes are in range, no live entry is out of it.
+    if (trace.min(-1, keepdims=True) >= -base).all() and (
+            trace.max(-1, keepdims=True) < n_win * t_pad - base).all():
+        return indptr_rows, 0
+    # Only live entries of a counted row are checked (a block past the
+    # last op's run sorts past every row); a negative column reads as a
+    # large unsigned one.
+    bad = ((trace + base).view(np.uint32) >= n_win * t_pad) & sr_live.reshape(trace.shape)
+    bad = bad.reshape(n_win, n_parts, n_blk, PCSR_BLOCK) & (key < n_rows)[..., None]
+    return indptr_rows, int(np.count_nonzero(bad))
+
+
+def _host_pcsr_counts(graph) -> PcsrCounts:
+    """``PcsrCounts`` of a host graph, with ``window_pcsr_group``'s
+    checks raised on the host."""
+    parts = (graph.normal, graph.abnormal)
+    for g in parts:
+        _require_pc_views(g)
+    sr_live = [np.asarray(g.pc_sr_val) != 0 for g in parts]
+    checks = [_host_ell_checks(g, live) for g, live in zip(parts, sr_live)]
+    windows = checks[0].shape[0] if np.asarray(graph.normal.pc_trace).ndim == 3 else None
+    _check_pcsr_views(parts, [c.tolist() for c in checks], windows)
+    layouts = []
+    for g, live in zip(parts, sr_live):
+        v = int(g.cov_unique.shape[-1])
+        layouts += [_host_pcsr_sr_layout(g, live),
+                    host_row_layout(g.ss_child, g.ss_parent, v, g.n_ss, v)]
+    return PcsrCounts(
+        rows=host_spmv_counts(layouts),
+        n_sr=tuple(int(c[:, 3].sum()) for c in checks),
+        n_ell=tuple(int(c[:, 0].sum()) for c in checks),
     )
 
 
@@ -470,18 +658,20 @@ def ss_layout(g: PartitionGraph, kernel: str, checked: bool = False) -> RowLayou
     return row_layout(g.ss_child, g.ss_parent, ones, v, g.n_ss, n_x=v, checked=checked)
 
 
-# Routes whose layouts build with no host sync when given the host's
-# counts of their call-graph terms (``ss_host_counts``): the pattern
-# routes. pallas and pcsr build theirs from device values and sync.
-SYNC_FREE_KERNELS = ("kind", "packed", "packed_bf16", "packed_blocked")
+# Routes whose call-graph terms are K1's work list beside the pattern
+# pair (``ss_host_counts``).
+PATTERN_KERNELS = ("kind", "packed", "packed_bf16", "packed_blocked")
 
 
-def _ss_host_layout(g, kernel: str) -> Tuple[np.ndarray, np.ndarray, int]:
+def _ss_host_layout(g, kernel: str) -> Tuple[np.ndarray, int]:
     """``ss_layout`` of one host partition as numpy, for
-    ``host_spmv_counts``: (indptr, the live entries' columns, n_x), a
-    stacked partition's block-diagonal over its windows. Raises
-    ``row_layout``'s ValueError on a live row outside [0, n_rows]."""
+    ``host_spmv_counts``: (indptr, the live entries whose column lies
+    outside the x), a stacked partition's block-diagonal over its
+    windows. Raises ``row_layout``'s ValueError on a live row outside
+    [0, n_rows]."""
     v = int(g.cov_unique.shape[-1])
+    if kernel != "kind":
+        return host_row_layout(g.ss_child, g.ss_parent, v, g.n_ss, v)
     parent = np.asarray(g.ss_parent).astype(np.int64)
     stacked = parent.ndim == 2
     n_win, e = parent.shape if stacked else (1, parent.shape[0])
@@ -489,32 +679,40 @@ def _ss_host_layout(g, kernel: str) -> Tuple[np.ndarray, np.ndarray, int]:
     if stacked:
         parent = np.where((parent >= 0) & (parent < v), parent + win * v, -1)
     parent = parent.reshape(-1)
-    n_rows = n_win * v
-    if kernel == "kind":
-        indptr = np.asarray(g.ss_indptr).astype(np.int64)
-        if stacked:
-            indptr = np.concatenate([
-                (indptr[:, :-1] + win * e).reshape(-1), indptr[-1, -1:] + (n_win - 1) * e,
-            ])
-        return indptr, parent[: indptr[-1]], n_rows
-    child = np.asarray(g.ss_child).astype(np.int64).reshape(n_win, e)
-    live = np.arange(e) < np.asarray(g.n_ss).reshape(-1, 1)
-    key = np.where(live, child + win * v, n_rows).reshape(-1)
-    if key.size and (key.min() < 0 or key.max() > n_rows):
-        raise ValueError(f"row index out of range for n_rows={n_rows}")
-    counts = np.bincount(key, minlength=n_rows + 1)
-    indptr = np.concatenate([[0], np.cumsum(counts[:-1])])
-    return indptr, parent[key < n_rows], n_rows
+    indptr = np.asarray(g.ss_indptr).astype(np.int64)
+    if stacked:
+        indptr = np.concatenate([
+            (indptr[:, :-1] + win * e).reshape(-1), indptr[-1, -1:] + (n_win - 1) * e,
+        ])
+    live = parent[: indptr[-1]]
+    return indptr, int(np.count_nonzero((live < 0) | (live >= n_win * v)))
 
 
 def ss_host_counts(graph, kernel: str) -> Optional[SpmvCounts]:
     """The counts of the call-graph terms' work list (``device_subset``
     of the kind and packed routes), computed on the host graph with its
-    checks, so that the device side of a window issues without a host
-    sync; None for a route whose layouts sync anyway."""
-    if kernel not in SYNC_FREE_KERNELS:
+    checks; None for a route without that work list (pcsr, pallas:
+    ``host_counts``)."""
+    if kernel not in PATTERN_KERNELS:
         return None
     return host_spmv_counts([_ss_host_layout(g, kernel) for g in (graph.normal, graph.abnormal)])
+
+
+def host_counts(graph, kernel: str):
+    """What ``device_subset`` of ``kernel`` would read back from the
+    device, computed on the host graph with its checks (the same
+    ``ValueError`` / ``IndexError`` on a bad view, row or column), so
+    that the device side of a window issues without a host sync: the
+    call-graph terms' counts on the pattern routes (``ss_host_counts``),
+    the six SpMVs' on pallas, ``PcsrCounts`` on pcsr."""
+    _check_kernel(kernel)
+    if kernel == "pcsr":
+        return _host_pcsr_counts(graph)
+    if kernel == "pallas":
+        return host_spmv_counts(
+            [lay for g in (graph.normal, graph.abnormal) for lay in _host_spmv_layouts(g)]
+        )
+    return ss_host_counts(graph, kernel)
 
 
 def window_pattern_group(
@@ -573,10 +771,12 @@ def _partition_setup(
 
 def _partition_finish(g: PartitionGraph, sv):
     """Final normalize + the reference's rescale (pagerank.py:93-112):
-    returns (weight[V], score[V]), [B, V] for a stacked group (the sum
-    over the padded axis as the preference vector's)."""
+    returns (weight[V], score[V]), [B, V] for a stacked group. The sum
+    over the op axis is one ``fold_rows`` launch, in the fixed order of
+    the preference vector's sums."""
     score = sv / sv.amax(-1, keepdim=True)
-    total = torch.where(g.op_present, score, 0.0).sum(-1, keepdim=True)
+    present = torch.where(g.op_present, score, 0.0)
+    total = fold_rows(present.reshape(-1, present.shape[-1])).view(present.shape[:-1] + (1,))
     weight = score * total / g.n_ops.to(torch.float32)[..., None]
     return weight, score
 
@@ -876,7 +1076,7 @@ def device_subset(
     graph: WindowGraph,
     kernel: str = "pallas",
     packed_block_bytes: int = PageRankConfig.packed_block_bytes,
-    counts: Optional[SpmvCounts] = None,
+    counts=None,
 ) -> WindowGraph:
     """The graph as the kernels consume it, built once per window so each
     power-iteration step is one or two launches of its products and the
@@ -892,17 +1092,19 @@ def device_subset(
     list, one pattern group and one step scratch for all of them (the
     caller divides ``packed_block_bytes`` by B, ``divide_block_budget``).
 
-    ``counts`` (the kind and packed routes): the call-graph terms'
-    counts from the host graph (``ss_host_counts``), which the layouts
-    then take on trust: the device side issues with no host sync, so
-    it need not wait for the work queued before it."""
+    ``counts``: the route's counts from the host graph (``host_counts``:
+    the call-graph terms' on the kind and packed routes, the six SpMVs'
+    on pallas, ``PcsrCounts`` on pcsr), which the layouts then take on
+    trust: the device side issues with no host sync, so it need not
+    wait for the work queued before it."""
     _check_kernel(kernel)
     windows = stacked_windows(graph)
     scratch = step_scratch(graph.normal.kind.device, windows or 1)
     if kernel == "pallas":
-        return graph._replace(spmv_group=window_spmv_group(graph), step_scratch=scratch)
+        return graph._replace(spmv_group=window_spmv_group(graph, counts=counts),
+                              step_scratch=scratch)
     if kernel == "pcsr":
-        return graph._replace(spmv_group=window_pcsr_group(graph), step_scratch=scratch)
+        return graph._replace(spmv_group=window_pcsr_group(graph, counts), step_scratch=scratch)
     pgroup = window_pattern_group(graph, kernel, packed_block_bytes)  # checks the views first
     parts = (graph.normal, graph.abnormal)
     layouts = [ss_layout(g, kernel, checked=counts is not None) for g in parts]

@@ -472,3 +472,112 @@ def test_pcsr_step_over_slabs_of_widths_4_and_64_under_one_width(cuda_device, n_
             torch.cuda.synchronize()
             assert_bitwise(got[0][w], mine[0])
             assert_bitwise(got[1][w], mine[1])
+
+
+# Two windows over one 13-op vocab whose trace pads are 8 and 96 (kind:
+# 6 and 91 kind columns; packed: 6 and 2000 traces), as the replay's
+# group of two mixes them.
+TWO_PADS = ((24, 3), (8000, 4))
+STAGES = ("setup", "pair", "k1", "k5", "weights", "spectrum", "topk")
+
+
+@functools.lru_cache(maxsize=None)
+def two_pad_windows(aux, collapse):
+    out = []
+    for n_spans, seed in TWO_PADS:
+        gw = giant_window(n_spans=n_spans, n_ops=13, spans_per_trace=2, seed=seed)
+        graph, _, _, _ = build_window_graph_from_table(
+            gw.table, None, gw.normal_codes, gw.abnormal_codes, aux=aux, collapse=collapse
+        )
+        out.append(graph)
+    return tuple(out)
+
+
+def program_stages(dg, cfg, kernel):
+    """A rank program's values stage by stage, as 1-d float32 tensors of
+    window 0 (the whole program for one window): the set-up (preference
+    and initial vectors), the first step's pattern pair, K1 and K5
+    outputs, the final weights, the spectrum and the top-k."""
+    win = torch_cuda.stacked_windows(dg) is not None
+
+    def w0(t):
+        return (t[0] if win else t).reshape(-1)
+
+    precision = ("bf16" if kernel == "packed_bf16"
+                 else cfg.kind_precision if kernel == "kind" else "f32")
+    setup = [torch_cuda._partition_setup(g, a, cfg, kernel)
+             for g, a in ((dg.normal, False), (dg.abnormal, True))]
+    (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = setup
+    out = {"setup": [w0(t) for part in setup for t in part]}
+    scales = (pattern.quantize_scales(dg.pattern_group, (rv_n, rv_a), (sv_n, sv_a))
+              if precision == "int8" else None)
+    pair = pattern.pattern_pair_group(dg.pattern_group, (rv_n, rv_a), (sv_n, sv_a), precision,
+                                      scales)
+    out["pair"] = [w0(t) for f, b, _ in pair for t in (f, b)]
+    ss = spmv.coo_spmv_group(dg.spmv_group, [sv if x is None else x
+                                             for sv, (_, _, x) in zip((sv_n, sv_a), pair)])
+    out["k1"] = [w0(t) for t in ss]
+    plan = step.step_plan((pref_n, pref_a), cfg.call_weight, cfg.damping, None,
+                          cfg.max_normalize_each_iter, dg.step_scratch)
+    lead = (dg.normal.kind.shape[0],) if win else ()
+    residuals = torch.zeros(lead + (2, 1), dtype=torch.float32, device=sv_n.device)
+    new, _ = step.StepWindow(plan, ((sv_n, rv_n), (sv_a, rv_a)), residuals).step(
+        ((pair[0][0], ss[0], pair[0][1]), (pair[1][0], ss[1], pair[1][1])), 0)
+    out["k5"] = [w0(t) for part in new for t in part] + [w0(residuals)]
+    n_weight, a_weight = window_weights_full(dg, cfg, kernel)[:2]
+    out["weights"] = [w0(n_weight), w0(a_weight)]
+    scores, _ = torch_cuda.window_spectrum(a_weight, dg.abnormal, n_weight, dg.normal,
+                                           SpectrumConfig())
+    out["spectrum"] = [w0(scores)]
+    top_idx, top_scores, n_valid = torch_cuda._finish_topk(dg, n_weight, a_weight,
+                                                           SpectrumConfig())
+    n = int(w0(n_valid)[0])
+    out["topk"] = [w0(top_idx)[:n], w0(top_scores)[:n]]
+    return out
+
+
+def first_stage_that_differs(group, own):
+    """The first of STAGES whose values of window 0 differ in a bit (a
+    padded axis compared over the window's own extent; past it the
+    group's values must be 0, or -inf in the spectrum), or None."""
+    for name in STAGES:
+        for g, o in zip(group[name], own[name]):
+            n = o.shape[0]
+            pad = g[n:]
+            if not torch.equal(bits(g[:n]).cpu(), bits(o).cpu()):
+                return name
+            if name not in ("topk",) and pad.numel() and not bool(
+                    ((pad == 0) | (pad == float("-inf"))).all()):
+                return name
+    return None
+
+
+@pytest.mark.parametrize("kernel,precision,aux,collapse", [
+    ("kind", "f32", "kind", "on"),
+    ("kind", "int8", "kind", "on"),
+    ("packed_bf16", "f32", "packed", "off"),
+], ids=["kind-f32", "kind-int8", "packed_bf16"])
+def test_two_pad_group_is_bitwise_its_windows_own_programs(cuda_device, kernel, precision,
+                                                           aux, collapse):
+    # A stacked group whose windows' trace pads are 8 and 96, compared
+    # with window 0's own program stage by stage: the first stage whose
+    # bits differ is named (the set-up's and the finish's sums over the
+    # padded axis are where a pad could move a bit).
+    graphs = [host_subset(g, kernel) for g in two_pad_windows(aux, collapse)]
+    assert graphs[0].normal.kind.shape[-1] == 8 and graphs[1].normal.kind.shape[-1] > 8
+    cfg = PageRankConfig(kind_precision=precision)
+    group = device_subset(graph_from_numpy(stack_window_graphs(graphs), cuda_device), kernel)
+    own = device_subset(graph_from_numpy(graphs[0], cuda_device), kernel)
+    stages_group = program_stages(group, cfg, kernel)
+    stages_own = program_stages(own, cfg, kernel)
+    torch.cuda.synchronize()
+    assert first_stage_that_differs(stages_group, stages_own) is None
+    got = rank_window_traced_core(group, cfg, SpectrumConfig(), kernel)
+    for b, host in enumerate(graphs):
+        dg = device_subset(graph_from_numpy(host, cuda_device), kernel)
+        want = rank_window_traced_core(dg, cfg, SpectrumConfig(), kernel)
+        n = int(want[2])
+        assert int(got[2][b]) == n and int(got[4][b]) == int(want[4])
+        for x, y in ((got[0][b][:n], want[0][:n]), (got[1][b][:n], want[1][:n]),
+                     (got[3][b], want[3])):
+            assert_bitwise(x, y)

@@ -12,6 +12,11 @@ held to the JAX package on the CPU:
 * the host counts: ``ss_host_counts`` equals the counts ``spmv_group``
   reads back from the device, the layouts built with them are bitwise
   those built without, and a column (or row) out of range still raises;
+  ``host_counts`` on pcsr and pallas (windows and stacked groups) equals
+  what their layouts read back (the work list's counts, pcsr's live
+  forward and ELL entries), the groups built with them are bitwise those
+  built without, and each bad view, row or column raises the same error
+  from the host;
 * ``TableRCA.run`` with blob staging ranks bitwise as with
   ``blob_staging=False`` on every route and in the chunked and batch
   modes, one blob transfer a program in the metrics; the port's default
@@ -57,8 +62,10 @@ from microrank_tpu_torch.pipeline import TableRCA
 from microrank_tpu_torch.rank_backends import blob
 from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
 from microrank_tpu_torch.rank_backends.torch_cuda import (
+    PcsrCounts,
     device_subset,
     fetch_rank_outputs,
+    host_counts,
     host_subset,
     rank_window_traced_core,
     ss_host_counts,
@@ -202,6 +209,99 @@ def test_host_counts_equal_the_device_counts(small_case, pod_case, kernel, aux, 
     for f in ("items", "cols", "vals", "bucket", "chunk_slot", "row_chunks"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     assert (got.max_chunks, got.n_rows, got.windows) == (ref.max_chunks, ref.n_rows, ref.windows)
+
+
+SIX_SPMV_ROUTES = [r for r in ROUTES if r[0] in ("pcsr", "pallas")]
+
+
+def group_counts(group):
+    """(n_items, max_chunks, live entries) of a built work list."""
+    return (group.items.shape[0], group.max_chunks,
+            int((group.bucket < group.items.shape[0] * spmv.WARP).sum()))
+
+
+def assert_groups_equal(got, ref):
+    for f in ("items", "cols", "vals", "bucket", "chunk_slot", "row_chunks"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert (got.max_chunks, got.n_rows, got.n_x, got.windows) == (
+        ref.max_chunks, ref.n_rows, ref.n_x, ref.windows)
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["window", "stacked"])
+@pytest.mark.parametrize("kernel,aux,collapse", SIX_SPMV_ROUTES,
+                         ids=[k for k, _, _ in SIX_SPMV_ROUTES])
+def test_pcsr_and_pallas_host_counts_equal_the_device_counts(small_case, pod_case, kernel,
+                                                             aux, collapse, stacked):
+    graphs = [host_subset(jax_graph(c, aux, collapse), kernel) for c in (small_case, pod_case)]
+    host = stack_window_graphs(graphs) if stacked else graphs[0]
+    counts = host_counts(host, kernel)
+    ref = device_subset(graph_from_numpy(host, "cpu"), kernel).spmv_group
+    got = device_subset(graph_from_numpy(host, "cpu"), kernel, counts=counts).spmv_group
+    if kernel == "pallas":
+        assert counts == group_counts(ref)
+        assert_groups_equal(got, ref)
+        return
+    assert isinstance(counts, PcsrCounts) and counts.rows == group_counts(ref.rows)
+    assert_groups_equal(got.rows, ref.rows)
+    dev = graph_from_numpy(host, "cpu")
+    for i, g in enumerate((dev.normal, dev.abnormal)):
+        assert counts.n_sr[i] == int((g.pc_sr_val != 0).sum())
+        assert counts.n_ell[i] == int(ref.ell[i].lens.sum())
+    for a, b in zip(got.ell, ref.ell):
+        assert a.mode == b.mode and a.slot == b.slot
+        for x, y in zip((a.ops, a.vals, a.lens), (b.ops, b.vals, b.lens)):
+            assert torch.equal(x, y)
+
+
+def bad_views(graph, kernel):
+    """(name, bad graph, error, match) of each check the host must make."""
+    g = graph.normal
+    out = []
+    if kernel == "pcsr":
+        out.append(("n_inc", g._replace(n_inc=np.int32(int(g.n_inc) + 1)),
+                    ValueError, "nonzero entries"))
+        rs, ops = g.pc_ell_rs.copy(), g.pc_ell_op.copy()
+        n_live = (rs != 0).sum(1)
+        row = int(np.flatnonzero((n_live >= 1) & (n_live < rs.shape[1]))[0])
+        # The row's first entry moved past its last: live after padding.
+        rs[row, n_live[row]], rs[row, 0] = rs[row, 0], 0.0
+        out.append(("gap", g._replace(pc_ell_rs=rs), ValueError, "after padding"))
+        ops[np.nonzero(g.pc_ell_rs)[0][0], 0] = g.cov_unique.shape[0] + 3
+        out.append(("op", g._replace(pc_ell_op=ops), ValueError, "ops outside"))
+        trace = g.pc_trace.copy()
+        trace[np.nonzero(g.pc_sr_val)[0][0], np.nonzero(g.pc_sr_val)[1][0]] = -7
+        out.append(("column", g._replace(pc_trace=trace), IndexError, "1 column"))
+    else:
+        parent = g.ss_parent.copy()
+        parent[0] = g.cov_unique.shape[0] + 9
+        out.append(("column", g._replace(ss_parent=parent), IndexError, "1 column"))
+        op = g.inc_op.copy()
+        op[0] = -2
+        out.append(("row", g._replace(inc_op=op), ValueError, "out of range"))
+    return [(name, graph._replace(normal=bad), err, match) for name, bad, err, match in out]
+
+
+@pytest.mark.parametrize("kernel,aux,collapse", SIX_SPMV_ROUTES,
+                         ids=[k for k, _, _ in SIX_SPMV_ROUTES])
+def test_bad_pcsr_and_pallas_views_still_raise(small_case, kernel, aux, collapse):
+    host = host_subset(jax_graph(small_case, aux, collapse), kernel)
+    for name, bad, err, match in bad_views(host, kernel):
+        with pytest.raises(err, match=match):
+            host_counts(bad, kernel)
+        with pytest.raises(err, match=match):
+            blob.stage_rank_window(bad, PageRankConfig(), SpectrumConfig(), kernel, "cpu", True)
+        if name != "column" or kernel == "pallas":  # the device-side check, as before
+            with pytest.raises(err, match=match):
+                device_subset(graph_from_numpy(bad, "cpu"), kernel)
+        stacked = stack_window_graphs([bad, host])
+        with pytest.raises(err, match=match):
+            host_counts(stacked, kernel)
+    indptr = host.normal.pc_blk_indptr.copy() if kernel == "pcsr" else None
+    if indptr is not None:
+        indptr[0, 1], indptr[0, 2] = indptr[0, 2] + 1, indptr[0, 1]
+        bad = host._replace(normal=host.normal._replace(pc_blk_indptr=indptr))
+        with pytest.raises(ValueError, match="not sorted"):
+            host_counts(bad, kernel)
 
 
 def test_host_counts_only_for_the_pattern_routes(small_case):

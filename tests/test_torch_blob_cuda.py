@@ -2,10 +2,11 @@
 bitwise the host arrays, each at a 256-byte-aligned address of the one
 device buffer (so a pcsr window passes the ELL slab's alignment check);
 the rank program over the blob is bitwise the per-leaf (tree) path's
-with the same launches, on every route, stacked groups too; on the kind
-and packed routes the stage, the layouts and the program issue under
-``torch.cuda.set_sync_debug_mode("error")``; and the pinned blob is
-held with the window's outputs until they are fetched.
+with the same launches, on every route, stacked groups too; on every
+route (pcsr and pallas too, their counts from the host graph) the
+stage, the layouts and the program of a window and of a stacked group
+issue under ``torch.cuda.set_sync_debug_mode("error")``; and the pinned
+blob is held with the window's outputs until they are fetched.
 
 Every test here needs the card and skips without one. The file imports
 neither JAX nor the JAX package:
@@ -28,7 +29,6 @@ from microrank_tpu_torch.parallel import stack_window_graphs
 from microrank_tpu_torch.pipeline import TableRCA
 from microrank_tpu_torch.rank_backends import blob
 from microrank_tpu_torch.rank_backends.torch_cuda import (
-    SYNC_FREE_KERNELS,
     fetch_rank_outputs,
     host_subset,
     pack_rank_outputs,
@@ -49,7 +49,6 @@ ROUTES = [
     ("pallas", "f32", "auto", "off"),
 ]
 ROUTE_IDS = [f"{k}-{p}" for k, p, _, _ in ROUTES]
-SYNC_FREE = [r for r in ROUTES if r[0] in SYNC_FREE_KERNELS]
 
 
 @pytest.fixture
@@ -147,8 +146,7 @@ def test_pcsr_window_passes_the_slab_alignment_check(cuda_device):
     assert spmv.pcsr_spmv_group.launches - before == PageRankConfig().iterations
 
 
-@pytest.mark.parametrize("kernel,precision,aux,collapse", SYNC_FREE,
-                         ids=[f"{k}-{p}" for k, p, _, _ in SYNC_FREE])
+@pytest.mark.parametrize("kernel,precision,aux,collapse", ROUTES, ids=ROUTE_IDS)
 def test_stage_layouts_and_program_issue_without_a_host_sync(cuda_device, kernel, precision,
                                                              aux, collapse):
     host = host_subset(host_window(aux, collapse), kernel)
@@ -165,6 +163,28 @@ def test_stage_layouts_and_program_issue_without_a_host_sync(cuda_device, kernel
     got = unpack_rank_outputs(packed)
     ref, _, _ = ranked(host, kernel, precision, cuda_device, False)
     assert_outputs_bitwise(got, ref)
+
+
+@pytest.mark.parametrize("kernel,precision,aux,collapse", ROUTES, ids=ROUTE_IDS)
+def test_stacked_group_issues_without_a_host_sync(cuda_device, kernel, precision, aux,
+                                                  collapse):
+    host = stack_window_graphs([host_subset(host_window(aux, collapse, seed), kernel)
+                                for seed in (3, 4)])
+    cfg = PageRankConfig(kind_precision=precision)
+
+    def staged():
+        outs, pinned = blob.stage_rank_windows_batched(host, cfg, SpectrumConfig(), kernel,
+                                                       cuda_device, True, conv_trace=True)
+        return pack_rank_outputs(outs, pinned)
+
+    want = unpack_rank_outputs(staged())  # builds and binds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = staged()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert_outputs_bitwise(unpack_rank_outputs(packed), want)
 
 
 def test_the_pinned_blob_is_held_until_the_fetch(cuda_device):

@@ -66,10 +66,19 @@ def adversarial(name, n, rng):
         return x
     if name == "subnormal":
         return (rng.uniform(-1.0, 1.0, n) * 1e-39).astype(np.float32)
+    if name == "subnormal_scale":
+        # Normal values whose amax / 127 is subnormal (amax below
+        # 127 * FLT_MIN), beside zeros and subnormals: XLA's CPU flushes
+        # the scale to 0, so q is +-127, or 0 where the operand is 0.
+        x = (rng.uniform(-1.0, 1.0, n) * 1e-37).astype(np.float32)
+        x[::5] = 0.0
+        x[1::7] = 1e-40
+        x[0] = -1.2e-37
+        return x
     raise ValueError(name)
 
 
-VECTORS = ["random", "all_zero", "one_nonzero", "half_steps", "at_amax"]
+VECTORS = ["random", "all_zero", "one_nonzero", "half_steps", "at_amax", "subnormal_scale"]
 
 
 @pytest.mark.parametrize("name", VECTORS)
@@ -119,6 +128,33 @@ def test_subnormal_operands_are_bitwise_jax():
         np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
         assert st.numpy().tobytes() == np.asarray(sj).tobytes()
     assert float(sj) != 1.0  # the mixed vector's scale comes from its normal values
+
+
+def test_subnormal_scale_is_bitwise_jax():
+    # amax / 127 below FLT_MIN: XLA's CPU flushes the quotient, so JAX's
+    # scale is 0 and its q +-127, 0 where the operand is 0 (or a flushed
+    # subnormal); the port's quantize_scale flushes it by the same
+    # compare, eagerly and under jit alike.
+    import jax
+    import jax.numpy as jnp
+    from microrank_tpu.rank_backends import jax_tpu
+
+    rng = np.random.default_rng(16)
+    for n in (1, 7, 300):
+        x = adversarial("subnormal_scale", n, rng)
+        qt, st = pattern.quantize_i8(torch.from_numpy(x))
+        assert float(st) == 0.0
+        for qj, sj in (jax_tpu.quantize_i8(jnp.asarray(x)),
+                       jax.jit(jax_tpu.quantize_i8)(jnp.asarray(x))):
+            np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+            assert st.numpy().tobytes() == np.asarray(sj).tobytes()
+        assert set(np.unique(qt.numpy())) <= {-127, 0, 127}
+    # Stacked rows: each window's own scale, flushed or not.
+    rows = np.stack([adversarial("subnormal_scale", 64, rng),
+                     adversarial("random", 64, rng)])
+    st = pattern.quantize_scale(torch.from_numpy(rows))
+    for row, s in zip(rows, st):
+        assert s.numpy().tobytes() == np.asarray(jax_tpu.quantize_i8(jnp.asarray(row))[1]).tobytes()
 
 
 def int8_group(rng, v, k, m=None):
@@ -499,6 +535,36 @@ def test_quantize_amax_on_subnormal_operands_is_bitwise_plain(cuda_device):
         assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
     assert float(pattern.quantize_scales_plain(host, sub[:1], sub[1:])[0]) == 1.0
     torch.cuda.synchronize()
+    assert not on_dev.amax_scratch.any()
+
+
+@pytest.mark.cuda
+def test_int8_kernels_on_a_subnormal_scale_are_bitwise_plain(cuda_device):
+    # Operands whose amax / 127 is subnormal: the scale launch flushes
+    # it to 0 as the plain version (and XLA's CPU) does, and the pair
+    # quantizes to +-127, 0 where the operand is 0, as the plain version.
+    rng = np.random.default_rng(13)
+    v, k = 300, 1100
+    group, _, _, _ = int8_group(rng, v, k)
+    bits = group.parts[0].pattern
+
+    def ones_group(dev):
+        return pattern.pattern_group([bits.to(dev)], [torch.ones(k, device=dev)],
+                                     [torch.ones(v, device=dev)], [None], [k])
+
+    host, on_dev = ones_group("cpu"), ones_group(cuda_device)
+    rv, sv = (torch.from_numpy(adversarial("subnormal_scale", n, rng)) for n in (k, v))
+    want = pattern.quantize_scales_plain(host, [rv], [sv])
+    assert not want.any()
+    got = pattern.quantize_scales(on_dev, [rv.to(cuda_device)], [sv.to(cuda_device)])
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    ref = pattern.pattern_pair_plain(host, [rv], [sv], "int8", want)
+    outs = pattern.pattern_pair_group(on_dev, [rv.to(cuda_device)], [sv.to(cuda_device)],
+                                      "int8", got)
+    torch.cuda.synchronize()
+    for (g_fwd, g_bwd, _), (w_fwd, w_bwd, _) in zip(outs, ref):
+        assert g_fwd.cpu().numpy().tobytes() == w_fwd.numpy().tobytes()
+        assert g_bwd.cpu().numpy().tobytes() == w_bwd.numpy().tobytes()
     assert not on_dev.amax_scratch.any()
 
 

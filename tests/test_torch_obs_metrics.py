@@ -20,6 +20,8 @@ metrics endpoint, held to the JAX package's on the CPU.
 * the default staging, blob in both packages: path "blob", one transfer
   a ranked window in both, and (packed) the same staged and pad bytes,
   audited on the host graph and not on the port's aligned blob;
+* ``metrics.json`` samples every series JAX's samples but
+  ``microrank_jit_retraces_total`` (the spans recorded counted alike);
 * ``run_end.telemetry``: JAX's keys and values except ``jit_retraces``
   (the JAX jit cache, which the port has none of);
 * ``cli stats`` (prom, json, ``--diff``, ``--merge``, ``--journal``):
@@ -271,7 +273,11 @@ def test_table_run_records_jax_series(csv_pair, tmp_path, registries, collapse, 
         "microrank_policy_events_total", "microrank_ingest_admitted_total",
         *STAGING, *HOST,
     }
-    assert sampled <= {name for name, m in theirs.items() if m["samples"]}
+    # Every series JAX's run samples but its jit cache's, the spans
+    # recorded and the dead-letter store's counter included.
+    assert {name for name, m in theirs.items() if m["samples"]} - sampled == {
+        "microrank_jit_retraces_total"}
+    assert "microrank_spans_recorded_total" in sampled
     for name in sampled - HOST - (STAGING if kernel == "kind" else set()):
         a, b = ours[name], theirs[name]
         assert (a["type"], a["help"], a["labelnames"]) == (b["type"], b["help"], b["labelnames"])

@@ -563,7 +563,8 @@ def test_power_step_chain_of_50_is_bitwise_plain(cuda_device, empty):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("where", ["below", "mid", "at", "past"])
-@pytest.mark.parametrize("variant", ["default", "tol", "empty", "no-normalize", "int8"])
+@pytest.mark.parametrize("variant", ["default", "tol", "empty", "no-normalize", "int8",
+                                     "int8-subnormal-scale"])
 def test_fused_step_below_at_and_past_the_slots(cuda_device, where, variant):
     # One block a vector (max_blocks 4) puts a chosen number of elements
     # on each thread: 6 ("mid": 8 slots, the carry in registers), the
@@ -582,10 +583,13 @@ def test_fused_step_below_at_and_past_the_slots(cuda_device, where, variant):
     products, carry, prefs = torch_step_args(inputs, cuda_device)
     cfg = PageRankConfig()
     group = None
-    if variant == "int8":
+    if variant.startswith("int8"):
+        # int8-subnormal-scale: weights of at most 1e-37 put every
+        # operand's amax / 127 below FLT_MIN, so each scale flushes to 0.
+        w = 1e-37 if variant == "int8-subnormal-scale" else 1.0
         group = int8_group(rng, sizes)
-        group = group._replace(parts=[p._replace(w_len=p.w_len.to(cuda_device),
-                                                 w_cov=p.w_cov.to(cuda_device))
+        group = group._replace(parts=[p._replace(w_len=(p.w_len * w).to(cuda_device),
+                                                 w_cov=(p.w_cov * w).to(cuda_device))
                                       for p in group.parts])
     tol = {"tol": 1e-30, "empty": 1e-4}.get(variant)
     plan = step.step_plan(prefs, cfg.call_weight, cfg.damping, tol, variant != "no-normalize",
