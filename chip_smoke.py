@@ -13,11 +13,15 @@ JAX or of the JAX package. Phases, one JSON line each:
 
 1. env      — the card, its power limit, the kernels built from the
               sources in this checkout (nvcc for ``csrc/coo_spmv.cu``,
-              ``csrc/pattern_pair.cu``, ``csrc/power_step.cu`` and
-              ``csrc/row_fold.cu``, g++ for the native span loader /
+              ``csrc/pattern_pair.cu``, ``csrc/power_step.cu``,
+              ``csrc/row_fold.cu``, ``csrc/rank_setup.cu`` and
+              ``csrc/rank_epilogue.cu``, g++ for the native span loader /
               graph builder, all at once), the fixed-order fold on rows
-              of one tile and of several, bitwise its plain version, and
-              one tiny launch of K1 (a
+              of one tile and of several, bitwise its plain version,
+              K6's set-up (one tile and two, collapsed or not, both
+              preference forms, one window and three) and epilogue
+              (every method, one window and three) bitwise their plain
+              versions on the card, and one tiny launch of K1 (a
               row of several chunks, empty rows, padding), of the pcsr
               step (that work list with ELL slabs of widths 4 and 1024,
               then 1 and 64: rows past 256 entries, empty rows) and of
@@ -78,9 +82,16 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``MICRORANK_POLICY_DIR``: ``run_rca_native`` bitwise an
               explicit ochiai run, one "applied" policy event (every other
               phase runs with an empty policy directory);
-   (every rank program, on every route: four launches of the
-              fixed-order fold, ``csrc/row_fold.cu``: the set-up's two
-              sums and the finish's total of each partition)
+   (every rank program, on every route, a stacked group as a
+              whole: one launch of K6's set-up, ``csrc/rank_setup.cu``,
+              and one of its epilogue, ``csrc/rank_epilogue.cu``, and
+              none of the standalone fold, ``csrc/row_fold.cu``, whose
+              tree runs inside both; every run line's ``k6``: both
+              kernels bitwise their plain versions on the card and over
+              50 launches at its window, timed beside the plain
+              versions, the bound and, for the top-k, a stable
+              ``torch.sort``; the same for the batched kind group of 6
+              and the giant windows)
    staging  — blob staging (the default: one pinned buffer a window, one
               copy, the leaves typed views of the device buffer, K7)
               against the tree path (``blob_staging=False``: a copy a
@@ -247,7 +258,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               after one step), bitwise the plain step; and the kind rank
               program's host issue split (``rank_issue_split``: the
               set-up before the loop, the 25 steps by wrapper, the
-              epilogue), behind a spin; the fixed-order fold at the
+              epilogue; with K6's kernels and with their plain versions
+              in turns), behind a spin; K6 at the kind window, fully
+              timed, and the epilogue's seeded sweep (V up to 65,536,
+              k of 1, 11 and V, every method, ties, -0.0, -inf, NaN, an
+              empty partition: bitwise its plain version on the card);
+              the fixed-order fold at the
               uncollapsed window's set-up shape (``measure_fold``:
               bitwise its plain version on the CPU and on the card, over
               50 launches, timed beside the plain version and
@@ -305,6 +321,7 @@ import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -323,7 +340,11 @@ STEPS = 25  # power-iteration steps per ranked window: one K1 launch each
 STEP_LAUNCHES = 1  # the step kernel's launches per step (K5: one cooperative launch)
 SPMVS_PER_STEP = 2 * 3  # partitions x SpMVs per step (pallas)
 SS_SPMVS_PER_STEP = 2  # the call-graph terms of both partitions (kind, packed)
-FOLD_LAUNCHES = 4  # the fixed-order fold's launches a program: set-up and finish, per partition
+# K6 a program (or a stacked group): one set-up launch (csrc/rank_setup.cu)
+# and one epilogue launch (csrc/rank_epilogue.cu); the standalone
+# fixed-order fold (csrc/row_fold.cu) none, its tree inside both.
+K6_LAUNCHES = 1
+K6_REPS = 20  # timed calls of each K6 kernel at a run's window (full --reps in step, giant)
 REPEATS = 50  # back-to-back launches that must give the first one's bits
 SPIN_CYCLES = 4_000_000  # device-side spin before an event-timed call (~2 ms)
 PROGRAM_SPIN_CYCLES = 200_000_000  # ~100 ms: longer than a rank program's issue
@@ -391,9 +412,11 @@ def check(cond, msg) -> None:
 
 def reset_counts(spmv, pattern) -> None:
     """Every wrapper's launch count to 0, just before a main path runs."""
-    from microrank_tpu_torch.ops import fold, step
+    from microrank_tpu_torch.ops import epilogue, fold, setup, step
 
     fold.fold_rows.launches = 0
+    setup.rank_setup.launches = 0
+    epilogue.rank_epilogue.launches = 0
 
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
@@ -405,9 +428,11 @@ def reset_counts(spmv, pattern) -> None:
 
 
 def read_counts(spmv, pattern) -> dict:
-    from microrank_tpu_torch.ops import fold, step
+    from microrank_tpu_torch.ops import epilogue, fold, setup, step
 
     return {
+        "setup_launches": setup.rank_setup.launches,
+        "epilogue_launches": epilogue.rank_epilogue.launches,
         "row_fold_launches": fold.fold_rows.launches,
         "step_launches": step.power_step.launches,
         "step_two_launch_launches": step.power_step_two_launch.launches,
@@ -432,22 +457,24 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True) -> dict:
     launch per step of the step kernel (K5); with ``int8`` (kind) one
     scale launch per window, for the first step (the step kernel takes
     every later step's scales); the two-launch step kernel never; on
-    every route four launches of the fixed-order fold a program (the
-    set-up's sums of each partition, the finish's total of each).
+    every route one launch of K6's set-up and one of its epilogue a
+    program, and none of the standalone fixed-order fold (its tree runs
+    inside both).
     ``programs``: the rank programs the windows ran in (stacked groups,
     K18: one launch of each kernel a step for the whole group; the
     SpMVs and products still count per window); default one a window.
     ``folds``: packed_blocked's programs fold K8's partials (the
     condition the wrapper counts by, ``pattern.blocked_folds``; a small
     bitmap has no partials to fold)."""
-    counts = dict.fromkeys(("row_fold_launches", "step_launches",
+    counts = dict.fromkeys(("setup_launches", "epilogue_launches",
+                            "row_fold_launches", "step_launches",
                             "step_two_launch_launches", "k1_launches",
                             "k1_spmvs", "pcsr_launches",
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches"), 0)
     g = n if programs is None else programs
     counts["step_launches"] = STEP_LAUNCHES * STEPS * g
-    counts["row_fold_launches"] = FOLD_LAUNCHES * g
+    counts["setup_launches"] = counts["epilogue_launches"] = K6_LAUNCHES * g
     if kernel == "pallas":
         counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
@@ -687,6 +714,264 @@ def measure_fold(torch, fold, name, graph, reps):
     }
 
 
+# The fields of a partition that K6's set-up reads, and that its
+# epilogue reads (random partitions of the tiny checks and the sweep).
+class SetupPart(NamedTuple):
+    kind: object
+    tracelen: object
+    n_cols: object
+    n_traces: object
+    n_ops: object
+    op_present: object
+
+
+class EpiloguePart(NamedTuple):
+    op_present: object
+    cov_unique: object
+    n_traces: object
+    n_ops: object
+
+
+def random_setup_part(torch, gen, t_pad, v, n_live, collapsed, lead, dev):
+    """A partition of ``t_pad`` trace columns, ``n_live`` ([B] or one
+    count) of them live, over ``v`` ops."""
+    n_live = torch.as_tensor(n_live, dtype=torch.int32).expand(lead).contiguous()
+    return SetupPart(
+        kind=torch.randint(1, 51, lead + (t_pad,), generator=gen, dtype=torch.int32).to(dev),
+        tracelen=torch.randint(1, 200, lead + (t_pad,), generator=gen,
+                               dtype=torch.int32).to(dev),
+        n_cols=(n_live if collapsed else torch.full(lead, -1, dtype=torch.int32)).to(dev),
+        n_traces=(n_live * 3 + 1 if collapsed else n_live).to(dev),
+        n_ops=torch.full(lead, max(1, v // 2), dtype=torch.int32).to(dev),
+        op_present=(torch.rand(lead + (v,), generator=gen) < 0.6).to(dev),
+    )
+
+
+def setup_bits(torch, out):
+    """Both partitions' (pref, sv0, rv0) as one int32 vector of bits."""
+    return torch.cat([t.reshape(-1).view(torch.int32) for part in out for t in part])
+
+
+def epilogue_bits(torch, out):
+    """An epilogue's seven outputs as one int32 vector of bits."""
+    return torch.cat([(t.view(torch.int32) if t.dtype == torch.float32 else t).reshape(-1)
+                      for t in out])
+
+
+def tiny_k6_checks(torch, dev):
+    """First launches of K6: the set-up on partitions of 9 and 4,100
+    trace columns (one tile of its tree and two), collapsed and not,
+    both preference forms, one window and a stacked three (one with no
+    live column); the epilogue on 300 ops, one window and three, every
+    method. Each bitwise its plain version on the card. Returns the
+    number of cases."""
+    from microrank_tpu_torch.config import PageRankConfig, SpectrumConfig
+    from microrank_tpu_torch.ops import epilogue, setup
+
+    gen = torch.Generator().manual_seed(17)
+    n = 0
+    for lead, live in (((), 7), ((3,), [9, 0, 4])):
+        for collapsed in (False, True):
+            for preference in ("reference", "paper"):
+                cfg = PageRankConfig(preference=preference)
+                parts = [random_setup_part(torch, gen, t, 300, live if t == 9 else
+                                           [x * 455 for x in live] if lead else 4000,
+                                           collapsed, lead, dev) for t in (9, 4100)]
+                got = setup.rank_setup(*parts, cfg)
+                want = setup.rank_setup_plain(*parts, cfg)
+                torch.cuda.synchronize()
+                check(torch.equal(setup_bits(torch, got), setup_bits(torch, want)),
+                      f"tiny set-up launch (lead {lead}, collapsed {collapsed}, {preference}) "
+                      "differs from its plain version")
+                n += 1
+    for lead in ((), (3,)):
+        parts, svs = random_epilogue_inputs(torch, gen, 300, lead, dev)
+        for method in epilogue.METHOD_IDS:
+            cfg = SpectrumConfig(method=method)
+            got = epilogue.rank_epilogue(*parts, *svs, cfg)
+            want = epilogue.rank_epilogue_plain(*parts, *svs, cfg)
+            torch.cuda.synchronize()
+            check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, want)),
+                  f"tiny epilogue launch (lead {lead}, {method}) differs from its plain version")
+            n += 1
+    return n
+
+
+def random_epilogue_inputs(torch, gen, v, lead, dev, flavor="random"):
+    """Both partitions and final carries of an epilogue over ``v`` ops.
+    ``flavor``: "random"; "ties" (carries from 8 values, coverages from
+    4: many equal scores); "signed_zeros" (a third of the carries -0.0
+    or +0.0); "nan" (a NaN in the abnormal carry of the first window);
+    "empty_normal" (no normal op: NaN weights); "none_valid" (no op in
+    either partition: every score -inf)."""
+    parts, svs = [], []
+    for n_traces in (80, 50):
+        present = torch.rand(lead + (v,), generator=gen) < 0.7
+        if flavor in ("empty_normal", "none_valid") and n_traces == 80 or (
+                flavor == "none_valid"):
+            present = torch.zeros_like(present)
+        cov = torch.randint(1, 4 if flavor == "ties" else n_traces + 1, lead + (v,),
+                            generator=gen, dtype=torch.int32) * present
+        sv = torch.rand(lead + (v,), generator=gen)
+        if flavor == "ties":
+            sv = torch.floor(sv * 8) / 8
+        if flavor == "signed_zeros":
+            zero = torch.rand(lead + (v,), generator=gen) < 0.33
+            sign = torch.where(torch.rand(lead + (v,), generator=gen) < 0.5, -0.0, 0.0)
+            sv = torch.where(zero, sign, sv)
+        sv = torch.where(present, sv, 0.0)
+        if flavor == "nan" and n_traces == 50:
+            sv.reshape(-1, v)[0, v // 3] = float("nan")
+        parts.append(EpiloguePart(
+            present.to(dev), cov.to(dev),
+            torch.full(lead, n_traces if present.any() else 0, dtype=torch.int32).to(dev),
+            present.sum(-1).to(torch.int32).to(dev)))
+        svs.append(sv.to(dev))
+    return parts, svs
+
+
+EPILOGUE_FLAVORS = ("random", "ties", "signed_zeros", "nan", "empty_normal", "none_valid")
+
+
+def epilogue_sweep(torch, dev):
+    """The epilogue kernel against its plain version on the card over a
+    seeded sweep: V of 8, 2,048, 8,192 and 65,536, one window and a
+    stacked three, k of 1, 11 and V, every method, and carries with
+    ties, -0.0, -inf (invalid ops), NaN and an empty normal partition;
+    bitwise, NaN compared by its bits. Returns the cases checked and
+    the largest key sort done in scratch (k past 1,024)."""
+    from microrank_tpu_torch.config import SpectrumConfig
+    from microrank_tpu_torch.ops import epilogue
+
+    gen = torch.Generator().manual_seed(23)
+    cases = 0
+    methods = list(epilogue.METHOD_IDS)
+    for v in (8, 2048, 8192, 65_536):
+        for lead in ((), (3,)):
+            for i, flavor in enumerate(EPILOGUE_FLAVORS):
+                parts, svs = random_epilogue_inputs(torch, gen, v, lead, dev, flavor)
+                for j, k in enumerate(sorted({1, min(11, v), v})):
+                    # Every method at every shape, a flavor and k turning.
+                    for method in methods[(i + j) % 2::2] if v > 8 else methods:
+                        cfg = SpectrumConfig(method=method, top_max=k, extra_rows=0)
+                        got = epilogue.rank_epilogue(*parts, *svs, cfg)
+                        want = epilogue.rank_epilogue_plain(*parts, *svs, cfg)
+                        check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, want)),
+                              f"epilogue sweep: V {v}, lead {lead}, {flavor}, k {k}, {method}: "
+                              "the kernel differs from its plain version")
+                        cases += 1
+    torch.cuda.synchronize()
+    return {"cases_bitwise_vs_plain": cases, "v": [8, 2048, 8192, 65_536],
+            "k": "1, 11, V", "flavors": list(EPILOGUE_FLAVORS), "methods": len(methods),
+            "windows": [1, 3]}
+
+
+def setup_bound(torch, graph):
+    """K6's set-up bytes and operations on a staged graph: kind and
+    tracelen read over the live columns, op_present read, pref and rv0
+    written over the pads, sv0 over the ops; about 12 float operations a
+    live column (two reciprocals, two products, the tree's two adds, the
+    preference's four)."""
+    nbytes = flops = 0
+    for g in (graph.normal, graph.abnormal):
+        n_live = torch.where(g.n_cols >= 0, g.n_cols, g.n_traces).clamp(0, g.kind.shape[-1])
+        live = int(n_live.sum())
+        cells = g.kind.numel()
+        nbytes += 8 * live + 8 * cells + 5 * g.op_present.numel()
+        flops += 12 * live
+    return nbytes, flops
+
+
+def epilogue_bound(graph, k):
+    """K6's epilogue bytes and operations: each partition's sv,
+    op_present and cov_unique read and weight and score written (17
+    bytes an op), top_idx and top_scores written; about 40 float
+    operations an op (two finishes, the counters, a formula)."""
+    ops = graph.normal.op_present.numel()
+    windows = ops // graph.normal.op_present.shape[-1]
+    return 2 * 17 * ops + windows * (8 * k + 4), 40 * ops
+
+
+def measure_k6(torch, name, dgraph, cfg, kernel, reps):
+    """K6 at a staged window's (or group's) shapes: the set-up on its
+    partitions and the epilogue on its program's final carries (the
+    rank program run once, ``torch_cuda._rank_program``). Each kernel
+    bitwise its plain version run on the card and bitwise over 50
+    launches; timed by CUDA events behind a spin beside the plain
+    version, its bound (bytes once at 3.35 TB/s, or its operations at
+    67 TFLOP/s) and, for the epilogue's top-k, one stable ``torch.sort``
+    of the same negated scores (what the plain version sorts)."""
+    from microrank_tpu_torch.ops import epilogue, setup
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    pr, sp = cfg.pagerank, cfg.spectrum
+    g_n, g_a = dgraph.normal, dgraph.abnormal
+    first = setup_bits(torch, setup.rank_setup(g_n, g_a, pr))
+    plain = setup_bits(torch, setup.rank_setup_plain(g_n, g_a, pr))
+    check(torch.equal(first, plain), f"{name}: the set-up kernel differs from its plain version")
+    for _ in range(REPEATS):
+        check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr)), first),
+              f"{name}: the set-up kernel is not repeatable")
+    program = tc._rank_program(dgraph, pr, sp, kernel)
+    svs = (program.sv_n, program.sv_a)
+    e_first = epilogue_bits(torch, epilogue.rank_epilogue(g_n, g_a, *svs, sp))
+    e_plain = epilogue_bits(torch, epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp))
+    check(torch.equal(e_first, e_plain),
+          f"{name}: the epilogue kernel differs from its plain version")
+    for _ in range(REPEATS):
+        check(torch.equal(epilogue_bits(torch, epilogue.rank_epilogue(g_n, g_a, *svs, sp)),
+                          e_first), f"{name}: the epilogue kernel is not repeatable")
+    check(torch.equal(epilogue_bits(torch, program.epilogue), e_first),
+          f"{name}: the program's epilogue differs from the kernel's")
+    plain_out = epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp)
+    scores, _ = epilogue.window_spectrum(plain_out.a_weight, g_a, plain_out.n_weight, g_n, sp)
+    neg = -(scores + 0.0)
+    k = int(program.epilogue.top_idx.shape[-1])
+
+    def bound(nbytes, flops):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        return {"bound_ms": round(max(bytes_ms, ops_ms), 6),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+
+    setup_ms, setup_host_ms = spin_event_host_ms(
+        torch, lambda: setup.rank_setup(g_n, g_a, pr), reps)
+    epilogue_ms, epilogue_host_ms = spin_event_host_ms(
+        torch, lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp), reps)
+    return {
+        "setup": {
+            "bitwise_vs_plain": True, "repeat_bitwise": REPEATS, "max_abs_err": 0.0,
+            "ms": round(setup_ms, 6),
+            # The wrapper call's host time (checks, outputs, launch),
+            # issued while the device spins.
+            "host_issue_ms": round(setup_host_ms, 6),
+            "plain_ms": round(spin_event_ms(
+                torch, lambda: setup.rank_setup_plain(g_n, g_a, pr), reps), 6),
+            "library_ms": None,
+            # The cooperative grid: a block a work item (a tile of a
+            # row, then of the ops), at most the card's resident blocks.
+            "grid": min(setup.kernel_config("cuda").max_blocks, sum(
+                -(-g.kind.shape[-1] // setup.TILE) * (g.kind.numel() // g.kind.shape[-1])
+                + -(-g.op_present.shape[-1] // setup.TILE)
+                * (g.op_present.numel() // g.op_present.shape[-1]) for g in (g_n, g_a))),
+            **bound(*setup_bound(torch, dgraph)),
+        },
+        "epilogue": {
+            "bitwise_vs_plain": True, "repeat_bitwise": REPEATS, "max_abs_err": 0.0,
+            "k": k, "v": int(g_n.op_present.shape[-1]),
+            "ms": round(epilogue_ms, 6),
+            "host_issue_ms": round(epilogue_host_ms, 6),
+            "plain_ms": round(spin_event_ms(
+                torch, lambda: epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp), reps), 6),
+            # The top-k alone as one library call: a stable sort of the
+            # negated scores (the rest of the epilogue has none).
+            "library_ms": round(spin_event_ms(
+                torch, lambda: torch.sort(neg, dim=-1, stable=True), reps), 6),
+            **bound(*epilogue_bound(dgraph, k)),
+        },
+    }
+
+
 def ptxas_all(report, kernel):
     """ptxas's lines for every kernel of a ``-Xptxas -v`` report whose
     name holds ``kernel``: its entry, properties (stack, spills) and
@@ -697,11 +982,11 @@ def ptxas_all(report, kernel):
 
 
 def phase_env(torch, spmv, pattern, native):
-    from microrank_tpu_torch.ops import fold, step
+    from microrank_tpu_torch.ops import epilogue, fold, setup, step
 
-    # Build the five libraries from the checkout's sources, in parallel.
+    # Build the seven libraries from the checkout's sources, in parallel.
     for lib in (spmv.LIB_PATH, pattern.LIB_PATH, step.LIB_PATH, fold.LIB_PATH,
-                native.LIB_PATH):
+                setup.LIB_PATH, epilogue.LIB_PATH, native.LIB_PATH):
         lib.unlink(missing_ok=True)
 
     def timed(fn):
@@ -709,21 +994,23 @@ def phase_env(torch, spmv, pattern, native):
         report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(7) as pool:
         f_cuda = pool.submit(timed, spmv.build_library)
         f_pattern = pool.submit(timed, pattern.build_library)
         f_step = pool.submit(timed, step.build_library)
         f_fold = pool.submit(timed, fold.build_library)
+        f_setup = pool.submit(timed, setup.build_library)
+        f_epilogue = pool.submit(timed, epilogue.build_library)
         f_host = pool.submit(timed, native.build_library)
         cuda_s, ptxas = f_cuda.result()
         pattern_s, ptxas_pattern = f_pattern.result()
         step_s, ptxas_step = f_step.result()
         fold_s, ptxas_fold = f_fold.result()
+        setup_s, ptxas_setup = f_setup.result()
+        epilogue_s, ptxas_epilogue = f_epilogue.result()
         host_s, _ = f_host.result()
-    spmv.load_library()
-    pattern.load_library()
-    step.load_library()
-    fold.load_library()
+    for module in (spmv, pattern, step, fold, setup, epilogue):
+        module.load_library()
 
     # First launch: a tiny ragged matrix (empty rows, a 700-entry row of
     # three chunks, padding) against the plain version, before anything
@@ -748,6 +1035,7 @@ def phase_env(torch, spmv, pattern, native):
     n_pattern = tiny_pattern_checks(torch, pattern, dev)
     n_step = tiny_step_checks(torch, pattern, dev)
     n_fold = tiny_fold_checks(torch, fold, dev)
+    n_k6 = tiny_k6_checks(torch, dev)
     step_cfg = step.kernel_config(dev)
     timers = timer_check(torch)
     return {
@@ -762,12 +1050,20 @@ def phase_env(torch, spmv, pattern, native):
                     "nvcc_pattern_pair": round(pattern_s, 3),
                     "nvcc_power_step": round(step_s, 3),
                     "nvcc_row_fold": round(fold_s, 3),
+                    "nvcc_rank_setup": round(setup_s, 3),
+                    "nvcc_rank_epilogue": round(epilogue_s, 3),
                     "gxx_native": round(host_s, 3)},
         "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas" in ln],
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
                                if "ptxas" in ln],
         "ptxas_power_step": [ln.strip() for ln in ptxas_step.splitlines() if "ptxas" in ln],
         "ptxas_row_fold": [ln.strip() for ln in ptxas_fold.splitlines() if "ptxas" in ln],
+        "ptxas_rank_setup": [ln.strip() for ln in ptxas_setup.splitlines() if "ptxas" in ln],
+        "ptxas_rank_epilogue": [ln.strip() for ln in ptxas_epilogue.splitlines()
+                                if "ptxas" in ln],
+        # K6's set-up: the cooperative grid's occupancy (blocks an SM).
+        "setup_kernel": {**setup.kernel_config(dev)._asdict(),
+                         "max_blocks": setup.kernel_config(dev).max_blocks},
         # K5's fused kernel: each instantiation's ptxas lines
         # (registers, spills), the register slots a thread holds across
         # the barrier, and the occupancy that sizes every window's
@@ -779,6 +1075,7 @@ def phase_env(torch, spmv, pattern, native):
         "tiny_pattern_cases_bitwise_vs_plain": n_pattern,
         "tiny_step_chains_bitwise_vs_plain": n_step,
         "tiny_fold_cases_bitwise_vs_plain": n_fold,
+        "tiny_k6_cases_bitwise_vs_plain": n_k6,
         "timer_check_1gib_copy": timers,
     }
 
@@ -1017,6 +1314,8 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         check(c == expect, f"{tag}: launch counts {c} in {n} ranked windows, want {expect}")
     # The window through the plain step on the card: bitwise.
     plain_step = plain_step_check(torch, dgraph, cfg, want)
+    # K6 at this window: both kernels bitwise their plain versions, timed.
+    k6 = measure_k6(torch, f"{tag}/k6", dgraph, cfg, want, K6_REPS)
     del dgraph
     rank_wall = stages["rank_issue_and_run"]
     return graph, counts[-1], res_gpu, {
@@ -1051,6 +1350,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "stage_ms": stages,
         **rank_device_fields(rank_device, rank_wall),
         "plain_step": plain_step,
+        "k6": k6,
         "cpu_wall_s": round(cpu_s, 4),
     }
 
@@ -2012,6 +2312,8 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         if b == max(x for x in BATCH_SIZES if x <= len(host)):
             info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
                                               staged(stack, "kind", "cpu")))
+            # K6 over the group: one launch of each kernel for its windows.
+            info["k6"] = measure_k6(torch, f"{tag}/k6", card, cfg, "kind", K6_REPS)
         info["trace_pads"] = [int(card.normal.kind.shape[-1]), int(card.abnormal.kind.shape[-1])]
         out["kind"][str(b)] = info
         del card
@@ -3375,25 +3677,30 @@ def window_sizes(dgraph):
             for p in (dgraph.normal, dgraph.abnormal)]
 
 
-def rank_issue_split(torch, dgraph, cfg, kernel, reps=5):
+def rank_issue_split(torch, dgraph, cfg, kernel, reps=5, plain_k6=False):
     """The host's time to issue one rank program as the lane issues a
     window (``rank_window_traced_core``, then ``pack_rank_outputs``),
     each program queued behind a ~100 ms device spin so that no wait on
     the device is in it, split in three:
 
-    * the set-up before the loop: the preference and initial vectors,
-      the step plan, K5's window (``k5_setup``) and int8's first scales
-      (``quantize``);
+    * the set-up before the loop: K6's set-up (``rank_setup``: the
+      preference and initial vectors), the step plan, K5's window
+      (``k5_setup``) and int8's first scales (``quantize``);
     * the steps, by wrapper: the pattern pair, K1 and K9 (the products)
       and K5, and the loop's own Python between them (``loop_other``);
-    * the epilogue: ``_partition_finish`` of both partitions, the
-      spectrum and top-k (``_finish_topk``), and the pack with its copy.
+    * the epilogue: K6's epilogue (``rank_epilogue``: the finish of both
+      partitions, the spectrum and the top-k), and the pack with its
+      copy.
 
     Each wrapper is timed by the host clock around its call, by timers
     put in place of the names ``rank_backends.torch_cuda`` calls; ms,
     medians over ``reps`` programs, with the calls counted. The same
     program uninstrumented is timed in turns (``total_uninstrumented``):
-    the difference is the timers' own cost."""
+    the difference is the timers' own cost. ``plain_k6``: the program
+    calls K6's plain versions (``rank_setup_plain``,
+    ``rank_epilogue_plain``, on the same card tensors) in place of the
+    two kernels: a comparison here, not a switch of the program."""
+    from microrank_tpu_torch.ops import epilogue, setup
     from microrank_tpu_torch.rank_backends import torch_cuda as tc
 
     events = []
@@ -3408,8 +3715,11 @@ def rank_issue_split(torch, dgraph, cfg, kernel, reps=5):
 
     names = {"pattern_pair_group": "pattern_pair", "coo_spmv_group": "k1",
              "pcsr_spmv_group": "k9", "quantize_scales": "quantize",
-             "_partition_finish": "finish", "_finish_topk": "spectrum_topk"}
+             "rank_setup": "k6_setup", "rank_epilogue": "k6_epilogue"}
     saved = {attr: getattr(tc, attr) for attr in [*names, "StepWindow"]}
+    use = dict(saved)
+    if plain_k6:
+        use.update(rank_setup=setup.rank_setup_plain, rank_epilogue=epilogue.rank_epilogue_plain)
 
     def timed_window(*args, **kw):
         t0 = time.perf_counter()
@@ -3431,7 +3741,7 @@ def rank_issue_split(torch, dgraph, cfg, kernel, reps=5):
 
     def instrument(on):
         for attr, label in names.items():
-            setattr(tc, attr, timed(label, saved[attr]) if on else saved[attr])
+            setattr(tc, attr, timed(label, use[attr]) if on else use[attr])
         tc.StepWindow = timed_window if on else saved["StepWindow"]
 
     rows, plain = [], []
@@ -3452,28 +3762,44 @@ def rank_issue_split(torch, dgraph, cfg, kernel, reps=5):
                 return sum(b - a for n, a, b in ev if n == label and a >= lo and b <= hi) * 1e3
 
             row = {"total": (t2 - t0) * 1e3, "setup": (first - t0) * 1e3,
-                   "setup_k5_window": dur("k5_setup"), "setup_quantize": dur("quantize", hi=first),
+                   "setup_k6": dur("k6_setup"), "setup_k5_window": dur("k5_setup"),
+                   "setup_quantize": dur("quantize", hi=first),
                    "loop": (last - first) * 1e3,
                    **{f"loop_{n}": dur(n, lo=first, hi=last)
                       for n in ("pattern_pair", "k1", "k9", "k5")},
-                   "epilogue": (t2 - last) * 1e3, "epilogue_finish": dur("finish"),
-                   "epilogue_spectrum_topk": dur("spectrum_topk"), "epilogue_pack": (t2 - t1) * 1e3}
-            row["setup_other"] = row["setup"] - row["setup_k5_window"] - row["setup_quantize"]
+                   "epilogue": (t2 - last) * 1e3, "epilogue_k6": dur("k6_epilogue"),
+                   "epilogue_pack": (t2 - t1) * 1e3}
+            row["setup_other"] = (row["setup"] - row["setup_k6"] - row["setup_k5_window"]
+                                  - row["setup_quantize"])
             row["loop_other"] = row["loop"] - sum(row[f"loop_{n}"]
                                                   for n in ("pattern_pair", "k1", "k9", "k5"))
-            row["epilogue_other"] = row["epilogue"] - row["epilogue_finish"] - row[
-                "epilogue_spectrum_topk"] - row["epilogue_pack"]
+            row["epilogue_other"] = row["epilogue"] - row["epilogue_k6"] - row["epilogue_pack"]
             row["calls"] = {n: sum(1 for e in ev if e[0] == n)
-                            for n in ("pattern_pair", "k1", "k9", "k5", "quantize", "finish",
-                                      "spectrum_topk")}
+                            for n in ("pattern_pair", "k1", "k9", "k5", "quantize", "k6_setup",
+                                      "k6_epilogue")}
             rows.append(row)
     finally:
-        instrument(False)
+        for attr, fn in saved.items():
+            setattr(tc, attr, fn)
     out = {k: round(_median([r[k] for r in rows]), 4) for k in rows[0] if k != "calls"}
     out["calls"] = rows[0]["calls"]
     out["total_uninstrumented"] = round(_median(plain), 4)
     out["reps"] = reps
     out["shares"] = {k: round(out[k] / out["total"], 4) for k in ("setup", "loop", "epilogue")}
+    return out
+
+
+def issue_split_turns(torch, dgraph, cfg, kernel):
+    """``rank_issue_split`` with K6's kernels and with its plain versions
+    in turns (kernels, plain, plain, kernels): each side's two splits,
+    and the medians of their set-up and epilogue."""
+    order = (False, True, True, False)
+    splits = [rank_issue_split(torch, dgraph, cfg, kernel, plain_k6=p) for p in order]
+    out = {"kernels": [x for x, p in zip(splits, order) if not p],
+           "plain": [x for x, p in zip(splits, order) if p]}
+    for side in ("kernels", "plain"):
+        out[f"{side}_setup_epilogue_total"] = [
+            [x["setup"], x["epilogue"], x["total"]] for x in out[side]]
     return out
 
 
@@ -3504,8 +3830,13 @@ def phase_step(torch, graphs, reps):
     int8 = device_subset(graph_from_numpy(host_subset(graphs["auto/int8"], "kind"), dev), "kind")
     out["kind_int8"] = measure_step(torch, "step/kind_int8", window_sizes(int8), reps,
                                     int8.pattern_group)
-    # Where the kind rank program's issue goes.
-    out["kind_issue_split_ms"] = rank_issue_split(torch, kind, MicroRankConfig(), "kind")
+    # Where the kind rank program's issue goes, with K6's kernels and
+    # with its plain versions in turns.
+    out["kind_issue_split_ms"] = issue_split_turns(torch, kind, MicroRankConfig(), "kind")
+    # K6 at the config-5 kind window, fully timed, and the epilogue's
+    # tie / NaN sweep.
+    out["k6"] = measure_k6(torch, "step/k6", kind, MicroRankConfig(), "kind", reps)
+    out["k6_sweep"] = epilogue_sweep(torch, dev)
     # The fixed-order fold at the uncollapsed config-5 window's set-up
     # shape (its trace axis; the kind window's columns are few).
     out["fold"] = measure_fold(torch, fold, "step/fold", graphs["auto/off"], reps)
@@ -3709,8 +4040,9 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     # program's issue goes.
     plain_step = plain_step_check(torch, dgraph, cfg, kernel)
     step_kern = measure_step(torch, f"giant/{kernel}/step", window_sizes(dgraph), reps)
-    issue_split = rank_issue_split(torch, dgraph, cfg, kernel)
+    issue_split = issue_split_turns(torch, dgraph, cfg, kernel)
     fold_kern = measure_fold(torch, fold, f"giant/{kernel}/fold", graph, reps)
+    k6 = measure_k6(torch, f"giant/{kernel}/k6", dgraph, cfg, kernel, reps)
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -3753,6 +4085,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         "plain_step": plain_step,
         "step": step_kern,
         "fold": fold_kern,
+        "k6": k6,
         "issue_split_ms": issue_split,
         "kernel": kern,
     }
@@ -3760,7 +4093,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
                                       host_subset(graph, kernel), kernel, cfg)
     stacked_counts, info["stacked"] = giant_stacked(torch, spmv, pattern, graph, dgraph, kernel,
                                                     cfg)
-    return counts, (kern, step_kern, fold_kern), info, stacked_counts
+    return counts, (kern, step_kern, fold_kern, k6), info, stacked_counts
 
 
 def main(argv=None) -> int:
@@ -3891,12 +4224,12 @@ def main(argv=None) -> int:
         steps = phase_step(torch, graphs, args.reps)
         emit(steps)
         phase = "giant"
-        giant, giant_steps, giant_folds, giant_stacked_err = {}, {}, {}, {}
+        giant, giant_steps, giant_folds, giant_k6, giant_stacked_err = {}, {}, {}, {}, {}
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
                                   (args.giant_spans, "pcsr")):
-                counts, (kern, step_kern, fold_kern), info, stacked_counts = phase_giant(
+                counts, (kern, step_kern, fold_kern, k6), info, stacked_counts = phase_giant(
                     torch, spmv, pattern, n_spans, budget, want, args.reps
                 )
                 launches[f"giant/{want}"] = counts
@@ -3905,6 +4238,7 @@ def main(argv=None) -> int:
                 giant[want] = kern
                 giant_steps[want] = step_kern
                 giant_folds[want] = fold_kern
+                giant_k6[want] = k6
                 emit(info)
                 torch.cuda.empty_cache()
     except Exception as exc:  # report the failing phase, then fail
@@ -3944,6 +4278,10 @@ def main(argv=None) -> int:
     # The fixed-order fold at the 10M-span window's set-up shape, else
     # the uncollapsed config-5 window's.
     row_fold = giant_folds.get("pcsr", steps["fold"])
+    # K6 at the 10M-span window's set-up shape (its epilogue at its 2,048
+    # ops), beside the config-5 kind window's; bitwise everywhere it ran.
+    k6 = giant_k6.get("pcsr", steps["k6"])
+    k6_c5 = steps["k6"]
     # Times are CUDA events around one call behind a device spin (the
     # kernel's own time; torch.profiler's summed device time misreads
     # this card's launches, see timer_check), library_ms and plain_ms
@@ -4133,15 +4471,59 @@ def main(argv=None) -> int:
             "library_ms": None,
         },
         {
+            "name": "rank_setup",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/rank_setup.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:44",
+            # One launch a program (a stacked group's one for all its
+            # windows): jax_tpu.py:44 preference_vector and :285
+            # _partition_setup's initial vectors, both partitions.
+            "launches": sum(c["setup_launches"] for c in launches.values()),
+            "stacked_launches": stacked_launches("setup_launches"),
+            "max_abs_err": 0.0,
+            # One launch at the 10M-span window's set-up shape
+            # (_config5_kind: the collapsed config-5 kind window's). No
+            # single PyTorch call computes the set-up: library_ms null.
+            "ms": k6["setup"]["ms"],
+            "ms_config5_kind": k6_c5["setup"]["ms"],
+            "plain_ms": k6["setup"]["plain_ms"],
+            "plain_ms_config5_kind": k6_c5["setup"]["plain_ms"],
+            "bound_ms": k6["setup"]["bound_ms"],
+            "bound_by": k6["setup"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "rank_epilogue",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/rank_epilogue.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:882",
+            # One launch a program (a block a window of a stacked group):
+            # jax_tpu.py:882 _partition_finish, :971 spectrum_counters,
+            # :1006 window_spectrum, :1046 top_k_tiebroken, :1068
+            # _finish_topk.
+            "launches": sum(c["epilogue_launches"] for c in launches.values()),
+            "stacked_launches": stacked_launches("epilogue_launches"),
+            "max_abs_err": 0.0,
+            # One launch at the config-5 kind window (8,192 ops; the
+            # 10M-span window's 2,048 in _giant_10m); library_ms is the
+            # top-k alone, one stable torch.sort of the negated scores
+            # (no PyTorch call computes the finish and the spectrum).
+            "ms": k6_c5["epilogue"]["ms"],
+            "ms_giant_10m": k6["epilogue"]["ms"],
+            "plain_ms": k6_c5["epilogue"]["plain_ms"],
+            "plain_ms_giant_10m": k6["epilogue"]["plain_ms"],
+            "bound_ms": k6_c5["epilogue"]["bound_ms"],
+            "bound_by": k6_c5["epilogue"]["bound_by"],
+            "library_ms": k6_c5["epilogue"]["library_ms"],
+        },
+        {
             "name": "row_fold",
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/row_fold.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:44",
-            # Every counted main path's fold launches: four a program
-            # (the set-up's two sums and the finish's total, per
-            # partition; jax_tpu.py:44 preference_vector and :882
-            # _partition_finish), a stacked group's four for all its
-            # windows.
+            # Off the main path since K6's two kernels (its tree runs
+            # inside both): 0 launches in every counted main path; kept
+            # as the tree's standalone yardstick, timed below.
             "launches": sum(c["row_fold_launches"] for c in launches.values()),
             "stacked_launches": stacked_launches("row_fold_launches"),
             "max_abs_err": max(row_fold["max_abs_err"], steps["fold"]["max_abs_err"]),

@@ -11,15 +11,11 @@
 // ([T] at its own pad) paired the same values differently, so a window's
 // bits in a group were not its own program's.
 //
-// The order: element i of a row is leaf i of a binary tree whose node
-// at level L covers [j * 2^L, (j + 1) * 2^L); a node's value is its left
-// child's plus its right child's, or its left child's alone where the
-// right child starts at or past the row's length n (so padding is never
-// read, and a wider pad only adds levels that pass the left child up).
-// The value at the root of the smallest subtree holding [0, n) is the
-// sum; n = 0 gives +0. The plain version (ops/fold.py `fold_rows_plain`)
-// computes the same tree level by level, so both give the same bits, on
-// any pad.
+// The order is the pairwise tree of tree_fold.cuh, shared with the
+// set-up and epilogue kernels (rank_setup.cu, rank_epilogue.cu), which
+// fold the same sums inside their own launches on the main path; this
+// kernel is the tree as a launch of its own (off the main path since
+// those kernels, kept as their yardstick and for its tests).
 //
 // What bounds it on the card: bytes. A row is read once (4 bytes an
 // element, one add each), far below the card's float32 rate. Design:
@@ -38,13 +34,15 @@
 
 #include <cuda_runtime.h>
 
+#include "tree_fold.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 16;
-constexpr int kTile = kThreads * kPerThread;  // 4096 elements a block
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTiles = kTile;              // partials one block folds
+using mr_tree::kMaxTiles;
+using mr_tree::kThreads;
+using mr_tree::kTile;
+using mr_tree::kWarps;
+using mr_tree::tile_tree;
 
 struct FoldArgs {
   const float* x;        // [n_rows, width], row-major
@@ -55,54 +53,6 @@ struct FoldArgs {
   uint32_t* count;       // [n_rows] arrivals, 0 between launches (tiles > 1)
   float* out;            // [n_rows]
 };
-
-// The tree over src[0, count) (count <= kTile, read through L2: the
-// partials were written by other blocks); the result in thread 0.
-__device__ float tile_tree(const float* src, int count, float* stage, float* warp_sums) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int at = i * kThreads + t;  // coalesced
-    stage[at] = at < count ? __ldcg(src + at) : 0.0f;
-  }
-  __syncthreads();
-  const int base = t * kPerThread;
-  float v[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) v[i] = stage[base + i];
-#pragma unroll
-  for (int s = 1; s < kPerThread; s *= 2) {
-#pragma unroll
-    for (int i = 0; i < kPerThread; i += 2 * s) {
-      if (base + i + s < count) v[i] = __fadd_rn(v[i], v[i + s]);
-    }
-  }
-  float acc = v[0];
-  const int lane = t & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o *= 2) {
-    const float other = __shfl_down_sync(0xffffffffu, acc, o);
-    if ((lane & (2 * o - 1)) == 0 && base + o * kPerThread < count) {
-      acc = __fadd_rn(acc, other);
-    }
-  }
-  if (lane == 0) warp_sums[t >> 5] = acc;
-  __syncthreads();
-  float sum = 0.0f;
-  if (t == 0) {
-    constexpr int kWarpSpan = 32 * kPerThread;
-#pragma unroll
-    for (int s = 1; s < kWarps; s *= 2) {
-#pragma unroll
-      for (int w = 0; w < kWarps; w += 2 * s) {
-        if ((w + s) * kWarpSpan < count) warp_sums[w] = __fadd_rn(warp_sums[w], warp_sums[w + s]);
-      }
-    }
-    sum = warp_sums[0];
-  }
-  __syncthreads();  // stage and warp_sums are reused by the fold of partials
-  return sum;
-}
 
 __global__ void __launch_bounds__(kThreads) fold_rows(FoldArgs a) {
   __shared__ float stage[kTile];
@@ -127,9 +77,8 @@ __global__ void __launch_bounds__(kThreads) fold_rows(FoldArgs a) {
   __syncthreads();
   if (!last) return;
   __threadfence();  // acquire every tile's partial
-  const int used = (n + kTile - 1) / kTile;  // the tiles that hold [0, n)
-  const float total = tile_tree(a.partial + static_cast<int64_t>(row) * a.tiles, used, stage,
-                                warp_sums);
+  const float total = mr_tree::fold_tiles(a.partial + static_cast<int64_t>(row) * a.tiles, n,
+                                          stage, warp_sums);
   if (threadIdx.x == 0) {
     a.out[row] = total;
     a.count[row] = 0u;

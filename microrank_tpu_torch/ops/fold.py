@@ -2,7 +2,7 @@
 hand-written CUDA kernel (``csrc/row_fold.cu``) with its plain PyTorch
 version beside it.
 
-It replaces the sums over a padded axis in the set-up and the finish
+It computes the sums over a padded axis in the set-up and the finish
 that JAX computes in XLA (``microrank_tpu/rank_backends/jax_tpu.py:44``
 ``preference_vector``'s two normalization sums, ``:882``
 ``_partition_finish``'s total). A sum over a padded axis must not depend
@@ -20,6 +20,11 @@ read, so the sum is the same on any pad. On CPU tensors it runs
 ``fold_rows_plain``, which builds the same tree level by level; on CUDA
 tensors it launches the kernel (counted in ``fold_rows.launches``) or
 raises: there is no fallback for a CUDA tensor.
+
+On the main path the set-up and epilogue kernels (``ops/setup.py``,
+``ops/epilogue.py``) fold these sums inside their own launches, with
+the same tree (``csrc/tree_fold.cuh``); their plain versions call
+``fold_rows``, which is also the tree's standalone yardstick.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from .spmv import nvcc
 TILE = 4096  # elements one block folds (csrc/row_fold.cu kTile)
 MAX_WIDTH = TILE * TILE  # a row's tiles are folded by one block
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "row_fold.cu"
+# The tree's device code, shared with the set-up and epilogue kernels.
+TREE_HEADER = SOURCE.with_name("tree_fold.cuh")
 LIB_PATH = BUILD_DIR / "libmr_row_fold.so"
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -128,7 +135,7 @@ def build_command(out: Path) -> List[str]:
 def build_library() -> str:
     """Compile the kernel library if it is missing or older than its
     source; returns the compiler's report ("" when up to date)."""
-    if not is_stale(LIB_PATH, [SOURCE]):
+    if not is_stale(LIB_PATH, [SOURCE, TREE_HEADER]):
         return ""
     tmp = tmp_output(LIB_PATH)
     return run_build(build_command(tmp), tmp, LIB_PATH)

@@ -2,8 +2,9 @@
 ``microrank_tpu/rank_backends/jax_tpu.py``, kernels "kind", "packed",
 "packed_bf16", "packed_blocked", "pcsr" and "pallas"):
 
-    preference vectors -> 25 power-iteration steps over both partitions
-    -> rescale -> spectrum counters -> formula -> tie-broken top-k
+    set-up (preference and initial vectors) -> 25 power-iteration steps
+    over both partitions -> epilogue (rescale, spectrum counters,
+    formula, tie-broken top-k)
 
 Each step's products (p_sr @ rv, p_ss @ sv, p_rs @ sv of both
 partitions) take one or two launches, built for the window by
@@ -38,6 +39,12 @@ the max normalization, the residual trace and, with ``tol``, the freeze
 cooperative launch of ``csrc/power_step.cu`` a step for both
 partitions, in place of the eager ops the port issued before.
 
+The set-up before the loop and the epilogue after it are K6: one
+launch each a program (``ops.setup.rank_setup``, ``csrc/rank_setup.cu``:
+a cooperative launch for both partitions; ``ops.epilogue.rank_epilogue``,
+``csrc/rank_epilogue.cu``: a block a window), in place of some 70 eager
+ops and four launches of the fixed-order fold.
+
 On the card each call is one launch of a CUDA kernel, on the CPU its plain
 version. The loop issues device work only — no step reads a value
 back — and the caller fetches ``(top_idx, top_scores, n_valid,
@@ -58,10 +65,10 @@ list, one pattern group and one K5 state built for the group, a step
 one launch of each kernel for all its windows, the epilogue over [B, V],
 one copy of the [B] outputs. The set-up and the epilogue read each
 window's own ``n_*`` scalars, and their sums over a padded axis (the
-preference vector's two, the finish's total) are ``ops.fold.fold_rows``
-launches (``csrc/row_fold.cu``), in an order fixed by each row's live
-length, so a window's bits in a group are its own program's on every
-device. Every kernel runs stacked: kind (f32,
+preference vector's two, the finish's total) follow the pairwise tree
+of ``ops.fold`` (``csrc/tree_fold.cuh``, inside both kernels), in an
+order fixed by each row's live length, so a window's bits in a group
+are its own program's on every device. Every kernel runs stacked: kind (f32,
 bf16, int8: ``quantize_amax`` and the step give [B, 4] scales, each
 window's own), packed, packed_bf16, packed_blocked (K8 with a window
 axis; the plain version's bands within ``packed_block_bytes`` divided
@@ -89,8 +96,17 @@ from ..graph.build import (
     packed_unpacked_bytes,
 )
 from ..graph.structures import PartitionGraph, WindowGraph
-from ..ops.fold import fold_rows
+# window_spectrum: the epilogue's plain spectrum, named here for the
+# card tests that compare a program stage by stage.
+from ..ops.epilogue import (  # noqa: F401
+    Epilogue,
+    finish_topk,
+    partition_finish,
+    rank_epilogue,
+    window_spectrum,
+)
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
+from ..ops.setup import partition_setup_plain, rank_setup
 from ..ops.step import StepWindow, step_plan, step_scratch
 from ..ops.spmv import (
     EllPart,
@@ -106,14 +122,6 @@ from ..ops.spmv import (
     row_layout,
     spmv_group,
 )
-from ..spectrum.formulas import spectrum_scores
-
-
-def _f32(value: float, device) -> torch.Tensor:
-    # A fill on the device, not torch.tensor: a copy from pageable host
-    # memory waits for the stream, which would stall the issue of the
-    # rank program behind all the device work queued before it.
-    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def _check_kernel(kernel: str) -> None:
@@ -199,46 +207,6 @@ def choose_kernel(
         f"kernel='auto' resolves to {kernel!r} for this window, which is "
         "not ported yet (ROADMAP.md port queue, item 10)"
     )
-
-
-def preference_vector(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig):
-    """Personalized preference vector on the padded trace axis
-    (reference: pagerank.py:68-85; paper Eq (7) behind
-    preference="paper"). On a kind-collapsed graph a column stands for
-    ``kind`` identical traces, so the two normalization sums weight each
-    column by its multiplicity. A stacked group's partition ([B, T],
-    ``n_*`` [B]) gives each window's vector from its own ``n_*``. The
-    two sums are one ``fold_rows`` launch over the live columns, in an
-    order fixed by the live count alone, so a window's bits are the same
-    at its own pad and in a group's."""
-    t_pad = g.kind.shape[-1]
-    dev = g.kind.device
-    collapsed = g.n_cols >= 0
-    n_live = torch.where(collapsed, g.n_cols, g.n_traces)[..., None]
-    live = torch.arange(t_pad, device=dev) < n_live
-    kind = g.kind.to(torch.float32)
-    tlen = g.tracelen.to(torch.float32)
-    mult = torch.where(collapsed[..., None], kind, 1.0)
-    inv_kind = torch.where(live, 1.0 / kind, 0.0)
-    inv_len = torch.where(live, 1.0 / tlen, 0.0)
-    terms = torch.stack([mult * inv_kind, mult * inv_len])  # [2, (B,) T]
-    lengths = n_live.to(torch.int32).reshape(-1).repeat(2)
-    sums = fold_rows(terms.reshape(-1, t_pad), lengths).view(terms.shape[:-1] + (1,))
-    kind_sum, num_sum = sums[0], sums[1]
-
-    if not anomaly:
-        pref = inv_kind / kind_sum
-    elif cfg.preference == "reference":
-        # The code's anomalous form (deviates from paper Eq (7)):
-        # phi / num_sum / (kind/kind_sum*phi + 1/n).
-        phi = _f32(cfg.phi, dev)
-        pref = phi / num_sum / (kind / kind_sum * phi + inv_len)
-    elif cfg.preference == "paper":
-        phi = _f32(cfg.phi, dev)
-        pref = phi * inv_len / num_sum + (1.0 - phi) * inv_kind / kind_sum
-    else:
-        raise ValueError(f"unknown preference form {cfg.preference!r}")
-    return torch.where(live, pref, 0.0)
 
 
 def spmv_layouts(g: PartitionGraph, checked: bool = False
@@ -755,30 +723,17 @@ def window_pattern_group(
 def _partition_setup(
     g: PartitionGraph, anomaly: bool, cfg: PageRankConfig, kernel: str = "pallas"
 ):
-    """One partition's iteration ingredients: (pref, sv0, rv0)."""
+    """One partition's iteration ingredients: (pref, sv0, rv0), by the
+    set-up's plain version (``ops.setup.partition_setup_plain``; the rank
+    program takes both partitions' from one ``rank_setup`` call)."""
     _check_kernel(kernel)
-    dev = g.kind.device
-    t_pad = g.kind.shape[-1]
-    n_total = (g.n_ops + g.n_traces).to(torch.float32)[..., None]
-    n_live_cols = torch.where(g.n_cols < 0, g.n_traces, g.n_cols)[..., None]
-    trace_live = torch.arange(t_pad, device=dev) < n_live_cols
-    pref = preference_vector(g, anomaly, cfg)
-    init = 1.0 / n_total
-    sv = torch.where(g.op_present, init, 0.0)
-    rv = torch.where(trace_live, init, 0.0)
-    return pref, sv, rv
+    return partition_setup_plain(g, anomaly, cfg)
 
 
-def _partition_finish(g: PartitionGraph, sv):
-    """Final normalize + the reference's rescale (pagerank.py:93-112):
-    returns (weight[V], score[V]), [B, V] for a stacked group. The sum
-    over the op axis is one ``fold_rows`` launch, in the fixed order of
-    the preference vector's sums."""
-    score = sv / sv.amax(-1, keepdim=True)
-    present = torch.where(g.op_present, score, 0.0)
-    total = fold_rows(present.reshape(-1, present.shape[-1])).view(present.shape[:-1] + (1,))
-    weight = score * total / g.n_ops.to(torch.float32)[..., None]
-    return weight, score
+# One partition's finish by the epilogue's plain version (the rank
+# program takes both partitions' and the ranking from one
+# ``rank_epilogue`` call).
+_partition_finish = partition_finish
 
 
 def window_weights_full(
@@ -794,12 +749,38 @@ def window_weights_full(
     leading [B] axis: one program, one launch of each kernel a step for
     all of them, each window frozen on its own step under ``tol``.
     """
+    out = _rank_program(graph, pagerank_cfg, SpectrumConfig(), kernel)
+    return (out.epilogue.n_weight, out.epilogue.a_weight, out.rv_n, out.rv_a, out.residuals,
+            out.n_iters, out.epilogue.score_n, out.epilogue.score_a)
+
+
+class _Program(NamedTuple):
+    """What one rank program leaves on the device."""
+
+    epilogue: Epilogue
+    sv_n: torch.Tensor  # the final carry
+    rv_n: torch.Tensor
+    sv_a: torch.Tensor
+    rv_a: torch.Tensor
+    residuals: torch.Tensor
+    n_iters: torch.Tensor
+
+
+def _rank_program(
+    graph: WindowGraph,
+    pagerank_cfg: PageRankConfig,
+    spectrum_cfg: SpectrumConfig,
+    kernel: str,
+) -> _Program:
+    """The rank program: the set-up (one ``rank_setup`` call for both
+    partitions), the 25 steps, the epilogue (one ``rank_epilogue`` call:
+    the finish of both partitions, the spectrum and the top-k)."""
+    _check_kernel(kernel)
     cfg = pagerank_cfg
     windows = stacked_windows(graph)
     lead = () if windows is None else (windows,)
     int8 = kernel == "kind" and cfg.kind_precision == "int8"
-    pref_n, sv_n, rv_n = _partition_setup(graph.normal, False, cfg, kernel)
-    pref_a, sv_a, rv_a = _partition_setup(graph.abnormal, True, cfg, kernel)
+    (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg)
     six_spmvs = kernel in ("pallas", "pcsr")
     want = PcsrGroup if kernel == "pcsr" else SpmvGroup
     if (
@@ -861,77 +842,14 @@ def window_weights_full(
     if n_iters is None:
         n_iters = torch.full(lead, n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
-    n_weight, score_n = _partition_finish(graph.normal, sv_n)
-    a_weight, score_a = _partition_finish(graph.abnormal, sv_a)
-    return n_weight, a_weight, rv_n, rv_a, residuals, n_iters, score_n, score_a
-
-
-def spectrum_counters(
-    a_weight,
-    a_graph: PartitionGraph,
-    n_weight,
-    n_graph: PartitionGraph,
-    cfg: SpectrumConfig,
-):
-    """The spectrum counters {ef, nf, ep, np} over the shared op vocab
-    (reference: online_rca.py:43-69, incl. the asymmetric only-in-normal
-    branch at :65-66). Returns (ef, nf, ep, np_, valid)."""
-    eps = _f32(cfg.eps, a_weight.device)
-    a_present = a_graph.op_present
-    n_present = n_graph.op_present
-    a_cov = a_graph.cov_unique.to(torch.float32)
-    n_cov = n_graph.cov_unique.to(torch.float32)
-    a_len = a_graph.n_traces.to(torch.float32)[..., None]
-    n_len = n_graph.n_traces.to(torch.float32)[..., None]
-
-    ef = torch.where(a_present, a_weight * a_cov, eps)
-    nf = torch.where(a_present, a_weight * (a_len - a_cov), eps)
-    ep = torch.where(
-        a_present,
-        torch.where(n_present, n_weight * n_cov, eps),
-        (1.0 + n_weight) * n_cov,
-    )
-    np_ = torch.where(
-        a_present,
-        torch.where(n_present, n_weight * (n_len - n_cov), eps),
-        n_len - n_cov,
-    )
-    valid = a_present | n_present
-    return ef, nf, ep, np_, valid
-
-
-def window_spectrum(a_weight, a_graph, n_weight, n_graph, cfg: SpectrumConfig):
-    """Spectrum counters + formula; invalid ops score -inf. Returns
-    (scores[V], valid[V])."""
-    ef, nf, ep, np_, valid = spectrum_counters(
-        a_weight, a_graph, n_weight, n_graph, cfg
-    )
-    scores = spectrum_scores(ef, nf, ep, np_, cfg.method)
-    return torch.where(valid, scores, float("-inf")), valid
-
-
-def top_k_tiebroken(scores, k: int):
-    """Top-k by score descending, op index ascending on EXACT ties —
-    what JAX's two-key ``lax.sort`` gives. ``torch.topk`` is not
-    tie-stable; a stable ascending sort of the negated scores keeps
-    equal keys in index order. ``+ 0.0`` turns -0.0 into +0.0 so the two
-    zeros cannot split. Returns (top_scores[k], top_idx[k]), along the
-    last axis ([B, k] for a stacked group's scores)."""
-    neg = -(scores + 0.0)
-    neg_sorted, idx_sorted = torch.sort(neg, dim=-1, stable=True)
-    return -neg_sorted[..., :k], idx_sorted[..., :k].to(torch.int32)
+    epilogue = rank_epilogue(graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg)
+    return _Program(epilogue, sv_n, rv_n, sv_a, rv_a, residuals, n_iters)
 
 
 def _finish_topk(graph: WindowGraph, n_weight, a_weight, spectrum_cfg):
-    """Spectrum + top-k tail: (top_idx int32[k], top_scores float32[k],
-    n_valid int32)."""
-    scores, valid = window_spectrum(
-        a_weight, graph.abnormal, n_weight, graph.normal, spectrum_cfg
-    )
-    k = min(spectrum_cfg.n_rows, scores.shape[-1])
-    top_scores, top_idx = top_k_tiebroken(scores, k)
-    n_valid = torch.clamp(valid.sum(-1), max=k).to(torch.int32)
-    return top_idx, top_scores, n_valid
+    """Spectrum + top-k tail by the epilogue's plain version: (top_idx
+    int32[k], top_scores float32[k], n_valid int32)."""
+    return finish_topk(graph.normal, graph.abnormal, n_weight, a_weight, spectrum_cfg)
 
 
 def rank_window_traced_core(
@@ -948,13 +866,9 @@ def rank_window_traced_core(
     windows (K18, the counterpart of JAX's vmapped program) every output
     gains a leading [B] axis: top_idx [B, k], residuals [B, 2, I],
     n_iters [B]."""
-    n_weight, a_weight, _, _, residuals, n_iters, _, _ = window_weights_full(
-        graph, pagerank_cfg, kernel
-    )
-    top_idx, top_scores, n_valid = _finish_topk(
-        graph, n_weight, a_weight, spectrum_cfg
-    )
-    return top_idx, top_scores, n_valid, residuals, n_iters
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel)
+    return (out.epilogue.top_idx, out.epilogue.top_scores, out.epilogue.n_valid,
+            out.residuals, out.n_iters)
 
 
 class PackedOutputs(NamedTuple):
