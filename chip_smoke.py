@@ -30,11 +30,16 @@ JAX or of the JAX package. Phases, one JSON line each:
               and chains of three steps of the step kernel (K5: default,
               no normalization, a tol that freezes, an empty partition,
               the int8 scales, and windows at and past the register
-              slots; the fused kernel through one window and through
-              one-step calls, and the two-launch kernel) held bitwise
-              against their plain versions; the fused step kernel's
-              occupancy (blocks an SM, register slots) and its ptxas
-              lines; and the two
+              slots, through one window and through one-step calls; and
+              K5's group kernel ``step_grid_group<S>`` over groups of 2
+              to 4 windows: below, at and past the slots, held in shared
+              memory or recomputed, a grid the units outnumber, a tol
+              whose windows freeze at different steps, int8, also
+              through PR 13's kernel) held bitwise against their plain
+              versions; the step kernels' occupancy (blocks an SM,
+              register slots) and every instantiation's ptxas lines,
+              with a gate on 0 bytes of spill in every
+              ``step_grid_group<S>``; and the two
               device timers (torch.profiler, CUDA events) on a 1 GiB
               device copy;
 2. data     — one detection window at bench.py's config-5 scale
@@ -50,9 +55,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               route below too), and the CUDA
               run agrees tie-aware (rtol 1e-5) with the same run on the
               CPU; on every route the window, staged once, is run again
-              with the plain step (``power_step_plain``) on the card and
-              with the two-launch step kernel: weights, vectors,
-              residual trace, n_iters and ranking bitwise; the rank
+              with the plain step (``power_step_plain``) on the card:
+              weights, vectors, residual trace, n_iters and ranking
+              bitwise; the rank
               program timed whole by CUDA events behind a device spin
               (``rank_program_event_ms``) beside the host's time to issue
               it (``rank_program_host_ms``);
@@ -172,8 +177,9 @@ JAX or of the JAX package. Phases, one JSON line each:
    batched  — K18, the stacked rank program: the replay's config-5
               ``kind`` windows (each built by ``prepare_rank``) stacked in
               groups of B = 1, 2, 4 and 6 (``stack_window_graphs``), the
-              same windows with ``kind_precision="int8"`` at B = 2 and 6,
-              and the config-5 window stacked twice for ``pallas``,
+              same windows with ``kind_precision="int8"`` and ``"bf16"``
+              at B = 2, 4 and 6, and the config-5 window stacked twice
+              for ``pallas``,
               ``packed_bf16``, ``packed_blocked`` (the 64 MiB run's
               window) and ``pcsr`` (the 16 MiB run's). Each group: 25
               launches of each kernel of its route for the whole group
@@ -181,12 +187,20 @@ JAX or of the JAX package. Phases, one JSON line each:
               one ``quantize_amax`` launch); each window's n_valid and
               n_iters those of its own program, its ranking tie-aware at
               rtol 1e-5 (int8: the top-5 at 5e-2; bitwise reported); the
-              group through the plain step on the card bitwise; its
+              group through the plain step and PR 13's group kernel on
+              the card bitwise; K5's group kernel at the group's shapes
+              over chains of 50 launches (default, a tol whose windows
+              freeze at different steps, int8 with the group's scales)
+              bitwise the plain step and PR 13's kernel
+              (``group_step_check``); its
               window-axis kernels bitwise their plain versions (computed
               on the CPU; for packed_bf16 and packed_blocked the windows'
               own launches) and over 50 launches; every group's windows
               bitwise their own programs (a gate).
-              The kind groups and the int8 group of 6 timed in turns with the windows' own
+              The kind groups of 2, 4 and 6 and the int8 group of 6: a
+              step split by kernel (``step_split``: the group's step
+              timed in turns with PR 13's kernel, its grid plan
+              printed). The kind groups and the int8 group of 6 timed in turns with the windows' own
               programs (windows, stacked, stacked, windows; each window's
               program timed alone and the B summed): host issue and
               device time by CUDA events behind a ~100 ms spin, the
@@ -244,13 +258,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               one-partition bitmaps of four shapes;
    step     — K5 at the config-5 ``kind`` window's shapes and the int8
               window's (``measure_step``): one step of the fused kernel
-              bitwise its plain version on the card and the
-              two-launch kernel, chains of 25 steps through one window
-              (25 launches) bitwise with the default configuration, a
-              tol, an empty partition, no normalization and (int8) the
-              fused scales, both kernels; timed by CUDA events behind a
-              spin in turns with the two-launch kernel (old, new, new, old)
-              beside the plain step, the byte bound and the host's issue
+              bitwise its plain version on the card, chains of 25 steps
+              through one window (25 launches) bitwise with the default
+              configuration, a tol, an empty partition, no normalization
+              and (int8) the fused scales; timed by CUDA events behind a
+              spin in turns with the plain step (new, plain, plain, new)
+              beside the byte bound and the host's issue
               time of a window's step call; the grid, blocks an SM and
               register slots; the kind window with a tol that stops it
               early, and a giant-tier window of 262,144 spans with its
@@ -286,14 +299,20 @@ JAX or of the JAX package. Phases, one JSON line each:
               two kernels bitwise each other and timed; for
               pcsr, ``measure_pcsr`` as in phase 6, against the pallas
               work list of the 10M-span window too); the window through
-              the plain step and the two-launch step kernel, bitwise, K5
-              measured at its shapes (the kernels line's ``power_step``
-              at 10M), and the rank program's issue split; then the
+              the plain step, bitwise, K5 measured at its shapes (the
+              kernels line's ``power_step`` at 10M), and the rank
+              program's issue split; then the
               window stacked twice as one program (``giant_stacked``:
               the host's stacking time and bytes, the staging, 25
               launches of each kernel for the group, each window against
               its own program and through the plain step, the window-axis
               kernels bitwise the window's own launches over 50 launches,
+              K5's group kernel over chains of 50 launches bitwise the
+              plain step and PR 13's kernel, a step split by kernel (the
+              group's step timed in turns with PR 13's kernel and, where
+              a thread's values pass its slots, with them recomputed in
+              place of held in shared memory: the kernels line's
+              ``step_grid_group`` at 10M x 2),
               timed in turns with the two windows' own programs, peak
               device memory, the windows bitwise their own programs: a
               gate); the fold at the window's set-up shape.
@@ -312,6 +331,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -424,18 +444,27 @@ def reset_counts(spmv, pattern) -> None:
     pattern.pattern_pair_group.blocked_launches = pattern.pattern_pair_group.fold_launches = 0
     pattern.quantize_scales.launches = 0
     step.power_step.launches = 0
-    step.power_step_two_launch.launches = 0
+    step.power_step.by_kernel.clear()
+
+
+# The step kernels' instantiations that a counted main path launched
+# (``power_step.by_kernel``'s names), for the kernels line.
+MAIN_STEP_KERNELS = set()
 
 
 def read_counts(spmv, pattern) -> dict:
     from microrank_tpu_torch.ops import epilogue, fold, setup, step
 
+    by_kernel = step.power_step.by_kernel
+    MAIN_STEP_KERNELS.update(k for k, n in by_kernel.items() if n)
     return {
         "setup_launches": setup.rank_setup.launches,
         "epilogue_launches": epilogue.rank_epilogue.launches,
         "row_fold_launches": fold.fold_rows.launches,
         "step_launches": step.power_step.launches,
-        "step_two_launch_launches": step.power_step_two_launch.launches,
+        "step_group_launches": sum(n for k, n in by_kernel.items()
+                                   if k.startswith("step_grid_group")),
+        "step_units_launches": by_kernel["step_grid_units"],
         "k1_launches": spmv.coo_spmv.launches,
         "k1_spmvs": spmv.coo_spmv.spmvs,
         "pcsr_launches": spmv.pcsr_spmv_group.launches,
@@ -448,7 +477,7 @@ def read_counts(spmv, pattern) -> dict:
     }
 
 
-def expected_counts(kernel, n, int8=False, programs=None, folds=True) -> dict:
+def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
     launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
     SpMVs), or of the pattern pair (four products; packed_blocked's
@@ -456,24 +485,28 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True) -> dict:
     fold launch) and K1 (the two call-graph terms); on every route one
     launch per step of the step kernel (K5); with ``int8`` (kind) one
     scale launch per window, for the first step (the step kernel takes
-    every later step's scales); the two-launch step kernel never; on
+    every later step's scales); PR 13's group kernel never; on
     every route one launch of K6's set-up and one of its epilogue a
     program, and none of the standalone fixed-order fold (its tree runs
     inside both).
     ``programs``: the rank programs the windows ran in (stacked groups,
     K18: one launch of each kernel a step for the whole group; the
     SpMVs and products still count per window); default one a window.
+    ``groups``: of them, the groups of two windows or more, whose steps
+    launch K5's group kernel (``step_grid_group<S>``; a group of one
+    launches the window's ``step_grid<S>``).
     ``folds``: packed_blocked's programs fold K8's partials (the
     condition the wrapper counts by, ``pattern.blocked_folds``; a small
     bitmap has no partials to fold)."""
     counts = dict.fromkeys(("setup_launches", "epilogue_launches",
                             "row_fold_launches", "step_launches",
-                            "step_two_launch_launches", "k1_launches",
+                            "step_group_launches", "step_units_launches", "k1_launches",
                             "k1_spmvs", "pcsr_launches",
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches"), 0)
     g = n if programs is None else programs
     counts["step_launches"] = STEP_LAUNCHES * STEPS * g
+    counts["step_group_launches"] = STEP_LAUNCHES * STEPS * groups
     counts["setup_launches"] = counts["epilogue_launches"] = K6_LAUNCHES * g
     if kernel == "pallas":
         counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
@@ -605,9 +638,10 @@ def tiny_step_checks(torch, pattern, dev):
     weights), and with the grid cut to one block a vector (partitions of
     300 x 1,500 and 300 x 11,000), so that each thread takes 6 elements
     (the carry in registers) and 43 (past the register slots). Each
-    through one window of the fused kernel, through one-step calls of it
-    (``power_step``) and through the two-launch kernel, against the
-    plain version on the card, bitwise. Returns the number of cases."""
+    through one window of the fused kernel and through one-step calls
+    of it (``power_step``), against the plain version on the card,
+    bitwise. Then K5's group kernel (``tiny_group_step_checks``).
+    Returns the number of cases."""
     import numpy as np
 
     from microrank_tpu_torch.ops import step
@@ -640,8 +674,7 @@ def tiny_step_checks(torch, pattern, dev):
         plan = step.step_plan(prefs, 0.01, 0.85, tol, normalize, step.step_scratch(dev),
                               group if scales else None)
         want = step_chain(torch, step.power_step_plain, plan, products, carry, 3, scales)
-        for label, fn in (("window", None), ("power_step", step.power_step),
-                          ("two_launch", step.power_step_two_launch)):
+        for label, fn in (("window", None), ("power_step", step.power_step)):
             got = step_chain(torch, fn, plan, products, carry, 3, scales, max_blocks)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
@@ -649,6 +682,107 @@ def tiny_step_checks(torch, pattern, dev):
                   f"empty={empty}, int8={scales}, max_blocks={max_blocks}) differs from its "
                   "plain version")
             check(not plan.scratch.any(), "the step kernel left its scratch non-zero")
+        n += 1
+    return n + tiny_group_step_checks(torch, pattern, dev)
+
+
+def group_inputs(torch, gen, b, sizes, dev):
+    """[B, n] products, carry and preference vectors per partition of
+    (V, T) = sizes[p], uniform in [0, 1)."""
+    def vec(n):
+        return torch.rand((b, n), generator=gen, device=dev)
+
+    products = tuple((vec(v), vec(v), vec(t)) for v, t in sizes)
+    carry = tuple((vec(v), vec(t)) for v, t in sizes)
+    return products, carry, [vec(t) for _, t in sizes]
+
+
+def group_chain(torch, mode, plan, products, carry, n_steps, want_scales=False,
+                max_blocks=None, hold=True, moving=None):
+    """``n_steps`` steps of a group's StepWindow in ``mode`` (its grid
+    capped at ``max_blocks``; ``hold``: values past the slots held in
+    shared memory): each step's products the fixed ones, those of the
+    windows in ``moving`` (a [B, 1] bool) times the carry, so that those
+    windows move and the others repeat their first step. Returns (every
+    step's carry and scales, the residuals, n_iters and running as the
+    int32 bits of one tensor; the window)."""
+    from microrank_tpu_torch.ops import step
+
+    dev = carry[0][0].device
+    b = carry[0][0].shape[0]
+    residuals = torch.zeros((b, 2, n_steps), dtype=torch.float32, device=dev)
+    n_iters = running = None
+    if plan.tol is not None:
+        n_iters = torch.zeros(b, dtype=torch.int32, device=dev)
+        running = torch.ones(b, dtype=torch.bool, device=dev)
+    win = step.StepWindow(plan, carry, residuals, n_iters, running, mode=mode,
+                          max_blocks=max_blocks, hold=hold)
+    out, c = [], carry
+    for i in range(n_steps):
+        ys = products
+        if moving is not None:
+            ys = tuple((torch.where(moving, y0 * sv, y0), y1, torch.where(moving, y2 * rv, y2))
+                       for (y0, y1, y2), (sv, rv) in zip(products, c))
+        c, scales = win.step(ys, i, want_scales and i + 1 < n_steps)
+        out += [t.reshape(-1).clone() for part in c for t in part]
+        out += [] if scales is None else [scales.reshape(-1).clone()]
+    out = [torch.cat(out + [residuals.reshape(-1)]).view(torch.int32)]
+    if n_iters is not None:
+        out += [n_iters, running.to(torch.int32)]
+    return torch.cat(out), win
+
+
+def tiny_group_step_checks(torch, pattern, dev):
+    """First launches of K5's group kernel (``step_grid_group<S>``):
+    chains of three steps over groups of 2 to 4 windows, bitwise the
+    plain step on the card and PR 13's kernel (``group_units``): small
+    partitions (7 x 9 and 300 x 1,100) with the default configuration,
+    with a tol whose odd windows move (products times the carry) while
+    the even ones freeze, and with int8 scales; one block a (vector,
+    window), so that a thread takes 43 elements (past the slots: held in
+    shared memory, and recomputed) and 79 (past the held ones too); and
+    a grid cap of 6 blocks for a group of 4 (one row of a window's 4
+    units, which walks the other three windows). Returns the number of
+    cases."""
+    import numpy as np
+
+    from microrank_tpu_torch.ops import step
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = torch.Generator().manual_seed(8)
+    small, wide, far = [(7, 9), (300, 1100)], [(300, 11_000)] * 2, [(300, 20_000)] * 2
+    n = 0
+    for b, sizes, max_blocks, hold, tol, scales in (
+            (3, small, None, True, None, False),
+            (3, small, None, True, 1e-4, False),
+            (3, small, None, True, None, True),
+            (2, wide, 8, True, None, False),
+            (2, wide, 8, False, 1e-30, True),
+            (2, far, 8, True, None, True),
+            (4, small, 6, True, 1e-4, False)):
+        products, carry, prefs = group_inputs(torch, gen, b, sizes, dev)
+        group = None
+        if scales:
+            group = pattern.pattern_group(
+                [torch.from_numpy(np.packbits((torch.rand((b, v, t), generator=g) < 0.4).numpy()
+                                              .astype(np.uint8), axis=-1)).to(dev)
+                 for v, t in sizes],
+                [torch.rand((b, t), generator=g).to(dev) for _, t in sizes],
+                [torch.rand((b, v), generator=g).to(dev) for v, _ in sizes],
+                [None, None], [t for _, t in sizes])
+        moving = (torch.arange(b, device=dev) % 2 == 1)[:, None]
+        chains = {}
+        for mode in ("plain", "kernel", "group_units"):
+            plan = step.step_plan(prefs, 0.01, 0.85, tol, True, step.step_scratch(dev, b), group)
+            chains[mode], _ = group_chain(torch, mode, plan, products, carry, 3, scales,
+                                          max_blocks, hold, moving)
+            torch.cuda.synchronize()
+            check(not plan.scratch.any(), f"the group step ({mode}) left its scratch non-zero")
+        for mode in ("kernel", "group_units"):
+            check(torch.equal(chains[mode], chains["plain"]),
+                  f"tiny group step chain ({mode}, B={b}, sizes={sizes}, max_blocks="
+                  f"{max_blocks}, hold={hold}, tol={tol}, int8={scales}) differs from the "
+                  "plain step")
         n += 1
     return n
 
@@ -1034,6 +1168,24 @@ def phase_env(torch, spmv, pattern, native):
     n_pcsr = tiny_pcsr_checks(torch, spmv, dev, host_lay, x)
     n_pattern = tiny_pattern_checks(torch, pattern, dev)
     n_step = tiny_step_checks(torch, pattern, dev)
+    # Every instantiation of K5's group kernel without spill (the gate):
+    # registers, spill stores and loads by instantiation.
+    group_ptxas = {}
+    for lines in ptxas_all(ptxas_step, "step_grid_group"):
+        text = " ".join(lines)
+        name = re.search(r"step_grid_groupILi(\d+)E", lines[0])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        check(name and regs and spill, f"ptxas: no report for {lines[0]}")
+        group_ptxas[f"step_grid_group<{name.group(1)}>"] = {
+            "registers": int(regs.group(1)), "spill_store_bytes": int(spill.group(1)),
+            "spill_load_bytes": int(spill.group(2))}
+    want_slots = {1, 2, 4, 8, step.kernel_config(dev).group_slots}
+    check(len(group_ptxas) == len(want_slots),
+          f"ptxas: {sorted(group_ptxas)}, want step_grid_group<S> for S in {sorted(want_slots)}")
+    spilled = {k: v for k, v in group_ptxas.items()
+               if v["spill_store_bytes"] or v["spill_load_bytes"]}
+    check(not spilled, f"ptxas: step_grid_group spills: {spilled}")
     n_fold = tiny_fold_checks(torch, fold, dev)
     n_k6 = tiny_k6_checks(torch, dev)
     step_cfg = step.kernel_config(dev)
@@ -1069,7 +1221,8 @@ def phase_env(torch, spmv, pattern, native):
         # the barrier, and the occupancy that sizes every window's
         # cooperative grid.
         "step_kernel": {**step_cfg._asdict(), "max_blocks": step_cfg.max_blocks,
-                        "ptxas": ptxas_all(ptxas_step, "step_grid")},
+                        "ptxas": ptxas_all(ptxas_step, "step_grid"),
+                        "group_ptxas": group_ptxas, "group_spill_bytes": 0},
         "tiny_launch_bitwise_vs_plain": tiny_bitwise,
         "tiny_pcsr_launches_bitwise_vs_plain": n_pcsr,
         "tiny_pattern_cases_bitwise_vs_plain": n_pattern,
@@ -1810,7 +1963,8 @@ def replay_mode(torch, spmv, pattern, tl, normal_table, table, mode, workdir):
 
     n = len(ranked)
     groups = replay_groups(mode, n)
-    expect = expected_counts("kind", n, int8=precision == "int8", programs=len(groups))
+    expect = expected_counts("kind", n, int8=precision == "int8", programs=len(groups),
+                             groups=sum(1 for g in groups if g > 1))
     if mode in STACKED_MODES:
         check([r.timings.get("chunk_windows", n) for r in ranked]
               == [g for g in groups for _ in range(g)],
@@ -2195,7 +2349,7 @@ def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed
     counts = read_counts(spmv, pattern)
     int8 = kernel == "kind" and cfg.pagerank.kind_precision == "int8"
     folds = card.pattern_group is not None and pattern.blocked_folds(card.pattern_group)
-    expect = expected_counts(kernel, b, int8, programs=1, folds=folds)
+    expect = expected_counts(kernel, b, int8, programs=1, folds=folds, groups=int(b > 1))
     check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
     got = tc.unpack_rank_outputs(packed)
     bitwise = True
@@ -2257,14 +2411,19 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
     """K18, the stacked rank program, on the card: groups of B = 1, 2, 4
     and 6 of the replay's config-5 kind windows (each window's graph as
     ``prepare_rank`` builds it, stacked by ``parallel.stack_window_graphs``),
-    the same windows with ``kind_precision="int8"`` at B = 2 and 6, and
-    groups of the config-5 window stacked twice for ``pallas`` (collapse
-    off), ``packed_bf16`` (auto, collapse off), ``packed_blocked`` (auto
-    at 64 MiB) and ``pcsr`` (auto at 16 MiB). Each group: its
-    window-axis kernels bitwise their plain versions over 50 launches
-    (``stacked_kernel_checks``) and its program held to the windows' own
-    (``stacked_program``); the kind groups and the int8 group of 6 timed
-    against the per-window programs in turns."""
+    the same windows with ``kind_precision="int8"`` and ``"bf16"`` at B =
+    2, 4 and 6, and groups of the config-5 window stacked twice for
+    ``pallas`` (collapse off), ``packed_bf16`` (auto, collapse off),
+    ``packed_blocked`` (auto at 64 MiB) and ``pcsr`` (auto at 16 MiB).
+    Each group: its window-axis kernels bitwise their plain versions over
+    50 launches (``stacked_kernel_checks``; not bf16, whose kernels are
+    the f32 groups' but for the pair's rounding, held in the pattern
+    phase), its program held to the windows' own (``stacked_program``)
+    and K5's group kernel at its shapes over chains of 50 launches
+    (``group_step_check``); the kind groups of 2, 4 and 6 and the int8
+    group of 6 a step split by kernel (``step_split``); the kind groups
+    and the int8 group of 6 timed against the per-window programs in
+    turns."""
     import numpy as np
 
     from microrank_tpu_torch.parallel import stack_window_graphs
@@ -2309,6 +2468,9 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         tag = f"batched/kind/{b}"
         info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind", cfg)
         launches[tag] = counts
+        if b > 1:
+            info["group_step"] = group_step_check(torch, f"{tag}/group_step", card)
+            info["step_split"] = step_split(torch, spmv, pattern, card, "kind")
         if b == max(x for x in BATCH_SIZES if x <= len(host)):
             info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
                                               staged(stack, "kind", "cpu")))
@@ -2318,22 +2480,31 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         out["kind"][str(b)] = info
         del card
     # kind_precision="int8": one quantize_amax launch a group, the pair
-    # and K5 with [B, 4] scales, each window's own.
-    cfg8 = replay_config(tl, "int8")
-    out["kind_int8"] = {}
-    for b in (2, 6):
-        if b > len(host):
-            continue
-        stack = stack_window_graphs(host[:b])
-        card = staged(stack, "kind")
-        tag = f"batched/kind_int8/{b}"
-        info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind",
-                                       cfg8, timed=b == 6)
-        launches[tag] = counts
-        info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
-                                          staged(stack, "kind", "cpu"), precision="int8"))
-        out["kind_int8"][str(b)] = info
-        del card
+    # and K5 with [B, 4] scales, each window's own; and "bf16".
+    for precision in ("int8", "bf16"):
+        pcfg = replay_config(tl, precision)
+        out[f"kind_{precision}"] = {}
+        for b in (2, 4, 6):
+            if b > len(host):
+                continue
+            stack = stack_window_graphs(host[:b])
+            card = staged(stack, "kind")
+            tag = f"batched/kind_{precision}/{b}"
+            info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind",
+                                           pcfg, timed=b == 6 and precision == "int8")
+            launches[tag] = counts
+            int8 = precision == "int8"
+            info["group_step"] = group_step_check(torch, f"{tag}/group_step", card,
+                                                  card.pattern_group if int8 else None)
+            if int8:
+                info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card,
+                                                  staged(stack, "kind", "cpu"),
+                                                  precision="int8"))
+                if b == 6:
+                    info["step_split"] = step_split(torch, spmv, pattern, card, "kind",
+                                                    int8=True)
+            out[f"kind_{precision}"][str(b)] = info
+            del card
     # The config-5 window stacked twice on the routes past the dense
     # budget too. The plain versions: on the CPU (pallas, pcsr) or the
     # window's own launches (packed_bf16, packed_blocked: the pattern
@@ -2354,6 +2525,7 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single],
                                        kernel, gcfg, timed=False)
         launches[tag] = counts
+        info["group_step"] = group_step_check(torch, f"{tag}/group_step", card)
         if plain_on_cpu:
             host_card = device_subset(graph_from_numpy(stack, "cpu"), kernel,
                                       gcfg.pagerank.packed_block_bytes)
@@ -3453,9 +3625,9 @@ def bits(torch, t):
 
 
 def plain_step_check(torch, dgraph, cfg, kernel):
-    """One window (its layouts staged) through the fused step kernel,
-    through the plain step (``power_step_plain``) on the card and
-    through the two-launch step kernel: the weights, carried
+    """One window (its layouts staged) through the step kernel and
+    through the plain step (``power_step_plain``) on the card (a stacked
+    group through PR 13's group kernel too): the weights, carried
     vectors, score vectors, residual trace and n_iters of
     ``window_weights_full``, and the ranking of
     ``rank_window_traced_core``, must be bitwise equal. Returns what it
@@ -3476,10 +3648,8 @@ def plain_step_check(torch, dgraph, cfg, kernel):
     got = run()
     wants = {}
     saved = torch_cuda.StepWindow
-    # A stacked group (K18) has no two-launch step: that kernel takes one
-    # window.
     stacked = dgraph.normal.kind.dim() == 2
-    for mode in ("plain",) if stacked else ("plain", "two_launch"):
+    for mode in ("plain", "group_units") if stacked else ("plain",):
         torch_cuda.StepWindow = functools.partial(step.StepWindow, mode=mode)
         try:
             wants[mode] = run()
@@ -3502,7 +3672,7 @@ def plain_step_check(torch, dgraph, cfg, kernel):
              for r, n in zip(residuals.reshape(-1, *residuals.shape[-2:]), n_iters.reshape(-1))]
     return {
         "bitwise_vs_plain_step": True,
-        "bitwise_vs_two_launch_step": None if stacked else True,
+        "bitwise_vs_group_units_step": True if stacked else None,
         "compared": list(names) + ["top_idx", "top_scores", "n_valid"],
         "n_iters": n_iters.tolist(),
         "final_residual": final if stacked else final[0],
@@ -3529,7 +3699,7 @@ def step_chain(torch, fn, plan, products, carry, n_steps, want_scales=False, max
     """``n_steps`` steps on fixed products from ``carry``: through one
     window of the fused kernel (``fn`` None, as the main path runs it;
     its grid capped at ``max_blocks``) or a chain of ``fn`` calls
-    (power_step, power_step_two_launch, power_step_plain): every carry
+    (power_step, power_step_plain): every carry
     and scale, the residuals, n_iters and the running flag, as the int32
     bits of one tensor."""
     from microrank_tpu_torch.ops import step
@@ -3571,17 +3741,15 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
     """Check and time one power-iteration step's tail (both partitions)
     at ``sizes`` ((V, T) per partition, the window's) on random
     products. Checks: one step of the fused kernel bitwise its plain
-    version on the card and the two-launch kernel; chains of 25
-    steps through one window (25 launches) and through the two-launch kernel
-    bitwise the plain chain, with the default configuration, with a tol
-    (running, then frozen), with the first partition empty, and without
-    normalization; with ``scale_group`` (the int8 window's pattern
-    group) the fused int8 scales of every step too. Timed by CUDA events
-    behind a spin, a window's step call as the main path makes it, in
-    turns with the two-launch kernel (old, new, new, old) and beside the plain
-    version and the byte bound; the host's time to issue a window's
-    step call; the window's grid, elements a thread and register
-    slots."""
+    version on the card; chains of 25 steps through one window (25
+    launches) bitwise the plain chain, with the default configuration,
+    with a tol (running, then frozen), with the first partition empty,
+    and without normalization; with ``scale_group`` (the int8 window's
+    pattern group) the fused int8 scales of every step too. Timed by
+    CUDA events behind a spin, a window's step call as the main path
+    makes it, in turns with the plain step (new, plain, plain, new)
+    beside the byte bound; the host's time to issue a window's step
+    call; the window's grid, elements a thread and register slots."""
     from microrank_tpu_torch.config import PageRankConfig
     from microrank_tpu_torch.ops import step
 
@@ -3596,15 +3764,13 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
 
     plan = plan_of(prefs)
     flats = {}
-    for label, fn in (("fused", step.power_step), ("two_launch", step.power_step_two_launch),
-                      ("plain", step.power_step_plain)):
+    for label, fn in (("fused", step.power_step), ("plain", step.power_step_plain)):
         res = torch.zeros((2, STEPS), dtype=torch.float32, device=dev)
         new, _ = fn(plan, products, carry, res, 0)
         flats[label] = torch.cat([t for part in new for t in part] + [res.reshape(-1)])
     torch.cuda.synchronize()
-    for label in ("plain", "two_launch"):
-        check(torch.equal(bits(torch, flats["fused"]), bits(torch, flats[label])),
-              f"{name}: the fused step kernel differs from the {label} step")
+    check(torch.equal(bits(torch, flats["fused"]), bits(torch, flats["plain"])),
+          f"{name}: the fused step kernel differs from the plain step")
     err = float((flats["fused"] - flats["plain"]).abs().max())
     # Chains of 25 steps on fixed products: every step after the first
     # gives the same vectors (residual 0), so a tol of half the first
@@ -3624,23 +3790,18 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
         a = step_chain(torch, None, pl, pr, ca, STEPS, scales)
         check(step.power_step.launches - before == STEPS * STEP_LAUNCHES,
               f"{name}: {label}: not one fused launch a step")
-        b = step_chain(torch, step.power_step_two_launch, pl, pr, ca, STEPS, scales)
         c = step_chain(torch, step.power_step_plain, pl, pr, ca, STEPS, scales)
         torch.cuda.synchronize()
         check(torch.equal(a, c), f"{name}: {label} chain of the fused kernel differs from plain")
-        check(torch.equal(b, c),
-              f"{name}: {label} chain of the two-launch kernel differs from plain")
         check(not pl.scratch.any(), f"{name}: {label}: the step kernel left its scratch non-zero")
 
     res = torch.zeros((2, STEPS), dtype=torch.float32, device=dev)
-    wins = {mode: step.StepWindow(plan, carry, res, mode=mode)
-            for mode in ("kernel", "two_launch", "plain")}
+    wins = {mode: step.StepWindow(plan, carry, res, mode=mode) for mode in ("kernel", "plain")}
     calls = {
         "new": lambda: wins["kernel"].step(products, 0),
-        "old": lambda: wins["two_launch"].step(products, 0),
         "plain": lambda: wins["plain"].step(products, 0),
     }
-    turns = ("old", "new", "new", "old", "plain", "plain")
+    turns = ("new", "plain", "plain", "new")
     times, in_turns = {}, []
     for k in turns:
         t, host = spin_event_host_ms(torch, calls[k], reps)
@@ -3650,7 +3811,7 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
     kcfg = step.kernel_config(dev)
     out = {
         "shapes": [list(x) for x in sizes], "max_abs_err": err, "bitwise_vs_plain": True,
-        "bitwise_vs_previous_design": True, "chains_bitwise_vs_plain": sorted(chains),
+        "chains_bitwise_vs_plain": sorted(chains),
         "launches_per_step": STEP_LAUNCHES,
         "grid": win.grid, "blocks_per_sm": kcfg.blocks_per_sm, "sms": kcfg.sms,
         "max_blocks": kcfg.max_blocks, "register_slots": win.slots,
@@ -3658,10 +3819,8 @@ def measure_step(torch, name, sizes, reps, scale_group=None):
         "in_registers": win.per_thread <= win.slots,
         "turns": in_turns,  # [call, event ms, host issue ms], in order
         "ms": min(t for t, _ in times["new"]),
-        "previous_design_ms": min(t for t, _ in times["old"]),
         "plain_ms": min(t for t, _ in times["plain"]),
         "host_issue_ms": min(h for _, h in times["new"]),
-        "previous_design_host_issue_ms": min(h for _, h in times["old"]),
         "plain_host_issue_ms": min(h for _, h in times["plain"]),
     }
     nbytes, bytes_ms = step_bound(sizes)
@@ -3861,13 +4020,80 @@ def phase_step(torch, graphs, reps):
     return out
 
 
-def step_split(torch, spmv, pattern, dg, kernel, reps=20):
+def group_step_check(torch, tag, dg, scale_group=None):
+    """K5's group kernel at a stacked group's shapes (``dg``, staged):
+    chains of REPEATS steps on random inputs through the kernel the main
+    path plans (``step_grid_group<S>``; where a thread's values pass its
+    slots, with them recomputed too) bitwise the plain step on the card
+    and PR 13's kernel: the default configuration; a tol of 1e-4 whose
+    odd windows move (their products times the carry) while the even
+    ones freeze after their second step, so the windows stop at
+    different steps (a gate); with ``scale_group`` (the group's int8
+    pattern group) every step's [B, 4] scales. Returns the plan and
+    what was compared."""
+    from microrank_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    b = int(dg.normal.kind.shape[0])
+    sizes = [(int(p.cov_unique.shape[-1]), int(p.kind.shape[-1]))
+             for p in (dg.normal, dg.abnormal)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    products, carry, prefs = group_inputs(torch, gen, b, sizes, dev)
+    moving = (torch.arange(b, device=dev) % 2 == 1)[:, None]
+    cases = {"default": (None, None, False), "tol": (1e-4, moving, False)}
+    if scale_group is not None:
+        cases["int8"] = (None, None, True)
+    out = {"windows": b, "sizes": sizes, "launches_per_chain": REPEATS, "cases": {}}
+    for label, (tol, mov, scales) in cases.items():
+        def run(mode, hold=True):
+            plan = step.step_plan(prefs, 0.01, 0.85, tol, True, step.step_scratch(dev, b),
+                                  scale_group if scales else None)
+            got, win = group_chain(torch, mode, plan, products, carry, REPEATS, scales,
+                                   hold=hold, moving=mov)
+            torch.cuda.synchronize()
+            check(not plan.scratch.any(), f"{tag}: the group step ({mode}) left its scratch "
+                                          "non-zero")
+            return got, win
+
+        want, _ = run("plain")
+        got, win = run("kernel")
+        check(win.grid_plan.kernel == step.KERNEL_GROUP,
+              f"{tag}: the group planned {win.grid_plan.kernel_name}")
+        check(torch.equal(got, want), f"{tag}: {label}: {win.grid_plan.kernel_name} over "
+                                      f"{REPEATS} launches differs from the plain step")
+        compared = ["plain", "group_units"]
+        old, _ = run("group_units")
+        check(torch.equal(old, want), f"{tag}: {label}: PR 13's kernel differs from the plain "
+                                      "step")
+        if win.grid_plan.held:
+            again, _ = run("kernel", hold=False)
+            check(torch.equal(again, want),
+                  f"{tag}: {label}: the group step recomputing past its slots differs")
+            compared.append("recomputed")
+        del old
+        if tol is not None:
+            n_iters = want[-2 * b:-b].tolist()
+            check(b < 2 or len(set(n_iters)) > 1,
+                  f"{tag}: the tol chain's windows froze at the same step ({n_iters})")
+            out["tol_n_iters"] = n_iters
+        out["cases"][label] = {"bitwise_vs": compared}
+        out["plan"] = win.grid_plan._asdict()
+        out["kernel"] = win.grid_plan.kernel_name
+    return out
+
+
+def step_split(torch, spmv, pattern, dg, kernel, reps=20, int8=False):
     """One power-iteration step of a staged graph (a window, or a stacked
     group) split by kernel, on random inputs of its shapes: the route's
     products (the pcsr step; or the pair, K8 and its fold here, then K1's
     call-graph terms) and K5's step (``step_grid<S>`` for a window,
-    ``step_grid_group`` for a group), each by CUDA events behind a
-    device spin, the median of ``reps`` calls."""
+    ``step_grid_group<S>`` for a group; ``int8``: with the group's [B, 4]
+    scales), each by CUDA events behind a device spin, the median of
+    ``reps`` calls; the plain step beside it. A group's step is timed
+    in turns with PR 13's kernel (new, old, old, new) and, where a
+    thread's values pass its slots, with them recomputed in place of
+    held in shared memory (new, recomputed, old, old, recomputed, new);
+    its grid plan (per_thread, slots, grid, units, held) printed."""
     from microrank_tpu_torch.ops import step as step_mod
 
     gen = torch.Generator(device="cuda")
@@ -3888,14 +4114,44 @@ def step_split(torch, spmv, pattern, dg, kernel, reps=20):
     ys = tuple((torch.rand_like(sv), torch.rand_like(sv), torch.rand_like(rv))
                for sv, rv in zip(svs, rvs))
     plan = step_mod.step_plan([torch.rand_like(rv) for rv in rvs], 0.01, 0.85, None, True,
-                              step_mod.step_scratch(dev, lead[0] if lead else 1))
-    win = step_mod.StepWindow(plan, tuple(zip(svs, rvs)), torch.zeros(lead + (2, 1), device=dev))
-    return {
+                              step_mod.step_scratch(dev, lead[0] if lead else 1),
+                              dg.pattern_group if int8 else None)
+
+    def window(**kw):
+        return step_mod.StepWindow(plan, tuple(zip(svs, rvs)),
+                                   torch.zeros(lead + (2, 1), device=dev), **kw)
+
+    wins = {"new": window(), "plain": window(mode="plain")}
+    if lead:
+        wins["old"] = window(mode="group_units")
+        if wins["new"].grid_plan.held:
+            wins["recomputed"] = window(hold=False)
+    order = {2: ("new", "old", "old", "new"),
+             3: ("new", "recomputed", "old", "old", "recomputed", "new")}.get(
+        len(wins) - 1, ("new",))
+    turns = [[k, round(spin_event_ms(torch, lambda k=k: wins[k].step(ys, 0, int8), reps), 6)]
+             for k in order]
+    win = wins["new"]
+    out = {
         "products_ms": round(spin_event_ms(torch, products, reps), 6),
-        "step_ms": round(spin_event_ms(torch, lambda: win.step(ys, 0), reps), 6),
-        "step_kernel": "step_grid_group" if lead else f"step_grid<{win.slots}>",
+        "step_ms": min(t for k, t in turns if k == "new"),
+        "plain_step_ms": round(spin_event_ms(torch, lambda: wins["plain"].step(ys, 0, int8),
+                                             reps), 6),
+        "step_kernel": win.grid_plan.kernel_name,
         "step_grid": win.grid,
+        "plan": {k: getattr(win.grid_plan, k)
+                 for k in ("per_thread", "slots", "grid", "units", "held")},
+        "sizes": [[int(p.cov_unique.shape[-1]), int(p.kind.shape[-1])] for p in parts],
+        "windows": lead[0] if lead else 1,
     }
+    nbytes, bytes_ms = step_bound(out["sizes"])
+    out.update(bound_bytes=out["windows"] * nbytes, bound_ms=round(out["windows"] * bytes_ms, 6))
+    if lead:
+        out["turns"] = turns
+        out["previous_design_ms"] = min(t for k, t in turns if k == "old")
+        if "recomputed" in wins:
+            out["recomputed_ms"] = min(t for k, t in turns if k == "recomputed")
+    return out
 
 
 def giant_stacked(torch, spmv, pattern, graph, single, kernel, cfg):
@@ -3936,6 +4192,7 @@ def giant_stacked(torch, spmv, pattern, graph, single, kernel, cfg):
     staging_ms = (time.perf_counter() - t0) * 1e3
     info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single], kernel, gcfg)
     peak = torch.cuda.max_memory_allocated()
+    info["group_step"] = group_step_check(torch, f"{tag}/group_step", card)
     info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card, None, [single, single]))
     info.update({
         "step_split": {"stacked": step_split(torch, spmv, pattern, card, kernel),
@@ -4035,8 +4292,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     stage("fetch", lambda: fetch_rank_outputs(outs))
     rank_device = (device_ms(torch, rank, 3),
                    spin_event_host_ms(torch, rank, 3, PROGRAM_SPIN_CYCLES))
-    # K5: the window through the plain step and the two-launch step kernel,
-    # bitwise, and its step at this window's shapes; where the rank
+    # K5: the window through the plain step, bitwise, and its step at
+    # this window's shapes; where the rank
     # program's issue goes.
     plain_step = plain_step_check(torch, dgraph, cfg, kernel)
     step_kern = measure_step(torch, f"giant/{kernel}/step", window_sizes(dgraph), reps)
@@ -4225,6 +4482,7 @@ def main(argv=None) -> int:
         emit(steps)
         phase = "giant"
         giant, giant_steps, giant_folds, giant_k6, giant_stacked_err = {}, {}, {}, {}, {}
+        giant_group = {}
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
@@ -4235,6 +4493,7 @@ def main(argv=None) -> int:
                 launches[f"giant/{want}"] = counts
                 launches[f"giant_stacked/{want}"] = stacked_counts
                 giant_stacked_err[want] = info["stacked"]["max_abs_err"]
+                giant_group[want] = info["stacked"]["step_split"]["stacked"]
                 giant[want] = kern
                 giant_steps[want] = step_kern
                 giant_folds[want] = fold_kern
@@ -4282,6 +4541,11 @@ def main(argv=None) -> int:
     # ops), beside the config-5 kind window's; bitwise everywhere it ran.
     k6 = giant_k6.get("pcsr", steps["k6"])
     k6_c5 = steps["k6"]
+    # K5's group kernel: the 10M-span window stacked twice, else the
+    # config-5 kind group of six (each from its step split).
+    group_c5 = {} if batched is None else batched["kind"].get("6", {}).get("step_split", {})
+    group_2m = giant_group.get("packed_blocked", {})
+    group_step = giant_group.get("pcsr", group_c5)
     # Times are CUDA events around one call behind a device spin (the
     # kernel's own time; torch.profiler's summed device time misreads
     # this card's launches, see timer_check), library_ms and plain_ms
@@ -4322,11 +4586,12 @@ def main(argv=None) -> int:
             # policy run, the replay's and the follower's.
             "launches": sum(c["pattern_launches"] for k, c in launches.items()
                             if k in ("auto/auto", "policy", "follow")
-                            or k.startswith(("replay/", "batched/kind/"))
+                            or k.startswith(("replay/", "batched/kind/", "batched/kind_bf16/"))
                             and not k.startswith(int8_keys)),
             "stacked_launches": stacked_launches(
                 "pattern_launches",
-                ("batched/kind/", *(f"replay/{m}" for m in STACKED_MODES if m != "chunked_int8"))),
+                ("batched/kind/", "batched/kind_bf16/",
+                 *(f"replay/{m}" for m in STACKED_MODES if m != "chunked_int8"))),
             "max_abs_err": max([pairs[k]["max_abs_err"] for k in ("kind_f32", "kind_bf16")]
                                + [stacked_err.get("kind", 0.0)]),
             # One step (one launch, both partitions, both directions) at
@@ -4440,34 +4705,71 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/power_step.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:859",
-            # Every counted main path's step launches: one a step on every
-            # route (the fused kernel, one cooperative launch), a stacked
-            # group's one a step for all its windows.
-            "launches": sum(c["step_launches"] for c in launches.values()),
-            "stacked_launches": stacked_launches("step_launches"),
+            # Every counted main path's launches of a window's step_grid<S>:
+            # one a step on every route (one cooperative launch); a group
+            # of two windows or more launches step_grid_group<S> (below).
+            "launches": sum(c["step_launches"] - c["step_group_launches"]
+                            for c in launches.values()),
+            "stacked_launches": stacked_launches("step_launches")
+            - stacked_launches("step_group_launches"),
+            "instantiations": sorted(k for k in MAIN_STEP_KERNELS
+                                     if k.startswith("step_grid<")),
             "max_abs_err": max(m["max_abs_err"] for m in
                                [steps["kind"], steps["kind_int8"], *giant_steps.values()]),
             # One step (one launch, both partitions) at the 10M-span giant
             # window's shapes (_config5_kind: the collapsed config-5 kind
-            # window's, _giant_2m: the 2M-span window's);
-            # previous_design_ms the two-launch kernel on the same
-            # inputs in the same run, in turns (old, new, new, old). The
-            # bound reads the three products, pref and the carry once and
-            # writes the new carry once. No single PyTorch call computes
-            # the step (a damped combination, two maxima, two divisions and
-            # the residual maxima): library_ms is null.
+            # window's, _giant_2m: the 2M-span window's). The bound reads
+            # the three products, pref and the carry once and writes the
+            # new carry once. No single PyTorch call computes the step (a
+            # damped combination, two maxima, two divisions and the
+            # residual maxima): library_ms is null.
             "ms": power["ms"],
-            "previous_design_ms": power["previous_design_ms"],
             "ms_config5_kind": steps["kind"]["ms"],
-            "previous_design_ms_config5_kind": steps["kind"]["previous_design_ms"],
             **({} if "packed_blocked" not in giant_steps else {
                 "ms_giant_2m": giant_steps["packed_blocked"]["ms"],
-                "previous_design_ms_giant_2m": giant_steps["packed_blocked"]["previous_design_ms"],
             }),
             "plain_ms": power["plain_ms"],
             "plain_ms_config5_kind": steps["kind"]["plain_ms"],
             "bound_ms": power["bound_ms"],
             "bound_by": power["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "step_grid_group",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/power_step.cu",
+            # K5 under vmap: _partition_step and window_weights_full's
+            # step body in JAX's batched programs
+            # (parallel/sharded_rank.py:1043 rank_windows_batched).
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:859",
+            # Every counted stacked group's step launches (groups of two
+            # windows or more: one a step for the whole group), and the
+            # instantiations they launched.
+            "launches": stacked_launches("step_group_launches"),
+            "instantiations": sorted(k for k in MAIN_STEP_KERNELS
+                                     if k.startswith("step_grid_group")),
+            # Bitwise the plain step over chains of 50 launches at every
+            # group's shapes (a gate).
+            "max_abs_err": 0.0,
+            # One step of the group (one launch, 2B partitions) at the
+            # 10M-span window stacked twice (_giant_2m: the 2M-span
+            # window's, _config5_kind_6: the config-5 kind group of six);
+            # previous_design_ms PR 13's group kernel on the same inputs
+            # in the same run, in turns; recomputed_ms the values past
+            # the slots recomputed in place of held. The bound: the
+            # group's bytes (B windows' products, pref and carry read
+            # once, the new carry written once). No single PyTorch call
+            # computes the step: library_ms is null.
+            "ms": group_step.get("step_ms"),
+            "previous_design_ms": group_step.get("previous_design_ms"),
+            "recomputed_ms": group_step.get("recomputed_ms"),
+            "plan": group_step.get("plan"),
+            **{f"{k}_giant_2m": group_2m.get(k) for k in ("step_ms", "previous_design_ms")},
+            **{f"{k}_config5_kind_6": group_c5.get(k)
+               for k in ("step_ms", "previous_design_ms")},
+            "plain_ms": group_step.get("plain_step_ms"),
+            "bound_ms": group_step.get("bound_ms"),
+            "bound_by": "bytes",
             "library_ms": None,
         },
         {

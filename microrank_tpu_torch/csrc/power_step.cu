@@ -61,28 +61,52 @@
 //
 // * A group of B stacked windows (run(batch_windows=True),
 //   dispatch_batch_windows) is 2B partitions on one cooperative grid, a
-//   kernel of its own (`step_grid_group`): each vector is [B, n], cut
-//   into units of 256 elements window by window, and the blocks walk
-//   the units, recomputing each from the products in both phases (no
-//   value held across the barrier: a group's windows are small, so its
-//   step is latency, not bytes; and the single window's kernel keeps
-//   its registers, which a window axis in it made spill). The scratch
-//   holds a maximum per vector and window and a residual per partition
-//   and window, 2B of each kind (`vec_slot`, `res_slot`), and on the int8
-//   route an amax per vector and window (`amax_slot`). Each window has
-//   its own running flag and n_iters, so with tol a window freezes on
-//   its own step while its group-mates go on, as JAX's vmapped
-//   while_loop gives it; the last block finishes the windows, a thread
-//   a window, each window's four int8 scales from its own maxima (JAX's
-//   `quantize_i8` under vmap: one scale per vector and window, so one
-//   window's NaN never reaches another's scale). Every maximum is an
-//   integer atomicMax and every value the same arithmetic, so a window's
-//   bits do not depend on its group.
+//   kernel family of its own with step_grid<S>'s shape
+//   (`step_grid_group<S>`, S of 1, 2, 4, 8 and kGroupSlots): each vector
+//   is [B, n]; the host plans the grid as a window's (ops/step.py
+//   `grid_plan`: the least per_thread whose units, summed over the four
+//   vectors and the B windows, fit the grid), and each block owns one
+//   unit, a chunk of per_thread x kThreads elements of one (vector,
+//   window). The grid is two-dimensional, x the unit within a window
+//   and y the window, and the block's slot loop (`group_unit`) is
+//   instantiated for its vector as well as its slots: its prologue is
+//   step_grid<S>'s plus the window's offset y * n, its vector's fields
+//   are read from the parameters where they are used, and its window's
+//   slots and running flag come from blockIdx.y. After that the slot
+//   loop is step_grid<S>'s (every load issued before any is used, S
+//   values in registers across the one barrier, the carry in in
+//   registers up to kGroupRegisterCarrySlots and staged by cp.async past
+//   them), with one block maximum into the (vector, window)'s slot and
+//   one residual and amax fold a block. Past the slots a thread holds
+//   up to `held` values in dynamic shared memory across the barrier
+//   (kHeldMax at most), computed before the slot loop while no slot
+//   holds a value, and recomputes the rest from the products. A group
+//   of more windows than the grid holds (each (vector, window) then one
+//   unit, 4 a window) walks the windows past the grid's rows,
+//   recomputed in both phases. ptxas reports no spill for any
+//   instantiation at 4 blocks an SM (64 registers a thread); what made
+//   the window axis spill (PR 13's attempt inside step_grid<S>, and
+//   this family's first forms, from 8 slots up) was, in order of
+//   cost, the vector's pointers chosen at run time, a window
+//   index found by a division, the held values computed while the
+//   slots were live, and the carry in held in registers at 8 slots.
+//   The scratch holds a maximum per vector and
+//   window and a residual per partition and window, 2B of each kind
+//   (`vec_slot`, `res_slot`), and on the int8 route an amax per vector
+//   and window (`amax_slot`). Each window has its own running flag and
+//   n_iters, so with tol a window freezes on its own step while its
+//   group-mates go on, as JAX's vmapped while_loop gives it; the last
+//   block finishes the windows, a thread a window, each window's four
+//   int8 scales from its own maxima (JAX's `quantize_i8` under vmap: one
+//   scale per vector and window, so one window's NaN never reaches
+//   another's scale). Every maximum is an integer atomicMax of the same
+//   keys and every value the same chain of __f*_rn, so a window's bits
+//   depend neither on its group, nor on the grid, nor on per_thread.
 //
-// The previous design stays beside it for comparison (`step_max`, then
-// `step_apply`: two launches a step on a grid sized to the data, the
-// products read in both; `mr_power_step_two_launch`). Nothing on the
-// main path calls it.
+// PR 13's group kernel stays beside it for comparison (`step_grid_units`:
+// units of 256 elements that every block walks, each recomputed from
+// the products in both phases; ops/step.py mode "group_units"). Nothing
+// on the main path calls it.
 //
 // Bitwise to the plain step on the card:
 // * rounding: each torch op rounds on its own, so each operation here
@@ -114,14 +138,17 @@
 // sv (V floats each), y_rs, pref, rv (T each) and writes sv', rv': 16
 // bytes an element: 99,968 bytes at the collapsed config-5 kind window
 // (V = 3,072, T = 96 and 8; 30 ns at 3.35 TB/s) and 42,008,576 bytes at
-// the 10M-span giant window (V = 2,048, T = 1,310,720; 12.5 us). The
-// fused kernel moves those bytes once (the two-launch design read them twice)
-// and pays one launch and one barrier a step, where a small window is
-// all latency (times in PERF.md, K5).
+// the 10M-span giant window (V = 2,048, T = 1,310,720; 12.5 us), B times
+// that for a group. Both families move those bytes once where the
+// values fit the slots and the held shared memory, and pay one launch
+// and one barrier a step, where a small window is all latency (times in
+// PERF.md, K5 and K5-group). PR 11's two-launch design, which read the
+// products twice, is gone (its times stay in PERF.md).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/step.py build_command; no --use_fast_math, nvcc's default
-// -prec-div=true, no -ftz); bound with ctypes (plain C interface).
+// -prec-div=true, no -ftz; every operation is an explicit __f*_rn, so no
+// FMA forms either way); bound with ctypes (plain C interface).
 
 #include <cfloat>
 #include <climits>
@@ -159,9 +186,19 @@ static_assert(kSlots > 8, "grid_kernel's instantiations: 1, 2, 4, 8, kSlots");
 // step at the config-5 kind window, the staging by 18% at the 10M-span
 // window).
 constexpr int kRegisterCarrySlots = 8;
-// The two-launch kernels: elements a thread takes per vector slice, about.
-constexpr int kItems = 4;
-constexpr int kMaxBlocksPerVec = 1024;
+// The group family's largest instantiation (step_grid_group<S>), and the
+// values a thread of it holds past its slots in dynamic shared memory
+// across the barrier: kHeldMax x kThreads floats, 32 KB a block, beside
+// the staged carry's 12 KB, four blocks an SM in its 228 KB (the
+// occupancy query in mr_power_step_config counts them).
+constexpr int kGroupSlots = kSlots;
+constexpr int kHeldMax = 32;
+// The group family keeps the carry in (and the int8 weights) in
+// registers up to this many slots, and stages it by cp.async past them:
+// with the carry in registers at 8 slots, as step_grid<8> keeps it,
+// step_grid_group<8> spilled (ptxas, sm_90a, 4 blocks an SM).
+constexpr int kGroupRegisterCarrySlots = 4;
+static_assert(kGroupSlots >= 8, "grid_kernel's group instantiations: 1, 2, 4, 8, kGroupSlots");
 constexpr int kParts = 2;
 constexpr int kVecs = 2 * kParts;      // rv_n, sv_n, rv_a, sv_a (ops/step.py order)
 constexpr unsigned kFull = 0xffffffffu;
@@ -183,8 +220,8 @@ struct Vec {
   float* out;        // the carry out
   const float* w;    // int8: the next operand's weight (rv: w_len, sv: w_cov), or null
   int64_t n;         // elements of one window
-  int32_t first_block;  // the vector's first block (fused kernel: its first unit)
-  int32_t blocks;       // its blocks (fused kernel: units of one window)
+  int32_t first_block;  // the vector's first block, or unit (its blocks are its units)
+  int32_t blocks;       // its units in one window
 };
 
 struct StepArgs {
@@ -195,14 +232,16 @@ struct StepArgs {
   int32_t normalize;
   int32_t step;
   int32_t n_steps;
-  int32_t per_thread;  // the fused kernel: elements a thread takes
-  int32_t windows;     // B: the windows of a group (1 for the two-launch kernels)
-  int32_t n_units;     // the fused kernel: units of all vectors and windows
+  int32_t per_thread;  // elements of a vector a thread takes in a unit
+  int32_t windows;     // B: the windows of a group (1 for one window)
+  int32_t n_units;     // units of all vectors and windows
+  int32_t per_window;  // units of one window (the vectors' blocks summed)
   uint32_t* scratch;   // [(2 kVecs + kParts) * B + 1]; kScratch at B = 1
   float* residuals;    // [B, kParts, n_steps]
   int32_t* n_iters;    // [B] with tol, else null
   uint8_t* running;    // bool [B], with tol, else null
   float* scales;       // int8: [B, kVecs] the next step's scales, else null
+  int32_t held;        // step_grid_group: values a thread holds past its slots
 };
 
 // A float's order as an unsigned integer: negative values by their
@@ -264,11 +303,6 @@ __device__ __forceinline__ float combine(float y0, float y1, bool is_sv, float a
   return __fadd_rn(__fmul_rn(d, y0), __fmul_rn(one_minus_d, y1));
 }
 
-__device__ __forceinline__ float unnormalized(const Vec& v, bool is_sv, float alpha, float d,
-                                              float one_minus_d, int64_t i) {
-  return combine(__ldg(v.y0 + i), __ldg(v.y1 + i), is_sv, alpha, d, one_minus_d);
-}
-
 // The block's maximum of `m` into thread 0's return value.
 __device__ __forceinline__ uint32_t block_max(uint32_t m, uint32_t* warp_max) {
   const int t = static_cast<int>(threadIdx.x);
@@ -310,8 +344,8 @@ __device__ __forceinline__ int amax_slot(int i, int w, int n_win) {
 __device__ __forceinline__ int arrivals_slot(int n_win) { return (2 * kVecs + kParts) * n_win; }
 
 // One unit of work: a run of per_thread x kThreads elements of one
-// window's vector. Unit u's vector is the last whose first unit is at or
-// before u; the vector's units go window by window.
+// window's vector. Unit x of a window belongs to the last vector whose
+// first unit is at or before x; a group's units go window by window.
 struct Unit {
   int vi;         // the vector
   int w;          // the window
@@ -319,21 +353,26 @@ struct Unit {
   int64_t end;    // its elements: first + k * kThreads while k * kThreads < end
 };
 
-__device__ __forceinline__ Unit unit_of(const StepArgs& a, int32_t u, int t) {
+// Unit x of window w.
+__device__ __forceinline__ Unit unit_at(const StepArgs& a, int32_t x, int w, int t) {
   Unit U;
-  U.vi = vec_of(a, u);
-  // 32-bit: the units fit an int32 (mr_step_window_create checks), and a
-  // 64-bit division is a call that takes a stack frame.
-  const int32_t rel = u - field(a, U.vi, &Vec::first_block);
-  const int32_t per_window = field(a, U.vi, &Vec::blocks);
+  U.vi = vec_of(a, x);
+  U.w = w;
   const int64_t n = field(a, U.vi, &Vec::n);
-  U.w = rel / per_window;
   const int64_t all = int64_t{a.per_thread} * kThreads;
-  const int64_t start = static_cast<int64_t>(rel - U.w * per_window) * all + t;  // in the window
+  const int64_t start = static_cast<int64_t>(x - field(a, U.vi, &Vec::first_block)) * all + t;
   const int64_t left = n - start;
   U.end = left < all ? left : all;
-  U.first = U.w * n + start;
+  U.first = w * n + start;
   return U;
+}
+
+// Unit u of the group (window u / per_window). 32-bit: the units fit an
+// int32 (mr_step_window_create checks), and a 64-bit division is a call
+// that takes a stack frame.
+__device__ __forceinline__ Unit unit_of(const StepArgs& a, int32_t u, int t) {
+  const int32_t w = u / a.per_window;
+  return unit_at(a, u - w * a.per_window, w, t);
 }
 
 // A unit of a group, phase 1: the maximum of its unnormalized values.
@@ -552,13 +591,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid(StepArgs 
   a.scratch[kArrivals] = 0u;
 }
 
-// A group of B windows (B > 1): every unit of every window recomputed
-// from the products in each phase, no slot held across the barrier (a
-// group's windows are small: their step is latency, not bytes). Block b
-// runs units b, b + grid, ...: phase 1 their maxima, one grid barrier,
-// phase 2 their carry, residuals and amax; the last block to arrive
-// finishes the windows, a thread a window.
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_group(StepArgs a) {
+// PR 13's group kernel, kept for comparison only (ops/step.py mode
+// "group_units"; nothing on the main path launches it): units of 256
+// elements (per_thread 1) that the blocks walk, b, b + grid, ..., every
+// one recomputed from the products in each phase (no value held across
+// the barrier), with a block maximum and its barriers a unit; the last
+// block to arrive finishes the windows, a thread a window.
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_units(StepArgs a) {
   __shared__ uint32_t warp_max[kWarps];
   __shared__ int last;
   const int t = static_cast<int>(threadIdx.x);
@@ -603,94 +642,193 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_group(Ste
   if (t == 0) a.scratch[arrivals_slot(n_win)] = 0u;
 }
 
-// ------------------------------- the previous design: two launches
-
-__global__ void __launch_bounds__(kThreads) step_max(StepArgs a) {
-  __shared__ uint32_t warp_max[kWarps];
-  const int b = static_cast<int>(blockIdx.x);
-  const int vi = vec_of(a, b);
-  // The vector's fields by a static index (no local copy of the array).
-  Vec v = a.v[0];
-#pragma unroll
-  for (int i = 1; i < kVecs; ++i) {
-    if (vi == i) v = a.v[i];
-  }
-  const bool is_sv = vi & 1;
-  const float one_minus_d = __fsub_rn(1.0f, a.d);
-  uint32_t m = 0u;
-  const int64_t stride = static_cast<int64_t>(v.blocks) * kThreads;
-  for (int64_t i = static_cast<int64_t>(b - v.first_block) * kThreads + threadIdx.x; i < v.n;
-       i += stride) {
-    m = max(m, key(unnormalized(v, is_sv, a.alpha, a.d, one_minus_d, i)));
-  }
-  m = block_max(m, warp_max);
-  if (threadIdx.x == 0) atomicMax(a.scratch + kVecMax + vi, m);
-}
-
-__global__ void __launch_bounds__(kThreads) step_apply(StepArgs a) {
-  __shared__ uint32_t warp_max[kWarps];
-  __shared__ int last;
+// The slot loop of a group's block on unit blockIdx.x of window
+// blockIdx.y, vector VI (a template argument, so that the vector's
+// fields are read from the kernel's parameters where they are used and
+// no register holds a pointer chosen at run time): step_grid<S>'s
+// prologue plus the window's offset, then its slot loop. Past the slots
+// the first `held` values wait in dynamic shared memory across the
+// barrier, computed before any slot holds a value, and the rest are
+// recomputed in phase 2. Ends with the block's residual and amax folded
+// into its window's slots.
+template <int S, int VI>
+__device__ __forceinline__ void group_unit(const StepArgs& a, float* carry_s, uint32_t* warp_max,
+                                           float* held_s, float one_minus_d) {
+  constexpr bool kStaged = S > kGroupRegisterCarrySlots;
+  constexpr bool is_sv = VI & 1;
   const int t = static_cast<int>(threadIdx.x);
-  const int b = static_cast<int>(blockIdx.x);
-  const int vi = vec_of(a, b);
-  Vec v = a.v[0];
-#pragma unroll
-  for (int i = 1; i < kVecs; ++i) {
-    if (vi == i) v = a.v[i];
-  }
-  const bool is_sv = vi & 1;
-  const float one_minus_d = __fsub_rn(1.0f, a.d);
-  // Read before this block arrives; the last block rewrites them only
+  const bool scaled = a.scales != nullptr;
+  // Read before this block arrives; the last block rewrites it only
   // after every block has arrived.
-  const bool run = a.running == nullptr || *a.running != 0;
-  const float m = unkey(a.scratch[kVecMax + vi]);
-  uint32_t res = 0u;
-  uint32_t amax = 0u;
-  const int64_t stride = static_cast<int64_t>(v.blocks) * kThreads;
-  for (int64_t i = static_cast<int64_t>(b - v.first_block) * kThreads + t; i < v.n;
-       i += stride) {
-    const float u = unnormalized(v, is_sv, a.alpha, a.d, one_minus_d, i);
-    const float x = a.normalize ? __fdiv_rn(u, m) : u;
-    const float old = __ldg(v.old + i);
-    res = max(res, key(fabsf(__fsub_rn(x, old))));
-    const float carry = run ? x : old;
-    v.out[i] = carry;
-    if (v.w != nullptr) {
-      amax = max(amax, __float_as_uint(fabsf(flush_subnormal(__fmul_rn(carry, __ldg(v.w + i))))));
+  const bool run = a.running == nullptr || a.running[blockIdx.y] != 0;
+  const int per_thread = a.per_thread;
+  const int64_t start =
+      static_cast<int64_t>(blockIdx.x - a.v[VI].first_block) * kThreads * per_thread + t;
+  const int64_t left = a.v[VI].n - start;
+  const int64_t all = int64_t{per_thread} * kThreads;
+  const int64_t end = left < all ? left : all;
+  const int lim = end <= 0 ? 0 : static_cast<int>(end < S * kThreads ? end : S * kThreads);
+  const int64_t first = blockIdx.y * a.v[VI].n + start;
+  const float* y0 = a.v[VI].y0 + first;
+  const float* y1 = a.v[VI].y1 + first;
+  const float* old = a.v[VI].old + first;
+  float* out = a.v[VI].out + first;
+  const float* wt = scaled ? a.v[VI].w + first : old;
+
+  if constexpr (kStaged) {
+    // The carry in into shared memory, in flight through phase 1 and
+    // the barrier.
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k * kThreads < lim) stage(carry_s + k * kThreads + t, old + k * kThreads);
     }
   }
-  res = block_max(res, warp_max);
+  // Phase 1, past the slots first, before any slot holds a value: the
+  // first `held` values into shared memory, the others recomputed in
+  // phase 2; their maximum.
+  uint32_t m = 0u;
+  if (a.normalize) {
+    for (int64_t i = int64_t{S} * kThreads; i < end; i += kThreads) {
+      const float uu = combine(__ldg(y0 + i), __ldg(y1 + i), is_sv, a.alpha, a.d, one_minus_d);
+      const int h = static_cast<int>(i / kThreads) - S;
+      if (h < a.held) held_s[h * kThreads + t] = uu;
+      m = max(m, key(uu));
+    }
+  }
+  // Then the unnormalized values into registers (up to
+  // kGroupRegisterCarrySlots slots, the carry in and the weights too),
+  // every load issued before any is used, and their maximum.
+  float u[S];
+  float o[kStaged ? 1 : S];
+  float wv[kStaged ? 1 : S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool ok = k * kThreads < lim;
+    const float v0 = ok ? __ldg(y0 + k * kThreads) : 0.0f;
+    const float v1 = ok ? __ldg(y1 + k * kThreads) : 0.0f;
+    if constexpr (!kStaged) {
+      o[k] = ok ? __ldg(old + k * kThreads) : 0.0f;
+      wv[k] = ok && scaled ? __ldg(wt + k * kThreads) : 0.0f;
+    }
+    u[k] = combine(v0, v1, is_sv, a.alpha, a.d, one_minus_d);
+    m = ok ? max(m, key(u[k])) : m;
+  }
+  float mx = 1.0f;
+  if (a.normalize) {
+    m = block_max(m, warp_max);
+    if (t == 0) atomicMax(a.scratch + vec_slot(VI, blockIdx.y), m);
+    cg::this_grid().sync();
+    mx = unkey(__ldcg(a.scratch + vec_slot(VI, blockIdx.y)));
+    // The divisions apart: phase 2's loads have no branch between them.
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k * kThreads < lim) u[k] = __fdiv_rn(u[k], mx);
+    }
+  }
+  if constexpr (kStaged) staged();
+
+  // Phase 2: write the carry, fold the residual and the amax.
+  uint32_t res = 0u;
+  uint32_t amax = 0u;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool ok = k * kThreads < lim;
+    float ov, wk;
+    if constexpr (kStaged) {
+      ov = ok ? carry_s[k * kThreads + t] : 0.0f;
+      wk = ok && scaled ? __ldg(wt + k * kThreads) : 0.0f;
+    } else {
+      ov = o[k];
+      wk = wv[k];
+    }
+    res = ok ? max(res, key(fabsf(__fsub_rn(u[k], ov)))) : res;
+    const float carry = run ? u[k] : ov;
+    if (ok) out[k * kThreads] = carry;
+    amax = ok && scaled ? max(amax, amax_key(carry, wk)) : amax;
+  }
+  for (int64_t i = int64_t{S} * kThreads; i < end; i += kThreads) {
+    const int h = static_cast<int>(i / kThreads) - S;
+    const float uu = a.normalize && h < a.held
+                         ? held_s[h * kThreads + t]
+                         : combine(__ldg(y0 + i), __ldg(y1 + i), is_sv, a.alpha, a.d, one_minus_d);
+    const float x = a.normalize ? __fdiv_rn(uu, mx) : uu;
+    const float ov = __ldg(old + i);
+    res = max(res, key(fabsf(__fsub_rn(x, ov))));
+    const float carry = run ? x : ov;
+    out[i] = carry;
+    if (scaled) amax = max(amax, amax_key(carry, __ldg(wt + i)));
+  }
   __syncthreads();  // warp_max is reused
+  res = block_max(res, warp_max);
+  __syncthreads();
   amax = block_max(amax, warp_max);
   if (t == 0) {
-    atomicMax(a.scratch + kResMax + vi / 2, res);
-    if (v.w != nullptr) atomicMax(a.scratch + kAmax + vi, amax);
-    __threadfence();  // release this block's maxima before arriving
-    last = atomicAdd(a.scratch + kArrivals, 1u) == gridDim.x - 1;
+    atomicMax(a.scratch + res_slot(VI / 2, blockIdx.y, a.windows), res);
+    if (scaled) atomicMax(a.scratch + amax_slot(VI, blockIdx.y, a.windows), amax);
   }
-  __syncthreads();
-  if (!last || t != 0) return;
-  __threadfence();  // acquire every block's maxima
-  float r[kParts];
-#pragma unroll
-  for (int p = 0; p < kParts; ++p) {
-    r[p] = unkey(atomicExch(a.scratch + kResMax + p, 0u));
-    a.residuals[static_cast<int64_t>(p) * a.n_steps + a.step] = run ? r[p] : 0.0f;
-  }
-  if (a.running != nullptr) {
-    const bool nan = r[0] != r[0] || r[1] != r[1];
-    *a.n_iters += run ? 1 : 0;
-    *a.running = run && !nan && fmaxf(r[0], r[1]) > a.tol;
-  }
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    a.scratch[kVecMax + i] = 0u;
-    const float am = __uint_as_float(atomicExch(a.scratch + kAmax + i, 0u));
-    if (a.scales != nullptr) a.scales[i] = scale_of(am);
-  }
-  a.scratch[kArrivals] = 0u;
 }
 
+// A group of B windows, S slots a thread (the least of 1, 2, 4, 8,
+// kGroupSlots that holds per_thread, else kGroupSlots): block (x, y)
+// owns unit x of window y, a chunk of per_thread x kThreads elements of
+// one vector, each thread its elements first + k * kThreads
+// (`group_unit`, one instantiation a vector). Windows past the grid's
+// rows (only when each (vector, window) is one unit and the windows
+// outnumber the rows) are walked around the block's own: their maxima
+// before its phase 1, their carry after its phase 2, recomputed as
+// step_grid_units does. The last block to arrive finishes the windows,
+// a thread a window.
+template <int S>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) step_grid_group(StepArgs a) {
+  __shared__ float carry_s[S > kGroupRegisterCarrySlots ? S * kThreads : 1];
+  __shared__ uint32_t warp_max[kWarps];
+  __shared__ int last;
+  extern __shared__ float held_s[];  // [a.held][kThreads]
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  const float one_minus_d = __fsub_rn(1.0f, a.d);
+  if (a.normalize) {
+    for (int w = blockIdx.y + gridDim.y; w < a.windows; w += gridDim.y) {
+      const Unit V = unit_at(a, b, w, t);
+      const uint32_t m = block_max(unit_max(a, V, one_minus_d), warp_max);
+      if (t == 0) atomicMax(a.scratch + vec_slot(V.vi, w), m);
+      __syncthreads();  // warp_max is reused
+    }
+  }
+  switch (vec_of(a, b)) {
+    case 0: group_unit<S, 0>(a, carry_s, warp_max, held_s, one_minus_d); break;
+    case 1: group_unit<S, 1>(a, carry_s, warp_max, held_s, one_minus_d); break;
+    case 2: group_unit<S, 2>(a, carry_s, warp_max, held_s, one_minus_d); break;
+    default: group_unit<S, 3>(a, carry_s, warp_max, held_s, one_minus_d); break;
+  }
+  const int n_win = a.windows;
+  const bool scaled = a.scales != nullptr;
+  for (int w = blockIdx.y + gridDim.y; w < n_win; w += gridDim.y) {
+    __syncthreads();  // warp_max is reused
+    const Unit V = unit_at(a, b, w, t);
+    uint32_t vres = 0u, vamax = 0u;
+    unit_apply(a, V, one_minus_d, vres, vamax);
+    vres = block_max(vres, warp_max);
+    __syncthreads();
+    vamax = block_max(vamax, warp_max);
+    if (t == 0) {
+      atomicMax(a.scratch + res_slot(V.vi / 2, w, n_win), vres);
+      if (scaled) atomicMax(a.scratch + amax_slot(V.vi, w, n_win), vamax);
+    }
+  }
+  // The block's arrival: one acq_rel add by thread 0 (release of the
+  // block's maxima, and for the last block the acquire of everyone's).
+  if (t == 0) {
+    cuda::atomic_ref<uint32_t, cuda::thread_scope_device> arrivals(
+        a.scratch[arrivals_slot(n_win)]);
+    last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the acquire, for the block's other threads too
+  for (int w = t; w < n_win; w += kThreads) finish_window(a, w, n_win);
+  if (t == 0) a.scratch[arrivals_slot(n_win)] = 0u;
+}
 
 // This library links its own CUDA runtime, whose current device is not
 // PyTorch's: make it `device` (a no-op after the first call).
@@ -721,66 +859,155 @@ bool fill_scalars(StepArgs& args, float alpha, float d, float tol, int32_t norma
   return true;
 }
 
-// The instantiation for per_thread elements a thread: the least S of
-// the set that holds them, else kSlots.
+// The kernels a plan names (ops/step.py KERNEL_*): a window's
+// step_grid<S>, a group's step_grid_group<S>, PR 13's step_grid_units.
+enum { kWindowKernel, kGroupKernel, kUnitsKernel };
+
+// The least of 1, 2, 4, 8 that holds per_thread elements, else `most`
+// (the family's largest instantiation).
+int slots_for(int64_t per_thread, int most) {
+  for (int s : {1, 2, 4, 8}) {
+    if (per_thread <= s) return s;
+  }
+  return most;
+}
+
 template <int S>
-const void* grid_fn() {
+const void* window_fn() {
   return reinterpret_cast<const void*>(step_grid<S>);
 }
 
-// A group's kernel (slots 0), or a window's instantiation.
-const void* grid_kernel(int64_t per_thread, bool group, int* slots) {
-  if (group) return *slots = 0, reinterpret_cast<const void*>(step_grid_group);
-  if (per_thread <= 1) return *slots = 1, grid_fn<1>();
-  if (per_thread <= 2) return *slots = 2, grid_fn<2>();
-  if (per_thread <= 4) return *slots = 4, grid_fn<4>();
-  if (per_thread <= 8) return *slots = 8, grid_fn<8>();
-  return *slots = kSlots, grid_fn<kSlots>();
+template <int S>
+const void* group_fn() {
+  return reinterpret_cast<const void*>(step_grid_group<S>);
 }
 
-// One window's step state (ops/step.py StepWindow): the arguments that
-// stay, the three carries (0: the window's first, 1 and 2: the two
-// buffers the steps alternate between), the kernel's instantiation and
-// grid, and the stream.
+// The instantiation of `kernel` at `slots`, or null if there is none.
+const void* grid_kernel(int kernel, int slots) {
+  if (kernel == kUnitsKernel) return slots == 0 ? reinterpret_cast<const void*>(step_grid_units)
+                                                : nullptr;
+  const bool group = kernel == kGroupKernel;
+  switch (slots) {
+    case 1: return group ? group_fn<1>() : window_fn<1>();
+    case 2: return group ? group_fn<2>() : window_fn<2>();
+    case 4: return group ? group_fn<4>() : window_fn<4>();
+    case 8: return group ? group_fn<8>() : window_fn<8>();
+    default: break;
+  }
+  if (group) return slots == kGroupSlots ? group_fn<kGroupSlots>() : nullptr;
+  return slots == kSlots ? window_fn<kSlots>() : nullptr;
+}
+
+// One window's (or group's) step state (ops/step.py StepWindow): the
+// arguments that stay, the three carries (0: the window's first, 1 and
+// 2: the two buffers the steps alternate between), the kernel's
+// instantiation, grid and dynamic shared memory, and the stream.
 struct Window {
   StepArgs args;
   float* carry[3][kVecs];
   float* scales;
   const void* kernel;
-  int32_t grid;
+  dim3 grid;
+  int32_t smem;
   int device;
   cudaStream_t stream;
 };
 
-enum { kY0, kY1, kOld, kOut, kW, kVecPtrs };                 // mr_power_step_two_launch
 enum { kWinPref, kWinCarry0, kWinCarry1, kWinCarry2, kWinW, kWinPtrs };  // mr_step_window_create
+// A plan's fields (ops/step.py GridPlan, in order).
+enum { kPlanKernel, kPlanPer, kPlanSlots, kPlanUnits, kPlanGrid, kPlanGridWindows, kPlanHeld,
+       kPlanFirst, kPlanBlocks = kPlanFirst + kVecs, kPlanFields = kPlanBlocks + kVecs };
+
+// Whether `plan` is the one ops/step.py grid_plan gives for these
+// lengths, windows and grid cap: the least per_thread whose units
+// (summed over the vectors and windows) fit max(max_blocks, kVecs *
+// n_windows), PR 13's per_thread 1 for step_grid_units; each vector's
+// units a window and first unit in its window; the units; the grid (a
+// window's and PR 13's: min(units, max_blocks) blocks in one row; a
+// group's: its units a window times the windows that fit, a row a
+// window); the least instantiation that holds per_thread; at most
+// kHeldMax values held past the slots by the group's kernel, none by
+// the others.
+bool plan_ok(const int64_t* plan, const int64_t* ns, int32_t n_windows, int64_t max_blocks) {
+  const int64_t kernel = plan[kPlanKernel], per = plan[kPlanPer];
+  if (kernel < kWindowKernel || kernel > kUnitsKernel || per < 1 || per > INT_MAX / kThreads ||
+      (kernel == kWindowKernel && n_windows != 1) || (kernel == kGroupKernel && n_windows < 2)) {
+    return false;
+  }
+  auto units_at = [&](int64_t p) {
+    int64_t units = 0;
+    for (int i = 0; i < kVecs; ++i) units += (ns[i] + kThreads * p - 1) / (kThreads * p);
+    return units * n_windows;
+  };
+  const int64_t cap = max_blocks > int64_t{kVecs} * n_windows ? max_blocks
+                                                               : int64_t{kVecs} * n_windows;
+  const bool least = kernel == kUnitsKernel
+                         ? per == 1
+                         : units_at(per) <= cap && (per == 1 || units_at(per - 1) > cap);
+  const int64_t units = units_at(per);
+  const int64_t per_window = units / n_windows;
+  const int64_t rows = kernel == kGroupKernel ? (n_windows < max_blocks / per_window
+                                                     ? n_windows : max_blocks / per_window)
+                                              : 1;
+  const int64_t grid = kernel == kGroupKernel ? per_window * rows
+                                              : (units < max_blocks ? units : max_blocks);
+  if (!least || plan[kPlanUnits] != units || units > INT_MAX || plan[kPlanGrid] != grid ||
+      plan[kPlanGridWindows] != rows || rows < 1) {
+    return false;
+  }
+  int64_t first = 0;
+  for (int i = 0; i < kVecs; ++i) {
+    const int64_t blocks = (ns[i] + kThreads * per - 1) / (kThreads * per);
+    if (plan[kPlanFirst + i] != first || plan[kPlanBlocks + i] != blocks) return false;
+    first += blocks;
+  }
+  const int64_t slots = kernel == kUnitsKernel ? 0
+                        : slots_for(per, kernel == kGroupKernel ? kGroupSlots : kSlots);
+  const int64_t past = per > slots ? per - slots : 0;
+  const int64_t held_max = kernel == kGroupKernel ? (past < kHeldMax ? past : kHeldMax) : 0;
+  return plan[kPlanSlots] == slots && plan[kPlanHeld] >= 0 && plan[kPlanHeld] <= held_max;
+}
 
 }  // namespace
 
 extern "C" {
 
-// What the fused kernel gets on `device`, after setting the carveout of
-// its instantiations that stage the carry in shared memory at its
-// largest (their occupancy is then what their registers allow): out[0]
-// 1 if the device takes a cooperative launch, out[1] the resident
-// blocks an SM (kThreads threads each; the least over the
-// instantiations and the group's kernel), out[2] the SM count, out[3]
-// the register slots a thread (kSlots), out[4] kThreads. Returns the
-// CUDA error code of the calls.
+// What the step kernels get on `device`, after setting the carveout of
+// the instantiations that keep values in shared memory (the staged carry
+// in, the held values) at its largest
+// (their occupancy is then what their registers allow): out[0] 1 if the
+// device takes a cooperative launch, out[1] the resident blocks an SM
+// (kThreads threads each; the least over every instantiation of both
+// families and PR 13's kernel, the group's largest with kHeldMax values
+// a thread of dynamic shared memory), out[2] the SM count, out[3] the
+// window family's largest slots (kSlots), out[4] kThreads, out[5] the
+// group family's largest slots (kGroupSlots), out[6] kHeldMax. Returns
+// the CUDA error code of the calls.
 int mr_power_step_config(int device, int32_t* out) {
   cudaError_t e = use_device(device);
   int coop = 0, sms = 0, per_sm = INT_MAX;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  for (int64_t per : {int64_t{0}, int64_t{1}, int64_t{2}, int64_t{4}, int64_t{8},
-                      int64_t{kSlots}}) {
-    int slots = 0, n = 0;
-    const void* fn = grid_kernel(per, per == 0, &slots);  // 0: the group's kernel
-    if (e == cudaSuccess && slots > kRegisterCarrySlots) {
+  struct Instance {
+    int kernel, slots;
+  };
+  for (const Instance k : {Instance{kUnitsKernel, 0}, Instance{kWindowKernel, 1},
+                           Instance{kWindowKernel, 2}, Instance{kWindowKernel, 4},
+                           Instance{kWindowKernel, 8}, Instance{kWindowKernel, kSlots},
+                           Instance{kGroupKernel, 1}, Instance{kGroupKernel, 2},
+                           Instance{kGroupKernel, 4}, Instance{kGroupKernel, 8},
+                           Instance{kGroupKernel, kGroupSlots}}) {
+    const void* fn = grid_kernel(k.kernel, k.slots);
+    const bool holds = k.kernel == kGroupKernel && k.slots == kGroupSlots;
+    const size_t smem = holds ? size_t{kHeldMax} * kThreads * sizeof(float) : 0;
+    const bool staged = k.kernel == kGroupKernel ? k.slots > kGroupRegisterCarrySlots
+                                                 : k.slots > kRegisterCarrySlots;
+    int n = 0;
+    if (e == cudaSuccess && (staged || holds)) {
       e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, 0);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem);
     if (n < per_sm) per_sm = n;
   }
   out[0] = coop;
@@ -788,6 +1015,8 @@ int mr_power_step_config(int device, int32_t* out) {
   out[2] = sms;
   out[3] = kSlots;
   out[4] = kThreads;
+  out[5] = kGroupSlots;
+  out[6] = kHeldMax;
   return static_cast<int>(e);
 }
 
@@ -801,21 +1030,25 @@ int mr_power_step_config(int device, int32_t* out) {
 // zero before the first step; `residuals` [n_windows, kParts, n_steps],
 // `n_iters` and `running` [n_windows] (with tol), and `scales`
 // [n_windows, kVecs] (the window's or the group's buffer, written by the
-// steps that ask for it). The grid takes at
-// most `max_blocks` blocks (the caller's cooperative limit; at least one
-// a vector). One window: each vector its run of blocks, each thread the
-// least per_thread that fits, the instantiation of `step_grid` the least
-// slots that hold it. A group: `step_grid_group`, one element a thread,
-// each vector its units window by window, the blocks walking them. The
-// steps launch on `stream` of `device`. Writes the state's handle to
-// `out`; grid, per_thread, the instantiation's slots (0: the group's
-// kernel) and the units to `out_grid`. Returns a CUDA error code (0 =
-// set up).
+// steps that ask for it). `plan` is the grid's plan, kPlanFields int64
+// (ops/step.py grid_plan, checked here against `max_blocks`, the
+// caller's cooperative limit, at least one block a vector): the kernel
+// (a window's step_grid<S>, a group's step_grid_group<S>, or PR 13's
+// step_grid_units), per_thread, the instantiation's slots, the units,
+// the grid's blocks and its rows (windows a grid holds: a group's grid
+// is its units a window by that many windows), the values a thread
+// holds past its slots (the group's kernel), and each vector's first
+// unit in a window and units a window. Every vector of every window is
+// cut into units of per_thread x kThreads elements, one a block (a
+// group whose windows outnumber the rows walks the rest; PR 13's kernel
+// walks units of kThreads over a grid of one row). The steps launch on
+// `stream` of `device`. Writes the state's handle to `out`. Returns a
+// CUDA error code (0 = set up).
 int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alpha, float d,
                           float tol, int32_t normalize, int32_t n_steps, int32_t n_windows,
                           void* scratch, void* residuals, void* n_iters, void* running,
                           void* scales, int device, void* stream, int64_t max_blocks,
-                          void** out, int32_t* out_grid) {
+                          const int64_t* plan, void** out) {
   *out = nullptr;
   Window win{};
   if (!fill_scalars(win.args, alpha, d, tol, normalize, n_steps, scratch, residuals, n_iters,
@@ -823,7 +1056,6 @@ int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alph
       max_blocks < kVecs || max_blocks > INT_MAX || n_windows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int64_t total = 0;
   for (int i = 0; i < kVecs; ++i) {
     const void* const* p = ptrs + i * kWinPtrs;
     const bool is_sv = i & 1;
@@ -836,60 +1068,40 @@ int mr_step_window_create(const void* const* ptrs, const int64_t* ns, float alph
     v.y1 = static_cast<const float*>(p[kWinPref]);
     v.w = static_cast<const float*>(p[kWinW]);
     v.n = ns[i];
+    v.first_block = static_cast<int32_t>(plan[kPlanFirst + i]);
+    v.blocks = static_cast<int32_t>(plan[kPlanBlocks + i]);
     for (int s = 0; s < 3; ++s) {
       win.carry[s][i] = static_cast<float*>(const_cast<void*>(p[kWinCarry0 + s]));
     }
-    total += ns[i] * n_windows;
   }
-  auto units_at = [&](int64_t per) {
-    int64_t units = 0;
-    for (int i = 0; i < kVecs; ++i) units += (ns[i] + kThreads * per - 1) / (kThreads * per);
-    return units * n_windows;
-  };
-  // One window: the least per_thread whose blocks fit the grid. A group:
-  // one element a thread, its blocks walking the units.
-  int64_t per = 1;
-  if (n_windows == 1) {
-    const int64_t chunk0 = int64_t{kThreads} * max_blocks;
-    per = total / chunk0 > 1 ? total / chunk0 : 1;
-    while (units_at(per) > max_blocks) ++per;
-  }
-  const int64_t units = units_at(per);
-  if (per > INT_MAX / kThreads || units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  int32_t first = 0;
-  for (int i = 0; i < kVecs; ++i) {
-    Vec& v = win.args.v[i];
-    v.first_block = first;
-    v.blocks = static_cast<int32_t>((v.n + kThreads * per - 1) / (kThreads * per));
-    first += v.blocks * n_windows;
-  }
-  int slots = 0;
-  win.kernel = grid_kernel(per, n_windows > 1, &slots);
-  win.args.per_thread = static_cast<int32_t>(per);
+  if (!plan_ok(plan, ns, n_windows, max_blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  win.kernel = grid_kernel(static_cast<int>(plan[kPlanKernel]),
+                           static_cast<int>(plan[kPlanSlots]));
+  win.args.per_thread = static_cast<int32_t>(plan[kPlanPer]);
   win.args.windows = n_windows;
-  win.args.n_units = static_cast<int32_t>(units);
+  win.args.n_units = static_cast<int32_t>(plan[kPlanUnits]);
+  win.args.per_window = static_cast<int32_t>(plan[kPlanUnits] / n_windows);
+  win.args.held = static_cast<int32_t>(plan[kPlanHeld]);
   win.scales = static_cast<float*>(scales);
-  win.grid = static_cast<int32_t>(units < max_blocks ? units : max_blocks);
+  win.grid = dim3(static_cast<unsigned>(plan[kPlanGrid] / plan[kPlanGridWindows]),
+                  static_cast<unsigned>(plan[kPlanGridWindows]));
+  win.smem = win.args.held * kThreads * static_cast<int32_t>(sizeof(float));
   win.device = device;
   win.stream = static_cast<cudaStream_t>(stream);
   Window* h = new (std::nothrow) Window(win);
   if (h == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
   *out = h;
-  out_grid[0] = win.grid;
-  out_grid[1] = static_cast<int32_t>(per);
-  out_grid[2] = slots;
-  out_grid[3] = static_cast<int32_t>(units);
   return 0;
 }
 
 void mr_step_window_free(void* handle) { delete static_cast<Window*>(handle); }
 
 // Step `step` of a window set up by mr_step_window_create: one
-// cooperative launch of the fused kernel from the step's products of
-// both partitions, the carry in `in_slot` (0, 1 or 2) into `out_slot`
-// (1 or 2, never in_slot); with `want_scales` the next step's int8
-// scales into the window's buffer. Returns the CUDA error code of the
-// launch (0 = launched; a grid the card cannot hold resident is
+// cooperative launch of its kernel from the step's products of both
+// partitions, the carry in `in_slot` (0, 1 or 2) into `out_slot` (1 or
+// 2, never in_slot); with `want_scales` the next step's int8 scales into
+// the window's buffer. Returns the CUDA error code of the launch (0 =
+// launched; a grid the card cannot hold resident is
 // cudaErrorCooperativeLaunchTooLarge and never runs). Allocates nothing
 // and does not synchronize. One window's scratch must not be in flight
 // on two streams at once.
@@ -920,69 +1132,12 @@ int mr_step_window_run(void* handle, const void* y_sr_n, const void* y_ss_n, con
   if (set != cudaSuccess) return static_cast<int>(set);
   void* params[] = {&a};
   const cudaError_t launched = cudaLaunchCooperativeKernel(
-      win->kernel, dim3(static_cast<unsigned>(win->grid)), dim3(kThreads), params, 0,
-      win->stream);
+      win->kernel, win->grid, dim3(kThreads), params,
+      static_cast<size_t>(win->smem), win->stream);
   if (launched != cudaSuccess) {
     cudaGetLastError();  // clear the refusal; it is reported here
     return static_cast<int>(launched);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The previous design, kept for comparison: one step's tail for both
-// partitions on `stream` (PyTorch's current stream of `device`): launch
-// A (`step_max`) when `normalize`, then launch B (`step_apply`).
-// `vec_ptrs` holds kVecPtrs device pointers for each of the four
-// vectors in the order rv_n, sv_n, rv_a, sv_a (y0, y1, old, out, w; w
-// null unless `scales` is given), `ns` their lengths (>= 1). `scratch`
-// is kScratch uint32, zero before the first step; B's last block leaves
-// it zero again. `residuals` is float32 [2, n_steps], of which column
-// `step` is written; `n_iters` (int32) and `running` (bool) are updated
-// in place when given (with tol), both or neither. `scales`, when given,
-// receives the next step's four int8 scales. Returns the CUDA error code
-// of the launches (0 = launched). Allocates nothing and does not
-// synchronize.
-int mr_power_step_two_launch(const void* const* vec_ptrs, const int64_t* ns, float alpha,
-                             float d, float tol, int32_t normalize, int32_t step,
-                             int32_t n_steps, void* scratch, void* residuals, void* n_iters,
-                             void* running, void* scales, int device, void* stream) {
-  StepArgs args{};
-  if (!fill_scalars(args, alpha, d, tol, normalize, n_steps, scratch, residuals, n_iters,
-                    running) ||
-      step < 0 || step >= n_steps) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int32_t blocks = 0;
-  for (int i = 0; i < kVecs; ++i) {
-    const void* const* p = vec_ptrs + i * kVecPtrs;
-    if (ns[i] < 1 || p[kY0] == nullptr || p[kY1] == nullptr || p[kOld] == nullptr ||
-        p[kOut] == nullptr || ((scales != nullptr) != (p[kW] != nullptr))) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    Vec& v = args.v[i];
-    v.y0 = static_cast<const float*>(p[kY0]);
-    v.y1 = static_cast<const float*>(p[kY1]);
-    v.old = static_cast<const float*>(p[kOld]);
-    v.out = static_cast<float*>(const_cast<void*>(p[kOut]));
-    v.w = static_cast<const float*>(p[kW]);
-    v.n = ns[i];
-    const int64_t want = (ns[i] + int64_t{kThreads} * kItems - 1) / (int64_t{kThreads} * kItems);
-    v.blocks = static_cast<int32_t>(want > kMaxBlocksPerVec ? kMaxBlocksPerVec : want);
-    v.first_block = blocks;
-    blocks += v.blocks;
-  }
-  args.step = step;
-  args.scales = static_cast<float*>(scales);
-  const cudaError_t set = use_device(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (normalize) {
-    step_max<<<grid, kThreads, 0, s>>>(args);
-    const cudaError_t launched = cudaGetLastError();
-    if (launched != cudaSuccess) return static_cast<int>(launched);
-  }
-  step_apply<<<grid, kThreads, 0, s>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,29 +26,37 @@ step also gives the next step's four quantization scales
   scalars (host floats; the plain version makes them 0-d tensors), and
   the kernel's scratch (``STEP_SCRATCH`` int32, allocated with the
   window's layouts by ``rank_backends.torch_cuda.device_subset``).
+* ``grid_plan`` — a pure function of the four vectors' lengths, the
+  windows B, the cooperative grid's limit and the family's largest slot
+  count: the least ``per_thread`` whose units (chunks of per_thread x
+  256 elements of one vector of one window) fit the grid, the
+  instantiation's slots, the units, the grid, each vector's first unit
+  and units a window, and the values a group's thread holds past its
+  slots in shared memory. The C library checks it at set-up.
 * ``StepWindow`` — once per window: checks the plan, the first carry,
   the residual trace and the tol state, allocates two carry buffers
   that the steps alternate between (a step never writes the carry it
-  reads) and, on the card, sets up the kernel's arguments, grid and
-  stream in the C library. ``StepWindow.step`` then passes only the
+  reads) and, on the card, sets up the kernel's arguments, grid plan
+  and stream in the C library. ``StepWindow.step`` then passes only the
   step's six product pointers, the carry slots and the step index: one
-  cooperative launch of the fused kernel (``step_grid``) a step on a
-  grid sized by occupancy, the values in registers across one grid
-  barrier, counted in ``power_step.launches``. A card that refuses the
-  launch raises. On CPU tensors it runs ``power_step_plain`` into the
-  same buffers.
-  A stacked group of B windows (K18) passes [B, n] vectors: one launch
-  a step of the group's kernel (``step_grid_group``) runs 2B
-  partitions, each window with its own maxima, residuals, n_iters,
-  running flag and int8 scales ([B, 4]; scratch ``step_scratch_size(B)``).
+  cooperative launch a step on a grid sized by occupancy, a block a
+  unit, the values in registers across one grid barrier, counted in
+  ``power_step.launches`` and by instantiation in
+  ``power_step.by_kernel``. A card that refuses the launch raises; there
+  is no other path. On CPU tensors it runs ``power_step_plain`` into
+  the same buffers.
+  One window launches ``step_grid<S>``. A stacked group of B windows
+  (K18) passes [B, n] vectors and launches ``step_grid_group<S>``, the
+  same design with a (vector, window) a unit: 2B partitions, each
+  window with its own maxima, residuals, n_iters, running flag and int8
+  scales ([B, 4]; scratch ``step_scratch_size(B)``). PR 13's group
+  kernel (``step_grid_units``: units of 256 elements that every block
+  walks) stays as ``mode="group_units"`` for chip_smoke's comparison
+  only; nothing on the main path reaches it.
 * ``power_step`` — one step with fresh outputs (the tests' and
   chip_smoke's signature): a ``StepWindow`` of its own, the same launch;
   on CPU tensors ``power_step_plain``, the port's eager code as it
   stood, op for op, so the kernel is held bitwise to it on the card.
-* ``power_step_two_launch`` — the previous design (``step_max``, then
-  ``step_apply``), kept for chip_smoke's and the card tests' comparison
-  only; counted in ``power_step_two_launch.launches``. Nothing on the
-  main path calls it.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from __future__ import annotations
 import ctypes
 import threading
 import weakref
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -80,6 +89,88 @@ _lib_lock = threading.Lock()
 def step_scratch_size(windows: int = 1) -> int:
     """int32 slots of the step kernel's scratch for ``windows`` windows."""
     return (STEP_SCRATCH - 1) * windows + 1
+
+
+# Threads a block of every step kernel (csrc kThreads).
+THREADS = 256
+# The vectors a step carries: rv_n, sv_n, rv_a, sv_a (csrc kVecs).
+VECS = 4
+# The kernels a grid plan names (csrc kWindowKernel, kGroupKernel,
+# kUnitsKernel).
+KERNEL_WINDOW, KERNEL_GROUP, KERNEL_UNITS = 0, 1, 2
+
+
+class GridPlan(NamedTuple):
+    """One window's (or group's) grid, as the C library takes it
+    (``mr_step_window_create``'s ``plan``, these fields in order)."""
+
+    kernel: int        # KERNEL_WINDOW, KERNEL_GROUP or KERNEL_UNITS
+    per_thread: int    # elements of a vector a thread takes in a unit
+    slots: int         # the instantiation's register slots (0: PR 13's kernel)
+    units: int         # chunks of per_thread x THREADS elements, every vector and window
+    grid: int          # blocks
+    grid_windows: int  # the grid's rows: a group's grid is its units a window x this
+    held: int          # values a group's thread holds past its slots in shared memory
+    first: Tuple[int, ...]   # each vector's first unit in a window
+    blocks: Tuple[int, ...]  # each vector's units in one window
+
+    @property
+    def kernel_name(self) -> str:
+        if self.kernel == KERNEL_UNITS:
+            return "step_grid_units"
+        family = "step_grid_group" if self.kernel == KERNEL_GROUP else "step_grid"
+        return f"{family}<{self.slots}>"
+
+
+def slots_for(per_thread: int, most: int) -> int:
+    """The least of 1, 2, 4, 8 that holds ``per_thread`` elements, else
+    ``most``: the instantiation a thread runs (csrc ``slots_for``)."""
+    return next((s for s in (1, 2, 4, 8) if per_thread <= s), most)
+
+
+def grid_plan(ns: Sequence[int], windows: int, max_blocks: int, most_slots: int,
+              held_max: int = 0, units_kernel: bool = False) -> GridPlan:
+    """The grid of a step over four vectors of lengths ``ns`` (rv_n,
+    sv_n, rv_a, sv_a) in each of ``windows`` windows, on at most
+    ``max_blocks`` blocks: the least per_thread whose units, summed over
+    the vectors and windows, fit max(max_blocks, 4 * windows); the least
+    instantiation of 1, 2, 4, 8 and ``most_slots`` that holds it; the
+    group's kernel holds up to ``held_max`` values a thread past its
+    slots. One window plans ``step_grid<S>`` on a grid of its units; a
+    group ``step_grid_group<S>`` on a grid of its units a window by the
+    windows that fit (all of them, unless every (vector, window) is one
+    unit and the windows outnumber max_blocks / 4: the blocks then walk
+    the rest). ``units_kernel``: PR 13's plan (per_thread 1, every block
+    walking units of 256)."""
+    ns = [int(n) for n in ns]
+    if len(ns) != VECS or min(ns) < 1 or windows < 1 or max_blocks < VECS:
+        raise ValueError(f"grid_plan: four lengths >= 1, windows >= 1 and at least {VECS} "
+                         f"blocks (got {ns}, {windows}, {max_blocks})")
+
+    def units_at(per):
+        return windows * sum(-(-n // (THREADS * per)) for n in ns)
+
+    if units_kernel:
+        kernel, per = KERNEL_UNITS, 1
+    else:
+        kernel = KERNEL_WINDOW if windows == 1 else KERNEL_GROUP
+        cap = max(max_blocks, VECS * windows)
+        # No per_thread below total / (THREADS * cap) fits: start there.
+        per = max(windows * sum(ns) // (THREADS * cap), 1)
+        while units_at(per) > cap:
+            per += 1
+    blocks = tuple(-(-n // (THREADS * per)) for n in ns)
+    first = tuple(sum(blocks[:i]) for i in range(VECS))
+    slots = 0 if kernel == KERNEL_UNITS else slots_for(per, most_slots)
+    units = units_at(per)
+    rows, grid = 1, min(units, max_blocks)
+    held = 0
+    if kernel == KERNEL_GROUP:
+        held = min(max(per - slots, 0), held_max)
+        rows = min(windows, max_blocks // sum(blocks))
+        grid = sum(blocks) * rows
+    return GridPlan(kernel, per, slots, units, grid, rows, held, first, blocks)
+
 
 # A partition's carry (sv, rv) and a step's products (y_sr, y_ss, y_rs).
 Carry = Tuple[Tuple[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -271,13 +362,15 @@ def _check_products(products, carry) -> None:
 
 
 class KernelConfig(NamedTuple):
-    """What the fused step kernel gets on one card (``mr_power_step_config``)."""
+    """What the step kernels get on one card (``mr_power_step_config``)."""
 
     cooperative: bool     # the card takes a cooperative launch
-    blocks_per_sm: int    # resident blocks of the kernel an SM (occupancy)
+    blocks_per_sm: int    # resident blocks of every step kernel an SM (occupancy)
     sms: int
-    slots: int            # register slots a thread at most, across the barrier
+    slots: int            # register slots a thread at most, across the barrier (a window)
     threads: int          # threads a block
+    group_slots: int      # the same, step_grid_group's largest instantiation
+    held_max: int         # values a group's thread at most holds past its slots
 
     @property
     def max_blocks(self) -> int:
@@ -289,13 +382,13 @@ _configs: Dict[int, KernelConfig] = {}
 
 
 def kernel_config(device) -> KernelConfig:
-    """The fused kernel's occupancy on ``device`` (a CUDA device), asked
+    """The step kernels' occupancy on ``device`` (a CUDA device), asked
     once per card and kept."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     if index not in _configs:
         lib = load_library()
-        out = (ctypes.c_int32 * 5)()
+        out = (ctypes.c_int32 * 7)()
         rc = lib.mr_power_step_config(index, out)
         if rc != 0:
             raise RuntimeError(
@@ -305,10 +398,10 @@ def kernel_config(device) -> KernelConfig:
     return _configs[index]
 
 
-# The ways a window's steps can run: the fused kernel (the main path; on
-# CPU tensors its plain version), the plain step on any device, the
-# two-launch kernel (comparison only).
-STEP_MODES = ("kernel", "plain", "two_launch")
+# The ways a window's steps can run: the kernel its grid plan names (the
+# main path; on CPU tensors its plain version), the plain step on any
+# device, PR 13's group kernel (comparison only).
+STEP_MODES = ("kernel", "plain", "group_units")
 
 
 class StepWindow:
@@ -329,18 +422,20 @@ class StepWindow:
     instantiation) stay in registers. ``max_blocks`` caps the grid below
     the card's cooperative limit (the tests' way to a window past the
     register slots) or, above it, asks for a grid the card refuses.
-    ``mode`` is one of STEP_MODES.
+    ``mode`` is one of STEP_MODES. ``hold``: a group's thread holds its
+    values past the slots in shared memory across the barrier (False:
+    it recomputes them from the products, chip_smoke's comparison).
 
     A stacked group of B windows passes [B, n] carries and preference
     vectors, residuals [B, 2, n_steps] and [B] n_iters / running: one
-    launch a step of the group's kernel for all of them (``windows``;
-    ``slots`` 0, one element a thread, ``units`` runs of 256 elements
-    that the grid's blocks walk; or the plain step; int8 scales [B, 4],
-    each window's own)."""
+    launch a step of ``step_grid_group<S>`` for all of them
+    (``windows``; a block a unit of one vector of one window; or the
+    plain step, or PR 13's kernel; int8 scales [B, 4], each window's
+    own). ``grid_plan`` (a ``GridPlan``) is the plan the kernel runs."""
 
     def __init__(self, plan: StepPlan, carry: Carry, residuals: torch.Tensor,
                  n_iters: Optional[torch.Tensor] = None, running: Optional[torch.Tensor] = None,
-                 mode: str = "kernel", max_blocks: Optional[int] = None):
+                 mode: str = "kernel", max_blocks: Optional[int] = None, hold: bool = True):
         if mode not in STEP_MODES:
             raise ValueError(f"power_step: unknown mode {mode!r}; known: {STEP_MODES}")
         dev = carry[0][0].device
@@ -349,8 +444,6 @@ class StepWindow:
         self.mode = "plain" if dev.type == "cpu" else mode
         lead = tuple(carry[0][0].shape[:-1])
         self.windows = lead[0] if lead else None
-        if self.windows is not None and self.mode == "two_launch":
-            raise NotImplementedError("power_step: the two-launch kernel takes one window")
         sizes = []
         for sv, rv in carry:
             sizes += [rv.shape[-1], sv.shape[-1]]
@@ -366,12 +459,13 @@ class StepWindow:
         if plan.scale_group is not None:
             self.scales = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
         self._products_checked = False
+        self.grid_plan: Optional[GridPlan] = None
         self.grid = self.per_thread = self.slots = self.units = None
         self._handle = None
-        if self.mode == "kernel":
-            self._set_up_kernel(dev, max_blocks)
+        if self.mode != "plain":
+            self._set_up_kernel(dev, max_blocks, hold)
 
-    def _set_up_kernel(self, dev, max_blocks) -> None:
+    def _set_up_kernel(self, dev, max_blocks, hold) -> None:
         cfg = kernel_config(dev)
         if not cfg.cooperative:
             raise RuntimeError(
@@ -393,20 +487,23 @@ class StepWindow:
             for v, pref in ((1, plan.prefs[p].data_ptr()), (0, None)):  # rv, then sv
                 ptrs += [pref] + [c[p][v].data_ptr() for c in self.carries] + [weights[1 - v]]
         ns = [self.carries[0][p][v].shape[-1] for p in range(2) for v in (1, 0)]
+        cap = cfg.max_blocks if max_blocks is None else int(max_blocks)
+        windows = self.windows or 1
+        gp = grid_plan(ns, windows, cap, cfg.slots if windows == 1 else cfg.group_slots,
+                       cfg.held_max if hold else 0, units_kernel=self.mode == "group_units")
+        fields = [*gp[:-2], *gp.first, *gp.blocks]
         handle = ctypes.c_void_p()
-        grid = (ctypes.c_int32 * 4)()
         r, n = self.residuals, self.n_iters
         rc = lib.mr_step_window_create(
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * 4)(*ns),
             plan.alpha, plan.d, 0.0 if plan.tol is None else plan.tol, int(plan.normalize),
-            r.shape[-1], self.windows or 1, plan.scratch.data_ptr(), r.data_ptr(),
+            r.shape[-1], windows, plan.scratch.data_ptr(), r.data_ptr(),
             None if n is None else n.data_ptr(),
             None if n is None else self.running.data_ptr(),
             None if self.scales is None else self.scales.data_ptr(),
             dev.index if dev.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(dev).cuda_stream,
-            cfg.max_blocks if max_blocks is None else int(max_blocks),
-            ctypes.byref(handle), grid,
+            torch.cuda.current_stream(dev).cuda_stream, cap,
+            (ctypes.c_int64 * len(fields))(*fields), ctypes.byref(handle),
         )
         if rc != 0:
             raise ValueError(
@@ -415,7 +512,9 @@ class StepWindow:
         self._handle = handle.value
         weakref.finalize(self, lib.mr_step_window_free, self._handle)
         self._run = lib.mr_step_window_run
-        self.grid, self.per_thread, self.slots, self.units = grid[0], grid[1], grid[2], grid[3]
+        self.grid_plan = gp
+        self.grid, self.per_thread = gp.grid, gp.per_thread
+        self.slots, self.units = gp.slots, gp.units
 
     @property
     def carry(self) -> Carry:
@@ -438,7 +537,7 @@ class StepWindow:
         if want_scales and self.scales is None:
             raise ValueError("power_step: int8 scales need the plan's scale_group")
         src, dst = self.slot, 2 if self.slot == 1 else 1
-        if self.mode == "kernel":
+        if self.grid_plan is not None:
             (sr_n, ss_n, rs_n), (sr_a, ss_a, rs_a) = products
             rc = self._run(self._handle, sr_n.data_ptr(), ss_n.data_ptr(), rs_n.data_ptr(),
                            sr_a.data_ptr(), ss_a.data_ptr(), rs_a.data_ptr(), src, dst, i,
@@ -449,8 +548,7 @@ class StepWindow:
                     f"{load_library().mr_power_step_error_string(rc).decode()}"
                 )
             power_step.launches += 1
-        elif self.mode == "two_launch":
-            _two_launch(self, products, src, dst, i, want_scales)
+            power_step.by_kernel[self.grid_plan.kernel_name] += 1
         else:
             new, scales = power_step_plain(self.plan, products, self.carries[src], self.residuals,
                                            i, self.n_iters, self.running, want_scales)
@@ -461,41 +559,6 @@ class StepWindow:
                 self.scales.copy_(scales)
         self.slot = dst
         return self.carries[dst], self.scales if want_scales else None
-
-
-def _two_launch(win: StepWindow, products, src: int, dst: int, i: int, want_scales: bool):
-    """The two-launch kernel on a window's carries: ``step_max`` when
-    normalizing, then ``step_apply``."""
-    plan, dev = win.plan, win.residuals.device
-    ptrs, ns = [], []
-    for p, ys in enumerate(products):
-        y_sr, y_ss, y_rs = ys
-        (sv, rv), (sv_out, rv_out) = win.carries[src][p], win.carries[dst][p]
-        w_len = w_cov = None
-        if want_scales:
-            part = plan.scale_group.parts[p]
-            w_len, w_cov = part.w_len.data_ptr(), part.w_cov.data_ptr()
-        ptrs += [y_rs.data_ptr(), plan.prefs[p].data_ptr(), rv.data_ptr(), rv_out.data_ptr(), w_len,
-                 y_sr.data_ptr(), y_ss.data_ptr(), sv.data_ptr(), sv_out.data_ptr(), w_cov]
-        ns += [rv.shape[0], sv.shape[0]]
-    lib = load_library()
-    n_iters, running, residuals = win.n_iters, win.running, win.residuals
-    rc = lib.mr_power_step_two_launch(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * len(ns))(*ns),
-        plan.alpha, plan.d, 0.0 if plan.tol is None else plan.tol, int(plan.normalize), i,
-        residuals.shape[1],
-        plan.scratch.data_ptr(), residuals.data_ptr(),
-        None if n_iters is None else n_iters.data_ptr(),
-        None if running is None else running.data_ptr(),
-        win.scales.data_ptr() if want_scales else None,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"power_step_two_launch failed: {lib.mr_power_step_error_string(rc).decode()}"
-        )
-    power_step_two_launch.launches += 2 if plan.normalize else 1
 
 
 def power_step(
@@ -509,7 +572,7 @@ def power_step(
     want_scales: bool = False,
 ) -> Tuple[Carry, Optional[torch.Tensor]]:
     """``power_step_plain``'s results: CPU tensors run it; CUDA tensors
-    launch the fused step kernel once (a window of one step, set up for
+    launch the step kernel once (a window of one step, set up for
     this call) or raise — there is no fallback for a CUDA tensor. The new
     carry and the scales are fresh allocations; the plan's scratch is
     used by one stream at a time."""
@@ -520,32 +583,12 @@ def power_step(
     return win.step(products, i, want_scales)
 
 
-# Launches of the fused step kernel (a plain int; StepWindow.step is the
-# one place that launches it: one a step, normalized or not).
+# Launches of the step kernels (a plain int; StepWindow.step is the one
+# place that launches them: one a step, normalized or not), and the same
+# by instantiation (``GridPlan.kernel_name``: step_grid<S>,
+# step_grid_group<S>, step_grid_units).
 power_step.launches = 0
-
-
-def power_step_two_launch(
-    plan: StepPlan,
-    products: Products,
-    carry: Carry,
-    residuals: torch.Tensor,
-    i: int,
-    n_iters: Optional[torch.Tensor] = None,
-    running: Optional[torch.Tensor] = None,
-    want_scales: bool = False,
-) -> Tuple[Carry, Optional[torch.Tensor]]:
-    """``power_step`` through the two-launch kernel (the previous
-    design, for comparison): CPU tensors run the plain step."""
-    if carry[0][0].device.type == "cpu":
-        return power_step_plain(plan, products, carry, residuals, i, n_iters, running,
-                                want_scales)
-    win = StepWindow(plan, carry, residuals, n_iters, running, mode="two_launch")
-    return win.step(products, i, want_scales)
-
-
-# Launches of the two-launch kernel (two a normalized step, one without).
-power_step_two_launch.launches = 0
+power_step.by_kernel = Counter()
 
 
 def build_command(out: Path) -> List[str]:
@@ -591,7 +634,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32,                                        # normalize, n_steps, n_windows
         ptr, ptr, ptr, ptr, ptr,                              # scratch, residuals, n_iters, running, scales
         ctypes.c_int, ptr, ctypes.c_int64,                    # device, stream, max_blocks
-        ctypes.POINTER(ptr), ctypes.POINTER(i32),             # out handle, out grid
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ptr),  # plan, out handle
     ]
     lib.mr_step_window_free.restype = None
     lib.mr_step_window_free.argtypes = [ptr]
@@ -600,30 +643,27 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,                    # handle, the six products
         i32, i32, i32, i32,                                   # in_slot, out_slot, step, want_scales
     ]
-    lib.mr_power_step_two_launch.restype = ctypes.c_int
-    lib.mr_power_step_two_launch.argtypes = [
-        ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int64),  # vec_ptrs, ns
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,       # alpha, d, tol
-        i32, i32, i32,                                        # normalize, step, n_steps
-        ptr, ptr, ptr, ptr, ptr,                              # scratch, residuals, n_iters, running, scales
-        ctypes.c_int, ptr,                                    # device, stream
-    ]
     lib.mr_power_step_error_string.restype = ctypes.c_char_p
     lib.mr_power_step_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
 __all__ = [
+    "KERNEL_GROUP",
+    "KERNEL_UNITS",
+    "KERNEL_WINDOW",
     "STEP_MODES",
     "STEP_SCRATCH",
+    "GridPlan",
     "KernelConfig",
     "StepPlan",
     "StepWindow",
     "f32_value",
+    "grid_plan",
     "kernel_config",
     "power_step",
     "power_step_plain",
-    "power_step_two_launch",
+    "slots_for",
     "step_plan",
     "step_scratch",
     "step_scratch_size",

@@ -142,8 +142,9 @@ def test_window_axis_kernels_are_bitwise_their_plain_versions(
 
 @pytest.mark.parametrize("variant", ["default", "tol", "walk"])
 def test_stacked_step_chain_of_50_is_bitwise_plain(cuda_device, variant):
-    # "walk": a grid of 8 blocks for the 4 windows' 104 units of 256
-    # elements, so every block walks 13 of them.
+    # "walk": a grid of 8 blocks for the 4 windows' 16 (vector, window)
+    # pairs, each one unit: two rows of a window's 4 units, which walk
+    # the other two windows.
     rng = np.random.default_rng(7)
     b, sizes = 4, [(3072, 96), (3072, 8)]
     prefs = [random_like(rng, (b, t), cuda_device) for _, t in sizes]
@@ -581,3 +582,165 @@ def test_two_pad_group_is_bitwise_its_windows_own_programs(cuda_device, kernel, 
         for x, y in ((got[0][b][:n], want[0][:n]), (got[1][b][:n], want[1][:n]),
                      (got[3][b], want[3])):
             assert_bitwise(x, y)
+
+
+# ------------------------------------------- K5's group kernel, in depth
+
+
+def group_step_inputs(rng, b, sizes, device, empty=()):
+    """[B, n] products, carry and preference vectors per partition of
+    (V, T) = sizes[p]; partition p in ``empty`` all zeros, and window 1
+    all zeros in the normal partition too (an empty partition inside a
+    group)."""
+    out = []
+    for p, (v, t) in enumerate(sizes):
+        vecs = [random_like(rng, (b, n), device) for n in (v, v, t, t, v, t)]
+        for x in vecs:
+            if p in empty:
+                x.zero_()
+            elif p == 0 and b > 1 and "window" in empty:
+                x[1] = 0.0
+        out.append(vecs)
+    products = tuple(tuple(x[:3]) for x in out)
+    carry = tuple((x[4], x[5]) for x in out)
+    prefs = [x[3] for x in out]
+    return products, carry, prefs
+
+
+def group_chain(mode, plan, products, carry, n_steps, want_scales=False, max_blocks=None,
+                hold=True, moving=None):
+    """``n_steps`` steps of one StepWindow in ``mode`` (its grid capped at
+    ``max_blocks``): each step's products the fixed ones, those of the
+    windows in ``moving`` times the carry. Returns every step's carry and
+    scales, the residual trace, n_iters and running as one tensor of
+    int32 bits, and the window."""
+    dev = carry[0][0].device
+    b = carry[0][0].shape[0]
+    residuals = torch.zeros((b, 2, n_steps), dtype=torch.float32, device=dev)
+    n_iters = running = None
+    if plan.tol is not None:
+        n_iters = torch.zeros(b, dtype=torch.int32, device=dev)
+        running = torch.ones(b, dtype=torch.bool, device=dev)
+    win = step.StepWindow(plan, carry, residuals, n_iters, running, mode=mode,
+                          max_blocks=max_blocks, hold=hold)
+    out, c = [], carry
+    for i in range(n_steps):
+        ys = products
+        if moving is not None:
+            ys = tuple((torch.where(moving, y0 * sv, y0), y1, torch.where(moving, y2 * rv, y2))
+                       for (y0, y1, y2), (sv, rv) in zip(products, c))
+        c, scales = win.step(ys, i, want_scales and i + 1 < n_steps)
+        out += [t.clone() for part in c for t in part]
+        out += [] if scales is None else [scales.clone()]
+    out = [torch.cat([t.reshape(-1) for t in out] + [residuals.reshape(-1)]).view(torch.int32)]
+    if n_iters is not None:
+        out += [n_iters, running.to(torch.int32)]
+    return torch.cat(out), win
+
+
+def group_scale_group(rng, b, sizes, device, weight=1.0):
+    bitmaps = [torch.from_numpy(rng.integers(0, 256, (b, v, (t + 7) // 8), dtype=np.uint8))
+               for v, t in sizes]
+    return pattern.pattern_group(
+        [x.to(device) for x in bitmaps],
+        [random_like(rng, (b, t), device) * weight for _, t in sizes],
+        [random_like(rng, (b, v), device) * weight for v, _ in sizes], [None, None],
+        [t for _, t in sizes])
+
+
+@pytest.mark.parametrize("b", [2, 6])
+@pytest.mark.parametrize("variant", ["default", "tol", "empty", "no-normalize", "int8"])
+def test_group_step_chain_of_50_is_bitwise_plain_and_pr13s(cuda_device, b, variant):
+    # step_grid_group<S> over 50 launches on the card's own grid, at the
+    # config-5 kind window's shapes, bitwise the plain step and PR 13's
+    # kernel; "tol": the odd windows move and the even ones freeze after
+    # their second step; "empty": one window's normal partition empty.
+    rng = np.random.default_rng(30 + b)
+    sizes = [(3072, 96), (3072, 8)]
+    products, carry, prefs = group_step_inputs(
+        rng, b, sizes, cuda_device, ("window",) if variant == "empty" else ())
+    group = group_scale_group(rng, b, sizes, cuda_device) if variant == "int8" else None
+    tol = {"tol": 1e-4, "empty": 1e-4}.get(variant)
+    moving = (torch.arange(b, device=cuda_device) % 2 == 1)[:, None]
+    chains, launches = {}, {}
+    for mode in ("kernel", "group_units", "plain"):
+        plan = step.step_plan(prefs, 0.01, 0.85, tol, variant != "no-normalize",
+                              step.step_scratch(cuda_device, b), group)
+        before = dict(step.power_step.by_kernel)
+        chains[mode], win = group_chain(mode, plan, products, carry, 50, group is not None,
+                                        moving=moving if variant == "tol" else None)
+        torch.cuda.synchronize()
+        assert not plan.scratch.any()
+        launches[mode] = {k: v - before.get(k, 0) for k, v in step.power_step.by_kernel.items()
+                          if v - before.get(k, 0)}
+        if mode == "kernel":
+            assert (win.per_thread, win.slots, win.units) == (1, 1, 26 * b)
+    assert launches == {"kernel": {"step_grid_group<1>": 50},
+                        "group_units": {"step_grid_units": 50}, "plain": {}}
+    assert torch.equal(chains["kernel"], chains["plain"])
+    assert torch.equal(chains["group_units"], chains["plain"])
+    if variant == "tol":
+        n_iters = chains["kernel"][-2 * b:-b]
+        assert len(set(n_iters.tolist())) > 1  # the windows froze at different steps
+
+
+@pytest.mark.parametrize("where,hold", [
+    ("mid", True), ("at", True), ("past", True), ("past", False), ("far", True), ("walk", True),
+])
+@pytest.mark.parametrize("variant", ["default", "tol", "int8", "int8-subnormal-scale"])
+def test_group_step_below_at_and_past_the_slots(cuda_device, where, hold, variant):
+    # A grid of one block a (vector, window) puts a chosen number of
+    # elements on each thread of a group of 3: 6 ("mid": 8 slots, the
+    # carry in registers), the slots exactly ("at": the carry in shared
+    # memory), twice and one more ("past": held in shared memory, or
+    # recomputed with hold off), the slots plus the held maximum plus 5
+    # ("far": 5 recomputed); "walk" a grid cap of 5 blocks: one row of a
+    # window's 4 units, which walks the other two windows. Bitwise the
+    # plain step and PR 13's kernel over 25 steps.
+    kcfg = step.kernel_config(cuda_device)
+    slots, b = kcfg.group_slots, 3
+    per = {"mid": 6, "at": slots, "past": 2 * slots + 1, "far": slots + kcfg.held_max + 5,
+           "walk": 3}[where]
+    width = 256 * per - 37
+    sizes = [(width // 3, width), (width // 2, width - 1)]
+    max_blocks = 5 if where == "walk" else 4 * b
+    rng = np.random.default_rng(22)
+    products, carry, prefs = group_step_inputs(rng, b, sizes, cuda_device)
+    group = None
+    if variant.startswith("int8"):
+        w = 1e-37 if variant == "int8-subnormal-scale" else 1.0
+        group = group_scale_group(rng, b, sizes, cuda_device, w)
+    tol = 1e-30 if variant == "tol" else None
+    plan = step.step_plan(prefs, 0.01, 0.85, tol, True, step.step_scratch(cuda_device, b), group)
+    got, win = group_chain("kernel", plan, products, carry, 25, group is not None, max_blocks,
+                           hold)
+    in_slots = {"mid": 8, "walk": 4}.get(where, slots)
+    held = min(per - in_slots, kcfg.held_max) if hold and per > in_slots else 0
+    assert (win.per_thread, win.slots, win.grid_plan.held) == (per, in_slots, held)
+    assert win.units == 4 * b and win.grid == 4 * min(b, max_blocks // 4)
+    old, _ = group_chain("group_units", plan, products, carry, 25, group is not None,
+                         max_blocks)
+    plain, _ = group_chain("plain", plan, products, carry, 25, group is not None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(old, plain)
+    assert not plan.scratch.any()
+
+
+def test_refused_cooperative_group_launch_raises(cuda_device):
+    # A group whose grid is past what the card holds resident: the card
+    # refuses the cooperative launch, the step raises, nothing is
+    # counted, and nothing else runs in its place.
+    kcfg = step.kernel_config(cuda_device)
+    b, width = 2, 256 * kcfg.max_blocks
+    rng = np.random.default_rng(5)
+    products, carry, prefs = group_step_inputs(rng, b, [(1000, width), (1000, width)],
+                                               cuda_device)
+    plan = step.step_plan(prefs, 0.01, 0.85, None, True, step.step_scratch(cuda_device, b))
+    residuals = torch.zeros((b, 2, 2), device=cuda_device)
+    win = step.StepWindow(plan, carry, residuals, max_blocks=8 * kcfg.max_blocks)
+    assert win.grid > kcfg.max_blocks and win.grid_plan.kernel == step.KERNEL_GROUP
+    before = (step.power_step.launches, dict(step.power_step.by_kernel))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        win.step(products, 0)
+    assert (step.power_step.launches, dict(step.power_step.by_kernel)) == before
+    assert not residuals.any()

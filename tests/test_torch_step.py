@@ -22,7 +22,7 @@ on the CPU and its kernel to its plain version on the card.
   mismatched window is refused at set-up, and the checks run once.
 * on the card (``cuda`` marker, skipped here): the fused kernel (one
   cooperative launch a step) bitwise ``power_step_plain`` run on the
-  card and the two-launch kernel, over whole windows of every route
+  card, over whole windows of every route
   (25 launches each), with ``tol`` and with an empty partition; at
   sizes below, at and past the register slots, with ``tol``, an empty
   partition, no normalization and int8 scales; over chains of 50 steps
@@ -482,16 +482,15 @@ def bits(t):
 
 def both_steps(monkeypatch, dgraph, cfg, kernel):
     """window_weights_full through the fused kernel, then through the
-    plain step on the card and through the two-launch kernel; the
-    fused kernel's launches counted. Returns (got, [plain, two-launch],
-    launches)."""
+    plain step on the card; the fused kernel's launches counted. Returns
+    (got, [plain], launches)."""
     import functools
 
     before = step.power_step.launches
     got = window_weights_full(dgraph, cfg, kernel)
     launches = step.power_step.launches - before
     wants = []
-    for mode in ("plain", "two_launch"):
+    for mode in ("plain",):
         with monkeypatch.context() as m:
             m.setattr(torch_cuda, "StepWindow", functools.partial(step.StepWindow, mode=mode))
             wants.append(window_weights_full(dgraph, cfg, kernel))
@@ -552,12 +551,11 @@ def test_power_step_chain_of_50_is_bitwise_plain(cuda_device, empty):
                           step.step_scratch(cuda_device))
     before = step.power_step.launches
     chains = [window_chain(fn, plan, products, carry0, 50)
-              for fn in (step.power_step, None, step.power_step_two_launch,
-                         step.power_step_plain)]
+              for fn in (step.power_step, None, step.power_step_plain)]
     torch.cuda.synchronize()
     assert step.power_step.launches - before == 100  # one a normalized step
-    for chain in chains[:3]:
-        assert torch.equal(chain, chains[3])
+    for chain in chains[:2]:
+        assert torch.equal(chain, chains[2])
     assert not plan.scratch.any()
 
 
@@ -570,8 +568,7 @@ def test_fused_step_below_at_and_past_the_slots(cuda_device, where, variant):
     # on each thread: 6 ("mid": 8 slots, the carry in registers), the
     # slots exactly ("at": the carry in shared memory), twice and one
     # more ("past": those recomputed in phase 2); "below" the card's own
-    # grid, one element a thread. Bitwise the plain step and the
-    # two-launch kernel over 25 steps.
+    # grid, one element a thread. Bitwise the plain step over 25 steps.
     kcfg = step.kernel_config(cuda_device)
     slots = kcfg.slots
     per = {"below": 1, "mid": 6, "at": slots, "past": 2 * slots + 1}[where]
@@ -610,9 +607,8 @@ def test_fused_step_below_at_and_past_the_slots(cuda_device, where, variant):
     got = chain(None)
     assert step.power_step.launches - before == 25
     plain = chain(step.power_step_plain)
-    two = chain(step.power_step_two_launch)
     torch.cuda.synchronize()
-    assert torch.equal(got, plain) and torch.equal(two, plain)
+    assert torch.equal(got, plain)
     assert not plan.scratch.any()
 
 
