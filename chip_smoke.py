@@ -18,10 +18,14 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``csrc/rank_epilogue.cu``, g++ for the native span loader /
               graph builder, all at once), the fixed-order fold on rows
               of one tile and of several, bitwise its plain version,
-              K6's set-up (one tile and two, collapsed or not, both
-              preference forms, one window and three) and epilogue
-              (every method, one window and three) bitwise their plain
-              versions on the card, and one tiny launch of K1 (a
+              K6's set-up (one tile beside two (a cluster) and beside
+              ten (the grid form), collapsed or not, both preference
+              forms, one window and three) and epilogue (300 ops and
+              9,000 (a cluster of two), k of 11 and 40, every method,
+              one window and three) bitwise their plain versions and
+              the first designs' kernels on the card, a gate on 0 bytes
+              of spill in every K6 kernel (``k6_ptxas``), and one tiny
+              launch of K1 (a
               row of several chunks, empty rows, padding), of the pcsr
               step (that work list with ELL slabs of widths 4 and 1024,
               then 1 and 64: rows past 256 entries, empty rows) and of
@@ -92,11 +96,13 @@ JAX or of the JAX package. Phases, one JSON line each:
               and one of its epilogue, ``csrc/rank_epilogue.cu``, and
               none of the standalone fold, ``csrc/row_fold.cu``, whose
               tree runs inside both; every run line's ``k6``: both
-              kernels bitwise their plain versions on the card and over
-              50 launches at its window, timed beside the plain
+              kernels bitwise their plain versions and the first
+              designs' on the card and over 50 launches at its window,
+              timed in turns with the first designs beside the plain
               versions, the bound and, for the top-k, a stable
-              ``torch.sort``; the same for the batched kind group of 6
-              and the giant windows)
+              ``torch.sort``, with the form each launch planned; the
+              same for the batched kind group of 6 and the giant
+              windows)
    staging  — blob staging (the default: one pinned buffer a window, one
               copy, the leaves typed views of the device buffer, K7)
               against the tree path (``blob_staging=False``: a copy a
@@ -188,7 +194,10 @@ JAX or of the JAX package. Phases, one JSON line each:
               n_iters those of its own program, its ranking tie-aware at
               rtol 1e-5 (int8: the top-5 at 5e-2; bitwise reported); the
               group through the plain step and PR 13's group kernel on
-              the card bitwise; K5's group kernel at the group's shapes
+              the card bitwise; K6's two kernels at the group's shapes
+              (the epilogue on its final carries) bitwise their plain
+              versions and the first designs; K5's group kernel at the
+              group's shapes
               over chains of 50 launches (default, a tol whose windows
               freeze at different steps, int8 with the group's scales)
               bitwise the plain step and PR 13's kernel
@@ -273,9 +282,16 @@ JAX or of the JAX package. Phases, one JSON line each:
               set-up before the loop, the 25 steps by wrapper, the
               epilogue; with K6's kernels and with their plain versions
               in turns), behind a spin; K6 at the kind window, fully
-              timed, and the epilogue's seeded sweep (V up to 65,536,
-              k of 1, 11 and V, every method, ties, -0.0, -inf, NaN, an
-              empty partition: bitwise its plain version on the card);
+              timed (each kernel in turns with its first design, the SM
+              cycles of its phases, a one-float fill as the floor of a
+              launch timed this way) and the epilogue's seeded sweep
+              (V of 8 to 65,537 across its forms' edges, k of 1, 11, 32,
+              33 and V, every method, ties, -0.0, -inf, NaN, an empty
+              partition: bitwise its plain version and its first
+              design's on the card); where a K6 wrapper call's host
+              time goes inside the kind program (``k6_host_split``:
+              today's wrappers whole and part by part against the first
+              design's wrappers part by part, in turns);
               the fixed-order fold at the
               uncollapsed window's set-up shape (``measure_fold``:
               bitwise its plain version on the CPU and on the card, over
@@ -894,40 +910,53 @@ def epilogue_bits(torch, out):
 
 def tiny_k6_checks(torch, dev):
     """First launches of K6: the set-up on partitions of 9 and 4,100
-    trace columns (one tile of its tree and two), collapsed and not,
-    both preference forms, one window and a stacked three (one with no
-    live column); the epilogue on 300 ops, one window and three, every
-    method. Each bitwise its plain version on the card. Returns the
-    number of cases."""
+    trace columns (a block a row beside a cluster of two) and of 9 and
+    40,000 (the grid form: 10 tiles a row), collapsed and not, both
+    preference forms, one window and a stacked three (one with no live
+    column); the epilogue on 300 ops (a block a window) and 9,000 (a
+    cluster of two), one window and three, k of 11 (the warp-select) and
+    40 (the radix select), every method. Each bitwise its plain version
+    and the first design's kernel on the card. Returns the number of
+    cases."""
     from microrank_tpu_torch.config import PageRankConfig, SpectrumConfig
     from microrank_tpu_torch.ops import epilogue, setup
 
     gen = torch.Generator().manual_seed(17)
     n = 0
-    for lead, live in (((), 7), ((3,), [9, 0, 4])):
-        for collapsed in (False, True):
-            for preference in ("reference", "paper"):
-                cfg = PageRankConfig(preference=preference)
-                parts = [random_setup_part(torch, gen, t, 300, live if t == 9 else
-                                           [x * 455 for x in live] if lead else 4000,
-                                           collapsed, lead, dev) for t in (9, 4100)]
-                got = setup.rank_setup(*parts, cfg)
-                want = setup.rank_setup_plain(*parts, cfg)
-                torch.cuda.synchronize()
-                check(torch.equal(setup_bits(torch, got), setup_bits(torch, want)),
-                      f"tiny set-up launch (lead {lead}, collapsed {collapsed}, {preference}) "
-                      "differs from its plain version")
-                n += 1
-    for lead in ((), (3,)):
-        parts, svs = random_epilogue_inputs(torch, gen, 300, lead, dev)
-        for method in epilogue.METHOD_IDS:
-            cfg = SpectrumConfig(method=method)
-            got = epilogue.rank_epilogue(*parts, *svs, cfg)
-            want = epilogue.rank_epilogue_plain(*parts, *svs, cfg)
-            torch.cuda.synchronize()
-            check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, want)),
-                  f"tiny epilogue launch (lead {lead}, {method}) differs from its plain version")
-            n += 1
+    for wide in (4100, 40_000):
+        for lead, live in (((), 7), ((3,), [9, 0, 4])):
+            for collapsed in (False, True):
+                for preference in ("reference", "paper"):
+                    cfg = PageRankConfig(preference=preference)
+                    parts = [random_setup_part(torch, gen, t, 300, live if t == 9 else
+                                               [x * (wide // 9) for x in live] if lead
+                                               else wide - 100, collapsed, lead, dev)
+                             for t in (9, wide)]
+                    got = setup.rank_setup(*parts, cfg)
+                    want = setup.rank_setup_plain(*parts, cfg)
+                    first = setup.rank_setup(*parts, cfg, first_design=True)
+                    torch.cuda.synchronize()
+                    check(torch.equal(setup_bits(torch, got), setup_bits(torch, want))
+                          and torch.equal(setup_bits(torch, first), setup_bits(torch, want)),
+                          f"tiny set-up launch ({wide} columns, lead {lead}, collapsed "
+                          f"{collapsed}, {preference}) differs from its plain version")
+                    n += 1
+    for v in (300, 9000):
+        for lead in ((), (3,)):
+            parts, svs = random_epilogue_inputs(torch, gen, v, lead, dev)
+            for k in (11, 40):
+                for method in epilogue.METHOD_IDS:
+                    cfg = SpectrumConfig(method=method, top_max=k, extra_rows=0)
+                    got = epilogue.rank_epilogue(*parts, *svs, cfg)
+                    want = epilogue.rank_epilogue_plain(*parts, *svs, cfg)
+                    first = epilogue.rank_epilogue(*parts, *svs, cfg, first_design=True)
+                    torch.cuda.synchronize()
+                    check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, want))
+                          and torch.equal(epilogue_bits(torch, first),
+                                          epilogue_bits(torch, want)),
+                          f"tiny epilogue launch (V {v}, lead {lead}, k {k}, {method}) differs "
+                          "from its plain version")
+                    n += 1
     return n
 
 
@@ -968,36 +997,46 @@ EPILOGUE_FLAVORS = ("random", "ties", "signed_zeros", "nan", "empty_normal", "no
 
 
 def epilogue_sweep(torch, dev):
-    """The epilogue kernel against its plain version on the card over a
-    seeded sweep: V of 8, 2,048, 8,192 and 65,536, one window and a
-    stacked three, k of 1, 11 and V, every method, and carries with
-    ties, -0.0, -inf (invalid ops), NaN and an empty normal partition;
-    bitwise, NaN compared by its bits. Returns the cases checked and
-    the largest key sort done in scratch (k past 1,024)."""
+    """The epilogue kernel against its plain version and the first
+    design's kernel on the card over a seeded sweep: V of 8, 2,048,
+    8,192 (a block's limit), 8,193 (a cluster of 2), 65,536 (a cluster
+    of 8) and 65,537 (past a cluster: the first design), one window and
+    a stacked three, k of 1, 11, 32, 33 (the warp-select's edge) and V,
+    every method, and carries with ties, -0.0, -inf (invalid ops), NaN
+    and an empty normal partition; bitwise, NaN compared by its bits.
+    Returns the cases checked and the forms they ran."""
     from microrank_tpu_torch.config import SpectrumConfig
     from microrank_tpu_torch.ops import epilogue
 
     gen = torch.Generator().manual_seed(23)
     cases = 0
+    forms = set()
     methods = list(epilogue.METHOD_IDS)
-    for v in (8, 2048, 8192, 65_536):
+    card = epilogue.kernel_config(dev)
+    sizes = (8, 2048, 8192, 8193, 65_536, 65_537)
+    for v in sizes:
         for lead in ((), (3,)):
             for i, flavor in enumerate(EPILOGUE_FLAVORS):
                 parts, svs = random_epilogue_inputs(torch, gen, v, lead, dev, flavor)
-                for j, k in enumerate(sorted({1, min(11, v), v})):
+                for j, k in enumerate(sorted({1, min(11, v), min(32, v), min(33, v), v})):
+                    plan = epilogue.epilogue_plan(v, k, lead[0] if lead else 1, card)
+                    forms.add(f"{plan.form}/{plan.select}")
                     # Every method at every shape, a flavor and k turning.
                     for method in methods[(i + j) % 2::2] if v > 8 else methods:
                         cfg = SpectrumConfig(method=method, top_max=k, extra_rows=0)
-                        got = epilogue.rank_epilogue(*parts, *svs, cfg)
-                        want = epilogue.rank_epilogue_plain(*parts, *svs, cfg)
-                        check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, want)),
+                        got = epilogue_bits(torch, epilogue.rank_epilogue(*parts, *svs, cfg))
+                        want = epilogue_bits(torch, epilogue.rank_epilogue_plain(*parts, *svs,
+                                                                                 cfg))
+                        first = epilogue_bits(torch, epilogue.rank_epilogue(
+                            *parts, *svs, cfg, first_design=True))
+                        check(torch.equal(got, want) and torch.equal(first, want),
                               f"epilogue sweep: V {v}, lead {lead}, {flavor}, k {k}, {method}: "
-                              "the kernel differs from its plain version")
+                              "the kernel or the first design differs from the plain version")
                         cases += 1
     torch.cuda.synchronize()
-    return {"cases_bitwise_vs_plain": cases, "v": [8, 2048, 8192, 65_536],
-            "k": "1, 11, V", "flavors": list(EPILOGUE_FLAVORS), "methods": len(methods),
-            "windows": [1, 3]}
+    return {"cases_bitwise_vs_plain_and_first_design": cases, "v": list(sizes),
+            "k": "1, 11, 32, 33, V", "flavors": list(EPILOGUE_FLAVORS),
+            "methods": len(methods), "windows": [1, 3], "forms": sorted(forms)}
 
 
 def setup_bound(torch, graph):
@@ -1026,23 +1065,54 @@ def epilogue_bound(graph, k):
     return 2 * 17 * ops + windows * (8 * k + 4), 40 * ops
 
 
+# The epilogue's phases between its stamps (csrc kStamps): the slice
+# into shared memory, the maxima, the scores and their tile nodes, the
+# window's totals, the spectrum, the block's selection, the window's
+# top-k written.
+EPILOGUE_PHASES = ("load", "maxima", "scores", "totals", "spectrum", "select", "top_k")
+# The set-up's rows form between its stamps: the columns into
+# registers, the tile's nodes, the row's sums, the writes.
+SETUP_PHASES = ("load", "tree", "sums", "write")
+# The grid form's (rows past 8 tiles): phase 1's tiles, sv0, the grid
+# barrier, phase 2's tiles.
+GRID_PHASES = ("phase1", "sv0", "barrier", "phase2")
+
+
+def k6_turns(torch, fn, first_fn, reps):
+    """A K6 kernel and its first design's, each by CUDA events behind a
+    spin (the median of ``reps`` calls a turn), in turns (kernel, first,
+    first, kernel): the four turns, the kernel's mean and the first
+    design's."""
+    turns = [spin_event_ms(torch, fn if side == "kernel" else first_fn, reps)
+             for side in ("kernel", "first", "first", "kernel")]
+    return {"turns_ms": [round(x, 6) for x in turns],
+            "ms": round((turns[0] + turns[3]) / 2, 6),
+            "first_design_ms": round((turns[1] + turns[2]) / 2, 6)}
+
+
 def measure_k6(torch, name, dgraph, cfg, kernel, reps):
     """K6 at a staged window's (or group's) shapes: the set-up on its
     partitions and the epilogue on its program's final carries (the
     rank program run once, ``torch_cuda._rank_program``). Each kernel
-    bitwise its plain version run on the card and bitwise over 50
-    launches; timed by CUDA events behind a spin beside the plain
-    version, its bound (bytes once at 3.35 TB/s, or its operations at
-    67 TFLOP/s) and, for the epilogue's top-k, one stable ``torch.sort``
-    of the same negated scores (what the plain version sorts)."""
+    bitwise its plain version run on the card, bitwise the first
+    design's kernel and bitwise over 50 launches; timed by CUDA events
+    behind a spin in turns with the first design (``k6_turns``) beside
+    the plain version, its bound (bytes once at 3.35 TB/s, or its
+    operations at 67 TFLOP/s) and, for the epilogue's top-k, one stable
+    ``torch.sort`` of the same negated scores (what the plain version
+    sorts); each wrapper's host time alone (behind the spin), both
+    designs; the launch each form planned."""
     from microrank_tpu_torch.ops import epilogue, setup
     from microrank_tpu_torch.rank_backends import torch_cuda as tc
 
     pr, sp = cfg.pagerank, cfg.spectrum
     g_n, g_a = dgraph.normal, dgraph.abnormal
+    dev = g_n.kind.device
     first = setup_bits(torch, setup.rank_setup(g_n, g_a, pr))
     plain = setup_bits(torch, setup.rank_setup_plain(g_n, g_a, pr))
     check(torch.equal(first, plain), f"{name}: the set-up kernel differs from its plain version")
+    check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr, first_design=True)),
+                      plain), f"{name}: the set-up's first design differs from its plain version")
     for _ in range(REPEATS):
         check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr)), first),
               f"{name}: the set-up kernel is not repeatable")
@@ -1052,6 +1122,9 @@ def measure_k6(torch, name, dgraph, cfg, kernel, reps):
     e_plain = epilogue_bits(torch, epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp))
     check(torch.equal(e_first, e_plain),
           f"{name}: the epilogue kernel differs from its plain version")
+    check(torch.equal(epilogue_bits(torch, epilogue.rank_epilogue(
+        g_n, g_a, *svs, sp, first_design=True)), e_plain),
+        f"{name}: the epilogue's first design differs from its plain version")
     for _ in range(REPEATS):
         check(torch.equal(epilogue_bits(torch, epilogue.rank_epilogue(g_n, g_a, *svs, sp)),
                           e_first), f"{name}: the epilogue kernel is not repeatable")
@@ -1061,6 +1134,9 @@ def measure_k6(torch, name, dgraph, cfg, kernel, reps):
     scores, _ = epilogue.window_spectrum(plain_out.a_weight, g_a, plain_out.n_weight, g_n, sp)
     neg = -(scores + 0.0)
     k = int(program.epilogue.top_idx.shape[-1])
+    v = int(g_n.op_present.shape[-1])
+    windows = g_n.op_present.numel() // v
+    t_pads = (int(g_n.kind.shape[-1]), int(g_a.kind.shape[-1]))
 
     def bound(nbytes, flops):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1068,42 +1144,449 @@ def measure_k6(torch, name, dgraph, cfg, kernel, reps):
         return {"bound_ms": round(max(bytes_ms, ops_ms), 6),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
 
-    setup_ms, setup_host_ms = spin_event_host_ms(
-        torch, lambda: setup.rank_setup(g_n, g_a, pr), reps)
-    epilogue_ms, epilogue_host_ms = spin_event_host_ms(
-        torch, lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp), reps)
+    def host_ms(fn):
+        return round(spin_event_host_ms(torch, fn, reps)[1], 6)
+
+    # Where the epilogue's time goes inside the kernel: the SM cycles
+    # between the phases its first window stamps (the median of 9 calls).
+    stamps = torch.zeros(epilogue.STAMPS, dtype=torch.int64, device=dev)
+    cycles = []
+    for _ in range(9):
+        epilogue.rank_epilogue(g_n, g_a, *svs, sp, stamps=stamps)
+        c = stamps.tolist()
+        cycles.append([c[i + 1] - c[i] for i in range(epilogue.STAMPS - 1)])
+    phase_cycles = dict(zip(EPILOGUE_PHASES, (int(_median([row[i] for row in cycles]))
+                                              for i in range(epilogue.STAMPS - 1))))
+    s_stamps = torch.zeros(setup.STAMPS, dtype=torch.int64, device=dev)
+    cycles = []
+    for _ in range(9):
+        setup.rank_setup(g_n, g_a, pr, stamps=s_stamps)
+        c = s_stamps.tolist()
+        cycles.append([c[i + 1] - c[i] for i in range(setup.STAMPS - 1)])
+    s_plan = setup.setup_plan(t_pads, windows, v, setup.kernel_config(dev))
+    setup_cycles = dict(zip(GRID_PHASES if s_plan.form == "grid" else SETUP_PHASES,
+                            (int(_median([row[i] for row in cycles]))
+                             for i in range(setup.STAMPS - 1))))
+    # The floor of a launch timed this way: one fill of one float.
+    one = torch.empty(1, device=dev)
+    floor_ms = round(spin_event_ms(torch, lambda: one.fill_(0.0), reps), 6)
+
     return {
         "setup": {
-            "bitwise_vs_plain": True, "repeat_bitwise": REPEATS, "max_abs_err": 0.0,
-            "ms": round(setup_ms, 6),
+            "bitwise_vs_plain": True, "bitwise_vs_first_design": True,
+            "repeat_bitwise": REPEATS, "max_abs_err": 0.0,
+            **k6_turns(torch, lambda: setup.rank_setup(g_n, g_a, pr),
+                       lambda: setup.rank_setup(g_n, g_a, pr, first_design=True), reps),
             # The wrapper call's host time (checks, outputs, launch),
             # issued while the device spins.
-            "host_issue_ms": round(setup_host_ms, 6),
+            "host_issue_ms": host_ms(lambda: setup.rank_setup(g_n, g_a, pr)),
+            "first_design_host_issue_ms": host_ms(
+                lambda: setup.rank_setup(g_n, g_a, pr, first_design=True)),
             "plain_ms": round(spin_event_ms(
                 torch, lambda: setup.rank_setup_plain(g_n, g_a, pr), reps), 6),
             "library_ms": None,
-            # The cooperative grid: a block a work item (a tile of a
-            # row, then of the ops), at most the card's resident blocks.
-            "grid": min(setup.kernel_config("cuda").max_blocks, sum(
-                -(-g.kind.shape[-1] // setup.TILE) * (g.kind.numel() // g.kind.shape[-1])
-                + -(-g.op_present.shape[-1] // setup.TILE)
-                * (g.op_present.numel() // g.op_present.shape[-1]) for g in (g_n, g_a))),
+            "plan": setup.setup_plan(t_pads, windows, v, setup.kernel_config(dev))._asdict(),
+            "phase_cycles": setup_cycles,
+            "launch_floor_ms": floor_ms,
+            "first_design_plan": setup.setup_plan(t_pads, windows, v, setup.kernel_config(dev),
+                                                  first_design=True)._asdict(),
             **bound(*setup_bound(torch, dgraph)),
         },
         "epilogue": {
-            "bitwise_vs_plain": True, "repeat_bitwise": REPEATS, "max_abs_err": 0.0,
-            "k": k, "v": int(g_n.op_present.shape[-1]),
-            "ms": round(epilogue_ms, 6),
-            "host_issue_ms": round(epilogue_host_ms, 6),
+            "bitwise_vs_plain": True, "bitwise_vs_first_design": True,
+            "repeat_bitwise": REPEATS, "max_abs_err": 0.0, "k": k, "v": v,
+            **k6_turns(torch, lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp),
+                       lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp, first_design=True),
+                       reps),
+            "host_issue_ms": host_ms(lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp)),
+            "first_design_host_issue_ms": host_ms(
+                lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp, first_design=True)),
             "plain_ms": round(spin_event_ms(
                 torch, lambda: epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp), reps), 6),
             # The top-k alone as one library call: a stable sort of the
             # negated scores (the rest of the epilogue has none).
             "library_ms": round(spin_event_ms(
                 torch, lambda: torch.sort(neg, dim=-1, stable=True), reps), 6),
+            "plan": epilogue.epilogue_plan(v, k, windows, epilogue.kernel_config(dev))._asdict(),
+            "phase_cycles": phase_cycles,
             **bound(*epilogue_bound(dgraph, k)),
         },
     }
+
+
+def first_setup_wrapper(torch, marks):
+    """A replica of the set-up wrapper's host side as the first design's
+    wrapper had it (the fields checked one by one, the outputs split
+    from one allocation, ``as_kernel_field`` and ``data_ptr`` a field,
+    ctypes arrays of the pointers, ``torch.cuda.current_stream``, the
+    call), each part's host time added into ``marks``; it launches the
+    first design's kernel (through today's one packed call, whose
+    packing is its own part, ``pack``: no part of the first wrapper)."""
+    import ctypes
+
+    from microrank_tpu_torch.ops import setup
+    from microrank_tpu_torch.ops.setup import as_kernel_field
+
+    def wrapper(normal, abnormal, cfg):
+        t = time.perf_counter()
+
+        def mark(label):
+            nonlocal t
+            now = time.perf_counter()
+            marks[label] = marks.get(label, 0.0) + (now - t)
+            t = now
+
+        dev = normal.kind.device
+        lead = tuple(normal.kind.shape[:-1])
+        v = normal.op_present.shape[-1]
+        for g in (normal, abnormal):
+            if any(x.device != dev for x in (g.kind, g.tracelen, g.n_cols, g.n_traces, g.n_ops,
+                                             g.op_present)):
+                raise ValueError("every field must lie on the device")
+            if (tuple(g.kind.shape[:-1]) != lead or g.tracelen.shape != g.kind.shape
+                    or g.op_present.shape != lead + (v,)
+                    or any(tuple(x.shape) != lead for x in (g.n_cols, g.n_traces, g.n_ops))):
+                raise ValueError("shapes")
+            if g.op_present.dtype != torch.bool or g.kind.shape[-1] > setup.MAX_WIDTH:
+                raise ValueError("fields")
+        windows = lead[0] if lead else 1
+        parts = (normal, abnormal)
+        t_pads = [int(g.kind.shape[-1]) for g in parts]
+        tiles = [-(-x // setup.TILE) for x in t_pads]
+        mark("check")
+        sizes = [windows * n for x in t_pads for n in (x, x, v)] + [2 * windows * sum(tiles)]
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        views = flat.split(sizes)
+        if lead:
+            views = [x.view(lead + (-1,)) for x in views[:-1]] + [views[-1]]
+        outs = [(views[3 * p], views[3 * p + 2], views[3 * p + 1]) for p in range(2)]
+        mark("outputs")
+        ptrs = []
+        for g, (pref, sv0, rv0) in zip(parts, outs):
+            fields = [as_kernel_field(x) for x in (g.kind, g.tracelen, g.n_cols, g.n_traces,
+                                                   g.n_ops)]
+            fields.append(as_kernel_field(g.op_present, torch.bool))
+            mark("as_kernel_field")
+            ptrs += [x.data_ptr() for x in fields] + [pref.data_ptr(), rv0.data_ptr(),
+                                                      sv0.data_ptr()]
+            mark("data_ptr")
+        kcfg = setup.kernel_config(dev)
+        lib = setup.load_library()
+        mark("config")
+        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int32 * 2)(*t_pads)
+        mark("ctypes_arrays")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        mark("current_stream")
+        plan = setup.setup_plan(t_pads, windows, v, kcfg, first_design=True)
+        words = []
+        for p in range(2):
+            words += ptrs[9 * p: 9 * p + 9] + [t_pads[p]]
+        args = setup.ARGS.pack(*words, windows, v, setup.f32_bits(cfg.phi),
+                               int(cfg.preference == "paper"), setup.FORMS.index(plan.form),
+                               plan.cluster, plan.grid, plan.hold,
+                               views[-1].data_ptr() if sizes[-1] else 0, 0, dev.index, stream)
+        mark("pack")
+        rc = lib.mr_rank_setup_launch(args)
+        check(rc == 0, f"first set-up wrapper: launch failed ({rc})")
+        setup.rank_setup.launches += 1
+        mark("call")
+        return outs[0], outs[1]
+
+    return wrapper
+
+
+def first_epilogue_wrapper(torch, marks):
+    """``first_setup_wrapper`` for the epilogue."""
+    import ctypes
+
+    from microrank_tpu_torch.ops import epilogue
+    from microrank_tpu_torch.ops.setup import as_kernel_field
+
+    def wrapper(normal, abnormal, sv_n, sv_a, spectrum_cfg):
+        t = time.perf_counter()
+
+        def mark(label):
+            nonlocal t
+            now = time.perf_counter()
+            marks[label] = marks.get(label, 0.0) + (now - t)
+            t = now
+
+        method = epilogue.method_id(spectrum_cfg.method)
+        lead = tuple(sv_n.shape[:-1])
+        v = sv_n.shape[-1]
+        dev = sv_n.device
+        for g, sv in ((normal, sv_n), (abnormal, sv_a)):
+            if sv.shape != sv_n.shape or sv.dtype != torch.float32 or sv.device != dev:
+                raise ValueError("sv")
+            if (g.op_present.shape != sv.shape or g.cov_unique.shape != sv.shape
+                    or tuple(g.n_traces.shape) != lead or tuple(g.n_ops.shape) != lead):
+                raise ValueError("shapes")
+            if g.op_present.dtype != torch.bool:
+                raise ValueError("bool")
+            if any(x.device != dev for x in (g.op_present, g.cov_unique, g.n_traces, g.n_ops)):
+                raise ValueError("device")
+        windows = lead[0] if lead else 1
+        k = min(spectrum_cfg.n_rows, v)
+        k_pad = 1 << (k - 1).bit_length()
+        tiles = -(-v // epilogue.TILE)
+        mark("check")
+        n = windows * v
+        sizes = [n, n, n, n, n, windows * 2 * tiles if tiles > 1 else 0,
+                 windows * k, windows * k, windows]
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        (w_n, s_n, w_a, s_a, scores, nodes, top_idx, top_scores, n_valid) = flat.split(sizes)
+        keys = None
+        if k_pad > epilogue.SMEM_KEYS:
+            keys = torch.empty(windows * k_pad, dtype=torch.int64, device=dev)
+        mark("outputs")
+        fields = []
+        for g, sv, w, s in ((normal, sv_n, w_n, s_n), (abnormal, sv_a, w_a, s_a)):
+            fields += [as_kernel_field(sv, torch.float32),
+                       as_kernel_field(g.op_present, torch.bool),
+                       *(as_kernel_field(x) for x in (g.cov_unique, g.n_traces, g.n_ops)), w, s]
+        mark("as_kernel_field")
+        ptrs = [x.data_ptr() for x in fields] + [
+            scores.data_ptr(), nodes.data_ptr() if tiles > 1 else None,
+            None if keys is None else keys.data_ptr(),
+            top_idx.data_ptr(), top_scores.data_ptr(), n_valid.data_ptr(),
+        ]
+        mark("data_ptr")
+        lib = epilogue.load_library()
+        mark("config")
+        (ctypes.c_void_p * len(ptrs))(*ptrs)
+        mark("ctypes_arrays")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        mark("current_stream")
+        args = epilogue.ARGS.pack(
+            *[x or 0 for x in ptrs[:14]], ptrs[14], ptrs[15] or 0, ptrs[16] or 0, ptrs[17],
+            ptrs[18], ptrs[19], 0, windows, v, k, k_pad, method,
+            epilogue.f32_bits(spectrum_cfg.eps),
+            epilogue.FORMS.index("first"), 1, v, 0, dev.index, stream)
+        mark("pack")
+        rc = lib.mr_rank_epilogue_launch(args)
+        check(rc == 0, f"first epilogue wrapper: launch failed ({rc})")
+        epilogue.rank_epilogue.launches += 1
+        mark("call")
+        top_idx, n_valid = top_idx.view(torch.int32), n_valid.view(torch.int32)
+        if not lead:
+            out = epilogue.Epilogue(w_n, w_a, s_n, s_a, top_idx, top_scores, n_valid.view(()))
+        else:
+            vec, top = lead + (v,), lead + (k,)
+            out = epilogue.Epilogue(w_n.view(vec), w_a.view(vec), s_n.view(vec), s_a.view(vec),
+                                    top_idx.view(top), top_scores.view(top), n_valid)
+        mark("outputs_views")
+        return out
+
+    return wrapper
+
+
+def today_setup_wrapper(torch, marks):
+    """``ops.setup.rank_setup`` on the card replicated part by part (the
+    check, the plan, the outputs, the pointers, the packed block, the
+    call), each part's host time added into ``marks``."""
+    from microrank_tpu_torch.ops import setup
+    from microrank_tpu_torch.ops.setup import as_kernel_field
+
+    def wrapper(normal, abnormal, cfg):
+        t = time.perf_counter()
+
+        def mark(label):
+            nonlocal t
+            now = time.perf_counter()
+            marks[label] = marks.get(label, 0.0) + (now - t)
+            t = now
+
+        dev = normal.kind.device
+        windows, v = setup._check(normal, abnormal)
+        t_n, t_a = normal.kind.shape[-1], abnormal.kind.shape[-1]
+        index = dev.index
+        mark("check")
+        plan = setup._plan(t_n, t_a, windows, v, index, False)
+        mark("plan")
+        sizes = (windows * t_n, windows * t_n, windows * v, windows * t_a, windows * t_a,
+                 windows * v, 0 if plan.form == "rows" else 2 * plan.tree_items)
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        views = torch.split_with_sizes(flat, sizes)
+        if normal.kind.dim() > 1:
+            views = [x.view(windows, n) for x, n in zip(views, (t_n, t_n, v, t_a, t_a, v))]
+        mark("outputs")
+        at = flat.data_ptr()
+        ptrs = []
+        for n in sizes:
+            ptrs.append(at)
+            at += 4 * n
+        words, fields = [], []
+        for g, out, t_pad in ((normal, ptrs[0:3], t_n), (abnormal, ptrs[3:6], t_a)):
+            part = [as_kernel_field(g.kind), as_kernel_field(g.tracelen),
+                    as_kernel_field(g.n_cols), as_kernel_field(g.n_traces),
+                    as_kernel_field(g.n_ops), as_kernel_field(g.op_present, torch.bool)]
+            fields += part
+            words += [f.data_ptr() for f in part] + [out[0], out[1], out[2], t_pad]
+        mark("pointers")
+        lib = setup.load_library()
+        args = setup.ARGS.pack(
+            *words, windows, v, setup.f32_bits(cfg.phi), int(cfg.preference == "paper"),
+            setup.FORMS.index(plan.form), plan.cluster, plan.grid, plan.hold,
+            ptrs[6] if sizes[6] else 0, 0, index,
+            torch._C._cuda_getCurrentRawStream(index))
+        mark("pack")
+        rc = lib.mr_rank_setup_launch(args)
+        check(rc == 0, f"set-up wrapper replica: launch failed ({rc})")
+        setup.rank_setup.launches += 1
+        mark("call")
+        return (views[0], views[2], views[1]), (views[3], views[5], views[4])
+
+    return wrapper
+
+
+def today_epilogue_wrapper(torch, marks):
+    """``today_setup_wrapper`` for ``ops.epilogue.rank_epilogue``."""
+    from microrank_tpu_torch.ops import epilogue
+    from microrank_tpu_torch.ops.setup import as_kernel_field
+
+    def wrapper(normal, abnormal, sv_n, sv_a, spectrum_cfg):
+        t = time.perf_counter()
+
+        def mark(label):
+            nonlocal t
+            now = time.perf_counter()
+            marks[label] = marks.get(label, 0.0) + (now - t)
+            t = now
+
+        dev = sv_n.device
+        method = epilogue.method_id(spectrum_cfg.method)
+        lead, v = epilogue._check(normal, abnormal, sv_n, sv_a)
+        windows = lead[0] if lead else 1
+        k = min(spectrum_cfg.n_rows, v)
+        index = dev.index
+        mark("check")
+        plan = epilogue._plan(v, k, windows, index, False)
+        mark("plan")
+        n = windows * v
+        sizes = (n, n, n, n, windows * k, windows * k, windows)
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        w_n, s_n, w_a, s_a, top_idx, top_scores, n_valid = torch.split_with_sizes(flat, sizes)
+        mark("outputs")
+        at = flat.data_ptr()
+        ptrs = []
+        for size in sizes:
+            ptrs.append(at if size else 0)
+            at += 4 * size
+        words, fields = [], []
+        for g, sv, out in ((normal, sv_n, ptrs[0:2]), (abnormal, sv_a, ptrs[2:4])):
+            part = [as_kernel_field(sv, torch.float32), as_kernel_field(g.op_present, torch.bool),
+                    as_kernel_field(g.cov_unique), as_kernel_field(g.n_traces),
+                    as_kernel_field(g.n_ops)]
+            fields += part
+            words += [f.data_ptr() for f in part] + [out[0], out[1]]
+        mark("pointers")
+        lib = epilogue.load_library()
+        args = epilogue.ARGS.pack(
+            *words, 0, 0, 0, ptrs[4], ptrs[5], ptrs[6], 0, windows, v, k, plan.k_pad, method,
+            epilogue.f32_bits(spectrum_cfg.eps), epilogue.FORMS.index(plan.form), plan.cluster,
+            plan.slice, plan.smem, index, torch._C._cuda_getCurrentRawStream(index))
+        mark("pack")
+        rc = lib.mr_rank_epilogue_launch(args)
+        check(rc == 0, f"epilogue wrapper replica: launch failed ({rc})")
+        epilogue.rank_epilogue.launches += 1
+        mark("call")
+        top_idx, n_valid = top_idx.view(torch.int32), n_valid.view(torch.int32)
+        if not lead:
+            out = epilogue.Epilogue(w_n, w_a, s_n, s_a, top_idx, top_scores, n_valid.view(()))
+        else:
+            out = epilogue.Epilogue(w_n.view(windows, v), w_a.view(windows, v),
+                                    s_n.view(windows, v), s_a.view(windows, v),
+                                    top_idx.view(windows, k), top_scores.view(windows, k),
+                                    n_valid)
+        mark("outputs_views")
+        return out
+
+    return wrapper
+
+
+def k6_host_split(torch, dgraph, cfg, kernel, reps=5, warm_ms=2.0):
+    """Where a K6 wrapper call's host time goes inside the rank program
+    (``rank_window_traced_core`` behind a ~100 ms spin, so no wait on
+    the device is in it), with wrappers put in place of the names
+    ``torch_cuda`` calls: today's wrappers timed whole (``today``);
+    today's replicated part by part (``today_parts``:
+    ``today_setup_wrapper``, ``today_epilogue_wrapper``); the first
+    design's wrappers replicated part by part (``first_parts``); and
+    today's timed whole after the host has run for ``warm_ms`` ms right
+    before the program (``today_warm``: the program then does not start
+    on a host just woken from the previous program's synchronize); and
+    today's timed whole with Python's garbage collector off for the
+    program (``today_nogc``). In turns (today, today_parts, first_parts,
+    today_warm, today_nogc, today_nogc, today_warm, first_parts,
+    today_parts, today); medians over ``reps`` programs of each side's
+    turns, in ms. Each program's ranking is bitwise the first
+    program's."""
+    import gc
+
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    saved = {name: getattr(tc, name) for name in ("rank_setup", "rank_epilogue")}
+
+    def timed(label, fn, marks):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            marks[label] = marks.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    makers = {
+        "today": lambda m: (saved["rank_setup"], saved["rank_epilogue"]),
+        "today_warm": lambda m: (saved["rank_setup"], saved["rank_epilogue"]),
+        "today_nogc": lambda m: (saved["rank_setup"], saved["rank_epilogue"]),
+        "today_parts": lambda m: (today_setup_wrapper(torch, m[0]),
+                                  today_epilogue_wrapper(torch, m[1])),
+        "first_parts": lambda m: (first_setup_wrapper(torch, m[0]),
+                                  first_epilogue_wrapper(torch, m[1])),
+    }
+    order = ("today", "today_parts", "first_parts", "today_warm", "today_nogc", "today_nogc",
+             "today_warm", "first_parts", "today_parts", "today")
+    want = None
+    rows = {side: [] for side in makers}
+    try:
+        for side in order:
+            for rep in range(reps + 1):
+                marks = ({}, {})
+                fns = makers[side](marks)
+                tc.rank_setup = timed("total", fns[0], marks[0])
+                tc.rank_epilogue = timed("total", fns[1], marks[1])
+                torch.cuda._sleep(PROGRAM_SPIN_CYCLES)
+                if side == "today_warm":
+                    until = time.perf_counter() + warm_ms / 1e3
+                    while time.perf_counter() < until:
+                        pass
+                if side == "today_nogc":
+                    gc.disable()
+                try:
+                    outs = tc.rank_window_traced_core(dgraph, cfg.pagerank, cfg.spectrum,
+                                                      kernel)
+                finally:
+                    gc.enable()
+                torch.cuda.synchronize()
+                got = [x.cpu() for x in outs[:3]]
+                if want is None:
+                    want = got
+                check(all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                      y.view(torch.int32) if y.dtype == torch.float32 else y)
+                          for x, y in zip(got, want)),
+                      f"k6 host split ({side}): the ranking differs from the first program's")
+                if rep:  # the first program of a turn warms it
+                    rows[side].append({"setup": marks[0], "epilogue": marks[1]})
+    finally:
+        for name, fn in saved.items():
+            setattr(tc, name, fn)
+    out = {"reps": reps, "order": ", ".join(order), "warm_ms": warm_ms}
+    for side, runs in rows.items():
+        out[side] = {
+            part: {label: round(_median([r[part].get(label, 0.0) for r in runs]) * 1e3, 4)
+                   for label in runs[0][part]}
+            for part in ("setup", "epilogue")}
+    return out
 
 
 def ptxas_all(report, kernel):
@@ -1113,6 +1596,26 @@ def ptxas_all(report, kernel):
     lines = [ln.strip() for ln in report.splitlines()]
     return [lines[k: k + 4] for k, ln in enumerate(lines)
             if "Compiling entry function" in ln and kernel in ln]
+
+
+def ptxas_spills(report, names):
+    """Registers and spill bytes of every kernel of a ``-Xptxas -v``
+    report whose name holds one of ``names``, keyed by that name (with
+    its bool template argument, where it has one)."""
+    out = {}
+    for lines in ptxas_all(report, ""):
+        name = next((n for n in names if n in lines[0]), None)
+        if name is None:
+            continue
+        text = " ".join(lines)
+        flag = re.search(name + r"ILb(\d)E", lines[0])
+        key = name + ("" if flag is None else f"<{'true' if flag.group(1) == '1' else 'false'}>")
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        check(regs and spill, f"ptxas: no report for {lines[0]}")
+        out[key] = {"registers": int(regs.group(1)), "spill_store_bytes": int(spill.group(1)),
+                    "spill_load_bytes": int(spill.group(2))}
+    return out
 
 
 def phase_env(torch, spmv, pattern, native):
@@ -1186,6 +1689,19 @@ def phase_env(torch, spmv, pattern, native):
     spilled = {k: v for k, v in group_ptxas.items()
                if v["spill_store_bytes"] or v["spill_load_bytes"]}
     check(not spilled, f"ptxas: step_grid_group spills: {spilled}")
+    # Every kernel of K6's two libraries without spill (the gate): the
+    # set-up's rows form (a block, a cluster), grid form and first
+    # design; the epilogue's window form (a block, a cluster) and first
+    # design.
+    k6_ptxas = {**ptxas_spills(ptxas_setup, ("setup_rows", "setup_grid", "setup_first")),
+                **ptxas_spills(ptxas_epilogue, ("epilogue_window", "epilogue_first"))}
+    want_k6 = {"setup_rows<false>", "setup_rows<true>", "setup_grid", "setup_first",
+               "epilogue_window<false>", "epilogue_window<true>", "epilogue_first"}
+    check(set(k6_ptxas) == want_k6, f"ptxas: K6 reports {sorted(k6_ptxas)}, want "
+                                    f"{sorted(want_k6)}")
+    spilled = {k: v for k, v in k6_ptxas.items()
+               if v["spill_store_bytes"] or v["spill_load_bytes"]}
+    check(not spilled, f"ptxas: K6 kernels spill: {spilled}")
     n_fold = tiny_fold_checks(torch, fold, dev)
     n_k6 = tiny_k6_checks(torch, dev)
     step_cfg = step.kernel_config(dev)
@@ -1213,9 +1729,15 @@ def phase_env(torch, spmv, pattern, native):
         "ptxas_rank_setup": [ln.strip() for ln in ptxas_setup.splitlines() if "ptxas" in ln],
         "ptxas_rank_epilogue": [ln.strip() for ln in ptxas_epilogue.splitlines()
                                 if "ptxas" in ln],
-        # K6's set-up: the cooperative grid's occupancy (blocks an SM).
+        # K6: the set-up's occupancy (blocks an SM of the grid form and
+        # of the first design), the epilogue's limits (the largest
+        # cluster this card holds), and every kernel's registers and
+        # spill bytes (0: the gate).
         "setup_kernel": {**setup.kernel_config(dev)._asdict(),
-                         "max_blocks": setup.kernel_config(dev).max_blocks},
+                         "grid_blocks": setup.kernel_config(dev).grid_blocks,
+                         "first_blocks": setup.kernel_config(dev).first_blocks},
+        "epilogue_kernel": epilogue.kernel_config(dev)._asdict(),
+        "k6_ptxas": k6_ptxas, "k6_spill_bytes": 0,
         # K5's fused kernel: each instantiation's ptxas lines
         # (registers, spills), the register slots a thread holds across
         # the barrier, and the occupancy that sizes every window's
@@ -2320,6 +2842,30 @@ def program_bound(spmv, card, int8=False):
     return total, total / HBM_BYTES_PER_S * 1e3
 
 
+def k6_bitwise(torch, tag, dgraph, cfg, kernel):
+    """K6's set-up and epilogue at a staged window's (or group's) shapes,
+    the epilogue on its program's final carries: each bitwise its plain
+    version and the first design's kernel on the card (not timed)."""
+    from microrank_tpu_torch.ops import epilogue, setup
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    pr, sp = cfg.pagerank, cfg.spectrum
+    g_n, g_a = dgraph.normal, dgraph.abnormal
+    want = setup_bits(torch, setup.rank_setup_plain(g_n, g_a, pr))
+    for first in (False, True):
+        check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr, first_design=first)),
+                          want), f"{tag}: K6's set-up (first design: {first}) differs from its "
+                                 "plain version")
+    program = tc._rank_program(dgraph, pr, sp, kernel)
+    svs = (program.sv_n, program.sv_a)
+    want = epilogue_bits(torch, epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp))
+    for first in (False, True):
+        check(torch.equal(epilogue_bits(torch, epilogue.rank_epilogue(
+            g_n, g_a, *svs, sp, first_design=first)), want),
+            f"{tag}: K6's epilogue (first design: {first}) differs from its plain version")
+    return True
+
+
 def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed=True):
     """The stacked rank program (K18) on the card, as the lane issues a
     group: its launches counted (25 of each kernel of the route for the
@@ -2467,6 +3013,7 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         card = staged(stack, "kind")
         tag = f"batched/kind/{b}"
         info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind", cfg)
+        info["k6_bitwise_vs_plain_and_first_design"] = k6_bitwise(torch, tag, card, cfg, "kind")
         launches[tag] = counts
         if b > 1:
             info["group_step"] = group_step_check(torch, f"{tag}/group_step", card)
@@ -2492,6 +3039,8 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
             tag = f"batched/kind_{precision}/{b}"
             info, counts = stacked_program(torch, spmv, pattern, tag, card, singles[:b], "kind",
                                            pcfg, timed=b == 6 and precision == "int8")
+            info["k6_bitwise_vs_plain_and_first_design"] = k6_bitwise(torch, tag, card, pcfg,
+                                                                      "kind")
             launches[tag] = counts
             int8 = precision == "int8"
             info["group_step"] = group_step_check(torch, f"{tag}/group_step", card,
@@ -2524,6 +3073,7 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         tag = f"batched/{kernel}/2"
         info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single],
                                        kernel, gcfg, timed=False)
+        info["k6_bitwise_vs_plain_and_first_design"] = k6_bitwise(torch, tag, card, gcfg, kernel)
         launches[tag] = counts
         info["group_step"] = group_step_check(torch, f"{tag}/group_step", card)
         if plain_on_cpu:
@@ -3996,6 +4546,9 @@ def phase_step(torch, graphs, reps):
     # tie / NaN sweep.
     out["k6"] = measure_k6(torch, "step/k6", kind, MicroRankConfig(), "kind", reps)
     out["k6_sweep"] = epilogue_sweep(torch, dev)
+    # Where a K6 wrapper call's host time goes inside the kind program:
+    # the first design's wrappers part by part against today's, in turns.
+    out["k6_host_split"] = k6_host_split(torch, kind, MicroRankConfig(), "kind")
     # The fixed-order fold at the uncollapsed config-5 window's set-up
     # shape (its trace axis; the kind window's columns are few).
     out["fold"] = measure_fold(torch, fold, "step/fold", graphs["auto/off"], reps)
@@ -4192,6 +4745,7 @@ def giant_stacked(torch, spmv, pattern, graph, single, kernel, cfg):
     staging_ms = (time.perf_counter() - t0) * 1e3
     info, counts = stacked_program(torch, spmv, pattern, tag, card, [single, single], kernel, gcfg)
     peak = torch.cuda.max_memory_allocated()
+    info["k6_bitwise_vs_plain_and_first_design"] = k6_bitwise(torch, tag, card, gcfg, kernel)
     info["group_step"] = group_step_check(torch, f"{tag}/group_step", card)
     info.update(stacked_kernel_checks(torch, spmv, pattern, tag, card, None, [single, single]))
     info.update({
@@ -4779,18 +5333,29 @@ def main(argv=None) -> int:
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:44",
             # One launch a program (a stacked group's one for all its
             # windows): jax_tpu.py:44 preference_vector and :285
-            # _partition_setup's initial vectors, both partitions.
+            # _partition_setup's initial vectors, both partitions. The
+            # rows form (setup_rows: a block or a cluster a row) or, for
+            # rows past 8 tiles, the grid form (setup_grid); the first
+            # design (setup_first) timed in turns.
+            "kernels": ["setup_rows", "setup_grid"],
             "launches": sum(c["setup_launches"] for c in launches.values()),
             "stacked_launches": stacked_launches("setup_launches"),
             "max_abs_err": 0.0,
-            # One launch at the 10M-span window's set-up shape
-            # (_config5_kind: the collapsed config-5 kind window's). No
-            # single PyTorch call computes the set-up: library_ms null.
+            # One launch at the 10M-span window's set-up shape (the grid
+            # form; _config5_kind: the collapsed config-5 kind window's,
+            # a block a row). No single PyTorch call computes the
+            # set-up: library_ms null.
             "ms": k6["setup"]["ms"],
+            "first_design_ms": k6["setup"]["first_design_ms"],
             "ms_config5_kind": k6_c5["setup"]["ms"],
+            "first_design_ms_config5_kind": k6_c5["setup"]["first_design_ms"],
+            "form": k6["setup"]["plan"]["form"],
+            "form_config5_kind": k6_c5["setup"]["plan"]["form"],
+            "host_issue_ms": k6["setup"]["host_issue_ms"],
             "plain_ms": k6["setup"]["plain_ms"],
             "plain_ms_config5_kind": k6_c5["setup"]["plain_ms"],
             "bound_ms": k6["setup"]["bound_ms"],
+            "bound_ms_config5_kind": k6_c5["setup"]["bound_ms"],
             "bound_by": k6["setup"]["bound_by"],
             "library_ms": None,
         },
@@ -4799,19 +5364,25 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/rank_epilogue.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:882",
-            # One launch a program (a block a window of a stacked group):
-            # jax_tpu.py:882 _partition_finish, :971 spectrum_counters,
-            # :1006 window_spectrum, :1046 top_k_tiebroken, :1068
-            # _finish_topk.
+            # One launch a program (a block, or a cluster, a window of a
+            # stacked group): jax_tpu.py:882 _partition_finish, :971
+            # spectrum_counters, :1006 window_spectrum, :1046
+            # top_k_tiebroken, :1068 _finish_topk. epilogue_window; the
+            # first design (epilogue_first) timed in turns.
+            "kernels": ["epilogue_window"],
             "launches": sum(c["epilogue_launches"] for c in launches.values()),
             "stacked_launches": stacked_launches("epilogue_launches"),
             "max_abs_err": 0.0,
-            # One launch at the config-5 kind window (8,192 ops; the
+            # One launch at the config-5 kind window (3,072 ops; the
             # 10M-span window's 2,048 in _giant_10m); library_ms is the
             # top-k alone, one stable torch.sort of the negated scores
             # (no PyTorch call computes the finish and the spectrum).
             "ms": k6_c5["epilogue"]["ms"],
+            "first_design_ms": k6_c5["epilogue"]["first_design_ms"],
             "ms_giant_10m": k6["epilogue"]["ms"],
+            "first_design_ms_giant_10m": k6["epilogue"]["first_design_ms"],
+            "form": f'{k6_c5["epilogue"]["plan"]["form"]}/{k6_c5["epilogue"]["plan"]["select"]}',
+            "host_issue_ms": k6_c5["epilogue"]["host_issue_ms"],
             "plain_ms": k6_c5["epilogue"]["plain_ms"],
             "plain_ms_giant_10m": k6["epilogue"]["plain_ms"],
             "bound_ms": k6_c5["epilogue"]["bound_ms"],

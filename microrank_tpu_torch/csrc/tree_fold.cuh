@@ -98,4 +98,61 @@ __device__ __forceinline__ float fold_tiles(const float* nodes, int n, float* st
   return tile_tree(nodes, (n + kTile - 1) / kTile, stage, warp_sums);
 }
 
+// The same tree folded by a block of kWideThreads threads, each holding
+// kWidePerThread consecutive leaves in registers (thread t the leaves
+// [4t, 4t + 4) of a tile): levels 1-2 in the thread, 3-7 by the warp's
+// shuffles, 8-12 by one warp over the 32 warps' nodes. Every node is
+// its left child plus its right child where that starts before the
+// count, so the bits are stage_tree's whatever the thread split.
+constexpr int kWideThreads = 1024;
+constexpr int kWidePerThread = kTile / kWideThreads;  // 4
+constexpr int kWideWarps = kWideThreads / 32;         // 32
+constexpr int kWarpSpan = 32 * kWidePerThread;        // leaves a warp's node covers
+static_assert(kWidePerThread == 4 && kWideWarps == 32, "a wide tile is 1024 x 4");
+
+// The tree over 32 nodes, node l in lane l, each covering `span` leaves
+// from l * span; nodes at or past `count` leaves are skipped. The
+// result in lane 0.
+__device__ __forceinline__ float warp_tree(float x, int count, int span) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const float other = __shfl_down_sync(0xffffffffu, x, o);
+    if ((lane & (2 * o - 1)) == 0 && (lane + o) * span < count) x = __fadd_rn(x, other);
+  }
+  return x;
+}
+
+// A thread's four leaves folded to its level-2 node (leaves past count
+// are never read).
+__device__ __forceinline__ float quad_tree(const float (&v)[kWidePerThread], int count) {
+  const int base = kWidePerThread * threadIdx.x;
+  const float lo = base + 1 < count ? __fadd_rn(v[0], v[1]) : v[0];
+  const float hi = base + 3 < count ? __fadd_rn(v[2], v[3]) : v[2];
+  return base + 2 < count ? __fadd_rn(lo, hi) : lo;
+}
+
+// Two trees over one tile of count <= kTile leaves by a block of
+// kWideThreads threads, a's and b's leaves [4t, 4t + 4) in thread t;
+// warp_sums holds 2 * kWideWarps floats. The results in thread 0. Ends
+// synchronized: warp_sums may be reused.
+__device__ __forceinline__ void wide_tree2(const float (&a)[kWidePerThread],
+                                           const float (&b)[kWidePerThread], int count,
+                                           float* warp_sums, float& sum_a, float& sum_b) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int in_warp = count - warp * kWarpSpan;
+  const float node_a = warp_tree(quad_tree(a, count), in_warp, kWidePerThread);
+  const float node_b = warp_tree(quad_tree(b, count), in_warp, kWidePerThread);
+  if (lane == 0) {
+    warp_sums[warp] = node_a;
+    warp_sums[kWideWarps + warp] = node_b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    sum_a = warp_tree(warp_sums[lane], count, kWarpSpan);
+    sum_b = warp_tree(warp_sums[kWideWarps + lane], count, kWarpSpan);
+  }
+  __syncthreads();
+}
+
 }  // namespace mr_tree

@@ -22,18 +22,25 @@ and ``:1068`` ``_finish_topk``. From each partition's final carry sv:
 ``rank_epilogue(normal, abnormal, sv_n, sv_a, cfg)`` gives an
 ``Epilogue``: on CPU tensors from ``rank_epilogue_plain`` (the port's
 eager code as it stood, op for op; its sums ``fold_rows``, its order a
-stable ``torch.sort``); on CUDA tensors from one launch of the kernel, a
-block a window of a stacked group, counted in
-``rank_epilogue.launches`` — or it raises: there is no fallback for a
-CUDA tensor. Nothing here waits for the card.
+stable ``torch.sort``); on CUDA tensors from one launch for every window
+of a stacked group, counted in ``rank_epilogue.launches`` — or it
+raises: there is no fallback for a CUDA tensor. ``epilogue_plan``
+(pure) picks the launch's form: a block of 1,024 threads a window
+holding its inputs in shared memory (up to 8,192 ops), a cluster of
+such blocks a window (up to 8 x 8,192), else the first design; and the
+top-k's: a warp-select for k <= 32, a radix select past it. The host
+side is one check, one allocation and one call with one packed
+argument block (``ARGS``). Nothing here waits for the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 import threading
 from pathlib import Path
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -42,9 +49,8 @@ from ..graph.structures import PartitionGraph
 from ..spectrum.formulas import FORMULAS, spectrum_scores
 from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
 from .fold import MAX_WIDTH, TREE_HEADER, fold_rows
-from .setup import as_kernel_field
+from .setup import as_kernel_field, f32_bits
 from .spmv import nvcc
-from .step import f32_value
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rank_epilogue.cu"
 LIB_PATH = BUILD_DIR / "libmr_rank_epilogue.so"
@@ -166,35 +172,161 @@ def rank_epilogue_plain(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, 
     return Epilogue(n_weight, a_weight, score_n, score_a, top_idx, top_scores, n_valid)
 
 
+TILE = 4096          # ops a tile of the finish's tree (csrc/tree_fold.cuh kTile)
+SLICE_MAX = 2 * TILE  # ops a block of the window forms holds (kSliceMax)
+WARP_K = 32           # k up to this: the warp-select (kWarpK)
+
+# The forms of a launch (csrc ``Form``): a block a window; a cluster of
+# blocks a window, each a slice of whole tiles; the first design (a
+# block of 256 threads a window streaming through global memory: past
+# what a cluster holds, and for comparison).
+FORMS = ("block", "cluster", "first")
+
+
+class KernelConfig(NamedTuple):
+    """What the epilogue kernels get on one card (``mr_rank_epilogue_config``)."""
+
+    sms: int
+    slice_max: int    # ops a block holds (kSliceMax)
+    cluster_max: int  # blocks a window's cluster may have on this card
+    warp_k: int       # k up to this: the warp-select (kWarpK)
+    smem_keys: int    # keys block 0 sorts in shared memory (kSmemKeys)
+    tile: int
+
+
+# An H100 SXM: the CPU tests' card.
+H100 = KernelConfig(132, SLICE_MAX, 8, WARP_K, SMEM_KEYS, TILE)
+
+
+def row_bytes(n: int, elt: int) -> int:
+    """Shared memory of an input row of ``n`` elements of ``elt`` bytes
+    (16 bytes of room for its alignment; csrc ``row_bytes``)."""
+    return (n * elt + 31) // 16 * 16
+
+
+def window_smem(slice_: int) -> int:
+    """A window block's dynamic shared memory (csrc ``window_smem``): the
+    key lists, then sv and cov_unique (4 bytes) and op_present (1 byte)
+    of both partitions."""
+    return SMEM_KEYS * 8 + 4 * row_bytes(slice_, 4) + 2 * row_bytes(slice_, 1)
+
+
+class EpiloguePlan(NamedTuple):
+    """One launch of the epilogue, as the host plans it (``epilogue_plan``)."""
+
+    form: str      # one of FORMS
+    select: str    # "warp" (k <= warp_k), "radix", or the first design's "first"
+    cluster: int   # blocks a window
+    slice: int     # ops a block (the window forms)
+    k_pad: int     # the least power of two >= k (the radix select's sort)
+    smem: int      # a block's dynamic shared memory, bytes
+
+
+def epilogue_plan(v: int, k: int, windows: int, card: KernelConfig,
+                  first_design: bool = False) -> EpiloguePlan:
+    """The epilogue's launch for ``windows`` windows of ``v`` ops and a
+    top-``k`` on ``card``: a block a window while ``v`` fits a block's
+    shared memory (``card.slice_max`` ops); else a cluster of the least
+    power of two blocks that holds it, at most ``card.cluster_max``, each
+    a slice of whole tiles; past that (and with ``first_design``) the
+    first design. The top-k: the warp-select for k <= ``card.warp_k``,
+    else a radix select (keys sorted in scratch past ``card.smem_keys``).
+    Pure: the C library checks the same rules again."""
+    if not 1 <= v <= MAX_WIDTH or not 1 <= k <= v or not 1 <= windows <= 65535:
+        raise ValueError(f"epilogue_plan: 1 to {MAX_WIDTH} ops, 1 <= k <= ops and 1 to 65535 "
+                         f"windows (got {v}, {k}, {windows})")
+    k_pad = 1 << (k - 1).bit_length()
+    if first_design or v > card.cluster_max * card.slice_max:
+        return EpiloguePlan("first", "first", 1, v, k_pad, 0)
+    select = "warp" if k <= card.warp_k else "radix"
+    if v <= card.slice_max:
+        return EpiloguePlan("block", select, 1, v, k_pad, window_smem(v))
+    cluster = 1 << (-(-v // card.slice_max) - 1).bit_length()
+    slice_ = card.tile * -(-(-(-v // card.tile)) // cluster)
+    return EpiloguePlan("cluster", select, cluster, slice_, k_pad, window_smem(slice_))
+
+
+_configs: Dict[int, KernelConfig] = {}
+
+
+def kernel_config(device) -> KernelConfig:
+    """The epilogue kernels' limits on ``device`` (a CUDA device), asked
+    once per card and kept."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _configs:
+        lib = load_library()
+        out = (ctypes.c_int32 * 8)()
+        rc = lib.mr_rank_epilogue_config(index, out)
+        if rc != 0:
+            raise RuntimeError(f"rank_epilogue: device query failed: "
+                               f"{lib.mr_rank_epilogue_error_string(rc).decode()}")
+        cfg = KernelConfig(*out[:6])
+        if (cfg.slice_max, cfg.warp_k, cfg.smem_keys, cfg.tile) != (
+                SLICE_MAX, WARP_K, SMEM_KEYS, TILE) or out[6] != ARGS.size // 8 or out[7] != STAMPS:
+            raise RuntimeError("rank_epilogue: the library's limits or argument block are not "
+                               "the wrapper's")
+        _configs[index] = cfg
+    return _configs[index]
+
+
 def _check(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, sv_a):
     """The epilogue's inputs as the kernel reads them: (lead, V)."""
-    lead = tuple(sv_n.shape[:-1])
-    v = sv_n.shape[-1]
+    shape = sv_n.shape
+    lead = shape[:-1]
+    v = shape[-1]
     if len(lead) > 1:
         raise ValueError("rank_epilogue: vectors are [V], or [B, V] for a group of B windows")
     if not 1 <= v <= MAX_WIDTH:
         raise ValueError(f"rank_epilogue: 1 to {MAX_WIDTH} ops")
     if lead and not 1 <= lead[0] <= 65535:
         raise ValueError("rank_epilogue: 1 to 65535 windows")
-    dev = sv_n.device
+    index = sv_n.get_device()
     for g, sv in ((normal, sv_n), (abnormal, sv_a)):
-        if sv.shape != sv_n.shape or sv.dtype != torch.float32 or sv.device != dev:
-            raise ValueError(f"rank_epilogue: sv must be float32 {tuple(sv_n.shape)} on {dev}")
-        if (g.op_present.shape != sv.shape or g.cov_unique.shape != sv.shape
-                or tuple(g.n_traces.shape) != lead or tuple(g.n_ops.shape) != lead):
+        if sv.shape != shape or sv.dtype != torch.float32 or sv.get_device() != index:
+            raise ValueError(f"rank_epilogue: sv must be float32 {tuple(shape)} on "
+                             f"{sv_n.device}")
+        if (g.op_present.shape != shape or g.cov_unique.shape != shape
+                or g.n_traces.shape != lead or g.n_ops.shape != lead):
             raise ValueError("rank_epilogue: the partitions' shapes do not match sv")
         if g.op_present.dtype != torch.bool:
             raise ValueError("rank_epilogue: op_present must be bool")
-        if any(t.device != dev for t in (g.op_present, g.cov_unique, g.n_traces, g.n_ops)):
-            raise ValueError(f"rank_epilogue: every field must lie on {dev}")
-    return lead, v
+        if (g.op_present.get_device() != index or g.cov_unique.get_device() != index
+                or g.n_traces.get_device() != index or g.n_ops.get_device() != index):
+            raise ValueError(f"rank_epilogue: every field must lie on {sv_n.device}")
+    return tuple(lead), v
+
+
+# The argument block of ``mr_rank_epilogue_launch`` (csrc ``Word``): each
+# partition's seven pointers, the first design's scores and nodes, keys,
+# top_idx, top_scores, n_valid, stamps, then windows, v, k, k_pad,
+# method, eps's float32 bits, form, cluster, slice, smem, device, stream.
+ARGS = struct.Struct("<33q")
+# The phases the window form stamps (csrc kStamps): its start, the slice
+# loaded, the maxima, the scores, the totals, the spectrum, the block's
+# selection, the top-k written.
+STAMPS = 8
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(v: int, k: int, windows: int, index: int, first_design: bool) -> EpiloguePlan:
+    return epilogue_plan(v, k, windows, kernel_config(index), first_design)
 
 
 def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.Tensor,
-                  sv_a: torch.Tensor, spectrum_cfg: SpectrumConfig) -> Epilogue:
+                  sv_a: torch.Tensor, spectrum_cfg: SpectrumConfig,
+                  first_design: bool = False,
+                  stamps: Optional[torch.Tensor] = None) -> Epilogue:
     """``rank_epilogue_plain``'s results: CPU tensors run it; CUDA tensors
-    launch the epilogue kernel once (a block a window) or raise. The
-    outputs are views of one fresh allocation, each contiguous."""
+    launch the epilogue once (every window of a group), in the form
+    ``epilogue_plan`` picks, or raise. ``first_design``: the first
+    design's kernel (a comparison, off the main path). ``stamps``: an
+    int64 tensor of ``STAMPS`` on the card, where the window form writes
+    the SM cycle count at each phase of the first window (a measurement;
+    None on the main path). The outputs are views of one fresh
+    allocation, each contiguous. The host side is one check of the
+    fields, one allocation, and one call with one packed argument
+    block."""
     dev = sv_n.device
     if dev.type == "cpu":
         return rank_epilogue_plain(normal, abnormal, sv_n, sv_a, spectrum_cfg)
@@ -206,34 +338,43 @@ def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.
     k = min(spectrum_cfg.n_rows, v)
     if k < 1:
         raise ValueError("rank_epilogue: k = min(n_rows, V) must be at least 1")
-    k_pad = 1 << (k - 1).bit_length()
-    tiles = -(-v // 4096)
-    # weight, score of each partition, the canonical scores, the tile
-    # nodes, top_idx, top_scores, n_valid.
+    index = dev.index
+    plan = _plan(v, k, windows, index, first_design)
+    first = plan.form == "first"
+    tiles = -(-v // TILE)
+    # weight, score of each partition, top_idx, top_scores, n_valid; the
+    # first design's canonical scores and tile nodes.
     n = windows * v
-    sizes = [n, n, n, n, n, windows * 2 * tiles if tiles > 1 else 0,
-             windows * k, windows * k, windows]
+    sizes = (n, n, n, n, windows * k, windows * k, windows)
+    if first:
+        sizes += (n, windows * 2 * tiles if tiles > 1 else 0)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    (w_n, s_n, w_a, s_a, scores, nodes, top_idx, top_scores, n_valid) = flat.split(sizes)
+    w_n, s_n, w_a, s_a, top_idx, top_scores, n_valid = torch.split_with_sizes(flat, sizes)[:7]
+    at = flat.data_ptr()
+    ptrs = []
+    for size in sizes:
+        ptrs.append(at if size else 0)
+        at += 4 * size
     keys = None
-    if k_pad > SMEM_KEYS:
-        keys = torch.empty(windows * k_pad, dtype=torch.int64, device=dev)
-    fields = []
-    for g, sv, w, s in ((normal, sv_n, w_n, s_n), (abnormal, sv_a, w_a, s_a)):
-        fields += [as_kernel_field(sv, torch.float32), as_kernel_field(g.op_present, torch.bool),
-                   *(as_kernel_field(t) for t in (g.cov_unique, g.n_traces, g.n_ops)), w, s]
-    ptrs = [t.data_ptr() for t in fields] + [
-        scores.data_ptr(), nodes.data_ptr() if tiles > 1 else None,
-        None if keys is None else keys.data_ptr(),
-        top_idx.data_ptr(), top_scores.data_ptr(), n_valid.data_ptr(),
-    ]
+    if plan.k_pad > SMEM_KEYS:
+        keys = torch.empty(windows * plan.k_pad, dtype=torch.int64, device=dev)
+    # The fields as the kernel reads them (a converted copy is held here
+    # until the call has taken its pointer).
+    words, fields = [], []
+    for g, sv, out in ((normal, sv_n, ptrs[0:2]), (abnormal, sv_a, ptrs[2:4])):
+        part = [as_kernel_field(sv, torch.float32), as_kernel_field(g.op_present, torch.bool),
+                as_kernel_field(g.cov_unique), as_kernel_field(g.n_traces),
+                as_kernel_field(g.n_ops)]
+        fields += part
+        words += [f.data_ptr() for f in part] + [out[0], out[1]]
     lib = load_library()
-    rc = lib.mr_rank_epilogue(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), windows, v, k, k_pad, method,
-        f32_value(spectrum_cfg.eps),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    rc = lib.mr_rank_epilogue_launch(ARGS.pack(
+        *words, ptrs[7] if first else 0, ptrs[8] if first else 0,
+        0 if keys is None else keys.data_ptr(), ptrs[4], ptrs[5],
+        ptrs[6], 0 if stamps is None else stamps.data_ptr(), windows, v, k, plan.k_pad, method,
+        f32_bits(spectrum_cfg.eps),
+        FORMS.index(plan.form), plan.cluster, plan.slice, plan.smem, index,
+        torch._C._cuda_getCurrentRawStream(index)))
     if rc != 0:
         raise RuntimeError(
             f"rank_epilogue launch failed: {lib.mr_rank_epilogue_error_string(rc).decode()}"
@@ -242,9 +383,9 @@ def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.
     top_idx, n_valid = top_idx.view(torch.int32), n_valid.view(torch.int32)
     if not lead:
         return Epilogue(w_n, w_a, s_n, s_a, top_idx, top_scores, n_valid.view(()))
-    vec, top = lead + (v,), lead + (k,)
-    return Epilogue(w_n.view(vec), w_a.view(vec), s_n.view(vec), s_a.view(vec),
-                    top_idx.view(top), top_scores.view(top), n_valid)
+    return Epilogue(w_n.view(windows, v), w_a.view(windows, v), s_n.view(windows, v),
+                    s_a.view(windows, v), top_idx.view(windows, k), top_scores.view(windows, k),
+                    n_valid)
 
 
 # Launches of the epilogue kernel (a plain int; rank_epilogue is the one
@@ -286,13 +427,10 @@ def load_library() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the library's C signatures."""
-    i32 = ctypes.c_int32
-    lib.mr_rank_epilogue.restype = ctypes.c_int
-    lib.mr_rank_epilogue.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), i32, i32, i32, i32,  # ptrs, windows, v, k, k_pad
-        i32, ctypes.c_float,                                  # method, eps
-        ctypes.c_int, ctypes.c_void_p,                        # device, stream
-    ]
+    lib.mr_rank_epilogue_config.restype = ctypes.c_int
+    lib.mr_rank_epilogue_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int32)]
+    lib.mr_rank_epilogue_launch.restype = ctypes.c_int
+    lib.mr_rank_epilogue_launch.argtypes = [ctypes.c_char_p]  # ARGS, packed
     lib.mr_rank_epilogue_error_string.restype = ctypes.c_char_p
     lib.mr_rank_epilogue_error_string.argtypes = [ctypes.c_int]
     return lib

@@ -18,19 +18,27 @@ the initial vectors of ``:285`` ``_partition_setup``. Per partition
 ``rank_setup(normal, abnormal, cfg)`` gives both partitions' triples:
 on CPU tensors from ``rank_setup_plain`` (the port's eager code as it
 stood, op for op, its sums ``fold_rows``); on CUDA tensors from one
-cooperative launch of the kernel for both partitions and, for a stacked
-group of B windows ([B, T] partitions, [B] counts), every window,
-counted in ``rank_setup.launches`` — or it raises: there is no fallback
-for a CUDA tensor. Nothing here waits for the card: the grid's size
-comes from an occupancy query made once per card (``kernel_config``).
+launch for both partitions and, for a stacked group of B windows ([B, T]
+partitions, [B] counts), every window, counted in
+``rank_setup.launches`` — or it raises: there is no fallback for a CUDA
+tensor. ``setup_plan`` (pure) picks the launch's form: a block (rows of
+one tile of 4,096 columns) or a cluster of blocks (up to 8 tiles) a
+row, no grid barrier; a cooperative grid for longer rows (the giant
+windows); the first design only when asked (``first_design=True``, a
+comparison). The wrapper's host side is one check of the fields, one
+allocation and one call with one packed argument block (``ARGS``).
+Nothing here waits for the card: the occupancy is asked once per card
+(``kernel_config``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 import threading
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,7 +47,6 @@ from ..graph.structures import PartitionGraph
 from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
 from .fold import MAX_WIDTH, TREE_HEADER, fold_rows
 from .spmv import nvcc
-from .step import f32_value
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rank_setup.cu"
 LIB_PATH = BUILD_DIR / "libmr_rank_setup.so"
@@ -120,42 +127,106 @@ def rank_setup_plain(normal: PartitionGraph, abnormal: PartitionGraph,
 
 
 class KernelConfig(NamedTuple):
-    """What the set-up kernel gets on one card (``mr_rank_setup_config``)."""
+    """What the set-up kernels get on one card (``mr_rank_setup_config``)."""
 
     cooperative: bool     # the card takes a cooperative launch
-    blocks_per_sm: int    # resident blocks of the kernel an SM (occupancy)
     sms: int
-    threads: int          # threads a block
-    tile: int             # columns a work item
+    first_per_sm: int     # resident blocks an SM: the first design's (256 threads)
+    grid_per_sm: int      # the grid form's (1024 threads, HOLD_MAX held tiles)
+    tile: int             # columns a tile (csrc kTile)
+    hold_max: int         # tiles a block of the grid form holds (kHoldMax)
+    cluster_max: int      # tiles a row of the rows form (kClusterMax)
 
     @property
-    def max_blocks(self) -> int:
-        """The largest grid the card holds resident: the cooperative limit."""
-        return self.blocks_per_sm * self.sms
+    def first_blocks(self) -> int:
+        """The first design's largest resident grid (its cooperative limit)."""
+        return self.first_per_sm * self.sms
+
+    @property
+    def grid_blocks(self) -> int:
+        """The grid form's largest resident grid."""
+        return self.grid_per_sm * self.sms
+
+
+# What an H100 SXM gives (132 SMs; one 1024-thread block an SM with the
+# held tiles; 5 blocks of the first design): the CPU tests' card.
+H100 = KernelConfig(True, 132, 5, 1, TILE, 6, 8)
+
+# The forms of a launch (csrc ``Form``): a block or a cluster of blocks a
+# (partition, window) row; a cooperative grid holding the live tiles;
+# the first design.
+FORMS = ("rows", "grid", "first")
+
+
+class SetupPlan(NamedTuple):
+    """One launch of the set-up, as the host plans it (``setup_plan``)."""
+
+    form: str         # one of FORMS
+    cluster: int      # rows: blocks a row (1: a plain launch, a block a row)
+    grid: int         # blocks launched
+    hold: int         # grid: tiles a block holds across the barrier
+    tree_items: int   # tiles over both partitions' rows (2 nodes each)
+
+
+def setup_plan(t_pads: Sequence[int], windows: int, v: int, card: KernelConfig,
+               first_design: bool = False) -> SetupPlan:
+    """The set-up's launch for trace pads ``t_pads`` (normal, abnormal),
+    ``windows`` windows and ``v`` ops on ``card``: rows of at most
+    ``card.cluster_max`` tiles of ``TILE`` columns take a cluster of C
+    blocks a row, C the least power of two that holds the widest row (a
+    row of one tile: a block, no cluster); longer rows a cooperative grid
+    of at most ``card.grid_blocks`` blocks, each holding up to
+    ``card.hold_max`` of its tiles across the barrier. ``first_design``:
+    the first design's grid (a block a tile item, then a block an sv0
+    tile, at most ``card.first_blocks``). Pure: the C library checks the
+    same rules again."""
+    t_pads = [int(t) for t in t_pads]
+    if (len(t_pads) != 2 or min(t_pads) < 0 or max(t_pads) > MAX_WIDTH or windows < 1
+            or v < 0):
+        raise ValueError(f"setup_plan: two trace pads of 0 to {MAX_WIDTH}, windows >= 1 and "
+                         f"v >= 0 (got {t_pads}, {windows}, {v})")
+    tiles = [-(-t // card.tile) for t in t_pads]
+    tree_items = windows * sum(tiles)
+    if first_design:
+        items = tree_items + 2 * windows * -(-v // card.tile)
+        if card.first_blocks < 1:
+            raise ValueError("setup_plan: the card holds no block of the first design")
+        return SetupPlan("first", 1, min(items, card.first_blocks), 0, tree_items)
+    most = max(tiles)
+    if most <= card.cluster_max:
+        cluster = 1 << max(most - 1, 0).bit_length()
+        return SetupPlan("rows", cluster, 2 * windows * cluster, 0, tree_items)
+    if card.grid_blocks < 1:
+        raise ValueError("setup_plan: the card holds no block of the grid form")
+    grid = min(tree_items, card.grid_blocks)
+    return SetupPlan("grid", 1, grid, min(-(-tree_items // grid), card.hold_max), tree_items)
 
 
 _configs: Dict[int, KernelConfig] = {}
 
 
 def kernel_config(device) -> KernelConfig:
-    """The set-up kernel's occupancy on ``device`` (a CUDA device), asked
+    """The set-up kernels' occupancy on ``device`` (a CUDA device), asked
     once per card and kept."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     if index not in _configs:
         lib = load_library()
-        out = (ctypes.c_int32 * 5)()
+        out = (ctypes.c_int32 * 9)()
         rc = lib.mr_rank_setup_config(index, out)
         if rc != 0:
             raise RuntimeError(
                 f"rank_setup: device query failed: {lib.mr_rank_setup_error_string(rc).decode()}"
             )
-        cfg = KernelConfig(bool(out[0]), *out[1:])
-        if not cfg.cooperative or cfg.max_blocks < 1:
+        if out[4] != TILE or out[7] != ARGS.size // 8 or out[8] != STAMPS:
+            raise RuntimeError("rank_setup: the library's tile or argument block is not the "
+                               "wrapper's")
+        cfg = KernelConfig(bool(out[0]), *out[1:7])
+        if not cfg.cooperative or cfg.first_blocks < 1 or cfg.grid_blocks < 1:
             raise RuntimeError(
                 f"rank_setup: {torch.cuda.get_device_name(index)} takes no cooperative launch "
-                f"of the set-up kernel (cooperative={cfg.cooperative}, "
-                f"blocks an SM={cfg.blocks_per_sm}); its grid barrier needs one"
+                f"of the set-up's grid (cooperative={cfg.cooperative}, blocks an SM="
+                f"{cfg.first_per_sm}, {cfg.grid_per_sm}); the giant windows' rows need one"
             )
         _configs[index] = cfg
     return _configs[index]
@@ -172,18 +243,19 @@ def as_kernel_field(t: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
 
 def _check(normal: PartitionGraph, abnormal: PartitionGraph) -> Tuple[int, int]:
     """The two partitions' shapes as the kernel reads them: (windows, V)."""
-    lead = tuple(normal.kind.shape[:-1])
+    kind = normal.kind
+    lead = kind.shape[:-1]
     if len(lead) > 1:
         raise ValueError("rank_setup: partitions are [T], or [B, T] for a group of B windows")
     v = normal.op_present.shape[-1]
-    dev = normal.kind.device
+    index = kind.get_device()
     for g in (normal, abnormal):
-        if any(t.device != dev for t in (g.kind, g.tracelen, g.n_cols, g.n_traces, g.n_ops,
-                                         g.op_present)):
-            raise ValueError(f"rank_setup: every field must lie on {dev}")
-        if (tuple(g.kind.shape[:-1]) != lead or g.tracelen.shape != g.kind.shape
-                or g.op_present.shape != lead + (v,)
-                or any(tuple(t.shape) != lead for t in (g.n_cols, g.n_traces, g.n_ops))):
+        fields = (g.kind, g.tracelen, g.n_cols, g.n_traces, g.n_ops, g.op_present)
+        if any(t.get_device() != index for t in fields):
+            raise ValueError(f"rank_setup: every field must lie on {kind.device}")
+        if (g.kind.shape[:-1] != lead or g.tracelen.shape != g.kind.shape
+                or g.op_present.shape != lead + (v,) or g.n_cols.shape != lead
+                or g.n_traces.shape != lead or g.n_ops.shape != lead):
             raise ValueError("rank_setup: the partitions' shapes do not match")
         if g.op_present.dtype != torch.bool:
             raise ValueError("rank_setup: op_present must be bool")
@@ -192,12 +264,42 @@ def _check(normal: PartitionGraph, abnormal: PartitionGraph) -> Tuple[int, int]:
     return (lead[0] if lead else 1), v
 
 
+# The argument block of ``mr_rank_setup_launch`` (csrc ``Word``): each
+# partition's nine pointers and trace pad, then windows, v, phi's float32
+# bits, paper, form, cluster, grid, hold, partial, stamps, device,
+# stream.
+ARGS = struct.Struct("<32q")
+# The phases a launch stamps (csrc kStamps): the rows form its start,
+# its columns in registers, its tile's nodes, the row's sums, its
+# writes; the grid form its start, phase 1, sv0, the barrier, phase 2.
+STAMPS = 5
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(t_n: int, t_a: int, windows: int, v: int, index: int,
+          first_design: bool) -> SetupPlan:
+    return setup_plan((t_n, t_a), windows, v, kernel_config(index), first_design)
+
+
+@functools.lru_cache(maxsize=64)
+def f32_bits(value: float) -> int:
+    """The bits of ``value`` rounded to float32, as an int."""
+    return struct.unpack("<i", struct.pack("<f", value))[0]
+
+
 def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
-               cfg: PageRankConfig) -> Tuple[Setup, Setup]:
+               cfg: PageRankConfig, first_design: bool = False,
+               stamps: Optional[torch.Tensor] = None) -> Tuple[Setup, Setup]:
     """``rank_setup_plain``'s results: CPU tensors run it; CUDA tensors
-    launch the set-up kernel once for both partitions (and every window
-    of a stacked group) or raise. The vectors are views of one fresh
-    allocation, each contiguous."""
+    launch the set-up once for both partitions (and every window of a
+    stacked group), in the form ``setup_plan`` picks, or raise.
+    ``first_design``: the first design's kernel (a comparison, off the
+    main path). ``stamps``: an int64 tensor of ``STAMPS`` on the card,
+    where the rows and grid forms write the SM cycle count at each phase
+    of their first block (a measurement; None on the main path). The vectors are
+    views of one fresh allocation, each
+    contiguous. The host side is one check of the fields, one
+    allocation, and one call with one packed argument block."""
     dev = normal.kind.device
     if dev.type == "cpu":
         return rank_setup_plain(normal, abnormal, cfg)
@@ -206,40 +308,43 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
     if cfg.preference not in PREFERENCES:
         raise ValueError(f"unknown preference form {cfg.preference!r}")
     windows, v = _check(normal, abnormal)
-    lead = tuple(normal.kind.shape[:-1])
-    parts = (normal, abnormal)
-    t_pads = [int(g.kind.shape[-1]) for g in parts]
-    tiles = [-(-t // TILE) for t in t_pads]
-    # pref, rv0 (t_pad each), sv0 (v) per partition, then the tile nodes.
-    sizes = [windows * n for t in t_pads for n in (t, t, v)] + [2 * windows * sum(tiles)]
+    t_n, t_a = normal.kind.shape[-1], abnormal.kind.shape[-1]
+    index = dev.index
+    plan = _plan(t_n, t_a, windows, v, index, first_design)
+    # pref, rv0 (t_pad each), sv0 (v) per partition, then the tile nodes
+    # (the grid form's and the first design's).
+    sizes = (windows * t_n, windows * t_n, windows * v, windows * t_a, windows * t_a,
+             windows * v, 0 if plan.form == "rows" else 2 * plan.tree_items)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    views = flat.split(sizes)
-    if lead:
-        views = [t.view(lead + (-1,)) for t in views[:-1]] + [views[-1]]
-    outs = [(views[3 * p], views[3 * p + 2], views[3 * p + 1]) for p in range(2)]
-    ptrs, keep = [], []
-    for g, (pref, sv0, rv0) in zip(parts, outs):
-        fields = [as_kernel_field(t) for t in (g.kind, g.tracelen, g.n_cols, g.n_traces,
-                                               g.n_ops)]
-        fields.append(as_kernel_field(g.op_present, torch.bool))
-        keep += fields
-        ptrs += [t.data_ptr() for t in fields] + [pref.data_ptr(), rv0.data_ptr(),
-                                                  sv0.data_ptr()]
-    kcfg = kernel_config(dev)
+    views = torch.split_with_sizes(flat, sizes)
+    if normal.kind.dim() > 1:
+        views = [t.view(windows, n) for t, n in zip(views, (t_n, t_n, v, t_a, t_a, v))]
+    at = flat.data_ptr()
+    ptrs = []
+    for n in sizes:
+        ptrs.append(at)
+        at += 4 * n
+    # The fields as the kernel reads them (a converted copy is held here
+    # until the call has taken its pointer).
+    words, fields = [], []
+    for g, out, t_pad in ((normal, ptrs[0:3], t_n), (abnormal, ptrs[3:6], t_a)):
+        part = [as_kernel_field(g.kind), as_kernel_field(g.tracelen), as_kernel_field(g.n_cols),
+                as_kernel_field(g.n_traces), as_kernel_field(g.n_ops),
+                as_kernel_field(g.op_present, torch.bool)]
+        fields += part
+        words += [f.data_ptr() for f in part] + [out[0], out[1], out[2], t_pad]
     lib = load_library()
-    rc = lib.mr_rank_setup(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int32 * 2)(*t_pads), windows, v,
-        f32_value(cfg.phi), int(cfg.preference == "paper"),
-        views[-1].data_ptr() if sizes[-1] else None, kcfg.max_blocks,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    rc = lib.mr_rank_setup_launch(ARGS.pack(
+        *words, windows, v, f32_bits(cfg.phi), int(cfg.preference == "paper"),
+        FORMS.index(plan.form), plan.cluster, plan.grid, plan.hold,
+        ptrs[6] if sizes[6] else 0, 0 if stamps is None else stamps.data_ptr(), index,
+        torch._C._cuda_getCurrentRawStream(index)))
     if rc != 0:
         raise RuntimeError(
             f"rank_setup launch failed: {lib.mr_rank_setup_error_string(rc).decode()}"
         )
     rank_setup.launches += 1
-    return outs[0], outs[1]
+    return (views[0], views[2], views[1]), (views[3], views[5], views[4])
 
 
 # Launches of the set-up kernel (a plain int; rank_setup is the one place
@@ -281,15 +386,11 @@ def load_library() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the library's C signatures."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int32
+    i32 = ctypes.c_int32
     lib.mr_rank_setup_config.restype = ctypes.c_int
     lib.mr_rank_setup_config.argtypes = [ctypes.c_int, ctypes.POINTER(i32)]
-    lib.mr_rank_setup.restype = ctypes.c_int
-    lib.mr_rank_setup.argtypes = [
-        ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, i32,   # ptrs, t_pads, windows, v
-        ctypes.c_float, i32, ptr, ctypes.c_int64,            # phi, paper, partial, max_blocks
-        ctypes.c_int, ptr,                                   # device, stream
-    ]
+    lib.mr_rank_setup_launch.restype = ctypes.c_int
+    lib.mr_rank_setup_launch.argtypes = [ctypes.c_char_p]  # ARGS, packed
     lib.mr_rank_setup_error_string.restype = ctypes.c_char_p
     lib.mr_rank_setup_error_string.argtypes = [ctypes.c_int]
     return lib

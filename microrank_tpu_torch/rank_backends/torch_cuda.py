@@ -41,9 +41,10 @@ partitions, in place of the eager ops the port issued before.
 
 The set-up before the loop and the epilogue after it are K6: one
 launch each a program (``ops.setup.rank_setup``, ``csrc/rank_setup.cu``:
-a cooperative launch for both partitions; ``ops.epilogue.rank_epilogue``,
-``csrc/rank_epilogue.cu``: a block a window), in place of some 70 eager
-ops and four launches of the fixed-order fold.
+a block or a cluster of blocks a row, a cooperative grid past 8 tiles;
+``ops.epilogue.rank_epilogue``, ``csrc/rank_epilogue.cu``: a block or a
+cluster a window, its inputs in shared memory), in place of some 70
+eager ops and four launches of the fixed-order fold.
 
 On the card each call is one launch of a CUDA kernel, on the CPU its plain
 version. The loop issues device work only — no step reads a value

@@ -21,11 +21,19 @@ on the CPU and its kernel to its plain version on the card.
 * the main path's epilogue is one ``rank_epilogue`` call, bitwise the
   pieces it replaces (``torch_cuda._finish_topk`` after
   ``_partition_finish``), for a window and a stacked group;
+* the launch's plan (``epilogue_plan``, pure): slices that a block holds
+  and that cover the vocabulary, the cluster the least power of two,
+  the warp-select for k <= 32, the forms at their edges (V 8,192, 8,193,
+  16,385, 65,536 and 65,537; k 32 and 33), a card of smaller clusters,
+  refused inputs, the shared memory and argument block the library
+  reads;
 * on the card (``cuda`` marker, skipped here): the kernel bitwise its
   plain version run on the card (bit patterns: NaN compares), one
   window and a stacked B = 3, V of 8, 2,048, 8,192 and 65,536, k of 1,
-  11 and V, every method, with ties, -0.0, -inf and NaN; one launch a
-  call; bad inputs refused.
+  11 and V, every method, with ties, -0.0, -inf and NaN; at the forms'
+  edges (V 8,192, 8,193 and 16,385; k 1, 32, 33 and V; every method at
+  8,192 / 32 and 8,193 / 33) bitwise the plain version and the first
+  design's kernel; one launch a call; bad inputs refused.
 
 JAX is imported inside the CPU tests only, so the card's machine (no
 JAX) runs the card tests alone:
@@ -38,6 +46,8 @@ from typing import NamedTuple
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from microrank_tpu_torch.config import PageRankConfig, SpectrumConfig
 from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
@@ -301,6 +311,68 @@ def test_rank_program_epilogue_is_one_call_bitwise_the_pieces(stacked, monkeypat
     assert torch.equal(ranked[2], n_valid)
 
 
+# ------------------------------------------------------------------ plan
+
+CARD = epilogue.H100
+
+
+@settings(max_examples=200, deadline=None)
+@given(v=st.integers(1, 200_000), k=st.integers(1, 3000), windows=st.integers(1, 65535))
+def test_epilogue_plan_covers_the_vocabulary_in_slices_a_block_holds(v, k, windows):
+    k = min(k, v)
+    plan = epilogue.epilogue_plan(v, k, windows, CARD)
+    assert plan.k_pad >= k and plan.k_pad & (plan.k_pad - 1) == 0 and plan.k_pad < 2 * k
+    if plan.form == "first":
+        assert v > CARD.cluster_max * CARD.slice_max and plan.select == "first"
+        return
+    assert plan.select == ("warp" if k <= CARD.warp_k else "radix")
+    assert plan.slice <= CARD.slice_max and plan.cluster * plan.slice >= v
+    assert plan.smem == epilogue.window_smem(plan.slice) <= 227 * 1024 - 2048
+    if plan.form == "block":
+        assert plan.cluster == 1 and plan.slice == v <= CARD.slice_max
+    else:
+        # The least power of two of whole-tile slices; its blocks' tiles
+        # are the window's tiles in order.
+        assert plan.form == "cluster" and v > CARD.slice_max
+        assert plan.cluster & (plan.cluster - 1) == 0 and plan.cluster <= CARD.cluster_max
+        assert plan.cluster // 2 * CARD.slice_max < v
+        assert plan.slice % CARD.tile == 0
+
+
+@pytest.mark.parametrize("v,k,form,select,cluster", [
+    (1, 1, "block", "warp", 1), (3072, 11, "block", "warp", 1), (8192, 32, "block", "warp", 1),
+    (8192, 33, "block", "radix", 1), (8193, 11, "cluster", "warp", 2),
+    (16_385, 11, "cluster", "warp", 4), (65_536, 65_536, "cluster", "radix", 8),
+    (65_537, 11, "first", "first", 1),
+])
+def test_epilogue_plan_forms_at_their_edges(v, k, form, select, cluster):
+    plan = epilogue.epilogue_plan(v, k, 3, CARD)
+    assert (plan.form, plan.select, plan.cluster) == (form, select, cluster)
+
+
+def test_epilogue_plan_of_a_card_of_smaller_clusters_and_the_first_design():
+    small = CARD._replace(cluster_max=2)
+    assert epilogue.epilogue_plan(16_384, 11, 1, small).cluster == 2
+    assert epilogue.epilogue_plan(16_385, 11, 1, small).form == "first"
+    assert epilogue.epilogue_plan(3072, 11, 1, CARD, first_design=True) == (
+        epilogue.EpiloguePlan("first", "first", 1, 3072, 16, 0))
+
+
+@pytest.mark.parametrize("v,k,windows", [(0, 1, 1), (5, 0, 1), (5, 6, 1), (5, 1, 0),
+                                         (5, 1, 65536), (epilogue.MAX_WIDTH + 1, 1, 1)])
+def test_epilogue_plan_refuses_what_the_kernel_does_not_take(v, k, windows):
+    with pytest.raises(ValueError, match="epilogue_plan"):
+        epilogue.epilogue_plan(v, k, windows, CARD)
+
+
+def test_epilogue_shared_memory_is_the_library_layout():
+    # csrc window_smem: 1,024 keys, four 4-byte rows and two 1-byte rows
+    # with 16 bytes of room each, rounded to 16.
+    assert epilogue.window_smem(3072) == 8192 + 4 * 12304 + 2 * 3088
+    assert epilogue.window_smem(8192) == 155_744
+    assert epilogue.ARGS.size == 8 * 33
+
+
 # ------------------------------------------------------------------ card
 
 
@@ -330,7 +402,9 @@ def assert_bitwise(got, want):
         assert torch.equal(x.cpu(), y.cpu())
 
 
-def card_check(device, case, v, windows, method, k):
+def card_check(device, case, v, windows, method, k, first_design=False):
+    """The kernel bitwise its plain version (and, with ``first_design``,
+    the first design's kernel bitwise it too)."""
     w, sv_n, sv_a = card_case(case, v, windows, v + k)
     tw = to_torch(w, device)
     cfg = SpectrumConfig(method=method, top_max=k, extra_rows=0)
@@ -341,6 +415,8 @@ def card_check(device, case, v, windows, method, k):
     torch.cuda.synchronize()
     assert epilogue.rank_epilogue.launches - before == 1
     assert_bitwise(got, want)
+    if first_design:
+        assert_bitwise(epilogue.rank_epilogue(*args, first_design=True), want)
 
 
 @pytest.mark.cuda
@@ -373,3 +449,26 @@ def test_epilogue_kernel_refuses_what_it_does_not_take(cuda_device):
     bad = tw.normal._replace(op_present=tw.normal.op_present.int())
     with pytest.raises(ValueError, match="bool"):
         epilogue.rank_epilogue(bad, tw.abnormal, sv_n, sv_a, SpectrumConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [None, 3])
+@pytest.mark.parametrize("v", [8192, 8193, 16_385])
+@pytest.mark.parametrize("k", [1, 32, 33, "v"])
+def test_epilogue_kernel_at_its_form_edges(cuda_device, k, v, windows):
+    # V at the one-block limit and one past it (a cluster of 2), a cluster
+    # of 4 whose last block holds nothing; k at both sides of the
+    # warp-select's limit and V (the radix select, keys sorted in scratch).
+    k = v if k == "v" else k
+    cases = ("random", "tarantula_saturation", "signed_zeros", "nan_carry", "empty_normal",
+             "no_valid")
+    for case in cases:
+        card_check(cuda_device, case, v, windows, "tarantula", k, first_design=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("v,k", [(8192, 32), (8193, 33)])
+def test_epilogue_kernel_every_method_at_the_block_and_cluster_edges(cuda_device, v, k, method):
+    for case in ("random", "tarantula_saturation", "only_in_normal"):
+        card_check(cuda_device, case, v, 3, method, k, first_design=True)

@@ -15,11 +15,19 @@ the CPU and its kernel to its plain version on the card.
   within rtol 1e-5 of JAX's;
 * the main path takes its set-up from one ``rank_setup`` call
   (``window_weights_full`` through it, bitwise the plain version);
+* the launch's plan (``setup_plan``, pure): every tile of every row
+  dealt once (a block of a cluster a tile, or the grid's blocks in
+  turn), the cluster the least power of two that holds the widest row,
+  the forms at their edges (1, 2, 3, 8 and 9 tiles), the giant window's
+  held tiles, the first design's grid, refused inputs, the argument
+  block's words;
 * on the card (``cuda`` marker, skipped here): the kernel bitwise its
   plain version run on the card (bit patterns), one window and a
   stacked B = 3, pads of 8, 96, 4,097, 70,000 and 2^21, collapsed and
   not, both forms, with every column live, none, and a count past the
-  pad; one launch a call; bad inputs refused.
+  pad; rows of 1 tile, of 8 (a cluster of 8) and of 9 (the grid form)
+  bitwise the plain version and the first design's kernel; one launch a
+  call; bad inputs refused.
 
 JAX is imported inside the CPU tests only, so the card's machine (no
 JAX) runs the card tests alone:
@@ -33,6 +41,8 @@ from typing import NamedTuple
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from microrank_tpu_torch.config import PageRankConfig
 from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
@@ -232,6 +242,83 @@ def test_setup_refuses_an_unknown_preference_form():
         setup.rank_setup(p, p, PageRankConfig(preference="other"))
 
 
+# ------------------------------------------------------------------ plan
+
+CARD = setup.H100
+TILE = setup.TILE
+
+
+def row_tiles(t_pads, windows):
+    """Every (partition, window) row's tiles: [(row, tiles)]."""
+    return [(p * windows + b, -(-t // TILE)) for p, t in enumerate(t_pads)
+            for b in range(windows)]
+
+
+@settings(max_examples=200, deadline=None)
+@given(t_pads=st.lists(st.integers(0, 40 * 4096), min_size=2, max_size=2),
+       windows=st.integers(1, 9), v=st.integers(0, 70_000))
+def test_setup_plan_deals_every_tile_of_every_row_once(t_pads, windows, v):
+    plan = setup.setup_plan(t_pads, windows, v, CARD)
+    rows = row_tiles(t_pads, windows)
+    assert plan.tree_items == sum(n for _, n in rows)
+    if plan.form == "rows":
+        # Block r of cluster `row` is tile r of that row: every tile has
+        # its block, and a cluster is the least power of two that holds
+        # the widest row.
+        assert plan.grid == 2 * windows * plan.cluster and plan.hold == 0
+        widest = max(n for _, n in rows)
+        assert widest <= plan.cluster <= max(1, 2 * widest - 1)
+        assert plan.cluster & (plan.cluster - 1) == 0
+        assert plan.cluster <= CARD.cluster_max
+    else:
+        # Item i (the row-major tiles) goes to block i % grid, in turn.
+        assert plan.form == "grid" and plan.cluster == 1
+        assert max(n for _, n in rows) > CARD.cluster_max
+        assert 1 <= plan.grid <= min(plan.tree_items, CARD.grid_blocks)
+        per_block = [len(range(g, plan.tree_items, plan.grid)) for g in range(plan.grid)]
+        assert sum(per_block) == plan.tree_items and min(per_block) >= 1
+        assert plan.hold == min(max(per_block), CARD.hold_max)
+
+
+@pytest.mark.parametrize("t_pad,form,cluster", [
+    (0, "rows", 1), (8, "rows", 1), (4096, "rows", 1), (4097, "rows", 2),
+    (3 * 4096, "rows", 4), (8 * 4096, "rows", 8), (8 * 4096 + 1, "grid", 1),
+    (1 << 21, "grid", 1),
+])
+def test_setup_plan_forms_at_their_edges(t_pad, form, cluster):
+    plan = setup.setup_plan((t_pad, 5), 3, 300, CARD)
+    assert (plan.form, plan.cluster) == (form, cluster)
+
+
+def test_setup_plan_of_the_giant_window_holds_its_tiles():
+    # Two rows of 512 tiles on 132 blocks: eight tiles a block, six held.
+    plan = setup.setup_plan((1 << 21, 1 << 21), 1, 2048, CARD)
+    assert plan == setup.SetupPlan("grid", 1, 132, 6, 1024)
+
+
+def test_setup_plan_of_the_first_design():
+    plan = setup.setup_plan((96, 4097), 3, 9000, CARD, first_design=True)
+    # 3 x (1 + 2) tiles and 2 x 3 x 3 sv0 tiles, a block each.
+    assert plan == setup.SetupPlan("first", 1, 9 + 18, 0, 9)
+    big = setup.setup_plan((1 << 21, 1 << 21), 1, 2048, CARD, first_design=True)
+    assert big.grid == CARD.first_blocks
+
+
+@pytest.mark.parametrize("t_pads,windows,v", [
+    ((-1, 8), 1, 5), ((8,), 1, 5), ((8, 8, 8), 1, 5), ((8, 8), 0, 5), ((8, 8), 1, -1),
+    ((setup.MAX_WIDTH + 1, 8), 1, 5),
+])
+def test_setup_plan_refuses_what_the_kernel_does_not_take(t_pads, windows, v):
+    with pytest.raises(ValueError, match="setup_plan"):
+        setup.setup_plan(t_pads, windows, v, CARD)
+
+
+def test_setup_argument_block_is_the_library_words():
+    # csrc Word: 2 x 10 partition words, then 12 more.
+    assert setup.ARGS.size == 8 * 32
+    assert setup.f32_bits(0.5) == 0x3F000000 and setup.f32_bits(0.1) == 0x3DCCCCCD
+
+
 # ------------------------------------------------------------------ card
 
 
@@ -301,3 +388,30 @@ def test_setup_kernel_refuses_what_it_does_not_take(cuda_device):
                          PageRankConfig())
     with pytest.raises(ValueError, match="shapes"):
         setup.rank_setup(g, g._replace(n_ops=g.n_ops[None]), PageRankConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preference", PREFERENCES)
+@pytest.mark.parametrize("t_pad,form", [(TILE, "rows"), (8 * TILE, "rows"),
+                                        (8 * TILE + 1, "grid")])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_setup_kernel_at_its_form_edges_is_bitwise_plain_and_the_first_design(
+        cuda_device, stacked, t_pad, form, preference):
+    # Rows of one tile (a block a row), of C = 8 tiles (a cluster of 8)
+    # and of C + 1 (the grid); the abnormal rows of one tile beside them.
+    rng = np.random.default_rng(t_pad + len(preference))
+    lead = (3,) if stacked else ()
+    live = np.array([t_pad, 0, t_pad - 1], np.int32) if stacked else np.int32(t_pad - 5)
+    cfg = PageRankConfig(preference=preference)
+    for collapsed in (False, True):
+        normal = to_torch(random_part(rng, t_pad, 2048, live, collapsed, lead), cuda_device)
+        abnormal = to_torch(random_part(rng, 97, 2048, np.minimum(live, 97), collapsed, lead),
+                            cuda_device)
+        assert setup.setup_plan((t_pad, 97), 3 if stacked else 1, 2048,
+                                setup.kernel_config(cuda_device)).form == form
+        want = setup.rank_setup_plain(normal, abnormal, cfg)
+        got = setup.rank_setup(normal, abnormal, cfg)
+        first = setup.rank_setup(normal, abnormal, cfg, first_design=True)
+        torch.cuda.synchronize()
+        assert_bitwise(got, want)
+        assert_bitwise(first, want)
