@@ -14,9 +14,13 @@ JAX or of the JAX package. Phases, one JSON line each:
 1. env      — the card, its power limit, the kernels built from the
               sources in this checkout (nvcc for ``csrc/coo_spmv.cu``,
               ``csrc/pattern_pair.cu``, ``csrc/power_step.cu``,
-              ``csrc/row_fold.cu``, ``csrc/rank_setup.cu`` and
-              ``csrc/rank_epilogue.cu``, g++ for the native span loader /
-              graph builder, all at once), the fixed-order fold on rows
+              ``csrc/row_fold.cu``, ``csrc/rank_setup.cu``,
+              ``csrc/rank_epilogue.cu`` and ``csrc/dense_mv.cu``, g++ for
+              the native span loader / graph builder, all at once), the
+              dense kernel (f32 and bf16, one window and three, an
+              unaligned vector) and K14's check word (a block, a cluster,
+              the first design; with a NaN and without) bitwise their
+              plain versions, 0 bytes of spill in both (gates), the fixed-order fold on rows
               of one tile and of several, bitwise its plain version,
               K6's set-up (one tile beside two (a cluster) and beside
               ten (the grid form), collapsed or not, both preference
@@ -226,6 +230,32 @@ JAX or of the JAX package. Phases, one JSON line each:
               dropped = the rejected rows; ``admit_table`` with the file
               store against the counting-only store in turns, and the
               file's bytes;
+   families — the csr, coo and dense families (K10-K12) and the
+              checked program (K14) on ``cli run``'s table lane at config
+              5 (``phase_families``): ``run_rca_native`` with ``kernel``
+              csr, coo, dense and dense_bf16, each collapsed ("auto",
+              what ``--kernel X`` builds by default) and not ("off", the
+              dense matrices in the gigabytes): top-1 the fault, 25 K1
+              launches of 6 SpMVs (csr, coo) or 25 dense launches of 6
+              products (dense) a ranked window, tie-aware agreement with
+              the port's coo route on the CPU (rtol 1e-5; dense_bf16
+              5e-3), csr and coo bitwise the pinned pallas run, the
+              window's stage times (``stage_ms.layouts`` holds the
+              densify) and rank program by events, its staging to output
+              copy under the sync check; the dense kernel bitwise its
+              plain version on every launch of the window's 25 steps
+              (``dense_step_check``) and timed (``measure_dense``: the
+              plain version, six ``torch.mv`` and the byte bound; 50
+              calls collapsed, 5 uncollapsed); K1 over the csr and coo
+              work lists timed uncollapsed (``measure_group``); each
+              family's stacked groups of the replay's windows (B = 2 and
+              6) bitwise their windows' own programs in one window's
+              launches (``family_stacks``); the replay with
+              ``device_checks`` bitwise the sync replay, the config-5
+              window with ``abnormal.sr_val[0]`` NaN raising
+              ``DeviceCheckError`` ("non-finite") on coo and dense with no
+              host sync, and the epilogue checked and unchecked in turns
+              at the config-5 kind window, bitwise (``family_checks``);
 6. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
               one, at the uncollapsed shapes), per step of the pallas
               path (the grouped launch of all six matrices, at the
@@ -448,8 +478,9 @@ def check(cond, msg) -> None:
 
 def reset_counts(spmv, pattern) -> None:
     """Every wrapper's launch count to 0, just before a main path runs."""
-    from microrank_tpu_torch.ops import epilogue, fold, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, fold, setup, step
 
+    dense.dense_matvecs.launches = dense.dense_matvecs.products = 0
     fold.fold_rows.launches = 0
     setup.rank_setup.launches = 0
     epilogue.rank_epilogue.launches = 0
@@ -469,7 +500,7 @@ MAIN_STEP_KERNELS = set()
 
 
 def read_counts(spmv, pattern) -> dict:
-    from microrank_tpu_torch.ops import epilogue, fold, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, fold, setup, step
 
     by_kernel = step.power_step.by_kernel
     MAIN_STEP_KERNELS.update(k for k, n in by_kernel.items() if n)
@@ -490,13 +521,16 @@ def read_counts(spmv, pattern) -> dict:
         "blocked_launches": pattern.pattern_pair_group.blocked_launches,
         "fold_launches": pattern.pattern_pair_group.fold_launches,
         "quantize_launches": pattern.quantize_scales.launches,
+        "dense_launches": dense.dense_matvecs.launches,
+        "dense_products": dense.dense_matvecs.products,
     }
 
 
 def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
-    launch per step of K1 (pallas: six SpMVs), of the pcsr kernel (six
-    SpMVs), or of the pattern pair (four products; packed_blocked's
+    launch per step of K1 (pallas, coo, csr: six SpMVs), of the pcsr
+    kernel (six SpMVs), of the dense kernel (dense, dense_bf16: six
+    products), or of the pattern pair (four products; packed_blocked's
     through K8's own kernel, counted in blocked_launches too, and its
     fold launch) and K1 (the two call-graph terms); on every route one
     launch per step of the step kernel (K5); with ``int8`` (kind) one
@@ -519,13 +553,16 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0) 
                             "step_group_launches", "step_units_launches", "k1_launches",
                             "k1_spmvs", "pcsr_launches",
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
-                            "blocked_launches", "fold_launches", "quantize_launches"), 0)
+                            "blocked_launches", "fold_launches", "quantize_launches",
+                            "dense_launches", "dense_products"), 0)
     g = n if programs is None else programs
     counts["step_launches"] = STEP_LAUNCHES * STEPS * g
     counts["step_group_launches"] = STEP_LAUNCHES * STEPS * groups
     counts["setup_launches"] = counts["epilogue_launches"] = K6_LAUNCHES * g
-    if kernel == "pallas":
+    if kernel in ("pallas", "coo", "csr"):
         counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
+    elif kernel in ("dense", "dense_bf16"):
+        counts.update(dense_launches=STEPS * g, dense_products=STEPS * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
         counts.update(pcsr_launches=STEPS * g, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
     else:
@@ -1359,7 +1396,7 @@ def first_epilogue_wrapper(torch, marks):
         mark("current_stream")
         args = epilogue.ARGS.pack(
             *[x or 0 for x in ptrs[:14]], ptrs[14], ptrs[15] or 0, ptrs[16] or 0, ptrs[17],
-            ptrs[18], ptrs[19], 0, windows, v, k, k_pad, method,
+            ptrs[18], ptrs[19], 0, 0, 0, 0, 0, windows, v, k, k_pad, method,
             epilogue.f32_bits(spectrum_cfg.eps),
             epilogue.FORMS.index("first"), 1, v, 0, dev.index, stream)
         mark("pack")
@@ -1482,7 +1519,8 @@ def today_epilogue_wrapper(torch, marks):
         mark("pointers")
         lib = epilogue.load_library()
         args = epilogue.ARGS.pack(
-            *words, 0, 0, 0, ptrs[4], ptrs[5], ptrs[6], 0, windows, v, k, plan.k_pad, method,
+            *words, 0, 0, 0, ptrs[4], ptrs[5], ptrs[6], 0, 0, 0, 0, 0, windows, v, k,
+            plan.k_pad, method,
             epilogue.f32_bits(spectrum_cfg.eps), epilogue.FORMS.index(plan.form), plan.cluster,
             plan.slice, plan.smem, index, torch._C._cuda_getCurrentRawStream(index))
         mark("pack")
@@ -1618,12 +1656,119 @@ def ptxas_spills(report, names):
     return out
 
 
-def phase_env(torch, spmv, pattern, native):
-    from microrank_tpu_torch.ops import epilogue, fold, setup, step
+def tiny_dense_checks(torch, dev):
+    """First launches of the dense kernel (K12): small groups of six
+    matrices with ragged column counts, row strides past one step, f32
+    and bf16, one window and three, bitwise their plain version on the
+    CPU, and a vector that does not start on a 16-byte boundary."""
+    from microrank_tpu_torch.ops import dense
+    from microrank_tpu_torch.rank_backends.torch_cuda import STEP_X_SLOTS
 
-    # Build the seven libraries from the checkout's sources, in parallel.
+    gen = torch.Generator().manual_seed(12)
+    n = 0
+    for bf16 in (False, True):
+        for windows in (None, 3):
+            lead = () if windows is None else (windows,)
+            mult = dense.row_multiple(bf16)
+            mats, n_cols = [], []
+            for t in (300, 9):
+                for rows, cols in ((37, t), (37, 37), (t, 37)):
+                    ld = -(-cols // mult) * mult + mult
+                    m = torch.zeros(lead + (rows, ld))
+                    m[..., :cols] = torch.rand(lead + (rows, cols), generator=gen)
+                    m[..., :cols] *= torch.rand(lead + (rows, cols), generator=gen) < 0.4
+                    mats.append(m.to(torch.bfloat16) if bf16 else m)
+                    n_cols.append(cols)
+            xs = [torch.rand(lead + (k,), generator=gen) for k in (300, 37, 9, 37)]
+            group = dense.DenseGroup(tuple(mats), STEP_X_SLOTS, tuple(n_cols), bf16, windows)
+            want = dense.dense_matvecs_plain(group, xs)
+            card = group._replace(mats=tuple(m.to(dev) for m in mats))
+            dense.check_group(card, dev)
+            dxs = [x.to(dev) for x in xs]
+            if windows is None:  # one vector one float off a 16-byte boundary
+                buf = torch.zeros(301, device=dev)
+                buf[1:] = dxs[0]
+                dxs[0] = buf[1:]
+            got = dense.dense_matvecs(card, dxs)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                check(torch.equal(bits(torch, g.cpu()), bits(torch, w)),
+                      f"tiny dense launch (bf16={bf16}, windows={windows}) differs from its "
+                      "plain version")
+            n += 1
+    return n
+
+
+def tiny_check_word_checks(torch, dev):
+    """K14's check word in the epilogue's forms (a block, a cluster of
+    two, the first design), one window and three, with and without a
+    residual trace, on carries with a NaN and without: the word bitwise
+    its plain version, every other output bitwise the unchecked
+    launch's."""
+    from microrank_tpu_torch.config import SpectrumConfig
+    from microrank_tpu_torch.ops import epilogue
+    from microrank_tpu_torch.ops.epilogue import check_word_plain
+
+    gen = torch.Generator().manual_seed(14)
+    cfg = SpectrumConfig()
+    n = 0
+    for v, first in ((300, False), (9000, False), (300, True)):
+        for windows in (None, 3):
+            for poison in (False, True):
+                lead = () if windows is None else (windows,)
+                parts = []
+                for traces in (4000, 2500):
+                    present = torch.rand(lead + (v,), generator=gen) < 0.7
+                    cov = torch.where(present, torch.randint(1, traces, lead + (v,),
+                                                             generator=gen), 0).to(torch.int32)
+                    parts.append(EpiloguePart(present, cov,
+                                              torch.full(lead, traces, dtype=torch.int32),
+                                              present.sum(-1).to(torch.int32)))
+                svs = [torch.where(p.op_present, torch.rand(lead + (v,), generator=gen), 0.0)
+                       for p in parts]
+                res = torch.rand(lead + (2, STEPS), generator=gen)
+                iters = torch.full(lead, STEPS - 3, dtype=torch.int32)
+                res[..., STEPS - 1] = float("nan")  # past n_iters: never flagged
+                if poison:
+                    svs[1].reshape(-1, v)[:, 2] = float("nan")
+                    res.reshape(-1, 2, STEPS)[0, 0, 4] = float("inf")
+                want = epilogue.rank_epilogue_plain(*parts, *svs, cfg)
+                want_word = check_word_plain(want.top_scores, want.n_valid, res, iters)
+                dp = [EpiloguePart(*(t.to(dev) for t in p)) for p in parts]
+                dsv = [t.to(dev) for t in svs]
+                got, word = epilogue.rank_epilogue_checked(*dp, *dsv, cfg, res.to(dev),
+                                                           iters.to(dev), first_design=first)
+                plain = epilogue.rank_epilogue(*dp, *dsv, cfg, first_design=first)
+                torch.cuda.synchronize()
+                check(torch.equal(word.cpu(), want_word),
+                      f"tiny check word (v={v}, first={first}, windows={windows}, "
+                      f"poison={poison}) {word.cpu().tolist()}, plain {want_word.tolist()}")
+                check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, plain)),
+                      "a checked epilogue's outputs are not bitwise the unchecked launch's")
+                n += 1
+    return n
+
+
+def function_spills(report, name):
+    """Stack and spill bytes of a device function (not an entry) of a
+    ``-Xptxas -v`` report whose name holds ``name``."""
+    lines = [ln.strip() for ln in report.splitlines()]
+    out = []
+    for k, ln in enumerate(lines):
+        if "Function properties for" in ln and name in ln and k + 1 < len(lines):
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", lines[k + 1])
+            check(m, f"ptxas: no properties for {ln}")
+            out.append([int(g) for g in m.groups()])
+    return out
+
+
+def phase_env(torch, spmv, pattern, native):
+    from microrank_tpu_torch.ops import dense, epilogue, fold, setup, step
+
+    # Build the eight libraries from the checkout's sources, in parallel.
     for lib in (spmv.LIB_PATH, pattern.LIB_PATH, step.LIB_PATH, fold.LIB_PATH,
-                setup.LIB_PATH, epilogue.LIB_PATH, native.LIB_PATH):
+                setup.LIB_PATH, epilogue.LIB_PATH, dense.LIB_PATH, native.LIB_PATH):
         lib.unlink(missing_ok=True)
 
     def timed(fn):
@@ -1631,13 +1776,14 @@ def phase_env(torch, spmv, pattern, native):
         report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         f_cuda = pool.submit(timed, spmv.build_library)
         f_pattern = pool.submit(timed, pattern.build_library)
         f_step = pool.submit(timed, step.build_library)
         f_fold = pool.submit(timed, fold.build_library)
         f_setup = pool.submit(timed, setup.build_library)
         f_epilogue = pool.submit(timed, epilogue.build_library)
+        f_dense = pool.submit(timed, dense.build_library)
         f_host = pool.submit(timed, native.build_library)
         cuda_s, ptxas = f_cuda.result()
         pattern_s, ptxas_pattern = f_pattern.result()
@@ -1645,8 +1791,9 @@ def phase_env(torch, spmv, pattern, native):
         fold_s, ptxas_fold = f_fold.result()
         setup_s, ptxas_setup = f_setup.result()
         epilogue_s, ptxas_epilogue = f_epilogue.result()
+        dense_s, ptxas_dense = f_dense.result()
         host_s, _ = f_host.result()
-    for module in (spmv, pattern, step, fold, setup, epilogue):
+    for module in (spmv, pattern, step, fold, setup, epilogue, dense):
         module.load_library()
 
     # First launch: a tiny ragged matrix (empty rows, a 700-entry row of
@@ -1702,8 +1849,21 @@ def phase_env(torch, spmv, pattern, native):
     spilled = {k: v for k, v in k6_ptxas.items()
                if v["spill_store_bytes"] or v["spill_load_bytes"]}
     check(not spilled, f"ptxas: K6 kernels spill: {spilled}")
+    # K14's check word (the epilogue's device function check_window) and
+    # K12's kernel in f32 and bf16 without spill (gates).
+    check_word_ptxas = function_spills(ptxas_epilogue, "check_window")
+    check(check_word_ptxas and not any(s or ld for _, s, ld in check_word_ptxas),
+          f"ptxas: K14's check_window spills (or was not reported): {check_word_ptxas}")
+    dense_ptxas = ptxas_spills(ptxas_dense, ("dense_mv",))
+    check(set(dense_ptxas) == {"dense_mv<false>", "dense_mv<true>"},
+          f"ptxas: K12 reports {sorted(dense_ptxas)}")
+    spilled = {k: v for k, v in dense_ptxas.items()
+               if v["spill_store_bytes"] or v["spill_load_bytes"]}
+    check(not spilled, f"ptxas: the dense kernel spills: {spilled}")
     n_fold = tiny_fold_checks(torch, fold, dev)
     n_k6 = tiny_k6_checks(torch, dev)
+    n_dense = tiny_dense_checks(torch, dev)
+    n_check = tiny_check_word_checks(torch, dev)
     step_cfg = step.kernel_config(dev)
     timers = timer_check(torch)
     return {
@@ -1720,6 +1880,7 @@ def phase_env(torch, spmv, pattern, native):
                     "nvcc_row_fold": round(fold_s, 3),
                     "nvcc_rank_setup": round(setup_s, 3),
                     "nvcc_rank_epilogue": round(epilogue_s, 3),
+                    "nvcc_dense_mv": round(dense_s, 3),
                     "gxx_native": round(host_s, 3)},
         "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas" in ln],
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
@@ -1738,6 +1899,10 @@ def phase_env(torch, spmv, pattern, native):
                          "first_blocks": setup.kernel_config(dev).first_blocks},
         "epilogue_kernel": epilogue.kernel_config(dev)._asdict(),
         "k6_ptxas": k6_ptxas, "k6_spill_bytes": 0,
+        # K12 (dense_mv<bf16>) and K14's check_window: registers and
+        # spill bytes (0: the gates).
+        "dense_ptxas": dense_ptxas, "dense_spill_bytes": 0,
+        "check_window_ptxas": check_word_ptxas,
         # K5's fused kernel: each instantiation's ptxas lines
         # (registers, spills), the register slots a thread holds across
         # the barrier, and the occupancy that sizes every window's
@@ -1751,6 +1916,8 @@ def phase_env(torch, spmv, pattern, native):
         "tiny_step_chains_bitwise_vs_plain": n_step,
         "tiny_fold_cases_bitwise_vs_plain": n_fold,
         "tiny_k6_cases_bitwise_vs_plain": n_k6,
+        "tiny_dense_cases_bitwise_vs_plain": n_dense,
+        "tiny_check_word_cases_bitwise_vs_plain": n_check,
         "timer_check_1gib_copy": timers,
     }
 
@@ -4907,6 +5074,432 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     return counts, (kern, step_kern, fold_kern, k6), info, stacked_counts
 
 
+# The kernel families of the families phase (K10-K12), and the stacked
+# groups of the replay's windows each is held to.
+FAMILY_KERNELS = ("csr", "coo", "dense", "dense_bf16")
+FAMILY_STACKS = (2, 6)
+# Timed calls of the dense kernel at a window: the uncollapsed window's
+# matrices are gigabytes, so fewer calls there, not a smaller window.
+DENSE_REPS = {"auto": 50, "off": 5}
+
+
+def dense_step_check(torch, dgraph, cfg, kernel):
+    """A window's rank program (its dense group staged) with every launch
+    of the dense kernel held against the plain version on the same
+    inputs on the card: each of the 25 steps' six products bitwise.
+    Returns (what it checked, the program's fetched outputs)."""
+    from microrank_tpu_torch.ops import dense
+    from microrank_tpu_torch.rank_backends import torch_cuda
+
+    real = torch_cuda.dense_matvecs
+    seen = []
+
+    def checked(group, xs):
+        ys = real(group, xs)
+        want = dense.dense_matvecs_plain(group, xs)
+        seen.append(all(torch.equal(bits(torch, y), bits(torch, w)) for y, w in zip(ys, want)))
+        return ys
+
+    torch_cuda.dense_matvecs = checked
+    try:
+        out = torch_cuda.fetch_rank_outputs(torch_cuda.rank_window_traced_core(
+            dgraph, cfg.pagerank, cfg.spectrum, kernel))
+    finally:
+        torch_cuda.dense_matvecs = real
+    check(len(seen) == STEPS and all(seen),
+          f"{kernel}: the dense kernel differs from its plain version at launches "
+          f"{[i for i, ok in enumerate(seen) if not ok]} of {len(seen)}")
+    return {"launches_checked": len(seen), "bitwise_vs_plain_every_launch": True}, out
+
+
+def measure_dense(torch, name, dgraph, reps):
+    """K12 at a window's shapes (its dense group, random vectors): one
+    step's six products bitwise the plain version on the card and over
+    50 launches, timed by CUDA events behind a spin beside the plain
+    version, six ``torch.mv`` (the library yardstick: over the f32
+    matrices, or the bf16 ones with the vector cast to bf16, which
+    returns bf16) and the bound: each matrix's cells and each vector
+    read once, each output written once, at 3.35 TB/s (2 flops a cell at
+    67 TFLOP/s)."""
+    from microrank_tpu_torch.ops import dense
+
+    group = dgraph.spmv_group
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lead = () if group.windows is None else (group.windows,)
+    v = int(dgraph.normal.cov_unique.shape[-1])
+    sizes = (int(dgraph.normal.kind.shape[-1]), v, int(dgraph.abnormal.kind.shape[-1]), v)
+    xs = [torch.rand(lead + (n,), generator=gen, device=dev) for n in sizes]
+    first = torch.cat([y.reshape(-1) for y in dense.dense_matvecs(group, xs)])
+    want = torch.cat([y.reshape(-1) for y in dense.dense_matvecs_plain(group, xs)])
+    check(torch.equal(bits(torch, first), bits(torch, want)),
+          f"{name}: the dense kernel differs from its plain version on the card")
+    again = [torch.cat([y.reshape(-1) for y in dense.dense_matvecs(group, xs)])
+             for _ in range(REPEATS)]
+    check(all(torch.equal(bits(torch, a), bits(torch, first)) for a in again),
+          f"{name}: the dense kernel is not bitwise repeatable over {REPEATS} launches")
+    del again
+    mats = [m[..., :n] for m, n in zip(group.mats, group.n_cols)]
+    mx = [xs[s] for s in group.x_slots]
+    lib_x = [x.to(torch.bfloat16) if group.bf16 else x for x in mx]
+    calls = {
+        "kernel": lambda: dense.dense_matvecs(group, xs),
+        "plain": lambda: dense.dense_matvecs_plain(group, xs),
+        "library": lambda: [torch.mv(m, x) for m, x in zip(mats, lib_x)],
+    }
+    lib_diff = float(max(((torch.mv(m, x).float() - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                         for m, x, y in zip(mats, lib_x, dense.dense_matvecs(group, xs))))
+    ms = {k: spin_event_ms(torch, calls[k], reps if k != "plain" else max(1, reps // 5))
+          for k in ("kernel", "plain", "library")}
+    elt = 2 if group.bf16 else 4
+    cells = sum(int(m.shape[-2]) * n for m, n in zip(group.mats, group.n_cols))
+    rows = sum(int(m.shape[-2]) for m in group.mats)
+    n_win = group.windows or 1
+    nbytes = n_win * (cells * elt + 4 * sum(sizes) + 4 * rows)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n_win * cells / F32_FLOPS_PER_S * 1e3
+    return {
+        "name": name,
+        "precision": "bf16" if group.bf16 else "f32",
+        "shapes": [list(m.shape) for m in group.mats],
+        "cols": list(group.n_cols),
+        "matrix_bytes": int(sum(m.numel() * m.element_size() for m in group.mats)),
+        "ms": round(ms["kernel"], 6),
+        "plain_ms": round(ms["plain"], 6),
+        "library_ms": round(ms["library"], 6),
+        "bound_ms": round(max(bytes_ms, ops_ms), 6),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes,
+        "tb_per_s": round(nbytes / ms["kernel"] / 1e9, 3),
+        "max_abs_err": 0.0,
+        "library_max_rel_diff": lib_diff,
+        "bitwise_vs_plain": True,
+        "bitwise_repeatable_launches": REPEATS,
+        "reps": reps,
+    }
+
+
+def issue_without_sync(torch, tag, host, kernel, cfg, checked=False):
+    """One window's staging (the blob), layouts, program and output copy
+    under ``torch.cuda.set_sync_debug_mode("error")``, which must not
+    raise: nothing between the blob's copy and the output copy waits on
+    the card. Returns the fetched outputs."""
+    from microrank_tpu_torch.rank_backends import blob
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        host_subset,
+        pack_rank_outputs,
+        unpack_rank_outputs,
+    )
+
+    one = host_subset(host, kernel)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, staged = blob.stage_rank_window(one, cfg.pagerank, cfg.spectrum, kernel,
+                                              torch.device("cuda"), True, checked=checked,
+                                              conv_trace=True)
+        packed = pack_rank_outputs(outs, staged, checked=checked)
+    except RuntimeError as exc:
+        raise PhaseError(f"{tag}: the {kernel} route synced between its blob copy and its "
+                         f"output copy: {str(exc).splitlines()[0]}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return unpack_rank_outputs(packed)
+
+
+def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, cpu_ref,
+               pallas_res):
+    """One family's run of the lane at config 5 (``run_rca_native`` with
+    ``kernel``, collapse ``collapse``): top-1, the resolved kernel, the
+    launches, agreement with a CPU run: tie-aware at rtol 1e-5 with the
+    same function there (``cpu_ref``, the port's coo route on the CPU:
+    csr, coo, dense), tie-aware at 5e-3 with the route's own plain path
+    (dense_bf16 collapsed); uncollapsed, dense_bf16's CPU plain path
+    would read its gigabytes 25 times on the host, so it is held to
+    ``cpu_ref`` by JAX's bf16 rank parity (``tests/test_properties.py``:
+    the same top-1, top-3 and top-k set; the scores' largest relative
+    difference reported), its kernel held bitwise to the plain version
+    on the card on every launch below; csr and coo bitwise the pinned
+    pallas run (``pallas_res``); then the
+    window through the lane's seams (stage times, the program's device
+    time by events), the sync check, and the route's kernel at the
+    window: the dense kernel bitwise its plain version on every launch of
+    the 25 steps and timed; K1 over the csr and coo work lists timed
+    uncollapsed (``measure_group``)."""
+    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
+    from microrank_tpu_torch.pipeline import run_rca_native
+    from microrank_tpu_torch.rank_backends.torch_cuda import csr_layouts, spmv_layouts
+    from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
+
+    tag = f"families/{kernel}/{collapse}"
+    cfg = MicroRankConfig(runtime=RuntimeConfig(kernel=kernel, collapse_kinds=collapse))
+    torch.cuda.synchronize()
+    reset_counts(spmv, pattern)
+    t0 = time.perf_counter()
+    res = run_rca_native(normal, abnormal, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(spmv, pattern)
+    ranked = [r for r in res if r.ranking]
+    check(ranked, f"{tag}: no window was ranked")
+    check({r.kernel for r in ranked} == {kernel}, f"{tag}: ranked with {[r.kernel for r in ranked]}")
+    top1 = ranked[0].ranking[0][0]
+    check(top1 == case.fault_pod_op, f"{tag}: top-1 {top1} is not the fault {case.fault_pod_op}")
+    n = len(ranked)
+    expect = expected_counts(kernel, n)
+    check(counts == expect, f"{tag}: launch counts {counts} in {n} ranked windows, want {expect}")
+    rank_parity = kernel == "dense_bf16" and collapse == "off"
+    rtol = RUN_RTOL
+    against = "the port's coo route on the CPU"
+    if kernel == "dense_bf16" and not rank_parity:
+        t1 = time.perf_counter()
+        cpu_ref = run_rca_native(normal, abnormal, cfg, device="cpu")
+        own_cpu_s = time.perf_counter() - t1
+        rtol, against = RUN_RTOL_BF16, f"its own plain path on the CPU ({own_cpu_s:.3f} s)"
+    check(len(res) == len(cpu_ref), f"{tag}: CPU and CUDA runs saw different windows")
+    max_rel = 0.0
+    for rg, rc in zip(res, cpu_ref):
+        check((rg.start, rg.anomaly, rg.n_normal, rg.n_abnormal, rg.rank_iterations)
+              == (rc.start, rc.anomaly, rc.n_normal, rc.n_abnormal, rc.rank_iterations),
+              f"{tag}: window {rg.start} differs from the CPU run")
+        names_g, names_c = [n_ for n_, _ in rg.ranking], [n_ for n_, _ in rc.ranking]
+        if rank_parity:
+            check(names_g[:3] == names_c[:3] and set(names_g) == set(names_c),
+                  f"{tag}: window {rg.start}: bf16 rank parity with the f32 CPU run: "
+                  f"{names_g} vs {names_c}")
+            by_name = dict(rc.ranking)
+            max_rel = max([max_rel] + [abs(sc - by_name[nm]) / max(abs(by_name[nm]), 1e-30)
+                                       for nm, sc in rg.ranking])
+            continue
+        ok, why = tie_aware_topk_agreement(
+            names_g, [s for _, s in rg.ranking], names_c, [s for _, s in rc.ranking],
+            k=len(rg.ranking), rtol=rtol)
+        check(ok, f"{tag}: window {rg.start}: CUDA vs CPU ranking: {why}")
+    info = {"kernel": kernel, "collapse_kinds": collapse, "windows": len(res), "ranked": n,
+            "top5": ranked[0].ranking[:5], "top1_is_fault": True, "launches": counts,
+            "cuda_vs_cpu": against,
+            "cuda_vs_cpu_rule": ("JAX's bf16 rank parity: top-1, top-3, the set" if rank_parity
+                                 else f"tie-aware, rtol {rtol}"),
+            "cuda_wall_s_per_window": round(wall / len(res), 4)}
+    if rank_parity:
+        info["bf16_vs_f32_max_rel_score_diff"] = max_rel
+    if kernel in ("csr", "coo"):
+        check([(r.start, r.ranking, r.rank_iterations) for r in res]
+              == [(r.start, r.ranking, r.rank_iterations) for r in pallas_res],
+              f"{tag}: the ranking is not bitwise the pinned pallas run's")
+        info["ranking_bitwise_vs_pallas"] = True
+    graph, _, stages, rank_device, dgraph = window_breakdown(
+        torch, cfg, normal, abnormal, ranked[0].start)
+    info["shapes"] = graph_shapes(graph)
+    info["stage_ms"] = stages
+    info.update(rank_device_fields(rank_device, stages["rank_issue_and_run"]))
+    fetched = issue_without_sync(torch, tag, graph, kernel, cfg)
+    check([float(x) for x in fetched[1][: fetched[2]]] == [sc for _, sc in ranked[0].ranking]
+          and fetched[4] == ranked[0].rank_iterations,
+          f"{tag}: the window issued under the sync check ranks otherwise than the lane")
+    info["issues_without_host_sync"] = True
+    if kernel in ("dense", "dense_bf16"):
+        info["dense_steps"], _ = dense_step_check(torch, dgraph, cfg, kernel)
+        info["dense"] = measure_dense(torch, tag, dgraph, DENSE_REPS[collapse])
+    elif collapse == "off":
+        gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+        layouts_of = csr_layouts if kernel == "csr" else spmv_layouts
+        layouts = [*layouts_of(dgraph.normal), *layouts_of(dgraph.abnormal)]
+        v = int(dgraph.normal.cov_unique.shape[0])
+        sizes = (int(dgraph.normal.kind.shape[0]), v, int(dgraph.abnormal.kind.shape[0]), v)
+        xs = [torch.rand(k, generator=gen, device=torch.device("cuda")) for k in sizes]
+        info["k1"] = measure_group(torch, spmv, tag, dgraph.spmv_group, layouts, xs)
+    del dgraph
+    torch.cuda.empty_cache()
+    return counts, info
+
+
+def family_stacks(torch, spmv, pattern, replay, windows):
+    """Each family's stacked groups of the replay's windows (B = 2 and
+    6, as ``prepare_rank`` builds each window for the kernel, collapsed
+    as the replay runs): one program a group, bitwise each window's own
+    program, one window's launches a group."""
+    import numpy as np
+
+    from microrank_tpu_torch.ingest import admit_table
+    from microrank_tpu_torch.parallel import stack_window_graphs
+    from microrank_tpu_torch.pipeline import TableRCA
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.torch_cuda import (
+        device_subset,
+        fetch_rank_outputs,
+        host_subset,
+        rank_window_traced_core,
+    )
+
+    tl, normal_table, table, _ = replay
+    dev = torch.device("cuda")
+    launches, out = {}, {}
+
+    def us(iso):
+        return int(np.datetime64(iso, "us").astype(np.int64))
+
+    for kernel in FAMILY_KERNELS:
+        cfg = replay_config(tl, kernel=kernel)
+        rca = TableRCA(cfg, device="cuda")
+        rca.fit_baseline(normal_table)
+        admitted, _ = admit_table(table, cfg.ingest, source="table")
+        host = []
+        for r in (r for r in windows if r.ranking):
+            mask, nrm, abn, _, row_range = rca._detect_window(admitted, us(r.start), us(r.end))
+            graph, _, resolved = rca.prepare_rank(admitted, mask, nrm, abn, row_range)
+            check(resolved == kernel, f"families/stacked: window {r.start} resolved to {resolved}")
+            host.append(host_subset(graph, kernel))
+
+        def program(g):
+            dg = device_subset(graph_from_numpy(g, dev), kernel)
+            return fetch_rank_outputs(rank_window_traced_core(dg, cfg.pagerank, cfg.spectrum,
+                                                              kernel))
+
+        own = [program(g) for g in host]
+        out[kernel] = {}
+        for b in FAMILY_STACKS:
+            if b > len(host):
+                continue
+            tag = f"families/stacked/{kernel}/{b}"
+            stack = stack_window_graphs(host[:b])
+            torch.cuda.synchronize()
+            reset_counts(spmv, pattern)
+            got = program(stack)
+            counts = read_counts(spmv, pattern)
+            expect = expected_counts(kernel, b, programs=1, groups=1)
+            check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
+            for w in range(b):
+                check((int(got[2][w]), int(got[4][w])) == (own[w][2], own[w][4])
+                      and all(x.tobytes() == y.tobytes() for x, y in
+                              ((got[0][w], own[w][0]), (got[1][w], own[w][1]),
+                               (got[3][w], own[w][3]))),
+                      f"{tag}: window {w} is not bitwise its own program")
+            launches[tag] = counts
+            out[kernel][str(b)] = {"bits_vs_own": True, "launches": counts}
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def family_checks(torch, spmv, pattern, graphs, replay, windows):
+    """K14, the checked program, at config 5: the replay with
+    ``device_checks`` (synchronous, per window) ranks bitwise what the
+    sync replay ranked; the config-5 window poisoned as
+    ``tests/test_sanitizers.py`` poisons it (``abnormal.sr_val[0]`` NaN)
+    raises ``DeviceCheckError`` with "non-finite" on the coo and dense
+    routes, with no host sync from the blob's copy to the output copy;
+    the epilogue checked (the word over the ranking and the residual
+    trace) and unchecked at the config-5 kind window, timed in turns
+    (unchecked, checked, checked, unchecked), its outputs bitwise."""
+    import numpy as np
+
+    from microrank_tpu_torch.config import MicroRankConfig
+    from microrank_tpu_torch.ops import epilogue
+    from microrank_tpu_torch.pipeline import TableRCA
+    from microrank_tpu_torch.rank_backends import torch_cuda
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+
+    info = {}
+    if replay is not None:
+        tl, normal_table, table, _ = replay
+        rca = TableRCA(replay_config(tl, device_checks=True, **REPLAY_MODES["sync"]),
+                       device="cuda")
+        rca.fit_baseline(normal_table)
+        t0 = time.perf_counter()
+        checked = rca.run(table)
+        wall = time.perf_counter() - t0
+        check([(r.start, r.ranking, r.rank_iterations) for r in checked]
+              == [(r.start, r.ranking, r.rank_iterations) for r in windows],
+              "families/checks: the checked replay is not bitwise the sync replay")
+        info["replay_bitwise_vs_unchecked"] = True
+        info["replay_ranked"] = sum(1 for r in checked if r.ranking)
+        info["replay_checked_wall_s"] = round(wall, 3)
+    cfg = MicroRankConfig()
+    host = graphs["pallas/off"]
+    bad = np.asarray(host.abnormal.sr_val).copy()
+    bad[0] = np.nan
+    poisoned = host._replace(abnormal=host.abnormal._replace(sr_val=bad))
+    traps = {}
+    for kernel in ("coo", "dense"):
+        try:
+            issue_without_sync(torch, f"families/checks/{kernel}", poisoned, kernel, cfg,
+                               checked=True)
+        except torch_cuda.DeviceCheckError as exc:
+            check("non-finite" in str(exc), f"families/checks: {kernel}: {exc}")
+            traps[kernel] = str(exc)
+        else:
+            raise PhaseError(f"families/checks: the poisoned window ranked on {kernel} "
+                             "without a DeviceCheckError")
+        clean = issue_without_sync(torch, f"families/checks/{kernel}", host, kernel, cfg,
+                                   checked=True)
+        check(clean[2] > 0, f"families/checks: {kernel}: the clean window ranked nothing")
+    info["nan_trap"] = traps
+    # The epilogue checked and unchecked at the config-5 kind window.
+    dg = torch_cuda.device_subset(
+        graph_from_numpy(torch_cuda.host_subset(graphs["auto/auto"], "kind"),
+                         torch.device("cuda")), "kind")
+    prog = torch_cuda._rank_program(dg, cfg.pagerank, cfg.spectrum, "kind")
+    args = (dg.normal, dg.abnormal, prog.sv_n, prog.sv_a, cfg.spectrum)
+    plain = epilogue.rank_epilogue(*args)
+    got, word = epilogue.rank_epilogue_checked(*args, prog.residuals, prog.n_iters)
+    torch.cuda.synchronize()
+    check(int(word) == 0, f"families/checks: the kind window's check word is {int(word)}")
+    check(torch.equal(epilogue_bits(torch, got), epilogue_bits(torch, plain)),
+          "families/checks: the checked epilogue's outputs are not the unchecked launch's")
+    calls = {"unchecked": lambda: epilogue.rank_epilogue(*args),
+             "checked": lambda: epilogue.rank_epilogue_checked(*args, prog.residuals,
+                                                                prog.n_iters)}
+    turns = [(k, spin_event_ms(torch, calls[k], K6_REPS))
+             for k in ("unchecked", "checked", "checked", "unchecked")]
+    info["epilogue_turns_ms"] = [[k, round(t, 6)] for k, t in turns]
+    info["epilogue_ms"] = {k: round(_mean([t for kk, t in turns if kk == k]), 6)
+                           for k in ("unchecked", "checked")}
+    info["epilogue_checked_bitwise_unchecked"] = True
+    return info
+
+
+def phase_families(torch, spmv, pattern, case, normal, abnormal, graphs, results, replay,
+                   windows):
+    """The csr, coo and dense families (K10-K12) and the checked program
+    (K14) on ``cli run``'s table lane at config 5: each family collapsed
+    ("auto", what ``--kernel X`` builds by default) and not ("off", where
+    dense holds the multi-GiB matrices) through ``run_rca_native``
+    (``family_run``), each family's stacked groups of the replay's
+    windows (``family_stacks``), and the checked program
+    (``family_checks``)."""
+    from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
+    from microrank_tpu_torch.pipeline import run_rca_native
+
+    t0 = time.perf_counter()
+    cpu, cpu_s = {}, {}
+    for collapse in ("auto", "off"):
+        t1 = time.perf_counter()
+        cpu[collapse] = run_rca_native(normal, abnormal, MicroRankConfig(
+            runtime=RuntimeConfig(kernel="coo", collapse_kinds=collapse)), device="cpu")
+        cpu_s[collapse] = round(time.perf_counter() - t1, 3)
+    launches, runs = {}, {}
+    for kernel in FAMILY_KERNELS:
+        for collapse in ("auto", "off"):
+            counts, info = family_run(torch, spmv, pattern, case, normal, abnormal, kernel,
+                                      collapse, cpu[collapse], results[f"pallas/{collapse}"])
+            launches[f"families/{kernel}/{collapse}"] = counts
+            runs[f"{kernel}/{collapse}"] = info
+    stacked = None
+    if replay is not None:
+        stacked_launches, stacked = family_stacks(torch, spmv, pattern, replay, windows)
+        launches.update(stacked_launches)
+    checks = family_checks(torch, spmv, pattern, graphs, replay, windows)
+    return launches, {
+        "phase": "families",
+        "runs": runs,
+        "stacked": stacked,
+        "checks": checks,
+        "cpu_reference_s": cpu_s,
+        "nvidia_smi": power_line(),
+        "phase_s": round(time.perf_counter() - t0, 3),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spans", type=int, default=1_000_000)
@@ -5003,7 +5596,7 @@ def main(argv=None) -> int:
         phase = "staging"
         emit(phase_staging(torch, spmv, pattern, graphs))
         phase = "replay"
-        batched = None
+        batched = replay = replay_windows = None
         if args.replay_windows:
             replay, replay_windows, replay_launches, info = phase_replay(
                 torch, spmv, pattern, args, workdir
@@ -5022,7 +5615,13 @@ def main(argv=None) -> int:
             emit(batched)
             phase = "quarantine"
             emit(phase_quarantine(torch, spmv, pattern, *replay[:3], workdir))
-            del replay
+        phase = "families"
+        family_launches, families = phase_families(
+            torch, spmv, pattern, case, normal, abnormal, graphs, results, replay,
+            replay_windows)
+        launches.update(family_launches)
+        emit(families)
+        del replay
         phase = "kernel"
         per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
@@ -5130,6 +5729,24 @@ def main(argv=None) -> int:
             "bound_ms": step["bound_ms"],
             "bound_by": step["bound_by"],
             "library_ms": step["library_ms"],
+            # K10 (csr: the work list read from the CSR views) and K11
+            # (coo: the pallas work list) run on this kernel: one step of
+            # each at the uncollapsed config-5 window of its families
+            # run, and its launches on the main path (runs and stacked
+            # groups).
+            "families": {
+                kernel: {
+                    "replaces": {"csr": "microrank_tpu/rank_backends/jax_tpu.py:647",
+                                 "coo": "microrank_tpu/rank_backends/jax_tpu.py:405"}[kernel],
+                    "launches": sum(c["k1_launches"] for k, c in launches.items()
+                                    if k.startswith((f"families/{kernel}/",
+                                                     f"families/stacked/{kernel}/"))),
+                    **{key: families["runs"][f"{kernel}/off"]["k1"][key]
+                       for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "max_abs_err")},
+                }
+                for kernel in ("csr", "coo")
+            },
         },
         {
             "name": "kind_pair",
@@ -5388,7 +6005,40 @@ def main(argv=None) -> int:
             "bound_ms": k6_c5["epilogue"]["bound_ms"],
             "bound_by": k6_c5["epilogue"]["bound_by"],
             "library_ms": k6_c5["epilogue"]["library_ms"],
+            # K14: the launch with its check word (the ranking and the
+            # residual trace checked) and without, in turns at the
+            # config-5 kind window.
+            "check_word_ms": families["checks"]["epilogue_ms"],
         },
+        *(
+            {
+                "name": "dense_matvec" if precision == "f32" else "dense_matvec_bf16",
+                "route": "cuda",
+                "source": "microrank_tpu_torch/csrc/dense_mv.cu",
+                "replaces": "microrank_tpu/rank_backends/jax_tpu.py:361",
+                "precision": precision,
+                # Every counted main path's launches (one a step: the six
+                # products of both partitions, a stacked group's every
+                # window).
+                "launches": sum(c["dense_launches"] for k, c in launches.items()
+                                if k.startswith((f"families/{kernel}/",
+                                                 f"families/stacked/{kernel}/"))),
+                "max_abs_err": 0.0,
+                # One step at the uncollapsed config-5 window (the dense
+                # matrices in the gigabytes; _collapsed: the collapsed
+                # window's); library_ms is six torch.mv over the same
+                # matrices (bf16: over the bf16 ones, the vector cast,
+                # bf16 out).
+                "ms": families["runs"][f"{kernel}/off"]["dense"]["ms"],
+                "ms_collapsed": families["runs"][f"{kernel}/auto"]["dense"]["ms"],
+                "plain_ms": families["runs"][f"{kernel}/off"]["dense"]["plain_ms"],
+                "bound_ms": families["runs"][f"{kernel}/off"]["dense"]["bound_ms"],
+                "bound_ms_collapsed": families["runs"][f"{kernel}/auto"]["dense"]["bound_ms"],
+                "bound_by": families["runs"][f"{kernel}/off"]["dense"]["bound_by"],
+                "library_ms": families["runs"][f"{kernel}/off"]["dense"]["library_ms"],
+            }
+            for kernel, precision in (("dense", "f32"), ("dense_bf16", "bf16"))
+        ),
         {
             "name": "row_fold",
             "route": "cuda",

@@ -8,10 +8,11 @@
         [--slack-ms MS] [--slo-stat mean|pNN] [--detect-minutes M]
         [--skip-minutes M] [--reference-compat] [--slo-cache NPZ]
         [--kind-dedup-threshold F]
-        [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|pallas]
+        [--kernel auto|kind|packed|packed_bf16|packed_blocked|pcsr|csr|coo|dense|dense_bf16|pallas]
         [--kind-precision f32|bf16|int8] [--pipeline-depth N] [--sync-dispatch]
         [--fetch-mode stream|bulk] [--bulk-fetch-windows N]
-        [--dispatch-batch-windows N] [--no-blob-staging] [--resume] [--no-tuned-policy]
+        [--dispatch-batch-windows N] [--no-blob-staging] [--device-checks] [--resume]
+        [--no-tuned-policy]
         [--metrics-port N] [--quarantine-dir DIR] [--no-span-trace] [--span-ring N]
         [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
@@ -82,6 +83,8 @@ def _config_from_args(args) -> MicroRankConfig:
         loop["async_dispatch"] = False
     if args.no_blob_staging:
         loop["blob_staging"] = False
+    if args.device_checks:
+        loop["device_checks"] = True
     if args.no_tuned_policy:
         loop["tuned_policy"] = "off"
     precision = {} if args.kind_precision is None else {"kind_precision": args.kind_precision}
@@ -390,9 +393,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_run.add_argument(
         "--kernel", default="auto", choices=list(KERNELS),
-        help="power-iteration kernel ('auto': 'kind' when the measured "
-        "kind dedup factor clears the threshold, else 'packed_bf16'; past "
-        "the dense budget 'packed_blocked', then 'pcsr')",
+        help="power-iteration kernel ('kind' = kind-compressed "
+        "reduced-precision iteration over the collapsed trace-kind "
+        "axis; 'auto' selects it when the measured dedup factor "
+        "clears --kind-dedup-threshold)",
     )
     p_run.add_argument(
         "--kind-precision", default=None, choices=list(KIND_PRECISIONS),
@@ -441,6 +445,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-blob-staging", action="store_true",
         help="stage graphs as per-leaf transfers instead of one packed "
         "uint32 buffer",
+    )
+    p_run.add_argument(
+        "--device-checks", action="store_true",
+        help="assert the finite-score invariant INSIDE the compiled "
+        "program (checkify; forces synchronous dispatch)",
     )
     p_run.add_argument(
         "--no-tuned-policy", action="store_true",

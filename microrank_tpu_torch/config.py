@@ -5,11 +5,11 @@ Only the knobs the native ``run`` lane reads are carried over: the
 detector, PageRank and spectrum settings, window arithmetic, the
 reference-compat flags, the runtime fields that shape the graph build,
 the rank program and the window loop's pipelining, the ingest
-admission budgets and dead-letter store, the span tracer, and the
-tuned-policy switch. Field names and defaults
-match the JAX package so a reader can hold the two side by side. The
-kernels this package has not ported yet raise ``NotImplementedError``
-where the JAX package would run them.
+admission budgets and dead-letter store, the span tracer, the
+tuned-policy switch and the in-program device checks. Field names
+and defaults match the JAX package so a reader can hold the two side by
+side. Every kernel the JAX package's ``RuntimeConfig.kernel`` names is
+ported; an unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -18,11 +18,12 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-# Kernels this package implements: every kernel the JAX package's
-# kernel="auto" can pick, plus the pinned "pallas". The JAX package's
-# other kernel families (csr, coo, dense) are queued in ROADMAP.md
-# ("Port queue", item 10).
-KERNELS = ("auto", "kind", "packed", "packed_bf16", "packed_blocked", "pcsr", "pallas")
+# The kernels, in the JAX CLI's order of ``--kernel`` choices: every
+# kernel the JAX package runs.
+KERNELS = (
+    "auto", "kind", "packed", "packed_bf16", "packed_blocked",
+    "pcsr", "csr", "coo", "dense", "dense_bf16", "pallas",
+)
 # kernel="kind" coverage-pair precisions, as in the JAX package.
 KIND_PRECISIONS = ("f32", "bf16", "int8")
 # Result fetch strategies of the window loop (RuntimeConfig.fetch_mode).
@@ -139,6 +140,14 @@ class RuntimeConfig:
     #       kernel (csrc/coo_spmv.cu pcsr_step): K1's work items over
     #       the op side and the call edges, the trace side read from the
     #       partition-centric views' ELL slab;
+    #   "csr" — the six SpMVs of a step through K1 in one launch, its
+    #       work list read straight from the build's CSR views (aux
+    #       "csr"; auto falls back to it on a window built with them);
+    #   "coo" — the six SpMVs through K1 over the COO arrays, as pallas
+    #       (auto's last resort);
+    #   "dense" / "dense_bf16" — the densified transition matrices (f32,
+    #       or bf16 operands with f32 accumulation) times the vectors, all
+    #       six products of a step in one launch of csrc/dense_mv.cu;
     #   "pallas" — every SpMV through K1 (the port of the JAX package's
     #       one Pallas kernel, ops/pallas_spmv.py); never chosen by auto;
     #   "auto" (default) — kind when the build kind-collapsed the window
@@ -146,7 +155,8 @@ class RuntimeConfig:
     #       else, when both partitions' bitmaps fit a quarter of
     #       dense_budget_bytes, packed_bf16 (packed without prefer_bf16)
     #       if their unpacked matrices fit the budget and packed_blocked
-    #       if not; else pcsr.
+    #       if not; else pcsr; on a window built with none of those views,
+    #       csr with the CSR views, else coo.
     kernel: str = "auto"
     # Pad dynamic extents to buckets (graph.structures.pad_to).
     pad_policy: str = "pow2q"
@@ -169,6 +179,13 @@ class RuntimeConfig:
     convergence_trace: bool = True
     # Raise on non-finite fetched scores.
     validate_numerics: bool = True
+    # Also check inside the rank program (K14, the JAX package's checkify
+    # checks): the epilogue kernel sets a check word (non-finite live
+    # scores, n_valid outside [0, k], non-finite live residuals) that
+    # rides the window's one result copy; the fetch raises
+    # DeviceCheckError on it. Forces synchronous dispatch; stacked groups
+    # rank unchecked, with a warning, as in the JAX package.
+    device_checks: bool = False
     # "cuda" (default) or "cpu". Entry points also take ``device=``,
     # which wins over this field.
     device: str = "cuda"
@@ -199,9 +216,9 @@ class RuntimeConfig:
     # in order. Trade-off: the first window of a group waits for its
     # group-mates before ranking, so keep 1 (default) for the lowest
     # per-window latency. Ignored, with a warning, under
-    # run(batch_windows=True). Every kernel runs a group as one program
-    # (kind in every precision, packed, packed_bf16, packed_blocked, pcsr,
-    # pallas).
+    # run(batch_windows=True) or device_checks. Every kernel runs a group
+    # as one program (kind in every precision, packed, packed_bf16,
+    # packed_blocked, pcsr, csr, coo, dense, dense_bf16, pallas).
     dispatch_batch_windows: int = 1
     # Stage each window's graph (or stacked group's) as ONE pinned buffer
     # sent in one copy and read on the card as typed views
@@ -222,10 +239,8 @@ class RuntimeConfig:
 
     def __post_init__(self):
         if self.kernel not in KERNELS:
-            raise NotImplementedError(
-                f"kernel={self.kernel!r} is not ported yet: this package "
-                f"implements {KERNELS}. The other kernel families are "
-                "ROADMAP.md 'Port queue' item 10."
+            raise ValueError(
+                f"unknown kernel {self.kernel!r} (expected one of {KERNELS})"
             )
         if self.fetch_mode not in FETCH_MODES:
             raise ValueError(

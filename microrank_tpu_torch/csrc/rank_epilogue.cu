@@ -63,6 +63,16 @@
 //   kSmemKeys keys, else in the window's scratch).
 // `epilogue_first`, the first design, stays for comparison, and runs
 // the vocabularies past kClusterMax * kSliceMax ops.
+//
+// K14, the checked program (jax_tpu.py:1415 `rank_window_checked_core`,
+// :1450 `rank_window_checked_traced_core`): with a check word asked for
+// (a non-null `check`, a flag argument: an unchecked launch runs the
+// same instructions as before), both forms end with JAX's checkify
+// checks of the window as bits of one int32 (`check_window`): bit 0 a
+// live top score (rank < n_valid) not finite, bit 1 n_valid outside
+// [0, k], bit 2, given the residual trace [2, I] and n_iters the steps
+// wrote, a live residual (step < n_iters) not finite. The word rides the
+// window's one result copy; the host raises on it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -112,6 +122,10 @@ struct EpilogueArgs {
   int32_t* top_idx;            // [B, k]
   float* top_scores;           // [B, k]
   int32_t* n_valid;            // [B]
+  int32_t* check;              // [B] K14's check words, or null (unchecked)
+  const float* residuals;      // [B, 2, iters] with `check`: the residual trace, or null
+  const int32_t* n_iters;      // [B]
+  int32_t iters;
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -172,6 +186,34 @@ __device__ float block_max(float m, float* warp_vals) {
   for (int w = 1; w < kWarps; ++w) r = nan_max(r, warp_vals[w]);
   __syncthreads();
   return r;
+}
+
+__device__ __forceinline__ bool is_finite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) != 0x7f800000u;
+}
+
+// K14: window b's check word (the note at the top), by one warp, once
+// the block's writes of its top-k and n_valid are visible to it.
+__device__ __noinline__ void check_window(int32_t* check, const float* top_scores,
+                                          const int32_t* n_valid, const float* residuals,
+                                          const int32_t* n_iters, int iters, int b, int k) {
+  const int lane = threadIdx.x & 31;
+  const int nv = n_valid[b];
+  bool bad = false;
+  for (int j = lane; j < k; j += 32) {
+    bad |= j < nv && !is_finite(top_scores[static_cast<int64_t>(b) * k + j]);
+  }
+  int32_t word = __any_sync(0xffffffffu, bad) ? 1 : 0;
+  if (nv < 0 || nv > k) word |= 2;
+  if (residuals != nullptr) {
+    const int n = n_iters[b];
+    bad = false;
+    for (int i = lane; i < 2 * iters; i += 32) {
+      bad |= i % iters < n && !is_finite(residuals[static_cast<int64_t>(b) * 2 * iters + i]);
+    }
+    if (__any_sync(0xffffffffu, bad)) word |= 4;
+  }
+  if (lane == 0) check[b] = word;
 }
 
 // Sort keys[0, n) ascending (n a power of two) by the block.
@@ -342,6 +384,12 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
     a.top_idx[static_cast<int64_t>(b) * a.k + j] = idx;
     a.top_scores[static_cast<int64_t>(b) * a.k + j] = a.scores[row + idx];
   }
+  if (a.check != nullptr) {
+    __syncthreads();  // the top-k and n_valid written
+    if (t < 32) {
+      check_window(a.check, a.top_scores, a.n_valid, a.residuals, a.n_iters, a.iters, b, a.k);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- window
@@ -376,6 +424,10 @@ struct WindowArgs {
   float* top_scores;           // [B, k]
   int32_t* n_valid;            // [B]
   int64_t* stamps;             // [kStamps] SM cycles of window 0's phases, or null
+  int32_t* check;              // [B] K14's check words, or null (unchecked)
+  const float* residuals;      // [B, 2, iters] with `check`: the residual trace, or null
+  const int32_t* n_iters;      // [B]
+  int32_t iters;
 };
 
 // The phases a launch may stamp (block 0, thread 0): its start, the
@@ -873,6 +925,12 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
     stamp(a.stamps, 7);
   }
   if constexpr (kClustered) cg::this_cluster().sync();  // block 0 is done reading its peers
+  if (a.check != nullptr && r == 0) {
+    __syncthreads();  // the top-k and n_valid written
+    if (warp == 0) {
+      check_window(a.check, a.top_scores, a.n_valid, a.residuals, a.n_iters, a.iters, b, a.k);
+    }
+  }
 }
 
 // This library links its own CUDA runtime, whose current device is not
@@ -900,10 +958,13 @@ cudaError_t allow_slices() {
 // ops/epilogue.py ARGS packs it): for the normal then the abnormal
 // partition, sv, op_present, cov_unique, n_traces, n_ops, weight, score;
 // then the fields below (scores and nodes: the first design's scratch;
-// stamps: kStamps int64 for the window form's phase cycles, or null).
+// stamps: kStamps int64 for the window form's phase cycles, or null;
+// check, residuals, n_iters and iters: K14's check words, or null, and
+// the residual trace it checks, or null).
 enum Word {
   kPartWords = 7,
   kScores = kParts * kPartWords, kNodes, kKeys, kTopIdx, kTopScores, kNValid, kStampsAt,
+  kCheckAt, kResidualsAt, kNItersAt, kIters,
   kWindows, kV, kK, kKPad, kMethod, kEpsBits, kForm, kCluster, kSlice, kSmem, kDevice, kStream,
   kWords
 };
@@ -964,7 +1025,8 @@ int mr_rank_epilogue_launch(const int64_t* w) {
   const int64_t tiles = (v + kTile - 1) / kTile;
   if (windows < 1 || windows > 65535 || v < 1 || tiles > mr_tree::kMaxTiles || k < 1 || k > v
       || k_pad < k || (k_pad & (k_pad - 1)) != 0 || method < 0 || method >= kMethods
-      || (k_pad > kSmemKeys && ptr(kKeys) == nullptr)) {
+      || (k_pad > kSmemKeys && ptr(kKeys) == nullptr) || w[kIters] < 0
+      || (ptr(kResidualsAt) != nullptr && (ptr(kCheckAt) == nullptr || ptr(kNItersAt) == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Part parts[kParts];
@@ -1001,6 +1063,10 @@ int mr_rank_epilogue_launch(const int64_t* w) {
     a.top_idx = static_cast<int32_t*>(ptr(kTopIdx));
     a.top_scores = static_cast<float*>(ptr(kTopScores));
     a.n_valid = static_cast<int32_t*>(ptr(kNValid));
+    a.check = static_cast<int32_t*>(ptr(kCheckAt));
+    a.residuals = static_cast<const float*>(ptr(kResidualsAt));
+    a.n_iters = static_cast<const int32_t*>(ptr(kNItersAt));
+    a.iters = static_cast<int32_t>(w[kIters]);
     epilogue_first<<<static_cast<unsigned>(windows), kThreads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1029,6 +1095,10 @@ int mr_rank_epilogue_launch(const int64_t* w) {
   a.top_scores = static_cast<float*>(ptr(kTopScores));
   a.n_valid = static_cast<int32_t*>(ptr(kNValid));
   a.stamps = static_cast<int64_t*>(ptr(kStampsAt));
+  a.check = static_cast<int32_t*>(ptr(kCheckAt));
+  a.residuals = static_cast<const float*>(ptr(kResidualsAt));
+  a.n_iters = static_cast<const int32_t*>(ptr(kNItersAt));
+  a.iters = static_cast<int32_t>(w[kIters]);
   if (smem > 48 * 1024) {
     static int allowed = -1;  // the device whose attributes are set
     const int device = static_cast<int>(w[kDevice]);

@@ -136,10 +136,10 @@ def detect_window_partition(
 
 
 def _graph_from_padded(p) -> PartitionGraph:
-    """Wrap one native PaddedPartition as a PartitionGraph: the bitmap,
-    kind and partition-centric views the build exported, and the CSR
-    views of the unported csr kernel empty, shaped as the JAX package's
-    build leaves them when it does not build them."""
+    """Wrap one native PaddedPartition as a PartitionGraph, with the
+    bitmap, kind, CSR and partition-centric views the build exported
+    (each empty, shaped as the JAX package's build leaves it, where the
+    aux mode did not ask for it)."""
     return PartitionGraph(
         inc_op=p.inc_op,
         inc_trace=p.inc_trace,
@@ -148,10 +148,10 @@ def _graph_from_padded(p) -> PartitionGraph:
         ss_child=p.ss_child,
         ss_parent=p.ss_parent,
         ss_val=p.ss_val,
-        inc_trace_opmajor=np.zeros(0, np.int32),
-        sr_val_opmajor=np.zeros(0, np.float32),
-        inc_indptr_op=np.zeros(0, np.int32),
-        inc_indptr_trace=np.zeros(0, np.int32),
+        inc_trace_opmajor=p.inc_trace_opmajor,
+        sr_val_opmajor=p.sr_val_opmajor,
+        inc_indptr_op=p.inc_indptr_op,
+        inc_indptr_trace=p.inc_indptr_trace,
         ss_indptr=p.ss_indptr,
         cov_bits=p.cov_bits,
         ss_bits=p.ss_bits,
@@ -195,7 +195,7 @@ def build_window_graph_from_table(
     ``mask`` is a bool row filter (None = all rows), table-length or
     slice-local to ``row_range`` (lo, hi), which must contain every
     True row. ``aux`` picks the kernel views ("none", "packed", "kind",
-    "pcsr", or "auto": pcsr when the bitmaps would exceed a quarter of
+    "pcsr", "csr", "all", or "auto": pcsr when the bitmaps would exceed a quarter of
     ``dense_budget_bytes``, else kind past ``kind_dedup_threshold`` on a
     collapsed window, else packed; None takes the build module's default
     threshold).
@@ -203,6 +203,12 @@ def build_window_graph_from_table(
     """
     from ..native import build_window_padded
 
+    if aux == "auto_all":
+        raise NotImplementedError(
+            "aux mode 'auto_all' is the mesh's (both view families for the "
+            "per-shard kernel choice), which is not ported: ROADMAP.md's port "
+            "queue, item 12"
+        )
     vocab_size = len(table.pod_op_names)
     v_pad = pad_to(vocab_size, pad_policy, min_pad)
     lo, hi = row_range if row_range is not None else (0, table.n_spans)

@@ -14,10 +14,12 @@ library ``libmrspan.so`` builds with ``g++`` at first use into
   or the partition-centric views when the auxiliary-view mode asks for
   them.
 
-The auxiliary-view modes ``"none"`` (the pallas kernel), ``"packed"``,
-``"kind"``, ``"pcsr"`` and ``"auto"`` are supported; the CSR views
-(``"csr"``, ``"all"``, ``"auto_all"``) belong to kernel families this
-package has not ported and raise ``NotImplementedError``.
+The auxiliary-view modes ``"none"`` (the pallas, coo and dense
+kernels), ``"packed"``, ``"kind"``, ``"pcsr"``, ``"csr"`` (the CSR
+views of the csr kernel, ``mr_export_csr``), ``"all"`` (bitmaps, CSR
+and partition-centric views) and ``"auto"`` are supported; ``"auto_all"``
+is the mesh's mode and raises ``NotImplementedError`` until the mesh is
+ported (ROADMAP.md's port queue, item 12).
 """
 
 from __future__ import annotations
@@ -166,6 +168,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         u8p, ctypes.c_int64,             # cov_bits, t8
         u8p, ctypes.c_int64,             # ss_bits, v8
         f32p, f32p, f32p,                # inv_len, inv_cov, inv_out
+    ]
+    lib.mr_export_csr.restype = None
+    lib.mr_export_csr.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # vocab, v_pad, t_pad
+        i32p, f32p,                      # tr_om, sr_om
+        i32p, i32p, i32p,                # indptr_op, indptr_trace, ss_indptr
     ]
     lib.mr_collapse_window.restype = ctypes.c_int32
     lib.mr_collapse_window.argtypes = [
@@ -392,7 +401,11 @@ class PaddedPartition(NamedTuple):
     op_present: np.ndarray   # bool[v_pad]
     # Auxiliary views, filled per the resolved aux mode; unbuilt views
     # are [0]-shaped ([v_pad, 0] for bitmaps).
-    ss_indptr: np.ndarray          # int32[v_pad+1] (kind)
+    inc_trace_opmajor: np.ndarray  # int32[e_pad] (csr)
+    sr_val_opmajor: np.ndarray     # float32[e_pad] (csr)
+    inc_indptr_op: np.ndarray      # int32[v_pad+1] (csr)
+    inc_indptr_trace: np.ndarray   # int32[t_pad+1] (csr)
+    ss_indptr: np.ndarray          # int32[v_pad+1] (csr, kind)
     cov_bits: np.ndarray           # uint8[v_pad, t_pad/8] (packed, kind)
     ss_bits: np.ndarray            # uint8[v_pad, v_pad/8] (packed, kind)
     inv_tracelen: np.ndarray       # float32[t_pad]
@@ -437,7 +450,8 @@ def build_window_padded(
     global trace codes; ``row_mask`` (bool over rows, or None) is the
     detection window; ``pad`` maps a true length to its padded length.
     ``mode`` is an aux mode: resolved ("none" | "packed" | "kind" |
-    "pcsr"), or, with ``collapse`` enabled, "auto", resolved here against
+    "pcsr" | "csr" | "all"), or, with ``collapse`` enabled, "auto",
+    resolved here against
     the collapsed shapes and the measured dedup factor
     (``dense_budget_bytes`` and ``kind_dedup_threshold``; None takes
     graph.build's defaults).
@@ -445,12 +459,13 @@ def build_window_padded(
     inside the C++ build. ``parent_base`` is subtracted from each
     parent_row entry (callers pass a table slice plus its offset).
     """
-    if mode in ("csr", "all", "auto_all"):
+    if mode == "auto_all":
         raise NotImplementedError(
-            f"aux mode {mode!r} is not ported: its CSR views belong to the "
-            "kernel families of ROADMAP.md's port queue, item 10"
+            "aux mode 'auto_all' is the mesh's (both view families for the "
+            "per-shard kernel choice), which is not ported: ROADMAP.md's port "
+            "queue, item 12"
         )
-    if mode not in ("none", "packed", "kind", "pcsr", "auto"):
+    if mode not in ("none", "packed", "kind", "pcsr", "csr", "all", "auto"):
         raise ValueError(f"unknown aux mode {mode!r}")
     if mode == "auto" and collapse == "off":
         raise ValueError(
@@ -528,7 +543,9 @@ def build_window_padded(
                     else kind_dedup_threshold
                 ),
             )
-        want_bits = mode in ("packed", "kind")
+        want_bits = mode in ("packed", "kind", "all")
+        want_csr = mode in ("csr", "all")
+        want_pc = mode in ("pcsr", "all")
         out = []
         for idx in range(2):
             n_inc, n_ss, n_tr, n_ops = (int(x) for x in sizes[4 * idx: 4 * idx + 4])
@@ -549,7 +566,11 @@ def build_window_padded(
                 local_uniques=np.zeros(true_tr, np.int32),
                 cov_unique=np.zeros(v_pad, np.int32),
                 op_present=np.zeros(v_pad, np.bool_),
-                ss_indptr=np.zeros(0, np.int32),
+                inc_trace_opmajor=np.zeros(e_pad if want_csr else 0, np.int32),
+                sr_val_opmajor=np.zeros(e_pad if want_csr else 0, np.float32),
+                inc_indptr_op=np.zeros(v_pad + 1 if want_csr else 0, np.int32),
+                inc_indptr_trace=np.zeros(t_pad + 1 if want_csr else 0, np.int32),
+                ss_indptr=np.zeros(v_pad + 1 if want_csr else 0, np.int32),
                 cov_bits=np.zeros((v_pad, t8 if want_bits else 0), np.uint8),
                 ss_bits=np.zeros((v_pad, v8 if want_bits else 0), np.uint8),
                 inv_tracelen=np.zeros(t_pad, np.float32),
@@ -589,7 +610,21 @@ def build_window_padded(
                 p.inv_tracelen[p.inc_trace[:n_inc]] = p.sr_val[:n_inc]
                 p.inv_cov_dup[p.inc_op[:n_inc]] = p.rs_val[:n_inc]
                 p.inv_outdeg[p.ss_parent[:n_ss]] = p.ss_val[:n_ss]
-            if mode == "pcsr":
+            if want_csr:
+                # The op-major copies by a stable counting scatter of the
+                # trace-major entries (an op's traces stay ascending), and
+                # the three row-offset arrays.
+                lib.mr_export_csr(
+                    handle, ctypes.c_int32(idx),
+                    ctypes.c_int64(vocab_size),
+                    ctypes.c_int64(v_pad), ctypes.c_int64(t_pad),
+                    p.inc_trace_opmajor.ctypes.data_as(i32p),
+                    p.sr_val_opmajor.ctypes.data_as(f32p),
+                    p.inc_indptr_op.ctypes.data_as(i32p),
+                    p.inc_indptr_trace.ctypes.data_as(i32p),
+                    p.ss_indptr.ctypes.data_as(i32p),
+                )
+            if want_pc:
                 # Binned from the exported entries, which the C++ counting
                 # sort leaves in (trace, op) order.
                 from ..graph.build import pcsr_auxiliary

@@ -31,6 +31,13 @@ such blocks a window (up to 8 x 8,192), else the first design; and the
 top-k's: a warp-select for k <= 32, a radix select past it. The host
 side is one check, one allocation and one call with one packed
 argument block (``ARGS``). Nothing here waits for the card.
+
+K14, the checked program: ``rank_epilogue_checked`` gives the same
+``Epilogue`` and each window's check word (int32 [(B,)]): JAX's checkify
+checks of ``jax_tpu.py:1415`` / ``:1450`` as bits, set by the same one
+launch (a flag argument: an unchecked launch runs as before).
+``CHECK_MESSAGES`` holds JAX's message of each bit; ``check_word_plain``
+is the plain version.
 """
 
 from __future__ import annotations
@@ -88,6 +95,38 @@ class Epilogue(NamedTuple):
     top_idx: torch.Tensor     # int32 [(B,) k]
     top_scores: torch.Tensor  # float32 [(B,) k]
     n_valid: torch.Tensor     # int32 [(B,)]
+
+
+# K14's bits, in JAX's order of checks, with JAX's messages
+# (jax_tpu.py:1431-1439, :1474-1488): a live top score (rank < n_valid)
+# not finite; n_valid outside [0, k]; a live residual (step < n_iters)
+# not finite (the traced program only).
+CHECK_NONFINITE_SCORE, CHECK_N_VALID, CHECK_NONFINITE_RESIDUAL = 1, 2, 4
+CHECK_MESSAGES = (
+    (CHECK_NONFINITE_SCORE,
+     "non-finite ranked score inside the device program "
+     "(preference vector or spectrum formula produced NaN/inf)"),
+    (CHECK_N_VALID, "n_valid outside [0, k]"),
+    (CHECK_NONFINITE_RESIDUAL,
+     "non-finite power-iteration residual inside the device program "
+     "(the ranking vectors diverged)"),
+)
+
+
+def check_word_plain(top_scores, n_valid, residuals=None, n_iters=None) -> torch.Tensor:
+    """K14's check word of each window in plain PyTorch, int32 [(B,)]:
+    ``top_scores`` [(B,) k], ``n_valid`` [(B,)]; with ``residuals``
+    [(B,) 2, I] and ``n_iters`` [(B,)] the residual check too."""
+    k = top_scores.shape[-1]
+    dev = top_scores.device
+    live = torch.arange(k, device=dev) < n_valid[..., None]
+    word = (live & ~torch.isfinite(top_scores)).any(-1).to(torch.int32) * CHECK_NONFINITE_SCORE
+    word = word | ((n_valid < 0) | (n_valid > k)).to(torch.int32) * CHECK_N_VALID
+    if residuals is not None:
+        live_it = torch.arange(residuals.shape[-1], device=dev) < n_iters[..., None, None]
+        bad = (live_it & ~torch.isfinite(residuals)).flatten(-2).any(-1)
+        word = word | bad.to(torch.int32) * CHECK_NONFINITE_RESIDUAL
+    return word
 
 
 def partition_finish(g: PartitionGraph, sv):
@@ -299,9 +338,10 @@ def _check(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, sv_a):
 
 # The argument block of ``mr_rank_epilogue_launch`` (csrc ``Word``): each
 # partition's seven pointers, the first design's scores and nodes, keys,
-# top_idx, top_scores, n_valid, stamps, then windows, v, k, k_pad,
-# method, eps's float32 bits, form, cluster, slice, smem, device, stream.
-ARGS = struct.Struct("<33q")
+# top_idx, top_scores, n_valid, stamps, K14's check words, residuals,
+# n_iters and steps, then windows, v, k, k_pad, method, eps's float32
+# bits, form, cluster, slice, smem, device, stream.
+ARGS = struct.Struct("<37q")
 # The phases the window form stamps (csrc kStamps): its start, the slice
 # loaded, the maxima, the scores, the totals, the spectrum, the block's
 # selection, the top-k written.
@@ -311,6 +351,18 @@ STAMPS = 8
 @functools.lru_cache(maxsize=256)
 def _plan(v: int, k: int, windows: int, index: int, first_design: bool) -> EpiloguePlan:
     return epilogue_plan(v, k, windows, kernel_config(index), first_design)
+
+
+def _check_trace(residuals, n_iters, lead, dev) -> None:
+    """The residual trace K14 reads: float32 [(B,) 2, I] and int32
+    [(B,)], contiguous, on ``dev``."""
+    if (residuals.dim() != len(lead) + 2 or tuple(residuals.shape[:-2]) != lead
+            or residuals.shape[-2] != 2 or residuals.dtype != torch.float32
+            or not residuals.is_contiguous() or residuals.device != dev
+            or tuple(n_iters.shape) != lead or n_iters.dtype != torch.int32
+            or not n_iters.is_contiguous() or n_iters.device != dev):
+        raise ValueError(f"rank_epilogue: the checked residuals are float32 {lead + (2, 'I')} "
+                         f"and n_iters int32 {lead}, contiguous on {dev}")
 
 
 def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.Tensor,
@@ -327,13 +379,39 @@ def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.
     allocation, each contiguous. The host side is one check of the
     fields, one allocation, and one call with one packed argument
     block."""
+    return _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, stamps)[0]
+
+
+def rank_epilogue_checked(normal: PartitionGraph, abnormal: PartitionGraph,
+                          sv_n: torch.Tensor, sv_a: torch.Tensor,
+                          spectrum_cfg: SpectrumConfig,
+                          residuals: Optional[torch.Tensor] = None,
+                          n_iters: Optional[torch.Tensor] = None,
+                          first_design: bool = False):
+    """``rank_epilogue`` and K14's check word of each window, int32
+    [(B,)], from the same one launch (CPU tensors: the plain versions),
+    over the residual trace ``residuals`` [(B,) 2, I] and ``n_iters``
+    where given (JAX's traced checked program), else over the ranking
+    alone. Returns (Epilogue, check words)."""
+    return _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, None,
+                          True, residuals, n_iters)
+
+
+def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, stamps,
+                   check: bool = False, residuals=None, n_iters=None):
+    """The epilogue (and, with ``check``, the check words; else None)."""
     dev = sv_n.device
     if dev.type == "cpu":
-        return rank_epilogue_plain(normal, abnormal, sv_n, sv_a, spectrum_cfg)
+        out = rank_epilogue_plain(normal, abnormal, sv_n, sv_a, spectrum_cfg)
+        word = (check_word_plain(out.top_scores, out.n_valid, residuals, n_iters)
+                if check else None)
+        return out, word
     if dev.type != "cuda":
         raise ValueError(f"rank_epilogue: unsupported device {dev}")
     method = method_id(spectrum_cfg.method)
     lead, v = _check(normal, abnormal, sv_n, sv_a)
+    if residuals is not None:
+        _check_trace(residuals, n_iters, lead, dev)
     windows = lead[0] if lead else 1
     k = min(spectrum_cfg.n_rows, v)
     if k < 1:
@@ -344,12 +422,15 @@ def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.
     tiles = -(-v // TILE)
     # weight, score of each partition, top_idx, top_scores, n_valid; the
     # first design's canonical scores and tile nodes.
+    # K14's check words; the first design's canonical scores and tile
+    # nodes.
     n = windows * v
-    sizes = (n, n, n, n, windows * k, windows * k, windows)
+    sizes = (n, n, n, n, windows * k, windows * k, windows, windows if check else 0)
     if first:
         sizes += (n, windows * 2 * tiles if tiles > 1 else 0)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    w_n, s_n, w_a, s_a, top_idx, top_scores, n_valid = torch.split_with_sizes(flat, sizes)[:7]
+    w_n, s_n, w_a, s_a, top_idx, top_scores, n_valid, word = (
+        torch.split_with_sizes(flat, sizes)[:8])
     at = flat.data_ptr()
     ptrs = []
     for size in sizes:
@@ -369,9 +450,12 @@ def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.
         words += [f.data_ptr() for f in part] + [out[0], out[1]]
     lib = load_library()
     rc = lib.mr_rank_epilogue_launch(ARGS.pack(
-        *words, ptrs[7] if first else 0, ptrs[8] if first else 0,
+        *words, ptrs[8] if first else 0, ptrs[9] if first else 0,
         0 if keys is None else keys.data_ptr(), ptrs[4], ptrs[5],
-        ptrs[6], 0 if stamps is None else stamps.data_ptr(), windows, v, k, plan.k_pad, method,
+        ptrs[6], 0 if stamps is None else stamps.data_ptr(), ptrs[7],
+        0 if residuals is None else residuals.data_ptr(),
+        0 if residuals is None else n_iters.data_ptr(),
+        0 if residuals is None else residuals.shape[-1], windows, v, k, plan.k_pad, method,
         f32_bits(spectrum_cfg.eps),
         FORMS.index(plan.form), plan.cluster, plan.slice, plan.smem, index,
         torch._C._cuda_getCurrentRawStream(index)))
@@ -381,11 +465,12 @@ def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.
         )
     rank_epilogue.launches += 1
     top_idx, n_valid = top_idx.view(torch.int32), n_valid.view(torch.int32)
+    word = word.view(torch.int32).view(lead) if check else None
     if not lead:
-        return Epilogue(w_n, w_a, s_n, s_a, top_idx, top_scores, n_valid.view(()))
+        return Epilogue(w_n, w_a, s_n, s_a, top_idx, top_scores, n_valid.view(())), word
     return Epilogue(w_n.view(windows, v), w_a.view(windows, v), s_n.view(windows, v),
                     s_a.view(windows, v), top_idx.view(windows, k), top_scores.view(windows, k),
-                    n_valid)
+                    n_valid), word
 
 
 # Launches of the epilogue kernel (a plain int; rank_epilogue is the one

@@ -12,6 +12,10 @@ Three steps:
   that order was) plus ``indptr[n_rows + 1]``, with the columns and
   values gathered into that order. Entries at or past ``n_live`` are
   padding (value 0) and move past the last row, outside every row.
+* ``indptr_layout`` — the same layout read straight from a matrix
+  already in row order (the build's CSR views, the csr kernel's): its
+  row offsets as they are, no sort; stacked windows block-diagonal as
+  below.
 * ``spmv_group`` — once per window: one work list for several row
   layouts (a power-iteration step's six matrices). Every row is cut into
   chunks of at most ``CHUNK`` entries at positions ``[j * CHUNK,
@@ -150,6 +154,51 @@ def row_layout(
     )
 
 
+def indptr_layout(
+    indptr: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    n_x: Optional[int] = None,
+) -> RowLayout:
+    """The row layout of a matrix already in row order, read straight
+    from its row offsets with no sort (the csr kernel's layouts over the
+    build's CSR views: ``indptr`` int32[n_rows + 1], each row's entries
+    in the build's order). Entries past ``indptr[-1]`` are padding,
+    outside every row.
+
+    Stacked windows (``indptr`` [B, n_rows + 1], ``cols`` / ``vals``
+    [B, E], ``n_x`` each window's x length): one block-diagonal matrix,
+    window b's offsets moved by b * E and its columns by b * n_x (a
+    column outside [0, n_x) becomes -1, which ``spmv_group`` refuses).
+    A window's padding entries (value 0, column 0) then close its last
+    row after the row's own entries: each adds a +0 product to a lane's
+    sum, or a chunk of +0 to the row's fold, which moves no bit of a
+    finite sum, so each row keeps its window's own bits."""
+    if cols.dtype != torch.int32 or indptr.dtype != torch.int32:
+        raise TypeError("indptr and cols must be int32")
+    if vals.dtype != torch.float32:
+        raise TypeError("vals must be float32")
+    dev = cols.device
+    if indptr.dim() == 1:
+        return RowLayout(indptr=indptr, cols=cols, vals=vals,
+                         perm=torch.arange(cols.shape[0], device=dev),
+                         n_rows=int(indptr.shape[0]) - 1)
+    if n_x is None:
+        raise ValueError("indptr_layout: stacked windows need their x length n_x")
+    n_win, e = cols.shape
+    win = torch.arange(n_win, device=dev)[:, None]
+    return RowLayout(
+        indptr=torch.cat([
+            (indptr[:, :-1] + win * e).reshape(-1), indptr[-1, -1:] + (n_win - 1) * e,
+        ]).to(torch.int32),
+        cols=torch.where((cols >= 0) & (cols < n_x), cols + (win * n_x).to(torch.int32), -1)
+        .reshape(-1),
+        vals=vals.reshape(-1),
+        perm=torch.arange(n_win * e, device=dev),
+        n_rows=int(n_win * (indptr.shape[1] - 1)),
+    )
+
+
 class SpmvGroup(NamedTuple):
     """Several row layouts as one work list: what one launch of the
     chunked kernel computes. Matrix m reads x slot ``x_slots[m]`` (of
@@ -218,6 +267,27 @@ def host_row_layout(rows, cols, n_rows: int, n_live=None, n_x: Optional[int] = N
     if rows.ndim == 2 or hi == n_rows:
         bad = bad.reshape(-1) & (key < n_rows)
     return indptr, int(np.count_nonzero(bad))
+
+
+def host_indptr_layout(indptr, cols, n_x: int) -> Tuple[np.ndarray, int]:
+    """``indptr_layout`` of host arrays as ``host_spmv_counts`` reads it:
+    (indptr, the entries inside a row whose column lies outside its
+    window's x), a stacked group's block-diagonal over its windows.
+    Raises ``ValueError`` on offsets that decrease or leave [0, E]."""
+    indptr, cols = np.asarray(indptr).astype(np.int64), np.asarray(cols)
+    stacked = indptr.ndim == 2
+    n_win, e = cols.shape if stacked else (1, cols.shape[0])
+    if indptr.size and ((np.diff(indptr, axis=-1) < 0).any() or indptr.min() < 0
+                        or indptr.max() > e):
+        raise ValueError("CSR row offsets must be non-decreasing within [0, E]")
+    bad = (cols < 0) | (cols >= n_x)
+    if stacked:
+        win = np.arange(n_win)[:, None]
+        indptr = np.concatenate([(indptr[:, :-1] + win * e).reshape(-1),
+                                 indptr[-1, -1:] + (n_win - 1) * e])
+    if not indptr.size:
+        return indptr, 0
+    return indptr, int(np.count_nonzero(bad.reshape(-1)[int(indptr[0]): int(indptr[-1])]))
 
 
 def host_spmv_counts(layouts: Sequence[Tuple[np.ndarray, int]]) -> SpmvCounts:

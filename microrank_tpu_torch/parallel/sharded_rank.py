@@ -8,8 +8,11 @@ field re-padded to the batch maximum, padding inert, each window's true
 extents in its ``n_*`` scalars (stacked to [B]). One rank program then
 ranks the whole stack (``rank_backends.torch_cuda.rank_window_traced_core``
 on a stacked graph, K18): each power-iteration step is one launch of each
-kernel of the route (K1, the pattern pair or K8, the pcsr step, K5) for
-all B windows, on every route. As JAX's ``_rank_windows_batched_jit``,
+kernel of the route (K1, the pattern pair or K8, the pcsr step, the
+dense kernel, K5) for all B windows, on every route: the csr route's
+layouts move each window's CSR row offsets by its entries
+(``ops.spmv.indptr_layout``), the dense routes densify the stack to
+[B, rows, ld] matrices (``ops.dense.densify``). As JAX's ``_rank_windows_batched_jit``,
 packed_blocked's block budget is divided by B (``divide_block_budget``).
 """
 

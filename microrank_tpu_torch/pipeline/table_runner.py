@@ -44,8 +44,16 @@ all anomalous ones in one stacked program). A stacked program is K18
 (``rank_backends.torch_cuda`` on a ``parallel.stack_window_graphs``
 graph): one launch of each kernel a power-iteration step for the group,
 whatever kernel it resolves to (kind in every precision, packed,
-packed_bf16, packed_blocked, pcsr, pallas), so a group of windows past
-the dense budget ranks as one program too.
+packed_bf16, packed_blocked, pcsr, csr, coo, dense, dense_bf16,
+pallas), so a group of windows past the dense budget ranks as one
+program too.
+
+``runtime.device_checks`` (K14) makes the JAX lane's decisions with its
+warnings: each window's program is the checked one (its check word
+rides the window's one result copy, and the fetch raises
+``DeviceCheckError``); the dispatch runs synchronously; micro-batched
+dispatch falls back to per-window dispatch; ``run(batch_windows=True)``
+ranks its stacked program unchecked.
 
 Not ported yet (ROADMAP.md "Port queue"): the mesh, and the flight
 recorder that dumps the span ring.
@@ -274,14 +282,20 @@ class TableRCA:
         group launch divides it. Returns the packed outputs, holding the
         pinned blob until they are fetched."""
         cfg = self.config
-        stage = (
-            stage_rank_windows_batched if graph.normal.kind.ndim == 2 else stage_rank_window
-        )
-        outs, staged = stage(
+        if graph.normal.kind.ndim == 2:
+            outs, staged = stage_rank_windows_batched(
+                host_subset(graph, kernel), cfg.pagerank, cfg.spectrum, kernel, self.device,
+                cfg.runtime.blob_staging, conv_trace=True,
+            )
+            return pack_rank_outputs(outs, staged)
+        # A window's program is the checked one under device_checks: its
+        # check word rides the same copy, and the fetch raises on it.
+        checked = bool(cfg.runtime.device_checks)
+        outs, staged = stage_rank_window(
             host_subset(graph, kernel), cfg.pagerank, cfg.spectrum, kernel, self.device,
-            cfg.runtime.blob_staging, conv_trace=True,
+            cfg.runtime.blob_staging, checked=checked, conv_trace=True,
         )
-        return pack_rank_outputs(outs, staged)
+        return pack_rank_outputs(outs, staged, checked=checked)
 
     def _ranking(self, op_names, outs, label):
         """(names, scores, conv-summary-or-None) of one window's fetched
@@ -440,9 +454,21 @@ class TableRCA:
                 current = int(np.datetime64(saved, "us").astype(np.int64))
                 log.info("resuming window loop at %s", saved)
 
-        # The JAX lane falls back to synchronous dispatch under device
-        # checks or in a multi-process mesh; this package has neither, so
-        # async_dispatch and fetch_mode always hold as configured.
+        if batch_windows and cfg.runtime.device_checks:
+            log.warning(
+                "device_checks applies to per-window dispatch only; "
+                "run(batch_windows=True) without a mesh ranks without "
+                "checkify instrumentation"
+            )
+        # The JAX lane also falls back to synchronous dispatch in a
+        # multi-process mesh, which this package does not have.
+        async_mode = bool(cfg.runtime.async_dispatch) and not batch_windows
+        if async_mode and cfg.runtime.device_checks:
+            log.warning(
+                "device_checks forces synchronous dispatch (the "
+                "in-program error check fetches device state per window)"
+            )
+            async_mode = False
         bulk = cfg.runtime.fetch_mode == "bulk" and not batch_windows
         # Rank programs in flight before the host joins; in bulk mode
         # the batch size replaces the depth.
@@ -451,18 +477,24 @@ class TableRCA:
         ))
         # Micro-batched dispatch: groups of chunk_n windows, one stacked
         # program each. Of the JAX lane's reasons to ignore it (batch
-        # windows, a mesh, several processes, device checks) only the
-        # first exists here.
+        # windows, a mesh, several processes, device checks) the first
+        # and the last exist here.
         chunk_n = max(1, int(cfg.runtime.dispatch_batch_windows))
-        if chunk_n > 1 and batch_windows:
-            log.warning(
-                "dispatch_batch_windows=%d ignored: batch_windows=True already "
-                "ranks every anomalous window in one dispatch; dispatching per "
-                "window", chunk_n,
-            )
-            chunk_n = 1
+        if chunk_n > 1:
+            reason = None
+            if batch_windows:
+                reason = ("batch_windows=True already ranks every anomalous "
+                          "window in one dispatch")
+            elif cfg.runtime.device_checks:
+                reason = "device_checks has no batched checkify variant"
+            if reason is not None:
+                log.warning(
+                    "dispatch_batch_windows=%d ignored: %s; dispatching per window",
+                    chunk_n, reason,
+                )
+                chunk_n = 1
         stage_pool = fetch_pool = None
-        if cfg.runtime.async_dispatch:
+        if async_mode:
             # One stage thread on one stream: the kernels' scratch (K1's
             # counters, the pattern pair's partials) must never be in
             # flight on two streams at once, and every tensor of a

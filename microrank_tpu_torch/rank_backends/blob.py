@@ -175,24 +175,28 @@ def stage_rank_window(
     or None): (top_idx, top_scores, n_valid), with ``conv_trace`` also
     (residuals, n_iters), all still on the device.
 
-    JAX's checked (``device_checks``) and explained programs are not
-    ported (ROADMAP.md, port queue items 10-11)."""
-    from .torch_cuda import device_subset, host_counts, rank_window_traced_core
+    ``checked`` (``RuntimeConfig.device_checks``, K14): the checked
+    program instead (``rank_window_checked_core``, with ``conv_trace``
+    ``rank_window_checked_traced_core``), blob-staged as the unchecked
+    one: its check word is a last output, to be packed with
+    ``pack_rank_outputs(..., checked=True)``, whose fetch raises
+    ``DeviceCheckError`` where JAX's call raises. JAX's explained
+    program is not ported (ROADMAP.md, port queue items 10-11)."""
+    from . import torch_cuda
 
     if explain is not None and getattr(explain, "enabled", False):
         raise NotImplementedError(
             "stage_rank_window: the explained program (K15) is not ported "
             "(ROADMAP.md, port queue items 10-11)"
         )
-    if checked:
-        raise NotImplementedError(
-            "stage_rank_window: the checked program (K14, device_checks) is "
-            "not ported (ROADMAP.md, port queue item 10)"
-        )
-    counts = host_counts(graph, kernel)
+    counts = torch_cuda.host_counts(graph, kernel)
     dgraph, staged = stage_graph(graph, device, blob)
-    dgraph = device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)
-    outs = rank_window_traced_core(dgraph, pagerank_cfg, spectrum_cfg, kernel)
+    dgraph = torch_cuda.device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)
+    if checked:
+        program = (torch_cuda.rank_window_checked_traced_core if conv_trace
+                   else torch_cuda.rank_window_checked_core)
+        return program(dgraph, pagerank_cfg, spectrum_cfg, kernel), staged
+    outs = torch_cuda.rank_window_traced_core(dgraph, pagerank_cfg, spectrum_cfg, kernel)
     return (outs if conv_trace else outs[:3]), staged
 
 

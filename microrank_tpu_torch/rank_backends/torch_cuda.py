@@ -1,6 +1,7 @@
 """The per-window rank program on torch tensors (counterpart of
-``microrank_tpu/rank_backends/jax_tpu.py``, kernels "kind", "packed",
-"packed_bf16", "packed_blocked", "pcsr" and "pallas"):
+``microrank_tpu/rank_backends/jax_tpu.py``, every kernel it runs:
+"kind", "packed", "packed_bf16", "packed_blocked", "pcsr", "csr", "coo",
+"dense", "dense_bf16" and "pallas"):
 
     set-up (preference and initial vectors) -> 25 power-iteration steps
     over both partitions -> epilogue (rescale, spectrum counters,
@@ -10,8 +11,22 @@ Each step's products (p_sr @ rv, p_ss @ sv, p_rs @ sv of both
 partitions) take one or two launches, built for the window by
 ``device_subset``:
 
-* ``pallas``: all six SpMVs through K1 in one call
-  (``ops.spmv.coo_spmv_group``) over the COO incidence arrays;
+* ``pallas`` and ``coo`` (K11: JAX's segment sums, ``ops/segment.py``
+  ``coo_matvec``, the function K1 computes): all six SpMVs through K1
+  in one call (``ops.spmv.coo_spmv_group``) over the COO incidence
+  arrays;
+* ``csr`` (K10): the same six SpMVs in one K1 call, its work list read
+  straight from the build's CSR views (``ops.spmv.indptr_layout``, no
+  row sort: ``csr_layouts``). The op-major copies are a stable counting
+  scatter of the trace-major entries, so every row holds the pallas
+  row's entries in its order, and the products are the pallas path's,
+  bit for bit; JAX's compensated prefix sums (an XLA device for a
+  scatter-free row sum on the TPU) have no counterpart: K1's row fold
+  is fixed-order by construction;
+* ``dense`` / ``dense_bf16`` (K12): the transition matrices densified
+  once a window (``ops.dense.densify``), then all six products of a
+  step in one launch of ``csrc/dense_mv.cu`` (``ops.dense.dense_matvecs``;
+  bf16 operands, f32 accumulation for ``dense_bf16``);
 * ``pcsr``: the same six SpMVs in one call of the pcsr kernel
   (``ops.spmv.pcsr_spmv_group``, ``window_pcsr_group``): K1's work items
   over the op-side rows built from the partition-centric views and the
@@ -38,6 +53,14 @@ the max normalization, the residual trace and, with ``tol``, the freeze
 — is K5 (``ops.step.StepWindow``, set up once a window): one
 cooperative launch of ``csrc/power_step.cu`` a step for both
 partitions, in place of the eager ops the port issued before.
+
+JAX's checked programs (K14, ``rank_window_checked_core`` :1415 and
+``rank_window_checked_traced_core`` :1450, ``RuntimeConfig.
+device_checks``) are the same program with the epilogue's check word
+(``rank_window_checked(_traced)_core``): it rides the outputs' one
+device-to-host copy (``pack_rank_outputs(..., checked=True)``), and the
+fetch raises ``DeviceCheckError`` with JAX's message of the first
+failed check.
 
 The set-up before the loop and the epilogue after it are K6: one
 launch each a program (``ops.setup.rank_setup``, ``csrc/rank_setup.cu``:
@@ -74,7 +97,9 @@ bf16, int8: ``quantize_amax`` and the step give [B, 4] scales, each
 window's own), packed, packed_bf16, packed_blocked (K8 with a window
 axis; the plain version's bands within ``packed_block_bytes`` divided
 by B, ``divide_block_budget``), pcsr (one slab of the B windows' rows
-per partition) and pallas.
+per partition), csr (its CSR views' row offsets moved per window,
+``indptr_layout``), coo, pallas, and dense / dense_bf16 (a [B, rows, ld]
+matrix each, the kernel's window grid dimension).
 
 Scalars that JAX keeps as float32 (damping, call weight, eps, tol) are
 float32 here (0-d tensors filled on the device, or the step kernel's
@@ -99,11 +124,14 @@ from ..graph.build import (
 from ..graph.structures import PartitionGraph, WindowGraph
 # window_spectrum: the epilogue's plain spectrum, named here for the
 # card tests that compare a program stage by stage.
+from ..ops.dense import DenseGroup, check_group, dense_group, dense_matvecs
 from ..ops.epilogue import (  # noqa: F401
+    CHECK_MESSAGES,
     Epilogue,
     finish_topk,
     partition_finish,
     rank_epilogue,
+    rank_epilogue_checked,
     window_spectrum,
 )
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
@@ -117,8 +145,10 @@ from ..ops.spmv import (
     SpmvGroup,
     coo_spmv_group,
     ell_mode,
+    host_indptr_layout,
     host_row_layout,
     host_spmv_counts,
+    indptr_layout,
     pcsr_spmv_group,
     row_layout,
     spmv_group,
@@ -132,10 +162,7 @@ def _check_kernel(kernel: str) -> None:
             "the rank program"
         )
     if kernel not in KERNELS:
-        raise NotImplementedError(
-            f"kernel={kernel!r} is not ported (this package runs "
-            f"{KERNELS}; see ROADMAP.md's port queue, item 10)"
-        )
+        raise ValueError(f"unknown kernel {kernel!r} (expected one of {KERNELS})")
 
 
 def stacked_windows(graph: WindowGraph) -> Optional[int]:
@@ -184,10 +211,9 @@ def choose_kernel(
     ``jax_tpu.choose_kernel``: "kind" when both partitions carry the kind
     views; with bitmaps, "packed_bf16" / "packed" when their unpacked
     f32 matrices fit ``dense_budget_bytes``, else "packed_blocked"
-    (always f32); "pcsr" with the partition-centric views. Where the JAX
-    policy goes on to "csr" or "coo", this raises NotImplementedError:
-    those kernels are not ported, and no other kernel stands in for
-    them."""
+    (always f32); "pcsr" with the partition-centric views; "csr" with
+    the CSR views; else "coo" (the last resort, e.g. a stacked group
+    whose windows were built with different views)."""
     if dense_budget_bytes is None:
         dense_budget_bytes = DEFAULT_DENSE_BUDGET_BYTES
     parts = (graph.normal, graph.abnormal)
@@ -203,11 +229,9 @@ def choose_kernel(
         return "packed_blocked"
     if all(int(g.pc_trace.shape[-1]) > 0 for g in parts):
         return "pcsr"
-    kernel = "csr" if all(int(g.inc_indptr_op.shape[-1]) > 0 for g in parts) else "coo"
-    raise NotImplementedError(
-        f"kernel='auto' resolves to {kernel!r} for this window, which is "
-        "not ported yet (ROADMAP.md port queue, item 10)"
-    )
+    if all(int(g.inc_indptr_op.shape[-1]) > 0 for g in parts):
+        return "csr"
+    return "coo"
 
 
 def spmv_layouts(g: PartitionGraph, checked: bool = False
@@ -236,6 +260,61 @@ def _host_spmv_layouts(g) -> list:
         host_row_layout(g.ss_child, g.ss_parent, v, g.n_ss, v),
         host_row_layout(g.inc_trace, g.inc_op, t_pad, g.n_inc, v),
     ]
+
+
+def _require_csr_views(g: PartitionGraph) -> None:
+    if g.inc_indptr_op.shape[-1] == 0:
+        raise ValueError(
+            "kernel='csr' needs the CSR views, but this window was "
+            "built with aux='auto' inside the bitmap budget — build "
+            "with aux='all' (or use kernel='packed')"
+        )
+
+
+def csr_layouts(g: PartitionGraph, checked: bool = False
+                ) -> Tuple[RowLayout, RowLayout, RowLayout]:
+    """K1's row layouts of the partition's three matrices read straight
+    from the CSR views (``indptr_layout``, no sort): p_sr from
+    ``inc_indptr_op`` over ``sr_val_opmajor`` / ``inc_trace_opmajor``,
+    p_ss from ``ss_indptr`` over ``ss_val`` / ``ss_parent``, p_rs from
+    ``inc_indptr_trace`` over ``rs_val`` / ``inc_op`` (the COO arrays are
+    trace-major). Each row holds the entries ``spmv_layouts``' stable
+    sort gives the pallas path, in the same order. A stacked group's
+    partition gives block-diagonal layouts. ``checked`` is accepted for
+    ``window_spmv_group``: no layout here syncs."""
+    del checked
+    _require_csr_views(g)
+    v, t_pad = g.cov_unique.shape[-1], g.kind.shape[-1]
+    return (
+        indptr_layout(g.inc_indptr_op, g.inc_trace_opmajor, g.sr_val_opmajor, n_x=t_pad),
+        indptr_layout(g.ss_indptr, g.ss_parent, g.ss_val, n_x=v),
+        indptr_layout(g.inc_indptr_trace, g.inc_op, g.rs_val, n_x=v),
+    )
+
+
+def _host_csr_layouts(g) -> list:
+    """``csr_layouts`` of one host partition as ``host_spmv_counts``
+    reads them (``host_indptr_layout``)."""
+    _require_csr_views(g)
+    v, t_pad = int(g.cov_unique.shape[-1]), int(g.kind.shape[-1])
+    return [
+        host_indptr_layout(g.inc_indptr_op, g.inc_trace_opmajor, t_pad),
+        host_indptr_layout(g.ss_indptr, g.ss_parent, v),
+        host_indptr_layout(g.inc_indptr_trace, g.inc_op, v),
+    ]
+
+
+def _host_dense_checks(graph) -> None:
+    """What ``densify`` takes on trust, checked on the host: every
+    entry's row and column inside its matrix (an index out of range would
+    fault the card's scatter). Raises ``IndexError``."""
+    for g in (graph.normal, graph.abnormal):
+        v, t = int(g.cov_unique.shape[-1]), int(g.kind.shape[-1])
+        for name, a, n in (("inc_op", g.inc_op, v), ("inc_trace", g.inc_trace, t),
+                           ("ss_child", g.ss_child, v), ("ss_parent", g.ss_parent, v)):
+            a = np.asarray(a)
+            if a.size and (a.min() < 0 or a.max() >= n):
+                raise IndexError(f"densify: {name} outside [0, {n})")
 
 
 # x slots of a step's group: (rv_n, sv_n, rv_a, sv_a). p_sr reads a
@@ -630,6 +709,9 @@ def ss_layout(g: PartitionGraph, kernel: str, checked: bool = False) -> RowLayou
 # Routes whose call-graph terms are K1's work list beside the pattern
 # pair (``ss_host_counts``).
 PATTERN_KERNELS = ("kind", "packed", "packed_bf16", "packed_blocked")
+# Routes whose step is K1's six SpMVs in one launch, and the dense ones.
+K1_KERNELS = ("pallas", "coo", "csr")
+DENSE_KERNELS = ("dense", "dense_bf16")
 
 
 def _ss_host_layout(g, kernel: str) -> Tuple[np.ndarray, int]:
@@ -673,14 +755,20 @@ def host_counts(graph, kernel: str):
     ``ValueError`` / ``IndexError`` on a bad view, row or column), so
     that the device side of a window issues without a host sync: the
     call-graph terms' counts on the pattern routes (``ss_host_counts``),
-    the six SpMVs' on pallas, ``PcsrCounts`` on pcsr."""
+    the six SpMVs' on pallas, coo and csr, ``PcsrCounts`` on pcsr; on
+    dense and dense_bf16 nothing is counted (None), the entries' indices
+    are checked."""
     _check_kernel(kernel)
+    parts = (graph.normal, graph.abnormal)
     if kernel == "pcsr":
         return _host_pcsr_counts(graph)
-    if kernel == "pallas":
-        return host_spmv_counts(
-            [lay for g in (graph.normal, graph.abnormal) for lay in _host_spmv_layouts(g)]
-        )
+    if kernel in ("pallas", "coo"):
+        return host_spmv_counts([lay for g in parts for lay in _host_spmv_layouts(g)])
+    if kernel == "csr":
+        return host_spmv_counts([lay for g in parts for lay in _host_csr_layouts(g)])
+    if kernel in DENSE_KERNELS:
+        _host_dense_checks(graph)
+        return None
     return ss_host_counts(graph, kernel)
 
 
@@ -765,6 +853,15 @@ class _Program(NamedTuple):
     rv_a: torch.Tensor
     residuals: torch.Tensor
     n_iters: torch.Tensor
+    check: Optional[torch.Tensor] = None  # K14's check word (a checked program)
+
+
+def _step_group_type(kernel: str):
+    """The type of ``WindowGraph.spmv_group`` that ``device_subset``
+    builds for ``kernel``."""
+    if kernel == "pcsr":
+        return PcsrGroup
+    return DenseGroup if kernel in DENSE_KERNELS else SpmvGroup
 
 
 def _rank_program(
@@ -772,31 +869,38 @@ def _rank_program(
     pagerank_cfg: PageRankConfig,
     spectrum_cfg: SpectrumConfig,
     kernel: str,
+    check: Optional[str] = None,
 ) -> _Program:
     """The rank program: the set-up (one ``rank_setup`` call for both
     partitions), the 25 steps, the epilogue (one ``rank_epilogue`` call:
-    the finish of both partitions, the spectrum and the top-k)."""
+    the finish of both partitions, the spectrum and the top-k).
+    ``check`` (K14): "ranking" adds the epilogue's check word over the
+    ranking (JAX's ``rank_window_checked_core``), "traced" over the
+    residual trace too (``rank_window_checked_traced_core``)."""
     _check_kernel(kernel)
     cfg = pagerank_cfg
     windows = stacked_windows(graph)
     lead = () if windows is None else (windows,)
     int8 = kernel == "kind" and cfg.kind_precision == "int8"
     (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg)
-    six_spmvs = kernel in ("pallas", "pcsr")
-    want = PcsrGroup if kernel == "pcsr" else SpmvGroup
+    pattern_route = kernel in PATTERN_KERNELS
     if (
-        not isinstance(graph.spmv_group, want)
-        or (graph.pattern_group is None) != six_spmvs
+        not isinstance(graph.spmv_group, _step_group_type(kernel))
+        or (graph.pattern_group is None) == pattern_route
         or graph.step_scratch is None
     ):
         graph = device_subset(graph, kernel, cfg.packed_block_bytes)
     group = graph.spmv_group
     pgroup = graph.pattern_group
-    if six_spmvs:
-        six = pcsr_spmv_group if kernel == "pcsr" else coo_spmv_group
+    if not pattern_route:
+        if kernel == "pcsr":
+            six = pcsr_spmv_group
+        else:
+            six = dense_matvecs if kernel in DENSE_KERNELS else coo_spmv_group
 
         def products(old_n, old_a, scales):
-            # One call: all six SpMVs of the step (x slots STEP_X_SLOTS).
+            # One call: all six products of the step (x slots
+            # STEP_X_SLOTS).
             ys = six(group, (old_n[1], old_n[0], old_a[1], old_a[0]))
             return ys[:3], ys[3:]
 
@@ -843,8 +947,17 @@ def _rank_program(
     if n_iters is None:
         n_iters = torch.full(lead, n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
-    epilogue = rank_epilogue(graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg)
-    return _Program(epilogue, sv_n, rv_n, sv_a, rv_a, residuals, n_iters)
+    word = None
+    if check is None:
+        epilogue = rank_epilogue(graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg)
+    elif check in ("ranking", "traced"):
+        traced = check == "traced"
+        epilogue, word = rank_epilogue_checked(
+            graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg,
+            residuals if traced else None, n_iters if traced else None)
+    else:
+        raise ValueError(f"unknown check {check!r}")
+    return _Program(epilogue, sv_n, rv_n, sv_a, rv_a, residuals, n_iters, word)
 
 
 def _finish_topk(graph: WindowGraph, n_weight, a_weight, spectrum_cfg):
@@ -872,6 +985,57 @@ def rank_window_traced_core(
             out.residuals, out.n_iters)
 
 
+class DeviceCheckError(RuntimeError):
+    """A checked rank program's in-program check failed (K14; JAX raises
+    ``checkify.JaxRuntimeError``): the message is JAX's message of the
+    first failed check, in JAX's order of checks."""
+
+
+def rank_window_checked_core(graph, pagerank_cfg, spectrum_cfg, kernel: str = "coo"):
+    """JAX's ``rank_window_checked_core`` (K14): the window's ranking
+    (top_idx, top_scores, n_valid) and its check word (int32: live
+    scores finite, 0 <= n_valid <= k), all still on the device; fetch
+    with ``fetch_rank_outputs(..., checked=True)``, which raises on the
+    word."""
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, check="ranking")
+    e = out.epilogue
+    return e.top_idx, e.top_scores, e.n_valid, out.check
+
+
+def rank_window_checked_traced_core(graph, pagerank_cfg, spectrum_cfg, kernel: str = "coo"):
+    """JAX's ``rank_window_checked_traced_core`` (K14): the five outputs
+    of ``rank_window_traced_core`` and the check word, whose third check
+    is that the live residuals (step < n_iters) are finite."""
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, check="traced")
+    e = out.epilogue
+    return e.top_idx, e.top_scores, e.n_valid, out.residuals, out.n_iters, out.check
+
+
+def rank_window_checked(graph, pagerank_cfg, spectrum_cfg, kernel: str = "coo"):
+    """``rank_window_checked_core`` fetched in one copy: (top_idx,
+    top_scores, n_valid) on the host, or ``DeviceCheckError`` naming the
+    failed check (JAX's ``rank_window_checked``, which raises
+    ``checkify.JaxRuntimeError``)."""
+    return fetch_rank_outputs(rank_window_checked_core(graph, pagerank_cfg, spectrum_cfg, kernel),
+                              checked=True)
+
+
+def rank_window_checked_traced(graph, pagerank_cfg, spectrum_cfg, kernel: str = "coo"):
+    """``rank_window_checked_traced_core`` fetched in one copy: the five
+    outputs on the host, or ``DeviceCheckError``."""
+    return fetch_rank_outputs(
+        rank_window_checked_traced_core(graph, pagerank_cfg, spectrum_cfg, kernel), checked=True)
+
+
+def _raise_on_check_word(word) -> None:
+    """``DeviceCheckError`` with JAX's message of the first failed check
+    of a fetched check word (an int, or an array of a group's)."""
+    bits = int(np.bitwise_or.reduce(np.asarray(word, dtype=np.int32).reshape(-1)))
+    for bit, message in CHECK_MESSAGES:
+        if bits & bit:
+            raise DeviceCheckError(message)
+
+
 class PackedOutputs(NamedTuple):
     """rank_window_traced_core's five outputs packed into one float32
     host buffer (int32 values ride bit-for-bit through ``view``), with
@@ -886,15 +1050,21 @@ class PackedOutputs(NamedTuple):
     # held until the outputs are fetched, so that no later pack can
     # reuse its bytes while their copy to the card may be in flight.
     staged: Optional[torch.Tensor] = None
+    # The last output is a checked program's check word (K14), which
+    # the unpack raises on and leaves out.
+    checked: bool = False
 
 
-def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None) -> PackedOutputs:
+def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None,
+                      checked: bool = False) -> PackedOutputs:
     """Pack the five outputs into one buffer on their device and start
     its one device-to-host copy, all on the current stream: on CUDA a
     ``non_blocking`` copy into pinned host memory and an event recorded
     behind it, so the caller returns without waiting for the device.
     One copy for a stacked group's outputs too. ``staged``: the pinned
-    blob the program's graph was copied from, held with the outputs."""
+    blob the program's graph was copied from, held with the outputs.
+    ``checked``: the last output is a checked program's check word,
+    which rides the same copy."""
     packed = torch.cat([
         t.reshape(-1) if t.dtype == torch.float32 else t.reshape(-1).view(torch.float32)
         for t in outs
@@ -906,7 +1076,7 @@ def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None) -> PackedOutp
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(packed.device))
         packed = host
-    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs), staged)
+    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs), staged, checked)
 
 
 # The dtypes of rank_window_traced_core's outputs, in order.
@@ -917,22 +1087,29 @@ def unpack_rank_outputs(p: PackedOutputs):
     """Wait for the copy of ``pack_rank_outputs`` (its event only, not
     the device) and unpack it on the host as numpy (top_idx, top_scores,
     n_valid, residuals, n_iters): n_valid and n_iters as ints for one
-    window, [B] arrays for a stacked group."""
+    window, [B] arrays for a stacked group. A checked program's outputs
+    raise ``DeviceCheckError`` where its check word says a check
+    failed, and come out without the word."""
     if p.ready is not None:
         p.ready.synchronize()
     host, out, at = p.host.numpy(), [], 0
-    for shape, dtype in zip(p.shapes, _OUT_DTYPES):
+    n_outs = len(p.shapes) - p.checked
+    dtypes = _OUT_DTYPES[:n_outs] + ((np.int32,) if p.checked else ())
+    for shape, dtype in zip(p.shapes, dtypes):
         n = int(np.prod(shape))
         arr = host[at: at + n].view(dtype).reshape(shape).copy()
         out.append(int(arr) if shape == () else arr)
         at += n
+    if p.checked:
+        _raise_on_check_word(out.pop())
     return tuple(out)
 
 
-def fetch_rank_outputs(outs):
-    """One device-to-host copy of rank_window_traced_core's outputs,
-    waited for: ``unpack_rank_outputs(pack_rank_outputs(outs))``."""
-    return unpack_rank_outputs(pack_rank_outputs(outs))
+def fetch_rank_outputs(outs, checked: bool = False):
+    """One device-to-host copy of rank_window_traced_core's outputs (or
+    a checked program's, raising on its check word), waited for:
+    ``unpack_rank_outputs(pack_rank_outputs(outs, checked=checked))``."""
+    return unpack_rank_outputs(pack_rank_outputs(outs, checked=checked))
 
 
 # Fields each kernel never reads, dropped on the host before the graph
@@ -943,7 +1120,9 @@ def fetch_rank_outputs(outs):
 # its int8 unpacking, 8x the bytes), the edge values, parents and row
 # offsets, and the inverse vectors; pcsr the partition-centric views and
 # the edge list. None of them reads the COO incidence arrays, the
-# largest leaves.
+# largest leaves. csr reads rs_val and inc_op (trace-major), ss_val and
+# ss_parent, and the CSR views; pallas, coo and dense drop nothing, as
+# in JAX.
 _PC_FIELDS = ("pc_trace", "pc_sr_val", "pc_blk_indptr", "pc_ell_op", "pc_ell_rs")
 _PACKED_UNUSED = (
     "inc_op", "inc_trace", "sr_val", "rs_val", "ss_val",
@@ -962,6 +1141,7 @@ _PCSR_UNUSED = (
     "cov_bits", "ss_bits", "inv_tracelen", "inv_cov_dup", "inv_outdeg",
 )
 KERNEL_UNUSED_FIELDS = {
+    "csr": ("inc_trace", "ss_child", "sr_val", "cov_bits", "ss_bits") + _PC_FIELDS,
     "packed": _PACKED_UNUSED,
     "packed_bf16": _PACKED_UNUSED,
     "packed_blocked": _PACKED_UNUSED,
@@ -996,8 +1176,12 @@ def device_subset(
     """The graph as the kernels consume it, built once per window so each
     power-iteration step is one or two launches of its products and the
     step kernel's one (``step_scratch``: K5's scratch, the window's
-    own, so that two windows in flight never share it): for "pallas", K1's work
-    list of the six SpMVs (``window_spmv_group`` over the COO arrays);
+    own, so that two windows in flight never share it): for "pallas"
+    and "coo", K1's work list of the six SpMVs (``window_spmv_group``
+    over the COO arrays);
+    for "csr", the same over the CSR views (``csr_layouts``); for "dense"
+    and "dense_bf16", the densified matrices (``ops.dense.dense_group``,
+    checked once);
     for "pcsr", the pcsr kernel's group (``window_pcsr_group``: K1's
     work list of the op side and the call edges, the ELL slabs of the
     trace side); for the kind and packed kernels, the pattern-pair group of
@@ -1015,9 +1199,14 @@ def device_subset(
     _check_kernel(kernel)
     windows = stacked_windows(graph)
     scratch = step_scratch(graph.normal.kind.device, windows or 1)
-    if kernel == "pallas":
-        return graph._replace(spmv_group=window_spmv_group(graph, counts=counts),
+    if kernel in K1_KERNELS:
+        layouts_of = csr_layouts if kernel == "csr" else spmv_layouts
+        return graph._replace(spmv_group=window_spmv_group(graph, layouts_of, counts),
                               step_scratch=scratch)
+    if kernel in DENSE_KERNELS:
+        group = dense_group(graph, kernel == "dense_bf16", STEP_X_SLOTS)
+        check_group(group, graph.normal.kind.device)
+        return graph._replace(spmv_group=group, step_scratch=scratch)
     if kernel == "pcsr":
         return graph._replace(spmv_group=window_pcsr_group(graph, counts), step_scratch=scratch)
     pgroup = window_pattern_group(graph, kernel, packed_block_bytes)  # checks the views first

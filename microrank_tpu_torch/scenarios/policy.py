@@ -20,9 +20,9 @@ Staleness: a ``policy.json`` whose schema version or profile-bucket
 schema differs from this build's, or which has no entry for the run's
 workload profile, is rejected whole: the run starts on the built-in
 defaults and ``microrank_policy_events_total{outcome="rejected"}``
-counts it. A policy that names a kernel this package has not ported
-(csr, coo, dense, dense_bf16) raises ``NotImplementedError``: no other
-kernel stands in for it silently.
+counts it. A policy may name any kernel the JAX package runs (csr,
+coo, dense and dense_bf16 too); one that names an unknown kernel raises
+``ValueError``: no other kernel stands in for it silently.
 
 Not ported: ``select_policy`` / ``save_policy`` and the scenario matrix
 (``cli scenarios``), ROADMAP.md 'Port queue' item 11.
@@ -293,12 +293,11 @@ def resolve_policy(
         res.fields[name] = {"value": values[name], "source": "policy"}
         applied.append(name)
     if values["kernel"] not in KERNELS:
-        raise NotImplementedError(
-            f"{res.policy_file} tunes profile {res.profile} to "
-            f"kernel={values['kernel']!r}, which this package has not "
-            "ported (ROADMAP.md 'Port queue' item 10); no other kernel "
-            "stands in for it. Run with --no-tuned-policy "
-            "(RuntimeConfig.tuned_policy='off') or an explicit --kernel."
+        raise ValueError(
+            f"{res.policy_file} tunes profile {res.profile} to the unknown "
+            f"kernel={values['kernel']!r}; no other kernel stands in for it. "
+            "Run with --no-tuned-policy (RuntimeConfig.tuned_policy='off') or "
+            "an explicit --kernel."
         )
     res.outcome = "applied" if applied else "override"
     record_policy_event(res.outcome, lane)

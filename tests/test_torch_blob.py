@@ -360,8 +360,12 @@ def test_stage_rank_window_matches_the_tree_path_and_refuses_unported(small_case
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     short, _ = blob.stage_rank_window(host, cfg, SpectrumConfig(), "kind", "cpu", False)
     assert len(short) == 3
-    with pytest.raises(NotImplementedError, match="K14"):
-        blob.stage_rank_window(host, cfg, SpectrumConfig(), "kind", "cpu", True, checked=True)
+    # The checked program (K14): the same outputs and a check word of 0.
+    checked, _ = blob.stage_rank_window(host, cfg, SpectrumConfig(), "kind", "cpu", True,
+                                        checked=True, conv_trace=True)
+    assert len(checked) == 6 and int(checked[-1]) == 0
+    for a, b in zip(fetch_rank_outputs(checked[:5]), fetch_rank_outputs(ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     class Explain:
         enabled = True

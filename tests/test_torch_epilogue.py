@@ -370,7 +370,9 @@ def test_epilogue_shared_memory_is_the_library_layout():
     # with 16 bytes of room each, rounded to 16.
     assert epilogue.window_smem(3072) == 8192 + 4 * 12304 + 2 * 3088
     assert epilogue.window_smem(8192) == 155_744
-    assert epilogue.ARGS.size == 8 * 33
+    # The argument block: 33 words, and K14's check words, residual
+    # trace, n_iters and steps.
+    assert epilogue.ARGS.size == 8 * 37
 
 
 # ------------------------------------------------------------------ card

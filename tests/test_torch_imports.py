@@ -99,10 +99,12 @@ def test_unported_kernels_raise():
     from microrank_tpu.config import RuntimeConfig as JaxRuntime
     from microrank_tpu_torch.config import PageRankConfig, RuntimeConfig
 
-    for kernel in ("csr", "coo", "dense"):
-        assert JaxRuntime(kernel=kernel).kernel == kernel
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RuntimeConfig(kernel=kernel)
+    # Every kernel JAX runs is ported, csr, coo and dense too; a name no
+    # package runs raises.
+    for kernel in ("csr", "coo", "dense", "dense_bf16"):
+        assert RuntimeConfig(kernel=kernel).kernel == JaxRuntime(kernel=kernel).kernel == kernel
+    with pytest.raises(ValueError, match="unknown kernel"):
+        RuntimeConfig(kernel="sparse")
     # Every kind precision JAX runs is ported (int8 since the K2-int8
     # slice); an unknown one raises in both packages.
     for precision in ("f32", "bf16", "int8"):

@@ -74,8 +74,15 @@ STAGING = {
 
 
 @pytest.fixture
-def registries():
-    """A fresh process registry in each package; the old ones restored."""
+def registries(monkeypatch):
+    """A fresh process registry in each package; the old ones restored.
+    JAX's retrace counter compares each jitted program's cache size with
+    the last one it observed in the process, so its observations start
+    afresh too: a program an earlier test in the same worker compiled
+    then counts as this run's trace, whatever order the tests ran in."""
+    from microrank_tpu.obs import metrics as jax_metrics
+
+    monkeypatch.setattr(jax_metrics, "_jit_cache_sizes", {})
     old_t, old_j = get_registry(), jax_registry.get_registry()
     t, j = MetricsRegistry(), jax_registry.MetricsRegistry()
     set_registry(t)

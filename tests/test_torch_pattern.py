@@ -330,8 +330,9 @@ def test_choose_kernel_matches_jax(aux, collapse, prefer_bf16, small_case):
 def test_choose_kernel_raises_where_jax_picks_unported(small_case):
     # Past the dense budget the port picks what JAX picks: packed_blocked
     # over bitmaps whose unpacked matrices exceed the budget, pcsr over
-    # the partition-centric views a tiny budget gives at build time. Only
-    # csr (and coo), which this package has not ported, still raise.
+    # the partition-centric views a tiny budget gives at build time; and,
+    # since the csr / coo families are ported, csr over the CSR views
+    # and coo over none, as JAX: nothing raises any more.
     graph, _ = jax_graph(small_case, "packed", "off")
     assert jax_tpu.choose_kernel(graph, 1, True) == "packed_blocked"
     assert choose_kernel(graph, 1, True) == "packed_blocked"
@@ -342,9 +343,9 @@ def test_choose_kernel_raises_where_jax_picks_unported(small_case):
     assert jax_tpu.choose_kernel(tiny, 64) == "pcsr"
     assert choose_kernel(tiny, 64) == "pcsr"
     csr, _ = jax_graph(small_case, "csr", "off")
-    assert jax_tpu.choose_kernel(csr) == "csr"
-    with pytest.raises(NotImplementedError, match="csr.*ROADMAP"):
-        choose_kernel(csr)
+    assert jax_tpu.choose_kernel(csr) == choose_kernel(csr) == "csr"
+    coo, _ = jax_graph(small_case, "none", "off")
+    assert jax_tpu.choose_kernel(coo) == choose_kernel(coo) == "coo"
 
 
 @pytest.mark.parametrize("kernel", ["kind", "packed", "packed_bf16", "packed_blocked", "pcsr"])

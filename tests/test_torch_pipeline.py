@@ -276,15 +276,17 @@ def test_native_build_threshold_matches_jax(synth_csvs):
 
 
 def test_unported_aux_modes_raise(synth_csvs):
-    # The CSR views are not ported and raise; the partition-centric ones
-    # come out as JAX's.
+    # The mesh's aux mode is not ported and raises; the CSR views and
+    # the partition-centric ones come out as JAX's.
     _, _, abnormal = synth_csvs
     tab = load_span_table(abnormal, cache=False)
-    for aux in ("csr", "all"):
-        with pytest.raises(NotImplementedError, match="aux mode"):
-            table_ops.build_window_graph_from_table(tab, None, [0], [1], aux=aux)
-    _, tg = assert_same_build(synth_csvs, "pcsr", "off")
-    assert all(p.pc_trace.shape[-1] > 0 for p in (tg.normal, tg.abnormal))
+    with pytest.raises(NotImplementedError, match="aux mode 'auto_all'"):
+        table_ops.build_window_graph_from_table(tab, None, [0], [1], aux="auto_all")
+    for aux in ("pcsr", "csr", "all"):
+        _, tg = assert_same_build(synth_csvs, aux, "off")
+        for p in (tg.normal, tg.abnormal):
+            assert (p.pc_trace.shape[-1] > 0) == (aux != "csr")
+            assert (p.inc_indptr_op.shape[-1] > 0) == (aux != "pcsr")
 
 
 def auto_config(collapse, **runtime):

@@ -13,8 +13,9 @@ a test's own tmp dir):
   ``--no-tuned-policy`` pins the defaults;
 * a ``policy.json`` written by JAX's ``select_policy`` / ``save_policy``
   resolves the same in both packages;
-* a policy naming a kernel the port has not ported raises, naming
-  ROADMAP item 10 and ``--no-tuned-policy``.
+* a policy naming any kernel JAX runs (csr, coo, dense and dense_bf16
+  too) applies as in JAX; one naming a kernel no package runs raises,
+  naming ``--no-tuned-policy``.
 """
 
 import dataclasses
@@ -197,13 +198,19 @@ def test_policy_from_jax_select_policy_resolves_the_same(policy_dir, registries)
 
 
 def test_unported_kernel_in_policy_raises(policy_dir, registries):
+    # Every kernel JAX runs is ported, csr, coo and dense too: a policy
+    # naming one applies as in JAX; only a kernel no package runs raises.
     key = policy.profile_from_counts(*COUNTS).key()
-    for kernel in ("csr", "coo", "dense", "dense_bf16"):
+    for kernel in ("csr", "coo", "dense", "dense_bf16", "bogus"):
         write_policy(policy_dir, {key: {"method": "ochiai", "kernel": kernel}})
         jcfg, jres = jax_policy.apply_tuned_policy(JaxConfig(), lane="table", counts=COUNTS)
         assert jres.outcome == "applied" and jcfg.runtime.kernel == kernel
-        with pytest.raises(NotImplementedError, match=r"item 10.*--no-tuned-policy"):
-            policy.apply_tuned_policy(MicroRankConfig(), lane="table", counts=COUNTS)
+        if kernel == "bogus":
+            with pytest.raises(ValueError, match=r"unknown kernel.*--no-tuned-policy"):
+                policy.apply_tuned_policy(MicroRankConfig(), lane="table", counts=COUNTS)
+        else:
+            cfg, res = policy.apply_tuned_policy(MicroRankConfig(), lane="table", counts=COUNTS)
+            assert (res.outcome, cfg.runtime.kernel) == ("applied", kernel)
         # An explicit kernel wins over the policy's, so nothing is refused.
         cfg, res = policy.apply_tuned_policy(
             MicroRankConfig(runtime=RuntimeConfig(kernel="kind")), lane="table", counts=COUNTS
