@@ -256,6 +256,22 @@ JAX or of the JAX package. Phases, one JSON line each:
               ``DeviceCheckError`` ("non-finite") on coo and dense with no
               host sync, and the epilogue checked and unchecked in turns
               at the config-5 kind window, bitwise (``family_checks``);
+   eval     — the accuracy harness (``evaluation``, ``cli eval``) on the
+              card and again with ``device="cpu"`` (the plain versions),
+              the reports equal field for field and case by case:
+              ``evaluate`` at the JAX CLI's defaults (20 cases, 30
+              operations, 400 traces, 48 kinds, keep-prob 0.15),
+              ``evaluate_all_methods`` at EVALUATION.md's 13-formula
+              setting (50 cases; one K13 launch a case, counted),
+              ``evaluate_overlap_ablation`` (2 faults, 10 cases an
+              overlap) and ``evaluate_detection`` (10 timelines); each
+              card run's launches gated (one program a detected case, on
+              the kernel its build resolved); R@k and both Exam Scores
+              printed; then ``evaluate`` and ``evaluate_all_methods`` over
+              2 cases at config-5 scale on the card (phase 2's
+              configuration, seeds 0 and 1), each case's seconds split
+              into generate / load / detect / build / rank program and the
+              culprits' ranks (seed 0's at rank 1: a gate);
 6. kernel   — K1 at the shapes of phases 3 and 4. Per matrix (groups of
               one, at the uncollapsed shapes), per step of the pallas
               path (the grouped launch of all six matrices, at the
@@ -364,7 +380,19 @@ JAX or of the JAX package. Phases, one JSON line each:
               gate); the fold at the window's set-up shape.
               ``--giant-spans``
               sets the larger window (the smaller holds a fifth, the
-              budget scales with it); 0 skips the phase.
+              budget scales with it); 0 skips the phase;
+   k13      — K13, the epilogue with a methods axis (every formula in one
+              launch), at the config-5 kind window (V 3,072) and the
+              10M-span giant window (V 2,048, measured in the giant
+              phase), at k = n_rows and k = V (``measure_k13``): bitwise
+              its plain version on the card and over 50 launches, row m
+              bitwise the one-formula launch of formula m, timed in turns
+              with 13 one-formula launches and one, beside the plain
+              version, the bound (the six input rows and the weights,
+              scores and 13 rows of k out) and one stable ``torch.sort`` of
+              the [13, V] negated scores (the top-k's library yardstick);
+              and the all-methods program in turns with 13 one-formula
+              programs.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -484,6 +512,7 @@ def reset_counts(spmv, pattern) -> None:
     fold.fold_rows.launches = 0
     setup.rank_setup.launches = 0
     epilogue.rank_epilogue.launches = 0
+    epilogue.rank_epilogue.by_kind.clear()
 
     spmv.coo_spmv.launches = spmv.coo_spmv.spmvs = 0
     spmv.pcsr_spmv_group.launches = spmv.pcsr_spmv_group.spmvs = 0
@@ -507,6 +536,7 @@ def read_counts(spmv, pattern) -> dict:
     return {
         "setup_launches": setup.rank_setup.launches,
         "epilogue_launches": epilogue.rank_epilogue.launches,
+        "epilogue_all_methods_launches": epilogue.rank_epilogue.by_kind["all_methods"],
         "row_fold_launches": fold.fold_rows.launches,
         "step_launches": step.power_step.launches,
         "step_group_launches": sum(n for k, n in by_kernel.items()
@@ -526,7 +556,8 @@ def read_counts(spmv, pattern) -> dict:
     }
 
 
-def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0) -> dict:
+def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
+                    all_methods=False) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
     launch per step of K1 (pallas, coo, csr: six SpMVs), of the pcsr
     kernel (six SpMVs), of the dense kernel (dense, dense_bf16: six
@@ -547,8 +578,11 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0) 
     launches the window's ``step_grid<S>``).
     ``folds``: packed_blocked's programs fold K8's partials (the
     condition the wrapper counts by, ``pattern.blocked_folds``; a small
-    bitmap has no partials to fold)."""
+    bitmap has no partials to fold).
+    ``all_methods``: the programs rank every formula (K13), their one
+    epilogue launch each with the methods axis."""
     counts = dict.fromkeys(("setup_launches", "epilogue_launches",
+                            "epilogue_all_methods_launches",
                             "row_fold_launches", "step_launches",
                             "step_group_launches", "step_units_launches", "k1_launches",
                             "k1_spmvs", "pcsr_launches",
@@ -559,6 +593,7 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0) 
     counts["step_launches"] = STEP_LAUNCHES * STEPS * g
     counts["step_group_launches"] = STEP_LAUNCHES * STEPS * groups
     counts["setup_launches"] = counts["epilogue_launches"] = K6_LAUNCHES * g
+    counts["epilogue_all_methods_launches"] = K6_LAUNCHES * g if all_methods else 0
     if kernel in ("pallas", "coo", "csr"):
         counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
     elif kernel in ("dense", "dense_bf16"):
@@ -1396,7 +1431,7 @@ def first_epilogue_wrapper(torch, marks):
         mark("current_stream")
         args = epilogue.ARGS.pack(
             *[x or 0 for x in ptrs[:14]], ptrs[14], ptrs[15] or 0, ptrs[16] or 0, ptrs[17],
-            ptrs[18], ptrs[19], 0, 0, 0, 0, 0, windows, v, k, k_pad, method,
+            ptrs[18], ptrs[19], 0, 0, 0, 0, 0, windows, v, k, k_pad, method, 1,
             epilogue.f32_bits(spectrum_cfg.eps),
             epilogue.FORMS.index("first"), 1, v, 0, dev.index, stream)
         mark("pack")
@@ -1520,7 +1555,7 @@ def today_epilogue_wrapper(torch, marks):
         lib = epilogue.load_library()
         args = epilogue.ARGS.pack(
             *words, 0, 0, 0, ptrs[4], ptrs[5], ptrs[6], 0, 0, 0, 0, 0, windows, v, k,
-            plan.k_pad, method,
+            plan.k_pad, method, 1,
             epilogue.f32_bits(spectrum_cfg.eps), epilogue.FORMS.index(plan.form), plan.cluster,
             plan.slice, plan.smem, index, torch._C._cuda_getCurrentRawStream(index))
         mark("pack")
@@ -1639,15 +1674,17 @@ def ptxas_all(report, kernel):
 def ptxas_spills(report, names):
     """Registers and spill bytes of every kernel of a ``-Xptxas -v``
     report whose name holds one of ``names``, keyed by that name (with
-    its bool template argument, where it has one)."""
+    its bool template arguments, where it has them)."""
     out = {}
     for lines in ptxas_all(report, ""):
         name = next((n for n in names if n in lines[0]), None)
         if name is None:
             continue
         text = " ".join(lines)
-        flag = re.search(name + r"ILb(\d)E", lines[0])
-        key = name + ("" if flag is None else f"<{'true' if flag.group(1) == '1' else 'false'}>")
+        args = re.search(name + r"I((?:Lb\d+E)+)E", lines[0])
+        flags = [] if args is None else re.findall(r"Lb(\d+)E", args.group(1))
+        key = name + ("" if not flags else
+                      "<" + ", ".join("true" if f == "1" else "false" for f in flags) + ">")
         regs = re.search(r"Used (\d+) registers", text)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
         check(regs and spill, f"ptxas: no report for {lines[0]}")
@@ -1843,7 +1880,9 @@ def phase_env(torch, spmv, pattern, native):
     k6_ptxas = {**ptxas_spills(ptxas_setup, ("setup_rows", "setup_grid", "setup_first")),
                 **ptxas_spills(ptxas_epilogue, ("epilogue_window", "epilogue_first"))}
     want_k6 = {"setup_rows<false>", "setup_rows<true>", "setup_grid", "setup_first",
-               "epilogue_window<false>", "epilogue_window<true>", "epilogue_first"}
+               "epilogue_window<false, false>", "epilogue_window<true, false>",
+               "epilogue_window<false, true>", "epilogue_window<true, true>",
+               "epilogue_first"}
     check(set(k6_ptxas) == want_k6, f"ptxas: K6 reports {sorted(k6_ptxas)}, want "
                                     f"{sorted(want_k6)}")
     spilled = {k: v for k, v in k6_ptxas.items()
@@ -5021,6 +5060,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     issue_split = issue_split_turns(torch, dgraph, cfg, kernel)
     fold_kern = measure_fold(torch, fold, f"giant/{kernel}/fold", graph, reps)
     k6 = measure_k6(torch, f"giant/{kernel}/k6", dgraph, cfg, kernel, reps)
+    k13 = measure_k13(torch, f"giant/{kernel}/k13", dgraph, cfg, kernel, reps) \
+        if kernel == "pcsr" else None
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -5067,6 +5108,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         "issue_split_ms": issue_split,
         "kernel": kern,
     }
+    if k13 is not None:
+        info["k13"] = k13
     info["staging"] = staging_compare(torch, spmv, pattern, f"giant/{kernel}/staging",
                                       host_subset(graph, kernel), kernel, cfg)
     stacked_counts, info["stacked"] = giant_stacked(torch, spmv, pattern, graph, dgraph, kernel,
@@ -5500,6 +5543,272 @@ def phase_families(torch, spmv, pattern, case, normal, abnormal, graphs, results
     }
 
 
+# The JAX CLI's eval defaults (``cli eval``: 30 operations, 400 traces,
+# 48 trace kinds, keep-prob 0.15, one 2-second fault, seed 1000).
+EVAL_CLI = dict(n_operations=30, n_traces=400, n_kinds=48, child_keep_prob=0.15)
+EVAL_CASES = 20           # cli eval's --cases default
+EVAL_ALL_METHODS_CASES = 50  # EVALUATION.md's 13-formula table (--all-methods --cases 50)
+EVAL_OVERLAP_CASES = 10   # two-fault cases an overlap
+EVAL_TIMELINES = 10       # --detection timelines (10 windows each)
+EVAL_FULL_CASES = 2       # cases at config-5 scale
+
+
+def report_fields(rep):
+    """An EvalReport as plain data, field for field and case by case."""
+    import dataclasses
+
+    return {"cases": [dataclasses.asdict(c) for c in rep.cases],
+            "recall_at": {str(k): v for k, v in rep.recall_at.items()},
+            "exam_score": rep.exam_score, "exam_score_paper": rep.exam_score_paper,
+            "detection_rate": rep.detection_rate}
+
+
+def report_scores(rep):
+    """R@k, both Exam Scores and the detection rate of a report, and its
+    summary line."""
+    f = report_fields(rep)
+    return {k: f[k] for k in ("recall_at", "exam_score", "exam_score_paper",
+                              "detection_rate")} | {"summary": rep.summary()}
+
+
+def eval_expected_counts(timings, all_methods=False):
+    """The launch counts of an eval run on the card: one program a
+    detected case, on the kernel its build resolved (``timings``'
+    "kernel"), summed."""
+    total = expected_counts("kind", 0)
+    for t in timings:
+        if "kernel" in t:
+            one = expected_counts(t["kernel"], 1, all_methods=all_methods)
+            total = {k: total[k] + one[k] for k in total}
+    return total
+
+
+def phase_eval(torch, spmv, pattern, args):
+    """The accuracy harness (``evaluation``) on the card and with
+    ``device="cpu"`` (the plain versions), reports equal field for field
+    and case by case: ``evaluate`` at the JAX CLI's defaults (20 cases),
+    ``evaluate_all_methods`` at EVALUATION.md's 13-formula setting (50
+    cases), ``evaluate_overlap_ablation`` (2 faults, 10 cases an overlap)
+    and ``evaluate_detection`` (10 timelines); each card run's launches
+    gated (one program a detected case on the kernel it resolved; K13's
+    launch, one a case, in the all-methods run). Then ``evaluate`` and
+    ``evaluate_all_methods`` at config-5 scale on the card (2 cases:
+    ``phase_data``'s configuration, seeds 0 and 1, ``n_traces`` for about
+    ``--spans`` spans a window), each case's seconds by stage and the
+    culprits' ranks. Returns (the main paths' counts, the line)."""
+    import dataclasses
+
+    from microrank_tpu_torch import evaluation as ev
+    from microrank_tpu_torch.config import MicroRankConfig
+    from microrank_tpu_torch.spectrum.formulas import METHODS
+    from microrank_tpu_torch.testing.synthetic import SyntheticConfig, _traces_for_spans
+
+    cfg = MicroRankConfig()
+    out, launches = {"phase": "eval"}, {}
+
+    def on_card(tag, fn, all_methods=False, **kw):
+        timings = []
+        reset_counts(spmv, pattern)
+        t0 = time.perf_counter()
+        rep = fn(cfg, device="cuda", timings=timings, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(spmv, pattern)
+        expect = eval_expected_counts(timings, all_methods)
+        check(counts == expect, f"eval/{tag}: launch counts {counts}, want {expect}")
+        check(counts["epilogue_launches"] > 0, f"eval/{tag}: no program ran")
+        launches[f"eval/{tag}"] = counts
+        return rep, timings, wall
+
+    def with_cpu(tag, fn, all_methods=False, **kw):
+        card, timings, card_s = on_card(tag, fn, all_methods, **kw)
+        t0 = time.perf_counter()
+        cpu = fn(cfg, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        reps = card if all_methods else {"": card}
+        cpus = cpu if all_methods else {"": cpu}
+        for key in reps:
+            check(report_fields(reps[key]) == report_fields(cpus[key]),
+                  f"eval/{tag}{'/' + key if key else ''}: the card's report is not the CPU's")
+        kernels = sorted({t["kernel"] for t in timings if "kernel" in t})
+        return card, {"card_s": round(card_s, 3), "cpu_s": round(cpu_s, 3),
+                      "kernels": kernels, "reports_equal_card_cpu": True}
+
+    ecfg = ev.EvalConfig(n_cases=EVAL_CASES, **EVAL_CLI)
+    rep, info = with_cpu("evaluate", ev.evaluate, eval_cfg=ecfg)
+    out["evaluate"] = {**info, **report_scores(rep)}
+    ecfg = ev.EvalConfig(n_cases=EVAL_ALL_METHODS_CASES, **EVAL_CLI)
+    reps, info = with_cpu("all_methods", ev.evaluate_all_methods, all_methods=True,
+                          eval_cfg=ecfg)
+    check(list(reps) == list(METHODS), "eval/all_methods: the formulas are not METHODS")
+    out["all_methods"] = {**info, "by_method": {m: report_scores(r) for m, r in reps.items()}}
+    # The overlap ablation: evaluate per overlap (its timings are not
+    # taken through), the card's and the CPU's reports.
+    ecfg = ev.EvalConfig(n_cases=EVAL_OVERLAP_CASES, n_faults=2, **EVAL_CLI)
+    reset_counts(spmv, pattern)
+    t0 = time.perf_counter()
+    card = ev.evaluate_overlap_ablation(cfg, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = read_counts(spmv, pattern)
+    detected = sum(c.detected for r in card.values() for c in r.cases)
+    check(counts["epilogue_launches"] == counts["setup_launches"] == detected > 0
+          and counts["step_launches"] == STEPS * detected,
+          f"eval/overlap_ablation: launch counts {counts} for {detected} detected cases")
+    launches["eval/overlap_ablation"] = counts
+    t0 = time.perf_counter()
+    cpu = ev.evaluate_overlap_ablation(cfg, ecfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for ov in card:
+        check(report_fields(card[ov]) == report_fields(cpu[ov]),
+              f"eval/overlap_ablation/{ov}: the card's report is not the CPU's")
+    out["overlap_ablation"] = {"card_s": round(card_s, 3), "cpu_s": round(cpu_s, 3),
+                               "reports_equal_card_cpu": True,
+                               "by_overlap": {str(ov): report_scores(r) for ov, r in card.items()}}
+    # Detection runs the C++ detector on the host whatever the device (K16,
+    # the device detector, is unported): device="cuda" and device="cpu"
+    # are both host runs, gated equal, and nothing here is the card's.
+    ecfg = ev.EvalConfig(n_cases=EVAL_TIMELINES, **EVAL_CLI)
+    on_cuda = ev.evaluate_detection(cfg, ecfg, device="cuda")
+    on_cpu = ev.evaluate_detection(cfg, ecfg, device="cpu")
+    check(dataclasses.asdict(on_cuda) == dataclasses.asdict(on_cpu),
+          "eval/detection: device='cuda' and device='cpu' count differently")
+    out["detection"] = {**dataclasses.asdict(on_cuda), "precision": on_cuda.precision,
+                        "recall": on_cuda.recall, "f1": on_cuda.f1,
+                        "summary": on_cuda.summary(), "runs_on": "host",
+                        "reports_equal_device_cuda_and_cpu": True}
+    # Config-5 scale, on the card only.
+    syn = SyntheticConfig(n_operations=args.ops, n_kinds=max(32, args.ops // 50),
+                          child_keep_prob=0.55, fault_latency_ms=60000.0, seed=0)
+    ecfg = ev.EvalConfig(n_cases=EVAL_FULL_CASES, n_operations=args.ops,
+                         n_traces=_traces_for_spans(syn, args.spans),
+                         n_kinds=syn.n_kinds, child_keep_prob=syn.child_keep_prob,
+                         fault_latency_ms=syn.fault_latency_ms, seed0=0)
+    full = {"config": dataclasses.asdict(ecfg)}
+    for tag, fn, all_methods in (("evaluate", ev.evaluate, False),
+                                 ("all_methods", ev.evaluate_all_methods, True)):
+        rep, timings, wall = on_card(f"full/{tag}", fn, all_methods, eval_cfg=ecfg)
+        first = rep if not all_methods else rep["dstar2"]
+        check(all(c.detected for c in first.cases), f"eval/full/{tag}: a case went undetected")
+        check(first.cases[0].ranks == [1],
+              f"eval/full/{tag}: seed 0's culprit ranks {first.cases[0].ranks}, not 1")
+        cases = [{**{k: (round(v, 3) if k.endswith("_s") else v) for k, v in t.items()},
+                  "ranks": ({m: r.cases[i].ranks for m, r in rep.items()} if all_methods
+                            else rep.cases[i].ranks),
+                  "n_ranked_ops": first.cases[i].n_ranked_ops}
+                 for i, t in enumerate(timings)]
+        full[tag] = {"wall_s": round(wall, 3), "cases": cases,
+                     **({"by_method": {m: report_scores(r) for m, r in rep.items()}}
+                        if all_methods else report_scores(rep))}
+    out["full_width"] = full
+    return launches, out
+
+
+def k13_bound(dgraph, k):
+    """K13's bytes and operations for the function it computes
+    (``rank_window_all_methods_core``'s triple): each partition's sv,
+    op_present and cov_unique read (9 bytes an op), the 13 rows of k
+    (index, score) and n_valid written; about 40 float operations an op
+    for the finish and the counters and 8 a formula."""
+    v = dgraph.normal.op_present.shape[-1]
+    return 2 * 9 * v + 13 * 8 * k + 4, (40 + 13 * 8) * v
+
+
+def measure_k13(torch, name, dgraph, cfg, kernel, reps):
+    """K13 at a staged window's shapes, on its program's final carries,
+    at k = n_rows and k = V: bitwise its plain version run on the card and
+    over 50 launches; row m bitwise the one-formula epilogue launch of
+    formula m; timed by CUDA events behind a spin in turns (one K13
+    launch, 13 one-formula launches, one one-formula launch, and back)
+    beside the plain version, the bound (bytes once at 3.35 TB/s, or the
+    operations at 67 TFLOP/s) and the top-k alone as one stable
+    ``torch.sort`` of the [13, V] negated scores; then the whole
+    all-methods program in turns with 13 one-formula programs."""
+    import dataclasses
+
+    from microrank_tpu_torch.ops import epilogue
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+    from microrank_tpu_torch.spectrum.formulas import METHODS, spectrum_scores
+
+    pr = cfg.pagerank
+    g_n, g_a = dgraph.normal, dgraph.abnormal
+    v = int(g_n.op_present.shape[-1])
+    program = tc._rank_program(dgraph, pr, cfg.spectrum, kernel)
+    svs = (program.sv_n, program.sv_a)
+    out = {"v": v}
+    for label, top_max in (("k_n_rows", cfg.spectrum.top_max), ("k_v", v)):
+        sp = dataclasses.replace(cfg.spectrum, top_max=top_max)
+        k = min(sp.n_rows, v)
+        every = epilogue.rank_epilogue_all_methods(g_n, g_a, *svs, sp)
+        got = epilogue_bits(torch, every)
+        check(torch.equal(got, epilogue_bits(torch, epilogue.rank_epilogue_plain(
+            g_n, g_a, *svs, sp, all_methods=True))), f"{name}/{label}: K13 differs from its "
+                                                     "plain version")
+        for _ in range(REPEATS):
+            check(torch.equal(epilogue_bits(torch, epilogue.rank_epilogue_all_methods(
+                g_n, g_a, *svs, sp)), got), f"{name}/{label}: K13 is not repeatable")
+        ones = [dataclasses.replace(sp, method=m) for m in METHODS]
+        for m, one_cfg in enumerate(ones):
+            one = epilogue.rank_epilogue(g_n, g_a, *svs, one_cfg)
+            row = every._replace(top_idx=every.top_idx[m], top_scores=every.top_scores[m])
+            check(torch.equal(epilogue_bits(torch, row), epilogue_bits(torch, one)),
+                  f"{name}/{label}: row {m} ({METHODS[m]}) is not the one-formula launch's")
+        # The top-k's library yardstick: the [13, V] scores as the plain
+        # version gives them, negated, one stable sort.
+        plain = epilogue.rank_epilogue_plain(g_n, g_a, *svs, sp)
+        counters = epilogue.spectrum_counters(plain.a_weight, g_a, plain.n_weight, g_n, sp)
+        valid = counters[-1]
+        neg = -(torch.stack([torch.where(valid, spectrum_scores(*counters[:4], m),
+                                         float("-inf")) for m in METHODS]) + 0.0)
+
+        def k13():
+            epilogue.rank_epilogue_all_methods(g_n, g_a, *svs, sp)
+
+        def thirteen():
+            for one_cfg in ones:
+                epilogue.rank_epilogue(g_n, g_a, *svs, one_cfg)
+
+        def one():
+            epilogue.rank_epilogue(g_n, g_a, *svs, sp)
+
+        turns = {"k13": [], "thirteen": [], "one": []}
+        for side in ("k13", "thirteen", "one", "one", "thirteen", "k13"):
+            fn = {"k13": k13, "thirteen": thirteen, "one": one}[side]
+            turns[side].append(spin_event_ms(torch, fn, reps))
+        nbytes, flops = k13_bound(dgraph, k)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        out[label] = {
+            "k": k, "plan": epilogue.epilogue_plan(v, k, 1, epilogue.kernel_config(
+                g_n.op_present.device))._asdict(),
+            "bitwise_vs_plain": True, "repeat_bitwise": REPEATS,
+            "rows_bitwise_vs_one_formula_launches": len(METHODS), "max_abs_err": 0.0,
+            "turns_ms": {key: [round(x, 6) for x in val] for key, val in turns.items()},
+            "ms": round(_mean(turns["k13"]), 6),
+            "thirteen_launches_ms": round(_mean(turns["thirteen"]), 6),
+            "one_launch_ms": round(_mean(turns["one"]), 6),
+            "plain_ms": round(spin_event_ms(torch, lambda: epilogue.rank_epilogue_plain(
+                g_n, g_a, *svs, sp, all_methods=True), reps), 6),
+            "library_ms": round(spin_event_ms(
+                torch, lambda: torch.sort(neg, dim=-1, stable=True), reps), 6),
+            "bound_ms": round(max(bytes_ms, ops_ms), 6),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
+        }
+    # The whole program: one all-methods program against 13 one-formula
+    # programs (what a harness without K13 would run), in turns, by
+    # events behind a ~100 ms spin, k = V.
+    sp = dataclasses.replace(cfg.spectrum, top_max=v)
+    sides = {
+        "all_methods": lambda: tc._rank_program(dgraph, pr, sp, kernel, "all_methods"),
+        "thirteen_programs": lambda: [tc._rank_program(
+            dgraph, pr, dataclasses.replace(sp, method=m), kernel) for m in METHODS],
+    }
+    turns = {key: [] for key in sides}
+    for key in ("all_methods", "thirteen_programs", "thirteen_programs", "all_methods"):
+        turns[key].append(spin_event_ms(torch, sides[key], 5, PROGRAM_SPIN_CYCLES))
+    out["program_turns_ms"] = {key: [round(x, 6) for x in val] for key, val in turns.items()}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spans", type=int, default=1_000_000)
@@ -5622,6 +5931,10 @@ def main(argv=None) -> int:
         launches.update(family_launches)
         emit(families)
         del replay
+        phase = "eval"
+        eval_launches, evals = phase_eval(torch, spmv, pattern, args)
+        launches.update(eval_launches)
+        emit(evals)
         phase = "kernel"
         per_matrix, per_step = phase_kernel(torch, spmv, graphs, args.reps)
         emit({"phase": "kernel", "per_matrix": per_matrix, "per_step": per_step,
@@ -5635,7 +5948,7 @@ def main(argv=None) -> int:
         emit(steps)
         phase = "giant"
         giant, giant_steps, giant_folds, giant_k6, giant_stacked_err = {}, {}, {}, {}, {}
-        giant_group = {}
+        giant_group, giant_k13 = {}, None
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
@@ -5651,8 +5964,24 @@ def main(argv=None) -> int:
                 giant_steps[want] = step_kern
                 giant_folds[want] = fold_kern
                 giant_k6[want] = k6
+                giant_k13 = info.pop("k13", giant_k13)
                 emit(info)
                 torch.cuda.empty_cache()
+        # K13 at the config-5 kind window (V 3,072) and the 10M-span giant
+        # window (V 2,048, measured inside the giant phase).
+        phase = "k13"
+        from microrank_tpu_torch.config import MicroRankConfig
+        from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+        from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
+
+        kind = device_subset(graph_from_numpy(host_subset(graphs["auto/auto"], "kind"),
+                                              torch.device("cuda")), "kind")
+        k13 = {"phase": "k13",
+               "config5_kind": measure_k13(torch, "k13/config5_kind", kind, MicroRankConfig(),
+                                           "kind", args.reps),
+               "giant_10m": giant_k13}
+        emit(k13)
+        del kind
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         traceback.print_exc()
@@ -6009,6 +6338,40 @@ def main(argv=None) -> int:
             # residual trace checked) and without, in turns at the
             # config-5 kind window.
             "check_word_ms": families["checks"]["epilogue_ms"],
+        },
+        {
+            "name": "rank_epilogue_all_methods",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/rank_epilogue.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:1373",
+            # K13: the epilogue with a methods axis (grid y, 13 rows;
+            # epilogue_window<C, true>), one launch an all-methods program:
+            # the eval phase's evaluate_all_methods runs on the card (one
+            # a detected case).
+            "kernels": ["epilogue_window"],
+            "launches": sum(c["epilogue_all_methods_launches"] for c in launches.values()),
+            "max_abs_err": 0.0,
+            # One launch at the config-5 kind window (V 3,072) at k = V,
+            # what the harness ranks (_k_n_rows: k = 11; _giant_10m: the
+            # 10M-span window's V 2,048, k = V); thirteen_launches_ms the
+            # 13 one-formula launches it replaces, in turns; library_ms
+            # the top-k alone, one stable torch.sort of the [13, V]
+            # negated scores.
+            "ms": k13["config5_kind"]["k_v"]["ms"],
+            "thirteen_launches_ms": k13["config5_kind"]["k_v"]["thirteen_launches_ms"],
+            "one_launch_ms": k13["config5_kind"]["k_v"]["one_launch_ms"],
+            "ms_k_n_rows": k13["config5_kind"]["k_n_rows"]["ms"],
+            "thirteen_launches_ms_k_n_rows":
+                k13["config5_kind"]["k_n_rows"]["thirteen_launches_ms"],
+            **({} if k13["giant_10m"] is None else {
+                "ms_giant_10m": k13["giant_10m"]["k_v"]["ms"],
+                "thirteen_launches_ms_giant_10m":
+                    k13["giant_10m"]["k_v"]["thirteen_launches_ms"],
+            }),
+            "plain_ms": k13["config5_kind"]["k_v"]["plain_ms"],
+            "bound_ms": k13["config5_kind"]["k_v"]["bound_ms"],
+            "bound_by": k13["config5_kind"]["k_v"]["bound_by"],
+            "library_ms": k13["config5_kind"]["k_v"]["library_ms"],
         },
         *(
             {

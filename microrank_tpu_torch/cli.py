@@ -18,6 +18,11 @@
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
+    python -m microrank_tpu_torch.cli eval [--cases 20] [--operations 30] [--traces 400]
+        [--pods 1] [--kinds 48] [--faults 1] [--fault-ms 2000] [--keep-prob 0.15]
+        [--fault-overlap F] [--overlap-ablation] [--seed 1000] [--all-methods]
+        [--detection [--windows 10]] [--json PATH] [--backend torch|numpy_ref]
+        [--device cuda|cpu] [the config flags of run]
 
 ``run`` ranks every anomalous window of the abnormal dump and writes
 ``OUT/result.csv`` and ``OUT/windows.jsonl`` in the JAX package's
@@ -28,7 +33,11 @@ them. It runs on
 the card unless ``--device cpu`` is given. ``--follow`` tails a growing
 abnormal dump and ranks windows as they close. ``stats`` re-emits a
 finished run's snapshot, as the JAX package's ``cli stats`` does, and
-reads either package's ``metrics.json``.
+reads either package's ``metrics.json``. ``eval`` is the accuracy
+experiment (``evaluation``): R@k and Exam Score over synthetic chaos
+cases, per formula with ``--all-methods``, window detection quality
+with ``--detection``, two-fault accuracy against path overlap with
+``--overlap-ablation``; its lines and ``--json`` keys are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from .config import (
+    BACKENDS,
     FETCH_MODES,
     KERNELS,
     KIND_PRECISIONS,
@@ -107,7 +117,7 @@ def _config_from_args(args) -> MicroRankConfig:
         ),
         runtime=RuntimeConfig(
             kernel=args.kernel, collapse_kinds=args.collapse_kinds,
-            device=args.device, **loop,
+            device=args.device, backend=getattr(args, "backend", "torch"), **loop,
         ),
         ingest=IngestConfig(**ingest),
         obs=ObsConfig(**obs),
@@ -327,6 +337,79 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def _report_dict(rep) -> dict:
+    """The JSON shape of every eval report (the JAX CLI's)."""
+    return {
+        "recall_at": rep.recall_at,
+        "exam_score": rep.exam_score,
+        # The paper's unnormalized Exam form (Tables 4-6).
+        "exam_score_paper": rep.exam_score_paper,
+        "detection_rate": rep.detection_rate,
+    }
+
+
+def cmd_eval(args) -> int:
+    """The accuracy experiment (``evaluation``), printed and written as
+    the JAX CLI's ``cmd_eval`` prints and writes it."""
+    from .evaluation import (
+        EvalConfig,
+        evaluate,
+        evaluate_all_methods,
+        evaluate_detection,
+        evaluate_overlap_ablation,
+    )
+
+    cfg = _config_from_args(args)
+    eval_cfg = EvalConfig(
+        n_cases=args.cases,
+        n_operations=args.operations,
+        n_traces=args.traces,
+        n_pods=args.pods,
+        n_kinds=args.kinds,
+        child_keep_prob=args.keep_prob,
+        n_faults=args.faults,
+        fault_latency_ms=args.fault_ms,
+        fault_path_overlap=args.fault_overlap,
+        seed0=args.seed,
+    )
+    if args.overlap_ablation:
+        reports = evaluate_overlap_ablation(cfg, eval_cfg)
+        for ov, rep in reports.items():
+            print(f"overlap={ov:.2f}  {rep.summary()}")
+        if args.json:
+            out = {str(ov): _report_dict(rep) for ov, rep in reports.items()}
+            Path(args.json).write_text(json.dumps(out, indent=2))
+        return 0
+    if args.detection:
+        report = evaluate_detection(cfg, eval_cfg, n_windows=args.windows)
+        print(report.summary())
+        if args.json:
+            Path(args.json).write_text(json.dumps({
+                "precision": report.precision, "recall": report.recall, "f1": report.f1,
+                "tp": report.tp, "fp": report.fp, "fn": report.fn, "tn": report.tn,
+            }, indent=2))
+        return 0
+    if args.all_methods:
+        reports = evaluate_all_methods(cfg, eval_cfg)
+        width = max(len(m) for m in reports)
+        for m, rep in reports.items():
+            print(f"{m:<{width}}  {rep.summary()}")
+        if args.json:
+            out = {m: _report_dict(rep) for m, rep in reports.items()}
+            Path(args.json).write_text(json.dumps(out, indent=2))
+        return 0
+    report = evaluate(cfg, eval_cfg)
+    print(report.summary())
+    if args.json:
+        out = {
+            **_report_dict(report),
+            "cases": [{"seed": c.seed, "faults": c.faults, "ranks": c.ranks}
+                      for c in report.cases],
+        }
+        Path(args.json).write_text(json.dumps(out, indent=2))
+    return 0
+
+
 def cmd_synth(args) -> int:
     from .testing import SyntheticConfig, generate_case
 
@@ -379,6 +462,98 @@ def _add_ranking_flags(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_config_flags(p: argparse.ArgumentParser) -> None:
+    """The flags every subcommand that builds a ``MicroRankConfig``
+    takes (``_config_from_args``): the device, the kernel and build
+    knobs, the ranking and detection flags, the window loop's knobs,
+    the span tracer's and the dead-letter store's."""
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument(
+        "--collapse-kinds", default="auto", choices=["auto", "on", "off"]
+    )
+    p.add_argument(
+        "--kernel", default="auto", choices=list(KERNELS),
+        help="power-iteration kernel ('kind' = kind-compressed "
+        "reduced-precision iteration over the collapsed trace-kind "
+        "axis; 'auto' selects it when the measured dedup factor "
+        "clears --kind-dedup-threshold)",
+    )
+    p.add_argument(
+        "--kind-precision", default=None, choices=list(KIND_PRECISIONS),
+        help="kernel='kind' coverage matvec precision: f32 (default), bf16 "
+        "operands with f32 accumulation, or scaled-int8 operands with "
+        "exact int32 accumulation",
+    )
+    _add_ranking_flags(p)
+    p.add_argument(
+        "--kind-dedup-threshold", type=float, default=None,
+        help="measured window dedup factor (true traces / distinct kinds) "
+        "past which kernel='auto' selects the kind kernel (default 4.0)",
+    )
+    p.add_argument(
+        "--sync-dispatch", action="store_true",
+        help="disable the async stage/fetch worker threads (default on: "
+        "the dispatch and the result wait overlap the next window's host "
+        "work)",
+    )
+    p.add_argument(
+        "--pipeline-depth", type=_positive_int, default=None,
+        help="device rank programs allowed in flight (1 = synchronous)",
+    )
+    p.add_argument(
+        "--fetch-mode", choices=list(FETCH_MODES), default=None,
+        help="result joins: per window ('stream', lowest sink latency) or "
+        "over --bulk-fetch-windows windows at once ('bulk'; supersedes "
+        "--pipeline-depth as the in-flight bound)",
+    )
+    p.add_argument(
+        "--bulk-fetch-windows", type=_positive_int, default=None,
+        help="windows joined at once in --fetch-mode bulk",
+    )
+    p.add_argument(
+        "--dispatch-batch-windows", type=_positive_int, default=None,
+        help="group this many anomalous windows into one stacked "
+        "stage+dispatch (one staging transfer per group — the replay "
+        "throughput knob on high-latency links; 1 = lowest per-window "
+        "latency)",
+    )
+    p.add_argument(
+        "--no-blob-staging", action="store_true",
+        help="stage graphs as per-leaf transfers instead of one packed "
+        "uint32 buffer",
+    )
+    p.add_argument(
+        "--device-checks", action="store_true",
+        help="assert the finite-score invariant INSIDE the compiled "
+        "program (checkify; forces synchronous dispatch)",
+    )
+    p.add_argument(
+        "--no-tuned-policy", action="store_true",
+        help="do not consult the persisted tuned policy (policy.json, "
+        "written by the JAX package's `cli scenarios` next to its "
+        "compile cache, or in $MICRORANK_POLICY_DIR); pins the built-in "
+        "spectrum/kernel/pad defaults. Explicit flags always beat the "
+        "policy even without this",
+    )
+    p.add_argument(
+        "--quarantine-dir", default=None,
+        help="directory for the span-admission dead-letter store "
+        "(quarantine.jsonl — every rejected row with its reason; "
+        "default: the run's output directory)",
+    )
+    p.add_argument(
+        "--no-span-trace", action="store_true",
+        help="disable the self-tracing span ring (obs.spans; on by "
+        "default — every pipeline stage emits a parent-linked span "
+        "the flight recorder can dump)",
+    )
+    p.add_argument(
+        "--span-ring", type=_positive_int, default=None,
+        help="span ring capacity (spans; default 8192 — oldest spans "
+        "fall off, the flight manifest counts drops)",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m microrank_tpu_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -387,77 +562,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument("--normal", required=True, help="normal-period traces.csv")
     p_run.add_argument("--abnormal", required=True, help="traces.csv to analyze")
     p_run.add_argument("-o", "--output", default="rca_out")
-    p_run.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p_run.add_argument(
-        "--collapse-kinds", default="auto", choices=["auto", "on", "off"]
-    )
-    p_run.add_argument(
-        "--kernel", default="auto", choices=list(KERNELS),
-        help="power-iteration kernel ('kind' = kind-compressed "
-        "reduced-precision iteration over the collapsed trace-kind "
-        "axis; 'auto' selects it when the measured dedup factor "
-        "clears --kind-dedup-threshold)",
-    )
-    p_run.add_argument(
-        "--kind-precision", default=None, choices=list(KIND_PRECISIONS),
-        help="kernel='kind' coverage matvec precision: f32 (default), bf16 "
-        "operands with f32 accumulation, or scaled-int8 operands with "
-        "exact int32 accumulation",
-    )
-    _add_ranking_flags(p_run)
-    p_run.add_argument(
-        "--kind-dedup-threshold", type=float, default=None,
-        help="measured window dedup factor (true traces / distinct kinds) "
-        "past which kernel='auto' selects the kind kernel (default 4.0)",
-    )
+    _add_config_flags(p_run)
     p_run.add_argument("--slo-cache", help="npz path to cache the SLO baseline")
     p_run.add_argument(
         "--resume", action="store_true", help="resume from the window cursor"
-    )
-    p_run.add_argument(
-        "--sync-dispatch", action="store_true",
-        help="disable the async stage/fetch worker threads (default on: "
-        "the dispatch and the result wait overlap the next window's host "
-        "work)",
-    )
-    p_run.add_argument(
-        "--pipeline-depth", type=_positive_int, default=None,
-        help="device rank programs allowed in flight (1 = synchronous)",
-    )
-    p_run.add_argument(
-        "--fetch-mode", choices=list(FETCH_MODES), default=None,
-        help="result joins: per window ('stream', lowest sink latency) or "
-        "over --bulk-fetch-windows windows at once ('bulk'; supersedes "
-        "--pipeline-depth as the in-flight bound)",
-    )
-    p_run.add_argument(
-        "--bulk-fetch-windows", type=_positive_int, default=None,
-        help="windows joined at once in --fetch-mode bulk",
-    )
-    p_run.add_argument(
-        "--dispatch-batch-windows", type=_positive_int, default=None,
-        help="group this many anomalous windows into one stacked "
-        "stage+dispatch (one staging transfer per group — the replay "
-        "throughput knob on high-latency links; 1 = lowest per-window "
-        "latency)",
-    )
-    p_run.add_argument(
-        "--no-blob-staging", action="store_true",
-        help="stage graphs as per-leaf transfers instead of one packed "
-        "uint32 buffer",
-    )
-    p_run.add_argument(
-        "--device-checks", action="store_true",
-        help="assert the finite-score invariant INSIDE the compiled "
-        "program (checkify; forces synchronous dispatch)",
-    )
-    p_run.add_argument(
-        "--no-tuned-policy", action="store_true",
-        help="do not consult the persisted tuned policy (policy.json, "
-        "written by the JAX package's `cli scenarios` next to its "
-        "compile cache, or in $MICRORANK_POLICY_DIR); pins the built-in "
-        "spectrum/kernel/pad defaults. Explicit flags always beat the "
-        "policy even without this",
     )
     p_run.add_argument(
         "--follow", action="store_true",
@@ -485,23 +593,6 @@ def build_parser() -> argparse.ArgumentParser:
         "/metrics (Prometheus text), /metrics.json, /healthz; 0 picks "
         "a free port. The snapshot is also written to -o at run end "
         "for offline `stats`",
-    )
-    p_run.add_argument(
-        "--quarantine-dir", default=None,
-        help="directory for the span-admission dead-letter store "
-        "(quarantine.jsonl — every rejected row with its reason; "
-        "default: the run's output directory)",
-    )
-    p_run.add_argument(
-        "--no-span-trace", action="store_true",
-        help="disable the self-tracing span ring (obs.spans; on by "
-        "default — every pipeline stage emits a parent-linked span "
-        "the flight recorder can dump)",
-    )
-    p_run.add_argument(
-        "--span-ring", type=_positive_int, default=None,
-        help="span ring capacity (spans; default 8192 — oldest spans "
-        "fall off, the flight manifest counts drops)",
     )
     p_run.set_defaults(fn=cmd_run)
 
@@ -539,6 +630,56 @@ def build_parser() -> argparse.ArgumentParser:
         help="also print a one-line journal summary to stderr",
     )
     p_stats.set_defaults(fn=cmd_stats)
+
+    p_eval = sub.add_parser(
+        "eval",
+        help="R@k / Exam-Score accuracy experiment over synthetic chaos "
+        "cases (the paper's Tables 4-6 methodology, reproducible)",
+    )
+    p_eval.add_argument("--cases", type=int, default=20)
+    p_eval.add_argument("--operations", type=int, default=30)
+    p_eval.add_argument("--traces", type=int, default=400)
+    p_eval.add_argument("--pods", type=int, default=1)
+    p_eval.add_argument("--kinds", type=int, default=48)
+    p_eval.add_argument("--faults", type=int, default=1)
+    p_eval.add_argument("--fault-ms", type=float, default=2000.0)
+    p_eval.add_argument(
+        "--keep-prob", type=float, default=0.15,
+        help="per-kind subtree keep probability: trace-kind breadth "
+        "(lower = narrower, more request-like traces)",
+    )
+    p_eval.add_argument(
+        "--fault-overlap", type=float, default=None,
+        help="target root-path overlap between injected faults "
+        "(multi-fault hardness control, 0=disjoint paths, 1=nested)",
+    )
+    p_eval.add_argument(
+        "--overlap-ablation", action="store_true",
+        help="sweep --fault-overlap over 0, 0.25, 0.5, 0.75, 1 "
+        "(two-fault hardness ablation)",
+    )
+    p_eval.add_argument("--seed", type=int, default=1000)
+    p_eval.add_argument(
+        "--all-methods", action="store_true",
+        help="score every spectrum formula (one rank program per case)",
+    )
+    p_eval.add_argument(
+        "--detection", action="store_true",
+        help="window-level detection precision/recall/F1 over timelines "
+        "(the paper's Fig. 9 experiment)",
+    )
+    p_eval.add_argument(
+        "--windows", type=int, default=10,
+        help="timeline length for --detection (half the windows faulted)",
+    )
+    p_eval.add_argument("--json", help="write the detailed report here")
+    p_eval.add_argument(
+        "--backend", default="torch", choices=list(BACKENDS),
+        help="ranking backend: this package's device program; numpy_ref (the "
+        "JAX package's oracle) is not ported and raises",
+    )
+    _add_config_flags(p_eval)
+    p_eval.set_defaults(fn=cmd_eval)
 
     p_synth = sub.add_parser("synth", help="generate a synthetic chaos case")
     p_synth.add_argument("-o", "--output", required=True)

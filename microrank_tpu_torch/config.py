@@ -28,6 +28,9 @@ KERNELS = (
 KIND_PRECISIONS = ("f32", "bf16", "int8")
 # Result fetch strategies of the window loop (RuntimeConfig.fetch_mode).
 FETCH_MODES = ("stream", "bulk")
+# Ranking backends (RuntimeConfig.backend); "numpy_ref" is named so that
+# a caller asking for it is told it is not ported.
+BACKENDS = ("torch", "numpy_ref")
 
 
 @dataclass(frozen=True)
@@ -189,6 +192,11 @@ class RuntimeConfig:
     # "cuda" (default) or "cpu". Entry points also take ``device=``,
     # which wins over this field.
     device: str = "cuda"
+    # The ranking backend: "torch" (this package's device program) or
+    # "numpy_ref", the JAX package's numpy oracle backend, which is not
+    # ported (ROADMAP.md, port queue item 9): the accuracy harness
+    # raises NotImplementedError on it.
+    backend: str = "torch"
     # Window-loop pipelining (TableRCA.run): rank programs allowed in
     # flight before the host blocks on the oldest. 2 overlaps window N's
     # device work with window N+1's detection and graph build; 1 is fully
@@ -241,6 +249,10 @@ class RuntimeConfig:
         if self.kernel not in KERNELS:
             raise ValueError(
                 f"unknown kernel {self.kernel!r} (expected one of {KERNELS})"
+            )
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r} (expected one of {BACKENDS})"
             )
         if self.fetch_mode not in FETCH_MODES:
             raise ValueError(

@@ -64,6 +64,23 @@
 // `epilogue_first`, the first design, stays for comparison, and runs
 // the vocabularies past kClusterMax * kSliceMax ops.
 //
+// K13, every formula at once (jax_tpu.py:1373
+// `rank_window_all_methods_core`, reached by `cli eval --all-methods`):
+// the launch takes a methods axis, grid y (the window kernel's
+// kAllMethods instances; the one-formula instances are compiled apart
+// and unchanged). With `methods` = kMethods,
+// block (x, m) does what the one-method launch's block x does, with
+// formula m (the order of spectrum/formulas.py METHODS, which is the
+// Method enum's), and writes row m of the window's [M, k] top-k; only
+// the blocks of row 0 write the weights, the scores and n_valid, so no
+// two blocks write one word. Each row is the one-method launch's output
+// for its formula bit for bit: the same counters, the same tree, the
+// same formula code, the same selection. A row's radix keys past
+// kSmemKeys take a slice of the scratch each, and the first design's
+// scratch (canonical scores, tile nodes) is a row's own; its blocks past
+// row 0 recompute score = sv / max where row 0 reads back what it wrote.
+// One launch a program; with `methods` = 1 it is the launch it was.
+//
 // K14, the checked program (jax_tpu.py:1415 `rank_window_checked_core`,
 // :1450 `rank_window_checked_traced_core`): with a check word asked for
 // (a non-null `check`, a flag argument: an unchecked launch runs the
@@ -114,13 +131,13 @@ struct Part {
 
 struct EpilogueArgs {
   Part part[kParts];
-  int32_t v, k, k_pad, method, tiles;
+  int32_t v, k, k_pad, method, methods, tiles;
   float eps;
-  float* scores;               // [B, v] scratch: score + 0, -inf where not valid
-  float* nodes;                // [B, 2, tiles] scratch (tiles > 1)
-  uint64_t* keys;              // [B, k_pad] scratch (k_pad > kSmemKeys)
-  int32_t* top_idx;            // [B, k]
-  float* top_scores;           // [B, k]
+  float* scores;               // [B, M, v] scratch: score + 0, -inf where not valid
+  float* nodes;                // [B, M, 2, tiles] scratch (tiles > 1)
+  uint64_t* keys;              // [B, M, k_pad] scratch (k_pad > kSmemKeys)
+  int32_t* top_idx;            // [B, M, k]
+  float* top_scores;           // [B, M, k]
   int32_t* n_valid;            // [B]
   int32_t* check;              // [B] K14's check words, or null (unchecked)
   const float* residuals;      // [B, 2, iters] with `check`: the residual trace, or null
@@ -251,6 +268,13 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
   const int t = threadIdx.x;
   const int v = a.v;
   const int64_t row = static_cast<int64_t>(b) * v;
+  // Grid y is the formula (K13, `methods` rows, or 1): row 0's blocks
+  // alone write the weights, the scores and n_valid; each block has its
+  // row's scratch and writes its row of the window's [M, k] top-k.
+  const int method = a.methods == 1 ? a.method : static_cast<int>(blockIdx.y);
+  const bool lead = blockIdx.y == 0;
+  const int64_t mrow = static_cast<int64_t>(b) * a.methods + blockIdx.y;
+  float* scores = a.scores + mrow * v;
 
   // The finish of each partition: its maximum, its scores and the tree
   // of its present scores.
@@ -259,8 +283,8 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
     float m = neg_inf();
     for (int i = t; i < v; i += kThreads) m = nan_max(m, q.sv[row + i]);
     m = block_max(m, warp_vals);
-    float* nodes =
-        a.tiles > 1 ? a.nodes + (static_cast<int64_t>(b) * kParts + p) * a.tiles : nullptr;
+    if (t == 0) bcast[p] = m;
+    float* nodes = a.tiles > 1 ? a.nodes + (mrow * kParts + p) * a.tiles : nullptr;
     float total = 0.0f;
     for (int j = 0; j < a.tiles; ++j) {
       const int lo = j * kTile;
@@ -271,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
         float present = 0.0f;
         if (at < count) {
           const float s = f_div(q.sv[row + lo + at], m);
-          q.score[row + lo + at] = s;
+          if (lead) q.score[row + lo + at] = s;
           present = q.op_present[row + lo + at] ? s : 0.0f;
         }
         stage[at] = present;
@@ -298,16 +322,20 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
   // Weights, counters, the formula; each op's canonical score.
   const Part nq = a.part[0], aq = a.part[1];
   const float total_n = bcast[kParts], total_a = bcast[kParts + 1];
+  const float max_n = bcast[0], max_a = bcast[1];
   const float ops_n = __int2float_rn(nq.n_ops[b]), ops_a = __int2float_rn(aq.n_ops[b]);
   const float len_n = __int2float_rn(nq.n_traces[b]), len_a = __int2float_rn(aq.n_traces[b]);
   const float eps = a.eps;
   int valid_here = 0;
   for (int i = t; i < v; i += kThreads) {
     const int64_t at = row + i;
-    const float w_n = f_div(f_mul(nq.score[at], total_n), ops_n);
-    const float w_a = f_div(f_mul(aq.score[at], total_a), ops_a);
-    nq.weight[at] = w_n;
-    aq.weight[at] = w_a;
+    // The scores again (the division the finish wrote them by).
+    const float w_n = f_div(f_mul(f_div(nq.sv[at], max_n), total_n), ops_n);
+    const float w_a = f_div(f_mul(f_div(aq.sv[at], max_a), total_a), ops_a);
+    if (lead) {
+      nq.weight[at] = w_n;
+      aq.weight[at] = w_a;
+    }
     const bool in_a = aq.op_present[at], in_n = nq.op_present[at];
     const float cov_a = __int2float_rn(aq.cov_unique[at]);
     const float cov_n = __int2float_rn(nq.cov_unique[at]);
@@ -317,8 +345,8 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
         in_a ? (in_n ? f_mul(w_n, cov_n) : eps) : f_mul(f_add(1.0f, w_n), cov_n);
     const float np = in_a ? (in_n ? f_mul(w_n, f_sub(len_n, cov_n)) : eps) : f_sub(len_n, cov_n);
     const bool valid = in_a || in_n;
-    const float s = valid ? formula(a.method, ef, nf, ep, np) : neg_inf();
-    a.scores[at] = f_add(s, 0.0f);
+    const float s = valid ? formula(method, ef, nf, ep, np) : neg_inf();
+    scores[i] = f_add(s, 0.0f);
     valid_here += valid;
   }
   atomicAdd(&n_valid, valid_here);
@@ -328,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
     done = 0;
   }
   __syncthreads();
-  if (t == 0) a.n_valid[b] = min(n_valid, a.k);
+  if (t == 0 && lead) a.n_valid[b] = min(n_valid, a.k);
 
   // Radix select: the prefix of the keys that holds exactly the k
   // smallest, 8 bits a pass from the top.
@@ -338,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
     __syncthreads();
     const uint64_t pre = prefix;
     for (int i = t; i < v; i += kThreads) {
-      const uint64_t key = sort_key(a.scores[row + i], i);
+      const uint64_t key = sort_key(scores[i], i);
       if (shift == 56 || (key >> (shift + 8)) == (pre >> (shift + 8))) {
         atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1u);
       }
@@ -368,12 +396,12 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
   }
 
   // Gather the k keys at or below the prefix, sort them, write them out.
-  uint64_t* keys = a.k_pad <= kSmemKeys ? smem_keys : a.keys + static_cast<int64_t>(b) * a.k_pad;
+  uint64_t* keys = a.k_pad <= kSmemKeys ? smem_keys : a.keys + mrow * a.k_pad;
   const uint64_t top = prefix >> shift;
   if (t == 0) n_gathered = 0;
   __syncthreads();
   for (int i = t; i < v; i += kThreads) {
-    const uint64_t key = sort_key(a.scores[row + i], i);
+    const uint64_t key = sort_key(scores[i], i);
     if ((key >> shift) <= top) keys[atomicAdd(&n_gathered, 1)] = key;
   }
   for (int j = a.k + t; j < a.k_pad; j += kThreads) keys[j] = ~0ull;
@@ -381,8 +409,8 @@ __global__ void __launch_bounds__(kThreads) epilogue_first(EpilogueArgs a) {
   bitonic_sort(keys, a.k_pad);
   for (int j = t; j < a.k; j += kThreads) {
     const int idx = static_cast<int>(static_cast<uint32_t>(keys[j]));
-    a.top_idx[static_cast<int64_t>(b) * a.k + j] = idx;
-    a.top_scores[static_cast<int64_t>(b) * a.k + j] = a.scores[row + idx];
+    a.top_idx[mrow * a.k + j] = idx;
+    a.top_scores[mrow * a.k + j] = scores[idx];
   }
   if (a.check != nullptr) {
     __syncthreads();  // the top-k and n_valid written
@@ -419,9 +447,9 @@ struct WindowArgs {
   Part part[kParts];
   int32_t v, k, k_pad, method, slice, cluster;
   float eps;
-  uint64_t* keys;              // [B, k_pad] scratch (k_pad > kSmemKeys)
-  int32_t* top_idx;            // [B, k]
-  float* top_scores;           // [B, k]
+  uint64_t* keys;              // [B, M, k_pad] scratch (k_pad > kSmemKeys)
+  int32_t* top_idx;            // [B, M, k]
+  float* top_scores;           // [B, M, k]
   int32_t* n_valid;            // [B]
   int64_t* stamps;             // [kStamps] SM cycles of window 0's phases, or null
   int32_t* check;              // [B] K14's check words, or null (unchecked)
@@ -437,7 +465,9 @@ struct WindowArgs {
 constexpr int kStamps = 8;
 
 __device__ __forceinline__ void stamp(int64_t* stamps, int phase) {
-  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) stamps[phase] = clock64();
+  if (stamps != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    stamps[phase] = clock64();
+  }
 }
 
 template <bool kClustered>
@@ -586,7 +616,19 @@ __device__ __forceinline__ void copy_edges(const Row& r) {
   for (int i = tail + threadIdx.x; i < r.n; i += kWide) copy_element(r, i);
 }
 
-template <bool kClustered>
+// K13's row of the grid (the formula), read where it is used: a
+// volatile read is not hoisted, so that it holds no register across the
+// passes (the window kernels run at their 64-register bound).
+__device__ __forceinline__ int grid_row() {
+  unsigned y;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
+  return static_cast<int>(y);
+}
+
+// kAllMethods (K13): grid y is the formula, kMethods rows; without it
+// the launch is the one-formula kernel it was (its own instance, so
+// that its code and registers are untouched).
+template <bool kClustered, bool kAllMethods>
 __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bar;
@@ -608,6 +650,13 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
   const int len = max(0, min(slice, v - lo));
   const int64_t row = static_cast<int64_t>(b) * v + lo;
   const Part qn = a.part[0], qa = a.part[1];
+  // K13: row 0's blocks alone write the weights, the scores and n_valid
+  // (`leads`); each block writes its row of the window's [M, k] top-k
+  // (`out_row`).
+  const auto leads = [] { return !kAllMethods || grid_row() == 0; };
+  const auto out_row = [b] {
+    return kAllMethods ? static_cast<int64_t>(b) * kMethods + grid_row() : static_cast<int64_t>(b);
+  };
   stamp(a.stamps, 0);
   // The window's counts, loaded while the slice arrives.
   const int ops_n_i = __ldg(qn.n_ops + b), ops_a_i = __ldg(qa.n_ops + b);
@@ -700,8 +749,10 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
     const float s_n = f_div(sv_n[i], m_n), s_a = f_div(sv_a[i], m_a);
     sv_n[i] = s_n;
     sv_a[i] = s_a;
-    qn.score[row + i] = s_n;
-    qa.score[row + i] = s_a;
+    if (leads()) {
+      qn.score[row + i] = s_n;
+      qa.score[row + i] = s_a;
+    }
   }
   __syncthreads();
   const int tiles_here = (len + kTile - 1) / kTile;
@@ -746,8 +797,10 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
   for (int i = t; i < len; i += kWide) {
     const float w_n = f_div(f_mul(sv_n[i], total_n), ops_n);
     const float w_a = f_div(f_mul(sv_a[i], total_a), ops_a);
-    qn.weight[row + i] = w_n;
-    qa.weight[row + i] = w_a;
+    if (leads()) {
+      qn.weight[row + i] = w_n;
+      qa.weight[row + i] = w_a;
+    }
     const bool in_a = pres_a[i], in_n = pres_n[i];
     const float c_a = __int2float_rn(cov_a[i]);
     const float c_n = __int2float_rn(cov_n[i]);
@@ -756,7 +809,8 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
     const float ep = in_a ? (in_n ? f_mul(w_n, c_n) : eps) : f_mul(f_add(1.0f, w_n), c_n);
     const float np = in_a ? (in_n ? f_mul(w_n, f_sub(len_n, c_n)) : eps) : f_sub(len_n, c_n);
     const bool valid = in_a || in_n;
-    const float s = valid ? formula(a.method, ef, nf, ep, np) : neg_inf();
+    const float s = valid ? formula(kAllMethods ? grid_row() : a.method, ef, nf, ep, np)
+                          : neg_inf();
     sv_n[i] = f_add(s, 0.0f);
     valid_here += valid;
   }
@@ -765,7 +819,6 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
   __syncthreads();
   stamp(a.stamps, 5);
   float* scores = sv_n;
-  const int64_t out = static_cast<int64_t>(b) * a.k;
 
   if (a.k <= kWarpK) {
     // Each warp's 32 least keys, sorted across its lanes: first its
@@ -831,6 +884,7 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
       for (int rank = 1; rank < cs; ++rank) best = merge_lists(best, peer<kClustered>(from, rank));
       if (lane < a.k) {
         const int idx = static_cast<int>(static_cast<uint32_t>(best));
+        const int64_t out = out_row() * a.k;
         a.top_idx[out + lane] = idx;
         a.top_scores[out + lane] = peer<kClustered>(scores, idx / slice)[idx % slice];
       }
@@ -900,7 +954,7 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
     }
     __syncthreads();
     const bool in_smem = a.k_pad <= kSmemKeys;
-    uint64_t* keys = in_smem ? peer<kClustered>(lists, 0) : a.keys + static_cast<int64_t>(b) * a.k_pad;
+    uint64_t* keys = in_smem ? peer<kClustered>(lists, 0) : a.keys + out_row() * a.k_pad;
     for (int i = t; i < len; i += kWide) {
       const uint64_t key = sort_key(scores[i], lo + i);
       if ((key >> shift) <= top) keys[gather_at + atomicAdd(&n_gathered, 1)] = key;
@@ -911,6 +965,7 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
       for (int j = a.k + t; j < a.k_pad; j += kWide) keys[j] = ~0ull;
       __syncthreads();
       bitonic_sort_wide(keys, a.k_pad);
+      const int64_t out = out_row() * a.k;
       for (int j = t; j < a.k; j += kWide) {
         const int idx = static_cast<int>(static_cast<uint32_t>(keys[j]));
         a.top_idx[out + j] = idx;
@@ -921,7 +976,7 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
   if (r == 0 && t == 0) {
     int total = 0;
     for (int rank = 0; rank < cs; ++rank) total += *peer<kClustered>(&valid_count, rank);
-    a.n_valid[b] = min(total, a.k);
+    if (leads()) a.n_valid[b] = min(total, a.k);
     stamp(a.stamps, 7);
   }
   if constexpr (kClustered) cg::this_cluster().sync();  // block 0 is done reading its peers
@@ -942,15 +997,20 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-// Both window kernels may take a full slice's shared memory.
+template <bool kClustered, bool kAllMethods>
+cudaError_t allow_slice(int bytes) {
+  return cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(epilogue_window<kClustered, kAllMethods>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Every window kernel may take a full slice's shared memory.
 cudaError_t allow_slices() {
   const int bytes = static_cast<int>(window_smem(kSliceMax));
-  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(epilogue_window<false>),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(epilogue_window<true>),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  }
+  cudaError_t e = allow_slice<false, false>(bytes);
+  if (e == cudaSuccess) e = allow_slice<true, false>(bytes);
+  if (e == cudaSuccess) e = allow_slice<false, true>(bytes);
+  if (e == cudaSuccess) e = allow_slice<true, true>(bytes);
   return e;
 }
 
@@ -960,12 +1020,14 @@ cudaError_t allow_slices() {
 // then the fields below (scores and nodes: the first design's scratch;
 // stamps: kStamps int64 for the window form's phase cycles, or null;
 // check, residuals, n_iters and iters: K14's check words, or null, and
-// the residual trace it checks, or null).
+// the residual trace it checks, or null; method_rows: 1, the formula
+// `method`, or kMethods, every formula (K13; unchecked only)).
 enum Word {
   kPartWords = 7,
   kScores = kParts * kPartWords, kNodes, kKeys, kTopIdx, kTopScores, kNValid, kStampsAt,
   kCheckAt, kResidualsAt, kNItersAt, kIters,
-  kWindows, kV, kK, kKPad, kMethod, kEpsBits, kForm, kCluster, kSlice, kSmem, kDevice, kStream,
+  kWindows, kV, kK, kKPad, kMethod, kMethodRows, kEpsBits, kForm, kCluster, kSlice, kSmem,
+  kDevice, kStream,
   kWords
 };
 
@@ -998,7 +1060,7 @@ int mr_rank_epilogue_config(int device, int32_t* out) {
     config.attrs = attr;
     config.numAttrs = 1;
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, epilogue_window<true>, &config);
+    e = cudaOccupancyMaxActiveClusters(&clusters, epilogue_window<true, false>, &config);
     if (e == cudaSuccess && clusters > 0) cluster_max = c;
   }
   out[0] = sms;
@@ -1020,13 +1082,15 @@ int mr_rank_epilogue_config(int device, int32_t* out) {
 int mr_rank_epilogue_launch(const int64_t* w) {
   const auto ptr = [w](int i) { return reinterpret_cast<void*>(static_cast<uintptr_t>(w[i])); };
   const int64_t windows = w[kWindows], v = w[kV], k = w[kK], k_pad = w[kKPad];
-  const int64_t method = w[kMethod], form = w[kForm], cluster = w[kCluster];
+  const int64_t method = w[kMethod], methods = w[kMethodRows], form = w[kForm];
+  const int64_t cluster = w[kCluster];
   const int64_t slice = w[kSlice], smem = w[kSmem];
   const int64_t tiles = (v + kTile - 1) / kTile;
   if (windows < 1 || windows > 65535 || v < 1 || tiles > mr_tree::kMaxTiles || k < 1 || k > v
       || k_pad < k || (k_pad & (k_pad - 1)) != 0 || method < 0 || method >= kMethods
       || (k_pad > kSmemKeys && ptr(kKeys) == nullptr) || w[kIters] < 0
-      || (ptr(kResidualsAt) != nullptr && (ptr(kCheckAt) == nullptr || ptr(kNItersAt) == nullptr))) {
+      || (ptr(kResidualsAt) != nullptr && (ptr(kCheckAt) == nullptr || ptr(kNItersAt) == nullptr))
+      || (methods != 1 && methods != kMethods) || (methods != 1 && ptr(kCheckAt) != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Part parts[kParts];
@@ -1055,6 +1119,7 @@ int mr_rank_epilogue_launch(const int64_t* w) {
     a.k = static_cast<int32_t>(k);
     a.k_pad = static_cast<int32_t>(k_pad);
     a.method = static_cast<int32_t>(method);
+    a.methods = static_cast<int32_t>(methods);
     a.tiles = static_cast<int32_t>(tiles);
     a.eps = eps;
     a.scores = static_cast<float*>(ptr(kScores));
@@ -1067,7 +1132,8 @@ int mr_rank_epilogue_launch(const int64_t* w) {
     a.residuals = static_cast<const float*>(ptr(kResidualsAt));
     a.n_iters = static_cast<const int32_t*>(ptr(kNItersAt));
     a.iters = static_cast<int32_t>(w[kIters]);
-    epilogue_first<<<static_cast<unsigned>(windows), kThreads, 0, stream>>>(a);
+    epilogue_first<<<dim3(static_cast<unsigned>(windows), static_cast<unsigned>(methods)), kThreads,
+                     0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   // A block a window holds the whole vocabulary; a cluster of a power of
@@ -1108,12 +1174,17 @@ int mr_rank_epilogue_launch(const int64_t* w) {
       allowed = device;
     }
   }
+  const dim3 grid(static_cast<unsigned>(windows * cluster), static_cast<unsigned>(methods));
+  const bool all = methods == kMethods;
   if (block) {
-    epilogue_window<false><<<static_cast<unsigned>(windows), kWide, static_cast<size_t>(smem),
-                             stream>>>(a);
+    if (all) {
+      epilogue_window<false, true><<<grid, kWide, static_cast<size_t>(smem), stream>>>(a);
+    } else {
+      epilogue_window<false, false><<<grid, kWide, static_cast<size_t>(smem), stream>>>(a);
+    }
   } else {
     cudaLaunchConfig_t config{};
-    config.gridDim = dim3(static_cast<unsigned>(windows * cluster));
+    config.gridDim = grid;
     config.blockDim = dim3(kWide);
     config.dynamicSmemBytes = static_cast<size_t>(smem);
     config.stream = stream;
@@ -1124,7 +1195,8 @@ int mr_rank_epilogue_launch(const int64_t* w) {
     attr[0].val.clusterDim.z = 1;
     config.attrs = attr;
     config.numAttrs = 1;
-    launched = cudaLaunchKernelEx(&config, epilogue_window<true>, a);
+    launched = all ? cudaLaunchKernelEx(&config, epilogue_window<true, true>, a)
+                   : cudaLaunchKernelEx(&config, epilogue_window<true, false>, a);
   }
   if (launched != cudaSuccess) {
     cudaGetLastError();  // clear the refusal; it is reported here

@@ -32,6 +32,15 @@ top-k's: a warp-select for k <= 32, a radix select past it. The host
 side is one check, one allocation and one call with one packed
 argument block (``ARGS``). Nothing here waits for the card.
 
+K13, every formula in one launch: ``rank_epilogue_all_methods`` gives
+an ``Epilogue`` whose top-k is [(B,) M, k], row m the ranking of
+``spectrum.formulas.METHODS[m]`` (JAX's ``rank_window_all_methods_core``,
+``jax_tpu.py:1373``), each row bitwise the one-method launch's for its
+formula; plain version ``finish_topk_all_methods`` (the counters once,
+then each formula's scores and top-k). Its launches count in
+``rank_epilogue.launches`` with every other, and by kind in
+``rank_epilogue.by_kind`` ("one_method", "checked", "all_methods").
+
 K14, the checked program: ``rank_epilogue_checked`` gives the same
 ``Epilogue`` and each window's check word (int32 [(B,)]): JAX's checkify
 checks of ``jax_tpu.py:1415`` / ``:1450`` as bits, set by the same one
@@ -46,6 +55,7 @@ import ctypes
 import functools
 import struct
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional
 
@@ -53,7 +63,7 @@ import torch
 
 from ..config import SpectrumConfig
 from ..graph.structures import PartitionGraph
-from ..spectrum.formulas import FORMULAS, spectrum_scores
+from ..spectrum.formulas import FORMULAS, METHODS, spectrum_scores
 from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
 from .fold import MAX_WIDTH, TREE_HEADER, fold_rows
 from .setup import as_kernel_field, f32_bits
@@ -73,6 +83,8 @@ _METHOD_ORDER = ("dstar2", "ochiai", "jaccard", "sorensendice", "m1", "m2", "goo
 METHOD_IDS = {name: i for i, name in enumerate(_METHOD_ORDER)}
 METHOD_IDS["simplematcing"] = METHOD_IDS["simplematching"]
 assert set(METHOD_IDS) == set(FORMULAS)
+# K13's rows are METHODS in order, which is the kernel's formula order.
+assert [METHOD_IDS[m] for m in METHODS] == list(range(len(METHODS)))
 
 
 def method_id(method: str) -> int:
@@ -92,8 +104,8 @@ class Epilogue(NamedTuple):
     a_weight: torch.Tensor
     score_n: torch.Tensor     # float32 [(B,) V], sv / max(sv)
     score_a: torch.Tensor
-    top_idx: torch.Tensor     # int32 [(B,) k]
-    top_scores: torch.Tensor  # float32 [(B,) k]
+    top_idx: torch.Tensor     # int32 [(B,) k]; every formula (K13): [(B,) M, k]
+    top_scores: torch.Tensor  # float32 [(B,) k]; every formula: [(B,) M, k]
     n_valid: torch.Tensor     # int32 [(B,)]
 
 
@@ -201,13 +213,31 @@ def finish_topk(normal: PartitionGraph, abnormal: PartitionGraph, n_weight, a_we
     return top_idx, top_scores, n_valid
 
 
+def finish_topk_all_methods(normal: PartitionGraph, abnormal: PartitionGraph, n_weight,
+                            a_weight, spectrum_cfg: SpectrumConfig):
+    """K13's tail: the counters once, then each formula of ``METHODS``
+    in order, its scores (-inf where no partition holds the op) and its
+    top-k, each as ``finish_topk`` takes them (``spectrum_cfg.method``
+    is not read). Returns (top_idx int32[(B,) M, k], top_scores
+    float32[(B,) M, k], n_valid int32[(B,)])."""
+    ef, nf, ep, np_, valid = spectrum_counters(a_weight, abnormal, n_weight, normal,
+                                               spectrum_cfg)
+    k = min(spectrum_cfg.n_rows, valid.shape[-1])
+    tops = [top_k_tiebroken(torch.where(valid, spectrum_scores(ef, nf, ep, np_, m),
+                                        float("-inf")), k) for m in METHODS]
+    n_valid = torch.clamp(valid.sum(-1), max=k).to(torch.int32)
+    return (torch.stack([idx for _, idx in tops], -2),
+            torch.stack([scores for scores, _ in tops], -2), n_valid)
+
+
 def rank_epilogue_plain(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, sv_a,
-                        spectrum_cfg: SpectrumConfig) -> Epilogue:
-    """The epilogue in plain PyTorch."""
+                        spectrum_cfg: SpectrumConfig, all_methods: bool = False) -> Epilogue:
+    """The epilogue in plain PyTorch (``all_methods``: every formula's
+    top-k, K13's)."""
     n_weight, score_n = partition_finish(normal, sv_n)
     a_weight, score_a = partition_finish(abnormal, sv_a)
-    top_idx, top_scores, n_valid = finish_topk(normal, abnormal, n_weight, a_weight,
-                                               spectrum_cfg)
+    tail = finish_topk_all_methods if all_methods else finish_topk
+    top_idx, top_scores, n_valid = tail(normal, abnormal, n_weight, a_weight, spectrum_cfg)
     return Epilogue(n_weight, a_weight, score_n, score_a, top_idx, top_scores, n_valid)
 
 
@@ -339,9 +369,10 @@ def _check(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, sv_a):
 # The argument block of ``mr_rank_epilogue_launch`` (csrc ``Word``): each
 # partition's seven pointers, the first design's scores and nodes, keys,
 # top_idx, top_scores, n_valid, stamps, K14's check words, residuals,
-# n_iters and steps, then windows, v, k, k_pad, method, eps's float32
-# bits, form, cluster, slice, smem, device, stream.
-ARGS = struct.Struct("<37q")
+# n_iters and steps, then windows, v, k, k_pad, method, the method rows
+# (1, or every formula: K13), eps's float32 bits, form, cluster, slice,
+# smem, device, stream.
+ARGS = struct.Struct("<38q")
 # The phases the window form stamps (csrc kStamps): its start, the slice
 # loaded, the maxima, the scores, the totals, the spectrum, the block's
 # selection, the top-k written.
@@ -397,18 +428,35 @@ def rank_epilogue_checked(normal: PartitionGraph, abnormal: PartitionGraph,
                           True, residuals, n_iters)
 
 
+def rank_epilogue_all_methods(normal: PartitionGraph, abnormal: PartitionGraph,
+                              sv_n: torch.Tensor, sv_a: torch.Tensor,
+                              spectrum_cfg: SpectrumConfig,
+                              first_design: bool = False) -> Epilogue:
+    """K13: ``rank_epilogue`` with every formula's top-k, [(B,) M, k] in
+    ``METHODS`` order (``spectrum_cfg.method`` is not read), from one
+    launch with a methods axis (CPU tensors: ``rank_epilogue_plain(...,
+    all_methods=True)``); the weights, scores and n_valid are the
+    one-method launch's. ``first_design``: the first design's kernel
+    with the same axis (a comparison, as for ``rank_epilogue``)."""
+    return _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, None,
+                          all_methods=True)[0]
+
+
 def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, stamps,
-                   check: bool = False, residuals=None, n_iters=None):
+                   check: bool = False, residuals=None, n_iters=None, all_methods: bool = False):
     """The epilogue (and, with ``check``, the check words; else None)."""
     dev = sv_n.device
+    if check and all_methods:
+        raise ValueError("rank_epilogue: the checked program ranks one formula")
     if dev.type == "cpu":
-        out = rank_epilogue_plain(normal, abnormal, sv_n, sv_a, spectrum_cfg)
+        out = rank_epilogue_plain(normal, abnormal, sv_n, sv_a, spectrum_cfg, all_methods)
         word = (check_word_plain(out.top_scores, out.n_valid, residuals, n_iters)
                 if check else None)
         return out, word
     if dev.type != "cuda":
         raise ValueError(f"rank_epilogue: unsupported device {dev}")
-    method = method_id(spectrum_cfg.method)
+    method = 0 if all_methods else method_id(spectrum_cfg.method)
+    rows = len(METHODS) if all_methods else 1
     lead, v = _check(normal, abnormal, sv_n, sv_a)
     if residuals is not None:
         _check_trace(residuals, n_iters, lead, dev)
@@ -420,14 +468,14 @@ def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, sta
     plan = _plan(v, k, windows, index, first_design)
     first = plan.form == "first"
     tiles = -(-v // TILE)
-    # weight, score of each partition, top_idx, top_scores, n_valid; the
-    # first design's canonical scores and tile nodes.
-    # K14's check words; the first design's canonical scores and tile
-    # nodes.
+    # weight, score of each partition, top_idx, top_scores (a row a
+    # formula), n_valid; K14's check words; the first design's canonical
+    # scores and tile nodes (a row's own).
     n = windows * v
-    sizes = (n, n, n, n, windows * k, windows * k, windows, windows if check else 0)
+    m = windows * rows
+    sizes = (n, n, n, n, m * k, m * k, windows, windows if check else 0)
     if first:
-        sizes += (n, windows * 2 * tiles if tiles > 1 else 0)
+        sizes += (m * v, m * 2 * tiles if tiles > 1 else 0)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     w_n, s_n, w_a, s_a, top_idx, top_scores, n_valid, word = (
         torch.split_with_sizes(flat, sizes)[:8])
@@ -438,7 +486,7 @@ def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, sta
         at += 4 * size
     keys = None
     if plan.k_pad > SMEM_KEYS:
-        keys = torch.empty(windows * plan.k_pad, dtype=torch.int64, device=dev)
+        keys = torch.empty(m * plan.k_pad, dtype=torch.int64, device=dev)
     # The fields as the kernel reads them (a converted copy is held here
     # until the call has taken its pointer).
     words, fields = [], []
@@ -456,7 +504,7 @@ def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, sta
         0 if residuals is None else residuals.data_ptr(),
         0 if residuals is None else n_iters.data_ptr(),
         0 if residuals is None else residuals.shape[-1], windows, v, k, plan.k_pad, method,
-        f32_bits(spectrum_cfg.eps),
+        rows, f32_bits(spectrum_cfg.eps),
         FORMS.index(plan.form), plan.cluster, plan.slice, plan.smem, index,
         torch._C._cuda_getCurrentRawStream(index)))
     if rc != 0:
@@ -464,18 +512,23 @@ def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, sta
             f"rank_epilogue launch failed: {lib.mr_rank_epilogue_error_string(rc).decode()}"
         )
     rank_epilogue.launches += 1
+    rank_epilogue.by_kind["all_methods" if all_methods else "checked" if check
+                          else "one_method"] += 1
     top_idx, n_valid = top_idx.view(torch.int32), n_valid.view(torch.int32)
     word = word.view(torch.int32).view(lead) if check else None
+    top = lead + ((rows,) if all_methods else ()) + (k,)
+    top_idx, top_scores = top_idx.view(top), top_scores.view(top)
     if not lead:
         return Epilogue(w_n, w_a, s_n, s_a, top_idx, top_scores, n_valid.view(())), word
     return Epilogue(w_n.view(windows, v), w_a.view(windows, v), s_n.view(windows, v),
-                    s_a.view(windows, v), top_idx.view(windows, k), top_scores.view(windows, k),
-                    n_valid), word
+                    s_a.view(windows, v), top_idx, top_scores, n_valid), word
 
 
-# Launches of the epilogue kernel (a plain int; rank_epilogue is the one
-# place that launches it).
+# Launches of the epilogue kernel (a plain int; _rank_epilogue is the one
+# place that launches it), and the same launches by kind: "one_method",
+# "checked" (K14), "all_methods" (K13).
 rank_epilogue.launches = 0
+rank_epilogue.by_kind = Counter()
 
 
 def build_command(out: Path) -> List[str]:

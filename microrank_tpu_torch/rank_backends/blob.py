@@ -164,6 +164,7 @@ def stage_rank_window(
     checked: bool = False,
     conv_trace: bool = False,
     explain=None,
+    all_methods: bool = False,
 ):
     """Stage one window's host graph (``host_subset``-stripped for
     ``kernel``), or a stacked group's, and issue its rank program, all
@@ -180,8 +181,11 @@ def stage_rank_window(
     ``rank_window_checked_traced_core``), blob-staged as the unchecked
     one: its check word is a last output, to be packed with
     ``pack_rank_outputs(..., checked=True)``, whose fetch raises
-    ``DeviceCheckError`` where JAX's call raises. JAX's explained
-    program is not ported (ROADMAP.md, port queue items 10-11)."""
+    ``DeviceCheckError`` where JAX's call raises. ``all_methods`` (K13):
+    the program under every formula instead
+    (``rank_window_all_methods_core``: top_idx and top_scores [M, k],
+    n_valid; one window). JAX's explained program is not ported
+    (ROADMAP.md, port queue items 10-11)."""
     from . import torch_cuda
 
     if explain is not None and getattr(explain, "enabled", False):
@@ -192,6 +196,9 @@ def stage_rank_window(
     counts = torch_cuda.host_counts(graph, kernel)
     dgraph, staged = stage_graph(graph, device, blob)
     dgraph = torch_cuda.device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)
+    if all_methods:
+        return torch_cuda.rank_window_all_methods_core(
+            dgraph, pagerank_cfg, spectrum_cfg, kernel), staged
     if checked:
         program = (torch_cuda.rank_window_checked_traced_core if conv_trace
                    else torch_cuda.rank_window_checked_core)

@@ -62,6 +62,14 @@ device-to-host copy (``pack_rank_outputs(..., checked=True)``), and the
 fetch raises ``DeviceCheckError`` with JAX's message of the first
 failed check.
 
+K13, the program under every spectrum formula (JAX's
+``rank_window_all_methods_core``, ``jax_tpu.py:1373``):
+``rank_window_all_methods_core`` runs the same set-up and steps, then one
+epilogue launch with a methods axis (``ops.epilogue.
+rank_epilogue_all_methods``): top_idx and top_scores [M, k] in
+``spectrum.formulas.METHODS`` order, n_valid; ``rank_window_all_methods``
+fetches them in one copy. One window only, as in JAX.
+
 The set-up before the loop and the epilogue after it are K6: one
 launch each a program (``ops.setup.rank_setup``, ``csrc/rank_setup.cu``:
 a block or a cluster of blocks a row, a cooperative grid past 8 tiles;
@@ -131,6 +139,7 @@ from ..ops.epilogue import (  # noqa: F401
     finish_topk,
     partition_finish,
     rank_epilogue,
+    rank_epilogue_all_methods,
     rank_epilogue_checked,
     window_spectrum,
 )
@@ -864,20 +873,29 @@ def _step_group_type(kernel: str):
     return DenseGroup if kernel in DENSE_KERNELS else SpmvGroup
 
 
+# The epilogues a rank program can end in (``_rank_program``).
+EPILOGUES = ("one_method", "checked", "checked_traced", "all_methods")
+
+
 def _rank_program(
     graph: WindowGraph,
     pagerank_cfg: PageRankConfig,
     spectrum_cfg: SpectrumConfig,
     kernel: str,
-    check: Optional[str] = None,
+    epilogue: str = "one_method",
 ) -> _Program:
     """The rank program: the set-up (one ``rank_setup`` call for both
-    partitions), the 25 steps, the epilogue (one ``rank_epilogue`` call:
-    the finish of both partitions, the spectrum and the top-k).
-    ``check`` (K14): "ranking" adds the epilogue's check word over the
-    ranking (JAX's ``rank_window_checked_core``), "traced" over the
-    residual trace too (``rank_window_checked_traced_core``)."""
+    partitions), the 25 steps, the epilogue (one launch: the finish of
+    both partitions, the spectrum and the top-k). ``epilogue``:
+    "one_method" ranks by the configured formula (``rank_epilogue``);
+    "checked" (K14) adds the epilogue's check word over the ranking
+    (JAX's ``rank_window_checked_core``), "checked_traced" over the
+    residual trace too (``rank_window_checked_traced_core``);
+    "all_methods" (K13) ranks by every formula
+    (``rank_epilogue_all_methods``, [(B,) M, k])."""
     _check_kernel(kernel)
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r} (expected one of {EPILOGUES})")
     cfg = pagerank_cfg
     windows = stacked_windows(graph)
     lead = () if windows is None else (windows,)
@@ -948,16 +966,16 @@ def _rank_program(
         n_iters = torch.full(lead, n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
     word = None
-    if check is None:
-        epilogue = rank_epilogue(graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg)
-    elif check in ("ranking", "traced"):
-        traced = check == "traced"
-        epilogue, word = rank_epilogue_checked(
-            graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg,
-            residuals if traced else None, n_iters if traced else None)
+    parts = (graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg)
+    if epilogue == "one_method":
+        out = rank_epilogue(*parts)
+    elif epilogue == "all_methods":
+        out = rank_epilogue_all_methods(*parts)
     else:
-        raise ValueError(f"unknown check {check!r}")
-    return _Program(epilogue, sv_n, rv_n, sv_a, rv_a, residuals, n_iters, word)
+        traced = epilogue == "checked_traced"
+        out, word = rank_epilogue_checked(*parts, residuals if traced else None,
+                                          n_iters if traced else None)
+    return _Program(out, sv_n, rv_n, sv_a, rv_a, residuals, n_iters, word)
 
 
 def _finish_topk(graph: WindowGraph, n_weight, a_weight, spectrum_cfg):
@@ -997,7 +1015,7 @@ def rank_window_checked_core(graph, pagerank_cfg, spectrum_cfg, kernel: str = "c
     scores finite, 0 <= n_valid <= k), all still on the device; fetch
     with ``fetch_rank_outputs(..., checked=True)``, which raises on the
     word."""
-    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, check="ranking")
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, "checked")
     e = out.epilogue
     return e.top_idx, e.top_scores, e.n_valid, out.check
 
@@ -1006,7 +1024,7 @@ def rank_window_checked_traced_core(graph, pagerank_cfg, spectrum_cfg, kernel: s
     """JAX's ``rank_window_checked_traced_core`` (K14): the five outputs
     of ``rank_window_traced_core`` and the check word, whose third check
     is that the live residuals (step < n_iters) are finite."""
-    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, check="traced")
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, "checked_traced")
     e = out.epilogue
     return e.top_idx, e.top_scores, e.n_valid, out.residuals, out.n_iters, out.check
 
@@ -1027,6 +1045,30 @@ def rank_window_checked_traced(graph, pagerank_cfg, spectrum_cfg, kernel: str = 
         rank_window_checked_traced_core(graph, pagerank_cfg, spectrum_cfg, kernel), checked=True)
 
 
+def rank_window_all_methods_core(graph: WindowGraph, pagerank_cfg: PageRankConfig,
+                                 spectrum_cfg: SpectrumConfig, kernel: str = "coo"):
+    """JAX's ``rank_window_all_methods_core`` (K13): one window ranked
+    under every formula of ``spectrum.formulas.METHODS`` in one program,
+    the set-up and steps once and one epilogue launch: (top_idx
+    int32[M, k], top_scores float32[M, k], n_valid int32), rows in
+    METHODS order, still on the device (``spectrum_cfg.method`` is not
+    read). A stacked group raises: JAX has no batched all-methods
+    program."""
+    if stacked_windows(graph) is not None:
+        raise ValueError("rank_window_all_methods_core ranks one window; JAX has no "
+                         "batched all-methods program")
+    e = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, "all_methods").epilogue
+    return e.top_idx, e.top_scores, e.n_valid
+
+
+def rank_window_all_methods(graph: WindowGraph, pagerank_cfg: PageRankConfig,
+                            spectrum_cfg: SpectrumConfig, kernel: str = "coo"):
+    """``rank_window_all_methods_core`` fetched in one device-to-host
+    copy: (top_idx [M, k], top_scores [M, k], n_valid) on the host."""
+    return fetch_rank_outputs(
+        rank_window_all_methods_core(graph, pagerank_cfg, spectrum_cfg, kernel))
+
+
 def _raise_on_check_word(word) -> None:
     """``DeviceCheckError`` with JAX's message of the first failed check
     of a fetched check word (an int, or an array of a group's)."""
@@ -1041,7 +1083,8 @@ class PackedOutputs(NamedTuple):
     host buffer (int32 values ride bit-for-bit through ``view``), with
     the event that marks its copy done (None on the CPU, where the pack
     is the host buffer itself) and the outputs' shapes (a stacked
-    group's carry a leading [B] axis)."""
+    group's carry a leading [B] axis; the all-methods program's top-k
+    is [M, k])."""
 
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]

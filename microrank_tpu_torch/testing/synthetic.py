@@ -12,9 +12,10 @@ in both packages; where that module returns pandas frames, this one
 returns column arrays and writes the CSV itself (canonical span schema,
 the columns the native loader reads).
 
-Only the latency fault family with the unconstrained fault choice is
-ported (``fault_path_overlap=None``); the error / cascade / drift knobs
-serve lanes this package does not have yet.
+Only the latency fault family is ported, with the fault placement's
+overlap control (``fault_path_overlap``, which the accuracy harness's
+two-fault ablation sets); the error / cascade / drift knobs serve lanes
+this package does not have yet.
 
 ``giant_window`` is bench.py's giant-window tier (its
 ``_synthesize_giant_partition``) lifted to an in-memory span table: the
@@ -52,6 +53,12 @@ class SyntheticConfig:
     # the injected latency must clear a wide margin.
     fault_latency_ms: float = 2000.0
     n_faults: int = 1
+    # Target root-path overlap between the injected faults (the
+    # multi-fault hardness control): the overlap coefficient |Pa & Pb| /
+    # min(|Pa|, |Pb|) of their root-to-op paths, root excluded. 0 puts
+    # the faults on disjoint call paths, 1 makes one an ancestor of the
+    # other; None keeps the unconstrained random choice.
+    fault_path_overlap: Optional[float] = None
     window_minutes: float = 5.0
     seed: int = 0
 
@@ -99,15 +106,81 @@ def _make_topology(cfg: SyntheticConfig, rng: np.random.Generator) -> Topology:
     return Topology(parent, mean_own, kinds, kind_parent_pos)
 
 
-def _pick_faults(topo: Topology, rng, n_pods: int, n_faults: int):
-    """Fault candidates: ops covered by >= 1 kind, the root excluded."""
+def _root_path(parent: np.ndarray, op: int) -> frozenset:
+    """Ops on the root-to-op call path, the root itself excluded (every
+    path shares the root, so including it would floor the overlap)."""
+    out = []
+    o = int(op)
+    while o > 0:
+        out.append(o)
+        o = int(parent[o])
+    return frozenset(out)
+
+
+def path_overlap(parent: np.ndarray, a: int, b: int) -> float:
+    """Overlap coefficient of two ops' root paths: |Pa & Pb| / min(|Pa|,
+    |Pb|). 0 = disjoint paths (they share only the root); 1 = one op
+    lies on the other's path."""
+    return _paths_overlap(_root_path(parent, a), _root_path(parent, b))
+
+
+def _paths_overlap(pa: frozenset, pb: frozenset) -> float:
+    return len(pa & pb) / max(min(len(pa), len(pb)), 1)
+
+
+def _pick_faults(topo: Topology, rng, n_pods: int, n_faults: int,
+                 target_overlap: Optional[float] = None):
+    """Fault candidates: ops covered by >= 1 kind, the root excluded.
+
+    With ``target_overlap`` and >= 2 faults, the best pair of candidates
+    (least deviation of its ``path_overlap`` from the target, ties drawn
+    at random) seeds the set, then greedy additions keep the mean
+    pairwise overlap nearest the target. Past 512 candidates a random
+    pool of 512 is drawn first (the only extra draw). ``None`` keeps the
+    unconstrained choice."""
     covered = np.unique(np.concatenate(topo.kinds))
     candidates = covered[covered != 0]
     if len(candidates) == 0:
         candidates = covered
     n_faults = min(n_faults, len(candidates))
-    fault_ops = rng.choice(candidates, size=n_faults, replace=False)
-    return [(int(op), int(rng.integers(0, n_pods))) for op in fault_ops]
+    if target_overlap is None or n_faults < 2:
+        fault_ops = rng.choice(candidates, size=n_faults, replace=False)
+        return [(int(op), int(rng.integers(0, n_pods))) for op in fault_ops]
+
+    cand = [int(c) for c in candidates]
+    pool_cap = max(512, n_faults)
+    if len(cand) > pool_cap:
+        cand = sorted(int(c) for c in rng.choice(cand, size=pool_cap, replace=False))
+    paths = {c: _root_path(topo.parent, c) for c in cand}
+
+    def overlap(a: int, b: int) -> float:
+        return _paths_overlap(paths[a], paths[b])
+
+    pairs = [(a, b) for i, a in enumerate(cand) for b in cand[i + 1:]]
+    dev = np.array([abs(overlap(a, b) - target_overlap) for a, b in pairs])
+    best = np.flatnonzero(dev == dev.min())
+    chosen = list(pairs[int(rng.choice(best))])
+    remaining = [c for c in cand if c not in chosen]
+    while len(chosen) < n_faults and remaining:
+        devs = np.array([
+            abs(float(np.mean([overlap(c, x) for x in chosen])) - target_overlap)
+            for c in remaining
+        ])
+        best = np.flatnonzero(devs == devs.min())
+        pick = remaining[int(rng.choice(best))]
+        chosen.append(pick)
+        remaining.remove(pick)
+    return [(int(op), int(rng.integers(0, n_pods))) for op in chosen]
+
+
+def achieved_overlap(parent: np.ndarray, faults: List[Tuple[int, int]]) -> Optional[float]:
+    """Mean pairwise root-path overlap of the injected fault ops (None
+    for a single fault)."""
+    ops = [op for op, _ in faults]
+    if len(ops) < 2:
+        return None
+    vals = [path_overlap(parent, a, b) for i, a in enumerate(ops) for b in ops[i + 1:]]
+    return float(np.mean(vals))
 
 
 def _render_spans(
@@ -239,10 +312,18 @@ class SyntheticCase:
     fault_pod: int
     topology: Topology
     faults: List[Tuple[int, int]] = field(default_factory=list)
+    # Mean pairwise root-path overlap of the injected faults (None for a
+    # single fault): the hardness the two-fault ablation conditions on.
+    fault_overlap: Optional[float] = None
 
     @property
     def n_operations(self) -> int:
         return int(self.topology.parent.shape[0])
+
+    @property
+    def fault_pod_ops(self) -> List[str]:
+        """Instance-level names of every injected root cause."""
+        return [_pod_op_name(op, pod, self.n_operations) for op, pod in self.faults]
 
     @property
     def n_abnormal_spans(self) -> int:
@@ -272,7 +353,7 @@ def generate_case(cfg: SyntheticConfig) -> SyntheticCase:
     injected latency fault(s)."""
     rng = np.random.default_rng(cfg.seed)
     topo = _make_topology(cfg, rng)
-    faults = _pick_faults(topo, rng, cfg.n_pods, cfg.n_faults)
+    faults = _pick_faults(topo, rng, cfg.n_pods, cfg.n_faults, cfg.fault_path_overlap)
     t1 = T0 + np.timedelta64(int(cfg.window_minutes * 60e6), "us")
     normal = _render_spans(topo, cfg, rng, cfg.n_traces, T0, None, "n")
     abnormal = _render_spans(topo, cfg, rng, cfg.n_traces, t1, faults, "a")
@@ -287,6 +368,7 @@ def generate_case(cfg: SyntheticConfig) -> SyntheticCase:
         fault_pod=fault_pod,
         topology=topo,
         faults=faults,
+        fault_overlap=achieved_overlap(topo.parent, faults),
     )
 
 
@@ -337,7 +419,7 @@ def generate_timeline(
     SyntheticConfig has no drift, and every window renders at scale 1."""
     rng = np.random.default_rng(cfg.seed)
     topo = _make_topology(cfg, rng)
-    faults = _pick_faults(topo, rng, cfg.n_pods, cfg.n_faults)
+    faults = _pick_faults(topo, rng, cfg.n_pods, cfg.n_faults, cfg.fault_path_overlap)
     window_us = np.timedelta64(int(cfg.window_minutes * 60e6), "us")
     normal = _render_spans(topo, cfg, rng, cfg.n_traces, T0, None, "n")
     fault_set = set(faulted)

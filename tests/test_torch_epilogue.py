@@ -33,7 +33,15 @@ on the CPU and its kernel to its plain version on the card.
   11 and V, every method, with ties, -0.0, -inf and NaN; at the forms'
   edges (V 8,192, 8,193 and 16,385; k 1, 32, 33 and V; every method at
   8,192 / 32 and 8,193 / 33) bitwise the plain version and the first
-  design's kernel; one launch a call; bad inputs refused.
+  design's kernel; one launch a call; bad inputs refused;
+* K13, every formula in one launch (``rank_epilogue_all_methods``): on
+  the CPU its plain version's row m bitwise the one-formula epilogue's
+  for every case, one window and B = 3, k = 11 and k = V; on the card the
+  kernel bitwise its plain version and row m bitwise the one-formula
+  kernel's launch (V 8 to 65,537: a block, clusters of 2 and 4, the
+  first design; k 1, 11, 33 and V; the first design's kernel too), one
+  launch a call, counted as "all_methods"; the checked launch refuses
+  the methods axis.
 
 JAX is imported inside the CPU tests only, so the card's machine (no
 JAX) runs the card tests alone:
@@ -57,6 +65,7 @@ from microrank_tpu_torch.rank_backends import torch_cuda
 from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
 from microrank_tpu_torch.rank_backends.torch_cuda import device_subset, host_subset
 from microrank_tpu_torch.spectrum.formulas import FORMULAS
+from microrank_tpu_torch.spectrum.formulas import METHODS as ALL_METHODS
 from microrank_tpu_torch.testing import giant_window
 
 RTOL = 1e-5
@@ -279,6 +288,36 @@ def test_stacked_epilogue_is_each_windows_own():
                                y.view(torch.int32) if y.dtype == torch.float32 else y)
 
 
+def rows_of(out, m):
+    """Formula m's row of an all-methods epilogue as a one-formula
+    epilogue's fields."""
+    return out._replace(top_idx=out.top_idx[..., m, :], top_scores=out.top_scores[..., m, :])
+
+
+def assert_same_bits(got, want):
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("top_max", [5, 1000])
+def test_all_methods_rows_are_the_one_method_epilogues(case, lead, top_max):
+    rng = np.random.default_rng(21)
+    w, sv_n, sv_a = make_case(case, rng, lead=lead)
+    args = (*to_torch(w), torch.from_numpy(sv_n), torch.from_numpy(sv_a))
+    cfg = SpectrumConfig(top_max=top_max)
+    every = epilogue.rank_epilogue_all_methods(*args, cfg)
+    v = sv_n.shape[-1]
+    assert every.top_idx.shape == lead + (13, min(top_max + 6, v))
+    for m, method in enumerate(ALL_METHODS):
+        one = epilogue.rank_epilogue(*args, SpectrumConfig(method=method, top_max=top_max))
+        assert_same_bits(rows_of(every, m), one)
+
+
 def small_window():
     gw = giant_window(n_spans=8000, n_ops=13, spans_per_trace=2, seed=4)
     graph, _, _, _ = build_window_graph_from_table(
@@ -370,9 +409,9 @@ def test_epilogue_shared_memory_is_the_library_layout():
     # with 16 bytes of room each, rounded to 16.
     assert epilogue.window_smem(3072) == 8192 + 4 * 12304 + 2 * 3088
     assert epilogue.window_smem(8192) == 155_744
-    # The argument block: 33 words, and K14's check words, residual
-    # trace, n_iters and steps.
-    assert epilogue.ARGS.size == 8 * 37
+    # The argument block: 33 words, K14's check words, residual trace,
+    # n_iters and steps, and K13's method rows.
+    assert epilogue.ARGS.size == 8 * 38
 
 
 # ------------------------------------------------------------------ card
@@ -474,3 +513,44 @@ def test_epilogue_kernel_at_its_form_edges(cuda_device, k, v, windows):
 def test_epilogue_kernel_every_method_at_the_block_and_cluster_edges(cuda_device, v, k, method):
     for case in ("random", "tarantula_saturation", "only_in_normal"):
         card_check(cuda_device, case, v, 3, method, k, first_design=True)
+
+
+def card_check_all(device, case, v, windows, k, first_design=False):
+    """K13 bitwise its plain version, and row m bitwise the one-formula
+    launch of formula m."""
+    w, sv_n, sv_a = card_case(case, v, windows, v + 3 * k)
+    tw = to_torch(w, device)
+    cfg = SpectrumConfig(top_max=k, extra_rows=0)
+    args = (*tw, sv_n.to(device), sv_a.to(device))
+    want = epilogue.rank_epilogue_plain(*args, cfg, all_methods=True)
+    before = (epilogue.rank_epilogue.launches, epilogue.rank_epilogue.by_kind["all_methods"])
+    got = epilogue.rank_epilogue_all_methods(*args, cfg, first_design=first_design)
+    torch.cuda.synchronize()
+    assert (epilogue.rank_epilogue.launches - before[0],
+            epilogue.rank_epilogue.by_kind["all_methods"] - before[1]) == (1, 1)
+    assert_bitwise(got, want)
+    for m, method in enumerate(ALL_METHODS):
+        one = epilogue.rank_epilogue(*args, SpectrumConfig(method=method, top_max=k, extra_rows=0),
+                                     first_design=first_design)
+        assert_bitwise(rows_of(got, m), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [None, 3])
+@pytest.mark.parametrize("v", [8, 3072, 8193, 16_385, 65_537])
+@pytest.mark.parametrize("k", [1, 11, 33, "v"])
+def test_all_methods_kernel_is_bitwise_its_plain_version_and_each_formula(cuda_device, k, v,
+                                                                          windows):
+    k = v if k == "v" else min(k, v)
+    for case in ("random", "tarantula_saturation", "nan_carry", "only_in_normal"):
+        card_check_all(cuda_device, case, v, windows, k)
+    card_check_all(cuda_device, "signed_zeros", v, windows, k, first_design=True)
+
+
+@pytest.mark.cuda
+def test_the_checked_launch_refuses_the_methods_axis(cuda_device):
+    w, sv_n, sv_a = card_case("random", 64, None, 0)
+    tw = to_torch(w, cuda_device)
+    with pytest.raises(ValueError, match="one formula"):
+        epilogue._rank_epilogue(*tw, sv_n.to(cuda_device), sv_a.to(cuda_device),
+                                SpectrumConfig(), False, None, check=True, all_methods=True)

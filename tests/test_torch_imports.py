@@ -94,6 +94,19 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert TableRCA(device="cpu").device == torch.device("cpu")
 
 
+def test_eval_entry_points_raise_without_cuda(no_cuda):
+    from microrank_tpu_torch import cli, evaluation
+
+    ecfg = evaluation.EvalConfig(n_cases=1)
+    for fn in (evaluation.evaluate, evaluation.evaluate_all_methods,
+               evaluation.evaluate_detection, evaluation.evaluate_overlap_ablation):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(eval_cfg=ecfg)
+    for mode in ([], ["--all-methods"], ["--detection"], ["--overlap-ablation"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["eval", "--cases", "1", *mode])
+
+
 def test_unported_kernels_raise():
     from microrank_tpu.config import PageRankConfig as JaxPageRank
     from microrank_tpu.config import RuntimeConfig as JaxRuntime
