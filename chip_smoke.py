@@ -15,7 +15,8 @@ JAX or of the JAX package. Phases, one JSON line each:
               sources in this checkout (nvcc for ``csrc/coo_spmv.cu``,
               ``csrc/pattern_pair.cu``, ``csrc/power_step.cu``,
               ``csrc/row_fold.cu``, ``csrc/rank_setup.cu``,
-              ``csrc/rank_epilogue.cu`` and ``csrc/dense_mv.cu``, g++ for
+              ``csrc/rank_epilogue.cu``, ``csrc/dense_mv.cu`` and
+              ``csrc/csr_scan.cu``, g++ for
               the native span loader / graph builder, all at once), the
               dense kernel (f32 and bf16, one window and three, an
               unaligned vector) and K14's check word (a block, a cluster,
@@ -236,18 +237,23 @@ JAX or of the JAX package. Phases, one JSON line each:
               csr, coo, dense and dense_bf16, each collapsed ("auto",
               what ``--kernel X`` builds by default) and not ("off", the
               dense matrices in the gigabytes): top-1 the fault, 25 K1
-              launches of 6 SpMVs (csr, coo) or 25 dense launches of 6
-              products (dense) a ranked window, tie-aware agreement with
-              the port's coo route on the CPU (rtol 1e-5; dense_bf16
-              5e-3), csr and coo bitwise the pinned pallas run, the
+              launches of 6 SpMVs (coo), 25 calls of K10's scan (csr:
+              ``csr_scan_spmv``, JAX's order of sums) or 25 dense launches
+              of 6 products (dense) a ranked window, tie-aware agreement
+              with the port's coo route on the CPU (rtol 1e-5; dense_bf16
+              5e-3), coo bitwise the pinned pallas run, the
               window's stage times (``stage_ms.layouts`` holds the
               densify) and rank program by events, its staging to output
               copy under the sync check; the dense kernel bitwise its
               plain version on every launch of the window's 25 steps
               (``dense_step_check``) and timed (``measure_dense``: the
               plain version, six ``torch.mv`` and the byte bound; 50
-              calls collapsed, 5 uncollapsed); K1 over the csr and coo
-              work lists timed uncollapsed (``measure_group``); each
+              calls collapsed, 5 uncollapsed); K1 over the coo work list
+              timed uncollapsed (``measure_group``); K10 over the
+              uncollapsed window's CSR views bitwise its plain version on
+              the CPU and over 50 calls, timed in turns with K1 over the
+              csr work list (the route's previous design) beside six
+              CSR matvecs and the byte bound (``measure_csr_scan``); each
               family's stacked groups of the replay's windows (B = 2 and
               6) bitwise their windows' own programs in one window's
               launches (``family_stacks``); the replay with
@@ -392,7 +398,37 @@ JAX or of the JAX package. Phases, one JSON line each:
               scores and 13 rows of k out) and one stable ``torch.sort`` of
               the [13, V] negated scores (the top-k's library yardstick);
               and the all-methods program in turns with 13 one-formula
-              programs.
+              programs;
+   stream   — the stream engine (``stream.run_stream``, ``cli stream``)
+              over a config-5 timeline of 8 windows of 5 minutes (about
+              --spans spans each, faults in windows 3, 4 and 5, the
+              baseline seeded from the timeline's normal window;
+              ``phase_stream``): the default (tumbling windows,
+              pipeline_windows 3: the burst coalesces, each coalesced
+              window's ranking bitwise its own one-window program),
+              warm_start and fused_pair (sliding windows of slide 2.5
+              minutes, pagerank tol 1e-4, 50 iterations: K19 launched on
+              every warm window, rankings tie-aware the cold run's at
+              rtol 1e-3; n_iters against the cold run's window by window
+              and over the incident, and each warm init's nonzero
+              entries, recorded: JAX's map misses kind columns across a
+              slide, and its own engine can take more steps warm than
+              cold), and the cold sliding run; then each ranked window
+              ranked again warm from its own converged state (JAX's
+              identical-window replay: within 3 steps, fewer than cold,
+              the cold ranking); gates:
+              only the faulted windows ranked, one incident with the
+              fault at rank 1, opened and resolved; ms per window by stage,
+              dispatches, the warm and cold programs' device ms by
+              events, n_iters per window, spans per second;
+   k19      — K19, the set-up's warm instance, at the config-5 kind window
+              (the rows form) and the 10M-span giant window (the grid
+              form, measured in the giant phase), each with an init mapped
+              from the window itself (``measure_k19``): bitwise its plain
+              version, an all-miss init bitwise the cold set-up, timed in
+              turns with the cold set-up, beside the plain version and the
+              byte bound (the cold set-up's bytes and the four init
+              vectors).
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -506,11 +542,12 @@ def check(cond, msg) -> None:
 
 def reset_counts(spmv, pattern) -> None:
     """Every wrapper's launch count to 0, just before a main path runs."""
-    from microrank_tpu_torch.ops import dense, epilogue, fold, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, fold, scan, setup, step
 
     dense.dense_matvecs.launches = dense.dense_matvecs.products = 0
     fold.fold_rows.launches = 0
-    setup.rank_setup.launches = 0
+    scan.csr_scan_spmv.launches = scan.csr_scan_spmv.products = 0
+    setup.rank_setup.launches = setup.rank_setup.warm_launches = 0
     epilogue.rank_epilogue.launches = 0
     epilogue.rank_epilogue.by_kind.clear()
 
@@ -529,7 +566,7 @@ MAIN_STEP_KERNELS = set()
 
 
 def read_counts(spmv, pattern) -> dict:
-    from microrank_tpu_torch.ops import dense, epilogue, fold, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, fold, scan, setup, step
 
     by_kernel = step.power_step.by_kernel
     MAIN_STEP_KERNELS.update(k for k, n in by_kernel.items() if n)
@@ -553,13 +590,17 @@ def read_counts(spmv, pattern) -> dict:
         "quantize_launches": pattern.quantize_scales.launches,
         "dense_launches": dense.dense_matvecs.launches,
         "dense_products": dense.dense_matvecs.products,
+        "csr_scan_launches": scan.csr_scan_spmv.launches,
+        "csr_scan_products": scan.csr_scan_spmv.products,
+        "setup_warm_launches": setup.rank_setup.warm_launches,
     }
 
 
 def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
-                    all_methods=False) -> dict:
+                    all_methods=False, warm=0, steps=STEPS) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
-    launch per step of K1 (pallas, coo, csr: six SpMVs), of the pcsr
+    launch per step of K1 (pallas, coo: six SpMVs), one call of K10's
+    scan per step (csr: six products, its launches on one stream), of the pcsr
     kernel (six SpMVs), of the dense kernel (dense, dense_bf16: six
     products), or of the pattern pair (four products; packed_blocked's
     through K8's own kernel, counted in blocked_launches too, and its
@@ -580,7 +621,9 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
     condition the wrapper counts by, ``pattern.blocked_folds``; a small
     bitmap has no partials to fold).
     ``all_methods``: the programs rank every formula (K13), their one
-    epilogue launch each with the methods axis."""
+    epilogue launch each with the methods axis. ``warm``: of the
+    programs, those whose set-up took a warm init (K19). ``steps``: the
+    programs' power-iteration steps (``PageRankConfig.iterations``)."""
     counts = dict.fromkeys(("setup_launches", "epilogue_launches",
                             "epilogue_all_methods_launches",
                             "row_fold_launches", "step_launches",
@@ -588,23 +631,27 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
                             "k1_spmvs", "pcsr_launches",
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches",
-                            "dense_launches", "dense_products"), 0)
+                            "dense_launches", "dense_products", "csr_scan_launches",
+                            "csr_scan_products", "setup_warm_launches"), 0)
     g = n if programs is None else programs
-    counts["step_launches"] = STEP_LAUNCHES * STEPS * g
-    counts["step_group_launches"] = STEP_LAUNCHES * STEPS * groups
+    counts["step_launches"] = STEP_LAUNCHES * steps * g
+    counts["step_group_launches"] = STEP_LAUNCHES * steps * groups
     counts["setup_launches"] = counts["epilogue_launches"] = K6_LAUNCHES * g
     counts["epilogue_all_methods_launches"] = K6_LAUNCHES * g if all_methods else 0
-    if kernel in ("pallas", "coo", "csr"):
-        counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SPMVS_PER_STEP * n)
+    counts["setup_warm_launches"] = warm
+    if kernel in ("pallas", "coo"):
+        counts.update(k1_launches=steps * g, k1_spmvs=steps * SPMVS_PER_STEP * n)
+    elif kernel == "csr":
+        counts.update(csr_scan_launches=steps * g, csr_scan_products=steps * SPMVS_PER_STEP * n)
     elif kernel in ("dense", "dense_bf16"):
-        counts.update(dense_launches=STEPS * g, dense_products=STEPS * SPMVS_PER_STEP * n)
+        counts.update(dense_launches=steps * g, dense_products=steps * SPMVS_PER_STEP * n)
     elif kernel == "pcsr":
-        counts.update(pcsr_launches=STEPS * g, pcsr_spmvs=STEPS * SPMVS_PER_STEP * n)
+        counts.update(pcsr_launches=steps * g, pcsr_spmvs=steps * SPMVS_PER_STEP * n)
     else:
-        counts.update(k1_launches=STEPS * g, k1_spmvs=STEPS * SS_SPMVS_PER_STEP * n,
-                      pattern_launches=STEPS * g, pattern_products=STEPS * 4 * n,
-                      blocked_launches=STEPS * g if kernel == "packed_blocked" else 0,
-                      fold_launches=STEPS * g if kernel == "packed_blocked" and folds else 0,
+        counts.update(k1_launches=steps * g, k1_spmvs=steps * SS_SPMVS_PER_STEP * n,
+                      pattern_launches=steps * g, pattern_products=steps * 4 * n,
+                      blocked_launches=steps * g if kernel == "packed_blocked" else 0,
+                      fold_launches=steps * g if kernel == "packed_blocked" and folds else 0,
                       quantize_launches=g if int8 else 0)
     return counts
 
@@ -1356,7 +1403,8 @@ def first_setup_wrapper(torch, marks):
         args = setup.ARGS.pack(*words, windows, v, setup.f32_bits(cfg.phi),
                                int(cfg.preference == "paper"), setup.FORMS.index(plan.form),
                                plan.cluster, plan.grid, plan.hold,
-                               views[-1].data_ptr() if sizes[-1] else 0, 0, dev.index, stream)
+                               views[-1].data_ptr() if sizes[-1] else 0, 0, dev.index, stream,
+                               0, 0, 0, 0, 0)
         mark("pack")
         rc = lib.mr_rank_setup_launch(args)
         check(rc == 0, f"first set-up wrapper: launch failed ({rc})")
@@ -1500,7 +1548,7 @@ def today_setup_wrapper(torch, marks):
             *words, windows, v, setup.f32_bits(cfg.phi), int(cfg.preference == "paper"),
             setup.FORMS.index(plan.form), plan.cluster, plan.grid, plan.hold,
             ptrs[6] if sizes[6] else 0, 0, index,
-            torch._C._cuda_getCurrentRawStream(index))
+            torch._C._cuda_getCurrentRawStream(index), 0, 0, 0, 0, 0)
         mark("pack")
         rc = lib.mr_rank_setup_launch(args)
         check(rc == 0, f"set-up wrapper replica: launch failed ({rc})")
@@ -1801,11 +1849,12 @@ def function_spills(report, name):
 
 
 def phase_env(torch, spmv, pattern, native):
-    from microrank_tpu_torch.ops import dense, epilogue, fold, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, fold, scan, setup, step
 
-    # Build the eight libraries from the checkout's sources, in parallel.
+    # Build the nine libraries from the checkout's sources, in parallel.
     for lib in (spmv.LIB_PATH, pattern.LIB_PATH, step.LIB_PATH, fold.LIB_PATH,
-                setup.LIB_PATH, epilogue.LIB_PATH, dense.LIB_PATH, native.LIB_PATH):
+                setup.LIB_PATH, epilogue.LIB_PATH, dense.LIB_PATH, scan.LIB_PATH,
+                native.LIB_PATH):
         lib.unlink(missing_ok=True)
 
     def timed(fn):
@@ -1813,7 +1862,7 @@ def phase_env(torch, spmv, pattern, native):
         report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(9) as pool:
         f_cuda = pool.submit(timed, spmv.build_library)
         f_pattern = pool.submit(timed, pattern.build_library)
         f_step = pool.submit(timed, step.build_library)
@@ -1821,6 +1870,7 @@ def phase_env(torch, spmv, pattern, native):
         f_setup = pool.submit(timed, setup.build_library)
         f_epilogue = pool.submit(timed, epilogue.build_library)
         f_dense = pool.submit(timed, dense.build_library)
+        f_scan = pool.submit(timed, scan.build_library)
         f_host = pool.submit(timed, native.build_library)
         cuda_s, ptxas = f_cuda.result()
         pattern_s, ptxas_pattern = f_pattern.result()
@@ -1829,8 +1879,9 @@ def phase_env(torch, spmv, pattern, native):
         setup_s, ptxas_setup = f_setup.result()
         epilogue_s, ptxas_epilogue = f_epilogue.result()
         dense_s, ptxas_dense = f_dense.result()
+        scan_s, ptxas_scan = f_scan.result()
         host_s, _ = f_host.result()
-    for module in (spmv, pattern, step, fold, setup, epilogue, dense):
+    for module in (spmv, pattern, step, fold, setup, epilogue, dense, scan):
         module.load_library()
 
     # First launch: a tiny ragged matrix (empty rows, a 700-entry row of
@@ -1879,7 +1930,10 @@ def phase_env(torch, spmv, pattern, native):
     # design.
     k6_ptxas = {**ptxas_spills(ptxas_setup, ("setup_rows", "setup_grid", "setup_first")),
                 **ptxas_spills(ptxas_epilogue, ("epilogue_window", "epilogue_first"))}
-    want_k6 = {"setup_rows<false>", "setup_rows<true>", "setup_grid", "setup_first",
+    # setup_rows<clustered, warm>, setup_grid<warm>: K19's warm
+    # instances beside the cold ones.
+    want_k6 = {"setup_rows<false, false>", "setup_rows<true, false>", "setup_rows<false, true>",
+               "setup_rows<true, true>", "setup_grid<false>", "setup_grid<true>", "setup_first",
                "epilogue_window<false, false>", "epilogue_window<true, false>",
                "epilogue_window<false, true>", "epilogue_window<true, true>",
                "epilogue_first"}
@@ -1899,6 +1953,17 @@ def phase_env(torch, spmv, pattern, native):
     spilled = {k: v for k, v in dense_ptxas.items()
                if v["spill_store_bytes"] or v["spill_load_bytes"]}
     check(not spilled, f"ptxas: the dense kernel spills: {spilled}")
+    # K10's scan passes (up, top, down) and its row differences without
+    # spill (a gate).
+    scan_ptxas = ptxas_spills(ptxas_scan, ("scan_pass", "row_diff"))
+    check(set(scan_ptxas) == {"scan_pass", "row_diff"},
+          f"ptxas: K10 reports {sorted(scan_ptxas)}")
+    scan_spills = [(lines[0], re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                        " ".join(lines)).groups())
+                   for lines in ptxas_all(ptxas_scan, "scan_pass")]
+    check(len(scan_spills) == 3 and all(g == ("0", "0") for _, g in scan_spills),
+          f"ptxas: K10's scan passes spill (or were not reported): {scan_spills}")
+    n_scan = tiny_scan_checks(torch, dev)
     n_fold = tiny_fold_checks(torch, fold, dev)
     n_k6 = tiny_k6_checks(torch, dev)
     n_dense = tiny_dense_checks(torch, dev)
@@ -1920,6 +1985,7 @@ def phase_env(torch, spmv, pattern, native):
                     "nvcc_rank_setup": round(setup_s, 3),
                     "nvcc_rank_epilogue": round(epilogue_s, 3),
                     "nvcc_dense_mv": round(dense_s, 3),
+                    "nvcc_csr_scan": round(scan_s, 3),
                     "gxx_native": round(host_s, 3)},
         "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas" in ln],
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
@@ -1941,6 +2007,10 @@ def phase_env(torch, spmv, pattern, native):
         # K12 (dense_mv<bf16>) and K14's check_window: registers and
         # spill bytes (0: the gates).
         "dense_ptxas": dense_ptxas, "dense_spill_bytes": 0,
+        # K10: every scan pass and the row differences, registers and
+        # spill bytes (0: the gate).
+        "csr_scan_ptxas": [ln.strip() for ln in ptxas_scan.splitlines() if "ptxas" in ln],
+        "csr_scan_spill_bytes": 0,
         "check_window_ptxas": check_word_ptxas,
         # K5's fused kernel: each instantiation's ptxas lines
         # (registers, spills), the register slots a thread holds across
@@ -1957,6 +2027,7 @@ def phase_env(torch, spmv, pattern, native):
         "tiny_k6_cases_bitwise_vs_plain": n_k6,
         "tiny_dense_cases_bitwise_vs_plain": n_dense,
         "tiny_check_word_cases_bitwise_vs_plain": n_check,
+        "tiny_csr_scan_cases_bitwise_vs_plain": n_scan,
         "timer_check_1gib_copy": timers,
     }
 
@@ -5062,6 +5133,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     k6 = measure_k6(torch, f"giant/{kernel}/k6", dgraph, cfg, kernel, reps)
     k13 = measure_k13(torch, f"giant/{kernel}/k13", dgraph, cfg, kernel, reps) \
         if kernel == "pcsr" else None
+    k19 = measure_k19(torch, f"giant/{kernel}/k19", dgraph, cfg, kernel, K6_REPS) \
+        if kernel == "pcsr" else None
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -5110,6 +5183,8 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
     }
     if k13 is not None:
         info["k13"] = k13
+    if k19 is not None:
+        info["k19"] = k19
     info["staging"] = staging_compare(torch, spmv, pattern, f"giant/{kernel}/staging",
                                       host_subset(graph, kernel), kernel, cfg)
     stacked_counts, info["stacked"] = giant_stacked(torch, spmv, pattern, graph, dgraph, kernel,
@@ -5262,16 +5337,17 @@ def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, c
     ``cpu_ref`` by JAX's bf16 rank parity (``tests/test_properties.py``:
     the same top-1, top-3 and top-k set; the scores' largest relative
     difference reported), its kernel held bitwise to the plain version
-    on the card on every launch below; csr and coo bitwise the pinned
-    pallas run (``pallas_res``); then the
+    on the card on every launch below; coo bitwise the pinned pallas run
+    (``pallas_res``); then the
     window through the lane's seams (stage times, the program's device
     time by events), the sync check, and the route's kernel at the
     window: the dense kernel bitwise its plain version on every launch of
-    the 25 steps and timed; K1 over the csr and coo work lists timed
-    uncollapsed (``measure_group``)."""
+    the 25 steps and timed; K10 (csr) bitwise its plain version and timed
+    (``measure_csr_scan``); K1 over the coo work list timed uncollapsed
+    (``measure_group``)."""
     from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import run_rca_native
-    from microrank_tpu_torch.rank_backends.torch_cuda import csr_layouts, spmv_layouts
+    from microrank_tpu_torch.rank_backends.torch_cuda import spmv_layouts
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
     tag = f"families/{kernel}/{collapse}"
@@ -5326,7 +5402,7 @@ def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, c
             "cuda_wall_s_per_window": round(wall / len(res), 4)}
     if rank_parity:
         info["bf16_vs_f32_max_rel_score_diff"] = max_rel
-    if kernel in ("csr", "coo"):
+    if kernel == "coo":
         check([(r.start, r.ranking, r.rank_iterations) for r in res]
               == [(r.start, r.ranking, r.rank_iterations) for r in pallas_res],
               f"{tag}: the ranking is not bitwise the pinned pallas run's")
@@ -5344,10 +5420,14 @@ def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, c
     if kernel in ("dense", "dense_bf16"):
         info["dense_steps"], _ = dense_step_check(torch, dgraph, cfg, kernel)
         info["dense"] = measure_dense(torch, tag, dgraph, DENSE_REPS[collapse])
+    elif kernel == "csr":
+        # K10 at the window (collapsed too: its CSR views are the same
+        # matrices the route's program read), held bitwise its plain
+        # version, timed uncollapsed.
+        info["csr_scan"] = measure_csr_scan(torch, spmv, tag, dgraph)
     elif collapse == "off":
         gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
-        layouts_of = csr_layouts if kernel == "csr" else spmv_layouts
-        layouts = [*layouts_of(dgraph.normal), *layouts_of(dgraph.abnormal)]
+        layouts = [*spmv_layouts(dgraph.normal), *spmv_layouts(dgraph.abnormal)]
         v = int(dgraph.normal.cov_unique.shape[0])
         sizes = (int(dgraph.normal.kind.shape[0]), v, int(dgraph.abnormal.kind.shape[0]), v)
         xs = [torch.rand(k, generator=gen, device=torch.device("cuda")) for k in sizes]
@@ -5809,6 +5889,416 @@ def measure_k13(torch, name, dgraph, cfg, kernel, reps):
     return out
 
 
+def tiny_scan_checks(torch, dev):
+    """First calls of K10 (``csr_scan_spmv``): groups of CSR matrices at
+    every depth of block totals (up to 2048 entries: one top launch;
+    past it, up and down passes; 2048^2 + 1: two levels), empty rows and
+    matrices, one window and three, bitwise their plain version on the
+    CPU. Returns the number of cases."""
+    import numpy as np
+
+    from microrank_tpu_torch.ops import scan
+
+    cases = 0
+    for sizes, windows in ((((5, 17, 9),), None), (((40, 2048, 50), (3, 0, 7)), 3),
+                           (((300, 5000, 400), (10, 30, 11)), None),
+                           (((2000, 2048 ** 2 + 1, 3000), (50, 900, 60)), None)):
+        gen = np.random.default_rng(cases)
+        b = windows or 1
+        mats, n_x = [], []
+        for rows, e, nx in sizes:
+            lens = np.minimum(np.cumsum(gen.integers(0, 2 * e // max(rows, 1) + 1,
+                                                     size=(b, rows)), 1), e)
+            ip = np.concatenate([np.zeros((b, 1), np.int64), lens], 1).astype(np.int32)
+            cols = gen.integers(0, nx, size=(b, e)).astype(np.int32)
+            vals = gen.random((b, e)).astype(np.float32)
+            sq = (lambda a: a[0]) if windows is None else (lambda a: a)
+            mats.append(tuple(torch.from_numpy(sq(a)) for a in (ip, cols, vals)))
+            n_x.append(nx)
+        lead = () if windows is None else (windows,)
+        xs = [torch.from_numpy(gen.random(lead + (nx,)).astype(np.float32)) for nx in n_x]
+        slots = tuple(range(len(sizes)))
+        cpu = scan.scan_group(mats, slots, n_x, windows)
+        card = scan.scan_group([tuple(t.to(dev) for t in m) for m in mats], slots, n_x, windows)
+        got = scan.csr_scan_spmv(card, [x.to(dev) for x in xs])
+        torch.cuda.synchronize()
+        for g, w in zip(got, scan.csr_scan_spmv(cpu, xs)):
+            check(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)),
+                  f"tiny K10 case {cases} differs from its plain version")
+        cases += 1
+    return cases
+
+
+def measure_csr_scan(torch, spmv, name, dgraph):
+    """K10 at a staged csr window's shapes (``dgraph.spmv_group``, the
+    six matrices of a step): bitwise its plain version on the CPU and
+    over 50 calls; timed by CUDA events behind a spin in turns with K1
+    over the csr work list (the route's previous design), beside the
+    plain version on the card, six CSR matvecs of the same views (the
+    library yardstick) and the byte bound (each matrix's indptr, live
+    cols and vals, x read once, y written once; 2 flops an entry)."""
+    from microrank_tpu_torch.ops import scan
+    from microrank_tpu_torch.rank_backends.torch_cuda import csr_layouts, window_spmv_group
+
+    dev = torch.device("cuda")
+    group = dgraph.spmv_group
+    check(isinstance(group, scan.ScanGroup), f"{name}: the csr route built no scan group")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v = int(dgraph.normal.cov_unique.shape[0])
+    sizes = (int(dgraph.normal.kind.shape[0]), v, int(dgraph.abnormal.kind.shape[0]), v)
+    xs = [torch.rand(k, generator=gen, device=dev) for k in sizes]
+    ys = scan.csr_scan_spmv(group, xs)
+    torch.cuda.synchronize()
+    cpu_group = group._replace(**{f: (tuple(t.cpu() for t in getattr(group, f))
+                                      if f == "indptr" else getattr(group, f).cpu())
+                                  for f in ("cols", "vals", "indptr", "segs", "rows", "out",
+                                            "levels")})
+    ref = scan.csr_scan_spmv_plain(cpu_group, [x.cpu() for x in xs])
+    bitwise = all(torch.equal(y.cpu().view(torch.int32), r.view(torch.int32))
+                  for y, r in zip(ys, ref))
+    check(bitwise, f"{name}: K10 differs from its plain version on the CPU")
+    first = torch.cat(ys)
+    again = [torch.cat(scan.csr_scan_spmv(group, xs)) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, first) for a in again),
+          f"{name}: K10 is not bitwise repeatable over {REPEATS} calls")
+    layouts = [*csr_layouts(dgraph.normal), *csr_layouts(dgraph.abnormal)]
+    previous = window_spmv_group(dgraph, csr_layouts)
+    mx = [xs[s] for s in group.x_slots]
+    csrs = [csr_of(torch, lay, int(x.shape[0])) for lay, x in zip(layouts, mx)]
+    calls = {
+        "kernel": lambda: scan.csr_scan_spmv(group, xs),
+        "previous_design": lambda: spmv.coo_spmv_group(previous, xs),
+        "plain": lambda: scan.csr_scan_spmv_plain(group, xs),
+        "library": lambda: [torch.mv(c, x) for c, x in zip(csrs, mx)],
+    }
+    turns = [(k, spin_event_ms(torch, calls[k], 20))
+             for k in ("previous_design", "kernel", "kernel", "previous_design")]
+    ms = {k: _mean([t for kk, t in turns if kk == k]) for k in ("kernel", "previous_design")}
+    ms["library"] = spin_event_ms(torch, calls["library"], 20)
+    ms["plain"] = spin_event_ms(torch, calls["plain"], 3)
+    total_bytes, bytes_ms, ops_ms = 0, 0.0, 0.0
+    for lay, x in zip(layouts, mx):
+        b, b_ms, o_ms = spmv_bound(lay.n_rows, int(lay.indptr[-1]), int(x.shape[0]))
+        total_bytes, bytes_ms, ops_ms = total_bytes + b, bytes_ms + b_ms, ops_ms + o_ms
+    return {
+        "name": name,
+        "entries": [int(lay.indptr[-1]) for lay in layouts],
+        "launches_a_call": 2 * (len(group.blocks) - 1) + 2,
+        "blocks": list(group.blocks),
+        "ms": round(ms["kernel"], 6),
+        "previous_design_ms": round(ms["previous_design"], 6),
+        "plain_ms": round(ms["plain"], 6),
+        "library_ms": round(ms["library"], 6),
+        "turns_ms": [[k, round(t, 6)] for k, t in turns],
+        "bound_ms": round(max(bytes_ms, ops_ms), 6),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": total_bytes,
+        "max_abs_err": 0.0,
+        "bitwise_vs_cpu_plain": bitwise,
+        "bitwise_repeatable_calls": REPEATS,
+    }
+
+
+def measure_k19(torch, name, dgraph, cfg, kernel, reps):
+    """K19 at a staged window's set-up shapes, with an init mapped from
+    the window itself (its own warm program's state tail, cold): the
+    set-up's warm instance bitwise its plain version (the cold plain
+    set-up, then ``warm_override_plain``) and over 50 launches; an
+    all-miss init bitwise the cold set-up; timed by CUDA events behind a
+    spin in turns with the cold set-up (cold, warm, warm, cold), beside
+    the plain version on the card and the byte bound (the cold set-up's
+    bytes and the four init vectors read once)."""
+    from microrank_tpu_torch.ops import setup
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    pr = cfg.pagerank
+    g_n, g_a = dgraph.normal, dgraph.abnormal
+    tail = tc.rank_window_warm_core(dgraph, None, pr, cfg.spectrum, kernel)[5:9]
+    init = tuple(t.contiguous() for t in tail)
+    plan = setup._plan(int(g_n.kind.shape[-1]), int(g_a.kind.shape[-1]), 1,
+                       int(g_n.op_present.shape[-1]), g_n.kind.device.index, False)
+    warm = setup_bits(torch, setup.rank_setup(g_n, g_a, pr, init=init))
+    plain = setup_bits(torch, setup.rank_setup_plain(g_n, g_a, pr, init))
+    check(torch.equal(warm, plain), f"{name}: K19's set-up differs from its plain version")
+    cold = setup_bits(torch, setup.rank_setup(g_n, g_a, pr))
+    check(not torch.equal(warm, cold), f"{name}: the window's own init started cold")
+    for _ in range(REPEATS):
+        check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr, init=init)), warm),
+              f"{name}: K19's set-up is not repeatable")
+    misses = tuple(torch.zeros_like(t) for t in init)
+    check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr, init=misses)), cold),
+          f"{name}: an all-miss init is not the cold set-up")
+    calls = {"warm": lambda: setup.rank_setup(g_n, g_a, pr, init=init),
+             "cold": lambda: setup.rank_setup(g_n, g_a, pr)}
+    turns = [(k, spin_event_ms(torch, calls[k], reps)) for k in ("cold", "warm", "warm", "cold")]
+    ms = {k: _mean([t for kk, t in turns if kk == k]) for k in calls}
+    plain_ms = spin_event_ms(torch, lambda: setup.rank_setup_plain(g_n, g_a, pr, init), 3)
+    nbytes, flops = setup_bound(torch, dgraph)
+    nbytes += 4 * sum(int(t.numel()) for t in init)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return {
+        "name": name, "form": plan.form, "cluster": plan.cluster,
+        "bitwise_vs_plain": True, "all_miss_bitwise_cold": True,
+        "bitwise_repeatable_launches": REPEATS,
+        "ms": round(ms["warm"], 6), "cold_ms": round(ms["cold"], 6),
+        "turns_ms": [[k, round(t, 6)] for k, t in turns],
+        "plain_ms": round(plain_ms, 6),
+        "bound_ms": round(max(bytes_ms, ops_ms), 6),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "max_abs_err": 0.0, "library_ms": None,
+    }
+
+
+STREAM_FAULTS = (3, 4, 5)
+STREAM_WINDOWS = 8
+# The stream phase's runs: (stream config, runtime, pagerank).
+STREAM_MODES = {
+    "default": (dict(pipeline_windows=3), {}, {}),
+    "warm_start": (dict(slide_minutes=2.5), dict(warm_start=True), dict(tol=1e-4, iterations=50)),
+    "fused_pair": (dict(slide_minutes=2.5), dict(fused_pair=True), dict(tol=1e-4, iterations=50)),
+    "cold_sliding": (dict(slide_minutes=2.5), {}, dict(tol=1e-4, iterations=50)),
+}
+WARM_RTOL = 1e-3  # warm vs cold: both stop within tol 1e-4 of the fixed point
+
+
+def stream_run(torch, spmv, pattern, source, mode):
+    """One ``StreamEngine`` run of ``source`` in ``mode`` on the card,
+    counted; the engine's host builds recorded by window start, and each
+    mapped warm init's nonzero entries against its length (sv_n, rv_n,
+    sv_a, rv_a: what carried across the slide). Returns (summary, launch
+    counts, builds, wall s, config, the inits' hits)."""
+    import dataclasses
+
+    from microrank_tpu_torch.rank_backends import warm
+
+    from microrank_tpu_torch.config import (
+        MicroRankConfig,
+        PageRankConfig,
+        RuntimeConfig,
+        StreamConfig,
+    )
+    from microrank_tpu_torch.stream import StreamEngine
+
+    sc, rt, pr = STREAM_MODES[mode]
+    cfg = MicroRankConfig(
+        stream=StreamConfig(allowed_lateness_seconds=0.0, **sc),
+        runtime=dataclasses.replace(RuntimeConfig(), **rt), pagerank=PageRankConfig(**pr))
+    engine = StreamEngine(cfg, source, device="cuda")
+    builds, prepare = {}, engine._prepare
+
+    def recorded(table, mask, nrm, abn, rng):
+        out = prepare(table, mask, nrm, abn, rng)
+        builds[int(table.start_us.min())] = out  # a window's first span
+        return out
+
+    engine._prepare = recorded
+    hits, map_state = [], warm.map_warm_state
+
+    def mapped(prev, op_names, ectx, graph):
+        init = map_state(prev, op_names, ectx, graph)
+        if init is not None:
+            hits.append([[int((x != 0).sum()), int(x.shape[0])] for x in init])
+        return init
+
+    warm.map_warm_state = mapped
+    try:
+        torch.cuda.synchronize()
+        reset_counts(spmv, pattern)
+        t0 = time.perf_counter()
+        summary = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        warm.map_warm_state = map_state
+    return summary, read_counts(spmv, pattern), builds, wall, cfg, hits
+
+
+def phase_stream(torch, spmv, pattern, args):
+    """The stream lane at config-5 scale (see the module note); returns
+    (launch counts by run, the phase's line)."""
+    import numpy as np
+
+    from microrank_tpu_torch.dispatch import DispatchRouter, bucket_key
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+    from microrank_tpu_torch.stream import SyntheticSource
+    from microrank_tpu_torch.stream.window import stamp
+    from microrank_tpu_torch.testing import SyntheticConfig
+    from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
+
+    def us(text):
+        return int(np.datetime64(text.replace(" ", "T"), "us").astype(np.int64))
+
+    def build_of(builds, start):
+        # The window's build: the one whose first span is nearest its
+        # start (a sliding window's successor starts a slide later).
+        w0 = us(start)
+        return builds[min(k for k in builds if k >= w0)]
+
+    t0 = time.perf_counter()
+    src = SyntheticSource(
+        STREAM_WINDOWS, list(STREAM_FAULTS),
+        SyntheticConfig(n_operations=args.ops, n_kinds=max(32, args.ops // 50),
+                        child_keep_prob=0.55, fault_latency_ms=60000.0, seed=0),
+        chunk_spans=200_000, spans_per_window=args.spans)
+    gen_s = time.perf_counter() - t0
+    window_us = int(src.timeline.window_minutes * 60e6)
+    t_start = int(src.timeline.start.astype(np.int64))
+    faulted = [(t_start + k * window_us, t_start + (k + 1) * window_us) for k in STREAM_FAULTS]
+    launches, out, runs = {}, {"phase": "stream", "generate_s": round(gen_s, 3),
+                               "timeline_spans": src.table.n_spans, "windows": STREAM_WINDOWS,
+                               "fault_windows": list(STREAM_FAULTS),
+                               "fault_pod_op": src.fault_pod_op}, {}
+    for mode in STREAM_MODES:
+        tag = f"stream/{mode}"
+        s, counts, builds, wall, cfg, hits = stream_run(torch, spmv, pattern, src, mode)
+        runs[mode] = (s, builds, cfg)
+        launches[tag] = counts
+        ranked = [r for r in s.results if r.ranking]
+        sliding = mode != "default"
+        check(s.windows >= STREAM_WINDOWS + (STREAM_WINDOWS - 1 if sliding else 0),
+              f"{tag}: {s.windows} windows closed")
+        # Only abnormal windows ranked: every ranked window overlaps a
+        # faulted one, and every faulted window is ranked.
+        starts = {r.start for r in ranked}
+        for r in ranked:
+            w0 = us(r.start)
+            check(any(w0 < e and w0 + window_us > b for b, e in faulted),
+                  f"{tag}: window {r.start} ranked, no fault in it")
+            check(r.ranking[0][0] == src.fault_pod_op,
+                  f"{tag}: window {r.start} top-1 {r.ranking[0][0]}")
+        check(all(stamp(b) in starts for b, _ in faulted),
+              f"{tag}: a faulted window was not ranked ({sorted(starts)})")
+        check(s.incidents_opened == 1 and s.incidents_resolved == 1,
+              f"{tag}: incidents {s.incidents_opened} opened, {s.incidents_resolved} resolved")
+        groups = [r.batch_windows or 1 for r in ranked]
+        warm = sum(r.route in ("warm", "fused") for r in ranked)
+        expect = expected_counts(ranked[0].kernel, len(ranked), programs=s.dispatches,
+                                 groups=round(sum(1 / b for b in groups if b > 1)), warm=warm,
+                                 steps=cfg.pagerank.iterations)
+        check(counts == expect, f"{tag}: launch counts {counts}, want {expect}")
+        stages = {k: round(_mean([r.timings.get(k, 0.0) for r in ranked]), 3)
+                  for k in ("admit", "detect", "build", "rank_ms")}
+        all_stages = {k: round(_mean([r.timings[k] for r in s.results if k in r.timings]), 3)
+                      for k in ("admit", "detect")}
+        out[mode] = {
+            "windows": s.windows, "ranked": s.ranked, "clean": s.clean, "empty": s.empty,
+            "dispatches": s.dispatches, "incidents": [s.incidents_opened, s.incidents_resolved],
+            "kernel": ranked[0].kernel, "routes": [r.route for r in ranked],
+            "batch_windows": groups,
+            "n_iters": {r.start: r.rank_iterations for r in ranked},
+            "ranked_window_ms_by_stage": stages, "every_window_ms_by_stage": all_stages,
+            "wall_s": round(wall, 3), "spans_per_s": round(s.spans / wall, 1),
+            "launches": counts,
+        }
+        if hits:
+            # Each warm window's init: [nonzero, length] of sv_n, rv_n,
+            # sv_a, rv_a. rv maps by each kind column's representative
+            # (its earliest trace, JAX's), which a slide drops.
+            out[mode]["warm_init_nonzero_of_length"] = hits
+        if mode == "default":
+            check(s.dispatches < s.ranked, f"{tag}: {s.dispatches} dispatches for {s.ranked} "
+                                           "ranked windows (no coalescing)")
+            # Each coalesced window bitwise its own one-window program.
+            router = DispatchRouter(cfg, device="cuda")
+            for r in ranked:
+                if (r.batch_windows or 1) < 2:
+                    continue
+                g, names, kernel = build_of(builds, r.start)[:3]
+                (idx, sc, nv), _ = router.rank_batch([g], kernel)
+                own = [(names[int(i)], float(x)) for i, x in zip(idx[0][:int(nv[0])],
+                                                                sc[0][:int(nv[0])])]
+                check(own == r.ranking, f"{tag}: coalesced window {r.start} is not bitwise its "
+                                        "own program")
+            out[mode]["coalesced_bitwise_vs_own"] = True
+            keys = {bucket_key(v[0], v[2]) for v in builds.values()}
+            out[mode]["buckets"] = len(keys)
+    # Warm vs cold, window by window over the sliding runs.
+    cold = {r.start: r for r in runs["cold_sliding"][0].results if r.ranking}
+    for mode in ("warm_start", "fused_pair"):
+        s, builds, cfg = runs[mode]
+        ranked = [r for r in s.results if r.ranking]
+        check(set(cold) == {r.start for r in ranked}, f"stream/{mode}: other windows ranked "
+                                                      "than the cold run's")
+        check(out[mode]["launches"]["setup_warm_launches"] == len(ranked) - 1 >= 1,
+              f"stream/{mode}: K19 launches {out[mode]['launches']['setup_warm_launches']} for "
+              f"{len(ranked) - 1} warm windows")
+        worst, per_window = 0.0, {}
+        for r in ranked:
+            c = cold[r.start]
+            # Window by window: recorded, not gated. JAX's map joins a
+            # kind column by its representative, the kind's earliest
+            # trace, which the slide drops, so rv starts cold beside a
+            # warm sv; JAX's own engine then takes more steps than cold
+            # at some windows and over some incidents
+            # (tests/test_torch_stream_engine.py, the port equal to it
+            # window by window). The seam itself is gated below.
+            per_window[r.start] = [r.rank_iterations, c.rank_iterations]
+            n_w, s_w = zip(*r.ranking)
+            n_c, s_c = zip(*c.ranking)
+            ok, why = tie_aware_topk_agreement(list(n_w), list(s_w), list(n_c), list(s_c),
+                                               k=len(n_w), rtol=WARM_RTOL)
+            check(ok, f"stream/{mode}: window {r.start} vs cold: {why}")
+            worst = max(worst, max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(s_w, s_c)))
+        # The incident's iterations, warm against cold: recorded, not
+        # gated, for the reason above (ROADMAP.md, Faults).
+        warm_iters = sum(r.rank_iterations for r in ranked)
+        cold_iters = sum(cold[r.start].rank_iterations for r in ranked)
+        out[mode].update(iterations_over_incident=warm_iters, cold_iterations=cold_iters,
+                         iterations_warm_cold_by_window=per_window,
+                         windows_warm_at_most_cold=sum(w <= c for w, c in per_window.values()),
+                         max_rel_score_diff_vs_cold=worst)
+    # The seam where its map hits (JAX's identical-window replay,
+    # tests/test_kind_kernel.py): each ranked window of the warm run
+    # ranked cold, then warm from its own state mapped onto itself, stops
+    # within 3 steps and in fewer than cold, with the cold ranking.
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.rank_backends.warm import capture_warm_state, map_warm_state
+
+    s, builds, cfg = runs["warm_start"]
+    ranked = [r for r in s.results if r.ranking]
+    replay = {}
+    for r in ranked:
+        g, names, kernel, ectx, _ = build_of(builds, r.start)
+        dg = tc.device_subset(graph_from_numpy(g, torch.device("cuda")), kernel)
+        cold_out = tc.rank_window_warm(dg, None, cfg.pagerank, cfg.spectrum, kernel)
+        init = map_warm_state(capture_warm_state(names, ectx, cold_out[5:9]), names, ectx, g)
+        again = tc.rank_window_warm(dg, init, cfg.pagerank, cfg.spectrum, kernel)
+        it_cold, it_again = int(cold_out[4]), int(again[4])
+        replay[r.start] = [it_again, it_cold]
+        check(it_again <= 3 < it_cold, f"stream/replay: window {r.start} from its own state took "
+                                       f"{it_again} steps, cold {it_cold}")
+        n = int(cold_out[2])
+        ok, why = tie_aware_topk_agreement([names[int(i)] for i in again[0][:n]],
+                                           list(again[1][:n]),
+                                           [names[int(i)] for i in cold_out[0][:n]],
+                                           list(cold_out[1][:n]), k=n, rtol=WARM_RTOL)
+        check(ok and int(again[2]) == n, f"stream/replay: window {r.start} vs cold: {why}")
+    out["replay_own_state_iterations_warm_cold"] = replay
+    # The warm and cold programs' device time at one warm window: its
+    # host graph and the init its run mapped, by events behind a spin.
+    r = ranked[len(ranked) // 2]
+    g, names, kernel, ectx, _ = build_of(builds, r.start)
+    dg = tc.device_subset(graph_from_numpy(g, torch.device("cuda")), kernel)
+    state = tc.rank_window_warm(dg, None, cfg.pagerank, cfg.spectrum, kernel)
+    init = map_warm_state(capture_warm_state(names, ectx, state[5:9]), names, ectx, g)
+    dinit = tc.warm_init_on(dg, init)
+    programs = {
+        "cold": lambda: tc.rank_window_warm_core(dg, None, cfg.pagerank, cfg.spectrum, kernel),
+        "warm": lambda: tc.rank_window_warm_core(dg, dinit, cfg.pagerank, cfg.spectrum, kernel),
+    }
+    turns = [(k, spin_event_ms(torch, programs[k], 5, PROGRAM_SPIN_CYCLES))
+             for k in ("cold", "warm", "warm", "cold")]
+    out["program_ms"] = {"window": r.start, "kernel": kernel,
+                         **{k: round(_mean([t for kk, t in turns if kk == k]), 6)
+                            for k in programs},
+                         "turns_ms": [[k, round(t, 6)] for k, t in turns],
+                         "note": "the same steps run either way (the tol freezes the carry); "
+                                 "the warm program's n_iters is the saving"}
+    out["nvidia_smi"] = power_line()
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spans", type=int, default=1_000_000)
@@ -5948,7 +6438,7 @@ def main(argv=None) -> int:
         emit(steps)
         phase = "giant"
         giant, giant_steps, giant_folds, giant_k6, giant_stacked_err = {}, {}, {}, {}, {}
-        giant_group, giant_k13 = {}, None
+        giant_group, giant_k13, giant_k19 = {}, None, None
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
@@ -5965,6 +6455,7 @@ def main(argv=None) -> int:
                 giant_folds[want] = fold_kern
                 giant_k6[want] = k6
                 giant_k13 = info.pop("k13", giant_k13)
+                giant_k19 = info.pop("k19", giant_k19)
                 emit(info)
                 torch.cuda.empty_cache()
         # K13 at the config-5 kind window (V 3,072) and the 10M-span giant
@@ -5981,7 +6472,17 @@ def main(argv=None) -> int:
                                            "kind", args.reps),
                "giant_10m": giant_k13}
         emit(k13)
+        phase = "k19"
+        k19 = {"phase": "k19",
+               "config5_kind": measure_k19(torch, "k19/config5_kind", kind, MicroRankConfig(),
+                                           "kind", args.reps),
+               "giant_10m": giant_k19, "nvidia_smi": power_line()}
+        emit(k19)
         del kind
+        phase = "stream"
+        stream_launches, stream = phase_stream(torch, spmv, pattern, args)
+        launches.update(stream_launches)
+        emit(stream)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         traceback.print_exc()
@@ -6058,15 +6559,12 @@ def main(argv=None) -> int:
             "bound_ms": step["bound_ms"],
             "bound_by": step["bound_by"],
             "library_ms": step["library_ms"],
-            # K10 (csr: the work list read from the CSR views) and K11
-            # (coo: the pallas work list) run on this kernel: one step of
-            # each at the uncollapsed config-5 window of its families
-            # run, and its launches on the main path (runs and stacked
-            # groups).
+            # K11 (coo: the pallas work list) runs on this kernel: one
+            # step at the uncollapsed config-5 window of its families run,
+            # and its launches on the main path (runs and stacked groups).
             "families": {
                 kernel: {
-                    "replaces": {"csr": "microrank_tpu/rank_backends/jax_tpu.py:647",
-                                 "coo": "microrank_tpu/rank_backends/jax_tpu.py:405"}[kernel],
+                    "replaces": "microrank_tpu/rank_backends/jax_tpu.py:405",
                     "launches": sum(c["k1_launches"] for k, c in launches.items()
                                     if k.startswith((f"families/{kernel}/",
                                                      f"families/stacked/{kernel}/"))),
@@ -6074,8 +6572,30 @@ def main(argv=None) -> int:
                        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "max_abs_err")},
                 }
-                for kernel in ("csr", "coo")
+                for kernel in ("coo",)
             },
+        },
+        {
+            "name": "csr_scan",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/csr_scan.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:671",
+            # K10: the csr route's six products a step in JAX's order of
+            # sums (the double-f32 prefix scan of jax_tpu.py:671-700),
+            # one call a step (scan_pass up / top / down and row_diff on
+            # one stream; launches_a_call each).
+            "kernels": ["scan_pass", "row_diff"],
+            "launches": sum(c["csr_scan_launches"] for c in launches.values()),
+            "stacked_launches": stacked_launches("csr_scan_launches"),
+            "max_abs_err": families["runs"]["csr/off"]["csr_scan"]["max_abs_err"],
+            # One step at the uncollapsed config-5 window (_collapsed: the
+            # collapsed one's); previous_design_ms is K1 over the csr work
+            # list (the route's design before this kernel), in turns;
+            # library_ms six CSR matvecs of the same views.
+            **{key: families["runs"]["csr/off"]["csr_scan"][key]
+               for key in ("ms", "previous_design_ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "launches_a_call")},
+            "ms_collapsed": families["runs"]["csr/auto"]["csr_scan"]["ms"],
         },
         {
             "name": "kind_pair",
@@ -6303,6 +6823,35 @@ def main(argv=None) -> int:
             "bound_ms": k6["setup"]["bound_ms"],
             "bound_ms_config5_kind": k6_c5["setup"]["bound_ms"],
             "bound_by": k6["setup"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "rank_setup_warm",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/rank_setup.cu",
+            "replaces": "microrank_tpu/rank_backends/jax_tpu.py:1578",
+            # K19: the set-up's warm instances (setup_rows<C, true>,
+            # setup_grid<true>), one launch a warm program: the stream
+            # phase's warm_start and fused_pair windows started from the
+            # previous window's mapped state.
+            "kernels": ["setup_rows", "setup_grid"],
+            "launches": sum(c["setup_warm_launches"] for c in launches.values()),
+            "max_abs_err": 0.0,
+            # One launch at the 10M-span window's set-up shape (the grid
+            # form), beside the config-5 kind window's (a block a row);
+            # cold_ms the cold set-up in turns. No single PyTorch call
+            # computes the set-up: library_ms null.
+            **({} if k19["giant_10m"] is None else {
+                key: k19["giant_10m"][key] for key in ("ms", "cold_ms", "plain_ms",
+                                                       "bound_ms", "form")}),
+            "ms_config5_kind": k19["config5_kind"]["ms"],
+            "cold_ms_config5_kind": k19["config5_kind"]["cold_ms"],
+            "plain_ms_config5_kind": k19["config5_kind"]["plain_ms"],
+            "bound_ms_config5_kind": k19["config5_kind"]["bound_ms"],
+            **({"ms": k19["config5_kind"]["ms"], "plain_ms": k19["config5_kind"]["plain_ms"],
+                "bound_ms": k19["config5_kind"]["bound_ms"]} if k19["giant_10m"] is None
+               else {}),
+            "bound_by": (k19["giant_10m"] or k19["config5_kind"])["bound_by"],
             "library_ms": None,
         },
         {

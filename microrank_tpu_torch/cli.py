@@ -43,6 +43,7 @@ with ``--detection``, two-fault accuracy against path overlap with
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import sys
@@ -410,6 +411,108 @@ def cmd_eval(args) -> int:
     return 0
 
 
+# Stream flags of the JAX CLI whose lanes are not ported, and the item
+# that brings each (ROADMAP.md, port queue).
+_STREAM_REFUSED = (
+    ("resume", "--resume (the crash-only checkpoint) comes with item 11's chaos slice"),
+    ("mesh", "--mesh (the sharded route) comes with item 12"),
+    ("fleet", "--fleet comes with item 11's fleet slice"),
+    ("fleet_role", "--fleet-role comes with item 11's fleet slice"),
+    ("delta_build", "--delta-build (the incremental build) is item 11's, set aside in "
+                    "ROADMAP.md"),
+    ("warehouse", "--warehouse comes with item 11's warehouse slice"),
+    ("warehouse_dir", "--warehouse-dir comes with item 11's warehouse slice"),
+)
+
+
+def cmd_stream(args) -> int:
+    """The continuous RCA engine (``stream.engine``): a span source feeds
+    the event-time windower; online SLO baselines arm the detector on
+    every closed window; only abnormal windows are built and ranked on
+    the card; ranked windows dedup into incidents (JAX's ``cmd_stream``
+    over the table lane)."""
+    from .stream import (
+        FileTailSource,
+        ReplaySource,
+        StdoutIncidentSink,
+        StreamEngine,
+        SyntheticSource,
+    )
+
+    for name, why in _STREAM_REFUSED:
+        if getattr(args, name, None):
+            raise NotImplementedError(f"{why}: ROADMAP.md, port queue")
+    if args.fault_kind != "latency" or args.drift:
+        raise NotImplementedError(
+            "--fault-kind error and --drift (the error and drift fault families) are not "
+            "ported: ROADMAP.md, port queue item 11")
+    cfg = _config_from_args(args)
+    overrides = {k: v for k, v in {
+        "window_minutes": args.detect_minutes,
+        "slide_minutes": args.slide_minutes,
+        "allowed_lateness_seconds": args.lateness_seconds,
+        "baseline_decay": args.baseline_decay,
+        "min_healthy_windows": args.min_healthy_windows,
+        "resolve_after_windows": args.resolve_after,
+        "cooldown_windows": args.cooldown,
+        "fingerprint_top_k": args.fingerprint_top_k,
+        "build_workers": args.build_workers,
+        "pipeline_windows": args.pipeline_windows,
+        "webhook_url": args.webhook,
+        "max_windows": args.max_windows,
+    }.items() if v is not None}
+    cfg = cfg.replace(stream=dataclasses.replace(cfg.stream, **overrides))
+    rt = {k: True for k in ("warm_start", "fused_pair") if getattr(args, k)}
+    if rt:
+        cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, **rt))
+    if args.source == "synthetic":
+        from .testing import SyntheticConfig
+
+        faulted = [int(x) for x in (args.fault_windows or "").split(",") if x.strip()]
+        source = SyntheticSource(
+            n_windows=args.windows, faulted=faulted,
+            synth_config=SyntheticConfig(
+                n_operations=args.operations, n_pods=args.pods, n_kinds=args.kinds,
+                n_traces=args.traces, fault_latency_ms=args.fault_ms,
+                n_faults=args.fault_count, window_minutes=args.detect_minutes, seed=args.seed,
+            ),
+            chunk_spans=args.chunk_spans, pace_seconds=args.pace_seconds,
+        )
+        log.info("synthetic source: %d windows, fault windows %s, injected latency fault(s) %s",
+                 args.windows, faulted or "none", source.fault_pod_ops)
+    elif args.input is None:
+        log.error("--source %s needs --input TRACES_CSV", args.source)
+        return 2
+    elif args.source == "replay":
+        source = ReplaySource(args.input, chunk_spans=args.chunk_spans,
+                              pace_seconds=args.pace_seconds, rate=args.rate)
+    else:  # tail
+        source = FileTailSource(args.input, poll_seconds=args.poll_seconds,
+                                idle_exit=args.idle_exit or 0)
+    normal_table = None
+    if args.normal:
+        from .native import load_span_table
+
+        normal_table = load_span_table(args.normal, cache=False)
+    if args.metrics_port is not None:
+        from .obs.server import start_metrics_server
+
+        server = start_metrics_server(args.metrics_port)
+        log.info("metrics endpoint: http://127.0.0.1:%d/metrics", server.port)
+    engine = StreamEngine(cfg, source, out_dir=args.output, normal_table=normal_table,
+                          incident_sinks=[StdoutIncidentSink()])
+    s = engine.run()
+    _print_windows(s.results)
+    log.info(
+        "stream done: %d windows (%d ranked, %d clean, %d empty, %d skipped, %d warmup), "
+        "%d gated dispatches, %d late spans dropped, incidents %d opened / %d resolved; "
+        "results in %s",
+        s.windows, s.ranked, s.clean, s.empty, s.skipped, s.warmup, s.dispatches,
+        s.late_spans, s.incidents_opened, s.incidents_resolved, args.output,
+    )
+    return 0
+
+
 def cmd_synth(args) -> int:
     from .testing import SyntheticConfig, generate_case
 
@@ -680,6 +783,101 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_config_flags(p_eval)
     p_eval.set_defaults(fn=cmd_eval)
+
+    p_stream = sub.add_parser(
+        "stream", help="continuous RCA: event-time windows, online SLO baselines, "
+        "detector-gated ranking on the card, incident lifecycle")
+    p_stream.add_argument("--source", default="synthetic", choices=["synthetic", "tail", "replay"],
+                          help="span source: in-process synthetic stream, tail a growing CSV, "
+                          "or staged-CSV replay with pacing")
+    p_stream.add_argument("--input", help="traces CSV for --source tail / replay")
+    p_stream.add_argument("--normal", help="normal-period traces.csv seeding the online baseline "
+                          "(else it cold-starts from the first --min-healthy-windows windows; "
+                          "the synthetic source seeds from its own normal window)")
+    p_stream.add_argument("-o", "--output", default="stream_out")
+    p_stream.add_argument("--resume", action="store_true",
+                          help="not ported: the crash-only checkpoint (item 11's chaos slice)")
+    p_stream.add_argument("--slide-minutes", type=float, default=None,
+                          help="sliding windows (default: tumbling, slide = --detect-minutes)")
+    p_stream.add_argument("--lateness-seconds", type=float, default=None,
+                          help="watermark lag: how long past its end a window waits for late "
+                          "spans before it closes (later spans are dropped and counted)")
+    p_stream.add_argument("--baseline-decay", type=float, default=None,
+                          help="exponential-decay weight of one healthy window in the online "
+                          "SLO baseline")
+    p_stream.add_argument("--min-healthy-windows", type=_positive_int, default=None,
+                          help="cold-start windows fed to the baseline before detection arms "
+                          "(ignored when the baseline is seeded)")
+    p_stream.add_argument("--resolve-after", type=_positive_int, default=None,
+                          help="consecutive healthy windows that resolve an incident")
+    p_stream.add_argument("--cooldown", type=int, default=None,
+                          help="windows after a resolve during which the same fingerprint is "
+                          "suppressed instead of reopened (flap damping)")
+    p_stream.add_argument("--fingerprint-top-k", type=_positive_int, default=None,
+                          help="suspects in the tie-aware fingerprint of a ranked window")
+    p_stream.add_argument("--build-workers", type=int, default=None,
+                          help="host graph-build threads overlapping the ranking on the card")
+    p_stream.add_argument("--webhook", help="POST every incident transition here (JSON)")
+    p_stream.add_argument("--pipeline-windows", type=_positive_int, default=None,
+                          help="abnormal windows in flight (build submitted, rank pending) "
+                          "before the engine ranks the head; also the burst depth the "
+                          "router's coalescing can take")
+    p_stream.add_argument("--mesh", default=None, help="not ported: the sharded route (item 12)")
+    p_stream.add_argument("--max-windows", type=int, default=None,
+                          help="stop after this many closed windows (default: until the "
+                          "source ends)")
+    p_stream.add_argument("--pace-seconds", type=float, default=0.0,
+                          help="sleep between source chunks")
+    p_stream.add_argument("--chunk-spans", type=_positive_int, default=5000,
+                          help="spans per source chunk (replay, synthetic)")
+    p_stream.add_argument("--rate", type=float, default=None,
+                          help="replay at this multiple of event time (overrides "
+                          "--pace-seconds)")
+    p_stream.add_argument("--poll-seconds", type=float, default=2.0,
+                          help="--source tail: seconds between polls")
+    p_stream.add_argument("--idle-exit", type=_positive_int, default=None,
+                          help="--source tail: stop after this many polls without progress "
+                          "(default: tail forever)")
+    p_stream.add_argument("--windows", type=_positive_int, default=8,
+                          help="--source synthetic: timeline windows")
+    p_stream.add_argument("--fault-windows", default="3",
+                          help="--source synthetic: comma-separated faulted window indices "
+                          "(empty: none)")
+    p_stream.add_argument("--operations", type=int, default=30)
+    p_stream.add_argument("--pods", type=int, default=1)
+    p_stream.add_argument("--kinds", type=int, default=24)
+    p_stream.add_argument("--traces", type=int, default=300)
+    p_stream.add_argument("--fault-ms", type=float, default=2000.0)
+    p_stream.add_argument("--fault-kind", choices=["latency", "error"], default="latency",
+                          help="latency faults only: error is not ported (item 11)")
+    p_stream.add_argument("--fault-count", type=_positive_int, default=1,
+                          help="--source synthetic: injected culprits")
+    p_stream.add_argument("--drift", type=float, default=0.0,
+                          help="not ported: the drift family (item 11); must stay 0")
+    p_stream.add_argument("--seed", type=int, default=0)
+    p_stream.add_argument("--metrics-port", type=int, default=None,
+                          help="serve live telemetry over HTTP on this port (127.0.0.1); the "
+                          "snapshot also lands in -o at exit")
+    p_stream.add_argument("--fleet", type=_positive_int, default=None, metavar="N",
+                          help="not ported: the fleet (item 11)")
+    p_stream.add_argument("--fleet-role", choices=["worker"], default=None,
+                          help="not ported: the fleet (item 11)")
+    p_stream.add_argument("--warehouse", action="store_true",
+                          help="not ported: the trace warehouse (item 11)")
+    p_stream.add_argument("--warehouse-dir", default=None, metavar="DIR",
+                          help="not ported: the trace warehouse (item 11)")
+    p_stream.add_argument("--delta-build", action="store_true",
+                          help="not ported: the incremental sliding-window build")
+    p_stream.add_argument("--warm-start", action="store_true",
+                          help="warm-start each ranked window's iteration from the previous "
+                          "window's converged state while an incident is open (K19; pays off "
+                          "with a convergence tol)")
+    p_stream.add_argument("--fused-pair", action="store_true",
+                          help="fused pair program: each abnormal window and its warm init "
+                          "staged as one blob, both solves and the epilogue in one program, "
+                          "its state exported to warm-start the next window")
+    _add_config_flags(p_stream)
+    p_stream.set_defaults(fn=cmd_stream)
 
     p_synth = sub.add_parser("synth", help="generate a synthetic chaos case")
     p_synth.add_argument("-o", "--output", required=True)

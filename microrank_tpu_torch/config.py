@@ -244,6 +244,22 @@ class RuntimeConfig:
     # (explicit config always wins); "off" never consults. As in the
     # JAX package, any value but "off" consults.
     tuned_policy: str = "auto"     # "auto" | "off"
+    # Warm-start seam (K19, the stream lane): while an incident is open,
+    # thread the previous ranked window's converged score / rv vectors
+    # into the next overlapping window's iteration (mapped across the
+    # window delta by op name and the kind columns' representative trace
+    # ids, rank_backends.warm). Pays off with a convergence tol set
+    # (pagerank.tol: iteration counts drop); without one the fixed
+    # iterations run either way. Warm windows dispatch one at a time (no
+    # coalescing), so keep this off for burst-heavy streams where
+    # coalescing wins. (JAX's delta_build is not ported: ROADMAP.md.)
+    warm_start: bool = False
+    # Fused pair program: each abnormal window through the warm program
+    # staged as one blob with its init, both solves and the epilogue in
+    # one program, one copy of its nine outputs back
+    # (dispatch.DispatchRouter.rank_fused). Implies the warm-start
+    # threading; fused windows dispatch one at a time.
+    fused_pair: bool = False
 
     def __post_init__(self):
         if self.kernel not in KERNELS:
@@ -296,6 +312,72 @@ class ObsConfig:
 
 
 @dataclass(frozen=True)
+class DispatchConfig:
+    """The dispatch router's knobs (``dispatch/router.py``, JAX's
+    ``DispatchConfig``). The stream engine hands prepared window graphs
+    to the router, which (a) coalesces same-bucket windows queued behind
+    an in-flight dispatch into one stacked program (K18), (b)
+    double-buffers staging so the next batch's copy to the card is
+    issued behind the current batch's program. Size routing to a mesh
+    comes with item 12 (a configured mesh raises)."""
+
+    # Stream burst coalescing: same-bucket windows pending behind the
+    # current dispatch coalesce into one stacked program, up to this
+    # many (1 disables).
+    coalesce_windows: int = 8
+    # Double-buffered staging: stage the NEXT ready batch (blob pack and
+    # its copy to the card) after issuing the current program and
+    # before fetching its results.
+    double_buffer: bool = True
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Continuous RCA engine knobs (``cli stream``, JAX's
+    ``StreamConfig``): event-time windows closed at the watermark,
+    detected against online SLO baselines, and only abnormal windows
+    built and ranked on the card."""
+
+    # Tumbling windows of ``window_minutes`` when slide_minutes is None,
+    # sliding (overlapping) windows otherwise.
+    window_minutes: float = 5.0
+    slide_minutes: Optional[float] = None
+    # Watermark lag: a window [s, s+w) closes once the max span start
+    # seen passes s+w+lateness; spans older than the watermark are
+    # dropped and counted (microrank_stream_late_spans_total).
+    allowed_lateness_seconds: float = 30.0
+    # Online SLO baseline: exponential-decay weight of one healthy
+    # window in each op's mean/std and P^2 quantile state.
+    baseline_decay: float = 0.1
+    # Cold start (no normal seed): windows fed to the baseline before
+    # detection arms.
+    min_healthy_windows: int = 1
+    # Incident lifecycle: healthy windows that resolve an open incident,
+    # and the windows after a resolve during which the same fingerprint
+    # is suppressed.
+    resolve_after_windows: int = 2
+    cooldown_windows: int = 2
+    # Fingerprint: tie-aware top-k suspect set; windows whose
+    # fingerprints match or overlap by >= fingerprint_jaccard dedup into
+    # one incident; an update whose normalized scores moved by at least
+    # fingerprint_score_drift (L-inf) is flagged drifted (<= 0 off).
+    fingerprint_top_k: int = 5
+    fingerprint_jaccard: float = 0.5
+    fingerprint_score_drift: float = 0.25
+    # Build worker pool threads, and abnormal windows in flight (build
+    # submitted, rank pending).
+    build_workers: int = 2
+    pipeline_windows: int = 2
+    # Optional incident webhook (best effort, bounded retry queue).
+    webhook_url: Optional[str] = None
+    webhook_timeout_seconds: float = 2.0
+    webhook_retry_max: int = 4
+    webhook_queue: int = 64
+    # Stop after this many closed windows (0: until the source ends).
+    max_windows: int = 0
+
+
+@dataclass(frozen=True)
 class MicroRankConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     pagerank: PageRankConfig = field(default_factory=PageRankConfig)
@@ -305,6 +387,8 @@ class MicroRankConfig:
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     ingest: IngestConfig = field(default_factory=IngestConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    dispatch: DispatchConfig = field(default_factory=DispatchConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)

@@ -57,6 +57,22 @@
 //   folded again for every tile and its columns read again after the
 //   barrier.
 // No atomics: every sum is the tree.
+//
+// K19, the warm start (microrank_tpu/rank_backends/jax_tpu.py:1151
+// `_warm_override`, reached by `rank_window_warm_core` :1578): the
+// rows and grid forms' kWarm instances also take a mapped init (sv and
+// rv of each partition, one window) and write it in place of the cold
+// sv0 / rv0, per partition and side, when the side's masked init
+// (sv on the present ops, rv on the live columns) has a maximum > 0;
+// else the cold vector. The maximum is only compared with 0, so each
+// row keeps two flag bits instead (some masked value > 0, some NaN:
+// JAX's max is NaN then, and NaN > 0 is false), ORed by
+// __syncthreads_or, across a cluster through distributed shared memory
+// and, in the grid form, through one flag word a tile and two a block
+// written before the grid barrier: order-free, so the choice is JAX's
+// bit for bit. The grid form's warm instance writes sv0 after the
+// barrier, once the row's flags are known. The cold instances are the
+// code they were.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -107,6 +123,8 @@ struct Part {
   int32_t v;
   int32_t v_tiles;           // ceil(v / kTile)
   int32_t first_item;        // its first tree item (and its rows' first node pair)
+  const float* sv_init;      // [v] K19's mapped init (kWarm instances), else null
+  const float* rv_init;      // [t_pad]
 };
 
 struct SetupArgs {
@@ -118,6 +136,7 @@ struct SetupArgs {
   int32_t items;             // tree_items + the sv0 items
   float* partial;            // [tree_items, 2]: each tile's two level-12 nodes
   int64_t* stamps;           // [kStamps] SM cycles of the rows form's phases, or null
+  int32_t* flags;            // the grid form's warm flags: one a tree item, then 2 a block
 };
 
 struct Item {
@@ -328,17 +347,22 @@ __device__ __forceinline__ float pref_of(float kind, float len, bool anomaly, in
 // Thread t's columns [4t, 4t + 4) of a tile of `width` columns (within
 // the pad), `count` of them live: pref and rv0, by one 16-byte store
 // each where aligned.
+template <bool kWarm = false>
 __device__ __forceinline__ void write_quad(float* pref, float* rv, int width, int count,
                                            const float (&k)[kQuad], const float (&l)[kQuad],
                                            bool anomaly, int paper, float phi,
-                                           const RowSums& s) {
+                                           const RowSums& s, const float* rv_init = nullptr) {
   const int base = kQuad * threadIdx.x;
   float pv[kQuad], rvv[kQuad];
 #pragma unroll
   for (int i = 0; i < kQuad; ++i) {
     const bool live = base + i < count;
     pv[i] = live ? pref_of(k[i], l[i], anomaly, paper, phi, s) : 0.0f;
-    rvv[i] = live ? s.init : 0.0f;
+    if constexpr (kWarm) {
+      rvv[i] = live ? (rv_init != nullptr ? __ldg(rv_init + base + i) : s.init) : 0.0f;
+    } else {
+      rvv[i] = live ? s.init : 0.0f;
+    }
   }
   if (base + kQuad <= width && ((reinterpret_cast<uintptr_t>(pref + base)
                                  | reinterpret_cast<uintptr_t>(rv + base)) & 15) == 0) {
@@ -363,15 +387,31 @@ __device__ __forceinline__ float init_of(const Part& q, int b) {
 // tile r of that row. kClustered: the row's tiles exchange their nodes
 // through distributed shared memory; else a block is the row's only
 // tile (cluster == 1).
+// K19's flag bits of one masked init value (0 where masked off): bit 0
+// the value > 0, bit 1 the value NaN.
+__device__ __forceinline__ int warm_bits(float x) {
+  return (x > 0.0f ? 1 : 0) | (x != x ? 2 : 0);
+}
+
+// A block's OR of its threads' flag bits (every thread of the block).
+__device__ __forceinline__ int block_bits(int bits) {
+  return (__syncthreads_or(bits & 1) ? 1 : 0) | (__syncthreads_or(bits & 2) ? 2 : 0);
+}
+
+// A side starts warm when its masked init's max is > 0: some value > 0
+// and none NaN.
+__device__ __forceinline__ bool warm_side(int bits) { return (bits & 3) == 1; }
+
 __device__ __forceinline__ void stamp(int64_t* stamps, int phase) {
   if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) stamps[phase] = clock64();
 }
 
-template <bool kClustered>
+template <bool kClustered, bool kWarm>
 __global__ void __launch_bounds__(kWide, 1) setup_rows(SetupArgs a, int cluster) {
   __shared__ float warp_sums[2 * mr_tree::kWideWarps];
   __shared__ float nodes[2];  // this block's tile nodes: kind, len
   __shared__ float sums[2];
+  __shared__ int flags[4];    // kWarm: this block's rv, sv bits; the row's
   constexpr int kOpsAhead = 4;  // ops a thread loads before the tree
   const int t = threadIdx.x;
   stamp(a.stamps, 0);
@@ -400,6 +440,18 @@ __global__ void __launch_bounds__(kWide, 1) setup_rows(SetupArgs a, int cluster)
   const int n = min(max(n_cols >= 0 ? n_cols : n_traces, 0), q.t_pad);
   const int count = min(kTile, n - lo);
   quad_terms(k, l, count, n_cols >= 0, tk, tl);
+  int rv_bits = 0, sv_bits = 0;
+  if constexpr (kWarm) {
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) {
+      if (kQuad * t + i < count) rv_bits |= warm_bits(__ldg(q.rv_init + at + kQuad * t + i));
+    }
+    for (int i = r * kWide + t; i < q.v; i += op_step) {
+      if (q.op_present[ops + i]) sv_bits |= warm_bits(__ldg(q.sv_init + ops + i));
+    }
+    rv_bits = block_bits(rv_bits);
+    sv_bits = block_bits(sv_bits);
+  }
   stamp(a.stamps, 1);
   float node_k = 0.0f, node_l = 0.0f;
   mr_tree::wide_tree2(tk, tl, count, warp_sums, node_k, node_l);
@@ -409,8 +461,24 @@ __global__ void __launch_bounds__(kWide, 1) setup_rows(SetupArgs a, int cluster)
     if (t == 0) {
       nodes[0] = node_k;
       nodes[1] = node_l;
+      if constexpr (kWarm) {
+        flags[0] = rv_bits;
+        flags[1] = sv_bits;
+      }
     }
     cl.sync();
+    if constexpr (kWarm) {
+      if (t == 32) {  // the row's bits, from every block of the cluster
+        int fr = 0, fs = 0;
+        for (int c = 0; c < cluster; ++c) {
+          const int* peer = cl.map_shared_rank(flags, c);
+          fr |= peer[0];
+          fs |= peer[1];
+        }
+        flags[2] = fr;
+        flags[3] = fs;
+      }
+    }
     if (t < 32) {
       // The row's tile nodes, one a lane (used <= the row's tiles <=
       // cluster), folded as the tree's upper levels.
@@ -433,21 +501,31 @@ __global__ void __launch_bounds__(kWide, 1) setup_rows(SetupArgs a, int cluster)
     if (t == 0) {  // one tile: its nodes are the row's sums
       sums[0] = node_k;
       sums[1] = node_l;
+      if constexpr (kWarm) {
+        flags[2] = rv_bits;
+        flags[3] = sv_bits;
+      }
     }
     __syncthreads();
   }
+  const bool warm_rv = kWarm && warm_side(flags[2]);
+  const bool warm_sv = kWarm && warm_side(flags[3]);
   stamp(a.stamps, 3);
   const RowSums s{sums[0], sums[1], __fdiv_rn(1.0f, __int2float_rn(n_ops + n_traces))};
   if (width > 0) {
-    write_quad(q.pref + at, q.rv0 + at, width, count, k, l, p == 1, a.paper, a.phi, s);
+    write_quad<kWarm>(q.pref + at, q.rv0 + at, width, count, k, l, p == 1, a.paper, a.phi, s,
+                      warm_rv ? q.rv_init + at : nullptr);
   }
 #pragma unroll
   for (int j = 0; j < kOpsAhead; ++j) {
     const int i = r * kWide + t + j * op_step;
-    if (i < q.v) q.sv0[ops + i] = present[j] ? s.init : 0.0f;
+    if (i < q.v) {
+      q.sv0[ops + i] = present[j] ? (warm_sv ? __ldg(q.sv_init + ops + i) : s.init) : 0.0f;
+    }
   }
   for (int i = r * kWide + t + kOpsAhead * op_step; i < q.v; i += op_step) {
-    q.sv0[ops + i] = q.op_present[ops + i] ? s.init : 0.0f;
+    q.sv0[ops + i] = q.op_present[ops + i] ? (warm_sv ? __ldg(q.sv_init + ops + i) : s.init)
+                                           : 0.0f;
   }
   stamp(a.stamps, 4);
 }
@@ -455,14 +533,19 @@ __global__ void __launch_bounds__(kWide, 1) setup_rows(SetupArgs a, int cluster)
 // The grid form: tiles dealt to the blocks in turn (block g the items
 // g, g + grid, ...), the live ones' columns held in dynamic shared
 // memory ([hold][2][kTile] floats) across the grid barrier.
+template <bool kWarm>
 __global__ void __launch_bounds__(kWide, 1) setup_grid(SetupArgs a, int hold) {
   extern __shared__ float4 held_words[];
   float* held = reinterpret_cast<float*>(held_words);
   __shared__ float warp_sums[2 * mr_tree::kWideWarps];
   __shared__ float sums[2];
+  __shared__ int sv_flags[kParts];  // kWarm (one window): this block's sv bits a partition
   const int t = threadIdx.x;
   const int base = kQuad * t;
   stamp(a.stamps, 0);
+  if constexpr (kWarm) {
+    if (t < kParts) sv_flags[t] = 0;
+  }
 
   // Phase 1: each live tile's two level-12 nodes; its columns held.
   int n_held = 0;
@@ -478,9 +561,21 @@ __global__ void __launch_bounds__(kWide, 1) setup_grid(SetupArgs a, int hold) {
       // rv0 are 0 whatever the sums, so they are written now.
       write_quad(q.pref + at, q.rv0 + at, min(kTile, q.t_pad - lo), 0, k, l, false, 0, 0.0f,
                  RowSums{1.0f, 1.0f, 0.0f});
+      if constexpr (kWarm) {
+        if (t == 0) a.flags[item] = 0;
+      }
       continue;
     }
     load_quad(q.kind + at, q.tracelen + at, count, k, l);
+    if constexpr (kWarm) {
+      int bits = 0;
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) {
+        if (base + i < count) bits |= warm_bits(__ldg(q.rv_init + at + base + i));
+      }
+      bits = block_bits(bits);
+      if (t == 0) a.flags[item] = bits;
+    }
     if (n_held < hold) {
       float* h = held + static_cast<int64_t>(n_held) * 2 * kTile;
       *reinterpret_cast<float4*>(h + base) = make_float4(k[0], k[1], k[2], k[3]);
@@ -502,13 +597,37 @@ __global__ void __launch_bounds__(kWide, 1) setup_grid(SetupArgs a, int hold) {
     const int64_t total = static_cast<int64_t>(a.windows) * q.v;
     for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWide + t; e < total;
          e += static_cast<int64_t>(gridDim.x) * kWide) {
-      q.sv0[e] = q.op_present[e] ? init_of(q, static_cast<int>(e / q.v)) : 0.0f;
+      if constexpr (kWarm) {  // sv0 waits for the row's bits (after the barrier)
+        if (q.op_present[e]) atomicOr(&sv_flags[p], warm_bits(__ldg(q.sv_init + e)));
+      } else {
+        q.sv0[e] = q.op_present[e] ? init_of(q, static_cast<int>(e / q.v)) : 0.0f;
+      }
     }
+  }
+  if constexpr (kWarm) {
+    __syncthreads();
+    if (t < kParts) a.flags[a.tree_items + kParts * blockIdx.x + t] = sv_flags[t];
   }
 
   stamp(a.stamps, 2);
   cg::this_grid().sync();
   stamp(a.stamps, 3);
+
+  // kWarm: each partition's rv and sv bits, from every tile's and every
+  // block's flags.
+  bool warm_rv[kParts] = {false, false}, warm_sv[kParts] = {false, false};
+  if constexpr (kWarm) {
+    for (int p = 0; p < kParts; ++p) {
+      const Part q = part_of(a, p);
+      int fr = 0, fs = 0;
+      for (int i = t; i < q.tiles; i += kWide) fr |= __ldcg(a.flags + q.first_item + i);
+      for (int g = t; g < static_cast<int>(gridDim.x); g += kWide) {
+        fs |= __ldcg(a.flags + a.tree_items + kParts * g + p);
+      }
+      warm_rv[p] = warm_side(block_bits(fr));
+      warm_sv[p] = warm_side(block_bits(fs));
+    }
+  }
 
   // Phase 2: a row's sums from its tile nodes (once a row a block), then
   // each live tile's pref and rv0 from the held columns.
@@ -555,8 +674,19 @@ __global__ void __launch_bounds__(kWide, 1) setup_grid(SetupArgs a, int hold) {
       load_quad(q.kind + at, q.tracelen + at, count, k, l);
     }
     ++n_held;
-    write_quad(q.pref + at, q.rv0 + at, min(kTile, q.t_pad - lo), count, k, l, it.p == 1,
-               a.paper, a.phi, s);
+    write_quad<kWarm>(q.pref + at, q.rv0 + at, min(kTile, q.t_pad - lo), count, k, l,
+                      it.p == 1, a.paper, a.phi, s,
+                      kWarm && warm_rv[it.p] ? q.rv_init + at : nullptr);
+  }
+  if constexpr (kWarm) {
+    for (int p = 0; p < kParts; ++p) {
+      const Part q = part_of(a, p);
+      const float init = init_of(q, 0);
+      for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWide + t; e < q.v;
+           e += static_cast<int64_t>(gridDim.x) * kWide) {
+        q.sv0[e] = q.op_present[e] ? (warm_sv[p] ? __ldg(q.sv_init + e) : init) : 0.0f;
+      }
+    }
   }
   stamp(a.stamps, 4);
 }
@@ -572,7 +702,11 @@ cudaError_t use_device(int device) {
 
 // The grid form's dynamic shared memory, up to kHoldMax held tiles.
 cudaError_t allow_held() {
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(setup_grid),
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(setup_grid<false>),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kHoldMax * kHoldBytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(setup_grid<true>),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               kHoldMax * kHoldBytes);
 }
@@ -592,7 +726,10 @@ cudaError_t launch_cooperative(const void* fn, int grid, int threads, SetupArgs&
 enum Word {
   kPartWords = 10,
   kWindows = kParts * kPartWords, kV, kPhiBits, kPaper, kForm, kCluster, kGrid, kHold,
-  kPartial, kStampsAt, kDevice, kStream, kWords
+  kPartial, kStampsAt, kDevice, kStream,
+  // K19's init: sv and rv of each partition (all four or none), and the
+  // grid form's flag words.
+  kSvInitN, kRvInitN, kSvInitA, kRvInitA, kFlags, kWords
 };
 
 }  // namespace
@@ -617,7 +754,15 @@ int mr_rank_setup_config(int device, int32_t* out) {
   if (e == cudaSuccess) e = allow_held();
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &grid_per_sm, reinterpret_cast<const void*>(setup_grid), kWide, kHoldMax * kHoldBytes);
+        &grid_per_sm, reinterpret_cast<const void*>(setup_grid<false>), kWide,
+        kHoldMax * kHoldBytes);
+  }
+  if (e == cudaSuccess) {  // the warm instance's grid is planned the same way
+    int warm_per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &warm_per_sm, reinterpret_cast<const void*>(setup_grid<true>), kWide,
+        kHoldMax * kHoldBytes);
+    grid_per_sm = warm_per_sm < grid_per_sm ? warm_per_sm : grid_per_sm;
   }
   out[0] = coop;
   out[1] = sms;
@@ -680,6 +825,19 @@ int mr_rank_setup_launch(const int64_t* w) {
   a.items = static_cast<int32_t>(item + sv_items);
   a.partial = static_cast<float*>(ptr(kPartial));
   a.stamps = static_cast<int64_t*>(ptr(kStampsAt));
+  // K19: all four init vectors or none; one window; the rows or grid form.
+  const int n_init = (w[kSvInitN] != 0) + (w[kRvInitN] != 0) + (w[kSvInitA] != 0)
+                     + (w[kRvInitA] != 0);
+  const bool warm = n_init == 4;
+  if ((n_init != 0 && !warm) || (warm && (windows != 1 || w[kForm] == kFormFirst))
+      || (warm && w[kForm] == kFormGrid && w[kFlags] == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.part[0].sv_init = static_cast<const float*>(ptr(kSvInitN));
+  a.part[0].rv_init = static_cast<const float*>(ptr(kRvInitN));
+  a.part[1].sv_init = static_cast<const float*>(ptr(kSvInitA));
+  a.part[1].rv_init = static_cast<const float*>(ptr(kRvInitA));
+  a.flags = static_cast<int32_t*>(ptr(kFlags));
   const int64_t form = w[kForm], cluster = w[kCluster], grid = w[kGrid], hold = w[kHold];
   const auto stream = static_cast<cudaStream_t>(ptr(kStream));
   const cudaError_t set = use_device(static_cast<int>(w[kDevice]));
@@ -694,7 +852,11 @@ int mr_rank_setup_launch(const int64_t* w) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     if (cluster == 1) {
-      setup_rows<false><<<static_cast<unsigned>(grid), kWide, 0, stream>>>(a, 1);
+      if (warm) {
+        setup_rows<false, true><<<static_cast<unsigned>(grid), kWide, 0, stream>>>(a, 1);
+      } else {
+        setup_rows<false, false><<<static_cast<unsigned>(grid), kWide, 0, stream>>>(a, 1);
+      }
     } else {
       cudaLaunchConfig_t config{};
       config.gridDim = dim3(static_cast<unsigned>(grid));
@@ -707,7 +869,10 @@ int mr_rank_setup_launch(const int64_t* w) {
       attr[0].val.clusterDim.z = 1;
       config.attrs = attr;
       config.numAttrs = 1;
-      launched = cudaLaunchKernelEx(&config, setup_rows<true>, a, static_cast<int>(cluster));
+      launched = warm ? cudaLaunchKernelEx(&config, setup_rows<true, true>, a,
+                                           static_cast<int>(cluster))
+                      : cudaLaunchKernelEx(&config, setup_rows<true, false>, a,
+                                           static_cast<int>(cluster));
     }
   } else if (form == kFormGrid) {
     if (most_tiles <= kClusterMax || grid < 1 || grid > a.tree_items || hold < 0
@@ -717,7 +882,8 @@ int mr_rank_setup_launch(const int64_t* w) {
     launched = allow_held();
     int held = static_cast<int>(hold);
     if (launched == cudaSuccess) {
-      launched = launch_cooperative(reinterpret_cast<const void*>(setup_grid),
+      launched = launch_cooperative(warm ? reinterpret_cast<const void*>(setup_grid<true>)
+                                         : reinterpret_cast<const void*>(setup_grid<false>),
                                     static_cast<int>(grid), kWide, a, &held,
                                     static_cast<size_t>(held) * kHoldBytes, stream);
     }

@@ -12,7 +12,7 @@ build) are not ported: here the library builds or the call raises.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+from typing import Iterable, Tuple
 
 import numpy as np
 
@@ -187,7 +187,8 @@ def build_window_graph_from_table(
     collapse: str = "off",
     row_range: Tuple[int, int] | None = None,
     kind_dedup_threshold: float | None = None,
-) -> Tuple[WindowGraph, List[str], np.ndarray, np.ndarray]:
+    retain_columns: bool = False,
+):
     """Both partitions' graphs from table rows, built in C++
     (graph_builder.cpp), with the kind collapse (``collapse`` "off" |
     "auto" | "on") inside the same build.
@@ -200,6 +201,11 @@ def build_window_graph_from_table(
     collapsed window, else packed; None takes the build module's default
     threshold).
     Returns (graph, op_names, normal_codes, abnormal_codes).
+    ``retain_columns`` (JAX's ``build_window_graph(..., retain_columns=
+    True)``): append ``(map_normal, map_abnormal)``, per partition the
+    local trace index of each collapsed column's representative (its
+    kind group's lowest member; ``mr_export_columns``), or None for an
+    identity mapping (an uncollapsed build).
     """
     from ..native import build_window_padded
 
@@ -246,7 +252,7 @@ def build_window_graph_from_table(
         af[acodes] = 1
     # parent_row stays ABSOLUTE; the C++ scan subtracts parent_base and
     # drops parents outside the slice (they cannot be window rows).
-    raw_n, raw_a = build_window_padded(
+    built = build_window_padded(
         table.pod_op[lo:hi],
         table.trace_id[lo:hi],
         table.parent_row[lo:hi],
@@ -261,14 +267,20 @@ def build_window_graph_from_table(
         dense_budget_bytes=dense_budget_bytes,
         parent_base=lo,
         kind_dedup_threshold=kind_dedup_threshold,
+        retain_columns=retain_columns,
     )
+    raw_n, raw_a = built[:2]
     graph = WindowGraph(
         normal=_graph_from_padded(raw_n),
         abnormal=_graph_from_padded(raw_a),
     )
-    return (
+    out = (
         graph,
         list(table.pod_op_names),
         raw_n.local_uniques.astype(np.int64),
         raw_a.local_uniques.astype(np.int64),
     )
+    if retain_columns:
+        return out + (tuple(None if p.n_cols < 0 else cols.astype(np.int64)
+                            for p, cols in zip((raw_n, raw_a), built[2])),)
+    return out

@@ -180,6 +180,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mr_collapse_window.argtypes = [
         ctypes.c_void_p, ctypes.c_int32, i64p
     ]
+    lib.mr_export_columns.restype = ctypes.c_int64
+    lib.mr_export_columns.argtypes = [ctypes.c_void_p, ctypes.c_int32, i32p]
     lib.mr_free_built.restype = None
     lib.mr_free_built.argtypes = [ctypes.c_void_p]
     lib.mr_detect_window.restype = ctypes.c_int
@@ -442,6 +444,7 @@ def build_window_padded(
     dense_budget_bytes: Optional[int] = None,
     parent_base: int = 0,
     kind_dedup_threshold: Optional[float] = None,
+    retain_columns: bool = False,
 ) -> Tuple[PaddedPartition, PaddedPartition]:
     """Build both partitions' COO graphs in C++, exported directly into
     padded numpy buffers.
@@ -458,6 +461,9 @@ def build_window_padded(
     ``collapse`` ("off" | "auto" | "on") kind-collapses the trace axes
     inside the C++ build. ``parent_base`` is subtracted from each
     parent_row entry (callers pass a table slice plus its offset).
+    ``retain_columns``: also return, per partition, the local trace
+    index of each coverage column (``mr_export_columns``), as a third
+    element ``(columns_normal, columns_abnormal)``.
     """
     if mode == "auto_all":
         raise NotImplementedError(
@@ -546,7 +552,7 @@ def build_window_padded(
         want_bits = mode in ("packed", "kind", "all")
         want_csr = mode in ("csr", "all")
         want_pc = mode in ("pcsr", "all")
-        out = []
+        out, columns = [], []
         for idx in range(2):
             n_inc, n_ss, n_tr, n_ops = (int(x) for x in sizes[4 * idx: 4 * idx + 4])
             true_tr = true_traces[idx] if true_traces is not None else n_tr
@@ -641,7 +647,16 @@ def build_window_padded(
                 from ..graph.build import kind_aux
 
                 p = p._replace(ss_indptr=kind_aux(p.ss_child, n_ss, v_pad))
+            if retain_columns:
+                cols = np.zeros(n_tr, np.int32)
+                n = int(lib.mr_export_columns(handle, ctypes.c_int32(idx),
+                                              cols.ctypes.data_as(i32p)))
+                if n != n_tr:
+                    raise NativeUnavailable(f"mr_export_columns wrote {n} of {n_tr} columns")
+                columns.append(cols)
             out.append(p)
+        if retain_columns:
+            return out[0], out[1], tuple(columns)
         return out[0], out[1]
     finally:
         lib.mr_free_built(handle)

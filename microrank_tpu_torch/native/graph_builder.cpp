@@ -767,6 +767,29 @@ void mr_export_csr(const MrBuiltWindow* g, int32_t idx, int64_t vocab,
   for (int64_t o = 0; o < v_pad; ++o) ss_indptr[o + 1] += ss_indptr[o];
 }
 
+// The column identity of partition idx (the warm start's trace axis,
+// rank_backends/warm.py): for each coverage column, the local trace
+// index it stands for, written to cols[0 .. columns). Kind-collapsed: a
+// group's representative, its lowest local trace (the trace emit_partition
+// takes the group's entries from); else the identity. Returns the
+// number of columns written.
+int64_t mr_export_columns(const MrBuiltWindow* g, int32_t idx, int32_t* cols) {
+  const BuiltPartition& p = g->parts[idx];
+  if (p.n_traces_true < 0) {
+    const int64_t n = static_cast<int64_t>(p.kind.size());
+    for (int64_t t = 0; t < n; ++t) cols[t] = static_cast<int32_t>(t);
+    return n;
+  }
+  const int64_t n_groups = p.n_groups;
+  for (int64_t c = 0; c < n_groups; ++c) cols[c] = -1;
+  const int64_t n_traces = static_cast<int64_t>(p.group_of.size());
+  for (int64_t t = 0; t < n_traces; ++t) {
+    const int32_t c = p.group_of[t];
+    if (cols[c] < 0) cols[c] = static_cast<int32_t>(t);
+  }
+  return n_groups;
+}
+
 void mr_free_built(MrBuiltWindow* g) { delete g; }
 
 }  // extern "C"

@@ -6,11 +6,12 @@ JAX package's name, help text, label names and buckets, so a snapshot
 of either package reads the same. This module holds the subset the
 ported lanes record: the table lane's window loop, its staging, the
 convergence trace, ingest admission and its dead-letter store, the
-span tracer, the tuned policy, follow mode and the host sentinel. The
-JAX package's other metrics (serve, stream, fleet, scheduler,
-warehouse, the jit and compile-cache counters, the flight recorder,
-the sanitizers, chaos and the explain store) come with their lanes
-(ROADMAP.md, port queue items 5 and 11).
+span tracer, the tuned policy, follow mode, the host sentinel, and the
+stream lane's series (``microrank_stream_*``, its incidents, the
+dispatch router's routes and the build pool). The JAX package's other
+metrics (serve, fleet, scheduler, warehouse, the jit and compile-cache
+counters, the flight recorder, the sanitizers, chaos and the explain
+store) come with their lanes (ROADMAP.md, port queue item 11).
 
 Naming: ``microrank_<noun>_<unit>`` with ``_total`` on counters, the
 Prometheus convention.
@@ -195,6 +196,101 @@ def host_steal_gauge() -> Gauge:
     )
 
 
+def stream_windows() -> Counter:
+    return get_registry().counter(
+        "microrank_stream_windows_total",
+        "Streaming windows closed at the watermark, by outcome",
+        # ranked | clean | empty | skipped | warmup
+        labelnames=("outcome",),
+    )
+
+
+def stream_dispatches() -> Counter:
+    return get_registry().counter(
+        "microrank_stream_dispatches_total",
+        "Anomaly-GATED device rank dispatches in streaming mode (the "
+        "detector runs on every window; graph build + device rank only "
+        "on abnormal ones — this staying below the window counter IS "
+        "the gate working)",
+    )
+
+
+def stream_late_spans() -> Counter:
+    return get_registry().counter(
+        "microrank_stream_late_spans_total",
+        "Spans dropped for arriving past the watermark (older than "
+        "every window they belong to, beyond allowed lateness)",
+    )
+
+
+def stream_incidents() -> Counter:
+    return get_registry().counter(
+        "microrank_stream_incidents_total",
+        "Incident lifecycle transitions",
+        labelnames=("transition",),  # open | update | resolve | suppressed
+    )
+
+
+def stream_open_incidents() -> Gauge:
+    return get_registry().gauge(
+        "microrank_stream_open_incidents",
+        "Incidents currently open in the streaming engine",
+    )
+
+
+def dispatch_routes() -> Counter:
+    return get_registry().counter(
+        "microrank_dispatch_route_total",
+        "Device dispatches issued by the adaptive router, by route "
+        "(vmapped = single-device batched program, sharded = mesh "
+        "shard_map program)",
+        labelnames=("route",),  # vmapped | sharded
+    )
+
+
+def dispatch_windows() -> Histogram:
+    return get_registry().histogram(
+        "microrank_dispatch_windows",
+        "Windows per router dispatch, by route (stream burst coalescing "
+        "and serve micro-batching both land here; mass at 1 under "
+        "bursty load means buckets never match)",
+        labelnames=("route",),
+        buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+    )
+
+
+def dispatch_overlap_seconds() -> Counter:
+    return get_registry().counter(
+        "microrank_dispatch_overlap_seconds_total",
+        "Staging seconds (host blob pack + H2D transfer) the router "
+        "overlapped with an in-flight device dispatch — staging time "
+        "taken OFF the critical path by double-buffering",
+    )
+
+
+def build_pool_inflight() -> Gauge:
+    return get_registry().gauge(
+        "microrank_build_pool_inflight",
+        "Host graph builds currently running on build-pool workers "
+        "(stream engine + serve scheduler share the pool seam)",
+    )
+
+
+def build_pool_builds() -> Counter:
+    return get_registry().counter(
+        "microrank_build_pool_builds_total",
+        "Host graph builds completed on build-pool workers",
+    )
+
+
+def webhook_dropped() -> Counter:
+    return get_registry().counter(
+        "microrank_webhook_dropped_total",
+        "Incident webhook events dropped after exhausting the sink's "
+        "bounded retry queue (max attempts reached or queue overflow)",
+    )
+
+
 def ensure_catalog() -> None:
     """Register this package's whole metric set in the current registry
     (no samples added), so a scrape or ``cli stats`` shows every metric
@@ -207,6 +303,10 @@ def ensure_catalog() -> None:
         kind_dedup_gauge, policy_events, spans_recorded,
         ingest_rejected, ingest_admitted, ingest_quarantine_dropped,
         host_load_gauge, host_steal_gauge,
+        stream_windows, stream_dispatches, stream_late_spans,
+        stream_incidents, stream_open_incidents,
+        dispatch_routes, dispatch_windows, dispatch_overlap_seconds,
+        build_pool_inflight, build_pool_builds, webhook_dropped,
     ):
         ctor()
 
@@ -226,6 +326,41 @@ def record_convergence(
     rank_iterations().observe(float(n_iters), kernel=kernel)
     if np.isfinite(final_residual):
         rank_final_residual().observe(float(final_residual), kernel=kernel)
+
+
+def record_stream_window(outcome: str) -> None:
+    stream_windows().inc(outcome=outcome)
+
+
+def record_stream_dispatch() -> None:
+    stream_dispatches().inc()
+
+
+def record_incident(transition: str, open_now: int = None) -> None:
+    stream_incidents().inc(transition=transition)
+    if open_now is not None:
+        stream_open_incidents().set(float(open_now))
+
+
+def record_dispatch_route(route: str, windows: int, overlap_seconds: float = 0.0) -> None:
+    """One router dispatch: route taken, windows it carried, staging
+    seconds double-buffered behind it."""
+    dispatch_routes().inc(route=route)
+    dispatch_windows().observe(float(windows), route=route)
+    if overlap_seconds > 0:
+        dispatch_overlap_seconds().inc(float(overlap_seconds))
+
+
+def record_build_pool(inflight: int = None, build_seconds: float = None) -> None:
+    if inflight is not None:
+        build_pool_inflight().set(float(inflight))
+    if build_seconds is not None:
+        build_pool_builds().inc()
+        stage_seconds().observe(float(build_seconds), stage="build_pool")
+
+
+def record_webhook_dropped(n: int = 1) -> None:
+    webhook_dropped().inc(float(n))
 
 
 def record_kind_dedup(ratio: float) -> None:
@@ -346,11 +481,21 @@ def graph_staging_audit(graph) -> Tuple[int, int]:
 def snapshot_to_result_fields(registry=None) -> Dict[str, float]:
     """Small flat dict of headline telemetry (the journal's ``run_end``
     ``telemetry``), with the JAX package's keys for the metrics this
-    package records: ``staged_bytes``. (The JAX package also reports its
-    jit cache, dispatch routes and overlap, whose lanes are not ported.)"""
+    package records: ``staged_bytes``, the dispatch routes and their
+    overlap. (The JAX package also reports its jit cache, whose counters
+    are not ported.)"""
     reg = registry or get_registry()
     out: Dict[str, float] = {}
     staged = reg.get("microrank_staged_bytes_total")
     if staged is not None:
         out["staged_bytes"] = sum(s["value"] for s in staged.samples())
+    routes = reg.get("microrank_dispatch_route_total")
+    if routes is not None:
+        for s in routes.samples():
+            out[f"route_{s['labels'].get('route', '?')}"] = s["value"]
+    overlap = reg.get("microrank_dispatch_overlap_seconds_total")
+    if overlap is not None:
+        total = sum(s["value"] for s in overlap.samples())
+        if total:
+            out["overlap_ms"] = round(total * 1e3, 1)
     return out

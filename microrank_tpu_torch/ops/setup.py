@@ -15,6 +15,13 @@ the initial vectors of ``:285`` ``_partition_setup``. Per partition
 * ``sv0`` — ``1 / (n_ops + n_traces)`` on the present ops, else 0;
 * ``rv0`` — the same value on the live trace columns, else 0.
 
+K19, the warm start (JAX's ``_warm_override``, ``jax_tpu.py:1151``):
+``rank_setup(..., init=(sv_n, rv_n, sv_a, rv_a))`` writes a mapped init
+(``rank_backends.warm.map_warm_state``) in place of sv0 / rv0 where its
+side's masked maximum is > 0 (sv on the present ops, rv on the live
+columns), the cold vector where not: the same launch's warm instance on
+the card, ``warm_override_plain`` after the cold set-up on the CPU.
+
 ``rank_setup(normal, abnormal, cfg)`` gives both partitions' triples:
 on CPU tensors from ``rank_setup_plain`` (the port's eager code as it
 stood, op for op, its sums ``fold_rows``); on CUDA tensors from one
@@ -119,11 +126,33 @@ def partition_setup_plain(g: PartitionGraph, anomaly: bool, cfg: PageRankConfig)
     return pref, sv, rv
 
 
+def warm_override_plain(g: PartitionGraph, sv_cold: torch.Tensor, rv_cold: torch.Tensor,
+                        sv_init: torch.Tensor, rv_init: torch.Tensor):
+    """One partition's start vectors under a warm init (JAX's
+    ``_warm_override`` ``pick``): the init masked (sv to the present
+    ops, rv to the live columns), each side the masked init where its
+    max is > 0, else its cold vector. Returns (sv, rv)."""
+    t_pad = g.kind.shape[-1]
+    n_live = torch.where(g.n_cols < 0, g.n_traces, g.n_cols)
+    sv = torch.where(g.op_present, sv_init, 0.0)
+    rv = torch.where(torch.arange(t_pad, device=rv_init.device) < n_live, rv_init, 0.0)
+    return (sv if bool(sv.max() > 0) else sv_cold, rv if bool(rv.max() > 0) else rv_cold)
+
+
 def rank_setup_plain(normal: PartitionGraph, abnormal: PartitionGraph,
-                     cfg: PageRankConfig) -> Tuple[Setup, Setup]:
+                     cfg: PageRankConfig, init=None) -> Tuple[Setup, Setup]:
     """Both partitions' set-up in plain PyTorch: the normal partition's
-    preference without the anomaly, the abnormal one's with it."""
-    return partition_setup_plain(normal, False, cfg), partition_setup_plain(abnormal, True, cfg)
+    preference without the anomaly, the abnormal one's with it; with a
+    warm ``init`` (sv_n, rv_n, sv_a, rv_a), its start vectors
+    (``warm_override_plain``)."""
+    out = partition_setup_plain(normal, False, cfg), partition_setup_plain(abnormal, True, cfg)
+    if init is None:
+        return out
+    warm = []
+    for g, (pref, sv, rv), sv_i, rv_i in zip((normal, abnormal), out, init[0::2], init[1::2]):
+        sv, rv = warm_override_plain(g, sv, rv, sv_i, rv_i)
+        warm.append((pref, sv, rv))
+    return tuple(warm)
 
 
 class KernelConfig(NamedTuple):
@@ -267,8 +296,8 @@ def _check(normal: PartitionGraph, abnormal: PartitionGraph) -> Tuple[int, int]:
 # The argument block of ``mr_rank_setup_launch`` (csrc ``Word``): each
 # partition's nine pointers and trace pad, then windows, v, phi's float32
 # bits, paper, form, cluster, grid, hold, partial, stamps, device,
-# stream.
-ARGS = struct.Struct("<32q")
+# stream, K19's four init vectors (or 0) and the grid form's warm flags.
+ARGS = struct.Struct("<37q")
 # The phases a launch stamps (csrc kStamps): the rows form its start,
 # its columns in registers, its tile's nodes, the row's sums, its
 # writes; the grid form its start, phase 1, sv0, the barrier, phase 2.
@@ -287,22 +316,45 @@ def f32_bits(value: float) -> int:
     return struct.unpack("<i", struct.pack("<f", value))[0]
 
 
+def _check_init(normal: PartitionGraph, abnormal: PartitionGraph, init) -> None:
+    """A warm init as the kernel reads it: one window; four contiguous
+    float32 vectors on the partitions' device, [V], [T_n], [V], [T_a]."""
+    if normal.kind.dim() != 1:
+        raise ValueError("rank_setup: a warm init ranks one window (JAX dispatches warm "
+                         "windows one at a time)")
+    if len(init) != 4:
+        raise ValueError("rank_setup: init is (sv_n, rv_n, sv_a, rv_a)")
+    v = normal.op_present.shape[-1]
+    want = (v, normal.kind.shape[-1], v, abnormal.kind.shape[-1])
+    for t, n in zip(init, want):
+        if (t.shape != (n,) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != normal.kind.device):
+            raise ValueError(f"rank_setup: init vectors must be contiguous float32 {want} on "
+                             f"{normal.kind.device}")
+
+
 def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
                cfg: PageRankConfig, first_design: bool = False,
-               stamps: Optional[torch.Tensor] = None) -> Tuple[Setup, Setup]:
+               stamps: Optional[torch.Tensor] = None, init=None) -> Tuple[Setup, Setup]:
     """``rank_setup_plain``'s results: CPU tensors run it; CUDA tensors
     launch the set-up once for both partitions (and every window of a
     stacked group), in the form ``setup_plan`` picks, or raise.
     ``first_design``: the first design's kernel (a comparison, off the
     main path). ``stamps``: an int64 tensor of ``STAMPS`` on the card,
     where the rows and grid forms write the SM cycle count at each phase
-    of their first block (a measurement; None on the main path). The vectors are
+    of their first block (a measurement; None on the main path). ``init``:
+    K19's mapped (sv_n, rv_n, sv_a, rv_a) of one window, launched by the
+    rows or grid form's warm instance (the first design has none). The vectors are
     views of one fresh allocation, each
     contiguous. The host side is one check of the fields, one
     allocation, and one call with one packed argument block."""
     dev = normal.kind.device
+    if init is not None:
+        _check_init(normal, abnormal, init)
+        if first_design:
+            raise ValueError("rank_setup: the first design has no warm instance")
     if dev.type == "cpu":
-        return rank_setup_plain(normal, abnormal, cfg)
+        return rank_setup_plain(normal, abnormal, cfg, init)
     if dev.type != "cuda":
         raise ValueError(f"rank_setup: unsupported device {dev}")
     if cfg.preference not in PREFERENCES:
@@ -313,12 +365,15 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
     plan = _plan(t_n, t_a, windows, v, index, first_design)
     # pref, rv0 (t_pad each), sv0 (v) per partition, then the tile nodes
     # (the grid form's and the first design's).
+    # With a warm init the grid form also takes its flag words (int32):
+    # one a tree item, two a block.
+    flags = plan.tree_items + 2 * plan.grid if init is not None and plan.form == "grid" else 0
     sizes = (windows * t_n, windows * t_n, windows * v, windows * t_a, windows * t_a,
-             windows * v, 0 if plan.form == "rows" else 2 * plan.tree_items)
+             windows * v, 0 if plan.form == "rows" else 2 * plan.tree_items, flags)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     views = torch.split_with_sizes(flat, sizes)
     if normal.kind.dim() > 1:
-        views = [t.view(windows, n) for t, n in zip(views, (t_n, t_n, v, t_a, t_a, v))]
+        views = [t.view(windows, n) for t, n in zip(views[:6], (t_n, t_n, v, t_a, t_a, v))]
     at = flat.data_ptr()
     ptrs = []
     for n in sizes:
@@ -338,18 +393,23 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
         *words, windows, v, f32_bits(cfg.phi), int(cfg.preference == "paper"),
         FORMS.index(plan.form), plan.cluster, plan.grid, plan.hold,
         ptrs[6] if sizes[6] else 0, 0 if stamps is None else stamps.data_ptr(), index,
-        torch._C._cuda_getCurrentRawStream(index)))
+        torch._C._cuda_getCurrentRawStream(index),
+        *([0] * 4 if init is None else [t.data_ptr() for t in init]),
+        ptrs[7] if flags else 0))
     if rc != 0:
         raise RuntimeError(
             f"rank_setup launch failed: {lib.mr_rank_setup_error_string(rc).decode()}"
         )
     rank_setup.launches += 1
+    if init is not None:
+        rank_setup.warm_launches += 1
     return (views[0], views[2], views[1]), (views[3], views[5], views[4])
 
 
-# Launches of the set-up kernel (a plain int; rank_setup is the one place
-# that launches it).
+# Launches of the set-up kernel, and of those its warm instance (K19)
+# (plain ints; rank_setup is the one place that launches it).
 rank_setup.launches = 0
+rank_setup.warm_launches = 0
 
 
 def build_command(out: Path) -> List[str]:

@@ -20,9 +20,9 @@ content predates the append, dropping the tail for good; and rewriting
 a full-table .npz every poll would be a second O(file) cost. The full
 re-parse is needed here (the window cursor re-ranks windows whose spans
 straddle polls, so the whole table must exist). ``TailTracker`` also
-keeps the byte-offset cursor (``read_appended``) that the JAX package's
-streaming tail uses to feed its parser only the appended lines; the
-stream engine is not ported, and this loop does not call it.
+keeps the byte-offset cursor (``read_appended``) that the stream lane's
+tail (``stream.sources.FileTailSource``) uses to feed its parser only the
+appended lines; this loop does not call it.
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ log = logging.getLogger("microrank_tpu_torch.pipeline.follow")
 
 class TailTracker:
     """Tail-poll bookkeeping, the one source of truth for the tail rules
-    (the JAX package's stream engine shares it; here the follow loop
-    below uses it):
+    (the follow loop below and the stream lane's ``FileTailSource``):
 
     * growth detection (``size == last`` counts idle);
     * rotation/truncation (``size < last``): counted

@@ -35,7 +35,7 @@ same decode runs over it.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,25 +76,46 @@ def _leaf_entries(part, off: int):
     return tuple(entries), off
 
 
-def pack_graph_blob(graph, pin: bool = False) -> Tuple[torch.Tensor, BlobLayout]:
+def _extra_entries(extra, off: int):
+    """Entries of arrays riding after the graph (``init0``, ``init1``,
+    ...: K19's mapped init), each at an aligned offset."""
+    align = ALIGN_BYTES // _WORD
+    entries = []
+    for i, arr in enumerate(extra):
+        off = -(-off // align) * align
+        n_words = (arr.nbytes + _WORD - 1) // _WORD
+        entries.append((f"init{i}", str(arr.dtype), tuple(arr.shape), off, n_words))
+        off += n_words
+    return tuple(entries), off
+
+
+def pack_graph_blob(graph, pin: bool = False, extra=()) -> Tuple[torch.Tensor, BlobLayout]:
     """Host side: the graph's leaves written straight into one uint8
     buffer (pinned with ``pin``; the gaps between leaves zeroed), and
-    the layout describing it. Raises where pinning fails: there is no
-    fallback to the per-leaf path."""
+    the layout describing it. ``extra``: host arrays packed after the
+    graph (a third entry of the layout; the warm program's init). Raises
+    where pinning fails: there is no fallback to the per-leaf path."""
     n_entries, off = _leaf_entries(graph.normal, 0)
     a_entries, off = _leaf_entries(graph.abnormal, off)
+    extra = [np.ascontiguousarray(x) for x in extra]
+    x_entries, off = _extra_entries(extra, off)
     buf = torch.empty(max(off, 1) * _WORD, dtype=torch.uint8, pin_memory=pin)
     u8 = buf.numpy()
     at = 0
-    for part, entries in ((graph.normal, n_entries), (graph.abnormal, a_entries)):
+    sources = [(entries, lambda f, part=part: _leaf(part, f))
+               for part, entries in ((graph.normal, n_entries), (graph.abnormal, a_entries))]
+    if extra:
+        sources.append((x_entries, lambda f: extra[int(f[4:])]))
+    for entries, leaf in sources:
         for f, _, _, o, _ in entries:
-            b = np.ascontiguousarray(_leaf(part, f)).view(np.uint8).reshape(-1)
+            b = np.ascontiguousarray(leaf(f)).view(np.uint8).reshape(-1)
             start = o * _WORD
             u8[at:start] = 0
             u8[start:start + b.size] = b
             at = start + b.size
     u8[at:] = 0
-    return buf, (n_entries, a_entries)
+    layout = (n_entries, a_entries) + ((x_entries,) if extra else ())
+    return buf, layout
 
 
 def _decode_leaf(buf: torch.Tensor, dtype_str: str, shape: Tuple[int, ...], off: int,
@@ -119,9 +140,19 @@ def unpack_leaves(buf: torch.Tensor, layout: BlobLayout) -> Tuple[Dict[str, torc
 
 def unpack_graph_blob(buf: torch.Tensor, layout: BlobLayout) -> WindowGraph:
     """Device side: the WindowGraph whose every leaf is a view of
-    ``buf`` (on ``buf``'s device)."""
-    parts = [PartitionGraph(**leaves) for leaves in unpack_leaves(buf, layout)]
+    ``buf`` (on ``buf``'s device); a layout's extra arrays are left out
+    (``unpack_extra``)."""
+    parts = [PartitionGraph(**leaves) for leaves in unpack_leaves(buf, layout[:2])]
     return WindowGraph(normal=parts[0], abnormal=parts[1])
+
+
+def unpack_extra(buf: torch.Tensor, layout: BlobLayout) -> Tuple[torch.Tensor, ...]:
+    """The extra arrays packed after the graph (``pack_graph_blob(...,
+    extra=...)``), as views of ``buf`` in their order."""
+    if len(layout) < 3:
+        return ()
+    leaves = unpack_leaves(buf, layout[2:])[0]
+    return tuple(leaves[f"init{i}"] for i in range(len(leaves)))
 
 
 def _account_staging(graph, path: str, n_transfers: int) -> None:
@@ -134,24 +165,34 @@ def _account_staging(graph, path: str, n_transfers: int) -> None:
     record_staging(path, total, n_transfers, pad)
 
 
-def stage_graph(graph, device, blob: bool) -> Tuple[WindowGraph, Optional[torch.Tensor]]:
+def stage_graph(graph, device, blob: bool, extra=()
+                ) -> Tuple[WindowGraph, Optional[torch.Tensor]]:
     """The host graph on ``device``: blob-staged (one buffer, one copy,
     typed views; on CUDA the pinned host buffer is returned beside the
     graph, to be held until the program's outputs are fetched), or leaf
     by leaf (``blob=False``: one copy per field of each partition).
-    Returns (graph, pinned blob or None)."""
+    ``extra`` (host arrays, the warm program's init) rides the same
+    blob; the graph then comes back as (graph, extra tensors). Returns
+    (graph, pinned blob or None)."""
     from .convert import graph_from_numpy
 
     device = torch.device(device)
+    on_card = device.type == "cuda"
     if not blob:
         _account_staging(graph, "tree", 2 * len(PartitionGraph._fields))
-        return graph_from_numpy(graph, device), None
-    on_card = device.type == "cuda"
-    host, layout = pack_graph_blob(graph, pin=on_card)
+        dgraph = graph_from_numpy(graph, device)
+        if not extra:
+            return dgraph, None
+        from .torch_cuda import warm_init_on
+
+        return (dgraph, warm_init_on(dgraph, extra)), None
+    host, layout = pack_graph_blob(graph, pin=on_card, extra=extra)
     _account_staging(graph, "blob", 1)
-    if not on_card:
-        return unpack_graph_blob(host, layout), None
-    return unpack_graph_blob(host.to(device, non_blocking=True), layout), host
+    dev_buf = host.to(device, non_blocking=True) if on_card else host
+    dgraph = unpack_graph_blob(dev_buf, layout)
+    if extra:
+        dgraph = (dgraph, unpack_extra(dev_buf, layout))
+    return dgraph, (host if on_card else None)
 
 
 def stage_rank_window(
@@ -227,3 +268,70 @@ def stage_rank_windows_batched(
     return stage_rank_window(
         batched, pagerank_cfg, spectrum_cfg, kernel, device, blob, conv_trace=conv_trace
     )
+
+
+def stage_rank_window_warm(graph, init, pagerank_cfg, spectrum_cfg, kernel: str, device,
+                           blob: bool):
+    """The fused pair program (JAX's ``blob.stage_rank_window_warm``,
+    K19): stage ONE window's host graph (``host_subset``-stripped) and
+    its mapped ``init`` (the previous window's state, or None for a cold
+    seed that still exports its state) as one blob in one copy, and
+    issue ``rank_window_warm_core`` over it. Returns (the nine outputs,
+    still on the device; the pinned blob or None): fetch them with one
+    ``pack_rank_outputs`` / ``unpack_rank_outputs``; entries [5:9] are
+    the state the next window maps."""
+    from . import torch_cuda
+
+    counts = torch_cuda.host_counts(graph, kernel)
+    extra = () if init is None else tuple(np.asarray(x, np.float32) for x in init)
+    staged_graph, pinned = stage_graph(graph, device, blob, extra)
+    dgraph, dinit = staged_graph if extra else (staged_graph, None)
+    dgraph = torch_cuda.device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)
+    return torch_cuda.rank_window_warm_core(dgraph, dinit, pagerank_cfg, spectrum_cfg,
+                                            kernel), pinned
+
+
+class StagedWindows(NamedTuple):
+    """The staging half's handle (``stage_windows_batched``): the graph
+    on the device (a stacked group, or one window), the pinned blob it
+    was copied from, and the host counts its layouts take on trust."""
+
+    graph: WindowGraph
+    pinned: Optional[torch.Tensor]
+    counts: object
+    kernel: str
+
+
+def stage_windows_batched(batched, kernel: str, device, blob: bool) -> StagedWindows:
+    """Staging half of ``stage_rank_windows_batched`` (JAX's
+    ``stage_windows_batched``): the host counts, the pack and the
+    ``non_blocking`` copy to the card, issued on the current stream and
+    not waited for. ``batched``: a stacked group
+    (``stack_window_graphs``) or one window, ``host_subset``-stripped.
+    The dispatch router issues the next batch's staging here behind the
+    current batch's program."""
+    from . import torch_cuda
+
+    counts = torch_cuda.host_counts(batched, kernel)
+    dgraph, pinned = stage_graph(batched, device, blob)
+    return StagedWindows(dgraph, pinned, counts, kernel)
+
+
+def dispatch_windows_staged(staged: StagedWindows, pagerank_cfg, spectrum_cfg,
+                            conv_trace: bool = False):
+    """Dispatch half (JAX's ``dispatch_windows_staged``): the layouts
+    (``device_subset``) and the rank program over a staged handle, the
+    stacked program (K18) for a group, the one-window program for one
+    window, packed_blocked's block budget divided by B as JAX's batched
+    program divides it. Returns the device outputs (top_idx,
+    top_scores, n_valid, and with ``conv_trace`` residuals, n_iters).
+    JAX's donation of the staged blob has no counterpart: the
+    program's leaves are views of the staged buffer."""
+    from . import torch_cuda
+
+    windows = torch_cuda.stacked_windows(staged.graph)
+    cfg = torch_cuda.divide_block_budget(pagerank_cfg, staged.kernel, windows or 1)
+    dgraph = torch_cuda.device_subset(staged.graph, staged.kernel, cfg.packed_block_bytes,
+                                      staged.counts)
+    outs = torch_cuda.rank_window_traced_core(dgraph, cfg, spectrum_cfg, staged.kernel)
+    return outs if conv_trace else outs[:3]

@@ -15,14 +15,12 @@ partitions) take one or two launches, built for the window by
   ``coo_matvec``, the function K1 computes): all six SpMVs through K1
   in one call (``ops.spmv.coo_spmv_group``) over the COO incidence
   arrays;
-* ``csr`` (K10): the same six SpMVs in one K1 call, its work list read
-  straight from the build's CSR views (``ops.spmv.indptr_layout``, no
-  row sort: ``csr_layouts``). The op-major copies are a stable counting
-  scatter of the trace-major entries, so every row holds the pallas
-  row's entries in its order, and the products are the pallas path's,
-  bit for bit; JAX's compensated prefix sums (an XLA device for a
-  scatter-free row sum on the TPU) have no counterpart: K1's row fold
-  is fixed-order by construction;
+* ``csr`` (K10): JAX's function in JAX's order of sums
+  (``ops.scan.csr_scan_spmv``, ``window_scan_group``): each matrix's
+  entry products read from the build's CSR views, their double-f32
+  prefix scan in the combine tree of JAX's ``lax.associative_scan``,
+  and each row's difference of the scans at its ends, all six matrices
+  of a step in one call of ``csrc/csr_scan.cu``;
 * ``dense`` / ``dense_bf16`` (K12): the transition matrices densified
   once a window (``ops.dense.densify``), then all six products of a
   step in one launch of ``csrc/dense_mv.cu`` (``ops.dense.dense_matvecs``;
@@ -61,6 +59,15 @@ device_checks``) are the same program with the epilogue's check word
 device-to-host copy (``pack_rank_outputs(..., checked=True)``), and the
 fetch raises ``DeviceCheckError`` with JAX's message of the first
 failed check.
+
+K19, the warm-start program (JAX's ``rank_window_warm_core``,
+``jax_tpu.py:1578``): ``rank_window_warm_core`` runs the same program
+from a mapped init (``rank_backends.warm.map_warm_state``), which the
+set-up's warm instance writes in place of the cold start vectors
+(``ops.setup.rank_setup(..., init=...)``), and returns the traced
+program's five outputs plus the state tail (score_n [V], rv_n [T_n],
+score_a [V], rv_a [T_a]) the next window maps; ``rank_window_warm``
+fetches all nine in one copy. One window only, as in JAX.
 
 K13, the program under every spectrum formula (JAX's
 ``rank_window_all_methods_core``, ``jax_tpu.py:1373``):
@@ -144,6 +151,7 @@ from ..ops.epilogue import (  # noqa: F401
     window_spectrum,
 )
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
+from ..ops.scan import ScanGroup, csr_scan_spmv, scan_group
 from ..ops.setup import partition_setup_plain, rank_setup
 from ..ops.step import StepWindow, step_plan, step_scratch
 from ..ops.spmv import (
@@ -299,6 +307,26 @@ def csr_layouts(g: PartitionGraph, checked: bool = False
         indptr_layout(g.ss_indptr, g.ss_parent, g.ss_val, n_x=v),
         indptr_layout(g.inc_indptr_trace, g.inc_op, g.rs_val, n_x=v),
     )
+
+
+def window_scan_group(graph: WindowGraph, checked: bool = False) -> ScanGroup:
+    """K10's group of one power-iteration step: the three matrices of the
+    normal partition, then of the abnormal one, read from the CSR views
+    as JAX's ``csr_rowsum`` reads them (p_sr over ``inc_indptr_op``,
+    ``inc_trace_opmajor``, ``sr_val_opmajor``; p_ss over ``ss_indptr``,
+    ``ss_parent``, ``ss_val``; p_rs over ``inc_indptr_trace``, ``inc_op``,
+    ``rs_val``), from x slots ``STEP_X_SLOTS``; each window of a stacked
+    group its own scans. ``checked``: the columns were checked on the
+    host (``host_counts``), so nothing here syncs."""
+    mats, n_x = [], []
+    for g in (graph.normal, graph.abnormal):
+        _require_csr_views(g)
+        v, t_pad = int(g.cov_unique.shape[-1]), int(g.kind.shape[-1])
+        mats += [(g.inc_indptr_op, g.inc_trace_opmajor, g.sr_val_opmajor),
+                 (g.ss_indptr, g.ss_parent, g.ss_val),
+                 (g.inc_indptr_trace, g.inc_op, g.rs_val)]
+        n_x += [t_pad, v, v]
+    return scan_group(mats, STEP_X_SLOTS, n_x, stacked_windows(graph), checked=checked)
 
 
 def _host_csr_layouts(g) -> list:
@@ -719,7 +747,7 @@ def ss_layout(g: PartitionGraph, kernel: str, checked: bool = False) -> RowLayou
 # pair (``ss_host_counts``).
 PATTERN_KERNELS = ("kind", "packed", "packed_bf16", "packed_blocked")
 # Routes whose step is K1's six SpMVs in one launch, and the dense ones.
-K1_KERNELS = ("pallas", "coo", "csr")
+K1_KERNELS = ("pallas", "coo")
 DENSE_KERNELS = ("dense", "dense_bf16")
 
 
@@ -870,6 +898,8 @@ def _step_group_type(kernel: str):
     builds for ``kernel``."""
     if kernel == "pcsr":
         return PcsrGroup
+    if kernel == "csr":
+        return ScanGroup
     return DenseGroup if kernel in DENSE_KERNELS else SpmvGroup
 
 
@@ -883,6 +913,7 @@ def _rank_program(
     spectrum_cfg: SpectrumConfig,
     kernel: str,
     epilogue: str = "one_method",
+    init=None,
 ) -> _Program:
     """The rank program: the set-up (one ``rank_setup`` call for both
     partitions), the 25 steps, the epilogue (one launch: the finish of
@@ -892,7 +923,9 @@ def _rank_program(
     (JAX's ``rank_window_checked_core``), "checked_traced" over the
     residual trace too (``rank_window_checked_traced_core``);
     "all_methods" (K13) ranks by every formula
-    (``rank_epilogue_all_methods``, [(B,) M, k])."""
+    (``rank_epilogue_all_methods``, [(B,) M, k]). ``init``: K19's mapped
+    start vectors (sv_n, rv_n, sv_a, rv_a) on the graph's device, one
+    window, written by the set-up in place of the cold ones."""
     _check_kernel(kernel)
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r} (expected one of {EPILOGUES})")
@@ -900,7 +933,11 @@ def _rank_program(
     windows = stacked_windows(graph)
     lead = () if windows is None else (windows,)
     int8 = kernel == "kind" and cfg.kind_precision == "int8"
-    (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg)
+    if init is None:
+        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg)
+    else:
+        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg,
+                                                                init=init)
     pattern_route = kernel in PATTERN_KERNELS
     if (
         not isinstance(graph.spmv_group, _step_group_type(kernel))
@@ -913,6 +950,8 @@ def _rank_program(
     if not pattern_route:
         if kernel == "pcsr":
             six = pcsr_spmv_group
+        elif kernel == "csr":
+            six = csr_scan_spmv
         else:
             six = dense_matvecs if kernel in DENSE_KERNELS else coo_spmv_group
 
@@ -1045,6 +1084,50 @@ def rank_window_checked_traced(graph, pagerank_cfg, spectrum_cfg, kernel: str = 
         rank_window_checked_traced_core(graph, pagerank_cfg, spectrum_cfg, kernel), checked=True)
 
 
+def warm_init_on(graph: WindowGraph, init):
+    """A mapped init (four host arrays or tensors) as the set-up reads it:
+    contiguous float32 tensors on the graph's device, copied from pinned
+    memory so that nothing waits on the stream; None stays None."""
+    if init is None:
+        return None
+    dev = graph.normal.kind.device
+    out = []
+    for x in init:
+        t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        t = t.to(torch.float32)
+        if t.device != dev:
+            t = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t.to(dev)
+        out.append(t.contiguous())
+    return tuple(out)
+
+
+def rank_window_warm_core(graph: WindowGraph, init, pagerank_cfg: PageRankConfig,
+                          spectrum_cfg: SpectrumConfig, kernel: str = "coo"):
+    """JAX's ``rank_window_warm_core`` (K19): the traced program started
+    from ``init`` (the previous window's state mapped onto this one,
+    ``map_warm_state``; None: a cold start that still exports its state),
+    returning (top_idx, top_scores, n_valid, residuals, n_iters,
+    score_n [V], rv_n [T_n], score_a [V], rv_a [T_a]), still on the
+    device. A stacked group raises: JAX dispatches warm windows one at a
+    time."""
+    if stacked_windows(graph) is not None:
+        raise ValueError("rank_window_warm_core ranks one window; JAX dispatches warm windows "
+                         "one at a time")
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel,
+                        init=warm_init_on(graph, init))
+    e = out.epilogue
+    return (e.top_idx, e.top_scores, e.n_valid, out.residuals, out.n_iters,
+            e.score_n, out.rv_n, e.score_a, out.rv_a)
+
+
+def rank_window_warm(graph: WindowGraph, init, pagerank_cfg: PageRankConfig,
+                     spectrum_cfg: SpectrumConfig, kernel: str = "coo"):
+    """``rank_window_warm_core`` fetched in one device-to-host copy: the
+    nine outputs on the host."""
+    return fetch_rank_outputs(
+        rank_window_warm_core(graph, init, pagerank_cfg, spectrum_cfg, kernel))
+
+
 def rank_window_all_methods_core(graph: WindowGraph, pagerank_cfg: PageRankConfig,
                                  spectrum_cfg: SpectrumConfig, kernel: str = "coo"):
     """JAX's ``rank_window_all_methods_core`` (K13): one window ranked
@@ -1122,8 +1205,9 @@ def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None,
     return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs), staged, checked)
 
 
-# The dtypes of rank_window_traced_core's outputs, in order.
-_OUT_DTYPES = (np.int32, np.float32, np.int32, np.float32, np.int32)
+# The dtypes of rank_window_traced_core's outputs, in order, then the
+# warm program's state tail (score_n, rv_n, score_a, rv_a).
+_OUT_DTYPES = (np.int32, np.float32, np.int32, np.float32, np.int32) + (np.float32,) * 4
 
 
 def unpack_rank_outputs(p: PackedOutputs):
@@ -1222,7 +1306,7 @@ def device_subset(
     own, so that two windows in flight never share it): for "pallas"
     and "coo", K1's work list of the six SpMVs (``window_spmv_group``
     over the COO arrays);
-    for "csr", the same over the CSR views (``csr_layouts``); for "dense"
+    for "csr", K10's scan group over the CSR views (``window_scan_group``); for "dense"
     and "dense_bf16", the densified matrices (``ops.dense.dense_group``,
     checked once);
     for "pcsr", the pcsr kernel's group (``window_pcsr_group``: K1's
@@ -1243,8 +1327,10 @@ def device_subset(
     windows = stacked_windows(graph)
     scratch = step_scratch(graph.normal.kind.device, windows or 1)
     if kernel in K1_KERNELS:
-        layouts_of = csr_layouts if kernel == "csr" else spmv_layouts
-        return graph._replace(spmv_group=window_spmv_group(graph, layouts_of, counts),
+        return graph._replace(spmv_group=window_spmv_group(graph, spmv_layouts, counts),
+                              step_scratch=scratch)
+    if kernel == "csr":
+        return graph._replace(spmv_group=window_scan_group(graph, checked=counts is not None),
                               step_scratch=scratch)
     if kernel in DENSE_KERNELS:
         group = dense_group(graph, kernel == "dense_bf16", STEP_X_SLOTS)

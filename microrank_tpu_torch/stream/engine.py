@@ -1,0 +1,621 @@
+"""The continuous RCA engine (``cli stream``; counterpart of
+``microrank_tpu/stream/engine.py``).
+
+An unbounded span source feeds the event-time windower
+(``stream.window``); every closed window is admitted (``admit_table``
+over its rows), detected by the C++ detector against the online SLO
+baseline (``stream.baseline``), and only abnormal windows pay for the
+C++ graph build and a rank program on the card: the dispatch counter
+staying below the window counter is the gate working.
+
+Overlap: abnormal windows' host builds run on the build pool
+(``stream.pool``) while this thread, the only one issuing work to the
+card, ranks the previous window; healthy windows drain the pipeline
+first, so the incident lifecycle (``stream.incidents``) sees windows
+strictly in order.
+
+Dispatch goes through the router (``dispatch.DispatchRouter``):
+abnormal windows queued behind the head that share its bucket coalesce
+into one stacked program (a contiguous prefix of the queue), and the
+next window's staging is issued behind the current program.
+``RuntimeConfig.warm_start`` ranks each window through the warm
+program (K19) from the previous ranked window's mapped state while an
+incident is open; ``fused_pair`` does the same through the router's
+fused program (one blob with the init, nine outputs in one copy);
+``device_checks`` ranks one window at a time through the checked
+program (K14).
+
+Baseline poisoning guard: baselines update only on healthy windows and
+freeze while an incident is open; the warm state is dropped when the
+last incident resolves.
+
+Not ported here (ROADMAP.md, port queue item 11): JAX's crash-only
+checkpoint and ``--resume``, its chaos seams and retry policies, the
+flight recorder, the trace warehouse, the explain bundle, the unified
+device scheduler, the compile-cache warmup manifest, the source-boundary
+pre-admission (the C++ loader never yields a row without a parsed
+time), and the incremental delta build.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Deque, List, Optional
+
+import numpy as np
+
+from ..config import MicroRankConfig
+from ..pipeline.results import ResultSink, WindowResult
+from ..pipeline.table_runner import StageTimings, assert_finite_scores
+from .baseline import OnlineBaseline
+from .incidents import IncidentTracker, JsonlIncidentSink, WebhookIncidentSink
+from .pool import BuildWorkerPool
+from .window import ClosedWindow, StreamWindower
+
+INCIDENT_LOG_NAME = "incidents.jsonl"
+# A window whose admitted share of rows falls below this is refused
+# whole (JAX's IngestConfig.min_admission_ratio default).
+MIN_ADMISSION_RATIO = 0.5
+
+log = logging.getLogger("microrank_tpu_torch.stream")
+
+
+@dataclass
+class StreamWindowResult(WindowResult):
+    """A stream window's result: the table lane's fields plus JAX's
+    router and admission fields."""
+
+    route: Optional[str] = None
+    batch_windows: Optional[int] = None
+    ingest_rejected: int = 0
+    degraded_input: bool = False
+
+
+@dataclass
+class _PendingRank:
+    """One abnormal window: build submitted, rank pending."""
+
+    closed: ClosedWindow
+    result: StreamWindowResult
+    future: object              # -> (graph, op_names, kernel, ectx)
+    trace: object = None        # _WindowTrace
+    table: object = None        # the admitted window table
+
+
+@dataclass
+class _WindowTrace:
+    """A window's root span context and its processing start."""
+
+    ctx: object
+    start_us: int
+    perf0: float
+
+
+@dataclass
+class StreamSummary:
+    windows: int = 0
+    ranked: int = 0
+    clean: int = 0
+    empty: int = 0
+    skipped: int = 0
+    warmup: int = 0
+    spans: int = 0
+    dispatches: int = 0
+    late_spans: int = 0
+    incidents_opened: int = 0
+    incidents_resolved: int = 0
+    results: List[WindowResult] = field(default_factory=list)
+
+
+class _JournalIncidentSink:
+    """Mirror incident transitions into the run journal."""
+
+    def __init__(self, journal):
+        self.journal = journal
+
+    def emit(self, event: dict) -> None:
+        self.journal.emit(event["event"], **{k: v for k, v in event.items() if k != "event"})
+
+
+class StreamEngine:
+    """Drive one span source through windowing, gated RCA, incidents."""
+
+    def __init__(self, config: MicroRankConfig, source, out_dir=None, normal_table=None,
+                 incident_sinks: Optional[List] = None, device=None):
+        from ..dispatch import DispatchRouter
+        from ..scenarios.policy import apply_tuned_policy
+        from ..utils.device import resolve_device
+
+        sc = config.stream
+        self.source = source
+        self.device = resolve_device(config.runtime.device if device is None else device)
+        self.out_dir = Path(out_dir) if out_dir is not None else None
+        self.windower = StreamWindower(
+            width_us=int(sc.window_minutes * 60e6),
+            slide_us=None if sc.slide_minutes is None else int(sc.slide_minutes * 60e6),
+            lateness_us=int(sc.allowed_lateness_seconds * 1e6),
+        )
+        if normal_table is None:
+            normal_table = getattr(source, "normal", None)
+        # Tuned-policy resolution (scenarios.policy), profiled by the
+        # seed table's counts as the table lane profiles its normal dump.
+        counts = None
+        if normal_table is not None:
+            counts = (int(normal_table.n_spans), len(normal_table.svc_op_names), None)
+        self.config, self.policy_resolution = apply_tuned_policy(config, lane="stream",
+                                                                 counts=counts)
+        config = self.config
+        self.baseline = OnlineBaseline(decay=sc.baseline_decay,
+                                       slo_stat=config.detector.slo_stat,
+                                       min_windows=sc.min_healthy_windows)
+        if normal_table is not None:
+            self.baseline.seed(normal_table)
+        self.pool = BuildWorkerPool(sc.build_workers, name="mr-stream-build")
+        self.journal = None
+        self.sink = None
+        if self.out_dir is not None:
+            self.sink = ResultSink(self.out_dir, overwrite_csv=config.compat.overwrite_results)
+            if config.runtime.telemetry:
+                from ..obs import JOURNAL_NAME, RunJournal
+
+                self.journal = RunJournal(self.out_dir / JOURNAL_NAME)
+        sinks = list(incident_sinks or [])
+        if self.out_dir is not None:
+            sinks.append(JsonlIncidentSink(self.out_dir / INCIDENT_LOG_NAME))
+            if self.journal is not None:
+                sinks.append(_JournalIncidentSink(self.journal))
+        if sc.webhook_url:
+            sinks.append(WebhookIncidentSink(sc.webhook_url, timeout=sc.webhook_timeout_seconds,
+                                             max_attempts=sc.webhook_retry_max,
+                                             max_queue=sc.webhook_queue))
+        self.tracker = IncidentTracker(
+            top_k=sc.fingerprint_top_k, resolve_after=sc.resolve_after_windows,
+            cooldown_windows=sc.cooldown_windows, jaccard=sc.fingerprint_jaccard,
+            score_drift=sc.fingerprint_score_drift, sinks=sinks,
+        )
+        self.router = DispatchRouter(config, device=self.device)
+        self._pending: Deque[_PendingRank] = deque()
+        # Warm-start seam: the previous ranked window's converged state
+        # (rank_backends.warm.WarmState), threaded into the next
+        # window's rank while an incident is open; dropped when none is.
+        self._warm_state = None
+        self.summary = StreamSummary()
+
+    def queue_depth(self) -> int:
+        return len(self._pending)
+
+    def run(self) -> StreamSummary:
+        from ..ingest import configure_quarantine
+        from ..obs.metrics import ensure_catalog
+        from ..obs.spans import configure_tracer
+
+        ensure_catalog()
+        configure_tracer(self.config.obs)  # a fresh span ring per run
+        configure_quarantine(self.config.ingest, default_dir=self.out_dir)
+        sc = self.config.stream
+        run_t0 = time.monotonic()
+        if self.journal is not None:
+            self.journal.run_start(
+                pipeline="stream", kernel=self.config.runtime.kernel,
+                pad_policy=self.config.runtime.pad_policy, window_minutes=sc.window_minutes,
+                slide_minutes=sc.slide_minutes, lateness_seconds=sc.allowed_lateness_seconds,
+                seeded=self.baseline.seeded, resumed=False,
+            )
+            self.journal.emit("policy", **self.policy_resolution.journal())
+        try:
+            done = False
+            for batch in self.source:
+                for w in self.windower.add(batch):
+                    self._process(w)
+                    if self._max_reached():
+                        done = True
+                        break
+                if done:
+                    break
+            if not done:
+                for w in self.windower.flush():
+                    self._process(w)
+                    if self._max_reached():
+                        break
+            self._drain_all()
+        finally:
+            self.pool.shutdown()
+            self.summary.late_spans = self.windower.dropped_late
+            self._flush_webhooks()
+            if self.journal is not None:
+                elapsed = max(1e-9, time.monotonic() - run_t0)
+                self.journal.run_end(
+                    windows=self.summary.windows, ranked=self.summary.ranked,
+                    dispatches=self.summary.dispatches, spans=self.summary.spans,
+                    spans_per_second=round(self.summary.spans / elapsed, 2),
+                    late_spans=self.summary.late_spans,
+                    incidents_opened=self.summary.incidents_opened,
+                    incidents_resolved=self.summary.incidents_resolved,
+                )
+            if self.out_dir is not None and self.config.runtime.telemetry:
+                from ..obs.registry import get_registry
+
+                get_registry().write_snapshot(self.out_dir)
+        return self.summary
+
+    def _flush_webhooks(self) -> None:
+        for sink in self.tracker.sinks:
+            flush = getattr(sink, "flush", None)
+            if callable(flush):
+                try:
+                    flush()
+                except Exception:  # noqa: BLE001 - the drain must complete
+                    pass
+
+    def _max_reached(self) -> bool:
+        mw = self.config.stream.max_windows
+        return bool(mw) and self.summary.windows >= mw
+
+    # ---------------------------------------------------------- windows
+    def _process(self, closed: ClosedWindow) -> None:
+        from ..ingest import admit_table
+        from ..obs.spans import get_tracer
+
+        tracer = get_tracer()
+        trace = _WindowTrace(ctx=tracer.new_trace(f"win-{closed.start}"),
+                             start_us=int(time.time() * 1e6), perf0=time.monotonic())
+        self.summary.windows += 1
+        self.summary.spans += closed.n_spans
+        result = StreamWindowResult(start=closed.start, end=closed.end, anomaly=False)
+        if closed.n_spans == 0:
+            self._drain_all()
+            result.skipped_reason = "empty_window"
+            self._finalize(result, "empty", trace=trace)
+            return
+        table = closed.table
+        if self.config.ingest.enabled:
+            timings0 = StageTimings(ctx=trace.ctx)
+            with timings0.stage("admit"):
+                table, rejected = admit_table(table, self.config.ingest, source="stream")
+            n_rejected = sum(rejected.values())
+            result.ingest_rejected = n_rejected
+            result.degraded_input = n_rejected > 0
+            result.timings.update(timings0.as_dict())
+            if n_rejected and self.journal is not None:
+                self.journal.emit("ingest", stage="window", window_start=result.start,
+                                  rejected=rejected)
+            if table.n_spans / max(closed.n_spans, 1) < MIN_ADMISSION_RATIO:
+                self._drain_all()
+                log.warning("window %s: admission ratio %.2f below %.2f — refusing the window "
+                            "whole", result.start, table.n_spans / closed.n_spans,
+                            MIN_ADMISSION_RATIO)
+                result.skipped_reason = "low_admission"
+                self._finalize(result, "skipped", trace=trace)
+                return
+            if table.n_spans == 0:
+                self._drain_all()
+                result.skipped_reason = "empty_window"
+                self._finalize(result, "empty", trace=trace)
+                return
+        if not self.baseline.ready:
+            # Cold start: feed the baseline, don't detect yet.
+            self._drain_all()
+            self.baseline.update(table)
+            result.n_traces = len(np.unique(table.trace_id))
+            result.skipped_reason = "baseline_warmup"
+            self._finalize(result, "warmup", table=table, trace=trace)
+            return
+        from ..graph.table_ops import detect_window_partition
+
+        timings = StageTimings(ctx=trace.ctx)
+        with timings.stage("detect"):
+            vocab, slo = self.baseline.snapshot()
+            mask, nrm, abn, _, rng = detect_window_partition(
+                table, int(table.start_us.min()), int(table.end_us.max()), vocab, slo,
+                self.config.detector, with_range=True)
+        result.timings.update(timings.as_dict())
+        flag = len(abn) >= self.config.detector.min_abnormal_traces
+        result.anomaly = bool(flag)
+        result.n_normal, result.n_abnormal = len(nrm), len(abn)
+        result.n_traces = len(nrm) + len(abn)
+        if not flag:
+            self._drain_all()
+            self._finalize(result, "clean", table=table, trace=trace)
+            return
+        if not len(nrm) or not len(abn):
+            self._drain_all()
+            result.skipped_reason = "degenerate_partition"
+            self._finalize(result, "skipped", trace=trace)
+            return
+        # Gate open: the host build on the pool, the rank on this thread
+        # once it lands (build N+1 overlaps rank N).
+        with tracer.attach(trace.ctx):
+            fut = self.pool.submit(self._prepare, table, mask, nrm, abn, rng)
+        self._pending.append(_PendingRank(closed, result, fut, trace, table=table))
+        while len(self._pending) >= max(1, self.config.stream.pipeline_windows):
+            self._rank_head()
+
+    # ---------------------------------------------------------- ranking
+    def _warm(self) -> bool:
+        rt = self.config.runtime
+        return bool((rt.warm_start or rt.fused_pair) and not rt.device_checks)
+
+    def _prepare(self, table, mask, nrm, abn, rng):
+        """The build-pool unit: the C++ build of the window (with the
+        column identity when a warm program maps its state), the kernel
+        resolved, the fields it never reads stripped. Returns (host
+        graph, op names, kernel, ExplainContext or None, build ms)."""
+        from ..explain import ExplainContext
+        from ..graph.build import aux_for_kernel, kind_dedup_ratio
+        from ..graph.table_ops import build_window_graph_from_table
+        from ..obs.metrics import record_kind_dedup
+        from ..obs.spans import get_tracer
+        from ..rank_backends.torch_cuda import choose_kernel, host_subset
+
+        t0 = time.perf_counter()
+        rt = self.config.runtime
+        warm = self._warm()
+        with get_tracer().span("build", service="pipeline"):
+            out = build_window_graph_from_table(
+                table, mask, nrm, abn, pad_policy=rt.pad_policy, min_pad=rt.min_pad,
+                aux=aux_for_kernel(rt.kernel), dense_budget_bytes=rt.dense_budget_bytes,
+                collapse=rt.collapse_kinds, row_range=rng,
+                kind_dedup_threshold=rt.kind_dedup_threshold, retain_columns=warm)
+            graph, op_names = out[0], out[1]
+            kernel = rt.kernel
+            if kernel == "auto":
+                kernel = choose_kernel(graph, rt.dense_budget_bytes, rt.prefer_bf16)
+            ratio = kind_dedup_ratio(graph)
+            record_kind_dedup(ratio)
+            ectx = None
+            if warm:
+                names = table.trace_names
+                ids_n = [names[int(c)] for c in out[2]]
+                ids_a = [names[int(c)] for c in out[3]]
+                ectx = ExplainContext.from_build(graph, ids_n, ids_a, *out[4])
+        build_ms = (time.perf_counter() - t0) * 1e3
+        return host_subset(graph, kernel), op_names, kernel, ectx, (ratio, build_ms)
+
+    def _drain_all(self) -> None:
+        while self._pending:
+            self._rank_head()
+
+    def _rank_head(self) -> None:
+        head = self._pending.popleft()
+        try:
+            graph, op_names, kernel, ectx, built = head.future.result()
+        except Exception as e:  # noqa: BLE001 - a bad window must not kill
+            # the engine; the window records the failure and the stream
+            # moves on.
+            log.error("window %s: graph build failed: %s", head.result.start, e)
+            head.result.skipped_reason = f"build_failed: {e}"
+            self._finalize(head.result, "skipped", trace=head.trace)
+            return
+        rt = self.config.runtime
+        warm = self._warm() and ectx is not None
+        group = [(head, graph, op_names, ectx, built)]
+        if not rt.device_checks and not warm:
+            group.extend(self._coalesce_burst(graph, kernel))
+        for p, _, _, _, (ratio, build_ms) in group:
+            p.result.queue_depth = len(self._pending)
+            p.result.kind_dedup = ratio
+            p.result.timings["build"] = round(build_ms, 3)
+        try:
+            if warm:
+                self._dispatch_rank_warm(head, graph, op_names, kernel, ectx)
+            elif rt.device_checks and len(group) == 1:
+                self._dispatch_rank(head.result, graph, op_names, kernel, trace=head.trace)
+            else:
+                self._dispatch_group(group, kernel)
+        except Exception as e:  # noqa: BLE001 - the same containment rule
+            for p, *_ in group:
+                log.error("window %s: rank failed: %s", p.result.start, e)
+                p.result.skipped_reason = f"rank_failed: {e}"
+                p.result.ranking = []
+                self._finalize(p.result, "skipped", trace=p.trace)
+            return
+        for p, *_ in group:
+            self._finalize(p.result, "ranked", table=p.table, trace=p.trace)
+
+    def _coalesce_burst(self, head_graph, kernel: str):
+        """Pending windows whose builds land in the head's bucket
+        coalesce into its dispatch: a contiguous prefix of the queue, so
+        the incident lifecycle still sees windows in order. Waiting on
+        the next build costs nothing: that window ranks next anyway."""
+        from ..dispatch import bucket_key
+
+        extra = []
+        cap = max(1, int(self.config.dispatch.coalesce_windows))
+        key = bucket_key(head_graph, kernel)
+        while self._pending and len(extra) + 1 < cap:
+            nxt = self._pending[0]
+            try:
+                g2, n2, k2, e2, b2 = nxt.future.result()
+            except Exception:  # noqa: BLE001 - surfaces on its own turn
+                break
+            if bucket_key(g2, k2) != key:
+                break
+            self._pending.popleft()
+            extra.append((nxt, g2, n2, e2, b2))
+        return extra
+
+    def _ranking(self, result, op_names, idx, scores, n, context):
+        names = [op_names[int(i)] for i in idx[:n]]
+        vals = [float(s) for s in scores[:n]]
+        if self.config.runtime.validate_numerics:
+            assert_finite_scores(vals, context)
+        result.ranking = list(zip(names, vals))
+
+    def _convergence(self, result, kernel, residuals, n_it):
+        from ..obs.metrics import record_convergence
+
+        res = np.asarray(residuals, dtype=np.float64)
+        n_it = int(n_it)
+        final = float(res[:, n_it - 1].max()) if n_it else float("nan")
+        record_convergence(kernel, n_it, final)
+        result.apply_convergence({"iterations": n_it, "final_residual": final})
+
+    def _count_dispatch(self) -> None:
+        from ..obs.metrics import record_stream_dispatch
+
+        record_stream_dispatch()
+        self.summary.dispatches += 1
+
+    def _dispatch_group(self, group, kernel: str) -> None:
+        """One router dispatch for a coalesced same-bucket group; the
+        next pending window's staging is issued behind it when its build
+        has landed."""
+        from ..obs.spans import get_tracer
+
+        conv = bool(self.config.runtime.convergence_trace)
+        graphs = [g for _, g, *_ in group]
+        next_batch = None
+        if self.config.dispatch.double_buffer and self._pending:
+            nxt = self._pending[0]
+            if nxt.future.done():
+                try:
+                    g2, _, k2, _, _ = nxt.future.result()
+                    next_batch = ([g2], k2)
+                except Exception:  # noqa: BLE001 - handled on its turn
+                    pass
+        head_trace = group[0][0].trace
+        t0 = time.monotonic()
+        with get_tracer().attach(head_trace.ctx if head_trace is not None else None):
+            outs, info = self.router.rank_batch(graphs, kernel, conv_trace=conv,
+                                                next_batch=next_batch)
+        self._count_dispatch()
+        batch_ms = (time.monotonic() - t0) * 1e3
+        for b, (p, _, op_names, _, _) in enumerate(group):
+            self._ranking(p.result, op_names, outs[0][b], outs[1][b], int(outs[2][b]),
+                          "stream window")
+            p.result.kernel = info.kernel
+            p.result.route = info.route
+            p.result.batch_windows = len(group)
+            p.result.timings["rank_ms"] = round(batch_ms / len(group), 3)
+            if conv:
+                self._convergence(p.result, info.kernel, outs[3][b], outs[4][b])
+
+    def _dispatch_rank(self, result, graph, op_names, kernel, trace=None) -> None:
+        """One window through the checked program (K14), which has no
+        stacked twin."""
+        from ..obs.spans import get_tracer
+        from ..rank_backends.blob import stage_rank_window
+        from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
+
+        tracer = get_tracer()
+        rt = self.config.runtime
+        conv = bool(rt.convergence_trace)
+        t0 = time.monotonic()
+        with tracer.attach(trace.ctx if trace is not None else None):
+            with tracer.span("device_dispatch", service="stream", kernel=kernel, checked=True):
+                outs, staged = stage_rank_window(
+                    graph, self.config.pagerank, self.config.spectrum, kernel, self.device,
+                    rt.blob_staging, checked=True, conv_trace=conv)
+                packed = pack_rank_outputs(outs, staged, checked=True)
+            with tracer.span("result_fetch", service="stream"):
+                out = unpack_rank_outputs(packed)
+        self._count_dispatch()
+        self._ranking(result, op_names, out[0], out[1], int(out[2]), "stream window")
+        result.kernel = kernel
+        result.timings["rank_ms"] = round((time.monotonic() - t0) * 1e3, 3)
+        if conv:
+            self._convergence(result, kernel, out[3], out[4])
+
+    def _dispatch_rank_warm(self, head, graph, op_names, kernel, ectx) -> None:
+        """One window through the warm program (K19), started from the
+        previous ranked window's mapped state while an incident is open;
+        this window's state is kept for the next. ``fused_pair``: the
+        router's fused program, its graph and init one blob; else, as
+        JAX's warm dispatch, the graph copied leaf by leaf."""
+        from ..obs.spans import get_tracer
+        from ..rank_backends.blob import stage_rank_window_warm
+        from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
+        from ..rank_backends.warm import capture_warm_state, map_warm_state
+
+        tracer = get_tracer()
+        rt = self.config.runtime
+        result = head.result
+        init = None
+        if self._warm_state is not None and self.tracker.open_incidents():
+            init = map_warm_state(self._warm_state, op_names, ectx, graph)
+        t0 = time.monotonic()
+        fused = bool(rt.fused_pair)
+        with tracer.attach(head.trace.ctx if head.trace is not None else None):
+            if fused:
+                out, _ = self.router.rank_fused(graph, kernel, init)
+            else:
+                with tracer.span("device_dispatch", service="stream", kernel=kernel,
+                                 warm=init is not None):
+                    packed = pack_rank_outputs(*stage_rank_window_warm(
+                        graph, init, self.config.pagerank, self.config.spectrum, kernel,
+                        self.device, blob=False))
+                with tracer.span("result_fetch", service="stream"):
+                    out = unpack_rank_outputs(packed)
+        self._count_dispatch()
+        self._ranking(result, op_names, out[0], out[1], int(out[2]), "stream window (warm)")
+        result.kernel = kernel
+        if fused:
+            result.route = "fused" if init is not None else "fused_cold"
+        else:
+            result.route = "warm" if init is not None else "warm_cold"
+        result.batch_windows = 1
+        result.timings["rank_ms"] = round((time.monotonic() - t0) * 1e3, 3)
+        self._convergence(result, kernel, out[3], out[4])
+        self._warm_state = capture_warm_state(op_names, ectx, out[5:9])
+
+    # ---------------------------------------------------------- results
+    def _finalize(self, result, outcome: str, table=None, trace=None) -> None:
+        from ..obs.metrics import record_stream_window
+        from ..obs.spans import get_tracer
+
+        tracer = get_tracer()
+        ctx = trace.ctx if trace is not None else None
+        record_stream_window(outcome)
+        setattr(self.summary, outcome, getattr(self.summary, outcome) + 1)
+        if outcome == "ranked":
+            with tracer.span("incident", service="stream", ctx=ctx):
+                inc = self.tracker.observe_ranked(result.start, result.ranking)
+            if inc is not None:
+                self.summary.incidents_opened = self.tracker.opened
+                log.info("window %s: anomaly -> %s (%d windows), top-1 %s", result.start,
+                         inc.incident_id, inc.windows,
+                         result.ranking[0][0] if result.ranking else "-")
+        elif outcome != "warmup" and result.skipped_reason == "low_admission":
+            # A window refused whole is evidence-free: it neither opens
+            # nor resolves an incident.
+            pass
+        elif outcome != "warmup":
+            with tracer.span("incident", service="stream", ctx=ctx):
+                resolved = self.tracker.observe_healthy(result.start)
+            self.summary.incidents_resolved = self.tracker.resolved
+            for inc in resolved:
+                log.info("window %s: %s resolved after %d windows", result.start,
+                         inc.incident_id, inc.windows)
+        # Baselines absorb healthy traffic only while no incident is open.
+        if self.tracker.has_open:
+            self.baseline.freeze()
+        else:
+            self.baseline.thaw()
+            self._warm_state = None
+        if outcome == "clean" and table is not None:
+            self.baseline.update(table)   # a no-op while frozen
+        self.summary.results.append(result)
+        if self.sink is not None:
+            self.sink.emit(result)
+        if self.journal is not None:
+            self.journal.window(result)
+        if trace is not None:
+            tracer.record_span("window", ctx=trace.ctx, start_us=trace.start_us,
+                               dur_us=int((time.monotonic() - trace.perf0) * 1e6),
+                               service="stream", outcome=outcome)
+
+
+def run_stream(config: MicroRankConfig, source, out_dir=None, normal_table=None,
+               on_result=None, device=None) -> StreamSummary:
+    """Build and drive a StreamEngine to completion (the CLI's entry)."""
+    engine = StreamEngine(config, source, out_dir=out_dir, normal_table=normal_table,
+                          device=device)
+    summary = engine.run()
+    if on_result is not None:
+        for r in summary.results:
+            on_result(r)
+    return summary

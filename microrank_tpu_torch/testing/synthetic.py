@@ -302,6 +302,81 @@ def _write_span_rows(f, spans: Dict[str, object], n_operations: int) -> None:
         f.write("".join(lines))
 
 
+def spans_table(spans, n_operations: int):
+    """The ``SpanTable`` that ``load_span_table`` reads from
+    ``write_spans_csv(spans, ...)``, built from the span columns without
+    the CSV (one window's columns or a list of windows'): the loader's
+    names (``svc_op`` "svcNN_opNN", ``pod_op`` "svcNN-P_opNN", trace ids
+    prefix + index) interned in first appearance, a span's parent the
+    row of its trace's span of the parent op, rows then sorted by start
+    (``sort_table_by_time``)."""
+    from ..native import SpanTable, sort_table_by_time
+
+    parts = [p for p in (spans if isinstance(spans, list) else [spans])
+             if len(p["start_us"])]
+    w = _op_id_width(n_operations)
+    if not parts:
+        empty = np.zeros(0, np.int64)
+        return SpanTable(empty.astype(np.int32), empty.astype(np.int32),
+                         empty.astype(np.int32), empty, empty, empty, empty, [], [], [],
+                         time_sorted=True)
+    # A span's trace across windows: (window, trace index).
+    trace_base = np.cumsum([0] + [int(p["trace"].max()) + 1 for p in parts])
+    gtrace = np.concatenate([p["trace"].astype(np.int64) + b for p, b in zip(parts, trace_base)])
+    op = np.concatenate([p["op"] for p in parts]).astype(np.int64)
+    pod = np.concatenate([p["pod"] for p in parts]).astype(np.int64)
+    parent_op = np.concatenate([p["parent"] for p in parts]).astype(np.int64)
+
+    def first_seen(keys):
+        uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+        rank = np.empty(uniq.size, np.int64)
+        rank[np.argsort(first, kind="stable")] = np.arange(uniq.size)
+        return uniq[np.argsort(rank)], rank[inv]
+
+    traces, trace_id = first_seen(gtrace)
+    window_of = np.searchsorted(trace_base, traces, side="right") - 1
+    trace_names = [parts[wi]["trace_prefix"] + str(int(t - trace_base[wi]))
+                   for wi, t in zip(window_of.tolist(), traces.tolist())]
+    def by_name(keys, name_of):
+        uniq, inv = np.unique(keys, return_inverse=True)
+        names = [name_of(int(k)) for k in uniq.tolist()]
+        order = sorted(range(len(names)), key=names.__getitem__)
+        rank = np.empty(len(names), np.int64)
+        rank[order] = np.arange(len(names))
+        return [names[i] for i in order], rank[inv]
+
+    svc_names, svc_op = by_name(op, lambda o: f"svc{o:0{w}d}_op{o:0{w}d}")
+    n_pods = int(pod.max()) + 1
+    pod_names, pod_op = by_name(
+        op * n_pods + pod,
+        lambda k: f"svc{k // n_pods:0{w}d}-{k % n_pods}_op{k // n_pods:0{w}d}")
+    # Parents: the row of (trace, parent op); span ids are unique per
+    # (trace, op), and the loader keeps the last row of a repeated id.
+    n_ops = int(max(op.max(), parent_op.max())) + 1
+    key = gtrace * n_ops + op
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    # Last occurrence of each key (the loader's map overwrite).
+    last = np.r_[sorted_key[1:] != sorted_key[:-1], True]
+    keys_last, rows_last = sorted_key[last], order[last]
+    want = gtrace * n_ops + parent_op
+    at = np.clip(np.searchsorted(keys_last, want), 0, keys_last.size - 1)
+    parent_row = np.where((parent_op >= 0) & (keys_last[at] == want), rows_last[at], -1)
+    table = SpanTable(
+        trace_id=trace_id.astype(np.int32),
+        svc_op=svc_op.astype(np.int32),
+        pod_op=pod_op.astype(np.int32),
+        duration_us=np.concatenate([p["duration_us"] for p in parts]).astype(np.int64),
+        start_us=np.concatenate([p["start_us"] for p in parts]).astype(np.int64),
+        end_us=np.concatenate([p["end_us"] for p in parts]).astype(np.int64),
+        parent_row=parent_row.astype(np.int64),
+        trace_names=trace_names,
+        svc_op_names=svc_names,
+        pod_op_names=pod_names,
+    )
+    return sort_table_by_time(table)
+
+
 @dataclass
 class SyntheticCase:
     normal: Dict[str, object]

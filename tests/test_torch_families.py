@@ -8,13 +8,17 @@ plain version, which repeats its kernel's order of sums):
   ``rank_window_traced_core(..., kernel)`` on the same graph
   (``graph_from_numpy``), collapsed and not: tie-aware top-k, ``n_valid``
   and ``n_iters`` equal, scores rtol 1e-5 (dense_bf16 5e-3), residuals
-  rtol 1e-4 / atol 1e-6. For csr, JAX's compensated prefix sums leave
-  its residuals up to 5.1e-6 from JAX's own coo residuals on these
-  windows (its scores within 6e-7), while the port's csr is bitwise its
-  coo: the port's csr residuals are held to JAX's coo residuals at rtol
-  1e-4 / atol 1e-6, and to JAX's csr residuals at atol 1e-5;
-* csr and coo bitwise the pallas route, products and rankings: every
-  CSR row holds the pallas row's entries in its order;
+  rtol 1e-4 / atol 1e-6. The port's csr is JAX's compensated prefix
+  sums in JAX's order (``ops/scan.py``); on the CPU, XLA contracts each
+  entry's product into the scan's first adds in some uses of a sum and
+  not in others (ROADMAP.md, Faults), which leaves JAX's csr residuals
+  up to 5.1e-6 from its own coo residuals on these windows (its scores
+  within 6e-7). The port's csr residuals are held to JAX's coo
+  residuals at rtol 1e-4 / atol 1e-6, and to JAX's csr residuals at
+  atol 1e-5;
+* coo bitwise the pallas route, products and rankings; csr's row sums
+  bitwise JAX's ``csr_rowsum`` of the same products; every CSR row
+  holds the pallas row's entries in its order;
 * ``choose_kernel`` falls back to csr / coo where JAX's does; the host
   counts of csr equal the ones its layouts read on the device;
 * stacked groups: bitwise each window's own program on every new route,
@@ -202,10 +206,11 @@ def test_route_with_tol_near_its_stop_matches_jax(pod_case, kernel):
     """A second window, under a tol its residuals cross late (2e-6 at
     step 16, 1e-6 above the float32 floor): the step where the
     iteration stops, and the trace up to it, are JAX's. csr's are JAX's
-    coo's: JAX's csr trace carries its prefix sums' rounding (up to
-    5.1e-6, a bump above this tol at step 15), so JAX's csr stops at 18
-    here where its coo, and the port's csr and coo, stop at 16
-    (ROADMAP.md, Faults). dense_bf16's residuals floor at 5.4e-4 (bf16
+    coo's: JAX's csr trace carries the rounding of XLA's contraction of
+    the products into its prefix sums (up to 5.1e-6, a bump above this
+    tol at step 15), so JAX's csr stops at 18 here where its coo, and
+    the port's csr (JAX's order of sums, correctly rounded) and coo,
+    stop at 16 (ROADMAP.md, Faults). dense_bf16's residuals floor at 5.4e-4 (bf16
     operands): its tol is 1e-3, crossed at step 9."""
     nrm, abn = partition_case(pod_case)
     graph, _, _, _ = build_window_graph(pod_case.abnormal, nrm, abn, aux=AUX[kernel])
@@ -226,9 +231,16 @@ def test_csr_and_coo_are_bitwise_pallas(request, case_name, collapse):
     case = request.getfixturevalue(case_name)
     nrm, abn = partition_case(case)
     graph, _, _, _ = build_window_graph(case.abnormal, nrm, abn, aux="csr", collapse=collapse)
-    pallas = port_outputs(graph, "pallas")
-    for kernel in ("csr", "coo"):
-        assert bitwise(port_outputs(graph, kernel), pallas), kernel
+    assert bitwise(port_outputs(graph, "coo"), port_outputs(graph, "pallas"))
+    # csr's row sums are JAX's csr_rowsum of the same products, bit for bit.
+    from test_torch_csr_scan import bits, jax_route_rowsums, step_inputs
+
+    from microrank_tpu_torch.ops.scan import csr_scan_spmv
+    from microrank_tpu_torch.rank_backends.torch_cuda import window_scan_group
+
+    xs = step_inputs(graph, np.random.default_rng(3))
+    got = csr_scan_spmv(window_scan_group(graph_from_numpy(graph, "cpu")), xs)
+    assert all(bits(g) == bits(w) for g, w in zip(got, jax_route_rowsums(graph, xs)))
     # Every CSR row holds the pallas row's entries, in its order.
     tg = graph_from_numpy(graph, "cpu")
     for g in (tg.normal, tg.abnormal):

@@ -314,8 +314,9 @@ def test_setup_plan_refuses_what_the_kernel_does_not_take(t_pads, windows, v):
 
 
 def test_setup_argument_block_is_the_library_words():
-    # csrc Word: 2 x 10 partition words, then 12 more.
-    assert setup.ARGS.size == 8 * 32
+    # csrc Word: 2 x 10 partition words, then 12 more, then K19's four
+    # init vectors and the grid form's flag words.
+    assert setup.ARGS.size == 8 * 37
     assert setup.f32_bits(0.5) == 0x3F000000 and setup.f32_bits(0.1) == 0x3DCCCCCD
 
 
