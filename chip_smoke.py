@@ -15,8 +15,8 @@ JAX or of the JAX package. Phases, one JSON line each:
               sources in this checkout (nvcc for ``csrc/coo_spmv.cu``,
               ``csrc/pattern_pair.cu``, ``csrc/power_step.cu``,
               ``csrc/row_fold.cu``, ``csrc/rank_setup.cu``,
-              ``csrc/rank_epilogue.cu``, ``csrc/dense_mv.cu`` and
-              ``csrc/csr_scan.cu``, g++ for
+              ``csrc/rank_epilogue.cu``, ``csrc/dense_mv.cu``,
+              ``csrc/csr_scan.cu`` and ``csrc/explain_epilogue.cu``, g++ for
               the native span loader / graph builder, all at once), the
               dense kernel (f32 and bf16, one window and three, an
               unaligned vector) and K14's check word (a block, a cluster,
@@ -428,7 +428,36 @@ JAX or of the JAX package. Phases, one JSON line each:
               version, an all-miss init bitwise the cold set-up, timed in
               turns with the cold set-up, beside the plain version and the
               byte bound (the cold set-up's bytes and the four init
-              vectors).
+              vectors);
+   explain  — rank provenance (K15, ``ops/explain.py``,
+              ``csrc/explain_epilogue.cu``; ``phase_explain``): K15 alone
+              on every route's config-5 window (kind collapsed,
+              packed_bf16, packed_blocked at 64 MiB, pcsr at 16 MiB,
+              pallas, and the families phase's coo, csr, dense and
+              dense_bf16) and on both giant windows (measured in the
+              giant phase), each on its rank program's final rv and
+              epilogue (``measure_k15``): bitwise its plain version on the
+              card and over 50 launches, timed by events behind a spin in
+              turns with the plain version and the selection's yardstick
+              (one stable ``torch.sort`` of the [2, Ke, T] contribution
+              rows), beside the byte bound; the explained program in
+              turns with the one-formula program at the kind window; then
+              the stream phase's timeline, tumbling, with
+              ``ExplainConfig.enabled``, counted (one K15 call, one more
+              rank program): one incident, one bundle under
+              ``explain/`` and in the incident's flight dump (its
+              manifest linking it), the journal's ``explain`` record
+              naming the ranked window's top-1 and ef, ``GET
+              /explainz?window=`` on a metrics server serving the
+              bundle, ``python -m microrank_tpu_torch.cli explain OUT``
+              naming the top-1, the fault among the first 5 suspects, and
+              the bundle against the float64 oracle of the window
+              (``explain.oracle``, uncollapsed, summed per kind): the
+              top-5 tie-aware, counters, mass and top traces within rtol
+              1e-3. The env phase builds K15 with the other libraries,
+              gates 0 spill in its four kernels, and holds a small
+              window's K15 bitwise its plain version on every route at J
+              5 and 40.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -542,9 +571,10 @@ def check(cond, msg) -> None:
 
 def reset_counts(spmv, pattern) -> None:
     """Every wrapper's launch count to 0, just before a main path runs."""
-    from microrank_tpu_torch.ops import dense, epilogue, fold, scan, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, explain, fold, scan, setup, step
 
     dense.dense_matvecs.launches = dense.dense_matvecs.products = 0
+    explain.explain_epilogue.launches = explain.explain_epilogue.kernel_launches = 0
     fold.fold_rows.launches = 0
     scan.csr_scan_spmv.launches = scan.csr_scan_spmv.products = 0
     setup.rank_setup.launches = setup.rank_setup.warm_launches = 0
@@ -566,7 +596,7 @@ MAIN_STEP_KERNELS = set()
 
 
 def read_counts(spmv, pattern) -> dict:
-    from microrank_tpu_torch.ops import dense, epilogue, fold, scan, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, explain, fold, scan, setup, step
 
     by_kernel = step.power_step.by_kernel
     MAIN_STEP_KERNELS.update(k for k, n in by_kernel.items() if n)
@@ -593,11 +623,13 @@ def read_counts(spmv, pattern) -> dict:
         "csr_scan_launches": scan.csr_scan_spmv.launches,
         "csr_scan_products": scan.csr_scan_spmv.products,
         "setup_warm_launches": setup.rank_setup.warm_launches,
+        "explain_launches": explain.explain_epilogue.launches,
+        "explain_kernel_launches": explain.explain_epilogue.kernel_launches,
     }
 
 
 def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
-                    all_methods=False, warm=0, steps=STEPS) -> dict:
+                    all_methods=False, warm=0, steps=STEPS, explained=None) -> dict:
     """The launch counts of ``n`` windows ranked with ``kernel``: one
     launch per step of K1 (pallas, coo: six SpMVs), one call of K10's
     scan per step (csr: six products, its launches on one stream), of the pcsr
@@ -623,7 +655,10 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
     ``all_methods``: the programs rank every formula (K13), their one
     epilogue launch each with the methods axis. ``warm``: of the
     programs, those whose set-up took a warm init (K19). ``steps``: the
-    programs' power-iteration steps (``PageRankConfig.iterations``)."""
+    programs' power-iteration steps (``PageRankConfig.iterations``).
+    ``explained``: of the programs, the explained ones (K15), as (calls,
+    the kernel launches ``ops.explain.explain_plan`` gives them), each
+    one K15 call after its epilogue."""
     counts = dict.fromkeys(("setup_launches", "epilogue_launches",
                             "epilogue_all_methods_launches",
                             "row_fold_launches", "step_launches",
@@ -632,13 +667,16 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches",
                             "dense_launches", "dense_products", "csr_scan_launches",
-                            "csr_scan_products", "setup_warm_launches"), 0)
+                            "csr_scan_products", "setup_warm_launches", "explain_launches",
+                            "explain_kernel_launches"), 0)
     g = n if programs is None else programs
     counts["step_launches"] = STEP_LAUNCHES * steps * g
     counts["step_group_launches"] = STEP_LAUNCHES * steps * groups
     counts["setup_launches"] = counts["epilogue_launches"] = K6_LAUNCHES * g
     counts["epilogue_all_methods_launches"] = K6_LAUNCHES * g if all_methods else 0
     counts["setup_warm_launches"] = warm
+    if explained is not None:
+        counts["explain_launches"], counts["explain_kernel_launches"] = explained
     if kernel in ("pallas", "coo"):
         counts.update(k1_launches=steps * g, k1_spmvs=steps * SPMVS_PER_STEP * n)
     elif kernel == "csr":
@@ -1849,12 +1887,12 @@ def function_spills(report, name):
 
 
 def phase_env(torch, spmv, pattern, native):
-    from microrank_tpu_torch.ops import dense, epilogue, fold, scan, setup, step
+    from microrank_tpu_torch.ops import dense, epilogue, explain, fold, scan, setup, step
 
-    # Build the nine libraries from the checkout's sources, in parallel.
+    # Build the ten libraries from the checkout's sources, in parallel.
     for lib in (spmv.LIB_PATH, pattern.LIB_PATH, step.LIB_PATH, fold.LIB_PATH,
                 setup.LIB_PATH, epilogue.LIB_PATH, dense.LIB_PATH, scan.LIB_PATH,
-                native.LIB_PATH):
+                explain.LIB_PATH, native.LIB_PATH):
         lib.unlink(missing_ok=True)
 
     def timed(fn):
@@ -1862,7 +1900,7 @@ def phase_env(torch, spmv, pattern, native):
         report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(10) as pool:
         f_cuda = pool.submit(timed, spmv.build_library)
         f_pattern = pool.submit(timed, pattern.build_library)
         f_step = pool.submit(timed, step.build_library)
@@ -1871,6 +1909,7 @@ def phase_env(torch, spmv, pattern, native):
         f_epilogue = pool.submit(timed, epilogue.build_library)
         f_dense = pool.submit(timed, dense.build_library)
         f_scan = pool.submit(timed, scan.build_library)
+        f_explain = pool.submit(timed, explain.build_library)
         f_host = pool.submit(timed, native.build_library)
         cuda_s, ptxas = f_cuda.result()
         pattern_s, ptxas_pattern = f_pattern.result()
@@ -1880,8 +1919,9 @@ def phase_env(torch, spmv, pattern, native):
         epilogue_s, ptxas_epilogue = f_epilogue.result()
         dense_s, ptxas_dense = f_dense.result()
         scan_s, ptxas_scan = f_scan.result()
+        explain_s, ptxas_explain = f_explain.result()
         host_s, _ = f_host.result()
-    for module in (spmv, pattern, step, fold, setup, epilogue, dense, scan):
+    for module in (spmv, pattern, step, fold, setup, epilogue, dense, scan, explain):
         module.load_library()
 
     # First launch: a tiny ragged matrix (empty rows, a 700-entry row of
@@ -1964,6 +2004,16 @@ def phase_env(torch, spmv, pattern, native):
     check(len(scan_spills) == 3 and all(g == ("0", "0") for _, g in scan_spills),
           f"ptxas: K10's scan passes spill (or were not reported): {scan_spills}")
     n_scan = tiny_scan_checks(torch, dev)
+    # K15's two kernels, both selections, without spill (a gate), and
+    # its first launches on every route bitwise its plain version.
+    k15_ptxas = ptxas_spills(ptxas_explain, ("explain_tiles", "explain_merge"))
+    check(set(k15_ptxas) == {"explain_tiles<true>", "explain_tiles<false>",
+                             "explain_merge<true>", "explain_merge<false>"},
+          f"ptxas: K15 reports {sorted(k15_ptxas)}")
+    spilled = {k: v for k, v in k15_ptxas.items()
+               if v["spill_store_bytes"] or v["spill_load_bytes"]}
+    check(not spilled, f"ptxas: K15's kernels spill: {spilled}")
+    n_k15 = tiny_k15_checks(torch, dev)
     n_fold = tiny_fold_checks(torch, fold, dev)
     n_k6 = tiny_k6_checks(torch, dev)
     n_dense = tiny_dense_checks(torch, dev)
@@ -1986,6 +2036,7 @@ def phase_env(torch, spmv, pattern, native):
                     "nvcc_rank_epilogue": round(epilogue_s, 3),
                     "nvcc_dense_mv": round(dense_s, 3),
                     "nvcc_csr_scan": round(scan_s, 3),
+                    "nvcc_explain_epilogue": round(explain_s, 3),
                     "gxx_native": round(host_s, 3)},
         "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas" in ln],
         "ptxas_pattern_pair": [ln.strip() for ln in ptxas_pattern.splitlines()
@@ -2012,6 +2063,9 @@ def phase_env(torch, spmv, pattern, native):
         "csr_scan_ptxas": [ln.strip() for ln in ptxas_scan.splitlines() if "ptxas" in ln],
         "csr_scan_spill_bytes": 0,
         "check_window_ptxas": check_word_ptxas,
+        # K15: both kernels' selections, registers and spill bytes (0:
+        # the gate).
+        "k15_ptxas": k15_ptxas, "k15_spill_bytes": 0,
         # K5's fused kernel: each instantiation's ptxas lines
         # (registers, spills), the register slots a thread holds across
         # the barrier, and the occupancy that sizes every window's
@@ -2028,6 +2082,7 @@ def phase_env(torch, spmv, pattern, native):
         "tiny_dense_cases_bitwise_vs_plain": n_dense,
         "tiny_check_word_cases_bitwise_vs_plain": n_check,
         "tiny_csr_scan_cases_bitwise_vs_plain": n_scan,
+        "tiny_k15_cases_bitwise_vs_plain": n_k15,
         "timer_check_1gib_copy": timers,
     }
 
@@ -5135,6 +5190,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         if kernel == "pcsr" else None
     k19 = measure_k19(torch, f"giant/{kernel}/k19", dgraph, cfg, kernel, K6_REPS) \
         if kernel == "pcsr" else None
+    k15 = measure_k15(torch, f"giant/{kernel}/k15", dgraph, cfg, kernel, K6_REPS)
 
     # One step of the kernel against its plain version on the card.
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -5185,6 +5241,7 @@ def phase_giant(torch, spmv, pattern, n_spans, budget, want, reps):
         info["k13"] = k13
     if k19 is not None:
         info["k19"] = k19
+    info["k15"] = k15
     info["staging"] = staging_compare(torch, spmv, pattern, f"giant/{kernel}/staging",
                                       host_subset(graph, kernel), kernel, cfg)
     stacked_counts, info["stacked"] = giant_stacked(torch, spmv, pattern, graph, dgraph, kernel,
@@ -5326,7 +5383,7 @@ def issue_without_sync(torch, tag, host, kernel, cfg, checked=False):
 
 
 def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, cpu_ref,
-               pallas_res):
+               pallas_res, keep=None):
     """One family's run of the lane at config 5 (``run_rca_native`` with
     ``kernel``, collapse ``collapse``): top-1, the resolved kernel, the
     launches, agreement with a CPU run: tie-aware at rtol 1e-5 with the
@@ -5344,7 +5401,8 @@ def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, c
     window: the dense kernel bitwise its plain version on every launch of
     the 25 steps and timed; K10 (csr) bitwise its plain version and timed
     (``measure_csr_scan``); K1 over the coo work list timed uncollapsed
-    (``measure_group``)."""
+    (``measure_group``). ``keep``: a dict the window's host graph is
+    kept in, under the run's tag (the explain phase's K15 reads it)."""
     from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import run_rca_native
     from microrank_tpu_torch.rank_backends.torch_cuda import spmv_layouts
@@ -5409,6 +5467,8 @@ def family_run(torch, spmv, pattern, case, normal, abnormal, kernel, collapse, c
         info["ranking_bitwise_vs_pallas"] = True
     graph, _, stages, rank_device, dgraph = window_breakdown(
         torch, cfg, normal, abnormal, ranked[0].start)
+    if keep is not None:
+        keep[tag] = graph
     info["shapes"] = graph_shapes(graph)
     info["stage_ms"] = stages
     info.update(rank_device_fields(rank_device, stages["rank_issue_and_run"]))
@@ -5589,7 +5649,8 @@ def phase_families(torch, spmv, pattern, case, normal, abnormal, graphs, results
     dense holds the multi-GiB matrices) through ``run_rca_native``
     (``family_run``), each family's stacked groups of the replay's
     windows (``family_stacks``), and the checked program
-    (``family_checks``)."""
+    (``family_checks``). Each run's window graph lands in ``graphs``
+    under ``families/<kernel>/<collapse>``."""
     from microrank_tpu_torch.config import MicroRankConfig, RuntimeConfig
     from microrank_tpu_torch.pipeline import run_rca_native
 
@@ -5604,7 +5665,8 @@ def phase_families(torch, spmv, pattern, case, normal, abnormal, graphs, results
     for kernel in FAMILY_KERNELS:
         for collapse in ("auto", "off"):
             counts, info = family_run(torch, spmv, pattern, case, normal, abnormal, kernel,
-                                      collapse, cpu[collapse], results[f"pallas/{collapse}"])
+                                      collapse, cpu[collapse], results[f"pallas/{collapse}"],
+                                      keep=graphs)
             launches[f"families/{kernel}/{collapse}"] = counts
             runs[f"{kernel}/{collapse}"] = info
     stacked = None
@@ -6050,6 +6112,356 @@ def measure_k19(torch, name, dgraph, cfg, kernel, reps):
     }
 
 
+# K15 (the attribution epilogue, ops/explain.py) alone at the config-5
+# windows of every route: label -> (run key of its host graph, kernel).
+# packed_blocked and pcsr are the runs at the lowered budgets (64 MiB,
+# 16 MiB); the sparse families' graphs are the families phase's.
+K15_ROUTES = {
+    "kind": ("auto/auto", "kind"),
+    "packed_bf16": ("auto/off", "packed_bf16"),
+    "packed_blocked": ("auto/packed_blocked", "packed_blocked"),
+    "pcsr": ("auto/pcsr", "pcsr"),
+    "pallas": ("pallas/off", "pallas"),
+    "coo": ("families/coo/off", "coo"),
+    "csr": ("families/csr/off", "csr"),
+    "dense": ("families/dense/auto", "dense"),
+    "dense_bf16": ("families/dense_bf16/auto", "dense_bf16"),
+}
+
+
+def explained_bits(torch, out):
+    """K15's five outputs' bits, one int32 vector."""
+    return torch.cat([t.reshape(-1).view(torch.int32) for t in out])
+
+
+def k15_bytes(torch, dgraph, kernel, top_idx, ke, j):
+    """K15's bytes for the function it computes on this window's data:
+    per partition, rv and each per-column vector its route reads (4
+    bytes a column), and of the staged view what the suspects need: their
+    bitmap rows, the whole ELL slab (8 bytes a cell), their op-major
+    ranges (column and value, 8 bytes an entry, and rv at the column),
+    or every live trace-major entry's op and column (8 bytes) and the
+    suspects' values and rv; the counters' inputs at the suspects; the
+    outputs written once."""
+    from microrank_tpu_torch.ops import explain as kx
+
+    route = kx.ROUTES[kernel]
+    sus = top_idx[:ke].long()
+    total = 0
+    for g in (dgraph.normal, dgraph.abnormal):
+        t = int(g.kind.shape[0])
+        if route == kx.BITMAP:
+            total += 8 * t + ke * int(g.cov_bits.shape[1])
+        elif route == kx.ELL:
+            total += 12 * t + 8 * int(g.pc_ell_op.numel())
+        elif route == kx.OP_MAJOR:
+            ptr = g.inc_indptr_op.long()
+            total += 8 * ke + 12 * int((ptr[sus + 1] - ptr[sus]).sum())
+        else:
+            n_inc = int(g.n_inc)
+            mine = int(torch.isin(g.inc_op[:n_inc].long(), sus).sum())
+            total += 8 * n_inc + 8 * mine
+    total += ke * (4 + 4 + 1 + 1 + 4 + 4) + 4 * (4 + 13 + 2) * ke + 2 * ke * j * 8
+    return total
+
+
+def measure_k15(torch, name, dgraph, cfg, kernel, reps):
+    """K15 at a staged window, on its rank program's final rv and
+    epilogue (``ExplainConfig`` defaults: Ke = n_rows, J = 5): bitwise
+    its plain version on the card and over 50 launches; timed by CUDA
+    events behind a spin in turns with the plain version and the
+    yardstick, the selection alone: one stable ``torch.sort`` of the
+    [2, Ke, T] contribution rows (the plain version's, -inf past the
+    live columns, the smaller partition padded with -inf), negated;
+    beside the byte bound at 3.35 TB/s (``k15_bytes``) and the plan."""
+    from microrank_tpu_torch.config import ExplainConfig
+    from microrank_tpu_torch.ops import explain as kx
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    program = tc._rank_program(dgraph, cfg.pagerank, cfg.spectrum, kernel)
+    epi = program.epilogue
+    ex = ExplainConfig(enabled=True)
+    g_n, g_a = dgraph.normal, dgraph.abnormal
+    args = (g_n, g_a, program.rv_n, program.rv_a, epi, cfg.spectrum, ex, kernel)
+    got = explained_bits(torch, kx.explain_epilogue(*args))
+    check(torch.equal(got, explained_bits(torch, kx.explain_plain(*args))),
+          f"{name}: K15 differs from its plain version")
+    for _ in range(REPEATS):
+        check(torch.equal(explained_bits(torch, kx.explain_epilogue(*args)), got),
+              f"{name}: K15 is not repeatable")
+    ke = kx.n_suspects(int(epi.top_idx.shape[0]), ex)
+    sus = epi.top_idx[:ke].long()
+    t_n, t_a = int(g_n.kind.shape[0]), int(g_a.kind.shape[0])
+    rows = []
+    for g, rv in ((g_n, program.rv_n), (g_a, program.rv_a)):
+        c = kx.contrib_rows(g, sus, rv, kernel)
+        live = torch.arange(c.shape[1], device=c.device) < torch.where(g.n_cols < 0, g.n_traces,
+                                                                         g.n_cols)
+        c = torch.where(live[None, :], c, float("-inf"))
+        rows.append(torch.nn.functional.pad(c, (0, max(t_n, t_a) - c.shape[1]),
+                                            value=float("-inf")))
+    neg = -(torch.stack(rows) + 0.0)
+    calls = {"k15": lambda: kx.explain_epilogue(*args),
+             "plain": lambda: kx.explain_plain(*args),
+             "sort": lambda: torch.sort(neg, dim=-1, stable=True)}
+    turns = [(k, spin_event_ms(torch, calls[k], reps))
+             for k in ("k15", "plain", "sort", "sort", "plain", "k15")]
+    ms = {k: _mean([t for kk, t in turns if kk == k]) for k in calls}
+    plan = kx.explain_plan(t_n, t_a, ex.top_traces, ke)
+    nbytes = k15_bytes(torch, dgraph, kernel, epi.top_idx, ke, ex.top_traces)
+    return {
+        "name": name, "kernel": kernel, "route": ("bitmap", "ell", "op_major",
+                                                  "trace_major")[kx.ROUTES[kernel]],
+        "columns": [t_n, t_a], "suspects": ke, "top_traces": ex.top_traces,
+        "plan": {**plan._asdict(), "kernel_launches": plan.kernel_launches},
+        "bitwise_vs_plain": True, "bitwise_repeatable_launches": REPEATS,
+        "ms": round(ms["k15"], 6), "plain_ms": round(ms["plain"], 6),
+        "library_ms": round(ms["sort"], 6),
+        "turns_ms": [[k, round(t, 6)] for k, t in turns],
+        "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 6), "bound_by": "bytes",
+        "bytes": nbytes, "max_abs_err": 0.0,
+    }
+
+
+def tiny_k15_checks(torch, dev):
+    """K15's first launches: a small window (40,000 spans, 192 ops, some
+    5,000 columns a partition: three fill tiles and a merge) on every
+    route, J = 5 (the warp-select) and 40 (the bitonic path), bitwise its
+    plain version on the card."""
+    from microrank_tpu_torch.config import ExplainConfig, PageRankConfig, SpectrumConfig
+    from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
+    from microrank_tpu_torch.ops import explain as kx
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.testing import giant_window
+
+    gw = giant_window(n_spans=40_000, n_ops=192, seed=5)
+    aux = {"kind": "kind", "packed": "packed", "packed_bf16": "packed",
+           "packed_blocked": "packed", "pcsr": "pcsr", "csr": "csr", "coo": "none",
+           "pallas": "none", "dense": "none", "dense_bf16": "none"}
+    built, n = {}, 0
+    for kernel, view in aux.items():
+        collapse = "on" if kernel == "kind" else "off"
+        if (view, collapse) not in built:
+            built[view, collapse] = build_window_graph_from_table(
+                gw.table, None, gw.normal_codes, gw.abnormal_codes, aux=view,
+                collapse=collapse)[0]
+        dg = tc.device_subset(graph_from_numpy(tc.host_subset(built[view, collapse], kernel),
+                                               dev), kernel)
+        prog = tc._rank_program(dg, PageRankConfig(), SpectrumConfig(), kernel)
+        for j in (5, 40):
+            args = (dg.normal, dg.abnormal, prog.rv_n, prog.rv_a, prog.epilogue,
+                    SpectrumConfig(), ExplainConfig(enabled=True, top_traces=j), kernel)
+            check(torch.equal(explained_bits(torch, kx.explain_epilogue(*args)),
+                              explained_bits(torch, kx.explain_plain(*args))),
+                  f"tiny K15 ({kernel}, J {j}) differs from its plain version")
+            n += 1
+    return n
+
+
+def bundle_vs_oracle(bundle, oracle, rtol):
+    """An incident's bundle against the float64 oracle: the top-5
+    tie-aware at ``rtol``; then, suspect by suspect (matched by op; an op
+    at the cut may be a near-tie's), the counters and the mass within
+    ``rtol``, each top trace's contribution within ``rtol`` of the
+    oracle's for that trace, and every oracle contributor above the cut
+    (past tie tolerance) kept. Returns (ok, why)."""
+    import numpy as np
+
+    from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
+
+    dev, orc = bundle.suspects, oracle["suspects"]
+    ok, why = tie_aware_topk_agreement([s["op"] for s in dev], [s["score"] for s in dev],
+                                       [s["op"] for s in orc], [s["score"] for s in orc],
+                                       k=5, rtol=rtol)
+    if not ok:
+        return False, f"top-5: {why}"
+    by_op = {s["op"]: s for s in orc}
+    for s in dev[:5]:
+        o = by_op.get(s["op"])
+        if o is None:
+            continue
+        for key, names in (("counters", ("ef", "nf", "ep", "np")),
+                           ("mass", ("normal_weight", "abnormal_weight"))):
+            for c in names:
+                if not np.isclose(s[key][c], o[key][c], rtol=rtol, atol=1e-12):
+                    return False, f"{s['op']} {c}: {s[key][c]} vs {o[key][c]}"
+        for p in ("normal", "abnormal"):
+            omap = dict(o["top_traces"][p])
+            entries = s["top_traces"][p]
+            for e in entries:
+                if e.get("trace") not in omap or not np.isclose(
+                        e["contribution"], omap[e["trace"]], rtol=rtol):
+                    return False, f"{s['op']} {p} trace {e}"
+            if entries:
+                cut = min(e["contribution"] for e in entries)
+                beat = {t for t, v in omap.items() if v > cut * (1 + rtol)}
+                if not beat <= {e["trace"] for e in entries}:
+                    return False, f"{s['op']} {p}: {beat} not all kept"
+    return True, "ok"
+
+
+def phase_explain(torch, spmv, pattern, graphs, giant_k15, src, workdir):
+    """Rank provenance (K15) at config 5 (see the module note): K15 alone
+    on every route's window (and the giant windows', measured in the
+    giant phase), the explained program in turns with the one-formula
+    program at the kind window, then the stream phase's timeline, tumbling,
+    with ``ExplainConfig.enabled``, counted, its incident's bundle, flight
+    dump, journal record, ``/explainz``, ``cli explain`` and the float64
+    oracle gated. Returns (launch counts, the phase's line)."""
+    import urllib.parse
+    import urllib.request
+
+    import numpy as np
+
+    from microrank_tpu_torch.config import ExplainConfig, MicroRankConfig, StreamConfig
+    from microrank_tpu_torch.explain.bundle import BUNDLE_JSON, ExplainBundle
+    from microrank_tpu_torch.explain.oracle import explain_window_oracle
+    from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
+    from microrank_tpu_torch.obs import read_journal
+    from microrank_tpu_torch.obs.server import start_metrics_server
+    from microrank_tpu_torch.obs.spans import get_tracer
+    from microrank_tpu_torch.ops import explain as kx
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+    from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
+    from microrank_tpu_torch.stream import StreamEngine
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = MicroRankConfig()
+    ex = ExplainConfig(enabled=True)
+    out = {"phase": "explain", "k15": {}}
+    for label, (key, kernel) in K15_ROUTES.items():
+        dg = tc.device_subset(graph_from_numpy(tc.host_subset(graphs[key], kernel), dev), kernel)
+        out["k15"][label] = measure_k15(torch, f"explain/{label}", dg, cfg, kernel, K6_REPS)
+        if label == "kind":
+            # What explain costs at incident open: the explained program
+            # in turns with the one-formula program, events behind a
+            # ~100 ms spin.
+            sides = {"one_formula": lambda: tc._rank_program(dg, cfg.pagerank, cfg.spectrum,
+                                                             kernel),
+                     "explained": lambda: tc._rank_program(dg, cfg.pagerank, cfg.spectrum,
+                                                           kernel, "explained",
+                                                           explain_cfg=ex)}
+            turns = [(k, spin_event_ms(torch, sides[k], 5, PROGRAM_SPIN_CYCLES))
+                     for k in ("one_formula", "explained", "explained", "one_formula")]
+            out["program_ms"] = {"kernel": kernel,
+                                 **{k: round(_mean([t for kk, t in turns if kk == k]), 6)
+                                    for k in sides},
+                                 "turns_ms": [[k, round(t, 6)] for k, t in turns]}
+        del dg
+    for want, k15 in giant_k15.items():
+        out["k15"][f"giant_{want}"] = k15
+    torch.cuda.empty_cache()
+
+    # The stream timeline with explain on: the main path, counted.
+    run_dir = workdir / "stream_explain"
+    scfg = MicroRankConfig(stream=StreamConfig(allowed_lateness_seconds=0.0, pipeline_windows=3),
+                           explain=ex)
+    engine = StreamEngine(scfg, src, out_dir=run_dir, device="cuda")
+    builds, prepare = {}, engine._prepare
+
+    def recorded(table, mask, nrm, abn, rng):
+        built = prepare(table, mask, nrm, abn, rng)
+        builds[int(table.start_us.min())] = ((table, mask, nrm, abn, rng), built)
+        return built
+
+    engine._prepare = recorded
+    torch.cuda.synchronize()
+    reset_counts(spmv, pattern)
+    t1 = time.perf_counter()
+    s = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts(spmv, pattern)
+    ranked = [r for r in s.results if r.ranking]
+    check(s.incidents_opened == 1 and ranked, f"explain/stream: {s.incidents_opened} incidents "
+                                              f"opened, {len(ranked)} windows ranked")
+    bundle_dirs = list((run_dir / "explain").iterdir())
+    check(len(bundle_dirs) == 1, f"explain/stream: {len(bundle_dirs)} bundles written")
+    bundle = ExplainBundle.load(bundle_dirs[0] / BUNDLE_JSON)
+    kernel = bundle.data["kernel"]
+    # The window that opened the incident, as the engine built it.
+    w0 = int(np.datetime64(str(bundle.window["start"]).replace(" ", "T"), "us").astype(np.int64))
+    (table, mask, nrm, abn, rng), built = builds[min(k for k in builds if k >= w0)]
+    g_n = built[0].normal
+    plan = kx.explain_plan(int(g_n.kind.shape[0]), int(built[0].abnormal.kind.shape[0]),
+                           ex.top_traces, kx.n_suspects(
+                               min(scfg.spectrum.n_rows, int(g_n.cov_unique.shape[0])), ex))
+    groups = [r.batch_windows or 1 for r in ranked]
+    expect = expected_counts(kernel, len(ranked) + 1, programs=s.dispatches + 1,
+                             groups=round(sum(1 / b for b in groups if b > 1)),
+                             explained=(1, plan.kernel_launches))
+    check(counts == expect, f"explain/stream: launch counts {counts}, want {expect}")
+    # The incident's flight dump holds the bundle and links it.
+    dumps = [d for d in (run_dir / "flight").iterdir() if d.name.endswith("-incident")]
+    check(len(dumps) == 1 and (dumps[0] / BUNDLE_JSON).exists(),
+          f"explain/stream: flight dumps {dumps} (one holding the bundle wanted)")
+    manifest = json.loads((dumps[0] / "manifest.json").read_text())
+    check(manifest.get("explain_bundle") == BUNDLE_JSON,
+          f"explain/stream: the dump's manifest does not link the bundle: {manifest}")
+    # The journal's record: the ranked window's top-1 and ef.
+    events = read_journal(run_dir / "journal.jsonl")
+    rec = [e for e in events if e["event"] == "explain"]
+    first = next(e for e in events if e["event"] == "window" and e.get("outcome") == "ranked")
+    check(len(rec) == 1 and rec[0]["top1"] == first["top1"] == bundle.top1()
+          and rec[0]["ef_top1"] == bundle.suspects[0]["counters"]["ef"]
+          and rec[0]["start"] == first["start"],
+          f"explain/stream: the journal's explain record {rec} vs the ranked window {first}")
+    fault = src.fault_pod_op
+    check(fault in [x["op"] for x in bundle.suspects[:5]],
+          f"explain/stream: the fault {fault} is not among the bundle's first 5 suspects")
+    # /explainz on a metrics server serves the bundle.
+    server = start_metrics_server(0)
+    try:
+        url = (f"http://127.0.0.1:{server.port}/explainz?window="
+               f"{urllib.parse.quote(str(bundle.window['start']))}")
+        with urllib.request.urlopen(url, timeout=30) as r:
+            served = json.loads(r.read())
+    finally:
+        server.close()
+    check(served == bundle.data, "explain/stream: /explainz does not serve the written bundle")
+    # cli explain renders it.
+    cli = subprocess.run([sys.executable, "-m", "microrank_tpu_torch.cli", "explain",
+                          str(run_dir)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(cli.returncode == 0 and bundle.top1() in cli.stdout,
+          f"explain/stream: cli explain exited {cli.returncode}: {cli.stderr[-500:]}")
+    # The float64 oracle of the window, uncollapsed (summed per kind
+    # where the stream's build collapsed it).
+    g_un, names, codes_n, codes_a = build_window_graph_from_table(
+        table, mask, nrm, abn, aux="none", collapse="off", row_range=rng)
+    ids = table.trace_names
+    t2 = time.perf_counter()
+    oracle = explain_window_oracle(g_un, names, [ids[int(c)] for c in codes_n],
+                                   [ids[int(c)] for c in codes_a], cfg.pagerank, cfg.spectrum,
+                                   aggregate_kinds=int(built[0].normal.n_cols) >= 0)
+    oracle_s = time.perf_counter() - t2
+    ok, why = bundle_vs_oracle(bundle, oracle, ORACLE_RTOL)
+    check(ok, f"explain/stream: the bundle against the float64 oracle: {why}")
+    out["stream"] = {
+        "windows": s.windows, "ranked": s.ranked, "dispatches": s.dispatches,
+        "incidents": [s.incidents_opened, s.incidents_resolved], "kernel": kernel,
+        "launches": counts, "explain_plan": plan._asdict(),
+        "bundle": {"window": bundle.window, "suspects": len(bundle.suspects),
+                   "top1": bundle.top1(), "fault_rank": 1 + [x["op"] for x in
+                                                             bundle.suspects].index(fault),
+                   "iterations": bundle.data["iterations"]},
+        "flight_dump_links_bundle": True, "journal_record": rec[0]["top1"],
+        "explainz_serves_bundle": True, "cli_explain_names_top1": True,
+        "oracle_rtol": ORACLE_RTOL, "oracle_tie_aware_top5_counters_mass_traces": True,
+        "oracle_s": round(oracle_s, 3),
+        # The explain span at incident open (stage, program, fetch,
+        # bundle), host clock.
+        "explain_span_ms": round(next((sp.dur_us for sp in get_tracer().snapshot()
+                                       if sp.name == "explain"), 0) / 1e3, 3),
+        "ranked_window_ms": [r.timings.get("rank_ms") for r in ranked],
+        "wall_s": round(wall, 3),
+    }
+    out["nvidia_smi"] = power_line()
+    out["phase_s"] = round(time.perf_counter() - t0, 3)
+    return {"explain/stream": counts}, out
+
+
 STREAM_FAULTS = (3, 4, 5)
 STREAM_WINDOWS = 8
 # The stream phase's runs: (stream config, runtime, pagerank).
@@ -6114,16 +6526,31 @@ def stream_run(torch, spmv, pattern, source, mode):
     return summary, read_counts(spmv, pattern), builds, wall, cfg, hits
 
 
-def phase_stream(torch, spmv, pattern, args):
-    """The stream lane at config-5 scale (see the module note); returns
-    (launch counts by run, the phase's line)."""
+def stream_source(args):
+    """The stream phases' config-5 timeline: STREAM_WINDOWS windows of
+    about --spans spans, faults in STREAM_FAULTS (a source iterates it
+    again for every run). Returns (source, seconds to generate)."""
+    from microrank_tpu_torch.stream import SyntheticSource
+    from microrank_tpu_torch.testing import SyntheticConfig
+
+    t0 = time.perf_counter()
+    src = SyntheticSource(
+        STREAM_WINDOWS, list(STREAM_FAULTS),
+        SyntheticConfig(n_operations=args.ops, n_kinds=max(32, args.ops // 50),
+                        child_keep_prob=0.55, fault_latency_ms=60000.0, seed=0),
+        chunk_spans=200_000, spans_per_window=args.spans)
+    return src, time.perf_counter() - t0
+
+
+def phase_stream(torch, spmv, pattern, args, src, gen_s):
+    """The stream lane at config-5 scale (see the module note) over
+    ``src`` (``stream_source``); returns (launch counts by run, the
+    phase's line)."""
     import numpy as np
 
     from microrank_tpu_torch.dispatch import DispatchRouter, bucket_key
     from microrank_tpu_torch.rank_backends import torch_cuda as tc
-    from microrank_tpu_torch.stream import SyntheticSource
     from microrank_tpu_torch.stream.window import stamp
-    from microrank_tpu_torch.testing import SyntheticConfig
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
     def us(text):
@@ -6135,13 +6562,6 @@ def phase_stream(torch, spmv, pattern, args):
         w0 = us(start)
         return builds[min(k for k in builds if k >= w0)]
 
-    t0 = time.perf_counter()
-    src = SyntheticSource(
-        STREAM_WINDOWS, list(STREAM_FAULTS),
-        SyntheticConfig(n_operations=args.ops, n_kinds=max(32, args.ops // 50),
-                        child_keep_prob=0.55, fault_latency_ms=60000.0, seed=0),
-        chunk_spans=200_000, spans_per_window=args.spans)
-    gen_s = time.perf_counter() - t0
     window_us = int(src.timeline.window_minutes * 60e6)
     t_start = int(src.timeline.start.astype(np.int64))
     faulted = [(t_start + k * window_us, t_start + (k + 1) * window_us) for k in STREAM_FAULTS]
@@ -6438,7 +6858,7 @@ def main(argv=None) -> int:
         emit(steps)
         phase = "giant"
         giant, giant_steps, giant_folds, giant_k6, giant_stacked_err = {}, {}, {}, {}, {}
-        giant_group, giant_k13, giant_k19 = {}, None, None
+        giant_group, giant_k13, giant_k19, giant_k15 = {}, None, None, {}
         if args.giant_spans:
             budget = DEFAULT_BUDGET * args.giant_spans // GIANT_SPANS
             for n_spans, want in ((args.giant_spans // 5, "packed_blocked"),
@@ -6456,6 +6876,7 @@ def main(argv=None) -> int:
                 giant_k6[want] = k6
                 giant_k13 = info.pop("k13", giant_k13)
                 giant_k19 = info.pop("k19", giant_k19)
+                giant_k15[want] = info.pop("k15")
                 emit(info)
                 torch.cuda.empty_cache()
         # K13 at the config-5 kind window (V 3,072) and the 10M-span giant
@@ -6480,9 +6901,17 @@ def main(argv=None) -> int:
         emit(k19)
         del kind
         phase = "stream"
-        stream_launches, stream = phase_stream(torch, spmv, pattern, args)
+        src, gen_s = stream_source(args)
+        stream_launches, stream = phase_stream(torch, spmv, pattern, args, src, gen_s)
         launches.update(stream_launches)
         emit(stream)
+        phase = "explain"
+        explain_launches, explained = phase_explain(torch, spmv, pattern, graphs, giant_k15,
+                                                    src, workdir)
+        launches.update(explain_launches)
+        k15s = explained["k15"]
+        emit(explained)
+        del src
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         traceback.print_exc()
@@ -6921,6 +7350,39 @@ def main(argv=None) -> int:
             "bound_ms": k13["config5_kind"]["k_v"]["bound_ms"],
             "bound_by": k13["config5_kind"]["k_v"]["bound_by"],
             "library_ms": k13["config5_kind"]["k_v"]["library_ms"],
+        },
+        {
+            "name": "explain_epilogue",
+            "route": "cuda",
+            "source": "microrank_tpu_torch/csrc/explain_epilogue.cu",
+            "replaces": "microrank_tpu/explain/extract.py:212",
+            # K15: the explained program's attribution epilogue
+            # (extract.py:59 _slot_map, :74 _contrib_rows, :172
+            # _top_traces, and :212's gathers; its blob twin :277), one
+            # call an explained program: explain_tiles, then explain_merge
+            # passes (kernel_launches). The main path's calls: the
+            # incident the explain phase's stream run opened.
+            "kernels": ["explain_tiles", "explain_merge"],
+            "launches": sum(c["explain_launches"] for c in launches.values()),
+            "kernel_launches": sum(c["explain_kernel_launches"] for c in launches.values()),
+            "max_abs_err": 0.0,
+            # One call at the config-5 kind window (Ke 11, J 5), the
+            # route the stream's incident took; _by_route every config-5
+            # route's window and the giant windows'. library_ms is the
+            # selection alone: one stable torch.sort of the [2, Ke, T]
+            # contribution rows. The bound: the bytes the function reads
+            # and writes (ops' k15_bytes) at 3.35 TB/s.
+            "ms": k15s["kind"]["ms"],
+            "plain_ms": k15s["kind"]["plain_ms"],
+            "bound_ms": k15s["kind"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": k15s["kind"]["library_ms"],
+            **{f"{key}_by_route": {label: m[key] for label, m in k15s.items()}
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            # The explained program against the one-formula program at
+            # the config-5 kind window, in turns.
+            "explained_program_ms": explained["program_ms"]["explained"],
+            "one_formula_program_ms": explained["program_ms"]["one_formula"],
         },
         *(
             {

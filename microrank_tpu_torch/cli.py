@@ -18,6 +18,8 @@
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
+    python -m microrank_tpu_torch.cli explain TARGET [--window START] [--format table|json]
+        [--json PATH]
     python -m microrank_tpu_torch.cli eval [--cases 20] [--operations 30] [--traces 400]
         [--pods 1] [--kinds 48] [--faults 1] [--fault-ms 2000] [--keep-prob 0.15]
         [--fault-overlap F] [--overlap-ablation] [--seed 1000] [--all-methods]
@@ -38,6 +40,9 @@ experiment (``evaluation``): R@k and Exam Score over synthetic chaos
 cases, per formula with ``--all-methods``, window detection quality
 with ``--detection``, two-fault accuracy against path overlap with
 ``--overlap-ablation``; its lines and ``--json`` keys are the JAX CLI's.
+``stream --explain`` writes an explain bundle when an incident opens;
+``explain`` renders one from a run directory, a bundle directory or
+file, a flight dump or a journal (JAX's ``cli explain``).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from .config import (
     KIND_PRECISIONS,
     CompatConfig,
     DetectorConfig,
+    ExplainConfig,
     IngestConfig,
     MicroRankConfig,
     ObsConfig,
@@ -104,6 +110,8 @@ def _config_from_args(args) -> MicroRankConfig:
     obs = {k: v for k, v in (("spans", False if args.no_span_trace else None),
                              ("span_ring", args.span_ring)) if v is not None}
     ingest = {} if args.quarantine_dir is None else {"quarantine_dir": args.quarantine_dir}
+    explain = {k: v for k, v in (("enabled", True if args.explain else None),
+                                 ("top_traces", args.explain_top_traces)) if v is not None}
     cfg = MicroRankConfig(
         detector=DetectorConfig(
             k_sigma=args.k_sigma, slack_ms=args.slack_ms, slo_stat=args.slo_stat,
@@ -122,6 +130,7 @@ def _config_from_args(args) -> MicroRankConfig:
         ),
         ingest=IngestConfig(**ingest),
         obs=ObsConfig(**obs),
+        explain=ExplainConfig(**explain),
     )
     if args.reference_compat:
         cfg = cfg.replace(compat=CompatConfig(partition_swap=True, overwrite_results=True))
@@ -513,6 +522,80 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def _find_bundles(target: Path):
+    """An explain target (a bundle .json, a run output dir, a flight
+    dump dir, or a journal .jsonl) as a list of bundle dicts, searched in
+    JAX's order: the file itself, explain_bundle.json, explain/*/ bundle
+    dirs, then the journal's (or the dump's events') ``explain`` records
+    (``{"journal_record": event}`` where the bundle file is gone)."""
+    from .explain.bundle import BUNDLE_JSON, ExplainBundle
+    from .obs import read_journal
+
+    bundles = []
+    if target.is_file():
+        if target.name.endswith(".jsonl"):
+            for e in read_journal(target):
+                if e.get("event") == "explain":
+                    bpath = e.get("bundle")
+                    if bpath and Path(bpath).exists():
+                        bundles.append(ExplainBundle.load(bpath).data)
+                    else:
+                        bundles.append({"journal_record": e})
+            return bundles
+        return [ExplainBundle.load(target).data]
+    if (target / BUNDLE_JSON).exists():
+        return [ExplainBundle.load(target / BUNDLE_JSON).data]
+    exp_dir = target / "explain"
+    if exp_dir.is_dir():
+        for sub in sorted(exp_dir.iterdir()):
+            if (sub / BUNDLE_JSON).exists():
+                bundles.append(ExplainBundle.load(sub / BUNDLE_JSON).data)
+        if bundles:
+            return bundles
+    for journal_name in ("journal.jsonl", "events.jsonl"):
+        if (target / journal_name).exists():
+            bundles.extend(_find_bundles(target / journal_name))
+            if bundles:
+                return bundles
+    return bundles
+
+
+def cmd_explain(args) -> int:
+    """Render rank provenance from run artifacts: the bundles the stream
+    engine writes when an incident opens, the journal's ``explain``
+    events, or a flight dump's bundle — the offline twin of ``GET
+    /explainz`` (JAX's ``cmd_explain``; exit 2 when nothing matches)."""
+    from .explain.bundle import ExplainBundle
+
+    target = Path(args.target)
+    if not target.exists():
+        print(f"no such explain target: {target}", file=sys.stderr)
+        return 2
+    bundles = _find_bundles(target)
+    if not bundles:
+        print(f"no explain bundles under {target} (run stream with --explain)", file=sys.stderr)
+        return 2
+    if args.window is not None:
+        bundles = [b for b in bundles
+                   if str((b.get("window") or {}).get("start")
+                          or (b.get("journal_record") or {}).get("start")) == str(args.window)]
+        if not bundles:
+            print(f"no bundle for window {args.window!r}", file=sys.stderr)
+            return 2
+    data = bundles[-1]
+    if "journal_record" in data:
+        # The journal's compact record only (the bundle file is gone).
+        print(json.dumps(data["journal_record"], indent=2))
+        return 0
+    if args.json:
+        Path(args.json).write_text(json.dumps(data, indent=2))
+    if args.format == "json":
+        print(json.dumps(data, indent=2))
+    else:
+        print(ExplainBundle(data).to_table(), end="")
+    return 0
+
+
 def cmd_synth(args) -> int:
     from .testing import SyntheticConfig, generate_case
 
@@ -654,6 +737,18 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
         "--span-ring", type=_positive_int, default=None,
         help="span ring capacity (spans; default 8192 — oldest spans "
         "fall off, the flight manifest counts drops)",
+    )
+    p.add_argument(
+        "--explain", action="store_true",
+        help="arm the rank-provenance subsystem (explain/): stream "
+        "builds an explain bundle automatically when an incident "
+        "opens (written next to the flight dump, served at "
+        "/explainz); off by default — the hot path pays nothing",
+    )
+    p.add_argument(
+        "--explain-top-traces", type=_positive_int, default=None,
+        help="contributing coverage columns (traces) kept per suspect "
+        "in explain bundles (default 5)",
     )
 
 
@@ -878,6 +973,20 @@ def build_parser() -> argparse.ArgumentParser:
                           "its state exported to warm-start the next window")
     _add_config_flags(p_stream)
     p_stream.set_defaults(fn=cmd_stream)
+
+    p_exp = sub.add_parser(
+        "explain", help="render rank provenance from run artifacts (explain bundles, journal "
+        "explain events, flight-dump bundles)")
+    p_exp.add_argument("target", help="an explain bundle .json, a run output dir (reads "
+                       "explain/*/ bundles or journal.jsonl), a flight dump dir (reads its "
+                       "bundle), or a journal.jsonl path")
+    p_exp.add_argument("--window", default=None, help="select the bundle for this window start "
+                       "(default: the latest bundle found)")
+    p_exp.add_argument("--format", choices=["table", "json"], default="table",
+                       help="human-readable table (default) or the raw bundle JSON")
+    p_exp.add_argument("--json", default=None, help="also write the selected bundle JSON to "
+                       "this path")
+    p_exp.set_defaults(fn=cmd_explain)
 
     p_synth = sub.add_parser("synth", help="generate a synthetic chaos case")
     p_synth.add_argument("-o", "--output", required=True)

@@ -299,16 +299,54 @@ class IngestConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """The table lane's self-tracing (obs.spans): the fields of the JAX
-    package's ObsConfig that its span tracer reads, with the same names
-    and defaults. The flight recorder, the profiler and the chaos hooks
-    come with their lanes (ROADMAP.md, port queue item 11)."""
+    """Self-tracing (obs.spans) and the flight recorder (obs.flight): the
+    fields of the JAX package's ObsConfig that the span tracer and the
+    recorder's incident-open trigger read, with the same names and
+    defaults. The profiler and the chaos hooks come with their lanes
+    (ROADMAP.md, port queue item 11)."""
 
     # Span tracer on/off: each stage of a window records a span in a
     # bounded ring (a contextvar read and a locked deque append a span).
     spans: bool = True
     # Ring capacity in spans; the oldest fall off.
     span_ring: int = 8192
+    # Flight recorder: dump the ring (+ correlated journal events + a
+    # metrics snapshot) to out_dir/flight/<stamp>-<reason>/ when a stream
+    # incident opens. Dumps within ``flight_min_interval_seconds`` of the
+    # previous one are suppressed (counted) so an incident storm cannot
+    # fill the disk.
+    flight: bool = True
+    flight_min_interval_seconds: float = 30.0
+
+
+@dataclass(frozen=True)
+class ExplainConfig:
+    """Rank provenance (``explain/``, JAX's ``ExplainConfig``): every
+    ranked score decomposes into the four spectrum counters, the
+    per-formula term values, the normal-vs-abnormal PageRank mass split
+    and the coverage columns (traces) that fed the suspect's mass. The
+    explained program (K15) carries them out in the rank program's one
+    result copy, and the host writes an ``ExplainBundle`` (JSON + table).
+
+    Off by default: the normal rank programs run unchanged."""
+
+    # Master switch: the stream engine builds a bundle when a new
+    # incident opens.
+    enabled: bool = False
+    # J: contributing coverage columns (traces) kept per suspect, per
+    # partition.
+    top_traces: int = 5
+    # Suspects explained per window: 0 = every rank row (top_max +
+    # extra_rows), else min(this, rank rows).
+    top_suspects: int = 0
+    # Stream engine: build and write a bundle when a NEW incident opens
+    # (next to the flight dump, linked from its manifest; the
+    # incident_open event carries the path).
+    on_incident: bool = True
+    # Recent bundles kept in the store ``GET /explainz`` serves.
+    store_windows: int = 32
+    # Mirror a compact explain record into the run journal.
+    journal: bool = True
 
 
 @dataclass(frozen=True)
@@ -389,6 +427,7 @@ class MicroRankConfig:
     obs: ObsConfig = field(default_factory=ObsConfig)
     dispatch: DispatchConfig = field(default_factory=DispatchConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    explain: ExplainConfig = field(default_factory=ExplainConfig)
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)

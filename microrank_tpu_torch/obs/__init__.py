@@ -1,11 +1,13 @@
 """Run telemetry (counterpart of part of ``microrank_tpu/obs``): the
 metrics registry and the ported lanes' metric set, the per-run JSONL
 journal, the host-contention sentinel it samples, the span tracer
-(``spans``: the table lane's stages as spans in a bounded ring) and the
-HTTP metrics endpoint (``server``, imported where it is started).
+(``spans``: the table lane's stages as spans in a bounded ring), the
+flight recorder that dumps the ring when a stream incident opens
+(``flight``) and the HTTP metrics endpoint (``server``, imported where
+it is started; it also serves ``/explainz``).
 
-The JAX package's flight recorder, profiler sessions and fleet plane
-are not ported (ROADMAP.md 'Port queue' item 11).
+The JAX package's profiler sessions and fleet plane are not ported
+(ROADMAP.md 'Port queue' item 11).
 """
 
 from .host import ContentionSentinel

@@ -8,10 +8,11 @@ ported lanes record: the table lane's window loop, its staging, the
 convergence trace, ingest admission and its dead-letter store, the
 span tracer, the tuned policy, follow mode, the host sentinel, and the
 stream lane's series (``microrank_stream_*``, its incidents, the
-dispatch router's routes and the build pool). The JAX package's other
-metrics (serve, fleet, scheduler, warehouse, the jit and compile-cache
-counters, the flight recorder, the sanitizers, chaos and the explain
-store) come with their lanes (ROADMAP.md, port queue item 11).
+dispatch router's routes and the build pool), the flight recorder's
+dumps and the explain bundles. The JAX package's other metrics (serve,
+fleet, scheduler, warehouse, the jit and compile-cache counters, the
+profiler, the sanitizers and chaos) come with their lanes (ROADMAP.md,
+port queue item 11).
 
 Naming: ``microrank_<noun>_<unit>`` with ``_total`` on counters, the
 Prometheus convention.
@@ -291,6 +292,25 @@ def webhook_dropped() -> Counter:
     )
 
 
+def flight_dumps() -> Counter:
+    return get_registry().counter(
+        "microrank_flight_dumps_total",
+        "Flight-recorder dumps written to out_dir/flight/, by trigger "
+        '(reason="suppressed" counts dumps the min-interval rate limit '
+        "swallowed)",
+        labelnames=("reason",),  # incident | suppressed
+    )
+
+
+def explain_bundles() -> Counter:
+    return get_registry().counter(
+        "microrank_explain_bundles_total",
+        "Explain bundles materialized (rank provenance: per-suspect "
+        "counter decomposition + contributing traces), by trigger",
+        labelnames=("trigger",),  # incident
+    )
+
+
 def ensure_catalog() -> None:
     """Register this package's whole metric set in the current registry
     (no samples added), so a scrape or ``cli stats`` shows every metric
@@ -307,6 +327,7 @@ def ensure_catalog() -> None:
         stream_incidents, stream_open_incidents,
         dispatch_routes, dispatch_windows, dispatch_overlap_seconds,
         build_pool_inflight, build_pool_builds, webhook_dropped,
+        flight_dumps, explain_bundles,
     ):
         ctor()
 
@@ -499,3 +520,11 @@ def snapshot_to_result_fields(registry=None) -> Dict[str, float]:
         if total:
             out["overlap_ms"] = round(total * 1e3, 1)
     return out
+
+
+def record_flight_dump(reason: str) -> None:
+    flight_dumps().inc(reason=reason)
+
+
+def record_explain(trigger: str) -> None:
+    explain_bundles().inc(trigger=trigger)

@@ -7,10 +7,13 @@ nothing listening unless asked. Routes:
 * ``/metrics``      — Prometheus text exposition (scrape target);
 * ``/metrics.json`` — the JSON snapshot form;
 * ``/healthz``      — liveness probe;
-* ``/profilez`` and ``/explainz`` — the JAX package's on-demand device
-  profile session and rank-provenance store. Neither is ported: both
-  answer 501 with a JSON body naming the ROADMAP.md item that brings
-  them, so a client learns the route exists and why it cannot answer.
+* ``/explainz``     — the rank-provenance store (``explain.store``):
+  ``{"windows": [...], "latest": bundle}``, or with ``?window=<start>``
+  that window's bundle (404 naming the windows held when none is);
+* ``/profilez``     — the JAX package's on-demand device profile
+  session, not ported: it answers 501 with a JSON body naming the
+  ROADMAP.md item that brings it, so a client learns the route exists
+  and why it cannot answer.
 """
 
 from __future__ import annotations
@@ -31,17 +34,30 @@ NOT_PORTED = {
         "jax.profiler capture) are not ported: ROADMAP.md 'Port queue' "
         "item 11"
     ),
-    "/explainz": (
-        "rank provenance (the JAX package's explain store) is not "
-        "ported: ROADMAP.md 'Port queue' items 10-11 (K15, explain/)"
-    ),
 }
+
+
+def _explainz(query: str):
+    """(status, body) of ``GET /explainz`` (JAX's ``_explainz``)."""
+    from urllib.parse import parse_qs
+
+    from ..explain.store import get_explain_store
+
+    store = get_explain_store()
+    window = parse_qs(query).get("window", [None])[0]
+    if window is None:
+        return 200, json.dumps({"windows": store.windows(), "latest": store.latest()}).encode()
+    bundle = store.get(window)
+    if bundle is None:
+        return 404, json.dumps({"error": f"no explain bundle for window {window!r}",
+                                "windows": store.windows()}).encode()
+    return 200, json.dumps(bundle).encode()
 
 
 def _make_handler(registry: MetricsRegistry):
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802 (stdlib API name)
-            route = self.path.partition("?")[0]
+            route, _, query = self.path.partition("?")
             status = 200
             if route == "/metrics":
                 body = registry.to_prometheus().encode()
@@ -52,6 +68,9 @@ def _make_handler(registry: MetricsRegistry):
             elif route == "/healthz":
                 body = b"ok\n"
                 ctype = "text/plain"
+            elif route == "/explainz":
+                status, body = _explainz(query)
+                ctype = "application/json"
             elif route in NOT_PORTED:
                 status = 501
                 body = json.dumps(

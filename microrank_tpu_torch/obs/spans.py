@@ -12,9 +12,10 @@
   each counted in ``microrank_spans_recorded_total``.
 
 Span ids, trace ids and parent links are made as the JAX package makes
-them, so one run gives the same ring in both packages, times apart. Not
-ported: the chaos hooks (``_chaos_stage``, ``_maybe_inject``) and the
-flight recorder that dumps the ring (ROADMAP.md, port queue item 11).
+them, so one run gives the same ring in both packages, times apart. The
+flight recorder (``obs.flight``) dumps the ring when a stream incident
+opens. Not ported: the chaos hooks (``_chaos_stage``, ``_maybe_inject``;
+ROADMAP.md, port queue item 11).
 """
 
 from __future__ import annotations

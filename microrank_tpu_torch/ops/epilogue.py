@@ -71,6 +71,9 @@ from .spmv import nvcc
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rank_epilogue.cu"
 LIB_PATH = BUILD_DIR / "libmr_rank_epilogue.so"
+# The formulas, sort keys and warp networks it shares with K15
+# (``ops/explain.py``).
+COMMON_HEADER = SOURCE.with_name("rank_common.cuh")
 SMEM_KEYS = 1024  # top-k keys the kernel sorts in shared memory (kSmemKeys)
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -546,7 +549,7 @@ def build_command(out: Path) -> List[str]:
 def build_library() -> str:
     """Compile the kernel library if it is missing or older than its
     sources; returns the compiler's report ("" when up to date)."""
-    if not is_stale(LIB_PATH, [SOURCE, TREE_HEADER]):
+    if not is_stale(LIB_PATH, [SOURCE, TREE_HEADER, COMMON_HEADER]):
         return ""
     tmp = tmp_output(LIB_PATH)
     return run_build(build_command(tmp), tmp, LIB_PATH)

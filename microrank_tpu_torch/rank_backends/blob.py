@@ -225,18 +225,21 @@ def stage_rank_window(
     ``DeviceCheckError`` where JAX's call raises. ``all_methods`` (K13):
     the program under every formula instead
     (``rank_window_all_methods_core``: top_idx and top_scores [M, k],
-    n_valid; one window). JAX's explained program is not ported
-    (ROADMAP.md, port queue items 10-11)."""
+    n_valid; one window).
+
+    ``explain`` (an ``ExplainConfig``, or None): with ``enabled``, the
+    explained program instead (K15, ``rank_window_explained_core``, as
+    JAX's ``blob.stage_rank_window`` dispatches it): its ten outputs, the
+    residual trace always among them; it has no check word, so
+    ``checked`` is not read. One window."""
     from . import torch_cuda
 
-    if explain is not None and getattr(explain, "enabled", False):
-        raise NotImplementedError(
-            "stage_rank_window: the explained program (K15) is not ported "
-            "(ROADMAP.md, port queue items 10-11)"
-        )
     counts = torch_cuda.host_counts(graph, kernel)
     dgraph, staged = stage_graph(graph, device, blob)
     dgraph = torch_cuda.device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)
+    if explain is not None and getattr(explain, "enabled", False):
+        return torch_cuda.rank_window_explained_core(
+            dgraph, pagerank_cfg, spectrum_cfg, explain, kernel), staged
     if all_methods:
         return torch_cuda.rank_window_all_methods_core(
             dgraph, pagerank_cfg, spectrum_cfg, kernel), staged

@@ -69,6 +69,16 @@ program's five outputs plus the state tail (score_n [V], rv_n [T_n],
 score_a [V], rv_a [T_a]) the next window maps; ``rank_window_warm``
 fetches all nine in one copy. One window only, as in JAX.
 
+K15, the explained program (JAX's ``rank_window_explained_core``,
+``microrank_tpu/explain/extract.py:212``): ``rank_window_explained_core``
+runs the same program, then after the one-method epilogue the
+attribution epilogue (``ops.explain.explain_epilogue``) on the
+epilogue's weights and ranking and the final rv of both partitions, and
+returns JAX's ten outputs: the traced program's five, then counters
+[4, Ke], terms [13, Ke], mass [2, Ke], trace_idx and trace_val
+[2, Ke, J]; ``rank_window_explained`` fetches all ten in one copy. One
+window only, as in JAX.
+
 K13, the program under every spectrum formula (JAX's
 ``rank_window_all_methods_core``, ``jax_tpu.py:1373``):
 ``rank_window_all_methods_core`` runs the same set-up and steps, then one
@@ -129,7 +139,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import KERNELS, PageRankConfig, SpectrumConfig
+from ..config import KERNELS, ExplainConfig, PageRankConfig, SpectrumConfig
 from ..graph.build import (
     DEFAULT_DENSE_BUDGET_BYTES,
     PCSR_BLOCK,
@@ -150,6 +160,7 @@ from ..ops.epilogue import (  # noqa: F401
     rank_epilogue_checked,
     window_spectrum,
 )
+from ..ops.explain import Explained, explain_epilogue
 from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
 from ..ops.scan import ScanGroup, csr_scan_spmv, scan_group
 from ..ops.setup import partition_setup_plain, rank_setup
@@ -891,6 +902,7 @@ class _Program(NamedTuple):
     residuals: torch.Tensor
     n_iters: torch.Tensor
     check: Optional[torch.Tensor] = None  # K14's check word (a checked program)
+    explained: Optional[Explained] = None  # K15's attribution (an explained program)
 
 
 def _step_group_type(kernel: str):
@@ -904,7 +916,7 @@ def _step_group_type(kernel: str):
 
 
 # The epilogues a rank program can end in (``_rank_program``).
-EPILOGUES = ("one_method", "checked", "checked_traced", "all_methods")
+EPILOGUES = ("one_method", "checked", "checked_traced", "all_methods", "explained")
 
 
 def _rank_program(
@@ -914,6 +926,7 @@ def _rank_program(
     kernel: str,
     epilogue: str = "one_method",
     init=None,
+    explain_cfg: Optional[ExplainConfig] = None,
 ) -> _Program:
     """The rank program: the set-up (one ``rank_setup`` call for both
     partitions), the 25 steps, the epilogue (one launch: the finish of
@@ -923,9 +936,11 @@ def _rank_program(
     (JAX's ``rank_window_checked_core``), "checked_traced" over the
     residual trace too (``rank_window_checked_traced_core``);
     "all_methods" (K13) ranks by every formula
-    (``rank_epilogue_all_methods``, [(B,) M, k]). ``init``: K19's mapped
-    start vectors (sv_n, rv_n, sv_a, rv_a) on the graph's device, one
-    window, written by the set-up in place of the cold ones."""
+    (``rank_epilogue_all_methods``, [(B,) M, k]); "explained" (K15) ranks
+    by the configured formula, then runs the attribution epilogue
+    (``explain_epilogue``, ``explain_cfg``; one window). ``init``: K19's
+    mapped start vectors (sv_n, rv_n, sv_a, rv_a) on the graph's device,
+    one window, written by the set-up in place of the cold ones."""
     _check_kernel(kernel)
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r} (expected one of {EPILOGUES})")
@@ -1004,17 +1019,20 @@ def _rank_program(
     if n_iters is None:
         n_iters = torch.full(lead, n_steps, dtype=torch.int32, device=dev)
     (sv_n, rv_n), (sv_a, rv_a) = carry
-    word = None
+    word = explained = None
     parts = (graph.normal, graph.abnormal, sv_n, sv_a, spectrum_cfg)
-    if epilogue == "one_method":
+    if epilogue in ("one_method", "explained"):
         out = rank_epilogue(*parts)
+        if epilogue == "explained":
+            explained = explain_epilogue(graph.normal, graph.abnormal, rv_n, rv_a, out,
+                                         spectrum_cfg, explain_cfg, kernel)
     elif epilogue == "all_methods":
         out = rank_epilogue_all_methods(*parts)
     else:
         traced = epilogue == "checked_traced"
         out, word = rank_epilogue_checked(*parts, residuals if traced else None,
                                           n_iters if traced else None)
-    return _Program(out, sv_n, rv_n, sv_a, rv_a, residuals, n_iters, word)
+    return _Program(out, sv_n, rv_n, sv_a, rv_a, residuals, n_iters, word, explained)
 
 
 def _finish_topk(graph: WindowGraph, n_weight, a_weight, spectrum_cfg):
@@ -1152,6 +1170,34 @@ def rank_window_all_methods(graph: WindowGraph, pagerank_cfg: PageRankConfig,
         rank_window_all_methods_core(graph, pagerank_cfg, spectrum_cfg, kernel))
 
 
+def rank_window_explained_core(graph: WindowGraph, pagerank_cfg: PageRankConfig,
+                               spectrum_cfg: SpectrumConfig, explain_cfg: ExplainConfig,
+                               kernel: str = "coo"):
+    """JAX's ``rank_window_explained_core`` (K15): the traced program's
+    five outputs (top_idx, top_scores, n_valid, residuals, n_iters), then
+    the attribution: counters float32[4, Ke], terms float32[13, Ke], mass
+    float32[2, Ke], trace_idx int32[2, Ke, J], trace_val float32[2, Ke,
+    J], all still on the device. A stacked group raises: JAX has no
+    batched explained program."""
+    if stacked_windows(graph) is not None:
+        raise ValueError("rank_window_explained_core ranks one window; JAX has no batched "
+                         "explained program")
+    out = _rank_program(graph, pagerank_cfg, spectrum_cfg, kernel, "explained",
+                        explain_cfg=explain_cfg)
+    e = out.epilogue
+    return (e.top_idx, e.top_scores, e.n_valid, out.residuals, out.n_iters) + tuple(
+        out.explained)
+
+
+def rank_window_explained(graph: WindowGraph, pagerank_cfg: PageRankConfig,
+                          spectrum_cfg: SpectrumConfig, explain_cfg: ExplainConfig,
+                          kernel: str = "coo"):
+    """``rank_window_explained_core`` fetched in one device-to-host copy:
+    the ten outputs on the host."""
+    return fetch_rank_outputs(
+        rank_window_explained_core(graph, pagerank_cfg, spectrum_cfg, explain_cfg, kernel))
+
+
 def _raise_on_check_word(word) -> None:
     """``DeviceCheckError`` with JAX's message of the first failed check
     of a fetched check word (an int, or an array of a group's)."""
@@ -1165,13 +1211,14 @@ class PackedOutputs(NamedTuple):
     """rank_window_traced_core's five outputs packed into one float32
     host buffer (int32 values ride bit-for-bit through ``view``), with
     the event that marks its copy done (None on the CPU, where the pack
-    is the host buffer itself) and the outputs' shapes (a stacked
-    group's carry a leading [B] axis; the all-methods program's top-k
-    is [M, k])."""
+    is the host buffer itself), the outputs' shapes (a stacked group's
+    carry a leading [B] axis; the all-methods program's top-k is [M, k])
+    and their dtypes (int32 or float32, as numpy's)."""
 
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]
     shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[type, ...]
     # The window's staged blob in pinned host memory (blob staging),
     # held until the outputs are fetched, so that no later pack can
     # reuse its bytes while their copy to the card may be in flight.
@@ -1183,7 +1230,7 @@ class PackedOutputs(NamedTuple):
 
 def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None,
                       checked: bool = False) -> PackedOutputs:
-    """Pack the five outputs into one buffer on their device and start
+    """Pack the outputs into one buffer on their device and start
     its one device-to-host copy, all on the current stream: on CUDA a
     ``non_blocking`` copy into pinned host memory and an event recorded
     behind it, so the caller returns without waiting for the device.
@@ -1202,12 +1249,9 @@ def pack_rank_outputs(outs, staged: Optional[torch.Tensor] = None,
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(packed.device))
         packed = host
-    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs), staged, checked)
-
-
-# The dtypes of rank_window_traced_core's outputs, in order, then the
-# warm program's state tail (score_n, rv_n, score_a, rv_a).
-_OUT_DTYPES = (np.int32, np.float32, np.int32, np.float32, np.int32) + (np.float32,) * 4
+    dtypes = tuple(np.float32 if t.dtype == torch.float32 else np.int32 for t in outs)
+    return PackedOutputs(packed, ready, tuple(tuple(t.shape) for t in outs), dtypes, staged,
+                         checked)
 
 
 def unpack_rank_outputs(p: PackedOutputs):
@@ -1220,9 +1264,7 @@ def unpack_rank_outputs(p: PackedOutputs):
     if p.ready is not None:
         p.ready.synchronize()
     host, out, at = p.host.numpy(), [], 0
-    n_outs = len(p.shapes) - p.checked
-    dtypes = _OUT_DTYPES[:n_outs] + ((np.int32,) if p.checked else ())
-    for shape, dtype in zip(p.shapes, dtypes):
+    for shape, dtype in zip(p.shapes, p.dtypes):
         n = int(np.prod(shape))
         arr = host[at: at + n].view(dtype).reshape(shape).copy()
         out.append(int(arr) if shape == () else arr)

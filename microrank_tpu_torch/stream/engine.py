@@ -29,9 +29,19 @@ Baseline poisoning guard: baselines update only on healthy windows and
 freeze while an incident is open; the warm state is dropped when the
 last incident resolves.
 
+Incidents: with an ``out_dir`` the flight recorder (``obs.flight``)
+dumps the span ring to ``out_dir/flight/<stamp>-incident/`` when a new
+incident opens. With ``ExplainConfig.enabled`` the window that opened
+it is ranked once more through the explained program (K15) on this
+thread, and its bundle is written under ``out_dir/explain/<start>/``
+and into that flight dump (linked from its ``manifest.json``),
+published to the store ``/explainz`` serves, mirrored into the journal,
+and its path rides the ``incident_open`` event (JAX's
+``engine.py:1310-1369``, :1408-1418).
+
 Not ported here (ROADMAP.md, port queue item 11): JAX's crash-only
 checkpoint and ``--resume``, its chaos seams and retry policies, the
-flight recorder, the trace warehouse, the explain bundle, the unified
+flight recorder's SIGTERM trigger, the trace warehouse, the unified
 device scheduler, the compile-cache warmup manifest, the source-boundary
 pre-admission (the C++ loader never yields a row without a parsed
 time), and the incremental delta build.
@@ -184,6 +194,20 @@ class StreamEngine:
         # window's rank while an incident is open; dropped when none is.
         self._warm_state = None
         self.summary = StreamSummary()
+        # Rank provenance: the latest incident bundle, held until the
+        # flight dump it is written into.
+        self._last_bundle = None
+        if config.explain.enabled:
+            from ..explain import get_explain_store
+
+            get_explain_store().configure(config.explain.store_windows)
+        # Flight recorder: the span ring, the journal's events and a
+        # metrics snapshot dumped when an incident opens (rate-limited).
+        self.flight = None
+        if self.out_dir is not None:
+            from ..obs.flight import FlightRecorder
+
+            self.flight = FlightRecorder(self.out_dir, config.obs, journal=self.journal)
 
     def queue_depth(self) -> int:
         return len(self._pending)
@@ -341,9 +365,10 @@ class StreamEngine:
 
     def _prepare(self, table, mask, nrm, abn, rng):
         """The build-pool unit: the C++ build of the window (with the
-        column identity when a warm program maps its state), the kernel
-        resolved, the fields it never reads stripped. Returns (host
-        graph, op names, kernel, ExplainContext or None, build ms)."""
+        column identity when a warm program maps its state or an
+        incident's bundle names traces), the kernel resolved, the fields
+        it never reads stripped. Returns (host graph, op names, kernel,
+        ExplainContext or None, (dedup ratio, build ms))."""
         from ..explain import ExplainContext
         from ..graph.build import aux_for_kernel, kind_dedup_ratio
         from ..graph.table_ops import build_window_graph_from_table
@@ -353,13 +378,13 @@ class StreamEngine:
 
         t0 = time.perf_counter()
         rt = self.config.runtime
-        warm = self._warm()
+        columns = self._warm() or self.config.explain.enabled
         with get_tracer().span("build", service="pipeline"):
             out = build_window_graph_from_table(
                 table, mask, nrm, abn, pad_policy=rt.pad_policy, min_pad=rt.min_pad,
                 aux=aux_for_kernel(rt.kernel), dense_budget_bytes=rt.dense_budget_bytes,
                 collapse=rt.collapse_kinds, row_range=rng,
-                kind_dedup_threshold=rt.kind_dedup_threshold, retain_columns=warm)
+                kind_dedup_threshold=rt.kind_dedup_threshold, retain_columns=columns)
             graph, op_names = out[0], out[1]
             kernel = rt.kernel
             if kernel == "auto":
@@ -367,7 +392,7 @@ class StreamEngine:
             ratio = kind_dedup_ratio(graph)
             record_kind_dedup(ratio)
             ectx = None
-            if warm:
+            if columns:
                 names = table.trace_names
                 ids_n = [names[int(c)] for c in out[2]]
                 ids_a = [names[int(c)] for c in out[3]]
@@ -413,8 +438,9 @@ class StreamEngine:
                 p.result.ranking = []
                 self._finalize(p.result, "skipped", trace=p.trace)
             return
-        for p, *_ in group:
-            self._finalize(p.result, "ranked", table=p.table, trace=p.trace)
+        for p, g, names, ec, _ in group:
+            self._finalize(p.result, "ranked", table=p.table, trace=p.trace,
+                           explain_src=(g, names, p.result.kernel or kernel, ec))
 
     def _coalesce_burst(self, head_graph, kernel: str):
         """Pending windows whose builds land in the head's bucket
@@ -562,8 +588,59 @@ class StreamEngine:
         self._convergence(result, kernel, out[3], out[4])
         self._warm_state = capture_warm_state(op_names, ectx, out[5:9])
 
+    def _explain_incident(self, result, explain_src) -> dict:
+        """The incident-opening window's explain bundle, on this thread
+        (the one issuing work to the card): one explained program over
+        the window's host graph, the bundle written under
+        out_dir/explain/, published to the /explainz store and mirrored
+        into the journal. Returns the open event's extra fields."""
+        from ..explain import build_bundle, get_explain_store
+        from ..obs.metrics import record_explain
+        from ..obs.spans import get_tracer
+        from ..rank_backends.blob import stage_rank_window
+        from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
+
+        graph, op_names, kernel, ectx = explain_src
+        ex = self.config.explain
+        with get_tracer().span("explain", service="stream", kernel=kernel):
+            outs, staged = stage_rank_window(
+                graph, self.config.pagerank, self.config.spectrum, kernel, self.device,
+                self.config.runtime.blob_staging, explain=ex)
+            outs = unpack_rank_outputs(pack_rank_outputs(outs, staged))
+        bundle = build_bundle(outs, op_names, ectx, method=self.config.spectrum.method,
+                              kernel=kernel, window={"start": result.start, "end": result.end},
+                              trigger="incident")
+        record_explain("incident")
+        get_explain_store().publish(str(result.start), bundle.data)
+        path = None
+        if self.out_dir is not None:
+            stem = str(result.start).replace(" ", "T").replace(":", "")
+            path = bundle.write(self.out_dir / "explain" / stem)
+        if self.journal is not None and ex.journal:
+            self.journal.emit("explain", bundle=str(path) if path else None,
+                              **bundle.journal_record())
+        # Held until the flight dump this incident triggers, so that the
+        # bundle lands in the dump and its manifest links it.
+        self._last_bundle = bundle
+        return {"explain_bundle": str(path)} if path else {}
+
+    def _link_bundle(self, dump_dir) -> None:
+        """Name the explain bundle in the flight dump's manifest."""
+        import json
+
+        from ..explain.bundle import BUNDLE_JSON
+
+        man = Path(dump_dir) / "manifest.json"
+        try:
+            data = json.loads(man.read_text())
+            data["explain_bundle"] = BUNDLE_JSON
+            man.write_text(json.dumps(data, indent=2))
+        except (OSError, ValueError) as e:
+            log.warning("could not link the explain bundle in %s: %s", man, e)
+
     # ---------------------------------------------------------- results
-    def _finalize(self, result, outcome: str, table=None, trace=None) -> None:
+    def _finalize(self, result, outcome: str, table=None, trace=None,
+                  explain_src=None) -> None:
         from ..obs.metrics import record_stream_window
         from ..obs.spans import get_tracer
 
@@ -571,14 +648,28 @@ class StreamEngine:
         ctx = trace.ctx if trace is not None else None
         record_stream_window(outcome)
         setattr(self.summary, outcome, getattr(self.summary, outcome) + 1)
+        opened_before = self.tracker.opened
         if outcome == "ranked":
+            on_open = None
+            ex = self.config.explain
+            if explain_src is not None and ex.enabled and ex.on_incident:
+                def on_open(inc):
+                    return self._explain_incident(result, explain_src)
             with tracer.span("incident", service="stream", ctx=ctx):
-                inc = self.tracker.observe_ranked(result.start, result.ranking)
+                inc = self.tracker.observe_ranked(result.start, result.ranking, on_open=on_open)
             if inc is not None:
                 self.summary.incidents_opened = self.tracker.opened
                 log.info("window %s: anomaly -> %s (%d windows), top-1 %s", result.start,
                          inc.incident_id, inc.windows,
                          result.ranking[0][0] if result.ranking else "-")
+            if self.tracker.opened > opened_before and self.flight is not None:
+                # A new incident: dump how the pipeline got here while
+                # the ring still holds it, with its bundle beside.
+                dump_dir = self.flight.dump("incident")
+                if dump_dir is not None and self._last_bundle is not None:
+                    self._last_bundle.write(dump_dir)
+                    self._link_bundle(dump_dir)
+            self._last_bundle = None
         elif outcome != "warmup" and result.skipped_reason == "low_admission":
             # A window refused whole is evidence-free: it neither opens
             # nor resolves an incident.

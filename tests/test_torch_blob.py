@@ -367,12 +367,15 @@ def test_stage_rank_window_matches_the_tree_path_and_refuses_unported(small_case
     for a, b in zip(fetch_rank_outputs(checked[:5]), fetch_rank_outputs(ref)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    class Explain:
-        enabled = True
+    # The explained program (K15): the same five outputs, then the
+    # attribution's five (tests/test_torch_explain.py holds them to JAX).
+    from microrank_tpu_torch.config import ExplainConfig
 
-    with pytest.raises(NotImplementedError, match="K15"):
-        blob.stage_rank_window(host, cfg, SpectrumConfig(), "kind", "cpu", True,
-                               explain=Explain())
+    explained, _ = blob.stage_rank_window(host, cfg, SpectrumConfig(), "kind", "cpu", True,
+                                          explain=ExplainConfig(enabled=True))
+    assert len(explained) == 10
+    for a, b in zip(fetch_rank_outputs(explained)[:5], fetch_rank_outputs(ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # ------------------------------------------------------------- the window loop

@@ -84,6 +84,31 @@ def test_flag_has_jax_name_default_and_choices(dest):
     )
 
 
+@pytest.mark.parametrize("dest", ["explain", "explain_top_traces"])
+def test_explain_flags_have_jax_names_defaults_and_types(dest):
+    """``--explain`` and ``--explain-top-traces`` as JAX's
+    ``_add_config_flags`` declares them: the name, default, action and,
+    for the count, a positive-int type refusing 0 in both."""
+    ours, theirs = actions(port_run_parser())[dest], actions(jax_parser())[dest]
+    assert ours.option_strings == theirs.option_strings
+    assert (ours.default, ours.choices, ours.nargs, ours.const, type(ours)) == (
+        theirs.default, theirs.choices, theirs.nargs, theirs.const, type(theirs)
+    )
+    if theirs.type is not None:
+        assert ours.type("7") == theirs.type("7") == 7
+        for t in (ours.type, theirs.type):
+            with pytest.raises(argparse.ArgumentTypeError):
+                t("0")
+    argv = ["--explain", "--explain-top-traces", "7"]
+    jax_args = jax_parser().parse_args(argv)
+    port_args = cli.build_parser().parse_args(["stream", *argv])
+    assert getattr(port_args, dest) == getattr(jax_args, dest)
+    cfg = cli._config_from_args(port_args)
+    assert (cfg.explain.enabled, cfg.explain.top_traces) == (True, 7)
+    assert cli._config_from_args(cli.build_parser().parse_args(["stream"])).explain == (
+        type(cfg.explain)())
+
+
 def test_run_only_flags_match_jax_run(dump):
     from microrank_tpu.cli.main import main as jax_main
 

@@ -28,7 +28,7 @@ metrics endpoint, held to the JAX package's on the CPU.
   the port's and JAX's output are equal on the same ``metrics.json``,
   the port's and the JAX package's snapshots alike;
 * the HTTP endpoint: ``/metrics``, ``/metrics.json``, ``/healthz``, and
-  501 on ``/profilez`` / ``/explainz``.
+  501 on ``/profilez``, ``/explainz`` serving the explain store.
 """
 
 import json
@@ -466,12 +466,15 @@ def test_metrics_http_server(registries):
         jbody = json.loads(urllib.request.urlopen(f"{base}/metrics.json", timeout=10).read())
         assert jbody["metrics"]["t_live_total"]["samples"][0]["value"] == 4
         assert urllib.request.urlopen(f"{base}/healthz", timeout=10).read() == b"ok\n"
-        for route, item in (("/profilez", "item 11"), ("/explainz", "items 10-11")):
+        for route, item in (("/profilez", "item 11"),):
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(f"{base}{route}", timeout=10)
             assert err.value.code == 501
             detail = json.loads(err.value.read())
             assert detail["route"] == route and item in detail["reason"]
+        # /explainz serves the explain store (tests/test_torch_explain.py).
+        listing = json.loads(urllib.request.urlopen(f"{base}/explainz", timeout=10).read())
+        assert set(listing) == {"windows", "latest"}
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"{base}/nope", timeout=10)
         assert err.value.code == 404
