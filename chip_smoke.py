@@ -413,7 +413,11 @@ JAX or of the JAX package. Phases, one JSON line each:
               and over the incident, and each warm init's nonzero
               entries, recorded: JAX's map misses kind columns across a
               slide, and its own engine can take more steps warm than
-              cold), and the cold sliding run; then each ranked window
+              cold), and the cold sliding run; the warm restart (an
+              engine over the default run's warmup manifest dispatches
+              every recorded occupancy and shape before its first
+              window, counted with its run, none failed, then ranks
+              bitwise as the default run did); then each ranked window
               ranked again warm from its own converged state (JAX's
               identical-window replay: within 3 steps, fewer than cold,
               the cold ranking); gates:
@@ -458,6 +462,38 @@ JAX or of the JAX package. Phases, one JSON line each:
               gates 0 spill in its four kernels, and holds a small
               window's K15 bitwise its plain version on every route at J
               5 and 40.
+   serve    — the online service (``serve/``, ``cli serve``) on the
+              card, after the stream phase: the replay's six config-5
+              windows staged as a dataset, the replay's normal dump as
+              the baseline, an in-process ``ServeService`` and
+              ``ServeHandle`` on 127.0.0.1 (warmup on, max_batch_windows
+              8, max_wait_ms 200), six concurrent ``POST /rank`` of one
+              window each, twice: every answer 200, the fault first,
+              bitwise the replay's ``TableRCA`` ranking of the window,
+              fewer dispatches than requests with a batch of two or
+              more, the launch counts one window's a stacked group (K18),
+              none degraded; per request its total ms and Server-Timing
+              stages, the warmup's seconds, the first round against the
+              second. ``explain: true`` on one window: one more program
+              and one K15 call, the bundle's top-5 against the float64
+              oracle (rtol 1e-3). Warm restart: a second service over
+              the first one's warmup manifest dispatches every recorded
+              shape at startup (the B = 6 one among them, none failed),
+              then a round of the six windows, gated as the first, its
+              latencies against the first service's first round.
+              Inline: the eval harness's default case as JSON records,
+              bitwise ``cli run`` on its CSV pair (one window). A failed
+              dispatch: two injected failures answer 500 (no numpy_ref
+              fallback on the card, none counted degraded), a
+              ``degraded`` flight dump, the next request on the card;
+              a queue of depth 1 answers 429 with a Retry-After.
+              Co-deploy: serve and the stream phase's timeline (tumbling,
+              the default mode) through one ``sched.DeviceScheduler``:
+              the stream's windows, rankings and incidents its solo
+              run's, serve's answers the first round's, no scheduler
+              error, both lanes charged. Last ``python -m
+              microrank_tpu_torch.cli serve`` as a process: one request,
+              SIGTERM, exit 0 and a ``sigterm`` flight dump.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -6314,7 +6350,12 @@ def phase_explain(torch, spmv, pattern, graphs, giant_k15, src, workdir):
 
     import numpy as np
 
-    from microrank_tpu_torch.config import ExplainConfig, MicroRankConfig, StreamConfig
+    from microrank_tpu_torch.config import (
+        DispatchConfig,
+        ExplainConfig,
+        MicroRankConfig,
+        StreamConfig,
+    )
     from microrank_tpu_torch.explain.bundle import BUNDLE_JSON, ExplainBundle
     from microrank_tpu_torch.explain.oracle import explain_window_oracle
     from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
@@ -6357,7 +6398,7 @@ def phase_explain(torch, spmv, pattern, graphs, giant_k15, src, workdir):
     # The stream timeline with explain on: the main path, counted.
     run_dir = workdir / "stream_explain"
     scfg = MicroRankConfig(stream=StreamConfig(allowed_lateness_seconds=0.0, pipeline_windows=3),
-                           explain=ex)
+                           explain=ex, dispatch=DispatchConfig(warmup_manifest=False))
     engine = StreamEngine(scfg, src, out_dir=run_dir, device="cuda")
     builds, prepare = {}, engine._prepare
 
@@ -6464,6 +6505,9 @@ def phase_explain(torch, spmv, pattern, graphs, giant_k15, src, workdir):
 
 STREAM_FAULTS = (3, 4, 5)
 STREAM_WINDOWS = 8
+# The stream phase's default-mode run (its counts and rankings), which
+# the serve phase's co-deploy is held to.
+STREAM_SOLO: dict = {}
 # The stream phase's runs: (stream config, runtime, pagerank).
 STREAM_MODES = {
     "default": (dict(pipeline_windows=3), {}, {}),
@@ -6474,17 +6518,21 @@ STREAM_MODES = {
 WARM_RTOL = 1e-3  # warm vs cold: both stop within tol 1e-4 of the fixed point
 
 
-def stream_run(torch, spmv, pattern, source, mode):
+def stream_run(torch, spmv, pattern, source, mode, manifest=None, timed=None):
     """One ``StreamEngine`` run of ``source`` in ``mode`` on the card,
     counted; the engine's host builds recorded by window start, and each
     mapped warm init's nonzero entries against its length (sv_n, rv_n,
-    sv_a, rv_a: what carried across the slide). Returns (summary, launch
-    counts, builds, wall s, config, the inits' hits)."""
+    sv_a, rv_a: what carried across the slide). ``manifest``: the warmup
+    manifest's directory (its restart replays what an earlier run there
+    recorded; the counts then hold the replay's launches too), else
+    none. ``timed``: a dict that gets the warm start's seconds. Returns
+    (summary, launch counts, builds, wall s, config, the inits' hits)."""
     import dataclasses
 
     from microrank_tpu_torch.rank_backends import warm
 
     from microrank_tpu_torch.config import (
+        DispatchConfig,
         MicroRankConfig,
         PageRankConfig,
         RuntimeConfig,
@@ -6493,11 +6541,23 @@ def stream_run(torch, spmv, pattern, source, mode):
     from microrank_tpu_torch.stream import StreamEngine
 
     sc, rt, pr = STREAM_MODES[mode]
+    # Without a manifest no warm restart: the run launches its own
+    # windows only.
     cfg = MicroRankConfig(
         stream=StreamConfig(allowed_lateness_seconds=0.0, **sc),
-        runtime=dataclasses.replace(RuntimeConfig(), **rt), pagerank=PageRankConfig(**pr))
+        runtime=dataclasses.replace(RuntimeConfig(), **rt), pagerank=PageRankConfig(**pr),
+        dispatch=DispatchConfig(warmup_manifest=manifest is not None))
     engine = StreamEngine(cfg, source, device="cuda")
     builds, prepare = {}, engine._prepare
+    if timed is not None:
+        warm_start = engine._warm_start
+
+        def timed_warm_start():
+            t = time.perf_counter()
+            warm_start()
+            timed["warm_start_s"] = round(time.perf_counter() - t, 3)
+
+        engine._warm_start = timed_warm_start
 
     def recorded(table, mask, nrm, abn, rng):
         out = prepare(table, mask, nrm, abn, rng)
@@ -6514,6 +6574,9 @@ def stream_run(torch, spmv, pattern, source, mode):
         return init
 
     warm.map_warm_state = mapped
+    cache_env = os.environ.get("MICRORANK_JIT_CACHE")
+    if manifest is not None:
+        os.environ["MICRORANK_JIT_CACHE"] = str(manifest)
     try:
         torch.cuda.synchronize()
         reset_counts(spmv, pattern)
@@ -6523,6 +6586,8 @@ def stream_run(torch, spmv, pattern, source, mode):
         wall = time.perf_counter() - t0
     finally:
         warm.map_warm_state = map_state
+        if cache_env is not None:
+            os.environ["MICRORANK_JIT_CACHE"] = cache_env
     return summary, read_counts(spmv, pattern), builds, wall, cfg, hits
 
 
@@ -6542,13 +6607,14 @@ def stream_source(args):
     return src, time.perf_counter() - t0
 
 
-def phase_stream(torch, spmv, pattern, args, src, gen_s):
+def phase_stream(torch, spmv, pattern, args, src, gen_s, workdir):
     """The stream lane at config-5 scale (see the module note) over
     ``src`` (``stream_source``); returns (launch counts by run, the
     phase's line)."""
     import numpy as np
 
-    from microrank_tpu_torch.dispatch import DispatchRouter, bucket_key
+    from microrank_tpu_torch.dispatch import DispatchRouter, bucket_key, manifest_shapes
+    from microrank_tpu_torch.obs import get_registry
     from microrank_tpu_torch.rank_backends import torch_cuda as tc
     from microrank_tpu_torch.stream.window import stamp
     from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
@@ -6569,9 +6635,13 @@ def phase_stream(torch, spmv, pattern, args, src, gen_s):
                                "timeline_spans": src.table.n_spans, "windows": STREAM_WINDOWS,
                                "fault_windows": list(STREAM_FAULTS),
                                "fault_pod_op": src.fault_pod_op}, {}
+    # The default run records its occupancies and shapes in a manifest of
+    # its own, which the warm restart below replays.
+    stream_jit = workdir / "stream_jit"
     for mode in STREAM_MODES:
         tag = f"stream/{mode}"
-        s, counts, builds, wall, cfg, hits = stream_run(torch, spmv, pattern, src, mode)
+        s, counts, builds, wall, cfg, hits = stream_run(
+            torch, spmv, pattern, src, mode, manifest=stream_jit if mode == "default" else None)
         runs[mode] = (s, builds, cfg)
         launches[tag] = counts
         ranked = [r for r in s.results if r.ranking]
@@ -6617,6 +6687,10 @@ def phase_stream(torch, spmv, pattern, args, src, gen_s):
             # (its earliest trace, JAX's), which a slide drops.
             out[mode]["warm_init_nonzero_of_length"] = hits
         if mode == "default":
+            # The serve phase's co-deploy is held to this run.
+            STREAM_SOLO.update(
+                counts=(s.windows, s.ranked, s.incidents_opened, s.incidents_resolved),
+                results=[(r.start, r.ranking, r.rank_iterations) for r in s.results])
             check(s.dispatches < s.ranked, f"{tag}: {s.dispatches} dispatches for {s.ranked} "
                                            "ranked windows (no coalescing)")
             # Each coalesced window bitwise its own one-window program.
@@ -6633,6 +6707,43 @@ def phase_stream(torch, spmv, pattern, args, src, gen_s):
             out[mode]["coalesced_bitwise_vs_own"] = True
             keys = {bucket_key(v[0], v[2]) for v in builds.values()}
             out[mode]["buckets"] = len(keys)
+    # The warm restart: an engine over the default run's manifest
+    # dispatches its recorded occupancies and shapes before its first
+    # window (counted with the run), then ranks as the default run did.
+    recorded = manifest_shapes(str(stream_jit), "stream")
+    check(recorded, "stream/warm_restart: the default run recorded no shape")
+    reg = get_registry()
+
+    def warm_shapes():
+        return {o: reg.get("microrank_warm_shapes_total").value(outcome=o)
+                for o in ("warmed", "skipped", "failed")}
+
+    before, timed = warm_shapes(), {}
+    s_w, counts_w, _, wall_w, _, _ = stream_run(torch, spmv, pattern, src, "default",
+                                                manifest=stream_jit, timed=timed)
+    shaped = {o: v - before[o] for o, v in warm_shapes().items()}
+    check(shaped["warmed"] == len(recorded) and shaped["failed"] == 0,
+          f"stream/warm_restart: recorded shapes {len(recorded)}, replayed {shaped}")
+    s_d = runs["default"][0]
+    check([(r.start, r.ranking, r.rank_iterations) for r in s_w.results]
+          == [(r.start, r.ranking, r.rank_iterations) for r in s_d.results],
+          "stream/warm_restart: the restarted engine's results are not the default run's")
+    base = launches["stream/default"]
+    check(all(counts_w[k] >= base[k] for k in base) and counts_w != base,
+          f"stream/warm_restart: launch counts {counts_w}, the default run's {base}")
+    launches["stream/warm_restart"] = counts_w
+    first_w = next(r for r in s_w.results if r.ranking)
+    first_d = next(r for r in s_d.results if r.ranking)
+    out["warm_restart"] = {
+        "recorded_shapes": [[k, o] for k, o, _ in recorded], "warm_shapes": shaped,
+        "warm_start_s": timed.get("warm_start_s"), "wall_s": round(wall_w, 3),
+        "cold_wall_s": out["default"]["wall_s"],
+        "first_ranked_window_ms_by_stage": {k: first_w.timings.get(k) for k in
+                                            ("detect", "build", "rank_ms")},
+        "cold_first_ranked_window_ms_by_stage": {k: first_d.timings.get(k) for k in
+                                                 ("detect", "build", "rank_ms")},
+        "launches": counts_w,
+    }
     # Warm vs cold, window by window over the sliding runs.
     cold = {r.start: r for r in runs["cold_sliding"][0].results if r.ranking}
     for mode in ("warm_start", "fused_pair"):
@@ -6719,6 +6830,433 @@ def phase_stream(torch, spmv, pattern, args, src, gen_s):
     return launches, out
 
 
+# The serve phase's service knobs: batches of up to 8 windows, 200 ms of
+# coalescing, a build worker a window of the replay.
+SERVE_BATCH, SERVE_WAIT_MS, SERVE_BUILDERS = 8, 200.0, 6
+
+
+def _serve_post(port, payload, timeout=600, headers=None):
+    """One ``POST /rank``: (status, body, headers, client ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/rank", data=json.dumps(payload).encode(), method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            out = r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        out = e.code, json.loads(e.read()), dict(e.headers)
+    return (*out, round((time.perf_counter() - t0) * 1e3, 3))
+
+
+def _stage_ms(header):
+    """A Server-Timing header as {stage: ms}."""
+    out = {}
+    for part in (header or "").split(","):
+        name, _, dur = part.strip().partition(";dur=")
+        if name:
+            out[name] = float(dur)
+    return out
+
+
+def _serve_round(port, windows, tag):
+    """The replay's windows as concurrent dataset requests: per window
+    (status, body, headers, ms), in window order."""
+    payloads = [{"dataset": "replay", "start": r.start, "end": r.end, "tenant": f"t{i % 3}",
+                 "request_id": f"{tag}-{i}"} for i, r in enumerate(windows)]
+    with ThreadPoolExecutor(len(payloads)) as ex:
+        return list(ex.map(_serve_post, [port] * len(payloads), payloads))
+
+
+def phase_serve(torch, spmv, pattern, workdir, replay_windows, fault, src):
+    """The online service on the card (see the module note). Returns
+    (launch counts by run, the phase's line)."""
+    import csv
+    import dataclasses
+    import signal
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from microrank_tpu_torch import cli
+    from microrank_tpu_torch.config import (
+        DispatchConfig,
+        ExplainConfig,
+        MicroRankConfig,
+        ServeConfig,
+        StreamConfig,
+    )
+    from microrank_tpu_torch.dispatch import manifest_shapes
+    from microrank_tpu_torch.evaluation import EvalConfig, _case_config
+    from microrank_tpu_torch.explain.bundle import ExplainBundle
+    from microrank_tpu_torch.explain.oracle import explain_window_oracle
+    from microrank_tpu_torch.graph.table_ops import (
+        build_window_graph_from_table,
+        detect_window_partition,
+        prepare_window_graph,
+    )
+    from microrank_tpu_torch.ingest import admit_table
+    from microrank_tpu_torch.native import load_span_table
+    from microrank_tpu_torch.obs import MetricsRegistry, set_registry
+    from microrank_tpu_torch.obs.spans import get_tracer
+    from microrank_tpu_torch.ops import explain as kx
+    from microrank_tpu_torch.sched import DeviceScheduler, ParkedWindowStore
+    from microrank_tpu_torch.serve import ServeHandle, ServeService
+    from microrank_tpu_torch.serve.protocol import parse_datetime_us
+    from microrank_tpu_torch.serve.server import window_rows
+    from microrank_tpu_torch.stream import StreamEngine
+    from microrank_tpu_torch.testing import generate_case
+
+    t0 = time.perf_counter()
+    reg = MetricsRegistry()
+    set_registry(reg)
+    # The warmup manifest in a directory of this run's own.
+    os.environ["MICRORANK_JIT_CACHE"] = str(workdir / "serve_jit")
+    out = {"phase": "serve", "max_batch_windows": SERVE_BATCH,
+           "max_wait_ms": SERVE_WAIT_MS, "build_workers": SERVE_BUILDERS}
+    launches = {}
+    t1 = time.perf_counter()
+    normal = load_span_table(workdir / "replay" / "normal.csv", cache=False)
+    table = load_span_table(workdir / "replay" / "abnormal.csv", cache=False)
+    out["load_s"] = round(time.perf_counter() - t1, 3)
+    # The replay's ranked windows (its loop's last, partial window ranks
+    # nothing).
+    replay_windows = [r for r in replay_windows if r.ranking]
+    want = {r.start: r.ranking for r in replay_windows}
+    out["windows"] = len(replay_windows)
+
+    def serve_config(**serve_kw):
+        return MicroRankConfig(serve=ServeConfig(**{
+            "max_batch_windows": SERVE_BATCH, "max_wait_ms": SERVE_WAIT_MS,
+            "build_workers": SERVE_BUILDERS, **serve_kw}))
+
+    # --- full width, by dataset: two rounds of six concurrent requests.
+    svc = ServeService(serve_config(), out_dir=workdir / "serve")
+    t1 = time.perf_counter()
+    svc.fit_baseline(normal)
+    svc.add_dataset("replay", table)
+    out["fit_stage_s"] = round(time.perf_counter() - t1, 3)
+    svc.start()
+    out["warmup_s"] = round(svc.warmup_seconds, 3)
+    handle = ServeHandle(svc)
+    port = handle.start()
+    rounds, kernel = {}, None
+    try:
+        for tag in ("r1", "r2"):
+            torch.cuda.synchronize()
+            reset_counts(spmv, pattern)
+            d0 = svc.scheduler.batcher.dispatches
+            answers = _serve_round(port, replay_windows, tag)
+            torch.cuda.synchronize()
+            counts = read_counts(spmv, pattern)
+            dispatches = svc.scheduler.batcher.dispatches - d0
+            bodies = [b for _, b, _, _ in answers]
+            for r, (status, body, _, _) in zip(replay_windows, answers):
+                check(status == 200, f"serve/{tag}: window {r.start} answered {status}: {body}")
+                check(body["ranking"][0][0] == fault,
+                      f"serve/{tag}: window {r.start} top-1 {body['ranking'][0][0]}")
+                got = [(n, s) for n, s in body["ranking"]]
+                check(got == want[r.start], f"serve/{tag}: window {r.start} is not bitwise the "
+                                            "replay's TableRCA ranking")
+                check(not body["degraded"], f"serve/{tag}: window {r.start} degraded")
+            sizes = [b["batch_windows"] for b in bodies]
+            check(dispatches < len(bodies) and max(sizes) >= 2,
+                  f"serve/{tag}: {dispatches} dispatches for {len(bodies)} requests, batch "
+                  f"sizes {sizes}")
+            kernel = bodies[0]["kernel"]
+            groups = round(sum(1 / b for b in sizes if b > 1))
+            expect = expected_counts(kernel, len(bodies), programs=dispatches, groups=groups)
+            check(counts == expect, f"serve/{tag}: launch counts {counts}, want {expect}")
+            launches[f"serve/{tag}"] = counts
+            rounds[tag] = {
+                "dispatches": dispatches, "batch_windows": sizes, "kernel": kernel,
+                "routes": sorted({b["route"] for b in bodies}),
+                "request_ms": [a[3] for a in answers],
+                "server_timing_ms": [_stage_ms(a[2].get("Server-Timing")) for a in answers],
+                "launches": counts,
+            }
+        out["rounds"] = rounds
+        out["bitwise_vs_table_rca"] = True
+        r1, r2 = rounds["r1"]["request_ms"], rounds["r2"]["request_ms"]
+        out["first_vs_steady_ms"] = {"first_request": min(r1), "first_round_median":
+                                     _median(r1), "steady_round_median": _median(r2)}
+
+        # --- explain: true on one window: one more program, one K15 call.
+        r = replay_windows[len(replay_windows) // 2]
+        torch.cuda.synchronize()
+        reset_counts(spmv, pattern)
+        status, body, headers, ms = _serve_post(
+            port, {"dataset": "replay", "start": r.start, "end": r.end,
+                                 "explain": True, "request_id": "explain"})
+        torch.cuda.synchronize()
+        counts = read_counts(spmv, pattern)
+        check(status == 200 and body.get("explain"), f"serve/explain: answered {status}")
+        check([(n, s) for n, s in body["ranking"]] == want[r.start],
+              "serve/explain: the explained request's ranking is not the replay's")
+        win = window_rows(table, parse_datetime_us(r.start), parse_datetime_us(r.end))
+        win, _ = admit_table(win, svc.config.ingest)
+        w0, w1 = int(win.start_us.min()), int(win.end_us.max())
+        mask, nrm, abn, _ = detect_window_partition(win, w0, w1, svc.slo_vocab, svc.baseline,
+                                                    svc.config.detector)
+        g, _, k, _ = prepare_window_graph(win, mask, nrm, abn, svc.config, explain=True)
+        ex = ExplainConfig(enabled=True)
+        plan = kx.explain_plan(int(g.normal.kind.shape[0]), int(g.abnormal.kind.shape[0]),
+                               ex.top_traces, kx.n_suspects(
+                                   min(svc.config.spectrum.n_rows,
+                                       int(g.normal.cov_unique.shape[0])), ex))
+        expect = expected_counts(k, 2, programs=2, explained=(1, plan.kernel_launches))
+        check(counts == expect, f"serve/explain: launch counts {counts}, want {expect}")
+        launches["serve/explain"] = counts
+        g_un, names, codes_n, codes_a = build_window_graph_from_table(
+            win, mask, nrm, abn, aux="none", collapse="off")
+        ids = win.trace_names
+        oracle = explain_window_oracle(g_un, names, [ids[int(c)] for c in codes_n],
+                                       [ids[int(c)] for c in codes_a], svc.config.pagerank,
+                                       svc.config.spectrum,
+                                       aggregate_kinds=int(g.normal.n_cols) >= 0)
+        bundle = ExplainBundle(body["explain"])
+        ok, why = bundle_vs_oracle(bundle, oracle, ORACLE_RTOL)
+        check(ok, f"serve/explain: the bundle against the float64 oracle: {why}")
+        # The explained program, its fetch and the bundle (host clock):
+        # the request's ``explain`` span.
+        span_ms = next((sp.dur_us / 1e3 for sp in get_tracer().snapshot()
+                        if sp.name == "explain" and sp.trace_id == "explain"), None)
+        out["explain"] = {"window": r.start, "request_ms": ms, "kernel": k,
+                          "explain_span_ms": span_ms,
+                          "server_timing_ms": _stage_ms(headers.get("Server-Timing")),
+                          "top1": bundle.top1(), "oracle_rtol": ORACLE_RTOL,
+                          "explain_plan": plan._asdict(), "launches": counts}
+    finally:
+        handle.stop()
+    check(reg.get("microrank_serve_degraded_total").value() == 0,
+          "serve: a request that was not injected came back degraded")
+
+    # --- warm restart: a second service over the first one's manifest
+    # dispatches the recorded B = 6 shape at startup; its first round
+    # against the first service's.
+    recorded = manifest_shapes(os.environ["MICRORANK_JIT_CACHE"], "serve")
+    check(any(occ == len(replay_windows) for _, occ, _ in recorded),
+          f"serve/warm_restart: no B = {len(replay_windows)} shape recorded "
+          f"({[occ for _, occ, _ in recorded]})")
+    svc_w = ServeService(serve_config(), out_dir=workdir / "serve_warm")
+    svc_w.fit_baseline(normal)
+    svc_w.add_dataset("replay", table)
+    svc_w.start()
+    shaped = {o: reg.get("microrank_warm_shapes_total").value(outcome=o)
+              for o in ("warmed", "skipped", "failed")}
+    check(shaped["warmed"] == len(recorded) and shaped["failed"] == 0,
+          f"serve/warm_restart: recorded shapes {len(recorded)}, replayed {shaped}")
+    handle_w = ServeHandle(svc_w)
+    port = handle_w.start()
+    try:
+        torch.cuda.synchronize()
+        reset_counts(spmv, pattern)
+        d0 = svc_w.scheduler.batcher.dispatches
+        answers = _serve_round(port, replay_windows, "warm")
+        torch.cuda.synchronize()
+        counts = read_counts(spmv, pattern)
+        dispatches = svc_w.scheduler.batcher.dispatches - d0
+    finally:
+        handle_w.stop()
+    for r, (status, body, _, _) in zip(replay_windows, answers):
+        check(status == 200 and not body["degraded"]
+              and [(n, x) for n, x in body["ranking"]] == want[r.start],
+              f"serve/warm_restart: window {r.start} answered {status}, not the replay's ranking")
+    sizes = [b["batch_windows"] for _, b, _, _ in answers]
+    expect = expected_counts(kernel, len(answers), programs=dispatches,
+                             groups=round(sum(1 / b for b in sizes if b > 1)))
+    check(counts == expect, f"serve/warm_restart: launch counts {counts}, want {expect}")
+    launches["serve/warm_restart"] = counts
+    warm_ms = [a[3] for a in answers]
+    out["warm_restart"] = {
+        "recorded_shapes": [[k, o] for k, o, _ in recorded], "warm_shapes": shaped,
+        "warmup_s": round(svc_w.warmup_seconds, 3), "cold_warmup_s": out["warmup_s"],
+        "dispatches": dispatches, "batch_windows": sizes, "request_ms": warm_ms,
+        "server_timing_ms": [_stage_ms(a[2].get("Server-Timing")) for a in answers],
+        "first_round_median_ms": _median(warm_ms),
+        "cold_first_round_median_ms": _median(rounds["r1"]["request_ms"]),
+        "rank_stage_median_ms": _median([_stage_ms(a[2].get("Server-Timing")).get("rank", 0.0)
+                                         for a in answers]),
+        "cold_rank_stage_median_ms": _median([t.get("rank", 0.0) for t in
+                                              rounds["r1"]["server_timing_ms"]]),
+        "launches": counts,
+    }
+
+    # --- inline spans: the eval harness's default case, against cli run.
+    case = generate_case(_case_config(EvalConfig(), EvalConfig().seed0))
+    normal_csv, abnormal_csv = case.write_csvs(workdir / "serve_eval")
+    with open(abnormal_csv, newline="") as f:
+        records = list(csv.DictReader(f))
+    run_out = workdir / "serve_eval" / "run"
+    rc = cli.main(["run", "--normal", str(normal_csv), "--abnormal", str(abnormal_csv),
+                   "-o", str(run_out), "--detect-minutes", "600", "--skip-minutes", "600"])
+    check(rc == 0, f"serve/inline: cli run exited {rc}")
+    lines = [json.loads(x) for x in (run_out / "windows.jsonl").read_text().splitlines()]
+    run_ranking = [tuple(x) for x in lines[0]["ranking"]]
+    check(run_ranking and run_ranking[0][0] == case.fault_pod_op,
+          f"serve/inline: cli run's window ranked {run_ranking[:1]}")
+    eval_normal = load_span_table(normal_csv, cache=False)
+
+    def eval_service(**serve_kw):
+        s2 = ServeService(serve_config(warmup=False, **serve_kw),
+                          out_dir=workdir / "serve_inline")
+        s2.fit_baseline(eval_normal)
+        s2.start()
+        return s2, ServeHandle(s2)
+
+    svc2, h2 = eval_service()
+    port = h2.start()
+    try:
+        status, body, _, inline_ms = _serve_post(port, {"spans": records, "request_id": "inline"})
+        check(status == 200 and not body["degraded"], f"serve/inline: answered {status}")
+        check([tuple(x) for x in body["ranking"]] == run_ranking,
+              "serve/inline: the inline answer is not bitwise cli run's on the same CSV pair")
+    finally:
+        h2.stop()
+    out["inline"] = {"spans": len(records), "request_ms": inline_ms, "kernel": body["kernel"],
+                     "bitwise_vs_cli_run": True}
+
+    # --- a failed dispatch: two injected failures answer 500 on the card
+    # (no numpy_ref fallback there, ``fallback`` on as by default), with
+    # a ``degraded`` flight dump; then the card again.
+    svc3, h3 = eval_service(inject_dispatch_failures=2, max_batch_windows=1)
+    check(svc3.serve.fallback and not svc3.scheduler.batcher.fallback(),
+          "serve/failed_dispatch: the numpy_ref fallback is armed on the card")
+    port = h3.start()
+    try:
+        status, body, _, failed_ms = _serve_post(port, {"spans": records,
+                                                        "request_id": "failed"})
+        check(status == 500 and "injected" in body.get("error", ""),
+              f"serve/failed_dispatch: answered {status}: {body}")
+        status2, body2, _, _ = _serve_post(port, {"spans": records, "request_id": "recovered"})
+        check(status2 == 200 and not body2["degraded"] and body2["kernel"] != "numpy_ref"
+              and [tuple(x) for x in body2["ranking"]] == run_ranking,
+              "serve/failed_dispatch: the request after the injected failures did not rank on "
+              "the card")
+    finally:
+        h3.stop()
+    check(reg.get("microrank_serve_degraded_total").value() == 0,
+          "serve/failed_dispatch: a request came back degraded on the card")
+    failed = reg.get("microrank_serve_requests_total").value(outcome="failed")
+    dumps = sorted(d.name.rsplit("-", 1)[-1] for d in (workdir / "serve_inline" / "flight").iterdir())
+    check("degraded" in dumps, f"serve/failed_dispatch: flight dumps {dumps}")
+    out["failed_dispatch"] = {"status": status, "request_ms": failed_ms, "flight_dumps": dumps,
+                              "requests_failed": failed, "degraded_counter": 0}
+
+    # --- admission: a queue of depth 1 answers 429 with a Retry-After.
+    svc4, h4 = eval_service(max_queue_depth=1, max_wait_ms=3000.0)
+    port = h4.start()
+    try:
+        with ThreadPoolExecutor(1) as ex:
+            parked = ex.submit(_serve_post, port, {"spans": records, "request_id": "parked"})
+            deadline = time.monotonic() + 30
+            while svc4.admission.depth < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            status, body, headers, _ = _serve_post(port, {"spans": records,
+                                                          "request_id": "shed"})
+            check(status == 429 and headers.get("Retry-After"),
+                  f"serve/429: answered {status} (Retry-After {headers.get('Retry-After')})")
+            check(parked.result()[0] == 200, "serve/429: the admitted request was dropped")
+    finally:
+        h4.stop()
+    out["admission"] = {"status": 429, "retry_after": headers.get("Retry-After")}
+
+    # --- co-deploy: serve and the stream timeline through one scheduler.
+    scfg = MicroRankConfig(stream=StreamConfig(allowed_lateness_seconds=0.0, pipeline_windows=3),
+                           dispatch=DispatchConfig(warmup_manifest=False))
+    base = serve_config(warmup=False)
+    store = ParkedWindowStore(scfg.sched, serve_cfg=base.serve)
+    sched = DeviceScheduler(store)
+    sched.start()
+    t1 = time.perf_counter()
+    try:
+        svc5 = ServeService(base, sched=sched)
+        svc5.fit_baseline(normal)
+        svc5.add_dataset("replay", table)
+        svc5.start()
+        h5 = ServeHandle(svc5)
+        co_port = h5.start()
+        engine = StreamEngine(scfg, src, device="cuda", sched=sched)
+        res = {}
+        th = threading.Thread(target=lambda: res.update(s=engine.run()), name="co-stream")
+        th.start()
+        answers = _serve_round(co_port, replay_windows, "co")
+        th.join(timeout=900)
+        check(not th.is_alive(), "serve/codeploy: the stream engine did not finish")
+        h5.stop()
+    finally:
+        sched.stop(drain=True, timeout=120)
+    co_s = time.perf_counter() - t1
+    s = res["s"]
+    check((s.windows, s.ranked, s.incidents_opened, s.incidents_resolved)
+          == STREAM_SOLO["counts"],
+          f"serve/codeploy: stream {(s.windows, s.ranked, s.incidents_opened)} vs solo "
+          f"{STREAM_SOLO['counts']}")
+    check([(r.start, r.ranking, r.rank_iterations) for r in s.results]
+          == STREAM_SOLO["results"], "serve/codeploy: the stream's rankings are not its solo run's")
+    for r, (status, body, _, _) in zip(replay_windows, answers):
+        check(status == 200 and [(n, x) for n, x in body["ranking"]] == want[r.start],
+              f"serve/codeploy: window {r.start} answered {status}, not the solo service's")
+    shares = store.tenant_shares()
+    check(sched.errors == 0 and shares.get("stream", 0) > 0
+          and sum(v for k, v in shares.items() if k != "stream") >= len(replay_windows),
+          f"serve/codeploy: scheduler errors {sched.errors}, tenant shares {shares}")
+    out["codeploy"] = {"stream": [s.windows, s.ranked, s.incidents_opened,
+                                  s.incidents_resolved],
+                       "stream_equals_solo": True, "serve_equals_solo": True,
+                       "tenant_shares": shares, "sched_dispatched": sched.dispatched,
+                       "sched_errors": sched.errors,
+                       "request_ms": [a[3] for a in answers], "wall_s": round(co_s, 3)}
+
+    # --- the CLI as a process: one request, SIGTERM, the drain.
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        cli_port = sk.getsockname()[1]
+    cli_out = workdir / "serve_cli"
+    env = {**os.environ, "MICRORANK_JIT_CACHE": str(workdir / "serve_cli_jit")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "microrank_tpu_torch.cli", "serve", "--normal", str(normal_csv),
+         "--dataset", f"case={abnormal_csv}", "--port", str(cli_port), "-o", str(cli_out),
+         "--max-wait-ms", "50"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    t1 = time.perf_counter()
+    try:
+        up = False
+        while time.perf_counter() - t1 < 300 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{cli_port}/healthz",
+                                            timeout=10) as r:
+                    up = r.status == 200
+                break
+            except OSError:
+                time.sleep(0.25)
+        check(up, f"serve/cli: the service never came up (exit {proc.poll()})")
+        up_s = time.perf_counter() - t1
+        status, body, _, cli_ms = _serve_post(cli_port, {"dataset": "case"})
+        check(status == 200 and [tuple(x) for x in body["ranking"]] == run_ranking,
+              f"serve/cli: answered {status}, not cli run's ranking")
+        proc.send_signal(signal.SIGTERM)
+        log, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    check(proc.returncode == 0 and "drained" in log,
+          f"serve/cli: exit {proc.returncode}: {log[-800:]}")
+    cli_dumps = [d.name.rsplit("-", 1)[-1] for d in (cli_out / "flight").iterdir()]
+    check("sigterm" in cli_dumps, f"serve/cli: flight dumps {cli_dumps}")
+    out["cli"] = {"up_s": round(up_s, 3), "request_ms": cli_ms, "exit": proc.returncode,
+                  "flight_dumps": cli_dumps}
+    out["nvidia_smi"] = power_line()
+    out["phase_s"] = round(time.perf_counter() - t0, 3)
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spans", type=int, default=1_000_000)
@@ -6763,6 +7301,8 @@ def main(argv=None) -> int:
     empty_policy_dir = workdir / "no_policy"
     empty_policy_dir.mkdir()
     os.environ["MICRORANK_POLICY_DIR"] = str(empty_policy_dir)
+    # The warmup manifest (serve, stream) in this run's directory.
+    os.environ["MICRORANK_JIT_CACHE"] = str(workdir / "jit")
     try:
         env = phase_env(torch, spmv, pattern, native)
         emit(env)
@@ -6820,6 +7360,7 @@ def main(argv=None) -> int:
             replay, replay_windows, replay_launches, info = phase_replay(
                 torch, spmv, pattern, args, workdir
             )
+            replay_fault = replay[0].fault_pod_op
             launches.update(replay_launches)
             emit(info)
             phase = "follow"
@@ -6902,7 +7443,8 @@ def main(argv=None) -> int:
         del kind
         phase = "stream"
         src, gen_s = stream_source(args)
-        stream_launches, stream = phase_stream(torch, spmv, pattern, args, src, gen_s)
+        stream_launches, stream = phase_stream(torch, spmv, pattern, args, src, gen_s,
+                                               workdir)
         launches.update(stream_launches)
         emit(stream)
         phase = "explain"
@@ -6911,6 +7453,12 @@ def main(argv=None) -> int:
         launches.update(explain_launches)
         k15s = explained["k15"]
         emit(explained)
+        if replay_windows is not None:
+            phase = "serve"
+            serve_launches, served = phase_serve(torch, spmv, pattern, workdir, replay_windows,
+                                                 replay_fault, src)
+            launches.update(serve_launches)
+            emit(served)
         del src
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})

@@ -15,6 +15,13 @@
         [--no-tuned-policy]
         [--metrics-port N] [--quarantine-dir DIR] [--no-span-trace] [--span-ring N]
         [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
+    python -m microrank_tpu_torch.cli serve --normal N [--dataset NAME=CSV ...] [-o OUT]
+        [--host H] [--port P] [--max-queue-depth N] [--retry-after S]
+        [--max-batch-windows N] [--max-wait-ms MS] [--request-timeout S]
+        [--drain-seconds S] [--no-warmup] [--warmup-occupancies N,N]
+        [--build-workers N] [--no-fallback] [--inject-dispatch-failures N]
+        [--stream-input CSV] [--tenant-weight NAME=W] [--tenant-rate NAME=R]
+        [--device cuda|cpu] [the config flags of run]
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
@@ -40,6 +47,9 @@ experiment (``evaluation``): R@k and Exam Score over synthetic chaos
 cases, per formula with ``--all-methods``, window detection quality
 with ``--detection``, two-fault accuracy against path overlap with
 ``--overlap-ablation``; its lines and ``--json`` keys are the JAX CLI's.
+``serve`` answers ``POST /rank`` windows (a staged dataset's time range
+or inline spans) over HTTP on 127.0.0.1, coalescing concurrent requests
+into stacked rank programs; SIGTERM drains it.
 ``stream --explain`` writes an explain bundle when an incident opens;
 ``explain`` renders one from a run directory, a bundle directory or
 file, a flight dump or a journal (JAX's ``cli explain``).
@@ -522,6 +532,116 @@ def cmd_stream(args) -> int:
     return 0
 
 
+# Serve flags of the JAX CLI whose lanes are not ported, and the item
+# that brings each (ROADMAP.md, port queue).
+_SERVE_REFUSED = (
+    ("mesh", "--mesh (the sharded route) comes with item 12"),
+    ("backfill", "--backfill (warehouse replay on the backfill lane) comes with item 11's "
+                 "warehouse slice"),
+    ("backfill_range", "--backfill-range comes with item 11's warehouse slice"),
+)
+
+
+def _parse_tenant_floats(specs, flag: str):
+    """Repeatable ``NAME=FLOAT`` flags -> the SchedConfig pair tuple."""
+    out = []
+    for spec in specs or ():
+        name, sep, val = spec.partition("=")
+        if not name or not sep:
+            raise SystemExit(f"{flag} takes NAME=FLOAT, got {spec!r}")
+        try:
+            out.append((name, float(val)))
+        except ValueError:
+            raise SystemExit(f"{flag}: {val!r} is not a number (in {spec!r})") from None
+    return tuple(out)
+
+
+def cmd_serve(args) -> int:
+    """The online RCA service (``serve/``, JAX's ``cmd_serve``): windows
+    over HTTP, concurrent requests coalesced into stacked rank programs
+    on the card, the numpy_ref oracle (marked ``degraded``) when a device
+    dispatch fails twice. ``--stream-input`` co-deploys a stream engine
+    tailing a growing trace file through one device scheduler
+    (``sched/``): open-incident work preempts serve, under per-tenant
+    weighted fair share (``--tenant-weight``) and soft quotas
+    (``--tenant-rate``)."""
+    import threading
+
+    from .native import load_span_table
+    from .serve import ServeService, run_serve
+
+    for name, why in _SERVE_REFUSED:
+        if getattr(args, name, None):
+            raise NotImplementedError(f"{why}: ROADMAP.md, port queue")
+    cfg = _config_from_args(args)
+    overrides = {k: v for k, v in {
+        "host": args.host,
+        "port": args.port,
+        "max_queue_depth": args.max_queue_depth,
+        "retry_after_seconds": args.retry_after,
+        "max_batch_windows": args.max_batch_windows,
+        "max_wait_ms": args.max_wait_ms,
+        "request_timeout_seconds": args.request_timeout,
+        "drain_seconds": args.drain_seconds,
+        "warmup_occupancies": (
+            tuple(int(x) for x in args.warmup_occupancies.split(",") if x.strip())
+            if args.warmup_occupancies else None),
+        "build_workers": args.build_workers,
+        "warmup": False if args.no_warmup else None,
+        "fallback": False if args.no_fallback else None,
+        "inject_dispatch_failures": args.inject_dispatch_failures,
+    }.items() if v is not None}
+    cfg = cfg.replace(serve=dataclasses.replace(cfg.serve, **overrides))
+    sched_overrides = {}
+    if args.tenant_weight:
+        sched_overrides["tenant_weights"] = _parse_tenant_floats(args.tenant_weight,
+                                                                 "--tenant-weight")
+    if args.tenant_rate:
+        sched_overrides["tenant_rates"] = _parse_tenant_floats(args.tenant_rate, "--tenant-rate")
+    if sched_overrides:
+        cfg = cfg.replace(sched=dataclasses.replace(cfg.sched, **sched_overrides))
+
+    datasets = []
+    for spec in args.dataset or ():
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            log.error("--dataset takes NAME=CSV_PATH, got %r", spec)
+            return 2
+        datasets.append((name, path))
+    sched = None
+    if args.stream_input:
+        from .sched import DeviceScheduler, ParkedWindowStore
+
+        sched = DeviceScheduler(ParkedWindowStore(cfg.sched, serve_cfg=cfg.serve))
+        sched.start()
+        log.info("co-deploy: device scheduler up (lanes: incident > serve > backfill)")
+    normal_table = load_span_table(args.normal, cache=False)
+    service = ServeService(cfg, out_dir=args.output, sched=sched)
+    service.fit_baseline(normal_table)
+    for name, path in datasets:
+        service.add_dataset(name, load_span_table(path, cache=False))
+
+    engine = thread = None
+    if args.stream_input:
+        from .stream import FileTailSource, StreamEngine
+
+        stream_out = str(Path(args.output) / "stream") if args.output else None
+        engine = StreamEngine(cfg, FileTailSource(args.stream_input), out_dir=stream_out,
+                              normal_table=normal_table, sched=sched)
+        thread = threading.Thread(target=engine.run, name="co-stream", daemon=True)
+        thread.start()
+        log.info("co-deploy: stream engine tailing %s (the incident lane preempts serve)",
+                 args.stream_input)
+    service.start()
+    rc = run_serve(service, cfg.serve.host, cfg.serve.port)
+    if thread is not None:
+        engine.request_stop()
+        thread.join(timeout=30)
+    if sched is not None:
+        sched.stop(drain=True, timeout=30)
+    return rc
+
+
 def _find_bundles(target: Path):
     """An explain target (a bundle .json, a run output dir, a flight
     dump dir, or a journal .jsonl) as a list of bundle dicts, searched in
@@ -973,6 +1093,71 @@ def build_parser() -> argparse.ArgumentParser:
                           "its state exported to warm-start the next window")
     _add_config_flags(p_stream)
     p_stream.set_defaults(fn=cmd_stream)
+
+    p_srv = sub.add_parser(
+        "serve", help="online RCA service: HTTP requests coalesced into stacked rank "
+        "programs on the card, with admission control and the numpy_ref oracle when a "
+        "dispatch fails")
+    p_srv.add_argument("--normal", required=True,
+                       help="normal-period traces.csv (SLO baseline fitted at startup)")
+    p_srv.add_argument("--dataset", action="append", metavar="NAME=CSV",
+                       help="pre-stage an abnormal dump; requests may then send "
+                       '{"dataset": NAME, "start": ..., "end": ...} instead of inline spans '
+                       "(repeatable)")
+    p_srv.add_argument("--host", default=None, help="bind address")
+    p_srv.add_argument("--port", type=int, default=None,
+                       help="listen port (0 picks a free port; default 8377)")
+    p_srv.add_argument("-o", "--output", default=None,
+                       help="service output directory: journal.jsonl per batch and window, "
+                       "flight dumps, and the metrics snapshot written at drain")
+    p_srv.add_argument("--max-queue-depth", type=_positive_int, default=None,
+                       help="admission bound: requests admitted at once before the service "
+                       "answers 429 with a Retry-After")
+    p_srv.add_argument("--retry-after", type=float, default=None,
+                       help="Retry-After seconds on 429/503 responses (the floor of the "
+                       "measured price)")
+    p_srv.add_argument("--max-batch-windows", type=_positive_int, default=None,
+                       help="micro-batch ceiling: a shape bucket dispatches as soon as it "
+                       "holds this many requests")
+    p_srv.add_argument("--max-wait-ms", type=float, default=None,
+                       help="micro-batch latency bound: a bucket dispatches once its oldest "
+                       "request waited this long")
+    p_srv.add_argument("--request-timeout", type=float, default=None,
+                       help="seconds an HTTP caller waits before 504")
+    p_srv.add_argument("--drain-seconds", type=float, default=None,
+                       help="SIGTERM drain bound for in-flight requests")
+    p_srv.add_argument("--no-warmup", action="store_true",
+                       help="skip the startup warmup dispatches")
+    p_srv.add_argument("--warmup-occupancies", default=None, metavar="N,N,...",
+                       help='batch occupancies the startup warmup dispatches (default "1,2"); '
+                       "every entry must be <= --max-batch-windows")
+    p_srv.add_argument("--build-workers", type=int, default=None,
+                       help="build-pool threads running the host half off the scheduler "
+                       "thread (0 = on the scheduler thread)")
+    p_srv.add_argument("--no-fallback", action="store_true",
+                       help="disable the numpy_ref degradation: failed batches answer 500 "
+                       "(always so on the card)")
+    p_srv.add_argument("--mesh", default=None, help="not ported: the sharded route (item 12)")
+    p_srv.add_argument("--inject-dispatch-failures", type=int, default=None,
+                       help="test knob: fail this many device dispatches with an injected "
+                       "error (drives the degradation path)")
+    p_srv.add_argument("--stream-input", default=None, metavar="TRACES_CSV",
+                       help="co-deploy: tail this growing trace file through a stream engine "
+                       "sharing the card through the device scheduler; open-incident work "
+                       "preempts serve requests")
+    p_srv.add_argument("--backfill", default=None, metavar="WAREHOUSE_DIR",
+                       help="not ported: warehouse backfill (item 11's warehouse slice)")
+    p_srv.add_argument("--backfill-range", default=None, metavar="START..END",
+                       help="not ported: warehouse backfill (item 11's warehouse slice)")
+    p_srv.add_argument("--tenant-weight", action="append", metavar="NAME=W",
+                       help="weighted fair share: tenant NAME gets W times the turns of a "
+                       "weight-1 tenant (repeatable)")
+    p_srv.add_argument("--tenant-rate", action="append", metavar="NAME=R",
+                       help="soft token-bucket quota: tenant NAME refills R windows/s (0 = "
+                       "background: runs only when in-quota tenants are idle; unlisted "
+                       "tenants are unlimited) (repeatable)")
+    _add_config_flags(p_srv)
+    p_srv.set_defaults(fn=cmd_serve)
 
     p_exp = sub.add_parser(
         "explain", help="render rank provenance from run artifacts (explain bundles, journal "

@@ -1,12 +1,13 @@
 """Typed configuration for the PyTorch port (counterpart of
 ``microrank_tpu/config.py``).
 
-Only the knobs the native ``run`` lane reads are carried over: the
-detector, PageRank and spectrum settings, window arithmetic, the
-reference-compat flags, the runtime fields that shape the graph build,
-the rank program and the window loop's pipelining, the ingest
-admission budgets and dead-letter store, the span tracer, the
-tuned-policy switch and the in-program device checks. Field names
+The knobs of the ported lanes are carried over: the detector, PageRank
+and spectrum settings, window arithmetic, the reference-compat flags,
+the runtime fields that shape the graph build, the rank program and the
+window loop's pipelining, the ingest admission budgets and dead-letter
+store, the span tracer, the tuned-policy switch, the in-program device
+checks, the dispatch router, the stream engine, explain, serve and the
+device scheduler. Field names
 and defaults match the JAX package so a reader can hold the two side by
 side. Every kernel the JAX package's ``RuntimeConfig.kernel`` names is
 ported; an unknown name raises ``ValueError``.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 # The kernels, in the JAX CLI's order of ``--kernel`` choices: every
 # kernel the JAX package runs.
@@ -28,8 +29,9 @@ KERNELS = (
 KIND_PRECISIONS = ("f32", "bf16", "int8")
 # Result fetch strategies of the window loop (RuntimeConfig.fetch_mode).
 FETCH_MODES = ("stream", "bulk")
-# Ranking backends (RuntimeConfig.backend); "numpy_ref" is named so that
-# a caller asking for it is told it is not ported.
+# Ranking backends (RuntimeConfig.backend): "numpy_ref" is the float64
+# oracle (rank_backends.NumpyRefBackend) that serve degrades to; the
+# offline lanes (cli run, cli eval) do not take it yet.
 BACKENDS = ("torch", "numpy_ref")
 
 
@@ -193,9 +195,10 @@ class RuntimeConfig:
     # which wins over this field.
     device: str = "cuda"
     # The ranking backend: "torch" (this package's device program) or
-    # "numpy_ref", the JAX package's numpy oracle backend, which is not
-    # ported (ROADMAP.md, port queue item 9): the accuracy harness
-    # raises NotImplementedError on it.
+    # "numpy_ref", the numpy oracle (rank_backends.NumpyRefBackend,
+    # serve's degradation path). Its wiring into cli run and the
+    # accuracy harness is ROADMAP.md's port queue item 9: there it
+    # raises NotImplementedError.
     backend: str = "torch"
     # Window-loop pipelining (TableRCA.run): rank programs allowed in
     # flight before the host blocks on the oldest. 2 overlaps window N's
@@ -260,6 +263,11 @@ class RuntimeConfig:
     # (dispatch.DispatchRouter.rank_fused). Implies the warm-start
     # threading; fused windows dispatch one at a time.
     fused_pair: bool = False
+    # Directory of the warmup manifest (dispatch.cache): None resolves
+    # MICRORANK_JIT_CACHE, else ~/.cache/microrank_tpu/jit, as in the
+    # JAX package. The port compiles no programs at run time; the
+    # directory holds the manifest of warmed shapes only.
+    compile_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.kernel not in KERNELS:
@@ -301,8 +309,8 @@ class IngestConfig:
 class ObsConfig:
     """Self-tracing (obs.spans) and the flight recorder (obs.flight): the
     fields of the JAX package's ObsConfig that the span tracer and the
-    recorder's incident-open trigger read, with the same names and
-    defaults. The profiler and the chaos hooks come with their lanes
+    recorder's triggers (incident open, serve's degraded dispatch and
+    SIGTERM drain) read, with the same names and defaults. The profiler and the chaos hooks come with their lanes
     (ROADMAP.md, port queue item 11)."""
 
     # Span tracer on/off: each stage of a window records a span in a
@@ -367,6 +375,52 @@ class DispatchConfig:
     # its copy to the card) after issuing the current program and
     # before fetching its results.
     double_buffer: bool = True
+    # Record the shapes serve and stream dispatched (kernel, occupancy,
+    # leaf shapes) into a manifest (dispatch.cache) and replay it at
+    # startup, so a restarted process has dispatched every shape it will
+    # need before its first request.
+    warmup_manifest: bool = True
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Online RCA service knobs (``cli serve``, JAX's ``ServeConfig``):
+    concurrent requests coalesce into stacked rank programs (K18),
+    admission control bounds the queue, and a failed device dispatch
+    degrades to the numpy_ref oracle, marked ``degraded``."""
+
+    host: str = "127.0.0.1"
+    port: int = 8377
+    # Admission control: requests admitted (queued or in flight) at
+    # once; past it the service answers 429 with a Retry-After.
+    max_queue_depth: int = 64
+    retry_after_seconds: float = 1.0
+    # Micro-batching: a shape bucket dispatches once it holds
+    # max_batch_windows requests, or once its oldest request has waited
+    # max_wait_ms.
+    max_batch_windows: int = 8
+    max_wait_ms: float = 25.0
+    # Seconds an HTTP caller waits before 504 (the request itself still
+    # completes and is journaled).
+    request_timeout_seconds: float = 60.0
+    # Dispatch the stacked program at warmup_occupancies before traffic.
+    warmup: bool = True
+    # After a failed device dispatch (one retry), rank each batch member
+    # on the numpy_ref oracle and mark it degraded; off, the batch's
+    # requests fail with 500. Read only off the card: on a CUDA device a
+    # failed batch always fails (500), never answered from the host.
+    fallback: bool = True
+    # SIGTERM drain bound for in-flight requests.
+    drain_seconds: float = 10.0
+    # Test knob: fail this many device dispatches (retries included)
+    # with an injected error before behaving normally.
+    inject_dispatch_failures: int = 0
+    # Occupancies the startup warmup dispatches; each in
+    # [1, max_batch_windows], checked at start.
+    warmup_occupancies: Tuple[int, ...] = (1, 2)
+    # Build-pool threads for the host half (admission, detection, the
+    # C++ build); 0 builds on the scheduler thread.
+    build_workers: int = 2
 
 
 @dataclass(frozen=True)
@@ -416,6 +470,31 @@ class StreamConfig:
 
 
 @dataclass(frozen=True)
+class SchedConfig:
+    """The device scheduler (``sched/``, JAX's ``SchedConfig``): serve
+    and stream park their device work in one store, dequeued by lane
+    (open incident > serve > backfill), weighted fair share across
+    tenants and soft token-bucket quotas (work-conserving: a tenant out
+    of tokens sorts behind, it is never starved)."""
+
+    # (tenant, weight) pairs; unlisted tenants get default_weight.
+    tenant_weights: Tuple[Tuple[str, float], ...] = ()
+    default_weight: float = 1.0
+    # (tenant, windows/second) refill rates; unlisted tenants are
+    # unthrottled, rate 0 is a background tenant.
+    tenant_rates: Tuple[Tuple[str, float], ...] = ()
+    # Token bucket capacity (windows).
+    burst: float = 8.0
+    # Tenants the non-serve lanes charge their dispatches to.
+    stream_tenant: str = "stream"
+    backfill_tenant: str = "backfill"
+    # Replay the manifest's recorded shapes at startup.
+    shape_warmup: bool = True
+    # At most this many recorded shapes per (pipeline, kernel).
+    max_shapes: int = 8
+
+
+@dataclass(frozen=True)
 class MicroRankConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     pagerank: PageRankConfig = field(default_factory=PageRankConfig)
@@ -428,6 +507,8 @@ class MicroRankConfig:
     dispatch: DispatchConfig = field(default_factory=DispatchConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
     explain: ExplainConfig = field(default_factory=ExplainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    sched: SchedConfig = field(default_factory=SchedConfig)
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)

@@ -1,6 +1,6 @@
 """The dispatch router (counterpart of
 ``microrank_tpu/dispatch/router.py``): one device seam for the stream
-engine.
+engine and serve's batcher.
 
 * **routing**: a batch of same-bucket windows (equal ``bucket_key``)
   runs as the stacked program (K18, ``parallel.stack_window_graphs``)
@@ -15,12 +15,14 @@ engine.
   one slot deep and consumed by the next call with the same graphs, or
   dropped (``drop_prestaged``).
 * **burst coalescing**: ``bucket_key`` lives here; the stream engine
-  groups its pending builds with it before calling ``rank_batch``.
+  groups its pending builds with it, serve's batcher its parked
+  requests, before calling ``rank_batch``.
 * **the fused pair program**: ``rank_fused`` stages one window and its
   warm init as one blob and fetches its nine outputs in one copy (K19).
 
 The router has no thread of its own: every method runs on the caller's
-thread, which owns the card's stream.
+thread, which owns the card's stream; ``rank_batch`` and ``rank_fused``
+assert that it is the card's owner (``utils.guards``).
 """
 
 from __future__ import annotations
@@ -135,7 +137,9 @@ class DispatchRouter:
         from ..obs.spans import get_tracer
         from ..rank_backends.blob import dispatch_windows_staged
         from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
+        from ..utils.guards import assert_device_owner
 
+        assert_device_owner("dispatch.rank_batch")
         tracer = get_tracer()
         t0 = time.monotonic()
         staged = self._take_prestaged(graphs, kernel)
@@ -187,7 +191,9 @@ class DispatchRouter:
         from ..obs.spans import get_tracer
         from ..rank_backends.blob import stage_rank_window_warm
         from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
+        from ..utils.guards import assert_device_owner
 
+        assert_device_owner("dispatch.rank_fused")
         tracer = get_tracer()
         t0 = time.monotonic()
         cfg = self.config

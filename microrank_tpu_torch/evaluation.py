@@ -25,9 +25,10 @@ in one program (K13, ``torch_cuda.rank_window_all_methods_core``).
 
 Every entry point runs on the card unless ``device="cpu"`` is given (or
 ``config.runtime.device`` says so), where each kernel's plain version
-runs; on the card every kernel launches, with no fallback. The JAX
-package's ``numpy_ref`` backend is not ported (ROADMAP.md, port queue
-item 9): ``config.runtime.backend == "numpy_ref"`` raises.
+runs; on the card every kernel launches, with no fallback. The
+``numpy_ref`` backend (``rank_backends.NumpyRefBackend``) is not wired
+into the harness yet (ROADMAP.md, port queue item 9):
+``config.runtime.backend == "numpy_ref"`` raises.
 """
 
 from __future__ import annotations
@@ -260,8 +261,8 @@ def _finalize_report(report: EvalReport, all_ranks: List[Tuple[Optional[int], in
 def _check_backend(config: MicroRankConfig) -> None:
     if config.runtime.backend == "numpy_ref":
         raise NotImplementedError(
-            "backend 'numpy_ref' (the JAX package's numpy oracle backend) is not "
-            "ported: ROADMAP.md, port queue item 9"
+            "backend 'numpy_ref' (rank_backends.NumpyRefBackend, serve's degradation "
+            "oracle) is not wired into the accuracy harness: ROADMAP.md, port queue item 9"
         )
 
 

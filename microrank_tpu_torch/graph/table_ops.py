@@ -284,3 +284,38 @@ def build_window_graph_from_table(
         return out + (tuple(None if p.n_cols < 0 else cols.astype(np.int64)
                             for p, cols in zip((raw_n, raw_a), built[2])),)
     return out
+
+
+def prepare_window_graph(table, mask, normal_codes, abnormal_codes, config,
+                         row_range=None, explain: bool = False):
+    """One window's host half as serve and the warmup run it (JAX's
+    ``prepare_window_graph`` / ``prepare_window_graph_explained``): the
+    C++ build with the views ``config.runtime.kernel`` reads, kernel
+    "auto" resolved for the window, the fields the kernel never reads
+    stripped (``host_subset``). ``explain``: the build also keeps the
+    column identity the explain bundle joins against. Returns (host
+    graph, op names, kernel, ExplainContext or None)."""
+    from ..obs.metrics import record_kind_dedup
+    from ..rank_backends.torch_cuda import choose_kernel, host_subset
+    from .build import aux_for_kernel, kind_dedup_ratio
+
+    rt = config.runtime
+    out = build_window_graph_from_table(
+        table, mask, normal_codes, abnormal_codes, pad_policy=rt.pad_policy,
+        min_pad=rt.min_pad, aux=aux_for_kernel(rt.kernel),
+        dense_budget_bytes=rt.dense_budget_bytes, collapse=rt.collapse_kinds,
+        row_range=row_range, kind_dedup_threshold=rt.kind_dedup_threshold,
+        retain_columns=explain)
+    graph, op_names = out[0], out[1]
+    kernel = rt.kernel
+    if kernel == "auto":
+        kernel = choose_kernel(graph, rt.dense_budget_bytes, rt.prefer_bf16)
+    record_kind_dedup(kind_dedup_ratio(graph))
+    ectx = None
+    if explain:
+        from ..explain import ExplainContext
+
+        names = table.trace_names
+        ectx = ExplainContext.from_build(graph, [names[int(c)] for c in out[2]],
+                                         [names[int(c)] for c in out[3]], *out[4])
+    return host_subset(graph, kernel), op_names, kernel, ectx

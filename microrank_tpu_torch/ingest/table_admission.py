@@ -54,11 +54,18 @@ def admit_table(
     ingest_config,
     quarantine: Optional[QuarantineStore] = None,
     source: str = "table",
+    reject_unparsed: bool = False,
 ) -> Tuple[object, Dict[str, int]]:
     """Validate and budget one ``SpanTable``; returns ``(clean_table,
     rejected_counts)`` (counts by reason, only reasons that rejected a
     row). Rejected rows go to ``quarantine``, else to the process store
-    (``get_quarantine``). The input is never mutated."""
+    (``get_quarantine``). The input is never mutated.
+
+    ``reject_unparsed`` (serve's inline records, where JAX's frame
+    coerces an unparseable time to NaT): a row whose start or end did
+    not parse (``serve.protocol.NAT_US``) rejects as ``bad_timestamp``
+    too. The table lane leaves it off, as JAX's table admission keeps
+    such rows."""
     cfg = ingest_config
     n = table.n_spans
     if not cfg.enabled or n == 0:
@@ -73,7 +80,11 @@ def admit_table(
         masks["duration_overflow"] = (dur > max_dur) & ~bad_dur
     # A trace-level end before its start (the loader parses both apart,
     # so a garbled row can invert them).
-    masks["bad_timestamp"] = (table.end_us < table.start_us) & ~bad_dur
+    bad_ts = table.end_us < table.start_us
+    if reject_unparsed:
+        nat = np.iinfo(np.int64).min
+        bad_ts = bad_ts | (table.start_us == nat) | (table.end_us == nat)
+    masks["bad_timestamp"] = bad_ts & ~bad_dur
 
     rejected = np.zeros(n, dtype=bool)
     for m in masks.values():

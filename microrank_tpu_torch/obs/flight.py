@@ -1,7 +1,8 @@
-"""Incident flight recorder: dump the span ring when a stream incident
-opens (counterpart of ``microrank_tpu/obs/flight.py``, its incident-open
-trigger; serve's degraded-dispatch and the SIGTERM drain come with their
-lanes, ROADMAP.md port queue item 11).
+"""Flight recorder: dump the span ring when something goes wrong
+(counterpart of ``microrank_tpu/obs/flight.py``). Its triggers, JAX's:
+``incident`` (the stream engine, a new incident), ``degraded`` (serve's
+batcher, a dispatch that failed twice and answered from the numpy
+oracle) and ``sigterm`` (serve's drain at shutdown).
 
 A dump is one directory under ``out_dir/flight/``, JAX's layout:
 
@@ -107,7 +108,8 @@ def write_chrome_trace(spans: List[Span], path) -> None:
 
 class FlightRecorder:
     """Owns the dump directory, the rate limit and the journal handle to
-    fsync and correlate. One a run (the stream engine's)."""
+    fsync and correlate. One a run (the stream engine's) or a service
+    (serve's)."""
 
     def __init__(self, out_dir, obs_config, journal=None):
         self.base = Path(out_dir) / FLIGHT_DIR

@@ -9,10 +9,12 @@ convergence trace, ingest admission and its dead-letter store, the
 span tracer, the tuned policy, follow mode, the host sentinel, and the
 stream lane's series (``microrank_stream_*``, its incidents, the
 dispatch router's routes and the build pool), the flight recorder's
-dumps and the explain bundles. The JAX package's other metrics (serve,
-fleet, scheduler, warehouse, the jit and compile-cache counters, the
-profiler, the sanitizers and chaos) come with their lanes (ROADMAP.md,
-port queue item 11).
+dumps, the explain bundles, serve's requests and batches, the device
+scheduler's series, the warmup manifest's events (the compile-cache
+counter's, whose hit and miss count kernel libraries here) and the
+shape warmup's. The JAX package's other metrics (fleet, warehouse, the
+jit counters, the profiler, the sanitizers and chaos) come with their
+lanes (ROADMAP.md, port queue item 11).
 
 Naming: ``microrank_<noun>_<unit>`` with ``_total`` on counters, the
 Prometheus convention.
@@ -311,6 +313,130 @@ def explain_bundles() -> Counter:
     )
 
 
+def serve_requests() -> Counter:
+    return get_registry().counter(
+        "microrank_serve_requests_total",
+        "RCA service requests, by outcome",
+        # ranked | clean | skipped | rejected | failed
+        labelnames=("outcome",),
+    )
+
+
+def serve_queue_depth() -> Gauge:
+    return get_registry().gauge(
+        "microrank_serve_queue_depth",
+        "Requests admitted and not yet answered (admission-control "
+        "depth; 429s start past ServeConfig.max_queue_depth)",
+    )
+
+
+def serve_batch_windows() -> Histogram:
+    return get_registry().histogram(
+        "microrank_serve_batch_windows",
+        "Windows coalesced per device dispatch (micro-batch occupancy; "
+        "a mass at 1 under concurrent load means buckets never match — "
+        "check pad_policy and max_wait_ms)",
+        buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+    )
+
+
+def serve_last_batch_gauge() -> Gauge:
+    return get_registry().gauge(
+        "microrank_serve_last_batch_windows",
+        "Occupancy of the most recent non-warmup device dispatch",
+    )
+
+
+def serve_degraded() -> Counter:
+    return get_registry().counter(
+        "microrank_serve_degraded_total",
+        "Requests answered by the numpy_ref fallback after a failed "
+        "device dispatch (responses carry degraded=true)",
+    )
+
+
+def serve_stage_seconds() -> Histogram:
+    return get_registry().histogram(
+        "microrank_serve_stage_seconds",
+        "Wall-clock of each request stage in the RCA service",
+        labelnames=("stage",),  # queue | build | rank | total
+    )
+
+
+def compile_cache_events() -> Counter:
+    return get_registry().counter(
+        "microrank_compile_cache_events_total",
+        "Persistent-compile-cache events: hit/miss per observed "
+        "compile (cache dir entry count unchanged/grew), warm_start "
+        "when a warmup manifest from a previous process was found and "
+        "replayed, manifest_write per manifest update",
+        labelnames=("event",),  # hit | miss | warm_start | manifest_write
+    )
+
+
+def sched_dispatches() -> Counter:
+    return get_registry().counter(
+        "microrank_sched_dispatch_windows_total",
+        "Windows dispatched by the unified device scheduler, by "
+        "priority lane and tenant — the fair-share observable: "
+        "per-tenant rates under sustained contention converge to "
+        "SchedConfig.tenant_weights",
+        labelnames=("lane", "tenant"),
+    )
+
+
+def sched_parked() -> Gauge:
+    return get_registry().gauge(
+        "microrank_sched_parked_windows",
+        "Entries currently parked in the shared window store, by lane "
+        "(incident | serve | backfill)",
+        labelnames=("lane",),
+    )
+
+
+def sched_expired() -> Counter:
+    return get_registry().counter(
+        "microrank_sched_expired_total",
+        "Parked entries whose deadline lapsed before dequeue — the "
+        "scheduler answered them (504) instead of burning device time "
+        "on an abandoned request",
+    )
+
+
+def sched_throttled() -> Counter:
+    return get_registry().counter(
+        "microrank_sched_throttled_total",
+        "Batches dispatched while their tenant's token bucket was "
+        "empty (quotas are soft: the batch still ran because nothing "
+        "in-quota was ready — work-conserving by design)",
+        labelnames=("tenant",),
+    )
+
+
+def sched_wait_seconds() -> Histogram:
+    return get_registry().histogram(
+        "microrank_sched_wait_seconds",
+        "Seconds a batch's oldest entry sat parked before dispatch, "
+        "by lane — incident staying at the low buckets while backfill "
+        "absorbs the queueing IS the priority policy working",
+        labelnames=("lane",),
+        buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                 1.0, 2.5, 5.0),
+    )
+
+
+def warm_shapes() -> Counter:
+    return get_registry().counter(
+        "microrank_warm_shapes_total",
+        "Shape-faithful warmup replays of recorded production pad "
+        "buckets at startup (warmed = program traced/reloaded, "
+        "skipped = recorded signature no longer matches this build, "
+        "failed = dispatch raised)",
+        labelnames=("outcome",),  # warmed | skipped | failed
+    )
+
+
+
 def ensure_catalog() -> None:
     """Register this package's whole metric set in the current registry
     (no samples added), so a scrape or ``cli stats`` shows every metric
@@ -328,6 +454,10 @@ def ensure_catalog() -> None:
         dispatch_routes, dispatch_windows, dispatch_overlap_seconds,
         build_pool_inflight, build_pool_builds, webhook_dropped,
         flight_dumps, explain_bundles,
+        serve_requests, serve_queue_depth, serve_batch_windows,
+        serve_last_batch_gauge, serve_degraded, serve_stage_seconds,
+        compile_cache_events, sched_dispatches, sched_parked, sched_expired,
+        sched_throttled, sched_wait_seconds, warm_shapes,
     ):
         ctor()
 
@@ -528,3 +658,46 @@ def record_flight_dump(reason: str) -> None:
 
 def record_explain(trigger: str) -> None:
     explain_bundles().inc(trigger=trigger)
+
+
+def record_serve_request(outcome: str, total_seconds: float = None) -> None:
+    serve_requests().inc(outcome=outcome)
+    if total_seconds is not None:
+        serve_stage_seconds().observe(float(total_seconds), stage="total")
+
+
+def record_serve_batch(occupancy: int, degraded: int = 0) -> None:
+    serve_batch_windows().observe(float(occupancy))
+    serve_last_batch_gauge().set(float(occupancy))
+    if degraded:
+        serve_degraded().inc(float(degraded))
+
+
+def record_compile_cache(event: str, n: int = 1) -> None:
+    if n > 0:
+        compile_cache_events().inc(float(n), event=event)
+
+
+def record_sched_dispatch(lane: str, tenant: str, windows: int) -> None:
+    sched_dispatches().inc(float(windows), lane=lane, tenant=tenant)
+
+
+def record_sched_parked(lane: str, depth: int) -> None:
+    sched_parked().set(float(depth), lane=lane)
+
+
+def record_sched_expired(n: int = 1) -> None:
+    if n > 0:
+        sched_expired().inc(float(n))
+
+
+def record_sched_throttled(tenant: str) -> None:
+    sched_throttled().inc(tenant=tenant)
+
+
+def record_sched_wait(lane: str, seconds: float) -> None:
+    sched_wait_seconds().observe(float(seconds), lane=lane)
+
+
+def record_warm_shape(outcome: str) -> None:
+    warm_shapes().inc(outcome=outcome)

@@ -37,8 +37,26 @@ class WindowResult:
     kernel: Optional[str] = None
     # Rank programs already in flight when this window's was dispatched.
     queue_depth: Optional[int] = None
+    # The dispatch router's route for the window's program ("vmapped",
+    # "fused", ...); None off the router's lanes.
+    route: Optional[str] = None
     # Measured trace-kind dedup factor of the window's graph build.
     kind_dedup: Optional[float] = None
+    # Request-scoped fields (serve): the caller's request id and tenant,
+    # whether the answer came from the numpy_ref oracle after a failed
+    # device dispatch, and the windows that shared the window's
+    # dispatch. None / False on the offline lanes.
+    request_id: Optional[str] = None
+    tenant: Optional[str] = None
+    degraded: bool = False
+    batch_windows: Optional[int] = None
+    # The window's explain bundle data when the caller asked for it
+    # (serve ``explain: true``).
+    explain: Optional[dict] = None
+    # Rows of the window that admission refused (each in the dead-letter
+    # store), and whether the window therefore ranked on a clean subset.
+    ingest_rejected: int = 0
+    degraded_input: bool = False
 
     def apply_convergence(self, conv: Optional[dict]) -> None:
         if conv:

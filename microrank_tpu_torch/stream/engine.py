@@ -29,6 +29,20 @@ Baseline poisoning guard: baselines update only on healthy windows and
 freeze while an incident is open; the warm state is dropped when the
 last incident resolves.
 
+Co-deploy (``sched``, a ``sched.DeviceScheduler`` shared with serve):
+every touch of the card (the warm restart, each dispatch and fetch,
+the explained program) runs as a thunk on the scheduler's thread
+(``_on_device``), on the incident lane while an incident is open (it
+preempts serve) and on the serve lane otherwise; this thread keeps the
+windowing, the builds and the incident lifecycle. Solo, the engine's
+own thread owns the card.
+
+Warm restart: each (kernel, occupancy, leaf shapes) the engine
+dispatched lands in the warmup manifest (``dispatch.cache``) when the
+run ends; a later engine over the same manifest dispatches those
+occupancies and shapes once before its first window
+(``dispatch.warmup``).
+
 Incidents: with an ``out_dir`` the flight recorder (``obs.flight``)
 dumps the span ring to ``out_dir/flight/<stamp>-incident/`` when a new
 incident opens. With ``ExplainConfig.enabled`` the window that opened
@@ -41,10 +55,9 @@ and its path rides the ``incident_open`` event (JAX's
 
 Not ported here (ROADMAP.md, port queue item 11): JAX's crash-only
 checkpoint and ``--resume``, its chaos seams and retry policies, the
-flight recorder's SIGTERM trigger, the trace warehouse, the unified
-device scheduler, the compile-cache warmup manifest, the source-boundary
-pre-admission (the C++ loader never yields a row without a parsed
-time), and the incremental delta build.
+trace warehouse, the source-boundary pre-admission (the C++ loader
+never yields a row without a parsed time), and the incremental delta
+build.
 """
 
 from __future__ import annotations
@@ -75,22 +88,11 @@ log = logging.getLogger("microrank_tpu_torch.stream")
 
 
 @dataclass
-class StreamWindowResult(WindowResult):
-    """A stream window's result: the table lane's fields plus JAX's
-    router and admission fields."""
-
-    route: Optional[str] = None
-    batch_windows: Optional[int] = None
-    ingest_rejected: int = 0
-    degraded_input: bool = False
-
-
-@dataclass
 class _PendingRank:
     """One abnormal window: build submitted, rank pending."""
 
     closed: ClosedWindow
-    result: StreamWindowResult
+    result: WindowResult
     future: object              # -> (graph, op_names, kernel, ectx)
     trace: object = None        # _WindowTrace
     table: object = None        # the admitted window table
@@ -135,12 +137,15 @@ class StreamEngine:
     """Drive one span source through windowing, gated RCA, incidents."""
 
     def __init__(self, config: MicroRankConfig, source, out_dir=None, normal_table=None,
-                 incident_sinks: Optional[List] = None, device=None):
+                 incident_sinks: Optional[List] = None, device=None, sched=None):
         from ..dispatch import DispatchRouter
         from ..scenarios.policy import apply_tuned_policy
         from ..utils.device import resolve_device
 
         sc = config.stream
+        # Co-deploy: the DeviceScheduler that owns the card (None: this
+        # engine's thread owns it).
+        self.sched = sched
         self.source = source
         self.device = resolve_device(config.runtime.device if device is None else device)
         self.out_dir = Path(out_dir) if out_dir is not None else None
@@ -189,6 +194,14 @@ class StreamEngine:
         )
         self.router = DispatchRouter(config, device=self.device)
         self._pending: Deque[_PendingRank] = deque()
+        # kernel -> occupancies dispatched, and the (kernel, occupancy,
+        # leaf shapes) signatures: the warmup manifest's entries, written
+        # when the run ends.
+        self._warmed: dict = {}
+        self._shape_sigs: set = set()
+        self._cache_dir = None
+        self._cache_probe = None
+        self._stop_requested = False
         # Warm-start seam: the previous ranked window's converged state
         # (rank_backends.warm.WarmState), threaded into the next
         # window's rank while an incident is open; dropped when none is.
@@ -212,14 +225,29 @@ class StreamEngine:
     def queue_depth(self) -> int:
         return len(self._pending)
 
+    def request_stop(self) -> None:
+        """Drain and exit (serve's SIGTERM path when co-deployed): the
+        run stops consuming the source at the next batch boundary (a
+        tailing source ends at its next poll) and the pending windows
+        rank."""
+        self._stop_requested = True
+        stop = getattr(self.source, "stop", None)
+        if callable(stop):
+            stop()
+
     def run(self) -> StreamSummary:
         from ..ingest import configure_quarantine
         from ..obs.metrics import ensure_catalog
         from ..obs.spans import configure_tracer
 
+        from ..utils.guards import claim_device_owner
+
         ensure_catalog()
         configure_tracer(self.config.obs)  # a fresh span ring per run
         configure_quarantine(self.config.ingest, default_dir=self.out_dir)
+        if self.sched is None:
+            claim_device_owner("stream-engine")
+        self._warm_start()
         sc = self.config.stream
         run_t0 = time.monotonic()
         if self.journal is not None:
@@ -233,6 +261,8 @@ class StreamEngine:
         try:
             done = False
             for batch in self.source:
+                if self._stop_requested:
+                    break
                 for w in self.windower.add(batch):
                     self._process(w)
                     if self._max_reached():
@@ -248,6 +278,7 @@ class StreamEngine:
             self._drain_all()
         finally:
             self.pool.shutdown()
+            self._record_manifest()
             self.summary.late_spans = self.windower.dropped_late
             self._flush_webhooks()
             if self.journal is not None:
@@ -265,6 +296,69 @@ class StreamEngine:
 
                 get_registry().write_snapshot(self.out_dir)
         return self.summary
+
+    def _on_device(self, fn, lane=None):
+        """Run a thunk that touches the card where the card lives: inline
+        when this engine owns it, else on the DeviceScheduler's thread,
+        on the incident lane while an incident is open (ahead of serve),
+        else on the serve lane."""
+        if self.sched is None:
+            return fn()
+        from ..sched import LANE_INCIDENT, LANE_SERVE
+
+        if lane is None:
+            lane = LANE_INCIDENT if self.tracker.open_incidents() else LANE_SERVE
+        return self.sched.run_on(lane, self.config.sched.stream_tenant, fn)
+
+    def _warm_start(self) -> None:
+        """The manifest's directory and probe; on a warm restart (a
+        previous stream process left its manifest), dispatch the recorded
+        occupancies and shapes once before the first window."""
+        from ..dispatch import (
+            CompileCacheProbe,
+            configure_compile_cache,
+            manifest_occupancies,
+            warm_manifest_shapes,
+            warm_occupancies,
+        )
+
+        if not self.config.dispatch.warmup_manifest:
+            return
+        self._cache_dir = configure_compile_cache(self.config.runtime)
+        self._cache_probe = CompileCacheProbe(self._cache_dir)
+        if self.config.runtime.device_checks:
+            return
+        occs = manifest_occupancies(self._cache_dir, "stream")
+        if not occs:
+            return
+        from ..obs.metrics import record_compile_cache
+
+        record_compile_cache("warm_start")
+        t0 = time.monotonic()
+        self._on_device(lambda: warm_occupancies(self.router, self.config, occs,
+                                                 probe=self._cache_probe))
+        shaped = 0
+        if self.config.sched.shape_warmup:
+            shaped = self._on_device(lambda: warm_manifest_shapes(
+                self.router, self.config, self._cache_dir, "stream", probe=self._cache_probe))
+        log.info("warm restart: %d manifest occupancies and %d recorded shapes dispatched in "
+                 "%.2fs (kernel libraries %d loaded / %d built)", len(occs), shaped,
+                 time.monotonic() - t0, self._cache_probe.hits, self._cache_probe.misses)
+
+    def _record_manifest(self) -> None:
+        from ..dispatch import record_manifest_entry
+
+        if not self.config.dispatch.warmup_manifest:
+            return
+        shapes_by_kernel: dict = {}
+        if self.config.sched.shape_warmup:
+            for kernel, occ, leaves in sorted(self._shape_sigs):
+                shapes_by_kernel.setdefault(kernel, []).append(
+                    {"occupancy": occ, "leaves": [list(s) for s in leaves]})
+        for kernel, occs in self._warmed.items():
+            record_manifest_entry(self._cache_dir, "stream", kernel, sorted(occs),
+                                  shapes=shapes_by_kernel.get(kernel),
+                                  max_shapes=self.config.sched.max_shapes)
 
     def _flush_webhooks(self) -> None:
         for sink in self.tracker.sinks:
@@ -289,7 +383,7 @@ class StreamEngine:
                              start_us=int(time.time() * 1e6), perf0=time.monotonic())
         self.summary.windows += 1
         self.summary.spans += closed.n_spans
-        result = StreamWindowResult(start=closed.start, end=closed.end, anomaly=False)
+        result = WindowResult(start=closed.start, end=closed.end, anomaly=False)
         if closed.n_spans == 0:
             self._drain_all()
             result.skipped_reason = "empty_window"
@@ -367,38 +461,20 @@ class StreamEngine:
         """The build-pool unit: the C++ build of the window (with the
         column identity when a warm program maps its state or an
         incident's bundle names traces), the kernel resolved, the fields
-        it never reads stripped. Returns (host graph, op names, kernel,
-        ExplainContext or None, (dedup ratio, build ms))."""
-        from ..explain import ExplainContext
-        from ..graph.build import aux_for_kernel, kind_dedup_ratio
-        from ..graph.table_ops import build_window_graph_from_table
-        from ..obs.metrics import record_kind_dedup
+        it never reads stripped (``graph.table_ops.prepare_window_graph``).
+        Returns (host graph, op names, kernel, ExplainContext or None,
+        (dedup ratio, build ms))."""
+        from ..graph.build import kind_dedup_ratio
+        from ..graph.table_ops import prepare_window_graph
         from ..obs.spans import get_tracer
-        from ..rank_backends.torch_cuda import choose_kernel, host_subset
 
         t0 = time.perf_counter()
-        rt = self.config.runtime
         columns = self._warm() or self.config.explain.enabled
         with get_tracer().span("build", service="pipeline"):
-            out = build_window_graph_from_table(
-                table, mask, nrm, abn, pad_policy=rt.pad_policy, min_pad=rt.min_pad,
-                aux=aux_for_kernel(rt.kernel), dense_budget_bytes=rt.dense_budget_bytes,
-                collapse=rt.collapse_kinds, row_range=rng,
-                kind_dedup_threshold=rt.kind_dedup_threshold, retain_columns=columns)
-            graph, op_names = out[0], out[1]
-            kernel = rt.kernel
-            if kernel == "auto":
-                kernel = choose_kernel(graph, rt.dense_budget_bytes, rt.prefer_bf16)
-            ratio = kind_dedup_ratio(graph)
-            record_kind_dedup(ratio)
-            ectx = None
-            if columns:
-                names = table.trace_names
-                ids_n = [names[int(c)] for c in out[2]]
-                ids_a = [names[int(c)] for c in out[3]]
-                ectx = ExplainContext.from_build(graph, ids_n, ids_a, *out[4])
+            graph, op_names, kernel, ectx = prepare_window_graph(
+                table, mask, nrm, abn, self.config, row_range=rng, explain=columns)
         build_ms = (time.perf_counter() - t0) * 1e3
-        return host_subset(graph, kernel), op_names, kernel, ectx, (ratio, build_ms)
+        return graph, op_names, kernel, ectx, (kind_dedup_ratio(graph), build_ms)
 
     def _drain_all(self) -> None:
         while self._pending:
@@ -505,10 +581,28 @@ class StreamEngine:
                     pass
         head_trace = group[0][0].trace
         t0 = time.monotonic()
-        with get_tracer().attach(head_trace.ctx if head_trace is not None else None):
-            outs, info = self.router.rank_batch(graphs, kernel, conv_trace=conv,
-                                                next_batch=next_batch)
+        first = len(group) not in self._warmed.get(kernel, ())
+
+        def _ranked():
+            # The attach rides inside the thunk, so the dispatch spans land
+            # on the head window's trace on whichever thread runs it.
+            with get_tracer().attach(head_trace.ctx if head_trace is not None else None):
+                out = self.router.rank_batch(graphs, kernel, conv_trace=conv,
+                                             next_batch=next_batch)
+            if first and self._cache_probe is not None:
+                # The first dispatch at this (kernel, occupancy): did it
+                # build a kernel library or load one?
+                self._cache_probe.observe()
+            return out
+
+        outs, info = self._on_device(_ranked)
         self._count_dispatch()
+        if self.config.sched.shape_warmup and self.config.dispatch.warmup_manifest:
+            from ..dispatch import bucket_key
+
+            self._shape_sigs.add((info.kernel, len(group),
+                                  bucket_key(graphs[0], info.kernel)[1:]))
+        self._warmed.setdefault(info.kernel, set()).add(len(group))
         batch_ms = (time.monotonic() - t0) * 1e3
         for b, (p, _, op_names, _, _) in enumerate(group):
             self._ranking(p.result, op_names, outs[0][b], outs[1][b], int(outs[2][b]),
@@ -531,14 +625,19 @@ class StreamEngine:
         rt = self.config.runtime
         conv = bool(rt.convergence_trace)
         t0 = time.monotonic()
-        with tracer.attach(trace.ctx if trace is not None else None):
-            with tracer.span("device_dispatch", service="stream", kernel=kernel, checked=True):
-                outs, staged = stage_rank_window(
-                    graph, self.config.pagerank, self.config.spectrum, kernel, self.device,
-                    rt.blob_staging, checked=True, conv_trace=conv)
-                packed = pack_rank_outputs(outs, staged, checked=True)
-            with tracer.span("result_fetch", service="stream"):
-                out = unpack_rank_outputs(packed)
+
+        def _ranked():
+            with tracer.attach(trace.ctx if trace is not None else None):
+                with tracer.span("device_dispatch", service="stream", kernel=kernel,
+                                 checked=True):
+                    outs, staged = stage_rank_window(
+                        graph, self.config.pagerank, self.config.spectrum, kernel,
+                        self.device, rt.blob_staging, checked=True, conv_trace=conv)
+                    packed = pack_rank_outputs(outs, staged, checked=True)
+                with tracer.span("result_fetch", service="stream"):
+                    return unpack_rank_outputs(packed)
+
+        out = self._on_device(_ranked)
         self._count_dispatch()
         self._ranking(result, op_names, out[0], out[1], int(out[2]), "stream window")
         result.kernel = kernel
@@ -565,17 +664,23 @@ class StreamEngine:
             init = map_warm_state(self._warm_state, op_names, ectx, graph)
         t0 = time.monotonic()
         fused = bool(rt.fused_pair)
-        with tracer.attach(head.trace.ctx if head.trace is not None else None):
-            if fused:
-                out, _ = self.router.rank_fused(graph, kernel, init)
-            else:
+
+        def _ranked():
+            with tracer.attach(head.trace.ctx if head.trace is not None else None):
+                if fused:
+                    return self.router.rank_fused(graph, kernel, init)[0]
                 with tracer.span("device_dispatch", service="stream", kernel=kernel,
                                  warm=init is not None):
                     packed = pack_rank_outputs(*stage_rank_window_warm(
                         graph, init, self.config.pagerank, self.config.spectrum, kernel,
                         self.device, blob=False))
                 with tracer.span("result_fetch", service="stream"):
-                    out = unpack_rank_outputs(packed)
+                    return unpack_rank_outputs(packed)
+
+        # Warm programs seed only while an incident is open: the hot lane.
+        from ..sched import LANE_INCIDENT
+
+        out = self._on_device(_ranked, lane=LANE_INCIDENT)
         self._count_dispatch()
         self._ranking(result, op_names, out[0], out[1], int(out[2]), "stream window (warm)")
         result.kernel = kernel
@@ -602,11 +707,17 @@ class StreamEngine:
 
         graph, op_names, kernel, ectx = explain_src
         ex = self.config.explain
-        with get_tracer().span("explain", service="stream", kernel=kernel):
-            outs, staged = stage_rank_window(
-                graph, self.config.pagerank, self.config.spectrum, kernel, self.device,
-                self.config.runtime.blob_staging, explain=ex)
-            outs = unpack_rank_outputs(pack_rank_outputs(outs, staged))
+        def _explained():
+            with get_tracer().span("explain", service="stream", kernel=kernel):
+                outs, staged = stage_rank_window(
+                    graph, self.config.pagerank, self.config.spectrum, kernel, self.device,
+                    self.config.runtime.blob_staging, explain=ex)
+                return unpack_rank_outputs(pack_rank_outputs(outs, staged))
+
+        # An explained program runs only when an incident opens: hot lane.
+        from ..sched import LANE_INCIDENT
+
+        outs = self._on_device(_explained, lane=LANE_INCIDENT)
         bundle = build_bundle(outs, op_names, ectx, method=self.config.spectrum.method,
                               kernel=kernel, window={"start": result.start, "end": result.end},
                               trigger="incident")
@@ -701,10 +812,10 @@ class StreamEngine:
 
 
 def run_stream(config: MicroRankConfig, source, out_dir=None, normal_table=None,
-               on_result=None, device=None) -> StreamSummary:
+               on_result=None, device=None, sched=None) -> StreamSummary:
     """Build and drive a StreamEngine to completion (the CLI's entry)."""
     engine = StreamEngine(config, source, out_dir=out_dir, normal_table=normal_table,
-                          device=device)
+                          device=device, sched=sched)
     summary = engine.run()
     if on_result is not None:
         for r in summary.results:

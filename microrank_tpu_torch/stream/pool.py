@@ -5,8 +5,8 @@ The stream engine owns the card from one thread and must not spend its
 time in host graph construction (admission, detection, the C++ build)
 while the card sits idle: it submits window N+1's build here while its
 own thread issues window N's rank program. Only host work runs here;
-every launch stays on the engine's thread. (JAX's serve scheduler
-shares the pool; serve is not ported yet.)
+every launch stays on the engine's thread. Serve's batch scheduler
+builds its requests' windows on a pool of its own, as in JAX.
 """
 
 from __future__ import annotations

@@ -175,6 +175,11 @@ class FileTailSource:
         self.parse_retry_max = int(parse_retry_max)
         self._parse_fails = 0
         self._rows = 0   # source rows yielded so far (batch row ids)
+        self._stopped = False
+
+    def stop(self) -> None:
+        """End the tail at its next poll (a co-deployed engine's drain)."""
+        self._stopped = True
 
     def _batch(self, table: SpanTable) -> SpanBatch:
         table = table._replace(parent_row=np.where(
@@ -231,7 +236,7 @@ class FileTailSource:
 
         tracker = TailTracker(idle_exit=self.idle_exit)
         polls = 0
-        while True:
+        while not self._stopped:
             polls += 1
             size = os.path.getsize(self.path) if self.path.exists() else -1
             status = tracker.observe_size(size)

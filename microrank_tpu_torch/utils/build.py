@@ -17,6 +17,11 @@ from typing import Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
+# Libraries this process compiled (``run_build`` calls that published
+# one); the warmup's probe (``dispatch.cache.CompileCacheProbe``) reads
+# it: a library loaded from ``_build`` is a hit, one built is a miss.
+builds = 0
+
 
 class BuildError(RuntimeError):
     """A native library could not be compiled."""
@@ -50,4 +55,6 @@ def run_build(cmd: Sequence[str], tmp: Path, out: Path, timeout: float = 600) ->
             f"build of {out.name} failed:\n{exc.stdout}\n{exc.stderr}"
         ) from exc
     os.replace(tmp, out)
+    global builds
+    builds += 1
     return proc.stdout + proc.stderr
