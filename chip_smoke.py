@@ -494,6 +494,34 @@ JAX or of the JAX package. Phases, one JSON line each:
               error, both lanes charged. Last ``python -m
               microrank_tpu_torch.cli serve`` as a process: one request,
               SIGTERM, exit 0 and a ``sigterm`` flight dump.
+   chaos_warehouse — crash-only recovery and the trace warehouse on
+              the stream phase's timeline, written as uncompressed
+              warehouse directories (``--input`` / ``--normal``: no CSV
+              parse), ``cli stream --source replay --warehouse``
+              tumbling (pipeline 3, lateness 0): (a) uninterrupted in
+              this process, then in a subprocess killed (``kill`` at the
+              ``checkpoint`` seam, exit 137) at its fourth checkpoint,
+              the faulted group's, and ``--resume``d here: one
+              ``incident_open`` and one ``incident_resolve``, the
+              incidents, every window's ranking and the manifest the
+              uninterrupted run's, bitwise; every window sealed once
+              (the journal's warm seals); seal_ms, checkpoint_ms, the
+              checkpoint's load and the resume's seconds. (b) In this
+              process, one window a dispatch, two failed dispatches
+              and a poisoned fetch: no window dropped, the results
+              bitwise the stream phase's default run, 3 retries, the
+              launches those of the programs that ran (the poisoned
+              attempt's included). (c) ``cli replay OUT --at all`` here,
+              counted: ``match``, one stacked program a bucket, each
+              stored blob's own program bitwise its stored ranking; the
+              replay's ms a window against the live ``rank_ms``. (d)
+              ``cli scenarios --from-warehouse`` here, counted (K13: one
+              all-methods program a window), its 13 rows equal to
+              ``run_retro`` on the CPU over a copy. (e) ``replay_range``
+              on the backfill lane of a ``DeviceScheduler`` while a
+              ``ServeService`` answers the three faulted windows: the
+              answers the solo service's, the report ``match``, both
+              tenants charged.
 
 Then the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -6830,6 +6858,349 @@ def phase_stream(torch, spmv, pattern, args, src, gen_s, workdir):
     return launches, out
 
 
+# The chaos_warehouse phase's runs over the stream phase's timeline: the
+# CLI's replay source with the default mode's chunks, lateness and
+# pipeline, sealing a warehouse.
+CHAOS_STREAM_ARGS = ("--chunk-spans", "200000", "--lateness-seconds", "0",
+                     "--pipeline-windows", "3", "--warehouse")
+# (a): killed at the checkpoint after the third window (the faulted
+# group's: its windows sealed, the checkpoint not written).
+CHAOS_KILL = {"seed": 0, "faults": [{"seam": "checkpoint", "kind": "kill", "after": 3,
+                                     "count": 1}]}
+# (b): two failed dispatches, then a poisoned fetch at the next dispatch
+# (three failures in one dispatch would exhaust STREAM_DISPATCH_POLICY).
+CHAOS_FAULTS = ({"seam": "dispatch", "kind": "fail", "count": 2},
+                {"seam": "fetch", "kind": "nan", "after": 1, "count": 1})
+
+
+def table_dir(table, path):
+    """A span table as a warehouse directory of one record, stored
+    uncompressed: ``cli stream --source replay --input`` and ``--normal``
+    read it with no CSV parse."""
+    import numpy as np
+
+    from microrank_tpu_torch.warehouse import seal_manifest
+    from microrank_tpu_torch.warehouse.segment import SEGMENT_SCHEMA, encode_table
+
+    arrays, frame = encode_table(table)
+    start, end = int(table.start_us.min()), int(table.end_us.max()) + 1
+    meta = {"start": str(start), "end": str(end), "start_us": start, "end_us": end,
+            "outcome": "input", "spans": table.n_spans, "frame": frame,
+            "schema": SEGMENT_SCHEMA}
+    path.mkdir(parents=True)
+    name = f"seg-{start}-{end}.npz"
+    doc = json.dumps({"schema": SEGMENT_SCHEMA, "windows": [meta]}).encode()
+    np.savez(path / name, meta=np.frombuffer(doc, dtype=np.uint8),
+             **{f"w0_{k}": v for k, v in arrays.items()})
+    seal_manifest(path, {
+        "segments": [{"file": name, "tier": "warm", "start_us": start, "end_us": end,
+                      "windows": 1, "spans": table.n_spans,
+                      "bytes": (path / name).stat().st_size, "outcomes": {"input": 1}}],
+        "sealed_through_us": end,
+        "counters": {"windows": 1, "spans": table.n_spans, "ingest_rejected": 0},
+        "truth": None})
+
+
+def quiet_cli(cli, argv):
+    """``cli.main(argv)`` in this process, its printed windows kept off
+    this script's output; returns (exit code, seconds)."""
+    import contextlib
+    import io
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    return rc, time.perf_counter() - t
+
+
+def stage_mean_ms(run_dir, stage):
+    """A stage's mean ms from a run's metrics.json (stage_seconds)."""
+    doc = json.loads((run_dir / "metrics.json").read_text())
+    for smp in doc["metrics"]["microrank_stage_seconds"]["samples"]:
+        if smp["labels"].get("stage") == stage and smp["count"]:
+            return round(smp["sum"] / smp["count"] * 1e3, 3)
+    return None
+
+
+def phase_chaos_warehouse(torch, spmv, pattern, src, workdir):
+    """Crash-only recovery and the trace warehouse on the card, over the
+    stream phase's timeline (see the module note). Returns (launch
+    counts by run, the phase's line)."""
+    import threading
+
+    import numpy as np
+
+    from microrank_tpu_torch import cli
+    from microrank_tpu_torch.chaos import load_checkpoint
+    from microrank_tpu_torch.config import (
+        ChaosConfig,
+        DispatchConfig,
+        MicroRankConfig,
+        RuntimeConfig,
+        ServeConfig,
+        StreamConfig,
+    )
+    from microrank_tpu_torch.dispatch import DispatchRouter, bucket_key
+    from microrank_tpu_torch.obs import MetricsRegistry, read_journal, set_registry
+    from microrank_tpu_torch.sched import DeviceScheduler, ParkedWindowStore
+    from microrank_tpu_torch.serve import RankRequest, ServeService
+    from microrank_tpu_torch.stream import StreamEngine
+    from microrank_tpu_torch.stream.window import stamp
+    from microrank_tpu_torch.warehouse import TraceWarehouse, load_manifest, replay_range, run_retro
+
+    reg = MetricsRegistry()
+    set_registry(reg)
+    os.environ["MICRORANK_JIT_CACHE"] = str(workdir / "chaos_jit")
+    base = workdir / "chaos"
+    launches = {}
+    t = time.perf_counter()
+    table_dir(src.table, base / "input")
+    table_dir(src.normal, base / "normal")
+    out = {"phase": "chaos_warehouse", "windows": STREAM_WINDOWS,
+           "timeline_spans": src.table.n_spans, "input_write_s": round(time.perf_counter() - t, 3)}
+    argv = ["stream", "--source", "replay", "--input", str(base / "input"), "--normal",
+            str(base / "normal"), *CHAOS_STREAM_ARGS]
+
+    def windows_of(run):
+        rows = [json.loads(x) for x in (run / "windows.jsonl").read_text().splitlines()]
+        return [(r["start"], [tuple(x) for x in r["ranking"] or []], r["rank_iterations"])
+                for r in rows]
+
+    def incidents_of(run):
+        return [(e["event"], e["incident_id"], e["windows"], e["top"][0][0])
+                for e in map(json.loads, (run / "incidents.jsonl").read_text().splitlines())]
+
+    def segments_of(run):
+        payload = load_manifest(run / "warehouse")
+        return payload["counters"], [(r["file"], r["tier"], r["windows"], r["spans"],
+                                      r["outcomes"]) for r in payload["segments"]]
+
+    # (a) The uninterrupted run, then one killed at its fourth checkpoint
+    # (os._exit in a subprocess) and resumed.
+    ref = base / "ref"
+    rc, ref_s = quiet_cli(cli, argv + ["-o", str(ref)])
+    check(rc == 0, f"chaos_warehouse: the uninterrupted run exited {rc}")
+    # Recorded, not gated: the CLI's config is the stream phase's default
+    # mode's (the gates below hold the CLI runs to each other).
+    out["cli_bitwise_vs_stream_phase"] = windows_of(ref) == [
+        (s, list(r), n) for s, r, n in STREAM_SOLO["results"]]
+    plan = base / "kill.json"
+    plan.write_text(json.dumps(CHAOS_KILL))
+    run = base / "run"
+    t = time.perf_counter()
+    killed = subprocess.run([sys.executable, "-m", "microrank_tpu_torch.cli", *argv, "-o",
+                             str(run), "--chaos", str(plan)], cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True,
+                            text=True, timeout=600)
+    killed_s = time.perf_counter() - t
+    check(killed.returncode == 137, f"chaos_warehouse: the killed run exited "
+                                    f"{killed.returncode}: {killed.stderr[-2000:]}")
+    t = time.perf_counter()
+    ckpt = load_checkpoint(run / "state.ckpt")
+    load_ms = (time.perf_counter() - t) * 1e3
+    sealed_at_kill = load_manifest(run / "warehouse")["counters"]["windows"]
+    rc, resume_s = quiet_cli(cli, argv + ["-o", str(run), "--resume"])
+    check(rc == 0, f"chaos_warehouse: the resumed run exited {rc}")
+    events = incidents_of(run)
+    check([e[0] for e in events].count("incident_open") == 1
+          and [e[0] for e in events].count("incident_resolve") == 1,
+          f"chaos_warehouse/resume: incident events {[e[0] for e in events]}")
+    check(events == incidents_of(ref), "chaos_warehouse/resume: incidents differ from the "
+                                       "uninterrupted run's")
+    check(windows_of(run) == windows_of(ref), "chaos_warehouse/resume: a window's ranking is "
+                                              "not bitwise the uninterrupted run's")
+    check((run / "result.csv").read_bytes() == (ref / "result.csv").read_bytes(),
+          "chaos_warehouse/resume: result.csv differs from the uninterrupted run's")
+    check(segments_of(run) == segments_of(ref), "chaos_warehouse/resume: the manifest differs "
+                                                "from the uninterrupted run's")
+    check(sorted(p.name for p in (run / "warehouse").glob("*.npz"))
+          == sorted(p.name for p in (ref / "warehouse").glob("*.npz")),
+          "chaos_warehouse/resume: segment files differ")
+    seals = [e for e in read_journal(run / "journal.jsonl") if e["event"] == "warehouse_seal"
+             and e["tier"] == "warm"]
+    check(sum(e["windows"] for e in seals) == STREAM_WINDOWS,
+          f"chaos_warehouse/resume: {sum(e['windows'] for e in seals)} window seals for "
+          f"{STREAM_WINDOWS} windows (each exactly once)")
+    out["resume"] = {
+        "killed_exit": killed.returncode, "killed_s": round(killed_s, 3),
+        "checkpoint_windows_at_kill": ckpt["summary"]["windows"],
+        "windows_sealed_at_kill": sealed_at_kill, "checkpoint_load_ms": round(load_ms, 3),
+        "resume_s": round(resume_s, 3), "uninterrupted_s": round(ref_s, 3),
+        "incident_events": [e[0] for e in events],
+        "seal_ms": stage_mean_ms(ref, "warehouse_seal"),
+        "checkpoint_ms": stage_mean_ms(ref, "checkpoint"),
+        "segments": segments_of(ref)[0],
+        "warehouse_bytes": sum(p.stat().st_size for p in (ref / "warehouse").glob("*.npz")),
+    }
+    # (b) The stream phase's timeline under two failed dispatches and a
+    # poisoned fetch, one window a dispatch: every window ranks, bitwise.
+    cfg = MicroRankConfig(
+        stream=StreamConfig(allowed_lateness_seconds=0.0, pipeline_windows=1),
+        dispatch=DispatchConfig(warmup_manifest=False),
+        chaos=ChaosConfig(enabled=True, faults=CHAOS_FAULTS))
+    engine = StreamEngine(cfg, src, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts(spmv, pattern)
+    s = engine.run()
+    torch.cuda.synchronize()
+    counts = read_counts(spmv, pattern)
+    ranked = [r for r in s.results if r.ranking]
+    check((s.windows, s.skipped, len(ranked)) == (STREAM_WINDOWS, 0, len(STREAM_FAULTS)),
+          f"chaos_warehouse/faults: {s.windows} windows, {s.skipped} skipped, {len(ranked)} "
+          "ranked (a window dropped)")
+    check([(r.start, r.ranking, r.rank_iterations) for r in s.results] == STREAM_SOLO["results"],
+          "chaos_warehouse/faults: results are not bitwise the uninjected run's")
+    retries = reg.get("microrank_retry_attempts_total").value(seam="stream_dispatch")
+    injected = {(x["labels"]["seam"], x["labels"]["kind"]): x["value"]
+                for x in reg.get("microrank_fault_injections_total").samples()}
+    check(retries == 3 and injected == {("dispatch", "fail"): 2, ("fetch", "nan"): 1},
+          f"chaos_warehouse/faults: {retries} retries, injections {injected}")
+    # The poisoned attempt ran its program (one window); the failed
+    # dispatches launched nothing.
+    expect = expected_counts(ranked[0].kernel, len(ranked) + 1, programs=s.dispatches + 1)
+    check(counts == expect, f"chaos_warehouse/faults: launch counts {counts}, want {expect}")
+    launches["chaos_warehouse/faults"] = counts
+    out["faults"] = {"windows": s.windows, "ranked": len(ranked), "skipped": s.skipped,
+                     "dispatches": s.dispatches, "retry_attempts": retries,
+                     "injections": {f"{k[0]}/{k[1]}": v for k, v in injected.items()},
+                     "launches": counts}
+    # (c) cli replay over the uninterrupted run's warehouse, counted.
+    stored = [w for w in TraceWarehouse(ref, None).query() if w.outcome == "ranked"]
+    kernel = stored[0].kernel
+    groups, i = [], 0
+    while i < len(stored):
+        key = bucket_key(stored[i].graph(), stored[i].kernel)
+        j = i + 1
+        while (j < len(stored) and j - i < MicroRankConfig().dispatch.coalesce_windows
+               and bucket_key(stored[j].graph(), stored[j].kernel) == key):
+            j += 1
+        groups.append(j - i)
+        i = j
+    torch.cuda.synchronize()
+    reset_counts(spmv, pattern)
+    rc, replay_s = quiet_cli(cli, ["replay", str(ref), "--at", "all", "--json",
+                                   str(base / "replay.json")])
+    torch.cuda.synchronize()
+    counts = read_counts(spmv, pattern)
+    report = json.loads((base / "replay.json").read_text())
+    check(rc == 0 and report["verdict"] == "match" and report["matched"] == len(stored),
+          f"chaos_warehouse/replay: exit {rc}, verdict {report['verdict']}, "
+          f"{report['matched']} of {len(stored)} matched")
+    expect = expected_counts(kernel, len(stored), programs=len(groups),
+                             groups=sum(g > 1 for g in groups))
+    check(counts == expect, f"chaos_warehouse/replay: launch counts {counts}, want {expect}")
+    launches["chaos_warehouse/replay"] = counts
+    router = DispatchRouter(MicroRankConfig(), device="cuda")
+    for w in stored:  # each stored blob's own program: its live ranking's bits
+        (idx, sc, nv), _ = router.rank_batch([w.graph()], w.kernel, record=False)
+        own = [(w.op_names[int(x)], float(v)) for x, v in zip(idx[0][:int(nv[0])],
+                                                             sc[0][:int(nv[0])])]
+        check(own == w.ranking, f"chaos_warehouse/replay: window {w.meta['start']} is not "
+                                "bitwise its stored ranking")
+    rows = [json.loads(x) for x in (ref / "windows.jsonl").read_text().splitlines()]
+    live_ms = _mean([r["timings"]["rank_ms"] for r in rows if r["ranking"]])
+    out["replay"] = {"verdict": report["verdict"], "ranked": report["ranked"],
+                     "groups": groups, "elapsed_s": report["elapsed_s"],
+                     "replay_ms_a_window": round(report["elapsed_s"] * 1e3 / len(stored), 3),
+                     "live_rank_ms_a_window": round(live_ms, 3), "cli_s": round(replay_s, 3),
+                     "bitwise_vs_stored": True, "launches": counts}
+    # (d) cli scenarios --from-warehouse on the card (K13 a window), and
+    # the same retro on the CPU over a copy of the warehouse.
+    for who in ("card", "cpu"):
+        shutil.copytree(ref / "warehouse", base / f"retro_{who}" / "warehouse")
+    policy_env = os.environ["MICRORANK_POLICY_DIR"]
+    os.environ["MICRORANK_POLICY_DIR"] = str(base / "policy")
+    try:
+        torch.cuda.synchronize()
+        reset_counts(spmv, pattern)
+        rc, retro_s = quiet_cli(cli, ["scenarios", "--from-warehouse", str(base / "retro_card"),
+                                      "--json", str(base / "retro.json")])
+        torch.cuda.synchronize()
+        counts = read_counts(spmv, pattern)
+        t = time.perf_counter()
+        cpu = run_retro(base / "retro_cpu", persist_policy=False,
+                        config=MicroRankConfig(runtime=RuntimeConfig(device="cpu")))
+        cpu_s = time.perf_counter() - t
+    finally:
+        os.environ["MICRORANK_POLICY_DIR"] = policy_env
+    card = json.loads((base / "retro.json").read_text())
+    n = card["windows_scored"]
+    # A replayed file carries no ground truth: the consensus live top-1
+    # stands in (``outcome_source``), on the card and on the CPU alike.
+    check(rc == 0 and n == len(stored) and card["outcome_source"] == cpu["outcome_source"],
+          f"chaos_warehouse/retro: exit {rc}, {n} windows, {card['outcome_source']}")
+    check(len(card["record"]["formulas"]) == 13, "chaos_warehouse/retro: not 13 formula rows")
+    check(card["record"]["formulas"] == json.loads(json.dumps(cpu["record"]["formulas"])),
+          "chaos_warehouse/retro: the card's 13 rows differ from the CPU's")
+    check(card["policy_path"] and Path(card["policy_path"]).exists(),
+          "chaos_warehouse/retro: no policy written")
+    expect = expected_counts(kernel, n, all_methods=True)
+    check(counts == expect,   # K13: one all-methods epilogue a window
+          f"chaos_warehouse/retro: launch counts {counts}, want {expect}")
+    launches["chaos_warehouse/retro"] = counts
+    out["retro"] = {"windows": n, "truth": card["truth"],
+                    "outcome_source": card["outcome_source"],
+                    "policy": card["policy"]["profiles"], "cli_s": round(retro_s, 3),
+                    "retro_ms_a_window": round(retro_s * 1e3 / n, 3),
+                    "cpu_ms_a_window": round(cpu_s * 1e3 / n, 3),
+                    "map": {m: row["map"] for m, row in card["record"]["formulas"].items()},
+                    "rows_equal_cpu": True, "launches": counts}
+    # (e) serve --backfill: the warehouse replayed on the backfill lane
+    # while the service answers; its answers equal solo.
+    scfg = MicroRankConfig(serve=ServeConfig(warmup=False, max_wait_ms=0.0),
+                           dispatch=DispatchConfig(warmup_manifest=False))
+    w_us = int(src.timeline.window_minutes * 60e6)
+    t0 = int(src.timeline.start.astype(np.int64))
+    requests = [RankRequest(request_id=f"w{k}", tenant=f"t{k}", dataset="tl",
+                            start=stamp(t0 + k * w_us), end=stamp(t0 + (k + 1) * w_us))
+                for k in STREAM_FAULTS]
+
+    def answers(svc):
+        futures = [svc.submit(r) for r in requests]
+        return [(f.result(600).ranking, f.result(600).rank_iterations) for f in futures]
+
+    solo_svc = ServeService(scfg)
+    solo_svc.fit_baseline(src.normal)
+    solo_svc.add_dataset("tl", src.table)
+    solo_svc.start()
+    try:
+        solo_answers = answers(solo_svc)
+    finally:
+        solo_svc.shutdown(drain=True)
+    store = ParkedWindowStore(scfg.sched, serve_cfg=scfg.serve)
+    sched = DeviceScheduler(store)
+    sched.start()
+    backfill = {}
+    t = time.perf_counter()
+    try:
+        svc = ServeService(scfg, sched=sched)
+        svc.fit_baseline(src.normal)
+        svc.add_dataset("tl", src.table)
+        svc.start()
+        th = threading.Thread(target=lambda: backfill.update(replay_range(
+            ref, config=scfg, sched=sched)), name="co-backfill")
+        th.start()
+        co_answers = answers(svc)
+        th.join(600)
+        check(not th.is_alive(), "chaos_warehouse/backfill: the replay did not end")
+        svc.shutdown(drain=True)
+    finally:
+        sched.stop(drain=True, timeout=60)
+    co_s = time.perf_counter() - t
+    check(co_answers == solo_answers and all(a for a, _ in solo_answers),
+          "chaos_warehouse/backfill: serve's answers differ from solo")
+    check(backfill.get("verdict") == "match" and backfill["matched"] == len(stored),
+          f"chaos_warehouse/backfill: replay {backfill.get('verdict')}")
+    shares = store.tenant_shares()
+    check(sched.errors == 0 and shares.get(scfg.sched.backfill_tenant, 0) >= 1,
+          f"chaos_warehouse/backfill: scheduler errors {sched.errors}, shares {shares}")
+    out["backfill"] = {"verdict": backfill["verdict"], "matched": backfill["matched"],
+                       "requests": len(requests), "answers_equal_solo": True,
+                       "tenant_shares": shares, "wall_s": round(co_s, 3)}
+    out["nvidia_smi"] = power_line()
+    return launches, out
+
+
 # The serve phase's service knobs: batches of up to 8 windows, 200 ms of
 # coalescing, a build worker a window of the replay.
 SERVE_BATCH, SERVE_WAIT_MS, SERVE_BUILDERS = 8, 200.0, 6
@@ -7459,6 +7830,10 @@ def main(argv=None) -> int:
                                                  replay_fault, src)
             launches.update(serve_launches)
             emit(served)
+        phase = "chaos_warehouse"
+        chaos_launches, chaos = phase_chaos_warehouse(torch, spmv, pattern, src, workdir)
+        launches.update(chaos_launches)
+        emit(chaos)
         del src
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})

@@ -21,7 +21,14 @@
         [--drain-seconds S] [--no-warmup] [--warmup-occupancies N,N]
         [--build-workers N] [--no-fallback] [--inject-dispatch-failures N]
         [--stream-input CSV] [--tenant-weight NAME=W] [--tenant-rate NAME=R]
+        [--backfill WAREHOUSE [--backfill-range START..END]]
         [--device cuda|cpu] [the config flags of run]
+    python -m microrank_tpu_torch.cli stream [--source synthetic|tail|replay] [-o OUT]
+        [--resume] [--warehouse] [--warehouse-dir DIR] [--chaos PLAN.json] [...]
+    python -m microrank_tpu_torch.cli replay TARGET --at RANGE [-k K] [--json PATH]
+        [the config flags of run]
+    python -m microrank_tpu_torch.cli scenarios --from-warehouse DIR [--seed N]
+        [--no-persist-policy] [--json PATH] [the config flags of run]
     python -m microrank_tpu_torch.cli stats OUT [OUT2] [--diff] [--merge]
         [--format prom|json] [--journal]
     python -m microrank_tpu_torch.cli synth -o DIR [--operations 40 ...]
@@ -53,6 +60,15 @@ into stacked rank programs; SIGTERM drains it.
 ``stream --explain`` writes an explain bundle when an incident opens;
 ``explain`` renders one from a run directory, a bundle directory or
 file, a flight dump or a journal (JAX's ``cli explain``).
+``stream --resume`` continues a killed run from its checkpoint;
+``--warehouse`` seals every closed window into ``OUT/warehouse``;
+``--chaos PLAN.json`` (every subcommand with the config flags) arms the
+fault plan. ``replay`` re-ranks stored windows from their blobs and
+checks them against the stored verdicts (exit 1 on a mismatch, 2 on a
+bad range); ``scenarios --from-warehouse`` scores the stored incidents
+under all 13 formulas and persists the selected policy; ``serve
+--backfill`` replays a warehouse on the device scheduler's backfill
+lane beside the service.
 """
 
 from __future__ import annotations
@@ -70,6 +86,7 @@ from .config import (
     FETCH_MODES,
     KERNELS,
     KIND_PRECISIONS,
+    ChaosConfig,
     CompatConfig,
     DetectorConfig,
     ExplainConfig,
@@ -122,6 +139,7 @@ def _config_from_args(args) -> MicroRankConfig:
     ingest = {} if args.quarantine_dir is None else {"quarantine_dir": args.quarantine_dir}
     explain = {k: v for k, v in (("enabled", True if args.explain else None),
                                  ("top_traces", args.explain_top_traces)) if v is not None}
+    chaos = {} if not args.chaos else {"enabled": True, "plan_path": args.chaos}
     cfg = MicroRankConfig(
         detector=DetectorConfig(
             k_sigma=args.k_sigma, slack_ms=args.slack_ms, slo_stat=args.slo_stat,
@@ -141,6 +159,7 @@ def _config_from_args(args) -> MicroRankConfig:
         ingest=IngestConfig(**ingest),
         obs=ObsConfig(**obs),
         explain=ExplainConfig(**explain),
+        chaos=ChaosConfig(**chaos),
     )
     if args.reference_compat:
         cfg = cfg.replace(compat=CompatConfig(partition_swap=True, overwrite_results=True))
@@ -433,14 +452,11 @@ def cmd_eval(args) -> int:
 # Stream flags of the JAX CLI whose lanes are not ported, and the item
 # that brings each (ROADMAP.md, port queue).
 _STREAM_REFUSED = (
-    ("resume", "--resume (the crash-only checkpoint) comes with item 11's chaos slice"),
     ("mesh", "--mesh (the sharded route) comes with item 12"),
     ("fleet", "--fleet comes with item 11's fleet slice"),
     ("fleet_role", "--fleet-role comes with item 11's fleet slice"),
     ("delta_build", "--delta-build (the incremental build) is item 11's, set aside in "
                     "ROADMAP.md"),
-    ("warehouse", "--warehouse comes with item 11's warehouse slice"),
-    ("warehouse_dir", "--warehouse-dir comes with item 11's warehouse slice"),
 )
 
 
@@ -481,6 +497,9 @@ def cmd_stream(args) -> int:
         "max_windows": args.max_windows,
     }.items() if v is not None}
     cfg = cfg.replace(stream=dataclasses.replace(cfg.stream, **overrides))
+    if args.warehouse or args.warehouse_dir:
+        cfg = cfg.replace(warehouse=dataclasses.replace(cfg.warehouse, enabled=True,
+                                                        dir=args.warehouse_dir))
     rt = {k: True for k in ("warm_start", "fused_pair") if getattr(args, k)}
     if rt:
         cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, **rt))
@@ -510,17 +529,33 @@ def cmd_stream(args) -> int:
                                 idle_exit=args.idle_exit or 0)
     normal_table = None
     if args.normal:
-        from .native import load_span_table
+        from .stream.sources import load_table
 
-        normal_table = load_span_table(args.normal, cache=False)
+        normal_table = load_table(args.normal)
     if args.metrics_port is not None:
         from .obs.server import start_metrics_server
 
         server = start_metrics_server(args.metrics_port)
         log.info("metrics endpoint: http://127.0.0.1:%d/metrics", server.port)
     engine = StreamEngine(cfg, source, out_dir=args.output, normal_table=normal_table,
-                          incident_sinks=[StdoutIncidentSink()])
-    s = engine.run()
+                          incident_sinks=[StdoutIncidentSink()], resume=args.resume)
+    # SIGTERM drains the engine at the next batch and writes a final
+    # checkpoint: the run continues under --resume.
+    import signal
+
+    def _on_sigterm(_signo, _frame):
+        log.info("SIGTERM: draining the stream engine (checkpoint on exit)")
+        engine.request_stop()
+
+    try:
+        previous = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread (an embedding caller)
+        previous = None
+    try:
+        s = engine.run()
+    finally:
+        if previous is not None:   # an embedding caller gets its handler back
+            signal.signal(signal.SIGTERM, previous)
     _print_windows(s.results)
     log.info(
         "stream done: %d windows (%d ranked, %d clean, %d empty, %d skipped, %d warmup), "
@@ -536,9 +571,6 @@ def cmd_stream(args) -> int:
 # that brings each (ROADMAP.md, port queue).
 _SERVE_REFUSED = (
     ("mesh", "--mesh (the sharded route) comes with item 12"),
-    ("backfill", "--backfill (warehouse replay on the backfill lane) comes with item 11's "
-                 "warehouse slice"),
-    ("backfill_range", "--backfill-range comes with item 11's warehouse slice"),
 )
 
 
@@ -564,7 +596,9 @@ def cmd_serve(args) -> int:
     tailing a growing trace file through one device scheduler
     (``sched/``): open-incident work preempts serve, under per-tenant
     weighted fair share (``--tenant-weight``) and soft quotas
-    (``--tenant-rate``)."""
+    (``--tenant-rate``). ``--backfill`` replays a warehouse
+    (``warehouse.replay_range``) on the scheduler's backfill lane, behind
+    both."""
     import threading
 
     from .native import load_span_table
@@ -608,8 +642,20 @@ def cmd_serve(args) -> int:
             log.error("--dataset takes NAME=CSV_PATH, got %r", spec)
             return 2
         datasets.append((name, path))
+    if args.backfill_range and not args.backfill:
+        log.error("--backfill-range needs --backfill WAREHOUSE_DIR")
+        return 2
+    t_range = (None, None)
+    if args.backfill:
+        from .warehouse import parse_time_range
+
+        try:
+            t_range = parse_time_range(args.backfill_range or "all")
+        except ValueError as exc:
+            log.error("bad --backfill-range %r: %s", args.backfill_range, exc)
+            return 2
     sched = None
-    if args.stream_input:
+    if args.stream_input or args.backfill:
         from .sched import DeviceScheduler, ParkedWindowStore
 
         sched = DeviceScheduler(ParkedWindowStore(cfg.sched, serve_cfg=cfg.serve))
@@ -622,6 +668,26 @@ def cmd_serve(args) -> int:
         service.add_dataset(name, load_span_table(path, cache=False))
 
     engine = thread = None
+    side_threads = []
+    if args.backfill:
+        from .warehouse import replay_range
+
+        backfill_report = {}
+
+        def _backfill():
+            backfill_report.update(replay_range(args.backfill, *t_range, config=cfg, sched=sched))
+            log.info("co-deploy backfill done: verdict=%s ranked=%d matched=%d",
+                     backfill_report["verdict"], backfill_report["ranked"],
+                     backfill_report["matched"])
+            if args.output:
+                Path(args.output).mkdir(parents=True, exist_ok=True)
+                (Path(args.output) / "backfill.json").write_text(
+                    json.dumps(backfill_report, indent=2))
+
+        t = threading.Thread(target=_backfill, name="co-backfill", daemon=True)
+        t.start()
+        side_threads.append(t)
+        log.info("co-deploy: warehouse backfill of %s on the backfill lane", args.backfill)
     if args.stream_input:
         from .stream import FileTailSource, StreamEngine
 
@@ -637,9 +703,71 @@ def cmd_serve(args) -> int:
     if thread is not None:
         engine.request_stop()
         thread.join(timeout=30)
+    for t in side_threads:
+        t.join(timeout=30)
     if sched is not None:
         sched.stop(drain=True, timeout=30)
     return rc
+
+
+def cmd_replay(args) -> int:
+    """Time-travel RCA (``warehouse/``, JAX's ``cmd_replay``): re-rank the
+    stored windows of a time range through the dispatch router from
+    their blobs (no parse, no build) and check each new ranking against
+    the stored verdict, tie-aware. Exit 1 on a mismatch, 2 on a bad
+    range."""
+    from .warehouse import parse_time_range, replay_range
+
+    cfg = _config_from_args(args)
+    try:
+        t0_us, t1_us = parse_time_range(args.at)
+    except (ValueError, TypeError) as exc:
+        log.error("bad --at range %r: %s", args.at, exc)
+        return 2
+    report = replay_range(args.target, t0_us, t1_us, config=cfg, k=args.top)
+    rng = args.at if args.at not in ("", "*") else "all"
+    print(f"replay --at {rng}: {report['ranked']}/{report['windows']} windows re-ranked, "
+          f"{report['matched']} matched, {len(report['mismatched'])} mismatched "
+          f"({report['spans']} spans in {report['elapsed_s']}s"
+          + (f", {report['spans_per_sec']} spans/s" if report["spans_per_sec"] is not None
+             else "")
+          + f") -> {report['verdict']}")
+    for mm in report["mismatched"]:
+        print(f"  MISMATCH {mm['start']}..{mm['end']}: {mm['reason']}")
+        print(f"    stored:   {mm['stored_top']}")
+        print(f"    replayed: {mm['replayed_top']}")
+    if report["skipped_no_blob"]:
+        log.warning("%d ranked window(s) stored without rank blobs were skipped (run with "
+                    "warehouse.store_blobs=true to make history replayable)",
+                    report["skipped_no_blob"])
+    if args.json:
+        Path(args.json).write_text(json.dumps(report, indent=2))
+    return 0 if report["verdict"] == "match" else 1
+
+
+def cmd_scenarios(args) -> int:
+    """The scenario lane of the policy engine (JAX's ``cmd_scenarios``):
+    ``--from-warehouse`` scores a stored run's incidents under all 13
+    formulas (K13 a window) against the recorded truth and persists the
+    selected policy. The synthetic matrix needs the error, cascade and
+    drift fault families: not ported."""
+    if not args.from_warehouse:
+        raise NotImplementedError(
+            "cli scenarios without --from-warehouse (the synthetic scenario matrix: the "
+            "error, cascade and drift fault families) is item 11's scenarios remainder: "
+            "ROADMAP.md, port queue")
+    from .warehouse import render_retro_table, run_retro
+
+    cfg = _config_from_args(args)
+    result = run_retro(args.from_warehouse, config=cfg, seed=args.seed,
+                       persist_policy=not args.no_persist_policy)
+    print(render_retro_table(result))
+    if args.json:
+        Path(args.json).write_text(json.dumps(result, indent=2))
+    if not result["record"]["formulas"]:
+        log.error("warehouse %s: no stored ranked windows to score", args.from_warehouse)
+        return 1
+    return 0
 
 
 def _find_bundles(target: Path):
@@ -870,6 +998,15 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
         help="contributing coverage columns (traces) kept per suspect "
         "in explain bundles (default 5)",
     )
+    p.add_argument(
+        "--chaos", default=None, metavar="PLAN.json",
+        help="arm the unified fault-injection harness (chaos/): a "
+        'seeded JSON fault plan ({"seed": N, "faults": [{"seam": ..., '
+        '"kind": ..., ...}]}) injected deterministically at every '
+        "instrumented seam — dispatch/build/source/webhook/checkpoint/"
+        "fetch; injections land in "
+        "microrank_fault_injections_total and the journal",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1005,13 +1142,17 @@ def build_parser() -> argparse.ArgumentParser:
     p_stream.add_argument("--source", default="synthetic", choices=["synthetic", "tail", "replay"],
                           help="span source: in-process synthetic stream, tail a growing CSV, "
                           "or staged-CSV replay with pacing")
-    p_stream.add_argument("--input", help="traces CSV for --source tail / replay")
-    p_stream.add_argument("--normal", help="normal-period traces.csv seeding the online baseline "
+    p_stream.add_argument("--input", help="traces CSV for --source tail / replay (replay: or a "
+                          "warehouse directory, its stored span tables)")
+    p_stream.add_argument("--normal", help="normal-period traces.csv (or a warehouse directory) "
+                          "seeding the online baseline "
                           "(else it cold-starts from the first --min-healthy-windows windows; "
                           "the synthetic source seeds from its own normal window)")
     p_stream.add_argument("-o", "--output", default="stream_out")
     p_stream.add_argument("--resume", action="store_true",
-                          help="not ported: the crash-only checkpoint (item 11's chaos slice)")
+                          help="continue a killed or drained run from OUT/state.ckpt (the "
+                          "baseline, open incidents, the windower and the source cursor); a "
+                          "corrupt checkpoint is rejected whole and the run cold-starts")
     p_stream.add_argument("--slide-minutes", type=float, default=None,
                           help="sliding windows (default: tumbling, slide = --detect-minutes)")
     p_stream.add_argument("--lateness-seconds", type=float, default=None,
@@ -1078,9 +1219,12 @@ def build_parser() -> argparse.ArgumentParser:
     p_stream.add_argument("--fleet-role", choices=["worker"], default=None,
                           help="not ported: the fleet (item 11)")
     p_stream.add_argument("--warehouse", action="store_true",
-                          help="not ported: the trace warehouse (item 11)")
+                          help="seal every closed window into a tiered trace warehouse under "
+                          "the output dir (warm segment per window with its rank blob, cold "
+                          "compaction); enables `replay --at` and `scenarios --from-warehouse`")
     p_stream.add_argument("--warehouse-dir", default=None, metavar="DIR",
-                          help="not ported: the trace warehouse (item 11)")
+                          help="warehouse directory (default: <output>/warehouse; implies "
+                          "--warehouse)")
     p_stream.add_argument("--delta-build", action="store_true",
                           help="not ported: the incremental sliding-window build")
     p_stream.add_argument("--warm-start", action="store_true",
@@ -1146,9 +1290,11 @@ def build_parser() -> argparse.ArgumentParser:
                        "sharing the card through the device scheduler; open-incident work "
                        "preempts serve requests")
     p_srv.add_argument("--backfill", default=None, metavar="WAREHOUSE_DIR",
-                       help="not ported: warehouse backfill (item 11's warehouse slice)")
+                       help="co-deploy: replay this trace warehouse on the device scheduler's "
+                       "backfill lane (behind serve and stream) while the service answers; "
+                       "the report lands in OUT/backfill.json")
     p_srv.add_argument("--backfill-range", default=None, metavar="START..END",
-                       help="not ported: warehouse backfill (item 11's warehouse slice)")
+                       help="the stored range --backfill replays (default: all)")
     p_srv.add_argument("--tenant-weight", action="append", metavar="NAME=W",
                        help="weighted fair share: tenant NAME gets W times the turns of a "
                        "weight-1 tenant (repeatable)")
@@ -1172,6 +1318,40 @@ def build_parser() -> argparse.ArgumentParser:
     p_exp.add_argument("--json", default=None, help="also write the selected bundle JSON to "
                        "this path")
     p_exp.set_defaults(fn=cmd_explain)
+
+    p_scn = sub.add_parser(
+        "scenarios", help="score all 13 spectrum formulas and persist the selected policy; "
+        "--from-warehouse scores a stored run's incidents (the synthetic matrix is not ported)")
+    p_scn.add_argument("-o", "--output", default="scenario_out",
+                       help="artifact directory of the synthetic matrix (not ported)")
+    p_scn.add_argument("--seed", type=int, default=0, help="recorded as the policy's seed")
+    p_scn.add_argument("--no-persist-policy", action="store_true",
+                       help="emit the artifact but do not write policy.json")
+    p_scn.add_argument("--json", default=None, help="also write the full artifact JSON here")
+    p_scn.add_argument("--from-warehouse", default=None, metavar="DIR",
+                       help="retroactive lane: score a stored run's warehouse incidents "
+                       "across all 13 formulas (tie-aware MAP/MRR/top-k against the "
+                       "recorded truth) and persist the winning policy")
+    _add_config_flags(p_scn)
+    p_scn.set_defaults(fn=cmd_scenarios)
+
+    p_replay = sub.add_parser(
+        "replay", help="time-travel RCA: re-rank stored warehouse windows for a time range "
+        "from their blobs and verify tie-aware agreement with the stored verdicts; exits "
+        "nonzero on a mismatch")
+    p_replay.add_argument("target", help="a stream run output dir (reads its warehouse/) or a "
+                          "warehouse directory itself")
+    p_replay.add_argument("--at", required=True, metavar="RANGE",
+                          help="'all', 'START..END' (each side an epoch-microsecond integer "
+                          "or a date / date-time, either side empty = open), or one instant "
+                          "selecting the window(s) holding it")
+    p_replay.add_argument("-k", "--top", type=int, default=5,
+                          help="verify agreement over the top-k of each stored verdict "
+                          "(default 5)")
+    p_replay.add_argument("--json", default=None,
+                          help="also write the full replay report JSON to this path")
+    _add_config_flags(p_replay)
+    p_replay.set_defaults(fn=cmd_replay)
 
     p_synth = sub.add_parser("synth", help="generate a synthetic chaos case")
     p_synth.add_argument("-o", "--output", required=True)

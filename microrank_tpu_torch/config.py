@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # The kernels, in the JAX CLI's order of ``--kernel`` choices: every
 # kernel the JAX package runs.
@@ -310,8 +310,9 @@ class ObsConfig:
     """Self-tracing (obs.spans) and the flight recorder (obs.flight): the
     fields of the JAX package's ObsConfig that the span tracer and the
     recorder's triggers (incident open, serve's degraded dispatch and
-    SIGTERM drain) read, with the same names and defaults. The profiler and the chaos hooks come with their lanes
-    (ROADMAP.md, port queue item 11)."""
+    SIGTERM drain) read, and the legacy stage-latency knob of the chaos
+    hooks, with the same names and defaults. The profiler comes with its
+    lane (ROADMAP.md, port queue item 11)."""
 
     # Span tracer on/off: each stage of a window records a span in a
     # bounded ring (a contextvar read and a locked deque append a span).
@@ -325,6 +326,12 @@ class ObsConfig:
     # fill the disk.
     flight: bool = True
     flight_min_interval_seconds: float = 30.0
+    # Chaos knob (legacy, recorded through chaos.faults): sleep this long
+    # inside every ``inject_every``-th span named ``inject_stage``
+    # (0 disables).
+    inject_stage: str = "build"
+    inject_stage_sleep_ms: float = 0.0
+    inject_every: int = 1
 
 
 @dataclass(frozen=True)
@@ -465,6 +472,11 @@ class StreamConfig:
     webhook_timeout_seconds: float = 2.0
     webhook_retry_max: int = 4
     webhook_queue: int = 64
+    # Crash-only durability: checkpoint the engine's host state (the
+    # baseline, the incident tracker, the windower's watermark and open
+    # buffers, the source cursor) to out_dir/state.ckpt at every drained
+    # window boundary, so `cli stream --resume` continues the run.
+    checkpoint: bool = True
     # Stop after this many closed windows (0: until the source ends).
     max_windows: int = 0
 
@@ -495,6 +507,53 @@ class SchedConfig:
 
 
 @dataclass(frozen=True)
+class ChaosConfig:
+    """The fault-injection harness (``chaos/``, JAX's ``ChaosConfig``):
+    one seeded, deterministic ``FaultPlan`` drives every seam (dispatch,
+    build, fetch, source, webhook, checkpoint, warehouse seal, stages).
+    The legacy knobs (``ServeConfig.inject_dispatch_failures``,
+    ``ObsConfig.inject_stage_sleep_ms``) record through the same
+    surface."""
+
+    # Master switch (also set by ``--chaos PLAN.json``). Off: every seam
+    # is a None check.
+    enabled: bool = False
+    # RNG seed of the probabilistic specs (prob < 1).
+    seed: int = 0
+    # A JSON fault plan: {"seed": N, "faults": [{spec}, ...]}.
+    plan_path: Optional[str] = None
+    # Inline fault specs (dicts: seam, kind, after, count, every, value,
+    # prob), before the plan file's.
+    faults: Tuple[Dict[str, Any], ...] = ()
+
+
+@dataclass(frozen=True)
+class WarehouseConfig:
+    """The trace warehouse (``warehouse/``, JAX's ``WarehouseConfig``):
+    the stream engine seals every closed window into a tiered store (hot
+    in memory, warm one ``.npz`` segment a window, cold compacted
+    multi-window segments), each with its own detection context, so any
+    stored range re-ranks later (``cli replay --at``, ``cli scenarios
+    --from-warehouse``)."""
+
+    # Master switch: segments are sealed only when on and the run has an
+    # output dir.
+    enabled: bool = False
+    # Segment root; None: <out_dir>/warehouse.
+    dir: Optional[str] = None
+    # Store each window's admitted span table (dictionary-encoded).
+    store_spans: bool = True
+    # Store the ranked windows' packed rank blob, layout and op names:
+    # replay is a blob load and a dispatch, no parse and no build.
+    store_blobs: bool = True
+    # Compact the oldest warm segments into one cold segment once this
+    # many exist (0 disables).
+    compact_after: int = 16
+    # Drop the oldest cold segments past this count (0: unbounded).
+    retention_segments: int = 0
+
+
+@dataclass(frozen=True)
 class MicroRankConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     pagerank: PageRankConfig = field(default_factory=PageRankConfig)
@@ -509,6 +568,8 @@ class MicroRankConfig:
     explain: ExplainConfig = field(default_factory=ExplainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     sched: SchedConfig = field(default_factory=SchedConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    warehouse: WarehouseConfig = field(default_factory=WarehouseConfig)
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)

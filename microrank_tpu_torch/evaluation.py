@@ -61,6 +61,7 @@ from .rank_backends.torch_cuda import (
 from .spectrum.formulas import METHODS
 from .testing.synthetic import SyntheticConfig, generate_case, generate_timeline
 from .utils.device import resolve_device
+from .utils.guards import claim_device_owner
 from .utils.ranking_compare import scores_tied
 
 log = logging.getLogger("microrank_tpu_torch.evaluation")
@@ -318,6 +319,7 @@ def _rank(table, mask, nrm, abn, row_range, config: MicroRankConfig, device, clo
     clock.spent["kernel"] = kernel
     clock.lap("build")
     checked = bool(rt.device_checks) and not all_methods
+    claim_device_owner("evaluation")
     outs, staged = stage_rank_window(
         host_subset(graph, kernel), config.pagerank, config.spectrum, kernel, device,
         rt.blob_staging, checked=checked, all_methods=all_methods)

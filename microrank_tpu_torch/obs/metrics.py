@@ -11,10 +11,11 @@ stream lane's series (``microrank_stream_*``, its incidents, the
 dispatch router's routes and the build pool), the flight recorder's
 dumps, the explain bundles, serve's requests and batches, the device
 scheduler's series, the warmup manifest's events (the compile-cache
-counter's, whose hit and miss count kernel libraries here) and the
-shape warmup's. The JAX package's other metrics (fleet, warehouse, the
-jit counters, the profiler, the sanitizers and chaos) come with their
-lanes (ROADMAP.md, port queue item 11).
+counter's, whose hit and miss count kernel libraries here), the shape
+warmup's, the chaos series (fault injections, retries, breakers,
+checkpoints) and the trace warehouse's. The JAX package's other
+metrics (fleet, the jit counters, the profiler, the sanitizers) come
+with their lanes (ROADMAP.md, port queue items 11 and 12).
 
 Naming: ``microrank_<noun>_<unit>`` with ``_total`` on counters, the
 Prometheus convention.
@@ -437,6 +438,100 @@ def warm_shapes() -> Counter:
 
 
 
+def retry_attempts() -> Counter:
+    return get_registry().counter(
+        "microrank_retry_attempts_total",
+        "Retry attempts (second and later tries) through the unified "
+        "retry policy (chaos.retry), by seam — a healthy seam exposes "
+        "this at zero",
+        labelnames=("seam",),
+    )
+
+
+def retry_exhausted() -> Counter:
+    return get_registry().counter(
+        "microrank_retry_exhausted_total",
+        "Retried calls that gave up after the policy's max attempts, "
+        "by seam (the caller's containment/degradation path took over)",
+        labelnames=("seam",),
+    )
+
+
+def breaker_state() -> Gauge:
+    return get_registry().gauge(
+        "microrank_breaker_state",
+        "Circuit breaker state per retried seam: 0=closed, 1=open "
+        "(fast-failing), 2=half-open (probing)",
+        labelnames=("seam",),
+    )
+
+
+def fault_injections() -> Counter:
+    return get_registry().counter(
+        "microrank_fault_injections_total",
+        "Faults injected by the chaos harness (chaos.faults: a seeded "
+        "FaultPlan or a legacy inject_* knob), by seam and kind — "
+        "nonzero only when chaos is armed",
+        labelnames=("seam", "kind"),
+    )
+
+
+def checkpoint_events() -> Counter:
+    return get_registry().counter(
+        "microrank_checkpoint_events_total",
+        "Engine state-checkpoint events: write per durable state.ckpt, "
+        "restore on a successful --resume, rejected when a corrupt/"
+        "incompatible checkpoint was refused (cold start), "
+        "crash_injected when the chaos seam killed a write between tmp "
+        "and rename (the previous checkpoint survives)",
+        labelnames=("event",),  # write | restore | rejected | crash_injected
+    )
+
+
+def warehouse_segments() -> Counter:
+    return get_registry().counter(
+        "microrank_warehouse_segments_total",
+        "Warehouse segments sealed, by tier (warm = one window per "
+        "segment at flush, cold = compacted multi-window)",
+        labelnames=("tier",),
+    )
+
+
+def warehouse_windows() -> Counter:
+    return get_registry().counter(
+        "microrank_warehouse_windows_total",
+        "Window records sealed into warehouse segments, by tier "
+        "(a window counts once per tier it transits)",
+        labelnames=("tier",),
+    )
+
+
+def warehouse_spans() -> Counter:
+    return get_registry().counter(
+        "microrank_warehouse_spans_total",
+        "Span rows sealed into WARM warehouse segments (the at-rest "
+        "copy of every admitted span; compaction does not re-count)",
+    )
+
+
+def warehouse_bytes() -> Counter:
+    return get_registry().counter(
+        "microrank_warehouse_bytes_total",
+        "Compressed segment bytes written, by tier — against "
+        "ingest-side volume this is the at-rest compression observable",
+        labelnames=("tier",),
+    )
+
+
+def warehouse_replays() -> Counter:
+    return get_registry().counter(
+        "microrank_warehouse_replays_total",
+        "Time-travel replay verdicts per stored window: match = the "
+        "re-ranked top-k tie-aware-agrees with the stored verdict",
+        labelnames=("verdict",),  # match | mismatch
+    )
+
+
 def ensure_catalog() -> None:
     """Register this package's whole metric set in the current registry
     (no samples added), so a scrape or ``cli stats`` shows every metric
@@ -458,6 +553,9 @@ def ensure_catalog() -> None:
         serve_last_batch_gauge, serve_degraded, serve_stage_seconds,
         compile_cache_events, sched_dispatches, sched_parked, sched_expired,
         sched_throttled, sched_wait_seconds, warm_shapes,
+        retry_attempts, retry_exhausted, breaker_state, fault_injections,
+        checkpoint_events, warehouse_segments, warehouse_windows,
+        warehouse_spans, warehouse_bytes, warehouse_replays,
     ):
         ctor()
 
@@ -701,3 +799,35 @@ def record_sched_wait(lane: str, seconds: float) -> None:
 
 def record_warm_shape(outcome: str) -> None:
     warm_shapes().inc(outcome=outcome)
+
+
+def record_retry(seam: str) -> None:
+    retry_attempts().inc(seam=seam)
+
+
+def record_retry_exhausted(seam: str) -> None:
+    retry_exhausted().inc(seam=seam)
+
+
+def record_breaker_state(seam: str, state: float) -> None:
+    breaker_state().set(float(state), seam=seam)
+
+
+def record_fault_injection(seam: str, kind: str) -> None:
+    fault_injections().inc(seam=seam, kind=kind)
+
+
+def record_checkpoint(event: str) -> None:
+    checkpoint_events().inc(event=event)
+
+
+def record_warehouse_seal(tier: str, windows: int, spans: int, nbytes: int) -> None:
+    warehouse_segments().inc(tier=tier)
+    warehouse_windows().inc(float(windows), tier=tier)
+    if tier == "warm":
+        warehouse_spans().inc(float(spans))
+    warehouse_bytes().inc(float(nbytes), tier=tier)
+
+
+def record_warehouse_replay(verdict: str, n: int = 1) -> None:
+    warehouse_replays().inc(float(n), verdict=verdict)

@@ -14,8 +14,13 @@
 Span ids, trace ids and parent links are made as the JAX package makes
 them, so one run gives the same ring in both packages, times apart. The
 flight recorder (``obs.flight``) dumps the ring when a stream incident
-opens. Not ported: the chaos hooks (``_chaos_stage``, ``_maybe_inject``;
-ROADMAP.md, port queue item 11).
+opens.
+
+Chaos hooks: a ``stage:<name>`` fault spec (``chaos.faults``) fires at
+span entry, inside the span's timed region; the legacy
+``ObsConfig.inject_stage_sleep_ms`` sleeps inside every
+``inject_every``-th span named ``inject_stage``, at its exit, and is
+recorded through the same surface.
 """
 
 from __future__ import annotations
@@ -66,13 +71,18 @@ class SpanTracer:
     Thread-safe (the ring append holds one lock); ``enabled=False``
     makes every call a near no-op, so the tracer stays wired."""
 
-    def __init__(self, capacity: int = 8192, enabled: bool = True):
+    def __init__(self, capacity: int = 8192, enabled: bool = True, inject_stage: str = "",
+                 inject_sleep_ms: float = 0.0, inject_every: int = 1):
         self.enabled = bool(enabled)
         self.capacity = max(16, int(capacity))
         self._ring: "deque[Span]" = deque(maxlen=self.capacity)
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self.recorded = 0  # lifetime spans (the ring may hold fewer)
+        self.inject_stage = inject_stage
+        self.inject_sleep_ms = float(inject_sleep_ms)
+        self.inject_every = max(1, int(inject_every))
+        self._inject_seen = 0
 
     def new_trace(self, trace_id: str) -> SpanContext:
         """Root context for one unit of pipeline work. Children link to
@@ -115,8 +125,12 @@ class SpanTracer:
         start_us = int(time.time() * 1e6)
         p0 = time.perf_counter()
         try:
+            # A ``stage:<name>`` latency spec sleeps here, inside the
+            # span's timed region, as a slow stage would.
+            self._chaos_stage(name)
             yield own
         finally:
+            self._maybe_inject(name)
             dur_us = int((time.perf_counter() - p0) * 1e6)
             _CTX.reset(token)
             self._record(Span(
@@ -149,6 +163,31 @@ class SpanTracer:
             dur_us=max(0, int(dur_us)),
             attrs=dict(attrs) if attrs else {},
         ))
+
+    def _chaos_stage(self, name: str) -> None:
+        """The fault plan's stage seam; no plan installed: one global
+        read."""
+        from ..chaos.faults import get_fault_plan, maybe_inject
+
+        if get_fault_plan() is None:
+            return
+        maybe_inject(f"stage:{name}")
+
+    def _maybe_inject(self, name: str) -> None:
+        """The legacy knob: sleep inside every ``inject_every``-th span
+        named ``inject_stage`` (inside the timed region), recorded as a
+        ``latency`` injection at ``stage:<name>``."""
+        if self.inject_sleep_ms <= 0 or name != self.inject_stage:
+            return
+        with self._lock:
+            self._inject_seen += 1
+            fire = (self._inject_seen - 1) % self.inject_every == 0
+        if fire:
+            from ..chaos.faults import record_injection
+
+            record_injection(f"stage:{self.inject_stage}", "latency",
+                             value=self.inject_sleep_ms)
+            time.sleep(self.inject_sleep_ms / 1e3)
 
     def _record(self, span: Span) -> None:
         with self._lock:
@@ -198,6 +237,11 @@ def set_tracer(tracer: Optional[SpanTracer]) -> None:
 def configure_tracer(obs_config) -> SpanTracer:
     """Install a fresh tracer from an ObsConfig (``TableRCA.run`` calls
     this at its start), so one ring never mixes two runs' spans."""
-    tracer = SpanTracer(capacity=obs_config.span_ring, enabled=obs_config.spans)
+    tracer = SpanTracer(
+        capacity=obs_config.span_ring, enabled=obs_config.spans,
+        inject_stage=getattr(obs_config, "inject_stage", ""),
+        inject_sleep_ms=getattr(obs_config, "inject_stage_sleep_ms", 0.0),
+        inject_every=getattr(obs_config, "inject_every", 1),
+    )
     set_tracer(tracer)
     return tracer

@@ -106,6 +106,26 @@ class TailTracker:
         follow_parse_failures().inc()
         return "exit" if self._idle_tick() == "exit" else "retry"
 
+    def restore_cursor(self, offset: int, size: int, header: bytes) -> None:
+        """Seed the incremental cursor from a checkpoint (the stream
+        tail's ``--resume``): the next poll reads only bytes appended
+        past ``offset``. The caller has checked the file was not rotated
+        since (the source's rotation signature)."""
+        self.parsed_offset = int(offset)
+        self.last_size = int(size)
+        self._header = header
+
+    def force_rotation(self) -> None:
+        """Reset the cursor as an observed size shrink would (the chaos
+        ``source_rotation`` seam): a full re-read next poll."""
+        from ..obs.metrics import follow_rotations
+
+        follow_rotations().inc()
+        self.last_size = -1
+        self.rotated = True
+        self.parsed_offset = 0
+        self._header = None
+
     def parsed(self, size: int, offset: Optional[int] = None) -> None:
         """One successful parse at ``size`` bytes resets the idle run;
         ``offset`` (incremental mode) advances the byte cursor to the

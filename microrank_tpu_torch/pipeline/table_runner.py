@@ -88,6 +88,7 @@ from ..obs.metrics import (
     stage_seconds,
 )
 from ..obs.spans import configure_tracer, get_tracer
+from ..utils.guards import authorize_device_thread, claim_device_owner
 from ..parallel import stack_window_graphs
 from ..rank_backends.blob import stage_rank_window, stage_rank_windows_batched
 from ..rank_backends.torch_cuda import (
@@ -414,6 +415,7 @@ class TableRCA:
         if self.baseline is None:
             raise RuntimeError("call fit_baseline() before run()")
         tracer = configure_tracer(cfg.obs)  # a fresh span ring per run
+        claim_device_owner("table-runner")  # the stage worker is its delegate
         if cfg.ingest.enabled:
             # Rejected rows land in the dead-letter store beside the
             # results (or in IngestConfig.quarantine_dir).
@@ -499,12 +501,15 @@ class TableRCA:
             # counters, the pattern pair's partials) must never be in
             # flight on two streams at once, and every tensor of a
             # window is allocated, used and freed on that stream.
-            init, initargs = None, ()
-            if self.device.type == "cuda":
-                init, initargs = torch.cuda.set_stream, (
-                    torch.cuda.Stream(self.device),
-                )
-            stage_pool = ThreadPoolExecutor(1, "mr-stage", init, initargs)
+            stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+            def init():
+                # The owner's delegate (utils.guards), on its own stream.
+                authorize_device_thread()
+                if stream is not None:
+                    torch.cuda.set_stream(stream)
+
+            stage_pool = ThreadPoolExecutor(1, "mr-stage", init)
             if not bulk and chunk_n == 1:  # bulk and groups join on the main thread
                 fetch_pool = ThreadPoolExecutor(1, "mr-fetch")
 

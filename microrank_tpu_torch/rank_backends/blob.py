@@ -231,9 +231,13 @@ def stage_rank_window(
     explained program instead (K15, ``rank_window_explained_core``, as
     JAX's ``blob.stage_rank_window`` dispatches it): its ten outputs, the
     residual trace always among them; it has no check word, so
-    ``checked`` is not read. One window."""
+    ``checked`` is not read. One window.
+
+    Asserts the calling thread owns the card (``utils.guards``)."""
+    from ..utils.guards import assert_device_owner
     from . import torch_cuda
 
+    assert_device_owner("blob.stage_rank_window")
     counts = torch_cuda.host_counts(graph, kernel)
     dgraph, staged = stage_graph(graph, device, blob)
     dgraph = torch_cuda.device_subset(dgraph, kernel, pagerank_cfg.packed_block_bytes, counts)

@@ -24,8 +24,11 @@ counts it. A policy may name any kernel the JAX package runs (csr,
 coo, dense and dense_bf16 too); one that names an unknown kernel raises
 ``ValueError``: no other kernel stands in for it silently.
 
-Not ported: ``select_policy`` / ``save_policy`` and the scenario matrix
-(``cli scenarios``), ROADMAP.md 'Port queue' item 11.
+The write side: :func:`select_policy` distills scored scenario
+records (the warehouse's retro lane, ``cli scenarios
+--from-warehouse``) into the document and :func:`save_policy` persists
+it. The synthetic scenario matrix is not ported (ROADMAP.md, port queue
+item 11's scenarios remainder).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import logging
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..config import KERNELS, MicroRankConfig, RuntimeConfig, SpectrumConfig
 from ..obs.metrics import record_policy_event
@@ -325,3 +328,56 @@ def apply_tuned_policy(
     pandas lanes profile a span frame instead), then resolve."""
     profile = profile_from_counts(*counts) if counts is not None else None
     return resolve_policy(config, profile, lane, cache_dir=cache_dir)
+
+
+# --------------------------------------------------------------- selection
+
+
+def save_policy(cache_dir, data: dict) -> Path:
+    """Atomic, durable write of ``policy.json`` into ``cache_dir``."""
+    from ..utils.atomic import atomic_write_json
+
+    return atomic_write_json(policy_path(cache_dir), data)
+
+
+def select_policy(scenario_records: List[dict], timings: Optional[Dict[str, dict]] = None,
+                  matrix_seed: Optional[int] = None) -> dict:
+    """Scored scenario records -> the persisted policy document (JAX's
+    ``select_policy``): per workload profile, the formula with the best
+    mean MAP over that profile's records wins (ties: top-1 exact rate,
+    then mean MRR, then name); kernel and pad policy come from a timing
+    sweep of that profile when one ran, else stay at the defaults."""
+    by_profile: Dict[str, List[dict]] = {}
+    for rec in scenario_records:
+        prof = rec.get("profile")
+        formulas = rec.get("formulas") or {}
+        if prof and formulas:
+            by_profile.setdefault(prof, []).append(formulas)
+    profiles: Dict[str, dict] = {}
+    for prof, recs in sorted(by_profile.items()):
+        scored = []
+        for m in sorted({m for r in recs for m in r}):
+            rows = [r[m] for r in recs if m in r]
+
+            def mean(key, rows=rows):
+                return sum(float(r.get(key) or 0.0) for r in rows) / max(len(rows), 1)
+
+            scored.append((-mean("map"), -mean("top1_rate"), -mean("mrr"), m))
+        scored.sort()
+        best = scored[0]
+        entry = {
+            "method": best[3],
+            "kernel": TUNED_DEFAULTS["kernel"],
+            "pad_policy": TUNED_DEFAULTS["pad_policy"],
+            "evidence": {"scenarios": len(recs), "map": round(-best[0], 4),
+                         "top1_rate": round(-best[1], 4), "mrr": round(-best[2], 4)},
+        }
+        timing = (timings or {}).get(prof)
+        if timing:
+            entry["kernel"] = timing["kernel"]
+            entry["pad_policy"] = timing["pad_policy"]
+            entry["evidence"]["rank_ms"] = timing.get("rank_ms")
+            entry["evidence"]["timed_candidates"] = timing.get("candidates")
+        profiles[prof] = entry
+    return {"version": POLICY_VERSION, "profile_schema": PROFILE_SCHEMA,
+            "matrix_seed": matrix_seed, "profiles": profiles}

@@ -1,7 +1,7 @@
 """The device scheduler (counterpart of ``microrank_tpu/sched/``): one
-parked-window store for every lane (serve, stream; backfill's lane is
-named for the warehouse slice) and the consumer thread that owns the
-card when lanes are co-deployed."""
+parked-window store for every lane (serve, stream, and the warehouse's
+backfill replay) and the consumer thread that owns the card when lanes
+are co-deployed."""
 
 from .scheduler import DeviceScheduler
 from .store import (

@@ -8,8 +8,12 @@ a busy service shares the staging and the launches across tenants. A
 bucket dispatches when it holds ``max_batch_windows`` requests or when
 its oldest has waited ``max_wait_ms``.
 
-Degradation: a failed device dispatch is retried once as a batch; if
-the retry fails too, the flight recorder dumps (``degraded``) and, off
+Degradation: a failed device dispatch is retried as a batch under
+JAX's ``DISPATCH_POLICY`` (``chaos.retry``: two attempts, jittered
+backoff, the ``serve_dispatch`` breaker; the ``serve_dispatch`` chaos
+seam and the legacy ``inject_dispatch_failures`` knob fire before each
+attempt); if the retry fails too (or the breaker is open), the flight
+recorder dumps (``degraded``) and, off
 the card with ``fallback`` on, every member is ranked on the
 ``numpy_ref`` oracle (the host, float64) and answered with ``degraded:
 true`` and ``kernel: "numpy_ref"``, counted in
@@ -41,9 +45,6 @@ from .protocol import DeadlineExceeded, RankRequest
 
 log = logging.getLogger("microrank_tpu_torch.serve")
 
-# Device dispatch attempts before a batch degrades (JAX's
-# DISPATCH_POLICY.max_attempts).
-DISPATCH_ATTEMPTS = 2
 
 
 @dataclass
@@ -242,26 +243,25 @@ class MicroBatcher:
 
     def dispatch(self, items: List[PendingWindow],
                  next_items: Optional[List[PendingWindow]] = None) -> None:
-        """Rank one coalesced batch; resolves every member's future. Up to
-        ``DISPATCH_ATTEMPTS`` device attempts; past them the batch
-        degrades (``_degrade``). (The startup warmup dispatches through
-        the router itself, ``dispatch.warmup``, and raises instead.)"""
+        """Rank one coalesced batch; resolves every member's future. The
+        device attempts run under ``DISPATCH_POLICY``; past them (or with
+        the breaker open) the batch degrades (``_degrade``). (The startup
+        warmup dispatches through the router itself, ``dispatch.warmup``,
+        and raises instead.)"""
+        from ..chaos import DISPATCH_POLICY, retry_call
+
         items = self._expire_deadlined(items)
         if not items:
             return
         t0 = time.monotonic()
-        error = None
-        for attempt in range(DISPATCH_ATTEMPTS):
-            try:
-                outs, route_info = self._device_dispatch(items, next_items)
-                break
-            except Exception as e:  # noqa: BLE001 - retried, then degraded loudly
-                error = e
-                if attempt + 1 < DISPATCH_ATTEMPTS:
-                    log.warning("batch dispatch failed (%d windows): %s; retrying",
-                                len(items), e)
-        else:
-            self._degrade(items, error)
+        try:
+            outs, route_info = retry_call(
+                "serve_dispatch", lambda: self._device_dispatch(items, next_items),
+                policy=DISPATCH_POLICY,
+                on_retry=lambda attempt, e, delay: log.warning(
+                    "batch dispatch failed (%d windows): %s; retrying", len(items), e))
+        except Exception as final:  # noqa: BLE001 - degraded loudly
+            self._degrade(items, final)
             return
         batch_ms = (time.monotonic() - t0) * 1e3
         self._assign(items, outs, batch_ms, route_info)
@@ -347,8 +347,14 @@ class MicroBatcher:
 
     def _device_dispatch(self, items: List[PendingWindow],
                          next_items: Optional[List[PendingWindow]] = None):
+        # The ``serve_dispatch`` chaos seam, and the legacy knob recorded
+        # through the same surface.
+        from ..chaos import maybe_inject, record_injection
+
+        maybe_inject("serve_dispatch")
         if self._inject_failures > 0:
             self._inject_failures -= 1
+            record_injection("serve_dispatch", "fail")
             raise RuntimeError(
                 "injected device dispatch failure (ServeConfig.inject_dispatch_failures)")
         from ..obs.spans import get_tracer
@@ -407,13 +413,13 @@ class MicroBatcher:
         if self.flight is not None:
             self.flight.dump("degraded")
         if not self.fallback():
-            log.error("batch dispatch failed %d times (%s); failing %d requests on %s",
-                      DISPATCH_ATTEMPTS, error, len(items), self.router.device)
+            log.error("batch dispatch failed (%s); failing %d requests on %s", error,
+                      len(items), self.router.device)
             for pw in items:
                 pw.finish(error=error)
             return
-        log.error("batch dispatch failed %d times (%s); degrading %d windows to numpy_ref "
-                  "on the host", DISPATCH_ATTEMPTS, error, len(items))
+        log.error("batch dispatch failed (%s); degrading %d windows to numpy_ref on the host",
+                  error, len(items))
         from ..obs.metrics import record_serve_batch
         from ..rank_backends import NumpyRefBackend
 

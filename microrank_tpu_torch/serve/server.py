@@ -176,6 +176,7 @@ class ServeService:
         self.log.info("staged dataset %r: %d spans", name, table.n_spans)
 
     def start(self) -> None:
+        from ..chaos import configure_chaos, set_chaos_journal
         from ..ingest import configure_quarantine
         from ..obs.metrics import ensure_catalog
         from ..obs.spans import configure_tracer
@@ -185,6 +186,8 @@ class ServeService:
             raise RuntimeError("call fit_baseline() before start()")
         ensure_catalog()
         configure_tracer(self.config.obs)  # a fresh span ring per service
+        configure_chaos(self.config)       # the fault plan armed, or cleared
+        set_chaos_journal(self.journal)    # fault_injected -> the journal
         # Dead-letter store beside the service's outputs.
         configure_quarantine(self.config.ingest, default_dir=self.out_dir)
         # Warmup runs on this thread before the scheduler exists (which

@@ -53,15 +53,38 @@ published to the store ``/explainz`` serves, mirrored into the journal,
 and its path rides the ``incident_open`` event (JAX's
 ``engine.py:1310-1369``, :1408-1418).
 
-Not ported here (ROADMAP.md, port queue item 11): JAX's crash-only
-checkpoint and ``--resume``, its chaos seams and retry policies, the
-trace warehouse, the source-boundary pre-admission (the C++ loader
+Crash-only (``chaos/``): the engine's host state (the baseline's
+moments and P^2 markers, the incident tracker, the windower's watermark
+and open buffers, the source cursor) checkpoints atomically to
+``out_dir/state.ckpt`` at every drained window boundary and at the
+drain; ``resume=True`` (``cli stream --resume``) restores it, so a
+restarted run opens no incident twice and loses no window. A rejected
+checkpoint is rejected whole: the engine cold-starts. No device tensor
+rides the checkpoint: a resumed warm start starts its first window cold.
+
+Faults (``--chaos PLAN.json``): the build runs under ``BUILD_POLICY``
+on the pool (the ``build`` seam inside), every dispatch under
+``STREAM_DISPATCH_POLICY`` (the ``dispatch`` seam before the program,
+the ``fetch`` seam after it: a ``nan`` there fails the attempt). A
+retry runs on the same device; a window whose attempts run out (or
+whose breaker is open) is skipped, counted and logged at ERROR, never
+ranked elsewhere.
+
+Warehouse (``warehouse/``, ``WarehouseConfig.enabled`` with an
+``out_dir``): every finalized window (its admitted table, its host graph
+as a rank blob when ranked, its detection context) goes to the hot
+tier before the baseline absorbs it; the checkpoint flushes it to warm
+segments first, and skips its own write when the seal crashed, so a
+resume re-seals the same windows under the same names.
+
+Not ported here: the source-boundary pre-admission (the C++ loader
 never yields a row without a parsed time), and the incremental delta
-build.
+build (ROADMAP.md, port queue item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from collections import deque
@@ -80,6 +103,10 @@ from .pool import BuildWorkerPool
 from .window import ClosedWindow, StreamWindower
 
 INCIDENT_LOG_NAME = "incidents.jsonl"
+# The run's append-only result logs: a checkpoint records their sizes and
+# a resume cuts them back to those, so the windows replayed after a kill
+# are written once (the journal keeps both processes' records).
+OUTPUT_LOGS = ("windows.jsonl", "result.csv", INCIDENT_LOG_NAME)
 # A window whose admitted share of rows falls below this is refused
 # whole (JAX's IngestConfig.min_admission_ratio default).
 MIN_ADMISSION_RATIO = 0.5
@@ -137,7 +164,8 @@ class StreamEngine:
     """Drive one span source through windowing, gated RCA, incidents."""
 
     def __init__(self, config: MicroRankConfig, source, out_dir=None, normal_table=None,
-                 incident_sinks: Optional[List] = None, device=None, sched=None):
+                 incident_sinks: Optional[List] = None, device=None, sched=None,
+                 resume: bool = False):
         from ..dispatch import DispatchRouter
         from ..scenarios.policy import apply_tuned_policy
         from ..utils.device import resolve_device
@@ -149,13 +177,9 @@ class StreamEngine:
         self.source = source
         self.device = resolve_device(config.runtime.device if device is None else device)
         self.out_dir = Path(out_dir) if out_dir is not None else None
-        self.windower = StreamWindower(
-            width_us=int(sc.window_minutes * 60e6),
-            slide_us=None if sc.slide_minutes is None else int(sc.slide_minutes * 60e6),
-            lateness_us=int(sc.allowed_lateness_seconds * 1e6),
-        )
         if normal_table is None:
             normal_table = getattr(source, "normal", None)
+        self._normal_table = normal_table   # the cold reset re-seeds from it
         # Tuned-policy resolution (scenarios.policy), profiled by the
         # seed table's counts as the table lane profiles its normal dump.
         counts = None
@@ -164,11 +188,8 @@ class StreamEngine:
         self.config, self.policy_resolution = apply_tuned_policy(config, lane="stream",
                                                                  counts=counts)
         config = self.config
-        self.baseline = OnlineBaseline(decay=sc.baseline_decay,
-                                       slo_stat=config.detector.slo_stat,
-                                       min_windows=sc.min_healthy_windows)
-        if normal_table is not None:
-            self.baseline.seed(normal_table)
+        self.windower = self._make_windower()
+        self.baseline = self._make_baseline()
         self.pool = BuildWorkerPool(sc.build_workers, name="mr-stream-build")
         self.journal = None
         self.sink = None
@@ -221,6 +242,178 @@ class StreamEngine:
             from ..obs.flight import FlightRecorder
 
             self.flight = FlightRecorder(self.out_dir, config.obs, journal=self.journal)
+        # The trace warehouse: fed at finalize, flushed at the drained
+        # boundary that writes the checkpoint, segment data first.
+        self.warehouse = None
+        if config.warehouse.enabled and self.out_dir is not None:
+            from ..warehouse import TraceWarehouse
+
+            self.warehouse = TraceWarehouse(self.out_dir, config.warehouse,
+                                            truth=getattr(source, "fault_pod_ops", None),
+                                            journal=self.journal)
+        from ..chaos import CHECKPOINT_NAME
+
+        self._ckpt_path = (self.out_dir / CHECKPOINT_NAME
+                           if self.out_dir is not None and sc.checkpoint else None)
+        # True while a coalesced group finalizes: its later windows left
+        # the windower and the queue already, so the boundary is not
+        # drained until the last one is finalized (JAX checkpoints there
+        # and a resume loses the rest of the group).
+        self._holding = False
+        self.resumed = False
+        if resume:
+            self._restore_checkpoint()
+
+    def _make_windower(self) -> StreamWindower:
+        sc = self.config.stream
+        return StreamWindower(
+            width_us=int(sc.window_minutes * 60e6),
+            slide_us=None if sc.slide_minutes is None else int(sc.slide_minutes * 60e6),
+            lateness_us=int(sc.allowed_lateness_seconds * 1e6),
+        )
+
+    def _make_baseline(self) -> OnlineBaseline:
+        sc = self.config.stream
+        baseline = OnlineBaseline(decay=sc.baseline_decay,
+                                  slo_stat=self.config.detector.slo_stat,
+                                  min_windows=sc.min_healthy_windows)
+        if self._normal_table is not None:
+            baseline.seed(self._normal_table)
+        return baseline
+
+    # ------------------------------------------------------ durability
+    def _restore_checkpoint(self) -> None:
+        """``resume``: load and verify state.ckpt and overwrite the fresh
+        components with the killed run's state. Any defect (a corrupt
+        file, a version or checksum mismatch, another window geometry or
+        SLO statistic, a cursor of another source) rejects the whole
+        checkpoint: every component is rebuilt cold (``_cold_reset``)."""
+        from ..chaos import CheckpointError, load_checkpoint
+        from ..obs.metrics import record_checkpoint
+
+        if self._ckpt_path is None or not self._ckpt_path.exists():
+            if self._ckpt_path is not None:
+                log.info("--resume: no checkpoint at %s; starting fresh", self._ckpt_path)
+            return
+        try:
+            payload = load_checkpoint(self._ckpt_path)
+            self.baseline.restore(payload["baseline"])
+            self.tracker.restore(payload["tracker"])
+            self.windower.restore(payload["windower"])
+            src_state = payload.get("source")
+            if src_state is not None and hasattr(self.source, "restore_state"):
+                self.source.restore_state(src_state)
+            for k, v in payload.get("summary", {}).items():
+                if hasattr(self.summary, k) and k != "results":
+                    setattr(self.summary, k, v)
+            if self.warehouse is not None:
+                self.warehouse.restore_cursor(payload.get("warehouse"))
+            self._truncate_outputs(payload.get("outputs"))
+        except (CheckpointError, KeyError, TypeError, ValueError) as e:
+            record_checkpoint("rejected")
+            self._cold_reset()
+            log.warning("--resume: checkpoint rejected (%s); cold start", e)
+            return
+        self.resumed = True
+        record_checkpoint("restore")
+        log.info("resumed from %s: %d windows done, %d open incident(s), watermark at window "
+                 "%d", self._ckpt_path, self.summary.windows,
+                 len(self.tracker.open_incidents()), self.windower._next)
+
+    def _output_sizes(self) -> dict:
+        sizes = {}
+        for name in OUTPUT_LOGS:
+            path = self.out_dir / name
+            sizes[name] = path.stat().st_size if path.exists() else 0
+        return sizes
+
+    def _truncate_outputs(self, sizes) -> None:
+        """Cut the result logs back to their checkpointed sizes: the
+        lines a killed run wrote past its last checkpoint belong to the
+        windows this run replays (an external sink, stdout or a webhook,
+        saw them once already: at least once there)."""
+        if not sizes or self.out_dir is None:
+            return
+        for name, size in sizes.items():
+            if name not in OUTPUT_LOGS:
+                continue
+            path = self.out_dir / name
+            if not path.exists() or path.stat().st_size <= int(size):
+                continue
+            if int(size) == 0:
+                path.unlink()   # not there at the checkpoint: its writer starts it anew
+            else:
+                with open(path, "r+b") as f:
+                    f.truncate(int(size))
+            log.info("--resume: %s cut back to its checkpointed %d bytes", name, int(size))
+
+    def _cold_reset(self) -> None:
+        """Discard every partly restored component: a fresh windower and
+        (re-seeded) baseline, the lifecycle and the source cursor back to
+        zero, the warehouse's hot tier empty."""
+        self.windower = self._make_windower()
+        self.baseline = self._make_baseline()
+        self.tracker.reset()
+        reset_cursor = getattr(self.source, "reset_cursor", None)
+        if callable(reset_cursor):
+            reset_cursor()
+        if self.warehouse is not None:
+            self.warehouse.reset_hot()
+        self.summary = StreamSummary()
+
+    def _checkpoint(self) -> None:
+        """Write state.ckpt, only at a drained boundary (no pending
+        ranks: every window the watermark sealed is finalized). The
+        warehouse flushes first; if its seal crashed, the checkpoint is
+        skipped too, so a resume replays those windows and re-seals them
+        under the same names."""
+        if self._pending or self._holding:
+            return
+        from ..chaos import InjectedFault, save_checkpoint
+        from ..obs.metrics import record_checkpoint
+
+        if self.warehouse is not None:
+            try:
+                self.warehouse.flush()
+            except InjectedFault:
+                record_checkpoint("crash_injected")
+                log.warning("chaos: warehouse seal crashed between segment flush and "
+                            "manifest; checkpoint skipped: the previous one stands and a "
+                            "resume re-seals")
+                return
+            except OSError as e:
+                log.warning("warehouse flush failed (%s); checkpoint skipped so the hot "
+                            "windows stay replayable", e)
+                return
+        if self._ckpt_path is None:
+            return
+        t0 = time.perf_counter()
+        ckpt_fn = getattr(self.source, "checkpoint_state", None)
+        payload = {
+            "baseline": self.baseline.to_state(),
+            "tracker": self.tracker.to_state(),
+            "windower": self.windower.to_state(),
+            "source": ckpt_fn() if callable(ckpt_fn) else None,
+            "summary": {k: getattr(self.summary, k) for k in (
+                "windows", "ranked", "clean", "empty", "skipped", "warmup", "spans",
+                "dispatches", "late_spans", "incidents_opened", "incidents_resolved")},
+        }
+        if self.warehouse is not None:
+            payload["warehouse"] = self.warehouse.cursor_state()
+        payload["outputs"] = self._output_sizes()
+        try:
+            save_checkpoint(self._ckpt_path, payload)
+            record_checkpoint("write")
+        except InjectedFault:
+            # Killed between tmp and rename: the previous checkpoint stands.
+            record_checkpoint("crash_injected")
+            log.warning("chaos: checkpoint write crashed between tmp and rename; previous "
+                        "checkpoint stands")
+        except OSError as e:
+            log.warning("checkpoint write failed: %s", e)
+        from ..obs.metrics import stage_seconds
+
+        stage_seconds().observe(time.perf_counter() - t0, stage="checkpoint")
 
     def queue_depth(self) -> int:
         return len(self._pending)
@@ -236,14 +429,16 @@ class StreamEngine:
             stop()
 
     def run(self) -> StreamSummary:
+        from ..chaos import configure_chaos, set_chaos_journal
         from ..ingest import configure_quarantine
         from ..obs.metrics import ensure_catalog
         from ..obs.spans import configure_tracer
-
         from ..utils.guards import claim_device_owner
 
         ensure_catalog()
         configure_tracer(self.config.obs)  # a fresh span ring per run
+        configure_chaos(self.config)       # the fault plan armed, or cleared
+        set_chaos_journal(self.journal)    # fault_injected -> the journal
         configure_quarantine(self.config.ingest, default_dir=self.out_dir)
         if self.sched is None:
             claim_device_owner("stream-engine")
@@ -255,23 +450,27 @@ class StreamEngine:
                 pipeline="stream", kernel=self.config.runtime.kernel,
                 pad_policy=self.config.runtime.pad_policy, window_minutes=sc.window_minutes,
                 slide_minutes=sc.slide_minutes, lateness_seconds=sc.allowed_lateness_seconds,
-                seeded=self.baseline.seeded, resumed=False,
+                seeded=self.baseline.seeded, resumed=self.resumed,
             )
             self.journal.emit("policy", **self.policy_resolution.journal())
         try:
             done = False
             for batch in self.source:
                 if self._stop_requested:
+                    done = True
                     break
-                for w in self.windower.add(batch):
+                self.windower.push(batch)
+                # Popped one at a time: a stop leaves the closed windows it
+                # did not process in the windower (and the checkpoint).
+                for w in iter(self.windower.pop_closed, None):
                     self._process(w)
-                    if self._max_reached():
+                    if self._max_reached() or self._stop_requested:
                         done = True
                         break
                 if done:
                     break
             if not done:
-                for w in self.windower.flush():
+                for w in iter(self.windower.pop_flushed, None):
                     self._process(w)
                     if self._max_reached():
                         break
@@ -280,6 +479,12 @@ class StreamEngine:
             self.pool.shutdown()
             self._record_manifest()
             self.summary.late_spans = self.windower.dropped_late
+            # The drain's (or the clean end's) durable state: a resume
+            # continues from here. Pending ranks left by an exception
+            # make it a no-op: the last boundary's checkpoint stands.
+            self._checkpoint()
+            if self._stop_requested and self.journal is not None:
+                self.journal.emit("sigterm_drain", resumable=True)
             self._flush_webhooks()
             if self.journal is not None:
                 elapsed = max(1e-9, time.monotonic() - run_t0)
@@ -291,6 +496,7 @@ class StreamEngine:
                     incidents_opened=self.summary.incidents_opened,
                     incidents_resolved=self.summary.incidents_resolved,
                 )
+            set_chaos_journal(None)
             if self.out_dir is not None and self.config.runtime.telemetry:
                 from ..obs.registry import get_registry
 
@@ -458,16 +664,27 @@ class StreamEngine:
         return bool((rt.warm_start or rt.fused_pair) and not rt.device_checks)
 
     def _prepare(self, table, mask, nrm, abn, rng):
-        """The build-pool unit: the C++ build of the window (with the
+        """The build-pool unit under ``BUILD_POLICY``: a build failure
+        (the ``build`` seam's too) retries on the worker before it can
+        skip the window."""
+        from ..chaos import BUILD_POLICY, retry_call
+
+        return retry_call("build", lambda: self._prepare_impl(table, mask, nrm, abn, rng),
+                          policy=BUILD_POLICY)
+
+    def _prepare_impl(self, table, mask, nrm, abn, rng):
+        """One build attempt: the C++ build of the window (with the
         column identity when a warm program maps its state or an
         incident's bundle names traces), the kernel resolved, the fields
         it never reads stripped (``graph.table_ops.prepare_window_graph``).
         Returns (host graph, op names, kernel, ExplainContext or None,
         (dedup ratio, build ms))."""
+        from ..chaos import maybe_inject
         from ..graph.build import kind_dedup_ratio
         from ..graph.table_ops import prepare_window_graph
         from ..obs.spans import get_tracer
 
+        maybe_inject("build")
         t0 = time.perf_counter()
         columns = self._warm() or self.config.explain.enabled
         with get_tracer().span("build", service="pipeline"):
@@ -508,15 +725,30 @@ class StreamEngine:
             else:
                 self._dispatch_group(group, kernel)
         except Exception as e:  # noqa: BLE001 - the same containment rule
-            for p, *_ in group:
-                log.error("window %s: rank failed: %s", p.result.start, e)
-                p.result.skipped_reason = f"rank_failed: {e}"
-                p.result.ranking = []
-                self._finalize(p.result, "skipped", trace=p.trace)
+            # Exhausted retries or an open breaker: skipped, counted and
+            # logged; never ranked on another path.
+            with self._hold_checkpoint():
+                for p, *_ in group:
+                    log.error("window %s: rank failed: %s", p.result.start, e)
+                    p.result.skipped_reason = f"rank_failed: {e}"
+                    p.result.ranking = []
+                    self._finalize(p.result, "skipped", trace=p.trace)
             return
-        for p, g, names, ec, _ in group:
-            self._finalize(p.result, "ranked", table=p.table, trace=p.trace,
-                           explain_src=(g, names, p.result.kernel or kernel, ec))
+        with self._hold_checkpoint():
+            for p, g, names, ec, _ in group:
+                self._finalize(p.result, "ranked", table=p.table, trace=p.trace,
+                               explain_src=(g, names, p.result.kernel or kernel, ec))
+
+    @contextlib.contextmanager
+    def _hold_checkpoint(self):
+        """No checkpoint until a group's every window is finalized; then
+        one."""
+        self._holding = True
+        try:
+            yield
+        finally:
+            self._holding = False
+        self._checkpoint()
 
     def _coalesce_burst(self, head_graph, kernel: str):
         """Pending windows whose builds land in the head's bucket
@@ -566,6 +798,7 @@ class StreamEngine:
         """One router dispatch for a coalesced same-bucket group; the
         next pending window's staging is issued behind it when its build
         has landed."""
+        from ..chaos import STREAM_DISPATCH_POLICY, InjectedFault, maybe_inject, retry_call
         from ..obs.spans import get_tracer
 
         conv = bool(self.config.runtime.convergence_trace)
@@ -583,12 +816,22 @@ class StreamEngine:
         t0 = time.monotonic()
         first = len(group) not in self._warmed.get(kernel, ())
 
+        def _attempt():
+            # The ``dispatch`` seam before the program, the ``fetch`` seam
+            # after it (a ``nan`` fails this attempt; the retry ranks the
+            # batch again on the card).
+            maybe_inject("dispatch")
+            out = self.router.rank_batch(graphs, kernel, conv_trace=conv,
+                                         next_batch=next_batch)
+            if maybe_inject("fetch") is not None:
+                raise InjectedFault("fetch", "nan")
+            return out
+
         def _ranked():
             # The attach rides inside the thunk, so the dispatch spans land
             # on the head window's trace on whichever thread runs it.
             with get_tracer().attach(head_trace.ctx if head_trace is not None else None):
-                out = self.router.rank_batch(graphs, kernel, conv_trace=conv,
-                                             next_batch=next_batch)
+                out = retry_call("stream_dispatch", _attempt, policy=STREAM_DISPATCH_POLICY)
             if first and self._cache_probe is not None:
                 # The first dispatch at this (kernel, occupancy): did it
                 # build a kernel library or load one?
@@ -617,6 +860,7 @@ class StreamEngine:
     def _dispatch_rank(self, result, graph, op_names, kernel, trace=None) -> None:
         """One window through the checked program (K14), which has no
         stacked twin."""
+        from ..chaos import STREAM_DISPATCH_POLICY, InjectedFault, maybe_inject, retry_call
         from ..obs.spans import get_tracer
         from ..rank_backends.blob import stage_rank_window
         from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
@@ -626,16 +870,22 @@ class StreamEngine:
         conv = bool(rt.convergence_trace)
         t0 = time.monotonic()
 
+        def _attempt():
+            maybe_inject("dispatch")
+            with tracer.span("device_dispatch", service="stream", kernel=kernel, checked=True):
+                outs, staged = stage_rank_window(
+                    graph, self.config.pagerank, self.config.spectrum, kernel,
+                    self.device, rt.blob_staging, checked=True, conv_trace=conv)
+                packed = pack_rank_outputs(outs, staged, checked=True)
+            with tracer.span("result_fetch", service="stream"):
+                out = unpack_rank_outputs(packed)
+            if maybe_inject("fetch") is not None:
+                raise InjectedFault("fetch", "nan")
+            return out
+
         def _ranked():
             with tracer.attach(trace.ctx if trace is not None else None):
-                with tracer.span("device_dispatch", service="stream", kernel=kernel,
-                                 checked=True):
-                    outs, staged = stage_rank_window(
-                        graph, self.config.pagerank, self.config.spectrum, kernel,
-                        self.device, rt.blob_staging, checked=True, conv_trace=conv)
-                    packed = pack_rank_outputs(outs, staged, checked=True)
-                with tracer.span("result_fetch", service="stream"):
-                    return unpack_rank_outputs(packed)
+                return retry_call("stream_dispatch", _attempt, policy=STREAM_DISPATCH_POLICY)
 
         out = self._on_device(_ranked)
         self._count_dispatch()
@@ -651,6 +901,7 @@ class StreamEngine:
         this window's state is kept for the next. ``fused_pair``: the
         router's fused program, its graph and init one blob; else, as
         JAX's warm dispatch, the graph copied leaf by leaf."""
+        from ..chaos import STREAM_DISPATCH_POLICY, InjectedFault, maybe_inject, retry_call
         from ..obs.spans import get_tracer
         from ..rank_backends.blob import stage_rank_window_warm
         from ..rank_backends.torch_cuda import pack_rank_outputs, unpack_rank_outputs
@@ -665,17 +916,25 @@ class StreamEngine:
         t0 = time.monotonic()
         fused = bool(rt.fused_pair)
 
-        def _ranked():
-            with tracer.attach(head.trace.ctx if head.trace is not None else None):
-                if fused:
-                    return self.router.rank_fused(graph, kernel, init)[0]
+        def _attempt():
+            maybe_inject("dispatch")
+            if fused:
+                out = self.router.rank_fused(graph, kernel, init)[0]
+            else:
                 with tracer.span("device_dispatch", service="stream", kernel=kernel,
                                  warm=init is not None):
                     packed = pack_rank_outputs(*stage_rank_window_warm(
                         graph, init, self.config.pagerank, self.config.spectrum, kernel,
                         self.device, blob=False))
                 with tracer.span("result_fetch", service="stream"):
-                    return unpack_rank_outputs(packed)
+                    out = unpack_rank_outputs(packed)
+            if maybe_inject("fetch") is not None:
+                raise InjectedFault("fetch", "nan")
+            return out
+
+        def _ranked():
+            with tracer.attach(head.trace.ctx if head.trace is not None else None):
+                return retry_call("stream_dispatch", _attempt, policy=STREAM_DISPATCH_POLICY)
 
         # Warm programs seed only while an incident is open: the hot lane.
         from ..sched import LANE_INCIDENT
@@ -798,6 +1057,10 @@ class StreamEngine:
         else:
             self.baseline.thaw()
             self._warm_state = None
+        # The warehouse sees the window before the baseline absorbs it:
+        # its snapshot is the context this window's verdict came from.
+        if self.warehouse is not None:
+            self._warehouse_observe(result, outcome, table, explain_src)
         if outcome == "clean" and table is not None:
             self.baseline.update(table)   # a no-op while frozen
         self.summary.results.append(result)
@@ -809,13 +1072,29 @@ class StreamEngine:
             tracer.record_span("window", ctx=trace.ctx, start_us=trace.start_us,
                                dur_us=int((time.monotonic() - trace.perf0) * 1e6),
                                service="stream", outcome=outcome)
+        # The durable boundary: this window's effects are on disk; a no-op
+        # while ranks are pending (the burst's drain writes it).
+        self._checkpoint()
+
+    def _warehouse_observe(self, result, outcome, table, explain_src) -> None:
+        """One sealed window to the warehouse's hot tier; a storage defect
+        never stops the stream."""
+        try:
+            graph = op_names = kernel = None
+            if explain_src is not None:
+                graph, op_names, kernel, _ = explain_src
+            snapshot = self.baseline.snapshot() if self.baseline.ready else None
+            self.warehouse.observe(result, outcome, table=table, graph=graph,
+                                   op_names=op_names, kernel=kernel, snapshot=snapshot)
+        except Exception as e:  # noqa: BLE001 - the containment rule
+            log.warning("warehouse observe failed: %s", e)
 
 
 def run_stream(config: MicroRankConfig, source, out_dir=None, normal_table=None,
-               on_result=None, device=None, sched=None) -> StreamSummary:
+               on_result=None, device=None, sched=None, resume: bool = False) -> StreamSummary:
     """Build and drive a StreamEngine to completion (the CLI's entry)."""
     engine = StreamEngine(config, source, out_dir=out_dir, normal_table=normal_table,
-                          device=device, sched=sched)
+                          device=device, sched=sched, resume=resume)
     summary = engine.run()
     if on_result is not None:
         for r in summary.results:

@@ -37,20 +37,6 @@ import random
 log = logging.getLogger("microrank_tpu_torch.stream.incidents")
 
 
-# The webhook's backoff (JAX's ``chaos.retry.WEBHOOK_POLICY``): retry n
-# waits min(10, 0.25 * 2 ** (n - 1)) s times 1 + U(0, 0.5).
-WEBHOOK_BASE_DELAY_S = 0.25
-WEBHOOK_MAX_DELAY_S = 10.0
-WEBHOOK_JITTER = 0.5
-
-
-def webhook_delay(attempt: int, rng) -> float:
-    """Backoff before retry ``attempt`` (the attempt that just failed,
-    1-based)."""
-    d = min(WEBHOOK_MAX_DELAY_S, WEBHOOK_BASE_DELAY_S * (2.0 ** max(0, attempt - 1)))
-    return d * (1.0 + WEBHOOK_JITTER * rng.random())
-
-
 def ranking_fingerprint(
     ranking: Sequence[Tuple[str, float]], k: int, rtol: float = 1e-6
 ) -> FrozenSet[str]:
@@ -203,8 +189,7 @@ class WebhookIncidentSink:
     counted in ``microrank_webhook_dropped_total`` — only after
     ``max_attempts`` failed sends, or when the full queue evicts its
     oldest entry. The payload enriches the raw lifecycle event with the
-    top-k ``suspects``. (JAX's chaos seam inside each send comes with the
-    chaos slice.)
+    top-k ``suspects``. Each send passes the ``webhook`` chaos seam.
     """
 
     def __init__(
@@ -222,6 +207,9 @@ class WebhookIncidentSink:
         self.max_attempts = max(1, int(max_attempts))
         self.max_queue = max(1, int(max_queue))
         self.clock = clock
+        from ..chaos.retry import WEBHOOK_POLICY
+
+        self.policy = WEBHOOK_POLICY
         self.failures = 0   # failed POST attempts (cumulative)
         self.delivered = 0
         self.dropped = 0
@@ -248,6 +236,10 @@ class WebhookIncidentSink:
         return len(self._queue)
 
     def _attempt(self, event: dict, attempts: int) -> None:
+        from ..chaos.retry import record_attempt
+
+        if attempts > 0:
+            record_attempt("webhook")
         if self._send(event):
             self.delivered += 1
             return
@@ -256,7 +248,7 @@ class WebhookIncidentSink:
         if attempts >= self.max_attempts:
             self._drop(event, f"{attempts} failed attempts")
             return
-        due = self.clock() + webhook_delay(attempts, random)
+        due = self.clock() + self.policy.delay(attempts, random)
         if len(self._queue) >= self.max_queue:
             oldest = self._queue.popleft()
             self._drop(oldest[0], "retry queue full")
@@ -275,6 +267,8 @@ class WebhookIncidentSink:
     def _send(self, event: dict) -> bool:
         import urllib.request
 
+        from ..chaos.faults import maybe_inject
+
         req = urllib.request.Request(
             self.url,
             data=json.dumps(event).encode(),
@@ -282,6 +276,9 @@ class WebhookIncidentSink:
             method="POST",
         )
         try:
+            # Chaos seam: hang sleeps (bounded by the plan's value),
+            # http_5xx / fail raise; both exercise the retry queue.
+            maybe_inject("webhook")
             # The explicit timeout bounds the blocking socket ops
             # (connect + response read) — urlopen with no timeout would
             # inherit the global default of None and hang forever on a

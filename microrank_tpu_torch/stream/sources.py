@@ -2,10 +2,11 @@
 ``microrank_tpu/stream/sources.py``): each yields ``SpanBatch`` tables in
 event-time order, with pacing.
 
-* ``ReplaySource`` — a traces CSV (the C++ loader) or a ``SpanTable``
-  replayed in chunks of ``chunk_spans`` rows of its stable start-time
-  order, slept between (fixed ``pace_seconds``, or event-time faithful
-  at ``rate`` x real time).
+* ``ReplaySource`` — a traces CSV (the C++ loader), a warehouse's
+  stored span tables (``warehouse.load_warehouse_table``: no parse) or
+  a ``SpanTable`` replayed in chunks of ``chunk_spans`` rows of its
+  stable start-time order, slept between (fixed ``pace_seconds``, or
+  event-time faithful at ``rate`` x real time).
 * ``SyntheticSource`` — the port's timeline generator
   (``testing.generate_timeline``, the latency family) as a paced
   stream, the timeline built straight into a table
@@ -20,9 +21,13 @@ event-time order, with pacing.
   lines dead-lettered. Each slice is parsed on its own, so a span whose
   parent was appended in an earlier slice has no parent row.
 
-JAX's chaos seams (stalls, torn lines, corrupted chunks), its warehouse
-segment replay and its resume cursors come with their slices
-(ROADMAP.md, port queue item 11).
+Resumable, as JAX's: each source's cursor rides the engine checkpoint
+(``checkpoint_state`` / ``restore_state``; ``reset_cursor`` drops a
+stashed one when the checkpoint is rejected whole). Chaos seams:
+``source_stall`` (an extra stall), ``source_torn`` (a torn tail line:
+the parse fails this poll, the data arrives whole the next) and
+``source_rotation`` (a forced cursor reset). JAX's ``source_data``
+seam (corrupted chunks) is not ported (ROADMAP.md, port queue item 9).
 """
 
 from __future__ import annotations
@@ -64,9 +69,39 @@ def _load_bytes(payload: bytes) -> SpanTable:
         os.unlink(name)
 
 
+def load_table(path) -> SpanTable:
+    """A traces CSV through the C++ loader, or a warehouse directory's
+    stored span tables (no parse)."""
+    if _is_warehouse_dir(path):
+        from ..warehouse import load_warehouse_table
+
+        return load_warehouse_table(path)
+    return load_span_table(path, cache=False)
+
+
+def _is_warehouse_dir(path) -> bool:
+    """A directory holding (or containing) sealed warehouse segments:
+    ReplaySource takes it wherever it takes a traces CSV."""
+    try:
+        p = Path(path)
+    except TypeError:
+        return False
+    if not p.is_dir():
+        return False
+    from ..warehouse import MANIFEST_NAME, WAREHOUSE_DIR
+
+    return ((p / MANIFEST_NAME).exists() or (p / WAREHOUSE_DIR / MANIFEST_NAME).exists()
+            or any(p.glob("seg-*.npz")) or any(p.glob("cold-*.npz")))
+
+
 class ReplaySource:
-    """Replay a staged traces CSV or an in-memory ``SpanTable`` with
-    pacing, in chunks of its stable start-time order."""
+    """Replay a staged traces CSV, a warehouse directory or an in-memory
+    ``SpanTable`` with pacing, in chunks of its stable start-time order.
+
+    Resumable: the cursor is the count of rows already yielded in that
+    order (a pure function of the data, so a restarted replay re-sorts
+    identically); ``restore_state`` makes the next iteration skip them.
+    """
 
     def __init__(
         self,
@@ -76,28 +111,51 @@ class ReplaySource:
         rate: Optional[float] = None,
         sleep: Callable[[float], None] = time.sleep,
     ):
-        if isinstance(path_or_table, SpanTable):
-            self.table = sort_table_by_time(path_or_table)
-        else:
-            self.table = load_span_table(path_or_table, cache=False)
+        table = path_or_table if isinstance(path_or_table, SpanTable) else load_table(
+            path_or_table)
+        self.table = sort_table_by_time(table)
         self.chunk_spans = int(chunk_spans)
         self.pace_seconds = float(pace_seconds)
         self.rate = rate
         self.sleep = sleep
         self.sleeps: List[float] = []   # what pacing did (tests)
         self.rows_emitted = 0
+        self._skip_rows = 0
+
+    # ------------------------------------------------------- durability
+    def checkpoint_state(self) -> dict:
+        return {"type": "replay", "row": int(self.rows_emitted)}
+
+    def restore_state(self, state: dict) -> None:
+        if state.get("type") != "replay":
+            raise ValueError(f"not a replay cursor: {state}")
+        self._skip_rows = max(0, int(state.get("row", 0)))
+
+    def reset_cursor(self) -> None:
+        """Drop a stashed resume cursor (whole-checkpoint rejection)."""
+        self._skip_rows = 0
 
     def __iter__(self) -> Iterator[SpanBatch]:
+        from ..chaos.faults import maybe_inject
+
         t = self.table
         step = max(1, self.chunk_spans)
-        bounds = list(range(0, t.n_spans, step))
-        self.rows_emitted = 0
+        skip = min(self._skip_rows, t.n_spans)
+        if skip:
+            # Rows before the cursor were windowed already (and live on in
+            # the checkpointed windower buffers).
+            log.info("replay resume: skipping %d already-emitted rows", skip)
+        bounds = list(range(skip, t.n_spans, step))
+        self.rows_emitted = skip
         for i, lo in enumerate(bounds):
             hi = min(lo + step, t.n_spans)
+            # The cursor covers the chunk before the yield: the engine may
+            # checkpoint while this generator is suspended here.
             self.rows_emitted = hi
             yield SpanBatch(table_rows(t, lo, hi), lo)
             if i == len(bounds) - 1:
                 break
+            maybe_inject("source_stall", sleep=self.sleep)
             if self.rate:
                 # Event-time faithful: the gap to the next chunk,
                 # compressed by ``rate``.
@@ -151,9 +209,27 @@ class SyntheticSource:
     def __iter__(self) -> Iterator[SpanBatch]:
         return iter(self._replay)
 
+    # Resumable: the timeline is a pure function of the seed, so the
+    # inner replay cursor restores a restarted run exactly.
+    def checkpoint_state(self) -> dict:
+        return self._replay.checkpoint_state()
+
+    def restore_state(self, state: dict) -> None:
+        self._replay.restore_state(state)
+
+    def reset_cursor(self) -> None:
+        self._replay.reset_cursor()
+
 
 class FileTailSource:
-    """Tail a growing traces CSV; yield only the newly appended rows."""
+    """Tail a growing traces CSV; yield only the newly appended rows.
+
+    Resumable: the cursor is the tail's byte offset, a rotation
+    signature (the header line's hash) and the source rows yielded so
+    far (the batches' row ids); a restart restores the offset only when
+    the signature still matches the file, else it re-reads from scratch
+    (the restored windower drops what it already emitted).
+    """
 
     def __init__(
         self,
@@ -176,6 +252,57 @@ class FileTailSource:
         self._parse_fails = 0
         self._rows = 0   # source rows yielded so far (batch row ids)
         self._stopped = False
+        self._tracker = None
+        self._restore: Optional[dict] = None
+
+    # ------------------------------------------------------- durability
+    def _signature(self) -> Optional[str]:
+        import hashlib
+
+        try:
+            with open(self.path, "rb") as f:
+                header = f.readline()
+        except OSError:
+            return None
+        return hashlib.sha256(header).hexdigest() if header else None
+
+    def checkpoint_state(self) -> dict:
+        t = self._tracker
+        if t is None or t.parsed_offset <= 0:
+            return {"type": "tail", "offset": 0, "rows": int(self._rows)}
+        return {"type": "tail", "offset": int(t.parsed_offset), "size": int(t.last_size),
+                "signature": self._signature(), "rows": int(self._rows)}
+
+    def restore_state(self, state: dict) -> None:
+        if state.get("type") != "tail":
+            raise ValueError(f"not a tail cursor: {state}")
+        self._restore = dict(state)
+
+    def reset_cursor(self) -> None:
+        """Drop a stashed resume cursor (whole-checkpoint rejection)."""
+        self._restore = None
+
+    def _tracker_for_run(self):
+        from ..pipeline.follow import TailTracker
+
+        tracker = TailTracker(idle_exit=self.idle_exit)
+        st = self._restore
+        if st:
+            # Row ids continue past what the checkpointed run yielded.
+            self._rows = int(st.get("rows", 0))
+        if st and st.get("offset", 0) > 0:
+            sig = self._signature()
+            if sig is not None and sig == st.get("signature"):
+                with open(self.path, "rb") as f:
+                    header = f.readline()
+                tracker.restore_cursor(offset=int(st["offset"]),
+                                       size=int(st.get("size", st["offset"])), header=header)
+                log.info("tail resume: cursor restored at byte %d of %s",
+                         tracker.parsed_offset, self.path)
+            else:
+                log.warning("tail resume: %s rotated since the checkpoint (signature "
+                            "mismatch); re-reading from scratch", self.path)
+        return tracker
 
     def stop(self) -> None:
         """End the tail at its next poll (a co-deployed engine's drain)."""
@@ -232,12 +359,17 @@ class FileTailSource:
         return good
 
     def __iter__(self) -> Iterator[SpanBatch]:
-        from ..pipeline.follow import TailTracker
+        from ..chaos.faults import InjectedFault, maybe_inject
+        from ..chaos.retry import record_attempt
 
-        tracker = TailTracker(idle_exit=self.idle_exit)
+        tracker = self._tracker = self._tracker_for_run()
         polls = 0
         while not self._stopped:
             polls += 1
+            maybe_inject("source_stall", sleep=self.sleep)
+            if maybe_inject("source_rotation") is not None:
+                # As a real size shrink resets it: a full re-read next.
+                tracker.force_rotation()
             size = os.path.getsize(self.path) if self.path.exists() else -1
             status = tracker.observe_size(size)
             if status != "grew":
@@ -249,6 +381,8 @@ class FileTailSource:
                 self.sleep(self.poll_seconds)
                 continue
             try:
+                if maybe_inject("source_torn") is not None:
+                    raise InjectedFault("source_torn", "torn_line")
                 appended = tracker.read_appended(self.path, size)
                 if appended is None:
                     # Only a torn partial line so far: no progress.
@@ -258,7 +392,9 @@ class FileTailSource:
                     continue
                 payload, offset = appended
                 table = _load_bytes(payload)
-            except (ValueError, OSError) as exc:
+            except (ValueError, OSError, InjectedFault) as exc:
+                # The re-read is a retry in the one accounting.
+                record_attempt("source_parse")
                 self._parse_fails += 1
                 if self.parse_retry_max and self._parse_fails >= self.parse_retry_max:
                     salvaged = self._salvage(tracker, size)

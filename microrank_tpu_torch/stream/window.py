@@ -12,7 +12,8 @@ included. JAX's rules, line for line; event time is a span's
 ``start_us``.
 
 A batch is a ``SpanBatch``: a ``SpanTable`` whose rows carry source row
-ids (``first_row + i``) and whose ``parent_row`` holds source row ids.
+ids (``first_row + i``, or ``row_ids`` where they are not contiguous: a
+restored buffer) and whose ``parent_row`` holds source row ids.
 A closed window is a ``SpanTable`` of its rows (``window_table``): its
 ops interned in sorted name order (as JAX's window build interns them:
 exact score ties break by that index, and the warm start maps the op
@@ -32,13 +33,21 @@ from ..native import SpanTable
 
 class SpanBatch(NamedTuple):
     """One source batch: rows ``first_row .. first_row + n`` of the
-    source, in a table whose ``parent_row`` holds source row ids."""
+    source (or the rows ``row_ids``), in a table whose ``parent_row``
+    holds source row ids."""
 
     table: SpanTable
     first_row: int = 0
+    row_ids: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return self.table.n_spans
+
+    def source_rows(self, idx: np.ndarray) -> np.ndarray:
+        """Source row ids of the batch rows ``idx``."""
+        if self.row_ids is not None:
+            return self.row_ids[idx].astype(np.int64)
+        return self.first_row + idx.astype(np.int64)
 
 
 def stamp(us: int) -> str:
@@ -110,7 +119,7 @@ def window_table(pieces: Sequence[Tuple[SpanBatch, np.ndarray]]) -> SpanTable:
     cols = {f: [getattr(t, f)[idx] for t, (_, idx) in zip(tables, pieces)]
             for f in ("trace_id", "svc_op", "pod_op", "duration_us", "start_us", "end_us",
                       "parent_row")}
-    src_rows = np.concatenate([b.first_row + idx.astype(np.int64) for b, idx in pieces])
+    src_rows = np.concatenate([b.source_rows(idx) for b, idx in pieces])
     # One vocabulary per distinct source table (batches of one source
     # share theirs).
     distinct: Dict[int, int] = {}
@@ -189,8 +198,15 @@ class StreamWindower:
 
     def add(self, batch: SpanBatch) -> List[ClosedWindow]:
         """Buffer one span batch; return the windows it closed."""
+        self.push(batch)
+        return list(iter(self.pop_closed, None))
+
+    def push(self, batch: SpanBatch) -> None:
+        """Buffer one span batch; the windows it closed wait for
+        ``pop_closed`` (a window not popped yet stays in the buffers and
+        in ``to_state``: an engine that stops mid-batch loses none)."""
         if batch is None or len(batch) == 0:
-            return []
+            return
         t = batch.table.start_us.astype(np.int64)
         n_overlap = -(-self.width_us // self.slide_us)
         if self.origin_us is None:
@@ -219,7 +235,6 @@ class StreamWindower:
             for idx in np.unique(i_ok):
                 self._buffers.setdefault(int(idx), []).append((batch, r_ok[i_ok == idx]))
         self.max_event_us = max(self.max_event_us, int(t.max()))
-        return self._emit_closed()
 
     def _window_bounds(self, i: int) -> Tuple[int, int]:
         s = self.origin_us + i * self.slide_us
@@ -230,24 +245,102 @@ class StreamWindower:
         parts = self._buffers.pop(i, None)
         return ClosedWindow(start_us=s, end_us=e, table=window_table(parts) if parts else None)
 
-    def _emit_closed(self) -> List[ClosedWindow]:
+    def pop_closed(self) -> Optional[ClosedWindow]:
+        """The next window the watermark closed, or None."""
         if self.origin_us is None:
-            return []
-        watermark = self.max_event_us - self.lateness_us
-        out: List[ClosedWindow] = []
-        while self._window_bounds(self._next)[1] <= watermark:
-            out.append(self._pop_window(self._next))
-            self._next += 1
-        return out
+            return None
+        if self._window_bounds(self._next)[1] > self.max_event_us - self.lateness_us:
+            return None
+        w = self._pop_window(self._next)
+        self._next += 1
+        return w
+
+    def pop_flushed(self) -> Optional[ClosedWindow]:
+        """The next window of the end of stream (every window up to the
+        last buffered one, empty ones included), or None."""
+        if self.origin_us is None or not self._buffers:
+            return None
+        w = self._pop_window(self._next)
+        self._next += 1
+        return w
 
     def flush(self) -> List[ClosedWindow]:
         """Close every remaining open window (end of stream)."""
-        out: List[ClosedWindow] = []
-        if self.origin_us is None:
-            return out
-        while self._buffers:
-            last = max(self._buffers)
-            while self._next <= last:
-                out.append(self._pop_window(self._next))
-                self._next += 1
-        return out
+        return list(iter(self.pop_flushed, None))
+
+    # ------------------------------------------------------- durability
+    def to_state(self) -> dict:
+        """JSON-serializable windower state (``chaos.checkpoint``; JAX's
+        keys): the geometry (checked on restore: a resumed run must
+        window identically), the emit cursor and watermark, and the
+        open buffers, each as its rows' source ids and columns with the
+        names they use. Captured with the source cursor in one
+        checkpoint, the restored engine emits no window twice and loses
+        none."""
+        return {
+            "width_us": self.width_us,
+            "slide_us": self.slide_us,
+            "lateness_us": self.lateness_us,
+            "origin_us": self.origin_us,
+            "max_event_us": self.max_event_us,
+            "next": self._next,
+            "dropped_late": self.dropped_late,
+            "buffers": {str(i): _buffer_state(parts) for i, parts in self._buffers.items()},
+        }
+
+    def restore(self, state: dict) -> None:
+        """Overwrite the windower from a checkpoint; raises ValueError
+        when the checkpointed geometry differs from the configured one,
+        or a buffer is not this package's (JAX's CSV buffers)."""
+        geom = (state["width_us"], state["slide_us"], state["lateness_us"])
+        if tuple(geom) != (self.width_us, self.slide_us, self.lateness_us):
+            raise ValueError(f"checkpoint window geometry {geom} != configured "
+                             f"{(self.width_us, self.slide_us, self.lateness_us)}")
+        buffers = {}
+        for i, b in state.get("buffers", {}).items():
+            batch = _buffer_batch(b)
+            buffers[int(i)] = [(batch, np.arange(len(batch)))]
+        self.origin_us = state["origin_us"]
+        self.max_event_us = state["max_event_us"]
+        self._next = int(state["next"])
+        self.dropped_late = int(state.get("dropped_late", 0))
+        self._buffers = buffers
+
+
+_BUFFER_COLUMNS = ("duration_us", "start_us", "end_us", "parent_row")
+
+
+def _buffer_state(parts: Sequence[Tuple[SpanBatch, np.ndarray]]) -> dict:
+    """One open window's buffered rows, in piece order: their source row
+    ids, the integer columns, and each name column as codes into the
+    names it uses."""
+    state = {"rows": np.concatenate([b.source_rows(idx) for b, idx in parts]).tolist()}
+    for col in _BUFFER_COLUMNS:
+        state[col] = np.concatenate([getattr(b.table, col)[idx] for b, idx in parts]).tolist()
+    for col, names in (("trace_id", "trace_names"), ("svc_op", "svc_op_names"),
+                       ("pod_op", "pod_op_names")):
+        vals = [np.asarray(getattr(b.table, names), dtype=object)[getattr(b.table, col)[idx]]
+                for b, idx in parts]
+        uniq, codes = np.unique(np.concatenate(vals).astype(str), return_inverse=True)
+        state[col] = [uniq.tolist(), codes.astype(np.int64).tolist()]
+    return state
+
+
+def _buffer_batch(state: dict) -> SpanBatch:
+    """A buffer state back as one batch (its rows' source ids kept)."""
+    if not isinstance(state, dict):
+        raise ValueError("windower buffer is not this package's state (JAX's CSV buffer?)")
+    cols = {c: np.asarray(state[c], dtype=np.int64) for c in _BUFFER_COLUMNS}
+    names = {}
+    for col in ("trace_id", "svc_op", "pod_op"):
+        vocab, codes = state[col]
+        names[col] = (list(vocab), np.asarray(codes, dtype=np.int32))
+    start = cols["start_us"]
+    table = SpanTable(
+        trace_id=names["trace_id"][1], svc_op=names["svc_op"][1], pod_op=names["pod_op"][1],
+        duration_us=cols["duration_us"], start_us=start, end_us=cols["end_us"],
+        parent_row=cols["parent_row"], trace_names=names["trace_id"][0],
+        svc_op_names=names["svc_op"][0], pod_op_names=names["pod_op"][0],
+        time_sorted=bool(np.all(start[1:] >= start[:-1])),
+    )
+    return SpanBatch(table, 0, np.asarray(state["rows"], dtype=np.int64))

@@ -316,6 +316,10 @@ def test_concurrent_requests_coalesce_into_one_dispatch(tables, spans_payload, j
     """Four concurrent requests (inline and staged) -> one stacked
     program; each answer bitwise TableRCA's for the rows and tie-aware
     JAX's serve answer."""
+    # The reference first: while the service lives its scheduler thread
+    # owns the card, and a rank program from this thread would fail the
+    # owner check (utils.guards).
+    want, iters, kernel = _table_rca_answer(tables)
     svc = _service(tables, tmp_path=tmp_path, max_batch_windows=4)
     svc.add_dataset("case7", tables[1])
     svc.start()
@@ -326,7 +330,6 @@ def test_concurrent_requests_coalesce_into_one_dispatch(tables, spans_payload, j
                     {**spans_payload, "tenant": "t2"}, {"dataset": "case7", "tenant": "t3"}]
         with ThreadPoolExecutor(4) as ex:
             results = list(ex.map(lambda p: _post(port, p), payloads))
-        want, iters, kernel = _table_rca_answer(tables)
         for status, body, _ in results:
             assert status == 200
             assert body["anomaly"] is True and body["degraded"] is False
@@ -799,10 +802,64 @@ def test_serve_cli_sigterm_drains(case, tmp_path):
     assert any(e["event"] == "serve_batch" for e in events)
     assert (out_dir / "metrics.json").exists()
     assert [d.name.rsplit("-", 1)[-1] for d in (out_dir / "flight").iterdir()] == ["sigterm"]
-    for flag, item in (("--mesh", "item 12"), ("--backfill", "warehouse slice"),
-                       ("--backfill-range", "warehouse slice")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["serve", "--device", "cpu", "--normal", str(normal_csv), flag, "x"])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cli.main(["serve", "--device", "cpu", "--normal", str(normal_csv), "--mesh", "x"])
+
+
+def test_backfill_codeployed_with_serve(tables, spans_payload, registry, tmp_path):
+    """A warehouse replayed on the device scheduler's backfill lane while
+    the service answers: serve's answers are its solo answers, the
+    replay report matches the stored verdicts, both lanes charged."""
+    import threading
+
+    from microrank_tpu_torch.config import (
+        DispatchConfig,
+        SchedConfig,
+        StreamConfig,
+        WarehouseConfig,
+    )
+    from microrank_tpu_torch.sched import DeviceScheduler, ParkedWindowStore
+    from microrank_tpu_torch.stream import StreamEngine, SyntheticSource
+    from microrank_tpu_torch.warehouse import replay_range
+
+    wh_cfg = MicroRankConfig(stream=StreamConfig(allowed_lateness_seconds=0.0),
+                             runtime=RuntimeConfig(device="cpu"),
+                             dispatch=DispatchConfig(warmup_manifest=False),
+                             warehouse=WarehouseConfig(enabled=True))
+    src = SyntheticSource(6, [2, 3], SyntheticConfig(n_operations=16, n_traces=80, seed=3))
+    StreamEngine(wh_cfg, src, out_dir=tmp_path / "run").run()
+    solo_svc = _service(tables, max_wait_ms=0.0)
+    solo_svc.start()
+    try:
+        solo = solo_svc.submit(RankRequest(request_id="solo", **spans_payload)).result(120)
+    finally:
+        solo_svc.shutdown(drain=True)
+
+    cfg = _config(max_wait_ms=0.0).replace(sched=SchedConfig(backfill_tenant="bf"))
+    store = ParkedWindowStore(cfg.sched, serve_cfg=cfg.serve)
+    sched = DeviceScheduler(store)
+    sched.start()
+    report = {}
+    try:
+        svc = ServeService(cfg, sched=sched)
+        svc.fit_baseline(tables[0])
+        svc.start()
+        t = threading.Thread(target=lambda: report.update(replay_range(
+            tmp_path / "run", config=cfg, sched=sched)), name="co-backfill")
+        t.start()
+        answers = [svc.submit(RankRequest(request_id=f"co{i}", tenant=f"t{i}",
+                                          **spans_payload)).result(120) for i in range(3)]
+        t.join(120)
+        assert not t.is_alive()
+        svc.shutdown(drain=True)
+    finally:
+        sched.stop(drain=True, timeout=60)
+    assert all(a.ranking == solo.ranking and a.rank_iterations == solo.rank_iterations
+               for a in answers)
+    assert report["verdict"] == "match" and report["ranked"] == report["matched"] == 2
+    shares = store.tenant_shares()
+    assert shares.get("bf", 0) >= 1 and shares.get("t0") == 1
+    assert sched.errors == 0
 
 
 # ------------------------------------------------- windows.jsonl contract

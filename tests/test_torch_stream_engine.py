@@ -13,7 +13,8 @@ and with ``device_checks``:
 * the warm start's steps against cold, JAX's window by window where
   JAX's own warm run takes more;
 * a ``cli stream`` smoke on the CPU, and the flags whose lanes are not
-  ported refusing with the item that brings them.
+  ported (and ``cli scenarios`` without ``--from-warehouse``) refusing
+  with the item that brings them.
 """
 
 from __future__ import annotations
@@ -166,11 +167,56 @@ def test_cli_stream_smoke(tmp_path, capsys):
     assert "microrank_stream_windows_total" in json.dumps(metrics)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--resume"], "item 11"), (["--mesh", "2x4"], "item 12"), (["--fleet", "2"], "item 11"),
-    (["--delta-build"], "delta"), (["--warehouse"], "item 11"),
-    (["--fault-kind", "error"], "item 11"), (["--drift", "0.1"], "item 11"),
+@pytest.mark.parametrize("cmd,flags,item", [
+    ("stream", ["--mesh", "2x4"], "item 12"), ("stream", ["--fleet", "2"], "item 11"),
+    ("stream", ["--delta-build"], "delta"), ("stream", ["--fleet-role", "worker"], "item 11"),
+    ("stream", ["--fault-kind", "error"], "item 11"), ("stream", ["--drift", "0.1"], "item 11"),
+    ("scenarios", [], "scenarios remainder"),
 ])
-def test_cli_stream_refuses_what_is_not_ported(tmp_path, flags, item):
+def test_cli_stream_refuses_what_is_not_ported(tmp_path, cmd, flags, item):
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["stream", "--device", "cpu", "-o", str(tmp_path / "o"), *flags])
+        cli.main([cmd, "--device", "cpu", "-o", str(tmp_path / "o"), *flags])
+
+
+SMOKE = ["--device", "cpu", "--windows", "6", "--fault-windows", "2,3", "--operations", "16",
+         "--traces", "80", "--kinds", "12", "--seed", "5"]
+
+
+@pytest.mark.parametrize("case", ["resume", "warehouse", "chaos", "replay", "scenarios"])
+def test_cli_stream_crash_only_and_warehouse_flags(tmp_path, capsys, monkeypatch, case):
+    """The flags the chaos and warehouse slices brought: ``--resume``
+    continues a drained run (no window twice, one incident), ``--warehouse``
+    seals every window, ``--chaos`` injects and the run still ranks every
+    faulted window, ``replay`` matches, ``scenarios --from-warehouse``
+    scores the stored incidents."""
+    monkeypatch.setenv("MICRORANK_POLICY_DIR", str(tmp_path / "policy"))
+    out = tmp_path / "o"
+    argv = ["stream", *SMOKE, "-o", str(out)]
+    if case == "resume":
+        assert cli.main(argv + ["--max-windows", "3"]) == 0
+        assert cli.main(argv + ["--resume"]) == 0
+        rows = [json.loads(x) for x in (out / "windows.jsonl").read_text().splitlines()]
+        assert len(rows) == len({r["start"] for r in rows}) == 6
+        assert [e[0] for e in incident_events(out)].count("incident_open") == 1
+        return
+    if case == "chaos":
+        plan = tmp_path / "plan.json"
+        plan.write_text(json.dumps({"seed": 1, "faults": [
+            {"seam": "dispatch", "kind": "fail", "count": 1},
+            {"seam": "build", "kind": "fail", "count": 1}]}))
+        assert cli.main(argv + ["--chaos", str(plan)]) == 0
+        metrics = json.dumps(json.loads((out / "metrics.json").read_text()))
+        assert "microrank_fault_injections_total" in metrics
+        rows = [json.loads(x) for x in (out / "windows.jsonl").read_text().splitlines()]
+        assert sum(bool(r["ranking"]) for r in rows) == 2
+        return
+    assert cli.main(argv + ["--warehouse"]) == 0
+    capsys.readouterr()
+    manifest = json.loads((out / "warehouse" / "manifest.json").read_text())
+    assert manifest["payload"]["counters"]["windows"] == 6
+    if case == "replay":
+        assert cli.main(["replay", str(out), "--at", "all", "--device", "cpu"]) == 0
+        assert "2/6 windows re-ranked, 2 matched" in capsys.readouterr().out
+    elif case == "scenarios":
+        assert cli.main(["scenarios", "--from-warehouse", str(out), "--device", "cpu"]) == 0
+        assert "warehouse retro-score: 2 windows" in capsys.readouterr().out
