@@ -237,8 +237,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               csr, coo, dense and dense_bf16, each collapsed ("auto",
               what ``--kernel X`` builds by default) and not ("off", the
               dense matrices in the gigabytes): top-1 the fault, 25 K1
-              launches of 6 SpMVs (coo), 25 calls of K10's scan (csr:
-              ``csr_scan_spmv``, JAX's order of sums) or 25 dense launches
+              launches of 6 SpMVs (coo), 25 launches of K10's scan (csr:
+              ``csr_scan_spmv``, JAX's order of sums, one cooperative
+              launch of ``scan_step`` a step) or 25 dense launches
               of 6 products (dense) a ranked window, tie-aware agreement
               with the port's coo route on the CPU (rtol 1e-5; dense_bf16
               5e-3), coo bitwise the pinned pallas run, the
@@ -249,11 +250,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               (``dense_step_check``) and timed (``measure_dense``: the
               plain version, six ``torch.mv`` and the byte bound; 50
               calls collapsed, 5 uncollapsed); K1 over the coo work list
-              timed uncollapsed (``measure_group``); K10 over the
-              uncollapsed window's CSR views bitwise its plain version on
-              the CPU and over 50 calls, timed in turns with K1 over the
-              csr work list (the route's previous design) beside six
-              CSR matvecs and the byte bound (``measure_csr_scan``); each
+              timed uncollapsed (``measure_group``); K10 over each
+              window's CSR views (collapsed and not) bitwise its plain
+              version on the CPU, the level passes and over 50 calls, one
+              launch a call, timed in turns with the level passes and with
+              K1 over the csr work list (K1's design) beside six CSR
+              matvecs and the byte bound (``measure_csr_scan``); each
               family's stacked groups of the replay's windows (B = 2 and
               6) bitwise their windows' own programs in one window's
               launches (``family_stacks``); the replay with
@@ -392,11 +394,17 @@ JAX or of the JAX package. Phases, one JSON line each:
               10M-span giant window (V 2,048, measured in the giant
               phase), at k = n_rows and k = V (``measure_k13``): bitwise
               its plain version on the card and over 50 launches, row m
-              bitwise the one-formula launch of formula m, timed in turns
-              with 13 one-formula launches and one, beside the plain
+              bitwise the one-formula launch of formula m and the
+              previous selection (the radix select past the warp-select),
+              timed in turns with K13 and one launch on the previous
+              selection, 13 one-formula launches and one, beside the plain
               version, the bound (the six input rows and the weights,
               scores and 13 rows of k out) and one stable ``torch.sort`` of
               the [13, V] negated scores (the top-k's library yardstick);
+              a sweep of k from 33 to V timing the sort against the radix
+              select, one formula and K13, that gives the share of V from
+              which the sort wins (the plan's ``SORT_SHARE``,
+              ``selection_sweep``);
               and the all-methods program in turns with 13 one-formula
               programs;
    stream   — the stream engine (``stream.run_stream``, ``cli stream``)
@@ -1291,6 +1299,11 @@ def epilogue_bound(graph, k):
 # window's totals, the spectrum, the block's selection, the window's
 # top-k written.
 EPILOGUE_PHASES = ("load", "maxima", "scores", "totals", "spectrum", "select", "top_k")
+# K10's scan_step between its stamps (global time, ns): the products
+# and tile totals, the first grid barrier, the top scans, the
+# down-sweeps and row offsets, the second barrier, the rows.
+SCAN_PHASES = ("products_totals", "barrier_1", "top_scans", "down_sweeps_offsets", "barrier_2",
+               "rows")
 # The set-up's rows form between its stamps: the columns into
 # registers, the tile's nodes, the row's sums, the writes.
 SETUP_PHASES = ("load", "tree", "sums", "write")
@@ -1583,7 +1596,7 @@ def first_epilogue_wrapper(torch, marks):
             *[x or 0 for x in ptrs[:14]], ptrs[14], ptrs[15] or 0, ptrs[16] or 0, ptrs[17],
             ptrs[18], ptrs[19], 0, 0, 0, 0, 0, windows, v, k, k_pad, method, 1,
             epilogue.f32_bits(spectrum_cfg.eps),
-            epilogue.FORMS.index("first"), 1, v, 0, dev.index, stream)
+            epilogue.FORMS.index("first"), 1, v, 0, 0, dev.index, stream)
         mark("pack")
         rc = lib.mr_rank_epilogue_launch(args)
         check(rc == 0, f"first epilogue wrapper: launch failed ({rc})")
@@ -1707,7 +1720,8 @@ def today_epilogue_wrapper(torch, marks):
             *words, 0, 0, 0, ptrs[4], ptrs[5], ptrs[6], 0, 0, 0, 0, 0, windows, v, k,
             plan.k_pad, method, 1,
             epilogue.f32_bits(spectrum_cfg.eps), epilogue.FORMS.index(plan.form), plan.cluster,
-            plan.slice, plan.smem, index, torch._C._cuda_getCurrentRawStream(index))
+            plan.slice, plan.smem, plan.sort_keys, index,
+            torch._C._cuda_getCurrentRawStream(index))
         mark("pack")
         rc = lib.mr_rank_epilogue_launch(args)
         check(rc == 0, f"epilogue wrapper replica: launch failed ({rc})")
@@ -2057,11 +2071,14 @@ def phase_env(torch, spmv, pattern, native):
     spilled = {k: v for k, v in dense_ptxas.items()
                if v["spill_store_bytes"] or v["spill_load_bytes"]}
     check(not spilled, f"ptxas: the dense kernel spills: {spilled}")
-    # K10's scan passes (up, top, down) and its row differences without
-    # spill (a gate).
-    scan_ptxas = ptxas_spills(ptxas_scan, ("scan_pass", "row_diff"))
-    check(set(scan_ptxas) == {"scan_pass", "row_diff"},
+    # K10's one-launch step (scan_step), and the level passes (up,
+    # top, down) and row differences, without spill (a gate).
+    scan_ptxas = ptxas_spills(ptxas_scan, ("scan_step", "scan_pass", "row_diff"))
+    check(set(scan_ptxas) == {"scan_step", "scan_pass", "row_diff"},
           f"ptxas: K10 reports {sorted(scan_ptxas)}")
+    check(not (scan_ptxas["scan_step"]["spill_store_bytes"]
+               or scan_ptxas["scan_step"]["spill_load_bytes"]),
+          f"ptxas: K10's scan_step spills: {scan_ptxas['scan_step']}")
     scan_spills = [(lines[0], re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                         " ".join(lines)).groups())
                    for lines in ptxas_all(ptxas_scan, "scan_pass")]
@@ -2125,6 +2142,7 @@ def phase_env(torch, spmv, pattern, native):
         # K10: every scan pass and the row differences, registers and
         # spill bytes (0: the gate).
         "csr_scan_ptxas": [ln.strip() for ln in ptxas_scan.splitlines() if "ptxas" in ln],
+        "csr_scan_step_ptxas": scan_ptxas["scan_step"],
         "csr_scan_spill_bytes": 0,
         "check_window_ptxas": check_word_ptxas,
         # K15: both kernels' selections, registers and spill bytes (0:
@@ -5920,16 +5938,56 @@ def k13_bound(dgraph, k):
     return 2 * 9 * v + 13 * 8 * k + 4, (40 + 13 * 8) * v
 
 
+def selection_sweep(torch, g_n, g_a, svs, cfg, v, reps):
+    """The top-k's two selections past the warp-select at the window's
+    carries, k from 33 to V: the one-formula epilogue and K13 with the
+    sort and with the radix select, bitwise each other, timed in turns
+    (radix, sort, sort, radix) by CUDA events behind a spin; and the
+    least share k / V from which on the sort never ran slower in either
+    (the plan's ``SORT_SHARE`` is fixed from it)."""
+    import dataclasses
+
+    from microrank_tpu_torch.ops import epilogue
+
+    ks = sorted({k for k in (33, 64, 128, 256, 384, 512, 768, 1024, 1536, 2048, v // 2, v)
+                 if 32 < k <= v})
+    rows = []
+    for k in ks:
+        sp = dataclasses.replace(cfg.spectrum, top_max=k, extra_rows=0)
+        calls = {}
+        for sel in ("radix", "sort"):
+            calls[f"one_{sel}"] = (lambda sel=sel: epilogue.rank_epilogue(
+                g_n, g_a, *svs, sp, select=sel))
+            calls[f"k13_{sel}"] = (lambda sel=sel: epilogue.rank_epilogue_all_methods(
+                g_n, g_a, *svs, sp, select=sel))
+        for kind in ("one", "k13"):
+            a, b = calls[f"{kind}_radix"](), calls[f"{kind}_sort"]()
+            check(torch.equal(epilogue_bits(torch, a), epilogue_bits(torch, b)),
+                  f"selection sweep k={k}: {kind}'s sort differs from its radix select")
+        turns = {key: [] for key in calls}
+        for key in ("one_radix", "one_sort", "k13_radix", "k13_sort",
+                    "k13_sort", "k13_radix", "one_sort", "one_radix"):
+            turns[key].append(spin_event_ms(torch, calls[key], reps))
+        rows.append({"k": k, "share": round(k / v, 6),
+                     **{f"{key}_ms": round(_mean(val), 6) for key, val in turns.items()}})
+    share = next((r["share"] for i, r in enumerate(rows)
+                  if all(x["one_sort_ms"] <= x["one_radix_ms"]
+                         and x["k13_sort_ms"] <= x["k13_radix_ms"] for x in rows[i:])), None)
+    return {"rows": rows, "sort_share_measured": share, "plan_sort_share": epilogue.SORT_SHARE}
+
+
 def measure_k13(torch, name, dgraph, cfg, kernel, reps):
     """K13 at a staged window's shapes, on its program's final carries,
-    at k = n_rows and k = V: bitwise its plain version run on the card and
+    at k = n_rows and k = V: bitwise its plain version run on the card,
+    its previous selection (the radix select past the warp-select) and
     over 50 launches; row m bitwise the one-formula epilogue launch of
-    formula m; timed by CUDA events behind a spin in turns (one K13
-    launch, 13 one-formula launches, one one-formula launch, and back)
-    beside the plain version, the bound (bytes once at 3.35 TB/s, or the
-    operations at 67 TFLOP/s) and the top-k alone as one stable
-    ``torch.sort`` of the [13, V] negated scores; then the whole
-    all-methods program in turns with 13 one-formula programs."""
+    formula m; timed by CUDA events behind a spin in turns (K13, K13
+    with the previous selection, 13 one-formula launches, one, one with
+    the previous selection, and back) beside the plain version, the
+    bound (bytes once at 3.35 TB/s, or the operations at 67 TFLOP/s) and
+    the top-k alone as one stable ``torch.sort`` of the [13, V] negated
+    scores; the selections' sweep over k (``selection_sweep``); then the
+    whole all-methods program in turns with 13 one-formula programs."""
     import dataclasses
 
     from microrank_tpu_torch.ops import epilogue
@@ -5945,11 +6003,19 @@ def measure_k13(torch, name, dgraph, cfg, kernel, reps):
     for label, top_max in (("k_n_rows", cfg.spectrum.top_max), ("k_v", v)):
         sp = dataclasses.replace(cfg.spectrum, top_max=top_max)
         k = min(sp.n_rows, v)
+        card = epilogue.kernel_config(g_n.op_present.device)
+        plan = epilogue.epilogue_plan(v, k, 1, card)
+        # The selection before this PR: the radix select past the
+        # warp-select (which is unchanged).
+        prev = "radix" if k > card.warp_k else None
         every = epilogue.rank_epilogue_all_methods(g_n, g_a, *svs, sp)
         got = epilogue_bits(torch, every)
         check(torch.equal(got, epilogue_bits(torch, epilogue.rank_epilogue_plain(
             g_n, g_a, *svs, sp, all_methods=True))), f"{name}/{label}: K13 differs from its "
                                                      "plain version")
+        check(torch.equal(got, epilogue_bits(torch, epilogue.rank_epilogue_all_methods(
+            g_n, g_a, *svs, sp, select=prev))), f"{name}/{label}: K13 differs from its "
+                                                "previous selection")
         for _ in range(REPEATS):
             check(torch.equal(epilogue_bits(torch, epilogue.rank_epilogue_all_methods(
                 g_n, g_a, *svs, sp)), got), f"{name}/{label}: K13 is not repeatable")
@@ -5967,31 +6033,46 @@ def measure_k13(torch, name, dgraph, cfg, kernel, reps):
         neg = -(torch.stack([torch.where(valid, spectrum_scores(*counters[:4], m),
                                          float("-inf")) for m in METHODS]) + 0.0)
 
-        def k13():
-            epilogue.rank_epilogue_all_methods(g_n, g_a, *svs, sp)
-
-        def thirteen():
-            for one_cfg in ones:
-                epilogue.rank_epilogue(g_n, g_a, *svs, one_cfg)
-
-        def one():
-            epilogue.rank_epilogue(g_n, g_a, *svs, sp)
-
-        turns = {"k13": [], "thirteen": [], "one": []}
-        for side in ("k13", "thirteen", "one", "one", "thirteen", "k13"):
-            fn = {"k13": k13, "thirteen": thirteen, "one": one}[side]
-            turns[side].append(spin_event_ms(torch, fn, reps))
+        sides = {
+            "k13": lambda: epilogue.rank_epilogue_all_methods(g_n, g_a, *svs, sp),
+            "k13_previous": lambda: epilogue.rank_epilogue_all_methods(g_n, g_a, *svs, sp,
+                                                                       select=prev),
+            "thirteen": lambda: [epilogue.rank_epilogue(g_n, g_a, *svs, one_cfg)
+                                 for one_cfg in ones],
+            "one": lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp),
+            "one_previous": lambda: epilogue.rank_epilogue(g_n, g_a, *svs, sp, select=prev),
+        }
+        turns = {key: [] for key in sides}
+        for side in ("k13", "k13_previous", "thirteen", "one", "one_previous",
+                     "one_previous", "one", "thirteen", "k13_previous", "k13"):
+            turns[side].append(spin_event_ms(torch, sides[side], reps))
         nbytes, flops = k13_bound(dgraph, k)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        # Where the one-formula launch's time goes: the SM cycles between
+        # its phases (the median of 9 calls; the selection's on either
+        # side of the plan).
+        phase_cycles = {}
+        for side, sel in (("plan", None), ("previous_selection", prev)):
+            stamps = torch.zeros(epilogue.STAMPS, dtype=torch.int64, device=svs[0].device)
+            cycles = []
+            for _ in range(9):
+                epilogue.rank_epilogue(g_n, g_a, *svs, sp, stamps=stamps, select=sel)
+                c = stamps.tolist()
+                cycles.append([c[i + 1] - c[i] for i in range(epilogue.STAMPS - 1)])
+            phase_cycles[side] = dict(zip(EPILOGUE_PHASES, (
+                int(_median([row[i] for row in cycles])) for i in range(epilogue.STAMPS - 1))))
         out[label] = {
-            "k": k, "plan": epilogue.epilogue_plan(v, k, 1, epilogue.kernel_config(
-                g_n.op_present.device))._asdict(),
-            "bitwise_vs_plain": True, "repeat_bitwise": REPEATS,
+            "k": k, "plan": plan._asdict(), "previous_selection": prev or "warp (unchanged)",
+            "phase_cycles": phase_cycles,
+            "bitwise_vs_plain": True, "bitwise_vs_previous_selection": True,
+            "repeat_bitwise": REPEATS,
             "rows_bitwise_vs_one_formula_launches": len(METHODS), "max_abs_err": 0.0,
             "turns_ms": {key: [round(x, 6) for x in val] for key, val in turns.items()},
             "ms": round(_mean(turns["k13"]), 6),
+            "previous_selection_ms": round(_mean(turns["k13_previous"]), 6),
             "thirteen_launches_ms": round(_mean(turns["thirteen"]), 6),
             "one_launch_ms": round(_mean(turns["one"]), 6),
+            "one_launch_previous_selection_ms": round(_mean(turns["one_previous"]), 6),
             "plain_ms": round(spin_event_ms(torch, lambda: epilogue.rank_epilogue_plain(
                 g_n, g_a, *svs, sp, all_methods=True), reps), 6),
             "library_ms": round(spin_event_ms(
@@ -5999,6 +6080,7 @@ def measure_k13(torch, name, dgraph, cfg, kernel, reps):
             "bound_ms": round(max(bytes_ms, ops_ms), 6),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
         }
+    out["sweep"] = selection_sweep(torch, g_n, g_a, svs, cfg, v, min(reps, 50))
     # The whole program: one all-methods program against 13 one-formula
     # programs (what a harness without K13 would run), in turns, by
     # events behind a ~100 ms spin, k = V.
@@ -6017,10 +6099,11 @@ def measure_k13(torch, name, dgraph, cfg, kernel, reps):
 
 def tiny_scan_checks(torch, dev):
     """First calls of K10 (``csr_scan_spmv``): groups of CSR matrices at
-    every depth of block totals (up to 2048 entries: one top launch;
-    past it, up and down passes; 2048^2 + 1: two levels), empty rows and
-    matrices, one window and three, bitwise their plain version on the
-    CPU. Returns the number of cases."""
+    every depth of block totals (up to 2048 entries: one tile; past it,
+    a top scan of the tile totals; 2048^2 + 1: two levels, which only the
+    first design takes), empty rows and matrices, one window and three,
+    through scan_step (one launch) and the level passes, each bitwise
+    their plain version on the CPU. Returns the number of cases."""
     import numpy as np
 
     from microrank_tpu_torch.ops import scan
@@ -6045,40 +6128,64 @@ def tiny_scan_checks(torch, dev):
         xs = [torch.from_numpy(gen.random(lead + (nx,)).astype(np.float32)) for nx in n_x]
         slots = tuple(range(len(sizes)))
         cpu = scan.scan_group(mats, slots, n_x, windows)
-        card = scan.scan_group([tuple(t.to(dev) for t in m) for m in mats], slots, n_x, windows)
-        got = scan.csr_scan_spmv(card, [x.to(dev) for x in xs])
-        torch.cuda.synchronize()
-        for g, w in zip(got, scan.csr_scan_spmv(cpu, xs)):
-            check(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)),
-                  f"tiny K10 case {cases} differs from its plain version")
+        card = scan.scan_group([tuple(t.to(dev) for t in m) for m in mats], slots, n_x, windows,
+                               levels=True)
+        want = scan.csr_scan_spmv(cpu, xs)
+        designs = ("step", "levels") if card.plan is not None else ("levels",)
+        check(card.plan is not None or max(card.e_pad) > scan.BLOCK ** 2,
+              f"tiny K10 case {cases}: scan_step did not take the group")
+        for design in designs:
+            before = scan.csr_scan_spmv.by_design[design]
+            got = scan.csr_scan_spmv(card, [x.to(dev) for x in xs], design=design)
+            torch.cuda.synchronize()
+            check(scan.csr_scan_spmv.by_design[design] == before + 1,
+                  f"tiny K10 case {cases}: no {design} launch counted")
+            for g, w in zip(got, want):
+                check(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)),
+                      f"tiny K10 case {cases} ({design}) differs from its plain version")
         cases += 1
     return cases
 
 
 def measure_csr_scan(torch, spmv, name, dgraph):
     """K10 at a staged csr window's shapes (``dgraph.spmv_group``, the
-    six matrices of a step): bitwise its plain version on the CPU and
-    over 50 calls; timed by CUDA events behind a spin in turns with K1
-    over the csr work list (the route's previous design), beside the
-    plain version on the card, six CSR matvecs of the same views (the
-    library yardstick) and the byte bound (each matrix's indptr, live
-    cols and vals, x read once, y written once; 2 flops an entry)."""
+    six matrices of a step): scan_step (one launch a step) bitwise its
+    plain version on the CPU, the level passes and over 50 calls; timed by
+    CUDA events behind a spin in turns with the level passes (the design
+    it replaces) and K1 over the csr work list (K1's design, not JAX's
+    order of sums), beside the plain version on the card, six CSR
+    matvecs of the same views (the library yardstick) and the byte bound
+    (each matrix's indptr, live cols and vals, x read once, y written
+    once; 2 flops an entry)."""
     from microrank_tpu_torch.ops import scan
     from microrank_tpu_torch.rank_backends.torch_cuda import csr_layouts, window_spmv_group
 
     dev = torch.device("cuda")
     group = dgraph.spmv_group
     check(isinstance(group, scan.ScanGroup), f"{name}: the csr route built no scan group")
+    check(group.plan is not None, f"{name}: scan_step did not take the csr window")
+    # The level passes over the same matrices (their scratch: a scan pair an
+    # entry).
+    levels = scan.scan_group(
+        [(ip.to(torch.int32), c, v)
+         for ip, c, v in zip(group.indptr, *_scan_matrix_entries(torch, group))],
+        group.x_slots, group.n_x, group.windows, checked=True, levels=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     v = int(dgraph.normal.cov_unique.shape[0])
     sizes = (int(dgraph.normal.kind.shape[0]), v, int(dgraph.abnormal.kind.shape[0]), v)
     xs = [torch.rand(k, generator=gen, device=dev) for k in sizes]
+    before = scan.csr_scan_spmv.launches
     ys = scan.csr_scan_spmv(group, xs)
     torch.cuda.synchronize()
+    check(scan.csr_scan_spmv.launches == before + 1 and scan.csr_scan_spmv.by_design["step"],
+          f"{name}: scan_step did not launch once")
+    prior = scan.csr_scan_spmv(levels, xs, design="levels")
+    torch.cuda.synchronize()
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(ys, prior)),
+          f"{name}: scan_step differs from the level passes")
     cpu_group = group._replace(**{f: (tuple(t.cpu() for t in getattr(group, f))
                                       if f == "indptr" else getattr(group, f).cpu())
-                                  for f in ("cols", "vals", "indptr", "segs", "rows", "out",
-                                            "levels")})
+                                  for f in ("cols", "vals", "indptr")})
     ref = scan.csr_scan_spmv_plain(cpu_group, [x.cpu() for x in xs])
     bitwise = all(torch.equal(y.cpu().view(torch.int32), r.view(torch.int32))
                   for y, r in zip(ys, ref))
@@ -6094,13 +6201,27 @@ def measure_csr_scan(torch, spmv, name, dgraph):
     csrs = [csr_of(torch, lay, int(x.shape[0])) for lay, x in zip(layouts, mx)]
     calls = {
         "kernel": lambda: scan.csr_scan_spmv(group, xs),
+        "levels_design": lambda: scan.csr_scan_spmv(levels, xs, design="levels"),
         "previous_design": lambda: spmv.coo_spmv_group(previous, xs),
         "plain": lambda: scan.csr_scan_spmv_plain(group, xs),
         "library": lambda: [torch.mv(c, x) for c, x in zip(csrs, mx)],
     }
-    turns = [(k, spin_event_ms(torch, calls[k], 20))
-             for k in ("previous_design", "kernel", "kernel", "previous_design")]
-    ms = {k: _mean([t for kk, t in turns if kk == k]) for k in ("kernel", "previous_design")}
+    order = ("levels_design", "previous_design", "kernel", "kernel", "previous_design",
+             "levels_design")
+    turns = [(k, spin_event_ms(torch, calls[k], 20)) for k in order]
+    ms = {k: _mean([t for kk, t in turns if kk == k])
+          for k in ("kernel", "levels_design", "previous_design")}
+    # Where scan_step's time goes: the global time between its phases
+    # (the latest block's end of each; the median of 9 calls, ms).
+    stamps = torch.zeros(scan.STEP_STAMPS, dtype=torch.int64, device=dev)
+    splits = []
+    for _ in range(9):
+        stamps.zero_()
+        scan.csr_scan_spmv(group, xs, stamps=stamps)
+        c = stamps.tolist()
+        splits.append([(c[i + 1] - c[i]) / 1e6 for i in range(scan.STEP_STAMPS - 1)])
+    phase_ms = {k: round(_median([row[i] for row in splits]), 6)
+                for i, k in enumerate(SCAN_PHASES)}
     ms["library"] = spin_event_ms(torch, calls["library"], 20)
     ms["plain"] = spin_event_ms(torch, calls["plain"], 3)
     total_bytes, bytes_ms, ops_ms = 0, 0.0, 0.0
@@ -6110,9 +6231,13 @@ def measure_csr_scan(torch, spmv, name, dgraph):
     return {
         "name": name,
         "entries": [int(lay.indptr[-1]) for lay in layouts],
-        "launches_a_call": 2 * (len(group.blocks) - 1) + 2,
-        "blocks": list(group.blocks),
+        "launches_a_call": 1,
+        "plan": group.plan._asdict(),
+        "phase_ms": phase_ms,
+        "tiles": int(group.tiles.shape[0]),
+        "levels_design_launches_a_call": 2 * (len(levels.blocks) - 1) + 2,
         "ms": round(ms["kernel"], 6),
+        "levels_design_ms": round(ms["levels_design"], 6),
         "previous_design_ms": round(ms["previous_design"], 6),
         "plain_ms": round(ms["plain"], 6),
         "library_ms": round(ms["library"], 6),
@@ -6124,6 +6249,18 @@ def measure_csr_scan(torch, spmv, name, dgraph):
         "bitwise_vs_cpu_plain": bitwise,
         "bitwise_repeatable_calls": REPEATS,
     }
+
+
+def _scan_matrix_entries(torch, group):
+    """A scan group's cols and vals split back into its matrices
+    ([B, E] each for a stacked group, [E] for one window)."""
+    b = group.windows or 1
+    sizes = [b * e for e in group.e_pad]
+    cols = group.cols.split(sizes)
+    vals = group.vals.split(sizes)
+    if group.windows is None:
+        return cols, vals
+    return ([c.view(b, -1) for c in cols], [v.view(b, -1) for v in vals])
 
 
 def measure_k19(torch, name, dgraph, cfg, kernel, reps):
@@ -7933,21 +8070,24 @@ def main(argv=None) -> int:
             "source": "microrank_tpu_torch/csrc/csr_scan.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:671",
             # K10: the csr route's six products a step in JAX's order of
-            # sums (the double-f32 prefix scan of jax_tpu.py:671-700),
-            # one call a step (scan_pass up / top / down and row_diff on
-            # one stream; launches_a_call each).
-            "kernels": ["scan_pass", "row_diff"],
+            # sums (the double-f32 prefix scan of jax_tpu.py:671-700), one
+            # cooperative launch of scan_step a step; scan_pass and row_diff
+            # are the level passes, timed in turns (levels_design_ms)
+            # and taking only matrices past 2048^2 entries.
+            "kernels": ["scan_step", "scan_pass", "row_diff"],
             "launches": sum(c["csr_scan_launches"] for c in launches.values()),
             "stacked_launches": stacked_launches("csr_scan_launches"),
             "max_abs_err": families["runs"]["csr/off"]["csr_scan"]["max_abs_err"],
             # One step at the uncollapsed config-5 window (_collapsed: the
-            # collapsed one's); previous_design_ms is K1 over the csr work
-            # list (the route's design before this kernel), in turns;
-            # library_ms six CSR matvecs of the same views.
+            # collapsed one's); levels_design_ms is the level passes and
+            # previous_design_ms K1 over the csr work list (K1's design),
+            # in turns; library_ms six CSR matvecs of the same views.
             **{key: families["runs"]["csr/off"]["csr_scan"][key]
-               for key in ("ms", "previous_design_ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms", "launches_a_call")},
-            "ms_collapsed": families["runs"]["csr/auto"]["csr_scan"]["ms"],
+               for key in ("ms", "levels_design_ms", "previous_design_ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms", "launches_a_call")},
+            **{f"{key}_collapsed": families["runs"]["csr/auto"]["csr_scan"][key]
+               for key in ("ms", "levels_design_ms", "previous_design_ms", "bound_ms",
+                           "library_ms")},
         },
         {
             "name": "kind_pair",
@@ -8239,6 +8379,11 @@ def main(argv=None) -> int:
             # residual trace checked) and without, in turns at the
             # config-5 kind window.
             "check_word_ms": families["checks"]["epilogue_ms"],
+            # At k = V (the k13 phase's one-formula launch, V 3,072): the
+            # sort and, in turns, the radix select.
+            "ms_k_v": k13["config5_kind"]["k_v"]["one_launch_ms"],
+            "previous_selection_ms_k_v":
+                k13["config5_kind"]["k_v"]["one_launch_previous_selection_ms"],
         },
         {
             "name": "rank_epilogue_all_methods",
@@ -8259,6 +8404,11 @@ def main(argv=None) -> int:
             # the top-k alone, one stable torch.sort of the [13, V]
             # negated scores.
             "ms": k13["config5_kind"]["k_v"]["ms"],
+            # previous_selection_ms: the radix select in turns;
+            # sort_share: the selection sweep's.
+            "previous_selection_ms": k13["config5_kind"]["k_v"]["previous_selection_ms"],
+            "sort_share_measured": k13["config5_kind"]["sweep"]["sort_share_measured"],
+            "plan_sort_share": k13["config5_kind"]["sweep"]["plan_sort_share"],
             "thirteen_launches_ms": k13["config5_kind"]["k_v"]["thirteen_launches_ms"],
             "one_launch_ms": k13["config5_kind"]["k_v"]["one_launch_ms"],
             "ms_k_n_rows": k13["config5_kind"]["k_n_rows"]["ms"],

@@ -14,6 +14,9 @@
         [--dispatch-batch-windows N] [--no-blob-staging] [--device-checks] [--resume]
         [--no-tuned-policy]
         [--metrics-port N] [--quarantine-dir DIR] [--no-span-trace] [--span-ring N]
+        [--coalesce-windows N] [--compile-cache-dir DIR] [--chaos-seed N]
+        [--inject-stage NAME] [--inject-stage-sleep-ms MS] [--max-spans-per-trace N]
+        [--min-admission-ratio F] [--no-ingest-guard] [--config-json PATH]
         [--follow [--poll-seconds S] [--follow-grace-seconds S] [--follow-idle-exit N]]
     python -m microrank_tpu_torch.cli serve --normal N [--dataset NAME=CSV ...] [-o OUT]
         [--host H] [--port P] [--max-queue-depth N] [--retry-after S]
@@ -24,7 +27,8 @@
         [--backfill WAREHOUSE [--backfill-range START..END]]
         [--device cuda|cpu] [the config flags of run]
     python -m microrank_tpu_torch.cli stream [--source synthetic|tail|replay] [-o OUT]
-        [--resume] [--warehouse] [--warehouse-dir DIR] [--chaos PLAN.json] [...]
+        [--resume] [--warehouse] [--warehouse-dir DIR] [--chaos PLAN.json]
+        [--journal-max-bytes N] [...]
     python -m microrank_tpu_torch.cli replay TARGET --at RANGE [-k K] [--json PATH]
         [the config flags of run]
     python -m microrank_tpu_torch.cli scenarios --from-warehouse DIR [--seed N]
@@ -89,6 +93,7 @@ from .config import (
     ChaosConfig,
     CompatConfig,
     DetectorConfig,
+    DispatchConfig,
     ExplainConfig,
     IngestConfig,
     MicroRankConfig,
@@ -109,7 +114,42 @@ def _positive_int(text: str) -> int:
     return value
 
 
+# JAX's shared config flags that configure only its pandas lane's
+# admission ladder (ingest/admission.py), which the table lane does not
+# run: taken at JAX's default, refused at any other value.
+_FLAGS_AT_JAX_DEFAULT = (
+    ("orphan_policy", "--orphan-policy", "stitch"),
+    ("max_skew_seconds", "--max-skew-seconds", 300.0),
+    ("max_ops_per_window", "--max-ops-per-window", 20000),
+)
+
+
+def _refuse_unported_flags(args) -> None:
+    """JAX's shared config flags whose lanes are not ported refuse,
+    naming the item that brings them (ROADMAP.md, port queue)."""
+    for dest, flag, default in _FLAGS_AT_JAX_DEFAULT:
+        value = getattr(args, dest, None)
+        if value is not None and value != default:
+            raise NotImplementedError(
+                f"{flag} {value} configures the pandas lane's admission ladder, item 9; the "
+                f"table lane takes only JAX's default {default}: ROADMAP.md, port queue")
+    if getattr(args, "profile_every_n", None):
+        raise NotImplementedError("--profile-every-n (the device profiler) comes with item 11: "
+                                  "ROADMAP.md, port queue")
+    if getattr(args, "sharded_threshold_mb", None) is not None:
+        raise NotImplementedError("--sharded-threshold-mb (the mesh route) comes with item 12: "
+                                  "ROADMAP.md, port queue")
+    if getattr(args, "sanitizers", False):
+        raise NotImplementedError("--sanitizers (mrsan) belongs to analysis/, which is not "
+                                  "ported: ROADMAP.md, port queue")
+
+
 def _config_from_args(args) -> MicroRankConfig:
+    _refuse_unported_flags(args)
+    if getattr(args, "config_json", None):
+        # The file is the whole config, as in the JAX CLI.
+        with open(args.config_json) as f:
+            return MicroRankConfig.from_dict(json.load(f))
     # The ranking and detection flags carry the JAX CLI's defaults, so a
     # flag given explicitly differs from the built-in default and beats a
     # tuned policy (scenarios.policy); the loop's knobs override the
@@ -121,6 +161,7 @@ def _config_from_args(args) -> MicroRankConfig:
             ("bulk_fetch_windows", args.bulk_fetch_windows),
             ("dispatch_batch_windows", args.dispatch_batch_windows),
             ("kind_dedup_threshold", args.kind_dedup_threshold),
+            ("compile_cache_dir", args.compile_cache_dir),
         ) if v is not None
     }
     if args.sync_dispatch:
@@ -135,11 +176,21 @@ def _config_from_args(args) -> MicroRankConfig:
     # The tracer's and the dead-letter store's flags, as the JAX CLI's:
     # each overrides the config only when given.
     obs = {k: v for k, v in (("spans", False if args.no_span_trace else None),
-                             ("span_ring", args.span_ring)) if v is not None}
-    ingest = {} if args.quarantine_dir is None else {"quarantine_dir": args.quarantine_dir}
+                             ("span_ring", args.span_ring),
+                             ("inject_stage_sleep_ms", args.inject_stage_sleep_ms),
+                             ("inject_stage", args.inject_stage)) if v is not None}
+    ingest = {k: v for k, v in (("enabled", False if args.no_ingest_guard else None),
+                                ("quarantine_dir", args.quarantine_dir),
+                                ("max_spans_per_trace", args.max_spans_per_trace),
+                                ("min_admission_ratio", args.min_admission_ratio))
+              if v is not None}
     explain = {k: v for k, v in (("enabled", True if args.explain else None),
                                  ("top_traces", args.explain_top_traces)) if v is not None}
-    chaos = {} if not args.chaos else {"enabled": True, "plan_path": args.chaos}
+    chaos = {k: v for k, v in (("enabled", True if args.chaos else None),
+                               ("plan_path", args.chaos or None),
+                               ("seed", args.chaos_seed)) if v is not None}
+    dispatch = ({} if args.coalesce_windows is None
+                else {"coalesce_windows": args.coalesce_windows})
     cfg = MicroRankConfig(
         detector=DetectorConfig(
             k_sigma=args.k_sigma, slack_ms=args.slack_ms, slo_stat=args.slo_stat,
@@ -158,6 +209,7 @@ def _config_from_args(args) -> MicroRankConfig:
         ),
         ingest=IngestConfig(**ingest),
         obs=ObsConfig(**obs),
+        dispatch=DispatchConfig(**dispatch),
         explain=ExplainConfig(**explain),
         chaos=ChaosConfig(**chaos),
     )
@@ -301,7 +353,7 @@ def cmd_stats(args) -> int:
     ``--diff``: two targets, each merged, then diffed."""
     import os
 
-    from .obs import diff_registries, read_journal, registry_from_json
+    from .obs import diff_registries, journal_parts, read_journal, registry_from_json
     from .obs.journal import JOURNAL_NAME
 
     if args.merge:
@@ -366,11 +418,15 @@ def cmd_stats(args) -> int:
             contended = sum(
                 1 for w in windows if (w.get("host") or {}).get("contended")
             )
-            # This package's journal is one file (no rotated parts).
+            # The size spans the rotated parts too (journal_max_bytes):
+            # rotation must not make a run look smaller than it was.
+            parts = journal_parts(jpath)
+            nbytes = sum(os.path.getsize(p) for p in [*parts, jpath] if os.path.exists(p))
+            rotated = f" across {len(parts) + 1} parts" if parts else ""
             print(
                 f"# journal: {len(windows)} windows ({len(ranked)} "
                 f"ranked), {contended} contended samples, "
-                f"{os.path.getsize(jpath)} bytes",
+                f"{nbytes} bytes{rotated}",
                 file=sys.stderr,
             )
     return 0
@@ -503,6 +559,9 @@ def cmd_stream(args) -> int:
     rt = {k: True for k in ("warm_start", "fused_pair") if getattr(args, k)}
     if rt:
         cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, **rt))
+    if args.journal_max_bytes is not None:
+        cfg = cfg.replace(obs=dataclasses.replace(cfg.obs,
+                                                  journal_max_bytes=args.journal_max_bytes))
     if args.source == "synthetic":
         from .testing import SyntheticConfig
 
@@ -1007,6 +1066,78 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
         "fetch; injections land in "
         "microrank_fault_injections_total and the journal",
     )
+    p.add_argument(
+        "--chaos-seed", type=int, default=None,
+        help="RNG seed for probabilistic chaos fault specs (default: "
+        "the plan file's seed, else 0)",
+    )
+    p.add_argument(
+        "--compile-cache-dir", default=None,
+        help="directory of the warmup manifest (dispatch.cache; default "
+        "~/.cache/microrank_tpu/jit, MICRORANK_JIT_CACHE overrides); the "
+        "port compiles no programs at run time",
+    )
+    p.add_argument(
+        "--coalesce-windows", type=_positive_int, default=None,
+        help="dispatch router burst coalescing: same-pad-bucket stream "
+        "windows queued behind an in-flight dispatch coalesce into one "
+        "stacked program, up to this many (1 disables; default 8)",
+    )
+    p.add_argument(
+        "--inject-stage-sleep-ms", type=float, default=None,
+        help="chaos/test knob: sleep this long inside every matching "
+        "--inject-stage span (drives the flight-recorder dogfood path)",
+    )
+    p.add_argument(
+        "--inject-stage", default=None,
+        help='stage name --inject-stage-sleep-ms slows (default "build")',
+    )
+    p.add_argument(
+        "--max-spans-per-trace", type=int, default=None,
+        help="trace-length budget: spans of one trace past this "
+        "quarantine (reason trace_too_long) so a mega-trace cannot "
+        "escalate the pad buckets (default 4096, 0 off)",
+    )
+    p.add_argument(
+        "--min-admission-ratio", type=float, default=None,
+        help="refuse a stream window WHOLE when fewer than this fraction "
+        "of its spans survive admission: no baseline update, no incident "
+        "transition (default 0.5)",
+    )
+    p.add_argument(
+        "--no-ingest-guard", action="store_true",
+        help="disable span admission + quarantine entirely (tables pass "
+        "through unvalidated; debugging only)",
+    )
+    p.add_argument(
+        "--orphan-policy", default=None, choices=["stitch", "drop"],
+        help="JAX's pandas-lane orphan policy: the table lane takes only "
+        "its default, stitch (drop comes with item 9)",
+    )
+    p.add_argument(
+        "--max-skew-seconds", type=float, default=None,
+        help="JAX's pandas-lane clock-skew clamp: the table lane takes "
+        "only its default, 300 (another value comes with item 9)",
+    )
+    p.add_argument(
+        "--max-ops-per-window", type=int, default=None,
+        help="JAX's pandas-lane op-vocabulary budget: the table lane "
+        "takes only its default, 20000 (another value comes with item 9)",
+    )
+    p.add_argument(
+        "--profile-every-n", type=_positive_int, default=None,
+        help="not ported: the device profiler (item 11)",
+    )
+    p.add_argument(
+        "--sharded-threshold-mb", type=float, default=None,
+        help="not ported: the mesh route (item 12)",
+    )
+    p.add_argument(
+        "--sanitizers", action="store_true",
+        help="not ported: the mrsan sanitizers (analysis/)",
+    )
+    p.add_argument("--config-json", help="load a full MicroRankConfig dict (the JAX "
+                   "package's to_dict or this one's; the file is the whole config)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1131,7 +1262,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_eval.add_argument(
         "--backend", default="torch", choices=list(BACKENDS),
         help="ranking backend: this package's device program; numpy_ref (the "
-        "JAX package's oracle) is not ported and raises",
+        "float64 oracle, rank_backends.numpy_ref) is not wired into the "
+        "harness yet and raises (ROADMAP.md, port queue item 9)",
     )
     _add_config_flags(p_eval)
     p_eval.set_defaults(fn=cmd_eval)
@@ -1225,6 +1357,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_stream.add_argument("--warehouse-dir", default=None, metavar="DIR",
                           help="warehouse directory (default: <output>/warehouse; implies "
                           "--warehouse)")
+    p_stream.add_argument("--journal-max-bytes", type=int, default=None, metavar="N",
+                          help="rotate journal.jsonl once it exceeds N bytes (fsync-before-"
+                          "rename into journal.jsonl.<n> parts; 0 = never, the default)")
     p_stream.add_argument("--delta-build", action="store_true",
                           help="not ported: the incremental sliding-window build")
     p_stream.add_argument("--warm-start", action="store_true",

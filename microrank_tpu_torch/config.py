@@ -11,6 +11,12 @@ device scheduler. Field names
 and defaults match the JAX package so a reader can hold the two side by
 side. Every kernel the JAX package's ``RuntimeConfig.kernel`` names is
 ported; an unknown name raises ``ValueError``.
+
+``MicroRankConfig.to_dict`` / ``from_dict`` are the JAX package's
+(``dataclasses.asdict``; lists back to tuples), and ``from_dict`` loads
+a JAX config dict: a field the port lacks (``JAX_ONLY_FIELDS``) is taken
+at JAX's default and refused at any other value, naming the item that
+brings it (ROADMAP.md, port queue).
 """
 
 from __future__ import annotations
@@ -299,6 +305,10 @@ class IngestConfig:
     # Spans of a trace past the cap reject in row order (reason
     # trace_too_long); 0 disables the budget.
     max_spans_per_trace: int = 4096
+    # Refuse a stream window WHOLE when fewer than this fraction of its
+    # spans survive admission: no baseline update, no incident
+    # transition (the window records as skipped, reason low_admission).
+    min_admission_ratio: float = 0.5
     # Dead-letter store: directory for quarantine.jsonl (None = the
     # run's out_dir) and its byte cap (records past it drop + count).
     quarantine_dir: Optional[str] = None
@@ -319,6 +329,11 @@ class ObsConfig:
     spans: bool = True
     # Ring capacity in spans; the oldest fall off.
     span_ring: int = 8192
+    # Rotate the run journal (obs.RunJournal) into journal.jsonl.<n>
+    # parts once the next line would take it past this many bytes, an
+    # fsync before each rename (0: never rotate); read_journal and ``cli
+    # stats`` read the parts in order.
+    journal_max_bytes: int = 0
     # Flight recorder: dump the ring (+ correlated journal events + a
     # metrics snapshot) to out_dir/flight/<stamp>-<reason>/ when a stream
     # incident opens. Dumps within ``flight_min_interval_seconds`` of the
@@ -553,6 +568,76 @@ class WarehouseConfig:
     retention_segments: int = 0
 
 
+# The JAX package's config fields the port lacks: (section, field) ->
+# (JAX's default, what brings it). A config dict may carry each at that
+# default (a JAX ``to_dict`` does); ``from_dict`` refuses any other
+# value, naming the item. A None item: no counterpart on the card, either
+# value is taken (XLA's donation of the staged buffer).
+_ITEM_9 = "item 9 (the pandas lane's admission ladder)"
+_ITEM_11_PROFILER = "item 11 (the profiler)"
+_ITEM_11_STREAM = "item 11 (the stream slice's remainder: --delta-build)"
+_ITEM_11_FLEET = "item 11 (the fleet slice)"
+_ITEM_12 = "item 12 (the mesh)"
+_ANALYSIS = "analysis/ (mrlint, mrsan; not queued)"
+JAX_ONLY_FIELDS: Dict[Tuple[str, str], Tuple[Any, Optional[str]]] = {
+    ("pagerank", "compensated_psum"): (False, _ITEM_12),
+    ("pagerank", "sparse_allreduce"): (False, _ITEM_12),
+    ("pagerank", "sparse_allreduce_cap"): (0, _ITEM_12),
+    ("runtime", "mesh_shape"): (None, _ITEM_12),
+    ("runtime", "mesh_axes"): (("shard",), _ITEM_12),
+    ("runtime", "dtype"): ("float32", "a dtype the port ranks in (float32 only)"),
+    ("runtime", "sanitizers"): (False, _ANALYSIS),
+    ("runtime", "delta_build"): (False, _ITEM_11_STREAM),
+    ("runtime", "delta_max_changed"): (0.5, _ITEM_11_STREAM),
+    ("dispatch", "sharded_bytes_threshold"): (64 << 20, _ITEM_12),
+    ("dispatch", "shard_on_full_occupancy"): (True, _ITEM_12),
+    ("dispatch", "donate_staging"): (True, None),
+    ("obs", "profile_every_n"): (0, _ITEM_11_PROFILER),
+    ("obs", "profile_dir"): (None, _ITEM_11_PROFILER),
+    ("ingest", "orphan_policy"): ("stitch", _ITEM_9),
+    ("ingest", "max_skew_seconds"): (300.0, _ITEM_9),
+    ("ingest", "skew_reject_seconds"): (3600.0, _ITEM_9),
+    ("ingest", "forward_skew_seconds"): (30.0, _ITEM_9),
+    ("ingest", "max_ops_per_window"): (20000, _ITEM_9),
+    ("ingest", "max_new_ops_per_window"): (32, _ITEM_9),
+    ("ingest", "parse_retry_max"): (3, _ITEM_9),
+}
+# The JAX package's config sections the port lacks, at JAX's defaults:
+# the fleet (fleet/) and the stage watchdog (obs/watchdog.py), both the
+# fleet slice's.
+JAX_ONLY_SECTIONS: Dict[str, Tuple[Dict[str, Any], str]] = {
+    "fleet": ({
+        "partitions": 0, "partition_by": "trace", "heartbeat_seconds": 1.0,
+        "lease_seconds": 5.0, "host": "127.0.0.1", "port": 0, "report_timeout_seconds": 2.0,
+        "report_queue": 256, "restart_dead_workers": True, "restart_delay_seconds": 0.0,
+        "max_restarts": 1, "metrics_in_heartbeat": True, "delta_max_bytes": 262144,
+        "host_series_grace": 2, "max_clock_skew_seconds": 5.0,
+    }, _ITEM_11_FLEET),
+    "watchdog": ({
+        "enabled": True, "eval_seconds": 1.0, "fast_windows": 5, "slow_windows": 60,
+        "burn_threshold": 1.0, "stage_budget_ms": 500.0, "stage_budgets": (),
+        "stage_error_budget": 0.1, "error_budget": 0.1, "watermark_lag_budget_seconds": 600.0,
+        "queue_depth_budget": 8.0, "min_samples": 3, "resolve_after_evals": 3,
+        "cooldown_evals": 5, "host_attribution_factor": 2.0,
+    }, _ITEM_11_FLEET),
+}
+
+
+def _tupled(value):
+    """A JSON list as the config holds it: lists (and lists of pairs)
+    back to tuples, dicts (a chaos fault spec) as dicts."""
+    if isinstance(value, (list, tuple)):
+        return tuple(_tupled(v) for v in value)
+    return dict(value) if isinstance(value, dict) else value
+
+
+def _refuse_unported(section: str, field_name: str, value, default, item) -> None:
+    if item is not None and _tupled(value) != _tupled(default):
+        raise NotImplementedError(
+            f"config {section}.{field_name} = {value!r}: the port takes only JAX's default "
+            f"{default!r}; another value comes with {item} (ROADMAP.md, port queue)")
+
+
 @dataclass(frozen=True)
 class MicroRankConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
@@ -573,3 +658,34 @@ class MicroRankConfig:
 
     def replace(self, **kwargs: Any) -> "MicroRankConfig":
         return dataclasses.replace(self, **kwargs)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MicroRankConfig":
+        """The config of a dict of sections (``to_dict``'s, or the JAX
+        package's): each section's known fields, tuples from lists, JAX's
+        ``runtime.backend`` "jax" as this package's "torch"; a field the
+        port lacks (``JAX_ONLY_FIELDS``, ``JAX_ONLY_SECTIONS``) at JAX's
+        default, else ``NotImplementedError`` naming its item. Other
+        unknown keys are dropped, as JAX's ``from_dict`` drops them."""
+        for name, (defaults, item) in JAX_ONLY_SECTIONS.items():
+            for key, value in (d.get(name) or {}).items():
+                if key in defaults:
+                    _refuse_unported(name, key, value, defaults[key], item)
+        sections = {}
+        for f in dataclasses.fields(cls):
+            typ = f.default_factory
+            sub = dict(d.get(f.name) or {})
+            for key, value in sub.items():
+                if (f.name, key) in JAX_ONLY_FIELDS:
+                    _refuse_unported(f.name, key, value, *JAX_ONLY_FIELDS[(f.name, key)])
+            if f.name == "runtime" and sub.get("backend") == "jax":
+                sub["backend"] = "torch"
+            base = typ()
+            known = {g.name for g in dataclasses.fields(typ)}
+            sections[f.name] = typ(**{
+                k: _tupled(v) if isinstance(getattr(base, k), tuple) else v
+                for k, v in sub.items() if k in known})
+        return cls(**sections)

@@ -56,11 +56,23 @@
 //   memory (one barrier a round), and block 0 of a cluster merges the
 //   blocks' lists through distributed shared memory. No histogram, no
 //   atomics.
-// * k > kWarpK: a radix select over the keys of the slices in shared
-//   memory, 8 bits a pass from the top (warp-aggregated histograms,
-//   summed over the cluster's blocks), then the k keys gathered to
-//   block 0 and sorted by a bitonic sort (in shared memory up to
-//   kSmemKeys keys, else in the window's scratch).
+// * k > kWarpK, where the plan says sort (k at or past a share of the
+//   vocabulary that the plan fixes, k = V among them: every live key is
+//   wanted, or nearly): no radix pass. Each block sorts its slice's keys
+//   whole in shared memory by a bitonic network (`sort_list`): the
+//   stages whose stride lies within a warp's run of keys on registers
+//   (shuffles below 32, register swaps past it), only the cross-warp
+//   stages over shared memory, a barrier each. A block writes the first
+//   k of its list; in a cluster each block merges its sorted list with
+//   its peers' by merge path through distributed shared memory (a key's
+//   output rank: its place in its own list plus, by binary search, the
+//   keys below it in each peer's) and writes its keys of rank < k
+//   straight to the top-k.
+// * k > kWarpK otherwise: a radix select over the keys of the slices in
+//   shared memory, 8 bits a pass from the top (warp-aggregated
+//   histograms, summed over the cluster's blocks), then the k keys
+//   gathered to block 0 and sorted by a bitonic sort (in shared memory up
+//   to kSmemKeys keys, else in the window's scratch).
 // `epilogue_first`, the first design, stays for comparison, and runs
 // the vocabularies past kClusterMax * kSliceMax ops.
 //
@@ -386,17 +398,22 @@ constexpr int kInputs = 6;                        // sv, cov_unique, op_present 
 enum Form { kFormBlock = 0, kFormCluster = 1, kFormFirst = 2 };
 
 // Shared memory of a slice: each input row with 16 bytes of room for
-// its alignment, after the key lists.
+// its alignment, after the key list (kSmemKeys keys, or the sort's
+// list where larger).
 __host__ __device__ constexpr int64_t row_bytes(int64_t slice, int64_t elt) {
   return (slice * elt + 16 + 15) / 16 * 16;
 }
-__host__ __device__ constexpr int64_t window_smem(int64_t slice) {
-  return kSmemKeys * 8 + 4 * row_bytes(slice, 4) + 2 * row_bytes(slice, 1);
+__host__ __device__ constexpr int64_t list_keys(int64_t sort_keys) {
+  return sort_keys > kSmemKeys ? sort_keys : kSmemKeys;
+}
+__host__ __device__ constexpr int64_t window_smem(int64_t slice, int64_t sort_keys) {
+  return list_keys(sort_keys) * 8 + 4 * row_bytes(slice, 4) + 2 * row_bytes(slice, 1);
 }
 
 struct WindowArgs {
   Part part[kParts];
   int32_t v, k, k_pad, method, slice, cluster;
+  int32_t sort_keys;           // the sort's list (a power of two >= the slice), or 0: select
   float eps;
   uint64_t* keys;              // [B, M, k_pad] scratch (k_pad > kSmemKeys)
   int32_t* top_idx;            // [B, M, k]
@@ -531,6 +548,108 @@ __device__ __forceinline__ void copy_edges(const Row& r) {
   for (int i = tail + threadIdx.x; i < r.n; i += kWide) copy_element(r, i);
 }
 
+// The sort's bitonic network over a list of n keys (a power of two):
+// the stage of (size, stride) compares keys i and i + stride for every i
+// with bit `stride` clear, ascending where bit `size` of i is clear. A
+// warp takes runs of 32 Q consecutive keys, key j * 32 + lane of a run in
+// its register j: strides below 32 are shuffles, up to 16 Q register
+// swaps; only strides of a run or more go through shared memory.
+template <int Q, int kStride>
+__device__ __forceinline__ void run_stage(uint64_t (&r)[Q], int base, int size) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kStride < 32) {
+    // The pair's lower key keeps the least where ascending, the upper
+    // where descending: take the partner's key where it is below and
+    // exactly one of (upper, descending) is false, or the other way.
+    const bool upper = (lane & kStride) != 0;
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const bool descending = ((base + j * 32 + lane) & size) != 0;
+      const uint64_t y = __shfl_xor_sync(0xffffffffu, r[j], kStride);
+      r[j] = (y < r[j]) == (upper == descending) ? y : r[j];
+    }
+  } else {
+    constexpr int d = kStride / 32;
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      if ((j & d) == 0) {
+        const bool ascending = ((base + j * 32 + lane) & size) == 0;
+        const uint64_t x = r[j], y = r[j + d];
+        const bool swap = (y < x) == ascending;
+        r[j] = swap ? y : x;
+        r[j + d] = swap ? x : y;
+      }
+    }
+  }
+}
+
+// The stages of `size` from stride kStride down to 1.
+template <int Q, int kStride>
+__device__ __forceinline__ void run_stages(uint64_t (&r)[Q], int base, int size) {
+  run_stage<Q, kStride>(r, base, size);
+  if constexpr (kStride > 1) run_stages<Q, kStride / 2>(r, base, size);
+}
+
+// Every stage of the sizes 2 .. kSize (a run's whole network).
+template <int Q, int kSize>
+__device__ __forceinline__ void run_sort(uint64_t (&r)[Q], int base) {
+  if constexpr (kSize > 2) run_sort<Q, kSize / 2>(r, base);
+  run_stages<Q, kSize / 2>(r, base, kSize);
+}
+
+// Sort the n keys key_at(0 .. n - 1) ascending into list[0, n) by the
+// block of kWide threads (n a power of two, 32 <= n; runs of 32 Q keys,
+// Q = 1 up to n = 1024): each run is taken into registers from key_at
+// and sorted there, then merged.
+template <int Q, typename KeyAt>
+__device__ void sort_list(uint64_t* list, int n, KeyAt key_at) {
+  constexpr int kRun = 32 * Q;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int runs = n / kRun;
+  for (int c = warp; c < runs; c += kWideWarps) {
+    uint64_t r[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) r[j] = key_at(c * kRun + j * 32 + lane);
+    run_sort<Q, kRun>(r, c * kRun);
+#pragma unroll
+    for (int j = 0; j < Q; ++j) list[c * kRun + j * 32 + lane] = r[j];
+  }
+  __syncthreads();
+  for (int size = 2 * kRun; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride >= kRun; stride >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += kWide) {
+        const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
+        const bool ascending = (lo & size) == 0;
+        const uint64_t x = list[lo], y = list[lo + stride];
+        if ((x > y) == ascending) {
+          list[lo] = y;
+          list[lo + stride] = x;
+        }
+      }
+      __syncthreads();
+    }
+    for (int c = warp; c < runs; c += kWideWarps) {
+      uint64_t r[Q];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) r[j] = list[c * kRun + j * 32 + lane];
+      run_stages<Q, kRun / 2>(r, c * kRun, size);
+#pragma unroll
+      for (int j = 0; j < Q; ++j) list[c * kRun + j * 32 + lane] = r[j];
+    }
+    __syncthreads();
+  }
+}
+
+// Keys of `list` (ascending, n of them, a power of two) below `key`, by
+// binary search.
+__device__ __forceinline__ int keys_below(const uint64_t* list, int n, uint64_t key) {
+  int c = 0;
+  for (int step = n; step > 0; step >>= 1) {
+    if (c + step <= n && list[c + step - 1] < key) c += step;
+  }
+  return c;
+}
+
 // K13's row of the grid (the formula), read where it is used: a
 // volatile read is not hoisted, so that it holds no register across the
 // passes (the window kernels run at their 64-register bound).
@@ -576,8 +695,8 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
   // The window's counts, loaded while the slice arrives.
   const int ops_n_i = __ldg(qn.n_ops + b), ops_a_i = __ldg(qa.n_ops + b);
   const int len_n_i = __ldg(qn.n_traces + b), len_a_i = __ldg(qa.n_traces + b);
-  uint64_t* lists = reinterpret_cast<uint64_t*>(smem);  // kSmemKeys keys
-  unsigned char* region = smem + kSmemKeys * 8;
+  uint64_t* lists = reinterpret_cast<uint64_t*>(smem);  // list_keys(sort_keys) keys
+  unsigned char* region = smem + list_keys(a.sort_keys) * 8;
   const int64_t rb4 = row_bytes(slice, 4), rb1 = row_bytes(slice, 1);
   const Row rows[kInputs] = {
       row_of(qn.sv + row, len, 4, region),
@@ -804,6 +923,43 @@ __global__ void __launch_bounds__(kWide, 1) epilogue_window(WindowArgs a) {
         a.top_scores[out + lane] = peer<kClustered>(scores, idx / slice)[idx % slice];
       }
     }
+  } else if (a.sort_keys > 0) {
+    // The sort: the slice's keys (past its live ops, keys above every
+    // key) sorted whole in shared memory.
+    const int n = a.sort_keys;
+    const auto key_at = [&](int i) { return i < len ? sort_key(scores[i], lo + i) : ~0ull; };
+    if (n <= 1024) {
+      sort_list<1>(lists, n, key_at);
+    } else if (n == 2048) {
+      sort_list<2>(lists, n, key_at);
+    } else {
+      sort_list<4>(lists, n, key_at);
+    }
+    stamp(a.stamps, 6);
+    const int64_t out = out_row() * a.k;
+    if constexpr (kClustered) {
+      // Merge path over the cluster: a key's rank is its place in its
+      // own list plus the keys below it in every peer's list.
+      cluster_sync<true>();
+      for (int i = t; i < min(len, a.k); i += kWide) {
+        const uint64_t key = lists[i];
+        int rank = i;
+        for (int peer_rank = 0; peer_rank < cs; ++peer_rank) {
+          if (peer_rank != r) rank += keys_below(peer<true>(lists, peer_rank), n, key);
+        }
+        if (rank < a.k) {
+          const int idx = static_cast<int>(static_cast<uint32_t>(key));
+          a.top_idx[out + rank] = idx;
+          a.top_scores[out + rank] = scores[idx - lo];
+        }
+      }
+    } else {
+      for (int j = t; j < a.k; j += kWide) {
+        const int idx = static_cast<int>(static_cast<uint32_t>(lists[j]));
+        a.top_idx[out + j] = idx;
+        a.top_scores[out + j] = scores[idx];
+      }
+    }
   } else {
     // Radix select: the prefix of the keys that holds exactly the k
     // smallest, 8 bits a pass from the top, over the cluster's slices.
@@ -919,9 +1075,10 @@ cudaError_t allow_slice(int bytes) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Every window kernel may take a full slice's shared memory.
+// Every window kernel may take a full slice's shared memory, with the
+// sort's list.
 cudaError_t allow_slices() {
-  const int bytes = static_cast<int>(window_smem(kSliceMax));
+  const int bytes = static_cast<int>(window_smem(kSliceMax, kSliceMax));
   cudaError_t e = allow_slice<false, false>(bytes);
   if (e == cudaSuccess) e = allow_slice<true, false>(bytes);
   if (e == cudaSuccess) e = allow_slice<false, true>(bytes);
@@ -936,13 +1093,14 @@ cudaError_t allow_slices() {
 // stamps: kStamps int64 for the window form's phase cycles, or null;
 // check, residuals, n_iters and iters: K14's check words, or null, and
 // the residual trace it checks, or null; method_rows: 1, the formula
-// `method`, or kMethods, every formula (K13; unchecked only)).
+// `method`, or kMethods, every formula (K13; unchecked only); sort_keys:
+// the sort's list, or 0 (the warp or radix select)).
 enum Word {
   kPartWords = 7,
   kScores = kParts * kPartWords, kNodes, kKeys, kTopIdx, kTopScores, kNValid, kStampsAt,
   kCheckAt, kResidualsAt, kNItersAt, kIters,
   kWindows, kV, kK, kKPad, kMethod, kMethodRows, kEpsBits, kForm, kCluster, kSlice, kSmem,
-  kDevice, kStream,
+  kSortKeys, kDevice, kStream,
   kWords
 };
 
@@ -966,7 +1124,7 @@ int mr_rank_epilogue_config(int device, int32_t* out) {
     cudaLaunchConfig_t config{};
     config.gridDim = dim3(c);
     config.blockDim = dim3(kWide);
-    config.dynamicSmemBytes = static_cast<size_t>(window_smem(kSliceMax));
+    config.dynamicSmemBytes = static_cast<size_t>(window_smem(kSliceMax, 0));
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = c;
@@ -999,7 +1157,7 @@ int mr_rank_epilogue_launch(const int64_t* w) {
   const int64_t windows = w[kWindows], v = w[kV], k = w[kK], k_pad = w[kKPad];
   const int64_t method = w[kMethod], methods = w[kMethodRows], form = w[kForm];
   const int64_t cluster = w[kCluster];
-  const int64_t slice = w[kSlice], smem = w[kSmem];
+  const int64_t slice = w[kSlice], smem = w[kSmem], sort_keys = w[kSortKeys];
   const int64_t tiles = (v + kTile - 1) / kTile;
   if (windows < 1 || windows > 65535 || v < 1 || tiles > mr_tree::kMaxTiles || k < 1 || k > v
       || k_pad < k || (k_pad & (k_pad - 1)) != 0 || method < 0 || method >= kMethods
@@ -1058,7 +1216,12 @@ int mr_rank_epilogue_launch(const int64_t* w) {
   const bool clustered = form == kFormCluster && cluster >= 2 && cluster <= kClusterMax
                          && (cluster & (cluster - 1)) == 0 && slice % kTile == 0
                          && slice * cluster >= v && v > kSliceMax;
-  if ((!block && !clustered) || slice > kSliceMax || smem != window_smem(slice)) {
+  // The sort: past the warp-select, a list of a power of two that holds
+  // the slice.
+  const bool sorted = sort_keys != 0;
+  if ((!block && !clustered) || slice > kSliceMax || smem != window_smem(slice, sort_keys)
+      || (sorted && (k <= kWarpK || sort_keys < 32 || sort_keys > kSliceMax || sort_keys < slice
+                     || (sort_keys & (sort_keys - 1)) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   WindowArgs a{};
@@ -1070,6 +1233,7 @@ int mr_rank_epilogue_launch(const int64_t* w) {
   a.method = static_cast<int32_t>(method);
   a.slice = static_cast<int32_t>(slice);
   a.cluster = static_cast<int32_t>(cluster);
+  a.sort_keys = static_cast<int32_t>(sort_keys);
   a.eps = eps;
   a.keys = static_cast<uint64_t*>(ptr(kKeys));
   a.top_idx = static_cast<int32_t*>(ptr(kTopIdx));

@@ -11,7 +11,7 @@ The JAX package's profiler sessions and fleet plane are not ported
 """
 
 from .host import ContentionSentinel
-from .journal import JOURNAL_NAME, RunJournal, read_journal
+from .journal import JOURNAL_NAME, RunJournal, journal_parts, read_journal
 from .registry import (
     Counter,
     Gauge,
@@ -41,6 +41,7 @@ __all__ = [
     "get_registry",
     "get_tracer",
     "merge_registries",
+    "journal_parts",
     "read_journal",
     "registry_from_json",
     "set_registry",

@@ -17,9 +17,11 @@ JAX package's names and keys:
 
 The writer appends under a lock (the async fetch worker and the main
 thread may both reach it); every event carries ``ts`` (epoch seconds)
-and ``schema``. The JAX package's size-based rotation into
-``journal.jsonl.<n>`` parts serves its stream engine, which is not
-ported; a run here writes one file.
+and ``schema``. With ``max_bytes`` (``ObsConfig.journal_max_bytes``,
+``cli stream --journal-max-bytes``) the live file rotates into
+``journal.jsonl.<n>`` parts as JAX's does: fsync, then the rename, then
+a ``journal_rotated`` event opens the fresh file; ``read_journal``
+reads the parts in order before the live file.
 """
 
 from __future__ import annotations
@@ -41,10 +43,13 @@ JOURNAL_NAME = "journal.jsonl"
 class RunJournal:
     """Append-only JSONL event writer for one pipeline run."""
 
-    def __init__(self, path, sentinel=None):
+    def __init__(self, path, sentinel=None, max_bytes: int = 0):
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._lock = threading.Lock()
+        # Size-based rotation (ObsConfig.journal_max_bytes): 0 = never.
+        self.max_bytes = int(max_bytes or 0)
+        self._rotations = len(journal_parts(self.path))
         self.sentinel = ContentionSentinel() if sentinel is None else sentinel
 
     def emit(self, event: str, **fields) -> None:
@@ -52,8 +57,37 @@ class RunJournal:
                "schema": SCHEMA_VERSION, **fields}
         line = json.dumps(rec) + "\n"
         with self._lock:
+            self._maybe_rotate(len(line))
             with open(self.path, "a") as f:
                 f.write(line)
+
+    def _maybe_rotate(self, incoming: int) -> None:
+        """Rotate the live file to ``journal.jsonl.<n>`` when the next
+        line would take it past ``max_bytes``: fsync before the rename,
+        so a part is durable under its final name (a crash can lose only
+        lines still in the live file's page cache). The caller holds the
+        lock."""
+        if not self.max_bytes:
+            return
+        try:
+            size = os.path.getsize(self.path)
+        except OSError:
+            return
+        if size + incoming <= self.max_bytes:
+            return
+        try:
+            with open(self.path, "a") as f:
+                f.flush()
+                os.fsync(f.fileno())
+            self._rotations += 1
+            part = self.path.with_name(f"{self.path.name}.{self._rotations}")
+            os.replace(self.path, part)
+        except OSError:  # pragma: no cover - exotic filesystems
+            return
+        rot = {"event": "journal_rotated", "ts": time.time(), "schema": SCHEMA_VERSION,
+               "part": part.name, "part_bytes": size, "rotation": self._rotations}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rot) + "\n")
 
     def run_start(self, **config_fields) -> None:
         self.emit("run_start", host=self.sentinel.sample(), **config_fields)
@@ -117,9 +151,24 @@ class RunJournal:
                 pass
 
 
-def read_journal(path) -> list:
-    """Parse a journal back into event dicts, in the order written."""
+def journal_parts(path) -> list:
+    """A journal's rotated parts (``journal.jsonl.<n>``) in rotation
+    order; the live file is not among them."""
     p = Path(path)
-    if not p.exists():
-        return []
-    return [json.loads(line) for line in p.read_text().splitlines() if line.strip()]
+    parts = []
+    for cand in p.parent.glob(p.name + ".*"):
+        suffix = cand.name[len(p.name) + 1:]
+        if suffix.isdigit():
+            parts.append((int(suffix), cand))
+    return [c for _, c in sorted(parts)]
+
+
+def read_journal(path) -> list:
+    """Parse a journal back into event dicts, in the order written: the
+    rotated parts, oldest first, then the live file."""
+    out = []
+    p = Path(path)
+    for part in [*journal_parts(p), p]:
+        if part.exists():
+            out += [json.loads(line) for line in part.read_text().splitlines() if line.strip()]
+    return out

@@ -28,7 +28,10 @@ raises: there is no fallback for a CUDA tensor. ``epilogue_plan``
 (pure) picks the launch's form: a block of 1,024 threads a window
 holding its inputs in shared memory (up to 8,192 ops), a cluster of
 such blocks a window (up to 8 x 8,192), else the first design; and the
-top-k's: a warp-select for k <= 32, a radix select past it. The host
+top-k's: a warp-select for k <= 32; past it, where k reaches
+``SORT_SHARE`` of the vocabulary (k = V among them), a sort of each
+block's keys whole in shared memory, merged across a cluster by merge
+path; else a radix select. The host
 side is one check, one allocation and one call with one packed
 argument block (``ARGS``). Nothing here waits for the card.
 
@@ -247,6 +250,13 @@ def rank_epilogue_plain(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, 
 TILE = 4096          # ops a tile of the finish's tree (csrc/tree_fold.cuh kTile)
 SLICE_MAX = 2 * TILE  # ops a block of the window forms holds (kSliceMax)
 WARP_K = 32           # k up to this: the warp-select (kWarpK)
+# Past the warp-select, k at or past this share of the vocabulary sorts
+# every key in shared memory instead of selecting (the radix passes find
+# what is nearly known: most live keys are wanted). Fixed from
+# chip_smoke's k13 sweep (``selection_sweep``; PERF.md §6): the
+# least k / V from which on the sort ran no slower than the radix select,
+# one formula and K13, at the config-5 kind window (V 3,072).
+SORT_SHARE = 0.125
 
 # The forms of a launch (csrc ``Form``): a block a window; a cluster of
 # blocks a window, each a slice of whole tiles; the first design (a
@@ -276,46 +286,66 @@ def row_bytes(n: int, elt: int) -> int:
     return (n * elt + 31) // 16 * 16
 
 
-def window_smem(slice_: int) -> int:
+def window_smem(slice_: int, sort_keys: int = 0) -> int:
     """A window block's dynamic shared memory (csrc ``window_smem``): the
-    key lists, then sv and cov_unique (4 bytes) and op_present (1 byte)
-    of both partitions."""
-    return SMEM_KEYS * 8 + 4 * row_bytes(slice_, 4) + 2 * row_bytes(slice_, 1)
+    key list (``SMEM_KEYS`` keys, or the sort's ``sort_keys`` where
+    more), then sv and cov_unique (4 bytes) and op_present (1 byte) of
+    both partitions."""
+    return (max(SMEM_KEYS, sort_keys) * 8 + 4 * row_bytes(slice_, 4)
+            + 2 * row_bytes(slice_, 1))
 
 
 class EpiloguePlan(NamedTuple):
     """One launch of the epilogue, as the host plans it (``epilogue_plan``)."""
 
     form: str      # one of FORMS
-    select: str    # "warp" (k <= warp_k), "radix", or the first design's "first"
+    select: str    # one of SELECTS, or the first design's "first"
     cluster: int   # blocks a window
     slice: int     # ops a block (the window forms)
     k_pad: int     # the least power of two >= k (the radix select's sort)
     smem: int      # a block's dynamic shared memory, bytes
+    sort_keys: int = 0  # "sort": the list a block sorts (a power of two >= its slice)
+
+
+# The top-k's selections past the first design: the warp-select (k <=
+# warp_k), the sort of every key, the radix select.
+SELECTS = ("warp", "sort", "radix")
 
 
 def epilogue_plan(v: int, k: int, windows: int, card: KernelConfig,
-                  first_design: bool = False) -> EpiloguePlan:
+                  first_design: bool = False, select: Optional[str] = None) -> EpiloguePlan:
     """The epilogue's launch for ``windows`` windows of ``v`` ops and a
     top-``k`` on ``card``: a block a window while ``v`` fits a block's
     shared memory (``card.slice_max`` ops); else a cluster of the least
     power of two blocks that holds it, at most ``card.cluster_max``, each
     a slice of whole tiles; past that (and with ``first_design``) the
-    first design. The top-k: the warp-select for k <= ``card.warp_k``,
-    else a radix select (keys sorted in scratch past ``card.smem_keys``).
-    Pure: the C library checks the same rules again."""
+    first design. The top-k: the warp-select for k <= ``card.warp_k``;
+    past it the sort where k >= ``SORT_SHARE`` * v (a block's list the
+    least power of two >= its slice, at least 32), else a radix select
+    (keys sorted in scratch past ``card.smem_keys``). ``select`` ("sort"
+    or "radix", past the warp-select) overrides the share: a
+    measurement's. Pure: the C library checks the same rules again."""
     if not 1 <= v <= MAX_WIDTH or not 1 <= k <= v or not 1 <= windows <= 65535:
         raise ValueError(f"epilogue_plan: 1 to {MAX_WIDTH} ops, 1 <= k <= ops and 1 to 65535 "
                          f"windows (got {v}, {k}, {windows})")
+    if select not in (None, "sort", "radix"):
+        raise ValueError(f"epilogue_plan: select is 'sort' or 'radix' (got {select!r})")
     k_pad = 1 << (k - 1).bit_length()
     if first_design or v > card.cluster_max * card.slice_max:
         return EpiloguePlan("first", "first", 1, v, k_pad, 0)
-    select = "warp" if k <= card.warp_k else "radix"
+    if k <= card.warp_k:
+        select = "warp"
+    elif select is None:
+        select = "sort" if k >= SORT_SHARE * v else "radix"
     if v <= card.slice_max:
-        return EpiloguePlan("block", select, 1, v, k_pad, window_smem(v))
-    cluster = 1 << (-(-v // card.slice_max) - 1).bit_length()
-    slice_ = card.tile * -(-(-(-v // card.tile)) // cluster)
-    return EpiloguePlan("cluster", select, cluster, slice_, k_pad, window_smem(slice_))
+        form, cluster, slice_ = "block", 1, v
+    else:
+        form = "cluster"
+        cluster = 1 << (-(-v // card.slice_max) - 1).bit_length()
+        slice_ = card.tile * -(-(-(-v // card.tile)) // cluster)
+    sort_keys = max(32, 1 << (slice_ - 1).bit_length()) if select == "sort" else 0
+    return EpiloguePlan(form, select, cluster, slice_, k_pad, window_smem(slice_, sort_keys),
+                        sort_keys)
 
 
 _configs: Dict[int, KernelConfig] = {}
@@ -374,8 +404,8 @@ def _check(normal: PartitionGraph, abnormal: PartitionGraph, sv_n, sv_a):
 # top_idx, top_scores, n_valid, stamps, K14's check words, residuals,
 # n_iters and steps, then windows, v, k, k_pad, method, the method rows
 # (1, or every formula: K13), eps's float32 bits, form, cluster, slice,
-# smem, device, stream.
-ARGS = struct.Struct("<38q")
+# smem, the sort's list (0: no sort), device, stream.
+ARGS = struct.Struct("<39q")
 # The phases the window form stamps (csrc kStamps): its start, the slice
 # loaded, the maxima, the scores, the totals, the spectrum, the block's
 # selection, the top-k written.
@@ -383,8 +413,9 @@ STAMPS = 8
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(v: int, k: int, windows: int, index: int, first_design: bool) -> EpiloguePlan:
-    return epilogue_plan(v, k, windows, kernel_config(index), first_design)
+def _plan(v: int, k: int, windows: int, index: int, first_design: bool,
+          select: Optional[str] = None) -> EpiloguePlan:
+    return epilogue_plan(v, k, windows, kernel_config(index), first_design, select)
 
 
 def _check_trace(residuals, n_iters, lead, dev) -> None:
@@ -402,18 +433,22 @@ def _check_trace(residuals, n_iters, lead, dev) -> None:
 def rank_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, sv_n: torch.Tensor,
                   sv_a: torch.Tensor, spectrum_cfg: SpectrumConfig,
                   first_design: bool = False,
-                  stamps: Optional[torch.Tensor] = None) -> Epilogue:
+                  stamps: Optional[torch.Tensor] = None,
+                  select: Optional[str] = None) -> Epilogue:
     """``rank_epilogue_plain``'s results: CPU tensors run it; CUDA tensors
     launch the epilogue once (every window of a group), in the form
     ``epilogue_plan`` picks, or raise. ``first_design``: the first
-    design's kernel (a comparison, off the main path). ``stamps``: an
+    design's kernel (a comparison, off the main path). ``select``: the
+    selection past the warp-select, "sort" or "radix", in place of the
+    plan's (a comparison, off the main path). ``stamps``: an
     int64 tensor of ``STAMPS`` on the card, where the window form writes
     the SM cycle count at each phase of the first window (a measurement;
     None on the main path). The outputs are views of one fresh
     allocation, each contiguous. The host side is one check of the
     fields, one allocation, and one call with one packed argument
     block."""
-    return _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, stamps)[0]
+    return _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, stamps,
+                          select=select)[0]
 
 
 def rank_epilogue_checked(normal: PartitionGraph, abnormal: PartitionGraph,
@@ -434,19 +469,22 @@ def rank_epilogue_checked(normal: PartitionGraph, abnormal: PartitionGraph,
 def rank_epilogue_all_methods(normal: PartitionGraph, abnormal: PartitionGraph,
                               sv_n: torch.Tensor, sv_a: torch.Tensor,
                               spectrum_cfg: SpectrumConfig,
-                              first_design: bool = False) -> Epilogue:
+                              first_design: bool = False,
+                              select: Optional[str] = None) -> Epilogue:
     """K13: ``rank_epilogue`` with every formula's top-k, [(B,) M, k] in
     ``METHODS`` order (``spectrum_cfg.method`` is not read), from one
     launch with a methods axis (CPU tensors: ``rank_epilogue_plain(...,
     all_methods=True)``); the weights, scores and n_valid are the
     one-method launch's. ``first_design``: the first design's kernel
-    with the same axis (a comparison, as for ``rank_epilogue``)."""
+    with the same axis (a comparison, as for ``rank_epilogue``);
+    ``select`` as for ``rank_epilogue``."""
     return _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, None,
-                          all_methods=True)[0]
+                          all_methods=True, select=select)[0]
 
 
 def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, stamps,
-                   check: bool = False, residuals=None, n_iters=None, all_methods: bool = False):
+                   check: bool = False, residuals=None, n_iters=None, all_methods: bool = False,
+                   select: Optional[str] = None):
     """The epilogue (and, with ``check``, the check words; else None)."""
     dev = sv_n.device
     if check and all_methods:
@@ -468,7 +506,7 @@ def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, sta
     if k < 1:
         raise ValueError("rank_epilogue: k = min(n_rows, V) must be at least 1")
     index = dev.index
-    plan = _plan(v, k, windows, index, first_design)
+    plan = _plan(v, k, windows, index, first_design, select)
     first = plan.form == "first"
     tiles = -(-v // TILE)
     # weight, score of each partition, top_idx, top_scores (a row a
@@ -508,7 +546,7 @@ def _rank_epilogue(normal, abnormal, sv_n, sv_a, spectrum_cfg, first_design, sta
         0 if residuals is None else n_iters.data_ptr(),
         0 if residuals is None else residuals.shape[-1], windows, v, k, plan.k_pad, method,
         rows, f32_bits(spectrum_cfg.eps),
-        FORMS.index(plan.form), plan.cluster, plan.slice, plan.smem, index,
+        FORMS.index(plan.form), plan.cluster, plan.slice, plan.smem, plan.sort_keys, index,
         torch._C._cuda_getCurrentRawStream(index)))
     if rc != 0:
         raise RuntimeError(

@@ -55,8 +55,10 @@ rides the window's one result copy, and the fetch raises
 dispatch falls back to per-window dispatch; ``run(batch_windows=True)``
 ranks its stacked program unchecked.
 
-Not ported yet (ROADMAP.md "Port queue"): the mesh, and the flight
-recorder that dumps the span ring.
+Not ported yet (ROADMAP.md "Port queue"): the mesh (item 12). The
+flight recorder that dumps the span ring (``obs/flight.py``) fires on
+the stream engine's and serve's triggers; this lane has none, as in
+JAX's.
 """
 
 from __future__ import annotations

@@ -107,9 +107,6 @@ INCIDENT_LOG_NAME = "incidents.jsonl"
 # a resume cuts them back to those, so the windows replayed after a kill
 # are written once (the journal keeps both processes' records).
 OUTPUT_LOGS = ("windows.jsonl", "result.csv", INCIDENT_LOG_NAME)
-# A window whose admitted share of rows falls below this is refused
-# whole (JAX's IngestConfig.min_admission_ratio default).
-MIN_ADMISSION_RATIO = 0.5
 
 log = logging.getLogger("microrank_tpu_torch.stream")
 
@@ -198,7 +195,8 @@ class StreamEngine:
             if config.runtime.telemetry:
                 from ..obs import JOURNAL_NAME, RunJournal
 
-                self.journal = RunJournal(self.out_dir / JOURNAL_NAME)
+                self.journal = RunJournal(self.out_dir / JOURNAL_NAME,
+                                          max_bytes=config.obs.journal_max_bytes)
         sinks = list(incident_sinks or [])
         if self.out_dir is not None:
             sinks.append(JsonlIncidentSink(self.out_dir / INCIDENT_LOG_NAME))
@@ -607,11 +605,14 @@ class StreamEngine:
             if n_rejected and self.journal is not None:
                 self.journal.emit("ingest", stage="window", window_start=result.start,
                                   rejected=rejected)
-            if table.n_spans / max(closed.n_spans, 1) < MIN_ADMISSION_RATIO:
+            # A window whose admitted share of rows falls below the
+            # configured ratio is refused whole (JAX's engine,
+            # stream/engine.py:767).
+            floor = self.config.ingest.min_admission_ratio
+            if table.n_spans / max(closed.n_spans, 1) < floor:
                 self._drain_all()
                 log.warning("window %s: admission ratio %.2f below %.2f — refusing the window "
-                            "whole", result.start, table.n_spans / closed.n_spans,
-                            MIN_ADMISSION_RATIO)
+                            "whole", result.start, table.n_spans / closed.n_spans, floor)
                 result.skipped_reason = "low_admission"
                 self._finalize(result, "skipped", trace=trace)
                 return

@@ -364,9 +364,16 @@ def test_epilogue_plan_covers_the_vocabulary_in_slices_a_block_holds(v, k, windo
     if plan.form == "first":
         assert v > CARD.cluster_max * CARD.slice_max and plan.select == "first"
         return
-    assert plan.select == ("warp" if k <= CARD.warp_k else "radix")
+    assert plan.select == ("warp" if k <= CARD.warp_k else
+                           "sort" if k >= epilogue.SORT_SHARE * v else "radix")
     assert plan.slice <= CARD.slice_max and plan.cluster * plan.slice >= v
-    assert plan.smem == epilogue.window_smem(plan.slice) <= 227 * 1024 - 2048
+    if plan.select == "sort":
+        # A list of a power of two that holds the block's slice.
+        assert plan.sort_keys >= max(plan.slice, 32) > plan.sort_keys // 2
+        assert plan.sort_keys & (plan.sort_keys - 1) == 0
+    else:
+        assert plan.sort_keys == 0
+    assert plan.smem == epilogue.window_smem(plan.slice, plan.sort_keys) <= 227 * 1024 - 8192
     if plan.form == "block":
         assert plan.cluster == 1 and plan.slice == v <= CARD.slice_max
     else:
@@ -381,7 +388,8 @@ def test_epilogue_plan_covers_the_vocabulary_in_slices_a_block_holds(v, k, windo
 @pytest.mark.parametrize("v,k,form,select,cluster", [
     (1, 1, "block", "warp", 1), (3072, 11, "block", "warp", 1), (8192, 32, "block", "warp", 1),
     (8192, 33, "block", "radix", 1), (8193, 11, "cluster", "warp", 2),
-    (16_385, 11, "cluster", "warp", 4), (65_536, 65_536, "cluster", "radix", 8),
+    (16_385, 11, "cluster", "warp", 4), (65_536, 65_536, "cluster", "sort", 8),
+    (65_536, 33, "cluster", "radix", 8), (3072, 3072, "block", "sort", 1),
     (65_537, 11, "first", "first", 1),
 ])
 def test_epilogue_plan_forms_at_their_edges(v, k, form, select, cluster):
@@ -410,8 +418,8 @@ def test_epilogue_shared_memory_is_the_library_layout():
     assert epilogue.window_smem(3072) == 8192 + 4 * 12304 + 2 * 3088
     assert epilogue.window_smem(8192) == 155_744
     # The argument block: 33 words, K14's check words, residual trace,
-    # n_iters and steps, and K13's method rows.
-    assert epilogue.ARGS.size == 8 * 38
+    # n_iters and steps, K13's method rows and the sort's list.
+    assert epilogue.ARGS.size == 8 * 39
 
 
 # ------------------------------------------------------------------ card
