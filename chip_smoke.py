@@ -2087,8 +2087,9 @@ def phase_env(torch, spmv, pattern, native):
     n_scan = tiny_scan_checks(torch, dev)
     # K15's two kernels, both selections, without spill (a gate), and
     # its first launches on every route bitwise its plain version.
-    k15_ptxas = ptxas_spills(ptxas_explain, ("explain_tiles", "explain_merge"))
-    check(set(k15_ptxas) == {"explain_tiles<true>", "explain_tiles<false>",
+    k15_ptxas = ptxas_spills(ptxas_explain, ("explain_cols", "explain_sparse", "explain_merge"))
+    check(set(k15_ptxas) == {"explain_cols<true>", "explain_cols<false>",
+                             "explain_sparse<true>", "explain_sparse<false>",
                              "explain_merge<true>", "explain_merge<false>"},
           f"ptxas: K15 reports {sorted(k15_ptxas)}")
     spilled = {k: v for k, v in k15_ptxas.items()
@@ -6339,7 +6340,8 @@ def k15_bytes(torch, dgraph, kernel, top_idx, ke, j):
     """K15's bytes for the function it computes on this window's data:
     per partition, rv and each per-column vector its route reads (4
     bytes a column), and of the staged view what the suspects need: their
-    bitmap rows, the whole ELL slab (8 bytes a cell), their op-major
+    bitmap rows, the ELL slab's ops (4 bytes a cell) and its rs where
+    the op is a suspect (4 bytes each), their op-major
     ranges (column and value, 8 bytes an entry, and rv at the column),
     or every live trace-major entry's op and column (8 bytes) and the
     suspects' values and rv; the counters' inputs at the suspects; the
@@ -6354,7 +6356,8 @@ def k15_bytes(torch, dgraph, kernel, top_idx, ke, j):
         if route == kx.BITMAP:
             total += 8 * t + ke * int(g.cov_bits.shape[1])
         elif route == kx.ELL:
-            total += 12 * t + 8 * int(g.pc_ell_op.numel())
+            named = int(torch.isin(g.pc_ell_op, sus.to(g.pc_ell_op.dtype)).sum())
+            total += 12 * t + 4 * int(g.pc_ell_op.numel()) + 4 * named
         elif route == kx.OP_MAJOR:
             ptr = g.inc_indptr_op.long()
             total += 8 * ke + 12 * int((ptr[sus + 1] - ptr[sus]).sum())
@@ -6408,13 +6411,14 @@ def measure_k15(torch, name, dgraph, cfg, kernel, reps):
     turns = [(k, spin_event_ms(torch, calls[k], reps))
              for k in ("k15", "plain", "sort", "sort", "plain", "k15")]
     ms = {k: _mean([t for kk, t in turns if kk == k]) for k in calls}
-    plan = kx.explain_plan(t_n, t_a, ex.top_traces, ke)
+    plan = kx.window_plan(g_n, g_a, kernel, ex.top_traces, ke)
     nbytes = k15_bytes(torch, dgraph, kernel, epi.top_idx, ke, ex.top_traces)
     return {
         "name": name, "kernel": kernel, "route": ("bitmap", "ell", "op_major",
                                                   "trace_major")[kx.ROUTES[kernel]],
         "columns": [t_n, t_a], "suspects": ke, "top_traces": ex.top_traces,
-        "plan": {**plan._asdict(), "kernel_launches": plan.kernel_launches},
+        "plan": {**plan._asdict(), "kernel_launches": plan.kernel_launches,
+                 "fill_blocks": plan.fill_blocks},
         "bitwise_vs_plain": True, "bitwise_repeatable_launches": REPEATS,
         "ms": round(ms["k15"], 6), "plain_ms": round(ms["plain"], 6),
         "library_ms": round(ms["sort"], 6),
@@ -6426,9 +6430,12 @@ def measure_k15(torch, name, dgraph, cfg, kernel, reps):
 
 def tiny_k15_checks(torch, dev):
     """K15's first launches: a small window (40,000 spans, 192 ops, some
-    5,000 columns a partition: three fill tiles and a merge) on every
-    route, J = 5 (the warp-select) and 40 (the bitonic path), bitwise its
-    plain version on the card."""
+    5,000 columns a partition: a fill of several units and a merge) on
+    every route, J = 5 (the warp-select) and 40 (the bitonic path),
+    bitwise its plain version on the card; then a collapsed trace-major
+    window (coo and dense: chunks of a few dozen entries inside long kind
+    runs) and Ke 46 past the 32-suspect match word (top_max 40,
+    top_suspects 0) on a route of each fill."""
     from microrank_tpu_torch.config import ExplainConfig, PageRankConfig, SpectrumConfig
     from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
     from microrank_tpu_torch.ops import explain as kx
@@ -6441,22 +6448,31 @@ def tiny_k15_checks(torch, dev):
            "packed_blocked": "packed", "pcsr": "pcsr", "csr": "csr", "coo": "none",
            "pallas": "none", "dense": "none", "dense_bf16": "none"}
     built, n = {}, 0
-    for kernel, view in aux.items():
-        collapse = "on" if kernel == "kind" else "off"
+    wide = SpectrumConfig(top_max=40)
+    cases = [(kernel, "on" if kernel == "kind" else "off", SpectrumConfig(), j)
+             for kernel in aux for j in (5, 40)]
+    cases += [(kernel, "on", SpectrumConfig(), j) for kernel in ("coo", "dense") for j in (5, 40)]
+    cases += [(kernel, "on" if kernel == "kind" else "off", wide, 5)
+              for kernel in ("kind", "pcsr", "csr", "coo")]
+    for kernel, collapse, spectrum, j in cases:
+        view = aux[kernel]
         if (view, collapse) not in built:
             built[view, collapse] = build_window_graph_from_table(
                 gw.table, None, gw.normal_codes, gw.abnormal_codes, aux=view,
                 collapse=collapse)[0]
         dg = tc.device_subset(graph_from_numpy(tc.host_subset(built[view, collapse], kernel),
                                                dev), kernel)
-        prog = tc._rank_program(dg, PageRankConfig(), SpectrumConfig(), kernel)
-        for j in (5, 40):
-            args = (dg.normal, dg.abnormal, prog.rv_n, prog.rv_a, prog.epilogue,
-                    SpectrumConfig(), ExplainConfig(enabled=True, top_traces=j), kernel)
-            check(torch.equal(explained_bits(torch, kx.explain_epilogue(*args)),
-                              explained_bits(torch, kx.explain_plain(*args))),
-                  f"tiny K15 ({kernel}, J {j}) differs from its plain version")
-            n += 1
+        prog = tc._rank_program(dg, PageRankConfig(), spectrum, kernel)
+        args = (dg.normal, dg.abnormal, prog.rv_n, prog.rv_a, prog.epilogue, spectrum,
+                ExplainConfig(enabled=True, top_traces=j), kernel)
+        got = kx.explain_epilogue(*args)
+        check(spectrum is not wide or got.counters.shape[1] > kx.SUS,
+              f"tiny K15 ({kernel}): Ke {got.counters.shape[1]} is not past {kx.SUS}")
+        want = kx.explain_plain(*args)
+        check(torch.equal(explained_bits(torch, got), explained_bits(torch, want)),
+              f"tiny K15 ({kernel}, collapse {collapse}, J {j}, Ke {got.counters.shape[1]}) "
+              "differs from its plain version")
+        n += 1
     return n
 
 
@@ -6591,9 +6607,8 @@ def phase_explain(torch, spmv, pattern, graphs, giant_k15, src, workdir):
     w0 = int(np.datetime64(str(bundle.window["start"]).replace(" ", "T"), "us").astype(np.int64))
     (table, mask, nrm, abn, rng), built = builds[min(k for k in builds if k >= w0)]
     g_n = built[0].normal
-    plan = kx.explain_plan(int(g_n.kind.shape[0]), int(built[0].abnormal.kind.shape[0]),
-                           ex.top_traces, kx.n_suspects(
-                               min(scfg.spectrum.n_rows, int(g_n.cov_unique.shape[0])), ex))
+    plan = kx.window_plan(g_n, built[0].abnormal, kernel, ex.top_traces, kx.n_suspects(
+        min(scfg.spectrum.n_rows, int(g_n.cov_unique.shape[0])), ex))
     groups = [r.batch_windows or 1 for r in ranked]
     expect = expected_counts(kernel, len(ranked) + 1, programs=s.dispatches + 1,
                              groups=round(sum(1 / b for b in groups if b > 1)),
@@ -7513,10 +7528,8 @@ def phase_serve(torch, spmv, pattern, workdir, replay_windows, fault, src):
                                                     svc.config.detector)
         g, _, k, _ = prepare_window_graph(win, mask, nrm, abn, svc.config, explain=True)
         ex = ExplainConfig(enabled=True)
-        plan = kx.explain_plan(int(g.normal.kind.shape[0]), int(g.abnormal.kind.shape[0]),
-                               ex.top_traces, kx.n_suspects(
-                                   min(svc.config.spectrum.n_rows,
-                                       int(g.normal.cov_unique.shape[0])), ex))
+        plan = kx.window_plan(g.normal, g.abnormal, k, ex.top_traces, kx.n_suspects(
+            min(svc.config.spectrum.n_rows, int(g.normal.cov_unique.shape[0])), ex))
         expect = expected_counts(k, 2, programs=2, explained=(1, plan.kernel_launches))
         check(counts == expect, f"serve/explain: launch counts {counts}, want {expect}")
         launches["serve/explain"] = counts
@@ -8432,10 +8445,11 @@ def main(argv=None) -> int:
             # K15: the explained program's attribution epilogue
             # (extract.py:59 _slot_map, :74 _contrib_rows, :172
             # _top_traces, and :212's gathers; its blob twin :277), one
-            # call an explained program: explain_tiles, then explain_merge
-            # passes (kernel_launches). The main path's calls: the
+            # call an explained program: the route's fill (explain_cols
+            # or explain_sparse), then explain_merge passes
+            # (kernel_launches). The main path's calls: the
             # incident the explain phase's stream run opened.
-            "kernels": ["explain_tiles", "explain_merge"],
+            "kernels": ["explain_cols", "explain_sparse", "explain_merge"],
             "launches": sum(c["explain_launches"] for c in launches.values()),
             "kernel_launches": sum(c["explain_kernel_launches"] for c in launches.values()),
             "max_abs_err": 0.0,

@@ -1,6 +1,6 @@
-"""K15, the explained program's attribution epilogue, as a hand-written
-CUDA kernel pair (``csrc/explain_epilogue.cu``) with its plain PyTorch
-version beside it.
+"""K15, the explained program's attribution epilogue, as hand-written
+CUDA kernels (``csrc/explain_epilogue.cu``) with their plain PyTorch
+version beside them.
 
 It replaces what XLA compiles for the TPU in
 ``microrank_tpu/explain/extract.py``: ``:59`` ``_slot_map``, ``:74``
@@ -28,12 +28,13 @@ program). From a finished rank program (K6's epilogue: the weights and
 ``explain_epilogue(normal, abnormal, rv_n, rv_a, epilogue, spectrum_cfg,
 explain_cfg, kernel)``: on CPU tensors ``explain_plain`` (JAX's
 expressions in JAX's order, its top-J ``ops.epilogue.top_k_tiebroken``);
-on CUDA tensors one call of the library (``explain_tiles``, then
-``explain_merge`` passes as ``explain_plan`` plans them), counted in
-``explain_epilogue.launches`` (calls) and ``.kernel_launches`` (the
-kernels the calls launched) — or it raises: there is no fallback for a
-CUDA tensor. On the card J is at most ``J_MAX`` (the bitonic path's
-tile holds 2J keys); the plain version takes any J.
+on CUDA tensors one call of the library (the route's fill,
+``explain_cols`` for the bitmap and ELL views or ``explain_sparse`` for
+the op-major and trace-major ones, then ``explain_merge`` passes, as
+``explain_plan`` plans them), counted in ``explain_epilogue.launches``
+(calls) and ``.kernel_launches`` (the kernels the calls launched) — or
+it raises: there is no fallback for a CUDA tensor. On the card J is at
+most ``J_MAX``; the plain version takes any J.
 """
 
 from __future__ import annotations
@@ -69,13 +70,22 @@ ROUTES = {
     "pcsr": ELL, "csr": OP_MAJOR,
     "coo": TRACE_MAJOR, "pallas": TRACE_MAJOR, "dense": TRACE_MAJOR, "dense_bf16": TRACE_MAJOR,
 }
-TILE_MIN = 256    # columns a fill tile, at least (csrc kTileMin)
-TILE_WIDE = 2048  # the widest tile the warp-select's plan takes
-TILE_MAX = 4096   # the bitonic path's largest tile (csrc kTileMax)
-FILL_BLOCKS = 256  # fill blocks a plan aims for: an H100's 132 SMs about twice
-ROWS = 8          # suspect rows a fill block holds (csrc kRows)
+SUS = 32          # suspects a fill block holds: one match word (csrc kSus)
 WARP_J = 32       # J up to this: the warp-select (csrc kWarpJ)
-J_MAX = TILE_MAX // 2
+J_MAX = 2048      # the bitonic path's largest J (csrc kJMax)
+FILL_BLOCKS = 264  # fill blocks a plan aims for: two an SM of an H100's 132
+MERGE_WARP = 8192  # keys a warp-select merge block folds (csrc kMergeWarp)
+SORT_MIN = 1024   # keys a bitonic merge block sorts, at least (csrc kSortMin)
+SORT_MAX = 8192   # the bitonic path's largest sort in shared memory (csrc kSortMax)
+# A fill unit's least and largest size by route (csrc kUnitMin, kUnitMax):
+# columns a tile of the bitmap, ELL and op-major views, entries a chunk of
+# the trace-major one.
+UNITS = {BITMAP: (128, 2048), ELL: (16, 2048), OP_MAJOR: (128, 2048), TRACE_MAJOR: (64, 1024)}
+# Suspects a fill block holds by route (csrc kChunkRows): SUS where the
+# block reads a view all its rows share (ELL, trace-major); a warp's row
+# each (8) where a row reads its own bitmap row or op-major range.
+CHUNK_ROWS = {BITMAP: 8, ELL: SUS, OP_MAJOR: 8, TRACE_MAJOR: SUS}
+INT32_MAX = 2**31 - 1
 
 
 class Explained(NamedTuple):
@@ -187,9 +197,13 @@ class ExplainPlan(NamedTuple):
     """One K15 call, as the host plans it (``explain_plan``)."""
 
     select: str       # "warp" (J <= WARP_J) or "bitonic"
-    tile: int         # columns a fill tile; a merge group holds tile keys
-    lists: int        # the fill's tiles (candidate lists a row)
-    group: int        # lists a merge block folds (tile // J)
+    route: int        # the staged view's route (ROUTES)
+    unit: tuple       # per partition: columns a tile, or entries a chunk
+    units: tuple      # per partition: its tiles or chunks (candidate lists a row)
+    chunks: int       # suspect chunks of CHUNK_ROWS[route] (grid y of the fill)
+    lists: int        # the candidate lists of the partition with the most
+    group: int        # lists a merge block folds (merge_keys // J)
+    merge_keys: int   # keys a merge block takes
     passes: tuple     # the lists left after each merge pass (the last is 1)
     fill_smem: int    # a fill block's dynamic shared memory, bytes
 
@@ -197,49 +211,117 @@ class ExplainPlan(NamedTuple):
     def kernel_launches(self) -> int:
         return 1 + len(self.passes)
 
+    @property
+    def fill_blocks(self) -> int:
+        """The fill's grid: each chunk's units, and its terms block."""
+        return (sum(self.units) + 1) * self.chunks
 
-def explain_plan(t_n: int, t_a: int, j: int, ke: int) -> ExplainPlan:
-    """K15's launches for partitions of ``t_n`` and ``t_a`` padded
-    columns, a top-``j`` and ``ke`` suspects: tiles of the widest power of
-    two from TILE_WIDE down to TILE_MIN columns that still gives the fill
-    FILL_BLOCKS blocks (a tile, a chunk of ROWS suspects, a partition: a
-    window of few columns spreads its fill, whose blocks scan a slab row
-    or a tile's entries, over more of the card; a wide one keeps fewer
-    tiles and merge passes); past WARP_J (the warp-select) at least the
-    least power of two >= 2J (a bitonic sort of the tile's keys); both
-    partitions over the larger one's tiles; then merge passes of tile //
-    J lists a group until one is left. Pure: the C library checks the
-    same rules again."""
-    if not 1 <= j <= J_MAX or min(t_n, t_a) < 1 or ke < 1:
+
+def _pow2_at_least(n: int) -> int:
+    return max(2, 1 << (int(n) - 1).bit_length())
+
+
+def explain_plan(route: int, cols: tuple, j: int, ke: int, width: tuple = (1, 1),
+                 entries: tuple = (1, 1)) -> ExplainPlan:
+    """K15's launches for a window whose partitions have ``cols`` padded
+    columns (ELL slabs ``width`` cells a column; trace-major arrays
+    ``entries`` long), a top-``j`` and ``ke`` suspects. Each partition is
+    planned on its own work: units of columns (the bitmap and op-major
+    views), of columns of ``width`` cells (ELL) or of entries (trace-major),
+    the largest power of two within ``UNITS[route]`` (one quantum of
+    cells or entries for both partitions) that still gives the fill
+    FILL_BLOCKS blocks over its suspect chunks (past WARP_J, units of at
+    least 2J); then merge passes of ``merge_keys // j`` lists a group
+    until one is left. Pure: the C library checks the same rules again."""
+    if not 1 <= j <= J_MAX or min(cols) < 1 or ke < 1:
         raise ValueError(f"explain_plan: 1 <= top_traces <= {J_MAX} on the card, at least "
-                         f"one column and one suspect (got {j}, {t_n}, {t_a}, {ke})")
+                         f"one column and one suspect (got {j}, {cols}, {ke})")
+    chunks = -(-ke // CHUNK_ROWS[route])
+    if max(cols) > INT32_MAX or chunks > 65535 or 2 * ke > INT32_MAX:
+        raise ValueError(f"explain_plan: {max(cols)} columns or {ke} suspects is past the "
+                         "card's grid")
+    if route == ELL and not all(1 <= w <= 4096 for w in width):
+        raise ValueError(f"explain_plan: an ELL slab of 1 to 4,096 cells a column (got {width})")
+    sizes = tuple(entries) if route == TRACE_MAJOR else tuple(cols)
+    if min(sizes) < 1:
+        raise ValueError(f"explain_plan: a trace-major view of at least one entry (got {sizes})")
     warp = j <= WARP_J
-    blocks = 2 * -(-ke // ROWS)
-    tile = TILE_WIDE
-    while tile > TILE_MIN and -(-max(t_n, t_a) // tile) * blocks < FILL_BLOCKS:
-        tile //= 2
-    if not warp:
-        tile = max(tile, 1 << (2 * j - 1).bit_length())
-    lists = -(-max(t_n, t_a) // tile)
-    if lists > 65535:
-        raise ValueError(f"explain_plan: {max(t_n, t_a)} columns is past 65,535 tiles")
-    group = tile // j
+    least, most = UNITS[route]
+    if not warp:   # fewer, wider units: a bitonic merge folds few lists
+        least = min(most, max(least, _pow2_at_least(2 * j)))
+    per = tuple(width) if route == ELL else (1, 1)
+    target = -(-FILL_BLOCKS // chunks)
+    quantum = most * max(per)
+    while True:
+        unit = tuple(min(most, max(least, 1 << (max(1, quantum // w).bit_length() - 1)))
+                     for w in per)
+        units = tuple(-(-n // c) for n, c in zip(sizes, unit))
+        if sum(units) >= target or all(c == least for c in unit):
+            break
+        quantum //= 2
+    merge_keys = MERGE_WARP if warp else max(SORT_MIN, _pow2_at_least(2 * j))
+    group = merge_keys // j
+    lists = max(units)
+    if sum(units) >= INT32_MAX or -(-lists // group) > 65535:
+        raise ValueError(f"explain_plan: {sizes} is past the card's grid")
     passes, n = [], lists
     while n > 1:
         n = -(-n // group)
         passes.append(n)
-    return ExplainPlan("warp" if warp else "bitonic", tile, lists, group, tuple(passes),
-                       ROWS * tile * 4 + (0 if warp else tile * 8))
+    if route in (BITMAP, ELL):
+        smem = max(unit) * (12 if warp else 16)
+    else:
+        smem = 0 if warp else 8 * _pow2_at_least(max(unit) + 2 * j)
+    return ExplainPlan("warp" if warp else "bitonic", route, unit, units, chunks, lists, group,
+                       merge_keys, tuple(passes), smem)
+
+
+def window_plan(normal: PartitionGraph, abnormal: PartitionGraph, kernel: str, j: int,
+                ke: int) -> ExplainPlan:
+    """``explain_plan`` for a window's staged views (shapes only: no
+    device read)."""
+    route = ROUTES[kernel]
+    parts = (normal, abnormal)
+    cols = tuple(int(g.kind.shape[0]) for g in parts)
+    width = tuple(int(g.pc_ell_op.shape[1]) for g in parts) if route == ELL else (1, 1)
+    entries = tuple(_entries(g) for g in parts) if route == TRACE_MAJOR else (1, 1)
+    return explain_plan(route, cols, j, ke, width, entries)
+
+
+def _entries(g: PartitionGraph) -> int:
+    """The trace-major arrays' length as the kernel reads them."""
+    return min(int(g.inc_op.shape[0]), int(g.inc_trace.shape[0]), int(g.sr_val.shape[0]))
+
+
+def chunk_edges(inc_trace: torch.Tensor, n_inc: int, t_pad: int, unit: int, units: int):
+    """The trace-major fill's split of a partition (csrc ``chunk_edges``),
+    for the tests: (starts int64[units + 1], columns int64[units + 1]).
+    Chunk c reads entries [starts[c], starts[c + 1]) and owns columns
+    [columns[c], columns[c + 1]): starts[0] = 0, starts[c] the first
+    entry at or past c * unit that starts a trace (n_inc when none), its
+    trace its first column (t_pad past the entries)."""
+    trace = inc_trace[:n_inc].long()
+    first = torch.ones(min(n_inc, 1), dtype=torch.bool)
+    heads = torch.nonzero(torch.cat([first, trace[1:] != trace[:-1]])).flatten()
+    heads = torch.cat([heads, torch.tensor([n_inc])])
+    nominal = torch.arange(units + 1, dtype=torch.int64) * unit
+    starts = heads[torch.searchsorted(heads, nominal).clamp(max=heads.numel() - 1)]
+    starts[0] = 0
+    columns = torch.full_like(starts, t_pad)
+    inside = starts < n_inc
+    columns[inside] = trace[starts[inside]].clamp(0, t_pad)
+    columns[0] = 0
+    return starts, columns
 
 
 # The argument block of ``mr_explain_launch`` (csrc ``Word``): per
 # partition rv, n_cols, n_traces, cov_bits, inv_tracelen, ell_op, ell_rs,
 # kind, tracelen, indptr, trace_om, val_om, inc_op, inc_trace, sr_val,
-# n_inc, row_bytes, width, t; then top_idx, n_weight, a_weight,
-# n_present, a_present, n_cov, a_cov, counters, terms, mass, trace_idx,
-# trace_val, the two key scratches, route, v, ke, j, tile, lists, group,
-# eps's float32 bits, device, stream.
-PART_WORDS = 19
+# n_inc, row_bytes, entries, width, t, unit, units; then top_idx,
+# n_weight, a_weight, n_present, a_present, n_cov, a_cov, counters,
+# terms, mass, trace_idx, trace_val, the two key scratches, route, v, ke,
+# j, lists, group, merge_keys, eps's float32 bits, device, stream.
+PART_WORDS = 22
 ARGS = struct.Struct(f"<{2 * PART_WORDS + 24}q")
 
 
@@ -251,14 +333,16 @@ def _ptr(t: torch.Tensor, keep: list, dtype=torch.int32) -> int:
     return f.data_ptr()
 
 
-def _part_words(g: PartitionGraph, rv: torch.Tensor, route: int, keep: list) -> list:
+def _part_words(g: PartitionGraph, rv: torch.Tensor, route: int, unit: int, units: int,
+                keep: list) -> list:
     """One partition's words: its route's fields as the kernel reads them,
-    0 for the others."""
+    0 for the others, and its share of the plan."""
     def ptr(t, dtype=torch.int32):
         return _ptr(t, keep, dtype)
 
     t_pad = int(g.kind.shape[0])
-    w = [ptr(rv, torch.float32), ptr(g.n_cols), ptr(g.n_traces)] + [0] * 13 + [0, 0, t_pad]
+    w = [ptr(rv, torch.float32), ptr(g.n_cols), ptr(g.n_traces)] + [0] * 13 + [0, 0, 0, t_pad,
+                                                                                  unit, units]
     if route == BITMAP:
         w[3] = ptr(g.cov_bits, torch.uint8)
         w[4] = ptr(g.inv_tracelen, torch.float32)
@@ -270,7 +354,7 @@ def _part_words(g: PartitionGraph, rv: torch.Tensor, route: int, keep: list) -> 
         w[6] = ptr(g.pc_ell_rs, torch.float32)
         w[7] = ptr(g.kind)
         w[8] = ptr(g.tracelen)
-        w[17] = int(g.pc_ell_op.shape[1])
+        w[18] = int(g.pc_ell_op.shape[1])
     elif route == OP_MAJOR:
         w[9] = ptr(g.inc_indptr_op)
         w[10] = ptr(g.inc_trace_opmajor)
@@ -280,6 +364,7 @@ def _part_words(g: PartitionGraph, rv: torch.Tensor, route: int, keep: list) -> 
         w[13] = ptr(g.inc_trace)
         w[14] = ptr(g.sr_val, torch.float32)
         w[15] = ptr(g.n_inc)
+        w[17] = _entries(g)
     return w
 
 
@@ -315,7 +400,7 @@ def explain_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, rv_n: tor
                      rv_a: torch.Tensor, epi: Epilogue, spectrum_cfg: SpectrumConfig,
                      explain_cfg: ExplainConfig, kernel: str) -> Explained:
     """``explain_plain``'s results: CPU tensors run it; CUDA tensors
-    launch K15 once (``explain_tiles``, then the merge passes), or
+    launch K15 once (the route's fill, then the merge passes), or
     raise. The outputs are views of one fresh allocation."""
     dev = rv_n.device
     if dev.type == "cpu":
@@ -326,7 +411,7 @@ def explain_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, rv_n: tor
     _check(normal, abnormal, rv_n, rv_a, epi, kernel)
     j = int(explain_cfg.top_traces)
     ke = n_suspects(int(epi.top_idx.shape[0]), explain_cfg)
-    plan = explain_plan(int(normal.kind.shape[0]), int(abnormal.kind.shape[0]), j, ke)
+    plan = window_plan(normal, abnormal, kernel, j, ke)
     sizes = (4 * ke, len(METHODS) * ke, 2 * ke, 2 * ke * j, 2 * ke * j)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     counters, terms, mass, trace_idx, trace_val = torch.split_with_sizes(flat, sizes)
@@ -338,7 +423,8 @@ def explain_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, rv_n: tor
         keys_b = torch.empty(rows * plan.passes[0] * j, dtype=torch.int64, device=dev)
     route = ROUTES[kernel]
     keep: list = []
-    words = (_part_words(normal, rv_n, route, keep) + _part_words(abnormal, rv_a, route, keep))
+    words = (_part_words(normal, rv_n, route, plan.unit[0], plan.units[0], keep)
+             + _part_words(abnormal, rv_a, route, plan.unit[1], plan.units[1], keep))
 
     def ptr(t, dtype=torch.int32):
         return _ptr(t, keep, dtype)
@@ -352,7 +438,7 @@ def explain_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, rv_n: tor
         counters.data_ptr(), terms.data_ptr(), mass.data_ptr(), trace_idx.data_ptr(),
         trace_val.data_ptr(), 0 if keys_a is None else keys_a.data_ptr(),
         0 if keys_b is None else keys_b.data_ptr(), route, int(epi.n_weight.shape[-1]), ke, j,
-        plan.tile, plan.lists, plan.group, f32_bits(spectrum_cfg.eps), index,
+        plan.lists, plan.group, plan.merge_keys, f32_bits(spectrum_cfg.eps), index,
         torch._C._cuda_getCurrentRawStream(index)))
     if rc != 0:
         raise RuntimeError(f"explain_epilogue launch failed: "
@@ -364,8 +450,8 @@ def explain_epilogue(normal: PartitionGraph, abnormal: PartitionGraph, rv_n: tor
 
 
 # Calls that launched K15 (a plain int; explain_epilogue is the one place
-# that launches it), and the kernel launches they made (one explain_tiles
-# a call, the rest explain_merge passes).
+# that launches it), and the kernel launches they made (one fill a call,
+# the rest explain_merge passes).
 explain_epilogue.launches = 0
 explain_epilogue.kernel_launches = 0
 
@@ -402,9 +488,12 @@ def load_library() -> ctypes.CDLL:
             lib.mr_explain_launch.argtypes = [ctypes.c_char_p]  # ARGS, packed
             lib.mr_explain_error_string.restype = ctypes.c_char_p
             lib.mr_explain_error_string.argtypes = [ctypes.c_int]
-            out = (ctypes.c_int32 * 6)()
+            out = (ctypes.c_int32 * 19)()
             lib.mr_explain_config(out)
-            if tuple(out) != (TILE_MIN, TILE_MAX, ROWS, WARP_J, ARGS.size // 8, 256):
+            units = tuple(x for r in sorted(UNITS) for x in UNITS[r])
+            rows = tuple(CHUNK_ROWS[r] for r in sorted(CHUNK_ROWS))
+            if tuple(out) != (SUS, WARP_J, ARGS.size // 8, 256, MERGE_WARP, SORT_MIN,
+                              SORT_MAX) + units + rows:
                 raise RuntimeError("explain_epilogue: the library's limits or argument block "
                                    "are not the wrapper's")
             _lib = lib

@@ -18,7 +18,8 @@ over by ``graph_from_numpy``):
 * the bundle against the float64 oracle (the port's twin of JAX's,
   itself held to JAX's), the bundle's round trip, table and journal
   record, the store's ring and ``GET /explainz`` (JAX's unit tests);
-* ``explain_plan``, the card's launch plan.
+* ``explain_plan``, the card's launch plan, and the trace-major fill's
+  chunks (``chunk_edges``) modelled against the plain top traces.
 """
 
 import json
@@ -29,6 +30,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from conftest import partition_case
 from microrank_tpu.config import ExplainConfig as JaxExplain
@@ -401,31 +405,171 @@ def test_config_defaults_are_jaxs():
 # ------------------------------------------------------------ the plan
 
 
-@pytest.mark.parametrize("t_n,t_a,j,ke,select,tile,lists,passes", [
-    (96, 8, 5, 11, "warp", 256, 1, ()),
-    (7_168, 448, 5, 11, "warp", 256, 28, (1,)),
-    (7_168, 448, 40, 11, "bitonic", 256, 28, (5, 1)),
-    (65_536, 100, 5, 11, "warp", 1024, 64, (1,)),
-    (262_144, 262_144, 5, 11, "warp", 2048, 128, (1,)),
-    (1_310_720, 1_310_720, 5, 11, "warp", 2048, 640, (2, 1)),
-    (1_310_720, 1_310_720, 32, 2, "warp", 2048, 640, (10, 1)),
-    (300_000, 10, 40, 11, "bitonic", 2048, 147, (3, 1)),
-    (10_000, 10, 2048, 1, "bitonic", 4096, 3, (2, 1)),
+B, E, O, T = kx.BITMAP, kx.ELL, kx.OP_MAJOR, kx.TRACE_MAJOR
+
+
+@pytest.mark.parametrize("route,cols,j,ke,width,entries,select,unit,units,passes", [
+    # config 5: the collapsed kind window, the uncollapsed pcsr slab
+    (B, (96, 8), 5, 11, (1, 1), (1, 1), "warp", (128, 128), (1, 1), ()),
+    (E, (7_168, 448), 5, 11, (512, 256), (1, 1), "warp", (16, 32), (448, 14), (1,)),
+    (T, (7_168, 448), 40, 11, (1, 1), (1_048_576, 65_536), "bitonic", (1024, 1024), (1024, 64),
+     (41, 2, 1)),
+    (O, (65_536, 100), 5, 11, (1, 1), (1, 1), "warp", (256, 256), (256, 1), (1,)),
+    (B, (262_144, 262_144), 5, 11, (1, 1), (1, 1), "warp", (2048, 2048), (128, 128), (1,)),
+    (E, (1_310_720, 1_310_720), 5, 11, (4, 4), (1, 1), "warp", (2048, 2048), (640, 640), (1,)),
+    (T, (1_310_720, 1_310_720), 32, 2, (1, 1), (4_194_304, 4_194_304), "warp", (1024, 1024),
+     (4096, 4096), (16, 1)),
+    (O, (300_000, 10), 40, 11, (1, 1), (1, 1), "bitonic", (2048, 2048), (147, 1), (6, 1)),
+    (T, (10_000, 10), 2048, 1, (1, 1), (65_536, 64), "bitonic", (1024, 1024), (64, 1),
+     (32, 16, 8, 4, 2, 1)),
+    # the collapsed trace-major window (dense, coo): chunks of 64 entries
+    (T, (96, 8), 5, 11, (1, 1), (16_384, 2_048), "warp", (64, 64), (256, 32), (1,)),
 ])
-def test_explain_plan(t_n, t_a, j, ke, select, tile, lists, passes):
-    plan = kx.explain_plan(t_n, t_a, j, ke)
-    assert (plan.select, plan.tile, plan.lists, plan.passes) == (select, tile, lists, passes)
-    assert plan.group == tile // j and plan.kernel_launches == 1 + len(passes)
-    assert plan.fill_smem == kx.ROWS * tile * 4 + (0 if select == "warp" else tile * 8)
-    assert plan.fill_smem <= 227 * 1024 and tile >= 2 * j
+def test_explain_plan(route, cols, j, ke, width, entries, select, unit, units, passes):
+    plan = kx.explain_plan(route, cols, j, ke, width, entries)
+    assert (plan.select, plan.unit, plan.units, plan.passes) == (select, unit, units, passes)
+    assert plan.lists == max(units) and plan.group == plan.merge_keys // j
+    assert plan.kernel_launches == 1 + len(passes)
+    big = max(unit)
+    if route in (B, E):
+        assert plan.fill_smem == big * (12 if select == "warp" else 16)
+    else:
+        assert plan.fill_smem == (0 if select == "warp" else 8 * kx._pow2_at_least(big + 2 * j))
+    assert plan.fill_smem <= 8 * kx.SORT_MAX
 
 
-@pytest.mark.parametrize("t_n,t_a,j,ke", [(8, 8, 0, 11), (8, 8, kx.J_MAX + 1, 11),
-                                          (0, 8, 5, 11), (8, 8, 5, 0),
-                                          (2048 * 65536, 8, 5, 11)])
-def test_explain_plan_refuses(t_n, t_a, j, ke):
+@pytest.mark.parametrize("cols,j,ke", [((8, 8), 0, 11), ((8, 8), kx.J_MAX + 1, 11),
+                                       ((0, 8), 5, 11), ((8, 8), 5, 0),
+                                       ((2**31, 8), 5, 11), ((8, 8), 5, 32 * 65_535 + 1)])
+def test_explain_plan_refuses(cols, j, ke):
     with pytest.raises(ValueError):
-        kx.explain_plan(t_n, t_a, j, ke)
+        kx.explain_plan(kx.BITMAP, cols, j, ke)
+
+
+def test_explain_plan_refuses_a_view_it_cannot_read():
+    with pytest.raises(ValueError, match="ELL"):
+        kx.explain_plan(kx.ELL, (8, 8), 5, 11, width=(8192, 8))
+    with pytest.raises(ValueError, match="trace-major"):
+        kx.explain_plan(kx.TRACE_MAJOR, (8, 8), 5, 11, entries=(0, 8))
+
+
+@settings(max_examples=300, deadline=None)
+@given(route=st.sampled_from([B, E, O, T]), t_n=st.integers(1, 3_000_000),
+       t_a=st.integers(1, 3_000_000), w_n=st.sampled_from([1, 2, 4, 8, 64, 512, 4096]),
+       w_a=st.sampled_from([1, 2, 4, 8, 64, 512, 4096]), e_n=st.integers(1, 40_000_000),
+       e_a=st.integers(1, 40_000_000), j=st.integers(1, kx.J_MAX), ke=st.integers(1, 3_000))
+def test_explain_plan_owns_every_column_and_entry_once(route, t_n, t_a, w_n, w_a, e_n, e_a, j,
+                                                       ke):
+    """Each partition's units tile its columns (or entries) once and no
+    further than one unit past them; the fill meets its block target
+    unless every unit is at its least; the merge folds every list."""
+    plan = kx.explain_plan(route, (t_n, t_a), j, ke, (w_n, w_a), (e_n, e_a))
+    sizes = (e_n, e_a) if route == T else (t_n, t_a)
+    least, most = kx.UNITS[route]
+    for n, c, u in zip(sizes, plan.unit, plan.units):
+        assert least <= c <= most and c & (c - 1) == 0
+        assert (u - 1) * c < n <= u * c
+    if j > kx.WARP_J:
+        assert min(plan.unit) >= min(most, kx._pow2_at_least(2 * j))
+    rows = kx.CHUNK_ROWS[route]
+    assert plan.chunks == -(-ke // rows) and plan.chunks * rows >= ke
+    assert plan.fill_blocks == (sum(plan.units) + 1) * plan.chunks
+    assert (sum(plan.units) * plan.chunks >= kx.FILL_BLOCKS
+            or all(c == max(least, min(most, kx._pow2_at_least(2 * j))) if j > kx.WARP_J
+                   else c == least for c in plan.unit))
+    n = plan.lists
+    for after in plan.passes:
+        assert after == -(-n // plan.group) and after < n
+        n = after
+    assert n == 1 and plan.group * j <= plan.merge_keys
+    if route in (O, T) and plan.select == "bitonic":
+        assert kx._pow2_at_least(max(plan.unit) + 2 * j) <= kx.SORT_MAX
+
+
+def _sorted_traces(counts, t_pad):
+    """A trace-major column vector: trace t repeated counts[t] times, then
+    padding (trace 0) to a power of two."""
+    trace = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    e_pad = max(8, 1 << max(0, int(len(trace) - 1).bit_length()))
+    padded = np.concatenate([trace, np.zeros(e_pad - len(trace), np.int32)])
+    return torch.from_numpy(padded), len(trace)
+
+
+@settings(max_examples=300, deadline=None)
+@given(counts=st.lists(st.integers(0, 300), min_size=1, max_size=400),
+       extra_cols=st.integers(0, 600), j=st.integers(1, 64), ke=st.integers(1, 80))
+def test_chunk_edges_split_the_entries_at_trace_starts(counts, extra_cols, j, ke):
+    """The trace-major fill's chunks: every entry read by one chunk, every
+    column [0, T) owned by one chunk, each chunk's entries inside its
+    columns, no trace (so no run of one (trace, op)) across a chunk edge,
+    and at most `unit` traces a chunk (what bounds a row's items)."""
+    t_pad = len(counts) + extra_cols
+    trace, n_inc = _sorted_traces(counts, t_pad)
+    plan = kx.explain_plan(T, (t_pad, 8), j, ke, entries=(int(trace.shape[0]), 8))
+    unit, units = plan.unit[0], plan.units[0]
+    starts, cols = kx.chunk_edges(trace, n_inc, t_pad, unit, units)
+    assert starts[0] == 0 and starts[-1] == n_inc and cols[0] == 0 and cols[-1] == t_pad
+    assert bool(torch.all(starts[1:] >= starts[:-1])) and bool(torch.all(cols[1:] >= cols[:-1]))
+    t = trace[:n_inc].long()
+    for c in range(units):
+        lo, hi = int(starts[c]), int(starts[c + 1])
+        if lo < hi:
+            assert int(cols[c]) <= int(t[lo:hi].min()) and int(t[lo:hi].max()) < int(cols[c + 1])
+            assert int(torch.unique(t[lo:hi]).numel()) <= unit
+        if 0 < lo < n_inc:
+            assert int(t[lo]) != int(t[lo - 1])
+            assert lo >= c * unit
+
+
+def _model_top_traces(g, sus, rv, j, unit, units, t_pad):
+    """The trace-major fill's rule, in numpy: per chunk and suspect, the J
+    least keys of its items (the columns an entry of the chunk names
+    with the suspect's op, at their contribution), its first J live
+    columns no item names (+0) and its first J dead columns (-inf); then
+    the J least over the chunks (the merge)."""
+    n_inc = int(g.n_inc)
+    n_live = int(g.n_traces) if int(g.n_cols) < 0 else int(g.n_cols)
+    contrib = kx.contrib_rows(g, sus, rv, "coo").numpy()
+    starts, cols = kx.chunk_edges(g.inc_trace, n_inc, t_pad, unit, units)
+    ops = np.clip(g.inc_op[:n_inc].numpy(), 0, g.cov_unique.shape[0])
+    tr = g.inc_trace[:n_inc].numpy()
+    out_idx, out_val = [], []
+    for r, o in enumerate(sus.tolist()):
+        cands = []
+        for c in range(units):
+            lo, hi = int(cols[c]), int(cols[c + 1])
+            e = slice(int(starts[c]), int(starts[c + 1]))
+            items = sorted({int(t) for t, op in zip(tr[e], ops[e]) if op == o and t < n_live})
+            assert all(lo <= t < hi for t in items)
+            keys = [(-float(contrib[r, t]), t) for t in items]
+            zeros = [t for t in range(lo, max(lo, min(hi, n_live))) if t not in set(items)][:j]
+            keys += [(-0.0, t) for t in zeros]
+            keys += [(float("inf"), t) for t in range(max(lo, n_live), hi)][:j]
+            cands += sorted(keys)[:j]
+        best = sorted(cands)[:j]
+        out_idx.append([t for _, t in best] + [0] * (j - len(best)))
+        out_val.append([-v for v, _ in best] + [float("-inf")] * (j - len(best)))
+    return np.array(out_idx, np.int32), np.array(out_val, np.float32)
+
+
+@pytest.mark.parametrize("collapse", ["off", "on"])
+@pytest.mark.parametrize("unit", [64, 256])
+def test_trace_major_chunks_give_the_plain_top_traces(kind_case, parts, collapse, unit):
+    """The trace-major fill's split and its zero columns, modelled on the
+    CPU over JAX's explain window: the chunks' candidates merged are
+    ``top_traces_plain``'s columns and values."""
+    graph, *_ = host_graph(kind_case, parts, "coo", collapse)
+    g = port_graph(graph, "coo")
+    prog = tc._rank_program(g, PageRankConfig(), SpectrumConfig(), "coo")
+    sus = prog.epilogue.top_idx.long()
+    for part, rv in ((g.normal, prog.rv_n), (g.abnormal, prog.rv_a)):
+        t_pad = int(part.kind.shape[0])
+        units = -(-int(part.inc_op.shape[0]) // unit)
+        for j in (5, 40):
+            want_idx, want_val = kx.top_traces_plain(part, sus, rv, j, "coo")
+            idx, val = _model_top_traces(part, sus, rv, j, unit, units, t_pad)
+            np.testing.assert_array_equal(idx, want_idx.numpy())
+            np.testing.assert_array_equal(val, want_val.numpy())
 
 
 def test_every_route_has_a_view():

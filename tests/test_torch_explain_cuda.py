@@ -5,9 +5,11 @@ route (the bitmap of kind and the packed family, the pcsr ELL slab, the
 csr op-major view, the trace-major entries of coo, pallas, dense and
 dense_bf16), with ``top_traces`` 5 (the warp-select) and 40 (the
 bitonic path), on windows of one tile and of many (merge passes), with
-``top_suspects``, J past the columns, and one launch counted a call; and
-the explained program through ``stage_rank_window`` with its first five
-outputs bitwise the traced program's.
+``top_suspects``, J past the columns, and one launch counted a call; a
+collapsed trace-major window, Ke past the 32-suspect match word, traces
+that straddle a trace-major chunk's nominal edge, a partition far smaller
+than the other; and the explained program through ``stage_rank_window``
+with its first five outputs bitwise the traced program's.
 
 Every test here needs the card and skips without one. The file imports
 neither JAX nor the JAX package:
@@ -50,19 +52,27 @@ def cuda_device():
 
 
 @functools.lru_cache(maxsize=None)
-def host_window(aux, collapse, n_spans, spans_per_trace=4):
+def host_window(aux, collapse, n_spans, spans_per_trace=4, abnormal_share=1):
+    """A giant-window build; ``abnormal_share`` > 1 keeps that fraction of
+    the abnormal traces (a partition far smaller than the other)."""
     gw = giant_window(n_spans=n_spans, n_ops=192, spans_per_trace=spans_per_trace, seed=5)
+    abnormal = gw.abnormal_codes[: max(1, len(gw.abnormal_codes) // abnormal_share)]
     graph, _, _, _ = build_window_graph_from_table(
-        gw.table, None, gw.normal_codes, gw.abnormal_codes, aux=aux, collapse=collapse)
+        gw.table, None, gw.normal_codes, abnormal, aux=aux, collapse=collapse)
     return graph
 
 
-def program(kernel, n_spans, device, spans_per_trace=4):
+def program(kernel, n_spans, device, spans_per_trace=4, collapse=None, abnormal_share=1,
+            spectrum=SpectrumConfig()):
     """The window's rank program on the card: (device graph, its _Program)."""
-    aux, collapse = ROUTES[kernel]
-    host = host_window(aux, collapse, n_spans, spans_per_trace)
+    aux, default = ROUTES[kernel]
+    host = host_window(aux, collapse or default, n_spans, spans_per_trace, abnormal_share)
     dg = tc.device_subset(graph_from_numpy(tc.host_subset(host, kernel), device), kernel)
-    return dg, tc._rank_program(dg, PageRankConfig(), SpectrumConfig(), kernel)
+    return dg, tc._rank_program(dg, PageRankConfig(), spectrum, kernel)
+
+
+def k15_args(dg, out, kernel, ex, spectrum=SpectrumConfig()):
+    return (dg.normal, dg.abnormal, out.rv_n, out.rv_a, out.epilogue, spectrum, ex, kernel)
 
 
 def bits(t):
@@ -85,8 +95,7 @@ def test_k15_is_bitwise_its_plain_version(cuda_device, kernel, n_spans, j):
             kernel)
     before = (kx.explain_epilogue.launches, kx.explain_epilogue.kernel_launches)
     got = kx.explain_epilogue(*args)
-    plan = kx.explain_plan(int(dg.normal.kind.shape[0]), int(dg.abnormal.kind.shape[0]), j,
-                           int(got.counters.shape[1]))
+    plan = kx.window_plan(dg.normal, dg.abnormal, kernel, j, int(got.counters.shape[1]))
     assert (kx.explain_epilogue.launches, kx.explain_epilogue.kernel_launches) == (
         before[0] + 1, before[1] + plan.kernel_launches)
     torch.cuda.synchronize()
@@ -125,6 +134,63 @@ def test_top_suspects_and_j_past_the_columns(cuda_device, kernel):
         assert got.trace_idx.shape[1:] == (kx.n_suspects(int(out.epilogue.top_idx.shape[0]),
                                                          ex), ex.top_traces)
         assert_bitwise(got, kx.explain_plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["coo", "dense", "pallas"])
+def test_collapsed_trace_major_window(cuda_device, kernel):
+    """A collapsed build's few kind columns, each fed by many entries:
+    chunks of a few dozen entries, most inside one kind's run."""
+    dg, out = program(kernel, SIZES[0], cuda_device, spans_per_trace=12, collapse="on")
+    assert int(dg.normal.n_cols) >= 0
+    for j in (5, 40):
+        args = k15_args(dg, out, kernel, ExplainConfig(enabled=True, top_traces=j))
+        assert_bitwise(kx.explain_epilogue(*args), kx.explain_plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["kind", "pcsr", "csr", "coo"])
+def test_suspects_past_the_match_word(cuda_device, kernel):
+    """Ke 46 (top_max 40, every rank row): two chunks of suspects."""
+    spectrum = SpectrumConfig(top_max=40)
+    dg, out = program(kernel, SIZES[0], cuda_device, spectrum=spectrum)
+    ex = ExplainConfig(enabled=True, top_traces=5, top_suspects=0)
+    args = k15_args(dg, out, kernel, ex, spectrum)
+    got = kx.explain_epilogue(*args)
+    assert got.counters.shape[1] > kx.SUS
+    assert_bitwise(got, kx.explain_plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["coo", "dense_bf16"])
+def test_traces_straddle_chunk_edges(cuda_device, kernel):
+    """Traces of ~100 entries against chunks of 64 to 4,096: a chunk's
+    nominal edge falls inside a trace, which the chunk that holds the
+    trace's start sums whole."""
+    dg, out = program(kernel, 200_000, cuda_device, spans_per_trace=160)
+    ke = kx.n_suspects(int(out.epilogue.top_idx.shape[0]), ExplainConfig(enabled=True))
+    plan = kx.window_plan(dg.normal, dg.abnormal, kernel, 5, ke)
+    g = dg.normal
+    starts, _ = kx.chunk_edges(g.inc_trace.cpu(), int(g.n_inc), int(g.kind.shape[0]),
+                               plan.unit[0], plan.units[0])
+    nominal = torch.arange(plan.units[0] + 1) * plan.unit[0]
+    inside = (starts[1:-1] != nominal[1:-1]) & (nominal[1:-1] < int(g.n_inc))
+    assert bool(inside.any())
+    for j in (5, 40):
+        args = k15_args(dg, out, kernel, ExplainConfig(enabled=True, top_traces=j))
+        assert_bitwise(kx.explain_epilogue(*args), kx.explain_plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["kind", "pcsr", "csr", "coo"])
+def test_a_partition_far_smaller_than_the_other(cuda_device, kernel):
+    """An abnormal partition of 1/64 the normal one's traces: each planned
+    on its own units."""
+    dg, out = program(kernel, SIZES[1], cuda_device, abnormal_share=64)
+    t_n, t_a = int(dg.normal.kind.shape[0]), int(dg.abnormal.kind.shape[0])
+    assert 16 * t_a <= t_n
+    for j in (5, 40):
+        args = k15_args(dg, out, kernel, ExplainConfig(enabled=True, top_traces=j))
+        plan = kx.window_plan(dg.normal, dg.abnormal, kernel, j,
+                              int(out.epilogue.top_idx.shape[0]))
+        assert plan.units[1] < plan.units[0]
+        assert_bitwise(kx.explain_epilogue(*args), kx.explain_plain(*args))
 
 
 @pytest.mark.parametrize("kernel", ["kind", "pcsr", "pallas"])
