@@ -85,10 +85,12 @@ JAX or of the JAX package. Phases, one JSON line each:
               K1 launch), CUDA vs CPU at rtol 1e-5, and pcsr's ranking
               bitwise the pinned pallas run's;
    int8     — the same window with ``kind_precision="int8"``, auto,
-              collapse "on" (resolves to ``kind``): per ranked window one
-              scale launch (``quantize_amax``, the first step's scales;
-              the step kernel gives every later step's), 25 int8 pair
-              launches and 25 K1 launches of 2 SpMVs; top-1 the fault; the top-5
+              collapse "on" (resolves to ``kind``): per ranked window no
+              scale launch (``quantize_amax``: 0; the set-up's one launch
+              gives the first step's scales, counted in
+              ``setup_scale_launches``, the step kernel every later
+              step's), 25 int8 pair launches and 25 K1 launches of 2
+              SpMVs; top-1 the fault; the top-5
               tie-aware against the CPU run at rtol 5e-2 (JAX's own int8
               gate), the same n_iters;
    policy   — a ``policy.json`` in the JAX package's schema for the
@@ -142,7 +144,8 @@ JAX or of the JAX package. Phases, one JSON line each:
               one stacked program), ``batch``
               (``run(batch_windows=True)``: one stacked program for all
               windows after the loop) and ``chunked_int8`` (``chunked``
-              with ``kind_precision="int8"``: one scale launch a group,
+              with ``kind_precision="int8"``: no scale launch, the
+              set-up's launch a group gives its first [B, 4] scales,
               held to a per-window int8 run, tie-aware top-5 at 5e-2,
               bitwise reported), and ``tree`` (the default with
               ``blob_staging=False``, as ``--no-blob-staging``).
@@ -195,7 +198,9 @@ JAX or of the JAX package. Phases, one JSON line each:
               window) and ``pcsr`` (the 16 MiB run's). Each group: 25
               launches of each kernel of its route for the whole group
               (K1, the pair or K8 and its fold, the pcsr step, K5; int8
-              one ``quantize_amax`` launch); each window's n_valid and
+              no ``quantize_amax`` launch, the set-up's scales; at B = 6
+              ``setup_scales``: the set-up with scales in turns with the
+              set-up then ``quantize_amax``); each window's n_valid and
               n_iters those of its own program, its ranking tie-aware at
               rtol 1e-5 (int8: the top-5 at 5e-2; bitwise reported); the
               group through the plain step and PR 13's group kernel on
@@ -327,7 +332,11 @@ JAX or of the JAX package. Phases, one JSON line each:
               and (int8) the fused scales; timed by CUDA events behind a
               spin in turns with the plain step (new, plain, plain, new)
               beside the byte bound and the host's issue
-              time of a window's step call; the grid, blocks an SM and
+              time of a window's step call; at the int8 window the
+              set-up with the first step's scales in turns with the
+              set-up then ``quantize_amax`` and the set-up alone
+              (``kind_int8_setup_scales``), and the int8 program both
+              ways (``kind_int8_program``); the grid, blocks an SM and
               register slots; the kind window with a tol that stops it
               early, and a giant-tier window of 262,144 spans with its
               normal partition empty (NaN, and a tol run that stops
@@ -437,10 +446,11 @@ JAX or of the JAX package. Phases, one JSON line each:
               (the rows form) and the 10M-span giant window (the grid
               form, measured in the giant phase), each with an init mapped
               from the window itself (``measure_k19``): bitwise its plain
-              version, an all-miss init bitwise the cold set-up, timed in
-              turns with the cold set-up, beside the plain version and the
-              byte bound (the cold set-up's bytes and the four init
-              vectors);
+              version and K19's first design (the flag design,
+              ``warm_flags=True``), an all-miss init bitwise the cold
+              set-up, timed in turns with the cold set-up and the flag
+              design, beside the plain version and the byte bound (the
+              cold set-up's bytes and the four init vectors);
    explain  — rank provenance (K15, ``ops/explain.py``,
               ``csrc/explain_epilogue.cu``; ``phase_explain``): K15 alone
               on every route's config-5 window (kind collapsed,
@@ -650,6 +660,7 @@ def reset_counts(spmv, pattern) -> None:
     fold.fold_rows.launches = 0
     scan.csr_scan_spmv.launches = scan.csr_scan_spmv.products = 0
     setup.rank_setup.launches = setup.rank_setup.warm_launches = 0
+    setup.rank_setup.scale_launches = 0
     epilogue.rank_epilogue.launches = 0
     epilogue.rank_epilogue.by_kind.clear()
 
@@ -695,6 +706,7 @@ def read_counts(spmv, pattern) -> dict:
         "csr_scan_launches": scan.csr_scan_spmv.launches,
         "csr_scan_products": scan.csr_scan_spmv.products,
         "setup_warm_launches": setup.rank_setup.warm_launches,
+        "setup_scale_launches": setup.rank_setup.scale_launches,
         "explain_launches": explain.explain_epilogue.launches,
         "explain_kernel_launches": explain.explain_epilogue.kernel_launches,
     }
@@ -709,9 +721,10 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
     products), or of the pattern pair (four products; packed_blocked's
     through K8's own kernel, counted in blocked_launches too, and its
     fold launch) and K1 (the two call-graph terms); on every route one
-    launch per step of the step kernel (K5); with ``int8`` (kind) one
-    scale launch per window, for the first step (the step kernel takes
-    every later step's scales); PR 13's group kernel never; on
+    launch per step of the step kernel (K5); with ``int8`` (kind) no
+    scale launch: the set-up's launch a program gives the first step's
+    scales (``setup_scale_launches``), the step kernel every later
+    step's; PR 13's group kernel never; on
     every route one launch of K6's set-up and one of its epilogue a
     program, and none of the standalone fixed-order fold (its tree runs
     inside both).
@@ -739,7 +752,8 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
                             "pcsr_spmvs", "pattern_launches", "pattern_products",
                             "blocked_launches", "fold_launches", "quantize_launches",
                             "dense_launches", "dense_products", "csr_scan_launches",
-                            "csr_scan_products", "setup_warm_launches", "explain_launches",
+                            "csr_scan_products", "setup_warm_launches",
+                            "setup_scale_launches", "explain_launches",
                             "explain_kernel_launches"), 0)
     g = n if programs is None else programs
     counts["step_launches"] = STEP_LAUNCHES * steps * g
@@ -762,7 +776,7 @@ def expected_counts(kernel, n, int8=False, programs=None, folds=True, groups=0,
                       pattern_launches=steps * g, pattern_products=steps * 4 * n,
                       blocked_launches=steps * g if kernel == "packed_blocked" else 0,
                       fold_launches=steps * g if kernel == "packed_blocked" and folds else 0,
-                      quantize_launches=g if int8 else 0)
+                      setup_scale_launches=g if int8 else 0)
     return counts
 
 
@@ -1137,18 +1151,45 @@ def epilogue_bits(torch, out):
                       for t in out])
 
 
+def weights_group(torch, pattern, parts, gen, dev):
+    """A pattern group of the two partitions' shapes carrying only random
+    int8 weights (w_len over each trace pad, w_cov over the ops; the
+    bitmaps zero: neither the set-up's scales nor quantize_amax read
+    one), the last weight of each pad NaN."""
+    lead = tuple(parts[0].kind.shape[:-1])
+    windows = lead[0] if lead else None
+    out = []
+    for g in parts:
+        w_len = torch.rand(lead + (g.kind.shape[-1],), generator=gen) + 0.01
+        w_len[..., -1] = float("nan")
+        w_cov = torch.rand(lead + (g.op_present.shape[-1],), generator=gen) + 0.01
+        out.append(pattern.PatternPart(
+            pattern=torch.zeros(lead + (g.op_present.shape[-1], pattern.ROW_ALIGN),
+                                dtype=torch.uint8, device=dev),
+            w_len=w_len.to(dev), w_cov=w_cov.to(dev), w_out=None,
+            part=torch.zeros(1, device=dev), counters=torch.zeros(0, dtype=torch.int32,
+                                                                  device=dev),
+            dense=None, n_cols=int(g.kind.shape[-1])))
+    return pattern.PatternGroup(
+        parts=tuple(out), windows=windows,
+        amax_scratch=torch.zeros(pattern.MAX_VECS * (windows or 1) + 1, dtype=torch.int32,
+                                 device=dev))
+
+
 def tiny_k6_checks(torch, dev):
     """First launches of K6: the set-up on partitions of 9 and 4,100
     trace columns (a block a row beside a cluster of two) and of 9 and
     40,000 (the grid form: 10 tiles a row), collapsed and not, both
     preference forms, one window and a stacked three (one with no live
-    column); the epilogue on 300 ops (a block a window) and 9,000 (a
-    cluster of two), one window and three, k of 11 (the warp-select) and
-    40 (the radix select), every method. Each bitwise its plain version
-    and the first design's kernel on the card. Returns the number of
-    cases."""
+    column), and its keyed instances there (the first step's int8
+    scales; one window, also a warm init: K19); the epilogue on 300 ops
+    (a block a window) and 9,000 (a cluster of two), one window and
+    three, k of 11 (the warp-select) and 40 (the radix select), every
+    method. Each bitwise its plain version and the first design's kernel
+    on the card (the scales also ``quantize_amax``'s, the warm vectors
+    K19's flag design's). Returns the number of cases."""
     from microrank_tpu_torch.config import PageRankConfig, SpectrumConfig
-    from microrank_tpu_torch.ops import epilogue, setup
+    from microrank_tpu_torch.ops import epilogue, pattern, setup
 
     gen = torch.Generator().manual_seed(17)
     n = 0
@@ -1169,6 +1210,25 @@ def tiny_k6_checks(torch, dev):
                           and torch.equal(setup_bits(torch, first), setup_bits(torch, want)),
                           f"tiny set-up launch ({wide} columns, lead {lead}, collapsed "
                           f"{collapsed}, {preference}) differs from its plain version")
+                    n += 1
+                    group = weights_group(torch, pattern, parts, gen, dev)
+                    init = None if lead else [
+                        torch.rand(n_, generator=gen).to(dev) for n_ in (300, 9, 300, wide)]
+                    got = setup.rank_setup(*parts, cfg, init=init, scale_group=group)
+                    want = setup.rank_setup_plain(*parts, cfg, init, group)
+                    (_, sv_n, rv_n), (_, sv_a, rv_a) = got[:2]
+                    amax = pattern.quantize_scales(group, (rv_n, rv_a), (sv_n, sv_a))
+                    flags = None if init is None else setup.rank_setup(*parts, cfg, init=init,
+                                                                       warm_flags=True)
+                    torch.cuda.synchronize()
+                    check(torch.equal(setup_bits(torch, got[:2]), setup_bits(torch, want[:2]))
+                          and torch.equal(bits(torch, got[2]), bits(torch, want[2]))
+                          and torch.equal(bits(torch, got[2]), bits(torch, amax))
+                          and (flags is None or torch.equal(setup_bits(torch, flags),
+                                                            setup_bits(torch, want[:2]))),
+                          f"tiny keyed set-up launch ({wide} columns, lead {lead}, collapsed "
+                          f"{collapsed}, {preference}) differs from its plain version, "
+                          "quantize_amax or K19's flag design")
                     n += 1
     for v in (300, 9000):
         for lead in ((), (3,)):
@@ -1519,7 +1579,7 @@ def first_setup_wrapper(torch, marks):
                                int(cfg.preference == "paper"), setup.FORMS.index(plan.form),
                                plan.cluster, plan.grid, plan.hold,
                                views[-1].data_ptr() if sizes[-1] else 0, 0, dev.index, stream,
-                               0, 0, 0, 0, 0)
+                               *[0] * (setup.ARGS.size // 8 - 32))
         mark("pack")
         rc = lib.mr_rank_setup_launch(args)
         check(rc == 0, f"first set-up wrapper: launch failed ({rc})")
@@ -1663,7 +1723,7 @@ def today_setup_wrapper(torch, marks):
             *words, windows, v, setup.f32_bits(cfg.phi), int(cfg.preference == "paper"),
             setup.FORMS.index(plan.form), plan.cluster, plan.grid, plan.hold,
             ptrs[6] if sizes[6] else 0, 0, index,
-            torch._C._cuda_getCurrentRawStream(index), 0, 0, 0, 0, 0)
+            torch._C._cuda_getCurrentRawStream(index), *[0] * (setup.ARGS.size // 8 - 32))
         mark("pack")
         rc = lib.mr_rank_setup_launch(args)
         check(rc == 0, f"set-up wrapper replica: launch failed ({rc})")
@@ -2046,12 +2106,17 @@ def phase_env(torch, spmv, pattern, native):
     # set-up's rows form (a block, a cluster), grid form and first
     # design; the epilogue's window form (a block, a cluster) and first
     # design.
-    k6_ptxas = {**ptxas_spills(ptxas_setup, ("setup_rows", "setup_grid", "setup_first")),
+    k6_ptxas = {**ptxas_spills(ptxas_setup, ("setup_rows_flags", "setup_grid_flags",
+                                             "setup_rows", "setup_grid", "setup_first")),
                 **ptxas_spills(ptxas_epilogue, ("epilogue_window", "epilogue_first"))}
-    # setup_rows<clustered, warm>, setup_grid<warm>: K19's warm
-    # instances beside the cold ones.
-    want_k6 = {"setup_rows<false, false>", "setup_rows<true, false>", "setup_rows<false, true>",
-               "setup_rows<true, true>", "setup_grid<false>", "setup_grid<true>", "setup_first",
+    # setup_rows<clustered, warm, scales>, setup_grid<warm, scales>: K19's
+    # warm and the int8 scales' keyed instances beside the cold ones;
+    # K19's flag design (setup_rows_flags<clustered>, setup_grid_flags).
+    tf = ("false", "true")
+    want_k6 = {*(f"setup_rows<{c}, {w}, {q}>" for c in tf for w in tf for q in tf),
+               *(f"setup_grid<{w}, {q}>" for w in tf for q in tf),
+               "setup_rows_flags<false>", "setup_rows_flags<true>", "setup_grid_flags",
+               "setup_first",
                "epilogue_window<false, false>", "epilogue_window<true, false>",
                "epilogue_window<false, true>", "epilogue_window<true, true>",
                "epilogue_first"}
@@ -2427,6 +2492,7 @@ def phase_run(torch, spmv, pattern, case, normal, abnormal, collapse, kernel,
         "pcsr_launches_per_ranked_window": counts[-1]["pcsr_launches"] // n,
         "pattern_launches_per_ranked_window": counts[-1]["pattern_launches"] // n,
         "quantize_launches_per_ranked_window": counts[-1]["quantize_launches"] // n,
+        "setup_scale_launches_per_ranked_window": counts[-1]["setup_scale_launches"] // n,
         "step_launches_per_ranked_window": counts[-1]["step_launches"] // n,
         "cuda_vs_cpu_tie_aware": True,
         "cuda_vs_cpu_rtol": rtol,
@@ -3236,8 +3302,8 @@ def program_bound(spmv, card, int8=False):
     and y written; the ELL slabs' live entries, x and y; the pattern
     pairs' bitmaps [V, ceil(K/8)] with their vectors (``pattern_bound``'s
     bytes, no set-cell count needed); K5's products, pref and carry
-    (``step_bound``); int8's four scales. The set-up, the epilogue and
-    the first step's scale launch are left out (once a program)."""
+    (``step_bound``); int8's four scales. The set-up (with int8's first
+    scales) and the epilogue are left out (once a program)."""
     b = card.normal.kind.shape[0] if card.normal.kind.dim() == 2 else 1
     group = card.spmv_group
     work = group.rows if isinstance(group, spmv.PcsrGroup) else group
@@ -3284,7 +3350,7 @@ def k6_bitwise(torch, tag, dgraph, cfg, kernel):
 def stacked_program(torch, spmv, pattern, tag, card, singles, kernel, cfg, timed=True):
     """The stacked rank program (K18) on the card, as the lane issues a
     group: its launches counted (25 of each kernel of the route for the
-    whole group; int8 one scale launch), its outputs held to each
+    whole group; int8 no scale launch, the set-up's scales), its outputs held to each
     window's own program (the same n_valid and n_iters, the ranking
     tie-aware at rtol 1e-5, int8 the top-5 at 5e-2; bitwise reported),
     its steps (K5's group kernel, int8 with its [B, 4] scales) through
@@ -3441,8 +3507,9 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
         info["trace_pads"] = [int(card.normal.kind.shape[-1]), int(card.abnormal.kind.shape[-1])]
         out["kind"][str(b)] = info
         del card
-    # kind_precision="int8": one quantize_amax launch a group, the pair
-    # and K5 with [B, 4] scales, each window's own; and "bf16".
+    # kind_precision="int8": the set-up's launch gives a group's first
+    # [B, 4] scales (no quantize_amax launch), the pair and K5 take them,
+    # each window's own; and "bf16".
     for precision in ("int8", "bf16"):
         pcfg = replay_config(tl, precision)
         out[f"kind_{precision}"] = {}
@@ -3467,6 +3534,8 @@ def phase_batched(torch, spmv, pattern, replay, windows, graphs):
                 if b == 6:
                     info["step_split"] = step_split(torch, spmv, pattern, card, "kind",
                                                     int8=True)
+                    info["setup_scales"] = measure_setup_scales(
+                        torch, f"{tag}/setup_scales", card, pcfg, K6_REPS)
             out[f"kind_{precision}"][str(b)] = info
             del card
     # The config-5 window stacked twice on the routes past the dense
@@ -4808,8 +4877,8 @@ def rank_issue_split(torch, dgraph, cfg, kernel, reps=5, plain_k6=False):
     the device is in it, split in three:
 
     * the set-up before the loop: K6's set-up (``rank_setup``: the
-      preference and initial vectors), the step plan, K5's window
-      (``k5_setup``) and int8's first scales (``quantize``);
+      preference and initial vectors, and int8's first scales from the
+      same launch), the step plan and K5's window (``k5_setup``);
     * the steps, by wrapper: the pattern pair, K1 and K9 (the products)
       and K5, and the loop's own Python between them (``loop_other``);
     * the epilogue: K6's epilogue (``rank_epilogue``: the finish of both
@@ -4838,7 +4907,7 @@ def rank_issue_split(torch, dgraph, cfg, kernel, reps=5, plain_k6=False):
         return call
 
     names = {"pattern_pair_group": "pattern_pair", "coo_spmv_group": "k1",
-             "pcsr_spmv_group": "k9", "quantize_scales": "quantize",
+             "pcsr_spmv_group": "k9",
              "rank_setup": "k6_setup", "rank_epilogue": "k6_epilogue"}
     saved = {attr: getattr(tc, attr) for attr in [*names, "StepWindow"]}
     use = dict(saved)
@@ -4887,19 +4956,17 @@ def rank_issue_split(torch, dgraph, cfg, kernel, reps=5, plain_k6=False):
 
             row = {"total": (t2 - t0) * 1e3, "setup": (first - t0) * 1e3,
                    "setup_k6": dur("k6_setup"), "setup_k5_window": dur("k5_setup"),
-                   "setup_quantize": dur("quantize", hi=first),
                    "loop": (last - first) * 1e3,
                    **{f"loop_{n}": dur(n, lo=first, hi=last)
                       for n in ("pattern_pair", "k1", "k9", "k5")},
                    "epilogue": (t2 - last) * 1e3, "epilogue_k6": dur("k6_epilogue"),
                    "epilogue_pack": (t2 - t1) * 1e3}
-            row["setup_other"] = (row["setup"] - row["setup_k6"] - row["setup_k5_window"]
-                                  - row["setup_quantize"])
+            row["setup_other"] = row["setup"] - row["setup_k6"] - row["setup_k5_window"]
             row["loop_other"] = row["loop"] - sum(row[f"loop_{n}"]
                                                   for n in ("pattern_pair", "k1", "k9", "k5"))
             row["epilogue_other"] = row["epilogue"] - row["epilogue_k6"] - row["epilogue_pack"]
             row["calls"] = {n: sum(1 for e in ev if e[0] == n)
-                            for n in ("pattern_pair", "k1", "k9", "k5", "quantize", "k6_setup",
+                            for n in ("pattern_pair", "k1", "k9", "k5", "k6_setup",
                                       "k6_epilogue")}
             rows.append(row)
     finally:
@@ -4954,6 +5021,13 @@ def phase_step(torch, graphs, reps):
     int8 = device_subset(graph_from_numpy(host_subset(graphs["auto/int8"], "kind"), dev), "kind")
     out["kind_int8"] = measure_step(torch, "step/kind_int8", window_sizes(int8), reps,
                                     int8.pattern_group)
+    # The int8 set-up: its one launch with the first step's scales in
+    # turns with the set-up then quantize_amax; and the int8 program so
+    # and as the parent issued it.
+    int8_cfg = MicroRankConfig(pagerank=PageRankConfig(kind_precision="int8"))
+    out["kind_int8_setup_scales"] = measure_setup_scales(torch, "step/kind_int8_setup_scales",
+                                                         int8, int8_cfg, reps)
+    out["kind_int8_program"] = int8_program_turns(torch, int8, int8_cfg)
     # Where the kind rank program's issue goes, with K6's kernels and
     # with its plain versions in turns.
     out["kind_issue_split_ms"] = issue_split_turns(torch, kind, MicroRankConfig(), "kind")
@@ -6268,11 +6342,13 @@ def measure_k19(torch, name, dgraph, cfg, kernel, reps):
     """K19 at a staged window's set-up shapes, with an init mapped from
     the window itself (its own warm program's state tail, cold): the
     set-up's warm instance bitwise its plain version (the cold plain
-    set-up, then ``warm_override_plain``) and over 50 launches; an
+    set-up, then ``warm_override_plain``), bitwise K19's first design
+    (the flag design, ``warm_flags=True``) and over 50 launches; an
     all-miss init bitwise the cold set-up; timed by CUDA events behind a
-    spin in turns with the cold set-up (cold, warm, warm, cold), beside
-    the plain version on the card and the byte bound (the cold set-up's
-    bytes and the four init vectors read once)."""
+    spin in turns with the cold set-up and the flag design (cold, warm,
+    flags, flags, warm, cold), beside the plain version on the card and
+    the byte bound (the cold set-up's bytes and the four init vectors
+    read once)."""
     from microrank_tpu_torch.ops import setup
     from microrank_tpu_torch.rank_backends import torch_cuda as tc
 
@@ -6287,6 +6363,8 @@ def measure_k19(torch, name, dgraph, cfg, kernel, reps):
     check(torch.equal(warm, plain), f"{name}: K19's set-up differs from its plain version")
     cold = setup_bits(torch, setup.rank_setup(g_n, g_a, pr))
     check(not torch.equal(warm, cold), f"{name}: the window's own init started cold")
+    flags = setup_bits(torch, setup.rank_setup(g_n, g_a, pr, init=init, warm_flags=True))
+    check(torch.equal(warm, flags), f"{name}: K19's set-up differs from its flag design")
     for _ in range(REPEATS):
         check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr, init=init)), warm),
               f"{name}: K19's set-up is not repeatable")
@@ -6294,8 +6372,10 @@ def measure_k19(torch, name, dgraph, cfg, kernel, reps):
     check(torch.equal(setup_bits(torch, setup.rank_setup(g_n, g_a, pr, init=misses)), cold),
           f"{name}: an all-miss init is not the cold set-up")
     calls = {"warm": lambda: setup.rank_setup(g_n, g_a, pr, init=init),
+             "flags": lambda: setup.rank_setup(g_n, g_a, pr, init=init, warm_flags=True),
              "cold": lambda: setup.rank_setup(g_n, g_a, pr)}
-    turns = [(k, spin_event_ms(torch, calls[k], reps)) for k in ("cold", "warm", "warm", "cold")]
+    turns = [(k, spin_event_ms(torch, calls[k], reps))
+             for k in ("cold", "warm", "flags", "flags", "warm", "cold")]
     ms = {k: _mean([t for kk, t in turns if kk == k]) for k in calls}
     plain_ms = spin_event_ms(torch, lambda: setup.rank_setup_plain(g_n, g_a, pr, init), 3)
     nbytes, flops = setup_bound(torch, dgraph)
@@ -6303,14 +6383,137 @@ def measure_k19(torch, name, dgraph, cfg, kernel, reps):
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     return {
         "name": name, "form": plan.form, "cluster": plan.cluster,
-        "bitwise_vs_plain": True, "all_miss_bitwise_cold": True,
+        "bitwise_vs_plain": True, "bitwise_vs_flag_design": True, "all_miss_bitwise_cold": True,
         "bitwise_repeatable_launches": REPEATS,
         "ms": round(ms["warm"], 6), "cold_ms": round(ms["cold"], 6),
+        "flag_design_ms": round(ms["flags"], 6),
         "turns_ms": [[k, round(t, 6)] for k, t in turns],
         "plain_ms": round(plain_ms, 6),
         "bound_ms": round(max(bytes_ms, ops_ms), 6),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "max_abs_err": 0.0, "library_ms": None,
+    }
+
+
+def measure_setup_scales(torch, name, dgraph, cfg, reps):
+    """The int8 set-up at a staged window's (or stacked group's) shapes,
+    its pattern group built (``device_subset``): one launch that also
+    gives the first step's scales, against the set-up then
+    ``quantize_amax`` (the two launches the parent's program issued) and
+    the set-up without scales. Bitwise: the scaled launch's vectors the
+    cold set-up's, its scales ``quantize_amax``'s on those vectors and
+    the plain version's on the card, over 50 launches. Timed by CUDA
+    events behind a spin in turns (scaled, then_amax, cold, cold,
+    then_amax, scaled), with the host's issue time of each, beside the
+    plain version on the card and the byte bound (the set-up's bytes, the
+    four weight vectors read once, the scales written)."""
+    from microrank_tpu_torch.ops import pattern, setup
+
+    pr = cfg.pagerank
+    g_n, g_a = dgraph.normal, dgraph.abnormal
+    group = dgraph.pattern_group
+    got = setup.rank_setup(g_n, g_a, pr, scale_group=group)
+    cold = setup.rank_setup(g_n, g_a, pr)
+    check(torch.equal(setup_bits(torch, got[:2]), setup_bits(torch, cold)),
+          f"{name}: the scaled set-up's vectors differ from the set-up's")
+    (_, sv_n, rv_n), (_, sv_a, rv_a) = got[:2]
+    amax = pattern.quantize_scales(group, (rv_n, rv_a), (sv_n, sv_a))
+    check(torch.equal(bits(torch, got[2]), bits(torch, amax)),
+          f"{name}: the set-up's scales differ from quantize_amax's")
+    plain = setup.rank_setup_plain(g_n, g_a, pr, scale_group=group)
+    check(torch.equal(bits(torch, got[2]), bits(torch, plain[2]))
+          and torch.equal(setup_bits(torch, got[:2]), setup_bits(torch, plain[:2])),
+          f"{name}: the scaled set-up differs from its plain version")
+    first = torch.cat([setup_bits(torch, got[:2]), bits(torch, got[2]).reshape(-1)])
+    for _ in range(REPEATS):
+        again = setup.rank_setup(g_n, g_a, pr, scale_group=group)
+        check(torch.equal(torch.cat([setup_bits(torch, again[:2]),
+                                     bits(torch, again[2]).reshape(-1)]), first),
+              f"{name}: the scaled set-up is not repeatable")
+
+    def then_amax():
+        (_, s_n, r_n), (_, s_a, r_a) = setup.rank_setup(g_n, g_a, pr)
+        return pattern.quantize_scales(group, (r_n, r_a), (s_n, s_a))
+
+    calls = {"scaled": lambda: setup.rank_setup(g_n, g_a, pr, scale_group=group),
+             "then_amax": then_amax, "cold": lambda: setup.rank_setup(g_n, g_a, pr)}
+    order = ("scaled", "then_amax", "cold", "cold", "then_amax", "scaled")
+    turns = [(k, spin_event_host_ms(torch, calls[k], reps)) for k in order]
+    ms = {k: _mean([t[0] for kk, t in turns if kk == k]) for k in calls}
+    host = {k: _mean([t[1] for kk, t in turns if kk == k]) for k in calls}
+    plain_ms = spin_event_ms(
+        torch, lambda: setup.rank_setup_plain(g_n, g_a, pr, scale_group=group), 3)
+    nbytes, flops = setup_bound(torch, dgraph)
+    nbytes += 4 * sum(p.w_len.numel() + p.w_cov.numel() for p in group.parts)
+    nbytes += 4 * got[2].numel()
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    plan = setup._plan(int(g_n.kind.shape[-1]), int(g_a.kind.shape[-1]),
+                       int(g_n.kind.numel() // g_n.kind.shape[-1]),
+                       int(g_n.op_present.shape[-1]), g_n.kind.device.index, False)
+    return {
+        "name": name, "form": plan.form, "cluster": plan.cluster,
+        "scales": [float(x) for x in got[2].reshape(-1)],
+        "bitwise_vs_quantize_amax": True, "bitwise_vs_plain": True,
+        "bitwise_repeatable_launches": REPEATS,
+        "ms": round(ms["scaled"], 6), "then_amax_ms": round(ms["then_amax"], 6),
+        "cold_ms": round(ms["cold"], 6),
+        "host_ms": round(host["scaled"], 6), "then_amax_host_ms": round(host["then_amax"], 6),
+        "cold_host_ms": round(host["cold"], 6),
+        "turns_ms": [[k, round(t[0], 6), round(t[1], 6)] for k, t in turns],
+        "plain_ms": round(plain_ms, 6),
+        "bound_ms": round(max(bytes_ms, ops_ms), 6),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "max_abs_err": 0.0, "library_ms": None,
+    }
+
+
+def int8_program_turns(torch, dgraph, cfg, reps=10):
+    """The int8 kind rank program (``rank_window_traced_core``) with its
+    first scales from the set-up's launch (``scaled``), in turns with the
+    same program whose set-up is followed by a ``quantize_amax`` launch,
+    as the parent's program issued it (``then_amax``: ``rank_setup`` put
+    in place of the name ``torch_cuda`` calls): device ms by CUDA events
+    behind a ~100 ms spin (longer than the program's issue) and the
+    host's issue ms, medians over ``reps`` programs a turn (scaled,
+    then_amax, then_amax, scaled); the rankings bitwise."""
+    from microrank_tpu_torch.ops import pattern, setup
+    from microrank_tpu_torch.rank_backends import torch_cuda as tc
+
+    saved = tc.rank_setup
+
+    def then_amax(normal, abnormal, pr, init=None, scale_group=None):
+        out = saved(normal, abnormal, pr, init=init)
+        (_, sv_n, rv_n), (_, sv_a, rv_a) = out
+        return out + (pattern.quantize_scales(scale_group, (rv_n, rv_a), (sv_n, sv_a)),)
+
+    def program():
+        return tc.rank_window_traced_core(dgraph, cfg.pagerank, cfg.spectrum, "kind")
+
+    rows, want = [], None
+    try:
+        for side in ("scaled", "then_amax", "then_amax", "scaled"):
+            tc.rank_setup = saved if side == "scaled" else then_amax
+            before = (pattern.quantize_scales.launches, setup.rank_setup.scale_launches)
+            got = [x.cpu() for x in program()[:3]]
+            after = (pattern.quantize_scales.launches, setup.rank_setup.scale_launches)
+            check(after[0] - before[0] == (side == "then_amax")
+                  and after[1] - before[1] == (side == "scaled"),
+                  f"int8 program turns ({side}): launches {before} -> {after}")
+            if want is None:
+                want = got
+            check(all(torch.equal(bits(torch, x), bits(torch, y)) for x, y in zip(got, want)),
+                  f"int8 program turns ({side}): the ranking differs")
+            rows.append((side, spin_event_host_ms(torch, program, reps,
+                                                  cycles=PROGRAM_SPIN_CYCLES)))
+    finally:
+        tc.rank_setup = saved
+    return {
+        "turns_ms": [[k, round(t[0], 6), round(t[1], 6)] for k, t in rows],
+        **{f"{key}_ms": round(_mean([t[0] for k, t in rows if k == key]), 6)
+           for key in ("scaled", "then_amax")},
+        **{f"{key}_host_ms": round(_mean([t[1] for k, t in rows if k == key]), 6)
+           for key in ("scaled", "then_amax")},
+        "ranking_bitwise": True,
     }
 
 
@@ -7858,8 +8061,9 @@ def main(argv=None) -> int:
                 check(same, "pcsr: ranking is not bitwise the pinned pallas run's")
                 info["ranking_bitwise_vs_pallas"] = True
             emit(info)
-        # kind_precision="int8": auto, collapse on, resolves to kind; one
-        # scale launch and one int8 pair launch per step.
+        # kind_precision="int8": auto, collapse on, resolves to kind; the
+        # set-up's launch gives the first scales, one int8 pair launch per
+        # step.
         phase = "int8"
         graph, counts, res, info = phase_run(
             torch, spmv, pattern, case, normal, abnormal, "on", "auto", precision="int8",
@@ -8159,11 +8363,13 @@ def main(argv=None) -> int:
             "launches": stacked_launches("quantize_launches", int8_keys),
             "stacked_launches": stacked_launches("quantize_launches", int8_keys[1:]),
             "max_abs_err": int8["scale_max_abs_err"],
-            # One launch per int8 window now (the first step's scales;
-            # the step kernel takes every later step's). The launch alone
-            # (the four operands' maxima and scales); its bound reads the
-            # four operands and their weights once. No single PyTorch call
-            # computes the four scales: library_ms is null.
+            # Off the main paths: the set-up's launch gives the first
+            # step's scales (rank_setup's setup_scale_launches), the step
+            # kernel every later step's; kept for the set-up's turns and
+            # timed here alone (the four operands' maxima and scales); its
+            # bound reads the four operands and their weights once. No
+            # single PyTorch call computes the four scales: library_ms
+            # is null.
             "ms": int8["scale_ms"],
             "plain_ms": int8["scale_plain_ms"],
             "bound_ms": int8["scale_bound_ms"],
@@ -8329,28 +8535,42 @@ def main(argv=None) -> int:
             "bound_ms_config5_kind": k6_c5["setup"]["bound_ms"],
             "bound_by": k6["setup"]["bound_by"],
             "library_ms": None,
+            # The int8 instances (setup_rows<C, W, true>): the launches
+            # that gave a program's or group's first step's scales on the
+            # main paths, and at the config-5 int8 window one launch with
+            # the scales in turns with the set-up then quantize_amax and
+            # the set-up alone; the int8 program with each, in turns.
+            "scale_launches": sum(c["setup_scale_launches"] for c in launches.values()),
+            **{f"{key}_int8_config5": steps["kind_int8_setup_scales"][key]
+               for key in ("ms", "then_amax_ms", "cold_ms", "host_ms", "then_amax_host_ms",
+                           "plain_ms", "bound_ms")},
+            **{f"int8_program_{key}": steps["kind_int8_program"][key]
+               for key in ("scaled_ms", "then_amax_ms", "scaled_host_ms",
+                           "then_amax_host_ms")},
         },
         {
             "name": "rank_setup_warm",
             "route": "cuda",
             "source": "microrank_tpu_torch/csrc/rank_setup.cu",
             "replaces": "microrank_tpu/rank_backends/jax_tpu.py:1578",
-            # K19: the set-up's warm instances (setup_rows<C, true>,
-            # setup_grid<true>), one launch a warm program: the stream
-            # phase's warm_start and fused_pair windows started from the
-            # previous window's mapped state.
+            # K19: the set-up's keyed warm instances (setup_rows<C, true,
+            # S>, setup_grid<true, S>), one launch a warm program: the
+            # stream phase's warm_start and fused_pair windows started
+            # from the previous window's mapped state.
             "kernels": ["setup_rows", "setup_grid"],
             "launches": sum(c["setup_warm_launches"] for c in launches.values()),
             "max_abs_err": 0.0,
             # One launch at the 10M-span window's set-up shape (the grid
             # form), beside the config-5 kind window's (a block a row);
-            # cold_ms the cold set-up in turns. No single PyTorch call
-            # computes the set-up: library_ms null.
+            # cold_ms the cold set-up and flag_design_ms K19's first
+            # design (setup_rows_flags, setup_grid_flags) in turns. No
+            # single PyTorch call computes the set-up: library_ms null.
             **({} if k19["giant_10m"] is None else {
-                key: k19["giant_10m"][key] for key in ("ms", "cold_ms", "plain_ms",
-                                                       "bound_ms", "form")}),
+                key: k19["giant_10m"][key] for key in ("ms", "cold_ms", "flag_design_ms",
+                                                       "plain_ms", "bound_ms", "form")}),
             "ms_config5_kind": k19["config5_kind"]["ms"],
             "cold_ms_config5_kind": k19["config5_kind"]["cold_ms"],
+            "flag_design_ms_config5_kind": k19["config5_kind"]["flag_design_ms"],
             "plain_ms_config5_kind": k19["config5_kind"]["plain_ms"],
             "bound_ms_config5_kind": k19["config5_kind"]["bound_ms"],
             **({"ms": k19["config5_kind"]["ms"], "plain_ms": k19["config5_kind"]["plain_ms"],

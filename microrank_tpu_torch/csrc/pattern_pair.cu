@@ -1,8 +1,10 @@
 // K2 and K4 on Hopper: the coverage matvec pair of the kind and packed
 // power iterations, both partitions and both directions of a step in
-// one launch; and, for kind_precision="int8", the launch that finds a
-// window's first quantization scales (every later step's come from the
-// power-iteration step's kernel, csrc/power_step.cu, in its own pass).
+// one launch; and, for kind_precision="int8", a launch that finds a
+// window's quantization scales (`quantize_amax`), off the main path: the
+// set-up's launch writes the first step's scales (csrc/rank_setup.cu,
+// its kScales instances) and the power-iteration step's kernel every
+// later step's (csrc/power_step.cu, in its own pass).
 //
 // Replaces device programs that XLA wrote for the TPU in
 // microrank_tpu/rank_backends/jax_tpu.py (`_partition_setup`):
@@ -48,7 +50,8 @@
 // 1 us at 3.35 TB/s. What is left is latency: one global round trip for
 // the tile, one for the operands, a fence and an atomic, one round trip
 // per batch of a fold. int8 adds, per operand, a flush compare and one
-// division, and one scale launch per window.
+// division, and no launch of its own: the scales come with the set-up's
+// and the step's launches.
 //
 // The grid: one block of 256 threads per tile of kTileRows = 128 rows x
 // kTileCols = 512 columns (64 bytes of each row, 8 KB), the tiles of both
@@ -104,10 +107,12 @@
 // scales and resets the scratch for the next launch. A stacked group's
 // launch takes every window's four operands, a maximum and a scale per
 // operand and window (JAX's `quantize_i8` under vmap), so a window's NaN
-// or zeros reach its own scales only. The pair reads the
-// scales in stream order. A grid-wide barrier (a cooperative launch)
-// would fold this into the pair's launch; two plain launches were
-// chosen as the simple kernel that is right.
+// or zeros reach its own scales only. The main path no longer launches
+// it: the set-up's one launch folds the same keys of the start vectors
+// it writes (csrc/rank_setup.cu `amax_key`, `scale_of`, integer maxima
+// through its tree's barriers or its grid barrier, no scratch to reset),
+// the step kernel every later step's. It stays as ops/pattern.py
+// `quantize_scales` for the tests and the set-up's turns in chip_smoke.
 //
 // __fmul_rn / __fadd_rn / __fdiv_rn keep the compiler from contracting
 // into FMAs or approximating the division, so the plain version repeats

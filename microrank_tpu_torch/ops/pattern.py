@@ -32,13 +32,16 @@ Steps:
   — or, with ``band_bytes`` (packed_blocked), none: the plain version
   then unpacks one band of whole column tiles at a time, at most
   ``band_bytes`` of f32 (one tile where a tile alone is larger).
-* ``quantize_scales`` — once per int8 window, for the initial vectors:
-  the four operands' scales (``scale = amax > 0 ? amax / 127 : 1``,
-  amax = max |x * w| with subnormal products flushed to 0), one launch
-  of ``quantize_amax`` on CUDA tensors (counted in
-  ``quantize_scales.launches``), ``quantize_scales_plain`` on CPU ones.
-  Every later step's scales come from the power-iteration step that
-  writes the vectors (``ops.step.StepWindow``), in the same pass.
+* ``quantize_scales`` — the four operands' scales of given vectors
+  (``scale = amax > 0 ? amax / 127 : 1``, amax = max |x * w| with
+  subnormal products flushed to 0), one launch of ``quantize_amax`` on
+  CUDA tensors (counted in ``quantize_scales.launches``),
+  ``quantize_scales_plain`` on CPU ones. The rank program launches it
+  no more: the first step's scales come from the set-up's launch
+  (``ops.setup.rank_setup(..., scale_group=group)``, the same function
+  of the start vectors it writes), every later step's from the
+  power-iteration step that writes the vectors (``ops.step.StepWindow``),
+  in the same pass; it stays for the tests and chip_smoke's turns.
 * ``pattern_pair_group`` — every step: on CUDA tensors one launch
   computes both directions of every partition (counted in
   ``pattern_pair_group.launches``, K8's in ``.blocked_launches`` too,
@@ -49,9 +52,9 @@ Steps:
 
 A stacked group of B windows (``pattern_group`` of [B, V, C] bitmaps,
 K18) runs every kernel above with a window axis: one launch of the pair
-(or of K8 and its fold) a step for all B, one ``quantize_amax`` launch
-with a scale per operand and window ([B, 4]), each window's scratch its
-own; a window's bits are those of its own group.
+(or of K8 and its fold) a step for all B, ``quantize_amax`` (as the
+set-up's scales) with a scale per operand and window ([B, 4]), each
+window's scratch its own; a window's bits are those of its own group.
 
 The order of each f32 sum follows the kernel's tiles of ``TILE_R`` rows
 x ``TILE_C`` columns. y_fwd[r]: in each column tile, lane l (of 32) sums

@@ -21,6 +21,18 @@ K19, the warm start (JAX's ``_warm_override``, ``jax_tpu.py:1151``):
 side's masked maximum is > 0 (sv on the present ops, rv on the live
 columns), the cold vector where not: the same launch's warm instance on
 the card, ``warm_override_plain`` after the cold set-up on the CPU.
+``warm_flags=True`` launches K19's first design (flag bits) instead: a
+comparison, off the main path.
+
+The first step's int8 scales (JAX's ``quantize_i8``, ``jax_tpu.py:96``,
+of the int8 ``cov_pair``'s operands): ``rank_setup(...,
+scale_group=group)`` also returns, per partition, the scale of the fwd
+operand rv0 * w_len and of the bwd operand sv0 * w_cov (the pattern
+group's weights), [4] or [B, 4] for a stacked group, in
+``ops.pattern.quantize_scales_plain``'s order and bits: the same launch
+on the card (its kScales instances), ``quantize_scales_plain`` of the
+plain set-up's vectors on the CPU. On the card it launches the set-up
+or raises; it never falls back to the scale launch.
 
 ``rank_setup(normal, abnormal, cfg)`` gives both partitions' triples:
 on CPU tensors from ``rank_setup_plain`` (the port's eager code as it
@@ -53,6 +65,7 @@ from ..config import PageRankConfig
 from ..graph.structures import PartitionGraph
 from ..utils.build import BUILD_DIR, is_stale, run_build, tmp_output
 from .fold import MAX_WIDTH, TREE_HEADER, fold_rows
+from .pattern import FLT_MIN, PatternGroup, quantize_scales_plain
 from .spmv import nvcc
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rank_setup.cu"
@@ -131,28 +144,37 @@ def warm_override_plain(g: PartitionGraph, sv_cold: torch.Tensor, rv_cold: torch
     """One partition's start vectors under a warm init (JAX's
     ``_warm_override`` ``pick``): the init masked (sv to the present
     ops, rv to the live columns), each side the masked init where its
-    max is > 0, else its cold vector. Returns (sv, rv)."""
+    max is > 0, else its cold vector. The max is compared as XLA's CPU
+    compares it: a subnormal max counts as 0 (so at least ``FLT_MIN``),
+    and a NaN max fails. Returns (sv, rv)."""
     t_pad = g.kind.shape[-1]
     n_live = torch.where(g.n_cols < 0, g.n_traces, g.n_cols)
     sv = torch.where(g.op_present, sv_init, 0.0)
     rv = torch.where(torch.arange(t_pad, device=rv_init.device) < n_live, rv_init, 0.0)
-    return (sv if bool(sv.max() > 0) else sv_cold, rv if bool(rv.max() > 0) else rv_cold)
+    return (sv if bool(sv.max() >= FLT_MIN) else sv_cold,
+            rv if bool(rv.max() >= FLT_MIN) else rv_cold)
 
 
 def rank_setup_plain(normal: PartitionGraph, abnormal: PartitionGraph,
-                     cfg: PageRankConfig, init=None) -> Tuple[Setup, Setup]:
+                     cfg: PageRankConfig, init=None,
+                     scale_group: Optional[PatternGroup] = None):
     """Both partitions' set-up in plain PyTorch: the normal partition's
     preference without the anomaly, the abnormal one's with it; with a
     warm ``init`` (sv_n, rv_n, sv_a, rv_a), its start vectors
-    (``warm_override_plain``)."""
+    (``warm_override_plain``); with a ``scale_group``, the start vectors'
+    int8 scales after the two partitions (``quantize_scales_plain``)."""
     out = partition_setup_plain(normal, False, cfg), partition_setup_plain(abnormal, True, cfg)
-    if init is None:
+    if init is not None:
+        warm = []
+        for g, (pref, sv, rv), sv_i, rv_i in zip((normal, abnormal), out, init[0::2],
+                                                 init[1::2]):
+            sv, rv = warm_override_plain(g, sv, rv, sv_i, rv_i)
+            warm.append((pref, sv, rv))
+        out = tuple(warm)
+    if scale_group is None:
         return out
-    warm = []
-    for g, (pref, sv, rv), sv_i, rv_i in zip((normal, abnormal), out, init[0::2], init[1::2]):
-        sv, rv = warm_override_plain(g, sv, rv, sv_i, rv_i)
-        warm.append((pref, sv, rv))
-    return tuple(warm)
+    (_, sv_n, rv_n), (_, sv_a, rv_a) = out
+    return out + (quantize_scales_plain(scale_group, (rv_n, rv_a), (sv_n, sv_a)),)
 
 
 class KernelConfig(NamedTuple):
@@ -165,6 +187,7 @@ class KernelConfig(NamedTuple):
     tile: int             # columns a tile (csrc kTile)
     hold_max: int         # tiles a block of the grid form holds (kHoldMax)
     cluster_max: int      # tiles a row of the rows form (kClusterMax)
+    keys: int = 6         # the keyed grid instances' words a row and block (kKeys)
 
     @property
     def first_blocks(self) -> int:
@@ -179,7 +202,7 @@ class KernelConfig(NamedTuple):
 
 # What an H100 SXM gives (132 SMs; one 1024-thread block an SM with the
 # held tiles; 5 blocks of the first design): the CPU tests' card.
-H100 = KernelConfig(True, 132, 5, 1, TILE, 6, 8)
+H100 = KernelConfig(True, 132, 5, 1, TILE, 6, 8, 6)
 
 # The forms of a launch (csrc ``Form``): a block or a cluster of blocks a
 # (partition, window) row; a cooperative grid holding the live tiles;
@@ -241,7 +264,7 @@ def kernel_config(device) -> KernelConfig:
     index = torch.cuda.current_device() if index is None else index
     if index not in _configs:
         lib = load_library()
-        out = (ctypes.c_int32 * 9)()
+        out = (ctypes.c_int32 * 10)()
         rc = lib.mr_rank_setup_config(index, out)
         if rc != 0:
             raise RuntimeError(
@@ -250,7 +273,7 @@ def kernel_config(device) -> KernelConfig:
         if out[4] != TILE or out[7] != ARGS.size // 8 or out[8] != STAMPS:
             raise RuntimeError("rank_setup: the library's tile or argument block is not the "
                                "wrapper's")
-        cfg = KernelConfig(bool(out[0]), *out[1:7])
+        cfg = KernelConfig(bool(out[0]), *out[1:7], out[9])
         if not cfg.cooperative or cfg.first_blocks < 1 or cfg.grid_blocks < 1:
             raise RuntimeError(
                 f"rank_setup: {torch.cuda.get_device_name(index)} takes no cooperative launch "
@@ -296,8 +319,10 @@ def _check(normal: PartitionGraph, abnormal: PartitionGraph) -> Tuple[int, int]:
 # The argument block of ``mr_rank_setup_launch`` (csrc ``Word``): each
 # partition's nine pointers and trace pad, then windows, v, phi's float32
 # bits, paper, form, cluster, grid, hold, partial, stamps, device,
-# stream, K19's four init vectors (or 0) and the grid form's warm flags.
-ARGS = struct.Struct("<37q")
+# stream, K19's four init vectors (or 0), the grid form's words (keys or
+# flags), the int8 scales' four weight vectors (or 0) and output, and
+# K19's flag design (0 or 1).
+ARGS = struct.Struct("<43q")
 # The phases a launch stamps (csrc kStamps): the rows form its start,
 # its columns in registers, its tile's nodes, the row's sums, its
 # writes; the grid form its start, phase 1, sv0, the barrier, phase 2.
@@ -333,9 +358,31 @@ def _check_init(normal: PartitionGraph, abnormal: PartitionGraph, init) -> None:
                              f"{normal.kind.device}")
 
 
+def _check_scale_group(normal: PartitionGraph, abnormal: PartitionGraph,
+                       group: PatternGroup) -> None:
+    """The int8 scales' weights as the kernel reads them: the pattern
+    group of both partitions (kind, no ``w_out``), its windows the
+    partitions', each part's w_len [(B,) T] and w_cov [(B,) V] contiguous
+    float32 on the partitions' device."""
+    lead = tuple(normal.kind.shape[:-1])
+    if len(group.parts) != 2 or group.windows != (lead[0] if lead else None):
+        raise ValueError("rank_setup: the scales take a pattern group of both partitions and "
+                         "the partitions' windows")
+    v = normal.op_present.shape[-1]
+    for g, part in zip((normal, abnormal), group.parts):
+        for w, n in ((part.w_len, g.kind.shape[-1]), (part.w_cov, v)):
+            if (w.shape != lead + (n,) or w.dtype != torch.float32 or not w.is_contiguous()
+                    or w.device != normal.kind.device):
+                raise ValueError(f"rank_setup: the scales' weights must be contiguous float32 "
+                                 f"{lead + (n,)} on {normal.kind.device}")
+        if part.w_out is not None:
+            raise ValueError("rank_setup: int8 scales are the kind pattern's (no w_out)")
+
+
 def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
                cfg: PageRankConfig, first_design: bool = False,
-               stamps: Optional[torch.Tensor] = None, init=None) -> Tuple[Setup, Setup]:
+               stamps: Optional[torch.Tensor] = None, init=None,
+               scale_group: Optional[PatternGroup] = None, warm_flags: bool = False):
     """``rank_setup_plain``'s results: CPU tensors run it; CUDA tensors
     launch the set-up once for both partitions (and every window of a
     stacked group), in the form ``setup_plan`` picks, or raise.
@@ -344,17 +391,26 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
     where the rows and grid forms write the SM cycle count at each phase
     of their first block (a measurement; None on the main path). ``init``:
     K19's mapped (sv_n, rv_n, sv_a, rv_a) of one window, launched by the
-    rows or grid form's warm instance (the first design has none). The vectors are
-    views of one fresh allocation, each
-    contiguous. The host side is one check of the fields, one
-    allocation, and one call with one packed argument block."""
+    rows or grid form's warm instance (the first design has none);
+    ``warm_flags``: by K19's first design (a comparison). ``scale_group``:
+    the int8 pattern group whose weights make the first step's operands;
+    its scales ([4], or [B, 4]) come after the two partitions' triples.
+    The vectors are views of one fresh allocation, each contiguous. The
+    host side is one check of the fields, one allocation, and one call
+    with one packed argument block."""
     dev = normal.kind.device
     if init is not None:
         _check_init(normal, abnormal, init)
         if first_design:
             raise ValueError("rank_setup: the first design has no warm instance")
+    elif warm_flags:
+        raise ValueError("rank_setup: K19's flag design takes a warm init")
+    if scale_group is not None:
+        _check_scale_group(normal, abnormal, scale_group)
+        if first_design or warm_flags:
+            raise ValueError("rank_setup: the first designs give no int8 scales")
     if dev.type == "cpu":
-        return rank_setup_plain(normal, abnormal, cfg, init)
+        return rank_setup_plain(normal, abnormal, cfg, init, scale_group)
     if dev.type != "cuda":
         raise ValueError(f"rank_setup: unsupported device {dev}")
     if cfg.preference not in PREFERENCES:
@@ -364,16 +420,23 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
     index = dev.index
     plan = _plan(t_n, t_a, windows, v, index, first_design)
     # pref, rv0 (t_pad each), sv0 (v) per partition, then the tile nodes
-    # (the grid form's and the first design's).
-    # With a warm init the grid form also takes its flag words (int32):
-    # one a tree item, two a block.
-    flags = plan.tree_items + 2 * plan.grid if init is not None and plan.form == "grid" else 0
+    # (the grid form's and the first design's), the grid form's words
+    # (32 bits each: the flag design's, one a tree item and two a block;
+    # else with a warm init or scales, kKeys a row and block) and the
+    # scales.
+    words = 0
+    if plan.form == "grid" and init is not None and warm_flags:
+        words = plan.tree_items + 2 * plan.grid
+    elif plan.form == "grid" and (init is not None or scale_group is not None):
+        words = 2 * windows * kernel_config(index).keys * plan.grid
+    n_scales = 4 * windows if scale_group is not None else 0
     sizes = (windows * t_n, windows * t_n, windows * v, windows * t_a, windows * t_a,
-             windows * v, 0 if plan.form == "rows" else 2 * plan.tree_items, flags)
+             windows * v, 0 if plan.form == "rows" else 2 * plan.tree_items, words, n_scales)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     views = torch.split_with_sizes(flat, sizes)
-    if normal.kind.dim() > 1:
-        views = [t.view(windows, n) for t, n in zip(views[:6], (t_n, t_n, v, t_a, t_a, v))]
+    if normal.kind.dim() > 1:  # the vectors and scales [B, .]
+        widths = (t_n, t_n, v, t_a, t_a, v, None, None, 4 if n_scales else None)
+        views = [t if n is None else t.view(windows, n) for t, n in zip(views, widths)]
     at = flat.data_ptr()
     ptrs = []
     for n in sizes:
@@ -381,21 +444,23 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
         at += 4 * n
     # The fields as the kernel reads them (a converted copy is held here
     # until the call has taken its pointer).
-    words, fields = [], []
+    words_, fields = [], []
     for g, out, t_pad in ((normal, ptrs[0:3], t_n), (abnormal, ptrs[3:6], t_a)):
         part = [as_kernel_field(g.kind), as_kernel_field(g.tracelen), as_kernel_field(g.n_cols),
                 as_kernel_field(g.n_traces), as_kernel_field(g.n_ops),
                 as_kernel_field(g.op_present, torch.bool)]
         fields += part
-        words += [f.data_ptr() for f in part] + [out[0], out[1], out[2], t_pad]
+        words_ += [f.data_ptr() for f in part] + [out[0], out[1], out[2], t_pad]
+    weights = ([0] * 4 if scale_group is None else
+               [w.data_ptr() for p in scale_group.parts for w in (p.w_len, p.w_cov)])
     lib = load_library()
     rc = lib.mr_rank_setup_launch(ARGS.pack(
-        *words, windows, v, f32_bits(cfg.phi), int(cfg.preference == "paper"),
+        *words_, windows, v, f32_bits(cfg.phi), int(cfg.preference == "paper"),
         FORMS.index(plan.form), plan.cluster, plan.grid, plan.hold,
         ptrs[6] if sizes[6] else 0, 0 if stamps is None else stamps.data_ptr(), index,
         torch._C._cuda_getCurrentRawStream(index),
         *([0] * 4 if init is None else [t.data_ptr() for t in init]),
-        ptrs[7] if flags else 0))
+        ptrs[7] if words else 0, *weights, ptrs[8] if n_scales else 0, int(warm_flags)))
     if rc != 0:
         raise RuntimeError(
             f"rank_setup launch failed: {lib.mr_rank_setup_error_string(rc).decode()}"
@@ -403,13 +468,19 @@ def rank_setup(normal: PartitionGraph, abnormal: PartitionGraph,
     rank_setup.launches += 1
     if init is not None:
         rank_setup.warm_launches += 1
-    return (views[0], views[2], views[1]), (views[3], views[5], views[4])
+    out = (views[0], views[2], views[1]), (views[3], views[5], views[4])
+    if scale_group is None:
+        return out
+    rank_setup.scale_launches += 1
+    return out + (views[8],)
 
 
-# Launches of the set-up kernel, and of those its warm instance (K19)
-# (plain ints; rank_setup is the one place that launches it).
+# Launches of the set-up kernel, of those its warm instance (K19), and
+# of those that gave the first step's int8 scales (plain ints;
+# rank_setup is the one place that launches it).
 rank_setup.launches = 0
 rank_setup.warm_launches = 0
+rank_setup.scale_launches = 0
 
 
 def build_command(out: Path) -> List[str]:

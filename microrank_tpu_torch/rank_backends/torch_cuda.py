@@ -37,9 +37,10 @@ partitions) take one or two launches, built for the window by
   kind columns or of the traces), then both call-graph terms over the
   call-edge list in one K1 call. ``kind`` with
   ``kind_precision="int8"`` quantizes its operands with four scales per
-  step: the first step's from one launch per window
-  (``ops.pattern.quantize_scales``), every later step's from the step
-  kernel below, in its own pass. ``packed_blocked`` is
+  step: the first step's from the set-up's launch
+  (``ops.setup.rank_setup(..., scale_group=...)``, which reads the
+  pattern group's weights beside the start vectors it writes), every
+  later step's from the step kernel below, in its own pass. ``packed_blocked`` is
   ``packed``'s function (f32) on windows whose unpacked matrices exceed
   the dense budget, through K8's own kernel (a group built with
   ``blocked=True``: per set bit, a block per column tile); neither
@@ -118,7 +119,7 @@ preference vector's two, the finish's total) follow the pairwise tree
 of ``ops.fold`` (``csrc/tree_fold.cuh``, inside both kernels), in an
 order fixed by each row's live length, so a window's bits in a group
 are its own program's on every device. Every kernel runs stacked: kind (f32,
-bf16, int8: ``quantize_amax`` and the step give [B, 4] scales, each
+bf16, int8: the set-up and the step give [B, 4] scales, each
 window's own), packed, packed_bf16, packed_blocked (K8 with a window
 axis; the plain version's bands within ``packed_block_bytes`` divided
 by B, ``divide_block_budget``), pcsr (one slab of the B windows' rows
@@ -161,7 +162,7 @@ from ..ops.epilogue import (  # noqa: F401
     window_spectrum,
 )
 from ..ops.explain import Explained, explain_epilogue
-from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group, quantize_scales
+from ..ops.pattern import PatternGroup, pattern_group, pattern_pair_group
 from ..ops.scan import ScanGroup, csr_scan_spmv, scan_group
 from ..ops.setup import partition_setup_plain, rank_setup
 from ..ops.step import StepWindow, step_plan, step_scratch
@@ -948,11 +949,6 @@ def _rank_program(
     windows = stacked_windows(graph)
     lead = () if windows is None else (windows,)
     int8 = kernel == "kind" and cfg.kind_precision == "int8"
-    if init is None:
-        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg)
-    else:
-        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg,
-                                                                init=init)
     pattern_route = kernel in PATTERN_KERNELS
     if (
         not isinstance(graph.spmv_group, _step_group_type(kernel))
@@ -962,6 +958,18 @@ def _rank_program(
         graph = device_subset(graph, kernel, cfg.packed_block_bytes)
     group = graph.spmv_group
     pgroup = graph.pattern_group
+    # The set-up: one call for both partitions; with int8 it also gives
+    # the first step's operand scales from the pattern group's weights
+    # (every later step's come from the step that writes its vectors).
+    scales = None
+    if init is None and not int8:
+        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg)
+    elif not int8:
+        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a) = rank_setup(graph.normal, graph.abnormal, cfg,
+                                                                init=init)
+    else:
+        (pref_n, sv_n, rv_n), (pref_a, sv_a, rv_a), scales = rank_setup(
+            graph.normal, graph.abnormal, cfg, init=init, scale_group=pgroup)
     if not pattern_route:
         if kernel == "pcsr":
             six = pcsr_spmv_group
@@ -1002,9 +1010,6 @@ def _rank_program(
         cfg.max_normalize_each_iter, graph.step_scratch, pgroup if int8 else None,
     )
     carry = ((sv_n, rv_n), (sv_a, rv_a))
-    # int8: the first step's operand scales here, once; every later
-    # step's come from the step that writes its vectors.
-    scales = quantize_scales(pgroup, (rv_n, rv_a), (sv_n, sv_a)) if int8 else None
     residuals = torch.zeros(lead + (2, n_steps), dtype=torch.float32, device=dev)
     n_iters = running = None
     if cfg.tol is not None:

@@ -21,7 +21,7 @@ import torch
 
 from microrank_tpu_torch.config import PageRankConfig, SpectrumConfig
 from microrank_tpu_torch.graph.table_ops import build_window_graph_from_table
-from microrank_tpu_torch.ops import pattern, spmv, step
+from microrank_tpu_torch.ops import pattern, setup, spmv, step
 from microrank_tpu_torch.parallel import stack_window_graphs
 from microrank_tpu_torch.rank_backends import torch_cuda
 from microrank_tpu_torch.rank_backends.convert import graph_from_numpy
@@ -193,7 +193,8 @@ def launch_counts():
     return (spmv.coo_spmv.launches, pattern.pattern_pair_group.launches,
             step.power_step.launches, spmv.pcsr_spmv_group.launches,
             pattern.pattern_pair_group.blocked_launches,
-            pattern.pattern_pair_group.fold_launches, pattern.quantize_scales.launches)
+            pattern.pattern_pair_group.fold_launches, pattern.quantize_scales.launches,
+            setup.rank_setup.scale_launches)
 
 
 @pytest.mark.parametrize("kernel,precision,aux,collapse", PROGRAM_ROUTES, ids=PROGRAM_IDS)
@@ -208,13 +209,14 @@ def test_stacked_program_on_the_card_is_bitwise_each_window(
     torch.cuda.synchronize()
     made = tuple(a - b for a, b in zip(launch_counts(), before))
     # One window's launches for the whole group: K1, the pair, K5, pcsr,
-    # K8, its fold, the first step's int8 scales.
+    # K8, its fold, no scale launch, and the set-up's launches that gave
+    # the first step's int8 scales.
     n = cfg.iterations
     want = {
-        "pallas": (n, 0, n, 0, 0, 0, 0),
-        "pcsr": (0, 0, n, n, 0, 0, 0),
-        "packed_blocked": (n, n, n, 0, n, n, 0),
-    }.get(kernel, (n, n, n, 0, 0, 0, int(precision == "int8")))
+        "pallas": (n, 0, n, 0, 0, 0, 0, 0),
+        "pcsr": (0, 0, n, n, 0, 0, 0, 0),
+        "packed_blocked": (n, n, n, 0, n, n, 0, 0),
+    }.get(kernel, (n, n, n, 0, 0, 0, 0, int(precision == "int8")))
     assert made == want
     for b, graph in enumerate(graphs):
         one = device_subset(graph_from_numpy(host_subset(graph, kernel), cuda_device), kernel)

@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from microrank_tpu_torch.config import MicroRankConfig, PageRankConfig, RuntimeConfig
-from microrank_tpu_torch.ops import pattern, spmv, step
+from microrank_tpu_torch.ops import pattern, setup, spmv, step
 from microrank_tpu_torch.testing import SyntheticConfig, generate_case
 from microrank_tpu_torch.utils.ranking_compare import tie_aware_topk_agreement
 
@@ -596,14 +596,15 @@ def test_int8_lane_on_cuda_matches_cpu(cuda_device, tmp_path, collapse):
         runtime=RuntimeConfig(kernel="kind", collapse_kinds=collapse),
     )
     pattern.quantize_scales.launches = pattern.pattern_pair_group.launches = 0
-    step.power_step.launches = 0
+    step.power_step.launches = setup.rank_setup.scale_launches = 0
     gpu = [r for r in run_rca_native(normal, abnormal, cfg, device="cuda") if r.ranking]
     cpu = [r for r in run_rca_native(normal, abnormal, cfg, device="cpu") if r.ranking]
     assert gpu and gpu[0].ranking[0][0] == case.fault_pod_op
-    # One scale launch per window (the first step's scales; the step
-    # kernel takes every later step's), one int8 pair launch and one
-    # step launch per step.
-    assert pattern.quantize_scales.launches == len(gpu)
+    # No scale launch: the set-up's launch gives the first step's scales
+    # (one a window) and the step kernel every later step's; one int8
+    # pair launch and one step launch per step.
+    assert pattern.quantize_scales.launches == 0
+    assert setup.rank_setup.scale_launches == len(gpu)
     assert pattern.pattern_pair_group.launches == 25 * len(gpu)
     assert step.power_step.launches == 25 * len(gpu)
     # The kernels are bitwise their plain versions; the rest of the rank

@@ -315,8 +315,9 @@ def test_setup_plan_refuses_what_the_kernel_does_not_take(t_pads, windows, v):
 
 def test_setup_argument_block_is_the_library_words():
     # csrc Word: 2 x 10 partition words, then 12 more, then K19's four
-    # init vectors and the grid form's flag words.
-    assert setup.ARGS.size == 8 * 37
+    # init vectors and the grid form's words, the int8 scales' four
+    # weights and output, and K19's flag design.
+    assert setup.ARGS.size == 8 * 43
     assert setup.f32_bits(0.5) == 0x3F000000 and setup.f32_bits(0.1) == 0x3DCCCCCD
 
 

@@ -628,12 +628,16 @@ def test_fused_int8_scales_are_bitwise_plain_at_every_step(cuda_device, monkeypa
                 seen.append(torch.equal(bits(scales), bits(want)))
             return new, scales
 
-    before = pattern.quantize_scales.launches
+    from microrank_tpu_torch.ops import setup
+
+    before = pattern.quantize_scales.launches, setup.rank_setup.scale_launches
     monkeypatch.setattr(torch_cuda, "StepWindow", Checked)
     window_weights_full(dgraph, cfg, "kind")
     torch.cuda.synchronize()
     assert seen == [True] * 24  # every step but the last gives the next one's
-    assert pattern.quantize_scales.launches - before == 1  # the first step's, once
+    # The first step's, once, from the set-up's launch (no scale launch).
+    assert (pattern.quantize_scales.launches - before[0],
+            setup.rank_setup.scale_launches - before[1]) == (0, 1)
 
 
 @pytest.mark.cuda

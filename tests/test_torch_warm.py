@@ -161,8 +161,9 @@ def test_an_all_miss_init_is_the_cold_program(windows):
 
 def test_the_override_masks_as_jax(windows):
     """Mass on absent ops and padding columns is dropped; a side whose
-    live init is all 0 (or holds a NaN) starts cold; the other side
-    starts warm."""
+    live init is all 0 (or holds a NaN, or is subnormal: XLA's CPU
+    compares a subnormal max as 0) starts cold; the other side starts
+    warm."""
     import jax.numpy as jnp
 
     from microrank_tpu.rank_backends.jax_tpu import _warm_override
@@ -179,6 +180,8 @@ def test_the_override_masks_as_jax(windows):
                       gen.random(ta).astype(np.float32)],
         "nan": [np.full(v, np.nan, np.float32), gen.random(tn).astype(np.float32),
                 gen.random(v).astype(np.float32), np.zeros(ta, np.float32)],
+        "subnormal": [gen.random(v).astype(np.float32), np.full(tn, 1e-41, np.float32),
+                      np.full(v, -1e-41, np.float32), np.full(ta, 1e-41, np.float32)],
     }
     cfg = PageRankConfig()
     cold = rank_setup(pg.normal, pg.abnormal, cfg)
